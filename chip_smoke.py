@@ -3,46 +3,62 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from the sources in this checkout, holds each
-against its plain PyTorch version on the card, drives the port's inference
-path at GPT-2 124M width (random weights, seed 0) through the entry points a
-user calls, checks that the path went through the kernels, and times them.
-Imports nothing of JAX. Prints JSON lines as it goes; any failed check
-raises, so the exit code is non-zero and the final line is never printed.
+Builds the port's CUDA kernels from the sources in this checkout (one nvcc
+per source, in parallel), holds each against its plain PyTorch version on
+the card, drives the port's inference and training paths at GPT-2 124M width
+(random weights, fixed seeds) through the entry points a user calls, checks
+that each path went through the kernels, and times them. Imports nothing of
+JAX. Prints JSON lines as it goes; any failed check raises, so the exit
+code is non-zero and the final line is never printed.
 
 Phases:
-  0. setup: the card's name and power limit, TF32 off, the kernel build;
-  1. every kernel against its plain version at the main path's shapes and
-     the edge cases (GQA, a window narrower than a tile, softcap, ragged T);
+  0. setup: the card's name and power limit, TF32 off, the kernel builds;
+  1. every kernel against its plain version at the main paths' shapes
+     (generation at batch 4, the train step at batch 16) and the edge cases
+     (GQA, a window narrower than a tile, softcap, ragged T): the forward
+     (flash_fwd) and the backward (flash_bwd: dq and dk/dv);
   2. the GPT forward at GPT-2 124M width: flash kernel vs plain attention;
-  3. generation at the same width: sliding window (the main path: each new
-     token re-forwards the window, one kernel launch per layer) and
-     KV-cached decode (no kernel), then the sample entry point;
-  4. times: kernel, plain version, bound and library yardstick; tokens/s;
-     peak device memory.
+     the GPT gradients through the kernels vs plain attention;
+  3. generation at the same width: sliding window (one forward kernel launch
+     per layer per token) and KV-cached decode (no kernel), then the sample
+     entry point;
+  4. training, this slice's main path: the train step at the bench shape
+     (GPT-2 124M, T=1024, batch 16, bf16, no dropout), 12 forward, 12 dq and
+     12 dk/dv launches per step; then the train entry point on the corpus
+     (loss falls, eval, snapshot, resume);
+  5. times: kernels, plain versions, bounds and library yardsticks; peak
+     device memory.
 The last three lines are the card, the kernels line and the ok line.
 Exits 2 without CUDA, 1 on any failure.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
 import torch.nn.functional as F
 
+from mingpt_distributed_tpu_torch.training.metrics import H100_SXM
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM published peaks (NVIDIA data sheet; dense): the bound of a kernel
-# is the larger of its bytes over the memory rate and its operations over
-# the peak rate of its input type.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+# H100 SXM published peaks (the port's table, training/metrics.py): the
+# bound of a kernel is the larger of its bytes over the memory rate and its
+# operations over the peak rate of its input type.
+HBM_BYTES_PER_S = H100_SXM["hbm_bytes_per_s"]
+PEAK_FLOPS = {torch.bfloat16: H100_SXM["bfloat16"],
+              torch.float32: H100_SXM["float32"]}
 
 # Tolerances of kernel vs plain version, max |out difference|:
 #  bf16: both read the same bf16 inputs and work in float32; the output is
@@ -63,6 +79,25 @@ OUT_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 OUT_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 # lse is float32 from the same (bf16 or fp32) inputs in both: 1e-4.
 LSE_TOL = 1e-4
+# Backward kernels vs flash_bwd_plain, on the same q, k, v, out, lse, dO
+# (out and lse from flash_fwd_plain), for each of dq, dk, dv:
+#  bf16: max |diff| <= 2^-7 * max(1, max |g|): one bf16 step at the largest
+#        gradient (8 significant bits: a value in [2^e, 2^(e+1)) has a step
+#        of 2^(e-7) <= 2^-7 |g|). The output is rounded to bf16 and the
+#        kernel rounds P and dS to bf16 before its products (relative 2^-9
+#        per term, partly cancelling over the sum), so a value can land one
+#        step from the plain version's. Mean |diff| / mean |g| <= 1e-2
+#        (the forward's: expected 2e-3..4e-3).
+#  fp32: float32 sums in different orders and exp2 vs exp of the same
+#        exponent (~1e-7 relative per operation over up to T terms): max
+#        |diff| 1e-4, mean |diff| / mean |g| 1e-5.
+# The mean ratio is held where the gradient is not zero: at T=1, dq and dk
+# are exactly 0 (one key: p = 1 and dp = delta), both versions return
+# rounding noise (max |g| < 1e-5) and only the max is held.
+GRAD_TOL_X = {torch.bfloat16: 2.0 ** -7}
+GRAD_TOL = {torch.float32: 1e-4}
+GRAD_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+ZERO_GRAD_MAX = 1e-5
 # GPT-2 forward, fp32: flash kernel vs plain attention through 12 layers.
 FWD_FP32_TOL = 1e-3
 # GPT-2 forward, bf16. At random init the logits are nearly tied, so bf16
@@ -81,6 +116,27 @@ FWD_BF16_MIN_POSITIONS = 100
 # ... and its mean |logit error| against fp32 may exceed the plain bf16
 # path's by at most 25%.
 FWD_BF16_ERR_RATIO = 1.25
+# GPT-2 gradients (T=1024, batch 2, loss-only mode), every parameter:
+#  fp32: kernels vs plain attention, ||dg|| / ||g|| <= 1e-4 per parameter:
+#        float32 sums in other orders, carried back through 12 layers
+#        (expected 1e-6..1e-5). Not for blocks/bk, whose gradient is 0 in
+#        exact arithmetic (a key bias adds the same q.b to every score of a
+#        row, which the softmax ignores), so both paths return rounding
+#        noise (first card run: relative "error" 1.79); it is held, with
+#        every other parameter, by ||dg|| / ||g|| <= 1e-4 over the whole
+#        gradient;
+#  bf16: the kernel path's mean |g - g_fp32| over all parameters, against
+#        the fp32 plain path's gradients, may exceed the plain bf16 path's
+#        by at most 25% (the forward's gate).
+GRAD_FP32_REL_TOL = 1e-4
+ZERO_GRAD_PARAMS = ("blocks/bk",)
+GRAD_BF16_ERR_RATIO = 1.25
+# The train entry point on the corpus at GPT-2 width (block 1024, batch 16,
+# no dropout): over its first 30 steps the loss must fall by at least 0.5
+# (step 1 sits near ln(vocab) ~ 4.2; character statistics alone take it
+# under 3.3).
+ENTRY_STEPS = 30
+ENTRY_LOSS_DROP = 0.5
 
 
 class SmokeFailure(RuntimeError):
@@ -123,7 +179,8 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 # phase 1: kernel vs plain version
 # ---------------------------------------------------------------------------
 
-# name, B, T, H, KV, hd, window, softcap
+# name, B, T, H, KV, hd, window, softcap; gpt2_train is the shape the
+# training main path (the bench-shape train step) gives every kernel
 KERNEL_CASES = [
     ("gpt2_main", 4, 1024, 12, 12, 64, None, None),
     ("gqa_h8_kv2_hd128", 2, 512, 8, 2, 128, None, None),
@@ -133,6 +190,7 @@ KERNEL_CASES = [
     ("ragged_t1", 2, 1, 12, 12, 64, None, None),
     ("hd16_t200", 2, 200, 4, 4, 16, None, None),
     ("hd32_gqa_window100_softcap30", 2, 300, 8, 4, 32, 100, 30.0),
+    ("gpt2_train", 16, 1024, 12, 12, 64, None, None),
 ]
 
 
@@ -144,19 +202,32 @@ def make_qkv(b, t, h, kv, hd, dtype, seed):
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
-def attention_work(b, t, h, hd, window, dtype):
-    """(bytes, operations) the causal attention forward must move and do:
-    q, k, v read once, out and lse written once; two products of 2*hd
-    operations for every (query, allowed key) pair."""
+def attention_work(b, t, h, hd, window, dtype, kernel="flash_fwd", kv=None):
+    """(bytes, operations) a kernel must move and do, each input read once
+    and each output written once, for every (query, allowed key) pair:
+      flash_fwd:     reads q, k, v; writes out, lse (fp32); 2 products;
+      flash_bwd_dq:  reads q, k, v, dO, lse, delta; writes dq; 3 products
+                     (S, dP, dS K);
+      flash_bwd_dkv: reads q, k, v, dO, lse, delta; writes dk, dv; 4
+                     products (S, dP, P^T dO, dS^T Q);
+    each product 2*hd operations per pair."""
+    kv = h if kv is None else kv
     if window is None:
         pairs = t * (t + 1) // 2
     else:
         w = min(window, t)
         pairs = w * (w + 1) // 2 + (t - w) * w
     elem = torch.finfo(dtype).bits // 8
-    nbytes = 4 * b * t * h * hd * elem + b * h * t * 4
-    flops = 4 * b * h * hd * pairs
-    return nbytes, flops
+    q_elems = b * t * h * hd  # q, out, dO, dq
+    kv_elems = b * t * kv * hd  # k, v, dk, dv
+    vec = b * h * t * 4  # one float32 per (batch, head, query)
+    if kernel == "flash_fwd":
+        nbytes, products = (2 * q_elems + 2 * kv_elems) * elem + vec, 2
+    elif kernel == "flash_bwd_dq":
+        nbytes, products = (3 * q_elems + 2 * kv_elems) * elem + 2 * vec, 3
+    else:
+        nbytes, products = (2 * q_elems + 4 * kv_elems) * elem + 2 * vec, 4
+    return nbytes, 2 * products * b * h * hd * pairs
 
 
 def bound_ms(nbytes, flops, dtype):
@@ -207,7 +278,79 @@ def phase_kernels(fa):
             check(errs["lse_max_abs_err"] <= LSE_TOL,
                   f"{name} {dt}: max |lse diff| {errs['lse_max_abs_err']} > "
                   f"{LSE_TOL}")
-            results[(name, dtype)] = (q, k, v, err)
+            results[(name, dtype)] = err
+    return results
+
+
+def bwd_kernel_errors(fa, q, k, v, do, *, scale, window, softcap):
+    """Run both backward kernels and their plain version on the same
+    inputs; return each gradient's max and mean relative difference."""
+    out, lse = fa.flash_fwd_plain(q, k, v, scale=scale, window=window,
+                                  softcap=softcap)
+    got = fa.flash_bwd(q, k, v, out, lse, do, scale=scale, window=window,
+                       softcap=softcap)
+    torch.cuda.synchronize()
+    want = fa.flash_bwd_plain(q, k, v, out, lse, do, scale=scale,
+                              window=window, softcap=softcap)
+    errs = {}
+    for name, g, r, x in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        check(g.shape == x.shape and g.dtype == x.dtype,
+              f"{name} {tuple(g.shape)} {g.dtype}")
+        check(bool(torch.isfinite(g.float()).all()), f"non-finite {name}")
+        diff = (g.float() - r.float()).abs()
+        errs[f"{name}_max_abs_err"] = diff.max().item()
+        errs[f"{name}_mean_rel_err"] = (
+            diff.mean() / r.float().abs().mean().clamp_min(1e-30)).item()
+        errs[f"{name}_max_abs"] = r.float().abs().max().item()
+    return errs
+
+
+def grad_tol(dtype, max_abs):
+    if dtype in GRAD_TOL_X:
+        return GRAD_TOL_X[dtype] * max(1.0, max_abs)
+    return GRAD_TOL[dtype]
+
+
+def bwd_case(fa, i, case, dtype):
+    """Backward check case ``i`` of KERNEL_CASES in ``dtype``: its record
+    (errors and tolerances) and the (gradient, message) of every check it
+    fails."""
+    name, b, t, h, kv, hd, window, cap = case
+    q, k, v = make_qkv(b, t, h, kv, hd, dtype, seed=200 + i)
+    g = torch.Generator(device="cuda").manual_seed(300 + i)
+    do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+    errs = bwd_kernel_errors(fa, q, k, v, do, scale=1.0 / math.sqrt(hd),
+                             window=window, softcap=cap)
+    dt = str(dtype).replace("torch.", "")
+    tols = {g: grad_tol(dtype, errs[f"{g}_max_abs"]) for g in ("dq", "dk", "dv")}
+    rec = {"phase": "kernel_check", "kernel": "flash_bwd", "case": name,
+           "dtype": dt, "shape": [b, t, h, kv, hd], "window": window,
+           "softcap": cap, **errs, **{f"{g}_tol": tol for g, tol in tols.items()},
+           "rel_tol": GRAD_REL_TOL[dtype]}
+    fails = []
+    for grad in ("dq", "dk", "dv"):
+        err = errs[f"{grad}_max_abs_err"]
+        rel = errs[f"{grad}_mean_rel_err"]
+        if not err <= tols[grad]:
+            fails.append((grad, f"{name} {dt}: max |{grad} diff| {err} > "
+                                f"{tols[grad]}"))
+        if not (errs[f"{grad}_max_abs"] < ZERO_GRAD_MAX
+                or rel <= GRAD_REL_TOL[dtype]):
+            fails.append((grad, f"{name} {dt}: mean |{grad} diff| / mean "
+                                f"|{grad}| {rel} > {GRAD_REL_TOL[dtype]}"))
+    return rec, fails
+
+
+def phase_bwd_kernels(fa):
+    """flash_bwd's two kernels against flash_bwd_plain on the forward's
+    shapes; returns the records by (case, dtype)."""
+    results = {}
+    for i, case in enumerate(KERNEL_CASES):
+        for dtype in (torch.bfloat16, torch.float32):
+            rec, fails = bwd_case(fa, i, case, dtype)
+            emit(rec)
+            check(not fails, "; ".join(msg for _, msg in fails))
+            results[(case[0], dtype)] = rec
     return results
 
 
@@ -370,38 +513,277 @@ def phase_sample(fa, card):
     check(fa.flash_fwd.launches == 200 * 12, "sample: want 2400 launches")
 
 
+def phase_grads(fa, params32, card):
+    """Every parameter's gradient through the kernels against plain
+    attention, in the trainer's loss-only mode at T=1024, batch 2."""
+    from mingpt_distributed_tpu_torch.models import convert, gpt
+    from mingpt_distributed_tpu_torch.training.trainer import trainable
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, 50257, (2, 1025), generator=g, device="cuda")
+    x, y = tokens[:, :-1], tokens[:, 1:]
+
+    def grads(attention, dtype):
+        cfg = gpt2_config(attention, dtype)
+        params = trainable(params32)
+        names, leaves = zip(*convert.flatten(params).items())
+        _, loss = gpt.forward(params, x, cfg, targets=y, return_logits=False)
+        return loss.item(), dict(zip(names, torch.autograd.grad(loss, leaves)))
+
+    n0 = (fa.flash_fwd.launches, fa.flash_bwd.dq_launches,
+          fa.flash_bwd.dkv_launches)
+    loss_f32, flash32 = grads("flash", "float32")
+    n1 = (fa.flash_fwd.launches, fa.flash_bwd.dq_launches,
+          fa.flash_bwd.dkv_launches)
+    check(tuple(b - a for a, b in zip(n0, n1)) == (12, 12, 12),
+          f"fp32 gradient: launches {n0} -> {n1}, want 12 of each")
+    loss_p32, plain32 = grads("einsum", "float32")
+    check(all(bool(torch.isfinite(v).all()) for v in flash32.values()),
+          "non-finite fp32 gradient")
+    rel = {n: ((flash32[n] - plain32[n]).norm() /
+               plain32[n].norm().clamp_min(1e-30)).item()
+           for n in plain32 if n not in ZERO_GRAD_PARAMS}
+    worst = max(rel, key=rel.get)
+    total_rel = (torch.stack([(flash32[n] - plain32[n]).norm() for n in plain32]).norm()
+                 / torch.stack([plain32[n].norm() for n in plain32]).norm()).item()
+    zero_norms = {n: (plain32[n].norm().item(), flash32[n].norm().item())
+                  for n in ZERO_GRAD_PARAMS if n in plain32}
+
+    def mean_err(gs):
+        num = sum((gs[n] - plain32[n]).abs().sum() for n in plain32)
+        den = sum(plain32[n].abs().sum() for n in plain32)
+        return (num / den).item()
+
+    _, flash16 = grads("flash", "bfloat16")
+    err_flash16 = mean_err(flash16)
+    del flash16
+    _, plain16 = grads("einsum", "bfloat16")
+    err_plain16 = mean_err(plain16)
+    del plain16
+    rec = {"phase": "gradients", "model": "gpt2 124M", "batch": 2, "seq": 1024,
+           "fp32_loss_flash": loss_f32, "fp32_loss_plain": loss_p32,
+           "fp32_max_rel_grad_err": rel[worst], "fp32_worst_param": worst,
+           "fp32_total_rel_grad_err": total_rel,
+           "fp32_zero_grad_norms_plain_flash": zero_norms,
+           "fp32_max_grad_norm": max(v.norm().item() for v in plain32.values()),
+           "fp32_rel_tol": GRAD_FP32_REL_TOL,
+           "bf16_flash_mean_rel_err_vs_fp32": err_flash16,
+           "bf16_plain_mean_rel_err_vs_fp32": err_plain16,
+           "bf16_err_ratio": err_flash16 / err_plain16,
+           "bf16_err_ratio_max": GRAD_BF16_ERR_RATIO, "card": card}
+    emit(rec)
+    check(rel[worst] <= GRAD_FP32_REL_TOL,
+          f"fp32 gradient of {worst} differs by {rel[worst]} (relative)")
+    check(total_rel <= GRAD_FP32_REL_TOL,
+          f"fp32 gradient differs by {total_rel} (relative, all parameters)")
+    check(err_flash16 <= GRAD_BF16_ERR_RATIO * err_plain16,
+          "bf16 kernel-path gradients are further from fp32 than allowed")
+
+
 # ---------------------------------------------------------------------------
-# phase 4: times
+# phase 4: training
 # ---------------------------------------------------------------------------
 
 
-def phase_times(fa, kernel_inputs, card):
+def reset_counts(fa):
+    fa.flash_fwd.launches = 0
+    fa.flash_bwd.dq_launches = 0
+    fa.flash_bwd.dkv_launches = 0
+
+
+def read_counts(fa):
+    return {"flash_fwd": fa.flash_fwd.launches,
+            "flash_bwd_dq": fa.flash_bwd.dq_launches,
+            "flash_bwd_dkv": fa.flash_bwd.dkv_launches}
+
+
+def phase_train_step(fa, card, steps=5):
+    """The main path: make_train_step at the bench shape. Returns the
+    launch counts of the measured steps."""
+    from mingpt_distributed_tpu_torch.tools.profile_train import BATCH, SEQ, bench_state
+    from mingpt_distributed_tpu_torch.training.metrics import flops_per_token
+    from mingpt_distributed_tpu_torch.training.trainer import make_train_step
+
+    cfg, state, batch = bench_state()
+    step = make_train_step(cfg)
+    losses = [step(state, batch)["loss"] for _ in range(2)]  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        m = step(state, batch)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    counts = read_counts(fa)
+    losses = [v.item() for v in losses]
+    tokens_per_s = BATCH * SEQ / dt
+    rec = {"phase": "train_step", "main_path": True, "model": "gpt2 124M",
+           "batch": BATCH, "seq": SEQ, "dtype": cfg.dtype, "steps": steps,
+           "launches": counts, "step_ms": dt * 1e3, "tokens_per_s": tokens_per_s,
+           "mfu": flops_per_token(cfg, SEQ) * tokens_per_s / PEAK_FLOPS[torch.bfloat16],
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "losses": losses, "grad_norm": m["grad_norm"].item(),
+           "update_norm": m["update_norm"].item(), "card": card}
+    emit(rec)
+    for name, n in counts.items():
+        check(n == 12 * steps, f"train step: {n} {name} launches, want {12 * steps}")
+    check(all(math.isfinite(v) for v in losses), "non-finite training loss")
+    check(losses[-1] < losses[0], "the loss on a repeated batch did not fall")
+    del state, batch
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_entry(argv):
+    """The train entry point's main(argv), its stdout captured and echoed."""
+    from mingpt_distributed_tpu_torch.train import main as train_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train_main(argv)
+    out = buf.getvalue()
+    sys.stderr.write(out)
+    return rc, out
+
+
+def phase_train_entry(fa, card):
+    """python -m mingpt_distributed_tpu_torch.train, driven through main():
+    GPT-2 width on the corpus, then a second call that resumes."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        snap = os.path.join(tmp, "snapshot.pt")
+        argv = ["--config", os.path.join(REPO, "gpt2_config.yaml"),
+                "gpt_config.model_type=gpt2", "~gpt_config.n_layer",
+                "~gpt_config.n_head", "~gpt_config.n_embd",
+                "gpt_config.attn_pdrop=0", "gpt_config.embd_pdrop=0",
+                "gpt_config.resid_pdrop=0",
+                f"data_config.path={os.path.join(REPO, 'data', 'input.txt')}",
+                "data_config.block_size=1024", "data_config.truncate=1.0",
+                "trainer_config.batch_size=16", "trainer_config.log_every=1",
+                "trainer_config.eval_batches=4",
+                f"trainer_config.snapshot_path={snap}"]
+        reset_counts(fa)
+        t0 = time.perf_counter()
+        rc, out = run_entry(argv + [f"trainer_config.max_steps={ENTRY_STEPS}"])
+        dt = time.perf_counter() - t0
+        counts = read_counts(fa)
+        losses = {int(a): float(b) for a, b in
+                  re.findall(r"^step (\d+) \| loss ([0-9.e+-]+)", out, re.M)}
+        evals = re.findall(r"eval_loss ([0-9.e+-]+)", out)
+        check(rc == 0, f"train entry point exited {rc}")
+        check(sorted(losses) == list(range(1, ENTRY_STEPS + 1)),
+              f"logged steps {sorted(losses)}")
+        drop = losses[1] - losses[ENTRY_STEPS]
+        rc2, out2 = run_entry(argv + [f"trainer_config.max_steps={ENTRY_STEPS + 5}"])
+        resumed = f"Resuming training from snapshot at epoch 0, step {ENTRY_STEPS}"
+        losses2 = re.findall(r"^step (\d+) \| loss", out2, re.M)
+        emit({"phase": "train_cli", "steps": ENTRY_STEPS, "seconds": dt,
+              "launches": counts, "loss_first": losses[1],
+              "loss_last": losses[ENTRY_STEPS], "loss_drop": drop,
+              "loss_drop_min": ENTRY_LOSS_DROP,
+              "eval_loss": float(evals[-1]) if evals else None,
+              "snapshot_written": os.path.exists(snap),
+              "resume_rc": rc2, "resumed_at_saved_step": resumed in out2,
+              "resumed_steps": [int(v) for v in losses2], "card": card})
+        check(drop >= ENTRY_LOSS_DROP, f"loss fell by {drop} < {ENTRY_LOSS_DROP}")
+        check(len(evals) == 1 and math.isfinite(float(evals[0])), "no eval loss")
+        check(os.path.exists(snap), "no snapshot written")
+        check(counts["flash_bwd_dq"] == 12 * ENTRY_STEPS,
+              f"train entry: {counts} launches")
+        check(rc2 == 0 and resumed in out2, "second call did not resume")
+        check([int(v) for v in losses2] == list(range(ENTRY_STEPS + 1, ENTRY_STEPS + 6)),
+              f"resumed run logged steps {losses2}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: times
+# ---------------------------------------------------------------------------
+
+
+def sdpa_backward(q, k, v, do):
+    """The library yardstick: the gradient of scaled_dot_product_attention
+    (is_causal) with respect to q, k, v; backward only."""
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+
+
+def phase_times(fa, card):
+    """Kernel, plain version and library yardstick times; returns the rows
+    of the kernels line (bf16, training shape) by kernel name."""
     rows = {}
+    # the generation shape: flash_fwd at batch 4
     b, t, h, hd = 4, 1024, 12, 64
+    scale = 1.0 / math.sqrt(hd)
     for dtype in (torch.bfloat16, torch.float32):
-        q, k, v, err = kernel_inputs[("gpt2_main", dtype)]
-        scale = 1.0 / math.sqrt(hd)
-        n0 = fa.flash_fwd.launches
-        ms = cuda_ms(lambda: fa.flash_fwd(q, k, v, scale=scale))
-        fa.flash_fwd.launches = n0  # timing launches are not the main path's
-        plain_ms = cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, scale=scale),
-                           iters=5)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True))
+        q, k, v = make_qkv(b, t, h, h, hd, dtype, seed=100)  # gpt2_main's
+        with preserved_counts(fa):
+            ms = cuda_ms(lambda: fa.flash_fwd(q, k, v, scale=scale))
         nbytes, flops = attention_work(b, t, h, hd, None, dtype)
         bms, by = bound_ms(nbytes, flops, dtype)
+        emit({"phase": "time", "kernel": "flash_fwd", "shape_of": "generation",
+              "dtype": str(dtype).replace("torch.", ""), "shape": [b, t, h, h, hd],
+              "ms": ms, "bound_ms": bms, "bound_by": by,
+              "achieved_tflops": flops / (ms * 1e-3) / 1e12, "card": card})
+    # the training shape: batch 16
+    b = 16
+    for dtype in (torch.bfloat16, torch.float32):
         dt = str(dtype).replace("torch.", "")
-        rows[dtype] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
-                       "bound_by": by, "library_ms": library_ms,
-                       "max_abs_err": err}
-        emit({"phase": "time", "kernel": "flash_fwd", "dtype": dt,
-              "shape": [b, t, h, h, hd], "bytes": nbytes, "flops": flops,
-              **rows[dtype], "achieved_tflops": flops / (ms * 1e-3) / 1e12,
-              "card": card})
+        q, k, v = make_qkv(b, t, h, h, hd, dtype, seed=400)
+        g = torch.Generator(device="cuda").manual_seed(401)
+        do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+        with preserved_counts(fa):
+            out, lse = fa.flash_fwd(q, k, v, scale=scale)
+            delta = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+            fwd_ms = cuda_ms(lambda: fa.flash_fwd(q, k, v, scale=scale))
+            dq_ms = cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, scale=scale))
+            dkv_ms = cuda_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta,
+                                                      scale=scale))
+        fwd_plain = cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, scale=scale), iters=3)
+        bwd_plain = cuda_ms(lambda: fa.flash_bwd_plain(q, k, v, out, lse, do,
+                                                       scale=scale), iters=3)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        fwd_lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+        bwd_lib = cuda_ms(sdpa_backward(q, k, v, do))
+        for name, ms, plain, lib in (("flash_fwd", fwd_ms, fwd_plain, fwd_lib),
+                                     ("flash_bwd_dq", dq_ms, bwd_plain, bwd_lib),
+                                     ("flash_bwd_dkv", dkv_ms, bwd_plain, bwd_lib)):
+            nbytes, flops = attention_work(b, t, h, hd, None, dtype, kernel=name)
+            bms, by = bound_ms(nbytes, flops, dtype)
+            row = {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                   "library_ms": lib}
+            emit({"phase": "time", "kernel": name, "shape_of": "training",
+                  "dtype": dt, "shape": [b, t, h, h, hd], "bytes": nbytes,
+                  "flops": flops, **row,
+                  "achieved_tflops": flops / (ms * 1e-3) / 1e12,
+                  "plain_is": "flash_bwd_plain (dq, dk and dv)" if name != "flash_fwd"
+                  else "flash_fwd_plain",
+                  "library_is": "SDPA backward (dq, dk and dv)" if name != "flash_fwd"
+                  else "SDPA forward", "card": card})
+            if dtype == torch.bfloat16:
+                rows[name] = row
+        del q, k, v, do, out, lse, delta
+        torch.cuda.empty_cache()
     emit({"phase": "memory", "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
           "card": card})
     return rows
+
+
+@contextlib.contextmanager
+def preserved_counts(fa):
+    """Launches made to time or compare a kernel are not the main path's."""
+    saved = read_counts(fa)
+    try:
+        yield
+    finally:
+        fa.flash_fwd.launches = saved["flash_fwd"]
+        fa.flash_bwd.dq_launches = saved["flash_bwd_dq"]
+        fa.flash_bwd.dkv_launches = saved["flash_bwd_dkv"]
 
 
 def main() -> int:
@@ -422,28 +804,50 @@ def main() -> int:
           "allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
           "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32})
     t0 = time.perf_counter()
-    log = _build.build("flash_fwd", ptxas_verbose=True)
-    emit({"phase": "build", "sources": ["flash_fwd"],
+    logs = _build.build_all(ptxas_verbose=True)
+    emit({"phase": "build", "sources": list(logs),
           "seconds": time.perf_counter() - t0})
-    print(f"--- nvcc flash_fwd.cu ---\n{log}", file=sys.stderr)
+    for name, log in logs.items():
+        print(f"--- nvcc {name}.cu ---\n{log}", file=sys.stderr)
 
-    kernel_inputs = phase_kernels(fa)
+    fwd_errors = phase_kernels(fa)
+    bwd_errors = phase_bwd_kernels(fa)
     emit({"phase": "kernels_checked", "kernels": [
-        {"name": "flash_fwd", "launches": fa.flash_fwd.launches}]})
+        {"name": n, "launches": c} for n, c in read_counts(fa).items()]})
+    reset_counts(fa)
 
     model32 = GPT(gpt2_config("flash", "float32"), seed=0, device="cuda")
     phase_forward(GPT, fa, model32)
-    main_launches = phase_generate(GPT, fa, model32, card)
+    phase_grads(fa, model32.params, card)
+    generate_launches = phase_generate(GPT, fa, model32, card)
     phase_sample(fa, card)
-    rows = phase_times(fa, kernel_inputs, card)
+    del model32
+    torch.cuda.empty_cache()
 
-    bf16 = rows[torch.bfloat16]
+    main_counts = phase_train_step(fa, card)
+    phase_train_entry(fa, card)
+    rows = phase_times(fa, card)
+
+    # max_abs_err at the main path's shape: the training step's, bf16
+    bf16 = torch.bfloat16
+    errs = bwd_errors[("gpt2_train", bf16)]
+    line = []
+    for name, replaces, err in (
+            ("flash_fwd", "mingpt_distributed_tpu/ops/flash_attention.py:677",
+             fwd_errors[("gpt2_train", bf16)]),
+            ("flash_bwd_dq", "mingpt_distributed_tpu/ops/flash_attention.py:750",
+             errs["dq_max_abs_err"]),
+            ("flash_bwd_dkv", "mingpt_distributed_tpu/ops/flash_attention.py:818",
+             max(errs["dk_max_abs_err"], errs["dv_max_abs_err"]))):
+        source = "flash_fwd.cu" if name == "flash_fwd" else "flash_bwd.cu"
+        line.append({"name": name, "route": "cuda",
+                     "source": f"mingpt_distributed_tpu_torch/ops/csrc/{source}",
+                     "replaces": replaces, "launches": main_counts[name],
+                     "max_abs_err": err, **rows[name]})
+    emit({"phase": "launches_by_path", "train_step": main_counts,
+          "generate_sliding_bf16": {"flash_fwd": generate_launches}})
     print(card_line(), flush=True)
-    emit({"kernels": [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "mingpt_distributed_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "mingpt_distributed_tpu/ops/flash_attention.py:677",
-        "launches": main_launches, **bf16}]})
+    emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

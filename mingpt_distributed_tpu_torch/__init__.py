@@ -9,9 +9,11 @@ each Pallas TPU kernel on its path with a hand-written CUDA kernel
 the caller asks for the CPU; on the CPU the kernels' plain PyTorch
 versions run instead.
 
-This slice: the inference path (config, layers, attention, the causal
+Ported so far: the inference path (config, layers, attention, the causal
 flash-attention forward kernel, the GPT forward, KV-cached and
-sliding-window generation, the char vocabulary, the sample CLI).
+sliding-window generation, the sample CLI) and single-GPU training (the
+flash-attention backward kernels, chunked cross-entropy, remat, AdamW, the
+data iterator, snapshots, the trainer and the train CLI).
 """
 
 from mingpt_distributed_tpu_torch.config import (  # noqa: F401
@@ -20,6 +22,9 @@ from mingpt_distributed_tpu_torch.config import (  # noqa: F401
     DataConfig,
     ExperimentConfig,
     GPTConfig,
+    MeshConfig,
+    OptimizerConfig,
+    TrainerConfig,
     apply_overrides,
     load_config,
 )

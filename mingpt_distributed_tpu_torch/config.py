@@ -1,15 +1,15 @@
 """Configuration: dataclasses, presets, YAML files and CLI overrides.
 
 The port's own copy of ``mingpt_distributed_tpu/config.py`` (the port imports
-nothing of the JAX package). ``GPTConfig`` keeps every field of the original,
-so the repository's YAML files load unchanged; fields that only steer JAX
-compilation (``scan_unroll``, ``unroll_layers``) are accepted and have no
-effect here, because PyTorch runs the layer loop eagerly.
+nothing of the JAX package). Every section keeps every field of the
+original, so the repository's YAML files load unchanged; fields that only
+steer JAX compilation (``scan_unroll``, ``unroll_layers``) are accepted and
+have no effect here, because PyTorch runs the layer loop eagerly.
 
-``DataConfig`` carries what the character vocabulary needs. The optimizer
-and trainer sections of a YAML file are kept as plain dicts
-(``ExperimentConfig.pending``) until the training slice ports their
-dataclasses.
+Trainer options this slice does not port keep their defaults (which the
+YAML files rely on); ``TrainerConfig.check_ported`` raises
+NotImplementedError, naming the ROADMAP item, for any other value, and for a
+mesh that needs more than one device. Nothing is silently ignored.
 
 PyYAML is imported inside the functions that parse YAML, so the rest of the
 package works where it is not installed.
@@ -19,8 +19,9 @@ from __future__ import annotations
 
 import dataclasses
 import io
+import warnings
 from dataclasses import dataclass, field
-from typing import Any, Dict, Mapping, Optional, Sequence
+from typing import Any, Mapping, Optional, Sequence, Tuple
 
 MODEL_PRESETS: dict[str, dict[str, Any]] = {
     # name            layers heads  width   (params)
@@ -220,7 +221,7 @@ class DataConfig:
     block_size: int = 128
     train_split: float = 0.9
     truncate: float = 1.0
-    # "char" is ported; "bpe" waits for the training slice
+    # "char" is ported; "bpe" is queued (ROADMAP.md Queue 1 item 2)
     tokenizer: str = "char"
     bpe_vocab_size: int = 512
     bpe_path: Optional[str] = None
@@ -238,30 +239,167 @@ class DataConfig:
 
 
 @dataclass
+class OptimizerConfig:
+    """AdamW with the GPT-3 values, and the learning-rate schedule."""
+
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    betas: Tuple[float, float] = (0.9, 0.95)
+    eps: float = 1e-8
+    schedule: str = "constant"  # "constant" | "cosine"
+    warmup_steps: int = 0
+    total_steps: Optional[int] = None  # required for cosine
+    min_lr_ratio: float = 0.1
+
+    def __post_init__(self) -> None:
+        if isinstance(self.betas, list):
+            self.betas = tuple(self.betas)  # YAML gives lists
+
+    @classmethod
+    def make(cls, **kwargs: Any) -> "OptimizerConfig":
+        return cls(**_reject_unknown(cls, kwargs))
+
+
+@dataclass
+class MeshConfig:
+    """The JAX package's device-mesh shape: pp, dp, fsdp, ep, tp, sp; -1
+    absorbs the remaining devices. This slice runs on one device, so every
+    axis must come to 1 (``TrainerConfig.check_ported``)."""
+
+    pp: int = 1
+    dp: int = -1
+    fsdp: int = 1
+    ep: int = 1
+    tp: int = 1
+    sp: int = 1
+
+    @classmethod
+    def make(cls, **kwargs: Any) -> "MeshConfig":
+        return cls(**_reject_unknown(cls, kwargs))
+
+
+# Trainer options not ported yet: any value but the default raises, naming
+# the ROADMAP.md item that brings it.
+UNPORTED_TRAINER_OPTIONS = {
+    "zero_dp": "Queue 1 item 10 (parallel/zero.py)",
+    "async_save": "Queue 1 item 1 (training/durability.py)",
+    "keep_snapshots": "Queue 1 item 1 (durability manifest, keep-last-K)",
+    "io_retries": "Queue 1 item 1 (durability retry)",
+    "io_retry_delay_s": "Queue 1 item 1 (durability retry)",
+    "msgpack_gather_limit_mb": "Queue 1 item 8 (multi-process saves)",
+    "dl_num_workers": "Queue 1 item 3 (runtime/native_batcher.c)",
+    "metrics_port": "Queue 1 item 5 (trainer telemetry)",
+    "spans_jsonl": "Queue 1 item 5 (trainer telemetry)",
+    "tensorboard_dir": "Queue 1 item 5 (trainer telemetry)",
+    "profile_dir": "Queue 1 item 5 (trainer telemetry; "
+                   "tools/profile_train.py profiles a step today)",
+    "profile_steps": "Queue 1 item 5 (trainer telemetry)",
+    "debug_nans": "Queue 1 item 5 (trainer telemetry)",
+}
+
+
+@dataclass
+class TrainerConfig:
+    """The trainer section: the reference's GPTTrainerConfig plus the JAX
+    package's extensions (same fields and defaults)."""
+
+    max_epochs: int = 10
+    batch_size: int = 64
+    grad_norm_clip: float = 1.0
+    snapshot_path: Optional[str] = None
+    save_every: int = 1  # epochs between snapshots
+    learning_rate: Optional[float] = None  # schema parity; ignored, warns
+    dl_num_workers: int = 0
+    seed: int = 0
+    log_every: int = 100
+    eval_every: int = 1
+    eval_batches: Optional[int] = None
+    metrics_jsonl: Optional[str] = None
+    tensorboard_dir: Optional[str] = None
+    async_save: bool = False
+    msgpack_gather_limit_mb: int = 8192
+    keep_snapshots: int = 3
+    io_retries: int = 4
+    io_retry_delay_s: float = 0.5
+    handle_signals: bool = True
+    grad_accum_steps: int = 1
+    zero_dp: bool = False
+    prefetch: int = 2  # background batch-prefetch depth; 0 disables
+    debug_nans: bool = False
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    profile_dir: Optional[str] = None
+    profile_steps: Tuple[int, int] = (10, 20)
+    max_steps: Optional[int] = None
+    metrics_port: int = 0
+    spans_jsonl: Optional[str] = None
+
+    @classmethod
+    def make(cls, **kwargs: Any) -> "TrainerConfig":
+        kwargs = dict(kwargs)
+        mesh = kwargs.pop("mesh", None)
+        cfg = cls(**_reject_unknown(cls, kwargs))
+        if mesh is not None:
+            cfg.mesh = mesh if isinstance(mesh, MeshConfig) else MeshConfig.make(**mesh)
+        if isinstance(cfg.profile_steps, list):
+            cfg.profile_steps = tuple(cfg.profile_steps)
+        if cfg.learning_rate is not None:
+            warnings.warn(
+                "TrainerConfig.learning_rate is accepted for schema parity "
+                "but ignored: set optimizer_config.learning_rate instead.",
+                UserWarning, stacklevel=2)
+        if cfg.grad_accum_steps < 1 or cfg.batch_size < 1:
+            raise ConfigError("batch_size and grad_accum_steps must be >= 1")
+        return cfg
+
+    def check_ported(self) -> None:
+        """Raise NotImplementedError for an option this slice does not run:
+        a non-default value of an unported option, or a mesh of more than
+        one device."""
+        defaults = TrainerConfig()
+        for name, item in UNPORTED_TRAINER_OPTIONS.items():
+            if getattr(self, name) != getattr(defaults, name):
+                raise NotImplementedError(
+                    f"trainer_config.{name}={getattr(self, name)!r} is not "
+                    f"ported yet (ROADMAP.md {item})")
+        axes = dataclasses.asdict(self.mesh)
+        if axes.pop("dp") not in (1, -1) or any(n != 1 for n in axes.values()):
+            raise NotImplementedError(
+                f"mesh {dataclasses.asdict(self.mesh)} needs more than one "
+                "device: multi-GPU training is not ported yet (ROADMAP.md "
+                "Queue 1, slice 3)")
+
+
+@dataclass
 class ExperimentConfig:
-    """The sections of a config file: the two this slice uses, validated,
-    and the optimizer/trainer sections kept raw in ``pending``."""
+    """The four sections of a config file."""
 
     gpt_config: GPTConfig
     data_config: DataConfig
-    pending: Dict[str, dict] = field(default_factory=dict)
+    optimizer_config: OptimizerConfig = field(default_factory=OptimizerConfig)
+    trainer_config: TrainerConfig = field(default_factory=TrainerConfig)
 
-    PENDING_SECTIONS = ("optimizer_config", "trainer_config")
+    SECTIONS = ("gpt_config", "optimizer_config", "data_config",
+                "trainer_config")
 
     @classmethod
     def from_dict(cls, raw: Mapping[str, Any]) -> "ExperimentConfig":
-        known = {"gpt_config", "data_config", *cls.PENDING_SECTIONS}
-        unknown = set(raw) - known
+        unknown = set(raw) - set(cls.SECTIONS)
         if unknown:
             raise ConfigError(
                 f"unknown config section(s) {sorted(unknown)}; "
-                f"valid: {sorted(known)}"
+                f"valid: {sorted(cls.SECTIONS)}"
             )
         return cls(
             gpt_config=GPTConfig.make(**dict(raw.get("gpt_config", {}))),
             data_config=DataConfig.make(**dict(raw.get("data_config", {}))),
-            pending={s: dict(raw[s]) for s in cls.PENDING_SECTIONS if s in raw},
+            optimizer_config=OptimizerConfig.make(
+                **dict(raw.get("optimizer_config", {}))),
+            trainer_config=TrainerConfig.make(
+                **dict(raw.get("trainer_config", {}))),
         )
+
+    def to_dict(self) -> dict[str, Any]:
+        return dataclasses.asdict(self)
 
 
 def _parse_override_value(text: str) -> Any:

@@ -1,15 +1,20 @@
-"""Character vocabulary of a text corpus.
+"""Character-level dataset: vocabulary, (x, y) windows, the contiguous
+train/test split and the resumable batch iterator.
 
-Counterpart of the vocabulary part of
-``mingpt_distributed_tpu/data/char_dataset.py``: the same ids (the sorted
-set of characters of the leading ``truncate`` fraction of the corpus), with
-``encode`` and ``decode``. The corpus is a local file. The training windows
-and the batch iterator come with the training slice.
+Counterpart of ``mingpt_distributed_tpu/data/char_dataset.py``: the same
+ids (the sorted set of characters of the leading ``truncate`` fraction of
+the corpus), the same windows and split, and the same shuffled order: the
+permutation of an epoch is numpy's ``default_rng(seed + epoch)``, so for a
+given seed and resume position the port yields exactly the JAX package's
+batches. One process feeds one device, so there is no per-process sharding;
+the corpus is a local file; batches are gathered with numpy (the JAX
+package's optional C gather, ``runtime/native_batcher.c``, is queued).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -17,7 +22,8 @@ from mingpt_distributed_tpu_torch.config import DataConfig
 
 
 class CharDataset:
-    """The character vocabulary of ``config.path`` (or of ``text``)."""
+    """A corpus of characters with next-char (x, y) windows of
+    ``block_size``."""
 
     def __init__(self, config: DataConfig, text: Optional[str] = None):
         self.config = config
@@ -25,14 +31,110 @@ class CharDataset:
             with open(config.path, encoding="utf-8", errors="replace") as f:
                 text = f.read()
         text = text[: int(len(text) * config.truncate)]
-        chars = sorted(set(text))
-        self.stoi = {ch: i for i, ch in enumerate(chars)}
+        # np.unique sorts, so ids match sorted(set(text))
+        vocab, inverse = np.unique(np.array(list(text)), return_inverse=True)
+        self.stoi = {ch: i for i, ch in enumerate(vocab.tolist())}
         self.itos = {i: ch for ch, i in self.stoi.items()}
-        self.vocab_size = len(chars)
+        self.vocab_size = len(vocab)
         self.block_size = config.block_size
+        self.data = inverse.astype(np.int32)
+        if len(self.data) <= self.block_size:
+            raise ValueError(
+                f"corpus ({len(self.data)} chars) must exceed block_size "
+                f"({self.block_size})")
+
+    def __len__(self) -> int:
+        return len(self.data) - self.block_size
+
+    def __getitem__(self, idx: int) -> Tuple[np.ndarray, np.ndarray]:
+        chunk = self.data[idx: idx + self.block_size + 1]
+        return chunk[:-1].astype(np.int32), chunk[1:].astype(np.int32)
 
     def encode(self, text: str) -> np.ndarray:
         return np.array([self.stoi[c] for c in text], dtype=np.int32)
 
     def decode(self, ids) -> str:
         return "".join(self.itos[int(i)] for i in np.asarray(ids).reshape(-1))
+
+    def split(self, train_split: Optional[float] = None
+              ) -> Tuple["CharView", "CharView"]:
+        """Contiguous train/test split; no window spans the cut."""
+        frac = self.config.train_split if train_split is None else train_split
+        cut = int(len(self.data) * frac)
+        return CharView(self, 0, cut), CharView(self, cut, len(self.data))
+
+
+class CharView:
+    """A contiguous [start, stop) character range of a CharDataset."""
+
+    def __init__(self, parent: CharDataset, start: int, stop: int):
+        self.parent = parent
+        self.start = start
+        self.stop = stop
+        self.block_size = parent.block_size
+        self.vocab_size = parent.vocab_size
+
+    def __len__(self) -> int:
+        return max(0, (self.stop - self.start) - self.block_size)
+
+    def gather(self, indices: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """(x, y) int32 batch for window start offsets within this view."""
+        starts = np.asarray(indices, dtype=np.int64) + self.start
+        offs = np.arange(self.block_size + 1, dtype=np.int64)
+        chunks = self.parent.data[starts[:, None] + offs[None, :]]
+        return chunks[:, :-1].astype(np.int32), chunks[:, 1:].astype(np.int32)
+
+
+@dataclass
+class IteratorState:
+    """Resumable position of a ShardedBatchIterator."""
+
+    epoch: int = 0
+    step_in_epoch: int = 0
+    seed: int = 0
+
+    def to_dict(self) -> dict:
+        return {"epoch": self.epoch, "step_in_epoch": self.step_in_epoch,
+                "seed": self.seed}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "IteratorState":
+        return cls(**d)
+
+
+class ShardedBatchIterator:
+    """Batches of a view in the JAX package's order: each epoch a
+    permutation seeded ``seed + epoch`` (or the plain order), cut into
+    ``batch_size`` windows, the ragged tail dropped. One process, so the
+    "shard" is the whole batch."""
+
+    def __init__(self, view: CharView, batch_size: int, *, shuffle: bool = True,
+                 seed: int = 0):
+        if len(view) < batch_size:
+            raise ValueError(
+                f"view has {len(view)} windows < batch {batch_size}")
+        self.view = view
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.state = IteratorState(seed=seed)
+
+    @property
+    def steps_per_epoch(self) -> int:
+        return len(self.view) // self.batch_size
+
+    def _epoch_order(self, epoch: int) -> np.ndarray:
+        n = len(self.view)
+        if self.shuffle:
+            return np.random.default_rng(self.state.seed + epoch).permutation(n)
+        return np.arange(n)
+
+    def epoch_batches(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+        """Yield the remaining batches of the current epoch, then advance the
+        epoch counter; a restored state resumes at its step."""
+        order = self._epoch_order(self.state.epoch)
+        for step in range(self.state.step_in_epoch, self.steps_per_epoch):
+            base = step * self.batch_size
+            self.state.step_in_epoch = step + 1
+            yield self.view.gather(order[base: base + self.batch_size])
+        self.state.epoch += 1
+        self.state.step_in_epoch = 0

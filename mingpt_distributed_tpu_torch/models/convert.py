@@ -9,7 +9,8 @@ snapshot of another configuration is refused rather than misread.
 
 ``flatten``/``unflatten`` map the tree to and from the flat ``"blocks/wq"``
 keys of an ``.npz`` file (see the README for writing one from a JAX
-snapshot).
+snapshot). ``adam_state_to_numpy``/``adam_state_from_numpy`` carry optax's
+Adam state (``mu``, ``nu``, ``count``) to the port's optimizer and back.
 """
 
 from __future__ import annotations
@@ -80,3 +81,23 @@ def unflatten(flat: Mapping[str, Any]) -> Dict[str, Any]:
             node = node.setdefault(p, {})
         node[leaf] = v
     return tree
+
+
+def adam_state_to_numpy(optimizer) -> Dict[str, Any]:
+    """The port's Adam moments -> ``{"count", "mu", "nu"}`` with ``mu`` and
+    ``nu`` in the parameter tree's shape (numpy float32): the fields of
+    optax's ``ScaleByAdamState``."""
+    st = optimizer.adam_state()
+    tree = lambda d: unflatten(  # noqa: E731
+        {k: v.detach().float().cpu().numpy() for k, v in d.items()})
+    return {"count": st["count"], "mu": tree(st["mu"]), "nu": tree(st["nu"])}
+
+
+def adam_state_from_numpy(optimizer, count: int, mu: Mapping[str, Any],
+                          nu: Mapping[str, Any]) -> None:
+    """Load optax's Adam moments (``mu``, ``nu`` trees, ``count``) into the
+    port's optimizer, parameter by parameter."""
+    as_tensors = lambda tree: {  # noqa: E731
+        k: torch.from_numpy(np.ascontiguousarray(v, dtype=np.float32))
+        for k, v in flatten(tree).items()}
+    optimizer.load_adam_state(int(count), as_tensors(mu), as_tensors(nu))

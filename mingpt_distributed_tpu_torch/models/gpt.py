@@ -7,9 +7,12 @@ where every block leaf is stacked on a leading n_layer axis and weights are
 stored (in, out). Parameters are float32; activations run in ``cfg.dtype``;
 normalisations, softmax and logits run in float32.
 
-Not in this slice: mixture-of-experts blocks, rematerialisation and the
-pipeline/mesh paths (ring and Ulysses attention) raise NotImplementedError
-(ROADMAP.md, Queue 1).
+The trainer's loss-only mode (``return_logits=False``) runs the LM head and
+the cross-entropy per sequence chunk under ``torch.utils.checkpoint``, so
+the (B, T, V) float32 logits never exist; ``remat`` checkpoints every block.
+
+Not in this slice: mixture-of-experts blocks and the pipeline/mesh paths
+(ring and Ulysses attention) raise NotImplementedError (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from mingpt_distributed_tpu_torch.config import GPTConfig
 from mingpt_distributed_tpu_torch.ops import attention as attn_ops
@@ -39,9 +43,6 @@ def check_supported(cfg: GPTConfig) -> None:
     if cfg.n_experts:
         raise NotImplementedError(
             "mixture-of-experts blocks are not ported yet (ROADMAP.md Queue 1)")
-    if cfg.remat:
-        raise NotImplementedError(
-            "remat is a training-slice option, not ported yet (ROADMAP.md Queue 1)")
 
 
 # ---------------------------------------------------------------------------
@@ -196,13 +197,48 @@ def layer_params(params: Params, layer: int) -> Params:
     return {name: w[layer] for name, w in params["blocks"].items()}
 
 
+def _unstack(blocks: Params):
+    """Every layer's parameters, from one ``unbind`` per stacked leaf: its
+    backward writes each leaf's gradient once (a ``w[layer]`` per layer
+    would add a full-size gradient per layer)."""
+    names = list(blocks)
+    for leaves in zip(*(blocks[n].unbind(0) for n in names)):
+        yield dict(zip(names, leaves))
+
+
+def _remat_block(x, blk, cfg, rope, generator, deterministic):
+    """``_block`` under ``torch.utils.checkpoint``: its activations are
+    recomputed in the backward. The recomputation replays the block's
+    dropout draws from ``generator``'s state at the block's start, then puts
+    the generator back, so the masks match and the stream is undisturbed."""
+    start = None if generator is None else generator.get_state()
+    calls = []
+
+    def run(x):
+        replay = bool(calls) and start is not None
+        calls.append(1)
+        if replay:
+            resume = generator.get_state()
+            generator.set_state(start)
+        try:
+            return _block(x, blk, cfg, rope, generator, deterministic)
+        finally:  # the recomputation may stop early by raising
+            if replay:
+                generator.set_state(resume)
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
+
+
 def head_logits(params: Params, x: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
-    """LM head over (B, T, D) hidden states -> (B, T, V) float32 logits: the
-    weight is rounded to x's dtype and the products summed in float32, with
-    the final softcap when configured (``generate._head_logits`` too)."""
-    w_head = params["wte"].t() if cfg.tie_weights else params["head"]
-    logits = x.float() @ w_head.to(x.dtype).float()
-    return attn_ops.softcap(logits, cfg.final_logit_softcap)
+    """LM head over (B, T, D) hidden states -> (B, T, V) float32 logits
+    (``_head_matmul``), with the final softcap when configured: the one head
+    of the forward, the chunked loss and decoding."""
+    return attn_ops.softcap(_head_matmul(x, _head_weight(params, cfg)),
+                            cfg.final_logit_softcap)
+
+
+def _head_weight(params: Params, cfg: GPTConfig) -> torch.Tensor:
+    return params["wte"].t() if cfg.tie_weights else params["head"]
 
 
 def forward(
@@ -213,11 +249,15 @@ def forward(
     targets: Optional[torch.Tensor] = None,  # (B, T), -1 = ignore
     generator: Optional[torch.Generator] = None,
     deterministic: bool = True,
-) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    return_logits: bool = True,
+) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Full forward pass -> (logits (B, T, V) float32, loss or None).
 
     The loss is the mean cross-entropy over targets != -1. Training mode
     (``deterministic=False``) draws its dropout masks from ``generator``.
+    ``return_logits=False`` (the trainer's loss-only mode) returns
+    ``(None, loss)`` and, when ``cfg.loss_chunks`` applies, never
+    materialises the logits (``chunked_cross_entropy``).
     """
     check_supported(cfg)
     b, t = tokens.shape
@@ -236,14 +276,22 @@ def forward(
     if cfg.rope:
         rope = attn_ops.rope_tables(torch.arange(t, device=x.device),
                                     cfg.head_dim, cfg.rope_theta)
-    for layer in range(cfg.n_layer):
-        x = _block(x, layer_params(params, layer), cfg, rope, generator,
-                   deterministic)
+    block = _remat_block if cfg.remat else _block
+    for blk in _unstack(params["blocks"]):
+        x = block(x, blk, cfg, rope, generator, deterministic)
 
     x = _norm(x, params["lnf_scale"], params.get("lnf_bias"), cfg)
+    # the chunk count snaps to the largest divisor of T <= loss_chunks, so an
+    # awkward T gives fewer, larger chunks rather than the dense logits
+    nc = max((d for d in range(1, cfg.loss_chunks + 1) if t % d == 0),
+             default=1)
+    if targets is not None and not return_logits and nc > 1:
+        return None, chunked_cross_entropy(
+            x, _head_weight(params, cfg), targets, nc,
+            softcap=cfg.final_logit_softcap)
     logits = head_logits(params, x, cfg)
     loss = cross_entropy(logits, targets) if targets is not None else None
-    return logits, loss
+    return (logits if return_logits else None), loss
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -253,6 +301,70 @@ def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = torch.gather(logp, -1, safe[..., None].long())[..., 0]
     return -(ll * valid).sum() / valid.sum().clamp(min=1)
+
+
+class _HeadMatmulF32Out(torch.autograd.Function):
+    """x (N, D) in a 16-bit type times the float32 weight rounded to that
+    type, with float32 output (cuBLAS sums the products in float32). The
+    backward's products run in the 16-bit type; the weight gradient comes
+    out in float32. ``torch.mm(..., out_dtype=)`` has no derivative."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        wl = w.to(x.dtype)
+        ctx.save_for_backward(x, wl)
+        return torch.mm(x, wl, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wl = ctx.saved_tensors
+        gl = g.to(x.dtype)
+        return gl @ wl.t(), torch.mm(x.t(), gl, out_dtype=torch.float32)
+
+
+def _head_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(..., D) hidden states times the float32 (D, V) head weight rounded
+    to x's dtype -> (..., V) float32 logits, products summed in float32."""
+    if x.dtype == torch.float32:
+        return x @ w
+    if x.is_cuda:
+        lead = x.shape[:-1]
+        out = _HeadMatmulF32Out.apply(x.reshape(-1, x.shape[-1]), w)
+        return out.reshape(*lead, -1)
+    return x.float() @ w.to(x.dtype).float()
+
+
+def _chunk_loss(xc, w_head, tc, softcap):
+    logits = attn_ops.softcap(_head_matmul(xc, w_head), softcap)
+    valid = tc != -1
+    safe = torch.where(valid, tc, torch.zeros_like(tc))
+    lse = torch.logsumexp(logits, dim=-1)  # (B, c) float32
+    s_t = torch.gather(logits, -1, safe[..., None].long())[..., 0]
+    return ((lse - s_t) * valid).sum()
+
+
+def chunked_cross_entropy(
+    x: torch.Tensor, w_head: torch.Tensor, targets: torch.Tensor,
+    n_chunks: int, softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """Same math as ``cross_entropy(head(x), targets)``, but the head matmul
+    and the softmax run per sequence chunk under ``torch.utils.checkpoint``:
+    at most one chunk's (B, T/n_chunks, V) float32 logits exist at a time,
+    and the backward recomputes them. The per-chunk loss is
+    ``sum(lse - logit_target)`` over valid targets (two reductions, no
+    log-prob tensor). Counterpart of the JAX ``chunked_cross_entropy``."""
+    b, t, _ = x.shape
+    if t % n_chunks:
+        raise ValueError(f"T={t} not divisible by n_chunks={n_chunks}")
+    c = t // n_chunks
+    total = x.new_zeros((), dtype=torch.float32)
+    for i in range(n_chunks):
+        sl = slice(i * c, (i + 1) * c)
+        total = total + checkpoint(_chunk_loss, x[:, sl], w_head,
+                                   targets[:, sl], softcap,
+                                   use_reentrant=False,
+                                   preserve_rng_state=False)
+    return total / (targets != -1).sum().clamp(min=1)
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,10 @@
 Each source ``csrc/<name>.cu`` exposes a plain C interface and becomes one
 shared library, compiled for Hopper (``sm_90a``) at first use into
 ``ops/_build/`` (listed in .gitignore) under a name keyed by a hash of the
-source and the flags, so an edited source is rebuilt and an unchanged one is
-reused. No PyTorch headers are compiled, which keeps a build to seconds.
+source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
+source is rebuilt and an unchanged one is reused. No PyTorch headers are
+compiled, which keeps a build to seconds; ``build_all`` runs one nvcc per
+source, all at once.
 
 A failed build raises; nothing falls back to another implementation.
 """
@@ -17,12 +19,13 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES: Tuple[str, ...] = ("flash_fwd",)
+SOURCES: Tuple[str, ...] = ("flash_fwd", "flash_bwd")
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -53,8 +56,11 @@ def nvcc() -> str:
 
 def library_path(name: str) -> Path:
     """Where the shared library built from ``csrc/<name>.cu`` lives."""
-    text = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -77,6 +83,14 @@ def build(name: str, ptxas_verbose: bool = False) -> str:
                            f"(exit {proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, out)  # atomic: a reader never sees a partial file
     return proc.stdout
+
+
+def build_all(ptxas_verbose: bool = False) -> Dict[str, str]:
+    """Build every source in ``SOURCES`` concurrently (one nvcc each);
+    returns each source's compiler output. Raises if any build fails."""
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
+        futures = {n: pool.submit(build, n, ptxas_verbose) for n in SOURCES}
+        return {n: f.result() for n, f in futures.items()}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -43,17 +43,11 @@
 // fp32 path is bound by FMA and shared-memory issue rates. TMA loads into a
 // ring of tiles with wgmma consumers are the next step.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;  // query rows per block
-constexpr int kBK = 64;  // keys per k/v tile
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kInvLog2e = 0.6931471805599453f;
+using namespace flash;
 
 struct Params {
   const void* q;
@@ -97,21 +91,6 @@ __device__ __forceinline__ bool visible(const Params& p, int q_pos,
 
 constexpr int kFmaThreads = 256;  // four threads per query row
 
-// Stage rows [row0, row0 + 64) of one head into shared memory (row stride
-// HD + 4 floats); rows at or past T are zero.
-template <int HD>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* base,
-                                              long long st, int row0,
-                                              int t_len) {
-  constexpr int kLd = HD + 4;
-  for (int e = threadIdx.x; e < kBK * HD; e += kFmaThreads) {
-    const int r = e / HD;
-    const int c = e % HD;
-    const int row = row0 + r;
-    dst[r * kLd + c] = row < t_len ? base[row * st + c] : 0.f;
-  }
-}
-
 template <int HD>
 __global__ void __launch_bounds__(kFmaThreads) flash_fwd_f32_kernel(Params p) {
   constexpr int kLd = HD + 4;    // +4 floats: float4-aligned, conflict-free
@@ -134,7 +113,7 @@ __global__ void __launch_bounds__(kFmaThreads) flash_fwd_f32_kernel(Params p) {
   const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
   const float* v = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  load_tile_f32<HD>(qs, q, p.q_st, q0, p.T);
+  load_tile_f32<HD, kFmaThreads>(qs, q, p.q_st, q0, p.T);
 
   float m = kNegInf;
   float l = 0.f;
@@ -149,8 +128,8 @@ __global__ void __launch_bounds__(kFmaThreads) flash_fwd_f32_kernel(Params p) {
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's k/v reads are done
-    load_tile_f32<HD>(ks, k, p.k_st, k0, p.T);
-    load_tile_f32<HD>(vs, v, p.v_st, k0, p.T);
+    load_tile_f32<HD, kFmaThreads>(ks, k, p.k_st, k0, p.T);
+    load_tile_f32<HD, kFmaThreads>(vs, v, p.v_st, k0, p.T);
     __syncthreads();
 
     // scores of keys k0 + sub + 4j, j = 0..15
@@ -253,52 +232,6 @@ __global__ void __launch_bounds__(kFmaThreads) flash_fwd_f32_kernel(Params p) {
 
 constexpr int kMmaThreads = 128;  // four warps, 16 query rows each
 
-// d += a b for one m16n8k16 tile: a 16x16 bf16 (row), b 16x8 bf16 (col),
-// d 16x8 fp32. Fragment ownership, with g = lane / 4 and t = lane % 4:
-// a = {A[g][2t..], A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]},
-// b = {B[2t..][g], B[2t+8..][g]}, d = {D[g][2t], D[g][2t+1], D[g+8][2t],
-// D[g+8][2t+1]}; ".." = the pair packed in one 32-bit register, low half
-// first.
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Stage rows [row0, row0 + 64) of one head into shared memory (row stride
-// HD + 8 bf16) with 16-byte loads; rows at or past T are zero. The wrapper
-// guarantees 16-byte aligned rows.
-template <int HD>
-__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
-                                               const __nv_bfloat16* base,
-                                               long long st, int row0,
-                                               int t_len) {
-  constexpr int kLd = HD + 8;
-  constexpr int kVecs = HD / 8;
-  for (int e = threadIdx.x; e < kBK * kVecs; e += kMmaThreads) {
-    const int r = e / kVecs;
-    const int c = (e % kVecs) * 8;
-    const int row = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row < t_len) val = *reinterpret_cast<const uint4*>(base + row * st + c);
-    *reinterpret_cast<uint4*>(dst + r * kLd + c) = val;
-  }
-}
-
 template <int HD>
 __global__ void __launch_bounds__(kMmaThreads)
     flash_fwd_bf16_kernel(Params p) {
@@ -310,7 +243,6 @@ __global__ void __launch_bounds__(kMmaThreads)
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_bf16);
   __nv_bfloat16* ks = qs + kBQ * kLd;
   __nv_bfloat16* vs = ks + kBK * kLd;
-  const unsigned short* vs16 = reinterpret_cast<const unsigned short*>(vs);
 
   const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
   const int h = blockIdx.y;
@@ -328,7 +260,7 @@ __global__ void __launch_bounds__(kMmaThreads)
       static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
   const __nv_bfloat16* v =
       static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  load_tile_bf16<HD>(qs, q, p.q_st, q0, p.T);
+  load_tile_bf16<HD, kMmaThreads>(qs, q, p.q_st, q0, p.T);
   __syncthreads();
   uint32_t qf[kKSteps][4];
 #pragma unroll
@@ -351,8 +283,8 @@ __global__ void __launch_bounds__(kMmaThreads)
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's k/v reads are done
-    load_tile_bf16<HD>(ks, k, p.k_st, k0, p.T);
-    load_tile_bf16<HD>(vs, v, p.v_st, k0, p.T);
+    load_tile_bf16<HD, kMmaThreads>(ks, k, p.k_st, k0, p.T);
+    load_tile_bf16<HD, kMmaThreads>(vs, v, p.v_st, k0, p.T);
     __syncthreads();
 
     // S = Q K^T: s[j] holds keys 8j + 2t4 (+1) of rows r_lo, r_lo + 8
@@ -420,10 +352,8 @@ __global__ void __launch_bounds__(kMmaThreads)
       const uint32_t a3 = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
 #pragma unroll
       for (int d = 0; d < kDTiles; ++d) {
-        const unsigned short* vc = vs16 + (16 * kc + 2 * t4) * kLd + 8 * d + g;
-        const uint32_t b0 = vc[0] | (static_cast<uint32_t>(vc[kLd]) << 16);
-        const uint32_t b1 =
-            vc[8 * kLd] | (static_cast<uint32_t>(vc[9 * kLd]) << 16);
+        uint32_t b0, b1;
+        b_frag_rows(vs + 16 * kc * kLd + 8 * d, kLd, g, t4, &b0, &b1);
         mma_bf16(o[d], a0, a1, a2, a3, b0, b1);
       }
     }

@@ -1,22 +1,27 @@
-"""Causal flash attention: the dispatch, the hand-written CUDA kernel's
-wrapper, and the kernel's plain PyTorch version.
+"""Causal flash attention: the dispatch, the autograd Function, the
+hand-written CUDA kernels' wrappers, and the kernels' plain PyTorch versions.
 
-Counterpart of ``mingpt_distributed_tpu/ops/flash_attention.py:1230-1315``.
-The kernel (``csrc/flash_fwd.cu``) replaces the TPU kernel
-``_fwd_kernel_btd``; see the source for its design and what bounds it.
+Counterpart of ``mingpt_distributed_tpu/ops/flash_attention.py:1089-1315``.
+The kernels replace the TPU kernels ``_fwd_kernel_btd`` (``csrc/flash_fwd.cu``)
+and ``_dq_kernel_btd`` + ``_dkv_kernel_btd`` (``csrc/flash_bwd.cu``); see the
+sources for their design and what bounds them.
 
 * ``causal_attention`` takes the einsum oracle exactly where the JAX
   package does, for semantic reasons: attention dropout active, q and k
   lengths differ (decode against a cache), or a non-zero or tensor
-  ``kv_offset``. Otherwise it runs ``flash_fwd``. The TPU-only machinery
-  (block-size ladder, lane packing, odd-head padding, layout switches) has
-  no counterpart: the kernel takes any T >= 1 and any head count.
-* ``flash_fwd`` runs the plain version for tensors on the CPU. For CUDA
-  tensors it launches the kernel or raises; nothing falls back. It is
-  forward-only in this slice: the gradient (the backward kernels) comes
-  with the training slice.
-* ``flash_fwd_plain`` is dense masked softmax in float32 with the
-  natural-domain log-sum-exp: what the kernel computes, written plainly.
+  ``kv_offset``. Otherwise it runs ``FlashAttention``, whose forward is
+  ``flash_fwd`` and whose backward is ``flash_bwd``, as ``_flash_btd``'s
+  custom VJP is in the JAX package. The TPU-only machinery (block-size
+  ladder, lane packing, odd-head padding, layout switches, the opt-in fused
+  backward) has no counterpart: the kernels take any T >= 1 and any head
+  count.
+* ``flash_fwd`` and ``flash_bwd`` run the plain versions for tensors on the
+  CPU. For CUDA tensors they launch the kernels or raise; nothing falls
+  back.
+* ``flash_fwd_plain`` is dense masked softmax with the natural-domain
+  log-sum-exp, ``flash_bwd_plain`` the dense gradient from the saved lse:
+  what the kernels compute, written plainly, in float32 (float64 for
+  float64 inputs, so ``gradcheck`` can run on the CPU).
 """
 
 from __future__ import annotations
@@ -34,6 +39,21 @@ SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _acc_dtype(x: torch.Tensor) -> torch.dtype:
+    """The plain versions' working type: float64 for float64, else
+    float32."""
+    return torch.float64 if x.dtype == torch.float64 else torch.float32
+
+
+def _allowed(t: int, window: Optional[int], device) -> torch.Tensor:
+    """(T, T) causal mask, banded to the last ``window`` keys."""
+    pos = torch.arange(t, device=device)
+    allowed = pos[:, None] >= pos[None, :]
+    if window is not None:
+        allowed = allowed & (pos[:, None] - pos[None, :] < window)
+    return allowed
+
+
 def flash_fwd_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
     window: Optional[int] = None, softcap: Optional[float] = None,
@@ -42,49 +62,108 @@ def flash_fwd_plain(
     dtype, lse (B, H, T) float32, natural domain). The probabilities stay
     float32 here; the kernel's bf16 path rounds them to bf16 before P V,
     as the TPU kernel does."""
+    acc = _acc_dtype(q)
     h = q.shape[2]
     k = attn_ops.repeat_kv(k, h // k.shape[2])
     v = attn_ops.repeat_kv(v, h // v.shape[2])
-    t = q.shape[1]
-    s = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale
+    s = torch.einsum("bthd,bshd->bhts", q.to(acc), k.to(acc)) * scale
     s = attn_ops.softcap(s, softcap)
-    pos = torch.arange(t, device=q.device)
-    allowed = pos[:, None] >= pos[None, :]
-    if window is not None:
-        allowed = allowed & (pos[:, None] - pos[None, :] < window)
-    s = torch.where(allowed, s, torch.full((), attn_ops.NEG_INF, device=q.device))
+    s = torch.where(_allowed(q.shape[1], window, q.device), s,
+                    torch.full((), attn_ops.NEG_INF, dtype=acc, device=q.device))
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
-    out = torch.einsum("bhts,bshd->bthd", p, v.float())
+    out = torch.einsum("bhts,bshd->bthd", p, v.to(acc))
     return out.to(q.dtype), lse
 
 
-def _declare(lib: ctypes.CDLL) -> None:
-    ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                          ctypes.c_float)
-    lib.flash_fwd.argtypes = [
-        ptr, ptr, ptr, ptr, ptr,            # q, k, v, out, lse
-        i32, i32, i32, i32, i32,            # B, T, H, KV, hd
-        i64, i64, i64, i64, i64, i64, i64, i64, i64,  # b/t/h strides of q, k, v
-        f32, i32, f32, i32,                 # scale, window, softcap, dtype
-        ptr,                                # stream
-    ]
+def flash_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, *, scale: float,
+    window: Optional[int] = None, softcap: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradient of ``flash_fwd`` from its saved lse (B, H, T), with the
+    TPU kernels' formulas: p = exp(s - lse) on allowed pairs, 0 elsewhere;
+    ds = p (dO V^T - delta) scale, times (1 - t^2) under soft-capping;
+    dq = ds K, dk = ds^T Q and dv = p^T dO, dk/dv summed over each GQA
+    group. Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    acc = _acc_dtype(q)
+    b, t, h, hd = q.shape
+    kv = k.shape[2]
+    kf = attn_ops.repeat_kv(k, h // kv).to(acc)
+    vf = attn_ops.repeat_kv(v, h // kv).to(acc)
+    qf, dof = q.to(acc), do.to(acc)
+    delta = (out.to(acc) * dof).sum(-1).transpose(1, 2)  # (B, H, T)
+    s = torch.einsum("bthd,bshd->bhts", qf, kf) * scale
+    dfac = scale
+    if softcap:
+        tanh = torch.tanh(s / softcap)
+        s = softcap * tanh
+        dfac = scale * (1.0 - tanh * tanh)
+    allowed = _allowed(t, window, q.device)
+    p = torch.where(allowed, torch.exp(s - lse.to(acc)[..., None]),
+                    torch.zeros((), dtype=acc, device=q.device))
+    dp = torch.einsum("bthd,bshd->bhts", dof, vf)
+    ds = p * (dp - delta[..., None]) * dfac
+    dq = torch.einsum("bhts,bshd->bthd", ds, kf)
+    dk = torch.einsum("bhts,bthd->bshd", ds, qf)
+    dv = torch.einsum("bhts,bthd->bshd", p, dof)
+    rep = h // kv
+    dk = dk.reshape(b, t, kv, rep, hd).sum(3)
+    dv = dv.reshape(b, t, kv, rep, hd).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+_STRIDES = [ctypes.c_longlong] * 9  # b/t/h strides of q, k, v
+_TAIL = [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+         ctypes.c_void_p]  # scale, window, softcap, dtype, stream
+_I32 = ctypes.c_int
+
+
+def _declare_fwd(lib: ctypes.CDLL) -> None:
+    lib.flash_fwd.argtypes = (
+        [ctypes.c_void_p] * 5        # q, k, v, out, lse
+        + [_I32] * 5                 # B, T, H, KV, hd
+        + _STRIDES + _TAIL)
     lib.flash_fwd.restype = ctypes.c_int
 
 
-def _kernel() -> ctypes.CDLL:
-    lib = _build.load("flash_fwd")
-    if lib.flash_fwd.argtypes is None:
-        _declare(lib)
+def _declare_bwd(lib: ctypes.CDLL) -> None:
+    lib.flash_bwd_dq.argtypes = (
+        [ctypes.c_void_p] * 7        # q, k, v, do, lse, delta, dq
+        + [_I32] * 5 + _STRIDES + _TAIL)
+    lib.flash_bwd_dq.restype = ctypes.c_int
+    lib.flash_bwd_dkv.argtypes = (
+        [ctypes.c_void_p] * 8        # q, k, v, do, lse, delta, dk, dv
+        + [_I32] * 5 + _STRIDES + _TAIL)
+    lib.flash_bwd_dkv.restype = ctypes.c_int
+
+
+def _kernel(name: str) -> ctypes.CDLL:
+    lib = _build.load(name)
+    if name == "flash_fwd" and lib.flash_fwd.argtypes is None:
+        _declare_fwd(lib)
+    elif name == "flash_bwd" and lib.flash_bwd_dq.argtypes is None:
+        _declare_bwd(lib)
     return lib
 
 
+def _qkv_strides(q, k, v):
+    return [x.stride(i) for x in (q, k, v) for i in range(3)]
+
+
+def _tail(q, scale, window, softcap, stream):
+    return [float(scale), 0 if window is None else int(window),
+            0.0 if softcap is None else float(softcap), _DTYPE_CODES[q.dtype],
+            stream]
+
+
 def _check_cuda_inputs(q, k, v) -> None:
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise NotImplementedError(
-            "flash_fwd is forward-only: its gradient needs the backward "
-            "kernels (K2 in ROADMAP.md Queue 2), ported with the training "
-            "slice; run inference under torch.no_grad()"
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "the kernel wrappers build no autograd graph: differentiate "
+            "through causal_attention (FlashAttention), or call them under "
+            "torch.no_grad()"
         )
     if not (k.device == q.device and v.device == q.device):
         raise ValueError("q, k and v must be on the same device")
@@ -129,20 +208,15 @@ def flash_fwd(
         raise ValueError(f"flash_fwd runs on cuda or cpu tensors, not {q.device}")
     _check_cuda_inputs(q, k, v)
     b, t, h, hd = q.shape
-    lib = _kernel()
+    lib = _kernel("flash_fwd")
     out = torch.empty((b, t, h, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), b, t, h, k.shape[2], hd,
-            q.stride(0), q.stride(1), q.stride(2),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            float(scale), 0 if window is None else int(window),
-            0.0 if softcap is None else float(softcap),
-            _DTYPE_CODES[q.dtype], stream,
+            lse.data_ptr(), b, t, h, k.shape[2], hd, *_qkv_strides(q, k, v),
+            *_tail(q, scale, window, softcap, stream),
         )
     if rc != 0:
         raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {rc}")
@@ -151,6 +225,120 @@ def flash_fwd(
 
 
 flash_fwd.launches = 0
+
+
+def _dense(x: torch.Tensor) -> torch.Tensor:
+    """x as a dense tensor whose rows start on 16-byte boundaries: autograd
+    may hand the backward a strided or expanded (stride 0) gradient."""
+    if x.is_contiguous() and x.data_ptr() % 16 == 0:
+        return x
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def _check_bwd_inputs(q, out, lse, do) -> None:
+    b, t, h, _ = q.shape
+    for name, x in (("out", out), ("do", do)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"{name} {tuple(x.shape)} {x.dtype} does not "
+                             f"match q {tuple(q.shape)} {q.dtype}")
+    if (lse.shape != (b, h, t) or lse.dtype != torch.float32
+            or lse.device != q.device):
+        raise ValueError(f"lse must be float32 (B, H, T) = {(b, h, t)}, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+
+
+def flash_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, *, scale: float,
+    window: Optional[int] = None, softcap: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' wrapper: the gradient of ``flash_fwd`` ->
+    (dq (B, T, H, hd), dk, dv (B, T, KV, hd)) in the inputs' dtype.
+
+    ``delta = rowsum(out * do)`` is computed here in float32 as a plain
+    tensor op, as the JAX package does outside its kernels. CPU tensors
+    take ``flash_bwd_plain``. CUDA tensors launch the dq kernel and the
+    dk/dv kernel (counted in ``flash_bwd.dq_launches`` and
+    ``flash_bwd.dkv_launches``) or raise.
+    """
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, out, lse, do, scale=scale,
+                               window=window, softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_bwd runs on cuda or cpu tensors, not {q.device}")
+    _check_cuda_inputs(q, k, v)
+    _check_bwd_inputs(q, out, lse, do)
+    do = _dense(do)
+    lse = lse.contiguous()
+    delta = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    kw = dict(scale=scale, window=window, softcap=softcap)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv
+
+
+def _launch_bwd(fn_name, outs, q, k, v, do, lse, delta, scale, window,
+                softcap) -> None:
+    lib = _kernel("flash_bwd")
+    b, t, h, hd = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = getattr(lib, fn_name)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
+            b, t, h, k.shape[2], hd, *_qkv_strides(q, k, v),
+            *_tail(q, scale, window, softcap, stream))
+    if rc != 0:
+        raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {rc}")
+
+
+def flash_bwd_dq(q, k, v, do, lse, delta, *, scale, window=None, softcap=None):
+    """Launch the dq kernel (K2a) on checked CUDA inputs: dO dense
+    (B, T, H, hd) with 16-byte rows, lse and delta dense (B, H, T) float32.
+    Counted in ``flash_bwd.dq_launches``."""
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_bwd("flash_bwd_dq", (dq,), q, k, v, do, lse, delta, scale,
+                window, softcap)
+    flash_bwd.dq_launches += 1
+    return dq
+
+
+def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale, window=None, softcap=None):
+    """Launch the dk/dv kernel (K2b) on the inputs ``flash_bwd_dq`` takes.
+    Counted in ``flash_bwd.dkv_launches``."""
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    _launch_bwd("flash_bwd_dkv", (dk, dv), q, k, v, do, lse, delta, scale,
+                window, softcap)
+    flash_bwd.dkv_launches += 1
+    return dk, dv
+
+
+flash_bwd.dq_launches = 0
+flash_bwd.dkv_launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable causal flash attention: ``flash_fwd`` forward, saving
+    (q, k, v, out, lse); ``flash_bwd`` backward. The counterpart of the
+    custom VJP around ``_flash_btd`` in the JAX package."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, window: Optional[int],
+                softcap: Optional[float]):
+        out, lse = flash_fwd(q, k, v, scale=scale, window=window,
+                             softcap=softcap)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.attn = (scale, window, softcap)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        scale, window, softcap = ctx.attn
+        dq, dk, dv = flash_bwd(q, k, v, out, lse, do, scale=scale,
+                               window=window, softcap=softcap)
+        return dq, dk, dv, None, None, None
 
 
 def causal_attention(
@@ -166,7 +354,7 @@ def causal_attention(
     logit_softcap: Optional[float] = None,
 ) -> torch.Tensor:
     """Drop-in for ops.attention.causal_attention that runs the flash
-    kernel wherever the JAX package runs its flash kernel."""
+    kernels wherever the JAX package runs its flash kernels."""
     use_flash = (
         q.shape[1] == k.shape[1]
         and (deterministic or attn_pdrop == 0.0)
@@ -179,9 +367,8 @@ def causal_attention(
             deterministic=deterministic, kv_offset=kv_offset, window=window,
             logit_softcap=logit_softcap,
         )
-    out, _ = flash_fwd(
-        q, k, v, scale=1.0 / math.sqrt(q.shape[3]),
-        window=None if window is None else int(window),
-        softcap=None if logit_softcap is None else float(logit_softcap),
+    return FlashAttention.apply(
+        q, k, v, 1.0 / math.sqrt(q.shape[3]),
+        None if window is None else int(window),
+        None if logit_softcap is None else float(logit_softcap),
     )
-    return out

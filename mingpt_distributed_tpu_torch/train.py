@@ -1,0 +1,70 @@
+"""Training entry point of the port: config, data, trainer.
+
+Counterpart of the repository's ``train.py``. Loads a YAML config with
+``section.key=value`` overrides, builds the character dataset (its vocabulary
+and block size override the model's), trains on one device, and exits 75
+after a preemption (SIGTERM/SIGINT: stop at a step boundary, snapshot) so a
+scheduler can requeue the run, which then resumes from the snapshot. Runs on
+CUDA unless ``--device cpu``.
+
+Usage:
+  python -m mingpt_distributed_tpu_torch.train [--config gpt2_config.yaml] \\
+      [--device cpu] [section.key=value ...]
+
+The default config keeps every dropout at 0.1; attention dropout routes
+attention to the einsum oracle, as in the JAX package, so set
+``gpt_config.attn_pdrop=0`` to train through the flash kernels.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+
+from mingpt_distributed_tpu_torch.config import load_config
+from mingpt_distributed_tpu_torch.data.char_dataset import CharDataset
+from mingpt_distributed_tpu_torch.training.trainer import (
+    REQUEUE_EXIT_CODE,
+    GPTTrainer,
+)
+from mingpt_distributed_tpu_torch.utils.device import resolve_device
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description=__doc__,
+                                formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--config", default="gpt2_config.yaml", help="YAML config file")
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.add_argument("overrides", nargs="*", help="dotted overrides: section.key=value")
+    args = p.parse_args(argv)
+
+    cfg = load_config(args.config, args.overrides)
+    if cfg.data_config.tokenizer != "char":
+        raise NotImplementedError(
+            "only the char tokenizer is ported (ROADMAP.md Queue 1 item 2: "
+            "data/bpe.py)")
+    device = resolve_device(args.device)
+    dataset = CharDataset(cfg.data_config)
+    train_view, test_view = dataset.split()
+    gpt_cfg = dataclasses.replace(cfg.gpt_config, vocab_size=dataset.vocab_size,
+                                  block_size=dataset.block_size)
+    print(f"data: {len(dataset.data)} chars, vocab {dataset.vocab_size}, "
+          f"{len(train_view)} train / {len(test_view)} test windows", flush=True)
+
+    trainer = GPTTrainer(cfg.trainer_config, gpt_cfg, cfg.optimizer_config,
+                         train_view, test_view, experiment_config=cfg,
+                         device=device)
+    try:
+        trainer.train()
+    finally:
+        trainer.close()
+    if trainer.preempted:
+        print(f"preempted at step {trainer.step}; snapshot committed, exiting "
+              f"{REQUEUE_EXIT_CODE} for requeue", flush=True)
+        return REQUEUE_EXIT_CODE
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

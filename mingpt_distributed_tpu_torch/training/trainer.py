@@ -1,0 +1,333 @@
+"""The training loop on one device.
+
+Counterpart of ``mingpt_distributed_tpu/training/trainer.py``:
+``make_train_step`` (forward, backward, clip, AdamW update, with gradient
+accumulation), ``make_eval_step`` and ``GPTTrainer`` (fresh init or restore,
+the epoch loop with logging, eval and snapshots, preemption on
+SIGTERM/SIGINT). The JAX package compiles a step into one program with
+donated state; here the step runs eagerly and updates the parameters in
+place. The loop reads metrics from the card only at logged steps, so the
+host enqueues the next step while the card runs this one.
+
+This slice is one GPU: meshes, ZeRO, Orbax and the other options
+``TrainerConfig.check_ported`` names raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import signal
+import threading
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from mingpt_distributed_tpu_torch.config import (
+    ExperimentConfig,
+    GPTConfig,
+    OptimizerConfig,
+    TrainerConfig,
+)
+from mingpt_distributed_tpu_torch.data.char_dataset import (
+    CharView,
+    IteratorState,
+    ShardedBatchIterator,
+)
+from mingpt_distributed_tpu_torch.data.prefetch import PrefetchIterator
+from mingpt_distributed_tpu_torch.models import gpt
+from mingpt_distributed_tpu_torch.training import checkpoint as ckpt_lib
+from mingpt_distributed_tpu_torch.training.metrics import MetricsLogger, peak_flops
+from mingpt_distributed_tpu_torch.training.optimizer import (
+    AdamW,
+    lr_schedule,
+    make_optimizer,
+)
+from mingpt_distributed_tpu_torch.utils.device import Device, resolve_device
+
+# Exit code after a preemption-triggered stop and snapshot: EX_TEMPFAIL,
+# "transient, requeue me"; the restarted run resumes from the snapshot.
+REQUEUE_EXIT_CODE = 75
+
+Batch = Tuple[torch.Tensor, torch.Tensor]
+
+
+@dataclasses.dataclass
+class TrainState:
+    """What a step reads and updates: the parameter tree (leaves require
+    grad), its optimizer, and the number of updates applied."""
+
+    params: gpt.Params
+    optimizer: AdamW
+    step: int = 0
+
+
+def trainable(params: gpt.Params) -> gpt.Params:
+    """The tree with every leaf a detached copy that requires grad."""
+    return {k: trainable(v) if isinstance(v, dict)
+            else v.detach().clone().requires_grad_() for k, v in params.items()}
+
+
+def deterministic(cfg: GPTConfig) -> bool:
+    """True iff every dropout rate is 0: the step then draws no masks."""
+    return cfg.embd_pdrop == 0.0 and cfg.resid_pdrop == 0.0 and cfg.attn_pdrop == 0.0
+
+
+def make_train_step(cfg: GPTConfig, grad_accum: int = 1,
+                    lr_fn: Optional[Callable[[int], float]] = None):
+    """(state, (x, y), generator) -> metrics: forward and backward (loss-only
+    mode, chunked head), clip, AdamW, ``state.step += 1``. Metrics are
+    device scalars: ``loss``, pre-clip ``grad_norm``, ``update_norm`` (the
+    applied update), and ``lr`` (the rate of this update) when ``lr_fn`` is
+    given.
+
+    ``grad_accum > 1`` splits the batch into that many micro-batches and
+    sums their gradients before the single update; each micro-batch mean
+    counts with equal weight (the JAX step's mean of means)."""
+    det = deterministic(cfg)
+
+    def loss_of(params, x, y, generator):
+        _, loss = gpt.forward(params, x, cfg, targets=y,
+                              generator=None if det else generator,
+                              deterministic=det, return_logits=False)
+        return loss
+
+    def train_step(state: TrainState, batch: Batch,
+                   generator: Optional[torch.Generator] = None
+                   ) -> Dict[str, torch.Tensor]:
+        x, y = batch
+        state.optimizer.zero_grad()
+        if grad_accum > 1:
+            b = x.shape[0]
+            if b % grad_accum:
+                raise ValueError(f"batch {b} not divisible by grad_accum={grad_accum}")
+            loss = x.new_zeros((), dtype=torch.float32)
+            for xm, ym in zip(x.chunk(grad_accum), y.chunk(grad_accum)):
+                loss_i = loss_of(state.params, xm, ym, generator)
+                (loss_i / grad_accum).backward()
+                loss = loss + loss_i.detach()
+            loss = loss / grad_accum
+        else:
+            loss = loss_of(state.params, x, y, generator)
+            loss.backward()
+            loss = loss.detach()
+        metrics = {"loss": loss, **state.optimizer.step(state.step)}
+        if lr_fn is not None:
+            metrics["lr"] = torch.tensor(float(lr_fn(state.step)))
+        state.step += 1
+        return metrics
+
+    return train_step
+
+
+def make_eval_step(cfg: GPTConfig):
+    """(state, (x, y)) -> mean loss (device scalar), no gradient."""
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: Batch) -> torch.Tensor:
+        x, y = batch
+        _, loss = gpt.forward(state.params, x, cfg, targets=y,
+                              return_logits=False)
+        return loss
+
+    return eval_step
+
+
+class GPTTrainer:
+    """Trains a GPT on one device: ``GPTTrainer(trainer_config, gpt_config,
+    optimizer_config, train_view, test_view)``, then ``train()``."""
+
+    def __init__(
+        self,
+        config: TrainerConfig,
+        gpt_config: GPTConfig,
+        optimizer_config: OptimizerConfig,
+        train_dataset: CharView,
+        test_dataset: Optional[CharView] = None,
+        experiment_config: Optional[ExperimentConfig] = None,
+        device: Optional[Device] = None,
+    ):
+        config.check_ported()
+        gpt.check_supported(gpt_config)
+        self.config = config
+        self.gpt_config = gpt_config
+        self.experiment_config = experiment_config
+        self.device = resolve_device(device)
+        self.train_iter = ShardedBatchIterator(
+            train_dataset, config.batch_size, shuffle=True, seed=config.seed)
+        self.test_iter = (
+            ShardedBatchIterator(test_dataset, config.batch_size, shuffle=False,
+                                 seed=config.seed)
+            if test_dataset is not None and len(test_dataset) >= config.batch_size
+            else None)
+        self.snapshot_path = config.snapshot_path or ckpt_lib.DEFAULT_SNAPSHOT_PATH
+        self._stop_requested = False
+        self.preempted = False
+
+        self._lr_fn = lr_schedule(optimizer_config)
+        params = trainable(gpt.init(gpt_config, torch.Generator().manual_seed(config.seed),
+                                    device=self.device))
+        self.state = TrainState(params, make_optimizer(
+            optimizer_config, params, config.grad_norm_clip, self._lr_fn))
+        self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
+        self.start_epoch = 0
+        restored = ckpt_lib.load_snapshot(self.snapshot_path)
+        if restored is None:
+            print("Snapshot not found. Training model from scratch", flush=True)
+        else:
+            self._restore(restored)
+            print(f"Resuming training from snapshot at epoch {restored['epoch']}, "
+                  f"step {restored['step']}", flush=True)
+
+        self._train_step = make_train_step(
+            gpt_config, grad_accum=config.grad_accum_steps, lr_fn=self._lr_fn)
+        self._eval_step = make_eval_step(gpt_config)
+        name = (torch.cuda.get_device_name(self.device)
+                if self.device.type == "cuda" else "cpu")
+        self.metrics = MetricsLogger(gpt_config, jsonl_path=config.metrics_jsonl,
+                                     peak=peak_flops(name, gpt_config.dtype))
+        print(gpt.model_size_report(params, gpt_config), flush=True)
+
+    def _restore(self, snap: Dict[str, Any]) -> None:
+        with torch.no_grad():
+            def load(dst, src, where=""):
+                if set(dst) != set(src):
+                    raise ValueError(f"snapshot params{where}: keys {sorted(src)} "
+                                     f"do not match the config's {sorted(dst)}")
+                for k, v in dst.items():
+                    if isinstance(v, dict):
+                        load(v, src[k], f"{where}/{k}")
+                    elif v.shape != src[k].shape:
+                        raise ValueError(f"snapshot params{where}/{k}: shape "
+                                         f"{tuple(src[k].shape)}, config wants "
+                                         f"{tuple(v.shape)}")
+                    else:
+                        v.copy_(src[k])
+            load(self.state.params, snap["params"])
+        self.state.optimizer.opt.load_state_dict(snap["opt_state"])
+        self.state.step = int(snap["step"])
+        self.start_epoch = int(snap["epoch"])
+        self.train_iter.state = IteratorState.from_dict(snap["data_state"])
+        self.generator.set_state(snap["generator"])
+
+    @property
+    def step(self) -> int:
+        return self.state.step
+
+    def _put_batch(self, xy: Tuple[np.ndarray, np.ndarray]) -> Batch:
+        def put(a):
+            t = torch.from_numpy(a)
+            if self.device.type == "cuda":
+                # pinned + non_blocking: the copy does not wait for the card
+                return t.pin_memory().to(self.device, non_blocking=True).long()
+            return t.long()
+        return put(xy[0]), put(xy[1])
+
+    # -- preemption ------------------------------------------------------------
+    def request_stop(self, signum: Optional[int] = None) -> None:
+        """Stop at the next step boundary, snapshot, set ``preempted``."""
+        self._stop_requested = True
+
+    def _on_signal(self, signum, frame) -> None:
+        if self._stop_requested and signum == signal.SIGINT:
+            raise KeyboardInterrupt  # a second Ctrl-C means now
+        print(f"[trainer] {signal.Signals(signum).name} received: stopping at "
+              f"the next step boundary, snapshotting, then exiting with code "
+              f"{REQUEUE_EXIT_CODE} (requeue)", flush=True)
+        self.request_stop(signum)
+
+    def _install_signal_handlers(self):
+        if not self.config.handle_signals:
+            return None
+        if threading.current_thread() is not threading.main_thread():
+            return None
+        return {sig: signal.signal(sig, self._on_signal)
+                for sig in (signal.SIGTERM, signal.SIGINT)}
+
+    # -- the loop ----------------------------------------------------------------
+    def train(self) -> Dict[str, Any]:
+        """Epochs from ``start_epoch``: train, log, eval and snapshot.
+        Returns the last logged metrics (with ``eval_loss`` after an eval)."""
+        prev = self._install_signal_handlers()
+        try:
+            return self._train_loop()
+        finally:
+            if prev is not None:
+                for sig, handler in prev.items():
+                    signal.signal(sig, handler)
+
+    def _train_loop(self) -> Dict[str, Any]:
+        cfg = self.config
+        last: Dict[str, Any] = {}
+        block = self.train_iter.view.block_size
+        tokens_per_step = cfg.batch_size * block
+        stop = False
+        for epoch in range(self.start_epoch, cfg.max_epochs):
+            # the prefetch thread runs ahead of the iterator's position;
+            # `consumed` is what was trained on, the truth for resume
+            consumed = self.train_iter.state.step_in_epoch
+            source = self.train_iter.epoch_batches()
+            if cfg.prefetch > 0:
+                source = PrefetchIterator(source, depth=cfg.prefetch)
+            for xy in source:
+                m = self._train_step(self.state, self._put_batch(xy), self.generator)
+                step = self.state.step
+                consumed += 1
+                if step % cfg.log_every == 0 or (cfg.max_steps and step >= cfg.max_steps):
+                    scalars = {k: v.item() for k, v in m.items()}
+                    scalars["epoch"] = epoch
+                    last = self.metrics.log_step(step, tokens_per_step, block, scalars)
+                if self._stop_requested:
+                    self.preempted = stop = True
+                if cfg.max_steps and step >= cfg.max_steps:
+                    stop = True
+                if stop:
+                    break
+            if stop:
+                # stop the producer before touching the iterator's state,
+                # then set it to the batches actually trained on
+                if cfg.prefetch > 0:
+                    source.close()
+                self.train_iter.state = IteratorState(
+                    epoch=epoch, step_in_epoch=consumed,
+                    seed=self.train_iter.state.seed)
+            epoch_done = epoch + (0 if stop else 1)
+            if self.test_iter is not None and not self.preempted and (
+                    stop or (epoch + 1) % cfg.eval_every == 0):
+                last["eval_loss"] = self.evaluate()
+                print(f"epoch {epoch} | eval_loss {last['eval_loss']:.4f}", flush=True)
+            if stop or (epoch + 1) % cfg.save_every == 0:
+                self.save_snapshot(epoch_done)
+            if stop:
+                break
+        return last
+
+    def evaluate(self) -> float:
+        """Mean loss over the eval set (``eval_batches`` caps it); read from
+        the card once, at the end."""
+        losses = []
+        self.test_iter.state = IteratorState(seed=self.config.seed)
+        for i, xy in enumerate(self.test_iter.epoch_batches()):
+            if self.config.eval_batches and i >= self.config.eval_batches:
+                break
+            losses.append(self._eval_step(self.state, self._put_batch(xy)))
+        return float(torch.stack(losses).mean().item())
+
+    def save_snapshot(self, epoch: int) -> None:
+        cpu = lambda t: {k: cpu(v) if isinstance(v, dict)  # noqa: E731
+                         else v.detach().cpu() for k, v in t.items()}
+        ckpt_lib.save_snapshot(self.snapshot_path, {
+            "params": cpu(self.state.params),
+            "opt_state": self.state.optimizer.opt.state_dict(),
+            "step": self.state.step,
+            "epoch": epoch,
+            "data_state": self.train_iter.state.to_dict(),
+            "generator": self.generator.get_state(),
+            "config": (self.experiment_config.to_dict()
+                       if self.experiment_config else {}),
+        })
+        print(f"Snapshot saved to {self.snapshot_path} (epoch {epoch}, "
+              f"step {self.state.step})", flush=True)
+
+    def close(self) -> None:
+        self.metrics.close()

@@ -222,8 +222,9 @@ def _bf16(shape=(1, 8, 2, 16)):
 
 
 WRAPPER_REFUSALS = {
+    # with grad enabled: the wrapper builds no graph (FlashAttention does)
     "requires_grad": (lambda: (_bf16().requires_grad_(), _bf16(), _bf16()),
-                      NotImplementedError),
+                      RuntimeError),
     "float16": (lambda: (_bf16().half(), _bf16().half(), _bf16().half()),
                 TypeError),
     "mixed_dtypes": (lambda: (_bf16(), _bf16().float(), _bf16()), TypeError),

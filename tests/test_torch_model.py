@@ -135,10 +135,35 @@ def test_cross_entropy_matches_jax():
 @pytest.mark.parametrize("override,match", [
     (dict(attention="ring"), "not ported"),
     (dict(n_experts=4), "mixture-of-experts"),
-    (dict(remat=True), "remat"),
 ])
 def test_unported_options_raise(override, match):
     cfg = TConfig.make(**dict(SMALL, **override))
     with pytest.raises(NotImplementedError, match=match):
         params = t_gpt.init(cfg, torch.Generator().manual_seed(0))
         t_gpt.forward(params, torch.zeros((1, 4), dtype=torch.long), cfg)
+
+
+@pytest.mark.parametrize("attention", ["einsum", "flash"])
+def test_remat_gives_the_same_loss_and_grads(attention):
+    # remat recomputes each block in the backward (torch.utils.checkpoint),
+    # replaying the block's dropout draws, so loss and grads are unchanged
+    kw = dict(SMALL, attention=attention, embd_pdrop=0.1, resid_pdrop=0.1)
+    tokens = torch.from_numpy(
+        np.random.default_rng(5).integers(0, 96, (2, 32))).long()
+    results = []
+    for remat in (False, True):
+        cfg = TConfig.make(**dict(kw, remat=remat))
+        params = t_gpt.init(cfg, torch.Generator().manual_seed(0))
+        leaves = [params["wte"], params["blocks"]["wq"], params["blocks"]["w_fc"]]
+        for w in leaves:
+            w.requires_grad_()
+        gen = torch.Generator().manual_seed(7)
+        _, loss = t_gpt.forward(params, tokens, cfg, targets=tokens,
+                                generator=gen, deterministic=False,
+                                return_logits=False)
+        grads = torch.autograd.grad(loss, leaves)
+        results.append((loss, grads, gen.get_state()))
+    (l0, g0, s0), (l1, g1, s1) = results
+    assert torch.equal(l0, l1) and torch.equal(s0, s1)
+    for a, b in zip(g0, g1):
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
