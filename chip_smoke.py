@@ -5,18 +5,22 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 per source, in parallel), holds each against its plain PyTorch version on
-the card, drives the port's inference and training paths at GPT-2 124M width
-(random weights, fixed seeds) through the entry points a user calls, checks
-that each path went through the kernels, and times them. Imports nothing of
-JAX. Prints JSON lines as it goes; any failed check raises, so the exit
-code is non-zero and the final line is never printed.
+the card, drives the port's inference, training and sequence-parallel
+training paths at GPT-2 124M width (random weights, fixed seeds) through the
+entry points a user calls, checks that each path went through the kernels,
+and times them. Imports nothing of JAX. Prints JSON lines as it goes; any
+failed check raises, so the exit code is non-zero and the final line is
+never printed.
 
 Phases:
   0. setup: the card's name and power limit, TF32 off, the kernel builds;
   1. every kernel against its plain version at the main paths' shapes
-     (generation at batch 4, the train step at batch 16) and the edge cases
-     (GQA, a window narrower than a tile, softcap, ragged T): the forward
-     (flash_fwd) and the backward (flash_bwd: dq and dk/dv);
+     (generation at batch 4, the train step at batch 16, the sp path's
+     zigzag hop) and the edge cases (GQA, a window narrower than a tile,
+     softcap, ragged T): the forward (flash_fwd) and the backward
+     (flash_bwd: dq and dk/dv); the ring's forward with lse (flash_lse_fwd:
+     causal flag, q_offset, dead rows) and its backward with an lse
+     cotangent (flash_lse_bwd: dq and dk/dv);
   2. the GPT forward at GPT-2 124M width: flash kernel vs plain attention;
      the GPT gradients through the kernels vs plain attention;
   3. generation at the same width: sliding window (one forward kernel launch
@@ -26,6 +30,12 @@ Phases:
      (GPT-2 124M, T=1024, batch 16, bf16, no dropout), 12 forward, 12 dq and
      12 dk/dv launches per step; then the train entry point on the corpus
      (loss falls, eval, snapshot, resume);
+  4b. sequence parallel, this slice's main path: 4 ranks spawned on the one
+     card over gloo: ring and Ulysses attention at GPT-2 width (T=4096)
+     against dense plain attention; the sp = 4 ring train step at full
+     GPT-2 width, block 4096, global batch 4 (exactly 72 K3, 72 K4a and 72
+     K4b launches per rank per step), its loss against a single-process
+     dense-attention step; a dp = 2 x sp = 2 Ulysses step at 2 layers;
   5. times: kernels, plain versions, bounds and library yardsticks; peak
      device memory.
 The last three lines are the card, the kernels line and the ok line.
@@ -202,17 +212,22 @@ def make_qkv(b, t, h, kv, hd, dtype, seed):
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
-def attention_work(b, t, h, hd, window, dtype, kernel="flash_fwd", kv=None):
+def attention_work(b, t, h, hd, window, dtype, kernel="flash_fwd", kv=None,
+                   causal=True):
     """(bytes, operations) a kernel must move and do, each input read once
     and each output written once, for every (query, allowed key) pair:
-      flash_fwd:     reads q, k, v; writes out, lse (fp32); 2 products;
-      flash_bwd_dq:  reads q, k, v, dO, lse, delta; writes dq; 3 products
-                     (S, dP, dS K);
-      flash_bwd_dkv: reads q, k, v, dO, lse, delta; writes dk, dv; 4
-                     products (S, dP, P^T dO, dS^T Q);
-    each product 2*hd operations per pair."""
+      flash_fwd, flash_lse_fwd:  reads q, k, v; writes out, lse (fp32); 2
+                                 products;
+      flash_bwd_dq, flash_lse_bwd_dq:  reads q, k, v, dO, lse, delta;
+                                 writes dq; 3 products (S, dP, dS K);
+      flash_bwd_dkv, flash_lse_bwd_dkv:  reads q, k, v, dO, lse, delta;
+                                 writes dk, dv; 4 products (S, dP, P^T dO,
+                                 dS^T Q);
+    each product 2*hd operations per pair. Not causal: every pair."""
     kv = h if kv is None else kv
-    if window is None:
+    if not causal:
+        pairs = t * t
+    elif window is None:
         pairs = t * (t + 1) // 2
     else:
         w = min(window, t)
@@ -221,9 +236,9 @@ def attention_work(b, t, h, hd, window, dtype, kernel="flash_fwd", kv=None):
     q_elems = b * t * h * hd  # q, out, dO, dq
     kv_elems = b * t * kv * hd  # k, v, dk, dv
     vec = b * h * t * 4  # one float32 per (batch, head, query)
-    if kernel == "flash_fwd":
+    if kernel.endswith("fwd"):
         nbytes, products = (2 * q_elems + 2 * kv_elems) * elem + vec, 2
-    elif kernel == "flash_bwd_dq":
+    elif kernel.endswith("dq"):
         nbytes, products = (3 * q_elems + 2 * kv_elems) * elem + 2 * vec, 3
     else:
         nbytes, products = (2 * q_elems + 4 * kv_elems) * elem + 2 * vec, 4
@@ -348,6 +363,133 @@ def phase_bwd_kernels(fa):
     for i, case in enumerate(KERNEL_CASES):
         for dtype in (torch.bfloat16, torch.float32):
             rec, fails = bwd_case(fa, i, case, dtype)
+            emit(rec)
+            check(not fails, "; ".join(msg for _, msg in fails))
+            results[(case[0], dtype)] = rec
+    return results
+
+
+# K3/K4 cases: name, B, T, H, KV, hd, causal, window, softcap, q_offset.
+# zigzag_hop is the shape the sp main path (T=4096, sp=4, batch 4) gives
+# every hop's batch-stacked call (the JAX layout's (2*B*H, 512, 64)), and
+# zigzag_own its step-0 causal calls; the offset cases are the banded
+# ring's boundary hops: a q chunk c after its k chunk with a window, rows
+# dead in every tile, and an offset inside the band.
+LSE_CASES = [
+    ("zigzag_hop", 8, 512, 12, 12, 64, False, None, None, 0),
+    ("zigzag_own", 4, 512, 12, 12, 64, True, None, None, 0),
+    ("offset_c_window_dead_rows", 2, 384, 12, 12, 64, True, 100, None, 384),
+    ("offset_inside_band", 2, 256, 12, 12, 64, True, 200, None, 128),
+    ("offset_gqa_hd32", 2, 200, 8, 4, 32, True, None, None, 64),
+    ("non_causal_softcap30_gqa_hd128", 2, 300, 8, 2, 128, False, None, 30.0, 0),
+    ("offset_window_softcap20_hd16", 2, 100, 4, 4, 16, True, 40, 20.0, 50),
+    ("t1_causal", 2, 1, 12, 12, 64, True, None, None, 0),
+    ("t1_non_causal", 2, 1, 12, 12, 64, False, None, None, 0),
+    ("t100_non_causal", 2, 100, 12, 12, 64, False, None, None, 0),
+]
+# A dead row (no key inside its offset band) must come out finite with
+# lse <= DEAD_LSE and out exactly 0; its dq exactly 0.
+DEAD_LSE = -1e29
+# The lse cotangent must move dq and dk by at least this many times their
+# tolerance, in the plain version, for the check to show that the kernels
+# take it.
+DLSE_EFFECT_X = 5.0
+
+
+def lse_case(fa, i, case, dtype):
+    """K3 (flash_lse_fwd) and K4a/K4b (flash_lse_bwd) against their plain
+    versions on case ``i`` of LSE_CASES in ``dtype``, the backward with a
+    random lse cotangent: the record and the (what, message) of every check
+    it fails. Errors are taken over live rows; dead rows are held to the
+    dead-row contract."""
+    name, b, t, h, kv, hd, causal, window, cap, q_offset = case
+    dt = str(dtype).replace("torch.", "")
+    q, k, v = make_qkv(b, t, h, kv, hd, dtype, seed=600 + i)
+    g = torch.Generator(device="cuda").manual_seed(700 + i)
+    do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+    dlse = torch.randn((b, h, t), generator=g, device="cuda")
+    kw = dict(scale=1.0 / math.sqrt(hd), causal=causal, window=window,
+              softcap=cap, q_offset=q_offset)
+    live = fa._allowed(t, window, "cuda", causal, q_offset).any(1)
+    fails = []
+
+    out, lse = fa.flash_lse_fwd(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_lse_fwd_plain(q, k, v, **kw)
+    diff = (out.float() - ref.float())[:, live].abs()
+    rec = {"phase": "kernel_check", "kernel": "flash_lse_fwd+flash_lse_bwd",
+           "case": name, "dtype": dt, "shape": [b, t, h, kv, hd],
+           "causal": causal, "window": window, "softcap": cap,
+           "q_offset": q_offset, "live_rows": int(live.sum().item()),
+           "max_abs_err": diff.max().item(),
+           "mean_rel_err": (diff.mean() / ref.float()[:, live].abs().mean()
+                            .clamp_min(1e-30)).item(),
+           "lse_max_abs_err": (lse - ref_lse)[..., live].abs().max().item(),
+           "tol": OUT_TOL[dtype], "rel_tol": OUT_REL_TOL[dtype],
+           "lse_tol": LSE_TOL}
+    if not bool(torch.isfinite(out.float()).all() and torch.isfinite(lse).all()):
+        fails.append(("fwd", f"{name} {dt}: non-finite out or lse"))
+    if not rec["max_abs_err"] <= OUT_TOL[dtype]:
+        fails.append(("fwd", f"{name} {dt}: max |out diff| {rec['max_abs_err']}"))
+    if not rec["mean_rel_err"] <= OUT_REL_TOL[dtype]:
+        fails.append(("fwd", f"{name} {dt}: mean rel out diff {rec['mean_rel_err']}"))
+    if not rec["lse_max_abs_err"] <= LSE_TOL:
+        fails.append(("fwd", f"{name} {dt}: max |lse diff| {rec['lse_max_abs_err']}"))
+    if not bool(live.all()):
+        dead_lse = lse[..., ~live]
+        rec["dead_lse_max"] = dead_lse.max().item()
+        rec["dead_out_max_abs"] = out[:, ~live].float().abs().max().item()
+        if not (bool(torch.isfinite(dead_lse).all()) and rec["dead_lse_max"] <= DEAD_LSE
+                and rec["dead_out_max_abs"] == 0.0):
+            fails.append(("fwd", f"{name} {dt}: dead rows break the contract: lse "
+                                 f"max {rec['dead_lse_max']}, |out| max "
+                                 f"{rec['dead_out_max_abs']}"))
+
+    out_p, lse_p = fa.flash_lse_fwd_plain(q, k, v, **kw)
+    got = fa.flash_lse_bwd(q, k, v, out_p, lse_p, do, dlse, **kw)
+    torch.cuda.synchronize()
+    want = fa.flash_lse_bwd_plain(q, k, v, out_p, lse_p, do, dlse, **kw)
+    without = fa.flash_lse_bwd_plain(q, k, v, out_p, lse_p, do, None, **kw)
+    for grad, gg, r, r0, x in zip(("dq", "dk", "dv"), got, want, without, (q, k, v)):
+        if gg.shape != x.shape or gg.dtype != x.dtype:
+            fails.append((grad, f"{name} {dt}: {grad} {tuple(gg.shape)} {gg.dtype}"))
+            continue
+        d = (gg.float() - r.float()).abs()
+        tol = grad_tol(dtype, r.float().abs().max().item())
+        rec[f"{grad}_max_abs_err"] = d.max().item()
+        rec[f"{grad}_mean_rel_err"] = (d.mean() / r.float().abs().mean()
+                                       .clamp_min(1e-30)).item()
+        rec[f"{grad}_max_abs"] = r.float().abs().max().item()
+        rec[f"{grad}_tol"] = tol
+        rec[f"{grad}_dlse_effect"] = (r.float() - r0.float()).abs().max().item()
+        if not bool(torch.isfinite(gg.float()).all()):
+            fails.append((grad, f"{name} {dt}: non-finite {grad}"))
+        if not rec[f"{grad}_max_abs_err"] <= tol:
+            fails.append((grad, f"{name} {dt}: max |{grad} diff| "
+                                f"{rec[f'{grad}_max_abs_err']} > {tol}"))
+        if not (rec[f"{grad}_max_abs"] < ZERO_GRAD_MAX
+                or rec[f"{grad}_mean_rel_err"] <= GRAD_REL_TOL[dtype]):
+            fails.append((grad, f"{name} {dt}: mean rel {grad} diff "
+                                f"{rec[f'{grad}_mean_rel_err']}"))
+        if grad in ("dq", "dk") and not rec[f"{grad}_dlse_effect"] >= DLSE_EFFECT_X * tol:
+            fails.append((grad, f"{name} {dt}: dlse moves {grad} by only "
+                                f"{rec[f'{grad}_dlse_effect']}"))
+    if not bool(live.all()):
+        rec["dead_dq_max_abs"] = got[0][:, ~live].float().abs().max().item()
+        if rec["dead_dq_max_abs"] != 0.0:
+            fails.append(("dq", f"{name} {dt}: dead rows' dq "
+                                f"{rec['dead_dq_max_abs']} != 0"))
+    rec["tol_rel"] = GRAD_REL_TOL[dtype]
+    return rec, fails
+
+
+def phase_lse_kernels(fa):
+    """K3, K4a and K4b against their plain versions; returns the records
+    by (case, dtype)."""
+    results = {}
+    for i, case in enumerate(LSE_CASES):
+        for dtype in (torch.bfloat16, torch.float32):
+            rec, fails = lse_case(fa, i, case, dtype)
             emit(rec)
             check(not fails, "; ".join(msg for _, msg in fails))
             results[(case[0], dtype)] = rec
@@ -585,16 +727,23 @@ def phase_grads(fa, params32, card):
 # ---------------------------------------------------------------------------
 
 
+# every kernel's launch counter: (function, attribute)
+COUNTERS = {"flash_fwd": ("flash_fwd", "launches"),
+            "flash_bwd_dq": ("flash_bwd", "dq_launches"),
+            "flash_bwd_dkv": ("flash_bwd", "dkv_launches"),
+            "flash_lse_fwd": ("flash_lse_fwd", "launches"),
+            "flash_lse_bwd_dq": ("flash_lse_bwd", "dq_launches"),
+            "flash_lse_bwd_dkv": ("flash_lse_bwd", "dkv_launches")}
+
+
 def reset_counts(fa):
-    fa.flash_fwd.launches = 0
-    fa.flash_bwd.dq_launches = 0
-    fa.flash_bwd.dkv_launches = 0
+    for fn, attr in COUNTERS.values():
+        setattr(getattr(fa, fn), attr, 0)
 
 
 def read_counts(fa):
-    return {"flash_fwd": fa.flash_fwd.launches,
-            "flash_bwd_dq": fa.flash_bwd.dq_launches,
-            "flash_bwd_dkv": fa.flash_bwd.dkv_launches}
+    return {name: getattr(getattr(fa, fn), attr)
+            for name, (fn, attr) in COUNTERS.items()}
 
 
 def phase_train_step(fa, card, steps=5):
@@ -628,7 +777,8 @@ def phase_train_step(fa, card, steps=5):
            "update_norm": m["update_norm"].item(), "card": card}
     emit(rec)
     for name, n in counts.items():
-        check(n == 12 * steps, f"train step: {n} {name} launches, want {12 * steps}")
+        want = 0 if "lse" in name else 12 * steps
+        check(n == want, f"train step: {n} {name} launches, want {want}")
     check(all(math.isfinite(v) for v in losses), "non-finite training loss")
     check(losses[-1] < losses[0], "the loss on a repeated batch did not fall")
     del state, batch
@@ -700,15 +850,370 @@ def phase_train_entry(fa, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: sequence parallel, 4 ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+
+# The sp main path: GPT-2 124M at full width, block 4096, ring attention
+# over sp = 4 ranks (chunks of 1024, zigzag: half-chunks of 512), global
+# batch 4, bf16, no dropout, random tokens, SP_STEPS steps. The card has
+# one GPU, and NCCL refuses two ranks on one GPU, so the ranks are
+# processes sharing cuda:0 over gloo: the kernels run on the card, the
+# exchanges between ranks go through host memory.
+SP = 4
+SP_T = 4096
+SP_BATCH = 4
+SP_STEPS = 3
+SP_DP2_LAYERS = 2
+# Zigzag K3 launches per rank per layer and forward: 3 at step 0 (early x
+# early and late x late causal, late x early full) and one batch-stacked
+# call per hop, 3 + (n - 1); as many K4a and K4b in the backward; K3 twice
+# that with remat (the forward runs again in the backward). Remat is off.
+SP_K3_PER_LAYER = 3 + (SP - 1)
+# Each sp step's first step against a single process with dense (einsum)
+# attention on the same parameters, batch and dtype; rank 0 runs it after
+# the sp steps. Limits are about 10x the sound readings on the card.
+#  bf16 (the main path): the activations round to bf16 at other places
+#        (the ring rounds each hop's output before its float32 merge).
+#        Loss |diff| <= 5e-4 (read 4e-5); grad_norm (before the clip)
+#        within 0.5% relative (read 0.09%). Gradients are printed, not held:
+#        per parameter they differ by up to 4.9% (read), so a ring that
+#        drops a hop (12%) hides in the rounding; and at random init the
+#        loss sits near ln(50257) = 10.8 whatever attention does (that ring
+#        moves it by 2e-4).
+#  fp32 (a ring step beside the main path, and the dp x sp step): every
+#        parameter's first update (the gradient after the clip) within
+#        ||g_sp - g_dense|| / ||g_dense|| <= GRAD_FP32_REL_TOL, as on one
+#        card (phase_grads; read <= 3e-6, and 0.12 with a ring that drops
+#        a hop), and over all parameters together; blocks/bk, whose
+#        gradient is 0 in exact arithmetic (ZERO_GRAD_PARAMS), only within
+#        the total. Loss |diff| <= 2e-5 (read 1.9e-6); grad_norm within
+#        GRAD_FP32_REL_TOL relative (read equal).
+# Later bf16 steps are printed beside the dense run's, not held: after an
+# update Adam's normalised step turns bf16-level gradient differences into
+# different moves wherever a gradient is near zero, so the two trajectories
+# separate step by step (0.028 apart by step 3 on the card).
+SP_LOSS_TOL = 5e-4
+SP_GRAD_NORM_REL_TOL = 5e-3
+SP_FP32_LOSS_TOL = 2e-5
+# Ring and Ulysses attention at GPT-2 width (B=1, T=4096, H=12, hd=64) on 4
+# ranks against the dense plain attention (the einsum oracle in float32 on
+# the same, for bf16 rounded, inputs), per output and gradient, over all
+# ranks' chunks:
+#  fp32: float32 sums in other orders over up to 4096 terms: mean |diff| /
+#        mean |ref| <= 1e-5, max |diff| <= 1e-4 * max(1, max |ref|);
+#  bf16: the kernels round P and dS to bf16 and the outputs to bf16 (one
+#        step at the largest value, as for K1/K2), and the ring rounds each
+#        hop's partial output before merging it: mean <= 1e-2, max |diff|
+#        <= 2^-6 * max(1, max |ref|) (two bf16 steps).
+SP_ATTN_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 2.0 ** -6)}
+
+
+def _sp_gpt_config(attention, n_layer=None, dtype="bfloat16"):
+    from mingpt_distributed_tpu_torch.config import GPTConfig
+
+    dims = (dict(model_type="gpt2") if n_layer is None
+            else dict(n_layer=n_layer, n_head=12, n_embd=768))
+    return GPTConfig.make(vocab_size=50257, block_size=SP_T, attention=attention,
+                          dtype=dtype, embd_pdrop=0.0, resid_pdrop=0.0,
+                          attn_pdrop=0.0, **dims)
+
+
+def _sp_batch(seed):
+    g = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, 50257, (SP_BATCH, SP_T + 1), generator=g)
+    return tokens[:, :-1], tokens[:, 1:]
+
+
+def _sp_state(cfg, device):
+    from mingpt_distributed_tpu_torch.config import OptimizerConfig
+    from mingpt_distributed_tpu_torch.models import gpt
+    from mingpt_distributed_tpu_torch.training.optimizer import make_optimizer
+    from mingpt_distributed_tpu_torch.training.trainer import TrainState, trainable
+
+    params = trainable(gpt.init(cfg, torch.Generator().manual_seed(0), device=device))
+    return TrainState(params, make_optimizer(OptimizerConfig(), params, 1.0))
+
+
+def _grads(state):
+    """The parameters' gradients, by name; a step's ``zero_grad`` drops
+    them from the parameters, not from this dict."""
+    from mingpt_distributed_tpu_torch.models import convert
+
+    return {n: p.grad for n, p in convert.flatten(state.params).items()}
+
+
+def sp_dense(cfg, seed, steps, device, sp_grads):
+    """Single-process train steps with dense attention on the sp path's
+    parameters and batch: their losses and grad norms, and every
+    parameter's first-step gradient against ``sp_grads``, the sp path's."""
+    import dataclasses
+
+    from mingpt_distributed_tpu_torch.training.trainer import make_train_step
+
+    dense = dataclasses.replace(cfg, attention="einsum", remat=True)
+    state = _sp_state(dense, device)
+    step = make_train_step(dense)
+    x, y = _sp_batch(seed)
+    batch = (x.to(device), y.to(device))
+    out = {"losses": [], "grad_norms": []}
+    for i in range(steps):
+        m = step(state, batch)
+        out["losses"].append(m["loss"].item())
+        out["grad_norms"].append(m["grad_norm"].item())
+        if i == 0:
+            want = _grads(state)
+            diff = {n: (sp_grads[n].float() - w.float()).norm() for n, w in want.items()}
+            norm = {n: w.float().norm() for n, w in want.items()}
+            out["grad_rel_err"] = {n: (diff[n] / norm[n].clamp_min(1e-30)).item()
+                                   for n in want if n not in ZERO_GRAD_PARAMS}
+            out["grad_total_rel_err"] = (torch.stack(list(diff.values())).norm()
+                                         / torch.stack(list(norm.values())).norm()).item()
+            del want
+    del state, m
+    torch.cuda.empty_cache()
+    return out
+
+
+def _err_stats(got, ref):
+    d = (got.float() - ref.float()).abs()
+    return {"max_abs_err": d.max().item(), "sum_abs_err": d.sum().item(),
+            "sum_abs_ref": ref.float().abs().sum().item(),
+            "max_abs_ref": ref.float().abs().max().item(),
+            "finite": bool(torch.isfinite(got.float()).all())}
+
+
+def _sp_attention(mesh, device):
+    """Ring and Ulysses on this rank's chunk, in both dtypes, against the
+    same chunk of the dense plain attention and its gradients."""
+    from mingpt_distributed_tpu_torch.ops import attention as attn_ops
+    from mingpt_distributed_tpu_torch.parallel.ring_attention import ring_causal_attention
+    from mingpt_distributed_tpu_torch.parallel.ulysses import ulysses_causal_attention
+
+    g = torch.Generator().manual_seed(800)
+    full = [torch.randn((1, SP_T, 12, 64), generator=g) for _ in range(4)]
+    c = SP_T // mesh.sp
+    sl = slice(mesh.sp_rank * c, (mesh.sp_rank + 1) * c)
+    res = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do = (x.to(device, dtype) for x in full)
+        ref_in = [x.float().requires_grad_() for x in (q, k, v)]
+        ref = attn_ops.causal_attention(*ref_in)
+        ref_grads = torch.autograd.grad(ref, ref_in, do.float())
+        want = [ref[:, sl].detach()] + [r[:, sl] for r in ref_grads]
+        del ref, ref_grads, ref_in
+        for name, fn in (("ring", ring_causal_attention),
+                         ("ulysses", ulysses_causal_attention)):
+            loc = [x[:, sl].contiguous().requires_grad_() for x in (q, k, v)]
+            out = fn(*loc, mesh)
+            grads = torch.autograd.grad(out, loc, do[:, sl].contiguous())
+            dt = str(dtype).replace("torch.", "")
+            res[f"{name}_{dt}"] = {key: _err_stats(gg, w) for key, gg, w in zip(
+                ("out", "dq", "dk", "dv"), (out, *grads), want)}
+        torch.cuda.empty_cache()
+    return res
+
+
+def _sp_train(fa, cfg, mesh, device, seed, steps):
+    """make_train_step on this rank's share of the global batch: counts
+    set to 0 just before, read just after. Then one more all-reduce of the
+    gradients alone, timed: the share of a step that is host traffic.
+    Returns the record and the first step's gradients (after the clip)."""
+    from mingpt_distributed_tpu_torch.training.trainer import (
+        all_reduce_grads,
+        make_train_step,
+    )
+
+    state = _sp_state(cfg, device)
+    step = make_train_step(cfg, mesh=mesh)
+    x, y = _sp_batch(seed)
+    rows = SP_BATCH // mesh.dp
+    c = SP_T // mesh.sp
+    share = lambda a: a[mesh.dp_rank * rows:(mesh.dp_rank + 1) * rows,  # noqa: E731
+                        mesh.sp_rank * c:(mesh.sp_rank + 1) * c].to(device)
+    batch = (share(x), share(y))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(fa)
+    losses, norms, seconds = [], [], []
+    for i in range(steps):
+        t0 = time.perf_counter()
+        m = step(state, batch)
+        losses.append(m["loss"].item())  # synchronises
+        norms.append(m["grad_norm"].item())
+        seconds.append(time.perf_counter() - t0)
+        if i == 0:
+            first = _grads(state)
+    counts = read_counts(fa)
+    t0 = time.perf_counter()
+    all_reduce_grads(state.params)
+    torch.cuda.synchronize()
+    out = {"losses": losses, "grad_norms": norms, "seconds": seconds,
+           "launches": counts, "grad_all_reduce_s": time.perf_counter() - t0,
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+    del state
+    torch.cuda.empty_cache()
+    return out, first
+
+
+def sp_rank(rank):
+    """One of the SP ranks (spawned by parallel.spawn.run_ranks, sharing
+    cuda:0): the attention checks, the main path, the main path's ring in
+    fp32, the dp x sp step (fp32). Rank 0 then runs each step's dense
+    single-process reference (the others wait in their next collective)."""
+    from mingpt_distributed_tpu_torch.config import MeshConfig
+    from mingpt_distributed_tpu_torch.ops import flash_attention as fa
+    from mingpt_distributed_tpu_torch.parallel.mesh import Mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    out = {"attention": _sp_attention(Mesh(MeshConfig(dp=1, sp=SP)), device)}
+    for key, cfg, dp, seed, steps in (
+            ("main", _sp_gpt_config("ring"), 1, 5, SP_STEPS),
+            ("main_fp32", _sp_gpt_config("ring", dtype="float32"), 1, 5, 1),
+            ("dp2_sp2", _sp_gpt_config("ulysses", SP_DP2_LAYERS, "float32"), 2, 6, 1)):
+        mesh = Mesh(MeshConfig(dp=dp, sp=SP // dp))
+        out[key], grads = _sp_train(fa, cfg, mesh, device, seed, steps)
+        if rank == 0:
+            out[key]["dense"] = sp_dense(cfg, seed, steps, device, grads)
+        del grads
+        torch.cuda.empty_cache()
+    return out
+
+
+def _sp_step_fails(what, ms, dense, loss_tol, norm_rel_tol, grad_rel_tol=None):
+    """The first step of an sp path, on every rank, against its dense
+    reference; the gradients too when ``grad_rel_tol`` is given."""
+    m = ms[0]
+    fails = [f"{what}: the ranks' losses differ"
+             for r in ms[1:] if r["losses"] != m["losses"]][:1]
+    if not all(math.isfinite(v) for v in m["losses"]):
+        fails.append(f"{what}: non-finite loss")
+    if not abs(m["losses"][0] - dense["losses"][0]) <= loss_tol:
+        fails.append(f"{what}: loss {m['losses'][0]} vs dense {dense['losses'][0]}")
+    if not (abs(m["grad_norms"][0] - dense["grad_norms"][0])
+            <= norm_rel_tol * dense["grad_norms"][0]):
+        fails.append(f"{what}: grad_norm {m['grad_norms'][0]} vs dense "
+                     f"{dense['grad_norms'][0]}")
+    if grad_rel_tol is not None:
+        rel = dense["grad_rel_err"]
+        worst = max(rel, key=rel.get)
+        if not rel[worst] <= grad_rel_tol:
+            fails.append(f"{what}: gradient of {worst} differs by {rel[worst]} "
+                         "(relative)")
+        if not dense["grad_total_rel_err"] <= grad_rel_tol:
+            fails.append(f"{what}: gradient differs by {dense['grad_total_rel_err']} "
+                         "(relative, all parameters)")
+    return fails
+
+
+def _sp_step_record(phase, ms, dense, **kw):
+    rel = dense["grad_rel_err"]
+    return {"phase": phase, "losses": ms[0]["losses"],
+            "grad_norms": ms[0]["grad_norms"], "dense_losses": dense["losses"],
+            "dense_grad_norms": dense["grad_norms"],
+            "grad_max_rel_err": max(rel.values()), "grad_worst_param": max(rel, key=rel.get),
+            "grad_total_rel_err": dense["grad_total_rel_err"], "grad_rel_err": rel,
+            "launches_per_rank": [m["launches"] for m in ms], **kw}
+
+
+def sp_checks(ranks, card):
+    """The records of the sp ranks' results and the (group, message) of
+    every check they fail; groups "attention", "main" (the main path and
+    its fp32 ring step) and "dp2"."""
+    records, fails = [], []
+    for key in ranks[0]["attention"]:
+        rec = {"phase": "sp_attention", "case": key, "ranks": SP,
+               "shape": [1, SP_T, 12, 64], "card": card}
+        mean_tol, max_x = SP_ATTN_TOL[key.split("_")[1]]
+        for name in ("out", "dq", "dk", "dv"):
+            st = [r["attention"][key][name] for r in ranks]
+            max_err = max(x["max_abs_err"] for x in st)
+            mean_rel = sum(x["sum_abs_err"] for x in st) / sum(x["sum_abs_ref"] for x in st)
+            tol = max_x * max(1.0, max(x["max_abs_ref"] for x in st))
+            rec.update({f"{name}_max_abs_err": max_err, f"{name}_mean_rel_err": mean_rel,
+                        f"{name}_tol": tol, f"{name}_rel_tol": mean_tol})
+            if not all(x["finite"] for x in st):
+                fails.append(("attention", f"sp {key}: non-finite {name}"))
+            if not max_err <= tol:
+                fails.append(("attention", f"sp {key}: max |{name} diff| {max_err} > {tol}"))
+            if not mean_rel <= mean_tol:
+                fails.append(("attention", f"sp {key}: mean rel {name} diff {mean_rel}"))
+        records.append(rec)
+
+    main = [r["main"] for r in ranks]
+    per_step = SP_K3_PER_LAYER * 12
+    want = {n: (per_step * SP_STEPS if "lse" in n else 0) for n in COUNTERS}
+    step_s = sum(sum(m["seconds"][1:]) for m in main) / (SP * (SP_STEPS - 1))
+    records.append(_sp_step_record(
+        "sp_train_step", main, main[0]["dense"], main_path=True, model="gpt2 124M",
+        attention="ring (zigzag)", ranks=SP, backend="gloo, one shared card",
+        global_batch=SP_BATCH, seq=SP_T, dtype="bfloat16", steps=SP_STEPS,
+        launches_want=want, loss_tol=SP_LOSS_TOL, grad_norm_rel_tol=SP_GRAD_NORM_REL_TOL,
+        step_ms=step_s * 1e3,
+        grad_all_reduce_ms=[m["grad_all_reduce_s"] * 1e3 for m in main],
+        shared_card_tokens_per_s=SP_BATCH * SP_T / step_s,
+        peak_allocated_bytes_per_rank=[m["peak_allocated_bytes"] for m in main],
+        card=card))
+    fails += [("main", f"sp main path launches {m['launches']}, want {want}")
+              for m in main if m["launches"] != want]
+    fails += [("main", msg) for msg in _sp_step_fails(
+        "sp", main, main[0]["dense"], SP_LOSS_TOL, SP_GRAD_NORM_REL_TOL)]
+    if not main[0]["losses"][-1] < main[0]["losses"][0]:
+        fails.append(("main", "sp loss did not fall"))
+
+    # the main path's ring and model in float32, gradients held
+    m32 = [r["main_fp32"] for r in ranks]
+    want32 = {n: (per_step if "lse" in n else 0) for n in COUNTERS}
+    records.append(_sp_step_record(
+        "sp_train_step_fp32", m32, m32[0]["dense"], attention="ring (zigzag)",
+        dtype="float32", launches_want=want32, loss_tol=SP_FP32_LOSS_TOL,
+        grad_rel_tol=GRAD_FP32_REL_TOL, card=card))
+    fails += [("main", f"sp fp32 step launches {m['launches']}, want {want32}")
+              for m in m32 if m["launches"] != want32]
+    fails += [("main", msg) for msg in _sp_step_fails(
+        "sp fp32", m32, m32[0]["dense"], SP_FP32_LOSS_TOL, GRAD_FP32_REL_TOL,
+        GRAD_FP32_REL_TOL)]
+
+    dp2 = [r["dp2_sp2"] for r in ranks]
+    want2 = {n: (0 if "lse" in n else SP_DP2_LAYERS) for n in COUNTERS}
+    records.append(_sp_step_record(
+        "sp_dp2_sp2_step", dp2, dp2[0]["dense"], attention="ulysses",
+        layers=SP_DP2_LAYERS, dtype="float32", launches_want=want2, card=card))
+    fails += [("dp2", f"dp2 x sp2 launches {m['launches']}, want {want2}")
+              for m in dp2 if m["launches"] != want2]
+    fails += [("dp2", msg) for msg in _sp_step_fails(
+        "dp2 x sp2", dp2, dp2[0]["dense"], SP_FP32_LOSS_TOL, GRAD_FP32_REL_TOL,
+        GRAD_FP32_REL_TOL)]
+    return records, fails
+
+
+def phase_sp(card):
+    """The sp slice on SP ranks sharing the card. Returns the main path's
+    launch counts (rank 0's)."""
+    from mingpt_distributed_tpu_torch.parallel.spawn import run_ranks
+
+    t0 = time.perf_counter()
+    ranks = run_ranks(sp_rank, SP, timeout_s=900)
+    seconds = time.perf_counter() - t0
+    records, fails = sp_checks(ranks, card)
+    for rec in records:
+        emit({**rec, "spawn_seconds": seconds} if rec.get("main_path") else rec)
+    check(not fails, "; ".join(msg for _, msg in fails))
+    return ranks[0]["main"]["launches"]
+
+
+# ---------------------------------------------------------------------------
 # phase 5: times
 # ---------------------------------------------------------------------------
 
 
-def sdpa_backward(q, k, v, do):
+def sdpa_backward(q, k, v, do, causal=True):
     """The library yardstick: the gradient of scaled_dot_product_attention
-    (is_causal) with respect to q, k, v; backward only."""
+    with respect to q, k, v; backward only."""
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     dot = do.transpose(1, 2)
     return lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
 
@@ -774,6 +1279,66 @@ def phase_times(fa, card):
     return rows
 
 
+def sdpa_with_lse(q, k, v):
+    """The library yardstick of K3: one PyTorch call computing the
+    non-causal attention and its log-sum-exp (flash for bf16, the
+    memory-efficient kernel for fp32, which the flash one does not take)."""
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    if q.dtype == torch.bfloat16:
+        return lambda: torch.ops.aten._scaled_dot_product_flash_attention(
+            qt, kt, vt, 0.0, False)
+    return lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
+        qt, kt, vt, None, True, 0.0, False)
+
+
+def phase_lse_times(fa, card):
+    """K3, K4a and K4b at the sp main path's zigzag hop shape (batch-stacked,
+    non-causal): kernel, plain version and library times, bounds; returns
+    the kernels line's rows (bf16)."""
+    name, b, t, h, kv, hd, causal, _, _, _ = LSE_CASES[0]
+    scale = 1.0 / math.sqrt(hd)
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).replace("torch.", "")
+        q, k, v = make_qkv(b, t, h, kv, hd, dtype, seed=900)
+        g = torch.Generator(device="cuda").manual_seed(901)
+        do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+        kw = dict(scale=scale, causal=causal)
+        with preserved_counts(fa):
+            out, lse = fa.flash_lse_fwd(q, k, v, **kw)
+            delta = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+            fwd_ms = cuda_ms(lambda: fa.flash_lse_fwd(q, k, v, **kw))
+            dq_ms = cuda_ms(lambda: fa.flash_lse_bwd_dq(q, k, v, do, lse, delta, **kw))
+            dkv_ms = cuda_ms(lambda: fa.flash_lse_bwd_dkv(q, k, v, do, lse, delta, **kw))
+        fwd_plain = cuda_ms(lambda: fa.flash_lse_fwd_plain(q, k, v, **kw), iters=3)
+        bwd_plain = cuda_ms(lambda: fa.flash_lse_bwd_plain(q, k, v, out, lse, do, **kw),
+                            iters=3)
+        fwd_lib = cuda_ms(sdpa_with_lse(q, k, v))
+        bwd_lib = cuda_ms(sdpa_backward(q, k, v, do, causal=causal))
+        for kname, ms, plain, lib in (("flash_lse_fwd", fwd_ms, fwd_plain, fwd_lib),
+                                      ("flash_lse_bwd_dq", dq_ms, bwd_plain, bwd_lib),
+                                      ("flash_lse_bwd_dkv", dkv_ms, bwd_plain, bwd_lib)):
+            nbytes, flops = attention_work(b, t, h, hd, None, dtype, kernel=kname,
+                                           kv=kv, causal=causal)
+            bms, by = bound_ms(nbytes, flops, dtype)
+            row = {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                   "library_ms": lib}
+            emit({"phase": "time", "kernel": kname, "shape_of": name, "dtype": dt,
+                  "shape": [b, t, h, kv, hd], "causal": causal, "bytes": nbytes,
+                  "flops": flops, **row,
+                  "achieved_tflops": flops / (ms * 1e-3) / 1e12,
+                  "plain_is": ("flash_lse_fwd_plain" if kname == "flash_lse_fwd"
+                               else "flash_lse_bwd_plain (dq, dk and dv)"),
+                  "library_is": ("SDPA with lse, non-causal" if kname == "flash_lse_fwd"
+                                 else "SDPA backward, non-causal (dq, dk and dv)"),
+                  "card": card})
+            if dtype == torch.bfloat16:
+                rows[kname] = row
+        del q, k, v, do, out, lse, delta
+        torch.cuda.empty_cache()
+    return rows
+
+
 @contextlib.contextmanager
 def preserved_counts(fa):
     """Launches made to time or compare a kernel are not the main path's."""
@@ -781,9 +1346,8 @@ def preserved_counts(fa):
     try:
         yield
     finally:
-        fa.flash_fwd.launches = saved["flash_fwd"]
-        fa.flash_bwd.dq_launches = saved["flash_bwd_dq"]
-        fa.flash_bwd.dkv_launches = saved["flash_bwd_dkv"]
+        for name, (fn, attr) in COUNTERS.items():
+            setattr(getattr(fa, fn), attr, saved[name])
 
 
 def main() -> int:
@@ -812,6 +1376,7 @@ def main() -> int:
 
     fwd_errors = phase_kernels(fa)
     bwd_errors = phase_bwd_kernels(fa)
+    lse_errors = phase_lse_kernels(fa)
     emit({"phase": "kernels_checked", "kernels": [
         {"name": n, "launches": c} for n, c in read_counts(fa).items()]})
     reset_counts(fa)
@@ -826,25 +1391,35 @@ def main() -> int:
 
     main_counts = phase_train_step(fa, card)
     phase_train_entry(fa, card)
+    sp_counts = phase_sp(card)
     rows = phase_times(fa, card)
+    rows.update(phase_lse_times(fa, card))
 
-    # max_abs_err at the main path's shape: the training step's, bf16
+    # max_abs_err at each main path's shape, bf16: the training step's
+    # (K1, K2a, K2b) and the sp path's zigzag hop (K3, K4a, K4b); launches
+    # from each kernel's path
     bf16 = torch.bfloat16
     errs = bwd_errors[("gpt2_train", bf16)]
+    hop = lse_errors[("zigzag_hop", bf16)]
+    jax_fa = "mingpt_distributed_tpu/ops/flash_attention.py"
     line = []
-    for name, replaces, err in (
-            ("flash_fwd", "mingpt_distributed_tpu/ops/flash_attention.py:677",
-             fwd_errors[("gpt2_train", bf16)]),
-            ("flash_bwd_dq", "mingpt_distributed_tpu/ops/flash_attention.py:750",
-             errs["dq_max_abs_err"]),
-            ("flash_bwd_dkv", "mingpt_distributed_tpu/ops/flash_attention.py:818",
-             max(errs["dk_max_abs_err"], errs["dv_max_abs_err"]))):
-        source = "flash_fwd.cu" if name == "flash_fwd" else "flash_bwd.cu"
+    for name, replaces, err, launches in (
+            ("flash_fwd", f"{jax_fa}:677", fwd_errors[("gpt2_train", bf16)],
+             main_counts),
+            ("flash_bwd_dq", f"{jax_fa}:750", errs["dq_max_abs_err"], main_counts),
+            ("flash_bwd_dkv", f"{jax_fa}:818",
+             max(errs["dk_max_abs_err"], errs["dv_max_abs_err"]), main_counts),
+            ("flash_lse_fwd", f"{jax_fa}:193", hop["max_abs_err"], sp_counts),
+            ("flash_lse_bwd_dq", f"{jax_fa}:346", hop["dq_max_abs_err"], sp_counts),
+            ("flash_lse_bwd_dkv", f"{jax_fa}:412",
+             max(hop["dk_max_abs_err"], hop["dv_max_abs_err"]), sp_counts)):
+        source = "flash_fwd.cu" if name.endswith("fwd") else "flash_bwd.cu"
         line.append({"name": name, "route": "cuda",
                      "source": f"mingpt_distributed_tpu_torch/ops/csrc/{source}",
-                     "replaces": replaces, "launches": main_counts[name],
+                     "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err, **rows[name]})
     emit({"phase": "launches_by_path", "train_step": main_counts,
+          "sp_train_step_rank0": sp_counts,
           "generate_sliding_bf16": {"flash_fwd": generate_launches}})
     print(card_line(), flush=True)
     emit({"kernels": line})

@@ -8,8 +8,9 @@ have no effect here, because PyTorch runs the layer loop eagerly.
 
 Trainer options this slice does not port keep their defaults (which the
 YAML files rely on); ``TrainerConfig.check_ported`` raises
-NotImplementedError, naming the ROADMAP item, for any other value, and for a
-mesh that needs more than one device. Nothing is silently ignored.
+NotImplementedError, naming the ROADMAP item, for any other value and for a
+mesh axis other than dp and sp above 1, and ValueError for a dp x sp mesh
+that does not fit the job's processes. Nothing is silently ignored.
 
 PyYAML is imported inside the functions that parse YAML, so the rest of the
 package works where it is not installed.
@@ -94,8 +95,8 @@ class GPTConfig:
     embd_pdrop: float = 0.1
     resid_pdrop: float = 0.1
     attn_pdrop: float = 0.1
-    # "einsum" (the oracle), "flash" (the hand-written kernel), "ring" and
-    # "ulysses" (sequence parallel; not ported yet)
+    # "einsum" (the oracle), "flash" (the hand-written kernels), "ring" and
+    # "ulysses" (sequence parallel over the mesh's sp axis)
     attention: str = "einsum"
     attention_window: Optional[int] = None
     attn_logit_softcap: Optional[float] = None
@@ -263,8 +264,8 @@ class OptimizerConfig:
 @dataclass
 class MeshConfig:
     """The JAX package's device-mesh shape: pp, dp, fsdp, ep, tp, sp; -1
-    absorbs the remaining devices. This slice runs on one device, so every
-    axis must come to 1 (``TrainerConfig.check_ported``)."""
+    absorbs the remaining devices (here: processes). The port runs dp x sp
+    (``TrainerConfig.check_ported``)."""
 
     pp: int = 1
     dp: int = -1
@@ -351,22 +352,27 @@ class TrainerConfig:
             raise ConfigError("batch_size and grad_accum_steps must be >= 1")
         return cfg
 
-    def check_ported(self) -> None:
+    def check_ported(self, world_size: int = 1) -> None:
         """Raise NotImplementedError for an option this slice does not run:
-        a non-default value of an unported option, or a mesh of more than
-        one device."""
+        a non-default value of an unported option, or a mesh axis other
+        than dp and sp above 1; ValueError when dp x sp does not come to
+        ``world_size`` processes."""
+        from mingpt_distributed_tpu_torch.parallel import mesh as mesh_lib
+
         defaults = TrainerConfig()
         for name, item in UNPORTED_TRAINER_OPTIONS.items():
             if getattr(self, name) != getattr(defaults, name):
                 raise NotImplementedError(
                     f"trainer_config.{name}={getattr(self, name)!r} is not "
                     f"ported yet (ROADMAP.md {item})")
-        axes = dataclasses.asdict(self.mesh)
-        if axes.pop("dp") not in (1, -1) or any(n != 1 for n in axes.values()):
-            raise NotImplementedError(
-                f"mesh {dataclasses.asdict(self.mesh)} needs more than one "
-                "device: multi-GPU training is not ported yet (ROADMAP.md "
-                "Queue 1, slice 3)")
+        mesh_lib.check_axes(dataclasses.asdict(self.mesh))
+        try:
+            dims = mesh_lib.resolve_mesh_shape(self.mesh, world_size)
+        except ValueError as e:
+            raise ValueError(
+                f"{e} processes: launch dp x sp processes with python -m "
+                "torch.distributed.run --nproc-per-node N") from None
+        mesh_lib.check_axes(dict(zip(mesh_lib.AXES, dims)))
 
 
 @dataclass

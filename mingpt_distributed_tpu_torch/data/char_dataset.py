@@ -6,9 +6,12 @@ ids (the sorted set of characters of the leading ``truncate`` fraction of
 the corpus), the same windows and split, and the same shuffled order: the
 permutation of an epoch is numpy's ``default_rng(seed + epoch)``, so for a
 given seed and resume position the port yields exactly the JAX package's
-batches. One process feeds one device, so there is no per-process sharding;
-the corpus is a local file; batches are gathered with numpy (the JAX
-package's optional C gather, ``runtime/native_batcher.c``, is queued).
+batches. Under dp x sp each process takes its share of every global batch:
+its dp replica's rows (``process_index`` of ``process_count``, as in JAX)
+and its sp rank's columns (``seq_index`` of ``seq_count``), so the ranks
+together hold exactly the JAX global batch. The corpus is a local file;
+batches are gathered with numpy (the JAX package's optional C gather,
+``runtime/native_batcher.c``, is queued).
 """
 
 from __future__ import annotations
@@ -105,16 +108,28 @@ class IteratorState:
 class ShardedBatchIterator:
     """Batches of a view in the JAX package's order: each epoch a
     permutation seeded ``seed + epoch`` (or the plain order), cut into
-    ``batch_size`` windows, the ragged tail dropped. One process, so the
-    "shard" is the whole batch."""
+    global batches of ``batch_size`` windows, the ragged tail dropped. This
+    process yields rows ``[process_index * b, (process_index + 1) * b)`` of
+    each (b = batch_size / process_count) and, of those, the
+    ``seq_index``-th of ``seq_count`` equal column chunks."""
 
     def __init__(self, view: CharView, batch_size: int, *, shuffle: bool = True,
-                 seed: int = 0):
+                 seed: int = 0, process_index: int = 0, process_count: int = 1,
+                 seq_index: int = 0, seq_count: int = 1):
+        if batch_size % process_count:
+            raise ValueError(f"batch_size={batch_size} not divisible by "
+                             f"process_count={process_count}")
+        if view.block_size % seq_count:
+            raise ValueError(f"block_size={view.block_size} not divisible by "
+                             f"seq_count={seq_count}")
         if len(view) < batch_size:
             raise ValueError(
                 f"view has {len(view)} windows < batch {batch_size}")
         self.view = view
         self.batch_size = batch_size
+        self.local_batch_size = batch_size // process_count
+        self.process_index = process_index
+        self.seq_index, self.seq_count = seq_index, seq_count
         self.shuffle = shuffle
         self.state = IteratorState(seed=seed)
 
@@ -132,9 +147,12 @@ class ShardedBatchIterator:
         """Yield the remaining batches of the current epoch, then advance the
         epoch counter; a restored state resumes at its step."""
         order = self._epoch_order(self.state.epoch)
+        c = self.view.block_size // self.seq_count
+        cols = slice(self.seq_index * c, (self.seq_index + 1) * c)
         for step in range(self.state.step_in_epoch, self.steps_per_epoch):
-            base = step * self.batch_size
+            base = step * self.batch_size + self.process_index * self.local_batch_size
             self.state.step_in_epoch = step + 1
-            yield self.view.gather(order[base: base + self.batch_size])
+            x, y = self.view.gather(order[base: base + self.local_batch_size])
+            yield (x, y) if self.seq_count == 1 else (x[:, cols], y[:, cols])
         self.state.epoch += 1
         self.state.step_in_epoch = 0

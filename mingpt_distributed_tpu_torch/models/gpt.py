@@ -11,12 +11,20 @@ The trainer's loss-only mode (``return_logits=False``) runs the LM head and
 the cross-entropy per sequence chunk under ``torch.utils.checkpoint``, so
 the (B, T, V) float32 logits never exist; ``remat`` checkpoints every block.
 
-Not in this slice: mixture-of-experts blocks and the pipeline/mesh paths
-(ring and Ulysses attention) raise NotImplementedError (ROADMAP.md, Queue 1).
+Sequence parallelism (``attention`` "ring" or "ulysses" with a
+``parallel.mesh.Mesh`` of sp > 1): each rank runs the forward on its chunk
+of the sequence, chunk ``mesh.sp_rank``, so its positions (``wpe``, RoPE)
+start at ``sp_rank * T_local``, which GSPMD does implicitly in the JAX
+package; ``loss_terms`` returns the rank's token sum and count for the
+trainer's global mean.
+
+Not in this slice: mixture-of-experts blocks raise NotImplementedError
+(ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
@@ -27,6 +35,7 @@ from mingpt_distributed_tpu_torch.config import GPTConfig
 from mingpt_distributed_tpu_torch.ops import attention as attn_ops
 from mingpt_distributed_tpu_torch.ops import flash_attention
 from mingpt_distributed_tpu_torch.ops import layers as L
+from mingpt_distributed_tpu_torch.parallel import ring_attention, ulysses
 
 Params = Dict[str, Any]
 
@@ -130,16 +139,22 @@ def init(cfg: GPTConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 
-def _attention_dispatch(cfg: GPTConfig) -> Callable[..., torch.Tensor]:
+def _attention_dispatch(cfg: GPTConfig, mesh=None) -> Callable[..., torch.Tensor]:
     """The attention implementation named by cfg.attention: "einsum" (the
-    oracle) or "flash" (the hand-written kernel)."""
+    oracle), "flash" (the hand-written kernels), "ring" or "ulysses"
+    (sequence parallel over ``mesh``; the oracle without one)."""
+    sp = 1 if mesh is None else mesh.sp
+    if cfg.attention == "ring":
+        return functools.partial(ring_attention.ring_causal_attention, mesh=mesh)
+    if cfg.attention == "ulysses":
+        return functools.partial(ulysses.ulysses_causal_attention, mesh=mesh)
+    if sp > 1:
+        raise ValueError(f"attention={cfg.attention!r} sees only this rank's "
+                         "chunk: a mesh with sp > 1 needs attention=ring or "
+                         "ulysses")
     if cfg.attention == "einsum":
         return attn_ops.causal_attention
-    if cfg.attention == "flash":
-        return flash_attention.causal_attention
-    raise NotImplementedError(
-        f"attention={cfg.attention!r} (sequence parallel) is not ported yet "
-        "(ROADMAP.md Queue 1, multi-GPU slice)")
+    return flash_attention.causal_attention
 
 
 def _norm(x, scale, bias, cfg: GPTConfig):
@@ -155,6 +170,7 @@ def _block(
     rope: Optional[Tuple[torch.Tensor, torch.Tensor]],
     generator: Optional[torch.Generator],
     deterministic: bool,
+    mesh=None,
 ) -> torch.Tensor:
     """One pre-LN transformer block: x + attn(ln1(x)); x + mlp(ln2(x))."""
     b, t, d = x.shape
@@ -173,7 +189,7 @@ def _block(
         attn_kw["window"] = cfg.attention_window
     if cfg.attn_logit_softcap:
         attn_kw["logit_softcap"] = cfg.attn_logit_softcap
-    att = _attention_dispatch(cfg)(
+    att = _attention_dispatch(cfg, mesh)(
         q, k, v,
         attn_pdrop=cfg.attn_pdrop,
         generator=generator,
@@ -206,7 +222,7 @@ def _unstack(blocks: Params):
         yield dict(zip(names, leaves))
 
 
-def _remat_block(x, blk, cfg, rope, generator, deterministic):
+def _remat_block(x, blk, cfg, rope, generator, deterministic, mesh=None):
     """``_block`` under ``torch.utils.checkpoint``: its activations are
     recomputed in the backward. The recomputation replays the block's
     dropout draws from ``generator``'s state at the block's start, then puts
@@ -221,7 +237,7 @@ def _remat_block(x, blk, cfg, rope, generator, deterministic):
             resume = generator.get_state()
             generator.set_state(start)
         try:
-            return _block(x, blk, cfg, rope, generator, deterministic)
+            return _block(x, blk, cfg, rope, generator, deterministic, mesh)
         finally:  # the recomputation may stop early by raising
             if replay:
                 generator.set_state(resume)
@@ -250,6 +266,7 @@ def forward(
     generator: Optional[torch.Generator] = None,
     deterministic: bool = True,
     return_logits: bool = True,
+    mesh=None,
 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Full forward pass -> (logits (B, T, V) float32, loss or None).
 
@@ -257,34 +274,12 @@ def forward(
     (``deterministic=False``) draws its dropout masks from ``generator``.
     ``return_logits=False`` (the trainer's loss-only mode) returns
     ``(None, loss)`` and, when ``cfg.loss_chunks`` applies, never
-    materialises the logits (``chunked_cross_entropy``).
+    materialises the logits (``chunked_cross_entropy``). With a ``mesh`` of
+    sp > 1, ``tokens`` is this rank's chunk of the sequence and everything
+    returned is the chunk's.
     """
-    check_supported(cfg)
-    b, t = tokens.shape
-    if t > cfg.block_size:
-        raise ValueError(f"sequence length {t} > block_size {cfg.block_size}")
-    if not deterministic and generator is None:
-        raise ValueError("training-mode forward needs a torch.Generator")
-
-    x = params["wte"][tokens]  # (B, T, D) fp32 gather
-    if not cfg.rope:
-        x = x + params["wpe"][:t]
-    x = L.dropout(x, cfg.embd_pdrop, generator, deterministic)
-    x = x.to(compute_dtype(cfg))
-
-    rope = None
-    if cfg.rope:
-        rope = attn_ops.rope_tables(torch.arange(t, device=x.device),
-                                    cfg.head_dim, cfg.rope_theta)
-    block = _remat_block if cfg.remat else _block
-    for blk in _unstack(params["blocks"]):
-        x = block(x, blk, cfg, rope, generator, deterministic)
-
-    x = _norm(x, params["lnf_scale"], params.get("lnf_bias"), cfg)
-    # the chunk count snaps to the largest divisor of T <= loss_chunks, so an
-    # awkward T gives fewer, larger chunks rather than the dense logits
-    nc = max((d for d in range(1, cfg.loss_chunks + 1) if t % d == 0),
-             default=1)
+    x = _hidden(params, tokens, cfg, generator, deterministic, mesh)
+    nc = _loss_chunks(cfg, tokens.shape[1])
     if targets is not None and not return_logits and nc > 1:
         return None, chunked_cross_entropy(
             x, _head_weight(params, cfg), targets, nc,
@@ -292,6 +287,65 @@ def forward(
     logits = head_logits(params, x, cfg)
     loss = cross_entropy(logits, targets) if targets is not None else None
     return (logits if return_logits else None), loss
+
+
+def _hidden(params, tokens, cfg, generator, deterministic, mesh):
+    """Embeddings, the blocks and the final norm -> (B, T, D) hidden
+    states. Under sp > 1 the chunk's positions start at sp_rank * T."""
+    check_supported(cfg)
+    b, t = tokens.shape
+    pos0 = 0 if mesh is None else mesh.sp_rank * t
+    if pos0 + t > cfg.block_size:
+        raise ValueError(f"positions up to {pos0 + t} > block_size "
+                         f"{cfg.block_size}")
+    if not deterministic and generator is None:
+        raise ValueError("training-mode forward needs a torch.Generator")
+
+    x = params["wte"][tokens]  # (B, T, D) fp32 gather
+    if not cfg.rope:
+        x = x + params["wpe"][pos0:pos0 + t]
+    x = L.dropout(x, cfg.embd_pdrop, generator, deterministic)
+    x = x.to(compute_dtype(cfg))
+
+    rope = None
+    if cfg.rope:
+        rope = attn_ops.rope_tables(torch.arange(pos0, pos0 + t, device=x.device),
+                                    cfg.head_dim, cfg.rope_theta)
+    block = _remat_block if cfg.remat else _block
+    for blk in _unstack(params["blocks"]):
+        x = block(x, blk, cfg, rope, generator, deterministic, mesh)
+    return _norm(x, params["lnf_scale"], params.get("lnf_bias"), cfg)
+
+
+def _loss_chunks(cfg: GPTConfig, t: int) -> int:
+    """The chunk count snaps to the largest divisor of T <= loss_chunks, so
+    an awkward T gives fewer, larger chunks rather than the dense logits."""
+    return max((d for d in range(1, cfg.loss_chunks + 1) if t % d == 0),
+               default=1)
+
+
+def loss_terms(
+    params: Params,
+    tokens: torch.Tensor,
+    targets: torch.Tensor,
+    cfg: GPTConfig,
+    *,
+    generator: Optional[torch.Generator] = None,
+    deterministic: bool = True,
+    mesh=None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the cross-entropy over targets != -1, their count) of these
+    tokens (this rank's rows and chunk), with the head and the softmax run
+    per chunk as in the loss-only forward. A trainer divides the sums of
+    both over the ranks."""
+    x = _hidden(params, tokens, cfg, generator, deterministic, mesh)
+    nc = _loss_chunks(cfg, tokens.shape[1])
+    w = _head_weight(params, cfg)
+    count = (targets != -1).sum()
+    if nc > 1:
+        return chunked_cross_entropy_sum(x, w, targets, nc,
+                                         softcap=cfg.final_logit_softcap), count
+    return _chunk_loss(x, w, targets, cfg.final_logit_softcap), count
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -347,12 +401,23 @@ def chunked_cross_entropy(
     x: torch.Tensor, w_head: torch.Tensor, targets: torch.Tensor,
     n_chunks: int, softcap: Optional[float] = None,
 ) -> torch.Tensor:
-    """Same math as ``cross_entropy(head(x), targets)``, but the head matmul
+    """``chunked_cross_entropy_sum`` over the count of valid targets: the
+    mean cross-entropy."""
+    return (chunked_cross_entropy_sum(x, w_head, targets, n_chunks, softcap)
+            / (targets != -1).sum().clamp(min=1))
+
+
+def chunked_cross_entropy_sum(
+    x: torch.Tensor, w_head: torch.Tensor, targets: torch.Tensor,
+    n_chunks: int, softcap: Optional[float] = None,
+) -> torch.Tensor:
+    """The sum behind ``cross_entropy(head(x), targets)``, but the head matmul
     and the softmax run per sequence chunk under ``torch.utils.checkpoint``:
     at most one chunk's (B, T/n_chunks, V) float32 logits exist at a time,
     and the backward recomputes them. The per-chunk loss is
     ``sum(lse - logit_target)`` over valid targets (two reductions, no
-    log-prob tensor). Counterpart of the JAX ``chunked_cross_entropy``."""
+    log-prob tensor). Counterpart of the JAX ``chunked_cross_entropy``,
+    whose mean is ``chunked_cross_entropy``; this returns the sum."""
     b, t, _ = x.shape
     if t % n_chunks:
         raise ValueError(f"T={t} not divisible by n_chunks={n_chunks}")
@@ -364,7 +429,7 @@ def chunked_cross_entropy(
                                    targets[:, sl], softcap,
                                    use_reentrant=False,
                                    preserve_rng_state=False)
-    return total / (targets != -1).sum().clamp(min=1)
+    return total
 
 
 # ---------------------------------------------------------------------------

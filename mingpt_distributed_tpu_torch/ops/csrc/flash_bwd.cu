@@ -1,10 +1,23 @@
-// Causal flash-attention backward for Hopper (sm_90a), plain C interface:
-// two kernels, each a launch of its own.
+// Flash-attention backward for Hopper (sm_90a), plain C interface: two
+// kernels, each reached through two entry points, each a launch of its own.
 //
-//   flash_bwd_dq  replaces the TPU kernel `_dq_kernel_btd`,
-//   flash_bwd_dkv replaces the TPU kernel `_dkv_kernel_btd`,
-// both in mingpt_distributed_tpu/ops/flash_attention.py, reached through
-// `_flash_bwd_btd` and the custom VJP of `_flash_btd`. Like them, they
+//   flash_bwd_dq      replaces the TPU kernel `_dq_kernel_btd`,
+//   flash_bwd_dkv     replaces the TPU kernel `_dkv_kernel_btd`,
+// reached through `_flash_bwd_btd` and the custom VJP of `_flash_btd`
+// (causal); and
+//   flash_lse_bwd_dq  replaces the TPU kernel `_dq_kernel`,
+//   flash_lse_bwd_dkv replaces the TPU kernel `_dkv_kernel`,
+// reached through `_flash_bwd` and the custom VJP of `flash_with_lse` (the
+// ring-attention hop), which add a `causal` flag and a `q_offset` placing
+// query row i at key position q_offset + i; all in
+// mingpt_distributed_tpu/ops/flash_attention.py. The lse cotangent of
+// `flash_with_lse` reaches them folded into delta by the caller (delta' =
+// delta - dlse, a plain tensor op, as `_flash_bwd` does). Dead rows (no key
+// inside the offset band) get p = 0 structurally, so dq = 0 there and they
+// add nothing to dk/dv, whatever their lse. The flash_bwd_* and
+// flash_lse_bwd_* entry points run the same kernels, specialised at compile
+// time (kLse): the former test the plain causal band, with no flag or offset
+// in their inner loops, the latter the general one. Like the TPU kernels, they
 // recompute the probabilities from the forward's log-sum-exp instead of
 // storing the attention matrix, in base 2 with log2(e) folded into the score
 // scale:
@@ -27,9 +40,10 @@
 //
 // flash_bwd_dkv: one block per (k tile of 64 keys, KV head, batch). It stages
 // its K and V tile once, then loops over the query heads of the GQA group
-// and, for each, over the q tiles of the band [k0, min(T, k0 + 64 + window
-// - 1)), accumulating dk and dv in float32. The group sum stays inside the
-// block: no atomics, and the result does not depend on scheduling.
+// and, for each, over the q tiles of the band (rows i with q_offset + i in
+// [k0, k0 + 64 + window - 1), or every row when not causal), accumulating
+// dk and dv in float32. The group sum stays inside the block: no atomics,
+// and the result does not depend on scheduling.
 //
 // Tail tiles are masked (rows at or past T read as zeros, are never
 // allowed, and are not stored), so any T >= 1 works.
@@ -69,8 +83,10 @@ struct Params {
   long long k_sb, k_st, k_sh;
   long long v_sb, v_st, v_sh;
   float scale;
-  int window;     // <= 0: full causal
+  int window;     // <= 0: no window (causal only)
   float softcap;  // <= 0: off
+  int causal;     // 0: every key of the chunk is visible
+  int q_offset;   // causal: query row i sits at key position q_offset + i
 };
 
 // Base-2 score of a raw q.k product, and d(score)/d(raw) in the natural
@@ -86,27 +102,56 @@ __device__ __forceinline__ float score2(const Params& p, float s,
   return s * (p.scale * kLog2e);
 }
 
+template <bool kLse>
 __device__ __forceinline__ bool visible(const Params& p, int q_pos,
                                         int k_pos) {
-  return k_pos <= q_pos && q_pos < p.T &&
-         (p.window <= 0 || q_pos - k_pos < p.window);
+  if (!kLse) {
+    return k_pos <= q_pos && q_pos < p.T &&
+           (p.window <= 0 || q_pos - k_pos < p.window);
+  }
+  if (q_pos >= p.T || k_pos >= p.T) return false;
+  if (!p.causal) return true;
+  const int qg = p.q_offset + q_pos;
+  return k_pos <= qg && (p.window <= 0 || qg - k_pos < p.window);
 }
 
-// The k/v tiles a q tile starting at q0 attends.
+// The k/v tiles a q tile starting at q0 attends; lo > hi when the band
+// misses the chunk.
+template <bool kLse>
 __device__ __forceinline__ void kv_tile_range(const Params& p, int q0,
                                               int* lo, int* hi) {
-  const int k_first = p.window > 0 ? max(0, q0 - (p.window - 1)) : 0;
+  if (kLse && !p.causal) {
+    *lo = 0;
+    *hi = (p.T - 1) / kBK;
+    return;
+  }
+  const int qg = kLse ? p.q_offset + q0 : q0;  // the tile's first row on the key axis
+  const int k_first = p.window > 0 ? max(0, qg - (p.window - 1)) : 0;
   *lo = k_first / kBK;
-  *hi = min(q0 + kBQ - 1, p.T - 1) / kBK;
+  *hi = min(qg + kBQ - 1, p.T - 1) / kBK;
 }
 
-// The q tiles that attend a k tile starting at k0.
+// The q tiles that attend a k tile starting at k0; lo > hi when none does.
+template <bool kLse>
 __device__ __forceinline__ void q_tile_range(const Params& p, int k0,
                                              int* lo, int* hi) {
+  if (!kLse) {
+    const int q_last =
+        p.window > 0 ? min(p.T - 1, k0 + kBK - 1 + p.window - 1) : p.T - 1;
+    *lo = k0 / kBQ;
+    *hi = q_last / kBQ;
+    return;
+  }
+  if (!p.causal) {
+    *lo = 0;
+    *hi = (p.T - 1) / kBQ;
+    return;
+  }
   const int q_last =
-      p.window > 0 ? min(p.T - 1, k0 + kBK - 1 + p.window - 1) : p.T - 1;
-  *lo = k0 / kBQ;
-  *hi = q_last / kBQ;
+      p.window > 0 ? min(p.T - 1, k0 + kBK - 1 + p.window - 1 - p.q_offset)
+                   : p.T - 1;
+  *lo = max(0, k0 - p.q_offset) / kBQ;
+  *hi = q_last < 0 ? -1 : q_last / kBQ;
 }
 
 __device__ __forceinline__ long long row_index(const Params& p, int b,
@@ -120,7 +165,7 @@ __device__ __forceinline__ long long row_index(const Params& p, int b,
 
 constexpr int kFmaThreads = 256;  // four threads per row
 
-template <int HD>
+template <int HD, bool kLse>
 __global__ void __launch_bounds__(kFmaThreads) flash_dq_f32_kernel(Params p) {
   constexpr int kLd = HD + 4;
   constexpr int kLdp = kBK + 4;
@@ -159,7 +204,7 @@ __global__ void __launch_bounds__(kFmaThreads) flash_dq_f32_kernel(Params p) {
   }
 
   int kt_lo, kt_hi;
-  kv_tile_range(p, q0, &kt_lo, &kt_hi);
+  kv_tile_range<kLse>(p, q0, &kt_lo, &kt_hi);
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's k/v reads are done
@@ -195,7 +240,7 @@ __global__ void __launch_bounds__(kFmaThreads) flash_dq_f32_kernel(Params p) {
       float dfac;
       const float s2 = score2(p, s[j], &dfac);
       dss[row * kLdp + sub + 4 * j] =
-          visible(p, q_pos, k0 + sub + 4 * j)
+          visible<kLse>(p, q_pos, k0 + sub + 4 * j)
               ? exp2f(s2 - lse2) * (dp[j] - delta) * dfac
               : 0.f;
     }
@@ -234,7 +279,7 @@ __global__ void __launch_bounds__(kFmaThreads) flash_dq_f32_kernel(Params p) {
   }
 }
 
-template <int HD>
+template <int HD, bool kLse>
 __global__ void __launch_bounds__(kFmaThreads) flash_dkv_f32_kernel(Params p) {
   constexpr int kLd = HD + 4;
   constexpr int kLdp = kBQ + 4;
@@ -272,7 +317,7 @@ __global__ void __launch_bounds__(kFmaThreads) flash_dkv_f32_kernel(Params p) {
   }
 
   int qt_lo, qt_hi;
-  q_tile_range(p, k0, &qt_lo, &qt_hi);
+  q_tile_range<kLse>(p, k0, &qt_lo, &qt_hi);
   for (int hh = 0; hh < rep; ++hh) {
     const int h = kvh * rep + hh;
     const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
@@ -320,7 +365,7 @@ __global__ void __launch_bounds__(kFmaThreads) flash_dkv_f32_kernel(Params p) {
         const int qc = sub + 4 * j;
         float dfac;
         const float s2 = score2(p, s[j], &dfac);
-        const bool live = visible(p, q0 + qc, k_pos);
+        const bool live = visible<kLse>(p, q0 + qc, k_pos);
         const float pv = live ? exp2f(s2 - lse_s[qc]) : 0.f;
         ps[row * kLdp + qc] = pv;
         dss[row * kLdp + qc] = live ? pv * (dp[j] - delta_s[qc]) * dfac : 0.f;
@@ -392,7 +437,7 @@ __device__ __forceinline__ void a_frag(const __nv_bfloat16* m, int ld,
   a[3] = ld32(lo + 8 * ld + 8);
 }
 
-template <int HD>
+template <int HD, bool kLse>
 __global__ void __launch_bounds__(kMmaThreads) flash_dq_bf16_kernel(Params p) {
   constexpr int kLd = HD + 8;       // +16 bytes: conflict-free fragment loads
   constexpr int kKSteps = HD / 16;  // k-steps over the head dim
@@ -444,7 +489,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dq_bf16_kernel(Params p) {
   for (int d = 0; d < kDTiles; ++d) dq[d][0] = dq[d][1] = dq[d][2] = dq[d][3] = 0.f;
 
   int kt_lo, kt_hi;
-  kv_tile_range(p, q0, &kt_lo, &kt_hi);
+  kv_tile_range<kLse>(p, q0, &kt_lo, &kt_hi);
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's k/v reads are done
@@ -479,7 +524,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dq_bf16_kernel(Params p) {
           const int key = k0 + 8 * (2 * kc + jj) + 2 * t4 + (e & 1);
           float dfac;
           const float s2 = score2(p, s[jj][e], &dfac);
-          s[jj][e] = visible(p, q_pos[i], key)
+          s[jj][e] = visible<kLse>(p, q_pos[i], key)
                          ? exp2f(s2 - lse2[i]) * (dp[jj][e] - delta[i]) * dfac
                          : 0.f;
         }
@@ -510,7 +555,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dq_bf16_kernel(Params p) {
   }
 }
 
-template <int HD>
+template <int HD, bool kLse>
 __global__ void __launch_bounds__(kMmaThreads) flash_dkv_bf16_kernel(Params p) {
   constexpr int kLd = HD + 8;
   constexpr int kKSteps = HD / 16;
@@ -548,7 +593,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dkv_bf16_kernel(Params p) {
   }
 
   int qt_lo, qt_hi;
-  q_tile_range(p, k0, &qt_lo, &qt_hi);
+  q_tile_range<kLse>(p, k0, &qt_lo, &qt_hi);
   for (int hh = 0; hh < rep; ++hh) {
     const int h = kvh * rep + hh;
     const __nv_bfloat16* q =
@@ -601,7 +646,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dkv_bf16_kernel(Params p) {
             const int qc = 8 * (2 * kc + jj) + 2 * t4 + (e & 1);
             float dfac;
             const float s2 = score2(p, s[jj][e], &dfac);
-            const bool live = visible(p, q0 + qc, k_pos[i]);
+            const bool live = visible<kLse>(p, q0 + qc, k_pos[i]);
             const float pv = live ? exp2f(s2 - lse_s[qc]) : 0.f;
             dp[jj][e] = live ? pv * (dp[jj][e] - delta_s[qc]) * dfac : 0.f;
             s[jj][e] = pv;
@@ -658,33 +703,35 @@ cudaError_t launch(Kernel kernel, const Params& p, int heads, int threads,
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, bool kLse>
 cudaError_t launch_dq(const Params& p, int dtype, cudaStream_t stream) {
   if (dtype == 0) {
     const int smem = static_cast<int>(
         (2 * kBQ * (HD + 4) + 2 * kBK * (HD + 4) + kBQ * (kBK + 4)) *
         sizeof(float));
-    return launch(flash_dq_f32_kernel<HD>, p, p.H, kFmaThreads, smem, stream);
+    return launch(flash_dq_f32_kernel<HD, kLse>, p, p.H, kFmaThreads, smem,
+                  stream);
   }
   const int smem =
       static_cast<int>((2 * kBQ + 2 * kBK) * (HD + 8) * sizeof(__nv_bfloat16));
-  return launch(flash_dq_bf16_kernel<HD>, p, p.H, kMmaThreads, smem, stream);
+  return launch(flash_dq_bf16_kernel<HD, kLse>, p, p.H, kMmaThreads, smem,
+                stream);
 }
 
-template <int HD>
+template <int HD, bool kLse>
 cudaError_t launch_dkv(const Params& p, int dtype, cudaStream_t stream) {
   if (dtype == 0) {
     const int smem = static_cast<int>(
         (2 * kBK * (HD + 4) + 2 * kBQ * (HD + 4) + 2 * kBK * (kBQ + 4) +
          2 * kBQ) *
         sizeof(float));
-    return launch(flash_dkv_f32_kernel<HD>, p, p.KV, kFmaThreads, smem,
+    return launch(flash_dkv_f32_kernel<HD, kLse>, p, p.KV, kFmaThreads, smem,
                   stream);
   }
   const int smem = static_cast<int>(
       (2 * kBK + 2 * kBQ) * (HD + 8) * sizeof(__nv_bfloat16) +
       2 * kBQ * sizeof(float));
-  return launch(flash_dkv_bf16_kernel<HD>, p, p.KV, kMmaThreads, smem,
+  return launch(flash_dkv_bf16_kernel<HD, kLse>, p, p.KV, kMmaThreads, smem,
                 stream);
 }
 
@@ -694,7 +741,7 @@ Params make_params(const void* q, const void* k, const void* v,
                    long long q_st, long long q_sh, long long k_sb,
                    long long k_st, long long k_sh, long long v_sb,
                    long long v_st, long long v_sh, float scale, int window,
-                   float softcap) {
+                   float softcap, int causal, int q_offset) {
   Params p;
   p.q = q;
   p.k = k;
@@ -719,7 +766,38 @@ Params make_params(const void* q, const void* k, const void* v,
   p.scale = scale;
   p.window = window;
   p.softcap = softcap;
+  p.causal = causal;
+  p.q_offset = q_offset;
   return p;
+}
+
+template <bool kLse>
+int run_dq(Params p, void* dq, int hd, int dtype, void* stream) {
+  p.dq = dq;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (hd) {
+    case 16: return static_cast<int>(launch_dq<16, kLse>(p, dtype, s));
+    case 32: return static_cast<int>(launch_dq<32, kLse>(p, dtype, s));
+    case 64: return static_cast<int>(launch_dq<64, kLse>(p, dtype, s));
+    case 128: return static_cast<int>(launch_dq<128, kLse>(p, dtype, s));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <bool kLse>
+int run_dkv(Params p, void* dk, void* dv, int hd, int dtype, void* stream) {
+  p.dk = dk;
+  p.dv = dv;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  switch (hd) {
+    case 16: return static_cast<int>(launch_dkv<16, kLse>(p, dtype, s));
+    case 32: return static_cast<int>(launch_dkv<32, kLse>(p, dtype, s));
+    case 64: return static_cast<int>(launch_dkv<64, kLse>(p, dtype, s));
+    case 128: return static_cast<int>(launch_dkv<128, kLse>(p, dtype, s));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -734,19 +812,10 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             long long k_sh, long long v_sb, long long v_st,
                             long long v_sh, float scale, int window,
                             float softcap, int dtype, void* stream) {
-  Params p = make_params(q, k, v, dout, lse, delta, B, T, H, KV, q_sb, q_st,
-                         q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale,
-                         window, softcap);
-  p.dq = dq;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  switch (hd) {
-    case 16: return static_cast<int>(launch_dq<16>(p, dtype, s));
-    case 32: return static_cast<int>(launch_dq<32>(p, dtype, s));
-    case 64: return static_cast<int>(launch_dq<64>(p, dtype, s));
-    case 128: return static_cast<int>(launch_dq<128>(p, dtype, s));
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return run_dq<false>(make_params(q, k, v, dout, lse, delta, B, T, H, KV,
+                                   q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb,
+                                   v_st, v_sh, scale, window, softcap, 1, 0),
+                dq, hd, dtype, stream);
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -758,18 +827,44 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              long long v_st, long long v_sh, float scale,
                              int window, float softcap, int dtype,
                              void* stream) {
-  Params p = make_params(q, k, v, dout, lse, delta, B, T, H, KV, q_sb, q_st,
-                         q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale,
-                         window, softcap);
-  p.dk = dk;
-  p.dv = dv;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  switch (hd) {
-    case 16: return static_cast<int>(launch_dkv<16>(p, dtype, s));
-    case 32: return static_cast<int>(launch_dkv<32>(p, dtype, s));
-    case 64: return static_cast<int>(launch_dkv<64>(p, dtype, s));
-    case 128: return static_cast<int>(launch_dkv<128>(p, dtype, s));
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return run_dkv<false>(make_params(q, k, v, dout, lse, delta, B, T, H, KV,
+                                    q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb,
+                                    v_st, v_sh, scale, window, softcap, 1, 0),
+                 dk, dv, hd, dtype, stream);
+}
+
+// causal: 0 or 1; q_offset >= 0 (read only when causal). delta already
+// holds delta - dlse.
+extern "C" int flash_lse_bwd_dq(const void* q, const void* k, const void* v,
+                                const void* dout, const void* lse,
+                                const void* delta, void* dq, int B, int T,
+                                int H, int KV, int hd, long long q_sb,
+                                long long q_st, long long q_sh,
+                                long long k_sb, long long k_st,
+                                long long k_sh, long long v_sb,
+                                long long v_st, long long v_sh, float scale,
+                                int window, float softcap, int causal,
+                                int q_offset, int dtype, void* stream) {
+  return run_dq<true>(make_params(q, k, v, dout, lse, delta, B, T, H, KV,
+                                  q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb,
+                                  v_st, v_sh, scale, window, softcap, causal,
+                                  q_offset),
+                dq, hd, dtype, stream);
+}
+
+extern "C" int flash_lse_bwd_dkv(const void* q, const void* k, const void* v,
+                                 const void* dout, const void* lse,
+                                 const void* delta, void* dk, void* dv, int B,
+                                 int T, int H, int KV, int hd, long long q_sb,
+                                 long long q_st, long long q_sh,
+                                 long long k_sb, long long k_st,
+                                 long long k_sh, long long v_sb,
+                                 long long v_st, long long v_sh, float scale,
+                                 int window, float softcap, int causal,
+                                 int q_offset, int dtype, void* stream) {
+  return run_dkv<true>(make_params(q, k, v, dout, lse, delta, B, T, H, KV,
+                                   q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb,
+                                   v_st, v_sh, scale, window, softcap, causal,
+                                   q_offset),
+                 dk, dv, hd, dtype, stream);
 }

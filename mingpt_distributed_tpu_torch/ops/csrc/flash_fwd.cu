@@ -1,11 +1,28 @@
-// Causal flash-attention forward for Hopper (sm_90a), plain C interface.
+// Flash-attention forward for Hopper (sm_90a), plain C interface: two entry
+// points, each a launch of its own, over the same kernels.
 //
-// Replaces the TPU kernel `_fwd_kernel_btd` in
-// mingpt_distributed_tpu/ops/flash_attention.py (reached through
-// `_flash_fwd_btd` and `_flash_btd`): FlashAttention-2 online softmax in
-// base 2 with log2(e) folded into the score scale, optional sliding window
-// and logit soft-capping, emitting the output and the natural-domain
-// log-sum-exp of every query row.
+//   flash_fwd      replaces the TPU kernel `_fwd_kernel_btd` (reached
+//                  through `_flash_fwd_btd` and `_flash_btd`): causal;
+//   flash_lse_fwd  replaces the TPU kernel `_fwd_kernel` (reached through
+//                  `_flash_fwd` and `flash_with_lse`, the ring-attention
+//                  hop): a `causal` flag and a `q_offset` that places query
+//                  row i at position q_offset + i of the key axis, so the
+//                  causal band (and a window) shifts with it;
+// both in mingpt_distributed_tpu/ops/flash_attention.py. FlashAttention-2
+// online softmax in base 2 with log2(e) folded into the score scale,
+// optional sliding window (causal only, as in the TPU kernels) and logit
+// soft-capping, emitting the output and the natural-domain log-sum-exp of
+// every query row.
+//
+// The two entry points run the same kernels, specialised at compile time
+// (kLse): flash_fwd's instantiations test the plain causal band, with no
+// flag or offset in their inner loops, and flash_lse_fwd's the general one.
+//
+// Dead rows (q_offset > 0: no key of the chunk inside a row's band) keep
+// m = -1e30 and l = 0, so they are written as out = 0 and lse = -1e30 *
+// ln 2 + ln(1e-30) ~ -6.9e29: finite, and weighted exactly 0 by an lse
+// merge. A q tile whose rows are all dead walks no k tile and is written
+// the same way (never skipped: the output buffers are uninitialised).
 //
 // Layout: q (B, T, H, hd), k/v (B, T, KV, hd), addressed through the batch,
 // time and head strides the caller passes (the last dim must be dense).
@@ -16,8 +33,8 @@
 //   * one thread block per (q tile of 64 rows, head, batch); the heaviest
 //     (last) q tiles are launched first;
 //   * the block walks the k/v tiles of 64 keys from the first tile of the
-//     band to the diagonal, staging each through shared memory; tiles
-//     outside the band are never loaded;
+//     band to the (offset) diagonal, or every tile when not causal, staging
+//     each through shared memory; tiles outside the band are never loaded;
 //   * a masked score contributes exactly 0 (it is never exponentiated), so
 //     a tile that is fully masked for some row (a window narrower than the
 //     tile) leaves that row's m, l and acc untouched. The TPU kernel instead
@@ -60,16 +77,26 @@ struct Params {
   long long k_sb, k_st, k_sh;
   long long v_sb, v_st, v_sh;
   float scale;
-  int window;     // <= 0: full causal
+  int window;     // <= 0: no window (causal only)
   float softcap;  // <= 0: off
+  int causal;     // 0: every key of the chunk is visible
+  int q_offset;   // causal: query row i sits at key position q_offset + i
 };
 
-// The first and last k/v tile a q tile starting at q0 attends.
+// The first and last k/v tile a q tile starting at q0 attends; lo > hi when
+// the band misses the chunk. kLse: read the causal flag and the offset.
+template <bool kLse>
 __device__ __forceinline__ void kv_tile_range(const Params& p, int q0,
                                               int* lo, int* hi) {
-  const int k_first = p.window > 0 ? max(0, q0 - (p.window - 1)) : 0;
+  if (kLse && !p.causal) {
+    *lo = 0;
+    *hi = (p.T - 1) / kBK;
+    return;
+  }
+  const int qg = kLse ? p.q_offset + q0 : q0;  // the tile's first row on the key axis
+  const int k_first = p.window > 0 ? max(0, qg - (p.window - 1)) : 0;
   *lo = k_first / kBK;
-  *hi = min(q0 + kBQ - 1, p.T - 1) / kBK;
+  *hi = min(qg + kBQ - 1, p.T - 1) / kBK;
 }
 
 // Base-2 score of a raw q.k product: s * scale * log2(e), or
@@ -79,10 +106,17 @@ __device__ __forceinline__ float score2(const Params& p, float s) {
                          : s * (p.scale * kLog2e);
 }
 
+template <bool kLse>
 __device__ __forceinline__ bool visible(const Params& p, int q_pos,
                                         int k_pos) {
-  return k_pos <= q_pos && k_pos < p.T &&
-         (p.window <= 0 || q_pos - k_pos < p.window);
+  if (!kLse) {
+    return k_pos <= q_pos && k_pos < p.T &&
+           (p.window <= 0 || q_pos - k_pos < p.window);
+  }
+  if (k_pos >= p.T) return false;
+  if (!p.causal) return true;
+  const int qg = p.q_offset + q_pos;
+  return k_pos <= qg && (p.window <= 0 || qg - k_pos < p.window);
 }
 
 // ---------------------------------------------------------------------------
@@ -91,7 +125,7 @@ __device__ __forceinline__ bool visible(const Params& p, int q_pos,
 
 constexpr int kFmaThreads = 256;  // four threads per query row
 
-template <int HD>
+template <int HD, bool kLse>
 __global__ void __launch_bounds__(kFmaThreads) flash_fwd_f32_kernel(Params p) {
   constexpr int kLd = HD + 4;    // +4 floats: float4-aligned, conflict-free
   constexpr int kLdp = kBK + 4;
@@ -124,7 +158,7 @@ __global__ void __launch_bounds__(kFmaThreads) flash_fwd_f32_kernel(Params p) {
   }
 
   int kt_lo, kt_hi;
-  kv_tile_range(p, q0, &kt_lo, &kt_hi);
+  kv_tile_range<kLse>(p, q0, &kt_lo, &kt_hi);
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's k/v reads are done
@@ -155,7 +189,7 @@ __global__ void __launch_bounds__(kFmaThreads) flash_fwd_f32_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       s[j] = score2(p, s[j]);
-      if (visible(p, q_pos, k0 + sub + 4 * j)) {
+      if (visible<kLse>(p, q_pos, k0 + sub + 4 * j)) {
         live |= 1u << j;
         m_tile = fmaxf(m_tile, s[j]);
       }
@@ -232,7 +266,7 @@ __global__ void __launch_bounds__(kFmaThreads) flash_fwd_f32_kernel(Params p) {
 
 constexpr int kMmaThreads = 128;  // four warps, 16 query rows each
 
-template <int HD>
+template <int HD, bool kLse>
 __global__ void __launch_bounds__(kMmaThreads)
     flash_fwd_bf16_kernel(Params p) {
   constexpr int kLd = HD + 8;     // +16 bytes: conflict-free fragment loads
@@ -279,7 +313,7 @@ __global__ void __launch_bounds__(kMmaThreads)
   for (int d = 0; d < kDTiles; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
 
   int kt_lo, kt_hi;
-  kv_tile_range(p, q0, &kt_lo, &kt_hi);
+  kv_tile_range<kLse>(p, q0, &kt_lo, &kt_hi);
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's k/v reads are done
@@ -308,7 +342,7 @@ __global__ void __launch_bounds__(kMmaThreads)
       for (int e = 0; e < 4; ++e) {
         const int i = e >> 1;
         s[j][e] = score2(p, s[j][e]);
-        if (visible(p, q_pos[i], k0 + 8 * j + 2 * t4 + (e & 1))) {
+        if (visible<kLse>(p, q_pos[i], k0 + 8 * j + 2 * t4 + (e & 1))) {
           live[i] |= 1u << (2 * j + (e & 1));
           m_tile[i] = fmaxf(m_tile[i], s[j][e]);
         }
@@ -395,31 +429,46 @@ cudaError_t launch(Kernel kernel, const Params& p, int threads, int smem,
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, bool kLse>
 cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   const int smem = static_cast<int>(
       (kBQ * (HD + 4) + 2 * kBK * (HD + 4) + kBQ * (kBK + 4)) * sizeof(float));
-  return launch(flash_fwd_f32_kernel<HD>, p, kFmaThreads, smem, stream);
+  return launch(flash_fwd_f32_kernel<HD, kLse>, p, kFmaThreads, smem, stream);
 }
 
-template <int HD>
+template <int HD, bool kLse>
 cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
   const int smem = static_cast<int>((kBQ + 2 * kBK) * (HD + 8) *
                                     sizeof(__nv_bfloat16));
-  return launch(flash_fwd_bf16_kernel<HD>, p, kMmaThreads, smem, stream);
+  return launch(flash_fwd_bf16_kernel<HD, kLse>, p, kMmaThreads, smem, stream);
 }
 
-}  // namespace
+template <bool kLse>
+cudaError_t dispatch(const Params& p, int hd, int dtype, cudaStream_t s) {
+  if (dtype == 0) {
+    switch (hd) {
+      case 16: return launch_f32<16, kLse>(p, s);
+      case 32: return launch_f32<32, kLse>(p, s);
+      case 64: return launch_f32<64, kLse>(p, s);
+      case 128: return launch_f32<128, kLse>(p, s);
+    }
+  } else if (dtype == 1) {
+    switch (hd) {
+      case 16: return launch_bf16<16, kLse>(p, s);
+      case 32: return launch_bf16<32, kLse>(p, s);
+      case 64: return launch_bf16<64, kLse>(p, s);
+      case 128: return launch_bf16<128, kLse>(p, s);
+    }
+  }
+  return cudaErrorInvalidValue;
+}
 
-// dtype: 0 = float32, 1 = bfloat16 (rows 16-byte aligned). hd: 16, 32, 64
-// or 128. Returns a cudaError_t (0 = success).
-extern "C" int flash_fwd(const void* q, const void* k, const void* v,
-                         void* out, void* lse, int B, int T, int H, int KV,
-                         int hd, long long q_sb, long long q_st,
-                         long long q_sh, long long k_sb, long long k_st,
-                         long long k_sh, long long v_sb, long long v_st,
-                         long long v_sh, float scale, int window,
-                         float softcap, int dtype, void* stream) {
+int run(bool lse_entry, const void* q, const void* k, const void* v,
+        void* out, void* lse, int B, int T, int H, int KV, int hd,
+        long long q_sb, long long q_st, long long q_sh, long long k_sb,
+        long long k_st, long long k_sh, long long v_sb, long long v_st,
+        long long v_sh, float scale, int window, float softcap, int causal,
+        int q_offset, int dtype, void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -442,22 +491,39 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
   p.scale = scale;
   p.window = window;
   p.softcap = softcap;
+  p.causal = causal;
+  p.q_offset = q_offset;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0) {
-    switch (hd) {
-      case 16: err = launch_f32<16>(p, s); break;
-      case 32: err = launch_f32<32>(p, s); break;
-      case 64: err = launch_f32<64>(p, s); break;
-      case 128: err = launch_f32<128>(p, s); break;
-    }
-  } else if (dtype == 1) {
-    switch (hd) {
-      case 16: err = launch_bf16<16>(p, s); break;
-      case 32: err = launch_bf16<32>(p, s); break;
-      case 64: err = launch_bf16<64>(p, s); break;
-      case 128: err = launch_bf16<128>(p, s); break;
-    }
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(lse_entry ? dispatch<true>(p, hd, dtype, s)
+                                    : dispatch<false>(p, hd, dtype, s));
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16 (rows 16-byte aligned). hd: 16, 32, 64
+// or 128. Each returns a cudaError_t (0 = success).
+extern "C" int flash_fwd(const void* q, const void* k, const void* v,
+                         void* out, void* lse, int B, int T, int H, int KV,
+                         int hd, long long q_sb, long long q_st,
+                         long long q_sh, long long k_sb, long long k_st,
+                         long long k_sh, long long v_sb, long long v_st,
+                         long long v_sh, float scale, int window,
+                         float softcap, int dtype, void* stream) {
+  return run(false, q, k, v, out, lse, B, T, H, KV, hd, q_sb, q_st, q_sh,
+             k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, window, softcap, 1, 0,
+             dtype, stream);
+}
+
+// causal: 0 or 1; q_offset >= 0 (read only when causal).
+extern "C" int flash_lse_fwd(const void* q, const void* k, const void* v,
+                             void* out, void* lse, int B, int T, int H,
+                             int KV, int hd, long long q_sb, long long q_st,
+                             long long q_sh, long long k_sb, long long k_st,
+                             long long k_sh, long long v_sb, long long v_st,
+                             long long v_sh, float scale, int window,
+                             float softcap, int causal, int q_offset,
+                             int dtype, void* stream) {
+  return run(true, q, k, v, out, lse, B, T, H, KV, hd, q_sb, q_st, q_sh,
+             k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, window, softcap,
+             causal, q_offset, dtype, stream);
 }

@@ -1,10 +1,13 @@
-"""Causal flash attention: the dispatch, the autograd Function, the
-hand-written CUDA kernels' wrappers, and the kernels' plain PyTorch versions.
+"""Flash attention: the dispatch, the autograd Functions, the hand-written
+CUDA kernels' wrappers, and the kernels' plain PyTorch versions.
 
-Counterpart of ``mingpt_distributed_tpu/ops/flash_attention.py:1089-1315``.
-The kernels replace the TPU kernels ``_fwd_kernel_btd`` (``csrc/flash_fwd.cu``)
-and ``_dq_kernel_btd`` + ``_dkv_kernel_btd`` (``csrc/flash_bwd.cu``); see the
-sources for their design and what bounds them.
+Counterpart of ``mingpt_distributed_tpu/ops/flash_attention.py:280-645`` and
+``:1089-1315``. The kernels replace the TPU kernels ``_fwd_kernel_btd`` and
+``_fwd_kernel`` (``csrc/flash_fwd.cu``: ``flash_fwd``, ``flash_lse_fwd``),
+and ``_dq_kernel_btd`` + ``_dkv_kernel_btd``, ``_dq_kernel`` +
+``_dkv_kernel`` (``csrc/flash_bwd.cu``: ``flash_bwd_dq``/``_dkv``,
+``flash_lse_bwd_dq``/``_dkv``); see the sources for their design and what
+bounds them.
 
 * ``causal_attention`` takes the einsum oracle exactly where the JAX
   package does, for semantic reasons: attention dropout active, q and k
@@ -22,6 +25,17 @@ sources for their design and what bounds them.
   log-sum-exp, ``flash_bwd_plain`` the dense gradient from the saved lse:
   what the kernels compute, written plainly, in float32 (float64 for
   float64 inputs, so ``gradcheck`` can run on the CPU).
+* ``flash_with_lse`` is the ring-attention building block (JAX
+  ``flash_with_lse``): ``FlashLse``, differentiable in both outputs, over
+  ``flash_lse_fwd`` and ``flash_lse_bwd`` (plain versions
+  ``flash_lse_fwd_plain``/``flash_lse_bwd_plain``), with a ``causal`` flag
+  and a ``q_offset`` that places query row i at key position q_offset + i.
+  Dead rows (no key of the chunk inside an offset band) come out as out = 0
+  and a finite lse <= -1e29, and their probabilities are exactly 0, so an
+  lse merge weights them 0 and their gradients vanish. The lse cotangent
+  folds into delta (delta' = delta - dlse) as a tensor op. The JAX
+  ``_flash`` (``FLASH_LAYOUT=bh``) is TPU layout machinery and has no
+  counterpart.
 """
 
 from __future__ import annotations
@@ -45,47 +59,71 @@ def _acc_dtype(x: torch.Tensor) -> torch.dtype:
     return torch.float64 if x.dtype == torch.float64 else torch.float32
 
 
-def _allowed(t: int, window: Optional[int], device) -> torch.Tensor:
-    """(T, T) causal mask, banded to the last ``window`` keys."""
+def _allowed(t: int, window: Optional[int], device, causal: bool = True,
+             q_offset: int = 0) -> torch.Tensor:
+    """(T, T) mask of the visible (query, key) pairs: query row i at key
+    position q_offset + i sees the keys at or before it, banded to the last
+    ``window``; every pair when not causal (the window is then unused, as in
+    the TPU kernels)."""
     pos = torch.arange(t, device=device)
-    allowed = pos[:, None] >= pos[None, :]
+    if not causal:
+        return torch.ones((t, t), dtype=torch.bool, device=device)
+    qg = pos[:, None] + q_offset
+    allowed = qg >= pos[None, :]
     if window is not None:
-        allowed = allowed & (pos[:, None] - pos[None, :] < window)
+        allowed = allowed & (qg - pos[None, :] < window)
     return allowed
 
 
-def flash_fwd_plain(
+def flash_lse_fwd_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
-    window: Optional[int] = None, softcap: Optional[float] = None,
+    causal: bool = True, window: Optional[int] = None,
+    softcap: Optional[float] = None, q_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """q (B, T, H, hd), k/v (B, T, KV, hd) -> (out (B, T, H, hd) in q's
     dtype, lse (B, H, T) float32, natural domain). The probabilities stay
     float32 here; the kernel's bf16 path rounds them to bf16 before P V,
-    as the TPU kernel does."""
+    as the TPU kernel does. p is exactly 0 off the band, so a dead row gets
+    out = 0 and lse = logsumexp of its masked scores (~ -1e30)."""
     acc = _acc_dtype(q)
     h = q.shape[2]
     k = attn_ops.repeat_kv(k, h // k.shape[2])
     v = attn_ops.repeat_kv(v, h // v.shape[2])
     s = torch.einsum("bthd,bshd->bhts", q.to(acc), k.to(acc)) * scale
     s = attn_ops.softcap(s, softcap)
-    s = torch.where(_allowed(q.shape[1], window, q.device), s,
-                    torch.full((), attn_ops.NEG_INF, dtype=acc, device=q.device))
+    allowed = _allowed(q.shape[1], window, q.device, causal, q_offset)
+    s = torch.where(allowed, s, torch.full((), attn_ops.NEG_INF, dtype=acc,
+                                           device=q.device))
     lse = torch.logsumexp(s, dim=-1)
-    p = torch.exp(s - lse[..., None])
+    p = torch.where(allowed, torch.exp(s - lse[..., None]),
+                    torch.zeros((), dtype=acc, device=q.device))
     out = torch.einsum("bhts,bshd->bthd", p, v.to(acc))
     return out.to(q.dtype), lse
 
 
-def flash_bwd_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
-    lse: torch.Tensor, do: torch.Tensor, *, scale: float,
+def flash_fwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
     window: Optional[int] = None, softcap: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_lse_fwd_plain`` with the causal mask: what ``flash_fwd``
+    computes."""
+    return flash_lse_fwd_plain(q, k, v, scale=scale, window=window,
+                               softcap=softcap)
+
+
+def flash_lse_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, dlse: Optional[torch.Tensor] = None,
+    *, scale: float, causal: bool = True, window: Optional[int] = None,
+    softcap: Optional[float] = None, q_offset: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The gradient of ``flash_fwd`` from its saved lse (B, H, T), with the
-    TPU kernels' formulas: p = exp(s - lse) on allowed pairs, 0 elsewhere;
-    ds = p (dO V^T - delta) scale, times (1 - t^2) under soft-capping;
-    dq = ds K, dk = ds^T Q and dv = p^T dO, dk/dv summed over each GQA
-    group. Returns (dq, dk, dv) in the dtypes of q, k, v."""
+    """The gradient of ``flash_lse_fwd`` from its saved lse (B, H, T), with
+    the TPU kernels' formulas: p = exp(s - lse) on allowed pairs, 0
+    elsewhere; ds = p (dO V^T - delta) scale, times (1 - t^2) under
+    soft-capping, with delta = rowsum(out dO) - dlse (the lse cotangent,
+    (B, H, T), none = 0); dq = ds K, dk = ds^T Q and dv = p^T dO, dk/dv
+    summed over each GQA group. Returns (dq, dk, dv) in the dtypes of q, k,
+    v."""
     acc = _acc_dtype(q)
     b, t, h, hd = q.shape
     kv = k.shape[2]
@@ -93,13 +131,15 @@ def flash_bwd_plain(
     vf = attn_ops.repeat_kv(v, h // kv).to(acc)
     qf, dof = q.to(acc), do.to(acc)
     delta = (out.to(acc) * dof).sum(-1).transpose(1, 2)  # (B, H, T)
+    if dlse is not None:
+        delta = delta - dlse.to(acc)
     s = torch.einsum("bthd,bshd->bhts", qf, kf) * scale
     dfac = scale
     if softcap:
         tanh = torch.tanh(s / softcap)
         s = softcap * tanh
         dfac = scale * (1.0 - tanh * tanh)
-    allowed = _allowed(t, window, q.device)
+    allowed = _allowed(t, window, q.device, causal, q_offset)
     p = torch.where(allowed, torch.exp(s - lse.to(acc)[..., None]),
                     torch.zeros((), dtype=acc, device=q.device))
     dp = torch.einsum("bthd,bshd->bhts", dof, vf)
@@ -113,37 +153,42 @@ def flash_bwd_plain(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, *, scale: float,
+    window: Optional[int] = None, softcap: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``flash_lse_bwd_plain`` with the causal mask and no lse cotangent:
+    what ``flash_bwd`` computes."""
+    return flash_lse_bwd_plain(q, k, v, out, lse, do, scale=scale,
+                               window=window, softcap=softcap)
+
+
 _STRIDES = [ctypes.c_longlong] * 9  # b/t/h strides of q, k, v
-_TAIL = [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-         ctypes.c_void_p]  # scale, window, softcap, dtype, stream
 _I32 = ctypes.c_int
-
-
-def _declare_fwd(lib: ctypes.CDLL) -> None:
-    lib.flash_fwd.argtypes = (
-        [ctypes.c_void_p] * 5        # q, k, v, out, lse
-        + [_I32] * 5                 # B, T, H, KV, hd
-        + _STRIDES + _TAIL)
-    lib.flash_fwd.restype = ctypes.c_int
-
-
-def _declare_bwd(lib: ctypes.CDLL) -> None:
-    lib.flash_bwd_dq.argtypes = (
-        [ctypes.c_void_p] * 7        # q, k, v, do, lse, delta, dq
-        + [_I32] * 5 + _STRIDES + _TAIL)
-    lib.flash_bwd_dq.restype = ctypes.c_int
-    lib.flash_bwd_dkv.argtypes = (
-        [ctypes.c_void_p] * 8        # q, k, v, do, lse, delta, dk, dv
-        + [_I32] * 5 + _STRIDES + _TAIL)
-    lib.flash_bwd_dkv.restype = ctypes.c_int
+# scale, window, softcap, [causal, q_offset,] dtype, stream
+_TAIL = [ctypes.c_float, _I32, ctypes.c_float, _I32, ctypes.c_void_p]
+_LSE_TAIL = [ctypes.c_float, _I32, ctypes.c_float, _I32, _I32, _I32,
+             ctypes.c_void_p]
+# entry point: (pointer arguments, tail); every one also takes B, T, H, KV,
+# hd and the strides
+_ENTRIES = {
+    "flash_fwd": {"flash_fwd": (5, _TAIL),          # q, k, v, out, lse
+                  "flash_lse_fwd": (5, _LSE_TAIL)},
+    "flash_bwd": {"flash_bwd_dq": (7, _TAIL),       # q, k, v, do, lse, delta, dq
+                  "flash_bwd_dkv": (8, _TAIL),      # ... dk, dv
+                  "flash_lse_bwd_dq": (7, _LSE_TAIL),
+                  "flash_lse_bwd_dkv": (8, _LSE_TAIL)},
+}
 
 
 def _kernel(name: str) -> ctypes.CDLL:
     lib = _build.load(name)
-    if name == "flash_fwd" and lib.flash_fwd.argtypes is None:
-        _declare_fwd(lib)
-    elif name == "flash_bwd" and lib.flash_bwd_dq.argtypes is None:
-        _declare_bwd(lib)
+    for fn, (n_ptr, tail) in _ENTRIES[name].items():
+        f = getattr(lib, fn)
+        if f.argtypes is None:
+            f.argtypes = [ctypes.c_void_p] * n_ptr + [_I32] * 5 + _STRIDES + tail
+            f.restype = ctypes.c_int
     return lib
 
 
@@ -151,10 +196,20 @@ def _qkv_strides(q, k, v):
     return [x.stride(i) for x in (q, k, v) for i in range(3)]
 
 
-def _tail(q, scale, window, softcap, stream):
-    return [float(scale), 0 if window is None else int(window),
-            0.0 if softcap is None else float(softcap), _DTYPE_CODES[q.dtype],
-            stream]
+def _tail(q, scale, window, softcap, stream, lse_opts=None):
+    """The entry point's trailing arguments; ``lse_opts`` = (causal,
+    q_offset) for the flash_lse_* entry points."""
+    head = [float(scale), 0 if window is None else int(window),
+            0.0 if softcap is None else float(softcap)]
+    opts = [] if lse_opts is None else [int(bool(lse_opts[0])), int(lse_opts[1])]
+    return head + opts + [_DTYPE_CODES[q.dtype], stream]
+
+
+def _check_lse_opts(window, q_offset) -> None:
+    if not isinstance(q_offset, int) or q_offset < 0:
+        raise ValueError(f"q_offset must be an int >= 0, got {q_offset!r}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
 
 
 def _check_cuda_inputs(q, k, v) -> None:
@@ -204,8 +259,17 @@ def flash_fwd(
     if q.device.type == "cpu":
         return flash_fwd_plain(q, k, v, scale=scale, window=window,
                                softcap=softcap)
+    out, lse = _launch_fwd("flash_fwd", q, k, v, scale, window, softcap)
+    flash_fwd.launches += 1
+    return out, lse
+
+
+flash_fwd.launches = 0
+
+
+def _launch_fwd(fn_name, q, k, v, scale, window, softcap, lse_opts=None):
     if q.device.type != "cuda":
-        raise ValueError(f"flash_fwd runs on cuda or cpu tensors, not {q.device}")
+        raise ValueError(f"{fn_name} runs on cuda or cpu tensors, not {q.device}")
     _check_cuda_inputs(q, k, v)
     b, t, h, hd = q.shape
     lib = _kernel("flash_fwd")
@@ -213,18 +277,41 @@ def flash_fwd(
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.flash_fwd(
+        rc = getattr(lib, fn_name)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, t, h, k.shape[2], hd, *_qkv_strides(q, k, v),
-            *_tail(q, scale, window, softcap, stream),
+            *_tail(q, scale, window, softcap, stream, lse_opts),
         )
     if rc != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {rc}")
-    flash_fwd.launches += 1
+        raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {rc}")
     return out, lse
 
 
-flash_fwd.launches = 0
+def flash_lse_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
+    causal: bool = True, window: Optional[int] = None,
+    softcap: Optional[float] = None, q_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The K3 kernel's wrapper: ``flash_fwd`` with a ``causal`` flag and a
+    ``q_offset`` (query row i at key position q_offset + i). q (B, T, H,
+    hd), k/v (B, T, KV, hd), any strides with a dense last axis -> (out
+    (B, T, H, hd) dense in q's dtype, lse (B, H, T) float32).
+
+    CPU tensors take ``flash_lse_fwd_plain``. CUDA tensors launch the kernel
+    (counted in ``flash_lse_fwd.launches``) or raise.
+    """
+    _check_lse_opts(window, q_offset)
+    kw = dict(scale=scale, causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset)
+    if q.device.type == "cpu":
+        return flash_lse_fwd_plain(q, k, v, **kw)
+    out, lse = _launch_fwd("flash_lse_fwd", q, k, v, scale, window, softcap,
+                           (causal, q_offset))
+    flash_lse_fwd.launches += 1
+    return out, lse
+
+
+flash_lse_fwd.launches = 0
 
 
 def _dense(x: torch.Tensor) -> torch.Tensor:
@@ -278,7 +365,7 @@ def flash_bwd(
 
 
 def _launch_bwd(fn_name, outs, q, k, v, do, lse, delta, scale, window,
-                softcap) -> None:
+                softcap, lse_opts=None) -> None:
     lib = _kernel("flash_bwd")
     b, t, h, hd = q.shape
     with torch.cuda.device(q.device):
@@ -287,7 +374,7 @@ def _launch_bwd(fn_name, outs, q, k, v, do, lse, delta, scale, window,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), *(o.data_ptr() for o in outs),
             b, t, h, k.shape[2], hd, *_qkv_strides(q, k, v),
-            *_tail(q, scale, window, softcap, stream))
+            *_tail(q, scale, window, softcap, stream, lse_opts))
     if rc != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {rc}")
 
@@ -318,6 +405,73 @@ flash_bwd.dq_launches = 0
 flash_bwd.dkv_launches = 0
 
 
+def flash_lse_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, dlse: Optional[torch.Tensor] = None,
+    *, scale: float, causal: bool = True, window: Optional[int] = None,
+    softcap: Optional[float] = None, q_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The K4 kernels' wrapper: the gradient of ``flash_lse_fwd`` in both
+    outputs -> (dq (B, T, H, hd), dk, dv (B, T, KV, hd)) in the inputs'
+    dtype. ``dlse`` is the lse cotangent (B, H, T) or None (zero).
+
+    delta' = rowsum(out * do) - dlse is computed here in float32 as a plain
+    tensor op, as the JAX ``_flash_bwd`` does. CPU tensors take
+    ``flash_lse_bwd_plain``. CUDA tensors launch the dq kernel (K4a) and the
+    dk/dv kernel (K4b), counted in ``flash_lse_bwd.dq_launches`` and
+    ``flash_lse_bwd.dkv_launches``, or raise.
+    """
+    _check_lse_opts(window, q_offset)
+    kw = dict(scale=scale, causal=causal, window=window, softcap=softcap,
+              q_offset=q_offset)
+    if q.device.type == "cpu":
+        return flash_lse_bwd_plain(q, k, v, out, lse, do, dlse, **kw)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_lse_bwd runs on cuda or cpu tensors, not {q.device}")
+    _check_cuda_inputs(q, k, v)
+    _check_bwd_inputs(q, out, lse, do)
+    do = _dense(do)
+    lse = lse.contiguous()
+    delta = (out.float() * do.float()).sum(-1).transpose(1, 2)
+    if dlse is not None:
+        if dlse.shape != lse.shape:
+            raise ValueError(f"dlse {tuple(dlse.shape)} does not match lse "
+                             f"{tuple(lse.shape)}")
+        delta = delta - dlse.float()
+    delta = delta.contiguous()
+    dq = flash_lse_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_lse_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    return dq, dk, dv
+
+
+def flash_lse_bwd_dq(q, k, v, do, lse, delta, *, scale, causal=True,
+                     window=None, softcap=None, q_offset=0):
+    """Launch the K4a dq kernel on the inputs ``flash_bwd_dq`` takes, delta
+    already holding delta - dlse. Counted in
+    ``flash_lse_bwd.dq_launches``."""
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch_bwd("flash_lse_bwd_dq", (dq,), q, k, v, do, lse, delta, scale,
+                window, softcap, (causal, q_offset))
+    flash_lse_bwd.dq_launches += 1
+    return dq
+
+
+def flash_lse_bwd_dkv(q, k, v, do, lse, delta, *, scale, causal=True,
+                      window=None, softcap=None, q_offset=0):
+    """Launch the K4b dk/dv kernel on the inputs ``flash_lse_bwd_dq`` takes.
+    Counted in ``flash_lse_bwd.dkv_launches``."""
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    _launch_bwd("flash_lse_bwd_dkv", (dk, dv), q, k, v, do, lse, delta, scale,
+                window, softcap, (causal, q_offset))
+    flash_lse_bwd.dkv_launches += 1
+    return dk, dv
+
+
+flash_lse_bwd.dq_launches = 0
+flash_lse_bwd.dkv_launches = 0
+
+
 class FlashAttention(torch.autograd.Function):
     """Differentiable causal flash attention: ``flash_fwd`` forward, saving
     (q, k, v, out, lse); ``flash_bwd`` backward. The counterpart of the
@@ -339,6 +493,63 @@ class FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_bwd(q, k, v, out, lse, do, scale=scale,
                                window=window, softcap=softcap)
         return dq, dk, dv, None, None, None
+
+
+class FlashLse(torch.autograd.Function):
+    """Flash attention differentiable in both outputs (out, lse):
+    ``flash_lse_fwd`` forward, saving (q, k, v, out, lse); ``flash_lse_bwd``
+    backward with the lse cotangent folded into delta. The counterpart of
+    the custom VJP of ``flash_with_lse`` in the JAX package."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, causal: bool,
+                window: Optional[int], softcap: Optional[float],
+                q_offset: int):
+        out, lse = flash_lse_fwd(q, k, v, scale=scale, causal=causal,
+                                 window=window, softcap=softcap,
+                                 q_offset=q_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.attn = dict(scale=scale, causal=causal, window=window,
+                        softcap=softcap, q_offset=q_offset)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(out)
+        dq, dk, dv = flash_lse_bwd(q, k, v, out, lse, do, dlse, **ctx.attn)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def attention_with_lse(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, scale: float,
+    causal: bool = True, window: Optional[int] = None,
+    softcap: Optional[float] = None, q_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``FlashLse`` in the model's layout: q (B, T, H, hd), k/v (B, T, KV,
+    hd) -> (out (B, T, H, hd), lse (B, H, T) float32), both
+    differentiable."""
+    return FlashLse.apply(q, k, v, float(scale), bool(causal),
+                          None if window is None else int(window),
+                          None if softcap is None else float(softcap),
+                          int(q_offset))
+
+
+def flash_with_lse(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+    causal: bool = True, window: Optional[int] = None,
+    softcap: Optional[float] = None, q_offset: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(q, k, v) (BH, T, hd) -> (out (BH, T, hd), lse (BH, T, 1) float32),
+    the JAX ``flash_with_lse``'s layout and arguments (less its TPU block
+    size). Differentiable in both outputs. Rows with no live key under an
+    offset band return out = 0 and lse <= -1e29: merge by lse."""
+    bh, t, hd = q.shape
+    out, lse = attention_with_lse(
+        q.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2), scale=scale,
+        causal=causal, window=window, softcap=softcap, q_offset=q_offset)
+    return out.squeeze(2), lse.reshape(bh, t, 1)
 
 
 def causal_attention(

@@ -1,14 +1,19 @@
-"""Plant known faults in the backward kernels and show that the on-card
-kernel checks catch them.
+"""Plant known faults in the flash-attention kernels and the ring, and show
+that the on-card checks catch them.
 
 For each fault below (and once with none, as the control), copies
-``chip_smoke.py`` and this package into a temporary directory, rewrites
-``ops/csrc/flash_bwd.cu`` there, and runs ``chip_smoke.bwd_case`` (the
-backward checks of ``chip_smoke.py``'s phase 1: every case of
-``KERNEL_CASES`` in bfloat16 and float32) against the copy, which builds
-its own kernels. Prints one JSON line per fault with the cases and
-gradients that failed. Exits 0 when the control passes every check and
-every fault fails at least one; needs one CUDA device.
+``chip_smoke.py`` and this package into a temporary directory, rewrites one
+source there, and runs ``chip_smoke.py``'s checks against the copy, which
+builds its own kernels. A kernel fault (a source under ``ops/csrc``) runs
+phase 1's kernel checks: ``bwd_case`` (K2a, K2b) on every case of
+``KERNEL_CASES`` and ``lse_case`` (K3, K4a, K4b) on every case of
+``LSE_CASES``, each in bfloat16 and float32. A ring fault (a Python source)
+runs the sp phase's ranks and ``sp_checks``, and must fail the main path's
+model-level group ("main") on its own: the step's loss, grad norm and
+every parameter's gradient against the dense single-process step. The
+control runs both. Prints one JSON line per fault with the checks that
+failed. Exits 0 when the control passes every check and every fault is
+caught; needs one CUDA device.
 
     python -m mingpt_distributed_tpu_torch.tools.plant_faults
 """
@@ -26,59 +31,125 @@ import torch
 
 ROOT = Path(__file__).resolve().parents[2]
 PACKAGE = "mingpt_distributed_tpu_torch"
-SOURCE = Path(PACKAGE) / "ops" / "csrc" / "flash_bwd.cu"
 
-# name: (what it breaks, text in flash_bwd.cu, its replacement, count)
+# name: (what it breaks, source in the package, [(text, its replacement, count)])
 FAULTS = {
-    "none": ("control: the kernels as committed", None, None, 0),
+    "none": ("control: the kernels and the ring as committed", None, []),
     # both dq kernels (fp32, bf16) read delta as 0: ds = p * dp
-    "dq_drops_delta": ("K2a drops delta", "p.delta[vec]", "0.f", 2),
+    "dq_drops_delta": ("K2a/K4a drop delta", "ops/csrc/flash_bwd.cu",
+                       [("p.delta[vec]", "0.f", 2)]),
     # both dk/dv kernels stop one q tile short of the band's end
     "dkv_skips_last_q_tile": (
-        "K2b skips the last q tile of the band",
-        "for (int qt = qt_lo; qt <= qt_hi; ++qt) {",
-        "for (int qt = qt_lo; qt < qt_hi; ++qt) {", 2),
+        "K2b/K4b skip the last q tile of the band", "ops/csrc/flash_bwd.cu",
+        [("for (int qt = qt_lo; qt <= qt_hi; ++qt) {",
+          "for (int qt = qt_lo; qt < qt_hi; ++qt) {", 2)]),
+    # the dk/dv kernels stop one q tile short of an offset band only
+    "dkv_offset_band_skips_last_q_tile": (
+        "K4b skips the last q tile of an offset band", "ops/csrc/flash_bwd.cu",
+        [("*hi = q_last < 0 ? -1 : q_last / kBQ;",
+          "*hi = q_last < 0 ? -1 : q_last / kBQ - (p.q_offset > 0);", 1)]),
+    # the forward kernels leave rows with no live key unwritten
+    "fwd_dead_rows_unwritten": (
+        "K3 leaves dead rows unwritten", "ops/csrc/flash_fwd.cu",
+        [("  if (q_pos < p.T) {", "  if (q_pos < p.T && m > kNegInf) {", 1),
+         ("    if (q_pos[i] >= p.T) continue;",
+          "    if (q_pos[i] >= p.T || m[i] == kNegInf) continue;", 1)]),
+    # the zigzag ring drops the first hop's block from every late half
+    "ring_skips_hop_fold": (
+        "the zigzag ring skips one hop's fold", "parallel/ring_attention.py",
+        [("        late = _fold(late, o_b, lse_b)\n",
+          "        late = late if t == 1 else _fold(late, o_b, lse_b)\n", 1)]),
 }
 
-# run inside the copy: every backward case, one JSON line each
-CHECK = """
+# run inside the copy: every K2 and K3/K4 case, one JSON line each
+KERNEL_CHECK = """
 import json, sys, torch
 import chip_smoke
 from mingpt_distributed_tpu_torch.ops import flash_attention as fa
 assert fa.__file__.startswith(sys.argv[1]), fa.__file__
-for i, case in enumerate(chip_smoke.KERNEL_CASES):
-    for dtype in (torch.bfloat16, torch.float32):
-        rec, fails = chip_smoke.bwd_case(fa, i, case, dtype)
-        print(json.dumps({"case": rec["case"], "dtype": rec["dtype"],
-                          "failed": sorted({g for g, _ in fails})}), flush=True)
+for check, cases in ((chip_smoke.bwd_case, chip_smoke.KERNEL_CASES),
+                     (chip_smoke.lse_case, chip_smoke.LSE_CASES)):
+    for i, case in enumerate(cases):
+        for dtype in (torch.bfloat16, torch.float32):
+            rec, fails = check(fa, i, case, dtype)
+            print(json.dumps({"kernel": rec["kernel"], "case": rec["case"],
+                              "dtype": rec["dtype"],
+                              "failed": sorted({g for g, _ in fails})}), flush=True)
+"""
+
+# run inside the copy: the sp phase's ranks and checks, one JSON line
+SP_CHECK = """
+import json, sys
+import chip_smoke
+from mingpt_distributed_tpu_torch.ops import _build
+from mingpt_distributed_tpu_torch.parallel import ring_attention
+from mingpt_distributed_tpu_torch.parallel.spawn import run_ranks
+assert ring_attention.__file__.startswith(sys.argv[1]), ring_attention.__file__
+_build.build_all()
+ranks = run_ranks(chip_smoke.sp_rank, chip_smoke.SP, timeout_s=900)
+records, fails = chip_smoke.sp_checks(ranks, card="")
+keys = ("losses", "dense_losses", "grad_norms", "dense_grad_norms",
+        "grad_max_rel_err", "grad_worst_param", "grad_total_rel_err")
+print(json.dumps({"failed": sorted({g for g, _ in fails}),
+                  "messages": [m for _, m in fails],
+                  "steps": {r["phase"]: {k: r[k] for k in keys}
+                            for r in records if "grad_rel_err" in r}}), flush=True)
 """
 
 
+def patch(source: str, edits) -> str:
+    """The source with every edit applied; raises when a text does not
+    appear exactly as often as expected."""
+    for old, new, count in edits:
+        if source.count(old) != count:
+            raise RuntimeError(f"{old!r} appears {source.count(old)} times, "
+                               f"want {count}")
+        source = source.replace(old, new)
+    return source
+
+
+def _run(name: str, script: str, tree: Path) -> list:
+    proc = subprocess.run([sys.executable, "-c", script, str(tree)], cwd=tree,
+                          capture_output=True, text=True, timeout=1500)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{name}: the check exited {proc.returncode}:\n"
+                           f"{proc.stderr[-4000:]}")
+    return [json.loads(line) for line in proc.stdout.splitlines()
+            if line.startswith("{")]
+
+
+def _kernel_record(cases: list) -> dict:
+    failed = [c for c in cases if c["failed"]]
+    return {"cases": len(cases), "cases_failed": len(failed),
+            "failed_by_check": {g: sum(g in c["failed"] for c in cases)
+                                for g in ("fwd", "dq", "dk", "dv")},
+            "failed_cases": [f"{c['kernel']} {c['case']} {c['dtype']}: {c['failed']}"
+                             for c in failed]}
+
+
 def run_fault(name: str, tmp: Path) -> dict:
-    what, old, new, count = FAULTS[name]
+    what, source, edits = FAULTS[name]
     tree = tmp / name
     shutil.copytree(ROOT / PACKAGE, tree / PACKAGE,
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     shutil.copy2(ROOT / "chip_smoke.py", tree / "chip_smoke.py")
-    if old is not None:
-        src = (tree / SOURCE).read_text()
-        if src.count(old) != count:
-            raise RuntimeError(f"{name}: {old!r} appears {src.count(old)} "
-                               f"times in {SOURCE}, want {count}")
-        (tree / SOURCE).write_text(src.replace(old, new))
-    proc = subprocess.run([sys.executable, "-c", CHECK, str(tree)], cwd=tree,
-                          capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        raise RuntimeError(f"{name}: the check exited {proc.returncode}:\n"
-                           f"{proc.stderr[-4000:]}")
-    cases = [json.loads(line) for line in proc.stdout.splitlines()
-             if line.startswith("{")]
-    failed = [c for c in cases if c["failed"]]
-    by_grad = {g: sum(g in c["failed"] for c in cases) for g in ("dq", "dk", "dv")}
-    passed_cases = [f"{c['case']} {c['dtype']}" for c in cases if not c["failed"]]
-    return {"fault": name, "breaks": what, "cases": len(cases),
-            "cases_failed": len(failed), "failed_by_gradient": by_grad,
-            "cases_passed": passed_cases if failed else "all"}
+    if source is not None:
+        path = tree / PACKAGE / source
+        path.write_text(patch(path.read_text(), edits))
+    rec = {"fault": name, "breaks": what}
+    if source is None or source.endswith(".cu"):
+        rec["kernels"] = _kernel_record(_run(name, KERNEL_CHECK, tree))
+    if source is None or source.endswith(".py"):
+        (rec["sp"],) = _run(name, SP_CHECK, tree)
+    kernels_caught = rec.get("kernels", {}).get("cases_failed", 0) > 0
+    sp_failed = rec.get("sp", {}).get("failed", [])
+    if name == "none":
+        rec["as_expected"] = not kernels_caught and not sp_failed
+    elif source.endswith(".cu"):
+        rec["as_expected"] = kernels_caught
+    else:  # the model-level gate must see a broken ring by itself
+        rec["as_expected"] = "main" in sp_failed
+    return rec
 
 
 def main() -> int:
@@ -89,8 +160,6 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="plant_faults_") as tmp:
         for name in FAULTS:
             rec = run_fault(name, Path(tmp))
-            caught = rec["cases_failed"] > 0
-            rec["as_expected"] = not caught if name == "none" else caught
             ok = ok and rec["as_expected"]
             print(json.dumps(rec), flush=True)
     return 0 if ok else 1

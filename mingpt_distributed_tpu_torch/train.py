@@ -2,14 +2,21 @@
 
 Counterpart of the repository's ``train.py``. Loads a YAML config with
 ``section.key=value`` overrides, builds the character dataset (its vocabulary
-and block size override the model's), trains on one device, and exits 75
-after a preemption (SIGTERM/SIGINT: stop at a step boundary, snapshot) so a
+and block size override the model's), trains, and exits 75 after a
+preemption (SIGTERM/SIGINT: stop at a step boundary, snapshot) so a
 scheduler can requeue the run, which then resumes from the snapshot. Runs on
 CUDA unless ``--device cpu``.
 
 Usage:
   python -m mingpt_distributed_tpu_torch.train [--config gpt2_config.yaml] \\
       [--device cpu] [section.key=value ...]
+
+Data and sequence parallel (dp x sp = the number of processes; the
+backend is named, never guessed: nccl for one rank per GPU, gloo for CPU
+ranks or ranks sharing one GPU):
+  python -m torch.distributed.run --nproc-per-node 4 \\
+      -m mingpt_distributed_tpu_torch.train --dist-backend gloo \\
+      trainer_config.mesh.sp=4 gpt_config.attention=ring
 
 The default config keeps every dropout at 0.1; attention dropout routes
 attention to the einsum oracle, as in the JAX package, so set
@@ -24,6 +31,7 @@ import sys
 
 from mingpt_distributed_tpu_torch.config import load_config
 from mingpt_distributed_tpu_torch.data.char_dataset import CharDataset
+from mingpt_distributed_tpu_torch.parallel import distributed
 from mingpt_distributed_tpu_torch.training.trainer import (
     REQUEUE_EXIT_CODE,
     GPTTrainer,
@@ -36,6 +44,8 @@ def main(argv=None) -> int:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--config", default="gpt2_config.yaml", help="YAML config file")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.add_argument("--dist-backend", choices=distributed.BACKENDS, default=None,
+                   help="process-group backend of a torch.distributed.run job")
     p.add_argument("overrides", nargs="*", help="dotted overrides: section.key=value")
     args = p.parse_args(argv)
 
@@ -45,12 +55,23 @@ def main(argv=None) -> int:
             "only the char tokenizer is ported (ROADMAP.md Queue 1 item 2: "
             "data/bpe.py)")
     device = resolve_device(args.device)
+    distributed.initialize(args.dist_backend)
+    try:
+        return _train(cfg, distributed.device_for(args.dist_backend, device))
+    finally:
+        distributed.shutdown()
+
+
+def _train(cfg, device) -> int:
+    main_rank = distributed.rank() == 0
     dataset = CharDataset(cfg.data_config)
     train_view, test_view = dataset.split()
     gpt_cfg = dataclasses.replace(cfg.gpt_config, vocab_size=dataset.vocab_size,
                                   block_size=dataset.block_size)
-    print(f"data: {len(dataset.data)} chars, vocab {dataset.vocab_size}, "
-          f"{len(train_view)} train / {len(test_view)} test windows", flush=True)
+    if main_rank:
+        print(f"data: {len(dataset.data)} chars, vocab {dataset.vocab_size}, "
+              f"{len(train_view)} train / {len(test_view)} test windows",
+              flush=True)
 
     trainer = GPTTrainer(cfg.trainer_config, gpt_cfg, cfg.optimizer_config,
                          train_view, test_view, experiment_config=cfg,
@@ -60,8 +81,9 @@ def main(argv=None) -> int:
     finally:
         trainer.close()
     if trainer.preempted:
-        print(f"preempted at step {trainer.step}; snapshot committed, exiting "
-              f"{REQUEUE_EXIT_CODE} for requeue", flush=True)
+        if main_rank:
+            print(f"preempted at step {trainer.step}; snapshot committed, "
+                  f"exiting {REQUEUE_EXIT_CODE} for requeue", flush=True)
         return REQUEUE_EXIT_CODE
     return 0
 

@@ -1,4 +1,4 @@
-"""The training loop on one device.
+"""The training loop, on one device or on a dp x sp job of processes.
 
 Counterpart of ``mingpt_distributed_tpu/training/trainer.py``:
 ``make_train_step`` (forward, backward, clip, AdamW update, with gradient
@@ -9,7 +9,17 @@ donated state; here the step runs eagerly and updates the parameters in
 place. The loop reads metrics from the card only at logged steps, so the
 host enqueues the next step while the card runs this one.
 
-This slice is one GPU: meshes, ZeRO, Orbax and the other options
+Across processes (``python -m torch.distributed.run``, a ``Mesh`` of dp x
+sp ranks; parameters replicated): each rank holds its dp replica's rows and
+its sp chunk of the columns of every global batch. The loss is the global
+token mean (the ranks' token sums and counts summed with ``all_reduce``),
+the gradients are summed over the world before the clip and AdamW, so every
+rank applies the same update. Rank 0 alone logs and writes snapshots; every
+rank restores. A stop request (SIGTERM) is agreed on by all ranks at a step
+boundary, over a host-side group, so none leaves while the others wait in a
+collective.
+
+ZeRO, Orbax, the mesh axes other than dp and sp, and the other options
 ``TrainerConfig.check_ported`` names raise.
 """
 
@@ -36,6 +46,8 @@ from mingpt_distributed_tpu_torch.data.char_dataset import (
 )
 from mingpt_distributed_tpu_torch.data.prefetch import PrefetchIterator
 from mingpt_distributed_tpu_torch.models import gpt
+from mingpt_distributed_tpu_torch.parallel import distributed as D
+from mingpt_distributed_tpu_torch.parallel.mesh import Mesh
 from mingpt_distributed_tpu_torch.training import checkpoint as ckpt_lib
 from mingpt_distributed_tpu_torch.training.metrics import MetricsLogger, peak_flops
 from mingpt_distributed_tpu_torch.training.optimizer import (
@@ -73,8 +85,31 @@ def deterministic(cfg: GPTConfig) -> bool:
     return cfg.embd_pdrop == 0.0 and cfg.resid_pdrop == 0.0 and cfg.attn_pdrop == 0.0
 
 
+def _distributed(mesh: Optional[Mesh]) -> bool:
+    return mesh is not None and mesh.world_size > 1
+
+
+def rank_generator(generator: torch.Generator, rank: int) -> torch.Generator:
+    """A generator of this rank's own, seeded from one draw of the shared
+    ``generator`` (which every rank advances alike, so a snapshot of rank
+    0's holds for all): dp replicas and sp chunks draw different masks."""
+    return torch.Generator(device=generator.device).manual_seed(
+        D.mix_seed(D.dropout_base(generator), rank))
+
+
+def all_reduce_grads(params) -> None:
+    """Sum every parameter's gradient over the world, in one collective."""
+    leaves = list(gpt._leaves(params))
+    flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
+                      .reshape(-1) for p in leaves])
+    D.all_reduce(flat)
+    for p, g in zip(leaves, flat.split([p.numel() for p in leaves])):
+        p.grad = g.view_as(p)
+
+
 def make_train_step(cfg: GPTConfig, grad_accum: int = 1,
-                    lr_fn: Optional[Callable[[int], float]] = None):
+                    lr_fn: Optional[Callable[[int], float]] = None,
+                    mesh: Optional[Mesh] = None):
     """(state, (x, y), generator) -> metrics: forward and backward (loss-only
     mode, chunked head), clip, AdamW, ``state.step += 1``. Metrics are
     device scalars: ``loss``, pre-clip ``grad_norm``, ``update_norm`` (the
@@ -83,8 +118,13 @@ def make_train_step(cfg: GPTConfig, grad_accum: int = 1,
 
     ``grad_accum > 1`` splits the batch into that many micro-batches and
     sums their gradients before the single update; each micro-batch mean
-    counts with equal weight (the JAX step's mean of means)."""
+    counts with equal weight (the JAX step's mean of means).
+
+    With a ``mesh`` of several processes, ``(x, y)`` is this rank's share of
+    the global batch and the step is ``_distributed_step``'s."""
     det = deterministic(cfg)
+    if _distributed(mesh):
+        return _distributed_step(cfg, grad_accum, lr_fn, mesh)
 
     def loss_of(params, x, y, generator):
         _, loss = gpt.forward(params, x, cfg, targets=y,
@@ -98,11 +138,8 @@ def make_train_step(cfg: GPTConfig, grad_accum: int = 1,
         x, y = batch
         state.optimizer.zero_grad()
         if grad_accum > 1:
-            b = x.shape[0]
-            if b % grad_accum:
-                raise ValueError(f"batch {b} not divisible by grad_accum={grad_accum}")
             loss = x.new_zeros((), dtype=torch.float32)
-            for xm, ym in zip(x.chunk(grad_accum), y.chunk(grad_accum)):
+            for xm, ym in _split(x, y, grad_accum):
                 loss_i = loss_of(state.params, xm, ym, generator)
                 (loss_i / grad_accum).backward()
                 loss = loss + loss_i.detach()
@@ -120,12 +157,53 @@ def make_train_step(cfg: GPTConfig, grad_accum: int = 1,
     return train_step
 
 
-def make_eval_step(cfg: GPTConfig):
-    """(state, (x, y)) -> mean loss (device scalar), no gradient."""
+def _split(x, y, grad_accum):
+    if x.shape[0] % grad_accum:
+        raise ValueError(f"batch {x.shape[0]} not divisible by grad_accum={grad_accum}")
+    return zip(x.chunk(grad_accum), y.chunk(grad_accum))
+
+
+def _distributed_step(cfg, grad_accum, lr_fn, mesh):
+    """The train step of one rank of a dp x sp job: each micro-batch's loss
+    is its global token mean (this rank's sum over the world's count),
+    the gradients are summed over the world, then clip and AdamW run alike
+    on every rank. Dropout draws from ``rank_generator``."""
+    det = deterministic(cfg)
+
+    def train_step(state: TrainState, batch: Batch,
+                   generator: Optional[torch.Generator] = None
+                   ) -> Dict[str, torch.Tensor]:
+        x, y = batch
+        state.optimizer.zero_grad()
+        gen = None if det else rank_generator(generator, mesh.rank)
+        loss = x.new_zeros((), dtype=torch.float32)
+        for xm, ym in _split(x, y, grad_accum):
+            count = D.all_reduce((ym != -1).sum().float()).clamp_min(1)
+            total, _ = gpt.loss_terms(state.params, xm, ym, cfg, generator=gen,
+                                      deterministic=det, mesh=mesh)
+            (total / count / grad_accum).backward()
+            loss = loss + total.detach() / count
+        loss = D.all_reduce(loss) / grad_accum
+        all_reduce_grads(state.params)
+        metrics = {"loss": loss, **state.optimizer.step(state.step)}
+        if lr_fn is not None:
+            metrics["lr"] = torch.tensor(float(lr_fn(state.step)))
+        state.step += 1
+        return metrics
+
+    return train_step
+
+
+def make_eval_step(cfg: GPTConfig, mesh: Optional[Mesh] = None):
+    """(state, (x, y)) -> mean loss (device scalar), no gradient; the
+    global token mean across a mesh's ranks."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Batch) -> torch.Tensor:
         x, y = batch
+        if _distributed(mesh):
+            total, count = gpt.loss_terms(state.params, x, y, cfg, mesh=mesh)
+            return D.all_reduce(total) / D.all_reduce(count.float()).clamp_min(1)
         _, loss = gpt.forward(state.params, x, cfg, targets=y,
                               return_logits=False)
         return loss
@@ -134,8 +212,10 @@ def make_eval_step(cfg: GPTConfig):
 
 
 class GPTTrainer:
-    """Trains a GPT on one device: ``GPTTrainer(trainer_config, gpt_config,
-    optimizer_config, train_view, test_view)``, then ``train()``."""
+    """Trains a GPT on this process's device: ``GPTTrainer(trainer_config,
+    gpt_config, optimizer_config, train_view, test_view)``, then
+    ``train()``. In a job of several processes (``distributed.initialize``
+    first) it is one rank of ``trainer_config.mesh``."""
 
     def __init__(
         self,
@@ -147,17 +227,26 @@ class GPTTrainer:
         experiment_config: Optional[ExperimentConfig] = None,
         device: Optional[Device] = None,
     ):
-        config.check_ported()
+        world = D.world_size()
+        config.check_ported(world)
         gpt.check_supported(gpt_config)
         self.config = config
         self.gpt_config = gpt_config
         self.experiment_config = experiment_config
         self.device = resolve_device(device)
+        self.mesh = Mesh(config.mesh) if world > 1 else None
+        self.is_main = D.rank() == 0
+        shard = {}
+        if self.mesh is not None:
+            shard = dict(process_index=self.mesh.dp_rank,
+                         process_count=self.mesh.dp,
+                         seq_index=self.mesh.sp_rank, seq_count=self.mesh.sp)
         self.train_iter = ShardedBatchIterator(
-            train_dataset, config.batch_size, shuffle=True, seed=config.seed)
+            train_dataset, config.batch_size, shuffle=True, seed=config.seed,
+            **shard)
         self.test_iter = (
             ShardedBatchIterator(test_dataset, config.batch_size, shuffle=False,
-                                 seed=config.seed)
+                                 seed=config.seed, **shard)
             if test_dataset is not None and len(test_dataset) >= config.batch_size
             else None)
         self.snapshot_path = config.snapshot_path or ckpt_lib.DEFAULT_SNAPSHOT_PATH
@@ -173,20 +262,31 @@ class GPTTrainer:
         self.start_epoch = 0
         restored = ckpt_lib.load_snapshot(self.snapshot_path)
         if restored is None:
-            print("Snapshot not found. Training model from scratch", flush=True)
+            self._print("Snapshot not found. Training model from scratch")
         else:
             self._restore(restored)
-            print(f"Resuming training from snapshot at epoch {restored['epoch']}, "
-                  f"step {restored['step']}", flush=True)
+            self._print(f"Resuming training from snapshot at epoch "
+                        f"{restored['epoch']}, step {restored['step']}")
 
         self._train_step = make_train_step(
-            gpt_config, grad_accum=config.grad_accum_steps, lr_fn=self._lr_fn)
-        self._eval_step = make_eval_step(gpt_config)
+            gpt_config, grad_accum=config.grad_accum_steps, lr_fn=self._lr_fn,
+            mesh=self.mesh)
+        self._eval_step = make_eval_step(gpt_config, self.mesh)
         name = (torch.cuda.get_device_name(self.device)
                 if self.device.type == "cuda" else "cpu")
+        # tokens/s counts the global batch, so MFU is against every card the
+        # job runs on (gloo ranks may share one)
+        cards = (world if D.backend() == "nccl"
+                 else min(world, max(1, torch.cuda.device_count())))
+        peak = peak_flops(name, gpt_config.dtype)
         self.metrics = MetricsLogger(gpt_config, jsonl_path=config.metrics_jsonl,
-                                     peak=peak_flops(name, gpt_config.dtype))
-        print(gpt.model_size_report(params, gpt_config), flush=True)
+                                     peak=peak and peak * cards,
+                                     enabled=self.is_main)
+        self._print(gpt.model_size_report(params, gpt_config))
+
+    def _print(self, msg: str) -> None:
+        if self.is_main:
+            print(msg, flush=True)
 
     def _restore(self, snap: Dict[str, Any]) -> None:
         with torch.no_grad():
@@ -236,6 +336,14 @@ class GPTTrainer:
               f"{REQUEUE_EXIT_CODE} (requeue)", flush=True)
         self.request_stop(signum)
 
+    def _stop_agreed(self) -> bool:
+        """Whether any rank was asked to stop: every rank stops at the same
+        step boundary. The flag goes over the host group, so the host does
+        not wait here for the step it has just enqueued."""
+        if self.mesh is None:
+            return self._stop_requested
+        return D.any_rank(self._stop_requested)
+
     def _install_signal_handlers(self):
         if not self.config.handle_signals:
             return None
@@ -277,7 +385,7 @@ class GPTTrainer:
                     scalars = {k: v.item() for k, v in m.items()}
                     scalars["epoch"] = epoch
                     last = self.metrics.log_step(step, tokens_per_step, block, scalars)
-                if self._stop_requested:
+                if self._stop_agreed():
                     self.preempted = stop = True
                 if cfg.max_steps and step >= cfg.max_steps:
                     stop = True
@@ -295,7 +403,7 @@ class GPTTrainer:
             if self.test_iter is not None and not self.preempted and (
                     stop or (epoch + 1) % cfg.eval_every == 0):
                 last["eval_loss"] = self.evaluate()
-                print(f"epoch {epoch} | eval_loss {last['eval_loss']:.4f}", flush=True)
+                self._print(f"epoch {epoch} | eval_loss {last['eval_loss']:.4f}")
             if stop or (epoch + 1) % cfg.save_every == 0:
                 self.save_snapshot(epoch_done)
             if stop:
@@ -314,6 +422,11 @@ class GPTTrainer:
         return float(torch.stack(losses).mean().item())
 
     def save_snapshot(self, epoch: int) -> None:
+        """Rank 0 writes (the ranks' parameters and optimizer states are
+        equal); the others wait for it."""
+        if not self.is_main:
+            D.barrier()
+            return
         cpu = lambda t: {k: cpu(v) if isinstance(v, dict)  # noqa: E731
                          else v.detach().cpu() for k, v in t.items()}
         ckpt_lib.save_snapshot(self.snapshot_path, {
@@ -328,6 +441,7 @@ class GPTTrainer:
         })
         print(f"Snapshot saved to {self.snapshot_path} (epoch {epoch}, "
               f"step {self.state.step})", flush=True)
+        D.barrier()
 
     def close(self) -> None:
         self.metrics.close()

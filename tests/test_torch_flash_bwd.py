@@ -186,14 +186,19 @@ def test_wrappers_refuse_to_run_inside_a_graph():
         t_flash._check_cuda_inputs(q, _bf16(), _bf16())
 
 
-@pytest.mark.parametrize("name", ["dq_drops_delta", "dkv_skips_last_q_tile"])
+@pytest.mark.parametrize("name", ["dq_drops_delta", "dkv_skips_last_q_tile",
+                                  "dkv_offset_band_skips_last_q_tile",
+                                  "fwd_dead_rows_unwritten",
+                                  "ring_skips_hop_fold"])
 def test_planted_fault_patches_still_apply_to_the_kernel_source(name):
-    """tools/plant_faults.py rewrites flash_bwd.cu by text; each fault's
-    anchor must appear in it as often as the tool expects (once per dtype's
-    kernel), or the tool refuses to run on the card."""
+    """tools/plant_faults.py rewrites a kernel (or the ring's) source by
+    text; each fault's anchors must appear in it as often as the tool
+    expects (once per dtype's kernel where both carry it), or the tool
+    refuses to run on the card."""
     from mingpt_distributed_tpu_torch.tools import plant_faults
 
-    _, old, new, count = plant_faults.FAULTS[name]
-    src = (plant_faults.ROOT / plant_faults.SOURCE).read_text()
-    assert src.count(old) == count
-    assert old not in src.replace(old, new)
+    _, source, edits = plant_faults.FAULTS[name]
+    src = (plant_faults.ROOT / plant_faults.PACKAGE / source).read_text()
+    patched = plant_faults.patch(src, edits)
+    for old, new, _ in edits:
+        assert old not in patched and new in patched

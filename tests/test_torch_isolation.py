@@ -1,6 +1,8 @@
 """The PyTorch port stands alone: it imports no jax and nothing of the JAX
-package (not even its jax-free modules), neither does chip_smoke.py, and
-its entry points refuse to fall back to the CPU when no GPU is present."""
+package (not even its jax-free modules), neither do chip_smoke.py and the
+rank bodies of the multi-process tests (tests/torch_sp_workers.py, run in
+fresh processes), and its entry points refuse to fall back to the CPU when
+no GPU is present."""
 
 import ast
 import os
@@ -25,7 +27,8 @@ def _port_modules():
 
 
 def _sources():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"),
+           os.path.join(REPO, "tests", "torch_sp_workers.py")]
     for root, _, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -39,6 +42,8 @@ def _forbidden(name: str) -> bool:
 def test_importing_every_port_module_loads_no_jax():
     mods = _port_modules()
     assert "mingpt_distributed_tpu_torch.ops.flash_attention" in mods
+    for name in ("distributed", "mesh", "ring_attention", "ulysses", "spawn"):
+        assert f"mingpt_distributed_tpu_torch.parallel.{name}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"

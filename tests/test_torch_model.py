@@ -8,6 +8,8 @@ einsum oracle and the flash path (Pallas interpret mode on the JAX side,
 the kernel's plain version on the port's).
 """
 
+from types import SimpleNamespace
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -132,15 +134,18 @@ def test_cross_entropy_matches_jax():
     np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
 
 
-@pytest.mark.parametrize("override,match", [
-    (dict(attention="ring"), "not ported"),
-    (dict(n_experts=4), "mixture-of-experts"),
+@pytest.mark.parametrize("override,mesh,error,match", [
+    # a rank's chunk under sp > 1 needs sequence-parallel attention
+    (dict(attention="einsum"), SimpleNamespace(sp=2, sp_rank=0), ValueError,
+     "needs attention=ring or ulysses"),
+    (dict(n_experts=4), None, NotImplementedError, "mixture-of-experts"),
 ])
-def test_unported_options_raise(override, match):
+def test_unported_options_raise(override, mesh, error, match):
     cfg = TConfig.make(**dict(SMALL, **override))
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         params = t_gpt.init(cfg, torch.Generator().manual_seed(0))
-        t_gpt.forward(params, torch.zeros((1, 4), dtype=torch.long), cfg)
+        t_gpt.forward(params, torch.zeros((1, 4), dtype=torch.long), cfg,
+                      mesh=mesh)
 
 
 @pytest.mark.parametrize("attention", ["einsum", "flash"])

@@ -484,8 +484,16 @@ def test_every_unported_option_is_checked():
 @pytest.mark.parametrize("mesh", [dict(tp=2), dict(dp=2), dict(fsdp=2), dict(sp=2),
                                   dict(pp=2), dict(ep=2)])
 def test_multi_device_meshes_raise(mesh):
-    with pytest.raises(NotImplementedError, match="more than one"):
-        TrainerConfig.make(mesh=mesh).check_ported()
+    """dp x sp runs across processes: in one process it does not fit; the
+    other axes are not ported, whatever the processes."""
+    cfg = TrainerConfig.make(mesh=mesh)
+    if set(mesh) <= {"dp", "sp"}:
+        with pytest.raises(ValueError, match="torch.distributed.run"):
+            cfg.check_ported()
+        cfg.check_ported(world_size=2)
+    else:
+        with pytest.raises(NotImplementedError, match=f"{next(iter(mesh))}=2 is not ported"):
+            cfg.check_ported(world_size=2)
 
 
 def test_yaml_defaults_and_one_device_meshes_are_accepted():
