@@ -16,35 +16,43 @@ Phases:
   0. setup: the card's name and power limit, TF32 off, the kernel builds;
   1. every kernel against its plain version at the main paths' shapes
      (generation at batch 4, the train step at batch 16, the sp path's
-     zigzag hop) and the edge cases (GQA, a window narrower than a tile,
-     softcap, ragged T): the forward (flash_fwd) and the backward
-     (flash_bwd: dq and dk/dv); the ring's forward with lse (flash_lse_fwd:
-     causal flag, q_offset, dead rows) and its backward with an lse
-     cotangent (flash_lse_bwd: dq and dk/dv);
+     zigzag hop, the prototype tool's shape) and the edge cases (GQA, a
+     window narrower than a tile, softcap, ragged T): the forward
+     (flash_fwd) and the backward (flash_bwd: dq and dk/dv); the fused
+     backward (flash_bwd_fused, K2c) against the plain version and against
+     K2a/K2b; the ring's forward with lse (flash_lse_fwd: causal flag,
+     q_offset, dead rows) and its backward with an lse cotangent
+     (flash_lse_bwd: dq and dk/dv); the per-head-grid prototype's
+     natural-base kernels (nh_fwd, nh_bwd_dq, nh_bwd_dkv: K5);
   2. the GPT forward at GPT-2 124M width: flash kernel vs plain attention;
-     the GPT gradients through the kernels vs plain attention;
+     the GPT gradients through the kernels vs plain attention, fp32, with
+     the split backward and with FLASH_FUSED_BWD=1;
   3. generation at the same width: sliding window (one forward kernel launch
      per layer per token) and KV-cached decode (no kernel), then the sample
      entry point;
-  4. training, this slice's main path: the train step at the bench shape
-     (GPT-2 124M, T=1024, batch 16, bf16, no dropout), 12 forward, 12 dq and
-     12 dk/dv launches per step; then the train entry point on the corpus
-     (loss falls, eval, snapshot, resume);
-  4b. sequence parallel, this slice's main path: 4 ranks spawned on the one
-     card over gloo: ring and Ulysses attention at GPT-2 width (T=4096)
-     against dense plain attention; the sp = 4 ring train step at full
-     GPT-2 width, block 4096, global batch 4 (exactly 72 K3, 72 K4a and 72
-     K4b launches per rank per step), its loss against a single-process
-     dense-attention step; a dp = 2 x sp = 2 Ulysses step at 2 layers;
-  5. times: kernels, plain versions, bounds and library yardsticks; peak
-     device memory.
-The last three lines are the card, the kernels line and the ok line.
-Exits 2 without CUDA, 1 on any failure.
+  4. training: the train step at the bench shape (GPT-2 124M, T=1024, batch
+     16, bf16, no dropout), 12 forward, 12 dq and 12 dk/dv launches per
+     step; the same step with FLASH_FUSED_BWD=1, 12 forward and 12 fused
+     launches per step (K2c's path); then the train entry point on the
+     corpus (loss falls, eval, snapshot, resume);
+  4b. sequence parallel: 4 ranks spawned on the one card over gloo: ring
+     and Ulysses attention at GPT-2 width (T=4096) against dense plain
+     attention; the sp = 4 ring train step at full GPT-2 width, block 4096,
+     global batch 4 (exactly 72 K3, 72 K4a and 72 K4b launches per rank per
+     step), its loss against a single-process dense-attention step; a dp =
+     2 x sp = 2 Ulysses step at 2 layers;
+  4c. the prototype tool (tools/proto_nh_kernel.py, K5's path) at its shape
+     (B=16, T=1024, H=12, hd=64, bf16): its parity and time lines;
+  5. times: kernels, plain versions, bounds and library yardsticks; the
+     whole fused backward beside K2a + K2b; peak device memory.
+The last three lines are the card, the kernels line (ten kernels) and the
+ok line. Exits 2 without CUDA, 1 on any failure.
 """
 
 from __future__ import annotations
 
 import contextlib
+import importlib
 import io
 import json
 import math
@@ -108,6 +116,17 @@ GRAD_TOL_X = {torch.bfloat16: 2.0 ** -7}
 GRAD_TOL = {torch.float32: 1e-4}
 GRAD_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 ZERO_GRAD_MAX = 1e-5
+# The fused backward (K2c) against the split kernels (K2a/K2b) on the same
+# inputs:
+#  bf16: K2's own limits (GRAD_TOL_X, GRAD_REL_TOL): both round P and dS to
+#        bf16 at the same points, the outputs to bf16, and sum in other
+#        orders;
+#  fp32: dk and dv come from the same code as K2b's (read equal to the
+#        bit); dq is summed over the k tiles by float32 atomic adds in no
+#        fixed order where K2a sums in registers (read: max |diff| <=
+#        1.2e-6 over the cases, mean |diff| / mean |g| <= 2.7e-7): max
+#        |diff| FUSED_SPLIT_TOL_FP32, about 10x the reading, mean 1e-5.
+FUSED_SPLIT_TOL_FP32 = 1e-5
 # GPT-2 forward, fp32: flash kernel vs plain attention through 12 layers.
 FWD_FP32_TOL = 1e-3
 # GPT-2 forward, bf16. At random init the logits are nearly tied, so bf16
@@ -185,6 +204,21 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+@contextlib.contextmanager
+def fused_switch(on: bool):
+    """FLASH_FUSED_BWD set to "1" (on) or "0" inside the block, and put
+    back as it was after it, failure or not."""
+    saved = os.environ.get("FLASH_FUSED_BWD")
+    os.environ["FLASH_FUSED_BWD"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            os.environ.pop("FLASH_FUSED_BWD", None)
+        else:
+            os.environ["FLASH_FUSED_BWD"] = saved
+
+
 # ---------------------------------------------------------------------------
 # phase 1: kernel vs plain version
 # ---------------------------------------------------------------------------
@@ -216,13 +250,16 @@ def attention_work(b, t, h, hd, window, dtype, kernel="flash_fwd", kv=None,
                    causal=True):
     """(bytes, operations) a kernel must move and do, each input read once
     and each output written once, for every (query, allowed key) pair:
-      flash_fwd, flash_lse_fwd:  reads q, k, v; writes out, lse (fp32); 2
-                                 products;
-      flash_bwd_dq, flash_lse_bwd_dq:  reads q, k, v, dO, lse, delta;
-                                 writes dq; 3 products (S, dP, dS K);
-      flash_bwd_dkv, flash_lse_bwd_dkv:  reads q, k, v, dO, lse, delta;
-                                 writes dk, dv; 4 products (S, dP, P^T dO,
-                                 dS^T Q);
+      flash_fwd, flash_lse_fwd, nh_fwd:  reads q, k, v; writes out, lse
+                                 (fp32); 2 products;
+      flash_bwd_dq, flash_lse_bwd_dq, nh_bwd_dq:  reads q, k, v, dO, lse,
+                                 delta; writes dq; 3 products (S, dP, dS K);
+      flash_bwd_dkv, flash_lse_bwd_dkv, nh_bwd_dkv:  reads q, k, v, dO, lse,
+                                 delta; writes dk, dv; 4 products (S, dP,
+                                 P^T dO, dS^T Q);
+      flash_bwd_fused:           reads q, k, v, dO, lse, delta; writes dq,
+                                 dk, dv; 5 products (S, dP, P^T dO, dS^T Q,
+                                 dS K);
     each product 2*hd operations per pair. Not causal: every pair."""
     kv = h if kv is None else kv
     if not causal:
@@ -240,6 +277,8 @@ def attention_work(b, t, h, hd, window, dtype, kernel="flash_fwd", kv=None,
         nbytes, products = (2 * q_elems + 2 * kv_elems) * elem + vec, 2
     elif kernel.endswith("dq"):
         nbytes, products = (3 * q_elems + 2 * kv_elems) * elem + 2 * vec, 3
+    elif kernel.endswith("fused"):
+        nbytes, products = (3 * q_elems + 4 * kv_elems) * elem + 2 * vec, 5
     else:
         nbytes, products = (2 * q_elems + 4 * kv_elems) * elem + 2 * vec, 4
     return nbytes, 2 * products * b * h * hd * pairs
@@ -297,27 +336,32 @@ def phase_kernels(fa):
     return results
 
 
-def bwd_kernel_errors(fa, q, k, v, do, *, scale, window, softcap):
-    """Run both backward kernels and their plain version on the same
-    inputs; return each gradient's max and mean relative difference."""
-    out, lse = fa.flash_fwd_plain(q, k, v, scale=scale, window=window,
-                                  softcap=softcap)
-    got = fa.flash_bwd(q, k, v, out, lse, do, scale=scale, window=window,
-                       softcap=softcap)
-    torch.cuda.synchronize()
-    want = fa.flash_bwd_plain(q, k, v, out, lse, do, scale=scale,
-                              window=window, softcap=softcap)
-    errs = {}
-    for name, g, r, x in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+def grad_check(got, want, xs, dtype, label, max_tol=None, prefix=""):
+    """Each of (dq, dk, dv) ``got`` against ``want``: the record's errors
+    and the (gradient, message) of every check it fails. max |diff| is held
+    to ``max_tol``, or else to one bf16 step at the largest gradient (bf16)
+    or GRAD_TOL (fp32); mean |diff| / mean |ref| to GRAD_REL_TOL where the
+    gradient is not zero."""
+    rec, fails = {}, []
+    for name, g, r, x in zip(("dq", "dk", "dv"), got, want, xs):
         check(g.shape == x.shape and g.dtype == x.dtype,
-              f"{name} {tuple(g.shape)} {g.dtype}")
-        check(bool(torch.isfinite(g.float()).all()), f"non-finite {name}")
+              f"{label}: {name} {tuple(g.shape)} {g.dtype}")
+        if not bool(torch.isfinite(g.float()).all()):
+            fails.append((name, f"{label}: non-finite {name}"))
         diff = (g.float() - r.float()).abs()
-        errs[f"{name}_max_abs_err"] = diff.max().item()
-        errs[f"{name}_mean_rel_err"] = (
-            diff.mean() / r.float().abs().mean().clamp_min(1e-30)).item()
-        errs[f"{name}_max_abs"] = r.float().abs().max().item()
-    return errs
+        max_abs = r.float().abs().max().item()
+        err = diff.max().item()
+        rel = (diff.mean() / r.float().abs().mean().clamp_min(1e-30)).item()
+        tol = grad_tol(dtype, max_abs) if max_tol is None else max_tol
+        rec.update({f"{prefix}{name}_max_abs_err": err,
+                    f"{prefix}{name}_mean_rel_err": rel,
+                    f"{prefix}{name}_max_abs": max_abs, f"{prefix}{name}_tol": tol})
+        if not err <= tol:
+            fails.append((name, f"{label}: max |{name} diff| {err} > {tol}"))
+        if not (max_abs < ZERO_GRAD_MAX or rel <= GRAD_REL_TOL[dtype]):
+            fails.append((name, f"{label}: mean |{name} diff| / mean |{name}| "
+                                f"{rel} > {GRAD_REL_TOL[dtype]}"))
+    return rec, fails
 
 
 def grad_tol(dtype, max_abs):
@@ -326,43 +370,68 @@ def grad_tol(dtype, max_abs):
     return GRAD_TOL[dtype]
 
 
-def bwd_case(fa, i, case, dtype):
-    """Backward check case ``i`` of KERNEL_CASES in ``dtype``: its record
-    (errors and tolerances) and the (gradient, message) of every check it
-    fails."""
+def _bwd_inputs(fa, i, case, dtype):
+    """Case ``i`` of KERNEL_CASES in ``dtype``: q, k, v, dO and the plain
+    forward's out and lse, with the kernels' keyword arguments."""
     name, b, t, h, kv, hd, window, cap = case
     q, k, v = make_qkv(b, t, h, kv, hd, dtype, seed=200 + i)
     g = torch.Generator(device="cuda").manual_seed(300 + i)
     do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
-    errs = bwd_kernel_errors(fa, q, k, v, do, scale=1.0 / math.sqrt(hd),
-                             window=window, softcap=cap)
+    kw = dict(scale=1.0 / math.sqrt(hd), window=window, softcap=cap)
+    out, lse = fa.flash_fwd_plain(q, k, v, **kw)
+    return (q, k, v, out, lse, do), kw
+
+
+def bwd_case(fa, i, case, dtype):
+    """Backward check case ``i`` of KERNEL_CASES in ``dtype``: K2a and K2b
+    (flash_bwd with the fused switch off) against flash_bwd_plain on the
+    same inputs. Returns its record and the (gradient, message) of every
+    check it fails."""
+    name, b, t, h, kv, hd, window, cap = case
+    args, kw = _bwd_inputs(fa, i, case, dtype)
+    with fused_switch(False):
+        got = fa.flash_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    want = fa.flash_bwd_plain(*args, **kw)
     dt = str(dtype).replace("torch.", "")
-    tols = {g: grad_tol(dtype, errs[f"{g}_max_abs"]) for g in ("dq", "dk", "dv")}
+    errs, fails = grad_check(got, want, args[:3], dtype, f"{name} {dt}")
     rec = {"phase": "kernel_check", "kernel": "flash_bwd", "case": name,
            "dtype": dt, "shape": [b, t, h, kv, hd], "window": window,
-           "softcap": cap, **errs, **{f"{g}_tol": tol for g, tol in tols.items()},
-           "rel_tol": GRAD_REL_TOL[dtype]}
-    fails = []
-    for grad in ("dq", "dk", "dv"):
-        err = errs[f"{grad}_max_abs_err"]
-        rel = errs[f"{grad}_mean_rel_err"]
-        if not err <= tols[grad]:
-            fails.append((grad, f"{name} {dt}: max |{grad} diff| {err} > "
-                                f"{tols[grad]}"))
-        if not (errs[f"{grad}_max_abs"] < ZERO_GRAD_MAX
-                or rel <= GRAD_REL_TOL[dtype]):
-            fails.append((grad, f"{name} {dt}: mean |{grad} diff| / mean "
-                                f"|{grad}| {rel} > {GRAD_REL_TOL[dtype]}"))
+           "softcap": cap, **errs, "rel_tol": GRAD_REL_TOL[dtype]}
     return rec, fails
 
 
-def phase_bwd_kernels(fa):
-    """flash_bwd's two kernels against flash_bwd_plain on the forward's
-    shapes; returns the records by (case, dtype)."""
+def fused_case(fa, i, case, dtype):
+    """The fused backward (K2c, flash_bwd_fused) on bwd_case's inputs:
+    against flash_bwd_plain at K2's limits, and against K2a/K2b
+    (``vs_split_*``: bf16 at K2's limits, fp32 within
+    FUSED_SPLIT_TOL_FP32)."""
+    name, b, t, h, kv, hd, window, cap = case
+    args, kw = _bwd_inputs(fa, i, case, dtype)
+    got = fa.flash_bwd_fused(*args, **kw)
+    with fused_switch(False):
+        split = fa.flash_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    want = fa.flash_bwd_plain(*args, **kw)
+    dt = str(dtype).replace("torch.", "")
+    errs, fails = grad_check(got, want, args[:3], dtype, f"fused {name} {dt}")
+    vs, vs_fails = grad_check(
+        got, split, args[:3], dtype, f"fused vs split {name} {dt}",
+        max_tol=FUSED_SPLIT_TOL_FP32 if dtype == torch.float32 else None,
+        prefix="vs_split_")
+    rec = {"phase": "kernel_check", "kernel": "flash_bwd_fused", "case": name,
+           "dtype": dt, "shape": [b, t, h, kv, hd], "window": window,
+           "softcap": cap, **errs, **vs, "rel_tol": GRAD_REL_TOL[dtype]}
+    return rec, fails + vs_fails
+
+
+def phase_bwd_kernels(fa, case_fn=bwd_case):
+    """``case_fn`` (bwd_case: K2a/K2b; fused_case: K2c) on every case of
+    KERNEL_CASES in both dtypes; returns the records by (case, dtype)."""
     results = {}
     for i, case in enumerate(KERNEL_CASES):
         for dtype in (torch.bfloat16, torch.float32):
-            rec, fails = bwd_case(fa, i, case, dtype)
+            rec, fails = case_fn(fa, i, case, dtype)
             emit(rec)
             check(not fails, "; ".join(msg for _, msg in fails))
             results[(case[0], dtype)] = rec
@@ -493,6 +562,68 @@ def phase_lse_kernels(fa):
             emit(rec)
             check(not fails, "; ".join(msg for _, msg in fails))
             results[(case[0], dtype)] = rec
+    return results
+
+
+# K5 cases (the prototype's contract: KV == H; the backward causal only):
+# name, B, T, H, hd, window, softcap, dtype. proto_main is the tool's shape.
+NH_CASES = [
+    ("proto_main", 16, 1024, 12, 64, None, None, torch.bfloat16),
+    ("ragged_t300_hd32", 2, 300, 4, 32, None, None, torch.float32),
+    ("window40_softcap5", 2, 300, 4, 32, 40, 5.0, torch.float32),
+    ("window40_softcap5", 2, 300, 4, 32, 40, 5.0, torch.bfloat16),
+]
+
+
+def nh_case(nh, i, case):
+    """K5 (nh_fwd; nh_bwd_dq and nh_bwd_dkv where the case has no window or
+    softcap) against the plain versions, at K1's and K2's limits: the record
+    and the (what, message) of every check it fails."""
+    name, b, t, h, hd, window, cap, dtype = case
+    dt = str(dtype).replace("torch.", "")
+    q, k, v, do = nh.make_inputs(b, t, h, hd, dtype, "cuda", seed=1000 + i)
+    scale = hd ** -0.5
+    out, lse = nh.nh_fwd(q, k, v, h, scale, window, cap)
+    torch.cuda.synchronize()
+    ref, ref_lse = nh.nh_fwd_plain(q, k, v, h, scale, window, cap)
+    check(out.shape == q.shape and out.dtype == dtype and lse.shape == (b, h, t, 1),
+          f"nh {name} {dt}: out {tuple(out.shape)}, lse {tuple(lse.shape)}")
+    diff = (out.float() - ref.float()).abs()
+    rec = {"phase": "kernel_check", "kernel": "nh_fwd+nh_bwd", "case": name,
+           "dtype": dt, "shape": [b, t, h, h, hd], "window": window,
+           "softcap": cap, "max_abs_err": diff.max().item(),
+           "mean_rel_err": (diff.mean() / ref.float().abs().mean()
+                            .clamp_min(1e-30)).item(),
+           "lse_max_abs_err": (lse - ref_lse).abs().max().item(),
+           "tol": OUT_TOL[dtype], "rel_tol": OUT_REL_TOL[dtype], "lse_tol": LSE_TOL}
+    fails = []
+    if not bool(torch.isfinite(out.float()).all() and torch.isfinite(lse).all()):
+        fails.append(("fwd", f"nh {name} {dt}: non-finite out or lse"))
+    for key, tol in (("max_abs_err", OUT_TOL[dtype]), ("mean_rel_err", OUT_REL_TOL[dtype]),
+                     ("lse_max_abs_err", LSE_TOL)):
+        if not rec[key] <= tol:
+            fails.append(("fwd", f"nh {name} {dt}: {key} {rec[key]} > {tol}"))
+    if window is None and cap is None:
+        delta = (ref.float().reshape(b, t, h, hd) * do.float().reshape(b, t, h, hd)
+                 ).sum(-1).transpose(1, 2)[..., None]
+        got = nh.nh_bwd(q, k, v, do, ref_lse, delta, h, scale)
+        torch.cuda.synchronize()
+        want = nh.nh_bwd_plain(q, k, v, do, ref_lse, delta, h, scale)
+        errs, bwd_fails = grad_check(got, want, (q, k, v), dtype, f"nh {name} {dt}")
+        rec.update(errs)
+        fails += bwd_fails
+    return rec, fails
+
+
+def phase_nh_kernels(nh):
+    """K5 against its plain versions on NH_CASES; returns the records by
+    (case, dtype)."""
+    results = {}
+    for i, case in enumerate(NH_CASES):
+        rec, fails = nh_case(nh, i, case)
+        emit(rec)
+        check(not fails, "; ".join(msg for _, msg in fails))
+        results[(case[0], case[-1])] = rec
     return results
 
 
@@ -655,9 +786,11 @@ def phase_sample(fa, card):
     check(fa.flash_fwd.launches == 200 * 12, "sample: want 2400 launches")
 
 
-def phase_grads(fa, params32, card):
+def phase_grads(params32, card):
     """Every parameter's gradient through the kernels against plain
-    attention, in the trainer's loss-only mode at T=1024, batch 2."""
+    attention, in the trainer's loss-only mode at T=1024, batch 2: fp32
+    through K1 + K2a/K2b and through K1 + K2c (FLASH_FUSED_BWD=1), bf16
+    through K1 + K2a/K2b."""
     from mingpt_distributed_tpu_torch.models import convert, gpt
     from mingpt_distributed_tpu_torch.training.trainer import trainable
 
@@ -672,31 +805,48 @@ def phase_grads(fa, params32, card):
         _, loss = gpt.forward(params, x, cfg, targets=y, return_logits=False)
         return loss.item(), dict(zip(names, torch.autograd.grad(loss, leaves)))
 
-    n0 = (fa.flash_fwd.launches, fa.flash_bwd.dq_launches,
-          fa.flash_bwd.dkv_launches)
-    loss_f32, flash32 = grads("flash", "float32")
-    n1 = (fa.flash_fwd.launches, fa.flash_bwd.dq_launches,
-          fa.flash_bwd.dkv_launches)
-    check(tuple(b - a for a, b in zip(n0, n1)) == (12, 12, 12),
-          f"fp32 gradient: launches {n0} -> {n1}, want 12 of each")
-    loss_p32, plain32 = grads("einsum", "float32")
-    check(all(bool(torch.isfinite(v).all()) for v in flash32.values()),
-          "non-finite fp32 gradient")
-    rel = {n: ((flash32[n] - plain32[n]).norm() /
-               plain32[n].norm().clamp_min(1e-30)).item()
-           for n in plain32 if n not in ZERO_GRAD_PARAMS}
-    worst = max(rel, key=rel.get)
-    total_rel = (torch.stack([(flash32[n] - plain32[n]).norm() for n in plain32]).norm()
+    def counted_grads(fused):
+        reset_counts()
+        with fused_switch(fused):
+            loss, gs = grads("flash", "float32")
+        want = (expected(flash_fwd=12, flash_bwd_fused=12) if fused else
+                expected(flash_fwd=12, flash_bwd_dq=12, flash_bwd_dkv=12))
+        check(read_counts() == want,
+              f"fp32 gradient (fused {fused}): launches {read_counts()}, want {want}")
+        check(all(bool(torch.isfinite(v).all()) for v in gs.values()),
+              f"non-finite fp32 gradient (fused {fused})")
+        return loss, gs
+
+    def rel_errs(gs):
+        """Per parameter (but ZERO_GRAD_PARAMS) and over all parameters:
+        ||g - g_plain|| / ||g_plain||."""
+        rel = {n: ((gs[n] - plain32[n]).norm() /
+                   plain32[n].norm().clamp_min(1e-30)).item()
+               for n in plain32 if n not in ZERO_GRAD_PARAMS}
+        total = (torch.stack([(gs[n] - plain32[n]).norm() for n in plain32]).norm()
                  / torch.stack([plain32[n].norm() for n in plain32]).norm()).item()
-    zero_norms = {n: (plain32[n].norm().item(), flash32[n].norm().item())
+        return rel, total
+
+    loss_f32, flash32 = counted_grads(False)
+    loss_fused, fused32 = counted_grads(True)
+    reset_counts()
+    loss_p32, plain32 = grads("einsum", "float32")
+    rel, total_rel = rel_errs(flash32)
+    worst = max(rel, key=rel.get)
+    rel_fused, total_fused = rel_errs(fused32)
+    worst_fused = max(rel_fused, key=rel_fused.get)
+    zero_norms = {n: (plain32[n].norm().item(), flash32[n].norm().item(),
+                      fused32[n].norm().item())
                   for n in ZERO_GRAD_PARAMS if n in plain32}
+    del fused32
 
     def mean_err(gs):
         num = sum((gs[n] - plain32[n]).abs().sum() for n in plain32)
         den = sum(plain32[n].abs().sum() for n in plain32)
         return (num / den).item()
 
-    _, flash16 = grads("flash", "bfloat16")
+    with fused_switch(False):
+        _, flash16 = grads("flash", "bfloat16")
     err_flash16 = mean_err(flash16)
     del flash16
     _, plain16 = grads("einsum", "bfloat16")
@@ -706,7 +856,11 @@ def phase_grads(fa, params32, card):
            "fp32_loss_flash": loss_f32, "fp32_loss_plain": loss_p32,
            "fp32_max_rel_grad_err": rel[worst], "fp32_worst_param": worst,
            "fp32_total_rel_grad_err": total_rel,
-           "fp32_zero_grad_norms_plain_flash": zero_norms,
+           "fp32_fused_loss": loss_fused,
+           "fp32_fused_max_rel_grad_err": rel_fused[worst_fused],
+           "fp32_fused_worst_param": worst_fused,
+           "fp32_fused_total_rel_grad_err": total_fused,
+           "fp32_zero_grad_norms_plain_flash_fused": zero_norms,
            "fp32_max_grad_norm": max(v.norm().item() for v in plain32.values()),
            "fp32_rel_tol": GRAD_FP32_REL_TOL,
            "bf16_flash_mean_rel_err_vs_fp32": err_flash16,
@@ -718,6 +872,12 @@ def phase_grads(fa, params32, card):
           f"fp32 gradient of {worst} differs by {rel[worst]} (relative)")
     check(total_rel <= GRAD_FP32_REL_TOL,
           f"fp32 gradient differs by {total_rel} (relative, all parameters)")
+    check(rel_fused[worst_fused] <= GRAD_FP32_REL_TOL,
+          f"fp32 fused-backward gradient of {worst_fused} differs by "
+          f"{rel_fused[worst_fused]} (relative)")
+    check(total_fused <= GRAD_FP32_REL_TOL,
+          f"fp32 fused-backward gradient differs by {total_fused} (relative, "
+          "all parameters)")
     check(err_flash16 <= GRAD_BF16_ERR_RATIO * err_plain16,
           "bf16 kernel-path gradients are further from fp32 than allowed")
 
@@ -727,63 +887,88 @@ def phase_grads(fa, params32, card):
 # ---------------------------------------------------------------------------
 
 
-# every kernel's launch counter: (function, attribute)
-COUNTERS = {"flash_fwd": ("flash_fwd", "launches"),
-            "flash_bwd_dq": ("flash_bwd", "dq_launches"),
-            "flash_bwd_dkv": ("flash_bwd", "dkv_launches"),
-            "flash_lse_fwd": ("flash_lse_fwd", "launches"),
-            "flash_lse_bwd_dq": ("flash_lse_bwd", "dq_launches"),
-            "flash_lse_bwd_dkv": ("flash_lse_bwd", "dkv_launches")}
+# every kernel's launch counter: (module, wrapper, attribute)
+FA = "mingpt_distributed_tpu_torch.ops.flash_attention"
+NH = "mingpt_distributed_tpu_torch.tools.proto_nh_kernel"
+COUNTERS = {"flash_fwd": (FA, "flash_fwd", "launches"),
+            "flash_bwd_dq": (FA, "flash_bwd", "dq_launches"),
+            "flash_bwd_dkv": (FA, "flash_bwd", "dkv_launches"),
+            "flash_bwd_fused": (FA, "flash_bwd", "fused_launches"),
+            "flash_lse_fwd": (FA, "flash_lse_fwd", "launches"),
+            "flash_lse_bwd_dq": (FA, "flash_lse_bwd", "dq_launches"),
+            "flash_lse_bwd_dkv": (FA, "flash_lse_bwd", "dkv_launches"),
+            "nh_fwd": (NH, "nh_fwd", "launches"),
+            "nh_bwd_dq": (NH, "nh_bwd_dq", "launches"),
+            "nh_bwd_dkv": (NH, "nh_bwd_dkv", "launches")}
 
 
-def reset_counts(fa):
-    for fn, attr in COUNTERS.values():
-        setattr(getattr(fa, fn), attr, 0)
+def _counter(name):
+    module, fn, attr = COUNTERS[name]
+    return getattr(importlib.import_module(module), fn), attr
 
 
-def read_counts(fa):
-    return {name: getattr(getattr(fa, fn), attr)
-            for name, (fn, attr) in COUNTERS.items()}
+def reset_counts():
+    for name in COUNTERS:
+        setattr(*_counter(name), 0)
 
 
-def phase_train_step(fa, card, steps=5):
-    """The main path: make_train_step at the bench shape. Returns the
-    launch counts of the measured steps."""
+def read_counts():
+    return {name: getattr(*_counter(name)) for name in COUNTERS}
+
+
+def expected(**launches):
+    """A path's expected launch counts: those named, 0 for every other
+    kernel."""
+    return {name: launches.get(name, 0) for name in COUNTERS}
+
+
+def phase_train_step(card, steps=5, fused=False, split=None):
+    """make_train_step at the bench shape: the training main path (K1 +
+    K2a/K2b), or with ``fused`` the same step under FLASH_FUSED_BWD=1 (K1 +
+    K2c), reported beside ``split``, the split step's record. Returns the
+    record; its launch counts are the measured steps'."""
     from mingpt_distributed_tpu_torch.tools.profile_train import BATCH, SEQ, bench_state
     from mingpt_distributed_tpu_torch.training.metrics import flops_per_token
     from mingpt_distributed_tpu_torch.training.trainer import make_train_step
 
-    cfg, state, batch = bench_state()
-    step = make_train_step(cfg)
-    losses = [step(state, batch)["loss"] for _ in range(2)]  # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts(fa)
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        m = step(state, batch)
-        losses.append(m["loss"])
-    torch.cuda.synchronize()
-    dt = (time.perf_counter() - t0) / steps
-    counts = read_counts(fa)
+    with fused_switch(fused):
+        cfg, state, batch = bench_state()
+        step = make_train_step(cfg)
+        losses = [step(state, batch)["loss"] for _ in range(2)]  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            m = step(state, batch)
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / steps
+        counts = read_counts()
     losses = [v.item() for v in losses]
     tokens_per_s = BATCH * SEQ / dt
-    rec = {"phase": "train_step", "main_path": True, "model": "gpt2 124M",
+    want = (expected(flash_fwd=12 * steps, flash_bwd_fused=12 * steps) if fused
+            else expected(flash_fwd=12 * steps, flash_bwd_dq=12 * steps,
+                          flash_bwd_dkv=12 * steps))
+    rec = {"phase": "train_step_fused" if fused else "train_step",
+           "main_path": True, "flash_fused_bwd": fused, "model": "gpt2 124M",
            "batch": BATCH, "seq": SEQ, "dtype": cfg.dtype, "steps": steps,
-           "launches": counts, "step_ms": dt * 1e3, "tokens_per_s": tokens_per_s,
+           "launches": counts, "launches_want": want, "step_ms": dt * 1e3,
+           "tokens_per_s": tokens_per_s,
            "mfu": flops_per_token(cfg, SEQ) * tokens_per_s / PEAK_FLOPS[torch.bfloat16],
            "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
            "losses": losses, "grad_norm": m["grad_norm"].item(),
            "update_norm": m["update_norm"].item(), "card": card}
+    if split is not None:
+        rec.update({f"split_{key}": split[key] for key in
+                    ("step_ms", "tokens_per_s", "mfu", "peak_allocated_bytes")})
     emit(rec)
-    for name, n in counts.items():
-        want = 0 if "lse" in name else 12 * steps
-        check(n == want, f"train step: {n} {name} launches, want {want}")
+    check(counts == want, f"train step (fused {fused}): launches {counts}, want {want}")
     check(all(math.isfinite(v) for v in losses), "non-finite training loss")
     check(losses[-1] < losses[0], "the loss on a repeated batch did not fall")
     del state, batch
     torch.cuda.empty_cache()
-    return counts
+    return rec
 
 
 def run_entry(argv):
@@ -798,7 +983,7 @@ def run_entry(argv):
     return rc, out
 
 
-def phase_train_entry(fa, card):
+def phase_train_entry(card):
     """python -m mingpt_distributed_tpu_torch.train, driven through main():
     GPT-2 width on the corpus, then a second call that resumes."""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
@@ -814,11 +999,12 @@ def phase_train_entry(fa, card):
                 "trainer_config.batch_size=16", "trainer_config.log_every=1",
                 "trainer_config.eval_batches=4",
                 f"trainer_config.snapshot_path={snap}"]
-        reset_counts(fa)
+        reset_counts()
         t0 = time.perf_counter()
-        rc, out = run_entry(argv + [f"trainer_config.max_steps={ENTRY_STEPS}"])
+        with fused_switch(False):
+            rc, out = run_entry(argv + [f"trainer_config.max_steps={ENTRY_STEPS}"])
         dt = time.perf_counter() - t0
-        counts = read_counts(fa)
+        counts = read_counts()
         losses = {int(a): float(b) for a, b in
                   re.findall(r"^step (\d+) \| loss ([0-9.e+-]+)", out, re.M)}
         evals = re.findall(r"eval_loss ([0-9.e+-]+)", out)
@@ -826,7 +1012,8 @@ def phase_train_entry(fa, card):
         check(sorted(losses) == list(range(1, ENTRY_STEPS + 1)),
               f"logged steps {sorted(losses)}")
         drop = losses[1] - losses[ENTRY_STEPS]
-        rc2, out2 = run_entry(argv + [f"trainer_config.max_steps={ENTRY_STEPS + 5}"])
+        with fused_switch(False):
+            rc2, out2 = run_entry(argv + [f"trainer_config.max_steps={ENTRY_STEPS + 5}"])
         resumed = f"Resuming training from snapshot at epoch 0, step {ENTRY_STEPS}"
         losses2 = re.findall(r"^step (\d+) \| loss", out2, re.M)
         emit({"phase": "train_cli", "steps": ENTRY_STEPS, "seconds": dt,
@@ -1013,7 +1200,7 @@ def _sp_attention(mesh, device):
     return res
 
 
-def _sp_train(fa, cfg, mesh, device, seed, steps):
+def _sp_train(cfg, mesh, device, seed, steps):
     """make_train_step on this rank's share of the global batch: counts
     set to 0 just before, read just after. Then one more all-reduce of the
     gradients alone, timed: the share of a step that is host traffic.
@@ -1033,7 +1220,7 @@ def _sp_train(fa, cfg, mesh, device, seed, steps):
     batch = (share(x), share(y))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset_counts(fa)
+    reset_counts()
     losses, norms, seconds = [], [], []
     for i in range(steps):
         t0 = time.perf_counter()
@@ -1043,7 +1230,7 @@ def _sp_train(fa, cfg, mesh, device, seed, steps):
         seconds.append(time.perf_counter() - t0)
         if i == 0:
             first = _grads(state)
-    counts = read_counts(fa)
+    counts = read_counts()
     t0 = time.perf_counter()
     all_reduce_grads(state.params)
     torch.cuda.synchronize()
@@ -1061,7 +1248,6 @@ def sp_rank(rank):
     fp32, the dp x sp step (fp32). Rank 0 then runs each step's dense
     single-process reference (the others wait in their next collective)."""
     from mingpt_distributed_tpu_torch.config import MeshConfig
-    from mingpt_distributed_tpu_torch.ops import flash_attention as fa
     from mingpt_distributed_tpu_torch.parallel.mesh import Mesh
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1074,7 +1260,7 @@ def sp_rank(rank):
             ("main_fp32", _sp_gpt_config("ring", dtype="float32"), 1, 5, 1),
             ("dp2_sp2", _sp_gpt_config("ulysses", SP_DP2_LAYERS, "float32"), 2, 6, 1)):
         mesh = Mesh(MeshConfig(dp=dp, sp=SP // dp))
-        out[key], grads = _sp_train(fa, cfg, mesh, device, seed, steps)
+        out[key], grads = _sp_train(cfg, mesh, device, seed, steps)
         if rank == 0:
             out[key]["dense"] = sp_dense(cfg, seed, steps, device, grads)
         del grads
@@ -1144,7 +1330,9 @@ def sp_checks(ranks, card):
 
     main = [r["main"] for r in ranks]
     per_step = SP_K3_PER_LAYER * 12
-    want = {n: (per_step * SP_STEPS if "lse" in n else 0) for n in COUNTERS}
+    want = expected(flash_lse_fwd=per_step * SP_STEPS,
+                    flash_lse_bwd_dq=per_step * SP_STEPS,
+                    flash_lse_bwd_dkv=per_step * SP_STEPS)
     step_s = sum(sum(m["seconds"][1:]) for m in main) / (SP * (SP_STEPS - 1))
     records.append(_sp_step_record(
         "sp_train_step", main, main[0]["dense"], main_path=True, model="gpt2 124M",
@@ -1165,7 +1353,8 @@ def sp_checks(ranks, card):
 
     # the main path's ring and model in float32, gradients held
     m32 = [r["main_fp32"] for r in ranks]
-    want32 = {n: (per_step if "lse" in n else 0) for n in COUNTERS}
+    want32 = expected(flash_lse_fwd=per_step, flash_lse_bwd_dq=per_step,
+                      flash_lse_bwd_dkv=per_step)
     records.append(_sp_step_record(
         "sp_train_step_fp32", m32, m32[0]["dense"], attention="ring (zigzag)",
         dtype="float32", launches_want=want32, loss_tol=SP_FP32_LOSS_TOL,
@@ -1177,7 +1366,8 @@ def sp_checks(ranks, card):
         GRAD_FP32_REL_TOL)]
 
     dp2 = [r["dp2_sp2"] for r in ranks]
-    want2 = {n: (0 if "lse" in n else SP_DP2_LAYERS) for n in COUNTERS}
+    want2 = expected(flash_fwd=SP_DP2_LAYERS, flash_bwd_dq=SP_DP2_LAYERS,
+                     flash_bwd_dkv=SP_DP2_LAYERS)
     records.append(_sp_step_record(
         "sp_dp2_sp2_step", dp2, dp2[0]["dense"], attention="ulysses",
         layers=SP_DP2_LAYERS, dtype="float32", launches_want=want2, card=card))
@@ -1195,7 +1385,8 @@ def phase_sp(card):
     from mingpt_distributed_tpu_torch.parallel.spawn import run_ranks
 
     t0 = time.perf_counter()
-    ranks = run_ranks(sp_rank, SP, timeout_s=900)
+    with fused_switch(False):  # the ranks inherit it: K2a/K2b in Ulysses
+        ranks = run_ranks(sp_rank, SP, timeout_s=900)
     seconds = time.perf_counter() - t0
     records, fails = sp_checks(ranks, card)
     for rec in records:
@@ -1218,16 +1409,38 @@ def sdpa_backward(q, k, v, do, causal=True):
     return lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
 
 
+def emit_times(entries, shape, dtype, shape_of, card, causal=True):
+    """One time line per (kernel, ms, plain ms, plain is, library ms,
+    library is) of ``entries``, with the kernel's bound at ``shape`` (B, T,
+    H, KV, hd); returns the kernels line's rows by kernel name."""
+    b, t, h, kv, hd = shape
+    rows = {}
+    for name, ms, plain, plain_is, lib, lib_is in entries:
+        nbytes, flops = attention_work(b, t, h, hd, None, dtype, kernel=name,
+                                       kv=kv, causal=causal)
+        bms, by = bound_ms(nbytes, flops, dtype)
+        rows[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                      "library_ms": lib}
+        emit({"phase": "time", "kernel": name, "shape_of": shape_of,
+              "dtype": str(dtype).replace("torch.", ""), "shape": list(shape),
+              "causal": causal, "bytes": nbytes, "flops": flops, **rows[name],
+              "achieved_tflops": flops / (ms * 1e-3) / 1e12, "plain_is": plain_is,
+              "library_is": lib_is, "card": card})
+    return rows
+
+
 def phase_times(fa, card):
-    """Kernel, plain version and library yardstick times; returns the rows
-    of the kernels line (bf16, training shape) by kernel name."""
+    """Kernel, plain version and library yardstick times of K1, K2a, K2b
+    and K2c, and the whole backward fused (zero + K2c + cast) and split
+    (K2a + K2b); returns the rows of the kernels line (bf16, training
+    shape) by kernel name."""
     rows = {}
     # the generation shape: flash_fwd at batch 4
     b, t, h, hd = 4, 1024, 12, 64
     scale = 1.0 / math.sqrt(hd)
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v = make_qkv(b, t, h, h, hd, dtype, seed=100)  # gpt2_main's
-        with preserved_counts(fa):
+        with preserved_counts():
             ms = cuda_ms(lambda: fa.flash_fwd(q, k, v, scale=scale))
         nbytes, flops = attention_work(b, t, h, hd, None, dtype)
         bms, by = bound_ms(nbytes, flops, dtype)
@@ -1238,41 +1451,46 @@ def phase_times(fa, card):
     # the training shape: batch 16
     b = 16
     for dtype in (torch.bfloat16, torch.float32):
-        dt = str(dtype).replace("torch.", "")
         q, k, v = make_qkv(b, t, h, h, hd, dtype, seed=400)
         g = torch.Generator(device="cuda").manual_seed(401)
         do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
-        with preserved_counts(fa):
+        with preserved_counts(), fused_switch(False):
             out, lse = fa.flash_fwd(q, k, v, scale=scale)
             delta = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+            dq_acc = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
             fwd_ms = cuda_ms(lambda: fa.flash_fwd(q, k, v, scale=scale))
             dq_ms = cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, scale=scale))
             dkv_ms = cuda_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta,
                                                       scale=scale))
+            # the kernel alone: it keeps adding into one dq buffer
+            fused_ms = cuda_ms(lambda: fa.flash_bwd_dqkv(q, k, v, do, lse, delta,
+                                                         dq_acc, scale=scale))
+            split_all = cuda_ms(lambda: fa.flash_bwd(q, k, v, out, lse, do, scale=scale))
+            fused_all = cuda_ms(lambda: fa.flash_bwd_fused(q, k, v, out, lse, do,
+                                                           scale=scale))
         fwd_plain = cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, scale=scale), iters=3)
         bwd_plain = cuda_ms(lambda: fa.flash_bwd_plain(q, k, v, out, lse, do,
                                                        scale=scale), iters=3)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         fwd_lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
         bwd_lib = cuda_ms(sdpa_backward(q, k, v, do))
-        for name, ms, plain, lib in (("flash_fwd", fwd_ms, fwd_plain, fwd_lib),
-                                     ("flash_bwd_dq", dq_ms, bwd_plain, bwd_lib),
-                                     ("flash_bwd_dkv", dkv_ms, bwd_plain, bwd_lib)):
-            nbytes, flops = attention_work(b, t, h, hd, None, dtype, kernel=name)
-            bms, by = bound_ms(nbytes, flops, dtype)
-            row = {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-                   "library_ms": lib}
-            emit({"phase": "time", "kernel": name, "shape_of": "training",
-                  "dtype": dt, "shape": [b, t, h, h, hd], "bytes": nbytes,
-                  "flops": flops, **row,
-                  "achieved_tflops": flops / (ms * 1e-3) / 1e12,
-                  "plain_is": "flash_bwd_plain (dq, dk and dv)" if name != "flash_fwd"
-                  else "flash_fwd_plain",
-                  "library_is": "SDPA backward (dq, dk and dv)" if name != "flash_fwd"
-                  else "SDPA forward", "card": card})
-            if dtype == torch.bfloat16:
-                rows[name] = row
-        del q, k, v, do, out, lse, delta
+        bwd_is = ("flash_bwd_plain (dq, dk and dv)", "SDPA backward (dq, dk and dv)")
+        got = emit_times((("flash_fwd", fwd_ms, fwd_plain, "flash_fwd_plain", fwd_lib,
+                           "SDPA forward"),
+                          ("flash_bwd_dq", dq_ms, bwd_plain, bwd_is[0], bwd_lib, bwd_is[1]),
+                          ("flash_bwd_dkv", dkv_ms, bwd_plain, bwd_is[0], bwd_lib, bwd_is[1]),
+                          ("flash_bwd_fused", fused_ms, bwd_plain, bwd_is[0], bwd_lib,
+                           bwd_is[1])),
+                         (b, t, h, h, hd), dtype, "training", card)
+        emit({"phase": "time", "what": "whole backward", "shape_of": "training",
+              "dtype": str(dtype).replace("torch.", ""), "shape": [b, t, h, h, hd],
+              "fused_ms": fused_all, "fused_is": "flash_bwd_fused: delta, zeroed "
+              "float32 dq, K2c, dq cast", "split_ms": split_all,
+              "split_is": "flash_bwd: delta, K2a, K2b", "split_kernels_ms": dq_ms + dkv_ms,
+              "fused_kernel_ms": fused_ms, "library_ms": bwd_lib, "card": card})
+        if dtype == torch.bfloat16:
+            rows.update(got)
+        del q, k, v, do, out, lse, delta, dq_acc
         torch.cuda.empty_cache()
     emit({"phase": "memory", "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
           "card": card})
@@ -1299,12 +1517,11 @@ def phase_lse_times(fa, card):
     scale = 1.0 / math.sqrt(hd)
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
-        dt = str(dtype).replace("torch.", "")
         q, k, v = make_qkv(b, t, h, kv, hd, dtype, seed=900)
         g = torch.Generator(device="cuda").manual_seed(901)
         do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
         kw = dict(scale=scale, causal=causal)
-        with preserved_counts(fa):
+        with preserved_counts():
             out, lse = fa.flash_lse_fwd(q, k, v, **kw)
             delta = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
             fwd_ms = cuda_ms(lambda: fa.flash_lse_fwd(q, k, v, **kw))
@@ -1315,39 +1532,93 @@ def phase_lse_times(fa, card):
                             iters=3)
         fwd_lib = cuda_ms(sdpa_with_lse(q, k, v))
         bwd_lib = cuda_ms(sdpa_backward(q, k, v, do, causal=causal))
-        for kname, ms, plain, lib in (("flash_lse_fwd", fwd_ms, fwd_plain, fwd_lib),
-                                      ("flash_lse_bwd_dq", dq_ms, bwd_plain, bwd_lib),
-                                      ("flash_lse_bwd_dkv", dkv_ms, bwd_plain, bwd_lib)):
-            nbytes, flops = attention_work(b, t, h, hd, None, dtype, kernel=kname,
-                                           kv=kv, causal=causal)
-            bms, by = bound_ms(nbytes, flops, dtype)
-            row = {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
-                   "library_ms": lib}
-            emit({"phase": "time", "kernel": kname, "shape_of": name, "dtype": dt,
-                  "shape": [b, t, h, kv, hd], "causal": causal, "bytes": nbytes,
-                  "flops": flops, **row,
-                  "achieved_tflops": flops / (ms * 1e-3) / 1e12,
-                  "plain_is": ("flash_lse_fwd_plain" if kname == "flash_lse_fwd"
-                               else "flash_lse_bwd_plain (dq, dk and dv)"),
-                  "library_is": ("SDPA with lse, non-causal" if kname == "flash_lse_fwd"
-                                 else "SDPA backward, non-causal (dq, dk and dv)"),
-                  "card": card})
-            if dtype == torch.bfloat16:
-                rows[kname] = row
+        bwd_is = ("flash_lse_bwd_plain (dq, dk and dv)",
+                  "SDPA backward, non-causal (dq, dk and dv)")
+        got = emit_times((("flash_lse_fwd", fwd_ms, fwd_plain, "flash_lse_fwd_plain",
+                           fwd_lib, "SDPA with lse, non-causal"),
+                          ("flash_lse_bwd_dq", dq_ms, bwd_plain, bwd_is[0], bwd_lib,
+                           bwd_is[1]),
+                          ("flash_lse_bwd_dkv", dkv_ms, bwd_plain, bwd_is[0], bwd_lib,
+                           bwd_is[1])),
+                         (b, t, h, kv, hd), dtype, name, card, causal=causal)
+        if dtype == torch.bfloat16:
+            rows.update(got)
         del q, k, v, do, out, lse, delta
         torch.cuda.empty_cache()
     return rows
 
 
+def phase_nh_times(nh, card):
+    """K5 (nh_fwd, nh_bwd_dq, nh_bwd_dkv) at the prototype tool's shape:
+    kernel, plain version and library (SDPA forward, backward) times,
+    bounds; returns the kernels line's rows (bf16)."""
+    name, b, t, h, hd = NH_CASES[0][:5]
+    scale = hd ** -0.5
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do = nh.make_inputs(b, t, h, hd, dtype, "cuda", seed=1100)
+        with preserved_counts():
+            out, lse = nh.nh_fwd(q, k, v, h, scale)
+            delta = (out.float().reshape(b, t, h, hd) * do.float().reshape(b, t, h, hd)
+                     ).sum(-1).transpose(1, 2).contiguous()
+            args = (*(x.reshape(b, t, h, hd) for x in (q, k, v, do)),
+                    lse.reshape(b, h, t).contiguous(), delta)
+            fwd_ms = cuda_ms(lambda: nh.nh_fwd(q, k, v, h, scale))
+            dq_ms = cuda_ms(lambda: nh.nh_bwd_dq(*args, scale=scale))
+            dkv_ms = cuda_ms(lambda: nh.nh_bwd_dkv(*args, scale=scale))
+        fwd_plain = cuda_ms(lambda: nh.nh_fwd_plain(q, k, v, h, scale), iters=3)
+        bwd_plain = cuda_ms(lambda: nh.nh_bwd_plain(q, k, v, do, lse, delta[..., None],
+                                                    h, scale), iters=3)
+        qt, kt, vt = (x.transpose(1, 2) for x in args[:3])
+        fwd_lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+        bwd_lib = cuda_ms(sdpa_backward(*args[:4]))
+        bwd_is = ("nh_bwd_plain (dq, dk and dv)", "SDPA backward (dq, dk and dv)")
+        got = emit_times((("nh_fwd", fwd_ms, fwd_plain, "nh_fwd_plain", fwd_lib,
+                           "SDPA forward"),
+                          ("nh_bwd_dq", dq_ms, bwd_plain, bwd_is[0], bwd_lib, bwd_is[1]),
+                          ("nh_bwd_dkv", dkv_ms, bwd_plain, bwd_is[0], bwd_lib, bwd_is[1])),
+                         (b, t, h, h, hd), dtype, name, card)
+        if dtype == torch.bfloat16:
+            rows.update(got)
+        del q, k, v, do, out, lse, delta, args
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_proto(nh, card):
+    """The prototype tool's path (K5's): its main() and main_bwd() at its
+    shape, through the tool's functions, with the fused switch off (its
+    "old" backward is K2a/K2b). Returns the launch counts: the tool's own
+    parity calls and timed calls (WARMUP + ITERS per timed function)."""
+    b, t, h, hd, dtype = 16, 1024, 12, 64, torch.bfloat16
+    q, k, v, do = nh.make_inputs(b, t, h, hd, dtype, "cuda", seed=0)
+    with fused_switch(False):
+        reset_counts()
+        t0 = time.perf_counter()
+        recs = nh.main(q, k, v, h, timing=True) + nh.main_bwd(q, k, v, do, h, timing=True)
+        seconds = time.perf_counter() - t0
+        counts = read_counts()
+    n = nh.WARMUP + nh.ITERS
+    want = expected(nh_fwd=2 + 2 * n, nh_bwd_dq=1 + n, nh_bwd_dkv=1 + n,
+                    flash_lse_fwd=n, flash_fwd=n, flash_bwd_dq=n, flash_bwd_dkv=n)
+    for rec in recs:
+        emit({"phase": "proto_nh_kernel", **rec, "shape": [b, t, h, hd],
+              "dtype": "bfloat16", "card": card})
+    emit({"phase": "proto_nh_kernel", "launches": counts, "launches_want": want,
+          "seconds": seconds})
+    check(counts == want, f"proto tool: launches {counts}, want {want}")
+    return counts
+
+
 @contextlib.contextmanager
-def preserved_counts(fa):
+def preserved_counts():
     """Launches made to time or compare a kernel are not the main path's."""
-    saved = read_counts(fa)
+    saved = read_counts()
     try:
         yield
     finally:
-        for name, (fn, attr) in COUNTERS.items():
-            setattr(getattr(fa, fn), attr, saved[name])
+        for name in COUNTERS:
+            setattr(*_counter(name), saved[name])
 
 
 def main() -> int:
@@ -1358,6 +1629,7 @@ def main() -> int:
     from mingpt_distributed_tpu_torch.models.api import GPT
     from mingpt_distributed_tpu_torch.ops import _build
     from mingpt_distributed_tpu_torch.ops import flash_attention as fa
+    from mingpt_distributed_tpu_torch.tools import proto_nh_kernel as nh
 
     card = card_line()
     print(card, flush=True)
@@ -1376,50 +1648,68 @@ def main() -> int:
 
     fwd_errors = phase_kernels(fa)
     bwd_errors = phase_bwd_kernels(fa)
+    fused_errors = phase_bwd_kernels(fa, fused_case)
     lse_errors = phase_lse_kernels(fa)
+    nh_errors = phase_nh_kernels(nh)
     emit({"phase": "kernels_checked", "kernels": [
-        {"name": n, "launches": c} for n, c in read_counts(fa).items()]})
-    reset_counts(fa)
+        {"name": n, "launches": c} for n, c in read_counts().items()]})
+    reset_counts()
 
     model32 = GPT(gpt2_config("flash", "float32"), seed=0, device="cuda")
     phase_forward(GPT, fa, model32)
-    phase_grads(fa, model32.params, card)
+    phase_grads(model32.params, card)
     generate_launches = phase_generate(GPT, fa, model32, card)
     phase_sample(fa, card)
     del model32
     torch.cuda.empty_cache()
 
-    main_counts = phase_train_step(fa, card)
-    phase_train_entry(fa, card)
+    split = phase_train_step(card)
+    fused = phase_train_step(card, fused=True, split=split)
+    phase_train_entry(card)
     sp_counts = phase_sp(card)
+    proto_counts = phase_proto(nh, card)
     rows = phase_times(fa, card)
     rows.update(phase_lse_times(fa, card))
+    rows.update(phase_nh_times(nh, card))
 
-    # max_abs_err at each main path's shape, bf16: the training step's
-    # (K1, K2a, K2b) and the sp path's zigzag hop (K3, K4a, K4b); launches
-    # from each kernel's path
+    # max_abs_err at each path's shape, bf16: the training step's (K1, K2a,
+    # K2b, K2c), the sp path's zigzag hop (K3, K4a, K4b) and the tool's (K5);
+    # launches from each kernel's path
     bf16 = torch.bfloat16
     errs = bwd_errors[("gpt2_train", bf16)]
+    ferrs = fused_errors[("gpt2_train", bf16)]
     hop = lse_errors[("zigzag_hop", bf16)]
+    nerrs = nh_errors[("proto_main", bf16)]
     jax_fa = "mingpt_distributed_tpu/ops/flash_attention.py"
+    proto = "tools/proto_nh_kernel.py"
+    csrc = "mingpt_distributed_tpu_torch/ops/csrc"
     line = []
     for name, replaces, err, launches in (
             ("flash_fwd", f"{jax_fa}:677", fwd_errors[("gpt2_train", bf16)],
-             main_counts),
-            ("flash_bwd_dq", f"{jax_fa}:750", errs["dq_max_abs_err"], main_counts),
+             split["launches"]),
+            ("flash_bwd_dq", f"{jax_fa}:750", errs["dq_max_abs_err"], split["launches"]),
             ("flash_bwd_dkv", f"{jax_fa}:818",
-             max(errs["dk_max_abs_err"], errs["dv_max_abs_err"]), main_counts),
+             max(errs["dk_max_abs_err"], errs["dv_max_abs_err"]), split["launches"]),
+            ("flash_bwd_fused", f"{jax_fa}:896",
+             max(ferrs[f"{g}_max_abs_err"] for g in ("dq", "dk", "dv")),
+             fused["launches"]),
             ("flash_lse_fwd", f"{jax_fa}:193", hop["max_abs_err"], sp_counts),
             ("flash_lse_bwd_dq", f"{jax_fa}:346", hop["dq_max_abs_err"], sp_counts),
             ("flash_lse_bwd_dkv", f"{jax_fa}:412",
-             max(hop["dk_max_abs_err"], hop["dv_max_abs_err"]), sp_counts)):
+             max(hop["dk_max_abs_err"], hop["dv_max_abs_err"]), sp_counts),
+            ("nh_fwd", f"{proto}:33", nerrs["max_abs_err"], proto_counts),
+            ("nh_bwd_dq", f"{proto}:210", nerrs["dq_max_abs_err"], proto_counts),
+            ("nh_bwd_dkv", f"{proto}:259",
+             max(nerrs["dk_max_abs_err"], nerrs["dv_max_abs_err"]), proto_counts)):
         source = "flash_fwd.cu" if name.endswith("fwd") else "flash_bwd.cu"
-        line.append({"name": name, "route": "cuda",
-                     "source": f"mingpt_distributed_tpu_torch/ops/csrc/{source}",
+        line.append({"name": name, "route": "cuda", "source": f"{csrc}/{source}",
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err, **rows[name]})
-    emit({"phase": "launches_by_path", "train_step": main_counts,
-          "sp_train_step_rank0": sp_counts,
+    check(all(k["launches"] > 0 for k in line),
+          f"a kernel never ran on its path: {[k['name'] for k in line]}")
+    emit({"phase": "launches_by_path", "train_step": split["launches"],
+          "train_step_fused": fused["launches"], "sp_train_step_rank0": sp_counts,
+          "proto_nh_kernel": proto_counts,
           "generate_sliding_bf16": {"flash_fwd": generate_launches}})
     print(card_line(), flush=True)
     emit({"kernels": line})

@@ -1,26 +1,34 @@
 // Flash-attention backward for Hopper (sm_90a), plain C interface: two
-// kernels, each reached through two entry points, each a launch of its own.
+// kernels, reached through seven entry points, each a launch of its own.
 //
 //   flash_bwd_dq      replaces the TPU kernel `_dq_kernel_btd`,
 //   flash_bwd_dkv     replaces the TPU kernel `_dkv_kernel_btd`,
 // reached through `_flash_bwd_btd` and the custom VJP of `_flash_btd`
-// (causal); and
+// (causal);
+//   flash_bwd_fused   replaces the TPU kernel `_dqkv_kernel_btd` (K2c),
+// reached through `_flash_bwd_btd_fused` when FLASH_FUSED_BWD=1: dq, dk and
+// dv in one pass (below);
 //   flash_lse_bwd_dq  replaces the TPU kernel `_dq_kernel`,
 //   flash_lse_bwd_dkv replaces the TPU kernel `_dkv_kernel`,
 // reached through `_flash_bwd` and the custom VJP of `flash_with_lse` (the
 // ring-attention hop), which add a `causal` flag and a `q_offset` placing
 // query row i at key position q_offset + i; all in
-// mingpt_distributed_tpu/ops/flash_attention.py. The lse cotangent of
-// `flash_with_lse` reaches them folded into delta by the caller (delta' =
-// delta - dlse, a plain tensor op, as `_flash_bwd` does). Dead rows (no key
-// inside the offset band) get p = 0 structurally, so dq = 0 there and they
-// add nothing to dk/dv, whatever their lse. The flash_bwd_* and
-// flash_lse_bwd_* entry points run the same kernels, specialised at compile
-// time (kLse): the former test the plain causal band, with no flag or offset
-// in their inner loops, the latter the general one. Like the TPU kernels, they
-// recompute the probabilities from the forward's log-sum-exp instead of
-// storing the attention matrix, in base 2 with log2(e) folded into the score
-// scale:
+// mingpt_distributed_tpu/ops/flash_attention.py; and
+//   nh_bwd_dq         replaces the TPU kernel `_dq_kernel4`,
+//   nh_bwd_dkv        replaces the TPU kernel `_dkv_kernel4`,
+// of the per-head-grid prototype (tools/proto_nh_kernel.py,
+// `flash_bwd_btd`): flash_bwd_dq/_dkv with the softmax in the natural base.
+// The lse cotangent of `flash_with_lse` reaches them folded into delta by
+// the caller (delta' = delta - dlse, a plain tensor op, as `_flash_bwd`
+// does). Dead rows (no key inside the offset band) get p = 0 structurally,
+// so dq = 0 there and they add nothing to dk/dv, whatever their lse. The
+// entry points run the same kernels, specialised at compile time (kLse,
+// kNat, kFused): flash_bwd_*'s instantiations test the plain causal band,
+// with no flag or offset in their inner loops, flash_lse_bwd_*'s the general
+// one, nh_bwd_*'s the plain band in the natural base. Like the TPU kernels,
+// they recompute the probabilities from the forward's log-sum-exp instead
+// of storing the attention matrix, in base 2 with log2(e) folded into the
+// score scale (nh_bwd_*: base e, expf):
 //   p  = exp2(s * scale * log2e - lse * log2e) on allowed pairs, exactly 0
 //        on masked ones (never exponentiated);
 //   dp = dO V^T;  ds = p (dp - delta) * scale, times (1 - t^2) under
@@ -45,6 +53,19 @@
 // dk and dv in float32. The group sum stays inside the block: no atomics,
 // and the result does not depend on scheduling.
 //
+// flash_bwd_fused: flash_bwd_dkv's blocks (kFused), which also turn each
+// cell's dS into dq: after a q tile's dk/dv products the block holds that
+// tile's dS (64 queries x 64 keys) in shared memory and adds dS K to a
+// float32 dq buffer in device memory with atomic adds (red.global.add.f32).
+// The TPU kernel keeps the whole head's dq in VMEM across its k-tile sweep
+// (`dq_all_scr`); T * hd * 4 bytes (256 KB at T=1024, hd=64) does not fit
+// in shared memory, and the blocks of one q tile's k tiles run on other SMs
+// in no order. The caller zeroes the buffer and casts it to q's dtype. S,
+// P and dP are computed once per cell, where flash_bwd_dq and
+// flash_bwd_dkv each compute them: 5 products of 2 * hd operations per
+// allowed pair in place of 7. The order of the atomic sums is not fixed, so
+// a float32 dq is reproducible only to a few ulps.
+//
 // Tail tiles are masked (rows at or past T read as zeros, are never
 // allowed, and are not stored), so any T >= 1 works.
 //
@@ -60,7 +81,10 @@
 // limits this first version is latency: tile loads are not pipelined (every
 // block waits for each tile), each kernel recomputes S and dP on its own, and
 // the fp32 path is bound by FMA and shared-memory issue rates. TMA loads into
-// a ring of tiles, wgmma, and one fused pass are the next steps.
+// a ring of tiles and wgmma are the next steps. flash_bwd_fused does 5
+// products per pair (0.065 ms at the card's bf16 peak at B=16, T=1024,
+// H=12, hd=64) but adds one float32 atomic per dq element per cell: 4 * hd
+// bytes per query per k tile of its band (~430 MB there), resolved in L2.
 
 #include "flash_common.cuh"
 
@@ -75,7 +99,7 @@ struct Params {
   const void* dout;    // dense (B, T, H, hd)
   const float* lse;    // (B, H, T), natural domain
   const float* delta;  // (B, H, T)
-  void* dq;            // dense (B, T, H, hd)
+  void* dq;            // dense (B, T, H, hd); float32, added to (kFused)
   void* dk;            // dense (B, T, KV, hd)
   void* dv;
   int B, T, H, KV;
@@ -89,17 +113,19 @@ struct Params {
   int q_offset;   // causal: query row i sits at key position q_offset + i
 };
 
-// Base-2 score of a raw q.k product, and d(score)/d(raw) in the natural
-// domain: scale, or scale * (1 - t^2) under soft-capping.
-__device__ __forceinline__ float score2(const Params& p, float s,
-                                        float* dfac) {
+// Score of a raw q.k product in the softmax's base (base 2, or e with
+// kNat), and d(score)/d(raw) in the natural domain: scale, or
+// scale * (1 - t^2) under soft-capping.
+template <bool kNat>
+__device__ __forceinline__ float score(const Params& p, float s,
+                                       float* dfac) {
   if (p.softcap > 0.f) {
     const float t = tanhf(s * (p.scale / p.softcap));
     *dfac = p.scale * (1.f - t * t);
-    return p.softcap * kLog2e * t;
+    return to_base<kNat>(p.softcap) * t;
   }
   *dfac = p.scale;
-  return s * (p.scale * kLog2e);
+  return s * to_base<kNat>(p.scale);
 }
 
 template <bool kLse>
@@ -165,7 +191,7 @@ __device__ __forceinline__ long long row_index(const Params& p, int b,
 
 constexpr int kFmaThreads = 256;  // four threads per row
 
-template <int HD, bool kLse>
+template <int HD, bool kLse, bool kNat>
 __global__ void __launch_bounds__(kFmaThreads) flash_dq_f32_kernel(Params p) {
   constexpr int kLd = HD + 4;
   constexpr int kLdp = kBK + 4;
@@ -194,7 +220,7 @@ __global__ void __launch_bounds__(kFmaThreads) flash_dq_f32_kernel(Params p) {
   load_tile_f32<HD, kFmaThreads>(dos, dout, static_cast<long long>(p.H) * HD,
                                  q0, p.T);
   const long long vec = (static_cast<long long>(b) * p.H + h) * p.T + q_pos;
-  const float lse2 = q_pos < p.T ? p.lse[vec] * kLog2e : 0.f;
+  const float lse2 = q_pos < p.T ? to_base<kNat>(p.lse[vec]) : 0.f;
   const float delta = q_pos < p.T ? p.delta[vec] : 0.f;
 
   float acc[kGroups][4];
@@ -238,10 +264,10 @@ __global__ void __launch_bounds__(kFmaThreads) flash_dq_f32_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
       float dfac;
-      const float s2 = score2(p, s[j], &dfac);
+      const float s2 = score<kNat>(p, s[j], &dfac);
       dss[row * kLdp + sub + 4 * j] =
           visible<kLse>(p, q_pos, k0 + sub + 4 * j)
-              ? exp2f(s2 - lse2) * (dp[j] - delta) * dfac
+              ? exp_base<kNat>(s2 - lse2) * (dp[j] - delta) * dfac
               : 0.f;
     }
     // a row's dS is written and read by its own four threads, one warp
@@ -279,7 +305,7 @@ __global__ void __launch_bounds__(kFmaThreads) flash_dq_f32_kernel(Params p) {
   }
 }
 
-template <int HD, bool kLse>
+template <int HD, bool kLse, bool kNat, bool kFused>
 __global__ void __launch_bounds__(kFmaThreads) flash_dkv_f32_kernel(Params p) {
   constexpr int kLd = HD + 4;
   constexpr int kLdp = kBQ + 4;
@@ -332,7 +358,7 @@ __global__ void __launch_bounds__(kFmaThreads) flash_dkv_f32_kernel(Params p) {
                                      static_cast<long long>(p.H) * HD, q0, p.T);
       for (int i = threadIdx.x; i < kBQ; i += kFmaThreads) {
         const bool in = q0 + i < p.T;
-        lse_s[i] = in ? p.lse[vec0 + q0 + i] * kLog2e : 0.f;
+        lse_s[i] = in ? to_base<kNat>(p.lse[vec0 + q0 + i]) : 0.f;
         delta_s[i] = in ? p.delta[vec0 + q0 + i] : 0.f;
       }
       __syncthreads();
@@ -364,9 +390,9 @@ __global__ void __launch_bounds__(kFmaThreads) flash_dkv_f32_kernel(Params p) {
       for (int j = 0; j < 16; ++j) {
         const int qc = sub + 4 * j;
         float dfac;
-        const float s2 = score2(p, s[j], &dfac);
+        const float s2 = score<kNat>(p, s[j], &dfac);
         const bool live = visible<kLse>(p, q0 + qc, k_pos);
-        const float pv = live ? exp2f(s2 - lse_s[qc]) : 0.f;
+        const float pv = live ? exp_base<kNat>(s2 - lse_s[qc]) : 0.f;
         ps[row * kLdp + qc] = pv;
         dss[row * kLdp + qc] = live ? pv * (dp[j] - delta_s[qc]) * dfac : 0.f;
       }
@@ -401,6 +427,42 @@ __global__ void __launch_bounds__(kFmaThreads) flash_dkv_f32_kernel(Params p) {
         }
       }
       __syncwarp();  // reads of ps/dss done before the next tile
+
+      if (kFused) {
+        // dq += dS K over this cell: this thread's query q0 + row, column
+        // groups sub + 4g, added to the float32 dq in device memory
+        __syncthreads();  // every key row's dS is written
+        float dqa[kGroups][4];
+#pragma unroll
+        for (int g = 0; g < kGroups; ++g) {
+          dqa[g][0] = dqa[g][1] = dqa[g][2] = dqa[g][3] = 0.f;
+        }
+#pragma unroll 4
+        for (int c = 0; c < kBK; ++c) {
+          const float d = dss[c * kLdp + row];
+          const float* krow = &ks[c * kLd];
+#pragma unroll
+          for (int g = 0; g < kGroups; ++g) {
+            const float4 k4 =
+                *reinterpret_cast<const float4*>(&krow[4 * (sub + 4 * g)]);
+            dqa[g][0] = fmaf(d, k4.x, dqa[g][0]);
+            dqa[g][1] = fmaf(d, k4.y, dqa[g][1]);
+            dqa[g][2] = fmaf(d, k4.z, dqa[g][2]);
+            dqa[g][3] = fmaf(d, k4.w, dqa[g][3]);
+          }
+        }
+        if (q0 + row < p.T) {
+          float* o = static_cast<float*>(p.dq) +
+                     row_index(p, b, q0 + row, p.H, h) * HD;
+#pragma unroll
+          for (int g = 0; g < kGroups; ++g) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              atomicAdd(&o[4 * (sub + 4 * g) + e], dqa[g][e]);
+            }
+          }
+        }
+      }
     }
   }
 
@@ -437,7 +499,7 @@ __device__ __forceinline__ void a_frag(const __nv_bfloat16* m, int ld,
   a[3] = ld32(lo + 8 * ld + 8);
 }
 
-template <int HD, bool kLse>
+template <int HD, bool kLse, bool kNat>
 __global__ void __launch_bounds__(kMmaThreads) flash_dq_bf16_kernel(Params p) {
   constexpr int kLd = HD + 8;       // +16 bytes: conflict-free fragment loads
   constexpr int kKSteps = HD / 16;  // k-steps over the head dim
@@ -480,7 +542,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dq_bf16_kernel(Params p) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const long long vec = (static_cast<long long>(b) * p.H + h) * p.T + q_pos[i];
-    lse2[i] = q_pos[i] < p.T ? p.lse[vec] * kLog2e : 0.f;
+    lse2[i] = q_pos[i] < p.T ? to_base<kNat>(p.lse[vec]) : 0.f;
     delta[i] = q_pos[i] < p.T ? p.delta[vec] : 0.f;
   }
 
@@ -523,9 +585,9 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dq_bf16_kernel(Params p) {
           const int i = e >> 1;
           const int key = k0 + 8 * (2 * kc + jj) + 2 * t4 + (e & 1);
           float dfac;
-          const float s2 = score2(p, s[jj][e], &dfac);
+          const float s2 = score<kNat>(p, s[jj][e], &dfac);
           s[jj][e] = visible<kLse>(p, q_pos[i], key)
-                         ? exp2f(s2 - lse2[i]) * (dp[jj][e] - delta[i]) * dfac
+                         ? exp_base<kNat>(s2 - lse2[i]) * (dp[jj][e] - delta[i]) * dfac
                          : 0.f;
         }
       }
@@ -555,7 +617,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dq_bf16_kernel(Params p) {
   }
 }
 
-template <int HD, bool kLse>
+template <int HD, bool kLse, bool kNat, bool kFused>
 __global__ void __launch_bounds__(kMmaThreads) flash_dkv_bf16_kernel(Params p) {
   constexpr int kLd = HD + 8;
   constexpr int kKSteps = HD / 16;
@@ -567,6 +629,9 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dkv_bf16_kernel(Params p) {
   __nv_bfloat16* dos = qs + kBQ * kLd;
   float* lse_s = reinterpret_cast<float*>(dos + kBQ * kLd);
   float* delta_s = lse_s + kBQ;
+  // kFused: the cell's dS, queries x keys (row stride kBK + 8)
+  __nv_bfloat16* dss = reinterpret_cast<__nv_bfloat16*>(delta_s + kBQ);
+  constexpr int kLdS = kBK + 8;
 
   const int k0 = blockIdx.x * kBK;  // the first k tiles have the most work
   const int kvh = blockIdx.y;
@@ -610,7 +675,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dkv_bf16_kernel(Params p) {
                                       p.T);
       for (int i = threadIdx.x; i < kBQ; i += kMmaThreads) {
         const bool in = q0 + i < p.T;
-        lse_s[i] = in ? p.lse[vec0 + q0 + i] * kLog2e : 0.f;
+        lse_s[i] = in ? to_base<kNat>(p.lse[vec0 + q0 + i]) : 0.f;
         delta_s[i] = in ? p.delta[vec0 + q0 + i] : 0.f;
       }
       __syncthreads();
@@ -645,11 +710,15 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dkv_bf16_kernel(Params p) {
             const int i = e >> 1;
             const int qc = 8 * (2 * kc + jj) + 2 * t4 + (e & 1);
             float dfac;
-            const float s2 = score2(p, s[jj][e], &dfac);
+            const float s2 = score<kNat>(p, s[jj][e], &dfac);
             const bool live = visible<kLse>(p, q0 + qc, k_pos[i]);
-            const float pv = live ? exp2f(s2 - lse_s[qc]) : 0.f;
+            const float pv = live ? exp_base<kNat>(s2 - lse_s[qc]) : 0.f;
             dp[jj][e] = live ? pv * (dp[jj][e] - delta_s[qc]) * dfac : 0.f;
             s[jj][e] = pv;
+            if (kFused) {
+              // rounded to bf16 for dS K, as it is for dS^T Q
+              dss[qc * kLdS + r_lo + 8 * i] = __float2bfloat16(dp[jj][e]);
+            }
           }
         }
         const uint32_t pa0 = pack_bf16(s[0][0], s[0][1]);
@@ -667,6 +736,39 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dkv_bf16_kernel(Params p) {
           mma_bf16(dv[d], pa0, pa1, pa2, pa3, b0, b1);
           b_frag_rows(qs + 16 * kc * kLd + 8 * d, kLd, g, t4, &b0, &b1);
           mma_bf16(dk[d], da0, da1, da2, da3, b0, b1);
+        }
+      }
+
+      if (kFused) {
+        // dq += dS K over this cell: warp w's queries q0 + 16w + g (+ 8),
+        // every column, added to the float32 dq in device memory
+        __syncthreads();  // every warp's dS is written
+        uint32_t da[kBK / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) a_frag(dss, kLdS, r_lo, kk, t4, da[kk]);
+        float* o[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          o[i] = q0 + r_lo + 8 * i < p.T
+                     ? static_cast<float*>(p.dq) +
+                           row_index(p, b, q0 + r_lo + 8 * i, p.H, h) * HD
+                     : nullptr;
+        }
+#pragma unroll
+        for (int d = 0; d < kDTiles; ++d) {
+          float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int kk = 0; kk < kBK / 16; ++kk) {
+            uint32_t b0, b1;
+            b_frag_rows(ks + 16 * kk * kLd + 8 * d, kLd, g, t4, &b0, &b1);
+            mma_bf16(acc, da[kk][0], da[kk][1], da[kk][2], da[kk][3], b0, b1);
+          }
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            if (o[i] == nullptr) continue;
+            atomicAdd(o[i] + 8 * d + 2 * t4, acc[2 * i]);
+            atomicAdd(o[i] + 8 * d + 2 * t4 + 1, acc[2 * i + 1]);
+          }
         }
       }
     }
@@ -703,36 +805,37 @@ cudaError_t launch(Kernel kernel, const Params& p, int heads, int threads,
   return cudaGetLastError();
 }
 
-template <int HD, bool kLse>
+template <int HD, bool kLse, bool kNat>
 cudaError_t launch_dq(const Params& p, int dtype, cudaStream_t stream) {
   if (dtype == 0) {
     const int smem = static_cast<int>(
         (2 * kBQ * (HD + 4) + 2 * kBK * (HD + 4) + kBQ * (kBK + 4)) *
         sizeof(float));
-    return launch(flash_dq_f32_kernel<HD, kLse>, p, p.H, kFmaThreads, smem,
-                  stream);
+    return launch(flash_dq_f32_kernel<HD, kLse, kNat>, p, p.H, kFmaThreads,
+                  smem, stream);
   }
   const int smem =
       static_cast<int>((2 * kBQ + 2 * kBK) * (HD + 8) * sizeof(__nv_bfloat16));
-  return launch(flash_dq_bf16_kernel<HD, kLse>, p, p.H, kMmaThreads, smem,
-                stream);
+  return launch(flash_dq_bf16_kernel<HD, kLse, kNat>, p, p.H, kMmaThreads,
+                smem, stream);
 }
 
-template <int HD, bool kLse>
+template <int HD, bool kLse, bool kNat, bool kFused>
 cudaError_t launch_dkv(const Params& p, int dtype, cudaStream_t stream) {
   if (dtype == 0) {
     const int smem = static_cast<int>(
         (2 * kBK * (HD + 4) + 2 * kBQ * (HD + 4) + 2 * kBK * (kBQ + 4) +
          2 * kBQ) *
         sizeof(float));
-    return launch(flash_dkv_f32_kernel<HD, kLse>, p, p.KV, kFmaThreads, smem,
-                  stream);
+    return launch(flash_dkv_f32_kernel<HD, kLse, kNat, kFused>, p, p.KV,
+                  kFmaThreads, smem, stream);
   }
   const int smem = static_cast<int>(
       (2 * kBK + 2 * kBQ) * (HD + 8) * sizeof(__nv_bfloat16) +
-      2 * kBQ * sizeof(float));
-  return launch(flash_dkv_bf16_kernel<HD, kLse>, p, p.KV, kMmaThreads, smem,
-                stream);
+      2 * kBQ * sizeof(float) +
+      (kFused ? kBQ * (kBK + 8) * sizeof(__nv_bfloat16) : 0));
+  return launch(flash_dkv_bf16_kernel<HD, kLse, kNat, kFused>, p, p.KV,
+                kMmaThreads, smem, stream);
 }
 
 Params make_params(const void* q, const void* k, const void* v,
@@ -771,31 +874,38 @@ Params make_params(const void* q, const void* k, const void* v,
   return p;
 }
 
-template <bool kLse>
+template <bool kLse, bool kNat>
 int run_dq(Params p, void* dq, int hd, int dtype, void* stream) {
   p.dq = dq;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
-    case 16: return static_cast<int>(launch_dq<16, kLse>(p, dtype, s));
-    case 32: return static_cast<int>(launch_dq<32, kLse>(p, dtype, s));
-    case 64: return static_cast<int>(launch_dq<64, kLse>(p, dtype, s));
-    case 128: return static_cast<int>(launch_dq<128, kLse>(p, dtype, s));
+    case 16: return static_cast<int>(launch_dq<16, kLse, kNat>(p, dtype, s));
+    case 32: return static_cast<int>(launch_dq<32, kLse, kNat>(p, dtype, s));
+    case 64: return static_cast<int>(launch_dq<64, kLse, kNat>(p, dtype, s));
+    case 128: return static_cast<int>(launch_dq<128, kLse, kNat>(p, dtype, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <bool kLse>
-int run_dkv(Params p, void* dk, void* dv, int hd, int dtype, void* stream) {
+// kFused: dq is a zeroed float32 buffer the kernel adds dS K to.
+template <bool kLse, bool kNat, bool kFused>
+int run_dkv(Params p, void* dq, void* dk, void* dv, int hd, int dtype,
+            void* stream) {
+  p.dq = dq;
   p.dk = dk;
   p.dv = dv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
-    case 16: return static_cast<int>(launch_dkv<16, kLse>(p, dtype, s));
-    case 32: return static_cast<int>(launch_dkv<32, kLse>(p, dtype, s));
-    case 64: return static_cast<int>(launch_dkv<64, kLse>(p, dtype, s));
-    case 128: return static_cast<int>(launch_dkv<128, kLse>(p, dtype, s));
+    case 16:
+      return static_cast<int>(launch_dkv<16, kLse, kNat, kFused>(p, dtype, s));
+    case 32:
+      return static_cast<int>(launch_dkv<32, kLse, kNat, kFused>(p, dtype, s));
+    case 64:
+      return static_cast<int>(launch_dkv<64, kLse, kNat, kFused>(p, dtype, s));
+    case 128:
+      return static_cast<int>(launch_dkv<128, kLse, kNat, kFused>(p, dtype, s));
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -812,10 +922,11 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             long long k_sh, long long v_sb, long long v_st,
                             long long v_sh, float scale, int window,
                             float softcap, int dtype, void* stream) {
-  return run_dq<false>(make_params(q, k, v, dout, lse, delta, B, T, H, KV,
-                                   q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb,
-                                   v_st, v_sh, scale, window, softcap, 1, 0),
-                dq, hd, dtype, stream);
+  return run_dq<false, false>(
+      make_params(q, k, v, dout, lse, delta, B, T, H, KV, q_sb, q_st, q_sh,
+                  k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, window, softcap,
+                  1, 0),
+      dq, hd, dtype, stream);
 }
 
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -827,10 +938,28 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              long long v_st, long long v_sh, float scale,
                              int window, float softcap, int dtype,
                              void* stream) {
-  return run_dkv<false>(make_params(q, k, v, dout, lse, delta, B, T, H, KV,
-                                    q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb,
-                                    v_st, v_sh, scale, window, softcap, 1, 0),
-                 dk, dv, hd, dtype, stream);
+  return run_dkv<false, false, false>(
+      make_params(q, k, v, dout, lse, delta, B, T, H, KV, q_sb, q_st, q_sh,
+                  k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, window, softcap,
+                  1, 0),
+      nullptr, dk, dv, hd, dtype, stream);
+}
+
+// dq: a zeroed float32 (B, T, H, hd) buffer; the kernel adds dq to it.
+extern "C" int flash_bwd_fused(const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse,
+                               const void* delta, void* dq, void* dk,
+                               void* dv, int B, int T, int H, int KV, int hd,
+                               long long q_sb, long long q_st, long long q_sh,
+                               long long k_sb, long long k_st, long long k_sh,
+                               long long v_sb, long long v_st, long long v_sh,
+                               float scale, int window, float softcap,
+                               int dtype, void* stream) {
+  return run_dkv<false, false, true>(
+      make_params(q, k, v, dout, lse, delta, B, T, H, KV, q_sb, q_st, q_sh,
+                  k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, window, softcap,
+                  1, 0),
+      dq, dk, dv, hd, dtype, stream);
 }
 
 // causal: 0 or 1; q_offset >= 0 (read only when causal). delta already
@@ -845,11 +974,11 @@ extern "C" int flash_lse_bwd_dq(const void* q, const void* k, const void* v,
                                 long long v_st, long long v_sh, float scale,
                                 int window, float softcap, int causal,
                                 int q_offset, int dtype, void* stream) {
-  return run_dq<true>(make_params(q, k, v, dout, lse, delta, B, T, H, KV,
-                                  q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb,
-                                  v_st, v_sh, scale, window, softcap, causal,
-                                  q_offset),
-                dq, hd, dtype, stream);
+  return run_dq<true, false>(
+      make_params(q, k, v, dout, lse, delta, B, T, H, KV, q_sb, q_st, q_sh,
+                  k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, window, softcap,
+                  causal, q_offset),
+      dq, hd, dtype, stream);
 }
 
 extern "C" int flash_lse_bwd_dkv(const void* q, const void* k, const void* v,
@@ -862,9 +991,42 @@ extern "C" int flash_lse_bwd_dkv(const void* q, const void* k, const void* v,
                                  long long v_st, long long v_sh, float scale,
                                  int window, float softcap, int causal,
                                  int q_offset, int dtype, void* stream) {
-  return run_dkv<true>(make_params(q, k, v, dout, lse, delta, B, T, H, KV,
-                                   q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb,
-                                   v_st, v_sh, scale, window, softcap, causal,
-                                   q_offset),
-                 dk, dv, hd, dtype, stream);
+  return run_dkv<true, false, false>(
+      make_params(q, k, v, dout, lse, delta, B, T, H, KV, q_sb, q_st, q_sh,
+                  k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, window, softcap,
+                  causal, q_offset),
+      nullptr, dk, dv, hd, dtype, stream);
+}
+
+// flash_bwd_dq and flash_bwd_dkv in the natural base (the per-head-grid
+// prototype's kernels): lse is the natural-domain lse all the same.
+extern "C" int nh_bwd_dq(const void* q, const void* k, const void* v,
+                         const void* dout, const void* lse, const void* delta,
+                         void* dq, int B, int T, int H, int KV, int hd,
+                         long long q_sb, long long q_st, long long q_sh,
+                         long long k_sb, long long k_st, long long k_sh,
+                         long long v_sb, long long v_st, long long v_sh,
+                         float scale, int window, float softcap, int dtype,
+                         void* stream) {
+  return run_dq<false, true>(
+      make_params(q, k, v, dout, lse, delta, B, T, H, KV, q_sb, q_st, q_sh,
+                  k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, window, softcap,
+                  1, 0),
+      dq, hd, dtype, stream);
+}
+
+extern "C" int nh_bwd_dkv(const void* q, const void* k, const void* v,
+                          const void* dout, const void* lse,
+                          const void* delta, void* dk, void* dv, int B, int T,
+                          int H, int KV, int hd, long long q_sb,
+                          long long q_st, long long q_sh, long long k_sb,
+                          long long k_st, long long k_sh, long long v_sb,
+                          long long v_st, long long v_sh, float scale,
+                          int window, float softcap, int dtype,
+                          void* stream) {
+  return run_dkv<false, true, false>(
+      make_params(q, k, v, dout, lse, delta, B, T, H, KV, q_sb, q_st, q_sh,
+                  k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, window, softcap,
+                  1, 0),
+      nullptr, dk, dv, hd, dtype, stream);
 }

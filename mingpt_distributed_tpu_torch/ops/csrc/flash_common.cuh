@@ -1,6 +1,6 @@
 // Helpers shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// tile sizes, the base-2 constants, the bf16 tensor-core product and the
-// staging of 64-row tiles into shared memory.
+// tile sizes, the softmax's base (2 or, for the prototype, e), the bf16
+// tensor-core product and the staging of 64-row tiles into shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -14,6 +14,21 @@ constexpr int kBK = 64;  // keys per tile
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kInvLog2e = 0.6931471805599453f;
+
+// The softmax's base, fixed at compile time: base 2 with log2(e) folded into
+// the scores and the lse (the TPU kernels' choice, exp2f), or with kNat the
+// natural base (the per-head-grid prototype's jnp.exp), exponentiated by the
+// accurate expf. __expf would be ex2.approx of a product: base 2 again.
+template <bool kNat>
+__device__ __forceinline__ float exp_base(float x) {
+  return kNat ? expf(x) : exp2f(x);
+}
+
+// A natural-domain value (a score scale, an lse) in the softmax's base.
+template <bool kNat>
+__device__ __forceinline__ float to_base(float x) {
+  return kNat ? x : x * kLog2e;
+}
 
 // d += a b for one m16n8k16 tile: a 16x16 bf16 (row), b 16x8 bf16 (col),
 // d 16x8 fp32. Fragment ownership, with g = lane / 4 and t = lane % 4:

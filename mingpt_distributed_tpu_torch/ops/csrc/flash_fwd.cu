@@ -1,5 +1,5 @@
-// Flash-attention forward for Hopper (sm_90a), plain C interface: two entry
-// points, each a launch of its own, over the same kernels.
+// Flash-attention forward for Hopper (sm_90a), plain C interface: three
+// entry points, each a launch of its own, over the same kernels.
 //
 //   flash_fwd      replaces the TPU kernel `_fwd_kernel_btd` (reached
 //                  through `_flash_fwd_btd` and `_flash_btd`): causal;
@@ -8,15 +8,19 @@
 //                  hop): a `causal` flag and a `q_offset` that places query
 //                  row i at position q_offset + i of the key axis, so the
 //                  causal band (and a window) shifts with it;
-// both in mingpt_distributed_tpu/ops/flash_attention.py. FlashAttention-2
-// online softmax in base 2 with log2(e) folded into the score scale,
-// optional sliding window (causal only, as in the TPU kernels) and logit
-// soft-capping, emitting the output and the natural-domain log-sum-exp of
-// every query row.
+// both in mingpt_distributed_tpu/ops/flash_attention.py; and
+//   nh_fwd         replaces the TPU kernel `_fwd_kernel4` of the per-head-grid
+//                  prototype (tools/proto_nh_kernel.py, `flash_fwd_btd`):
+//                  flash_fwd's function with the softmax in the natural base.
+// FlashAttention-2 online softmax in base 2 with log2(e) folded into the
+// score scale (nh_fwd: base e, expf), optional sliding window (causal only,
+// as in the TPU kernels) and logit soft-capping, emitting the output and the
+// natural-domain log-sum-exp of every query row.
 //
-// The two entry points run the same kernels, specialised at compile time
-// (kLse): flash_fwd's instantiations test the plain causal band, with no
-// flag or offset in their inner loops, and flash_lse_fwd's the general one.
+// The entry points run the same kernels, specialised at compile time (kLse,
+// kNat): flash_fwd's instantiations test the plain causal band, with no flag
+// or offset in their inner loops, flash_lse_fwd's the general one, and
+// nh_fwd's the plain band in the natural base.
 //
 // Dead rows (q_offset > 0: no key of the chunk inside a row's band) keep
 // m = -1e30 and l = 0, so they are written as out = 0 and lse = -1e30 *
@@ -43,7 +47,7 @@
 //   * the tail tile is masked (keys >= T read as zeros and are masked out;
 //     rows >= T are computed and not stored), so any T >= 1 works;
 //   * finalize: l_safe = max(l, 1e-30), out = acc / l_safe,
-//     lse = m / log2(e) + log(l_safe).
+//     lse = m / log2(e) + log(l_safe) (natural base: m + log(l_safe)).
 //
 // bfloat16 inputs take the tensor cores: mma.sync m16n8k16 (bf16 in, fp32
 // accumulate), four warps of 16 query rows each, the warp's Q fragments
@@ -99,11 +103,24 @@ __device__ __forceinline__ void kv_tile_range(const Params& p, int q0,
   *hi = min(qg + kBQ - 1, p.T - 1) / kBK;
 }
 
-// Base-2 score of a raw q.k product: s * scale * log2(e), or
-// cap * log2(e) * tanh(s * scale / cap) under soft-capping.
-__device__ __forceinline__ float score2(const Params& p, float s) {
+// Score of a raw q.k product in the softmax's base: s * scale * log2(e), or
+// cap * log2(e) * tanh(s * scale / cap) under soft-capping; kNat: the same
+// without log2(e).
+template <bool kNat>
+__device__ __forceinline__ float score(const Params& p, float s) {
+  if (kNat) {
+    return p.softcap > 0.f ? p.softcap * tanhf(s * (p.scale / p.softcap))
+                           : s * p.scale;
+  }
   return p.softcap > 0.f ? p.softcap * kLog2e * tanhf(s * (p.scale / p.softcap))
                          : s * (p.scale * kLog2e);
+}
+
+// The natural-domain lse of a row from its running max m (in the softmax's
+// base) and its safe sum l.
+template <bool kNat>
+__device__ __forceinline__ float lse_of(float m, float l_safe) {
+  return (kNat ? m : m * kInvLog2e) + logf(l_safe);
 }
 
 template <bool kLse>
@@ -125,7 +142,7 @@ __device__ __forceinline__ bool visible(const Params& p, int q_pos,
 
 constexpr int kFmaThreads = 256;  // four threads per query row
 
-template <int HD, bool kLse>
+template <int HD, bool kLse, bool kNat>
 __global__ void __launch_bounds__(kFmaThreads) flash_fwd_f32_kernel(Params p) {
   constexpr int kLd = HD + 4;    // +4 floats: float4-aligned, conflict-free
   constexpr int kLdp = kBK + 4;
@@ -188,7 +205,7 @@ __global__ void __launch_bounds__(kFmaThreads) flash_fwd_f32_kernel(Params p) {
     float m_tile = kNegInf;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
-      s[j] = score2(p, s[j]);
+      s[j] = score<kNat>(p, s[j]);
       if (visible<kLse>(p, q_pos, k0 + sub + 4 * j)) {
         live |= 1u << j;
         m_tile = fmaxf(m_tile, s[j]);
@@ -197,12 +214,13 @@ __global__ void __launch_bounds__(kFmaThreads) flash_fwd_f32_kernel(Params p) {
     m_tile = fmaxf(m_tile, __shfl_xor_sync(0xffffffffu, m_tile, 1));
     m_tile = fmaxf(m_tile, __shfl_xor_sync(0xffffffffu, m_tile, 2));
     const float m_new = fmaxf(m, m_tile);
-    const float alpha = exp2f(m - m_new);  // 1 when both are still kNegInf
+    // 1 when both are still kNegInf
+    const float alpha = exp_base<kNat>(m - m_new);
 
     float l_tile = 0.f;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
-      const float pj = (live >> j) & 1u ? exp2f(s[j] - m_new) : 0.f;
+      const float pj = (live >> j) & 1u ? exp_base<kNat>(s[j] - m_new) : 0.f;
       ps[row * kLdp + sub + 4 * j] = pj;
       l_tile += pj;
     }
@@ -255,7 +273,7 @@ __global__ void __launch_bounds__(kFmaThreads) flash_fwd_f32_kernel(Params p) {
     }
     if (sub == 0) {
       p.lse[(static_cast<long long>(b) * p.H + h) * p.T + q_pos] =
-          m * kInvLog2e + logf(l_safe);
+          lse_of<kNat>(m, l_safe);
     }
   }
 }
@@ -266,7 +284,7 @@ __global__ void __launch_bounds__(kFmaThreads) flash_fwd_f32_kernel(Params p) {
 
 constexpr int kMmaThreads = 128;  // four warps, 16 query rows each
 
-template <int HD, bool kLse>
+template <int HD, bool kLse, bool kNat>
 __global__ void __launch_bounds__(kMmaThreads)
     flash_fwd_bf16_kernel(Params p) {
   constexpr int kLd = HD + 8;     // +16 bytes: conflict-free fragment loads
@@ -341,7 +359,7 @@ __global__ void __launch_bounds__(kMmaThreads)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int i = e >> 1;
-        s[j][e] = score2(p, s[j][e]);
+        s[j][e] = score<kNat>(p, s[j][e]);
         if (visible<kLse>(p, q_pos[i], k0 + 8 * j + 2 * t4 + (e & 1))) {
           live[i] |= 1u << (2 * j + (e & 1));
           m_tile[i] = fmaxf(m_tile[i], s[j][e]);
@@ -354,7 +372,7 @@ __global__ void __launch_bounds__(kMmaThreads)
       m_tile[i] = fmaxf(m_tile[i], __shfl_xor_sync(0xffffffffu, m_tile[i], 1));
       m_tile[i] = fmaxf(m_tile[i], __shfl_xor_sync(0xffffffffu, m_tile[i], 2));
       const float m_new = fmaxf(m[i], m_tile[i]);
-      alpha[i] = exp2f(m[i] - m_new);  // 1 when both are still kNegInf
+      alpha[i] = exp_base<kNat>(m[i] - m_new);  // 1 when both are still kNegInf
       m[i] = m_new;
       l[i] *= alpha[i];
     }
@@ -364,7 +382,7 @@ __global__ void __launch_bounds__(kMmaThreads)
       for (int e = 0; e < 4; ++e) {
         const int i = e >> 1;
         const float pj = (live[i] >> (2 * j + (e & 1))) & 1u
-                             ? exp2f(s[j][e] - m[i]) : 0.f;
+                             ? exp_base<kNat>(s[j][e] - m[i]) : 0.f;
         s[j][e] = pj;
         l[i] += pj;
       }
@@ -409,7 +427,7 @@ __global__ void __launch_bounds__(kMmaThreads)
     }
     if (t4 == 0) {
       p.lse[(static_cast<long long>(b) * p.H + h) * p.T + q_pos[i]] =
-          m[i] * kInvLog2e + logf(l_safe);
+          lse_of<kNat>(m[i], l_safe);
     }
   }
 }
@@ -429,46 +447,49 @@ cudaError_t launch(Kernel kernel, const Params& p, int threads, int smem,
   return cudaGetLastError();
 }
 
-template <int HD, bool kLse>
+template <int HD, bool kLse, bool kNat>
 cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   const int smem = static_cast<int>(
       (kBQ * (HD + 4) + 2 * kBK * (HD + 4) + kBQ * (kBK + 4)) * sizeof(float));
-  return launch(flash_fwd_f32_kernel<HD, kLse>, p, kFmaThreads, smem, stream);
+  return launch(flash_fwd_f32_kernel<HD, kLse, kNat>, p, kFmaThreads, smem,
+                stream);
 }
 
-template <int HD, bool kLse>
+template <int HD, bool kLse, bool kNat>
 cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
   const int smem = static_cast<int>((kBQ + 2 * kBK) * (HD + 8) *
                                     sizeof(__nv_bfloat16));
-  return launch(flash_fwd_bf16_kernel<HD, kLse>, p, kMmaThreads, smem, stream);
+  return launch(flash_fwd_bf16_kernel<HD, kLse, kNat>, p, kMmaThreads, smem,
+                stream);
 }
 
-template <bool kLse>
+template <bool kLse, bool kNat>
 cudaError_t dispatch(const Params& p, int hd, int dtype, cudaStream_t s) {
   if (dtype == 0) {
     switch (hd) {
-      case 16: return launch_f32<16, kLse>(p, s);
-      case 32: return launch_f32<32, kLse>(p, s);
-      case 64: return launch_f32<64, kLse>(p, s);
-      case 128: return launch_f32<128, kLse>(p, s);
+      case 16: return launch_f32<16, kLse, kNat>(p, s);
+      case 32: return launch_f32<32, kLse, kNat>(p, s);
+      case 64: return launch_f32<64, kLse, kNat>(p, s);
+      case 128: return launch_f32<128, kLse, kNat>(p, s);
     }
   } else if (dtype == 1) {
     switch (hd) {
-      case 16: return launch_bf16<16, kLse>(p, s);
-      case 32: return launch_bf16<32, kLse>(p, s);
-      case 64: return launch_bf16<64, kLse>(p, s);
-      case 128: return launch_bf16<128, kLse>(p, s);
+      case 16: return launch_bf16<16, kLse, kNat>(p, s);
+      case 32: return launch_bf16<32, kLse, kNat>(p, s);
+      case 64: return launch_bf16<64, kLse, kNat>(p, s);
+      case 128: return launch_bf16<128, kLse, kNat>(p, s);
     }
   }
   return cudaErrorInvalidValue;
 }
 
-int run(bool lse_entry, const void* q, const void* k, const void* v,
-        void* out, void* lse, int B, int T, int H, int KV, int hd,
-        long long q_sb, long long q_st, long long q_sh, long long k_sb,
-        long long k_st, long long k_sh, long long v_sb, long long v_st,
-        long long v_sh, float scale, int window, float softcap, int causal,
-        int q_offset, int dtype, void* stream) {
+template <bool kLse, bool kNat>
+int run(const void* q, const void* k, const void* v, void* out, void* lse,
+        int B, int T, int H, int KV, int hd, long long q_sb, long long q_st,
+        long long q_sh, long long k_sb, long long k_st, long long k_sh,
+        long long v_sb, long long v_st, long long v_sh, float scale,
+        int window, float softcap, int causal, int q_offset, int dtype,
+        void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -493,9 +514,8 @@ int run(bool lse_entry, const void* q, const void* k, const void* v,
   p.softcap = softcap;
   p.causal = causal;
   p.q_offset = q_offset;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(lse_entry ? dispatch<true>(p, hd, dtype, s)
-                                    : dispatch<false>(p, hd, dtype, s));
+  return static_cast<int>(
+      dispatch<kLse, kNat>(p, hd, dtype, static_cast<cudaStream_t>(stream)));
 }
 
 }  // namespace
@@ -509,9 +529,9 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          long long k_sh, long long v_sb, long long v_st,
                          long long v_sh, float scale, int window,
                          float softcap, int dtype, void* stream) {
-  return run(false, q, k, v, out, lse, B, T, H, KV, hd, q_sb, q_st, q_sh,
-             k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, window, softcap, 1, 0,
-             dtype, stream);
+  return run<false, false>(q, k, v, out, lse, B, T, H, KV, hd, q_sb, q_st,
+                           q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale,
+                           window, softcap, 1, 0, dtype, stream);
 }
 
 // causal: 0 or 1; q_offset >= 0 (read only when causal).
@@ -523,7 +543,20 @@ extern "C" int flash_lse_fwd(const void* q, const void* k, const void* v,
                              long long v_sh, float scale, int window,
                              float softcap, int causal, int q_offset,
                              int dtype, void* stream) {
-  return run(true, q, k, v, out, lse, B, T, H, KV, hd, q_sb, q_st, q_sh,
-             k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, window, softcap,
-             causal, q_offset, dtype, stream);
+  return run<true, false>(q, k, v, out, lse, B, T, H, KV, hd, q_sb, q_st,
+                          q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale,
+                          window, softcap, causal, q_offset, dtype, stream);
+}
+
+// flash_fwd in the natural base (the per-head-grid prototype's kernel).
+extern "C" int nh_fwd(const void* q, const void* k, const void* v, void* out,
+                      void* lse, int B, int T, int H, int KV, int hd,
+                      long long q_sb, long long q_st, long long q_sh,
+                      long long k_sb, long long k_st, long long k_sh,
+                      long long v_sb, long long v_st, long long v_sh,
+                      float scale, int window, float softcap, int dtype,
+                      void* stream) {
+  return run<false, true>(q, k, v, out, lse, B, T, H, KV, hd, q_sb, q_st,
+                          q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale,
+                          window, softcap, 1, 0, dtype, stream);
 }

@@ -2,12 +2,15 @@
 CUDA kernels' wrappers, and the kernels' plain PyTorch versions.
 
 Counterpart of ``mingpt_distributed_tpu/ops/flash_attention.py:280-645`` and
-``:1089-1315``. The kernels replace the TPU kernels ``_fwd_kernel_btd`` and
-``_fwd_kernel`` (``csrc/flash_fwd.cu``: ``flash_fwd``, ``flash_lse_fwd``),
-and ``_dq_kernel_btd`` + ``_dkv_kernel_btd``, ``_dq_kernel`` +
-``_dkv_kernel`` (``csrc/flash_bwd.cu``: ``flash_bwd_dq``/``_dkv``,
-``flash_lse_bwd_dq``/``_dkv``); see the sources for their design and what
-bounds them.
+``:1089-1315``. The kernels replace the TPU kernels ``_fwd_kernel_btd`` (K1)
+and ``_fwd_kernel`` (K3) (``csrc/flash_fwd.cu``: ``flash_fwd``,
+``flash_lse_fwd``), ``_dq_kernel_btd`` + ``_dkv_kernel_btd`` (K2a, K2b),
+the fused ``_dqkv_kernel_btd`` (K2c) and ``_dq_kernel`` + ``_dkv_kernel``
+(K4a, K4b) (``csrc/flash_bwd.cu``: ``flash_bwd_dq``/``_dkv``,
+``flash_bwd_fused``, ``flash_lse_bwd_dq``/``_dkv``). The same sources'
+``nh_*`` entry points replace the per-head-grid prototype's kernels (K5,
+wrapped in ``tools/proto_nh_kernel.py``). See the sources for their design
+and what bounds them.
 
 * ``causal_attention`` takes the einsum oracle exactly where the JAX
   package does, for semantic reasons: attention dropout active, q and k
@@ -15,9 +18,12 @@ bounds them.
   ``kv_offset``. Otherwise it runs ``FlashAttention``, whose forward is
   ``flash_fwd`` and whose backward is ``flash_bwd``, as ``_flash_btd``'s
   custom VJP is in the JAX package. The TPU-only machinery (block-size
-  ladder, lane packing, odd-head padding, layout switches, the opt-in fused
-  backward) has no counterpart: the kernels take any T >= 1 and any head
-  count.
+  ladder, lane packing, odd-head padding, layout switches, the fused
+  backward's VMEM budget) has no counterpart: the kernels take any T >= 1
+  and any head count.
+* ``FLASH_FUSED_BWD=1``, the JAX package's own switch, read at each call as
+  ``_flash_bwd_btd`` reads it, sends ``flash_bwd`` on CUDA tensors to the
+  fused kernel K2c (``flash_bwd_fused``) in place of K2a + K2b, at any T.
 * ``flash_fwd`` and ``flash_bwd`` run the plain versions for tensors on the
   CPU. For CUDA tensors they launch the kernels or raise; nothing falls
   back.
@@ -42,6 +48,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import os
 from typing import Optional, Tuple, Union
 
 import torch
@@ -159,7 +166,9 @@ def flash_bwd_plain(
     window: Optional[int] = None, softcap: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``flash_lse_bwd_plain`` with the causal mask and no lse cotangent:
-    what ``flash_bwd`` computes."""
+    what ``flash_bwd`` computes, with either setting of FLASH_FUSED_BWD, so
+    the plain version of K2c (``flash_bwd_fused``) as well as of K2a +
+    K2b."""
     return flash_lse_bwd_plain(q, k, v, out, lse, do, scale=scale,
                                window=window, softcap=softcap)
 
@@ -174,11 +183,15 @@ _LSE_TAIL = [ctypes.c_float, _I32, ctypes.c_float, _I32, _I32, _I32,
 # hd and the strides
 _ENTRIES = {
     "flash_fwd": {"flash_fwd": (5, _TAIL),          # q, k, v, out, lse
-                  "flash_lse_fwd": (5, _LSE_TAIL)},
+                  "flash_lse_fwd": (5, _LSE_TAIL),
+                  "nh_fwd": (5, _TAIL)},
     "flash_bwd": {"flash_bwd_dq": (7, _TAIL),       # q, k, v, do, lse, delta, dq
                   "flash_bwd_dkv": (8, _TAIL),      # ... dk, dv
+                  "flash_bwd_fused": (9, _TAIL),    # ... dq (float32), dk, dv
                   "flash_lse_bwd_dq": (7, _LSE_TAIL),
-                  "flash_lse_bwd_dkv": (8, _LSE_TAIL)},
+                  "flash_lse_bwd_dkv": (8, _LSE_TAIL),
+                  "nh_bwd_dq": (7, _TAIL),
+                  "nh_bwd_dkv": (8, _TAIL)},
 }
 
 
@@ -212,37 +225,40 @@ def _check_lse_opts(window, q_offset) -> None:
         raise ValueError(f"window must be >= 1, got {window}")
 
 
-def _check_cuda_inputs(q, k, v) -> None:
+def _check_cuda_inputs(q, k, v, name: str) -> None:
+    """Refuse what the kernels do not take; ``name`` is the wrapper that
+    was called."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         raise RuntimeError(
-            "the kernel wrappers build no autograd graph: differentiate "
-            "through causal_attention (FlashAttention), or call them under "
-            "torch.no_grad()"
+            f"{name}: the kernel wrappers build no autograd graph: "
+            "differentiate through causal_attention (FlashAttention), or call "
+            "them under torch.no_grad()"
         )
     if not (k.device == q.device and v.device == q.device):
-        raise ValueError("q, k and v must be on the same device")
+        raise ValueError(f"{name}: q, k and v must be on the same device")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
-            f"flash_fwd takes float32 or bfloat16 q/k/v of one dtype, got "
+            f"{name} takes float32 or bfloat16 q/k/v of one dtype, got "
             f"{q.dtype}, {k.dtype}, {v.dtype}"
         )
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"bad shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)}")
+        raise ValueError(f"{name}: bad shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
     b, t, h, hd = q.shape
     if k.shape[0] != b or k.shape[1] != t or k.shape[3] != hd or h % k.shape[2]:
-        raise ValueError(f"k/v {tuple(k.shape)} do not fit q {tuple(q.shape)}")
+        raise ValueError(f"{name}: k/v {tuple(k.shape)} do not fit q "
+                         f"{tuple(q.shape)}")
     if hd not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head_dim {hd} not in {SUPPORTED_HEAD_DIMS}")
+        raise ValueError(f"{name}: head_dim {hd} not in {SUPPORTED_HEAD_DIMS}")
     if t < 1:
-        raise ValueError("empty sequence")
+        raise ValueError(f"{name}: empty sequence")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
-        raise ValueError("flash_fwd needs a dense last (head_dim) axis")
+        raise ValueError(f"{name} needs a dense last (head_dim) axis")
     if q.dtype == torch.bfloat16 and not all(
             x.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in x.stride()[:3])
             for x in (q, k, v)):
-        raise ValueError("flash_fwd loads bf16 rows with 16-byte loads: "
+        raise ValueError(f"{name} loads bf16 rows with 16-byte loads: "
                          "q/k/v rows must start on 16-byte boundaries")
 
 
@@ -270,7 +286,7 @@ flash_fwd.launches = 0
 def _launch_fwd(fn_name, q, k, v, scale, window, softcap, lse_opts=None):
     if q.device.type != "cuda":
         raise ValueError(f"{fn_name} runs on cuda or cpu tensors, not {q.device}")
-    _check_cuda_inputs(q, k, v)
+    _check_cuda_inputs(q, k, v, fn_name)
     b, t, h, hd = q.shape
     lib = _kernel("flash_fwd")
     out = torch.empty((b, t, h, hd), dtype=q.dtype, device=q.device)
@@ -334,6 +350,26 @@ def _check_bwd_inputs(q, out, lse, do) -> None:
                          f"{tuple(lse.shape)} {lse.dtype}")
 
 
+def fused_bwd_enabled() -> bool:
+    """Whether ``FLASH_FUSED_BWD=1`` is set now: the JAX package's switch
+    for its fused backward, read at each call as ``_flash_bwd_btd`` reads
+    it."""
+    return os.environ.get("FLASH_FUSED_BWD", "0") == "1"
+
+
+def _bwd_inputs(name, q, k, v, out, lse, do):
+    """Checked CUDA inputs of a backward wrapper: (dO dense with 16-byte
+    rows, lse dense, delta = rowsum(out * dO) (B, H, T) float32, a plain
+    tensor op as in the JAX package)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, not {q.device}")
+    _check_cuda_inputs(q, k, v, name)
+    _check_bwd_inputs(q, out, lse, do)
+    do = _dense(do)
+    delta = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+    return do, lse.contiguous(), delta
+
+
 def flash_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
     lse: torch.Tensor, do: torch.Tensor, *, scale: float,
@@ -342,26 +378,39 @@ def flash_bwd(
     """The backward kernels' wrapper: the gradient of ``flash_fwd`` ->
     (dq (B, T, H, hd), dk, dv (B, T, KV, hd)) in the inputs' dtype.
 
-    ``delta = rowsum(out * do)`` is computed here in float32 as a plain
-    tensor op, as the JAX package does outside its kernels. CPU tensors
-    take ``flash_bwd_plain``. CUDA tensors launch the dq kernel and the
-    dk/dv kernel (counted in ``flash_bwd.dq_launches`` and
-    ``flash_bwd.dkv_launches``) or raise.
+    CPU tensors take ``flash_bwd_plain``. CUDA tensors launch the dq kernel
+    and the dk/dv kernel (counted in ``flash_bwd.dq_launches`` and
+    ``flash_bwd.dkv_launches``) or raise; with FLASH_FUSED_BWD=1 they go to
+    ``flash_bwd_fused`` instead.
     """
-    if q.device.type == "cpu":
-        return flash_bwd_plain(q, k, v, out, lse, do, scale=scale,
-                               window=window, softcap=softcap)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_bwd runs on cuda or cpu tensors, not {q.device}")
-    _check_cuda_inputs(q, k, v)
-    _check_bwd_inputs(q, out, lse, do)
-    do = _dense(do)
-    lse = lse.contiguous()
-    delta = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
     kw = dict(scale=scale, window=window, softcap=softcap)
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, out, lse, do, **kw)
+    if fused_bwd_enabled():
+        return flash_bwd_fused(q, k, v, out, lse, do, **kw)
+    do, lse, delta = _bwd_inputs("flash_bwd", q, k, v, out, lse, do)
     dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
     return dq, dk, dv
+
+
+def flash_bwd_fused(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, *, scale: float,
+    window: Optional[int] = None, softcap: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The fused backward kernel's wrapper (K2c): ``flash_bwd``'s function
+    in one launch. CPU tensors take ``flash_bwd_plain``. CUDA tensors get
+    delta, a zeroed float32 dq buffer (on the current stream), the kernel
+    (``flash_bwd_dqkv``) and dq cast to q's dtype, all plain tensor ops but
+    the kernel; a failed build or launch raises."""
+    kw = dict(scale=scale, window=window, softcap=softcap)
+    if q.device.type == "cpu":
+        return flash_bwd_plain(q, k, v, out, lse, do, **kw)
+    do, lse, delta = _bwd_inputs("flash_bwd_fused", q, k, v, out, lse, do)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = flash_bwd_dqkv(q, k, v, do, lse, delta, dq, **kw)
+    return dq.to(q.dtype), dk, dv
 
 
 def _launch_bwd(fn_name, outs, q, k, v, do, lse, delta, scale, window,
@@ -401,8 +450,26 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, scale, window=None, softcap=None):
     return dk, dv
 
 
+def flash_bwd_dqkv(q, k, v, do, lse, delta, dq, *, scale, window=None,
+                   softcap=None):
+    """Launch the fused kernel (K2c) on the inputs ``flash_bwd_dq`` takes:
+    it adds dq to ``dq``, a dense float32 (B, T, H, hd) buffer (zeroed by
+    the caller), and returns (dk, dv). Counted in
+    ``flash_bwd.fused_launches``."""
+    if dq.dtype != torch.float32 or dq.shape != q.shape or not dq.is_contiguous():
+        raise ValueError(f"flash_bwd_dqkv adds into a dense float32 {tuple(q.shape)} "
+                         f"dq, got {tuple(dq.shape)} {dq.dtype}")
+    dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
+    _launch_bwd("flash_bwd_fused", (dq, dk, dv), q, k, v, do, lse, delta,
+                scale, window, softcap)
+    flash_bwd.fused_launches += 1
+    return dk, dv
+
+
 flash_bwd.dq_launches = 0
 flash_bwd.dkv_launches = 0
+flash_bwd.fused_launches = 0
 
 
 def flash_lse_bwd(
@@ -426,19 +493,12 @@ def flash_lse_bwd(
               q_offset=q_offset)
     if q.device.type == "cpu":
         return flash_lse_bwd_plain(q, k, v, out, lse, do, dlse, **kw)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_lse_bwd runs on cuda or cpu tensors, not {q.device}")
-    _check_cuda_inputs(q, k, v)
-    _check_bwd_inputs(q, out, lse, do)
-    do = _dense(do)
-    lse = lse.contiguous()
-    delta = (out.float() * do.float()).sum(-1).transpose(1, 2)
+    do, lse, delta = _bwd_inputs("flash_lse_bwd", q, k, v, out, lse, do)
     if dlse is not None:
         if dlse.shape != lse.shape:
             raise ValueError(f"dlse {tuple(dlse.shape)} does not match lse "
                              f"{tuple(lse.shape)}")
         delta = delta - dlse.float()
-    delta = delta.contiguous()
     dq = flash_lse_bwd_dq(q, k, v, do, lse, delta, **kw)
     dk, dv = flash_lse_bwd_dkv(q, k, v, do, lse, delta, **kw)
     return dq, dk, dv

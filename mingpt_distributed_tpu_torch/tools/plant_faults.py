@@ -4,10 +4,13 @@ that the on-card checks catch them.
 For each fault below (and once with none, as the control), copies
 ``chip_smoke.py`` and this package into a temporary directory, rewrites one
 source there, and runs ``chip_smoke.py``'s checks against the copy, which
-builds its own kernels. A kernel fault (a source under ``ops/csrc``) runs
-phase 1's kernel checks: ``bwd_case`` (K2a, K2b) on every case of
-``KERNEL_CASES`` and ``lse_case`` (K3, K4a, K4b) on every case of
-``LSE_CASES``, each in bfloat16 and float32. A ring fault (a Python source)
+builds the kernels of the source it changed (libraries already built here
+come along and are reused where their source is unchanged: they are keyed
+by a hash of it). A kernel fault (a source under ``ops/csrc``) runs
+phase 1's kernel checks: ``bwd_case`` (K2a, K2b) and ``fused_case`` (K2c)
+on every case of ``KERNEL_CASES`` and ``lse_case`` (K3, K4a, K4b) on every
+case of ``LSE_CASES``, each in bfloat16 and float32, and ``nh_case`` (K5)
+on every case of ``NH_CASES``. A ring fault (a Python source)
 runs the sp phase's ranks and ``sp_checks``, and must fail the main path's
 model-level group ("main") on its own: the step's loss, grad norm and
 every parameter's gradient against the dense single-process step. The
@@ -54,6 +57,19 @@ FAULTS = {
         [("  if (q_pos < p.T) {", "  if (q_pos < p.T && m > kNegInf) {", 1),
          ("    if (q_pos[i] >= p.T) continue;",
           "    if (q_pos[i] >= p.T || m[i] == kNegInf) continue;", 1)]),
+    # the fused backward's dq skips the first q tile of each k tile's band:
+    # the diagonal cell
+    "fused_dq_skips_diagonal_cell": (
+        "K2c's dq skips the diagonal cell", "ops/csrc/flash_bwd.cu",
+        [("      if (kFused) {\n        // dq += dS K over this cell",
+          "      if (kFused && qt != qt_lo) {\n        // dq += dS K over this cell",
+          2)]),
+    # the natural-base forward ignores the softcap
+    "nh_fwd_drops_softcap": (
+        "K5's forward drops the softcap", "ops/csrc/flash_fwd.cu",
+        [("    return p.softcap > 0.f ? p.softcap * tanhf(s * (p.scale / p.softcap))\n"
+          "                           : s * p.scale;",
+          "    return s * p.scale;", 1)]),
     # the zigzag ring drops the first hop's block from every late half
     "ring_skips_hop_fold": (
         "the zigzag ring skips one hop's fold", "parallel/ring_attention.py",
@@ -61,20 +77,30 @@ FAULTS = {
           "        late = late if t == 1 else _fold(late, o_b, lse_b)\n", 1)]),
 }
 
-# run inside the copy: every K2 and K3/K4 case, one JSON line each
+# run inside the copy: every K2a/K2b, K2c, K3/K4 and K5 case, one JSON line
+# each
 KERNEL_CHECK = """
 import json, sys, torch
 import chip_smoke
 from mingpt_distributed_tpu_torch.ops import flash_attention as fa
+from mingpt_distributed_tpu_torch.tools import proto_nh_kernel as nh
 assert fa.__file__.startswith(sys.argv[1]), fa.__file__
+
+
+def report(rec, fails):
+    print(json.dumps({"kernel": rec["kernel"], "case": rec["case"],
+                      "dtype": rec["dtype"],
+                      "failed": sorted({g for g, _ in fails})}), flush=True)
+
+
 for check, cases in ((chip_smoke.bwd_case, chip_smoke.KERNEL_CASES),
+                     (chip_smoke.fused_case, chip_smoke.KERNEL_CASES),
                      (chip_smoke.lse_case, chip_smoke.LSE_CASES)):
     for i, case in enumerate(cases):
         for dtype in (torch.bfloat16, torch.float32):
-            rec, fails = check(fa, i, case, dtype)
-            print(json.dumps({"kernel": rec["kernel"], "case": rec["case"],
-                              "dtype": rec["dtype"],
-                              "failed": sorted({g for g, _ in fails})}), flush=True)
+            report(*check(fa, i, case, dtype))
+for i, case in enumerate(chip_smoke.NH_CASES):
+    report(*chip_smoke.nh_case(nh, i, case))
 """
 
 # run inside the copy: the sp phase's ranks and checks, one JSON line
@@ -131,7 +157,7 @@ def run_fault(name: str, tmp: Path) -> dict:
     what, source, edits = FAULTS[name]
     tree = tmp / name
     shutil.copytree(ROOT / PACKAGE, tree / PACKAGE,
-                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+                    ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy2(ROOT / "chip_smoke.py", tree / "chip_smoke.py")
     if source is not None:
         path = tree / PACKAGE / source
@@ -156,6 +182,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("plant_faults: needs a CUDA device", file=sys.stderr)
         return 2
+    from mingpt_distributed_tpu_torch.ops import _build
+
+    _build.build_all()  # once here; each copy rebuilds only what it changed
     ok = True
     with tempfile.TemporaryDirectory(prefix="plant_faults_") as tmp:
         for name in FAULTS:

@@ -245,7 +245,7 @@ WRAPPER_REFUSALS = {
 def test_cuda_wrapper_checks_refuse_what_the_kernel_does_not_take(case):
     make, error = WRAPPER_REFUSALS[case]
     with pytest.raises(error):
-        t_flash._check_cuda_inputs(*make())
+        t_flash._check_cuda_inputs(*make(), "flash_fwd")
 
 
 def test_cuda_wrapper_checks_accept_model_shaped_inputs():
@@ -253,4 +253,5 @@ def test_cuda_wrapper_checks_accept_model_shaped_inputs():
     x = torch.zeros((2, 8, 3 * 4 * 16), dtype=torch.bfloat16)
     q, k, v = (x[..., i * 64:(i + 1) * 64].reshape(2, 8, 4, 16).contiguous()
                for i in range(3))
-    t_flash._check_cuda_inputs(q, k[:, :, :2].contiguous(), v[:, :, :2].contiguous())
+    t_flash._check_cuda_inputs(q, k[:, :, :2].contiguous(), v[:, :, :2].contiguous(),
+                               "flash_fwd")

@@ -180,15 +180,17 @@ def test_wrappers_refuse_to_run_inside_a_graph():
     # a kernel wrapper called with grad enabled on inputs that need a
     # gradient would silently drop it: it must go through FlashAttention
     q = _bf16().requires_grad_()
-    with pytest.raises(RuntimeError, match="FlashAttention"):
-        t_flash._check_cuda_inputs(q, _bf16(), _bf16())
+    with pytest.raises(RuntimeError, match="^flash_bwd: .*FlashAttention"):
+        t_flash._check_cuda_inputs(q, _bf16(), _bf16(), "flash_bwd")
     with torch.no_grad():
-        t_flash._check_cuda_inputs(q, _bf16(), _bf16())
+        t_flash._check_cuda_inputs(q, _bf16(), _bf16(), "flash_bwd")
 
 
 @pytest.mark.parametrize("name", ["dq_drops_delta", "dkv_skips_last_q_tile",
                                   "dkv_offset_band_skips_last_q_tile",
                                   "fwd_dead_rows_unwritten",
+                                  "fused_dq_skips_diagonal_cell",
+                                  "nh_fwd_drops_softcap",
                                   "ring_skips_hop_fold"])
 def test_planted_fault_patches_still_apply_to_the_kernel_source(name):
     """tools/plant_faults.py rewrites a kernel (or the ring's) source by
