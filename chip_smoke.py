@@ -23,7 +23,9 @@ Phases:
      K2a/K2b; the ring's forward with lse (flash_lse_fwd: causal flag,
      q_offset, dead rows) and its backward with an lse cotangent
      (flash_lse_bwd: dq and dk/dv); the per-head-grid prototype's
-     natural-base kernels (nh_fwd, nh_bwd_dq, nh_bwd_dkv: K5);
+     natural-base kernels (nh_fwd, nh_bwd_dq, nh_bwd_dkv: K5); the
+     exp-vs-exp2 chain (exp_chain: K6) for each op at reps 1, 2, 5 and 64
+     on a ragged shape and the tool's;
   2. the GPT forward at GPT-2 124M width: flash kernel vs plain attention;
      the GPT gradients through the kernels vs plain attention, fp32, with
      the split backward and with FLASH_FUSED_BWD=1;
@@ -44,8 +46,12 @@ Phases:
   4c. the prototype tool (tools/proto_nh_kernel.py, K5's path) at its shape
      (B=16, T=1024, H=12, hd=64, bf16): its parity and time lines;
   5. times: kernels, plain versions, bounds and library yardsticks; the
-     whole fused backward beside K2a + K2b; peak device memory.
-The last three lines are the card, the kernels line (ten kernels) and the
+     whole fused backward beside K2a + K2b; peak device memory; then the
+     exp-vs-exp2 tool (tools/exp_exp2.py, K6's path) through its main() at
+     its shape (64 x 512 x 512 float32, 64 reps), 64 reps timed against
+     32, and the opcodes of K6's compiled kernels. The SM clock, power and
+     throttle reasons are logged before and after.
+The last three lines are the card, the kernels line (eleven kernels) and the
 ok line. Exits 2 without CUDA, 1 on any failure.
 """
 
@@ -67,14 +73,18 @@ import time
 import torch
 import torch.nn.functional as F
 
-from mingpt_distributed_tpu_torch.training.metrics import H100_SXM
+from mingpt_distributed_tpu_torch.training.metrics import (
+    H100_SXM,
+    roofline_ms,
+    sfu_exp_rate,
+)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # H100 SXM published peaks (the port's table, training/metrics.py): the
-# bound of a kernel is the larger of its bytes over the memory rate and its
-# operations over the peak rate of its input type.
-HBM_BYTES_PER_S = H100_SXM["hbm_bytes_per_s"]
+# bound of a kernel is the largest of its bytes over the memory rate, its
+# products over the peak rate of their input type and its exponentials over
+# the special-function units' rate at the card's max SM clock.
 PEAK_FLOPS = {torch.bfloat16: H100_SXM["bfloat16"],
               torch.float32: H100_SXM["float32"]}
 
@@ -248,8 +258,10 @@ def make_qkv(b, t, h, kv, hd, dtype, seed):
 
 def attention_work(b, t, h, hd, window, dtype, kernel="flash_fwd", kv=None,
                    causal=True):
-    """(bytes, operations) a kernel must move and do, each input read once
-    and each output written once, for every (query, allowed key) pair:
+    """(bytes, product operations, exponentials) a kernel must move and do,
+    each input read once and each output written once; for every (query,
+    allowed key) pair one exponential (the forward's P, which every backward
+    kernel recomputes) and:
       flash_fwd, flash_lse_fwd, nh_fwd:  reads q, k, v; writes out, lse
                                  (fp32); 2 products;
       flash_bwd_dq, flash_lse_bwd_dq, nh_bwd_dq:  reads q, k, v, dO, lse,
@@ -281,14 +293,11 @@ def attention_work(b, t, h, hd, window, dtype, kernel="flash_fwd", kv=None,
         nbytes, products = (3 * q_elems + 4 * kv_elems) * elem + 2 * vec, 5
     else:
         nbytes, products = (2 * q_elems + 4 * kv_elems) * elem + 2 * vec, 4
-    return nbytes, 2 * products * b * h * hd * pairs
+    return nbytes, 2 * products * b * h * hd * pairs, b * h * pairs
 
 
-def bound_ms(nbytes, flops, dtype):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else
-                                       "operations")
+def bound_ms(nbytes, flops, dtype, exps):
+    return roofline_ms(nbytes, [(flops, PEAK_FLOPS[dtype]), (exps, sfu_exp_rate()[0])])
 
 
 def kernel_errors(fa, q, k, v, *, scale, window, softcap):
@@ -627,6 +636,69 @@ def phase_nh_kernels(nh):
     return results
 
 
+# K6 cases: name, shape, op, reps for each op and reps. "tool" is the tool's
+# shape; "ragged" is no multiple of 4 or of a block, so the kernel's scalar
+# tail runs. The chain y <- op(-|y| - 0.01) contracts to one fixed point
+# (0.5635 for exp): by 32 reps every output is within 1.2e-7 of it
+# whatever the input, so a kernel that ignored its input or skipped reps
+# would pass at 64 reps alone. Reps 1, 2 and 5 are where it shows.
+EXP_SHAPES = (("ragged", (3, 100, 77)), ("tool", (64, 512, 512)))
+EXP_REPS = (1, 2, 5, 64)
+EXP_OPS = ("exp", "exp2", "exp2*log2e")
+EXP_CASES = [(name, shape, op, reps) for name, shape in EXP_SHAPES
+             for reps in EXP_REPS for op in EXP_OPS]
+# Kernel vs plain version, max |out difference|: both evaluate the same
+# float32 steps, the kernel with the CUDA math library's expf/exp2f and the
+# plain version with PyTorch's, each within a few ulps (2^-24 relative) of
+# outputs in (0, 1]; each step's slope is below 1 in magnitude, so earlier
+# steps' differences shrink: 1e-6.
+EXP_TOL = 1e-6
+# At reps = 1 the outputs exp(-|x| - 0.01) of standard-normal x spread over
+# most of (0, 1): a spread above 0.5 shows that the input was read.
+EXP_SPREAD_MIN = 0.5
+
+
+def exp_case(ex, i, case):
+    """K6 (exp_chain) against exp_chain_plain on case ``i`` of EXP_CASES:
+    the record and the (what, message) of every check it fails."""
+    name, shape, op, reps = case
+    g = torch.Generator(device="cuda").manual_seed(1200 + i)
+    x = torch.randn(shape, generator=g, device="cuda")
+    out = ex.exp_chain(x, op, reps)
+    torch.cuda.synchronize()
+    ref = ex.exp_chain_plain(x, op, reps)
+    check(out.shape == x.shape and out.dtype == torch.float32,
+          f"exp_chain {name}: out {tuple(out.shape)} {out.dtype}")
+    rec = {"phase": "kernel_check", "kernel": "exp_chain",
+           "case": f"{name}_{op}_reps{reps}", "dtype": "float32", "shape": list(shape),
+           "op": op, "reps": reps, "max_abs_err": (out - ref).abs().max().item(),
+           "spread": (out.max() - out.min()).item(), "tol": EXP_TOL}
+    fails = []
+    if not bool(torch.isfinite(out).all()):
+        fails.append(("exp", f"exp_chain {rec['case']}: non-finite out"))
+    if not rec["max_abs_err"] <= EXP_TOL:
+        fails.append(("exp", f"exp_chain {rec['case']}: max |out diff| "
+                             f"{rec['max_abs_err']} > {EXP_TOL}"))
+    if reps == 1:
+        rec["spread_min"] = EXP_SPREAD_MIN
+        if not rec["spread"] > EXP_SPREAD_MIN:
+            fails.append(("exp", f"exp_chain {rec['case']}: output spread "
+                                 f"{rec['spread']} <= {EXP_SPREAD_MIN}"))
+    return rec, fails
+
+
+def phase_exp_kernels(ex):
+    """K6 against its plain version on EXP_CASES; returns the records by
+    (shape name, op, reps)."""
+    results = {}
+    for i, case in enumerate(EXP_CASES):
+        rec, fails = exp_case(ex, i, case)
+        emit(rec)
+        check(not fails, "; ".join(msg for _, msg in fails))
+        results[(case[0], case[2], case[3])] = rec
+    return results
+
+
 # ---------------------------------------------------------------------------
 # phase 2/3: the model at GPT-2 124M width
 # ---------------------------------------------------------------------------
@@ -890,6 +962,7 @@ def phase_grads(params32, card):
 # every kernel's launch counter: (module, wrapper, attribute)
 FA = "mingpt_distributed_tpu_torch.ops.flash_attention"
 NH = "mingpt_distributed_tpu_torch.tools.proto_nh_kernel"
+EX = "mingpt_distributed_tpu_torch.tools.exp_exp2"
 COUNTERS = {"flash_fwd": (FA, "flash_fwd", "launches"),
             "flash_bwd_dq": (FA, "flash_bwd", "dq_launches"),
             "flash_bwd_dkv": (FA, "flash_bwd", "dkv_launches"),
@@ -899,7 +972,8 @@ COUNTERS = {"flash_fwd": (FA, "flash_fwd", "launches"),
             "flash_lse_bwd_dkv": (FA, "flash_lse_bwd", "dkv_launches"),
             "nh_fwd": (NH, "nh_fwd", "launches"),
             "nh_bwd_dq": (NH, "nh_bwd_dq", "launches"),
-            "nh_bwd_dkv": (NH, "nh_bwd_dkv", "launches")}
+            "nh_bwd_dkv": (NH, "nh_bwd_dkv", "launches"),
+            "exp_chain": (EX, "exp_chain", "launches")}
 
 
 def _counter(name):
@@ -1416,14 +1490,15 @@ def emit_times(entries, shape, dtype, shape_of, card, causal=True):
     b, t, h, kv, hd = shape
     rows = {}
     for name, ms, plain, plain_is, lib, lib_is in entries:
-        nbytes, flops = attention_work(b, t, h, hd, None, dtype, kernel=name,
-                                       kv=kv, causal=causal)
-        bms, by = bound_ms(nbytes, flops, dtype)
+        nbytes, flops, exps = attention_work(b, t, h, hd, None, dtype, kernel=name,
+                                             kv=kv, causal=causal)
+        bms, by = bound_ms(nbytes, flops, dtype, exps)
         rows[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
                       "library_ms": lib}
         emit({"phase": "time", "kernel": name, "shape_of": shape_of,
               "dtype": str(dtype).replace("torch.", ""), "shape": list(shape),
-              "causal": causal, "bytes": nbytes, "flops": flops, **rows[name],
+              "causal": causal, "bytes": nbytes, "flops": flops, "exps": exps,
+              **rows[name],
               "achieved_tflops": flops / (ms * 1e-3) / 1e12, "plain_is": plain_is,
               "library_is": lib_is, "card": card})
     return rows
@@ -1442,8 +1517,8 @@ def phase_times(fa, card):
         q, k, v = make_qkv(b, t, h, h, hd, dtype, seed=100)  # gpt2_main's
         with preserved_counts():
             ms = cuda_ms(lambda: fa.flash_fwd(q, k, v, scale=scale))
-        nbytes, flops = attention_work(b, t, h, hd, None, dtype)
-        bms, by = bound_ms(nbytes, flops, dtype)
+        nbytes, flops, exps = attention_work(b, t, h, hd, None, dtype)
+        bms, by = bound_ms(nbytes, flops, dtype, exps)
         emit({"phase": "time", "kernel": "flash_fwd", "shape_of": "generation",
               "dtype": str(dtype).replace("torch.", ""), "shape": [b, t, h, h, hd],
               "ms": ms, "bound_ms": bms, "bound_by": by,
@@ -1610,6 +1685,98 @@ def phase_proto(nh, card):
     return counts
 
 
+# The tool's times must show its reps: 64 reps against 32 at least this
+# ratio (the SFU's time doubles; the bytes, ~0.04 of ~0.26 ms, do not).
+EXP_REPS_RATIO_MIN = 1.5
+
+
+def phase_exp_tool(ex, card):
+    """The exp-vs-exp2 tool's path (K6's): its main() at its shape, stdout
+    captured and echoed as exp_exp2 lines; then, beside the path, every op
+    at 64 reps against 32 and the plain chain's time. Returns the launch
+    counts of main() and the kernels line's row (the exp2 op's times: the
+    flash kernels' exponential)."""
+    buf = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = ex.main([])
+    seconds = time.perf_counter() - t0
+    counts = read_counts()
+    recs = [json.loads(line) for line in buf.getvalue().splitlines()]
+    want = expected(exp_chain=len(ex.OPS) * (ex.WARMUP + ex.ITERS))
+    for rec in recs:
+        emit({"phase": "exp_exp2", **rec, "card": card})
+    emit({"phase": "exp_exp2", "launches": counts, "launches_want": want,
+          "seconds": seconds})
+    check(rc == 0, f"exp_exp2 tool exited {rc}")
+    check(counts == want, f"exp_exp2 tool: launches {counts}, want {want}")
+    by_op = {r["op"]: r for r in recs if "op" in r}
+    check(list(by_op) == list(ex.OPS) and all(r["ms"] > 0 for r in by_op.values()),
+          f"exp_exp2 tool records: {recs}")
+    check(recs[-1].get("what") == "exp2 vs exp speedup" and recs[-1]["ratio"] > 0,
+          f"exp_exp2 tool: no ratio line: {recs[-1]}")
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn((64, ex.BLOCK, ex.BLOCK), generator=g, device="cuda")
+    with preserved_counts():
+        for op in ex.OPS:
+            ms_half = cuda_ms(lambda: ex.exp_chain(x, op, ex.REPS // 2))
+            ms_full = cuda_ms(lambda: ex.exp_chain(x, op, ex.REPS))
+            ratio = ms_full / ms_half
+            emit({"phase": "exp_exp2", "op": op, "what": "reps ratio",
+                  f"ms_reps{ex.REPS // 2}": ms_half, f"ms_reps{ex.REPS}": ms_full,
+                  "ratio": ratio, "ratio_min": EXP_REPS_RATIO_MIN, "card": card})
+            check(ratio >= EXP_REPS_RATIO_MIN,
+                  f"exp_chain {op}: {ex.REPS} reps / {ex.REPS // 2} reps = {ratio}")
+    plain = cuda_ms(lambda: ex.exp_chain_plain(x, "exp2"), iters=3)
+    r = by_op["exp2"]
+    return counts, {"ms": r["ms"], "plain_ms": plain, "bound_ms": r["bound_ms"],
+                    "bound_by": r["bound_by"], "library_ms": None, "op": "exp2",
+                    "clock_mhz": r["clock_mhz"]}
+
+
+def exp_sass(card):
+    """Each K6 kernel's SASS opcodes (cuobjdump -sass of the built library),
+    counted: MUFU.EX2 against the FP32 and other instructions around it."""
+    from mingpt_distributed_tpu_torch.ops import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path("exp_exp2"))],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            kernel = m.group(1)
+            counts[kernel] = {}
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if m and kernel:
+            counts[kernel][m.group(1)] = counts[kernel].get(m.group(1), 0) + 1
+    ops = {"ILi0E": "exp", "ILi1E": "exp2", "ILi2E": "exp2*log2e"}
+    for kernel, c in counts.items():
+        op = next((v for k, v in ops.items() if k in kernel), None)
+        emit({"phase": "exp_sass", "kernel": kernel, "op": op, "mufu_ex2": c.get("MUFU.EX2", 0),
+              "opcodes": dict(sorted(c.items())), "card": card})
+    check(len(counts) == 3 and all(c.get("MUFU.EX2", 0) > 0 for c in counts.values()),
+          f"exp_exp2 SASS: {len(counts)} kernels, {counts}")
+
+
+# nvidia-smi fields logged around the time phases: K6's bound assumes the max
+# SM clock, and a time read at a lower clock is slower by their ratio
+CLOCK_FIELDS = ("clocks.sm,clocks.max.sm,power.draw,power.limit,temperature.gpu,"
+                "clocks_throttle_reasons.active")
+
+
+def emit_clocks(when):
+    out = subprocess.run(["nvidia-smi", f"--query-gpu={CLOCK_FIELDS}",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60)
+    emit({"phase": "clocks", "when": when, "fields": CLOCK_FIELDS,
+          "values": out.stdout.strip()})
+
+
 @contextlib.contextmanager
 def preserved_counts():
     """Launches made to time or compare a kernel are not the main path's."""
@@ -1629,6 +1796,7 @@ def main() -> int:
     from mingpt_distributed_tpu_torch.models.api import GPT
     from mingpt_distributed_tpu_torch.ops import _build
     from mingpt_distributed_tpu_torch.ops import flash_attention as fa
+    from mingpt_distributed_tpu_torch.tools import exp_exp2 as ex
     from mingpt_distributed_tpu_torch.tools import proto_nh_kernel as nh
 
     card = card_line()
@@ -1651,6 +1819,7 @@ def main() -> int:
     fused_errors = phase_bwd_kernels(fa, fused_case)
     lse_errors = phase_lse_kernels(fa)
     nh_errors = phase_nh_kernels(nh)
+    exp_errors = phase_exp_kernels(ex)
     emit({"phase": "kernels_checked", "kernels": [
         {"name": n, "launches": c} for n, c in read_counts().items()]})
     reset_counts()
@@ -1668,13 +1837,17 @@ def main() -> int:
     phase_train_entry(card)
     sp_counts = phase_sp(card)
     proto_counts = phase_proto(nh, card)
+    emit_clocks("before times")
     rows = phase_times(fa, card)
     rows.update(phase_lse_times(fa, card))
     rows.update(phase_nh_times(nh, card))
+    exp_counts, rows["exp_chain"] = phase_exp_tool(ex, card)
+    emit_clocks("after times")
+    exp_sass(card)
 
     # max_abs_err at each path's shape, bf16: the training step's (K1, K2a,
-    # K2b, K2c), the sp path's zigzag hop (K3, K4a, K4b) and the tool's (K5);
-    # launches from each kernel's path
+    # K2b, K2c), the sp path's zigzag hop (K3, K4a, K4b) and the tools' (K5;
+    # K6 float32, every op at 64 reps); launches from each kernel's path
     bf16 = torch.bfloat16
     errs = bwd_errors[("gpt2_train", bf16)]
     ferrs = fused_errors[("gpt2_train", bf16)]
@@ -1683,33 +1856,38 @@ def main() -> int:
     jax_fa = "mingpt_distributed_tpu/ops/flash_attention.py"
     proto = "tools/proto_nh_kernel.py"
     csrc = "mingpt_distributed_tpu_torch/ops/csrc"
+    fwd_cu, bwd_cu = f"{csrc}/flash_fwd.cu", f"{csrc}/flash_bwd.cu"
     line = []
-    for name, replaces, err, launches in (
-            ("flash_fwd", f"{jax_fa}:677", fwd_errors[("gpt2_train", bf16)],
+    for name, source, replaces, err, launches in (
+            ("flash_fwd", fwd_cu, f"{jax_fa}:677", fwd_errors[("gpt2_train", bf16)],
              split["launches"]),
-            ("flash_bwd_dq", f"{jax_fa}:750", errs["dq_max_abs_err"], split["launches"]),
-            ("flash_bwd_dkv", f"{jax_fa}:818",
+            ("flash_bwd_dq", bwd_cu, f"{jax_fa}:750", errs["dq_max_abs_err"],
+             split["launches"]),
+            ("flash_bwd_dkv", bwd_cu, f"{jax_fa}:818",
              max(errs["dk_max_abs_err"], errs["dv_max_abs_err"]), split["launches"]),
-            ("flash_bwd_fused", f"{jax_fa}:896",
+            ("flash_bwd_fused", bwd_cu, f"{jax_fa}:896",
              max(ferrs[f"{g}_max_abs_err"] for g in ("dq", "dk", "dv")),
              fused["launches"]),
-            ("flash_lse_fwd", f"{jax_fa}:193", hop["max_abs_err"], sp_counts),
-            ("flash_lse_bwd_dq", f"{jax_fa}:346", hop["dq_max_abs_err"], sp_counts),
-            ("flash_lse_bwd_dkv", f"{jax_fa}:412",
+            ("flash_lse_fwd", fwd_cu, f"{jax_fa}:193", hop["max_abs_err"], sp_counts),
+            ("flash_lse_bwd_dq", bwd_cu, f"{jax_fa}:346", hop["dq_max_abs_err"],
+             sp_counts),
+            ("flash_lse_bwd_dkv", bwd_cu, f"{jax_fa}:412",
              max(hop["dk_max_abs_err"], hop["dv_max_abs_err"]), sp_counts),
-            ("nh_fwd", f"{proto}:33", nerrs["max_abs_err"], proto_counts),
-            ("nh_bwd_dq", f"{proto}:210", nerrs["dq_max_abs_err"], proto_counts),
-            ("nh_bwd_dkv", f"{proto}:259",
-             max(nerrs["dk_max_abs_err"], nerrs["dv_max_abs_err"]), proto_counts)):
-        source = "flash_fwd.cu" if name.endswith("fwd") else "flash_bwd.cu"
-        line.append({"name": name, "route": "cuda", "source": f"{csrc}/{source}",
+            ("nh_fwd", fwd_cu, f"{proto}:33", nerrs["max_abs_err"], proto_counts),
+            ("nh_bwd_dq", bwd_cu, f"{proto}:210", nerrs["dq_max_abs_err"], proto_counts),
+            ("nh_bwd_dkv", bwd_cu, f"{proto}:259",
+             max(nerrs["dk_max_abs_err"], nerrs["dv_max_abs_err"]), proto_counts),
+            ("exp_chain", f"{csrc}/exp_exp2.cu", "tools/exp_exp2.py:31",
+             max(exp_errors[("tool", op, 64)]["max_abs_err"] for op in EXP_OPS),
+             exp_counts)):
+        line.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err, **rows[name]})
     check(all(k["launches"] > 0 for k in line),
           f"a kernel never ran on its path: {[k['name'] for k in line]}")
     emit({"phase": "launches_by_path", "train_step": split["launches"],
           "train_step_fused": fused["launches"], "sp_train_step_rank0": sp_counts,
-          "proto_nh_kernel": proto_counts,
+          "proto_nh_kernel": proto_counts, "exp_exp2": exp_counts,
           "generate_sliding_bf16": {"flash_fwd": generate_launches}})
     print(card_line(), flush=True)
     emit({"kernels": line})

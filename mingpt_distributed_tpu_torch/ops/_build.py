@@ -25,7 +25,7 @@ from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES: Tuple[str, ...] = ("flash_fwd", "flash_bwd")
+SOURCES: Tuple[str, ...] = ("flash_fwd", "flash_bwd", "exp_exp2")
 NVCC_FLAGS: Tuple[str, ...] = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

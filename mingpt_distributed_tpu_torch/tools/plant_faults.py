@@ -9,8 +9,9 @@ come along and are reused where their source is unchanged: they are keyed
 by a hash of it). A kernel fault (a source under ``ops/csrc``) runs
 phase 1's kernel checks: ``bwd_case`` (K2a, K2b) and ``fused_case`` (K2c)
 on every case of ``KERNEL_CASES`` and ``lse_case`` (K3, K4a, K4b) on every
-case of ``LSE_CASES``, each in bfloat16 and float32, and ``nh_case`` (K5)
-on every case of ``NH_CASES``. A ring fault (a Python source)
+case of ``LSE_CASES``, each in bfloat16 and float32, ``nh_case`` (K5)
+on every case of ``NH_CASES`` and ``exp_case`` (K6) on every case of
+``EXP_CASES``. A ring fault (a Python source)
 runs the sp phase's ranks and ``sp_checks``, and must fail the main path's
 model-level group ("main") on its own: the step's loss, grad norm and
 every parameter's gradient against the dense single-process step. The
@@ -70,6 +71,13 @@ FAULTS = {
         [("    return p.softcap > 0.f ? p.softcap * tanhf(s * (p.scale / p.softcap))\n"
           "                           : s * p.scale;",
           "    return s * p.scale;", 1)]),
+    # the exp-vs-exp2 chain runs one rep fewer than asked: at the tool's 64
+    # reps every element has reached the chain's fixed point, so only the
+    # checks at small reps can see it
+    "exp_chain_one_rep_short": (
+        "K6 runs reps - 1 steps", "ops/csrc/exp_exp2.cu",
+        [("  for (int r = 0; r < reps; ++r) {", "  for (int r = 1; r < reps; ++r) {",
+          1)]),
     # the zigzag ring drops the first hop's block from every late half
     "ring_skips_hop_fold": (
         "the zigzag ring skips one hop's fold", "parallel/ring_attention.py",
@@ -77,19 +85,20 @@ FAULTS = {
           "        late = late if t == 1 else _fold(late, o_b, lse_b)\n", 1)]),
 }
 
-# run inside the copy: every K2a/K2b, K2c, K3/K4 and K5 case, one JSON line
-# each
+# run inside the copy: every K2a/K2b, K2c, K3/K4, K5 and K6 case, one JSON
+# line each
 KERNEL_CHECK = """
 import json, sys, torch
 import chip_smoke
 from mingpt_distributed_tpu_torch.ops import flash_attention as fa
+from mingpt_distributed_tpu_torch.tools import exp_exp2 as ex
 from mingpt_distributed_tpu_torch.tools import proto_nh_kernel as nh
 assert fa.__file__.startswith(sys.argv[1]), fa.__file__
 
 
 def report(rec, fails):
     print(json.dumps({"kernel": rec["kernel"], "case": rec["case"],
-                      "dtype": rec["dtype"],
+                      "dtype": rec["dtype"], "reps": rec.get("reps"),
                       "failed": sorted({g for g, _ in fails})}), flush=True)
 
 
@@ -101,6 +110,8 @@ for check, cases in ((chip_smoke.bwd_case, chip_smoke.KERNEL_CASES),
             report(*check(fa, i, case, dtype))
 for i, case in enumerate(chip_smoke.NH_CASES):
     report(*chip_smoke.nh_case(nh, i, case))
+for i, case in enumerate(chip_smoke.EXP_CASES):
+    report(*chip_smoke.exp_case(ex, i, case))
 """
 
 # run inside the copy: the sp phase's ranks and checks, one JSON line
@@ -146,9 +157,12 @@ def _run(name: str, script: str, tree: Path) -> list:
 
 def _kernel_record(cases: list) -> dict:
     failed = [c for c in cases if c["failed"]]
+    exp = [c for c in cases if c["kernel"] == "exp_chain"]
     return {"cases": len(cases), "cases_failed": len(failed),
             "failed_by_check": {g: sum(g in c["failed"] for c in cases)
-                                for g in ("fwd", "dq", "dk", "dv")},
+                                for g in ("fwd", "dq", "dk", "dv", "exp")},
+            "exp_failed_by_reps": {r: sum(bool(c["failed"]) for c in exp if c["reps"] == r)
+                                   for r in sorted({c["reps"] for c in exp})},
             "failed_cases": [f"{c['kernel']} {c['case']} {c['dtype']}: {c['failed']}"
                              for c in failed]}
 

@@ -1,5 +1,5 @@
-"""Training metrics: the FLOP model, the card's peak table, and the step
-line (stdout, optionally a JSONL file).
+"""Training metrics: the FLOP model, the card's peak table and bounds, and
+the step line (stdout, optionally a JSONL file).
 
 Counterpart of ``mingpt_distributed_tpu/training/metrics.py``. The step
 line carries step, loss, lr, grad_norm, update_norm, tokens/s and MFU;
@@ -9,9 +9,11 @@ tokens/s and MFU are taken over the window since the previous logged step
 
 from __future__ import annotations
 
+import functools
 import json
+import subprocess
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Iterable, Optional, Tuple
 
 from mingpt_distributed_tpu_torch.config import GPTConfig
 
@@ -22,6 +24,39 @@ PEAKS: Dict[str, Dict[str, float]] = {
     "H100": {"bfloat16": 989e12, "float32": 67e12, "hbm_bytes_per_s": 3.35e12},
 }
 H100_SXM = PEAKS["H100"]
+# Exponentials per clock per SM: the special-function unit's MUFU.EX2 on
+# compute capability 9.0 (CUDA C++ programming guide, throughput of
+# arithmetic instructions), where the FMA pipes give 128 results. Every
+# exponential (expf, exp2f, __expf) issues one.
+SFU_EXPS_PER_CLOCK_PER_SM = 16
+
+
+@functools.cache
+def sfu_exp_rate(index: int = 0) -> Tuple[float, float]:
+    """(exponentials per second, max SM clock in MHz) of CUDA card
+    ``index``: SMs x SFU_EXPS_PER_CLOCK_PER_SM x the clock that nvidia-smi
+    reports as ``clocks.max.sm``."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    out = subprocess.run(
+        ["nvidia-smi", "-i", str(index), "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60)
+    mhz = float(out.stdout.split()[0])
+    return sms * SFU_EXPS_PER_CLOCK_PER_SM * mhz * 1e6, mhz
+
+
+def roofline_ms(nbytes: float,
+                work: Iterable[Tuple[float, float]] = ()) -> Tuple[float, str]:
+    """The least time in ms the card could take for a function that moves
+    ``nbytes`` through device memory and does, for each (count, rate) of
+    ``work``, ``count`` operations at ``rate`` per second (products at the
+    peak of their type, exponentials at ``sfu_exp_rate``): the largest of
+    those times, and what bounds it ("bytes" or "operations")."""
+    t_bytes = nbytes / H100_SXM["hbm_bytes_per_s"]
+    t_ops = max((count / rate for count, rate in work if count), default=0.0)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def peak_flops(device_name: str, dtype: str) -> Optional[float]:

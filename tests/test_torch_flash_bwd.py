@@ -191,6 +191,7 @@ def test_wrappers_refuse_to_run_inside_a_graph():
                                   "fwd_dead_rows_unwritten",
                                   "fused_dq_skips_diagonal_cell",
                                   "nh_fwd_drops_softcap",
+                                  "exp_chain_one_rep_short",
                                   "ring_skips_hop_fold"])
 def test_planted_fault_patches_still_apply_to_the_kernel_source(name):
     """tools/plant_faults.py rewrites a kernel (or the ring's) source by
