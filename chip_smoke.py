@@ -14,10 +14,16 @@ never printed.
 
 Phases:
   0. setup: the card's name and power limit, TF32 off, the kernel builds;
+     ptxas's registers and spills per forward kernel (fwd_ptxas) and the
+     forward library's SASS (fwd_sass: every bf16 instantiation issues
+     HGMMA and UTMALDG, none HMMA);
   1. every kernel against its plain version at the main paths' shapes
      (generation at batch 4, the train step at batch 16, the sp path's
      zigzag hop, the prototype tool's shape) and the edge cases (GQA, a
-     window narrower than a tile, softcap, ragged T): the forward
+     window narrower than a tile, softcap, ragged T), and the bf16
+     forward's ring of K/V tiles at every head width (FWD_RING_CASES,
+     LSE_RING_CASES and NH_CASES: T = 1, 63, 65, ... 4096, strided q/k/v
+     views of one qkv projection, GQA 12/4, offset bands): the forward
      (flash_fwd) and the backward (flash_bwd: dq and dk/dv); the fused
      backward (flash_bwd_fused, K2c) against the plain version and against
      K2a/K2b; the ring's forward with lse (flash_lse_fwd: causal flag,
@@ -45,8 +51,9 @@ Phases:
      2 x sp = 2 Ulysses step at 2 layers;
   4c. the prototype tool (tools/proto_nh_kernel.py, K5's path) at its shape
      (B=16, T=1024, H=12, hd=64, bf16): its parity and time lines;
-  5. times: kernels, plain versions, bounds and library yardsticks; the
-     whole fused backward beside K2a + K2b; peak device memory; then the
+  5. times: kernels, plain versions, bounds and library yardsticks (K1 at
+     the generation shape also its wrapper's host microseconds per launch);
+     the whole fused backward beside K2a + K2b; peak device memory; then the
      exp-vs-exp2 tool (tools/exp_exp2.py, K6's path) through its main() at
      its shape (64 x 512 x 512 float32, 64 reps), 64 reps timed against
      32, and the opcodes of K6's compiled kernels. The SM clock, power and
@@ -199,19 +206,43 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+# Device cycles (~10 ms) the card is held busy before a timed run, so the
+# host queues every call first and a kernel shorter than its host-side
+# launch is timed back to back, not at the host's pace
+HOLD_CYCLES = 20_000_000
+
+
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() over ``iters`` back-to-back calls."""
+    """Mean device time of fn() over ``iters`` back-to-back calls, queued
+    behind a HOLD_CYCLES spin."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, calls: int = 20, batches: int = 11) -> float:
+    """Host microseconds per call of fn: the median over ``batches`` of
+    ``calls`` back-to-back calls each (the card runs behind; its queue does
+    not fill), as the host's clock varies from batch to batch."""
+    fn()
+    per_call = []
+    for _ in range(batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per_call.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return sorted(per_call)[batches // 2]
 
 
 @contextlib.contextmanager
@@ -246,10 +277,34 @@ KERNEL_CASES = [
     ("hd32_gqa_window100_softcap30", 2, 300, 8, 4, 32, 100, 30.0),
     ("gpt2_train", 16, 1024, 12, 12, 64, None, None),
 ]
+# The bf16 forward's ring of k/v tiles (two stages of 128 keys) at every
+# head width: one tile and its edges (T = 1, 63, 65), q/k/v as strided
+# views of one qkv projection (T = 1000: 8 tiles), the ring wrapping 16
+# times (T = 4096: 32 tiles), GQA 12/4 over an odd tile count (T = 1100: 9
+# tiles), a window narrower than a tile (T = 640: 5 tiles). Forward only
+# (phase_kernels); the last field is make_qkv's layout.
+FWD_RING_CASES = [
+    case for hd in (16, 32, 64, 128) for case in (
+        (f"t1_hd{hd}", 2, 1, 4, 4, hd, None, None, "dense"),
+        (f"t63_hd{hd}", 2, 63, 4, 4, hd, None, None, "dense"),
+        (f"t65_hd{hd}", 2, 65, 4, 4, hd, None, None, "dense"),
+        (f"t1000_qkv_view_hd{hd}", 2, 1000, 4, 4, hd, None, None, "qkv_view"),
+        (f"t4096_hd{hd}", 1, 4096, 2, 2, hd, None, None, "dense"),
+        (f"gqa12_4_t1100_hd{hd}", 1, 1100, 12, 4, hd, None, None, "dense"),
+        (f"window50_t640_hd{hd}", 2, 640, 4, 4, hd, 50, None, "dense"),
+    )
+]
 
 
-def make_qkv(b, t, h, kv, hd, dtype, seed):
+def make_qkv(b, t, h, kv, hd, dtype, seed, layout="dense"):
+    """q (B, T, H, hd), k and v (B, T, KV, hd) from ``seed``: dense, or with
+    ``layout="qkv_view"`` strided views of one (B, T, 3, H, hd) tensor, as a
+    fused qkv projection gives them (KV == H)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
+    if layout == "qkv_view":
+        assert kv == h, "qkv_view needs KV == H"
+        x = torch.randn((b, t, 3, h, hd), generator=g, device="cuda").to(dtype)
+        return x[:, :, 0], x[:, :, 1], x[:, :, 2]
     q = torch.randn((b, t, h, hd), generator=g, device="cuda")
     k = torch.randn((b, t, kv, hd), generator=g, device="cuda")
     v = torch.randn((b, t, kv, hd), generator=g, device="cuda")
@@ -301,47 +356,66 @@ def bound_ms(nbytes, flops, dtype, exps):
 
 
 def kernel_errors(fa, q, k, v, *, scale, window, softcap):
-    """Run the kernel and its plain version on the same inputs; return the
-    differences of their outputs and lse."""
+    """Run the kernel and its plain version on the same inputs; return
+    whether the kernel's out and lse are finite and the differences of their
+    outputs and lse (or ``bad_shapes``)."""
     out, lse = fa.flash_fwd(q, k, v, scale=scale, window=window,
                             softcap=softcap)
     torch.cuda.synchronize()
     ref, ref_lse = fa.flash_fwd_plain(q, k, v, scale=scale, window=window,
                                       softcap=softcap)
     b, t, h, _ = q.shape
-    check(out.shape == ref.shape and out.dtype == q.dtype,
-          f"out {tuple(out.shape)} {out.dtype}")
-    check(lse.shape == (b, h, t), f"lse {tuple(lse.shape)}")
-    check(bool(torch.isfinite(out.float()).all()), "non-finite out")
+    if out.shape != ref.shape or out.dtype != q.dtype or lse.shape != (b, h, t):
+        return {"bad_shapes": f"out {tuple(out.shape)} {out.dtype}, "
+                              f"lse {tuple(lse.shape)}"}
     diff = (out.float() - ref.float()).abs()
-    return {"max_abs_err": diff.max().item(),
+    return {"finite": bool(torch.isfinite(out.float()).all()
+                           and torch.isfinite(lse).all()),
+            "max_abs_err": diff.max().item(),
             "mean_rel_err": (diff.mean() / ref.float().abs().mean().clamp_min(
                 1e-30)).item(),
             "lse_max_abs_err": (lse - ref_lse).abs().max().item()}
 
 
+def fwd_case(fa, i, case, dtype):
+    """Case ``i`` of KERNEL_CASES + FWD_RING_CASES in ``dtype``: K1
+    (flash_fwd) against flash_fwd_plain on the same inputs. Returns its
+    record and the ("fwd", message) of every check it fails."""
+    name, b, t, h, kv, hd, window, cap, *layout = case
+    layout = layout[0] if layout else "dense"
+    dt = str(dtype).replace("torch.", "")
+    q, k, v = make_qkv(b, t, h, kv, hd, dtype, seed=100 + i, layout=layout)
+    errs = kernel_errors(fa, q, k, v, scale=1.0 / math.sqrt(hd), window=window,
+                         softcap=cap)
+    rec = {"phase": "kernel_check", "kernel": "flash_fwd", "case": name,
+           "dtype": dt, "shape": [b, t, h, kv, hd], "layout": layout,
+           "window": window, "softcap": cap, **errs, "tol": OUT_TOL[dtype],
+           "rel_tol": OUT_REL_TOL[dtype], "lse_tol": LSE_TOL}
+    if "bad_shapes" in errs:
+        return rec, [("fwd", f"{name} {dt}: {errs['bad_shapes']}")]
+    fails = [] if errs["finite"] else [("fwd", f"{name} {dt}: non-finite out or lse")]
+    if not errs["max_abs_err"] <= OUT_TOL[dtype]:
+        fails.append(("fwd", f"{name} {dt}: max |out diff| {errs['max_abs_err']} > "
+                             f"{OUT_TOL[dtype]}"))
+    if not errs["mean_rel_err"] <= OUT_REL_TOL[dtype]:
+        fails.append(("fwd", f"{name} {dt}: mean |out diff| / mean |out| "
+                             f"{errs['mean_rel_err']} > {OUT_REL_TOL[dtype]}"))
+    if not errs["lse_max_abs_err"] <= LSE_TOL:
+        fails.append(("fwd", f"{name} {dt}: max |lse diff| "
+                             f"{errs['lse_max_abs_err']} > {LSE_TOL}"))
+    return rec, fails
+
+
 def phase_kernels(fa):
+    """K1 against its plain version on KERNEL_CASES and FWD_RING_CASES in
+    both dtypes; returns max |out diff| by (case, dtype)."""
     results = {}
-    for i, (name, b, t, h, kv, hd, window, cap) in enumerate(KERNEL_CASES):
+    for i, case in enumerate(KERNEL_CASES + FWD_RING_CASES):
         for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = make_qkv(b, t, h, kv, hd, dtype, seed=100 + i)
-            errs = kernel_errors(fa, q, k, v, scale=1.0 / math.sqrt(hd),
-                                 window=window, softcap=cap)
-            dt = str(dtype).replace("torch.", "")
-            emit({"phase": "kernel_check", "kernel": "flash_fwd", "case": name,
-                  "dtype": dt, "shape": [b, t, h, kv, hd], "window": window,
-                  "softcap": cap, **errs, "tol": OUT_TOL[dtype],
-                  "rel_tol": OUT_REL_TOL[dtype], "lse_tol": LSE_TOL})
-            err = errs["max_abs_err"]
-            check(err <= OUT_TOL[dtype],
-                  f"{name} {dt}: max |out diff| {err} > {OUT_TOL[dtype]}")
-            check(errs["mean_rel_err"] <= OUT_REL_TOL[dtype],
-                  f"{name} {dt}: mean |out diff| / mean |out| "
-                  f"{errs['mean_rel_err']} > {OUT_REL_TOL[dtype]}")
-            check(errs["lse_max_abs_err"] <= LSE_TOL,
-                  f"{name} {dt}: max |lse diff| {errs['lse_max_abs_err']} > "
-                  f"{LSE_TOL}")
-            results[(name, dtype)] = err
+            rec, fails = fwd_case(fa, i, case, dtype)
+            emit(rec)
+            check(not fails, "; ".join(msg for _, msg in fails))
+            results[(case[0], dtype)] = rec["max_abs_err"]
     return results
 
 
@@ -465,6 +539,25 @@ LSE_CASES = [
     ("t1_non_causal", 2, 1, 12, 12, 64, False, None, None, 0),
     ("t100_non_causal", 2, 100, 12, 12, 64, False, None, None, 0),
 ]
+# K3 through the bf16 forward's ring at every head width: the causal band
+# wrapping the ring 16 times (T = 4096), an offset band with a window
+# (T = 1000, query rows at key positions 300..1299: both band edges cross
+# tiles, the last rows dead), q/k/v as strided views of one qkv projection
+# over an odd tile count (non-causal, T = 640: 5 tiles), GQA 12/4 at one
+# tile's edge (T = 65). The last field is make_qkv's layout. (lse_case's
+# backward check needs the lse cotangent to move dk by 5x its tolerance:
+# over 1100 or 4096 keys, non-causal, p ~ 1/T dilutes it below that at hd
+# 64 and 128, so the long cases are causal.)
+LSE_RING_CASES = [
+    case for hd in (16, 32, 64, 128) for case in (
+        (f"t4096_causal_hd{hd}", 1, 4096, 2, 2, hd, True, None, None, 0, "dense"),
+        (f"offset300_window200_t1000_hd{hd}", 1, 1000, 4, 4, hd, True, 200, None,
+         300, "dense"),
+        (f"qkv_view_t640_non_causal_hd{hd}", 1, 640, 4, 4, hd, False, None,
+         None, 0, "qkv_view"),
+        (f"gqa12_4_t65_hd{hd}", 2, 65, 12, 4, hd, True, None, None, 0, "dense"),
+    )
+]
 # A dead row (no key inside its offset band) must come out finite with
 # lse <= DEAD_LSE and out exactly 0; its dq exactly 0.
 DEAD_LSE = -1e29
@@ -480,9 +573,10 @@ def lse_case(fa, i, case, dtype):
     random lse cotangent: the record and the (what, message) of every check
     it fails. Errors are taken over live rows; dead rows are held to the
     dead-row contract."""
-    name, b, t, h, kv, hd, causal, window, cap, q_offset = case
+    name, b, t, h, kv, hd, causal, window, cap, q_offset, *layout = case
+    layout = layout[0] if layout else "dense"
     dt = str(dtype).replace("torch.", "")
-    q, k, v = make_qkv(b, t, h, kv, hd, dtype, seed=600 + i)
+    q, k, v = make_qkv(b, t, h, kv, hd, dtype, seed=600 + i, layout=layout)
     g = torch.Generator(device="cuda").manual_seed(700 + i)
     do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
     dlse = torch.randn((b, h, t), generator=g, device="cuda")
@@ -497,7 +591,7 @@ def lse_case(fa, i, case, dtype):
     diff = (out.float() - ref.float())[:, live].abs()
     rec = {"phase": "kernel_check", "kernel": "flash_lse_fwd+flash_lse_bwd",
            "case": name, "dtype": dt, "shape": [b, t, h, kv, hd],
-           "causal": causal, "window": window, "softcap": cap,
+           "layout": layout, "causal": causal, "window": window, "softcap": cap,
            "q_offset": q_offset, "live_rows": int(live.sum().item()),
            "max_abs_err": diff.max().item(),
            "mean_rel_err": (diff.mean() / ref.float()[:, live].abs().mean()
@@ -565,7 +659,7 @@ def phase_lse_kernels(fa):
     """K3, K4a and K4b against their plain versions; returns the records
     by (case, dtype)."""
     results = {}
-    for i, case in enumerate(LSE_CASES):
+    for i, case in enumerate(LSE_CASES + LSE_RING_CASES):
         for dtype in (torch.bfloat16, torch.float32):
             rec, fails = lse_case(fa, i, case, dtype)
             emit(rec)
@@ -581,6 +675,12 @@ NH_CASES = [
     ("ragged_t300_hd32", 2, 300, 4, 32, None, None, torch.float32),
     ("window40_softcap5", 2, 300, 4, 32, 40, 5.0, torch.float32),
     ("window40_softcap5", 2, 300, 4, 32, 40, 5.0, torch.bfloat16),
+    # the bf16 forward's ring of 128-key tiles at every head width
+    ("t1_hd64", 2, 1, 4, 64, None, None, torch.bfloat16),
+    ("t65_hd16", 2, 65, 4, 16, None, None, torch.bfloat16),
+    ("t63_hd32", 2, 63, 4, 32, None, None, torch.bfloat16),
+    ("t4096_hd64", 1, 4096, 2, 64, None, None, torch.bfloat16),
+    ("t1100_window50_hd128", 1, 1100, 2, 128, 50, None, torch.bfloat16),
 ]
 
 
@@ -1095,12 +1195,12 @@ def phase_train_entry(card):
               "loss_last": losses[ENTRY_STEPS], "loss_drop": drop,
               "loss_drop_min": ENTRY_LOSS_DROP,
               "eval_loss": float(evals[-1]) if evals else None,
-              "snapshot_written": os.path.exists(snap),
+              "snapshot_committed": os.path.exists(snap + ".manifest.json"),
               "resume_rc": rc2, "resumed_at_saved_step": resumed in out2,
               "resumed_steps": [int(v) for v in losses2], "card": card})
         check(drop >= ENTRY_LOSS_DROP, f"loss fell by {drop} < {ENTRY_LOSS_DROP}")
         check(len(evals) == 1 and math.isfinite(float(evals[0])), "no eval loss")
-        check(os.path.exists(snap), "no snapshot written")
+        check(os.path.exists(snap + ".manifest.json"), "no snapshot committed")
         check(counts["flash_bwd_dq"] == 12 * ENTRY_STEPS,
               f"train entry: {counts} launches")
         check(rc2 == 0 and resumed in out2, "second call did not resume")
@@ -1517,11 +1617,12 @@ def phase_times(fa, card):
         q, k, v = make_qkv(b, t, h, h, hd, dtype, seed=100)  # gpt2_main's
         with preserved_counts():
             ms = cuda_ms(lambda: fa.flash_fwd(q, k, v, scale=scale))
+            us = host_us(lambda: fa.flash_fwd(q, k, v, scale=scale))
         nbytes, flops, exps = attention_work(b, t, h, hd, None, dtype)
         bms, by = bound_ms(nbytes, flops, dtype, exps)
         emit({"phase": "time", "kernel": "flash_fwd", "shape_of": "generation",
               "dtype": str(dtype).replace("torch.", ""), "shape": [b, t, h, h, hd],
-              "ms": ms, "bound_ms": bms, "bound_by": by,
+              "ms": ms, "host_us_per_launch": us, "bound_ms": bms, "bound_by": by,
               "achieved_tflops": flops / (ms * 1e-3) / 1e12, "card": card})
     # the training shape: batch 16
     b = 16
@@ -1736,13 +1837,13 @@ def phase_exp_tool(ex, card):
                     "clock_mhz": r["clock_mhz"]}
 
 
-def exp_sass(card):
-    """Each K6 kernel's SASS opcodes (cuobjdump -sass of the built library),
-    counted: MUFU.EX2 against the FP32 and other instructions around it."""
+def sass_opcodes(name):
+    """Opcode counts per kernel of the built library ``name``
+    (cuobjdump -sass)."""
     from mingpt_distributed_tpu_torch.ops import _build
 
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path("exp_exp2"))],
+    sass = subprocess.run([cuobjdump, "-sass", str(_build.library_path(name))],
                           capture_output=True, text=True, check=True, timeout=120).stdout
     counts, kernel = {}, None
     for line in sass.splitlines():
@@ -1754,6 +1855,13 @@ def exp_sass(card):
         m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
         if m and kernel:
             counts[kernel][m.group(1)] = counts[kernel].get(m.group(1), 0) + 1
+    return counts
+
+
+def exp_sass(card):
+    """Each K6 kernel's SASS opcodes, counted: MUFU.EX2 against the FP32
+    and other instructions around it."""
+    counts = sass_opcodes("exp_exp2")
     ops = {"ILi0E": "exp", "ILi1E": "exp2", "ILi2E": "exp2*log2e"}
     for kernel, c in counts.items():
         op = next((v for k, v in ops.items() if k in kernel), None)
@@ -1761,6 +1869,64 @@ def exp_sass(card):
               "opcodes": dict(sorted(c.items())), "card": card})
     check(len(counts) == 3 and all(c.get("MUFU.EX2", 0) > 0 for c in counts.values()),
           f"exp_exp2 SASS: {len(counts)} kernels, {counts}")
+
+
+# The bf16 forward's instantiations: 4 head widths x (K1, K3, K5 fwd)
+FWD_BF16_KERNELS = 12
+
+
+def fwd_sass(card):
+    """The flash_fwd library's kernels, counted by their SASS: every bf16
+    instantiation must issue warpgroup products (HGMMA) and TMA tile loads
+    (UTMALDG) and no mma.sync (HMMA); the fp32 kernels issue neither."""
+    counts = sass_opcodes("flash_fwd")
+
+    def total(c, prefix):
+        return sum(n for op, n in c.items() if op.startswith(prefix))
+
+    bf16 = {}
+    for kernel, c in counts.items():
+        rec = {"phase": "fwd_sass", "kernel": kernel,
+               "bf16": "flash_fwd_bf16_kernel" in kernel,
+               "hgmma": total(c, "HGMMA"), "utmaldg": total(c, "UTMALDG"),
+               "hmma": total(c, "HMMA"), "mufu_ex2": c.get("MUFU.EX2", 0),
+               "instructions": sum(c.values()), "card": card}
+        emit(rec)
+        if rec["bf16"]:
+            bf16[kernel] = rec
+    check(len(bf16) == FWD_BF16_KERNELS and all(
+        r["hgmma"] > 0 and r["utmaldg"] > 0 and r["hmma"] == 0 for r in bf16.values()),
+        f"flash_fwd SASS: {len(bf16)} bf16 kernels, want {FWD_BF16_KERNELS}, each with "
+        f"HGMMA and UTMALDG and no HMMA: {bf16}")
+
+
+def fwd_ptxas(log):
+    """ptxas's resources per flash_fwd kernel from the build's -Xptxas -v
+    output: registers, stack, spill stores and loads; the bf16 kernels'
+    dynamic shared memory is Tiles<HD>::kSmem of flash_fwd.cu (Q, two
+    stages of K and V, six barriers, 1024 bytes of alignment slack)."""
+    kernel, rows = None, []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            kernel = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and kernel:
+            rows.append({"kernel": kernel, "stack": int(m.group(1)),
+                         "spill_stores": int(m.group(2)),
+                         "spill_loads": int(m.group(3))})
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and rows and rows[-1]["kernel"] == kernel:
+            rows[-1]["registers"] = int(m.group(1))
+    for r in rows:
+        hd = re.search(r"ILi(\d+)E", r["kernel"])
+        if "flash_fwd_bf16_kernel" in r["kernel"] and hd:
+            r["dynamic_smem_bytes"] = 1280 * int(hd.group(1)) + 8 * 6 + 1024
+        emit({"phase": "fwd_ptxas", **r})
+    return rows
 
 
 # nvidia-smi fields logged around the time phases: K6's bound assumes the max
@@ -1813,6 +1979,8 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
     for name, log in logs.items():
         print(f"--- nvcc {name}.cu ---\n{log}", file=sys.stderr)
+    fwd_ptxas(logs["flash_fwd"])
+    fwd_sass(card)
 
     fwd_errors = phase_kernels(fa)
     bwd_errors = phase_bwd_kernels(fa)

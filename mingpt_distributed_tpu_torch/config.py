@@ -283,10 +283,7 @@ class MeshConfig:
 # the ROADMAP.md item that brings it.
 UNPORTED_TRAINER_OPTIONS = {
     "zero_dp": "Queue 1 item 10 (parallel/zero.py)",
-    "async_save": "Queue 1 item 1 (training/durability.py)",
-    "keep_snapshots": "Queue 1 item 1 (durability manifest, keep-last-K)",
-    "io_retries": "Queue 1 item 1 (durability retry)",
-    "io_retry_delay_s": "Queue 1 item 1 (durability retry)",
+    "async_save": "Queue 1 item 1 (asynchronous snapshot writes)",
     "msgpack_gather_limit_mb": "Queue 1 item 8 (multi-process saves)",
     "dl_num_workers": "Queue 1 item 3 (runtime/native_batcher.c)",
     "metrics_port": "Queue 1 item 5 (trainer telemetry)",

@@ -34,37 +34,65 @@
 // dense (B, T, H, hd) tensor in q's dtype, lse a dense (B, H, T) float32.
 //
 // Shared by both paths below:
-//   * one thread block per (q tile of 64 rows, head, batch); the heaviest
-//     (last) q tiles are launched first;
-//   * the block walks the k/v tiles of 64 keys from the first tile of the
-//     band to the (offset) diagonal, or every tile when not causal, staging
-//     each through shared memory; tiles outside the band are never loaded;
-//   * a masked score contributes exactly 0 (it is never exponentiated), so
-//     a tile that is fully masked for some row (a window narrower than the
-//     tile) leaves that row's m, l and acc untouched. The TPU kernel instead
-//     relies on exp(NEG_INF - m) underflowing to wipe such garbage later;
-//     here there is no garbage to wipe;
+//   * the work is (q tile, head, batch) items, the heaviest (last) q tiles
+//     first: one thread block each in the fp32 path, persistent blocks in
+//     the bf16 path;
+//   * the block walks the k/v tiles from the first tile of the band to the
+//     (offset) diagonal, or every tile when not causal, staging each
+//     through shared memory; tiles outside the band are never loaded;
+//   * a masked score contributes exactly 0 (it is never exponentiated, or
+//     is -inf, whose exponential is 0), so a tile that is fully masked for
+//     some row (a window narrower than the tile) leaves that row's m, l and
+//     acc untouched. The TPU kernel instead relies on exp(NEG_INF - m)
+//     underflowing to wipe such garbage later; here there is no garbage to
+//     wipe;
 //   * the tail tile is masked (keys >= T read as zeros and are masked out;
 //     rows >= T are computed and not stored), so any T >= 1 works;
 //   * finalize: l_safe = max(l, 1e-30), out = acc / l_safe,
 //     lse = m / log2(e) + log(l_safe) (natural base: m + log(l_safe)).
 //
-// bfloat16 inputs take the tensor cores: mma.sync m16n8k16 (bf16 in, fp32
-// accumulate), four warps of 16 query rows each, the warp's Q fragments
-// kept in registers, and the score accumulators reused as the A operand of
-// P V after rounding P to bf16 (as the TPU kernel does; l sums the fp32 P).
+// bfloat16 inputs take Hopper's tensor cores, warp-specialised (FA3's
+// shape): persistent blocks of 384 threads, one per SM, each walking work
+// items of 128 query rows (a block's start-up, Q load and epilogue cost
+// about as much as a light item's products, so blocks stay resident and
+// the next item's loads run under this item's epilogue). One producer
+// warpgroup (its registers given to the consumers by setmaxnreg) has one
+// thread issue TMA loads: an item's Q tile once, then each 128-key K and V
+// tile into a ring of two stages guarded by full and empty mbarriers. Two
+// consumer
+// warpgroups of 64 query rows each compute S = Q K^T by wgmma m64n128k16
+// from shared memory (both K-major), the online softmax in registers, and
+// O += P V by wgmma with P from registers (rounded to bf16, as the TPU
+// kernel does; l sums the fp32 P) and V from shared memory through the
+// transpose bit; then release the stage. Two warpgroups, not three: with
+// 128 keys per tile a consumer holds S (64 floats), O (up to 64 at hd 128)
+// and P (32 registers); three would leave 160 registers a thread and spill
+// at hd 128. While one warpgroup runs its softmax the other's products keep
+// the tensor cores busy. Masks are applied only to tiles that need them
+// (the diagonal, the window's edge, the tail, an offset band), decided per
+// tile and warpgroup; the interior tiles run no mask. Tensor maps describe
+// q, k and v as (hd, heads, T, B) with the caller's strides, swizzled to the
+// row's bytes (32 B at hd 16, 64 at 32, 128 at 64; two 64-column boxes at
+// 128); TMA fills keys and rows past T with zeros.
 // float32 inputs take float32 FMAs from shared memory (four threads per
 // query row), because TF32 would not hold the float32 tolerance.
 //
-// What bounds it on the H100: the work is memory-bound at the card's rates
-// (GPT-2 shapes in bf16: ~25 MB moved against ~6.4 GFLOP, 7.6 us at
-// 3.35 TB/s). Each staged k/v tile is reused across 64 query rows, so
-// device-memory traffic stays small; what limits this version is latency:
-// tile loads are not pipelined (the block waits for every tile), and the
-// fp32 path is bound by FMA and shared-memory issue rates. TMA loads into a
-// ring of tiles with wgmma consumers are the next step.
+// What bounds it on the H100: the bf16 work is memory-bound at the card's
+// rates (GPT-2 shapes: ~25 MB moved against ~6.4 GFLOP, 7.6 us at
+// 3.35 TB/s), with the exponentials (one per allowed pair, 16 per clock
+// per SM) close behind at hd 64. Each K/V tile is loaded once per 128
+// query rows, so device-memory traffic stays small; what the design
+// attacks is latency: loads run a tile ahead of the products, and two
+// warpgroups overlap one's softmax with the other's products. The fp32
+// path is bound by FMA and shared-memory issue rates.
+
+#include <math.h>
+
+#include <algorithm>
+#include <numeric>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -87,20 +115,21 @@ struct Params {
   int q_offset;   // causal: query row i sits at key position q_offset + i
 };
 
-// The first and last k/v tile a q tile starting at q0 attends; lo > hi when
-// the band misses the chunk. kLse: read the causal flag and the offset.
-template <bool kLse>
+// The first and last k/v tile (of BK keys) a q tile of BQ rows starting at
+// q0 attends; lo > hi when the band misses the chunk. kLse: read the causal
+// flag and the offset.
+template <bool kLse, int BQ, int BK>
 __device__ __forceinline__ void kv_tile_range(const Params& p, int q0,
                                               int* lo, int* hi) {
   if (kLse && !p.causal) {
     *lo = 0;
-    *hi = (p.T - 1) / kBK;
+    *hi = (p.T - 1) / BK;
     return;
   }
   const int qg = kLse ? p.q_offset + q0 : q0;  // the tile's first row on the key axis
   const int k_first = p.window > 0 ? max(0, qg - (p.window - 1)) : 0;
-  *lo = k_first / kBK;
-  *hi = min(qg + kBQ - 1, p.T - 1) / kBK;
+  *lo = k_first / BK;
+  *hi = min(qg + BQ - 1, p.T - 1) / BK;
 }
 
 // Score of a raw q.k product in the softmax's base: s * scale * log2(e), or
@@ -114,6 +143,22 @@ __device__ __forceinline__ float score(const Params& p, float s) {
   }
   return p.softcap > 0.f ? p.softcap * kLog2e * tanhf(s * (p.scale / p.softcap))
                          : s * (p.scale * kLog2e);
+}
+
+// score() over a tile of raw products, the soft-capping test hoisted out
+// of the loop (a select inside it would evaluate tanhf on every score).
+template <bool kNat, int N>
+__device__ __forceinline__ void scores(const Params& p, float (&s)[N]) {
+  if (p.softcap > 0.f) {
+    const float cap = kNat ? p.softcap : p.softcap * kLog2e;
+    const float inv = p.scale / p.softcap;
+#pragma unroll
+    for (int j = 0; j < N; ++j) s[j] = cap * tanhf(s[j] * inv);
+  } else {
+    const float c = kNat ? p.scale : p.scale * kLog2e;
+#pragma unroll
+    for (int j = 0; j < N; ++j) s[j] *= c;
+  }
 }
 
 // The natural-domain lse of a row from its running max m (in the softmax's
@@ -175,7 +220,7 @@ __global__ void __launch_bounds__(kFmaThreads) flash_fwd_f32_kernel(Params p) {
   }
 
   int kt_lo, kt_hi;
-  kv_tile_range<kLse>(p, q0, &kt_lo, &kt_hi);
+  kv_tile_range<kLse, kBQ, kBK>(p, q0, &kt_lo, &kt_hi);
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's k/v reads are done
@@ -279,155 +324,255 @@ __global__ void __launch_bounds__(kFmaThreads) flash_fwd_f32_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor-core path (mma.sync)
+// bfloat16: TMA + wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 
-constexpr int kMmaThreads = 128;  // four warps, 16 query rows each
+constexpr int kWgQ = 128;        // query rows per work item: two warpgroups
+constexpr int kWgRows = 64;      // query rows per consumer warpgroup
+constexpr int kWgK = 128;        // keys per k/v tile
+constexpr int kWgThreads = 384;  // the producer warpgroup, two consumers
+constexpr int kConsumers = 256;  // consumer threads: each releases a stage
+
+// Shared-memory layout of one block (byte offsets; every tile 1024-aligned,
+// as the 128-byte swizzle repeats every 1024 bytes). A head of 128 columns
+// is two boxes of 64, each a (rows x 128 B) tile of its own.
+template <int HD>
+struct Tiles {
+  static constexpr int kStages = 2;  // k/v tiles in the ring
+  static constexpr int kBoxCols = HD < 64 ? HD : 64;
+  static constexpr int kBoxes = HD / kBoxCols;
+  static constexpr int kRowBytes = kBoxCols * 2;
+  static constexpr int kLayout = hopper::Swizzle<kRowBytes>::kLayout;
+  static constexpr int kQBox = kWgQ * kRowBytes;
+  static constexpr int kKBox = kWgK * kRowBytes;
+  static constexpr int kKVBytes = kKBox * kBoxes;  // one K (or V) tile
+  static constexpr int kQ = 0;
+  static constexpr int kK = kQ + kQBox * kBoxes;
+  static constexpr int kV = kK + kStages * kKVBytes;
+  // the barriers: q full and empty, then full[] and empty[] of the ring
+  static constexpr int kBars = kV + kStages * kKVBytes;
+  static constexpr int kSmem = kBars + 8 * (2 + 2 * kStages) + 1024;  // + align
+};
+
+// Whether every (row, key) pair of a warpgroup's rows from r0 and the
+// k tile from k0 is visible: then the tile needs no mask for them.
+template <bool kLse>
+__device__ __forceinline__ bool tile_unmasked(const Params& p, int r0, int k0) {
+  if (k0 + kWgK > p.T) return false;  // the tail
+  if (kLse && !p.causal) return true;
+  const int qg = kLse ? p.q_offset + r0 : r0;  // the first row on the key axis
+  return k0 + kWgK - 1 <= qg &&                // below the diagonal
+         (p.window <= 0 || qg + kWgRows - 1 - k0 < p.window);  // the window
+}
 
 template <int HD, bool kLse, bool kNat>
-__global__ void __launch_bounds__(kMmaThreads)
-    flash_fwd_bf16_kernel(Params p) {
-  constexpr int kLd = HD + 8;     // +16 bytes: conflict-free fragment loads
-  constexpr int kKSteps = HD / 16;  // k-steps of Q K^T over the head dim
-  constexpr int kDTiles = HD / 8;   // 8-wide column tiles of the output
-  constexpr int kNTiles = kBK / 8;  // 8-key column tiles of the scores
-  extern __shared__ __align__(16) unsigned char smem_bf16[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_bf16);
-  __nv_bfloat16* ks = qs + kBQ * kLd;
-  __nv_bfloat16* vs = ks + kBK * kLd;
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const Params p) {
+  using L = Tiles<HD>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t sbase = (raw + 1023u) & ~1023u;
+  const uint32_t bar_q = sbase + L::kBars;
+  const uint32_t bar_q_empty = bar_q + 8;
+  const uint32_t bar_full = bar_q + 16;                  // + 8 s
+  const uint32_t bar_empty = bar_full + 8 * L::kStages;  // + 8 s
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (p.H / p.KV);
-  const int warp = threadIdx.x >> 5;
-  const int g = (threadIdx.x & 31) >> 2;
-  const int t4 = threadIdx.x & 3;
-  const int r_lo = 16 * warp + g;  // this thread's rows: r_lo and r_lo + 8
-  const int q_pos[2] = {q0 + r_lo, q0 + r_lo + 8};
+  // Work items (q tile, head, batch), the q tile fastest and reversed so
+  // each (head, batch)'s heaviest tiles come first; block i takes items i,
+  // i + G, i + 2G, ... (G = gridDim.x, coprime with the q tiles per head,
+  // so every block walks tiles of every weight).
+  const int n_q = (p.T + kWgQ - 1) / kWgQ;
+  const int n_items = n_q * p.H * p.B;
+  auto item = [&](int w, int* q0, int* h, int* b, int* kt_lo) {
+    *q0 = (n_q - 1 - w % n_q) * kWgQ;
+    *h = (w / n_q) % p.H;
+    *b = w / (n_q * p.H);
+    int kt_hi;
+    kv_tile_range<kLse, kWgQ, kWgK>(p, *q0, kt_lo, &kt_hi);
+    return max(0, kt_hi - *kt_lo + 1);  // k/v tiles
+  };
 
-  const __nv_bfloat16* q =
-      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* k =
-      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* v =
-      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  load_tile_bf16<HD, kMmaThreads>(qs, q, p.q_st, q0, p.T);
-  __syncthreads();
-  uint32_t qf[kKSteps][4];
-#pragma unroll
-  for (int kk = 0; kk < kKSteps; ++kk) {
-    const __nv_bfloat16* lo = qs + r_lo * kLd + 16 * kk + 2 * t4;
-    qf[kk][0] = ld32(lo);
-    qf[kk][1] = ld32(lo + 8 * kLd);
-    qf[kk][2] = ld32(lo + 8);
-    qf[kk][3] = ld32(lo + 8 * kLd + 8);
-  }
-
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
-  float o[kDTiles][4];
-#pragma unroll
-  for (int d = 0; d < kDTiles; ++d) o[d][0] = o[d][1] = o[d][2] = o[d][3] = 0.f;
-
-  int kt_lo, kt_hi;
-  kv_tile_range<kLse>(p, q0, &kt_lo, &kt_hi);
-  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's k/v reads are done
-    load_tile_bf16<HD, kMmaThreads>(ks, k, p.k_st, k0, p.T);
-    load_tile_bf16<HD, kMmaThreads>(vs, v, p.v_st, k0, p.T);
-    __syncthreads();
-
-    // S = Q K^T: s[j] holds keys 8j + 2t4 (+1) of rows r_lo, r_lo + 8
-    float s[kNTiles][4];
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk) {
-        const __nv_bfloat16* kp = ks + (8 * j + g) * kLd + 16 * kk + 2 * t4;
-        mma_bf16(s[j], qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3], ld32(kp),
-                 ld32(kp + 8));
-      }
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bar_q, 1);
+    hopper::mbar_init(bar_q_empty, kConsumers);
+    for (int s = 0; s < L::kStages; ++s) {
+      hopper::mbar_init(bar_full + 8 * s, 1);
+      hopper::mbar_init(bar_empty + 8 * s, kConsumers);
     }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
 
-    float m_tile[2] = {kNegInf, kNegInf};
-    unsigned live[2] = {0u, 0u};  // bit 2j + e: element (j, e) of that row
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        s[j][e] = score<kNat>(p, s[j][e]);
-        if (visible<kLse>(p, q_pos[i], k0 + 8 * j + 2 * t4 + (e & 1))) {
-          live[i] |= 1u << (2 * j + (e & 1));
-          m_tile[i] = fmaxf(m_tile[i], s[j][e]);
+  if (threadIdx.x < 128) {
+    // producer: one thread issues every load. The ring runs on across work
+    // items; its phase flips at each wrap, and a stage is refilled only once
+    // its empty barrier has completed (every consumer thread released it).
+    // An item's Q is loaded once the consumers have released the last one.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      hopper::tma_prefetch_map(&tq);
+      hopper::tma_prefetch_map(&tk);
+      hopper::tma_prefetch_map(&tv);
+      int stage = 0, phase = 0, q_phase = 0;
+      for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
+        int q0, h, b, kt_lo;
+        const int n_tiles = item(w, &q0, &h, &b, &kt_lo);
+        if (n_tiles == 0) continue;
+        const int kvh = h / (p.H / p.KV);
+        hopper::mbar_wait(bar_q_empty, q_phase ^ 1);
+        hopper::mbar_expect_tx(bar_q, L::kQBox * L::kBoxes);
+        for (int c = 0; c < L::kBoxes; ++c) {
+          hopper::tma_load_4d(sbase + L::kQ + c * L::kQBox, &tq, bar_q,
+                              c * L::kBoxCols, h, q0, b);
+        }
+        q_phase ^= 1;
+        for (int i = 0; i < n_tiles; ++i) {
+          const int k0 = (kt_lo + i) * kWgK;
+          hopper::mbar_wait(bar_empty + 8 * stage, phase ^ 1);
+          hopper::mbar_expect_tx(bar_full + 8 * stage, 2 * L::kKVBytes);
+          for (int c = 0; c < L::kBoxes; ++c) {
+            hopper::tma_load_4d(sbase + L::kK + stage * L::kKVBytes + c * L::kKBox,
+                                &tk, bar_full + 8 * stage, c * L::kBoxCols, kvh,
+                                k0, b);
+            hopper::tma_load_4d(sbase + L::kV + stage * L::kKVBytes + c * L::kKBox,
+                                &tv, bar_full + 8 * stage, c * L::kBoxCols, kvh,
+                                k0, b);
+          }
+          if (++stage == L::kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
         }
       }
     }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      m_tile[i] = fmaxf(m_tile[i], __shfl_xor_sync(0xffffffffu, m_tile[i], 1));
-      m_tile[i] = fmaxf(m_tile[i], __shfl_xor_sync(0xffffffffu, m_tile[i], 2));
-      const float m_new = fmaxf(m[i], m_tile[i]);
-      alpha[i] = exp_base<kNat>(m[i] - m_new);  // 1 when both are still kNegInf
-      m[i] = m_new;
-      l[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int j = 0; j < kNTiles; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const float pj = (live[i] >> (2 * j + (e & 1))) & 1u
-                             ? exp_base<kNat>(s[j][e] - m[i]) : 0.f;
-        s[j][e] = pj;
-        l[i] += pj;
-      }
-    }
-#pragma unroll
-    for (int d = 0; d < kDTiles; ++d) {
-      o[d][0] *= alpha[0];
-      o[d][1] *= alpha[0];
-      o[d][2] *= alpha[1];
-      o[d][3] *= alpha[1];
-    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = threadIdx.x / 128 - 1;  // this consumer warpgroup
+    const int warp = (threadIdx.x / 32) & 3;
+    const int g = (threadIdx.x & 31) >> 2;
+    const int t4 = threadIdx.x & 3;
+    const uint32_t q_tile = sbase + L::kQ + cw * kWgRows * L::kRowBytes;
+    constexpr uint32_t kSbo = 8 * L::kRowBytes;  // between 8-row groups
+    int stage = 0, phase = 0, q_phase = 0;
+    for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
+      int q0, h, b, kt_lo;
+      const int n_tiles = item(w, &q0, &h, &b, &kt_lo);
+      const int r0 = q0 + kWgRows * cw;  // the warpgroup's first row
+      const int row[2] = {r0 + 16 * warp + g, r0 + 16 * warp + g + 8};
 
-    // O += P V, 16 keys per step: P's A fragment is two score tiles
+      float m[2] = {kNegInf, kNegInf};
+      float l[2] = {0.f, 0.f};  // this thread's share of the row sums
+      float o[HD / 2];
 #pragma unroll
-    for (int kc = 0; kc < kBK / 16; ++kc) {
-      const uint32_t a0 = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-      const uint32_t a1 = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-      const uint32_t a2 = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      const uint32_t a3 = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-#pragma unroll
-      for (int d = 0; d < kDTiles; ++d) {
-        uint32_t b0, b1;
-        b_frag_rows(vs + 16 * kc * kLd + 8 * d, kLd, g, t4, &b0, &b1);
-        mma_bf16(o[d], a0, a1, a2, a3, b0, b1);
-      }
-    }
-  }
+      for (int j = 0; j < HD / 2; ++j) o[j] = 0.f;
 
+      if (n_tiles > 0) hopper::mbar_wait(bar_q, q_phase);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int k0 = (kt_lo + i) * kWgK;
+        const uint32_t k_tile = sbase + L::kK + stage * L::kKVBytes;
+        const uint32_t v_tile = sbase + L::kV + stage * L::kKVBytes;
+        hopper::mbar_wait(bar_full + 8 * stage, phase);
+
+        // S = Q K^T over the head dim, 16 columns a step; s[4j + e] is row
+        // row[e / 2], key k0 + 8j + 2 t4 + e % 2
+        float s[64];
+        hopper::wgmma_fence();
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    if (q_pos[i] >= p.T) continue;
-    const float l_safe = fmaxf(l[i], 1e-30f);
-    __nv_bfloat16* orow =
-        static_cast<__nv_bfloat16*>(p.out) +
-        ((static_cast<long long>(b) * p.T + q_pos[i]) * p.H + h) * HD;
+        for (int kk = 0; kk < HD / 16; ++kk) {
+          const uint32_t box = kk * 16 / L::kBoxCols;        // which 64-column box
+          const uint32_t col = (kk * 16 % L::kBoxCols) * 2;  // bytes into its rows
+          hopper::wgmma_m64n128k16_ss(
+              s,
+              hopper::smem_desc(q_tile + box * L::kQBox + col, 16, kSbo, L::kLayout),
+              hopper::smem_desc(k_tile + box * L::kKBox + col, 16, kSbo, L::kLayout),
+              kk > 0);
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(s);
+        if (i == n_tiles - 1) hopper::mbar_arrive(bar_q_empty);  // Q is read
+
+        scores<kNat>(p, s);
+        if (!tile_unmasked<kLse>(p, r0, k0)) {
 #pragma unroll
-    for (int d = 0; d < kDTiles; ++d) {
-      *reinterpret_cast<uint32_t*>(orow + 8 * d + 2 * t4) =
-          pack_bf16(o[d][2 * i] / l_safe, o[d][2 * i + 1] / l_safe);
-    }
-    if (t4 == 0) {
-      p.lse[(static_cast<long long>(b) * p.H + h) * p.T + q_pos[i]] =
-          lse_of<kNat>(m[i], l_safe);
+          for (int j = 0; j < 64; ++j) {
+            const int key = k0 + 8 * (j >> 2) + 2 * t4 + (j & 1);
+            if (!visible<kLse>(p, row[(j >> 1) & 1], key)) s[j] = -INFINITY;
+          }
+        }
+        float alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float m_tile = kNegInf;
+#pragma unroll
+          for (int j = 0; j < 16; ++j) {
+            m_tile = fmaxf(m_tile, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
+          }
+          m_tile = fmaxf(m_tile, __shfl_xor_sync(0xffffffffu, m_tile, 1));
+          m_tile = fmaxf(m_tile, __shfl_xor_sync(0xffffffffu, m_tile, 2));
+          const float m_new = fmaxf(m[r], m_tile);
+          alpha[r] = exp_base<kNat>(m[r] - m_new);  // 1 when both are still kNegInf
+          m[r] = m_new;
+          l[r] *= alpha[r];
+        }
+        // P = exp(s - m): exactly 0 where masked (exp of -inf)
+#pragma unroll
+        for (int j = 0; j < 64; ++j) {
+          const int r = (j >> 1) & 1;
+          s[j] = exp_base<kNat>(s[j] - m[r]);
+          l[r] += s[j];
+        }
+#pragma unroll
+        for (int j = 0; j < HD / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
+
+        // O += P V, 16 keys a step: P's A fragment for keys 16c.. is the
+        // score accumulators 8c..8c+7, rounded to bf16
+        uint32_t pa[32];
+#pragma unroll
+        for (int j = 0; j < 32; ++j) pa[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int c = 0; c < kWgK / 16; ++c) {
+          hopper::wgmma_rs_tb<HD>(
+              o, pa[4 * c], pa[4 * c + 1], pa[4 * c + 2], pa[4 * c + 3],
+              hopper::smem_desc(v_tile + c * 16 * L::kRowBytes, L::kKBox, kSbo,
+                                L::kLayout));
+        }
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs(o);
+        hopper::fence_regs(pa);
+        hopper::mbar_arrive(bar_empty + 8 * stage);  // K and V of this stage are read
+        if (++stage == L::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      if (n_tiles > 0) q_phase ^= 1;
+
+      // every row of the tile is written, dead rows as out = 0 and lse ~ -6.9e29
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        if (row[r] >= p.T) continue;
+        const float l_safe = fmaxf(l[r], 1e-30f);
+        __nv_bfloat16* orow =
+            static_cast<__nv_bfloat16*>(p.out) +
+            ((static_cast<long long>(b) * p.T + row[r]) * p.H + h) * HD;
+#pragma unroll
+        for (int c = 0; c < HD / 8; ++c) {
+          *reinterpret_cast<uint32_t*>(orow + 8 * c + 2 * t4) =
+              pack_bf16(o[4 * c + 2 * r] / l_safe, o[4 * c + 2 * r + 1] / l_safe);
+        }
+        if (t4 == 0) {
+          p.lse[(static_cast<long long>(b) * p.H + h) * p.T + row[r]] =
+              lse_of<kNat>(m[r], l_safe);
+        }
+      }
     }
   }
 }
@@ -455,12 +600,39 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
                 stream);
 }
 
+// Tensor maps of q, k and v, then the launch. A map the driver refuses
+// (a stride TMA cannot take) fails the launch with cudaErrorInvalidValue.
 template <int HD, bool kLse, bool kNat>
 cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
-  const int smem = static_cast<int>((kBQ + 2 * kBK) * (HD + 8) *
-                                    sizeof(__nv_bfloat16));
-  return launch(flash_fwd_bf16_kernel<HD, kLse, kNat>, p, kMmaThreads, smem,
-                stream);
+  using L = Tiles<HD>;
+  constexpr CUtensorMapSwizzle kSwizzle = hopper::Swizzle<L::kRowBytes>::kMap;
+  CUtensorMap tq, tk, tv;
+  if (!hopper::make_map_bf16(&tq, p.q, HD, p.H, p.T, p.B, p.q_sh, p.q_st,
+                             p.q_sb, L::kBoxCols, kWgQ, kSwizzle) ||
+      !hopper::make_map_bf16(&tk, p.k, HD, p.KV, p.T, p.B, p.k_sh, p.k_st,
+                             p.k_sb, L::kBoxCols, kWgK, kSwizzle) ||
+      !hopper::make_map_bf16(&tv, p.v, HD, p.KV, p.T, p.B, p.v_sh, p.v_st,
+                             p.v_sb, L::kBoxCols, kWgK, kSwizzle)) {
+    return cudaErrorInvalidValue;
+  }
+  auto kernel = flash_fwd_bf16_kernel<HD, kLse, kNat>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err != cudaSuccess) return err;
+  // one persistent block per SM, the count made coprime with the q tiles
+  // per head (see the kernel's work items)
+  const int n_q = (p.T + kWgQ - 1) / kWgQ;
+  int blocks = sms;
+  while (blocks > sms / 2 && std::gcd(blocks, n_q) != 1) --blocks;
+  blocks = std::min(blocks, n_q * p.H * p.B);
+  kernel<<<blocks, kWgThreads, L::kSmem, stream>>>(tq, tk, tv, p);
+  return cudaGetLastError();
 }
 
 template <bool kLse, bool kNat>

@@ -7,11 +7,14 @@ source there, and runs ``chip_smoke.py``'s checks against the copy, which
 builds the kernels of the source it changed (libraries already built here
 come along and are reused where their source is unchanged: they are keyed
 by a hash of it). A kernel fault (a source under ``ops/csrc``) runs
-phase 1's kernel checks: ``bwd_case`` (K2a, K2b) and ``fused_case`` (K2c)
-on every case of ``KERNEL_CASES`` and ``lse_case`` (K3, K4a, K4b) on every
-case of ``LSE_CASES``, each in bfloat16 and float32, ``nh_case`` (K5)
-on every case of ``NH_CASES`` and ``exp_case`` (K6) on every case of
-``EXP_CASES``. A ring fault (a Python source)
+phase 1's kernel checks: ``fwd_case`` (K1) on every case of
+``KERNEL_CASES`` and ``FWD_RING_CASES``, ``bwd_case`` (K2a, K2b) and
+``fused_case`` (K2c) on every case of ``KERNEL_CASES`` and ``lse_case``
+(K3, K4a, K4b) on every case of ``LSE_CASES`` and ``LSE_RING_CASES``, each
+in bfloat16 and float32, ``nh_case`` (K5) on every case of ``NH_CASES`` and
+``exp_case`` (K6) on every case of ``EXP_CASES``. An edit whose text does
+not appear in the source as often as expected fails the tool before
+anything runs. A ring fault (a Python source)
 runs the sp phase's ranks and ``sp_checks``, and must fail the main path's
 model-level group ("main") on its own: the step's loss, grad norm and
 every parameter's gradient against the dense single-process step. The
@@ -52,12 +55,23 @@ FAULTS = {
         "K4b skips the last q tile of an offset band", "ops/csrc/flash_bwd.cu",
         [("*hi = q_last < 0 ? -1 : q_last / kBQ;",
           "*hi = q_last < 0 ? -1 : q_last / kBQ - (p.q_offset > 0);", 1)]),
-    # the forward kernels leave rows with no live key unwritten
+    # the forward kernels (fp32, bf16) leave rows with no live key unwritten
     "fwd_dead_rows_unwritten": (
         "K3 leaves dead rows unwritten", "ops/csrc/flash_fwd.cu",
         [("  if (q_pos < p.T) {", "  if (q_pos < p.T && m > kNegInf) {", 1),
-         ("    if (q_pos[i] >= p.T) continue;",
-          "    if (q_pos[i] >= p.T || m[i] == kNegInf) continue;", 1)]),
+         ("        if (row[r] >= p.T) continue;",
+          "        if (row[r] >= p.T || m[r] == kNegInf) continue;", 1)]),
+    # the bf16 forward's consumers release each K/V stage as soon as it has
+    # landed, before its products (P V above all) have read it: the
+    # producer refills the stage under them once the ring wraps
+    "fwd_releases_stage_early": (
+        "K1/K3/K5's bf16 forward frees a K/V stage before its P V retires",
+        "ops/csrc/flash_fwd.cu",
+        [("        hopper::mbar_wait(bar_full + 8 * stage, phase);\n\n",
+          "        hopper::mbar_wait(bar_full + 8 * stage, phase);\n"
+          "        hopper::mbar_arrive(bar_empty + 8 * stage);\n", 1),
+         ("        hopper::mbar_arrive(bar_empty + 8 * stage);  "
+          "// K and V of this stage are read\n", "", 1)]),
     # the fused backward's dq skips the first q tile of each k tile's band:
     # the diagonal cell
     "fused_dq_skips_diagonal_cell": (
@@ -65,12 +79,14 @@ FAULTS = {
         [("      if (kFused) {\n        // dq += dS K over this cell",
           "      if (kFused && qt != qt_lo) {\n        // dq += dS K over this cell",
           2)]),
-    # the natural-base forward ignores the softcap
+    # the natural-base forward (fp32, bf16) ignores the softcap
     "nh_fwd_drops_softcap": (
         "K5's forward drops the softcap", "ops/csrc/flash_fwd.cu",
         [("    return p.softcap > 0.f ? p.softcap * tanhf(s * (p.scale / p.softcap))\n"
           "                           : s * p.scale;",
-          "    return s * p.scale;", 1)]),
+          "    return s * p.scale;", 1),
+         ("  if (p.softcap > 0.f) {\n    const float cap = kNat",
+          "  if (!kNat && p.softcap > 0.f) {\n    const float cap = kNat", 1)]),
     # the exp-vs-exp2 chain runs one rep fewer than asked: at the tool's 64
     # reps every element has reached the chain's fixed point, so only the
     # checks at small reps can see it
@@ -85,8 +101,8 @@ FAULTS = {
           "        late = late if t == 1 else _fold(late, o_b, lse_b)\n", 1)]),
 }
 
-# run inside the copy: every K2a/K2b, K2c, K3/K4, K5 and K6 case, one JSON
-# line each
+# run inside the copy: every K1, K2a/K2b, K2c, K3/K4, K5 and K6 case, one
+# JSON line each
 KERNEL_CHECK = """
 import json, sys, torch
 import chip_smoke
@@ -102,9 +118,12 @@ def report(rec, fails):
                       "failed": sorted({g for g, _ in fails})}), flush=True)
 
 
-for check, cases in ((chip_smoke.bwd_case, chip_smoke.KERNEL_CASES),
+for check, cases in ((chip_smoke.fwd_case,
+                      chip_smoke.KERNEL_CASES + chip_smoke.FWD_RING_CASES),
+                     (chip_smoke.bwd_case, chip_smoke.KERNEL_CASES),
                      (chip_smoke.fused_case, chip_smoke.KERNEL_CASES),
-                     (chip_smoke.lse_case, chip_smoke.LSE_CASES)):
+                     (chip_smoke.lse_case,
+                      chip_smoke.LSE_CASES + chip_smoke.LSE_RING_CASES)):
     for i, case in enumerate(cases):
         for dtype in (torch.bfloat16, torch.float32):
             report(*check(fa, i, case, dtype))
@@ -198,6 +217,9 @@ def main() -> int:
         return 2
     from mingpt_distributed_tpu_torch.ops import _build
 
+    for name, (_, source, edits) in FAULTS.items():  # every anchor, before any run
+        if source is not None:
+            patch((ROOT / PACKAGE / source).read_text(), edits)
     _build.build_all()  # once here; each copy rebuilds only what it changed
     ok = True
     with tempfile.TemporaryDirectory(prefix="plant_faults_") as tmp:

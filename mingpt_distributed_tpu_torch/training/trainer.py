@@ -19,8 +19,14 @@ rank restores. A stop request (SIGTERM) is agreed on by all ranks at a step
 boundary, over a host-side group, so none leaves while the others wait in a
 collective.
 
-ZeRO, Orbax, the mesh axes other than dp and sp, and the other options
-``TrainerConfig.check_ported`` names raise.
+Snapshots are committed through ``training/checkpoint.py``'s manifest:
+the last ``keep_snapshots`` are kept, transient I/O is retried
+``io_retries`` times from ``io_retry_delay_s`` (jitter seeded from
+``seed``), and a resume falls back past a torn or corrupt snapshot to the
+newest good one.
+
+ZeRO, Orbax, asynchronous saves, the mesh axes other than dp and sp, and
+the other options ``TrainerConfig.check_ported`` names raise.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ from mingpt_distributed_tpu_torch.models import gpt
 from mingpt_distributed_tpu_torch.parallel import distributed as D
 from mingpt_distributed_tpu_torch.parallel.mesh import Mesh
 from mingpt_distributed_tpu_torch.training import checkpoint as ckpt_lib
+from mingpt_distributed_tpu_torch.training.durability import RetryPolicy
 from mingpt_distributed_tpu_torch.training.metrics import MetricsLogger, peak_flops
 from mingpt_distributed_tpu_torch.training.optimizer import (
     AdamW,
@@ -250,6 +257,11 @@ class GPTTrainer:
             if test_dataset is not None and len(test_dataset) >= config.batch_size
             else None)
         self.snapshot_path = config.snapshot_path or ckpt_lib.DEFAULT_SNAPSHOT_PATH
+        # transient-I/O retries shared by save and restore, the jitter seeded
+        # from config.seed (JAX trainer.py:320)
+        self._retry = RetryPolicy(attempts=config.io_retries,
+                                  base_delay_s=config.io_retry_delay_s,
+                                  seed=config.seed)
         self._stop_requested = False
         self.preempted = False
 
@@ -260,7 +272,7 @@ class GPTTrainer:
             optimizer_config, params, config.grad_norm_clip, self._lr_fn))
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
         self.start_epoch = 0
-        restored = ckpt_lib.load_snapshot(self.snapshot_path)
+        restored = ckpt_lib.load_snapshot(self.snapshot_path, self._retry)
         if restored is None:
             self._print("Snapshot not found. Training model from scratch")
         else:
@@ -438,7 +450,7 @@ class GPTTrainer:
             "generator": self.generator.get_state(),
             "config": (self.experiment_config.to_dict()
                        if self.experiment_config else {}),
-        })
+        }, keep=self.config.keep_snapshots, retry=self._retry)
         print(f"Snapshot saved to {self.snapshot_path} (epoch {epoch}, "
               f"step {self.state.step})", flush=True)
         D.barrier()

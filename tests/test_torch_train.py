@@ -394,9 +394,11 @@ def test_snapshot_resume_equals_an_uninterrupted_run(tmp_path):
 
 
 def test_snapshot_file_is_checked(tmp_path):
+    """The legacy single file at the bare path (no manifest) loads, and a
+    torn or foreign one raises."""
     path = str(tmp_path / "s.pt")
     assert t_ckpt.load_snapshot(path) is None
-    t_ckpt.save_snapshot(path, {"step": 3, "w": torch.arange(4.0)})
+    open(path, "wb").write(t_ckpt.encode({"step": 3, "w": torch.arange(4.0)}))
     assert t_ckpt.load_snapshot(path)["step"] == 3
     blob = open(path, "rb").read()
     open(path, "wb").write(blob[:-10])  # torn
@@ -425,7 +427,7 @@ def test_entry_point_trains_on_the_cpu(tmp_path, capsys):
     losses = [float(line.split("| loss ")[1].split()[0])
               for line in out.splitlines() if line.startswith("step ")]
     assert len(losses) == 4 and losses[-1] < losses[0] - 0.3
-    assert "eval_loss" in out and os.path.exists(tmp_path / "snap.pt")
+    assert "eval_loss" in out and os.path.exists(tmp_path / "snap.pt.manifest.json")
     assert t_train.main(_cli(tmp_path, "trainer_config.max_steps=42",
                              "trainer_config.log_every=1")) == 0
     assert "Resuming training from snapshot at epoch 0, step 40" in capsys.readouterr().out
@@ -462,8 +464,7 @@ def test_entry_point_without_a_gpu_raises(tmp_path):
 
 
 NOT_PORTED = {
-    "zero_dp": True, "async_save": True, "keep_snapshots": 5, "io_retries": 1,
-    "io_retry_delay_s": 0.0, "msgpack_gather_limit_mb": 1, "dl_num_workers": 2,
+    "zero_dp": True, "async_save": True, "msgpack_gather_limit_mb": 1, "dl_num_workers": 2,
     "metrics_port": 9100, "spans_jsonl": "spans.jsonl", "tensorboard_dir": "tb",
     "profile_dir": "prof", "profile_steps": [1, 2], "debug_nans": True,
 }
