@@ -14,17 +14,20 @@ never printed.
 
 Phases:
   0. setup: the card's name and power limit, TF32 off, the kernel builds;
-     ptxas's registers and spills per forward kernel (fwd_ptxas) and the
-     forward library's SASS (fwd_sass: every bf16 instantiation issues
-     HGMMA and UTMALDG, none HMMA);
+     ptxas's registers, spills and dynamic shared memory per forward and
+     backward kernel (fwd_ptxas, bwd_ptxas) and each library's SASS
+     (fwd_sass, bwd_sass: every bf16 forward, dq and dk/dv instantiation
+     issues HGMMA and UTMALDG, none HMMA; K2c's mma.sync kernels are the
+     backward's only HMMA ones);
   1. every kernel against its plain version at the main paths' shapes
      (generation at batch 4, the train step at batch 16, the sp path's
      zigzag hop, the prototype tool's shape) and the edge cases (GQA, a
      window narrower than a tile, softcap, ragged T), and the bf16
-     forward's ring of K/V tiles at every head width (FWD_RING_CASES,
-     LSE_RING_CASES and NH_CASES: T = 1, 63, 65, ... 4096, strided q/k/v
-     views of one qkv projection, GQA 12/4, offset bands): the forward
-     (flash_fwd) and the backward (flash_bwd: dq and dk/dv); the fused
+     kernels' rings of tiles at every head width (FWD_RING_CASES,
+     BWD_RING_CASES, LSE_RING_CASES and NH_CASES: T = 1, 63, 65, ... 4096,
+     strided q/k/v views of one qkv projection, GQA 12/4, offset bands,
+     softcap): the forward (flash_fwd) and the backward (flash_bwd: dq and
+     dk/dv); the fused
      backward (flash_bwd_fused, K2c) against the plain version and against
      K2a/K2b; the ring's forward with lse (flash_lse_fwd: causal flag,
      q_offset, dead rows) and its backward with an lse cotangent
@@ -296,6 +299,20 @@ FWD_RING_CASES = [
 ]
 
 
+# The bf16 backward's rings (dq: two stages of 64 keys under items of 128
+# query rows; dk/dv: two stages of 64-row Q/dO tiles under items of 128
+# keys) at every head width: FWD_RING_CASES' shapes (one tile and its
+# edges, strided q/k/v views of one qkv projection, the rings wrapping many
+# times at T = 4096, GQA 12/4 over an odd tile count, a window narrower than
+# a tile) and a softcap. Run by bwd_case (K2a/K2b) and fused_case (K2c).
+BWD_RING_CASES = [
+    case for hd in (16, 32, 64, 128) for case in (
+        *((f"bwd_{c[0]}", *c[1:]) for c in FWD_RING_CASES if c[5] == hd),
+        (f"bwd_softcap30_t300_hd{hd}", 2, 300, 4, 4, hd, None, 30.0, "dense"),
+    )
+]
+
+
 def make_qkv(b, t, h, kv, hd, dtype, seed, layout="dense"):
     """q (B, T, H, hd), k and v (B, T, KV, hd) from ``seed``: dense, or with
     ``layout="qkv_view"`` strided views of one (B, T, 3, H, hd) tensor, as a
@@ -454,10 +471,12 @@ def grad_tol(dtype, max_abs):
 
 
 def _bwd_inputs(fa, i, case, dtype):
-    """Case ``i`` of KERNEL_CASES in ``dtype``: q, k, v, dO and the plain
-    forward's out and lse, with the kernels' keyword arguments."""
-    name, b, t, h, kv, hd, window, cap = case
-    q, k, v = make_qkv(b, t, h, kv, hd, dtype, seed=200 + i)
+    """Case ``i`` of KERNEL_CASES + BWD_RING_CASES in ``dtype``: q, k, v, dO
+    and the plain forward's out and lse, with the kernels' keyword
+    arguments."""
+    name, b, t, h, kv, hd, window, cap, *layout = case
+    q, k, v = make_qkv(b, t, h, kv, hd, dtype, seed=200 + i,
+                       layout=layout[0] if layout else "dense")
     g = torch.Generator(device="cuda").manual_seed(300 + i)
     do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
     kw = dict(scale=1.0 / math.sqrt(hd), window=window, softcap=cap)
@@ -466,11 +485,11 @@ def _bwd_inputs(fa, i, case, dtype):
 
 
 def bwd_case(fa, i, case, dtype):
-    """Backward check case ``i`` of KERNEL_CASES in ``dtype``: K2a and K2b
-    (flash_bwd with the fused switch off) against flash_bwd_plain on the
-    same inputs. Returns its record and the (gradient, message) of every
-    check it fails."""
-    name, b, t, h, kv, hd, window, cap = case
+    """Backward check case ``i`` of KERNEL_CASES + BWD_RING_CASES in
+    ``dtype``: K2a and K2b (flash_bwd with the fused switch off) against
+    flash_bwd_plain on the same inputs. Returns its record and the
+    (gradient, message) of every check it fails."""
+    name, b, t, h, kv, hd, window, cap, *layout = case
     args, kw = _bwd_inputs(fa, i, case, dtype)
     with fused_switch(False):
         got = fa.flash_bwd(*args, **kw)
@@ -479,7 +498,8 @@ def bwd_case(fa, i, case, dtype):
     dt = str(dtype).replace("torch.", "")
     errs, fails = grad_check(got, want, args[:3], dtype, f"{name} {dt}")
     rec = {"phase": "kernel_check", "kernel": "flash_bwd", "case": name,
-           "dtype": dt, "shape": [b, t, h, kv, hd], "window": window,
+           "dtype": dt, "shape": [b, t, h, kv, hd],
+           "layout": layout[0] if layout else "dense", "window": window,
            "softcap": cap, **errs, "rel_tol": GRAD_REL_TOL[dtype]}
     return rec, fails
 
@@ -489,7 +509,7 @@ def fused_case(fa, i, case, dtype):
     against flash_bwd_plain at K2's limits, and against K2a/K2b
     (``vs_split_*``: bf16 at K2's limits, fp32 within
     FUSED_SPLIT_TOL_FP32)."""
-    name, b, t, h, kv, hd, window, cap = case
+    name, b, t, h, kv, hd, window, cap, *layout = case
     args, kw = _bwd_inputs(fa, i, case, dtype)
     got = fa.flash_bwd_fused(*args, **kw)
     with fused_switch(False):
@@ -503,16 +523,18 @@ def fused_case(fa, i, case, dtype):
         max_tol=FUSED_SPLIT_TOL_FP32 if dtype == torch.float32 else None,
         prefix="vs_split_")
     rec = {"phase": "kernel_check", "kernel": "flash_bwd_fused", "case": name,
-           "dtype": dt, "shape": [b, t, h, kv, hd], "window": window,
+           "dtype": dt, "shape": [b, t, h, kv, hd],
+           "layout": layout[0] if layout else "dense", "window": window,
            "softcap": cap, **errs, **vs, "rel_tol": GRAD_REL_TOL[dtype]}
     return rec, fails + vs_fails
 
 
 def phase_bwd_kernels(fa, case_fn=bwd_case):
     """``case_fn`` (bwd_case: K2a/K2b; fused_case: K2c) on every case of
-    KERNEL_CASES in both dtypes; returns the records by (case, dtype)."""
+    KERNEL_CASES and BWD_RING_CASES in both dtypes; returns the records by
+    (case, dtype)."""
     results = {}
-    for i, case in enumerate(KERNEL_CASES):
+    for i, case in enumerate(KERNEL_CASES + BWD_RING_CASES):
         for dtype in (torch.bfloat16, torch.float32):
             rec, fails = case_fn(fa, i, case, dtype)
             emit(rec)
@@ -1873,24 +1895,32 @@ def exp_sass(card):
 
 # The bf16 forward's instantiations: 4 head widths x (K1, K3, K5 fwd)
 FWD_BF16_KERNELS = 12
+# The bf16 backward's TMA + wgmma instantiations, by template: 4 head widths
+# x (K2a, K4a, K5 dq) and (K2b, K4b, K5 dkv); and K2c's mma.sync kernel, 4
+# head widths, the one bf16 backward kernel expected to issue HMMA
+BWD_BF16_KERNELS = {"flash_dq_bf16_kernel": 12, "flash_dkv_bf16_kernel": 12}
+FUSED_BF16_KERNELS = {"flash_fused_bf16_kernel": 4}
+
+
+def _opcode_total(c, prefix):
+    return sum(n for op, n in c.items() if op.startswith(prefix))
+
+
+def _sass_record(phase, kernel, c, card):
+    return {"phase": phase, "kernel": kernel, "hgmma": _opcode_total(c, "HGMMA"),
+            "utmaldg": _opcode_total(c, "UTMALDG"), "hmma": _opcode_total(c, "HMMA"),
+            "mufu_ex2": c.get("MUFU.EX2", 0), "instructions": sum(c.values()),
+            "card": card}
 
 
 def fwd_sass(card):
     """The flash_fwd library's kernels, counted by their SASS: every bf16
     instantiation must issue warpgroup products (HGMMA) and TMA tile loads
     (UTMALDG) and no mma.sync (HMMA); the fp32 kernels issue neither."""
-    counts = sass_opcodes("flash_fwd")
-
-    def total(c, prefix):
-        return sum(n for op, n in c.items() if op.startswith(prefix))
-
     bf16 = {}
-    for kernel, c in counts.items():
-        rec = {"phase": "fwd_sass", "kernel": kernel,
-               "bf16": "flash_fwd_bf16_kernel" in kernel,
-               "hgmma": total(c, "HGMMA"), "utmaldg": total(c, "UTMALDG"),
-               "hmma": total(c, "HMMA"), "mufu_ex2": c.get("MUFU.EX2", 0),
-               "instructions": sum(c.values()), "card": card}
+    for kernel, c in sass_opcodes("flash_fwd").items():
+        rec = {**_sass_record("fwd_sass", kernel, c, card),
+               "bf16": "flash_fwd_bf16_kernel" in kernel}
         emit(rec)
         if rec["bf16"]:
             bf16[kernel] = rec
@@ -1900,11 +1930,49 @@ def fwd_sass(card):
         f"HGMMA and UTMALDG and no HMMA: {bf16}")
 
 
-def fwd_ptxas(log):
-    """ptxas's resources per flash_fwd kernel from the build's -Xptxas -v
-    output: registers, stack, spill stores and loads; the bf16 kernels'
-    dynamic shared memory is Tiles<HD>::kSmem of flash_fwd.cu (Q, two
-    stages of K and V, six barriers, 1024 bytes of alignment slack)."""
+def bwd_sass_check(counts):
+    """The (template, records) of the flash_bwd library's bf16 kernels by
+    their SASS opcode counts, and the message of every check they fail:
+    each TMA + wgmma instantiation (BWD_BF16_KERNELS) must issue HGMMA and
+    UTMALDG and no HMMA; K2c's (FUSED_BF16_KERNELS) HMMA and no HGMMA."""
+    found = {name: [] for name in {**BWD_BF16_KERNELS, **FUSED_BF16_KERNELS}}
+    for kernel, c in counts.items():
+        for name in found:
+            if name in kernel:
+                found[name].append(_sass_record("bwd_sass", kernel, c, ""))
+    fails = []
+    for name, recs in found.items():
+        want = {**BWD_BF16_KERNELS, **FUSED_BF16_KERNELS}[name]
+        if len(recs) != want:
+            fails.append(f"{name}: {len(recs)} instantiations, want {want}")
+        wgmma = name in BWD_BF16_KERNELS
+        for r in recs:
+            ok = (r["hgmma"] > 0 and r["utmaldg"] > 0 and r["hmma"] == 0 if wgmma
+                  else r["hmma"] > 0 and r["hgmma"] == 0)
+            if not ok:
+                fails.append(f"{r['kernel']}: HGMMA {r['hgmma']}, UTMALDG "
+                             f"{r['utmaldg']}, HMMA {r['hmma']}")
+    return found, fails
+
+
+def bwd_sass(card):
+    """The flash_bwd library's kernels, counted by their SASS (one line
+    each); fails unless every bf16 dq and dk/dv instantiation issues HGMMA
+    and UTMALDG and no HMMA, and K2c's mma.sync kernels are the only ones
+    with HMMA (bwd_sass_check)."""
+    counts = sass_opcodes("flash_bwd")
+    found, fails = bwd_sass_check(counts)
+    role = {r["kernel"]: ("wgmma" if name in BWD_BF16_KERNELS else "K2c mma.sync")
+            for name, recs in found.items() for r in recs}
+    for kernel, c in counts.items():
+        emit({**_sass_record("bwd_sass", kernel, c, card),
+              "role": role.get(kernel, "fp32")})
+    check(not fails, "flash_bwd SASS: " + "; ".join(fails))
+
+
+def ptxas_rows(log):
+    """ptxas's resources per kernel from a build's -Xptxas -v output:
+    registers, stack, spill stores and loads."""
     kernel, rows = None, []
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -1921,11 +1989,55 @@ def fwd_ptxas(log):
         m = re.search(r"Used (\d+) registers", line)
         if m and rows and rows[-1]["kernel"] == kernel:
             rows[-1]["registers"] = int(m.group(1))
+    return rows
+
+
+def fwd_ptxas(log):
+    """ptxas's resources per flash_fwd kernel (ptxas_rows); the bf16
+    kernels' dynamic shared memory is Tiles<HD>::kSmem of flash_fwd.cu (Q,
+    two stages of K and V, six barriers, 1024 bytes of alignment slack)."""
+    rows = ptxas_rows(log)
     for r in rows:
         hd = re.search(r"ILi(\d+)E", r["kernel"])
         if "flash_fwd_bf16_kernel" in r["kernel"] and hd:
             r["dynamic_smem_bytes"] = 1280 * int(hd.group(1)) + 8 * 6 + 1024
         emit({"phase": "fwd_ptxas", **r})
+    return rows
+
+
+def bwd_dynamic_smem(kernel):
+    """The dynamic shared memory flash_bwd.cu's launch gives ``kernel`` (a
+    mangled name), or None: DqTiles<HD>::kSmem (Q and dO of 128 rows, two
+    stages of 64-key K and V tiles), DkvTiles<HD>::kSmem (K and V of 128
+    keys, two stages of 64-row Q and dO tiles with their lse and delta), each
+    with six barriers and 1024 bytes of alignment slack; K2c's and the fp32
+    kernels' padded tiles."""
+    m = re.search(r"ILi(\d+)E", kernel)
+    if not m:
+        return None
+    hd = int(m.group(1))
+    if "flash_dq_bf16_kernel" in kernel:
+        return 1024 * hd + 8 * 6 + 1024
+    if "flash_dkv_bf16_kernel" in kernel:
+        return 1024 * hd + 2 * 2 * 64 * 4 + 8 * 6 + 1024
+    if "flash_fused_bf16_kernel" in kernel:
+        return 4 * 64 * (hd + 8) * 2 + 2 * 64 * 4 + 64 * 72 * 2
+    if "flash_dq_f32_kernel" in kernel:
+        return (4 * 64 * (hd + 4) + 64 * 68) * 4
+    if "flash_dkv_f32_kernel" in kernel:
+        return (4 * 64 * (hd + 4) + 2 * 64 * 68 + 2 * 64) * 4
+    return None
+
+
+def bwd_ptxas(log):
+    """ptxas's resources per flash_bwd kernel (ptxas_rows) with its dynamic
+    shared memory (bwd_dynamic_smem), one bwd_ptxas line each."""
+    rows = ptxas_rows(log)
+    for r in rows:
+        smem = bwd_dynamic_smem(r["kernel"])
+        if smem is not None:
+            r["dynamic_smem_bytes"] = smem
+        emit({"phase": "bwd_ptxas", **r})
     return rows
 
 
@@ -1981,6 +2093,8 @@ def main() -> int:
         print(f"--- nvcc {name}.cu ---\n{log}", file=sys.stderr)
     fwd_ptxas(logs["flash_fwd"])
     fwd_sass(card)
+    bwd_ptxas(logs["flash_bwd"])
+    bwd_sass(card)
 
     fwd_errors = phase_kernels(fa)
     bwd_errors = phase_bwd_kernels(fa)

@@ -1,15 +1,15 @@
-// Flash-attention backward for Hopper (sm_90a), plain C interface: two
-// kernels, reached through seven entry points, each a launch of its own.
+// Flash-attention backward for Hopper (sm_90a), plain C interface: seven
+// entry points, each a launch of its own.
 //
-//   flash_bwd_dq      replaces the TPU kernel `_dq_kernel_btd`,
-//   flash_bwd_dkv     replaces the TPU kernel `_dkv_kernel_btd`,
+//   flash_bwd_dq      replaces the TPU kernel `_dq_kernel_btd` (K2a),
+//   flash_bwd_dkv     replaces the TPU kernel `_dkv_kernel_btd` (K2b),
 // reached through `_flash_bwd_btd` and the custom VJP of `_flash_btd`
 // (causal);
 //   flash_bwd_fused   replaces the TPU kernel `_dqkv_kernel_btd` (K2c),
 // reached through `_flash_bwd_btd_fused` when FLASH_FUSED_BWD=1: dq, dk and
 // dv in one pass (below);
-//   flash_lse_bwd_dq  replaces the TPU kernel `_dq_kernel`,
-//   flash_lse_bwd_dkv replaces the TPU kernel `_dkv_kernel`,
+//   flash_lse_bwd_dq  replaces the TPU kernel `_dq_kernel` (K4a),
+//   flash_lse_bwd_dkv replaces the TPU kernel `_dkv_kernel` (K4b),
 // reached through `_flash_bwd` and the custom VJP of `flash_with_lse` (the
 // ring-attention hop), which add a `causal` flag and a `q_offset` placing
 // query row i at key position q_offset + i; all in
@@ -17,9 +17,9 @@
 //   nh_bwd_dq         replaces the TPU kernel `_dq_kernel4`,
 //   nh_bwd_dkv        replaces the TPU kernel `_dkv_kernel4`,
 // of the per-head-grid prototype (tools/proto_nh_kernel.py,
-// `flash_bwd_btd`): flash_bwd_dq/_dkv with the softmax in the natural base.
-// The lse cotangent of `flash_with_lse` reaches them folded into delta by
-// the caller (delta' = delta - dlse, a plain tensor op, as `_flash_bwd`
+// `flash_bwd_btd`, K5): flash_bwd_dq/_dkv with the softmax in the natural
+// base. The lse cotangent of `flash_with_lse` reaches them folded into delta
+// by the caller (delta' = delta - dlse, a plain tensor op, as `_flash_bwd`
 // does). Dead rows (no key inside the offset band) get p = 0 structurally,
 // so dq = 0 there and they add nothing to dk/dv, whatever their lse. The
 // entry points run the same kernels, specialised at compile time (kLse,
@@ -30,63 +30,91 @@
 // of storing the attention matrix, in base 2 with log2(e) folded into the
 // score scale (nh_bwd_*: base e, expf):
 //   p  = exp2(s * scale * log2e - lse * log2e) on allowed pairs, exactly 0
-//        on masked ones (never exponentiated);
+//        on masked ones;
 //   dp = dO V^T;  ds = p (dp - delta) * scale, times (1 - t^2) under
 //        soft-capping, with t the unmasked tanh(s * scale / cap);
 //   dq = ds K;  dk = ds^T Q;  dv = p^T dO.
 // delta = rowsum(out * dO) is computed by the caller (a plain tensor op, as
-// the JAX package does outside its kernels).
+// the JAX package does outside its kernels). As the TPU kernels do, the bf16
+// paths round P to bf16 before P^T dO and dS before dS K and dS^T Q, and
+// accumulate in float32. Tail tiles are masked (rows and keys at or past T
+// read as zeros, are never allowed, and are not stored), so any T >= 1
+// works.
 //
 // Layout: q (B, T, H, hd), k/v (B, T, KV, hd), addressed through the batch,
 // time and head strides the caller passes (the last dim dense); dO, dq a
 // dense (B, T, H, hd), dk/dv a dense (B, T, KV, hd); lse and delta dense
-// (B, H, T) float32. Grouped-query attention reads kv head h / (H / KV).
+// (B, H, T) float32. Grouped-query attention reads kv head h / (H / KV); the
+// dk/dv kernels sum the GQA group inside the block, with no atomics, so the
+// result does not depend on scheduling.
 //
-// flash_bwd_dq: one block per (q tile of 64 rows, head, batch), heaviest
-// (last) tiles first. It stages its Q and dO tile once and walks the k/v
-// tiles of the band, accumulating dq in float32.
+// bfloat16 dq and dk/dv (K2a, K2b, K4a, K4b, K5's backward): TMA + wgmma,
+// warp-specialised, in the shape of the forward (flash_fwd.cu): persistent
+// blocks of 384 threads, one per SM, walking work items in a static round
+// robin, heaviest first; one producer warpgroup (its registers given to the
+// consumers by setmaxnreg) whose first thread issues every TMA load into a
+// ring of two stages guarded by full and empty mbarriers; two consumer
+// warpgroups of 64 rows each.
+//   dq: an item is 128 query rows of one head. Q and dO are loaded once per
+//     item; K and V come in tiles of 64 keys. S = Q K^T and dP = dO V^T by
+//     wgmma m64n64k16 from shared memory (both K-major); dS is formed in
+//     registers and is the A operand of dq += dS K (K read through the
+//     transpose bit), as P is of O += P V in the forward.
+//   dk/dv: an item is 128 keys of one KV head (the first, heaviest, k tiles
+//     first). K and V are loaded once per item; the ring carries (query head
+//     of the GQA group, q tile) pairs of 64-row Q and dO tiles, with their
+//     lse and delta, which the producer's second warp stores beside them.
+//     S^T = K Q^T and dP^T = V dO^T by wgmma m64n64k16; P^T and dS^T are
+//     formed in registers (lse and delta broadcast along columns) and are
+//     the A operands of dV += P^T dO and dK += dS^T Q (Q and dO read N-major
+//     through the transpose bit). A stage is released only after both of
+//     those products have retired.
+//   Both: masks are applied only on tiles that need them (the diagonal, the
+//   window's edge, the tail, an offset band), decided per tile and
+//   warpgroup; a tile with no allowed pair for a warpgroup skips its
+//   products. The softcap is tested once per tile. P is exponentiated by
+//   ex2.approx.ftz alone (exp_fast: a probability below 2^-126 flushes to
+//   0, where exp2f spends four more instructions on every score to keep
+//   it; nh_bwd_*: expf).
 //
-// flash_bwd_dkv: one block per (k tile of 64 keys, KV head, batch). It stages
-// its K and V tile once, then loops over the query heads of the GQA group
-// and, for each, over the q tiles of the band (rows i with q_offset + i in
-// [k0, k0 + 64 + window - 1), or every row when not causal), accumulating
-// dk and dv in float32. The group sum stays inside the block: no atomics,
-// and the result does not depend on scheduling.
-//
-// flash_bwd_fused: flash_bwd_dkv's blocks (kFused), which also turn each
-// cell's dS into dq: after a q tile's dk/dv products the block holds that
-// tile's dS (64 queries x 64 keys) in shared memory and adds dS K to a
-// float32 dq buffer in device memory with atomic adds (red.global.add.f32).
-// The TPU kernel keeps the whole head's dq in VMEM across its k-tile sweep
+// K2c (flash_bwd_fused) runs an mma.sync kernel (m16n8k16, one block per
+// (k tile of 64 keys, KV head, batch), four warps, tiles staged by plain
+// loads) that computes dk and dv and also turns each cell's dS into dq:
+// after a q tile's dk/dv products the block holds that tile's dS (64
+// queries x 64 keys) in shared memory and adds dS K to a float32 dq buffer
+// in device memory with atomic adds (red.global.add.f32). The TPU kernel
+// keeps the whole head's dq in VMEM across its k-tile sweep
 // (`dq_all_scr`); T * hd * 4 bytes (256 KB at T=1024, hd=64) does not fit
 // in shared memory, and the blocks of one q tile's k tiles run on other SMs
-// in no order. The caller zeroes the buffer and casts it to q's dtype. S,
-// P and dP are computed once per cell, where flash_bwd_dq and
-// flash_bwd_dkv each compute them: 5 products of 2 * hd operations per
-// allowed pair in place of 7. The order of the atomic sums is not fixed, so
-// a float32 dq is reproducible only to a few ulps.
+// in no order. The caller zeroes the buffer and casts it to q's dtype. The
+// order of the atomic sums is not fixed, so a float32 dq is reproducible
+// only to a few ulps.
 //
-// Tail tiles are masked (rows at or past T read as zeros, are never
-// allowed, and are not stored), so any T >= 1 works.
+// float32 inputs take float32 FMAs from shared memory (four threads per
+// row; one block per tile), because TF32 would not hold the float32
+// tolerance.
 //
-// bfloat16 inputs take the tensor cores (mma.sync m16n8k16, bf16 in, fp32
-// accumulate; four warps of 16 rows each). As the TPU kernels do, P is
-// rounded to bf16 before P^T dO and dS before dS K and dS^T Q. float32 inputs
-// take float32 FMAs from shared memory (four threads per row), because TF32
-// would not hold the float32 tolerance.
-//
-// What bounds it on the H100: at GPT-2 shapes in bf16 the work is 3 (dq) and
-// 4 (dk/dv) products of 2 * hd operations per allowed pair, against ~130-150
-// MB moved: about 0.04-0.05 ms either way at the card's peak rates. What
-// limits this first version is latency: tile loads are not pipelined (every
-// block waits for each tile), each kernel recomputes S and dP on its own, and
-// the fp32 path is bound by FMA and shared-memory issue rates. TMA loads into
-// a ring of tiles and wgmma are the next steps. flash_bwd_fused does 5
-// products per pair (0.065 ms at the card's bf16 peak at B=16, T=1024,
-// H=12, hd=64) but adds one float32 atomic per dq element per cell: 4 * hd
-// bytes per query per k tile of its band (~430 MB there), resolved in L2.
+// What bounds it on the H100: the products. At the training shape (B=16,
+// T=1024, H=12, hd=64, causal) dq does 3 products of 2 * hd operations per
+// allowed pair (S, dP, dS K: 38.7 GFLOP, 0.039 ms at 989 TFLOP/s) and dk/dv
+// 4 (S, dP, P^T dO, dS^T Q: 51.6 GFLOP, 0.052 ms), against ~130-150 MB
+// moved (0.04-0.045 ms at 3.35 TB/s) and one exponential per allowed pair.
+// What the design attacks is latency: loads run a stage ahead of the
+// products, the two consumer warpgroups overlap one's elementwise work with
+// the other's products, persistent blocks hide an item's start-up and
+// epilogue under the next item's loads (Q and dO, or K and V, are released
+// as soon as the item's last products have read them), and interior tiles
+// run no mask. K2c does 5 products per pair (0.065 ms at the card's bf16
+// peak) but adds one float32 atomic per dq element per cell: 4 * hd bytes
+// per query per k tile of its band (~430 MB there), resolved in L2.
+
+#include <math.h>
+
+#include <algorithm>
+#include <numeric>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -141,43 +169,44 @@ __device__ __forceinline__ bool visible(const Params& p, int q_pos,
   return k_pos <= qg && (p.window <= 0 || qg - k_pos < p.window);
 }
 
-// The k/v tiles a q tile starting at q0 attends; lo > hi when the band
-// misses the chunk.
-template <bool kLse>
+// The k/v tiles of BK keys that a q tile of BQ rows starting at q0 attends;
+// lo > hi when the band misses the chunk.
+template <bool kLse, int BQ, int BK>
 __device__ __forceinline__ void kv_tile_range(const Params& p, int q0,
                                               int* lo, int* hi) {
   if (kLse && !p.causal) {
     *lo = 0;
-    *hi = (p.T - 1) / kBK;
+    *hi = (p.T - 1) / BK;
     return;
   }
   const int qg = kLse ? p.q_offset + q0 : q0;  // the tile's first row on the key axis
   const int k_first = p.window > 0 ? max(0, qg - (p.window - 1)) : 0;
-  *lo = k_first / kBK;
-  *hi = min(qg + kBQ - 1, p.T - 1) / kBK;
+  *lo = k_first / BK;
+  *hi = min(qg + BQ - 1, p.T - 1) / BK;
 }
 
-// The q tiles that attend a k tile starting at k0; lo > hi when none does.
-template <bool kLse>
+// The q tiles of BQ rows that attend a k tile of BK keys starting at k0; lo
+// > hi when none does.
+template <bool kLse, int BK, int BQ>
 __device__ __forceinline__ void q_tile_range(const Params& p, int k0,
                                              int* lo, int* hi) {
   if (!kLse) {
     const int q_last =
-        p.window > 0 ? min(p.T - 1, k0 + kBK - 1 + p.window - 1) : p.T - 1;
-    *lo = k0 / kBQ;
-    *hi = q_last / kBQ;
+        p.window > 0 ? min(p.T - 1, k0 + BK - 1 + p.window - 1) : p.T - 1;
+    *lo = k0 / BQ;
+    *hi = q_last / BQ;
     return;
   }
   if (!p.causal) {
     *lo = 0;
-    *hi = (p.T - 1) / kBQ;
+    *hi = (p.T - 1) / BQ;
     return;
   }
   const int q_last =
-      p.window > 0 ? min(p.T - 1, k0 + kBK - 1 + p.window - 1 - p.q_offset)
+      p.window > 0 ? min(p.T - 1, k0 + BK - 1 + p.window - 1 - p.q_offset)
                    : p.T - 1;
-  *lo = max(0, k0 - p.q_offset) / kBQ;
-  *hi = q_last < 0 ? -1 : q_last / kBQ;
+  *lo = max(0, k0 - p.q_offset) / BQ;
+  *hi = q_last < 0 ? -1 : q_last / BQ;
 }
 
 __device__ __forceinline__ long long row_index(const Params& p, int b,
@@ -230,7 +259,7 @@ __global__ void __launch_bounds__(kFmaThreads) flash_dq_f32_kernel(Params p) {
   }
 
   int kt_lo, kt_hi;
-  kv_tile_range<kLse>(p, q0, &kt_lo, &kt_hi);
+  kv_tile_range<kLse, kBQ, kBK>(p, q0, &kt_lo, &kt_hi);
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's k/v reads are done
@@ -343,7 +372,7 @@ __global__ void __launch_bounds__(kFmaThreads) flash_dkv_f32_kernel(Params p) {
   }
 
   int qt_lo, qt_hi;
-  q_tile_range<kLse>(p, k0, &qt_lo, &qt_hi);
+  q_tile_range<kLse, kBK, kBQ>(p, k0, &qt_lo, &qt_hi);
   for (int hh = 0; hh < rep; ++hh) {
     const int h = kvh * rep + hh;
     const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
@@ -481,8 +510,9 @@ __global__ void __launch_bounds__(kFmaThreads) flash_dkv_f32_kernel(Params p) {
   }
 }
 
+
 // ---------------------------------------------------------------------------
-// bfloat16: tensor-core path (mma.sync)
+// bfloat16, K2c: tensor-core path (mma.sync)
 // ---------------------------------------------------------------------------
 
 constexpr int kMmaThreads = 128;  // four warps, 16 rows each
@@ -499,129 +529,11 @@ __device__ __forceinline__ void a_frag(const __nv_bfloat16* m, int ld,
   a[3] = ld32(lo + 8 * ld + 8);
 }
 
-template <int HD, bool kLse, bool kNat>
-__global__ void __launch_bounds__(kMmaThreads) flash_dq_bf16_kernel(Params p) {
+template <int HD>
+__global__ void __launch_bounds__(kMmaThreads) flash_fused_bf16_kernel(Params p) {
   constexpr int kLd = HD + 8;       // +16 bytes: conflict-free fragment loads
   constexpr int kKSteps = HD / 16;  // k-steps over the head dim
-  constexpr int kDTiles = HD / 8;   // 8-wide column tiles of dq
-  extern __shared__ __align__(16) unsigned char smem_bf16[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_bf16);
-  __nv_bfloat16* dos = qs + kBQ * kLd;
-  __nv_bfloat16* ks = dos + kBQ * kLd;
-  __nv_bfloat16* vs = ks + kBK * kLd;
-
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (p.H / p.KV);
-  const int warp = threadIdx.x >> 5;
-  const int g = (threadIdx.x & 31) >> 2;
-  const int t4 = threadIdx.x & 3;
-  const int r_lo = 16 * warp + g;  // this thread's rows: r_lo and r_lo + 8
-  const int q_pos[2] = {q0 + r_lo, q0 + r_lo + 8};
-
-  const __nv_bfloat16* q =
-      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* k =
-      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* v =
-      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(p.dout) +
-                              row_index(p, b, 0, p.H, h) * HD;
-  load_tile_bf16<HD, kMmaThreads>(qs, q, p.q_st, q0, p.T);
-  load_tile_bf16<HD, kMmaThreads>(dos, dout, static_cast<long long>(p.H) * HD,
-                                  q0, p.T);
-  __syncthreads();
-  uint32_t qf[kKSteps][4], of[kKSteps][4];
-#pragma unroll
-  for (int kk = 0; kk < kKSteps; ++kk) {
-    a_frag(qs, kLd, r_lo, kk, t4, qf[kk]);
-    a_frag(dos, kLd, r_lo, kk, t4, of[kk]);
-  }
-  float lse2[2], delta[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const long long vec = (static_cast<long long>(b) * p.H + h) * p.T + q_pos[i];
-    lse2[i] = q_pos[i] < p.T ? to_base<kNat>(p.lse[vec]) : 0.f;
-    delta[i] = q_pos[i] < p.T ? p.delta[vec] : 0.f;
-  }
-
-  float dq[kDTiles][4];
-#pragma unroll
-  for (int d = 0; d < kDTiles; ++d) dq[d][0] = dq[d][1] = dq[d][2] = dq[d][3] = 0.f;
-
-  int kt_lo, kt_hi;
-  kv_tile_range<kLse>(p, q0, &kt_lo, &kt_hi);
-  for (int kt = kt_lo; kt <= kt_hi; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's k/v reads are done
-    load_tile_bf16<HD, kMmaThreads>(ks, k, p.k_st, k0, p.T);
-    load_tile_bf16<HD, kMmaThreads>(vs, v, p.v_st, k0, p.T);
-    __syncthreads();
-
-    // 16 keys at a time: S and dP for two 8-key column tiles, then dS as
-    // the A operand of dS K
-#pragma unroll
-    for (int kc = 0; kc < kBK / 16; ++kc) {
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int j = 2 * kc + jj;
-        s[jj][0] = s[jj][1] = s[jj][2] = s[jj][3] = 0.f;
-        dp[jj][0] = dp[jj][1] = dp[jj][2] = dp[jj][3] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < kKSteps; ++kk) {
-          const int off = (8 * j + g) * kLd + 16 * kk + 2 * t4;
-          mma_bf16(s[jj], qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3],
-                   ld32(ks + off), ld32(ks + off + 8));
-          mma_bf16(dp[jj], of[kk][0], of[kk][1], of[kk][2], of[kk][3],
-                   ld32(vs + off), ld32(vs + off + 8));
-        }
-      }
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int i = e >> 1;
-          const int key = k0 + 8 * (2 * kc + jj) + 2 * t4 + (e & 1);
-          float dfac;
-          const float s2 = score<kNat>(p, s[jj][e], &dfac);
-          s[jj][e] = visible<kLse>(p, q_pos[i], key)
-                         ? exp_base<kNat>(s2 - lse2[i]) * (dp[jj][e] - delta[i]) * dfac
-                         : 0.f;
-        }
-      }
-      const uint32_t a0 = pack_bf16(s[0][0], s[0][1]);
-      const uint32_t a1 = pack_bf16(s[0][2], s[0][3]);
-      const uint32_t a2 = pack_bf16(s[1][0], s[1][1]);
-      const uint32_t a3 = pack_bf16(s[1][2], s[1][3]);
-#pragma unroll
-      for (int d = 0; d < kDTiles; ++d) {
-        uint32_t b0, b1;
-        b_frag_rows(ks + 16 * kc * kLd + 8 * d, kLd, g, t4, &b0, &b1);
-        mma_bf16(dq[d], a0, a1, a2, a3, b0, b1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (q_pos[i] >= p.T) continue;
-    __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(p.dq) +
-                          row_index(p, b, q_pos[i], p.H, h) * HD;
-#pragma unroll
-    for (int d = 0; d < kDTiles; ++d) {
-      *reinterpret_cast<uint32_t*>(orow + 8 * d + 2 * t4) =
-          pack_bf16(dq[d][2 * i], dq[d][2 * i + 1]);
-    }
-  }
-}
-
-template <int HD, bool kLse, bool kNat, bool kFused>
-__global__ void __launch_bounds__(kMmaThreads) flash_dkv_bf16_kernel(Params p) {
-  constexpr int kLd = HD + 8;
-  constexpr int kKSteps = HD / 16;
-  constexpr int kDTiles = HD / 8;
+  constexpr int kDTiles = HD / 8;   // 8-wide column tiles of dk, dv, dq
   extern __shared__ __align__(16) unsigned char smem_bf16[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_bf16);
   __nv_bfloat16* vs = ks + kBK * kLd;
@@ -629,7 +541,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dkv_bf16_kernel(Params p) {
   __nv_bfloat16* dos = qs + kBQ * kLd;
   float* lse_s = reinterpret_cast<float*>(dos + kBQ * kLd);
   float* delta_s = lse_s + kBQ;
-  // kFused: the cell's dS, queries x keys (row stride kBK + 8)
+  // the cell's dS, queries x keys (row stride kBK + 8)
   __nv_bfloat16* dss = reinterpret_cast<__nv_bfloat16*>(delta_s + kBQ);
   constexpr int kLdS = kBK + 8;
 
@@ -658,7 +570,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dkv_bf16_kernel(Params p) {
   }
 
   int qt_lo, qt_hi;
-  q_tile_range<kLse>(p, k0, &qt_lo, &qt_hi);
+  q_tile_range<false, kBK, kBQ>(p, k0, &qt_lo, &qt_hi);
   for (int hh = 0; hh < rep; ++hh) {
     const int h = kvh * rep + hh;
     const __nv_bfloat16* q =
@@ -675,7 +587,7 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dkv_bf16_kernel(Params p) {
                                       p.T);
       for (int i = threadIdx.x; i < kBQ; i += kMmaThreads) {
         const bool in = q0 + i < p.T;
-        lse_s[i] = in ? to_base<kNat>(p.lse[vec0 + q0 + i]) : 0.f;
+        lse_s[i] = in ? p.lse[vec0 + q0 + i] * kLog2e : 0.f;
         delta_s[i] = in ? p.delta[vec0 + q0 + i] : 0.f;
       }
       __syncthreads();
@@ -710,15 +622,13 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dkv_bf16_kernel(Params p) {
             const int i = e >> 1;
             const int qc = 8 * (2 * kc + jj) + 2 * t4 + (e & 1);
             float dfac;
-            const float s2 = score<kNat>(p, s[jj][e], &dfac);
-            const bool live = visible<kLse>(p, q0 + qc, k_pos[i]);
-            const float pv = live ? exp_base<kNat>(s2 - lse_s[qc]) : 0.f;
+            const float s2 = score<false>(p, s[jj][e], &dfac);
+            const bool live = visible<false>(p, q0 + qc, k_pos[i]);
+            const float pv = live ? exp2f(s2 - lse_s[qc]) : 0.f;
             dp[jj][e] = live ? pv * (dp[jj][e] - delta_s[qc]) * dfac : 0.f;
             s[jj][e] = pv;
-            if (kFused) {
-              // rounded to bf16 for dS K, as it is for dS^T Q
-              dss[qc * kLdS + r_lo + 8 * i] = __float2bfloat16(dp[jj][e]);
-            }
+            // rounded to bf16 for dS K, as it is for dS^T Q
+            dss[qc * kLdS + r_lo + 8 * i] = __float2bfloat16(dp[jj][e]);
           }
         }
         const uint32_t pa0 = pack_bf16(s[0][0], s[0][1]);
@@ -739,36 +649,34 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dkv_bf16_kernel(Params p) {
         }
       }
 
-      if (kFused) {
-        // dq += dS K over this cell: warp w's queries q0 + 16w + g (+ 8),
-        // every column, added to the float32 dq in device memory
-        __syncthreads();  // every warp's dS is written
-        uint32_t da[kBK / 16][4];
+      // dq += dS K over this cell: warp w's queries q0 + 16w + g (+ 8),
+      // every column, added to the float32 dq in device memory
+      __syncthreads();  // every warp's dS is written
+      uint32_t da[kBK / 16][4];
 #pragma unroll
-        for (int kk = 0; kk < kBK / 16; ++kk) a_frag(dss, kLdS, r_lo, kk, t4, da[kk]);
-        float* o[2];
+      for (int kk = 0; kk < kBK / 16; ++kk) a_frag(dss, kLdS, r_lo, kk, t4, da[kk]);
+      float* o[2];
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          o[i] = q0 + r_lo + 8 * i < p.T
-                     ? static_cast<float*>(p.dq) +
-                           row_index(p, b, q0 + r_lo + 8 * i, p.H, h) * HD
-                     : nullptr;
+      for (int i = 0; i < 2; ++i) {
+        o[i] = q0 + r_lo + 8 * i < p.T
+                   ? static_cast<float*>(p.dq) +
+                         row_index(p, b, q0 + r_lo + 8 * i, p.H, h) * HD
+                   : nullptr;
+      }
+#pragma unroll
+      for (int d = 0; d < kDTiles; ++d) {
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < kBK / 16; ++kk) {
+          uint32_t b0, b1;
+          b_frag_rows(ks + 16 * kk * kLd + 8 * d, kLd, g, t4, &b0, &b1);
+          mma_bf16(acc, da[kk][0], da[kk][1], da[kk][2], da[kk][3], b0, b1);
         }
 #pragma unroll
-        for (int d = 0; d < kDTiles; ++d) {
-          float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-          for (int kk = 0; kk < kBK / 16; ++kk) {
-            uint32_t b0, b1;
-            b_frag_rows(ks + 16 * kk * kLd + 8 * d, kLd, g, t4, &b0, &b1);
-            mma_bf16(acc, da[kk][0], da[kk][1], da[kk][2], da[kk][3], b0, b1);
-          }
-#pragma unroll
-          for (int i = 0; i < 2; ++i) {
-            if (o[i] == nullptr) continue;
-            atomicAdd(o[i] + 8 * d + 2 * t4, acc[2 * i]);
-            atomicAdd(o[i] + 8 * d + 2 * t4 + 1, acc[2 * i + 1]);
-          }
+        for (int i = 0; i < 2; ++i) {
+          if (o[i] == nullptr) continue;
+          atomicAdd(o[i] + 8 * d + 2 * t4, acc[2 * i]);
+          atomicAdd(o[i] + 8 * d + 2 * t4 + 1, acc[2 * i + 1]);
         }
       }
     }
@@ -791,6 +699,553 @@ __global__ void __launch_bounds__(kMmaThreads) flash_dkv_bf16_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
+// bfloat16, K2a/K2b (K4a/K4b, K5): TMA + wgmma, warp-specialised
+// ---------------------------------------------------------------------------
+
+constexpr int kWgThreads = 384;  // the producer warpgroup, two consumers
+constexpr int kConsumers = 256;  // consumer threads: each releases a stage
+constexpr int kWgRows = 64;      // rows of one consumer warpgroup's products
+constexpr int kStages = 2;       // tiles in a ring
+constexpr int kDqRows = 128;     // dq: query rows per work item
+constexpr int kDqKeys = 64;      // dq: keys per K/V tile
+constexpr int kDkvKeys = 128;    // dk/dv: keys per work item
+constexpr int kDkvRows = 64;     // dk/dv: query rows per Q/dO tile
+static_assert(kDqKeys == 64 && kDkvRows == 64,
+              "S and dP (or their transposes) are wgmma m64n64k16 products");
+
+// A head's rows in shared memory: HD columns as boxes of at most 64 (128
+// bytes), each a (rows x kRowBytes) tile of its own, swizzled to the row's
+// bytes as TMA writes and wgmma reads them.
+template <int HD>
+struct HeadRows {
+  static constexpr int kBoxCols = HD < 64 ? HD : 64;
+  static constexpr int kBoxes = HD / kBoxCols;
+  static constexpr int kRowBytes = kBoxCols * 2;
+  static constexpr int kLayout = hopper::Swizzle<kRowBytes>::kLayout;
+  static constexpr uint32_t kSbo = 8 * kRowBytes;  // between 8-row groups
+};
+
+// Shared-memory layouts (byte offsets; every tile 1024-aligned, as the
+// 128-byte swizzle repeats every 1024 bytes). dq: Q and dO of the item, two
+// stages of K and V, then the barriers (Q full and empty, full[] and
+// empty[] of the ring).
+template <int HD>
+struct DqTiles : HeadRows<HD> {
+  using R = HeadRows<HD>;
+  static constexpr int kQBox = kDqRows * R::kRowBytes;  // a box of Q (or dO)
+  static constexpr int kKBox = kDqKeys * R::kRowBytes;  // a box of K (or V)
+  static constexpr int kQTile = kQBox * R::kBoxes;
+  static constexpr int kKTile = kKBox * R::kBoxes;
+  static constexpr int kQ = 0;
+  static constexpr int kDO = kQ + kQTile;
+  static constexpr int kK = kDO + kQTile;
+  static constexpr int kV = kK + kStages * kKTile;
+  static constexpr int kBars = kV + kStages * kKTile;
+  static constexpr int kSmem = kBars + 8 * (2 + 2 * kStages) + 1024;  // + align
+};
+
+// dk/dv: K and V of the item, two stages of Q, dO and (lse, delta), then the
+// barriers (K/V full and empty, full[] and empty[] of the ring).
+template <int HD>
+struct DkvTiles : HeadRows<HD> {
+  using R = HeadRows<HD>;
+  static constexpr int kKBox = kDkvKeys * R::kRowBytes;
+  static constexpr int kQBox = kDkvRows * R::kRowBytes;
+  static constexpr int kKTile = kKBox * R::kBoxes;
+  static constexpr int kQTile = kQBox * R::kBoxes;
+  static constexpr int kK = 0;
+  static constexpr int kV = kK + kKTile;
+  static constexpr int kQ = kV + kKTile;
+  static constexpr int kDO = kQ + kStages * kQTile;
+  static constexpr int kVec = kDO + kStages * kQTile;  // lse then delta, per stage
+  static constexpr int kBars = kVec + kStages * 2 * kDkvRows * 4;
+  static constexpr int kSmem = kBars + 8 * (2 + 2 * kStages) + 1024;
+};
+
+// Which of a tile's (row, key) pairs are visible, for rows [q0, q0 + nq)
+// and keys [k0, k0 + nk): none, some (the tile needs a mask), or all.
+constexpr int kNone = 0, kSome = 1, kAll = 2;
+
+template <bool kLse>
+__device__ __forceinline__ int tile_class(const Params& p, int q0, int nq,
+                                          int k0, int nk) {
+  if (q0 >= p.T || k0 >= p.T) return kNone;
+  const bool tail = q0 + nq > p.T || k0 + nk > p.T;
+  if (kLse && !p.causal) return tail ? kSome : kAll;
+  const int lo = kLse ? p.q_offset + q0 : q0;  // the first row on the key axis
+  const int hi = lo + nq - 1;
+  if (k0 > hi) return kNone;  // every key after every row
+  if (p.window > 0 && lo - (k0 + nk - 1) >= p.window) return kNone;
+  if (tail || k0 + nk - 1 > lo || (p.window > 0 && hi - k0 >= p.window)) {
+    return kSome;
+  }
+  return kAll;
+}
+
+template <int HD, bool kLse, bool kNat>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const Params p) {
+  using L = DqTiles<HD>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t sbase = (hopper::smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_q = sbase + L::kBars;
+  const uint32_t bar_q_empty = bar_q + 8;
+  const uint32_t bar_full = bar_q + 16;               // + 8 s
+  const uint32_t bar_empty = bar_full + 8 * kStages;  // + 8 s
+
+  // Work items (q tile, head, batch), the q tile fastest and reversed so
+  // each (head, batch)'s heaviest tiles come first; block i takes items i,
+  // i + G, i + 2G, ... (G = gridDim.x, coprime with the q tiles per head).
+  const int n_q = (p.T + kDqRows - 1) / kDqRows;
+  const int n_items = n_q * p.H * p.B;
+  auto item = [&](int w, int* q0, int* h, int* b, int* kt_lo) {
+    *q0 = (n_q - 1 - w % n_q) * kDqRows;
+    *h = (w / n_q) % p.H;
+    *b = w / (n_q * p.H);
+    int kt_hi;
+    kv_tile_range<kLse, kDqRows, kDqKeys>(p, *q0, kt_lo, &kt_hi);
+    return max(0, kt_hi - *kt_lo + 1);  // k/v tiles
+  };
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bar_q, 1);
+    hopper::mbar_init(bar_q_empty, kConsumers);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(bar_full + 8 * s, 1);
+      hopper::mbar_init(bar_empty + 8 * s, kConsumers);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: one thread issues every load. The ring runs on across work
+    // items; its phase flips at each wrap, and a stage is refilled only once
+    // its empty barrier has completed (every consumer thread released it).
+    // An item's Q and dO are loaded once the consumers have released the
+    // last ones.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      hopper::tma_prefetch_map(&tq);
+      hopper::tma_prefetch_map(&tk);
+      hopper::tma_prefetch_map(&tv);
+      hopper::tma_prefetch_map(&tdo);
+      int stage = 0, phase = 0, q_phase = 0;
+      for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
+        int q0, h, b, kt_lo;
+        const int n_tiles = item(w, &q0, &h, &b, &kt_lo);
+        if (n_tiles == 0) continue;
+        const int kvh = h / (p.H / p.KV);
+        hopper::mbar_wait(bar_q_empty, q_phase ^ 1);
+        hopper::mbar_expect_tx(bar_q, 2 * L::kQTile);
+        for (int c = 0; c < L::kBoxes; ++c) {
+          hopper::tma_load_4d(sbase + L::kQ + c * L::kQBox, &tq, bar_q,
+                              c * L::kBoxCols, h, q0, b);
+          hopper::tma_load_4d(sbase + L::kDO + c * L::kQBox, &tdo, bar_q,
+                              c * L::kBoxCols, h, q0, b);
+        }
+        q_phase ^= 1;
+        for (int i = 0; i < n_tiles; ++i) {
+          const int k0 = (kt_lo + i) * kDqKeys;
+          hopper::mbar_wait(bar_empty + 8 * stage, phase ^ 1);
+          hopper::mbar_expect_tx(bar_full + 8 * stage, 2 * L::kKTile);
+          for (int c = 0; c < L::kBoxes; ++c) {
+            hopper::tma_load_4d(sbase + L::kK + stage * L::kKTile + c * L::kKBox,
+                                &tk, bar_full + 8 * stage, c * L::kBoxCols, kvh,
+                                k0, b);
+            hopper::tma_load_4d(sbase + L::kV + stage * L::kKTile + c * L::kKBox,
+                                &tv, bar_full + 8 * stage, c * L::kBoxCols, kvh,
+                                k0, b);
+          }
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = threadIdx.x / 128 - 1;  // this consumer warpgroup
+    const int warp = (threadIdx.x / 32) & 3;
+    const int g = (threadIdx.x & 31) >> 2;
+    const int t4 = threadIdx.x & 3;
+    const uint32_t q_tile = sbase + L::kQ + cw * kWgRows * L::kRowBytes;
+    const uint32_t do_tile = sbase + L::kDO + cw * kWgRows * L::kRowBytes;
+    int stage = 0, phase = 0, q_phase = 0;
+    for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
+      int q0, h, b, kt_lo;
+      const int n_tiles = item(w, &q0, &h, &b, &kt_lo);
+      const int r0 = q0 + kWgRows * cw;  // the warpgroup's first row
+      const int row[2] = {r0 + 16 * warp + g, r0 + 16 * warp + g + 8};
+      float lse2[2], delta[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const long long vec = (static_cast<long long>(b) * p.H + h) * p.T + row[i];
+        lse2[i] = row[i] < p.T ? to_base<kNat>(p.lse[vec]) : 0.f;
+        delta[i] = row[i] < p.T ? p.delta[vec] : 0.f;
+      }
+      float dq[HD / 2];
+#pragma unroll
+      for (int j = 0; j < HD / 2; ++j) dq[j] = 0.f;
+
+      if (n_tiles > 0) hopper::mbar_wait(bar_q, q_phase);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int k0 = (kt_lo + i) * kDqKeys;
+        const uint32_t k_tile = sbase + L::kK + stage * L::kKTile;
+        const uint32_t v_tile = sbase + L::kV + stage * L::kKTile;
+        hopper::mbar_wait(bar_full + 8 * stage, phase);
+        const int cls = tile_class<kLse>(p, r0, kWgRows, k0, kDqKeys);
+        if (cls != kNone) {
+          // S = Q K^T and dP = dO V^T over the head dim, 16 columns a step;
+          // s[4j + e] is row row[e / 2], key k0 + 8j + 2 t4 + e % 2
+          float s[kDqKeys / 2], dp[kDqKeys / 2];
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < HD / 16; ++kk) {
+            const uint32_t at = (kk * 16 / L::kBoxCols) * L::kQBox + (kk * 16 % L::kBoxCols) * 2;
+            const uint32_t bt = (kk * 16 / L::kBoxCols) * L::kKBox + (kk * 16 % L::kBoxCols) * 2;
+            hopper::wgmma_m64n64k16_ss(
+                s, hopper::smem_desc(q_tile + at, 16, L::kSbo, L::kLayout),
+                hopper::smem_desc(k_tile + bt, 16, L::kSbo, L::kLayout), kk > 0);
+            hopper::wgmma_m64n64k16_ss(
+                dp, hopper::smem_desc(do_tile + at, 16, L::kSbo, L::kLayout),
+                hopper::smem_desc(v_tile + bt, 16, L::kSbo, L::kLayout), kk > 0);
+          }
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(s);
+          hopper::fence_regs(dp);
+          if (i == n_tiles - 1) hopper::mbar_arrive(bar_q_empty);  // Q and dO are read
+
+          // dS = P (dP - delta) d(score)/d(raw), in dp
+          if (p.softcap > 0.f) {
+            const float cap = to_base<kNat>(p.softcap);
+            const float inv = p.scale / p.softcap;
+#pragma unroll
+            for (int j = 0; j < kDqKeys / 2; ++j) {
+              const int r = (j >> 1) & 1;
+              const float t = tanhf(s[j] * inv);
+              dp[j] = exp_fast<kNat>(cap * t - lse2[r]) * (dp[j] - delta[r]) *
+                      (p.scale * (1.f - t * t));
+            }
+          } else {
+            const float c = to_base<kNat>(p.scale);
+#pragma unroll
+            for (int j = 0; j < kDqKeys / 2; ++j) {
+              const int r = (j >> 1) & 1;
+              dp[j] = exp_fast<kNat>(s[j] * c - lse2[r]) * (dp[j] - delta[r]) * p.scale;
+            }
+          }
+          if (cls == kSome) {  // masked pairs are exactly 0
+#pragma unroll
+            for (int j = 0; j < kDqKeys / 2; ++j) {
+              const int key = k0 + 8 * (j >> 2) + 2 * t4 + (j & 1);
+              if (!visible<kLse>(p, row[(j >> 1) & 1], key)) dp[j] = 0.f;
+            }
+          }
+
+          // dq += dS K, 16 keys a step: dS's A fragment for keys 16c.. is
+          // the accumulators 8c..8c+7, rounded to bf16; K read N-major
+          uint32_t da[kDqKeys / 4];
+#pragma unroll
+          for (int j = 0; j < kDqKeys / 4; ++j) da[j] = pack_bf16(dp[2 * j], dp[2 * j + 1]);
+          hopper::wgmma_fence();
+#pragma unroll
+          for (int c = 0; c < kDqKeys / 16; ++c) {
+            hopper::wgmma_rs_tb<HD>(
+                dq, da[4 * c], da[4 * c + 1], da[4 * c + 2], da[4 * c + 3],
+                hopper::smem_desc(k_tile + c * 16 * L::kRowBytes, L::kKBox, L::kSbo,
+                                  L::kLayout));
+          }
+          hopper::wgmma_commit();
+          hopper::wgmma_wait<0>();
+          hopper::fence_regs(dq);
+          hopper::fence_regs(da);
+        } else if (i == n_tiles - 1) {
+          hopper::mbar_arrive(bar_q_empty);
+        }
+        hopper::mbar_arrive(bar_empty + 8 * stage);  // K and V of this stage are read
+        if (++stage == kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      if (n_tiles > 0) q_phase ^= 1;
+
+      // every row of the tile is written; a row with no allowed key as 0
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (row[r] >= p.T) continue;
+        __nv_bfloat16* orow =
+            static_cast<__nv_bfloat16*>(p.dq) + row_index(p, b, row[r], p.H, h) * HD;
+#pragma unroll
+        for (int c = 0; c < HD / 8; ++c) {
+          *reinterpret_cast<uint32_t*>(orow + 8 * c + 2 * t4) =
+              pack_bf16(dq[4 * c + 2 * r], dq[4 * c + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <int HD, bool kLse, bool kNat>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const Params p) {
+  using L = DkvTiles<HD>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = hopper::smem_addr(smem_raw);
+  const uint32_t sbase = (raw + 1023u) & ~1023u;
+  float* const vecs = reinterpret_cast<float*>(smem_raw + (sbase - raw) + L::kVec);
+  const uint32_t bar_kv = sbase + L::kBars;
+  const uint32_t bar_kv_empty = bar_kv + 8;
+  const uint32_t bar_full = bar_kv + 16;              // + 8 s
+  const uint32_t bar_empty = bar_full + 8 * kStages;  // + 8 s
+
+  // Work items (k tile, KV head, batch), the k tile fastest: the first k
+  // tiles have the most work. Each walks, for every query head of its GQA
+  // group, the q tiles of its band.
+  const int rep = p.H / p.KV;
+  const int n_k = (p.T + kDkvKeys - 1) / kDkvKeys;
+  const int n_items = n_k * p.KV * p.B;
+  auto item = [&](int w, int* k0, int* kvh, int* b, int* qt_lo) {
+    *k0 = (w % n_k) * kDkvKeys;
+    *kvh = (w / n_k) % p.KV;
+    *b = w / (n_k * p.KV);
+    int qt_hi;
+    q_tile_range<kLse, kDkvKeys, kDkvRows>(p, *k0, qt_lo, &qt_hi);
+    return max(0, qt_hi - *qt_lo + 1);  // q tiles per query head
+  };
+
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(bar_kv, 1);
+    hopper::mbar_init(bar_kv_empty, kConsumers);
+    for (int s = 0; s < kStages; ++s) {
+      hopper::mbar_init(bar_full + 8 * s, 1 + 32);  // the TMA thread, the lse warp
+      hopper::mbar_init(bar_empty + 8 * s, kConsumers);
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer: its first thread issues every TMA load (an item's K and V
+    // once the consumers have released the last ones, then the Q and dO
+    // tiles into the ring); its second warp stores each tile's lse (in the
+    // softmax's base) and delta into the same stage. Both wait on the
+    // stage's empty barrier and arrive on its full one.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      hopper::tma_prefetch_map(&tq);
+      hopper::tma_prefetch_map(&tk);
+      hopper::tma_prefetch_map(&tv);
+      hopper::tma_prefetch_map(&tdo);
+      int stage = 0, phase = 0, kv_phase = 0;
+      for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
+        int k0, kvh, b, qt_lo;
+        const int n_tiles = item(w, &k0, &kvh, &b, &qt_lo);
+        if (n_tiles == 0) continue;
+        hopper::mbar_wait(bar_kv_empty, kv_phase ^ 1);
+        hopper::mbar_expect_tx(bar_kv, 2 * L::kKTile);
+        for (int c = 0; c < L::kBoxes; ++c) {
+          hopper::tma_load_4d(sbase + L::kK + c * L::kKBox, &tk, bar_kv,
+                              c * L::kBoxCols, kvh, k0, b);
+          hopper::tma_load_4d(sbase + L::kV + c * L::kKBox, &tv, bar_kv,
+                              c * L::kBoxCols, kvh, k0, b);
+        }
+        kv_phase ^= 1;
+        for (int hh = 0; hh < rep; ++hh) {
+          const int h = kvh * rep + hh;
+          for (int i = 0; i < n_tiles; ++i) {
+            const int q0 = (qt_lo + i) * kDkvRows;
+            hopper::mbar_wait(bar_empty + 8 * stage, phase ^ 1);
+            hopper::mbar_expect_tx(bar_full + 8 * stage, 2 * L::kQTile);
+            for (int c = 0; c < L::kBoxes; ++c) {
+              hopper::tma_load_4d(sbase + L::kQ + stage * L::kQTile + c * L::kQBox,
+                                  &tq, bar_full + 8 * stage, c * L::kBoxCols, h,
+                                  q0, b);
+              hopper::tma_load_4d(sbase + L::kDO + stage * L::kQTile + c * L::kQBox,
+                                  &tdo, bar_full + 8 * stage, c * L::kBoxCols, h,
+                                  q0, b);
+            }
+            if (++stage == kStages) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+        }
+      }
+    } else if (threadIdx.x >= 32 && threadIdx.x < 64) {
+      const int lane = threadIdx.x - 32;
+      int stage = 0, phase = 0;
+      for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
+        int k0, kvh, b, qt_lo;
+        const int n_tiles = item(w, &k0, &kvh, &b, &qt_lo);
+        for (int hh = 0; hh < rep; ++hh) {
+          const long long vec0 = (static_cast<long long>(b) * p.H + kvh * rep + hh) * p.T;
+          for (int i = 0; i < n_tiles; ++i) {
+            const int q0 = (qt_lo + i) * kDkvRows;
+            float* lse_s = vecs + stage * 2 * kDkvRows;
+            hopper::mbar_wait(bar_empty + 8 * stage, phase ^ 1);
+            for (int r = lane; r < kDkvRows; r += 32) {
+              const bool in = q0 + r < p.T;
+              lse_s[r] = in ? to_base<kNat>(p.lse[vec0 + q0 + r]) : 0.f;
+              lse_s[kDkvRows + r] = in ? p.delta[vec0 + q0 + r] : 0.f;
+            }
+            hopper::mbar_arrive(bar_full + 8 * stage);
+            if (++stage == kStages) {
+              stage = 0;
+              phase ^= 1;
+            }
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int cw = threadIdx.x / 128 - 1;  // this consumer warpgroup
+    const int warp = (threadIdx.x / 32) & 3;
+    const int g = (threadIdx.x & 31) >> 2;
+    const int t4 = threadIdx.x & 3;
+    const uint32_t k_tile = sbase + L::kK + cw * kWgRows * L::kRowBytes;
+    const uint32_t v_tile = sbase + L::kV + cw * kWgRows * L::kRowBytes;
+    int stage = 0, phase = 0, kv_phase = 0;
+    for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
+      int k0, kvh, b, qt_lo;
+      const int n_tiles = item(w, &k0, &kvh, &b, &qt_lo);
+      const int kc0 = k0 + kWgRows * cw;  // the warpgroup's first key
+      const int key[2] = {kc0 + 16 * warp + g, kc0 + 16 * warp + g + 8};
+      float dk[HD / 2], dv[HD / 2];
+#pragma unroll
+      for (int j = 0; j < HD / 2; ++j) dk[j] = dv[j] = 0.f;
+
+      if (n_tiles > 0) hopper::mbar_wait(bar_kv, kv_phase);
+      for (int hh = 0; hh < rep; ++hh) {
+        for (int i = 0; i < n_tiles; ++i) {
+          const int q0 = (qt_lo + i) * kDkvRows;
+          const bool last = hh == rep - 1 && i == n_tiles - 1;
+          const uint32_t q_st = sbase + L::kQ + stage * L::kQTile;
+          const uint32_t do_st = sbase + L::kDO + stage * L::kQTile;
+          const float* lse_s = vecs + stage * 2 * kDkvRows;
+          const float* delta_s = lse_s + kDkvRows;
+          hopper::mbar_wait(bar_full + 8 * stage, phase);
+          const int cls = tile_class<kLse>(p, q0, kDkvRows, kc0, kWgRows);
+          if (cls != kNone) {
+            // S^T = K Q^T and dP^T = V dO^T; s[4j + e] is key key[e / 2],
+            // query q0 + 8j + 2 t4 + e % 2
+            float s[kDkvRows / 2], dp[kDkvRows / 2];
+            hopper::wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < HD / 16; ++kk) {
+              const uint32_t at = (kk * 16 / L::kBoxCols) * L::kKBox + (kk * 16 % L::kBoxCols) * 2;
+              const uint32_t bt = (kk * 16 / L::kBoxCols) * L::kQBox + (kk * 16 % L::kBoxCols) * 2;
+              hopper::wgmma_m64n64k16_ss(
+                  s, hopper::smem_desc(k_tile + at, 16, L::kSbo, L::kLayout),
+                  hopper::smem_desc(q_st + bt, 16, L::kSbo, L::kLayout), kk > 0);
+              hopper::wgmma_m64n64k16_ss(
+                  dp, hopper::smem_desc(v_tile + at, 16, L::kSbo, L::kLayout),
+                  hopper::smem_desc(do_st + bt, 16, L::kSbo, L::kLayout), kk > 0);
+            }
+            hopper::wgmma_commit();
+            hopper::wgmma_wait<0>();
+            hopper::fence_regs(s);
+            hopper::fence_regs(dp);
+            if (last) hopper::mbar_arrive(bar_kv_empty);  // K and V are read
+
+            // P^T in s, dS^T in dp; lse and delta by column (query)
+            if (p.softcap > 0.f) {
+              const float cap = to_base<kNat>(p.softcap);
+              const float inv = p.scale / p.softcap;
+#pragma unroll
+              for (int j = 0; j < kDkvRows / 2; ++j) {
+                const int col = 8 * (j >> 2) + 2 * t4 + (j & 1);
+                const float t = tanhf(s[j] * inv);
+                s[j] = exp_fast<kNat>(cap * t - lse_s[col]);
+                dp[j] = s[j] * (dp[j] - delta_s[col]) * (p.scale * (1.f - t * t));
+              }
+            } else {
+              const float c = to_base<kNat>(p.scale);
+#pragma unroll
+              for (int j = 0; j < kDkvRows / 2; ++j) {
+                const int col = 8 * (j >> 2) + 2 * t4 + (j & 1);
+                s[j] = exp_fast<kNat>(s[j] * c - lse_s[col]);
+                dp[j] = s[j] * (dp[j] - delta_s[col]) * p.scale;
+              }
+            }
+            if (cls == kSome) {  // masked pairs are exactly 0
+#pragma unroll
+              for (int j = 0; j < kDkvRows / 2; ++j) {
+                const int q_pos = q0 + 8 * (j >> 2) + 2 * t4 + (j & 1);
+                if (!visible<kLse>(p, q_pos, key[(j >> 1) & 1])) s[j] = dp[j] = 0.f;
+              }
+            }
+
+            // dV += P^T dO and dK += dS^T Q, 16 queries a step, P^T and dS^T
+            // rounded to bf16; dO and Q read N-major
+            uint32_t pa[kDkvRows / 4], da[kDkvRows / 4];
+#pragma unroll
+            for (int j = 0; j < kDkvRows / 4; ++j) {
+              pa[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
+              da[j] = pack_bf16(dp[2 * j], dp[2 * j + 1]);
+            }
+            hopper::wgmma_fence();
+#pragma unroll
+            for (int c = 0; c < kDkvRows / 16; ++c) {
+              hopper::wgmma_rs_tb<HD>(
+                  dv, pa[4 * c], pa[4 * c + 1], pa[4 * c + 2], pa[4 * c + 3],
+                  hopper::smem_desc(do_st + c * 16 * L::kRowBytes, L::kQBox, L::kSbo,
+                                    L::kLayout));
+              hopper::wgmma_rs_tb<HD>(
+                  dk, da[4 * c], da[4 * c + 1], da[4 * c + 2], da[4 * c + 3],
+                  hopper::smem_desc(q_st + c * 16 * L::kRowBytes, L::kQBox, L::kSbo,
+                                    L::kLayout));
+            }
+            hopper::wgmma_commit();
+            hopper::wgmma_wait<0>();
+            hopper::fence_regs(dv);
+            hopper::fence_regs(dk);
+            hopper::fence_regs(pa);
+            hopper::fence_regs(da);
+          } else if (last) {
+            hopper::mbar_arrive(bar_kv_empty);
+          }
+          hopper::mbar_arrive(bar_empty + 8 * stage);  // Q, dO, lse and delta of this stage are read
+          if (++stage == kStages) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+      if (n_tiles > 0) kv_phase ^= 1;
+
+      // every key of the tile is written; a key no query attends as 0
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (key[r] >= p.T) continue;
+        const long long o = row_index(p, b, key[r], p.KV, kvh) * HD;
+        __nv_bfloat16* dko = static_cast<__nv_bfloat16*>(p.dk) + o;
+        __nv_bfloat16* dvo = static_cast<__nv_bfloat16*>(p.dv) + o;
+#pragma unroll
+        for (int c = 0; c < HD / 8; ++c) {
+          *reinterpret_cast<uint32_t*>(dko + 8 * c + 2 * t4) =
+              pack_bf16(dk[4 * c + 2 * r], dk[4 * c + 2 * r + 1]);
+          *reinterpret_cast<uint32_t*>(dvo + 8 * c + 2 * t4) =
+              pack_bf16(dv[4 * c + 2 * r], dv[4 * c + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -805,6 +1260,46 @@ cudaError_t launch(Kernel kernel, const Params& p, int heads, int threads,
   return cudaGetLastError();
 }
 
+// Tensor maps of q, k, v (the caller's strides) and dO (dense), each loaded
+// in boxes of `q_rows` (q, dO) or `k_rows` (k, v) rows, then one persistent
+// block per SM, the count made coprime with `period` (the tiles per head of
+// the kernel's work items), at most one per item. A map that
+// cuTensorMapEncodeTiled refuses (a stride TMA cannot take) fails the
+// launch with cudaErrorInvalidValue.
+template <int HD, typename Kernel>
+cudaError_t launch_wg(Kernel kernel, const Params& p, int q_rows, int k_rows,
+                      int smem, int period, int n_items, cudaStream_t stream) {
+  using R = HeadRows<HD>;
+  constexpr CUtensorMapSwizzle kSwizzle = hopper::Swizzle<R::kRowBytes>::kMap;
+  const long long hd = HD;
+  CUtensorMap tq, tk, tv, tdo;
+  if (!hopper::make_map_bf16(&tq, p.q, HD, p.H, p.T, p.B, p.q_sh, p.q_st,
+                             p.q_sb, R::kBoxCols, q_rows, kSwizzle) ||
+      !hopper::make_map_bf16(&tk, p.k, HD, p.KV, p.T, p.B, p.k_sh, p.k_st,
+                             p.k_sb, R::kBoxCols, k_rows, kSwizzle) ||
+      !hopper::make_map_bf16(&tv, p.v, HD, p.KV, p.T, p.B, p.v_sh, p.v_st,
+                             p.v_sb, R::kBoxCols, k_rows, kSwizzle) ||
+      !hopper::make_map_bf16(&tdo, p.dout, HD, p.H, p.T, p.B, hd, p.H * hd,
+                             static_cast<long long>(p.T) * p.H * hd, R::kBoxCols,
+                             q_rows, kSwizzle)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err != cudaSuccess) return err;
+  int blocks = sms;
+  while (blocks > sms / 2 && std::gcd(blocks, period) != 1) --blocks;
+  blocks = std::min(blocks, n_items);
+  kernel<<<blocks, kWgThreads, smem, stream>>>(tq, tk, tv, tdo, p);
+  return cudaGetLastError();
+}
+
 template <int HD, bool kLse, bool kNat>
 cudaError_t launch_dq(const Params& p, int dtype, cudaStream_t stream) {
   if (dtype == 0) {
@@ -814,10 +1309,9 @@ cudaError_t launch_dq(const Params& p, int dtype, cudaStream_t stream) {
     return launch(flash_dq_f32_kernel<HD, kLse, kNat>, p, p.H, kFmaThreads,
                   smem, stream);
   }
-  const int smem =
-      static_cast<int>((2 * kBQ + 2 * kBK) * (HD + 8) * sizeof(__nv_bfloat16));
-  return launch(flash_dq_bf16_kernel<HD, kLse, kNat>, p, p.H, kMmaThreads,
-                smem, stream);
+  const int n_q = (p.T + kDqRows - 1) / kDqRows;
+  return launch_wg<HD>(flash_dq_bf16_kernel<HD, kLse, kNat>, p, kDqRows, kDqKeys,
+                       DqTiles<HD>::kSmem, n_q, n_q * p.H * p.B, stream);
 }
 
 template <int HD, bool kLse, bool kNat, bool kFused>
@@ -830,12 +1324,18 @@ cudaError_t launch_dkv(const Params& p, int dtype, cudaStream_t stream) {
     return launch(flash_dkv_f32_kernel<HD, kLse, kNat, kFused>, p, p.KV,
                   kFmaThreads, smem, stream);
   }
-  const int smem = static_cast<int>(
-      (2 * kBK + 2 * kBQ) * (HD + 8) * sizeof(__nv_bfloat16) +
-      2 * kBQ * sizeof(float) +
-      (kFused ? kBQ * (kBK + 8) * sizeof(__nv_bfloat16) : 0));
-  return launch(flash_dkv_bf16_kernel<HD, kLse, kNat, kFused>, p, p.KV,
-                kMmaThreads, smem, stream);
+  if constexpr (kFused) {
+    static_assert(!kLse && !kNat, "K2c runs the plain causal band in base 2");
+    const int smem = static_cast<int>(
+        (2 * kBK + 2 * kBQ) * (HD + 8) * sizeof(__nv_bfloat16) +
+        2 * kBQ * sizeof(float) + kBQ * (kBK + 8) * sizeof(__nv_bfloat16));
+    return launch(flash_fused_bf16_kernel<HD>, p, p.KV, kMmaThreads, smem, stream);
+  } else {
+    const int n_k = (p.T + kDkvKeys - 1) / kDkvKeys;
+    return launch_wg<HD>(flash_dkv_bf16_kernel<HD, kLse, kNat>, p, kDkvRows,
+                         kDkvKeys, DkvTiles<HD>::kSmem, n_k, n_k * p.KV * p.B,
+                         stream);
+  }
 }
 
 Params make_params(const void* q, const void* k, const void* v,

@@ -24,6 +24,17 @@ __device__ __forceinline__ float exp_base(float x) {
   return kNat ? expf(x) : exp2f(x);
 }
 
+// exp_base with base 2 taken by the special-function unit alone
+// (ex2.approx.ftz: results below 2^-126 flush to 0, where exp2f spends four
+// more instructions to keep them); the natural base keeps expf.
+template <bool kNat>
+__device__ __forceinline__ float exp_fast(float x) {
+  if (kNat) return expf(x);
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // A natural-domain value (a score scale, an lse) in the softmax's base.
 template <bool kNat>
 __device__ __forceinline__ float to_base(float x) {

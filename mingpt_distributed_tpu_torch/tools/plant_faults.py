@@ -9,7 +9,8 @@ come along and are reused where their source is unchanged: they are keyed
 by a hash of it). A kernel fault (a source under ``ops/csrc``) runs
 phase 1's kernel checks: ``fwd_case`` (K1) on every case of
 ``KERNEL_CASES`` and ``FWD_RING_CASES``, ``bwd_case`` (K2a, K2b) and
-``fused_case`` (K2c) on every case of ``KERNEL_CASES`` and ``lse_case``
+``fused_case`` (K2c) on every case of ``KERNEL_CASES`` and
+``BWD_RING_CASES``, ``lse_case``
 (K3, K4a, K4b) on every case of ``LSE_CASES`` and ``LSE_RING_CASES``, each
 in bfloat16 and float32, ``nh_case`` (K5) on every case of ``NH_CASES`` and
 ``exp_case`` (K6) on every case of ``EXP_CASES``. An edit whose text does
@@ -45,16 +46,36 @@ FAULTS = {
     # both dq kernels (fp32, bf16) read delta as 0: ds = p * dp
     "dq_drops_delta": ("K2a/K4a drop delta", "ops/csrc/flash_bwd.cu",
                        [("p.delta[vec]", "0.f", 2)]),
-    # both dk/dv kernels stop one q tile short of the band's end
+    # the dk/dv kernels (fp32, bf16; and K2c's, which shares the fp32 one's
+    # loop) stop one q tile short of the band's end
     "dkv_skips_last_q_tile": (
-        "K2b/K4b skip the last q tile of the band", "ops/csrc/flash_bwd.cu",
+        "K2b/K4b/K5 dkv (and K2c) skip the last q tile of the band",
+        "ops/csrc/flash_bwd.cu",
         [("for (int qt = qt_lo; qt <= qt_hi; ++qt) {",
-          "for (int qt = qt_lo; qt < qt_hi; ++qt) {", 2)]),
-    # the dk/dv kernels stop one q tile short of an offset band only
+          "for (int qt = qt_lo; qt < qt_hi; ++qt) {", 2),
+         ("return max(0, qt_hi - *qt_lo + 1);  // q tiles per query head",
+          "return max(0, qt_hi - *qt_lo);  // q tiles per query head", 1)]),
+    # the dk/dv kernels (fp32, bf16) stop one q tile short of an offset band
+    # only
     "dkv_offset_band_skips_last_q_tile": (
         "K4b skips the last q tile of an offset band", "ops/csrc/flash_bwd.cu",
-        [("*hi = q_last < 0 ? -1 : q_last / kBQ;",
-          "*hi = q_last < 0 ? -1 : q_last / kBQ - (p.q_offset > 0);", 1)]),
+        [("*hi = q_last < 0 ? -1 : q_last / BQ;",
+          "*hi = q_last < 0 ? -1 : q_last / BQ - (p.q_offset > 0);", 1)]),
+    # the bf16 dk/dv consumers release each Q/dO stage (and its lse and
+    # delta) as soon as it has landed, before dV += P^T dO and dK += dS^T Q
+    # have read it: the producer refills the stage under them once the ring
+    # wraps
+    "bwd_releases_stage_early": (
+        "K2b/K4b/K5's bf16 dk/dv frees a Q/dO stage before its products retire",
+        "ops/csrc/flash_bwd.cu",
+        [("          hopper::mbar_wait(bar_full + 8 * stage, phase);\n"
+          "          const int cls = tile_class<kLse>(p, q0, kDkvRows, kc0, kWgRows);\n",
+          "          hopper::mbar_wait(bar_full + 8 * stage, phase);\n"
+          "          hopper::mbar_arrive(bar_empty + 8 * stage);\n"
+          "          const int cls = tile_class<kLse>(p, q0, kDkvRows, kc0, kWgRows);\n",
+          1),
+         ("          hopper::mbar_arrive(bar_empty + 8 * stage);  "
+          "// Q, dO, lse and delta of this stage are read\n", "", 1)]),
     # the forward kernels (fp32, bf16) leave rows with no live key unwritten
     "fwd_dead_rows_unwritten": (
         "K3 leaves dead rows unwritten", "ops/csrc/flash_fwd.cu",
@@ -72,13 +93,16 @@ FAULTS = {
           "        hopper::mbar_arrive(bar_empty + 8 * stage);\n", 1),
          ("        hopper::mbar_arrive(bar_empty + 8 * stage);  "
           "// K and V of this stage are read\n", "", 1)]),
-    # the fused backward's dq skips the first q tile of each k tile's band:
-    # the diagonal cell
+    # the fused backward's dq (fp32, bf16) skips the first q tile of each k
+    # tile's band: the diagonal cell
     "fused_dq_skips_diagonal_cell": (
         "K2c's dq skips the diagonal cell", "ops/csrc/flash_bwd.cu",
         [("      if (kFused) {\n        // dq += dS K over this cell",
           "      if (kFused && qt != qt_lo) {\n        // dq += dS K over this cell",
-          2)]),
+          1),
+         ("      // dq += dS K over this cell: warp w's queries",
+          "      if (qt == qt_lo) continue;  // dq += dS K over this cell: warp w's queries",
+          1)]),
     # the natural-base forward (fp32, bf16) ignores the softcap
     "nh_fwd_drops_softcap": (
         "K5's forward drops the softcap", "ops/csrc/flash_fwd.cu",
@@ -120,8 +144,10 @@ def report(rec, fails):
 
 for check, cases in ((chip_smoke.fwd_case,
                       chip_smoke.KERNEL_CASES + chip_smoke.FWD_RING_CASES),
-                     (chip_smoke.bwd_case, chip_smoke.KERNEL_CASES),
-                     (chip_smoke.fused_case, chip_smoke.KERNEL_CASES),
+                     (chip_smoke.bwd_case,
+                      chip_smoke.KERNEL_CASES + chip_smoke.BWD_RING_CASES),
+                     (chip_smoke.fused_case,
+                      chip_smoke.KERNEL_CASES + chip_smoke.BWD_RING_CASES),
                      (chip_smoke.lse_case,
                       chip_smoke.LSE_CASES + chip_smoke.LSE_RING_CASES)):
     for i, case in enumerate(cases):

@@ -190,6 +190,7 @@ def test_wrappers_refuse_to_run_inside_a_graph():
                                   "dkv_offset_band_skips_last_q_tile",
                                   "fwd_dead_rows_unwritten",
                                   "fwd_releases_stage_early",
+                                  "bwd_releases_stage_early",
                                   "fused_dq_skips_diagonal_cell",
                                   "nh_fwd_drops_softcap",
                                   "exp_chain_one_rep_short",
