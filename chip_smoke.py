@@ -16,9 +16,8 @@ Phases:
   0. setup: the card's name and power limit, TF32 off, the kernel builds;
      ptxas's registers, spills and dynamic shared memory per forward and
      backward kernel (fwd_ptxas, bwd_ptxas) and each library's SASS
-     (fwd_sass, bwd_sass: every bf16 forward, dq and dk/dv instantiation
-     issues HGMMA and UTMALDG, none HMMA; K2c's mma.sync kernels are the
-     backward's only HMMA ones);
+     (fwd_sass, bwd_sass: every bf16 forward, dq and dk/dv instantiation,
+     K2c's four among them, issues HGMMA and UTMALDG, none HMMA);
   1. every kernel against its plain version at the main paths' shapes
      (generation at batch 4, the train step at batch 16, the sp path's
      zigzag hop, the prototype tool's shape) and the edge cases (GQA, a
@@ -26,8 +25,9 @@ Phases:
      kernels' rings of tiles at every head width (FWD_RING_CASES,
      BWD_RING_CASES, LSE_RING_CASES and NH_CASES: T = 1, 63, 65, ... 4096,
      strided q/k/v views of one qkv projection, GQA 12/4, offset bands,
-     softcap): the forward (flash_fwd) and the backward (flash_bwd: dq and
-     dk/dv); the fused
+     softcap): the forward (flash_fwd), the backward's prep pass
+     (flash_bwd_prep: delta with and without an lse cotangent, K2c's dq
+     zeroed) and the backward (flash_bwd: dq and dk/dv); the fused
      backward (flash_bwd_fused, K2c) against the plain version and against
      K2a/K2b; the ring's forward with lse (flash_lse_fwd: causal flag,
      q_offset, dead rows) and its backward with an lse cotangent
@@ -42,26 +42,28 @@ Phases:
      per layer per token) and KV-cached decode (no kernel), then the sample
      entry point;
   4. training: the train step at the bench shape (GPT-2 124M, T=1024, batch
-     16, bf16, no dropout), 12 forward, 12 dq and 12 dk/dv launches per
-     step; the same step with FLASH_FUSED_BWD=1, 12 forward and 12 fused
-     launches per step (K2c's path); then the train entry point on the
-     corpus (loss falls, eval, snapshot, resume);
+     16, bf16, no dropout), 12 forward, 12 prep, 12 dq and 12 dk/dv
+     launches per step; the same step with FLASH_FUSED_BWD=1, 12 forward,
+     12 prep and 12 fused launches per step (K2c's path); then the train
+     entry point on the corpus (loss falls, eval, snapshot, resume);
   4b. sequence parallel: 4 ranks spawned on the one card over gloo: ring
      and Ulysses attention at GPT-2 width (T=4096) against dense plain
      attention; the sp = 4 ring train step at full GPT-2 width, block 4096,
-     global batch 4 (exactly 72 K3, 72 K4a and 72 K4b launches per rank per
-     step), its loss against a single-process dense-attention step; a dp =
-     2 x sp = 2 Ulysses step at 2 layers;
+     global batch 4 (exactly 72 K3, 72 prep, 72 K4a and 72 K4b launches per
+     rank per step), its loss against a single-process dense-attention
+     step; a dp = 2 x sp = 2 Ulysses step at 2 layers;
   4c. the prototype tool (tools/proto_nh_kernel.py, K5's path) at its shape
      (B=16, T=1024, H=12, hd=64, bf16): its parity and time lines;
   5. times: kernels, plain versions, bounds and library yardsticks (K1 at
      the generation shape also its wrapper's host microseconds per launch);
-     the whole fused backward beside K2a + K2b; peak device memory; then the
-     exp-vs-exp2 tool (tools/exp_exp2.py, K6's path) through its main() at
-     its shape (64 x 512 x 512 float32, 64 reps), 64 reps timed against
-     32, and the opcodes of K6's compiled kernels. The SM clock, power and
+     the prep pass with and without K2c's dq zero-fill; the whole fused
+     backward (prep, K2c, cast) beside the split one (prep, K2a, K2b); peak
+     device memory; then the exp-vs-exp2 tool (tools/exp_exp2.py, K6's
+     path) through its main() at its shape (64 x 512 x 512 float32, 64
+     reps), 64 reps timed against 32, and the opcodes of K6's compiled
+     kernels. The SM clock, power and
      throttle reasons are logged before and after.
-The last three lines are the card, the kernels line (eleven kernels) and the
+The last three lines are the card, the kernels line (twelve kernels) and the
 ok line. Exits 2 without CUDA, 1 on any failure.
 """
 
@@ -83,6 +85,7 @@ import time
 import torch
 import torch.nn.functional as F
 
+from mingpt_distributed_tpu_torch.tools.bwd_times import dq_f32_bytes
 from mingpt_distributed_tpu_torch.training.metrics import (
     H100_SXM,
     roofline_ms,
@@ -147,6 +150,13 @@ ZERO_GRAD_MAX = 1e-5
 #        1.2e-6 over the cases, mean |diff| / mean |g| <= 2.7e-7): max
 #        |diff| FUSED_SPLIT_TOL_FP32, about 10x the reading, mean 1e-5.
 FUSED_SPLIT_TOL_FP32 = 1e-5
+# The prep pass (flash_bwd_prep) against flash_bwd_prep_plain, delta per
+# row: both sum hd <= 128 float32 products of the same inputs in other
+# orders (each rounding <= 2^-24 of the running sum, so <= hd 2^-24 ~ 7.6e-6
+# of the row's sum of |out * dO|) and subtract the same dlse: |diff| <=
+# 1e-5 * max(1, sum |out * dO| + |dlse|). K2c's dq buffer, filled with NaN
+# before, must come back exactly 0.
+PREP_TOL = 1e-5
 # GPT-2 forward, fp32: flash kernel vs plain attention through 12 layers.
 FWD_FP32_TOL = 1e-3
 # GPT-2 forward, bf16. At random init the logits are nearly tied, so bf16
@@ -343,8 +353,14 @@ def attention_work(b, t, h, hd, window, dtype, kernel="flash_fwd", kv=None,
                                  P^T dO, dS^T Q);
       flash_bwd_fused:           reads q, k, v, dO, lse, delta; writes dq,
                                  dk, dv; 5 products (S, dP, P^T dO, dS^T Q,
-                                 dS K);
+                                 dS K) (its float32 dq buffer is a cost of
+                                 its design, not of the function:
+                                 bwd_times.dq_f32_bytes);
+      flash_bwd_prep:            prep_work's bytes and float32 operations
+                                 (no exponential), without K2c's zero-fill;
     each product 2*hd operations per pair. Not causal: every pair."""
+    if kernel == "flash_bwd_prep":
+        return (*prep_work(b, t, h, hd, dtype), 0)
     kv = h if kv is None else kv
     if not causal:
         pairs = t * t
@@ -366,6 +382,15 @@ def attention_work(b, t, h, hd, window, dtype, kernel="flash_fwd", kv=None,
     else:
         nbytes, products = (2 * q_elems + 4 * kv_elems) * elem + 2 * vec, 4
     return nbytes, 2 * products * b * h * hd * pairs, b * h * pairs
+
+
+def prep_work(b, t, h, hd, dtype, zero_dq=False):
+    """(bytes, float32 operations) of flash_bwd_prep: reads out and dO,
+    writes delta (float32); with ``zero_dq`` also writes K2c's float32 dq
+    buffer (its zero-fill); one multiply and one add per element."""
+    elems = b * t * h * hd
+    nbytes = 2 * elems * (torch.finfo(dtype).bits // 8) + b * h * t * 4
+    return nbytes + (elems * 4 if zero_dq else 0), 2 * elems
 
 
 def bound_ms(nbytes, flops, dtype, exps):
@@ -529,10 +554,46 @@ def fused_case(fa, i, case, dtype):
     return rec, fails + vs_fails
 
 
+def prep_case(fa, i, case, dtype):
+    """The prep pass (flash_bwd_prep) against flash_bwd_prep_plain on case
+    ``i`` of KERNEL_CASES + BWD_RING_CASES in ``dtype``: delta from random
+    out and dO, with an lse cotangent (the ring's K4 path) and without, the
+    latter also zeroing a NaN-filled float32 dq (K2c's path). Returns its
+    record and the ("delta" or "dq", message) of every check it fails."""
+    name, b, t, h, kv, hd, *_ = case
+    dt = str(dtype).replace("torch.", "")
+    g = torch.Generator(device="cuda").manual_seed(1300 + i)
+    out = torch.randn((b, t, h, hd), generator=g, device="cuda").to(dtype)
+    do = torch.randn((b, t, h, hd), generator=g, device="cuda").to(dtype)
+    dlse = torch.randn((b, h, t), generator=g, device="cuda")
+    row_abs = (out.float() * do.float()).abs().sum(-1).transpose(1, 2)
+    rec = {"phase": "kernel_check", "kernel": "flash_bwd_prep", "case": name,
+           "dtype": dt, "shape": [b, t, h, hd], "tol": PREP_TOL}
+    fails = []
+    for key, cot in (("delta", None), ("delta_dlse", dlse)):
+        dq = (torch.full(out.shape, float("nan"), device="cuda") if cot is None
+              else None)
+        got = fa.flash_bwd_prep(out, do, cot, dq=dq)
+        torch.cuda.synchronize()
+        want = fa.flash_bwd_prep_plain(out, do, cot)
+        scale = (row_abs + (0 if cot is None else cot.abs())).clamp_min(1.0)
+        rec[f"{key}_max_abs_err"] = (got - want).abs().max().item()
+        rec[f"{key}_max_rel_err"] = ((got - want).abs() / scale).max().item()
+        if not (got.shape == (b, h, t) and bool(torch.isfinite(got).all())
+                and rec[f"{key}_max_rel_err"] <= PREP_TOL):
+            fails.append(("delta", f"prep {name} {dt}: {key} {tuple(got.shape)}, "
+                                   f"max |diff| / scale {rec[f'{key}_max_rel_err']}"))
+        if dq is not None:
+            rec["dq_zeroed"] = bool((dq == 0).all())
+            if not rec["dq_zeroed"]:
+                fails.append(("dq", f"prep {name} {dt}: dq not zeroed"))
+    return rec, fails
+
+
 def phase_bwd_kernels(fa, case_fn=bwd_case):
-    """``case_fn`` (bwd_case: K2a/K2b; fused_case: K2c) on every case of
-    KERNEL_CASES and BWD_RING_CASES in both dtypes; returns the records by
-    (case, dtype)."""
+    """``case_fn`` (bwd_case: K2a/K2b; fused_case: K2c; prep_case: the prep
+    pass) on every case of KERNEL_CASES and BWD_RING_CASES in both dtypes;
+    returns the records by (case, dtype)."""
     results = {}
     for i, case in enumerate(KERNEL_CASES + BWD_RING_CASES):
         for dtype in (torch.bfloat16, torch.float32):
@@ -1003,8 +1064,9 @@ def phase_grads(params32, card):
         reset_counts()
         with fused_switch(fused):
             loss, gs = grads("flash", "float32")
-        want = (expected(flash_fwd=12, flash_bwd_fused=12) if fused else
-                expected(flash_fwd=12, flash_bwd_dq=12, flash_bwd_dkv=12))
+        want = (expected(flash_fwd=12, flash_bwd_prep=12, flash_bwd_fused=12) if fused
+                else expected(flash_fwd=12, flash_bwd_prep=12, flash_bwd_dq=12,
+                              flash_bwd_dkv=12))
         check(read_counts() == want,
               f"fp32 gradient (fused {fused}): launches {read_counts()}, want {want}")
         check(all(bool(torch.isfinite(v).all()) for v in gs.values()),
@@ -1086,6 +1148,7 @@ FA = "mingpt_distributed_tpu_torch.ops.flash_attention"
 NH = "mingpt_distributed_tpu_torch.tools.proto_nh_kernel"
 EX = "mingpt_distributed_tpu_torch.tools.exp_exp2"
 COUNTERS = {"flash_fwd": (FA, "flash_fwd", "launches"),
+            "flash_bwd_prep": (FA, "flash_bwd_prep", "launches"),
             "flash_bwd_dq": (FA, "flash_bwd", "dq_launches"),
             "flash_bwd_dkv": (FA, "flash_bwd", "dkv_launches"),
             "flash_bwd_fused": (FA, "flash_bwd", "fused_launches"),
@@ -1119,10 +1182,11 @@ def expected(**launches):
 
 
 def phase_train_step(card, steps=5, fused=False, split=None):
-    """make_train_step at the bench shape: the training main path (K1 +
-    K2a/K2b), or with ``fused`` the same step under FLASH_FUSED_BWD=1 (K1 +
-    K2c), reported beside ``split``, the split step's record. Returns the
-    record; its launch counts are the measured steps'."""
+    """make_train_step at the bench shape: the training main path (K1, the
+    prep pass, K2a/K2b), or with ``fused`` the same step under
+    FLASH_FUSED_BWD=1 (K1, the prep pass, K2c), reported beside ``split``,
+    the split step's record. Returns the record; its launch counts are the
+    measured steps'."""
     from mingpt_distributed_tpu_torch.tools.profile_train import BATCH, SEQ, bench_state
     from mingpt_distributed_tpu_torch.training.metrics import flops_per_token
     from mingpt_distributed_tpu_torch.training.trainer import make_train_step
@@ -1143,9 +1207,10 @@ def phase_train_step(card, steps=5, fused=False, split=None):
         counts = read_counts()
     losses = [v.item() for v in losses]
     tokens_per_s = BATCH * SEQ / dt
-    want = (expected(flash_fwd=12 * steps, flash_bwd_fused=12 * steps) if fused
-            else expected(flash_fwd=12 * steps, flash_bwd_dq=12 * steps,
-                          flash_bwd_dkv=12 * steps))
+    want = (expected(flash_fwd=12 * steps, flash_bwd_prep=12 * steps,
+                     flash_bwd_fused=12 * steps) if fused
+            else expected(flash_fwd=12 * steps, flash_bwd_prep=12 * steps,
+                          flash_bwd_dq=12 * steps, flash_bwd_dkv=12 * steps))
     rec = {"phase": "train_step_fused" if fused else "train_step",
            "main_path": True, "flash_fused_bwd": fused, "model": "gpt2 124M",
            "batch": BATCH, "seq": SEQ, "dtype": cfg.dtype, "steps": steps,
@@ -1249,7 +1314,8 @@ SP_STEPS = 3
 SP_DP2_LAYERS = 2
 # Zigzag K3 launches per rank per layer and forward: 3 at step 0 (early x
 # early and late x late causal, late x early full) and one batch-stacked
-# call per hop, 3 + (n - 1); as many K4a and K4b in the backward; K3 twice
+# call per hop, 3 + (n - 1); as many prep passes, K4a and K4b in the
+# backward; K3 twice
 # that with remat (the forward runs again in the backward). Remat is off.
 SP_K3_PER_LAYER = 3 + (SP - 1)
 # Each sp step's first step against a single process with dense (einsum)
@@ -1527,6 +1593,7 @@ def sp_checks(ranks, card):
     main = [r["main"] for r in ranks]
     per_step = SP_K3_PER_LAYER * 12
     want = expected(flash_lse_fwd=per_step * SP_STEPS,
+                    flash_bwd_prep=per_step * SP_STEPS,
                     flash_lse_bwd_dq=per_step * SP_STEPS,
                     flash_lse_bwd_dkv=per_step * SP_STEPS)
     step_s = sum(sum(m["seconds"][1:]) for m in main) / (SP * (SP_STEPS - 1))
@@ -1549,8 +1616,8 @@ def sp_checks(ranks, card):
 
     # the main path's ring and model in float32, gradients held
     m32 = [r["main_fp32"] for r in ranks]
-    want32 = expected(flash_lse_fwd=per_step, flash_lse_bwd_dq=per_step,
-                      flash_lse_bwd_dkv=per_step)
+    want32 = expected(flash_lse_fwd=per_step, flash_bwd_prep=per_step,
+                      flash_lse_bwd_dq=per_step, flash_lse_bwd_dkv=per_step)
     records.append(_sp_step_record(
         "sp_train_step_fp32", m32, m32[0]["dense"], attention="ring (zigzag)",
         dtype="float32", launches_want=want32, loss_tol=SP_FP32_LOSS_TOL,
@@ -1562,8 +1629,8 @@ def sp_checks(ranks, card):
         GRAD_FP32_REL_TOL)]
 
     dp2 = [r["dp2_sp2"] for r in ranks]
-    want2 = expected(flash_fwd=SP_DP2_LAYERS, flash_bwd_dq=SP_DP2_LAYERS,
-                     flash_bwd_dkv=SP_DP2_LAYERS)
+    want2 = expected(flash_fwd=SP_DP2_LAYERS, flash_bwd_prep=SP_DP2_LAYERS,
+                     flash_bwd_dq=SP_DP2_LAYERS, flash_bwd_dkv=SP_DP2_LAYERS)
     records.append(_sp_step_record(
         "sp_dp2_sp2_step", dp2, dp2[0]["dense"], attention="ulysses",
         layers=SP_DP2_LAYERS, dtype="float32", launches_want=want2, card=card))
@@ -1608,29 +1675,36 @@ def sdpa_backward(q, k, v, do, causal=True):
 def emit_times(entries, shape, dtype, shape_of, card, causal=True):
     """One time line per (kernel, ms, plain ms, plain is, library ms,
     library is) of ``entries``, with the kernel's bound at ``shape`` (B, T,
-    H, KV, hd); returns the kernels line's rows by kernel name."""
+    H, KV, hd) (the prep pass's without K2c's zero-fill: the split path's;
+    K2c's with its float32 dq traffic beside it, ``dq_f32_bytes``); returns
+    the kernels line's rows by kernel name."""
     b, t, h, kv, hd = shape
     rows = {}
     for name, ms, plain, plain_is, lib, lib_is in entries:
         nbytes, flops, exps = attention_work(b, t, h, hd, None, dtype, kernel=name,
                                              kv=kv, causal=causal)
-        bms, by = bound_ms(nbytes, flops, dtype, exps)
+        # the prep pass's operations are float32 FMAs whatever its inputs
+        bms, by = bound_ms(nbytes, flops,
+                           torch.float32 if name == "flash_bwd_prep" else dtype, exps)
         rows[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bms, "bound_by": by,
                       "library_ms": lib}
+        design = ({"dq_f32_bytes": dq_f32_bytes(b, t, h, hd, causal)}
+                  if name == "flash_bwd_fused" else {})
         emit({"phase": "time", "kernel": name, "shape_of": shape_of,
               "dtype": str(dtype).replace("torch.", ""), "shape": list(shape),
               "causal": causal, "bytes": nbytes, "flops": flops, "exps": exps,
-              **rows[name],
+              **rows[name], **design,
               "achieved_tflops": flops / (ms * 1e-3) / 1e12, "plain_is": plain_is,
               "library_is": lib_is, "card": card})
     return rows
 
 
 def phase_times(fa, card):
-    """Kernel, plain version and library yardstick times of K1, K2a, K2b
-    and K2c, and the whole backward fused (zero + K2c + cast) and split
-    (K2a + K2b); returns the rows of the kernels line (bf16, training
-    shape) by kernel name."""
+    """Kernel, plain version and library yardstick times of K1, the prep
+    pass, K2a, K2b and K2c, the prep pass with K2c's dq zero-fill, and the
+    whole backward fused (prep + K2c + cast) and split (prep + K2a + K2b);
+    returns the rows of the kernels line (bf16, training shape) by kernel
+    name."""
     rows = {}
     # the generation shape: flash_fwd at batch 4
     b, t, h, hd = 4, 1024, 12, 64
@@ -1654,9 +1728,12 @@ def phase_times(fa, card):
         do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
         with preserved_counts(), fused_switch(False):
             out, lse = fa.flash_fwd(q, k, v, scale=scale)
-            delta = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+            delta = fa.flash_bwd_prep(out, do)
             dq_acc = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
             fwd_ms = cuda_ms(lambda: fa.flash_fwd(q, k, v, scale=scale))
+            prep_ms = cuda_ms(lambda: fa.flash_bwd_prep(out, do))
+            dq_zero = torch.empty(q.shape, dtype=torch.float32, device="cuda")
+            prep_zero_ms = cuda_ms(lambda: fa.flash_bwd_prep(out, do, dq=dq_zero))
             dq_ms = cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, scale=scale))
             dkv_ms = cuda_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta,
                                                       scale=scale))
@@ -1667,6 +1744,7 @@ def phase_times(fa, card):
             fused_all = cuda_ms(lambda: fa.flash_bwd_fused(q, k, v, out, lse, do,
                                                            scale=scale))
         fwd_plain = cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, scale=scale), iters=3)
+        prep_plain = cuda_ms(lambda: fa.flash_bwd_prep_plain(out, do), iters=3)
         bwd_plain = cuda_ms(lambda: fa.flash_bwd_plain(q, k, v, out, lse, do,
                                                        scale=scale), iters=3)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -1675,20 +1753,31 @@ def phase_times(fa, card):
         bwd_is = ("flash_bwd_plain (dq, dk and dv)", "SDPA backward (dq, dk and dv)")
         got = emit_times((("flash_fwd", fwd_ms, fwd_plain, "flash_fwd_plain", fwd_lib,
                            "SDPA forward"),
+                          ("flash_bwd_prep", prep_ms, prep_plain,
+                           "flash_bwd_prep_plain (delta)", None,
+                           "none: no one PyTorch call sums out * dO in float32"),
                           ("flash_bwd_dq", dq_ms, bwd_plain, bwd_is[0], bwd_lib, bwd_is[1]),
                           ("flash_bwd_dkv", dkv_ms, bwd_plain, bwd_is[0], bwd_lib, bwd_is[1]),
                           ("flash_bwd_fused", fused_ms, bwd_plain, bwd_is[0], bwd_lib,
                            bwd_is[1])),
                          (b, t, h, h, hd), dtype, "training", card)
+        nbytes, flops = prep_work(b, t, h, hd, dtype, zero_dq=True)
+        bms, by = bound_ms(nbytes, flops, torch.float32, 0)
+        emit({"phase": "time", "kernel": "flash_bwd_prep", "what": "with K2c's dq zero-fill",
+              "shape_of": "training", "dtype": str(dtype).replace("torch.", ""),
+              "shape": [b, t, h, h, hd], "bytes": nbytes, "ms": prep_zero_ms,
+              "bound_ms": bms, "bound_by": by, "card": card})
         emit({"phase": "time", "what": "whole backward", "shape_of": "training",
               "dtype": str(dtype).replace("torch.", ""), "shape": [b, t, h, h, hd],
-              "fused_ms": fused_all, "fused_is": "flash_bwd_fused: delta, zeroed "
-              "float32 dq, K2c, dq cast", "split_ms": split_all,
-              "split_is": "flash_bwd: delta, K2a, K2b", "split_kernels_ms": dq_ms + dkv_ms,
-              "fused_kernel_ms": fused_ms, "library_ms": bwd_lib, "card": card})
+              "fused_ms": fused_all, "fused_is": "flash_bwd_fused: prep (delta, zeroed "
+              "float32 dq), K2c, dq cast", "split_ms": split_all,
+              "split_is": "flash_bwd: prep (delta), K2a, K2b",
+              "split_kernels_ms": prep_ms + dq_ms + dkv_ms,
+              "fused_kernels_ms": prep_zero_ms + fused_ms, "library_ms": bwd_lib,
+              "card": card})
         if dtype == torch.bfloat16:
             rows.update(got)
-        del q, k, v, do, out, lse, delta, dq_acc
+        del q, k, v, do, out, lse, delta, dq_acc, dq_zero
         torch.cuda.empty_cache()
     emit({"phase": "memory", "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
           "card": card})
@@ -1797,8 +1886,10 @@ def phase_proto(nh, card):
         seconds = time.perf_counter() - t0
         counts = read_counts()
     n = nh.WARMUP + nh.ITERS
+    # the prep pass: once per new backward (1 + n) and per old one (n)
     want = expected(nh_fwd=2 + 2 * n, nh_bwd_dq=1 + n, nh_bwd_dkv=1 + n,
-                    flash_lse_fwd=n, flash_fwd=n, flash_bwd_dq=n, flash_bwd_dkv=n)
+                    flash_bwd_prep=1 + 2 * n, flash_lse_fwd=n, flash_fwd=n,
+                    flash_bwd_dq=n, flash_bwd_dkv=n)
     for rec in recs:
         emit({"phase": "proto_nh_kernel", **rec, "shape": [b, t, h, hd],
               "dtype": "bfloat16", "card": card})
@@ -1896,10 +1987,8 @@ def exp_sass(card):
 # The bf16 forward's instantiations: 4 head widths x (K1, K3, K5 fwd)
 FWD_BF16_KERNELS = 12
 # The bf16 backward's TMA + wgmma instantiations, by template: 4 head widths
-# x (K2a, K4a, K5 dq) and (K2b, K4b, K5 dkv); and K2c's mma.sync kernel, 4
-# head widths, the one bf16 backward kernel expected to issue HMMA
-BWD_BF16_KERNELS = {"flash_dq_bf16_kernel": 12, "flash_dkv_bf16_kernel": 12}
-FUSED_BF16_KERNELS = {"flash_fused_bf16_kernel": 4}
+# x (K2a, K4a, K5 dq) and (K2b, K4b, K5 dkv, K2c)
+BWD_BF16_KERNELS = {"flash_dq_bf16_kernel": 12, "flash_dkv_bf16_kernel": 16}
 
 
 def _opcode_total(c, prefix):
@@ -1933,23 +2022,20 @@ def fwd_sass(card):
 def bwd_sass_check(counts):
     """The (template, records) of the flash_bwd library's bf16 kernels by
     their SASS opcode counts, and the message of every check they fail:
-    each TMA + wgmma instantiation (BWD_BF16_KERNELS) must issue HGMMA and
-    UTMALDG and no HMMA; K2c's (FUSED_BF16_KERNELS) HMMA and no HGMMA."""
-    found = {name: [] for name in {**BWD_BF16_KERNELS, **FUSED_BF16_KERNELS}}
+    each instantiation (BWD_BF16_KERNELS) must issue HGMMA and UTMALDG and
+    no HMMA."""
+    found = {name: [] for name in BWD_BF16_KERNELS}
     for kernel, c in counts.items():
         for name in found:
             if name in kernel:
                 found[name].append(_sass_record("bwd_sass", kernel, c, ""))
     fails = []
     for name, recs in found.items():
-        want = {**BWD_BF16_KERNELS, **FUSED_BF16_KERNELS}[name]
-        if len(recs) != want:
-            fails.append(f"{name}: {len(recs)} instantiations, want {want}")
-        wgmma = name in BWD_BF16_KERNELS
+        if len(recs) != BWD_BF16_KERNELS[name]:
+            fails.append(f"{name}: {len(recs)} instantiations, want "
+                         f"{BWD_BF16_KERNELS[name]}")
         for r in recs:
-            ok = (r["hgmma"] > 0 and r["utmaldg"] > 0 and r["hmma"] == 0 if wgmma
-                  else r["hmma"] > 0 and r["hgmma"] == 0)
-            if not ok:
+            if not (r["hgmma"] > 0 and r["utmaldg"] > 0 and r["hmma"] == 0):
                 fails.append(f"{r['kernel']}: HGMMA {r['hgmma']}, UTMALDG "
                              f"{r['utmaldg']}, HMMA {r['hmma']}")
     return found, fails
@@ -1957,16 +2043,16 @@ def bwd_sass_check(counts):
 
 def bwd_sass(card):
     """The flash_bwd library's kernels, counted by their SASS (one line
-    each); fails unless every bf16 dq and dk/dv instantiation issues HGMMA
-    and UTMALDG and no HMMA, and K2c's mma.sync kernels are the only ones
-    with HMMA (bwd_sass_check)."""
+    each); fails unless every bf16 dq and dk/dv instantiation, K2c's among
+    them, issues HGMMA and UTMALDG and no HMMA (bwd_sass_check)."""
     counts = sass_opcodes("flash_bwd")
     found, fails = bwd_sass_check(counts)
-    role = {r["kernel"]: ("wgmma" if name in BWD_BF16_KERNELS else "K2c mma.sync")
-            for name, recs in found.items() for r in recs}
+    bf16 = {r["kernel"] for recs in found.values() for r in recs}
     for kernel, c in counts.items():
-        emit({**_sass_record("bwd_sass", kernel, c, card),
-              "role": role.get(kernel, "fp32")})
+        role = ("wgmma" if kernel in bf16 else
+                "prep" if "flash_bwd_prep_kernel" in kernel else "fp32")
+        emit({**_sass_record("bwd_sass", kernel, c, card), "role": role,
+              "fused": kernel in bf16 and _dkv_fused(kernel)})
     check(not fails, "flash_bwd SASS: " + "; ".join(fails))
 
 
@@ -2005,13 +2091,23 @@ def fwd_ptxas(log):
     return rows
 
 
+def _dkv_fused(kernel):
+    """Whether a mangled flash_dkv_*_kernel name is a kFused (K2c)
+    instantiation: its fourth template argument, after HD, kLse, kNat."""
+    m = re.search(r"ILi\d+ELb[01]ELb[01]ELb([01])E", kernel)
+    return bool(m and m.group(1) == "1")
+
+
 def bwd_dynamic_smem(kernel):
     """The dynamic shared memory flash_bwd.cu's launch gives ``kernel`` (a
     mangled name), or None: DqTiles<HD>::kSmem (Q and dO of 128 rows, two
-    stages of 64-key K and V tiles), DkvTiles<HD>::kSmem (K and V of 128
-    keys, two stages of 64-row Q and dO tiles with their lse and delta), each
-    with six barriers and 1024 bytes of alignment slack; K2c's and the fp32
-    kernels' padded tiles."""
+    stages of 64-key K and V tiles), DkvTiles<HD, kFused>::kSmem (K and V of
+    128 keys, two stages of 64-row Q and dO tiles with their lse and delta;
+    K2c also each consumer warpgroup's 64 x 64 bf16 dS^T tile and the dq
+    exchange: 2 warpgroups x 2 parities x 128 threads x a float4 for each
+    of min(hd, 64) / 16 column groups), each with six barriers and 1024
+    bytes of alignment slack; the fp32 kernels' padded tiles; the prep
+    kernel none."""
     m = re.search(r"ILi(\d+)E", kernel)
     if not m:
         return None
@@ -2019,9 +2115,8 @@ def bwd_dynamic_smem(kernel):
     if "flash_dq_bf16_kernel" in kernel:
         return 1024 * hd + 8 * 6 + 1024
     if "flash_dkv_bf16_kernel" in kernel:
-        return 1024 * hd + 2 * 2 * 64 * 4 + 8 * 6 + 1024
-    if "flash_fused_bf16_kernel" in kernel:
-        return 4 * 64 * (hd + 8) * 2 + 2 * 64 * 4 + 64 * 72 * 2
+        ds = 2 * 64 * 64 * 2 + 2 * 2 * 128 * 16 * min(hd, 64) // 16 if _dkv_fused(kernel) else 0
+        return 1024 * hd + 2 * 2 * 64 * 4 + ds + 8 * 6 + 1024
     if "flash_dq_f32_kernel" in kernel:
         return (4 * 64 * (hd + 4) + 64 * 68) * 4
     if "flash_dkv_f32_kernel" in kernel:
@@ -2031,14 +2126,30 @@ def bwd_dynamic_smem(kernel):
 
 def bwd_ptxas(log):
     """ptxas's resources per flash_bwd kernel (ptxas_rows) with its dynamic
-    shared memory (bwd_dynamic_smem), one bwd_ptxas line each."""
+    shared memory (bwd_dynamic_smem), one bwd_ptxas line each; then the
+    message of every K2c instantiation at hd <= 64 that spills more bytes
+    (stores or loads) than the plain-band dk/dv instantiation of its head
+    width (K2b's), which the caller fails on."""
     rows = ptxas_rows(log)
     for r in rows:
         smem = bwd_dynamic_smem(r["kernel"])
         if smem is not None:
             r["dynamic_smem_bytes"] = smem
         emit({"phase": "bwd_ptxas", **r})
-    return rows
+    dkv = {}
+    for r in rows:
+        m = re.search(r"flash_dkv_bf16_kernelILi(\d+)ELb0ELb0ELb([01])E", r["kernel"])
+        if m:
+            dkv[(int(m.group(1)), m.group(2) == "1")] = r
+    fails = []
+    for (hd, fused), r in sorted(dkv.items()):
+        base = dkv.get((hd, False))
+        if fused and hd <= 64 and base is not None and (
+                r["spill_stores"] > base["spill_stores"]
+                or r["spill_loads"] > base["spill_loads"]):
+            fails.append(f"K2c at hd {hd} spills {r['spill_stores']}/{r['spill_loads']} "
+                         f"bytes, dk/dv {base['spill_stores']}/{base['spill_loads']}")
+    return rows, fails
 
 
 # nvidia-smi fields logged around the time phases: K6's bound assumes the max
@@ -2093,10 +2204,12 @@ def main() -> int:
         print(f"--- nvcc {name}.cu ---\n{log}", file=sys.stderr)
     fwd_ptxas(logs["flash_fwd"])
     fwd_sass(card)
-    bwd_ptxas(logs["flash_bwd"])
+    _, spill_fails = bwd_ptxas(logs["flash_bwd"])
+    check(not spill_fails, "; ".join(spill_fails))
     bwd_sass(card)
 
     fwd_errors = phase_kernels(fa)
+    prep_errors = phase_bwd_kernels(fa, prep_case)
     bwd_errors = phase_bwd_kernels(fa)
     fused_errors = phase_bwd_kernels(fa, fused_case)
     lse_errors = phase_lse_kernels(fa)
@@ -2127,9 +2240,10 @@ def main() -> int:
     emit_clocks("after times")
     exp_sass(card)
 
-    # max_abs_err at each path's shape, bf16: the training step's (K1, K2a,
-    # K2b, K2c), the sp path's zigzag hop (K3, K4a, K4b) and the tools' (K5;
-    # K6 float32, every op at 64 reps); launches from each kernel's path
+    # max_abs_err at each path's shape, bf16: the training step's (K1, the
+    # prep pass's delta, K2a, K2b, K2c), the sp path's zigzag hop (K3, K4a,
+    # K4b) and the tools' (K5; K6 float32, every op at 64 reps); launches
+    # from each kernel's path
     bf16 = torch.bfloat16
     errs = bwd_errors[("gpt2_train", bf16)]
     ferrs = fused_errors[("gpt2_train", bf16)]
@@ -2143,6 +2257,8 @@ def main() -> int:
     for name, source, replaces, err, launches in (
             ("flash_fwd", fwd_cu, f"{jax_fa}:677", fwd_errors[("gpt2_train", bf16)],
              split["launches"]),
+            ("flash_bwd_prep", bwd_cu, f"{jax_fa}:1101",
+             prep_errors[("gpt2_train", bf16)]["delta_max_abs_err"], split["launches"]),
             ("flash_bwd_dq", bwd_cu, f"{jax_fa}:750", errs["dq_max_abs_err"],
              split["launches"]),
             ("flash_bwd_dkv", bwd_cu, f"{jax_fa}:818",
@@ -2165,6 +2281,8 @@ def main() -> int:
         line.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err, **rows[name]})
+        if name == "flash_bwd_prep":
+            line[-1]["replaces_is"] = "jnp.sum of out * dO (delta): no pallas_call"
     check(all(k["launches"] > 0 for k in line),
           f"a kernel never ran on its path: {[k['name'] for k in line]}")
     emit({"phase": "launches_by_path", "train_step": split["launches"],

@@ -1,6 +1,12 @@
-// Flash-attention backward for Hopper (sm_90a), plain C interface: seven
+// Flash-attention backward for Hopper (sm_90a), plain C interface: eight
 // entry points, each a launch of its own.
 //
+//   flash_bwd_prep    computes delta = rowsum(out * dO) (minus the lse
+// cotangent where there is one) and zeroes K2c's float32 dq in one pass
+// over out and dO; it replaces no TPU kernel (the JAX package sums delta
+// with jnp.sum outside its kernels, mingpt_distributed_tpu/ops/
+// flash_attention.py:1101 and :491), and every backward below takes its
+// delta;
 //   flash_bwd_dq      replaces the TPU kernel `_dq_kernel_btd` (K2a),
 //   flash_bwd_dkv     replaces the TPU kernel `_dkv_kernel_btd` (K2b),
 // reached through `_flash_bwd_btd` and the custom VJP of `_flash_btd`
@@ -19,8 +25,8 @@
 // of the per-head-grid prototype (tools/proto_nh_kernel.py,
 // `flash_bwd_btd`, K5): flash_bwd_dq/_dkv with the softmax in the natural
 // base. The lse cotangent of `flash_with_lse` reaches them folded into delta
-// by the caller (delta' = delta - dlse, a plain tensor op, as `_flash_bwd`
-// does). Dead rows (no key inside the offset band) get p = 0 structurally,
+// by flash_bwd_prep (delta' = delta - dlse, as `_flash_bwd` folds it). Dead
+// rows (no key inside the offset band) get p = 0 structurally,
 // so dq = 0 there and they add nothing to dk/dv, whatever their lse. The
 // entry points run the same kernels, specialised at compile time (kLse,
 // kNat, kFused): flash_bwd_*'s instantiations test the plain causal band,
@@ -34,10 +40,9 @@
 //   dp = dO V^T;  ds = p (dp - delta) * scale, times (1 - t^2) under
 //        soft-capping, with t the unmasked tanh(s * scale / cap);
 //   dq = ds K;  dk = ds^T Q;  dv = p^T dO.
-// delta = rowsum(out * dO) is computed by the caller (a plain tensor op, as
-// the JAX package does outside its kernels). As the TPU kernels do, the bf16
-// paths round P to bf16 before P^T dO and dS before dS K and dS^T Q, and
-// accumulate in float32. Tail tiles are masked (rows and keys at or past T
+// delta = rowsum(out * dO) comes from flash_bwd_prep. As the TPU kernels
+// do, the bf16 paths round P to bf16 before P^T dO and dS before dS K and
+// dS^T Q, and accumulate in float32. Tail tiles are masked (rows and keys at or past T
 // read as zeros, are never allowed, and are not stored), so any T >= 1
 // works.
 //
@@ -48,8 +53,8 @@
 // dk/dv kernels sum the GQA group inside the block, with no atomics, so the
 // result does not depend on scheduling.
 //
-// bfloat16 dq and dk/dv (K2a, K2b, K4a, K4b, K5's backward): TMA + wgmma,
-// warp-specialised, in the shape of the forward (flash_fwd.cu): persistent
+// bfloat16 dq and dk/dv (K2a, K2b, K4a, K4b, K5's backward) and K2c: TMA +
+// wgmma, warp-specialised, in the shape of the forward (flash_fwd.cu): persistent
 // blocks of 384 threads, one per SM, walking work items in a static round
 // robin, heaviest first; one producer warpgroup (its registers given to the
 // consumers by setmaxnreg) whose first thread issues every TMA load into a
@@ -77,18 +82,23 @@
 //   0, where exp2f spends four more instructions on every score to keep
 //   it; nh_bwd_*: expf).
 //
-// K2c (flash_bwd_fused) runs an mma.sync kernel (m16n8k16, one block per
-// (k tile of 64 keys, KV head, batch), four warps, tiles staged by plain
-// loads) that computes dk and dv and also turns each cell's dS into dq:
-// after a q tile's dk/dv products the block holds that tile's dS (64
-// queries x 64 keys) in shared memory and adds dS K to a float32 dq buffer
-// in device memory with atomic adds (red.global.add.f32). The TPU kernel
-// keeps the whole head's dq in VMEM across its k-tile sweep
+// K2c (flash_bwd_fused) is the dk/dv kernel with kFused: after a Q/dO
+// tile's dV and dK products are issued, each consumer warpgroup stores its
+// dS^T (64 keys x 64 queries, bf16, 128-byte swizzled rows of queries) to
+// shared memory and computes its cell's dq = dS K (64 queries x hd over its
+// 64 keys) by wgmma, dS read transposed and K N-major, in column chunks of
+// at most 64. The two warpgroups hold the same 64 queries, so where both
+// have live keys they sum their partials through shared memory (each hands
+// the other half of the chunk's columns, one named barrier over both) and
+// each adds its half to a float32 dq buffer in device memory by float2
+// atomic adds (red.global): every element once per (Q/dO tile, item) cell.
+// The TPU kernel keeps the whole head's dq in VMEM across its k-tile sweep
 // (`dq_all_scr`); T * hd * 4 bytes (256 KB at T=1024, hd=64) does not fit
-// in shared memory, and the blocks of one q tile's k tiles run on other SMs
-// in no order. The caller zeroes the buffer and casts it to q's dtype. The
-// order of the atomic sums is not fixed, so a float32 dq is reproducible
-// only to a few ulps.
+// in shared memory, and the items of one q tile's keys run on other SMs in
+// no order. K and V are released after the last tile's dq product, not
+// after its S and dP as in dk/dv: dq reads K. flash_bwd_prep zeroes the
+// buffer and the caller casts it to q's dtype. The order of the atomic
+// sums is not fixed, so a float32 dq is reproducible only to a few ulps.
 //
 // float32 inputs take float32 FMAs from shared memory (four threads per
 // row; one block per tile), because TF32 would not hold the float32
@@ -105,8 +115,13 @@
 // epilogue under the next item's loads (Q and dO, or K and V, are released
 // as soon as the item's last products have read them), and interior tiles
 // run no mask. K2c does 5 products per pair (0.065 ms at the card's bf16
-// peak) but adds one float32 atomic per dq element per cell: 4 * hd bytes
-// per query per k tile of its band (~430 MB there), resolved in L2.
+// peak: its bound, the function writing dq once in bf16). Its design adds
+// a float32 dq buffer, read and written back once (~100 MB), and atomics
+// that add 4 * hd bytes per query per 128-key item of its band (~226 MB
+// there), resolved in L2: they, not the products, are what K2c spends
+// beyond K2b. flash_bwd_prep is bound by its bytes
+// (out and dO read, delta written: ~51 MB, 0.015 ms; with K2c's 50 MB
+// zero-fill ~0.030 ms).
 
 #include <math.h>
 
@@ -512,193 +527,6 @@ __global__ void __launch_bounds__(kFmaThreads) flash_dkv_f32_kernel(Params p) {
 
 
 // ---------------------------------------------------------------------------
-// bfloat16, K2c: tensor-core path (mma.sync)
-// ---------------------------------------------------------------------------
-
-constexpr int kMmaThreads = 128;  // four warps, 16 rows each
-
-// A fragment of rows r_lo, r_lo + 8 and k-columns 16kk.. of a row-major
-// bf16 tile in shared memory.
-__device__ __forceinline__ void a_frag(const __nv_bfloat16* m, int ld,
-                                       int r_lo, int kk, int t4,
-                                       uint32_t (&a)[4]) {
-  const __nv_bfloat16* lo = m + r_lo * ld + 16 * kk + 2 * t4;
-  a[0] = ld32(lo);
-  a[1] = ld32(lo + 8 * ld);
-  a[2] = ld32(lo + 8);
-  a[3] = ld32(lo + 8 * ld + 8);
-}
-
-template <int HD>
-__global__ void __launch_bounds__(kMmaThreads) flash_fused_bf16_kernel(Params p) {
-  constexpr int kLd = HD + 8;       // +16 bytes: conflict-free fragment loads
-  constexpr int kKSteps = HD / 16;  // k-steps over the head dim
-  constexpr int kDTiles = HD / 8;   // 8-wide column tiles of dk, dv, dq
-  extern __shared__ __align__(16) unsigned char smem_bf16[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem_bf16);
-  __nv_bfloat16* vs = ks + kBK * kLd;
-  __nv_bfloat16* qs = vs + kBK * kLd;
-  __nv_bfloat16* dos = qs + kBQ * kLd;
-  float* lse_s = reinterpret_cast<float*>(dos + kBQ * kLd);
-  float* delta_s = lse_s + kBQ;
-  // the cell's dS, queries x keys (row stride kBK + 8)
-  __nv_bfloat16* dss = reinterpret_cast<__nv_bfloat16*>(delta_s + kBQ);
-  constexpr int kLdS = kBK + 8;
-
-  const int k0 = blockIdx.x * kBK;  // the first k tiles have the most work
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int rep = p.H / p.KV;
-  const int warp = threadIdx.x >> 5;
-  const int g = (threadIdx.x & 31) >> 2;
-  const int t4 = threadIdx.x & 3;
-  const int r_lo = 16 * warp + g;  // this thread's keys: r_lo and r_lo + 8
-  const int k_pos[2] = {k0 + r_lo, k0 + r_lo + 8};
-
-  load_tile_bf16<HD, kMmaThreads>(
-      ks, static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + kvh * p.k_sh,
-      p.k_st, k0, p.T);
-  load_tile_bf16<HD, kMmaThreads>(
-      vs, static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + kvh * p.v_sh,
-      p.v_st, k0, p.T);
-
-  float dk[kDTiles][4], dv[kDTiles][4];
-#pragma unroll
-  for (int d = 0; d < kDTiles; ++d) {
-    dk[d][0] = dk[d][1] = dk[d][2] = dk[d][3] = 0.f;
-    dv[d][0] = dv[d][1] = dv[d][2] = dv[d][3] = 0.f;
-  }
-
-  int qt_lo, qt_hi;
-  q_tile_range<false, kBK, kBQ>(p, k0, &qt_lo, &qt_hi);
-  for (int hh = 0; hh < rep; ++hh) {
-    const int h = kvh * rep + hh;
-    const __nv_bfloat16* q =
-        static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(p.dout) +
-                                row_index(p, b, 0, p.H, h) * HD;
-    const long long vec0 = (static_cast<long long>(b) * p.H + h) * p.T;
-    for (int qt = qt_lo; qt <= qt_hi; ++qt) {
-      const int q0 = qt * kBQ;
-      __syncthreads();  // the previous tile's q/dO reads are done
-      load_tile_bf16<HD, kMmaThreads>(qs, q, p.q_st, q0, p.T);
-      load_tile_bf16<HD, kMmaThreads>(dos, dout,
-                                      static_cast<long long>(p.H) * HD, q0,
-                                      p.T);
-      for (int i = threadIdx.x; i < kBQ; i += kMmaThreads) {
-        const bool in = q0 + i < p.T;
-        lse_s[i] = in ? p.lse[vec0 + q0 + i] * kLog2e : 0.f;
-        delta_s[i] = in ? p.delta[vec0 + q0 + i] : 0.f;
-      }
-      __syncthreads();
-
-      // 16 queries at a time: S^T = K Q^T and dP^T = V dO^T for two 8-query
-      // column tiles, then P^T and dS^T as the A operands of P^T dO and
-      // dS^T Q
-#pragma unroll
-      for (int kc = 0; kc < kBQ / 16; ++kc) {
-        float s[2][4], dp[2][4];
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int j = 2 * kc + jj;
-          s[jj][0] = s[jj][1] = s[jj][2] = s[jj][3] = 0.f;
-          dp[jj][0] = dp[jj][1] = dp[jj][2] = dp[jj][3] = 0.f;
-#pragma unroll
-          for (int kk = 0; kk < kKSteps; ++kk) {
-            uint32_t ka[4], va[4];
-            a_frag(ks, kLd, r_lo, kk, t4, ka);
-            a_frag(vs, kLd, r_lo, kk, t4, va);
-            const int off = (8 * j + g) * kLd + 16 * kk + 2 * t4;
-            mma_bf16(s[jj], ka[0], ka[1], ka[2], ka[3], ld32(qs + off),
-                     ld32(qs + off + 8));
-            mma_bf16(dp[jj], va[0], va[1], va[2], va[3], ld32(dos + off),
-                     ld32(dos + off + 8));
-          }
-        }
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int i = e >> 1;
-            const int qc = 8 * (2 * kc + jj) + 2 * t4 + (e & 1);
-            float dfac;
-            const float s2 = score<false>(p, s[jj][e], &dfac);
-            const bool live = visible<false>(p, q0 + qc, k_pos[i]);
-            const float pv = live ? exp2f(s2 - lse_s[qc]) : 0.f;
-            dp[jj][e] = live ? pv * (dp[jj][e] - delta_s[qc]) * dfac : 0.f;
-            s[jj][e] = pv;
-            // rounded to bf16 for dS K, as it is for dS^T Q
-            dss[qc * kLdS + r_lo + 8 * i] = __float2bfloat16(dp[jj][e]);
-          }
-        }
-        const uint32_t pa0 = pack_bf16(s[0][0], s[0][1]);
-        const uint32_t pa1 = pack_bf16(s[0][2], s[0][3]);
-        const uint32_t pa2 = pack_bf16(s[1][0], s[1][1]);
-        const uint32_t pa3 = pack_bf16(s[1][2], s[1][3]);
-        const uint32_t da0 = pack_bf16(dp[0][0], dp[0][1]);
-        const uint32_t da1 = pack_bf16(dp[0][2], dp[0][3]);
-        const uint32_t da2 = pack_bf16(dp[1][0], dp[1][1]);
-        const uint32_t da3 = pack_bf16(dp[1][2], dp[1][3]);
-#pragma unroll
-        for (int d = 0; d < kDTiles; ++d) {
-          uint32_t b0, b1;
-          b_frag_rows(dos + 16 * kc * kLd + 8 * d, kLd, g, t4, &b0, &b1);
-          mma_bf16(dv[d], pa0, pa1, pa2, pa3, b0, b1);
-          b_frag_rows(qs + 16 * kc * kLd + 8 * d, kLd, g, t4, &b0, &b1);
-          mma_bf16(dk[d], da0, da1, da2, da3, b0, b1);
-        }
-      }
-
-      // dq += dS K over this cell: warp w's queries q0 + 16w + g (+ 8),
-      // every column, added to the float32 dq in device memory
-      __syncthreads();  // every warp's dS is written
-      uint32_t da[kBK / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) a_frag(dss, kLdS, r_lo, kk, t4, da[kk]);
-      float* o[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        o[i] = q0 + r_lo + 8 * i < p.T
-                   ? static_cast<float*>(p.dq) +
-                         row_index(p, b, q0 + r_lo + 8 * i, p.H, h) * HD
-                   : nullptr;
-      }
-#pragma unroll
-      for (int d = 0; d < kDTiles; ++d) {
-        float acc[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int kk = 0; kk < kBK / 16; ++kk) {
-          uint32_t b0, b1;
-          b_frag_rows(ks + 16 * kk * kLd + 8 * d, kLd, g, t4, &b0, &b1);
-          mma_bf16(acc, da[kk][0], da[kk][1], da[kk][2], da[kk][3], b0, b1);
-        }
-#pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          if (o[i] == nullptr) continue;
-          atomicAdd(o[i] + 8 * d + 2 * t4, acc[2 * i]);
-          atomicAdd(o[i] + 8 * d + 2 * t4 + 1, acc[2 * i + 1]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (k_pos[i] >= p.T) continue;
-    const long long r = row_index(p, b, k_pos[i], p.KV, kvh) * HD;
-    __nv_bfloat16* dko = static_cast<__nv_bfloat16*>(p.dk) + r;
-    __nv_bfloat16* dvo = static_cast<__nv_bfloat16*>(p.dv) + r;
-#pragma unroll
-    for (int d = 0; d < kDTiles; ++d) {
-      *reinterpret_cast<uint32_t*>(dko + 8 * d + 2 * t4) =
-          pack_bf16(dk[d][2 * i], dk[d][2 * i + 1]);
-      *reinterpret_cast<uint32_t*>(dvo + 8 * d + 2 * t4) =
-          pack_bf16(dv[d][2 * i], dv[d][2 * i + 1]);
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // bfloat16, K2a/K2b (K4a/K4b, K5): TMA + wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 
@@ -744,9 +572,13 @@ struct DqTiles : HeadRows<HD> {
   static constexpr int kSmem = kBars + 8 * (2 + 2 * kStages) + 1024;  // + align
 };
 
-// dk/dv: K and V of the item, two stages of Q, dO and (lse, delta), then the
-// barriers (K/V full and empty, full[] and empty[] of the ring).
-template <int HD>
+// dk/dv: K and V of the item, two stages of Q, dO and (lse, delta), with
+// kFused each consumer warpgroup's dS^T tile (64 keys x 64 queries, bf16,
+// rows of 128 bytes, 128-byte swizzled) and the dq exchange (per
+// warpgroup and parity, a float4 per thread for each of its half chunk's
+// 8-column groups), then the barriers (K/V full and empty, full[] and
+// empty[] of the ring).
+template <int HD, bool kFused>
 struct DkvTiles : HeadRows<HD> {
   using R = HeadRows<HD>;
   static constexpr int kKBox = kDkvKeys * R::kRowBytes;
@@ -758,7 +590,13 @@ struct DkvTiles : HeadRows<HD> {
   static constexpr int kQ = kV + kKTile;
   static constexpr int kDO = kQ + kStages * kQTile;
   static constexpr int kVec = kDO + kStages * kQTile;  // lse then delta, per stage
-  static constexpr int kBars = kVec + kStages * 2 * kDkvRows * 4;
+  static constexpr int kDsTile = kWgRows * kDkvRows * 2;
+  static constexpr int kDs = kVec + kStages * 2 * kDkvRows * 4;
+  static constexpr int kDqN = HD < 64 ? HD : 64;  // dq's column chunk
+  static constexpr int kX = kDs + (kFused ? 2 * kDsTile : 0);
+  // warpgroups x parities x half chunk's column groups x threads x float4
+  static constexpr int kXBytes = 2 * 2 * (kDqN / 16) * 128 * 16;
+  static constexpr int kBars = kX + (kFused ? kXBytes : 0);
   static constexpr int kSmem = kBars + 8 * (2 + 2 * kStages) + 1024;
 };
 
@@ -993,14 +831,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   }
 }
 
-template <int HD, bool kLse, bool kNat>
+template <int HD, bool kLse, bool kNat, bool kFused>
 __global__ void __launch_bounds__(kWgThreads, 1)
     flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           const __grid_constant__ CUtensorMap tdo,
                           const Params p) {
-  using L = DkvTiles<HD>;
+  using L = DkvTiles<HD, kFused>;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = hopper::smem_addr(smem_raw);
   const uint32_t sbase = (raw + 1023u) & ~1023u;
@@ -1117,6 +955,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const int t4 = threadIdx.x & 3;
     const uint32_t k_tile = sbase + L::kK + cw * kWgRows * L::kRowBytes;
     const uint32_t v_tile = sbase + L::kV + cw * kWgRows * L::kRowBytes;
+    // kFused: this warpgroup's dS^T tile, its 32-bit words as stored; the
+    // dq exchange and its parity (flipped at every exchange, alike in both
+    // warpgroups)
+    const uint32_t ds_tile = sbase + L::kDs + cw * L::kDsTile;
+    uint32_t* const ds_words =
+        reinterpret_cast<uint32_t*>(smem_raw + (ds_tile - raw));
+    float4* const xbuf = reinterpret_cast<float4*>(smem_raw + (sbase - raw) + L::kX);
+    int xpar = 0;
     int stage = 0, phase = 0, kv_phase = 0;
     for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
       int k0, kvh, b, qt_lo;
@@ -1158,7 +1004,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
             hopper::wgmma_wait<0>();
             hopper::fence_regs(s);
             hopper::fence_regs(dp);
-            if (last) hopper::mbar_arrive(bar_kv_empty);  // K and V are read
+            if (last && !kFused) hopper::mbar_arrive(bar_kv_empty);  // K and V are read
 
             // P^T in s, dS^T in dp; lse and delta by column (query)
             if (p.softcap > 0.f) {
@@ -1196,6 +1042,18 @@ __global__ void __launch_bounds__(kWgThreads, 1)
               pa[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
               da[j] = pack_bf16(dp[2 * j], dp[2 * j + 1]);
             }
+            if constexpr (kFused) {
+              // dS^T to shared memory for dq: key row 16 warp + g (+ 8),
+              // queries 8j + 2 t4.. in 16-byte chunk j, swizzled to chunk
+              // j ^ (row % 8) = j ^ g
+              const int r = 16 * warp + g;
+#pragma unroll
+              for (int j = 0; j < kDkvRows / 8; ++j) {
+                ds_words[r * 32 + (j ^ g) * 4 + t4] = da[2 * j];
+                ds_words[(r + 8) * 32 + (j ^ g) * 4 + t4] = da[2 * j + 1];
+              }
+              hopper::fence_proxy_async_smem();
+            }
             hopper::wgmma_fence();
 #pragma unroll
             for (int c = 0; c < kDkvRows / 16; ++c) {
@@ -1209,6 +1067,79 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                                     L::kLayout));
             }
             hopper::wgmma_commit();
+            if constexpr (kFused) {
+              // dq += dS K over this cell's 64 keys (this warpgroup's), in
+              // column chunks of kDqN: A = dS (queries as rows) read
+              // transposed from the dS^T tile, B = K read N-major. Every
+              // thread of the warpgroup has stored and fenced its dS^T
+              // words before any issues the product. Both warpgroups hold
+              // the same 64 queries: where both have live keys, each hands
+              // the other the half of the chunk's columns that the other
+              // adds to the float32 dq in device memory, so each element
+              // is added once per cell; else the live one adds them all.
+              constexpr int kDqN = L::kDqN;
+              constexpr int kHalf = kDqN / 16;  // 8-column groups per half chunk
+              hopper::named_bar_sync(1 + cw, 128);
+              const bool pair =
+                  tile_class<kLse>(p, q0, kDkvRows, k0 + kWgRows * (1 - cw), kWgRows) != kNone;
+              const int dq_row[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
+              float* const dq_head = static_cast<float*>(p.dq) + (kvh * rep + hh) * HD;
+#pragma unroll
+              for (int n = 0; n < HD / kDqN; ++n) {
+                float dq[kDqN / 2];
+                hopper::wgmma_fence();
+#pragma unroll
+                for (int c = 0; c < kWgRows / 16; ++c) {
+                  hopper::wgmma_ss_tt<kDqN>(
+                      dq, hopper::smem_desc(ds_tile + c * 16 * 128, L::kDsTile, 1024, 1),
+                      hopper::smem_desc(k_tile + n * L::kKBox + c * 16 * L::kRowBytes,
+                                        L::kKBox, L::kSbo, L::kLayout),
+                      c > 0);
+                }
+                hopper::wgmma_commit();
+                hopper::wgmma_wait<0>();
+                hopper::fence_regs(dq);
+                if (pair) {  // column group j goes to warpgroup j / kHalf
+                  const int wt = threadIdx.x & 127;
+                  float4* const give = xbuf + ((cw * 2 + xpar) * kHalf) * 128 + wt;
+                  const float4* const take = xbuf + (((1 - cw) * 2 + xpar) * kHalf) * 128 + wt;
+#pragma unroll
+                  for (int j = 0; j < kDqN / 8; ++j) {
+                    if (j / kHalf != cw) {
+                      give[(j % kHalf) * 128] =
+                          make_float4(dq[4 * j], dq[4 * j + 1], dq[4 * j + 2], dq[4 * j + 3]);
+                    }
+                  }
+                  hopper::named_bar_sync(3, 2 * 128);
+#pragma unroll
+                  for (int j = 0; j < kDqN / 8; ++j) {
+                    if (j / kHalf == cw) {
+                      const float4 o = take[(j % kHalf) * 128];
+                      dq[4 * j] += o.x;
+                      dq[4 * j + 1] += o.y;
+                      dq[4 * j + 2] += o.z;
+                      dq[4 * j + 3] += o.w;
+                    }
+                  }
+                  xpar ^= 1;
+                }
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                  if (dq_row[r] >= p.T) continue;
+                  float* const o = dq_head +
+                                   (static_cast<long long>(b) * p.T + dq_row[r]) * p.H * HD +
+                                   n * kDqN;
+#pragma unroll
+                  for (int j = 0; j < kDqN / 8; ++j) {
+                    if (!pair || j / kHalf == cw) {
+                      atomicAdd(reinterpret_cast<float2*>(o + 8 * j + 2 * t4),
+                                make_float2(dq[4 * j + 2 * r], dq[4 * j + 2 * r + 1]));
+                    }
+                  }
+                }
+              }
+              if (last) hopper::mbar_arrive(bar_kv_empty);  // K is read by dS K too
+            }
             hopper::wgmma_wait<0>();
             hopper::fence_regs(dv);
             hopper::fence_regs(dk);
@@ -1243,6 +1174,89 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       }
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// flash_bwd_prep: delta (and K2c's zeroed dq) in one pass
+// ---------------------------------------------------------------------------
+
+struct PrepParams {
+  const void* out;    // dense (B, T, H, hd), float32 or bf16
+  const void* dout;   // the same
+  const float* dlse;  // (B, H, T) or null
+  float* delta;       // (B, H, T)
+  float* dq;          // dense (B, T, H, hd) float32 to zero, or null
+  int B, T, H;
+};
+
+constexpr int kPrepThreads = 256;
+
+__device__ __forceinline__ void load8(const float* x, float (&f)[8]) {
+  const float4 a = reinterpret_cast<const float4*>(x)[0];
+  const float4 b = reinterpret_cast<const float4*>(x)[1];
+  f[0] = a.x, f[1] = a.y, f[2] = a.z, f[3] = a.w;
+  f[4] = b.x, f[5] = b.y, f[6] = b.z, f[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* x, float (&f)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(x);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+
+// Each row (b, t, h) of hd = 8 kG elements is read by kG neighbouring
+// threads, 8 elements (16 or 32 bytes) each, summed in float32 and across
+// the group by shuffles; the group's first thread writes delta[b, h, t]
+// (minus dlse). With dq, each thread zeroes the dq elements it read.
+template <typename Elem, int kG>
+__global__ void __launch_bounds__(kPrepThreads) flash_bwd_prep_kernel(PrepParams p) {
+  const long long total = static_cast<long long>(p.B) * p.T * p.H * kG;
+  const int sub = threadIdx.x % kG;
+  for (long long base = static_cast<long long>(blockIdx.x) * kPrepThreads; base < total;
+       base += static_cast<long long>(gridDim.x) * kPrepThreads) {
+    const long long v = base + threadIdx.x;  // element offset 8 v
+    float acc = 0.f;
+    if (v < total) {
+      float o[8], d[8];
+      load8(static_cast<const Elem*>(p.out) + 8 * v, o);
+      load8(static_cast<const Elem*>(p.dout) + 8 * v, d);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc = fmaf(o[e], d[e], acc);
+      if (p.dq != nullptr) {
+        float4* z = reinterpret_cast<float4*>(p.dq + 8 * v);
+        z[0] = z[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+#pragma unroll
+    for (int s = kG / 2; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
+    if (v < total && sub == 0) {
+      const long long row = v / kG;  // (b * T + t) * H + h
+      const long long h = row % p.H;
+      const long long bt = row / p.H;
+      const long long o = (bt / p.T * p.H + h) * p.T + bt % p.T;
+      p.delta[o] = p.dlse != nullptr ? acc - p.dlse[o] : acc;
+    }
+  }
+}
+
+template <typename Elem>
+cudaError_t launch_prep(const PrepParams& p, int hd, cudaStream_t stream) {
+  const long long total = static_cast<long long>(p.B) * p.T * p.H * (hd / 8);
+  const int blocks = static_cast<int>(
+      std::min<long long>((total + kPrepThreads - 1) / kPrepThreads, 1 << 16));
+  switch (hd) {
+    case 16: flash_bwd_prep_kernel<Elem, 2><<<blocks, kPrepThreads, 0, stream>>>(p); break;
+    case 32: flash_bwd_prep_kernel<Elem, 4><<<blocks, kPrepThreads, 0, stream>>>(p); break;
+    case 64: flash_bwd_prep_kernel<Elem, 8><<<blocks, kPrepThreads, 0, stream>>>(p); break;
+    case 128: flash_bwd_prep_kernel<Elem, 16><<<blocks, kPrepThreads, 0, stream>>>(p); break;
+    default: return cudaErrorInvalidValue;
+  }
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -1324,18 +1338,11 @@ cudaError_t launch_dkv(const Params& p, int dtype, cudaStream_t stream) {
     return launch(flash_dkv_f32_kernel<HD, kLse, kNat, kFused>, p, p.KV,
                   kFmaThreads, smem, stream);
   }
-  if constexpr (kFused) {
-    static_assert(!kLse && !kNat, "K2c runs the plain causal band in base 2");
-    const int smem = static_cast<int>(
-        (2 * kBK + 2 * kBQ) * (HD + 8) * sizeof(__nv_bfloat16) +
-        2 * kBQ * sizeof(float) + kBQ * (kBK + 8) * sizeof(__nv_bfloat16));
-    return launch(flash_fused_bf16_kernel<HD>, p, p.KV, kMmaThreads, smem, stream);
-  } else {
-    const int n_k = (p.T + kDkvKeys - 1) / kDkvKeys;
-    return launch_wg<HD>(flash_dkv_bf16_kernel<HD, kLse, kNat>, p, kDkvRows,
-                         kDkvKeys, DkvTiles<HD>::kSmem, n_k, n_k * p.KV * p.B,
-                         stream);
-  }
+  static_assert(!kFused || (!kLse && !kNat), "K2c runs the plain causal band in base 2");
+  const int n_k = (p.T + kDkvKeys - 1) / kDkvKeys;
+  return launch_wg<HD>(flash_dkv_bf16_kernel<HD, kLse, kNat, kFused>, p, kDkvRows,
+                       kDkvKeys, DkvTiles<HD, kFused>::kSmem, n_k, n_k * p.KV * p.B,
+                       stream);
 }
 
 Params make_params(const void* q, const void* k, const void* v,
@@ -1460,6 +1467,29 @@ extern "C" int flash_bwd_fused(const void* q, const void* k, const void* v,
                   k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale, window, softcap,
                   1, 0),
       dq, dk, dv, hd, dtype, stream);
+}
+
+// delta = rowsum(out * dout) - dlse (dlse may be null), dense (B, H, T)
+// float32; dq, when not null, a dense float32 (B, T, H, hd) buffer zeroed in
+// the same pass. out and dout dense (B, T, H, hd) in the dtype (0 =
+// float32, 1 = bfloat16), 16-byte aligned.
+extern "C" int flash_bwd_prep(const void* out, const void* dout,
+                              const void* dlse, void* delta, void* dq, int B,
+                              int T, int H, int hd, int dtype, void* stream) {
+  PrepParams p;
+  p.out = out;
+  p.dout = dout;
+  p.dlse = static_cast<const float*>(dlse);
+  p.delta = static_cast<float*>(delta);
+  p.dq = static_cast<float*>(dq);
+  p.B = B;
+  p.T = T;
+  p.H = H;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B < 1 || T < 1 || H < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype == 0) return static_cast<int>(launch_prep<float>(p, hd, s));
+  if (dtype == 1) return static_cast<int>(launch_prep<__nv_bfloat16>(p, hd, s));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // causal: 0 or 1; q_offset >= 0 (read only when causal). delta already

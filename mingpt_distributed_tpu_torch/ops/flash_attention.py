@@ -9,8 +9,11 @@ the fused ``_dqkv_kernel_btd`` (K2c) and ``_dq_kernel`` + ``_dkv_kernel``
 (K4a, K4b) (``csrc/flash_bwd.cu``: ``flash_bwd_dq``/``_dkv``,
 ``flash_bwd_fused``, ``flash_lse_bwd_dq``/``_dkv``). The same sources'
 ``nh_*`` entry points replace the per-head-grid prototype's kernels (K5,
-wrapped in ``tools/proto_nh_kernel.py``). See the sources for their design
-and what bounds them.
+wrapped in ``tools/proto_nh_kernel.py``). ``flash_bwd_prep`` (also
+``csrc/flash_bwd.cu``) computes every backward's delta = rowsum(out * dO)
+(minus the lse cotangent) and zeroes K2c's float32 dq in one pass; it
+replaces no TPU kernel (the JAX package sums delta with ``jnp.sum``). See
+the sources for their design and what bounds them.
 
 * ``causal_attention`` takes the einsum oracle exactly where the JAX
   package does, for semantic reasons: attention dropout active, q and k
@@ -39,7 +42,7 @@ and what bounds them.
   Dead rows (no key of the chunk inside an offset band) come out as out = 0
   and a finite lse <= -1e29, and their probabilities are exactly 0, so an
   lse merge weights them 0 and their gradients vanish. The lse cotangent
-  folds into delta (delta' = delta - dlse) as a tensor op. The JAX
+  folds into delta (delta' = delta - dlse) in ``flash_bwd_prep``. The JAX
   ``_flash`` (``FLASH_LAYOUT=bh``) is TPU layout machinery and has no
   counterpart.
 """
@@ -137,9 +140,7 @@ def flash_lse_bwd_plain(
     kf = attn_ops.repeat_kv(k, h // kv).to(acc)
     vf = attn_ops.repeat_kv(v, h // kv).to(acc)
     qf, dof = q.to(acc), do.to(acc)
-    delta = (out.to(acc) * dof).sum(-1).transpose(1, 2)  # (B, H, T)
-    if dlse is not None:
-        delta = delta - dlse.to(acc)
+    delta = flash_bwd_prep_plain(out, do, dlse)
     s = torch.einsum("bthd,bshd->bhts", qf, kf) * scale
     dfac = scale
     if softcap:
@@ -160,6 +161,20 @@ def flash_lse_bwd_plain(
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_bwd_prep_plain(
+    out: torch.Tensor, do: torch.Tensor, dlse: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """What ``flash_bwd_prep`` computes, written plainly: delta =
+    rowsum(out * dO) - dlse (B, H, T) from out and dO (B, T, H, hd), in
+    float32 (float64 for float64 inputs), with the lse cotangent ``dlse``
+    (B, H, T) or None (zero)."""
+    acc = _acc_dtype(out)
+    delta = (out.to(acc) * do.to(acc)).sum(-1).transpose(1, 2)
+    if dlse is not None:
+        delta = delta - dlse.to(acc)
+    return delta
+
+
 def flash_bwd_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
     lse: torch.Tensor, do: torch.Tensor, *, scale: float,
@@ -173,34 +188,43 @@ def flash_bwd_plain(
                                window=window, softcap=softcap)
 
 
-_STRIDES = [ctypes.c_longlong] * 9  # b/t/h strides of q, k, v
+_PTR = ctypes.c_void_p
 _I32 = ctypes.c_int
+_STRIDES = [ctypes.c_longlong] * 9  # b/t/h strides of q, k, v
 # scale, window, softcap, [causal, q_offset,] dtype, stream
-_TAIL = [ctypes.c_float, _I32, ctypes.c_float, _I32, ctypes.c_void_p]
-_LSE_TAIL = [ctypes.c_float, _I32, ctypes.c_float, _I32, _I32, _I32,
-             ctypes.c_void_p]
-# entry point: (pointer arguments, tail); every one also takes B, T, H, KV,
-# hd and the strides
+_TAIL = [ctypes.c_float, _I32, ctypes.c_float, _I32, _PTR]
+_LSE_TAIL = [ctypes.c_float, _I32, ctypes.c_float, _I32, _I32, _I32, _PTR]
+
+
+def _attn_args(n_ptr: int, tail) -> list:
+    """An attention entry point's arguments: ``n_ptr`` pointers, B, T, H,
+    KV, hd, the strides, the tail."""
+    return [_PTR] * n_ptr + [_I32] * 5 + _STRIDES + tail
+
+
+# entry point: its ctypes argument types
 _ENTRIES = {
-    "flash_fwd": {"flash_fwd": (5, _TAIL),          # q, k, v, out, lse
-                  "flash_lse_fwd": (5, _LSE_TAIL),
-                  "nh_fwd": (5, _TAIL)},
-    "flash_bwd": {"flash_bwd_dq": (7, _TAIL),       # q, k, v, do, lse, delta, dq
-                  "flash_bwd_dkv": (8, _TAIL),      # ... dk, dv
-                  "flash_bwd_fused": (9, _TAIL),    # ... dq (float32), dk, dv
-                  "flash_lse_bwd_dq": (7, _LSE_TAIL),
-                  "flash_lse_bwd_dkv": (8, _LSE_TAIL),
-                  "nh_bwd_dq": (7, _TAIL),
-                  "nh_bwd_dkv": (8, _TAIL)},
+    "flash_fwd": {"flash_fwd": _attn_args(5, _TAIL),  # q, k, v, out, lse
+                  "flash_lse_fwd": _attn_args(5, _LSE_TAIL),
+                  "nh_fwd": _attn_args(5, _TAIL)},
+    "flash_bwd": {"flash_bwd_dq": _attn_args(7, _TAIL),  # q, k, v, do, lse, delta, dq
+                  "flash_bwd_dkv": _attn_args(8, _TAIL),  # ... dk, dv
+                  "flash_bwd_fused": _attn_args(9, _TAIL),  # ... dq (float32), dk, dv
+                  "flash_lse_bwd_dq": _attn_args(7, _LSE_TAIL),
+                  "flash_lse_bwd_dkv": _attn_args(8, _LSE_TAIL),
+                  "nh_bwd_dq": _attn_args(7, _TAIL),
+                  "nh_bwd_dkv": _attn_args(8, _TAIL),
+                  # out, do, dlse, delta, dq; B, T, H, hd, dtype; stream
+                  "flash_bwd_prep": [_PTR] * 5 + [_I32] * 5 + [_PTR]},
 }
 
 
 def _kernel(name: str) -> ctypes.CDLL:
     lib = _build.load(name)
-    for fn, (n_ptr, tail) in _ENTRIES[name].items():
+    for fn, argtypes in _ENTRIES[name].items():
         f = getattr(lib, fn)
         if f.argtypes is None:
-            f.argtypes = [ctypes.c_void_p] * n_ptr + [_I32] * 5 + _STRIDES + tail
+            f.argtypes = argtypes
             f.restype = ctypes.c_int
     return lib
 
@@ -357,17 +381,76 @@ def fused_bwd_enabled() -> bool:
     return os.environ.get("FLASH_FUSED_BWD", "0") == "1"
 
 
-def _bwd_inputs(name, q, k, v, out, lse, do):
+def _bwd_inputs(name, q, k, v, out, lse, do, dlse=None, dq=None):
     """Checked CUDA inputs of a backward wrapper: (dO dense with 16-byte
-    rows, lse dense, delta = rowsum(out * dO) (B, H, T) float32, a plain
-    tensor op as in the JAX package)."""
+    rows, lse dense, delta = rowsum(out * dO) - dlse (B, H, T) float32 from
+    ``flash_bwd_prep``, which also zeroes ``dq``, a float32 buffer of K2c's,
+    where one is given)."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu tensors, not {q.device}")
     _check_cuda_inputs(q, k, v, name)
     _check_bwd_inputs(q, out, lse, do)
     do = _dense(do)
-    delta = (out.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
-    return do, lse.contiguous(), delta
+    return do, lse.contiguous(), flash_bwd_prep(out, do, dlse, dq=dq)
+
+
+def _check_prep_inputs(out, do, dlse, dq) -> None:
+    """Refuse what the prep kernel does not take."""
+    if (out.dim() != 4 or do.shape != out.shape or do.dtype != out.dtype
+            or do.device != out.device or out.dtype not in _DTYPE_CODES):
+        raise ValueError(f"flash_bwd_prep takes out and do of one shape (B, T, H, hd) "
+                         f"and dtype (float32 or bfloat16), got {tuple(out.shape)} "
+                         f"{out.dtype}, {tuple(do.shape)} {do.dtype}")
+    b, t, h, hd = out.shape
+    if hd not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"flash_bwd_prep: head_dim {hd} not in {SUPPORTED_HEAD_DIMS}")
+    if dlse is not None and (dlse.shape != (b, h, t) or dlse.device != out.device):
+        raise ValueError(f"dlse {tuple(dlse.shape)} does not match lse {(b, h, t)}")
+    if dq is not None and (dq.dtype != torch.float32 or dq.shape != out.shape
+                           or not dq.is_contiguous() or dq.device != out.device
+                           or dq.data_ptr() % 16):
+        raise ValueError(f"flash_bwd_prep zeroes a dense float32 {tuple(out.shape)} dq "
+                         f"on a 16-byte boundary (float4 stores), got "
+                         f"{tuple(dq.shape)} {dq.dtype} at {dq.data_ptr() % 16} past one")
+
+
+def flash_bwd_prep(out: torch.Tensor, do: torch.Tensor,
+                   dlse: Optional[torch.Tensor] = None, *,
+                   dq: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The prep kernel's wrapper: delta = rowsum(out * dO) - dlse (B, H, T)
+    float32 from out and dO (B, T, H, hd) of one dtype, with the lse
+    cotangent ``dlse`` (B, H, T) or None (zero); ``dq``, a dense float32
+    buffer of out's shape (K2c's), is zeroed in the same pass.
+
+    CPU tensors take ``flash_bwd_prep_plain``. CUDA tensors launch the
+    kernel (counted in ``flash_bwd_prep.launches``) or raise.
+    """
+    if out.device.type == "cpu":
+        if dq is not None:
+            dq.zero_()
+        return flash_bwd_prep_plain(out, do, dlse)
+    if out.device.type != "cuda":
+        raise ValueError(f"flash_bwd_prep runs on cuda or cpu tensors, not {out.device}")
+    _check_prep_inputs(out, do, dlse, dq)
+    b, t, h, hd = out.shape
+    if dlse is not None:
+        dlse = dlse.float().contiguous()
+    out, do = _dense(out), _dense(do)
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=out.device)
+    lib = _kernel("flash_bwd")
+    with torch.cuda.device(out.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.flash_bwd_prep(
+            out.data_ptr(), do.data_ptr(), None if dlse is None else dlse.data_ptr(),
+            delta.data_ptr(), None if dq is None else dq.data_ptr(), b, t, h, hd,
+            _DTYPE_CODES[out.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_prep kernel launch failed: CUDA error {rc}")
+    flash_bwd_prep.launches += 1
+    return delta
+
+
+flash_bwd_prep.launches = 0
 
 
 def flash_bwd(
@@ -378,8 +461,9 @@ def flash_bwd(
     """The backward kernels' wrapper: the gradient of ``flash_fwd`` ->
     (dq (B, T, H, hd), dk, dv (B, T, KV, hd)) in the inputs' dtype.
 
-    CPU tensors take ``flash_bwd_plain``. CUDA tensors launch the dq kernel
-    and the dk/dv kernel (counted in ``flash_bwd.dq_launches`` and
+    CPU tensors take ``flash_bwd_plain``. CUDA tensors launch the prep
+    kernel (delta), the dq kernel and the dk/dv kernel (counted in
+    ``flash_bwd_prep.launches``, ``flash_bwd.dq_launches`` and
     ``flash_bwd.dkv_launches``) or raise; with FLASH_FUSED_BWD=1 they go to
     ``flash_bwd_fused`` instead.
     """
@@ -400,15 +484,15 @@ def flash_bwd_fused(
     window: Optional[int] = None, softcap: Optional[float] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The fused backward kernel's wrapper (K2c): ``flash_bwd``'s function
-    in one launch. CPU tensors take ``flash_bwd_plain``. CUDA tensors get
-    delta, a zeroed float32 dq buffer (on the current stream), the kernel
-    (``flash_bwd_dqkv``) and dq cast to q's dtype, all plain tensor ops but
-    the kernel; a failed build or launch raises."""
+    in one launch of K2c. CPU tensors take ``flash_bwd_plain``. CUDA
+    tensors get delta and a zeroed float32 dq buffer from one
+    ``flash_bwd_prep`` launch, the kernel (``flash_bwd_dqkv``) and dq cast
+    to q's dtype (a tensor op); a failed build or launch raises."""
     kw = dict(scale=scale, window=window, softcap=softcap)
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, out, lse, do, **kw)
-    do, lse, delta = _bwd_inputs("flash_bwd_fused", q, k, v, out, lse, do)
-    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    do, lse, delta = _bwd_inputs("flash_bwd_fused", q, k, v, out, lse, do, dq=dq)
     dk, dv = flash_bwd_dqkv(q, k, v, do, lse, delta, dq, **kw)
     return dq.to(q.dtype), dk, dv
 
@@ -454,11 +538,13 @@ def flash_bwd_dqkv(q, k, v, do, lse, delta, dq, *, scale, window=None,
                    softcap=None):
     """Launch the fused kernel (K2c) on the inputs ``flash_bwd_dq`` takes:
     it adds dq to ``dq``, a dense float32 (B, T, H, hd) buffer (zeroed by
-    the caller), and returns (dk, dv). Counted in
+    ``flash_bwd_prep``), and returns (dk, dv). Counted in
     ``flash_bwd.fused_launches``."""
-    if dq.dtype != torch.float32 or dq.shape != q.shape or not dq.is_contiguous():
+    if (dq.dtype != torch.float32 or dq.shape != q.shape or not dq.is_contiguous()
+            or dq.data_ptr() % 8):
         raise ValueError(f"flash_bwd_dqkv adds into a dense float32 {tuple(q.shape)} "
-                         f"dq, got {tuple(dq.shape)} {dq.dtype}")
+                         f"dq on an 8-byte boundary (float2 atomics), got "
+                         f"{tuple(dq.shape)} {dq.dtype} at {dq.data_ptr() % 8} past one")
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
     _launch_bwd("flash_bwd_fused", (dq, dk, dv), q, k, v, do, lse, delta,
@@ -482,8 +568,8 @@ def flash_lse_bwd(
     outputs -> (dq (B, T, H, hd), dk, dv (B, T, KV, hd)) in the inputs'
     dtype. ``dlse`` is the lse cotangent (B, H, T) or None (zero).
 
-    delta' = rowsum(out * do) - dlse is computed here in float32 as a plain
-    tensor op, as the JAX ``_flash_bwd`` does. CPU tensors take
+    delta' = rowsum(out * do) - dlse comes from ``flash_bwd_prep`` (the JAX
+    ``_flash_bwd`` folds dlse into delta the same way). CPU tensors take
     ``flash_lse_bwd_plain``. CUDA tensors launch the dq kernel (K4a) and the
     dk/dv kernel (K4b), counted in ``flash_lse_bwd.dq_launches`` and
     ``flash_lse_bwd.dkv_launches``, or raise.
@@ -493,12 +579,10 @@ def flash_lse_bwd(
               q_offset=q_offset)
     if q.device.type == "cpu":
         return flash_lse_bwd_plain(q, k, v, out, lse, do, dlse, **kw)
-    do, lse, delta = _bwd_inputs("flash_lse_bwd", q, k, v, out, lse, do)
-    if dlse is not None:
-        if dlse.shape != lse.shape:
-            raise ValueError(f"dlse {tuple(dlse.shape)} does not match lse "
-                             f"{tuple(lse.shape)}")
-        delta = delta - dlse.float()
+    if dlse is not None and dlse.shape != lse.shape:
+        raise ValueError(f"dlse {tuple(dlse.shape)} does not match lse "
+                         f"{tuple(lse.shape)}")
+    do, lse, delta = _bwd_inputs("flash_lse_bwd", q, k, v, out, lse, do, dlse)
     dq = flash_lse_bwd_dq(q, k, v, do, lse, delta, **kw)
     dk, dv = flash_lse_bwd_dkv(q, k, v, do, lse, delta, **kw)
     return dq, dk, dv

@@ -8,20 +8,19 @@ builds the kernels of the source it changed (libraries already built here
 come along and are reused where their source is unchanged: they are keyed
 by a hash of it). A kernel fault (a source under ``ops/csrc``) runs
 phase 1's kernel checks: ``fwd_case`` (K1) on every case of
-``KERNEL_CASES`` and ``FWD_RING_CASES``, ``bwd_case`` (K2a, K2b) and
-``fused_case`` (K2c) on every case of ``KERNEL_CASES`` and
-``BWD_RING_CASES``, ``lse_case``
-(K3, K4a, K4b) on every case of ``LSE_CASES`` and ``LSE_RING_CASES``, each
-in bfloat16 and float32, ``nh_case`` (K5) on every case of ``NH_CASES`` and
-``exp_case`` (K6) on every case of ``EXP_CASES``. An edit whose text does
-not appear in the source as often as expected fails the tool before
-anything runs. A ring fault (a Python source)
-runs the sp phase's ranks and ``sp_checks``, and must fail the main path's
-model-level group ("main") on its own: the step's loss, grad norm and
-every parameter's gradient against the dense single-process step. The
-control runs both. Prints one JSON line per fault with the checks that
-failed. Exits 0 when the control passes every check and every fault is
-caught; needs one CUDA device.
+``KERNEL_CASES`` and ``FWD_RING_CASES``; ``prep_case`` (the prep pass),
+``bwd_case`` (K2a, K2b) and ``fused_case`` (K2c) on every case of
+``KERNEL_CASES`` and ``BWD_RING_CASES``; ``lse_case`` (K3, K4a, K4b) on
+every case of ``LSE_CASES`` and ``LSE_RING_CASES``; each in bfloat16 and
+float32; ``nh_case`` (K5) on every case of ``NH_CASES`` and ``exp_case``
+(K6) on every case of ``EXP_CASES``. An edit whose text does not appear in
+the source as often as expected fails the tool before anything runs. A
+ring fault (a Python source) runs the sp phase's ranks and ``sp_checks``,
+and must fail the main path's model-level group ("main") on its own: the
+step's loss, grad norm and every parameter's gradient against the dense
+single-process step. The control runs both. Prints one JSON line per
+fault with the checks that failed. Exits 0 when the control passes every
+check and every fault is caught; needs one CUDA device.
 
     python -m mingpt_distributed_tpu_torch.tools.plant_faults
 """
@@ -46,13 +45,13 @@ FAULTS = {
     # both dq kernels (fp32, bf16) read delta as 0: ds = p * dp
     "dq_drops_delta": ("K2a/K4a drop delta", "ops/csrc/flash_bwd.cu",
                        [("p.delta[vec]", "0.f", 2)]),
-    # the dk/dv kernels (fp32, bf16; and K2c's, which shares the fp32 one's
-    # loop) stop one q tile short of the band's end
+    # the dk/dv kernels (fp32, bf16; K2c is their kFused instantiation)
+    # stop one q tile short of the band's end
     "dkv_skips_last_q_tile": (
         "K2b/K4b/K5 dkv (and K2c) skip the last q tile of the band",
         "ops/csrc/flash_bwd.cu",
         [("for (int qt = qt_lo; qt <= qt_hi; ++qt) {",
-          "for (int qt = qt_lo; qt < qt_hi; ++qt) {", 2),
+          "for (int qt = qt_lo; qt < qt_hi; ++qt) {", 1),
          ("return max(0, qt_hi - *qt_lo + 1);  // q tiles per query head",
           "return max(0, qt_hi - *qt_lo);  // q tiles per query head", 1)]),
     # the dk/dv kernels (fp32, bf16) stop one q tile short of an offset band
@@ -100,8 +99,24 @@ FAULTS = {
         [("      if (kFused) {\n        // dq += dS K over this cell",
           "      if (kFused && qt != qt_lo) {\n        // dq += dS K over this cell",
           1),
-         ("      // dq += dS K over this cell: warp w's queries",
-          "      if (qt == qt_lo) continue;  // dq += dS K over this cell: warp w's queries",
+         ("                  if (dq_row[r] >= p.T) continue;",
+          "                  if (dq_row[r] >= p.T || i == 0) continue;", 1)]),
+    # the bf16 fused backward releases K and V at the last tile's S and dP
+    # products, as dk/dv may, though its dq product still reads K: the
+    # producer loads the next item's K under it
+    "fused_releases_kv_early": (
+        "K2c's bf16 kernel frees K/V before its last dS K retires",
+        "ops/csrc/flash_bwd.cu",
+        [("            if (last && !kFused) hopper::mbar_arrive(bar_kv_empty);",
+          "            if (last) hopper::mbar_arrive(bar_kv_empty);", 1),
+         ("              if (last) hopper::mbar_arrive(bar_kv_empty);  "
+          "// K is read by dS K too\n", "", 1)]),
+    # the prep pass drops the last element of each row from delta
+    "prep_drops_last_element": (
+        "the prep pass's delta misses each row's last out * dO product",
+        "ops/csrc/flash_bwd.cu",
+        [("for (int e = 0; e < 8; ++e) acc = fmaf(o[e], d[e], acc);",
+          "for (int e = 0; e < 8 - (sub == kG - 1); ++e) acc = fmaf(o[e], d[e], acc);",
           1)]),
     # the natural-base forward (fp32, bf16) ignores the softcap
     "nh_fwd_drops_softcap": (
@@ -125,8 +140,8 @@ FAULTS = {
           "        late = late if t == 1 else _fold(late, o_b, lse_b)\n", 1)]),
 }
 
-# run inside the copy: every K1, K2a/K2b, K2c, K3/K4, K5 and K6 case, one
-# JSON line each
+# run inside the copy: every K1, prep, K2a/K2b, K2c, K3/K4, K5 and K6 case,
+# one JSON line each
 KERNEL_CHECK = """
 import json, sys, torch
 import chip_smoke
@@ -144,6 +159,8 @@ def report(rec, fails):
 
 for check, cases in ((chip_smoke.fwd_case,
                       chip_smoke.KERNEL_CASES + chip_smoke.FWD_RING_CASES),
+                     (chip_smoke.prep_case,
+                      chip_smoke.KERNEL_CASES + chip_smoke.BWD_RING_CASES),
                      (chip_smoke.bwd_case,
                       chip_smoke.KERNEL_CASES + chip_smoke.BWD_RING_CASES),
                      (chip_smoke.fused_case,
@@ -205,7 +222,7 @@ def _kernel_record(cases: list) -> dict:
     exp = [c for c in cases if c["kernel"] == "exp_chain"]
     return {"cases": len(cases), "cases_failed": len(failed),
             "failed_by_check": {g: sum(g in c["failed"] for c in cases)
-                                for g in ("fwd", "dq", "dk", "dv", "exp")},
+                                for g in ("fwd", "delta", "dq", "dk", "dv", "exp")},
             "exp_failed_by_reps": {r: sum(bool(c["failed"]) for c in exp if c["reps"] == r)
                                    for r in sorted({c["reps"] for c in exp})},
             "failed_cases": [f"{c['kernel']} {c['case']} {c['dtype']}: {c['failed']}"

@@ -84,73 +84,139 @@ def test_bwd_ring_cases_have_unique_names_beside_the_kernel_cases():
     assert len(names) == len(set(names))
 
 
+def _ptxas_entry(kernel, stack, stores, loads, regs):
+    return (f"ptxas info    : Compiling entry function '{kernel}' for 'sm_90a'\n"
+            f"ptxas info    : Function properties for {kernel}\n"
+            f"    {stack} bytes stack frame, {stores} bytes spill stores, {loads} bytes spill loads\n"
+            f"ptxas info    : Used {regs} registers, used 1 barriers, 1088 bytes cmem[0]\n")
+
+
+def _dkv(hd, lse=0, nat=0, fused=0):
+    return (f"_ZN12_GLOBAL__N_121flash_dkv_bf16_kernelILi{hd}ELb{lse}ELb{nat}ELb{fused}EEEv"
+            "14CUtensorMap_stS1_S1_S1_NS_6ParamsE")
+
+
 def test_bwd_ptxas_reads_registers_spills_and_shared_memory(capsys):
-    log = """ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120flash_dq_bf16_kernelILi64ELb0ELb0EEEv14CUtensorMap_stS1_S1_S1_NS_6ParamsE' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_120flash_dq_bf16_kernelILi64ELb0ELb0EEEv14CUtensorMap_stS1_S1_S1_NS_6ParamsE
-    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 168 registers, used 1 barriers, 1088 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121flash_dkv_bf16_kernelILi128ELb1ELb0EEEv14CUtensorMap_stS1_S1_S1_NS_6ParamsE' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_121flash_dkv_bf16_kernelILi128ELb1ELb0EEEv14CUtensorMap_stS1_S1_S1_NS_6ParamsE
-    24 bytes stack frame, 36 bytes spill stores, 36 bytes spill loads
-ptxas info    : Used 168 registers, used 1 barriers, 1088 bytes cmem[0]
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123flash_fused_bf16_kernelILi64EEEvNS_6ParamsE' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_123flash_fused_bf16_kernelILi64EEEvNS_6ParamsE
-    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
-ptxas info    : Used 128 registers, used 1 barriers, 464 bytes cmem[0]
-"""
-    rows = chip_smoke.bwd_ptxas(log)
+    log = (_ptxas_entry("_ZN12_GLOBAL__N_120flash_dq_bf16_kernelILi64ELb0ELb0EEEv14CUtensorMap"
+                        "_stS1_S1_S1_NS_6ParamsE", 0, 0, 0, 168)
+           + _ptxas_entry(_dkv(128, lse=1), 24, 36, 36, 168)
+           + _ptxas_entry(_dkv(64, fused=1), 8, 12, 16, 168)
+           + _ptxas_entry(_dkv(64), 8, 12, 16, 168)
+           + _ptxas_entry("_ZN12_GLOBAL__N_121flash_bwd_prep_kernelI13__nv_bfloat16Li8EEEvNS_"
+                          "10PrepParamsE", 0, 0, 0, 24))
+    rows, fails = chip_smoke.bwd_ptxas(log)
     assert [(r["registers"], r["stack"], r["spill_stores"], r["spill_loads"]) for r in rows] == \
-        [(168, 0, 0, 0), (168, 24, 36, 36), (128, 0, 0, 0)]
+        [(168, 0, 0, 0), (168, 24, 36, 36), (168, 8, 12, 16), (168, 8, 12, 16), (24, 0, 0, 0)]
     # dq: Q and dO of 128 rows + two stages of 64-key K and V + barriers + slack
     assert rows[0]["dynamic_smem_bytes"] == 2 * 16384 + 4 * 8192 + 48 + 1024
     # dk/dv: K and V of 128 keys + two stages of 64-row Q and dO + lse/delta
     assert rows[1]["dynamic_smem_bytes"] == 2 * 32768 + 4 * 16384 + 1024 + 48 + 1024
-    # K2c: K, V, Q, dO rows padded to hd + 8, lse, delta, the cell's dS
-    assert rows[2]["dynamic_smem_bytes"] == 4 * 64 * 72 * 2 + 512 + 64 * 72 * 2
-    assert capsys.readouterr().out.count('"phase": "bwd_ptxas"') == 3
+    # K2c: the same at hd 64, two warpgroups' 64 x 64 bf16 dS^T tiles and
+    # the dq exchange (2 warpgroups x 2 parities x 4 float4 x 128 threads)
+    assert rows[2]["dynamic_smem_bytes"] == (2 * 16384 + 4 * 8192 + 1024 + 2 * 8192
+                                             + 2 * 2 * 4 * 16 * 128 + 48 + 1024)
+    assert rows[3]["dynamic_smem_bytes"] == rows[2]["dynamic_smem_bytes"] - 2 * 8192 - 32768
+    assert "dynamic_smem_bytes" not in rows[4]  # the prep kernel takes none
+    assert fails == []
+    assert capsys.readouterr().out.count('"phase": "bwd_ptxas"') == 5
+
+
+@pytest.mark.parametrize("stores, loads, caught", [(12, 16, False), (16, 16, True),
+                                                   (12, 20, True), (0, 0, False)])
+def test_bwd_ptxas_fails_k2c_spilling_more_than_dkv_at_hd_64(stores, loads, caught):
+    log = (_ptxas_entry(_dkv(64), 8, 12, 16, 168)
+           + _ptxas_entry(_dkv(64, fused=1), 8, stores, loads, 168)
+           # hd 128 is recorded, not held
+           + _ptxas_entry(_dkv(128), 24, 36, 36, 168)
+           + _ptxas_entry(_dkv(128, fused=1), 32, 80, 80, 168))
+    _, fails = chip_smoke.bwd_ptxas(log)
+    assert fails == ([f"K2c at hd 64 spills {stores}/{loads} bytes, dk/dv 12/16"]
+                     if caught else [])
 
 
 def _entry_instantiations():
-    """(template, kLse, kNat) of every bf16 dq/dk-dv kernel the C entry
-    points of flash_bwd.cu launch, and the K2c ones, read from the source."""
+    """(template, kLse, kNat, kFused) of every bf16 dq/dk-dv kernel the C
+    entry points of flash_bwd.cu launch, read from the source."""
     src = (Path(REPO) / "mingpt_distributed_tpu_torch/ops/csrc/flash_bwd.cu").read_text()
-    wgmma, fused = set(), set()
+    found = set()
     for body in re.findall(r'extern "C" int \w+\(.*?\n}\n', src, re.S):
         for kind, args in re.findall(r"run_(dq|dkv)<([^>]*)>", body):
             flags = tuple(a.strip() == "true" for a in args.split(","))
-            if kind == "dkv" and flags[2]:
-                fused.add(flags[:2])
-            else:
-                wgmma.add((f"flash_{kind}_bf16_kernel", *flags[:2]))
-    return wgmma, fused
+            found.add((f"flash_{kind}_bf16_kernel", *flags))
+    return found
 
 
 def test_bwd_sass_expects_every_instantiation_the_entry_points_name():
     from mingpt_distributed_tpu_torch.ops.flash_attention import SUPPORTED_HEAD_DIMS
 
-    wgmma, fused = _entry_instantiations()
+    found = _entry_instantiations()
     widths = len(SUPPORTED_HEAD_DIMS)
     for name, want in chip_smoke.BWD_BF16_KERNELS.items():
-        assert want == widths * sum(k == name for k, *_ in wgmma)
-    assert sum(chip_smoke.BWD_BF16_KERNELS.values()) == 24
-    assert chip_smoke.FUSED_BF16_KERNELS == {"flash_fused_bf16_kernel": widths * len(fused)}
+        assert want == widths * sum(k == name for k, *_ in found)
+    # K2a, K4a, K5 dq; K2b, K4b, K5 dkv and K2c (kFused), at 4 head widths
+    assert chip_smoke.BWD_BF16_KERNELS == {"flash_dq_bf16_kernel": 12,
+                                           "flash_dkv_bf16_kernel": 16}
+    assert ("flash_dkv_bf16_kernel", False, False, True) in found
+    src = (Path(REPO) / "mingpt_distributed_tpu_torch/ops/csrc/flash_bwd.cu").read_text()
+    assert "mma.sync" not in src and "mma_bf16(" not in src
 
 
 def test_bwd_sass_check_passes_wgmma_kernels_and_refuses_hmma_in_them():
-    def name(kind, hd, lse=0, nat=0):
-        return f"_ZN12_GLOBAL__N_1{kind}ILi{hd}ELb{lse}ELb{nat}EEEv14CUtensorMap_st"
+    def name(kind, hd, *flags):
+        return (f"_ZN12_GLOBAL__N_1{kind}ILi{hd}E" + "".join(f"Lb{f}E" for f in flags)
+                + "EEv14CUtensorMap_st")
 
-    good = {name(k, hd, lse, nat): {"HGMMA.64x64x16.F32.BF16": 4, "UTMALDG.4D": 2}
-            for k in chip_smoke.BWD_BF16_KERNELS for hd in (16, 32, 64, 128)
-            for lse, nat in ((0, 0), (1, 0), (0, 1))}
-    good.update({f"_ZN12_GLOBAL__N_123flash_fused_bf16_kernelILi{hd}EEEvNS_6ParamsE":
-                 {"HMMA.16816.F32.BF16": 40} for hd in (16, 32, 64, 128)})
+    good = {name("flash_dq_bf16_kernel", hd, lse, nat): {"HGMMA.64x64x16.F32.BF16": 4,
+                                                         "UTMALDG.4D": 2}
+            for hd in (16, 32, 64, 128) for lse, nat in ((0, 0), (1, 0), (0, 1))}
+    good.update({name("flash_dkv_bf16_kernel", hd, lse, nat, fused):
+                 {"HGMMA.64x64x16.F32.BF16": 4, "UTMALDG.4D": 2}
+                 for hd in (16, 32, 64, 128)
+                 for lse, nat, fused in ((0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1))})
     good["_ZN12_GLOBAL__N_119flash_dq_f32_kernelILi64ELb0ELb0EEEvNS_6ParamsE"] = {"FFMA": 9}
+    good["_ZN12_GLOBAL__N_121flash_bwd_prep_kernelIfLi8EEEvNS_10PrepParamsE"] = {"FFMA": 8}
     _, fails = chip_smoke.bwd_sass_check(good)
     assert fails == []
     bad = dict(good)
-    bad[name("flash_dkv_bf16_kernel", 64)] = {"HMMA.16816.F32.BF16": 8, "UTMALDG.4D": 2}
-    del bad[name("flash_dq_bf16_kernel", 16)]
+    bad[name("flash_dkv_bf16_kernel", 64, 0, 0, 1)] = {"HMMA.16816.F32.BF16": 8,
+                                                       "UTMALDG.4D": 2}
+    del bad[name("flash_dq_bf16_kernel", 16, 0, 0)]
     _, fails = chip_smoke.bwd_sass_check(bad)
     assert len(fails) == 2
     assert any("flash_dq_bf16_kernel: 11 instantiations" in f for f in fails)
+    assert any("ELb1E" in f and "HMMA 8" in f for f in fails)
+
+
+def test_attention_work_bounds_k2c_by_its_function_and_counts_its_float32_dq_apart():
+    import torch
+
+    from mingpt_distributed_tpu_torch.tools import bwd_times
+
+    b, t, h, hd = 16, 1024, 12, 64
+    elems = b * t * h * hd
+    bf16 = torch.bfloat16
+    dkv, _, _ = chip_smoke.attention_work(b, t, h, hd, None, bf16, "flash_bwd_dkv")
+    fused, flops, _ = chip_smoke.attention_work(b, t, h, hd, None, bf16,
+                                                "flash_bwd_fused")
+    # K2c's function writes dq once in bf16 beside K2b's; its float32 buffer
+    # is not the function's
+    assert fused - dkv == elems * 2
+    assert flops == 2 * 5 * b * h * hd * (t * (t + 1) // 2)
+    bound, by = chip_smoke.roofline_ms(fused, [(flops, chip_smoke.PEAK_FLOPS[bf16])])
+    assert by == "operations" and bound == pytest.approx(0.0652, abs=5e-5)
+    for kernel in ("flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused"):
+        assert bwd_times.work(kernel, b, t, h, hd, True) == chip_smoke.attention_work(
+            b, t, h, hd, None, bf16, kernel)
+    # 72 (64-query tile, 128-key item) cells per (batch, head) in the causal
+    # band at T = 1024; every cell of a row without the mask
+    dq32 = bwd_times.dq_f32_bytes(b, t, h, hd, True)
+    assert dq32 == {"read": elems * 4, "write": elems * 4,
+                    "atomic_add": b * h * 72 * 64 * hd * 4}
+    assert bwd_times.dq_f32_bytes(2, 200, 3, 16, False)["atomic_add"] == 2 * 3 * 4 * 2 * 64 * 16 * 4
+    assert bwd_times.dq_f32_bytes(1, 65, 1, 16, True)["atomic_add"] == 2 * 64 * 16 * 4
+    split, ops = chip_smoke.prep_work(b, t, h, hd, bf16)
+    zero, _ = chip_smoke.prep_work(b, t, h, hd, bf16, zero_dq=True)
+    assert split == 2 * elems * 2 + b * h * t * 4 and zero - split == elems * 4
+    assert ops == 2 * elems
+    assert chip_smoke.attention_work(b, t, h, hd, None, bf16,
+                                     "flash_bwd_prep") == (split, ops, 0)

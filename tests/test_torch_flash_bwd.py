@@ -192,6 +192,8 @@ def test_wrappers_refuse_to_run_inside_a_graph():
                                   "fwd_releases_stage_early",
                                   "bwd_releases_stage_early",
                                   "fused_dq_skips_diagonal_cell",
+                                  "fused_releases_kv_early",
+                                  "prep_drops_last_element",
                                   "nh_fwd_drops_softcap",
                                   "exp_chain_one_rep_short",
                                   "ring_skips_hop_fold"])
@@ -207,3 +209,18 @@ def test_planted_fault_patches_still_apply_to_the_kernel_source(name):
     patched = plant_faults.patch(src, edits)
     for old, new, _ in edits:
         assert old not in patched and new in patched
+
+
+@pytest.mark.parametrize("name", ["final", "no_atomics", "no_dq", "own", "own_f4"])
+def test_k2c_design_variants_still_apply_to_the_kernel_source(name):
+    """tools/k2c_variants.py times copies of the package with one edit to
+    K2c's source each; every anchor must appear in it as often as the tool
+    expects, or the tool refuses to run on the card."""
+    from mingpt_distributed_tpu_torch.tools import k2c_variants, plant_faults
+
+    src = (plant_faults.ROOT / plant_faults.PACKAGE / k2c_variants.SOURCE).read_text()
+    edits = k2c_variants.VARIANTS[name]
+    patched = plant_faults.patch(src, edits)
+    assert (patched == src) == (not edits)
+    for old, new, _ in edits:
+        assert new in patched

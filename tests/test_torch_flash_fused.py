@@ -8,12 +8,17 @@
   under which the JAX fused kernel ``_dqkv_kernel_btd`` runs in Pallas
   interpret mode over two k tiles, so its cross-tile dq accumulation runs.
   On the CPU the port's backward is ``flash_bwd_plain``, the plain version
-  of K2c. Tolerance 2e-4, the JAX test's.
+  of K2c. float32: tolerance 2e-4, the JAX test's. bfloat16 (both sides at
+  bf16): within one bf16 step at the largest gradient, the resolution the
+  JAX kernel's own bf16-vs-fp32 gap sets (below).
+* ``flash_bwd_prep``'s plain version (what the prep kernel computes: delta
+  and the lse cotangent folded in, K2c's dq zeroed) against the JAX
+  package's delta expression, and the prep wrapper's argument checks.
 * The switch is read at each call, and both settings give
   ``flash_bwd_plain``'s result on the CPU without a launch.
-* ``_ENTRIES`` names the fused and the prototype's entry points, and every
-  entry's ctypes argument list matches its C signature in ``ops/csrc`` (no
-  compiler here can hold them together).
+* ``_ENTRIES`` names the fused, the prep and the prototype's entry points,
+  and every entry's ctypes argument list matches its C signature in
+  ``ops/csrc`` (no compiler here can hold them together).
 * The CUDA wrappers' argument checks raise before any launch.
 """
 
@@ -32,6 +37,16 @@ from mingpt_distributed_tpu.ops import flash_attention as j_flash
 from mingpt_distributed_tpu_torch.ops import flash_attention as t_flash
 
 TOL = dict(rtol=2e-4, atol=2e-4)
+# bfloat16: the port's plain version works in float32 from the bf16 inputs
+# and rounds dq, dk and dv to bf16; the JAX fused kernel rounds P and dS to
+# bf16 before its products. The JAX kernel's own bf16 gradients differ from
+# its float32 ones on the same bf16 inputs by up to 2^-7.7 of the largest
+# gradient (max |g| 2.2-6.0, max |diff| 0.0086-0.0253; mean |diff| / mean
+# |g| 2.2e-3-2.9e-3), so two bf16 paths may sit one bf16 step apart at the
+# top of the range: max |diff| <= 2^-7 max |g|, mean |diff| / mean |g| <=
+# 1e-2 (read: 0.0156-0.0313 and 1.6e-3-2.5e-3).
+BF16_TOL_X = 2.0 ** -7
+BF16_REL_TOL = 1e-2
 
 # name: (H, KV, causal_attention keyword arguments)
 FUSED_CASES = {
@@ -67,6 +82,32 @@ def test_fused_backward_grads_match_the_jax_fused_kernel(case, monkeypatch):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
 
+@pytest.mark.parametrize("case", sorted(FUSED_CASES))
+def test_fused_backward_bf16_grads_match_the_jax_fused_kernel(case, monkeypatch):
+    # the settings above, both sides at bf16 on the same bf16 inputs
+    h, kv, kw = FUSED_CASES[case]
+    monkeypatch.setenv("FLASH_FUSED_BWD", "1")
+    monkeypatch.setenv("FLASH_BLOCK", "128")
+    monkeypatch.setenv("FLASH_LAYOUT", "auto")
+    q, k, v, w = (jnp.asarray(a).astype(jnp.bfloat16)
+                  for a in _inputs(2, 256, h, kv, 32, seed=41))
+
+    def j_loss(q, k, v):
+        return jnp.sum((j_flash.causal_attention(q, k, v, **kw) * w).astype(jnp.float32))
+
+    want = jax.grad(j_loss, argnums=(0, 1, 2))(q, k, v)
+    qt, kt, vt, wt = (torch.from_numpy(np.array(a.astype(jnp.float32))).to(torch.bfloat16)
+                      for a in (q, k, v, w))
+    leaves = [x.requires_grad_() for x in (qt, kt, vt)]
+    (t_flash.causal_attention(*leaves, **kw).float() * wt.float()).sum().backward()
+    for x, ref in zip(leaves, want):
+        got, ref = x.grad.float().numpy(), np.asarray(ref.astype(jnp.float32))
+        assert x.grad.dtype == torch.bfloat16
+        diff = np.abs(got - ref)
+        assert diff.max() <= BF16_TOL_X * np.abs(ref).max()
+        assert diff.mean() / np.abs(ref).mean() <= BF16_REL_TOL
+
+
 def test_fused_switch_is_read_at_each_call(monkeypatch):
     for value, on in (("1", True), ("0", False), ("true", False), ("1", True)):
         monkeypatch.setenv("FLASH_FUSED_BWD", value)
@@ -92,9 +133,11 @@ def test_fused_switch_is_read_at_each_call(monkeypatch):
 def test_entries_name_the_fused_and_prototype_entry_points():
     assert {"flash_fwd", "flash_lse_fwd", "nh_fwd"} == set(t_flash._ENTRIES["flash_fwd"])
     assert {"flash_bwd_dq", "flash_bwd_dkv", "flash_bwd_fused", "flash_lse_bwd_dq",
-            "flash_lse_bwd_dkv", "nh_bwd_dq", "nh_bwd_dkv"} == set(
+            "flash_lse_bwd_dkv", "nh_bwd_dq", "nh_bwd_dkv", "flash_bwd_prep"} == set(
                 t_flash._ENTRIES["flash_bwd"])
-    assert t_flash._ENTRIES["flash_bwd"]["flash_bwd_fused"][0] == 9
+    # nine pointers: q, k, v, do, lse, delta, dq (float32), dk, dv
+    fused = t_flash._ENTRIES["flash_bwd"]["flash_bwd_fused"]
+    assert fused[:9] == [ctypes.c_void_p] * 9 and fused[9] == ctypes.c_int
 
 
 _CSRC = Path(t_flash.__file__).resolve().parent / "csrc"
@@ -120,10 +163,7 @@ def _c_signature(source: str, entry: str):
     (lib, fn) for lib, fns in t_flash._ENTRIES.items() for fn in fns))
 def test_entry_argument_types_match_the_c_signature(entry):
     lib, fn = entry
-    n_ptr, tail = t_flash._ENTRIES[lib][fn]
-    want = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + t_flash._STRIDES
-            + tail)
-    assert _c_signature(lib, fn) == [_ctype_name(t) for t in want]
+    assert _c_signature(lib, fn) == [_ctype_name(t) for t in t_flash._ENTRIES[lib][fn]]
 
 
 # -- the CUDA wrappers' checks (they run before any kernel) ------------------
@@ -138,11 +178,13 @@ def _refuse_meta_fused():
                             scale=0.25)
 
 
-def _refuse_dq_buffer(dtype, shape):
+def _refuse_dq_buffer(dtype, shape, offset=0):
+    """flash_bwd_dqkv with a dq buffer of ``dtype`` and ``shape``, dense but
+    ``offset`` elements past the start of its allocation."""
     q = torch.zeros((1, 8, 2, 16))
     lse = torch.zeros((1, 2, 8))
-    t_flash.flash_bwd_dqkv(q, q, q, q, lse, lse, torch.zeros(shape, dtype=dtype),
-                           scale=0.25)
+    dq = torch.zeros(offset + math.prod(shape), dtype=dtype)[offset:].view(shape)
+    t_flash.flash_bwd_dqkv(q, q, q, q, lse, lse, dq, scale=0.25)
 
 
 def _refuse_mixed_dtypes():
@@ -157,6 +199,9 @@ FUSED_REFUSALS = {
                        ValueError, "dense float32"),
     "dq_buffer_shape": (lambda: _refuse_dq_buffer(torch.float32, (1, 8, 2, 8)),
                         ValueError, "dense float32"),
+    # the float2 atomics need 8-byte alignment
+    "dq_buffer_misaligned": (lambda: _refuse_dq_buffer(torch.float32, (1, 8, 2, 16), 1),
+                             ValueError, "8-byte boundary"),
     "names_the_wrapper": (_refuse_mixed_dtypes, TypeError, "^flash_bwd_fused takes"),
 }
 
