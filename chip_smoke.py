@@ -41,11 +41,26 @@ Phases:
   3. generation at the same width: sliding window (one forward kernel launch
      per layer per token) and KV-cached decode (no kernel), then the sample
      entry point;
+  3b. serving at the same width (serving/: the continuous-batching server
+     on the KV-cached forward; no kernel on its path, 0 launches checked):
+     serve_parity (fp32, 4 slots, 6 greedy requests of 5 to 700 prompt
+     tokens, two sharing a 128-token head, 24 new tokens each, chunked
+     prefill 256, prefix cache on: every token against the port's solo
+     KV-cached generate, held where solo's top-2 gap exceeds 3x the run's
+     largest engine-vs-solo logit difference); serve (the serving main
+     path: bf16, block 1024, 8 slots, 32 requests of 32 to 896 prompt
+     tokens, half sharing a 256-token head, 64 new tokens each, one in four
+     sampled with top-k 50, chunked prefill 256, a 256 MiB prefix cache,
+     warmup: tokens/s, TTFT and ITL p50/p99, host ms per decode step
+     against its CUDA-event span and the profiler's kernel ms, peak
+     memory, pool bytes, prefix hits, shape counts);
   4. training: the train step at the bench shape (GPT-2 124M, T=1024, batch
      16, bf16, no dropout), 12 forward, 12 prep, 12 dq and 12 dk/dv
      launches per step; the same step with FLASH_FUSED_BWD=1, 12 forward,
      12 prep and 12 fused launches per step (K2c's path); then the train
-     entry point on the corpus (loss falls, eval, snapshot, resume);
+     entry point on the corpus (loss falls, eval, snapshot, resume), and
+     the serve entry point (serve_cli): --selftest, then --prompts-file
+     over that snapshot;
   4b. sequence parallel: 4 ranks spawned on the one card over gloo: ring
      and Ulysses attention at GPT-2 width (T=4096) against dense plain
      attention; the sp = 4 ring train step at full GPT-2 width, block 4096,
@@ -82,10 +97,12 @@ import sys
 import tempfile
 import time
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from mingpt_distributed_tpu_torch.tools.bwd_times import dq_f32_bytes
+from mingpt_distributed_tpu_torch.tools.profile_generate import device_us
 from mingpt_distributed_tpu_torch.training.metrics import (
     H100_SXM,
     roofline_ms,
@@ -1041,6 +1058,351 @@ def phase_sample(fa, card):
     check(fa.flash_fwd.launches == 200 * 12, "sample: want 2400 launches")
 
 
+# ---------------------------------------------------------------------------
+# phase 3b: serving (the continuous-batching server; no kernel on its path)
+# ---------------------------------------------------------------------------
+
+
+# serve_parity's tie rule, chip_smoke's margin rule for argmaxes: with e the
+# largest engine-vs-solo logit difference of the run, a token is held where
+# solo's fp32 top-2 gap exceeds SERVE_TIE_X * e; a divergence at a narrower
+# gap ends that request's comparison (printed), and at least
+# SERVE_COMPARED_MIN of the run's steps must have been compared
+SERVE_TIE_X = 3.0
+SERVE_COMPARED_MIN = 0.9
+SERVE_SEED = 9
+
+
+def _serve_prompts(rng, lengths, head, shared):
+    """Token prompts of ``lengths``; those flagged ``shared`` start with
+    ``head``."""
+    out = []
+    for n, s in zip(lengths, shared):
+        p = rng.integers(0, 50257, int(n)).tolist()
+        if s:
+            p[:len(head)] = head
+        out.append(p)
+    return out
+
+
+@contextlib.contextmanager
+def logit_tap(server):
+    """Records the logits the engine picks each request's tokens from, keyed
+    (request id, token index): the engine's selector is wrapped, and its
+    prefill call marks which slot a prefill's logits belong to."""
+    from mingpt_distributed_tpu_torch.serving import engine as engine_mod
+
+    rows, current = {}, {}
+    real_select, eng = engine_mod._select_next_slots, server.engine
+    real_prefill = eng.prefill_chunk_call
+
+    def prefill(slot, *args):
+        current["slot"] = slot
+        try:
+            return real_prefill(slot, *args)
+        finally:
+            current.clear()
+
+    def select(logits, *args):
+        if current:  # a prefill chunk: the last one's logits give token 0
+            h = server.slots.handles[current["slot"]]
+            if h is not None:
+                rows[(h.request_id, 0)] = logits[0].clone()
+        else:
+            for s in server.slots.decoding_slots():
+                h = server.slots.handles[s]
+                rows[(h.request_id, len(h.tokens))] = logits[s].clone()
+        return real_select(logits, *args)
+
+    engine_mod._select_next_slots, eng.prefill_chunk_call = select, prefill
+    try:
+        yield rows
+    finally:
+        engine_mod._select_next_slots = real_select
+        del eng.prefill_chunk_call
+
+
+def solo_greedy(params, cfg, prompt, n):
+    """The port's solo KV-cached greedy decode (generate()'s calls), with
+    the logits of every step: (tokens, (n, V) logits)."""
+    from mingpt_distributed_tpu_torch.models import generate as gen
+
+    with torch.no_grad():
+        cache = gen.init_cache(cfg, 1, torch.device("cuda"))
+        logits = gen._forward_cached(
+            params, torch.tensor([prompt], device="cuda"), cache, 0, cfg)
+        toks, rows = [], []
+        for pos in range(len(prompt), len(prompt) + n):
+            rows.append(logits[0])
+            tok = logits.argmax(-1)
+            toks.append(int(tok))
+            if len(toks) < n:
+                logits = gen._forward_cached(params, tok[:, None], cache, pos, cfg)
+    return toks, torch.stack(rows)
+
+
+def phase_serve_parity(params32, card):
+    """The server at GPT-2 124M width, fp32: 4 slots, 6 greedy requests
+    (prompts of 5 to 700 tokens, two sharing a 128-token head), 24 new
+    tokens each, chunked prefill (256) and the prefix cache on; every
+    request's tokens against the port's solo KV-cached generate on the card
+    under the tie rule."""
+    from mingpt_distributed_tpu_torch.models import generate as gen
+    from mingpt_distributed_tpu_torch.serving import InferenceServer, Request
+
+    cfg, new = gpt2_config("flash", "float32"), 24
+    rng = np.random.default_rng(SERVE_SEED)
+    lengths = rng.integers(5, 701, 6)
+    lengths[0], lengths[1] = 5, 700
+    lengths[2], lengths[4] = rng.integers(129, 257), rng.integers(129, 701)
+    head = rng.integers(0, 50257, 128).tolist()
+    prompts = _serve_prompts(rng, lengths, head, [i in (2, 4) for i in range(6)])
+    server = InferenceServer(params32, cfg, n_slots=4, prefill_chunk=256,
+                             prefix_cache_mb=64, device="cuda")
+    reset_counts()
+    with logit_tap(server) as rows:
+        handles, dt = timed(lambda: server.generate_batch(
+            [Request(prompt=p, max_new_tokens=new) for p in prompts]))
+    launches = read_counts()
+    solo = [solo_greedy(params32, cfg, p, new) for p in prompts]
+    for p, (toks, _) in zip(prompts, solo):
+        want = gen.generate(params32, cfg, [p], new, device="cuda")[0, len(p):]
+        check(want.tolist() == toks, "solo decode differs from generate()")
+    # d: the first diverging step of each request (new if none)
+    firsts = [next((i for i, (a, b) in enumerate(zip(h.tokens, toks)) if a != b), new)
+              for h, (toks, _) in zip(handles, solo)]
+    e = max((rows[(h.request_id, i)] - ref[i]).abs().max().item()
+            for h, (_, ref), d in zip(handles, solo, firsts)
+            for i in range(min(d + 1, new)))
+    divergences = []
+    for h, (toks, ref), d in zip(handles, solo, firsts):
+        if d < new:
+            top2 = ref[d].topk(2).values
+            divergences.append({"request": h.request_id, "step": d,
+                                "server": h.tokens[d], "solo": toks[d],
+                                "top2_gap": (top2[0] - top2[1]).item()})
+    compared = sum(firsts)
+    rec = {"phase": "serve_parity", "model": "gpt2 124M", "dtype": "float32",
+           "slots": 4, "requests": 6, "prompt_lengths": [int(n) for n in lengths],
+           "new_tokens": new, "prefill_chunk": 256, "steps": 6 * new,
+           "compared_steps": compared, "compared_min": SERVE_COMPARED_MIN,
+           "max_logit_err": e, "tie_margin": SERVE_TIE_X * e,
+           "divergences": divergences,
+           "prefix_hits": server.metrics.prefix_hits,
+           "shapes": server.compile_counts(), "launches": launches,
+           "seconds": dt, "card": card}
+    emit(rec)
+    check(all(len(h.tokens) == new for h in handles), "a request fell short")
+    check(all(d["top2_gap"] <= SERVE_TIE_X * e for d in divergences),
+          f"serve_parity: a token differs where solo's top-2 gap exceeds "
+          f"{SERVE_TIE_X} x {e}")
+    check(compared >= SERVE_COMPARED_MIN * 6 * new,
+          f"serve_parity: {compared} of {6 * new} steps compared")
+    check(server.metrics.prefix_hits >= 1, "serve_parity: no prefix hit")
+    check(not any(launches.values()), f"serving launched kernels: {launches}")
+
+
+def _percentiles(values):
+    return {"p50": float(np.percentile(values, 50)),
+            "p99": float(np.percentile(values, 99))}
+
+
+def decode_device_ms(engine, tokens, positions, do_sample, steps=20):
+    """One decode step at full occupancy, from device tensors (nothing in a
+    step waits for the card): (ms per step over ``steps`` back-to-back
+    steps ended by a synchronise; the card's kernel ms per step, summed by
+    torch.profiler over its CUDA rows; kernels per step; the eight kernels
+    with the most device time and the eight host ops with the most self
+    CPU time, ms and calls per step each; the profiler's own overhead
+    inflates the host ops' times). A step issues several hundred
+    kernels, more than the launch queue holds, so a spin cannot hold them
+    all back for CUDA events to time the card alone."""
+    n = len(tokens)
+    dev = torch.device("cuda")
+    gens = [torch.Generator(device=dev).manual_seed(i) if on else None
+            for i, on in enumerate(do_sample)]
+    args = (torch.tensor(tokens, device=dev), torch.tensor(positions, device=dev),
+            torch.ones(n, device=dev), torch.full((n,), 50, device=dev),
+            torch.ones(n, device=dev), list(do_sample), gens)
+
+    def run():
+        for _ in range(steps):
+            engine.decode_on_device(*args)
+        torch.cuda.synchronize()
+
+    run()
+    _, wall_s = timed(run)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        run()
+    events = prof.key_averages()
+    rows = [(e.key, device_us(e), e.count) for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows.sort(key=lambda r: -r[1])
+    top = [{"kernel": k[:80], "ms_per_step": us / 1e3 / steps}
+           for k, us, _ in rows[:8]]
+    host = sorted((e for e in events
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)
+    top_host = [{"op": e.key[:60], "self_ms_per_step": e.self_cpu_time_total / 1e3 / steps,
+                 "calls_per_step": e.count / steps} for e in host[:8]]
+    return (wall_s * 1e3 / steps, sum(r[1] for r in rows) / 1e3 / steps,
+            sum(r[2] for r in rows) / steps, top, top_host)
+
+
+def phase_serve(params32, card):
+    """The serving main path at GPT-2 124M width, bf16, block 1024: 8 slots
+    (a 302 MB pool), 32 requests of 32 to 896 prompt tokens, half sharing a
+    256-token head, 64 new tokens each, one in four sampled with top-k 50;
+    chunked prefill (256), default buckets, a 256 MiB prefix cache, warmup.
+    Tokens/s, TTFT and ITL percentiles, host ms against device ms per
+    decode step, peak memory, pool bytes, prefix hits, shape counts."""
+    from mingpt_distributed_tpu_torch.serving import InferenceServer, Request
+
+    cfg, new, n_req = gpt2_config("flash", "bfloat16"), 64, 32
+    rng = np.random.default_rng(SERVE_SEED + 1)
+    shared = [i % 2 == 1 for i in range(n_req)]
+    lengths = np.where(shared, rng.integers(257, 897, n_req),
+                       rng.integers(32, 897, n_req))
+    lengths[1] = rng.integers(257, 513)  # the first sharer stores the head
+    head = rng.integers(0, 50257, 256).tolist()
+    prompts = _serve_prompts(rng, lengths, head, shared)
+    sampled = [i % 4 == 3 for i in range(n_req)]
+    reqs = [Request(prompt=p, max_new_tokens=new, do_sample=s,
+                    top_k=50 if s else None, seed=i)
+            for i, (p, s) in enumerate(zip(prompts, sampled))]
+    token_times = {}
+
+    def on_token(handle, _tok):
+        token_times.setdefault(handle.request_id, []).append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    server = InferenceServer(params32, cfg, n_slots=8, prefill_chunk=256,
+                             prefix_cache_mb=256, warmup=True,
+                             on_token=on_token, device="cuda")
+    eng = server.engine
+    real_step, step_s, spans = eng.decode_step, [], []
+
+    def timed_step(*args):
+        # host clock around the step (it ends by copying the tokens to the
+        # host) and CUDA events around its work on the card: the events'
+        # span includes the card's idle gaps while the host issues kernels
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = real_step(*args)
+        end.record()
+        step_s.append(time.perf_counter() - t0)
+        spans.append((start, end))
+        return out
+
+    eng.decode_step = timed_step
+    reset_counts()
+    handles, dt = timed(lambda: server.generate_batch(reqs))
+    launches = read_counts()
+    del eng.decode_step
+    torch.cuda.synchronize()
+    span_ms = [a.elapsed_time(b) for a, b in spans]
+    generated = sum(len(h.tokens) for h in handles)
+    itl = [b - a for ts in token_times.values() for a, b in zip(ts, ts[1:])]
+    positions = [min(int(n) + new // 2, cfg.block_size - 1) for n in lengths[:8]]
+    step_ms, kernel_ms, kernels, top, top_host = decode_device_ms(
+        eng, [int(p[-1]) for p in prompts[:8]], positions, sampled[:8])
+    counts = server.compile_counts()
+    rec = {"phase": "serve", "main_path": True, "model": "gpt2 124M",
+           "dtype": "bfloat16", "block_size": cfg.block_size, "slots": 8,
+           "requests": n_req, "sampled_top_k50": sum(sampled),
+           "prompt_tokens": int(sum(lengths)), "new_tokens": new,
+           "generated_tokens": generated, "seconds": dt,
+           "tokens_per_s": generated / dt,
+           "ttft_s": _percentiles([h.ttft_s for h in handles]),
+           "itl_s": _percentiles(itl),
+           "decode_steps": len(step_s),
+           "decode_step_host_ms": {k: v * 1e3 for k, v in _percentiles(step_s).items()},
+           "decode_step_event_span_ms": _percentiles(span_ms),
+           "decode_ms_per_step_full": step_ms,
+           "decode_device_kernel_ms_per_step": kernel_ms,
+           "decode_device_busy_share": kernel_ms / step_ms,
+           "host_bound": kernel_ms < 0.5 * step_ms,
+           "decode_kernels_per_step": kernels, "decode_top_kernels": top,
+           "decode_top_host_ops": top_host,
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "pool_bytes": eng.pool.nbytes,
+           "prefix_hits": server.metrics.prefix_hits,
+           "prefix_lookups": server.metrics.prefix_lookups,
+           "prefill_chunks": server.metrics.prefill_chunks,
+           "shapes": counts, "buckets": list(eng.buckets),
+           "launches": launches, "card": card}
+    emit(rec)
+    check(all(h.finished and len(h.tokens) == new and h.finish_reason == "length"
+              for h in handles), "serve: a request did not end with 64 tokens")
+    check(all(0 <= t < cfg.vocab_size for h in handles for t in h.tokens),
+          "serve: token ids out of range")
+    check(counts["decode"] == 1 and all(
+        counts[f] <= len(eng.buckets) for f in ("prefill", "prefix_load", "prefix_save")),
+        f"serve: shapes {counts} outside the ladder {eng.buckets}")
+    check(eng.pool.free_count == 8 and server.slots.occupied == 0
+          and not server.queue, "serve: a slot or pool row is still held")
+    pool_want = 8 * 2 * cfg.n_layer * cfg.block_size * cfg.n_embd * 2  # k, v in bf16
+    check(eng.pool.nbytes == pool_want,
+          f"serve: pool holds {eng.pool.nbytes} bytes, want {pool_want}")
+    check(server.metrics.prefix_hits >= 1, "serve: no prefix hit")
+    check(not any(launches.values()), f"serving launched kernels: {launches}")
+    del server
+    torch.cuda.empty_cache()
+    return rec
+
+
+SERVE_CLI_PROMPTS = ("the king ", "and so the ", "what is ", "o my lord. ")
+
+
+def run_serve(argv):
+    """The serve entry point's main(argv), its stdout captured and echoed."""
+    from mingpt_distributed_tpu_torch.serve import main as serve_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve_main(argv)
+    out = buf.getvalue()
+    sys.stderr.write(out)
+    return rc, out
+
+
+def served_texts(out):
+    """The prompt + completion texts of ``serve.py --prompts-file``'s
+    stdout: each follows its ``=== req-N (reason) ===`` header and may hold
+    newlines; the summary's JSON line ends the output."""
+    blocks = re.split(r"^=== req-\d+ \(\w+\) ===\n", out, flags=re.M)[1:]
+    if blocks:
+        blocks[-1] = blocks[-1].rsplit("\n{", 1)[0] + "\n"
+    return [b[:-1] for b in blocks]
+
+
+def phase_serve_cli(card, train_argv, tmp):
+    """python -m mingpt_distributed_tpu_torch.serve, driven through main():
+    --selftest on the card, then --prompts-file over the snapshot the train
+    entry point wrote (GPT-2 width, char vocabulary)."""
+    rc, out = run_serve(["--selftest", "--log-every", "0"])
+    check(rc == 0 and "selftest PASSED" in out, f"serve --selftest exited {rc}")
+    path = os.path.join(tmp, "prompts.txt")
+    with open(path, "w") as f:
+        f.write("\n".join(SERVE_CLI_PROMPTS) + "\n")
+    (rc2, out2), dt = timed(lambda: run_serve(
+        ["--prompts-file", path, "--greedy", "--max-new-tokens", "32",
+         "--slots", "2", "--log-every", "0", *train_argv]))
+    texts = served_texts(out2)
+    completions = [t[len(p):] for p, t in zip(SERVE_CLI_PROMPTS, texts)]
+    emit({"phase": "serve_cli", "selftest_rc": rc, "prompts_file_rc": rc2,
+          "completions": completions, "seconds": dt, "card": card})
+    check(rc2 == 0, f"serve --prompts-file exited {rc2}")
+    check(len(completions) == 4 and all(
+        t.startswith(p) for p, t in zip(SERVE_CLI_PROMPTS, texts))
+        and all(len(c) > 0 for c in completions),
+        f"serve --prompts-file: completions {completions}")
+
+
 def phase_grads(params32, card):
     """Every parameter's gradient through the kernels against plain
     attention, in the trainer's loss-only mode at T=1024, batch 2: fp32
@@ -1244,57 +1606,56 @@ def run_entry(argv):
     return rc, out
 
 
-def phase_train_entry(card):
+def phase_train_entry(card, tmp):
     """python -m mingpt_distributed_tpu_torch.train, driven through main():
-    GPT-2 width on the corpus, then a second call that resumes."""
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
-    try:
-        snap = os.path.join(tmp, "snapshot.pt")
-        argv = ["--config", os.path.join(REPO, "gpt2_config.yaml"),
-                "gpt_config.model_type=gpt2", "~gpt_config.n_layer",
-                "~gpt_config.n_head", "~gpt_config.n_embd",
-                "gpt_config.attn_pdrop=0", "gpt_config.embd_pdrop=0",
-                "gpt_config.resid_pdrop=0",
-                f"data_config.path={os.path.join(REPO, 'data', 'input.txt')}",
-                "data_config.block_size=1024", "data_config.truncate=1.0",
-                "trainer_config.batch_size=16", "trainer_config.log_every=1",
-                "trainer_config.eval_batches=4",
-                f"trainer_config.snapshot_path={snap}"]
-        reset_counts()
-        t0 = time.perf_counter()
-        with fused_switch(False):
-            rc, out = run_entry(argv + [f"trainer_config.max_steps={ENTRY_STEPS}"])
-        dt = time.perf_counter() - t0
-        counts = read_counts()
-        losses = {int(a): float(b) for a, b in
-                  re.findall(r"^step (\d+) \| loss ([0-9.e+-]+)", out, re.M)}
-        evals = re.findall(r"eval_loss ([0-9.e+-]+)", out)
-        check(rc == 0, f"train entry point exited {rc}")
-        check(sorted(losses) == list(range(1, ENTRY_STEPS + 1)),
-              f"logged steps {sorted(losses)}")
-        drop = losses[1] - losses[ENTRY_STEPS]
-        with fused_switch(False):
-            rc2, out2 = run_entry(argv + [f"trainer_config.max_steps={ENTRY_STEPS + 5}"])
-        resumed = f"Resuming training from snapshot at epoch 0, step {ENTRY_STEPS}"
-        losses2 = re.findall(r"^step (\d+) \| loss", out2, re.M)
-        emit({"phase": "train_cli", "steps": ENTRY_STEPS, "seconds": dt,
-              "launches": counts, "loss_first": losses[1],
-              "loss_last": losses[ENTRY_STEPS], "loss_drop": drop,
-              "loss_drop_min": ENTRY_LOSS_DROP,
-              "eval_loss": float(evals[-1]) if evals else None,
-              "snapshot_committed": os.path.exists(snap + ".manifest.json"),
-              "resume_rc": rc2, "resumed_at_saved_step": resumed in out2,
-              "resumed_steps": [int(v) for v in losses2], "card": card})
-        check(drop >= ENTRY_LOSS_DROP, f"loss fell by {drop} < {ENTRY_LOSS_DROP}")
-        check(len(evals) == 1 and math.isfinite(float(evals[0])), "no eval loss")
-        check(os.path.exists(snap + ".manifest.json"), "no snapshot committed")
-        check(counts["flash_bwd_dq"] == 12 * ENTRY_STEPS,
-              f"train entry: {counts} launches")
-        check(rc2 == 0 and resumed in out2, "second call did not resume")
-        check([int(v) for v in losses2] == list(range(ENTRY_STEPS + 1, ENTRY_STEPS + 6)),
-              f"resumed run logged steps {losses2}")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    GPT-2 width on the corpus, then a second call that resumes. The
+    snapshot is written under ``tmp``; returns the arguments that name it
+    and the model."""
+    snap = os.path.join(tmp, "snapshot.pt")
+    argv = ["--config", os.path.join(REPO, "gpt2_config.yaml"),
+            "gpt_config.model_type=gpt2", "~gpt_config.n_layer",
+            "~gpt_config.n_head", "~gpt_config.n_embd",
+            "gpt_config.attn_pdrop=0", "gpt_config.embd_pdrop=0",
+            "gpt_config.resid_pdrop=0",
+            f"data_config.path={os.path.join(REPO, 'data', 'input.txt')}",
+            "data_config.block_size=1024", "data_config.truncate=1.0",
+            "trainer_config.batch_size=16", "trainer_config.log_every=1",
+            "trainer_config.eval_batches=4",
+            f"trainer_config.snapshot_path={snap}"]
+    reset_counts()
+    t0 = time.perf_counter()
+    with fused_switch(False):
+        rc, out = run_entry(argv + [f"trainer_config.max_steps={ENTRY_STEPS}"])
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    losses = {int(a): float(b) for a, b in
+              re.findall(r"^step (\d+) \| loss ([0-9.e+-]+)", out, re.M)}
+    evals = re.findall(r"eval_loss ([0-9.e+-]+)", out)
+    check(rc == 0, f"train entry point exited {rc}")
+    check(sorted(losses) == list(range(1, ENTRY_STEPS + 1)),
+          f"logged steps {sorted(losses)}")
+    drop = losses[1] - losses[ENTRY_STEPS]
+    with fused_switch(False):
+        rc2, out2 = run_entry(argv + [f"trainer_config.max_steps={ENTRY_STEPS + 5}"])
+    resumed = f"Resuming training from snapshot at epoch 0, step {ENTRY_STEPS}"
+    losses2 = re.findall(r"^step (\d+) \| loss", out2, re.M)
+    emit({"phase": "train_cli", "steps": ENTRY_STEPS, "seconds": dt,
+          "launches": counts, "loss_first": losses[1],
+          "loss_last": losses[ENTRY_STEPS], "loss_drop": drop,
+          "loss_drop_min": ENTRY_LOSS_DROP,
+          "eval_loss": float(evals[-1]) if evals else None,
+          "snapshot_committed": os.path.exists(snap + ".manifest.json"),
+          "resume_rc": rc2, "resumed_at_saved_step": resumed in out2,
+          "resumed_steps": [int(v) for v in losses2], "card": card})
+    check(drop >= ENTRY_LOSS_DROP, f"loss fell by {drop} < {ENTRY_LOSS_DROP}")
+    check(len(evals) == 1 and math.isfinite(float(evals[0])), "no eval loss")
+    check(os.path.exists(snap + ".manifest.json"), "no snapshot committed")
+    check(counts["flash_bwd_dq"] == 12 * ENTRY_STEPS,
+          f"train entry: {counts} launches")
+    check(rc2 == 0 and resumed in out2, "second call did not resume")
+    check([int(v) for v in losses2] == list(range(ENTRY_STEPS + 1, ENTRY_STEPS + 6)),
+          f"resumed run logged steps {losses2}")
+    return argv
 
 
 # ---------------------------------------------------------------------------
@@ -2224,12 +2585,19 @@ def main() -> int:
     phase_grads(model32.params, card)
     generate_launches = phase_generate(GPT, fa, model32, card)
     phase_sample(fa, card)
+    phase_serve_parity(model32.params, card)
+    serve = phase_serve(model32.params, card)
     del model32
     torch.cuda.empty_cache()
 
     split = phase_train_step(card)
     fused = phase_train_step(card, fused=True, split=split)
-    phase_train_entry(card)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        train_argv = phase_train_entry(card, tmp)
+        phase_serve_cli(card, train_argv, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     sp_counts = phase_sp(card)
     proto_counts = phase_proto(nh, card)
     emit_clocks("before times")
@@ -2288,7 +2656,8 @@ def main() -> int:
     emit({"phase": "launches_by_path", "train_step": split["launches"],
           "train_step_fused": fused["launches"], "sp_train_step_rank0": sp_counts,
           "proto_nh_kernel": proto_counts, "exp_exp2": exp_counts,
-          "generate_sliding_bf16": {"flash_fwd": generate_launches}})
+          "generate_sliding_bf16": {"flash_fwd": generate_launches},
+          "serve": serve["launches"]})
     print(card_line(), flush=True)
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",

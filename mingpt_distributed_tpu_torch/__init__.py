@@ -11,9 +11,12 @@ versions run instead.
 
 Ported so far: the inference path (config, layers, attention, the causal
 flash-attention forward kernel, the GPT forward, KV-cached and
-sliding-window generation, the sample CLI) and single-GPU training (the
-flash-attention backward kernels, chunked cross-entropy, remat, AdamW, the
-data iterator, snapshots, the trainer and the train CLI).
+sliding-window generation, the sample CLI), training on one GPU and dp x
+sp across processes (the flash-attention backward kernels, chunked
+cross-entropy, remat, AdamW, the data iterator, durable snapshots, the
+trainer and the train CLI; ring and Ulysses attention), the char and
+byte-level BPE tokenizers, and serving (the continuous-batching engine and
+scheduler, their metrics and telemetry, the serve CLI).
 """
 
 from mingpt_distributed_tpu_torch.config import (  # noqa: F401

@@ -1,1 +1,1 @@
-"""Tokenizers: the character vocabulary."""
+"""Tokenizers and datasets: the character vocabulary and byte-level BPE."""

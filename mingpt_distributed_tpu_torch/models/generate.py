@@ -16,11 +16,19 @@ contract and the same two modes, switched on the same condition:
 PyTorch runs eagerly, so both modes are Python loops. Only greedy decoding
 can be token-exact against the JAX package: ``jax.random`` and
 ``torch.Generator`` draw different numbers.
+
+The cached forward also takes one position per batch row (``offset`` a
+(B,) tensor, one token per row): the serving engine's decode step, where
+each slot of the KV pool sits at its own position. This is the explicit
+batched form of the JAX engine's ``vmap`` over the solo decode body: each
+row's K/V is written at its own position by advanced indexing, its
+attention mask and its learned position (``wpe``) or RoPE tables are its
+own, and every row computes what the solo body would at that position.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -31,6 +39,9 @@ from mingpt_distributed_tpu_torch.ops import layers as L
 from mingpt_distributed_tpu_torch.utils.device import Device, resolve_device
 
 Cache = Dict[str, torch.Tensor]  # {"k","v"}: (n_layer, B, block_size, KV, hd)
+# absolute position of a call's first token: one int for the batch, or a
+# (B,) tensor of per-row positions (one token per row)
+Offset = Union[int, torch.Tensor]
 
 
 def init_cache(cfg: GPTConfig, batch: int, device: torch.device,
@@ -46,11 +57,12 @@ def _cached_block(
     blk: gpt.Params,      # one layer's params (no leading L axis)
     cache: Cache,         # FULL (L, B, S, KV, hd) buffers, written here
     layer: int,
-    offset: int,          # absolute position of x[:, 0]
+    offset: Offset,       # absolute position of x[:, 0] (per row: (B,))
     cfg: GPTConfig,
 ) -> torch.Tensor:
     """One pre-LN block that writes this call's k/v into the cache at
-    (layer, :, offset) and attends against the layer's cache slice.
+    (layer, :, offset) (per row: row b at offset[b]) and attends against
+    the layer's cache slice.
 
     The cache is written IN PLACE. The JAX code returns an updated cache
     and relies on XLA aliasing its dynamic_update_slice into the old
@@ -59,19 +71,28 @@ def _cached_block(
     """
     b, t, _ = x.shape
     nh, kv, hd = cfg.n_head, cfg.kv_heads, cfg.head_dim
+    per_row = torch.is_tensor(offset) and offset.dim() == 1
+    if per_row and t != 1:
+        raise ValueError(f"per-row positions take one token per row, got {t}")
 
     h = gpt._norm(x, blk["ln1_scale"], blk.get("ln1_bias"), cfg)
     q = L.dense(h, blk["wq"], blk.get("bq")).reshape(b, t, nh, hd)
     k = L.dense(h, blk["wk"], blk.get("bk")).reshape(b, t, kv, hd)
     v = L.dense(h, blk["wv"], blk.get("bv")).reshape(b, t, kv, hd)
     if cfg.rope:
-        cos, sin = attn_ops.rope_tables(
-            offset + torch.arange(t, device=x.device), hd, cfg.rope_theta)
+        positions = (offset[:, None] if per_row  # (B, 1): a table per row
+                     else offset + torch.arange(t, device=x.device))
+        cos, sin = attn_ops.rope_tables(positions, hd, cfg.rope_theta)
         q = attn_ops.apply_rope(q, cos, sin)
         k = attn_ops.apply_rope(k, cos, sin)
 
-    cache["k"][layer, :, offset:offset + t] = k.to(cache["k"].dtype)
-    cache["v"][layer, :, offset:offset + t] = v.to(cache["v"].dtype)
+    if per_row:
+        rows = torch.arange(b, device=x.device)
+        cache["k"][layer, rows, offset] = k[:, 0].to(cache["k"].dtype)
+        cache["v"][layer, rows, offset] = v[:, 0].to(cache["v"].dtype)
+    else:
+        cache["k"][layer, :, offset:offset + t] = k.to(cache["k"].dtype)
+        cache["v"][layer, :, offset:offset + t] = v.to(cache["v"].dtype)
     # attend against the whole cache slice: kv_offset makes the query
     # positions absolute, and the causal mask hides both future tokens and
     # never-written slots past offset + t
@@ -91,14 +112,18 @@ def _cached_block(
 
 
 def _forward_cached_hidden(params: gpt.Params, tokens: torch.Tensor,
-                           cache: Cache, offset: int, cfg: GPTConfig
+                           cache: Cache, offset: Offset, cfg: GPTConfig
                            ) -> torch.Tensor:
-    """Forward (B, T) tokens at absolute position ``offset`` through all
-    layers, writing the cache. Returns the final-norm hidden states."""
+    """Forward (B, T) tokens at absolute position ``offset`` (or (B, 1)
+    tokens at per-row positions) through all layers, writing the cache.
+    Returns the final-norm hidden states."""
     t = tokens.shape[1]
     x = params["wte"][tokens]
     if not cfg.rope:
-        x = x + params["wpe"][offset:offset + t]
+        if torch.is_tensor(offset) and offset.dim() == 1:
+            x = x + params["wpe"][offset][:, None]
+        else:
+            x = x + params["wpe"][offset:offset + t]
     x = x.to(gpt.compute_dtype(cfg))
     for layer in range(cfg.n_layer):
         x = _cached_block(x, gpt.layer_params(params, layer), cache, layer,
@@ -112,7 +137,7 @@ _head_logits = gpt.head_logits
 
 
 def _forward_cached(params: gpt.Params, tokens: torch.Tensor, cache: Cache,
-                    offset: int, cfg: GPTConfig) -> torch.Tensor:
+                    offset: Offset, cfg: GPTConfig) -> torch.Tensor:
     """Forward (B, T) tokens at ``offset``; last-position logits (B, V)."""
     x = _forward_cached_hidden(params, tokens, cache, offset, cfg)
     return _head_logits(params, x[:, -1:], cfg)[:, 0]

@@ -52,7 +52,9 @@ def causal_attention(
     """Causal scaled-dot-product attention, softmax in float32.
 
     ``kv_offset`` is the absolute position of q[0] relative to k[0]: 0 for
-    self-attention (S == T), the cache length during incremental decoding.
+    self-attention (S == T), the cache length during incremental decoding;
+    a (B,) tensor gives each batch row its own offset (the serving engine's
+    decode step, every slot at its own position).
     ``window`` keeps only the last ``window`` positions, the query's own
     included; ``logit_softcap`` caps the scores before masking. Attention
     dropout draws its mask from ``generator``. Returns (B, T, H, hd) in q's
@@ -69,12 +71,18 @@ def causal_attention(
     logits = softcap(logits, logit_softcap)
 
     s = k.shape[1]
-    q_pos = torch.arange(t, device=q.device)[:, None] + kv_offset
-    k_pos = torch.arange(s, device=q.device)[None, :]
-    allowed = q_pos >= k_pos
+    if torch.is_tensor(kv_offset) and kv_offset.dim() == 1:
+        # one offset per batch row: (B, T, 1) query positions
+        q_pos = (kv_offset[:, None, None]
+                 + torch.arange(t, device=q.device)[:, None])
+    else:
+        q_pos = torch.arange(t, device=q.device)[:, None] + kv_offset
+    k_pos = torch.arange(s, device=q.device)
+    allowed = q_pos >= k_pos  # (T, S), or (B, T, S) per row
     if window is not None:
         allowed = allowed & (q_pos - k_pos < window)
-    logits = torch.where(allowed[None, None], logits,
+    allowed = allowed[:, None] if allowed.dim() == 3 else allowed[None, None]
+    logits = torch.where(allowed, logits,
                          torch.full((), NEG_INF, device=q.device))
 
     probs = torch.softmax(logits, dim=-1)
@@ -95,22 +103,26 @@ def rope_tables(positions: torch.Tensor, head_dim: int,
                 theta: float = 10000.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """cos/sin tables for rotary embeddings at the given absolute positions.
 
-    Returns (P, head_dim/2) float32 each, split-half (rotate-half) convention.
+    Returns (*positions.shape, head_dim/2) float32 each, split-half
+    (rotate-half) convention.
     """
     half = head_dim // 2
     exponent = -torch.arange(0, half, dtype=torch.float32,
                              device=positions.device) / half
     freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
                                    device=positions.device), exponent)
-    angles = positions.float()[:, None] * freqs[None, :]
+    angles = positions.float()[..., None] * freqs
     return torch.cos(angles), torch.sin(angles)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """Rotate (B, T, H, hd) by per-position tables (T, hd/2)."""
+    """Rotate (B, T, H, hd) by per-position tables: (T, hd/2), shared by
+    the batch, or (B, T, hd/2), one row of positions per batch row."""
     half = x.shape[-1] // 2
     x1, x2 = x[..., :half].float(), x[..., half:].float()
-    cos = cos[None, :, None, :].float()
-    sin = sin[None, :, None, :].float()
+    if cos.dim() == 2:
+        cos, sin = cos[None], sin[None]
+    cos = cos[:, :, None, :].float()
+    sin = sin[:, :, None, :].float()
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)

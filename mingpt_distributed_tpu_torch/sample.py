@@ -1,10 +1,11 @@
 """Sampling entry point of the port: build a model, generate text.
 
 Counterpart of the repository's ``sample.py``. The vocabulary is the
-character set of the corpus (``--data``, default: the config's
-``data_config.path``); the weights come from ``--params FILE.npz`` (a JAX
-parameter pytree flattened to ``"blocks/wq"``-style keys, see the README)
-or from ``--random-init --seed N``. Runs on CUDA unless ``--device cpu``.
+corpus's (``--data``, default: the config's ``data_config.path``), by
+``data_config.tokenizer``: its character set, or byte-level BPE. The
+weights come from ``--params FILE.npz`` (a JAX parameter pytree flattened
+to ``"blocks/wq"``-style keys, see the README) or from ``--random-init
+--seed N``. Runs on CUDA unless ``--device cpu``.
 
 Usage:
   python -m mingpt_distributed_tpu_torch.sample --random-init \\
@@ -24,7 +25,7 @@ import numpy as np
 import torch
 
 from mingpt_distributed_tpu_torch.config import ExperimentConfig, load_config
-from mingpt_distributed_tpu_torch.data.char_dataset import CharDataset
+from mingpt_distributed_tpu_torch.data.token_dataset import make_dataset
 from mingpt_distributed_tpu_torch.models import convert
 from mingpt_distributed_tpu_torch.models import gpt as gpt_lib
 from mingpt_distributed_tpu_torch.models.api import GPT
@@ -51,10 +52,7 @@ def sample_text(
     data_cfg = exp.data_config
     if data_path is not None:
         data_cfg = dataclasses.replace(data_cfg, path=data_path)
-    if data_cfg.tokenizer != "char":
-        raise NotImplementedError(
-            "only the char tokenizer is ported (ROADMAP.md Queue 1)")
-    dataset = CharDataset(data_cfg)
+    dataset = make_dataset(data_cfg)
     gpt_cfg = dataclasses.replace(
         exp.gpt_config,
         vocab_size=dataset.vocab_size,
@@ -88,7 +86,7 @@ def main(argv=None) -> int:
     src.add_argument("--random-init", action="store_true",
                      help="random weights seeded --seed")
     p.add_argument("--data", default=None,
-                   help="corpus for the char vocabulary (default: the "
+                   help="corpus for the vocabulary (default: the "
                         "config's data_config.path)")
     p.add_argument("--prompt", default="\n")
     p.add_argument("--max-new-tokens", type=int, default=200)

@@ -1,0 +1,500 @@
+"""Continuous-batching scheduler: queue → slots → decode-step boundaries.
+
+Counterpart of ``mingpt_distributed_tpu/serving/scheduler.py``. The loop the
+server runs (``step()`` = one scheduling round):
+
+1. **Admit** — while the queue is non-empty and the pool has a free slot,
+   pop the request the :class:`AdmissionPolicy` selects (FIFO by default),
+   claim the slot, and try a shared-prefix cache hit (a device row copy:
+   the prompt's cached head costs no FLOPs, only the tail is prefilled).
+2. **Prefill** — every slot still prefilling advances by at most ONE chunk
+   of <= ``prefill_chunk`` tokens (padded to the smallest covering bucket
+   of the engine's ladder). Short prompts finish in the round they were
+   admitted; a long prompt spreads its chunks across rounds, so a
+   co-tenant's inter-token latency is bounded by one chunk, not one whole
+   prompt. The final chunk samples the request's first token and flips the
+   slot to decoding.
+3. **Decode** — one shared step advances every *decoding* slot one token
+   (per-slot positions and sampling params; prefilling and free lanes ride
+   along parked at position block_size-1, a row the stale-row invariant
+   makes unobservable until its legitimate writer fills it).
+4. **Retire** — requests hitting a stop condition (per-request
+   ``max_new_tokens`` or EOS token) finish, free their slot, and the next
+   round's admissions reuse it. New prompts join while others are half-way
+   through decoding.
+
+Determinism: policy-ordered admission (FIFO default; every policy
+tie-breaks by queue position), lowest-free-slot placement, and one device
+``torch.Generator`` per sampled request, seeded with the request's
+``seed`` and drawn from once per generated token, so a sampled request's
+output depends only on (params, prompt, sampling params, seed), never on
+which other requests share the batch. Greedy requests are token-identical
+to solo ``generate()`` on the same prompt under every combination of
+bucketing, chunking and prefix reuse: chunked prefill is row-equivalent to
+the one-shot forward, and prefix rows are bit-identical to what recomputing
+them would produce.
+
+Prompt bounds: prompts longer than ``prefill_len`` are cropped to their
+last ``prefill_len`` tokens (the server has no sliding-window decode path;
+positions restart at 0 for the cropped prompt), and ``max_new_tokens`` is
+clamped so decode positions never leave the ``block_size`` window.
+``strict_window=True`` rejects instead of cropping or clamping.
+
+Robustness under sustained traffic:
+
+* **bounded queue** — ``max_queue`` caps waiting requests; beyond it,
+  ``submit`` raises :class:`QueueFullError` carrying the observed depth and
+  a suggested retry-after;
+* **deadlines** — a per-request ``deadline_s`` (or the server-wide
+  ``default_deadline_s``) expires requests at step boundaries, whether
+  still queued, mid-prefill or mid-decode (``finish_reason="deadline"``);
+* **callback isolation** — a raising ``on_token`` callback retires the
+  request and frees its slot (``finish_reason="error"``, the exception on
+  ``handle.error``) instead of leaking the slot or tearing down the loop.
+
+Not ported yet, each raising with its ROADMAP.md Queue 1 item: speculative
+decoding (``draft_params``, ``draft_cfg``, ``spec_k``) and the quantized
+pool (``kv_dtype``), item 14; request tracing (``trace_recorder``),
+attribution (``attrib``) and the recompile watchdog (``recompile_fail``),
+item 16; tensor parallelism (``mesh``), item 9; the fleet's fault hook
+(``fault_hook``), item 15.
+"""
+
+from __future__ import annotations
+
+import itertools
+import time
+from collections import deque
+from typing import Any, Callable, Deque, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from mingpt_distributed_tpu_torch.config import GPTConfig
+from mingpt_distributed_tpu_torch.serving.admission import AdmissionPolicy, FifoPolicy
+from mingpt_distributed_tpu_torch.serving.engine import DecodeEngine
+from mingpt_distributed_tpu_torch.serving.metrics import ServingMetrics
+from mingpt_distributed_tpu_torch.serving.requests import (
+    QueueFullError,
+    Request,
+    RequestHandle,
+)
+from mingpt_distributed_tpu_torch.telemetry import MetricsRegistry, SpanTracer, log_event
+from mingpt_distributed_tpu_torch.utils.device import Device
+
+
+def _refuse(what: str, item: str) -> None:
+    raise NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
+
+
+class SlotTable:
+    """Slot-side state of one engine replica: the handle occupying each KV
+    lane plus the per-slot decode-state arrays fed whole to the shared
+    decode step.
+
+    Non-decoding lanes (free or still prefilling) are PARKED at position
+    ``block_size - 1``: the decode step writes one row per slot
+    unconditionally, and that row is the only one a later legitimate writer
+    is guaranteed to refill before any query can attend it; parking lower
+    could clobber rows a chunked prefill has already written.
+    """
+
+    def __init__(self, n_slots: int, block_size: int):
+        self.n_slots = n_slots
+        self.parked = block_size - 1
+        self.handles: List[Optional[RequestHandle]] = [None] * n_slots
+        self.tokens = np.zeros(n_slots, np.int64)
+        self.positions = np.full(n_slots, self.parked, np.int64)
+        self.temps = np.ones(n_slots, np.float32)
+        self.top_ks = np.zeros(n_slots, np.int64)
+        self.top_ps = np.ones(n_slots, np.float32)
+        self.do_sample = np.zeros(n_slots, bool)
+        self.generators: List[Optional[torch.Generator]] = [None] * n_slots
+
+    def bind(self, slot: int, handle: RequestHandle,
+             generator: Optional[torch.Generator]) -> None:
+        handle.slot = slot
+        self.handles[slot] = handle
+        self.generators[slot] = generator
+
+    def release(self, slot: int) -> None:
+        self.handles[slot] = None
+        self.generators[slot] = None
+        self.positions[slot] = self.parked
+        self.do_sample[slot] = False
+
+    def start_decode(self, slot: int, token: int, position: int,
+                     req: Request) -> None:
+        """Flip a freshly prefilled slot to decoding: the first generated
+        token is fed at ``position`` (= len(prompt)) next round."""
+        self.tokens[slot] = token
+        self.positions[slot] = position
+        self.temps[slot] = req.temperature
+        self.top_ks[slot] = 0 if req.top_k is None else req.top_k
+        self.top_ps[slot] = 1.0 if req.top_p is None else req.top_p
+        self.do_sample[slot] = req.do_sample
+
+    def live_handles(self) -> List[RequestHandle]:
+        return [h for h in self.handles if h is not None]
+
+    def decoding_slots(self) -> List[int]:
+        return [s for s, h in enumerate(self.handles)
+                if h is not None and not h.prefilling]
+
+    @property
+    def occupied(self) -> int:
+        return sum(h is not None for h in self.handles)
+
+
+class InferenceServer:
+    """Slot-scheduled continuous-batching server over a DecodeEngine. Runs
+    on ``device`` (cuda unless the caller asks for the CPU), where the
+    params must live."""
+
+    def __init__(
+        self,
+        params,
+        cfg: GPTConfig,
+        n_slots: int = 4,
+        prefill_len: Optional[int] = None,
+        metrics: Optional[ServingMetrics] = None,
+        on_token: Optional[Callable[[RequestHandle, int], None]] = None,
+        log_every: int = 0,
+        max_queue: Optional[int] = None,
+        default_deadline_s: Optional[float] = None,
+        clock: Callable[[], float] = time.perf_counter,
+        prefill_buckets: Optional[Sequence[int]] = None,
+        prefill_chunk: Optional[int] = None,
+        prefix_cache_mb: float = 0.0,
+        warmup: bool = False,
+        registry: Optional[MetricsRegistry] = None,
+        tracer: Optional[SpanTracer] = None,
+        recompile_fail: bool = False,
+        strict_window: bool = False,
+        fault_hook: Optional[Callable[[str], None]] = None,
+        trace_recorder=None,
+        draft_params=None,
+        draft_cfg: Optional[GPTConfig] = None,
+        spec_k: int = 0,
+        admission_policy: Optional[AdmissionPolicy] = None,
+        attrib: bool = False,
+        mesh=None,
+        kv_dtype: Optional[str] = None,
+        device: Optional[Device] = None,
+    ):
+        if draft_params is not None or draft_cfg is not None or spec_k:
+            _refuse("speculative decoding (draft_params, draft_cfg, spec_k)", "14")
+        if trace_recorder is not None:
+            _refuse("request tracing (trace_recorder)", "16")
+        if attrib:
+            _refuse("performance attribution (attrib)", "16")
+        if recompile_fail:
+            _refuse("the recompile watchdog (recompile_fail)", "16")
+        if fault_hook is not None:
+            _refuse("the fleet's fault hook (fault_hook)", "15")
+        self.cfg = cfg
+        self.engine = DecodeEngine(
+            params, cfg, n_slots, prefill_len,
+            prefill_buckets=prefill_buckets, prefill_chunk=prefill_chunk,
+            prefix_cache_mb=prefix_cache_mb, mesh=mesh, kv_dtype=kv_dtype,
+            device=device)
+        self.metrics = metrics or ServingMetrics(
+            n_slots, log_every=log_every, registry=registry)
+        # disabled by default: span() returns a shared no-op, so the
+        # scheduling loop pays nothing unless telemetry is wired in
+        self.tracer = tracer if tracer is not None else SpanTracer(enabled=False)
+        reg = self.metrics.registry if registry is None else registry
+        reg.gauge(
+            "mingpt_serve_kv_dtype",
+            help="KV-cache storage dtype (build-info style: the labeled "
+                 "child is 1)",
+            labels=("kv_dtype",),
+        ).labels(kv_dtype=self.engine.kv_dtype).set(1)
+        self.on_token = on_token
+        if max_queue is not None and max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        self.max_queue = max_queue
+        self.default_deadline_s = default_deadline_s
+        self.clock = clock  # injectable for deterministic deadline tests
+        self.strict_window = strict_window
+        self.admission_policy = (admission_policy if admission_policy
+                                 is not None else FifoPolicy())
+        self.queue: Deque[RequestHandle] = deque()
+        self.slots = SlotTable(n_slots, cfg.block_size)
+        self._ids = itertools.count()
+        if warmup:
+            self.engine.warmup()
+
+    # -- submission ----------------------------------------------------
+    def submit(self, request: Request) -> RequestHandle:
+        if self.strict_window:
+            request.validate(block_size=self.cfg.block_size,
+                             prefill_len=self.engine.prefill_len)
+        else:
+            request.validate()
+        if self.max_queue is not None and len(self.queue) >= self.max_queue:
+            depth = len(self.queue)
+            self.metrics.on_reject(reason="queue_full")
+            # suggested retry-after: roughly how long the queue takes to
+            # move one slot's worth of work (depth x observed ITL), with a
+            # floor so a cold server still suggests a sane backoff
+            itl = self.metrics.itl_mean_s
+            retry_after = max(0.05, depth * (itl if itl else 0.02))
+            raise QueueFullError(
+                f"request queue full ({depth}/{self.max_queue} waiting, "
+                f"{self.engine.pool.used_count} decoding) — shed load or "
+                f"retry in ~{retry_after:.2f}s",
+                queue_depth=depth,
+                retry_after_s=retry_after,
+            )
+        pl = self.engine.prefill_len
+        prompt = [int(t) for t in list(request.prompt)[-pl:]]
+        # decode feeds generated tokens at positions len(prompt) ..
+        # len(prompt)+n-2 (the last token is never fed), all < block_size
+        max_new = min(request.max_new_tokens,
+                      self.cfg.block_size - len(prompt) + 1)
+        now = self.clock()
+        deadline_s = (request.deadline_s if request.deadline_s is not None
+                      else self.default_deadline_s)
+        handle = RequestHandle(
+            request=request,
+            request_id=request.request_id or f"req-{next(self._ids)}",
+            prompt_used=prompt,
+            max_new_effective=max_new,
+            submit_time=now,
+            deadline=None if deadline_s is None else now + deadline_s,
+        )
+        self.queue.append(handle)
+        self.metrics.on_submit()
+        return handle
+
+    # -- scheduling ----------------------------------------------------
+    def _check_stop(self, handle: RequestHandle, token: int) -> bool:
+        if (handle.request.eos_id is not None
+                and token == handle.request.eos_id):
+            handle.finish_reason = "eos"
+            return True
+        if len(handle.tokens) >= handle.max_new_effective:
+            handle.finish_reason = "length"
+            return True
+        return False
+
+    def _emit(self, handle: RequestHandle, token: int) -> bool:
+        """Record a decoded token and stream it. Returns False when the
+        user's on_token callback raised: the caller must retire the request
+        (freeing its slot) instead of leaking it."""
+        now = self.clock()
+        if handle.first_token_time is None:
+            handle.first_token_time = now
+        handle.last_token_time = now
+        handle.tokens.append(token)
+        self.metrics.on_tokens(1)
+        if self.on_token is not None:
+            try:
+                self.on_token(handle, token)
+            except Exception as e:  # the callback is user code: isolate it
+                handle.error = e
+                log_event(
+                    f"[serve] on_token callback raised for "
+                    f"{handle.request_id}: {e!r} — retiring request, "
+                    f"freeing its slot",
+                    tracer=self.tracer, request_id=handle.request_id,
+                )
+                return False
+        return True
+
+    def _release_slot(self, handle: RequestHandle) -> None:
+        slot = handle.slot
+        if slot is not None:
+            handle.slot = None
+            handle.prefilling = False
+            self.slots.release(slot)
+            self.engine.pool.free(slot)
+
+    def _retire(self, handle: RequestHandle) -> None:
+        handle.finished = True
+        self._release_slot(handle)
+        span = (handle.last_token_time or 0.0) - (handle.first_token_time or 0.0)
+        self.metrics.on_complete(len(handle.tokens), span)
+
+    def _fail(self, handle: RequestHandle, reason: str) -> None:
+        """Terminal non-success: deadline expiry (queued, mid-prefill or
+        mid-decode), a raising callback or a cancel. Frees the slot so it
+        can never stay pinned."""
+        handle.finished = True
+        handle.finish_reason = reason
+        self._release_slot(handle)
+        if reason == "deadline":
+            self.metrics.on_expire()
+        else:
+            self.metrics.on_error()
+
+    def _expire_if_due(self, handle: RequestHandle, now: float) -> bool:
+        if handle.deadline is not None and now >= handle.deadline:
+            self._fail(handle, "deadline")
+            return True
+        return False
+
+    def cancel(self, request_id: str) -> bool:
+        """Terminate one accepted-but-unfinished request: a queued request
+        leaves the queue, an in-flight one frees its slot. Either way the
+        handle finishes with reason "cancelled" and the error counter ticks.
+        Returns False when no live request carries the id."""
+        for h in list(self.queue):
+            if h.request_id == request_id and not h.finished:
+                self.queue.remove(h)
+                self._fail(h, "cancelled")
+                return True
+        for h in self.slots.live_handles():
+            if h.request_id == request_id and not h.finished:
+                self._fail(h, "cancelled")
+                return True
+        return False
+
+    def _admit(self, handle: RequestHandle) -> None:
+        """Claim a slot and start admission: a shared-prefix hit installs
+        its rows now (device copy); prompt tokens beyond it prefill in the
+        chunk phase."""
+        slot = self.engine.pool.allocate()
+        if slot is None:
+            raise RuntimeError("admission without a free slot")
+        handle.prefilling = True
+        handle.admit_time = self.clock()
+        req = handle.request
+        generator = None
+        if req.do_sample:
+            generator = torch.Generator(device=self.engine.device)
+            generator.manual_seed(req.seed)
+        self.slots.bind(slot, handle, generator)
+        hit = self.engine.try_load_prefix(slot, handle.prompt_used)
+        self.metrics.on_prefix_lookup(
+            hit > 0, hit, enabled=self.engine.prefix_store is not None)
+        handle.prefix_rows = hit
+        handle.prefill_pos = hit
+
+    def _prefill_one_chunk(self, handle: RequestHandle) -> None:
+        """Advance a prefilling slot by one chunk; the final chunk samples
+        the request's first token and flips the slot to decoding."""
+        req = handle.request
+        slot = handle.slot
+        prompt = handle.prompt_used
+        n_total = len(prompt)
+        pos = handle.prefill_pos
+        take = min(n_total - pos, self.engine.chunk_size)
+        end = pos + take
+        last = end == n_total
+        off = pos
+        bucket = self.engine.bucket_for(take)
+        if off + bucket > self.cfg.block_size:
+            # the final bucket would overrun the cache window: shift the
+            # chunk window back and re-prefill the overlap. Rewriting rows
+            # with the values they already hold is exact (the forward is
+            # deterministic and row-wise), so parity is unaffected.
+            off = self.cfg.block_size - bucket
+        t0 = self.clock()
+        # only the final chunk's token is used, and only it may draw from
+        # the request's generator (a prefix hit changes the chunk count)
+        tok, padded = self.engine.prefill_chunk_call(
+            slot, prompt[off:end], off,
+            req.temperature, req.top_k, req.top_p, req.do_sample and last,
+            self.slots.generators[slot],
+        )
+        self.metrics.on_prefill_chunk(end - pos, padded, self.clock() - t0)
+        handle.prefill_pos = end
+        if not last:
+            return
+        handle.prefilling = False
+        if self.engine.prefix_store is not None:
+            self.engine.save_prefix(slot, prompt)
+        ok = self._emit(handle, tok)
+        now = self.clock()
+        self.metrics.on_prefill(
+            handle.ttft_s or 0.0, now - (handle.admit_time or now))
+        self.slots.start_decode(slot, tok, n_total, req)
+        if not ok:
+            self._fail(handle, "error")
+        elif self._check_stop(handle, tok):
+            self._retire(handle)
+
+    def step(self) -> bool:
+        """One scheduling round (expire → admit → prefill chunks → decode
+        → retire). Returns True while any request is queued or in flight."""
+        # deadline sweep first: expired queued requests never take a slot,
+        # expired in-flight requests release theirs before admission
+        now = self.clock()
+        expired_queued = [h for h in self.queue
+                          if self._expire_if_due(h, now)]
+        if expired_queued:
+            self.queue = deque(h for h in self.queue if not h.finished)
+        for h in self.slots.live_handles():
+            self._expire_if_due(h, now)
+
+        while self.queue and self.engine.pool.free_count:
+            idx = self.admission_policy.select(self.queue, now)
+            h = self.queue[idx]
+            del self.queue[idx]
+            self.admission_policy.on_admit(h)
+            with self.tracer.span("serve.admit", request_id=h.request_id):
+                self._admit(h)
+
+        # one chunk per prefilling slot per round: a long prompt's
+        # admission cost is spread out, so co-tenant inter-token latency
+        # is bounded by one chunk forward, not one full-prompt forward
+        for h in self.slots.live_handles():
+            if h.prefilling:
+                with self.tracer.span("serve.prefill_chunk",
+                                      request_id=h.request_id,
+                                      pos=h.prefill_pos):
+                    self._prefill_one_chunk(h)
+
+        active = self.slots.decoding_slots()
+        if active:
+            with self.tracer.span("serve.decode_round", lanes=len(active)):
+                st = self.slots
+                nxt = self.engine.decode_step(
+                    st.tokens, st.positions, st.temps, st.top_ks, st.top_ps,
+                    st.do_sample, st.generators)
+                for s in active:
+                    handle = st.handles[s]
+                    token = int(nxt[s])
+                    ok = self._emit(handle, token)
+                    st.tokens[s] = token
+                    st.positions[s] += 1
+                    if not ok:
+                        self._fail(handle, "error")
+                    elif self._check_stop(handle, token):
+                        self._retire(handle)
+
+        occupied = self.slots.occupied
+        self.metrics.on_step(len(self.queue), occupied, lanes_used=len(active))
+        return bool(self.queue) or occupied > 0
+
+    def unfinished(self) -> List[RequestHandle]:
+        """Every accepted-but-unfinished request (queued, prefilling or
+        decoding), queue first."""
+        live = [h for h in self.slots.live_handles() if not h.finished]
+        return list(self.queue) + live
+
+    def run_until_drained(self, max_steps: Optional[int] = None) -> None:
+        steps = 0
+        while self.step():
+            steps += 1
+            if max_steps is not None and steps >= max_steps:
+                raise RuntimeError(
+                    f"server not drained after {max_steps} steps "
+                    f"(queued={len(self.queue)}, "
+                    f"active={self.engine.pool.used_count})")
+
+    # -- offline convenience -------------------------------------------
+    def generate_batch(self, requests: Sequence[Request]) -> List[RequestHandle]:
+        """Submit everything, drain, return handles in submission order."""
+        handles = [self.submit(r) for r in requests]
+        self.run_until_drained()
+        return handles
+
+    def compile_counts(self) -> Dict[str, int]:
+        return self.engine.compile_counts()
+
+    def summary(self) -> Dict[str, Any]:
+        return self.metrics.summary()

@@ -1,0 +1,259 @@
+"""Telemetry exporters over one :class:`MetricsRegistry`.
+
+Counterpart of the parts of ``mingpt_distributed_tpu/telemetry/export.py``
+that serving needs:
+
+* **Prometheus text exposition** (``render_prometheus``) and its strict
+  counterpart ``parse_prometheus``: every non-comment line must match the
+  exposition grammar and histogram triplets must be coherent, so tests
+  check a page by parsing it, not by string matching.
+* **Versioned JSONL events** (:class:`JsonlEventSink`): every line is
+  ``{"schema": SCHEMA_VERSION, "kind": <kind>, "ts": <epoch s>, ...}`` with
+  the producer's payload flat at the top level (``span`` and ``event``
+  records of ``telemetry/spans.py``).
+
+The HTTP endpoint (``TelemetryServer``, ``serve.py --metrics-port``) is
+ROADMAP.md Queue 1 item 5.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import threading
+import time
+from typing import Any, Dict, List, Optional, TextIO, Tuple
+
+from mingpt_distributed_tpu_torch.telemetry.registry import MetricsRegistry
+
+__all__ = [
+    "SCHEMA_VERSION",
+    "JsonlEventSink",
+    "parse_prometheus",
+    "render_prometheus",
+]
+
+#: Version tag stamped on every JSONL line; bump on breaking layout
+#: changes and document the migration in docs/RELEASE_NOTES.md.
+SCHEMA_VERSION = "mingpt-telemetry/1"
+
+
+class JsonlEventSink:
+    """Append-only, versioned JSONL event stream (thread-safe)."""
+
+    def __init__(self, path: Optional[str] = None, file: Optional[TextIO] = None,
+                 schema: str = SCHEMA_VERSION):
+        if (path is None) == (file is None):
+            raise ValueError("give exactly one of path / file")
+        self._file = file if file is not None else open(path, "a")
+        self._lock = threading.Lock()
+        #: per-sink schema tag — the trace recorder reuses this sink
+        #: with "mingpt-trace/1" (payloads always carry their own ts)
+        self.schema = schema
+
+    def write(self, kind: str, data: Dict[str, Any]) -> None:
+        rec = {"schema": self.schema, "kind": kind}
+        rec.setdefault("ts", data.get("ts", time.time()))
+        rec.update(data)
+        line = json.dumps(rec) + "\n"
+        with self._lock:
+            self._file.write(line)
+            self._file.flush()
+
+    def close(self) -> None:
+        with self._lock:
+            if self._file is not None:
+                self._file.close()
+                self._file = None  # type: ignore[assignment]
+
+
+# ---------------------------------------------------------------------------
+# Prometheus text exposition (format version 0.0.4)
+# ---------------------------------------------------------------------------
+
+
+def _escape_help(s: str) -> str:
+    return s.replace("\\", r"\\").replace("\n", r"\n")
+
+
+def _escape_label(s: str) -> str:
+    return (
+        s.replace("\\", r"\\").replace('"', r"\"").replace("\n", r"\n")
+    )
+
+
+def _fmt(v: float) -> str:
+    if v != v:  # NaN
+        return "NaN"
+    if v == float("inf"):
+        return "+Inf"
+    if v == float("-inf"):
+        return "-Inf"
+    if float(v).is_integer() and abs(v) < 1e15:
+        return str(int(v))
+    return repr(float(v))
+
+
+def _sample(name: str, labels: Dict[str, str], value: float) -> str:
+    if labels:
+        body = ",".join(
+            f'{k}="{_escape_label(str(v))}"' for k, v in labels.items()
+        )
+        return f"{name}{{{body}}} {_fmt(value)}"
+    return f"{name} {_fmt(value)}"
+
+
+def render_prometheus(registry: MetricsRegistry) -> str:
+    """The registry as Prometheus text exposition. Families with no
+    children yet still emit HELP/TYPE lines, so a scrape can assert a
+    labeled counter (e.g. the recompile watchdog's) is absent-thus-zero
+    without special-casing."""
+    out: List[str] = []
+    for fam in registry.collect():
+        if fam.help:
+            out.append(f"# HELP {fam.name} {_escape_help(fam.help)}")
+        out.append(f"# TYPE {fam.name} {fam.kind}")
+        for labels, child in fam.children():
+            if fam.kind == "histogram":
+                for upper, cum in child.cumulative():
+                    le = "+Inf" if upper == float("inf") else _fmt(upper)
+                    out.append(
+                        _sample(fam.name + "_bucket",
+                                {**labels, "le": le}, cum)
+                    )
+                out.append(_sample(fam.name + "_sum", labels, child.sum))
+                out.append(_sample(fam.name + "_count", labels, child.count))
+            else:
+                out.append(_sample(fam.name, labels, child.value))
+    return "\n".join(out) + "\n"
+
+
+_TYPE_RE = re.compile(
+    r"^# TYPE ([a-zA-Z_:][a-zA-Z0-9_:]*) (counter|gauge|histogram|summary|untyped)$"
+)
+_HELP_RE = re.compile(r"^# HELP ([a-zA-Z_:][a-zA-Z0-9_:]*) (.*)$")
+_SAMPLE_RE = re.compile(
+    r"^([a-zA-Z_:][a-zA-Z0-9_:]*)"          # metric name
+    r"(?:\{((?:[a-zA-Z_][a-zA-Z0-9_]*="     # labels: name=
+    r'"(?:[^"\\\n]|\\["\\n])*"'             # "value" with \" \\ \n escapes
+    r"(?:,[a-zA-Z_][a-zA-Z0-9_]*="
+    r'"(?:[^"\\\n]|\\["\\n])*")*)?)\})?'
+    r" (NaN|[+-]Inf|[+-]?[0-9]*\.?[0-9]+(?:[eE][+-]?[0-9]+)?)"  # value
+    r"(?: [0-9]+)?$"                        # optional timestamp
+)
+_LABEL_PAIR_RE = re.compile(
+    r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\\n]|\\["\\n])*)"'
+)
+
+
+def _unescape_label(s: str) -> str:
+    # single pass, not chained str.replace: replacing "\n" first would
+    # corrupt a literal backslash-then-n ("\\" + "n" must stay "\" + "n")
+    out: List[str] = []
+    i = 0
+    while i < len(s):
+        if s[i] == "\\" and i + 1 < len(s):
+            nxt = s[i + 1]
+            if nxt == "n":
+                out.append("\n")
+                i += 2
+                continue
+            if nxt in ('"', "\\"):
+                out.append(nxt)
+                i += 2
+                continue
+        out.append(s[i])
+        i += 1
+    return "".join(out)
+
+
+def _parse_value(s: str) -> float:
+    if s == "NaN":
+        return float("nan")
+    if s == "+Inf":
+        return float("inf")
+    if s == "-Inf":
+        return float("-inf")
+    return float(s)
+
+
+def parse_prometheus(text: str) -> Dict[str, Any]:
+    """Strict exposition parser: every non-blank, non-comment line must
+    match the sample grammar exactly, histogram families must expose
+    coherent ``_bucket``/``_sum``/``_count`` triplets (cumulative,
+    ``+Inf`` bucket == ``_count``). Raises ``ValueError`` on any
+    violation. Returns ``{"types": {family: kind}, "samples":
+    [(name, labels, value)]}``.
+    """
+    types: Dict[str, str] = {}
+    samples: List[Tuple[str, Dict[str, str], float]] = []
+    for lineno, line in enumerate(text.splitlines(), 1):
+        if not line.strip():
+            continue
+        if line.startswith("#"):
+            m = _TYPE_RE.match(line)
+            if m:
+                name, kind = m.groups()
+                if name in types:
+                    raise ValueError(f"line {lineno}: duplicate TYPE {name}")
+                types[name] = kind
+                continue
+            if line.startswith("# TYPE"):
+                # a TYPE line that failed the grammar must not pass as a
+                # free-form comment — that's exactly the class of drift a
+                # strict parser exists to catch
+                raise ValueError(f"line {lineno}: malformed TYPE {line!r}")
+            if _HELP_RE.match(line) or line.startswith("# "):
+                continue
+            raise ValueError(f"line {lineno}: malformed comment {line!r}")
+        m = _SAMPLE_RE.match(line)
+        if not m:
+            raise ValueError(f"line {lineno}: malformed sample {line!r}")
+        name, labelblob, value = m.group(1), m.group(2), m.group(3)
+        labels = {
+            k: _unescape_label(v)
+            for k, v in _LABEL_PAIR_RE.findall(labelblob or "")
+        }
+        samples.append((name, labels, _parse_value(value)))
+
+    # histogram triplet coherence
+    for fam, kind in types.items():
+        if kind != "histogram":
+            continue
+        series: Dict[Tuple[Tuple[str, str], ...], Dict[str, Any]] = {}
+        for name, labels, value in samples:
+            base = {k: v for k, v in labels.items() if k != "le"}
+            key = tuple(sorted(base.items()))
+            rec = series.setdefault(key, {"buckets": [], "sum": None,
+                                          "count": None})
+            if name == fam + "_bucket":
+                if "le" not in labels:
+                    raise ValueError(f"{fam}_bucket sample without le label")
+                rec["buckets"].append((_parse_value(labels["le"]), value))
+            elif name == fam + "_sum":
+                rec["sum"] = value
+            elif name == fam + "_count":
+                rec["count"] = value
+        series = {k: v for k, v in series.items()
+                  if v["buckets"] or v["sum"] is not None
+                  or v["count"] is not None}
+        for key, rec in series.items():
+            if not rec["buckets"] or rec["sum"] is None or rec["count"] is None:
+                raise ValueError(
+                    f"histogram {fam}{dict(key)} missing one of "
+                    f"_bucket/_sum/_count"
+                )
+            bounds = [b for b, _ in rec["buckets"]]
+            counts = [c for _, c in rec["buckets"]]
+            if bounds != sorted(bounds) or bounds[-1] != float("inf"):
+                raise ValueError(
+                    f"histogram {fam}: le bounds not increasing to +Inf")
+            if counts != sorted(counts):
+                raise ValueError(
+                    f"histogram {fam}: bucket counts not cumulative")
+            if counts[-1] != rec["count"]:
+                raise ValueError(
+                    f"histogram {fam}: +Inf bucket {counts[-1]} != _count "
+                    f"{rec['count']}"
+                )
+    return {"types": types, "samples": samples}

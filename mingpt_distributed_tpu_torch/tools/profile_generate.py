@@ -28,7 +28,7 @@ STEPS_PAST_WINDOW = 4  # new tokens beyond the 1024-token window
 TOP = 12  # kernel rows printed per dtype
 
 
-def _device_us(evt) -> float:
+def device_us(evt) -> float:
     return float(getattr(evt, "self_device_time_total",
                          getattr(evt, "self_cuda_time_total", 0.0)))
 
@@ -54,7 +54,7 @@ def profile(dtype: str) -> None:
 
     # device-side kernel events only: a CPU op's entry also carries the
     # device time of the kernels it launched, which would count them twice
-    rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
+    rows = [(e.key, device_us(e), e.count) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     rows = [r for r in rows if r[1] > 0]
     rows.sort(key=lambda r: -r[1])

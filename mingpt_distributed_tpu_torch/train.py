@@ -1,8 +1,9 @@
 """Training entry point of the port: config, data, trainer.
 
 Counterpart of the repository's ``train.py``. Loads a YAML config with
-``section.key=value`` overrides, builds the character dataset (its vocabulary
-and block size override the model's), trains, and exits 75 after a
+``section.key=value`` overrides, builds the dataset (``data_config.tokenizer``:
+the character vocabulary or byte-level BPE; its vocabulary and block size
+override the model's), trains, and exits 75 after a
 preemption (SIGTERM/SIGINT: stop at a step boundary, snapshot) so a
 scheduler can requeue the run, which then resumes from the snapshot. Runs on
 CUDA unless ``--device cpu``.
@@ -30,7 +31,7 @@ import dataclasses
 import sys
 
 from mingpt_distributed_tpu_torch.config import load_config
-from mingpt_distributed_tpu_torch.data.char_dataset import CharDataset
+from mingpt_distributed_tpu_torch.data.token_dataset import make_dataset
 from mingpt_distributed_tpu_torch.parallel import distributed
 from mingpt_distributed_tpu_torch.training.trainer import (
     REQUEUE_EXIT_CODE,
@@ -50,10 +51,6 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
 
     cfg = load_config(args.config, args.overrides)
-    if cfg.data_config.tokenizer != "char":
-        raise NotImplementedError(
-            "only the char tokenizer is ported (ROADMAP.md Queue 1 item 2: "
-            "data/bpe.py)")
     device = resolve_device(args.device)
     distributed.initialize(args.dist_backend)
     try:
@@ -64,12 +61,13 @@ def main(argv=None) -> int:
 
 def _train(cfg, device) -> int:
     main_rank = distributed.rank() == 0
-    dataset = CharDataset(cfg.data_config)
+    dataset = make_dataset(cfg.data_config)
     train_view, test_view = dataset.split()
     gpt_cfg = dataclasses.replace(cfg.gpt_config, vocab_size=dataset.vocab_size,
                                   block_size=dataset.block_size)
     if main_rank:
-        print(f"data: {len(dataset.data)} chars, vocab {dataset.vocab_size}, "
+        unit = "tokens" if cfg.data_config.tokenizer == "bpe" else "chars"
+        print(f"data: {len(dataset.data)} {unit}, vocab {dataset.vocab_size}, "
               f"{len(train_view)} train / {len(test_view)} test windows",
               flush=True)
 

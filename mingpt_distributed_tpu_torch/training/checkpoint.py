@@ -23,10 +23,12 @@ from __future__ import annotations
 
 import hashlib
 import io
-from typing import Any, Dict, Optional
+import os
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
+from mingpt_distributed_tpu_torch.models import convert
 from mingpt_distributed_tpu_torch.training import durability
 from mingpt_distributed_tpu_torch.training.durability import (
     LOCAL,
@@ -98,3 +100,30 @@ def load_snapshot(path: str, retry: Optional[RetryPolicy] = None,
             return None
         raise
     return decode(blob, path)
+
+
+class InferenceSnapshot(NamedTuple):
+    """A snapshot's params (checked against the config, on the device) and
+    the step they were saved at."""
+
+    params: Dict[str, Any]
+    step: int
+
+
+def restore_inference_params(path: str, gpt_cfg, device=None
+                             ) -> Optional[InferenceSnapshot]:
+    """Restore a snapshot of the port's trainer for inference: params only,
+    no optimizer state, checked key by key and shape by shape against
+    ``gpt_cfg`` and put on ``device`` (cuda unless asked). The counterpart
+    of the JAX package's ``restore_inference_params``, which the sample and
+    serve entry points share. None when no snapshot exists at ``path``; a
+    directory (a sharded Orbax checkpoint of the JAX package) raises."""
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"{path} is a directory: sharded (Orbax) checkpoints are not "
+            "ported yet (ROADMAP.md Queue 1 item 12b)")
+    snap = load_snapshot(path)
+    if snap is None:
+        return None
+    params = convert.params_from_numpy(snap["params"], gpt_cfg, device)
+    return InferenceSnapshot(params, int(snap["step"]))

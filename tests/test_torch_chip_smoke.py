@@ -220,3 +220,21 @@ def test_attention_work_bounds_k2c_by_its_function_and_counts_its_float32_dq_apa
     assert ops == 2 * elems
     assert chip_smoke.attention_work(b, t, h, hd, None, bf16,
                                      "flash_bwd_prep") == (split, ops, 0)
+
+
+def test_served_texts_reads_multiline_completions():
+    out = ("=== req-0 (length) ===\nthe king ab\ncd\n"
+           "=== req-1 (eos) ===\nand so x\n"
+           '{"requests_completed": 2}\n')
+    assert chip_smoke.served_texts(out) == ["the king ab\ncd", "and so x"]
+    assert chip_smoke.served_texts('{"requests_completed": 0}\n') == []
+
+
+def test_serve_prompts_share_their_head():
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    head = [7] * 4
+    out = chip_smoke._serve_prompts(rng, [6, 9, 5], head, [True, False, True])
+    assert [len(p) for p in out] == [6, 9, 5]
+    assert out[0][:4] == out[2][:4] == head and out[1][:4] != head

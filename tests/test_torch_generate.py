@@ -185,3 +185,71 @@ def test_sample_cli_random_init_runs(capsys):
     assert t_sample.main(argv) == 0
     out = capsys.readouterr().out
     assert out.startswith("the") and len(out) == len("the") + 6 + 1
+
+
+def _jax_rows_decode(tree, cfg, cache, tokens, positions):
+    """The JAX serving engine's decode step up to its logits: the solo
+    cached forward vmapped over the batch, each row at its own position."""
+    def one(tok, cache_row, pos):
+        cache_b = jax.tree.map(lambda a: a[:, None], cache_row)
+        logits, lane = j_gen._forward_cached(tree, tok[None, None], cache_b, pos, cfg)
+        return logits[0], jax.tree.map(lambda a: a[:, 0], lane)
+
+    return jax.vmap(one, in_axes=(0, 1, 0), out_axes=(0, 1))(tokens, cache, positions)
+
+
+def _cached_prefill_and_row_decode(name, dtype):
+    """(JAX logits, port logits) of a cached prefill of two 8-token prompts
+    and then one decode step with per-row positions 8 and 5, in ``dtype``."""
+    _, _, tree, _ = _setup(name)
+    kw = dict(CONFIGS[name], attention="einsum", dtype=dtype)
+    jcfg, tcfg = JConfig.make(**kw), TConfig.make(**kw)
+    params = convert.params_from_numpy(tree, tcfg, "cpu")
+    rng = np.random.default_rng(4)
+    prompt = rng.integers(0, 96, (2, 8)).astype(np.int32)
+    tokens = rng.integers(0, 96, 2).astype(np.int32)
+    positions = np.array([8, 5], np.int32)
+
+    jtree = jax.tree.map(jnp.asarray, tree)
+    jcache = j_gen.init_cache(jcfg, 2)
+    j_pre, jcache = j_gen._forward_cached(jtree, jnp.asarray(prompt), jcache, 0, jcfg)
+    j_dec, _ = _jax_rows_decode(jtree, jcfg, jcache, jnp.asarray(tokens),
+                                jnp.asarray(positions))
+    tcache = t_gen.init_cache(tcfg, 2, torch.device("cpu"))
+    t_pre = t_gen._forward_cached(params, torch.from_numpy(prompt).long(),
+                                  tcache, 0, tcfg)
+    t_dec = t_gen._forward_cached(params, torch.from_numpy(tokens).long()[:, None],
+                                  tcache, torch.from_numpy(positions).long(), tcfg)
+    return (np.concatenate([np.asarray(j_pre), np.asarray(j_dec)]),
+            np.concatenate([t_pre.numpy(), t_dec.numpy()]))
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_per_row_positions_match_jax_fp32(name):
+    """The batched form of the cached forward (a (B,) position tensor: each
+    row's own K/V row, mask and wpe/RoPE) against the JAX engine's vmapped
+    solo decode, fp32."""
+    want, got = _cached_prefill_and_row_decode(name, "float32")
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_bf16_cached_prefill_and_row_decode_match_jax(name):
+    """bf16 parity: the port's bf16 logits (cached prefill, then one
+    batched decode step at per-row positions) stay within twice the gap
+    between JAX's own bf16 and fp32 logits on the same inputs (on the CPU
+    the ratio reads 0.97 for gpt2, 0.77 for llama, 0.61 for
+    window_softcap)."""
+    j16, t16 = _cached_prefill_and_row_decode(name, "bfloat16")
+    j32, _ = _cached_prefill_and_row_decode(name, "float32")
+    jax_gap = np.abs(j16 - j32).max()
+    port_gap = np.abs(t16 - j16).max()
+    assert 0 < jax_gap and port_gap <= 2 * jax_gap, (port_gap, jax_gap)
+
+
+def test_per_row_positions_refuse_several_tokens():
+    _, tcfg, _, params = _setup("gpt2")
+    cache = t_gen.init_cache(tcfg, 2, torch.device("cpu"))
+    with pytest.raises(ValueError, match="one token per row"):
+        t_gen._forward_cached(params, torch.zeros((2, 3), dtype=torch.long),
+                              cache, torch.tensor([1, 2]), tcfg)

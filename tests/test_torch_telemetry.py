@@ -1,0 +1,392 @@
+"""The port's telemetry (registry, Prometheus render/parse, JSONL sink, span
+tracer) against the JAX package's: the counterparts of
+tests/test_telemetry.py's registry, exposition, JSONL and span tests, and
+the same operations through both packages giving the same exposition page
+and the same parse. The recompile watchdog and the HTTP endpoint are not
+ported (ROADMAP.md Queue 1 items 16 and 5)."""
+
+import json
+import re
+
+import pytest
+
+from mingpt_distributed_tpu import telemetry as j_tel
+from mingpt_distributed_tpu.serving.metrics import ServingMetrics as JServingMetrics
+from mingpt_distributed_tpu_torch import telemetry
+from mingpt_distributed_tpu_torch.serving.metrics import ServingMetrics
+from mingpt_distributed_tpu_torch.telemetry import (
+    LATENCY_BUCKETS_S,
+    JsonlEventSink,
+    MetricsRegistry,
+    RateWindow,
+    SpanTracer,
+    log_event,
+    parse_prometheus,
+    render_prometheus,
+)
+
+# ---------------------------------------------------------------------------
+# RateWindow edge cases
+# ---------------------------------------------------------------------------
+
+
+def test_rate_window_first_call_returns_none():
+    assert RateWindow().observe(10.0) is None
+
+
+def test_rate_window_marker_not_advancing_returns_none():
+    w = RateWindow()
+    w.observe(5.0, now=0.0)
+    assert w.observe(5.0, now=1.0) is None   # unchanged marker
+    assert w.observe(4.0, now=2.0) is None   # regressed marker
+    # the window still slides: the next advance rates against t=2
+    assert w.observe(8.0, now=4.0) == pytest.approx(2.0)
+
+
+def test_rate_window_zero_elapsed_guard():
+    w = RateWindow()
+    w.observe(0.0, now=7.0)
+    assert w.observe(100.0, now=7.0) is None
+
+
+def test_rate_window_basic_rate():
+    w = RateWindow()
+    w.observe(100.0, now=0.0)
+    assert w.observe(400.0, now=3.0) == pytest.approx(100.0)
+
+
+# ---------------------------------------------------------------------------
+# Registry semantics
+# ---------------------------------------------------------------------------
+
+
+def test_registry_get_or_create_returns_same_family():
+    reg = MetricsRegistry()
+    assert reg.counter("mingpt_test_total", help="h") is reg.counter(
+        "mingpt_test_total")
+
+
+def test_registry_conflicting_redefinition_raises():
+    reg = MetricsRegistry()
+    reg.counter("mingpt_test_total")
+    with pytest.raises(ValueError, match="conflicting"):
+        reg.gauge("mingpt_test_total")
+    reg.counter("mingpt_labeled_total", labels=("a",))
+    with pytest.raises(ValueError, match="conflicting"):
+        reg.counter("mingpt_labeled_total", labels=("b",))
+
+
+def test_registry_invalid_names_rejected():
+    reg = MetricsRegistry()
+    with pytest.raises(ValueError):
+        reg.counter("0bad")
+    with pytest.raises(ValueError):
+        reg.counter("ok_total", labels=("bad-label",))
+
+
+def test_counter_monotonic():
+    c = MetricsRegistry().counter("c_total")
+    c.inc()
+    c.inc(2.5)
+    assert c.value == 3.5
+    with pytest.raises(ValueError):
+        c.inc(-1)
+
+
+def test_labeled_family_memoises_children():
+    fam = MetricsRegistry().counter("req_total", labels=("outcome",))
+    fam.labels(outcome="ok").inc(3)
+    assert fam.labels(outcome="ok").value == 3
+    assert fam.labels(outcome="bad").value == 0
+    with pytest.raises(ValueError):
+        fam.labels(wrong="x")
+    with pytest.raises(ValueError):
+        fam.inc()  # label-less proxy refused on a labeled family
+
+
+def test_histogram_buckets_cumulative_and_quantile():
+    h = MetricsRegistry().histogram("lat_seconds", buckets=(0.1, 1.0))
+    for v in (0.05, 0.5, 0.5, 5.0):
+        h.observe(v)
+    assert h.count == 4
+    assert h.sum == pytest.approx(6.05)
+    assert h.cumulative() == [(0.1, 1), (1.0, 3), (float("inf"), 4)]
+    assert h.quantile(0.5) == 1.0 and h.quantile(1.0) == float("inf")
+    h.observe(0.1)  # a boundary value counts into its own bucket (le)
+    assert h.cumulative()[0] == (0.1, 2)
+
+
+def test_histogram_rejects_bad_ladders():
+    reg = MetricsRegistry()
+    for i, buckets in enumerate([(), (1.0, 1.0), (2.0, 1.0)]):
+        with pytest.raises(ValueError):
+            reg.histogram(f"h{i}_seconds", buckets=buckets)
+
+
+# ---------------------------------------------------------------------------
+# Prometheus exposition: render + strict parse
+# ---------------------------------------------------------------------------
+
+
+def test_render_and_parse_roundtrip_with_label_escaping():
+    reg = MetricsRegistry()
+    fam = reg.counter("esc_total", help="weird\nhelp \\ text", labels=("path",))
+    nasty = 'a"b\\c\nd'
+    fam.labels(path=nasty).inc(2)
+    parsed = parse_prometheus(render_prometheus(reg))
+    assert parsed["types"]["esc_total"] == "counter"
+    [(name, labels, value)] = parsed["samples"]
+    assert (name, labels, value) == ("esc_total", {"path": nasty}, 2)
+
+
+def test_render_histogram_triplet_validated_by_parser():
+    reg = MetricsRegistry()
+    h = reg.histogram("ttft_seconds", help="ttft", buckets=(0.01, 0.1))
+    for v in (0.005, 0.05, 7.0):
+        h.observe(v)
+    parsed = parse_prometheus(render_prometheus(reg))
+    assert parsed["types"]["ttft_seconds"] == "histogram"
+    samples = {(n, labels.get("le")): v for n, labels, v in parsed["samples"]}
+    assert samples[("ttft_seconds_bucket", "0.01")] == 1
+    assert samples[("ttft_seconds_bucket", "0.1")] == 2
+    assert samples[("ttft_seconds_bucket", "+Inf")] == 3
+    assert samples[("ttft_seconds_count", None)] == 3
+    assert samples[("ttft_seconds_sum", None)] == pytest.approx(7.055)
+
+
+def test_empty_labeled_family_still_renders_type_line():
+    reg = MetricsRegistry()
+    reg.counter("mingpt_recompiles_total", labels=("family",))
+    parsed = parse_prometheus(render_prometheus(reg))
+    assert parsed["types"]["mingpt_recompiles_total"] == "counter"
+    assert parsed["samples"] == []
+
+
+@pytest.mark.parametrize("bad", [
+    "metric{] 1",
+    "metric 1 2 3",
+    'metric{le="0.1} 1',
+    "# TYPE metric nonsense",
+    "0bad_name 1",
+])
+def test_parse_rejects_malformed_lines(bad):
+    with pytest.raises(ValueError):
+        parse_prometheus(bad)
+    with pytest.raises(ValueError):  # and so does the JAX parser
+        j_tel.parse_prometheus(bad)
+
+
+def test_parse_rejects_incoherent_histogram():
+    bad = "\n".join(['# TYPE h histogram', 'h_bucket{le="0.1"} 5',
+                     'h_bucket{le="+Inf"} 3', "h_sum 1.0", "h_count 3"])
+    with pytest.raises(ValueError, match="cumulative"):
+        parse_prometheus(bad)
+    bad2 = "\n".join(["# TYPE h histogram", 'h_bucket{le="+Inf"} 3',
+                      "h_sum 1.0", "h_count 4"])
+    with pytest.raises(ValueError, match="_count"):
+        parse_prometheus(bad2)
+
+
+def _drive_serving_metrics(m):
+    m.on_submit()
+    m.on_submit()
+    m.on_reject()
+    m.on_prefill_chunk(n_tokens=5, bucket=8, seconds=0.01)
+    m.on_prefill_chunk(n_tokens=3, bucket=4, seconds=0.01)
+    m.on_prefill(ttft_s=0.02, stall_s=0.01)
+    m.on_prefix_lookup(hit=True, rows=4)
+    m.on_tokens(3)
+    m.on_complete(n_generated=3, gen_span_s=0.02)
+    m.on_step(queue_depth=0, slots_active=1, lanes_used=1)
+
+
+def _serve_samples(page):
+    """The mingpt_serve_* / mingpt_serving_* samples of a page, minus the
+    wall-clock prefill-rate and tokens/s gauges and the speculation
+    families, which the port does not carry."""
+    out = {}
+    for n, labels, v in parse_prometheus(page)["samples"]:
+        if (n.startswith(("mingpt_serve_", "mingpt_serving_"))
+                and "_spec_" not in n and not n.endswith("per_sec")):
+            out[(n, tuple(sorted(labels.items())))] = v
+    return out
+
+
+def test_serving_page_matches_the_jax_package():
+    """The same serving events through both packages' ServingMetrics give
+    the same exposition samples (names, labels, values, histogram ladders)."""
+    reg, jreg = MetricsRegistry(), j_tel.MetricsRegistry()
+    _drive_serving_metrics(ServingMetrics(n_slots=2, registry=reg))
+    _drive_serving_metrics(JServingMetrics(n_slots=2, registry=jreg))
+    got, want = _serve_samples(render_prometheus(reg)), _serve_samples(
+        j_tel.render_prometheus(jreg))
+    assert got == pytest.approx(want)
+    assert ("mingpt_serve_requests_total", (("outcome", "completed"),)) in got
+
+
+def test_unified_page_carries_serve_families():
+    """One registry, one valid exposition page with TTFT/ITL histograms
+    and the utilisation and prefix gauges, checked through the strict
+    parser (the trainer's families join it with item 5)."""
+    reg = MetricsRegistry()
+    _drive_serving_metrics(ServingMetrics(n_slots=2, registry=reg))
+    parsed = parse_prometheus(render_prometheus(reg))
+    types = parsed["types"]
+    assert types["mingpt_serve_ttft_seconds"] == "histogram"
+    assert types["mingpt_serve_itl_seconds"] == "histogram"
+    assert types["mingpt_serve_slot_utilization"] == "gauge"
+    assert types["mingpt_serve_prefix_hit_rate"] == "gauge"
+    values = {(n, tuple(sorted(lb.items()))): v for n, lb, v in parsed["samples"]}
+    assert values[("mingpt_serve_prefix_hit_rate", ())] == 1.0
+    assert values[("mingpt_serve_requests_total", (("outcome", "completed"),))] == 1
+    les = sorted(float(lb["le"]) for n, lb, _ in parsed["samples"]
+                 if n == "mingpt_serve_ttft_seconds_bucket" and lb["le"] != "+Inf")
+    assert les == sorted(LATENCY_BUCKETS_S)
+
+
+def test_render_matches_the_jax_package_byte_for_byte():
+    """Registries driven alike render identical pages."""
+    pages = []
+    for tel in (telemetry, j_tel):
+        reg = tel.MetricsRegistry()
+        reg.counter("a_total", help="x\\y", labels=("k",)).labels(k='q"\n').inc(3)
+        reg.gauge("b_value").set(2.5)
+        h = reg.histogram("c_seconds", buckets=(0.5, 1.0))
+        for v in (0.1, 0.7, 3.0):
+            h.observe(v)
+        pages.append(tel.render_prometheus(reg))
+    assert pages[0] == pages[1]
+
+
+def test_serving_metrics_backcompat_surface():
+    m = ServingMetrics(n_slots=4)
+    m.on_submit()
+    m.on_submit()
+    m.on_reject()
+    m.on_prefill_chunk(n_tokens=5, bucket=8, seconds=0.01)
+    m.on_prefill_chunk(n_tokens=3, bucket=4, seconds=0.01)
+    m.on_prefill(ttft_s=0.1, stall_s=0.05)
+    m.on_tokens(2)
+    m.on_complete(n_generated=2, gen_span_s=0.1)
+    m.on_step(queue_depth=1, slots_active=2, lanes_used=1)
+    assert m.requests_submitted == 2
+    assert m.requests_rejected == 1
+    assert m.requests_completed == 1
+    assert m.prefill_chunks == 2
+    assert m.prefill_tokens == 8
+    assert m.prefill_padded_tokens == 12
+    assert m.bucket_histogram == {8: 1, 4: 1}
+    assert m.ttft_mean_s == pytest.approx(0.1)
+    assert m.itl_mean_s == pytest.approx(0.1)
+    assert m.admission_stall_mean_s == pytest.approx(0.05)
+    assert m.prefill_pad_overhead == pytest.approx(12 / 8)
+    assert m.slot_utilization == pytest.approx(0.25)
+    assert m.queue_depth == 1 and m.slots_active == 2
+    s = m.summary()
+    assert s["requests_submitted"] == 2
+    assert s["bucket_histogram"] == {"4": 1, "8": 1}
+    json.dumps(s)  # the summary stays JSON-serialisable
+
+
+def test_serving_metrics_log_line(capsys):
+    m = ServingMetrics(n_slots=2, log_every=2)
+    m.on_submit()
+    m.on_tokens(4)
+    m.on_step(0, 1, 1)
+    assert capsys.readouterr().out == ""
+    m.on_step(0, 1, 1)
+    line = capsys.readouterr().out
+    assert re.match(r"^\[p0\] serve step 2 \| active 1/2 \| queued 0 \| "
+                    r"done 0/1 \| tokens 4", line)
+
+
+# ---------------------------------------------------------------------------
+# JSONL event schema
+# ---------------------------------------------------------------------------
+
+
+def test_jsonl_sink_schema(tmp_path):
+    p = tmp_path / "events.jsonl"
+    sink = JsonlEventSink(str(p))
+    sink.write("train_step", {"step": 1, "loss": 3.0})
+    sink.write("custom", {"ts": 123.0, "x": "y"})
+    sink.close()
+    recs = [json.loads(ln) for ln in p.read_text().splitlines()]
+    assert all(r["schema"] == telemetry.SCHEMA_VERSION == j_tel.SCHEMA_VERSION
+               for r in recs)
+    assert recs[0]["kind"] == "train_step" and recs[0]["loss"] == 3.0
+    assert isinstance(recs[0]["ts"], float)
+    assert recs[1]["ts"] == 123.0  # caller timestamps win
+
+
+def test_jsonl_sink_needs_exactly_one_target(tmp_path):
+    with pytest.raises(ValueError):
+        JsonlEventSink()
+    with open(tmp_path / "b", "w") as f, pytest.raises(ValueError):
+        JsonlEventSink(str(tmp_path / "a"), file=f)
+
+
+# ---------------------------------------------------------------------------
+# Span tracer
+# ---------------------------------------------------------------------------
+
+
+def test_spans_nest_and_record_depth():
+    tr = SpanTracer()
+    with tr.span("serve.decode_round", lanes=3):
+        with tr.span("serve.admit"):
+            pass
+    inner, outer = tr.records()  # inner exits (and records) first
+    assert inner["name"] == "serve.admit" and inner["depth"] == 1
+    assert outer["name"] == "serve.decode_round" and outer["depth"] == 0
+    assert outer["lanes"] == 3
+    assert outer["dur_s"] >= inner["dur_s"] >= 0
+    assert outer["kind"] == "span"
+
+
+def test_span_ring_is_bounded():
+    tr = SpanTracer(capacity=8)
+    for i in range(20):
+        tr.event("e", i=i)
+    assert len(tr.records()) == 8
+    assert tr.emitted == 20 and tr.dropped == 12
+    assert [r["i"] for r in tr.records()] == list(range(12, 20))
+    with pytest.raises(ValueError):
+        SpanTracer(capacity=0)
+
+
+def test_disabled_tracer_is_noop_and_allocation_free():
+    tr = SpanTracer(enabled=False)
+    a, b = tr.span("x"), tr.span("y")
+    assert a is b  # one shared no-op context manager
+    with a:
+        pass
+    tr.event("e")
+    assert tr.records() == []
+
+
+def test_tracer_streams_to_jsonl(tmp_path):
+    p = tmp_path / "spans.jsonl"
+    tr = SpanTracer()
+    tr.attach_jsonl(str(p))
+    with tr.span("serve.decode_round", lanes=2):
+        pass
+    tr.event("recompile", family="decode")
+    tr.close()
+    recs = [json.loads(ln) for ln in p.read_text().splitlines()]
+    assert [r["kind"] for r in recs] == ["span", "event"]
+    assert recs[0]["schema"] == telemetry.SCHEMA_VERSION
+    assert recs[0]["name"] == "serve.decode_round" and recs[0]["lanes"] == 2
+    assert recs[1]["family"] == "decode"
+
+
+def test_log_event_prefixes_and_mirrors(capsys):
+    tr = SpanTracer()
+    log_event("Snapshot not found. Training model from scratch", tracer=tr)
+    out = capsys.readouterr().out
+    assert re.match(r"^\[p\d+\] Snapshot not found", out)
+    [rec] = tr.records()
+    assert rec["kind"] == "event" and rec["name"] == "log"
+    assert "from scratch" in rec["message"]
+    log_event("no tracer: printed only")
+    assert "printed only" in capsys.readouterr().out

@@ -27,6 +27,7 @@ gradients and batches go through both packages:
 import dataclasses
 import json
 import os
+import re
 import signal
 
 import jax
@@ -509,6 +510,18 @@ def test_yaml_defaults_and_one_device_meshes_are_accepted():
     assert dataclasses.asdict(cfg)["trainer_config"]["save_every"] == 3
 
 
-def test_bpe_tokenizer_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="char tokenizer"):
-        t_train.main(_cli(tmp_path, "data_config.tokenizer=bpe"))
+def test_bpe_tokenizer_raises(tmp_path, capsys):
+    """The BPE tokenizer is ported: the entry point trains on BPE tokens
+    (the merges learned from the corpus); only an unknown tokenizer
+    raises."""
+    assert t_train.main(_cli(tmp_path, "data_config.tokenizer=bpe",
+                             "data_config.bpe_vocab_size=300",
+                             "trainer_config.max_steps=2",
+                             "trainer_config.log_every=1")) == 0
+    out = capsys.readouterr().out
+    assert re.search(r"^data: \d+ tokens, vocab 300,", out, re.M)
+    assert "step 2 | loss" in out
+    from mingpt_distributed_tpu_torch.config import ConfigError
+
+    with pytest.raises(ConfigError, match="unknown tokenizer"):
+        t_train.main(_cli(tmp_path, "data_config.tokenizer=wordpiece"))
