@@ -54,13 +54,27 @@ Phases:
      warmup: tokens/s, TTFT and ITL p50/p99, host ms per decode step
      against its CUDA-event span and the profiler's kernel ms, peak
      memory, pool bytes, prefix hits, shape counts);
+     serve_spec_parity (serve_parity's requests through the speculative
+     server, k = 4, with the identical draft, accept rate exactly 1.0, and
+     with the target's first layer; the tie rule; one verify shape);
+     serve_quant_parity (the same requests with speculation at k = 2
+     through int8 and fp8 pools against the fp32 pool: every divergence a
+     near-tie of the KV round trip's logit error, the common greedy prefix
+     reported, shapes equal, <= 0.27x the pool bytes, power-of-two scales,
+     the logit-error gauge); serve_quant (serve at int8 and fp8: the same
+     numbers and 160,432,128 pool bytes); serve_spec (serve's first 16
+     requests with the draft 'self:2' and 'self', k = 4: tokens/s, TTFT,
+     ITL, accept rate, tokens per verify, host ms per propose, verify and
+     round, beside serve's); 0 launches of every kernel on each;
   4. training: the train step at the bench shape (GPT-2 124M, T=1024, batch
      16, bf16, no dropout), 12 forward, 12 prep, 12 dq and 12 dk/dv
      launches per step; the same step with FLASH_FUSED_BWD=1, 12 forward,
      12 prep and 12 fused launches per step (K2c's path); then the train
-     entry point on the corpus (loss falls, eval, snapshot, resume), and
-     the serve entry point (serve_cli): --selftest, then --prompts-file
-     over that snapshot;
+     entry point on the corpus (loss falls, eval, snapshot, resume), twice
+     more with its telemetry (train_cli_telemetry: spans_jsonl, a
+     torch.profiler trace of steps 3-4 naming the split step's kernels,
+     debug_nans on and off, step ms of each), and the serve entry point
+     (serve_cli): --selftest, then --prompts-file over that snapshot;
   4b. sequence parallel: 4 ranks spawned on the one card over gloo: ring
      and Ulysses attention at GPT-2 width (T=4096) against dense plain
      attention; the sp = 4 ring train step at full GPT-2 width, block 4096,
@@ -85,6 +99,7 @@ ok line. Exits 2 without CUDA, 1 on any failure.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib
 import io
 import json
@@ -1087,39 +1102,53 @@ def _serve_prompts(rng, lengths, head, shared):
 
 @contextlib.contextmanager
 def logit_tap(server):
-    """Records the logits the engine picks each request's tokens from, keyed
-    (request id, token index): the engine's selector is wrapped, and its
-    prefill call marks which slot a prefill's logits belong to."""
+    """Records the logits the target engine picks each request's tokens
+    from, keyed (request id, token index): the engine's selector is
+    wrapped, and the target's prefill, decode and verify calls mark what
+    the next selection belongs to (the draft engine's calls are not
+    recorded). A verify's row j gives token len(tokens) + j; the rows a
+    round rejects are overwritten by the round that emits those indices."""
     from mingpt_distributed_tpu_torch.serving import engine as engine_mod
 
     rows, current = {}, {}
     real_select, eng = engine_mod._select_next_slots, server.engine
-    real_prefill = eng.prefill_chunk_call
+    real = {name: getattr(eng, name) for name in
+            ("prefill_chunk_call", "verify_call", "decode_on_device")}
 
-    def prefill(slot, *args):
-        current["slot"] = slot
-        try:
-            return real_prefill(slot, *args)
-        finally:
-            current.clear()
+    def marked(kind, fn):
+        def call(*args, **kwargs):
+            current.update(kind=kind, slot=args[0] if kind != "decode" else None)
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                current.clear()
+        return call
 
     def select(logits, *args):
-        if current:  # a prefill chunk: the last one's logits give token 0
-            h = server.slots.handles[current["slot"]]
-            if h is not None:
-                rows[(h.request_id, 0)] = logits[0].clone()
-        else:
+        kind = current.get("kind")
+        if kind == "decode":
             for s in server.slots.decoding_slots():
                 h = server.slots.handles[s]
                 rows[(h.request_id, len(h.tokens))] = logits[s].clone()
+        elif kind is not None:
+            h = server.slots.handles[current["slot"]]
+            if h is not None:
+                start = 0 if kind == "prefill" else len(h.tokens)
+                take = 1 if kind == "prefill" else logits.shape[0]
+                for j in range(take):  # a prefill's last row gives token 0
+                    rows[(h.request_id, start + j)] = logits[j].clone()
         return real_select(logits, *args)
 
-    engine_mod._select_next_slots, eng.prefill_chunk_call = select, prefill
+    engine_mod._select_next_slots = select
+    eng.prefill_chunk_call = marked("prefill", real["prefill_chunk_call"])
+    eng.verify_call = marked("verify", real["verify_call"])
+    eng.decode_on_device = marked("decode", real["decode_on_device"])
     try:
         yield rows
     finally:
         engine_mod._select_next_slots = real_select
-        del eng.prefill_chunk_call
+        for name in real:
+            delattr(eng, name)
 
 
 def solo_greedy(params, cfg, prompt, n):
@@ -1141,34 +1170,12 @@ def solo_greedy(params, cfg, prompt, n):
     return toks, torch.stack(rows)
 
 
-def phase_serve_parity(params32, card):
-    """The server at GPT-2 124M width, fp32: 4 slots, 6 greedy requests
-    (prompts of 5 to 700 tokens, two sharing a 128-token head), 24 new
-    tokens each, chunked prefill (256) and the prefix cache on; every
-    request's tokens against the port's solo KV-cached generate on the card
-    under the tie rule."""
-    from mingpt_distributed_tpu_torch.models import generate as gen
-    from mingpt_distributed_tpu_torch.serving import InferenceServer, Request
-
-    cfg, new = gpt2_config("flash", "float32"), 24
-    rng = np.random.default_rng(SERVE_SEED)
-    lengths = rng.integers(5, 701, 6)
-    lengths[0], lengths[1] = 5, 700
-    lengths[2], lengths[4] = rng.integers(129, 257), rng.integers(129, 701)
-    head = rng.integers(0, 50257, 128).tolist()
-    prompts = _serve_prompts(rng, lengths, head, [i in (2, 4) for i in range(6)])
-    server = InferenceServer(params32, cfg, n_slots=4, prefill_chunk=256,
-                             prefix_cache_mb=64, device="cuda")
-    reset_counts()
-    with logit_tap(server) as rows:
-        handles, dt = timed(lambda: server.generate_batch(
-            [Request(prompt=p, max_new_tokens=new) for p in prompts]))
-    launches = read_counts()
-    solo = [solo_greedy(params32, cfg, p, new) for p in prompts]
-    for p, (toks, _) in zip(prompts, solo):
-        want = gen.generate(params32, cfg, [p], new, device="cuda")[0, len(p):]
-        check(want.tolist() == toks, "solo decode differs from generate()")
-    # d: the first diverging step of each request (new if none)
+def tie_rule(handles, solo, rows, new):
+    """serve_parity's comparison of a run's tokens with solo decode: the
+    first diverging step of each request, the largest engine-vs-solo logit
+    difference e up to it, the divergences with solo's top-2 gap there, and
+    the steps compared. A divergence is allowed where that gap is at most
+    SERVE_TIE_X * e."""
     firsts = [next((i for i, (a, b) in enumerate(zip(h.tokens, toks)) if a != b), new)
               for h, (toks, _) in zip(handles, solo)]
     e = max((rows[(h.request_id, i)] - ref[i]).abs().max().item()
@@ -1181,25 +1188,199 @@ def phase_serve_parity(params32, card):
             divergences.append({"request": h.request_id, "step": d,
                                 "server": h.tokens[d], "solo": toks[d],
                                 "top2_gap": (top2[0] - top2[1]).item()})
-    compared = sum(firsts)
+    return {"compared_steps": sum(firsts), "max_logit_err": e,
+            "tie_margin": SERVE_TIE_X * e, "divergences": divergences}
+
+
+def check_tie_rule(phase, res, n_steps):
+    check(all(d["top2_gap"] <= res["tie_margin"] for d in res["divergences"]),
+          f"{phase}: a token differs where solo's top-2 gap exceeds "
+          f"{SERVE_TIE_X} x {res['max_logit_err']}")
+    check(res["compared_steps"] >= SERVE_COMPARED_MIN * n_steps,
+          f"{phase}: {res['compared_steps']} of {n_steps} steps compared")
+
+
+def parity_prompts():
+    """serve_parity's six prompts (5 to 700 tokens, two sharing a 128-token
+    head) and their lengths."""
+    rng = np.random.default_rng(SERVE_SEED)
+    lengths = rng.integers(5, 701, 6)
+    lengths[0], lengths[1] = 5, 700
+    lengths[2], lengths[4] = rng.integers(129, 257), rng.integers(129, 701)
+    head = rng.integers(0, 50257, 128).tolist()
+    return _serve_prompts(rng, lengths, head, [i in (2, 4) for i in range(6)]), lengths
+
+
+PARITY_NEW = 24
+
+
+def phase_serve_parity(params32, card):
+    """The server at GPT-2 124M width, fp32: 4 slots, 6 greedy requests
+    (prompts of 5 to 700 tokens, two sharing a 128-token head), 24 new
+    tokens each, chunked prefill (256) and the prefix cache on; every
+    request's tokens against the port's solo KV-cached generate on the card
+    under the tie rule. Returns (prompts, solo decode) for the speculative
+    and quantized parity phases."""
+    from mingpt_distributed_tpu_torch.models import generate as gen
+    from mingpt_distributed_tpu_torch.serving import InferenceServer, Request
+
+    cfg, new = gpt2_config("flash", "float32"), PARITY_NEW
+    prompts, lengths = parity_prompts()
+    server = InferenceServer(params32, cfg, n_slots=4, prefill_chunk=256,
+                             prefix_cache_mb=64, device="cuda")
+    reset_counts()
+    with logit_tap(server) as rows:
+        handles, dt = timed(lambda: server.generate_batch(
+            [Request(prompt=p, max_new_tokens=new) for p in prompts]))
+    launches = read_counts()
+    solo = [solo_greedy(params32, cfg, p, new) for p in prompts]
+    for p, (toks, _) in zip(prompts, solo):
+        want = gen.generate(params32, cfg, [p], new, device="cuda")[0, len(p):]
+        check(want.tolist() == toks, "solo decode differs from generate()")
+    res = tie_rule(handles, solo, rows, new)
     rec = {"phase": "serve_parity", "model": "gpt2 124M", "dtype": "float32",
            "slots": 4, "requests": 6, "prompt_lengths": [int(n) for n in lengths],
            "new_tokens": new, "prefill_chunk": 256, "steps": 6 * new,
-           "compared_steps": compared, "compared_min": SERVE_COMPARED_MIN,
-           "max_logit_err": e, "tie_margin": SERVE_TIE_X * e,
-           "divergences": divergences,
+           "compared_min": SERVE_COMPARED_MIN, **res,
            "prefix_hits": server.metrics.prefix_hits,
            "shapes": server.compile_counts(), "launches": launches,
            "seconds": dt, "card": card}
     emit(rec)
     check(all(len(h.tokens) == new for h in handles), "a request fell short")
-    check(all(d["top2_gap"] <= SERVE_TIE_X * e for d in divergences),
-          f"serve_parity: a token differs where solo's top-2 gap exceeds "
-          f"{SERVE_TIE_X} x {e}")
-    check(compared >= SERVE_COMPARED_MIN * 6 * new,
-          f"serve_parity: {compared} of {6 * new} steps compared")
+    check_tie_rule("serve_parity", res, 6 * new)
     check(server.metrics.prefix_hits >= 1, "serve_parity: no prefix hit")
     check(not any(launches.values()), f"serving launched kernels: {launches}")
+    return prompts, solo
+
+
+SPEC_K = 4
+
+
+def phase_serve_spec_parity(params32, card, parity):
+    """serve_parity's requests through the speculative server (fp32, 4
+    slots, k = 4): with the identical draft ('self': accept rate exactly
+    1.0) and with the target's first layer ('self:1': rejections roll
+    back); every request's tokens against solo decode under the tie rule,
+    one verify shape and one draft decode shape, no kernel launched."""
+    from mingpt_distributed_tpu_torch.serving import InferenceServer, Request
+
+    from mingpt_distributed_tpu_torch.serve import draft_from
+
+    cfg, new = gpt2_config("flash", "float32"), PARITY_NEW
+    prompts, solo = parity
+    launches_all = {}
+    for draft in ("self", "self:1"):
+        dparams, dcfg = draft_from(draft, params32, cfg, "cuda")
+        server = InferenceServer(params32, cfg, n_slots=4, prefill_chunk=256,
+                                 prefix_cache_mb=64, draft_params=dparams,
+                                 draft_cfg=dcfg, spec_k=SPEC_K, device="cuda")
+        reset_counts()
+        with logit_tap(server) as rows:
+            handles, dt = timed(lambda: server.generate_batch(
+                [Request(prompt=p, max_new_tokens=new) for p in prompts]))
+        launches = launches_all[draft] = read_counts()
+        res = tie_rule(handles, solo, rows, new)
+        m, counts = server.metrics, server.compile_counts()
+        emit({"phase": "serve_spec_parity", "draft": draft, "spec_k": SPEC_K,
+              "model": "gpt2 124M", "dtype": "float32", "slots": 4, "requests": 6,
+              "new_tokens": new, "steps": 6 * new, **res,
+              "spec_rounds": m.spec_rounds, "spec_proposed": m.spec_proposed,
+              "spec_accepted": m.spec_accepted, "accept_rate": m.spec_accept_rate,
+              "tokens_per_verify": m.spec_tokens_per_verify_mean,
+              "per_request": [(h.spec_proposed, h.spec_accepted) for h in handles],
+              "prefix_hits": m.prefix_hits, "shapes": counts, "launches": launches,
+              "seconds": dt, "card": card})
+        check(all(len(h.tokens) == new for h in handles),
+              f"serve_spec_parity {draft}: a request fell short")
+        check_tie_rule(f"serve_spec_parity {draft}", res, 6 * new)
+        check(m.spec_rounds > 0, f"serve_spec_parity {draft}: no verify round")
+        if draft == "self":
+            check(m.spec_accept_rate == 1.0,
+                  f"serve_spec_parity: identical draft accept rate {m.spec_accept_rate}")
+        check(counts["verify"] == 1 and counts["draft_decode"] == 1,
+              f"serve_spec_parity {draft}: shapes {counts}")
+        check(not any(launches.values()), f"speculation launched kernels: {launches}")
+        del server
+    return launches_all
+
+
+def phase_serve_quant_parity(params32, card, parity):
+    """selftest-quant at GPT-2 124M width: serve_parity's requests with
+    speculation (the identical draft, k = 2), chunks and the prefix cache,
+    through an fp32, an int8 and an fp8 pool. Each quantized stream equals
+    the fp32 server's, or leaves it only at a near-tie (the fp32 top-2 gap
+    at most QUANT_TIE_X x the KV round trip's logit error at that context);
+    the common greedy prefix (the JAX package's 0.9 gate) is reported.
+    Shapes equal for every dtype, pool bytes <= 0.27x fp32, power-of-two
+    scales, the logit-error gauge set, no kernel launched."""
+    from mingpt_distributed_tpu_torch import serve as serve_mod
+    from mingpt_distributed_tpu_torch import telemetry
+    from mingpt_distributed_tpu_torch.serving import InferenceServer, Request
+    from mingpt_distributed_tpu_torch.serving import quant as quant_lib
+
+    cfg, new = gpt2_config("flash", "float32"), PARITY_NEW
+    prompts, _ = parity
+
+    def run(kv_dtype):
+        reg = telemetry.MetricsRegistry()
+        server = InferenceServer(params32, cfg, n_slots=4, prefill_chunk=256,
+                                 prefix_cache_mb=64, draft_params=params32,
+                                 draft_cfg=cfg, spec_k=2, kv_dtype=kv_dtype,
+                                 registry=reg, device="cuda")
+        reset_counts()
+        handles, dt = timed(lambda: server.generate_batch(
+            [Request(prompt=p, max_new_tokens=new) for p in prompts]))
+        return server, reg, [h.tokens for h in handles], read_counts(), dt
+
+    s32, _, toks32, launches32, _ = run("fp32")
+    counts32 = s32.compile_counts()
+    bytes32 = serve_mod.pool_bytes(s32.engine.pool.cache)
+    del s32
+    out = {"fp32": launches32}
+    for kv_dtype in ("int8", "fp8"):
+        server, reg, toks, launches, dt = run(kv_dtype)
+        q = quant_lib.resolve_kv_dtype(kv_dtype)
+        div = serve_mod.quant_divergences(params32, cfg, prompts, toks32, toks, q)
+        err = quant_lib.max_abs_logit_error(params32, cfg, prompts[0], q)
+        server.observe_quant_logit_error(err)
+        page = telemetry.parse_prometheus(telemetry.render_prometheus(reg))
+        gauge = next((v for n, _, v in page["samples"]
+                      if n == "mingpt_serve_quant_logit_err_max"), None)
+        pool = server.engine.pool.cache
+        _, scales = quant_lib.split_scales(pool)
+        qbytes = serve_mod.pool_bytes(pool)
+        agree = sum(serve_mod.common_prefix(a, b) for a, b in zip(toks32, toks))
+        total = sum(len(a) for a in toks32)
+        counts = server.compile_counts()
+        out[kv_dtype] = launches
+        emit({"phase": "serve_quant_parity", "kv_dtype": kv_dtype, "model": "gpt2 124M",
+              "dtype": "float32", "slots": 4, "requests": 6, "new_tokens": new,
+              "spec_k": 2, "common_prefix": agree, "tokens": total,
+              "common_prefix_share": agree / total, "jax_gate_share": 0.9,
+              "divergences": div, "tie_x": serve_mod.QUANT_TIE_X,
+              "max_abs_logit_err_prompt0": err, "err_gauge": gauge,
+              "pool_bytes": qbytes, "scale_bytes": serve_mod.pool_bytes(scales),
+              "fp32_pool_bytes": bytes32, "pool_ratio": qbytes / bytes32,
+              "shapes": counts, "fp32_shapes": counts32,
+              "spec_accept_rate": server.metrics.spec_accept_rate,
+              "prefix_hits": server.metrics.prefix_hits, "launches": launches,
+              "seconds": dt, "card": card})
+        check(all(d["tie"] for d in div),
+              f"serve_quant_parity {kv_dtype}: tokens leave the fp32 stream at a "
+              f"gap wider than {serve_mod.QUANT_TIE_X} x the logit error: {div}")
+        check(counts == counts32, f"serve_quant_parity {kv_dtype}: shapes {counts} "
+              f"!= fp32 {counts32}")
+        check(qbytes <= 0.27 * bytes32,
+              f"serve_quant_parity {kv_dtype}: pool {qbytes} > 0.27 x {bytes32}")
+        check(serve_mod.pow2_or_zero(scales),
+              f"serve_quant_parity {kv_dtype}: a scale is not a power of two")
+        check(gauge is not None and gauge == err and 0 < err < 0.5,
+              f"serve_quant_parity {kv_dtype}: err gauge {gauge}, probe {err}")
+        check(server.metrics.prefix_hits >= 1 and server.metrics.spec_rounds >= 1,
+              f"serve_quant_parity {kv_dtype}: prefix hits / spec rounds missing")
+        check(not any(launches.values()), f"quant serving launched kernels: {launches}")
+        del server
+    return out
 
 
 def _percentiles(values):
@@ -1250,106 +1431,178 @@ def decode_device_ms(engine, tokens, positions, do_sample, steps=20):
             sum(r[2] for r in rows) / steps, top, top_host)
 
 
-def phase_serve(params32, card):
-    """The serving main path at GPT-2 124M width, bf16, block 1024: 8 slots
-    (a 302 MB pool), 32 requests of 32 to 896 prompt tokens, half sharing a
-    256-token head, 64 new tokens each, one in four sampled with top-k 50;
-    chunked prefill (256), default buckets, a 256 MiB prefix cache, warmup.
-    Tokens/s, TTFT and ITL percentiles, host ms against device ms per
-    decode step, peak memory, pool bytes, prefix hits, shape counts."""
-    from mingpt_distributed_tpu_torch.serving import InferenceServer, Request
+SERVE_NEW = 64
 
-    cfg, new, n_req = gpt2_config("flash", "bfloat16"), 64, 32
+
+def serve_traffic(n_req):
+    """serve's traffic: the first ``n_req`` of its 32 requests (32 to 896
+    prompt tokens, half sharing a 256-token head, one in four sampled with
+    top-k 50), 64 new tokens each. (requests, prompt lengths, sampled)."""
+    from mingpt_distributed_tpu_torch.serving import Request
+
     rng = np.random.default_rng(SERVE_SEED + 1)
-    shared = [i % 2 == 1 for i in range(n_req)]
-    lengths = np.where(shared, rng.integers(257, 897, n_req),
-                       rng.integers(32, 897, n_req))
+    shared = [i % 2 == 1 for i in range(32)]
+    lengths = np.where(shared, rng.integers(257, 897, 32), rng.integers(32, 897, 32))
     lengths[1] = rng.integers(257, 513)  # the first sharer stores the head
     head = rng.integers(0, 50257, 256).tolist()
     prompts = _serve_prompts(rng, lengths, head, shared)
-    sampled = [i % 4 == 3 for i in range(n_req)]
-    reqs = [Request(prompt=p, max_new_tokens=new, do_sample=s,
+    sampled = [i % 4 == 3 for i in range(32)]
+    reqs = [Request(prompt=p, max_new_tokens=SERVE_NEW, do_sample=s,
                     top_k=50 if s else None, seed=i)
             for i, (p, s) in enumerate(zip(prompts, sampled))]
+    return reqs[:n_req], lengths[:n_req], sampled[:n_req]
+
+
+def pool_bytes_want(cfg, slots, kv_dtype):
+    """The bytes of a pool at GPT-2 width: K and V (one byte per element at
+    int8/fp8, the compute dtype's otherwise) and, quantized, their fp32
+    scale planes (one per row and head)."""
+    rows = 2 * slots * cfg.n_layer * cfg.block_size
+    if kv_dtype == "fp32":
+        return rows * cfg.n_embd * torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    return rows * cfg.n_embd + rows * cfg.kv_heads * 4
+
+
+def phase_serve(params32, card, kv_dtype="fp32", draft=None, n_req=32, serve_rec=None):
+    """The serving main path at GPT-2 124M width, bf16, block 1024: 8 slots,
+    serve's traffic (``serve_traffic``), chunked prefill (256), default
+    buckets, a 256 MiB prefix cache, warmup. Tokens/s, TTFT and ITL
+    percentiles, host ms per decode step, pool bytes, peak memory, prefix
+    hits, shape counts; for the plain decode step (no ``draft``) also its
+    CUDA-event span and the profiler's kernel ms and kernels per step. The
+    phase is ``serve`` (the fp32 pool, the bf16 model's dtype),
+    ``serve_quant`` (an int8 or fp8 pool) or ``serve_spec`` (a ``draft``:
+    'self' or 'self:N', k = 4; host ms per propose, verify and round, set
+    beside ``serve_rec``)."""
+    from mingpt_distributed_tpu_torch.serve import draft_from
+    from mingpt_distributed_tpu_torch.serving import InferenceServer
+
+    phase = "serve_spec" if draft else "serve" if kv_dtype == "fp32" else "serve_quant"
+    cfg = gpt2_config("flash", "bfloat16")
+    reqs, lengths, sampled = serve_traffic(n_req)
     token_times = {}
 
     def on_token(handle, _tok):
         token_times.setdefault(handle.request_id, []).append(time.perf_counter())
 
+    spec_kw = {}
+    if draft:
+        dparams, dcfg = draft_from(draft, params32, cfg, "cuda")
+        spec_kw = dict(draft_params=dparams, draft_cfg=dcfg, spec_k=SPEC_K)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     server = InferenceServer(params32, cfg, n_slots=8, prefill_chunk=256,
-                             prefix_cache_mb=256, warmup=True,
-                             on_token=on_token, device="cuda")
+                             prefix_cache_mb=256, warmup=True, kv_dtype=kv_dtype,
+                             on_token=on_token, device="cuda", **spec_kw)
     eng = server.engine
-    real_step, step_s, spans = eng.decode_step, [], []
+    host_ms = {"decode_step": [], "propose": [], "verify": [], "spec_round": [],
+               "decode_round": []}
+    spans = []
 
-    def timed_step(*args):
-        # host clock around the step (it ends by copying the tokens to the
-        # host) and CUDA events around its work on the card: the events'
-        # span includes the card's idle gaps while the host issues kernels
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        t0 = time.perf_counter()
-        start.record()
-        out = real_step(*args)
-        end.record()
-        step_s.append(time.perf_counter() - t0)
-        spans.append((start, end))
-        return out
+    def host_timed(obj, name, key, events=False):
+        real = getattr(obj, name)
 
-    eng.decode_step = timed_step
+        def call(*args):
+            if events:
+                # CUDA events around the step's work on the card: their
+                # span includes the card's idle gaps while the host issues
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+            t0 = time.perf_counter()
+            out = real(*args)
+            host_ms[key].append((time.perf_counter() - t0) * 1e3)
+            if events:
+                end.record()
+                spans.append((start, end))
+            return out
+        setattr(obj, name, call)
+
+    host_timed(eng, "decode_step", "decode_step", events=not draft)
+    host_timed(server, "_decode_round", "decode_round")
+    if draft:
+        host_timed(server.spec, "propose", "propose")
+        host_timed(server.spec, "verify", "verify")
+        host_timed(server, "_spec_round", "spec_round")
     reset_counts()
     handles, dt = timed(lambda: server.generate_batch(reqs))
     launches = read_counts()
-    del eng.decode_step
+    for obj, name in ((eng, "decode_step"), (server, "_decode_round"),
+                      (server.spec, "propose"), (server.spec, "verify"),
+                      (server, "_spec_round")):
+        if obj is not None and name in vars(obj):
+            delattr(obj, name)
     torch.cuda.synchronize()
-    span_ms = [a.elapsed_time(b) for a, b in spans]
     generated = sum(len(h.tokens) for h in handles)
     itl = [b - a for ts in token_times.values() for a, b in zip(ts, ts[1:])]
-    positions = [min(int(n) + new // 2, cfg.block_size - 1) for n in lengths[:8]]
-    step_ms, kernel_ms, kernels, top, top_host = decode_device_ms(
-        eng, [int(p[-1]) for p in prompts[:8]], positions, sampled[:8])
     counts = server.compile_counts()
-    rec = {"phase": "serve", "main_path": True, "model": "gpt2 124M",
-           "dtype": "bfloat16", "block_size": cfg.block_size, "slots": 8,
-           "requests": n_req, "sampled_top_k50": sum(sampled),
-           "prompt_tokens": int(sum(lengths)), "new_tokens": new,
+    m = server.metrics
+    rec = {"phase": phase, "main_path": phase == "serve", "model": "gpt2 124M",
+           "dtype": "bfloat16", "kv_dtype": kv_dtype, "block_size": cfg.block_size,
+           "slots": 8, "requests": n_req, "sampled_top_k50": sum(sampled),
+           "prompt_tokens": int(sum(lengths)), "new_tokens": SERVE_NEW,
            "generated_tokens": generated, "seconds": dt,
            "tokens_per_s": generated / dt,
            "ttft_s": _percentiles([h.ttft_s for h in handles]),
-           "itl_s": _percentiles(itl),
-           "decode_steps": len(step_s),
-           "decode_step_host_ms": {k: v * 1e3 for k, v in _percentiles(step_s).items()},
-           "decode_step_event_span_ms": _percentiles(span_ms),
-           "decode_ms_per_step_full": step_ms,
-           "decode_device_kernel_ms_per_step": kernel_ms,
-           "decode_device_busy_share": kernel_ms / step_ms,
-           "host_bound": kernel_ms < 0.5 * step_ms,
-           "decode_kernels_per_step": kernels, "decode_top_kernels": top,
-           "decode_top_host_ops": top_host,
+           "itl_s": _percentiles(itl), "decode_rounds": len(host_ms["decode_round"]),
+           "decode_round_host_ms": _percentiles(host_ms["decode_round"]),
+           "decode_steps": len(host_ms["decode_step"]),
            "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
-           "pool_bytes": eng.pool.nbytes,
-           "prefix_hits": server.metrics.prefix_hits,
-           "prefix_lookups": server.metrics.prefix_lookups,
-           "prefill_chunks": server.metrics.prefill_chunks,
-           "shapes": counts, "buckets": list(eng.buckets),
-           "launches": launches, "card": card}
+           "pool_bytes": eng.pool.nbytes, "pool_bytes_want": pool_bytes_want(
+               cfg, 8, kv_dtype),
+           "prefix_hits": m.prefix_hits, "prefix_lookups": m.prefix_lookups,
+           "prefill_chunks": m.prefill_chunks, "shapes": counts,
+           "buckets": list(eng.buckets), "launches": launches, "card": card}
+    if host_ms["decode_step"]:
+        rec["decode_step_host_ms"] = _percentiles(host_ms["decode_step"])
+    if draft:
+        rec.update({
+            "draft": draft, "spec_k": SPEC_K, "spec_rounds": m.spec_rounds,
+            "accept_rate": m.spec_accept_rate,
+            "tokens_per_verify": m.spec_tokens_per_verify_mean,
+            "propose_host_ms": _percentiles(host_ms["propose"]),
+            "verify_host_ms": _percentiles(host_ms["verify"]),
+            "verifies_per_round": len(host_ms["verify"]) / max(1, len(host_ms["spec_round"])),
+            "spec_round_host_ms": _percentiles(host_ms["spec_round"]),
+            "propose_host_ms_total": sum(host_ms["propose"]),
+            "verify_host_ms_total": sum(host_ms["verify"]),
+            "decode_step_host_ms_total": sum(host_ms["decode_step"])})
+    else:
+        span_ms = [a.elapsed_time(b) for a, b in spans]
+        positions = [min(int(n) + SERVE_NEW // 2, cfg.block_size - 1) for n in lengths[:8]]
+        step_ms, kernel_ms, kernels, top, top_host = decode_device_ms(
+            eng, [int(r.prompt[-1]) for r in reqs[:8]], positions, sampled[:8])
+        rec.update({
+            "decode_step_event_span_ms": _percentiles(span_ms),
+            "decode_ms_per_step_full": step_ms,
+            "decode_device_kernel_ms_per_step": kernel_ms,
+            "decode_device_busy_share": kernel_ms / step_ms,
+            "host_bound": kernel_ms < 0.5 * step_ms,
+            "decode_kernels_per_step": kernels, "decode_top_kernels": top,
+            "decode_top_host_ops": top_host})
+    if serve_rec is not None:
+        rec["serve"] = {k: serve_rec[k] for k in (
+            "tokens_per_s", "ttft_s", "itl_s", "decode_step_host_ms",
+            "decode_round_host_ms", "pool_bytes", "peak_allocated_bytes")}
     emit(rec)
-    check(all(h.finished and len(h.tokens) == new and h.finish_reason == "length"
-              for h in handles), "serve: a request did not end with 64 tokens")
+    check(all(h.finished and len(h.tokens) == SERVE_NEW and h.finish_reason == "length"
+              for h in handles), f"{phase}: a request did not end with {SERVE_NEW} tokens")
     check(all(0 <= t < cfg.vocab_size for h in handles for t in h.tokens),
-          "serve: token ids out of range")
+          f"{phase}: token ids out of range")
     check(counts["decode"] == 1 and all(
         counts[f] <= len(eng.buckets) for f in ("prefill", "prefix_load", "prefix_save")),
-        f"serve: shapes {counts} outside the ladder {eng.buckets}")
+        f"{phase}: shapes {counts} outside the ladder {eng.buckets}")
     check(eng.pool.free_count == 8 and server.slots.occupied == 0
-          and not server.queue, "serve: a slot or pool row is still held")
-    pool_want = 8 * 2 * cfg.n_layer * cfg.block_size * cfg.n_embd * 2  # k, v in bf16
-    check(eng.pool.nbytes == pool_want,
-          f"serve: pool holds {eng.pool.nbytes} bytes, want {pool_want}")
-    check(server.metrics.prefix_hits >= 1, "serve: no prefix hit")
-    check(not any(launches.values()), f"serving launched kernels: {launches}")
+          and not server.queue, f"{phase}: a slot or pool row is still held")
+    check(eng.pool.nbytes == rec["pool_bytes_want"],
+          f"{phase}: pool holds {eng.pool.nbytes} bytes, want {rec['pool_bytes_want']}")
+    check(m.prefix_hits >= 1, f"{phase}: no prefix hit")
+    if draft:
+        check(m.spec_rounds > 0 and counts["verify"] == 1 and counts["draft_decode"] == 1,
+              f"{phase}: spec rounds {m.spec_rounds}, shapes {counts}")
+        check(server.spec.draft.engine.pool.free_count == 8,
+              f"{phase}: a draft slot is still held")
+    check(not any(launches.values()), f"{phase} launched kernels: {launches}")
     del server
     torch.cuda.empty_cache()
     return rec
@@ -1656,6 +1909,83 @@ def phase_train_entry(card, tmp):
     check([int(v) for v in losses2] == list(range(ENTRY_STEPS + 1, ENTRY_STEPS + 6)),
           f"resumed run logged steps {losses2}")
     return argv
+
+
+TELEMETRY_STEPS = 8
+PROFILE_STEPS = (2, 4)
+# the trace of the profiled steps must name each kernel of the split step
+TRACE_KERNELS = ("flash_fwd", "flash_bwd_prep", "flash_dq", "flash_dkv")
+
+
+def step_spans(path):
+    """The train.step spans of a spans_jsonl file: {step: host ms}."""
+    out = {}
+    with open(path) as f:
+        for line in f:
+            rec = json.loads(line)
+            if rec.get("kind") == "span" and rec.get("name") == "train.step":
+                out.setdefault(rec["step"], []).append(rec["dur_s"] * 1e3)
+    return out
+
+
+def trace_kernel_names(path):
+    """The kernel names of a torch.profiler Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+
+
+def phase_train_telemetry(card, argv, tmp):
+    """The train entry point twice more, 8 steps each from scratch at
+    train_cli's shape, logging every step: once with spans_jsonl,
+    profile_dir over steps 3 and 4 and debug_nans on, once with spans_jsonl
+    alone. One train.step span per step; the trace names the split step's
+    kernels; the median step ms of the unprofiled steps 5-8 with
+    debug_nans on and off."""
+    runs = {}
+    for name, extra in (("debug_nans_on", ["trainer_config.debug_nans=true",
+                                           f"trainer_config.profile_dir={tmp}/prof",
+                                           f"trainer_config.profile_steps={list(PROFILE_STEPS)}"]),
+                        ("debug_nans_off", [])):
+        spans = os.path.join(tmp, f"spans_{name}.jsonl")
+        run_argv = [a for a in argv if not a.startswith(("trainer_config.snapshot_path",
+                                                        "trainer_config.log_every"))]
+        run_argv += [f"trainer_config.snapshot_path={tmp}/{name}.pt",
+                     f"trainer_config.max_steps={TELEMETRY_STEPS}",
+                     "trainer_config.log_every=1", f"trainer_config.spans_jsonl={spans}",
+                     *extra]
+        reset_counts()
+        with fused_switch(False):
+            rc, out = run_entry(run_argv)
+        per_step = step_spans(spans)
+        runs[name] = {"rc": rc, "spans": per_step, "launches": read_counts(),
+                      "step_ms_p50": float(np.median(
+                          [per_step[s][0] for s in range(PROFILE_STEPS[1] + 1,
+                                                         TELEMETRY_STEPS + 1)
+                           if s in per_step]))}
+        check(rc == 0, f"train entry ({name}) exited {rc}")
+        check(sorted(per_step) == list(range(1, TELEMETRY_STEPS + 1))
+              and all(len(v) == 1 for v in per_step.values()),
+              f"train entry ({name}): step spans {per_step}")
+    trace = os.path.join(tmp, "prof", "trace_steps_%d-%d.json" % PROFILE_STEPS)
+    kernels = trace_kernel_names(trace) if os.path.exists(trace) else []
+    named = {k: [n for n in kernels if k in n] for k in TRACE_KERNELS}
+    on, off = runs["debug_nans_on"], runs["debug_nans_off"]
+    emit({"phase": "train_cli_telemetry", "steps": TELEMETRY_STEPS,
+          "profile_steps": list(PROFILE_STEPS), "trace": os.path.basename(trace),
+          "trace_kernels": len(kernels),
+          "trace_flash_kernels": {k: v[:2] for k, v in named.items()},
+          "step_spans": {n: len(r["spans"]) for n, r in runs.items()},
+          "step_ms": {n: [r["spans"][k][0] for k in sorted(r["spans"])]
+                      for n, r in runs.items()},
+          "step_ms_p50_debug_nans_on": on["step_ms_p50"],
+          "step_ms_p50_debug_nans_off": off["step_ms_p50"],
+          "debug_nans_cost_ms": on["step_ms_p50"] - off["step_ms_p50"],
+          "launches": {n: r["launches"] for n, r in runs.items()}, "card": card})
+    check(all(named.values()), f"the profiler trace names no {[k for k, v in named.items() if not v]} "
+                               f"kernel: {kernels[:20]}")
+    check(all(r["launches"]["flash_bwd_dq"] == 12 * TELEMETRY_STEPS for r in runs.values()),
+          f"train entry with telemetry: {[r['launches'] for r in runs.values()]}")
 
 
 # ---------------------------------------------------------------------------
@@ -2585,8 +2915,15 @@ def main() -> int:
     phase_grads(model32.params, card)
     generate_launches = phase_generate(GPT, fa, model32, card)
     phase_sample(fa, card)
-    phase_serve_parity(model32.params, card)
+    parity = phase_serve_parity(model32.params, card)
+    spec_parity = phase_serve_spec_parity(model32.params, card, parity)
+    quant_parity = phase_serve_quant_parity(model32.params, card, parity)
+    del parity
     serve = phase_serve(model32.params, card)
+    serve_quant = {kv: phase_serve(model32.params, card, kv_dtype=kv, serve_rec=serve)
+                   for kv in ("int8", "fp8")}
+    serve_spec = {d: phase_serve(model32.params, card, draft=d, n_req=16, serve_rec=serve)
+                  for d in ("self:2", "self")}
     del model32
     torch.cuda.empty_cache()
 
@@ -2595,6 +2932,7 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         train_argv = phase_train_entry(card, tmp)
+        phase_train_telemetry(card, train_argv, tmp)
         phase_serve_cli(card, train_argv, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2657,7 +2995,11 @@ def main() -> int:
           "train_step_fused": fused["launches"], "sp_train_step_rank0": sp_counts,
           "proto_nh_kernel": proto_counts, "exp_exp2": exp_counts,
           "generate_sliding_bf16": {"flash_fwd": generate_launches},
-          "serve": serve["launches"]})
+          "serve": serve["launches"],
+          **{f"serve_spec_parity_{d}": v for d, v in spec_parity.items()},
+          **{f"serve_quant_parity_{kv}": v for kv, v in quant_parity.items()},
+          **{f"serve_quant_{kv}": r["launches"] for kv, r in serve_quant.items()},
+          **{f"serve_spec_{d}": r["launches"] for d, r in serve_spec.items()}})
     print(card_line(), flush=True)
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",

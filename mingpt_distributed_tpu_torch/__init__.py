@@ -14,9 +14,11 @@ flash-attention forward kernel, the GPT forward, KV-cached and
 sliding-window generation, the sample CLI), training on one GPU and dp x
 sp across processes (the flash-attention backward kernels, chunked
 cross-entropy, remat, AdamW, the data iterator, durable snapshots, the
-trainer and the train CLI; ring and Ulysses attention), the char and
-byte-level BPE tokenizers, and serving (the continuous-batching engine and
-scheduler, their metrics and telemetry, the serve CLI).
+trainer, its telemetry and the train CLI; ring and Ulysses attention),
+the char and byte-level BPE tokenizers, the HuggingFace GPT-2 and Llama
+weight loaders, and serving (the continuous-batching engine and scheduler,
+speculative decoding, int8/fp8 KV pools, their metrics and the /metrics
+endpoint, the serve CLI).
 """
 
 from mingpt_distributed_tpu_torch.config import (  # noqa: F401

@@ -286,13 +286,6 @@ UNPORTED_TRAINER_OPTIONS = {
     "async_save": "Queue 1 item 1 (asynchronous snapshot writes)",
     "msgpack_gather_limit_mb": "Queue 1 item 8 (multi-process saves)",
     "dl_num_workers": "Queue 1 item 3 (runtime/native_batcher.c)",
-    "metrics_port": "Queue 1 item 5 (trainer telemetry)",
-    "spans_jsonl": "Queue 1 item 5 (trainer telemetry)",
-    "tensorboard_dir": "Queue 1 item 5 (trainer telemetry)",
-    "profile_dir": "Queue 1 item 5 (trainer telemetry; "
-                   "tools/profile_train.py profiles a step today)",
-    "profile_steps": "Queue 1 item 5 (trainer telemetry)",
-    "debug_nans": "Queue 1 item 5 (trainer telemetry)",
 }
 
 

@@ -2,9 +2,9 @@
 
 Counterpart of ``mingpt_distributed_tpu/models/api.py``: ``GPT(config)``
 with ``forward(inputs, targets=None) -> (logits, loss)``,
-``generate(idx, max_new_tokens, temperature, do_sample, top_k)`` and
-``num_params``, plus an explicit ``device`` (cuda unless the caller asks
-for the CPU). The parameters live in two ``nn.ParameterDict``s (top-level
+``generate(idx, max_new_tokens, temperature, do_sample, top_k)``,
+``num_params`` and ``from_pretrained`` (HuggingFace GPT-2 weights), plus
+an explicit ``device`` (cuda unless the caller asks for the CPU). The parameters live in two ``nn.ParameterDict``s (top-level
 and stacked blocks) so ``.to()`` and ``state_dict()`` work; the compute
 goes through the same plain functions (models/gpt.py, models/generate.py).
 
@@ -88,10 +88,15 @@ class GPT(nn.Module):
         )
 
     @classmethod
-    def from_pretrained(cls, model_type: str = "gpt2", **overrides) -> "GPT":
-        raise NotImplementedError(
-            "GPT-2 weights are not in the repository: convert a JAX snapshot "
-            "with models/convert.py instead (README, PyTorch/H100 port)")
+    def from_pretrained(cls, model_type: str = "gpt2", *,
+                        device: Optional[Device] = None, **overrides) -> "GPT":
+        """OpenAI GPT-2 weights (``models/pretrained.from_pretrained``:
+        transformers and its hub cache; RuntimeError without them)."""
+        from mingpt_distributed_tpu_torch.models import convert, pretrained
+
+        cfg, tree = pretrained.from_pretrained(model_type, **overrides)
+        dev = resolve_device(device)
+        return cls(cfg, convert.params_from_numpy(tree, cfg, dev), device=dev)
 
     @property
     def num_params(self) -> int:

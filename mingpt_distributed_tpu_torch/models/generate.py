@@ -38,7 +38,9 @@ from mingpt_distributed_tpu_torch.ops import attention as attn_ops
 from mingpt_distributed_tpu_torch.ops import layers as L
 from mingpt_distributed_tpu_torch.utils.device import Device, resolve_device
 
-Cache = Dict[str, torch.Tensor]  # {"k","v"}: (n_layer, B, block_size, KV, hd)
+# {"k","v"}: (n_layer, B, block_size, KV, hd); a quantized serving pool adds
+# the fp32 scale planes "k_scale", "v_scale" (head_dim -> 1)
+Cache = Dict[str, torch.Tensor]
 # absolute position of a call's first token: one int for the batch, or a
 # (B,) tensor of per-row positions (one token per row)
 Offset = Union[int, torch.Tensor]
@@ -86,18 +88,27 @@ def _cached_block(
         q = attn_ops.apply_rope(q, cos, sin)
         k = attn_ops.apply_rope(k, cos, sin)
 
-    if per_row:
-        rows = torch.arange(b, device=x.device)
-        cache["k"][layer, rows, offset] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][layer, rows, offset] = v[:, 0].to(cache["v"].dtype)
+    if "k_scale" in cache:
+        # a quantized serving pool: attend the dequantized layer, store the
+        # call's rows quantized (serving/quant.py)
+        from mingpt_distributed_tpu_torch.serving import quant
+
+        k_all, v_all = quant.write_layer_rows(
+            cache, layer, offset, k, v, gpt.compute_dtype(cfg))
     else:
-        cache["k"][layer, :, offset:offset + t] = k.to(cache["k"].dtype)
-        cache["v"][layer, :, offset:offset + t] = v.to(cache["v"].dtype)
+        if per_row:
+            rows = torch.arange(b, device=x.device)
+            cache["k"][layer, rows, offset] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][layer, rows, offset] = v[:, 0].to(cache["v"].dtype)
+        else:
+            cache["k"][layer, :, offset:offset + t] = k.to(cache["k"].dtype)
+            cache["v"][layer, :, offset:offset + t] = v.to(cache["v"].dtype)
+        k_all, v_all = cache["k"][layer], cache["v"][layer]
     # attend against the whole cache slice: kv_offset makes the query
     # positions absolute, and the causal mask hides both future tokens and
     # never-written slots past offset + t
     att = attn_ops.causal_attention(
-        q, cache["k"][layer], cache["v"][layer], kv_offset=offset,
+        q, k_all, v_all, kv_offset=offset,
         window=cfg.attention_window, logit_softcap=cfg.attn_logit_softcap,
     ).reshape(b, t, nh * hd)
     x = x + L.dense(att, blk["wo"], blk.get("bo"))

@@ -19,7 +19,21 @@ Modes:
                       canned prompts through 2 slots (forces queueing),
                       greedy outputs checked token-identical to solo
                       generate() and the shape counts bounded by the
-                      bucket ladder: --selftest
+                      bucket ladder: --selftest (with --metrics-port, its
+                      own /metrics and /healthz scraped and parsed)
+  spec self-test      speculative decoding token-identical to solo
+                      generate() with an identical draft (accept rate 1)
+                      and a 1-layer draft with chunks and prefix reuse,
+                      one verify shape: --selftest-spec
+  quant self-test     int8 (and fp8) KV pools with chunks, prefix reuse
+                      and speculation against the fp32 pool: common greedy
+                      prefix >= 0.9, equal shape counts, <= 0.27x the pool
+                      bytes, power-of-two scales: --selftest-quant
+
+Speculative decoding: ``--draft-config self|self:N|k=v,...`` with
+``--spec-k K``; the KV pool's storage: ``--kv-dtype fp32|int8|fp8``;
+``--metrics-port P`` serves the process registry on ``/metrics`` and
+``/healthz`` (0 binds an ephemeral port, printed at start).
 
 The weights (REPL and batch) come from the snapshot the port's trainer
 wrote at ``trainer_config.snapshot_path`` (``training/checkpoint.py``
@@ -30,6 +44,8 @@ or bpe), as in training; ``section.key=value`` overrides as in ``train.py``.
 
 Usage:
   python -m mingpt_distributed_tpu_torch.serve --selftest [--device cpu]
+  python -m mingpt_distributed_tpu_torch.serve --selftest-spec [--device cpu]
+  python -m mingpt_distributed_tpu_torch.serve --selftest-quant [--device cpu]
   python -m mingpt_distributed_tpu_torch.serve --prompts-file prompts.txt \\
       [--config gpt2_config.yaml] [--slots 4] [--greedy] \\
       [--prefill-chunk 256] [--prefix-cache-mb 64] [--warmup] \\
@@ -57,18 +73,18 @@ from mingpt_distributed_tpu_torch.data.token_dataset import make_dataset
 from mingpt_distributed_tpu_torch.models import convert
 from mingpt_distributed_tpu_torch.models import generate as gen
 from mingpt_distributed_tpu_torch.models import gpt
+from mingpt_distributed_tpu_torch import telemetry
 from mingpt_distributed_tpu_torch.serving import InferenceServer, Request
+from mingpt_distributed_tpu_torch.serving import quant as quant_lib
 from mingpt_distributed_tpu_torch.training import checkpoint as ckpt_lib
+from mingpt_distributed_tpu_torch.training.metrics import MetricsLogger
 from mingpt_distributed_tpu_torch.training.trainer import REQUEUE_EXIT_CODE
 from mingpt_distributed_tpu_torch.utils.device import resolve_device
 
 # the JAX serve.py's flags that the port does not run yet, each with the
-# ROADMAP.md Queue 1 item that brings it; --kv-dtype fp32 is accepted
+# ROADMAP.md Queue 1 item that brings it
 UNPORTED_FLAGS = {
-    "--metrics-port": "5",
     "--mesh": "9", "--selftest-sharded": "9",
-    "--kv-dtype": "14", "--draft-config": "14", "--spec-k": "14",
-    "--selftest-spec": "14", "--selftest-quant": "14",
     "--replicas": "15", "--isolation": "15", "--autoscale": "15",
     "--slo-target": "15", "--control-log": "15", "--shed-watermark": "15",
     "--chaos-spec": "15", "--spill-dir": "15", "--standby": "15",
@@ -131,6 +147,33 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--warmup", action="store_true",
                    help="run the prefill ladder and the decode step once "
                         "before serving")
+    p.add_argument("--kv-dtype", choices=("fp32", "int8", "fp8"), default="fp32",
+                   help="KV-cache storage dtype: int8 or fp8 payloads with "
+                        "fp32 power-of-two scale planes (~0.27x the fp32 "
+                        "pool bytes at head_dim >= 64); fp32 is the plain "
+                        "pool in the model's dtype")
+    p.add_argument("--draft-config", default=None,
+                   help="speculative decoding draft model: 'self' (the "
+                        "target's weights), 'self:N' (its first N layers) "
+                        "or comma-separated GPTConfig overrides such as "
+                        "'n_layer=2,n_embd=64' (random init); needs "
+                        "--spec-k >= 1")
+    p.add_argument("--spec-k", type=int, default=0,
+                   help="draft tokens proposed per verify round (0 = "
+                        "speculation off)")
+    p.add_argument("--metrics-port", type=int, default=None,
+                   help="serve Prometheus /metrics and /healthz on this "
+                        "port (0 = an ephemeral port, printed at start)")
+    p.add_argument("--selftest-spec", action="store_true",
+                   help="random-init small model: speculative decoding "
+                        "token-identical to solo generate() (identical and "
+                        "1-layer drafts, chunked prefill, prefix reuse), "
+                        "one verify shape; exits non-zero on a mismatch")
+    p.add_argument("--selftest-quant", action="store_true",
+                   help="int8 and fp8 KV pools against the fp32 pool with "
+                        "chunks, prefix reuse and speculation: greedy "
+                        "prefix >= 0.9, equal shape counts, pool bytes <= "
+                        "0.27x, power-of-two scales; then exits")
     for flag in UNPORTED_FLAGS:
         p.add_argument(flag, nargs="?", const=True, default=None,
                        help=argparse.SUPPRESS)
@@ -145,7 +188,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     args = p.parse_args(argv)
     for flag, item in UNPORTED_FLAGS.items():
         value = getattr(args, flag[2:].replace("-", "_"))
-        if value is None or (flag == "--kv-dtype" and value == "fp32"):
+        if value is None:
             continue
         p.error(f"{flag} is not ported yet (ROADMAP.md Queue 1 item {item})")
     return args
@@ -162,10 +205,115 @@ def _parse_buckets(spec):
 
 
 def _server_kwargs(args) -> dict:
-    """The prefill knobs, shared by every server construction."""
+    """The prefill knobs and the KV dtype, shared by every server
+    construction."""
     return dict(prefill_buckets=_parse_buckets(args.prefill_buckets),
                 prefill_chunk=args.prefill_chunk,
-                prefix_cache_mb=args.prefix_cache_mb, warmup=args.warmup)
+                prefix_cache_mb=args.prefix_cache_mb, warmup=args.warmup,
+                kv_dtype=args.kv_dtype)
+
+
+def first_layers(params, n: int):
+    """The first ``n`` layers of a parameter tree (blocks are stacked on a
+    leading layer axis), sharing the embeddings and the head."""
+    out = dict(params)
+    out["blocks"] = {k: v[:n] for k, v in params["blocks"].items()}
+    return out
+
+
+def draft_from(spec: str, params, cfg: GPTConfig, dev):
+    """``--draft-config`` -> (draft params, draft config): 'self' shares
+    the target's weights (accept rate 1.0), 'self:N' takes its first N
+    layers, 'k=v,...' a random-init config off the target's dims."""
+    if spec == "self":
+        return params, cfg
+    if spec.startswith("self:"):
+        try:
+            n = int(spec.split(":", 1)[1])
+        except ValueError:
+            raise SystemExit(f"--draft-config self:N needs an int, got {spec!r}")
+        if not 1 <= n <= cfg.n_layer:
+            raise SystemExit(f"--draft-config {spec!r}: N outside [1, {cfg.n_layer}]")
+        return first_layers(params, n), dataclasses.replace(cfg, n_layer=n)
+    overrides = {}
+    for clause in spec.split(","):
+        k, sep, v = clause.partition("=")
+        if not sep or not k.strip():
+            raise SystemExit(f"--draft-config clause {clause!r} is not k=v "
+                             f"(or 'self' / 'self:N')")
+        for cast in (int, float, str.strip):
+            try:
+                overrides[k.strip()] = cast(v)
+                break
+            except ValueError:
+                continue
+    try:
+        dcfg = dataclasses.replace(cfg, **overrides).resolved()
+        dcfg.validate()
+    except Exception as e:
+        raise SystemExit(f"--draft-config {spec!r}: {e}")
+    import torch
+
+    return gpt.init(dcfg, torch.Generator().manual_seed(1), device=dev), dcfg
+
+
+def _spec_kwargs(args, params, cfg, dev) -> dict:
+    """Speculative-decoding kwargs for InferenceServer (empty = off);
+    --draft-config and --spec-k go together."""
+    if args.spec_k <= 0 and args.draft_config is None:
+        return {}
+    if args.spec_k <= 0 or args.draft_config is None:
+        raise SystemExit("--draft-config and --spec-k (>= 1) must be given together")
+    dparams, dcfg = draft_from(args.draft_config, params, cfg, dev)
+    return dict(draft_params=dparams, draft_cfg=dcfg, spec_k=args.spec_k)
+
+
+def _start_telemetry(args, reg):
+    """With --metrics-port, a TelemetryServer over ``reg`` (its /metrics and
+    /healthz); else None."""
+    if args.metrics_port is None:
+        return None
+    tserver = telemetry.TelemetryServer(reg, port=args.metrics_port)
+    print(f"[serve] telemetry: /metrics and /healthz on {tserver.url('')}",
+          file=sys.stderr)
+    return tserver
+
+
+def _selftest_scrape(tserver) -> int:
+    """Scrape our own /healthz and /metrics over HTTP and hold the page to
+    the strict exposition parser: the serving latency histograms, the
+    utilisation and prefix gauges and the trainer's gauge families."""
+    import urllib.request
+
+    rc = 0
+    with urllib.request.urlopen(tserver.url("/healthz"), timeout=10) as resp:
+        health = json.loads(resp.read().decode())
+    if health.get("status") != "ok":
+        print(f"selftest FAIL: /healthz says {health}")
+        rc = 1
+    with urllib.request.urlopen(tserver.url("/metrics"), timeout=10) as resp:
+        text = resp.read().decode()
+    try:
+        parsed = telemetry.parse_prometheus(text)
+    except ValueError as e:
+        print(f"selftest FAIL: /metrics is not valid exposition text: {e}")
+        return 1
+    required = {
+        "mingpt_serve_ttft_seconds": "histogram",
+        "mingpt_serve_itl_seconds": "histogram",
+        "mingpt_serve_slot_utilization": "gauge",
+        "mingpt_serve_prefix_hit_rate": "gauge",
+        "mingpt_serve_kv_dtype": "gauge",
+        "mingpt_train_loss": "gauge",
+        "mingpt_train_mfu": "gauge",
+    }
+    for name, kind in required.items():
+        got = parsed["types"].get(name)
+        if got != kind:
+            print(f"selftest FAIL: /metrics lacks {kind} {name} (got {got})")
+            rc = 1
+    print(f"selftest scrape: {len(parsed['samples'])} samples")
+    return rc
 
 
 def _request_for(args, tokens, eos_id=None) -> Request:
@@ -222,8 +370,13 @@ def selftest(args) -> int:
         canned += SELFTEST_SHARED
     prompts = [[ord(c) % cfg.vocab_size for c in s] for s in canned]
     max_new = 12
+    # one registry for the page: the serving instruments and the trainer's
+    # gauge families (a silent MetricsLogger registers mingpt_train_*)
+    reg = telemetry.MetricsRegistry()
+    tserver = _start_telemetry(args, reg)
+    MetricsLogger(cfg, enabled=False, registry=reg)
     server = InferenceServer(params, cfg, n_slots=2, log_every=args.log_every,
-                             device=dev, **_server_kwargs(args))
+                             registry=reg, device=dev, **_server_kwargs(args))
     handles = server.generate_batch(
         [Request(prompt=p, max_new_tokens=max_new) for p in prompts])
 
@@ -244,6 +397,9 @@ def selftest(args) -> int:
     if args.prefix_cache_mb > 0 and server.metrics.prefix_hits < 1:
         print("selftest FAIL: prefix store enabled but no hit recorded")
         rc = 1
+    if tserver is not None:
+        rc |= _selftest_scrape(tserver)
+        tserver.close()
     summary = server.summary()
     print("selftest shapes:", json.dumps(counts))
     print("selftest metrics:", json.dumps(summary))
@@ -254,6 +410,296 @@ def selftest(args) -> int:
         rc = 1
     print("selftest", "PASSED" if rc == 0 else "FAILED")
     return int(rc)
+
+
+SPEC_CANNED = SELFTEST_PROMPTS + SELFTEST_SHARED
+
+
+def _selftest_variant(tag, run) -> int:
+    """Run one variant of a self-test; an exception fails it (printed)."""
+    try:
+        return run()
+    except Exception as e:  # a planted or real fault must fail, not crash
+        print(f"{tag} FAIL: {type(e).__name__}: {e}")
+        return 1
+
+
+def selftest_spec(args) -> int:
+    """Speculative decoding must be token-identical to solo greedy
+    generate(), with one verify shape for the server's lifetime. Two
+    variants: an identical draft (every proposal accepted: accept rate
+    exactly 1.0, k+1 tokens per verify, the backfill row), and the
+    target's first layer as draft with 6-token chunks, a multi-bucket
+    ladder and a prefix-store hit (real rejections roll back on both
+    engines)."""
+    import torch
+
+    dev = resolve_device(args.device)
+    cfg = GPTConfig.make(
+        n_layer=2, n_head=2, n_embd=32, vocab_size=96, block_size=48,
+        embd_pdrop=0.0, resid_pdrop=0.0, attn_pdrop=0.0, dtype="float32")
+    params = gpt.init(cfg, torch.Generator().manual_seed(0), device=dev)
+    k = args.spec_k if args.spec_k > 0 else 3
+    max_new = 12
+
+    def check_parity(tag, canned, prompts, handles) -> int:
+        bad = 0
+        for text, p, h in zip(canned, prompts, handles):
+            want = gen.generate(params, cfg, [p], max_new,
+                                device=dev)[0, len(p):].tolist()
+            ok = h.tokens == want
+            print(f"selftest-spec [{tag}] {h.request_id} ({text!r}): "
+                  + ("OK" if ok else f"MISMATCH spec={h.tokens} solo={want}"))
+            bad |= not ok
+        return int(bad)
+
+    def identical() -> int:
+        canned = SELFTEST_PROMPTS
+        prompts = [[ord(c) % cfg.vocab_size for c in s] for s in canned]
+        srv = InferenceServer(params, cfg, n_slots=2, warmup=True, device=dev,
+                              kv_dtype=args.kv_dtype, draft_params=params,
+                              draft_cfg=cfg, spec_k=k)
+        handles = srv.generate_batch(
+            [Request(prompt=p, max_new_tokens=max_new) for p in prompts])
+        rc = check_parity("self", canned, prompts, handles)
+        m = srv.metrics
+        if m.spec_accept_rate != 1.0:
+            print(f"selftest-spec FAIL: identical draft accept rate "
+                  f"{m.spec_accept_rate} != 1.0")
+            rc = 1
+        if m.spec_tokens_per_verify_mean != k + 1:
+            print(f"selftest-spec FAIL: identical draft emitted "
+                  f"{m.spec_tokens_per_verify_mean} tokens/verify, want {k + 1}")
+            rc = 1
+        counts = srv.compile_counts()
+        if counts["verify"] != 1 or counts["draft_decode"] != 1:
+            print(f"selftest-spec FAIL: unbounded speculation shapes: {counts}")
+            rc = 1
+        print(f"selftest-spec [self] accept {m.spec_accepted}/{m.spec_proposed}, "
+              f"tokens/verify {m.spec_tokens_per_verify_mean:.3g}, counts {counts}")
+        return rc
+
+    def truncated() -> int:
+        canned = SPEC_CANNED
+        prompts = [[ord(c) % cfg.vocab_size for c in s] for s in canned]
+        srv = InferenceServer(
+            params, cfg, n_slots=2, warmup=True, device=dev,
+            kv_dtype=args.kv_dtype, prefill_chunk=6,
+            prefill_buckets=(4, 6, 8, 16, 32, 48), prefix_cache_mb=4.0,
+            draft_params=first_layers(params, 1),
+            draft_cfg=dataclasses.replace(cfg, n_layer=1), spec_k=k)
+        handles = srv.generate_batch(
+            [Request(prompt=p, max_new_tokens=max_new) for p in prompts])
+        rc = check_parity("self:1+chunk+prefix", canned, prompts, handles)
+        m, counts = srv.metrics, srv.compile_counts()
+        ladder = len(srv.engine.buckets)
+        if counts["verify"] != 1:
+            print(f"selftest-spec FAIL: verify family grew: {counts}")
+            rc = 1
+        if counts["prefill"] > ladder or counts["draft_prefill"] > ladder:
+            print(f"selftest-spec FAIL: prefill families exceed the "
+                  f"{ladder}-bucket ladder: {counts}")
+            rc = 1
+        if m.prefix_hits < 1:
+            print("selftest-spec FAIL: prefix store enabled but no hit")
+            rc = 1
+        if m.spec_rounds < 1:
+            print("selftest-spec FAIL: no verify rounds ran")
+            rc = 1
+        print(f"selftest-spec [self:1+chunk+prefix] accept "
+              f"{m.spec_accepted}/{m.spec_proposed}, prefix_hits "
+              f"{m.prefix_hits}, counts {counts}")
+        print("selftest-spec metrics:", json.dumps(srv.summary()))
+        return rc
+
+    rc = _selftest_variant("selftest-spec [self]", identical)
+    rc |= _selftest_variant("selftest-spec [self:1+chunk+prefix]", truncated)
+    print("selftest-spec", "PASSED" if rc == 0 else "FAILED")
+    return rc
+
+
+def common_prefix(a, b) -> int:
+    """Length of the common prefix of two token lists."""
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+# a quantized pool's greedy stream may leave the fp32 stream only at a
+# near-tie: where the fp32 top-2 logit gap is at most QUANT_TIE_X times the
+# KV round trip's own logit error at that context
+QUANT_TIE_X = 3.0
+
+
+def quant_divergences(params, cfg, prompts, ref, got, q):
+    """Each request's first divergence between the fp32 pool's greedy tokens
+    ``ref`` and a quantized pool's ``got``: its step, the fp32 top-2 logit
+    gap there (a solo fp32 forward of the prompt and the common tokens),
+    the KV round trip's logit error at that context
+    (``quant.max_abs_logit_error``) and whether the gap is a near-tie
+    (<= QUANT_TIE_X x the error). Requests that agree to the end are
+    absent."""
+    import torch
+
+    out = []
+    dev = params["wte"].device
+    for i, (p, a, b) in enumerate(zip(prompts, ref, got)):
+        d = common_prefix(a, b)
+        if d == len(a) == len(b):
+            continue
+        ctx = list(p) + list(a[:d])
+        with torch.no_grad():
+            logits = gen._forward_cached(
+                params, torch.tensor([ctx], device=dev),
+                gen.init_cache(cfg, 1, dev), 0, cfg)[0]
+        top2 = logits.topk(2).values
+        gap = float(top2[0] - top2[1])
+        err = quant_lib.max_abs_logit_error(params, cfg, ctx, q)
+        out.append({"request": i, "step": d, "fp32": a[d] if d < len(a) else None,
+                    "quant": b[d] if d < len(b) else None, "top2_gap": gap,
+                    "logit_err": err, "tie": gap <= QUANT_TIE_X * err})
+    return out
+
+
+def pool_bytes(cache) -> int:
+    return sum(int(a.nbytes) for a in cache.values())
+
+
+def pow2_or_zero(scales) -> bool:
+    """Whether every scale of the planes is an exact power of two or 0."""
+    import torch
+
+    return all(bool(((torch.frexp(s).mantissa == 0.5) | (s == 0)).all())
+               for s in scales.values())
+
+
+def selftest_quant(args) -> int:
+    """An int8 (and, where torch has float8_e4m3fn, an fp8) KV pool with
+    chunked prefill, the prefix store and speculation composed must track
+    the fp32 server within tolerance at ~0.27x the pool bytes.
+
+    The scale planes cost 4 bytes per (row, kv head) against head_dim
+    payload bytes, so the 0.27 ratio needs head_dim >= 64: this runs
+    n_embd=256, n_head=4. Checks: each request's greedy tokens equal the
+    fp32 server's, or leave them only at a near-tie
+    (``quant_divergences``: the JAX package's gate, a common prefix of
+    >= 0.9 of the tokens, is printed beside it, but at random init it
+    rides on where the near-ties fall); compile_counts() equal for every
+    dtype; payload +
+    scale bytes <= 0.27x the fp32 pool's, the scale planes exactly
+    ``quant.scale_bytes``; every stored scale a power of two (or 0) and a
+    dequantize/quantize round trip of the int8 pool bit-identical; the
+    ``mingpt_serve_kv_dtype`` gauge and a sampled
+    ``mingpt_serve_quant_logit_err_max``."""
+    import torch
+
+    dev = resolve_device(args.device)
+    cfg = GPTConfig.make(
+        n_layer=2, n_head=4, n_embd=256, vocab_size=96, block_size=48,
+        embd_pdrop=0.0, resid_pdrop=0.0, attn_pdrop=0.0, dtype="float32")
+    params = gpt.init(cfg, torch.Generator().manual_seed(0), device=dev)
+    prompts = [[ord(c) % cfg.vocab_size for c in s] for s in SPEC_CANNED]
+    max_new = 12
+
+    def run_once(kv_dtype):
+        reg = telemetry.MetricsRegistry()
+        srv = InferenceServer(
+            params, cfg, n_slots=2, registry=reg, device=dev,
+            prefill_buckets=(8, 48), prefill_chunk=6, prefix_cache_mb=0.5,
+            warmup=True, draft_params=params, draft_cfg=cfg, spec_k=2,
+            kv_dtype=kv_dtype)
+        handles = srv.generate_batch(
+            [Request(prompt=p, max_new_tokens=max_new) for p in prompts])
+        return srv, reg, [h.tokens for h in handles]
+
+    srv32, _, toks32 = run_once("fp32")
+    c32, bytes32 = srv32.compile_counts(), pool_bytes(srv32.engine.pool.cache)
+    dtypes = ["int8"] + (["fp8"] if quant_lib.fp8_dtype() is not None else [])
+
+    def check(kv_dtype) -> int:
+        srv, reg, toks = run_once(kv_dtype)
+        rc = 0
+        q = quant_lib.resolve_kv_dtype(kv_dtype)
+        div = {d["request"]: d for d in quant_divergences(
+            params, cfg, prompts, toks32, toks, q)}
+        for i, (text, a, b) in enumerate(zip(SPEC_CANNED, toks32, toks)):
+            d = div.get(i)
+            print(f"selftest-quant [{kv_dtype}] ({text!r}): " + (
+                "OK" if d is None else
+                f"prefix {d['step']}/{len(a)} at a top-2 gap of "
+                f"{d['top2_gap']:.3g} (logit error {d['logit_err']:.3g}: "
+                f"{'a near-tie' if d['tie'] else 'NOT a near-tie'}) "
+                f"fp32={a} {kv_dtype}={b}"))
+        agree = sum(common_prefix(a, b) for a, b in zip(toks32, toks))
+        total = sum(len(a) for a in toks32)
+        if not all(d["tie"] for d in div.values()):
+            print(f"selftest-quant FAIL: {kv_dtype} tokens leave the fp32 "
+                  f"stream where the fp32 top-2 gap exceeds {QUANT_TIE_X} x "
+                  f"the quantization's logit error")
+            rc = 1
+        print(f"selftest-quant [{kv_dtype}] common greedy prefix {agree}/{total}")
+        counts = srv.compile_counts()
+        if counts != c32:
+            print(f"selftest-quant FAIL: compile_counts diverge by dtype: "
+                  f"fp32={c32} {kv_dtype}={counts}")
+            rc = 1
+        if srv.metrics.prefix_hits < 1 or srv.metrics.spec_rounds < 1:
+            print(f"selftest-quant FAIL: {kv_dtype} prefix hits "
+                  f"{srv.metrics.prefix_hits}, spec rounds "
+                  f"{srv.metrics.spec_rounds} (want >= 1 each)")
+            rc = 1
+        pool = srv.engine.pool.cache
+        data, scales = quant_lib.split_scales(pool)
+        qbytes, sbytes = pool_bytes(pool), pool_bytes(scales)
+        ratio = qbytes / bytes32
+        if sbytes != quant_lib.scale_bytes(cfg, 2) or sbytes <= 0:
+            print(f"selftest-quant FAIL: {kv_dtype} scale planes hold {sbytes} "
+                  f"bytes, want {quant_lib.scale_bytes(cfg, 2)}")
+            rc = 1
+        if ratio > 0.27:
+            print(f"selftest-quant FAIL: {kv_dtype} pool bytes ratio {ratio:.4f} > 0.27")
+            rc = 1
+        if not pow2_or_zero(scales):
+            print(f"selftest-quant FAIL: a {kv_dtype} scale is not a power of two")
+            rc = 1
+        if kv_dtype == "int8":
+            rt = quant_lib.quantize_lane(quant_lib.dequantize_lane(pool), q)
+            if any(not torch.equal(rt[n], pool[n]) for n in pool):
+                print("selftest-quant FAIL: the int8 pool's round trip is not "
+                      "bit-identical")
+                rc = 1
+        err = quant_lib.max_abs_logit_error(params, cfg, prompts[0], q)
+        srv.observe_quant_logit_error(err)
+        if not (0.0 < err < 0.5):
+            print(f"selftest-quant FAIL: {kv_dtype} max |dlogit| {err} out of range")
+            rc = 1
+        page = telemetry.parse_prometheus(telemetry.render_prometheus(reg))
+        vals = {(n, tuple(sorted(lb.items()))): v for n, lb, v in page["samples"]}
+        if vals.get(("mingpt_serve_kv_dtype", (("kv_dtype", kv_dtype),))) != 1.0:
+            print(f"selftest-quant FAIL: mingpt_serve_kv_dtype{{kv_dtype={kv_dtype}}} "
+                  "!= 1 in the scrape")
+            rc = 1
+        gerr = vals.get(("mingpt_serve_quant_logit_err_max", ()))
+        if gerr is None or abs(gerr - err) > 1e-12:
+            print(f"selftest-quant FAIL: quant err gauge {gerr} != sampled {err}")
+            rc = 1
+        print(f"selftest-quant [{kv_dtype}] bytes: payload+scales={qbytes} "
+              f"(scales {sbytes}) fp32={bytes32} ratio={ratio:.4f} "
+              f"err={err:.6f} counts={counts}")
+        return rc
+
+    rc = 0
+    for kv_dtype in dtypes:
+        rc |= _selftest_variant(f"selftest-quant [{kv_dtype}]",
+                                lambda: check(kv_dtype))
+    if "fp8" not in dtypes:
+        print("selftest-quant: this torch has no float8_e4m3fn; fp8 skipped "
+              "(--kv-dtype fp8 raises here)")
+    print("selftest-quant", "PASSED" if rc == 0 else "FAILED")
+    return rc
 
 
 def _load_params(args, gpt_cfg, exp, dev):
@@ -274,6 +720,10 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     if args.selftest:
         return selftest(args)
+    if args.selftest_spec:
+        return selftest_spec(args)
+    if args.selftest_quant:
+        return selftest_quant(args)
 
     dev = resolve_device(args.device)
     exp = load_config(args.config, args.overrides)
@@ -316,18 +766,26 @@ def _serve(args, dataset, gpt_cfg, params, dev, eos_id, guard) -> int:
         printed[handle.request_id] = text
         sys.stdout.flush()
 
+    # the process registry is served with --metrics-port; without it each
+    # server keeps its own
+    reg = telemetry.get_registry() if args.metrics_port is not None else None
+    tserver = _start_telemetry(args, reg)
+    spec_kw = _spec_kwargs(args, params, gpt_cfg, dev)
+
     def build_server(stream_cb) -> InferenceServer:
         return InferenceServer(
             params, gpt_cfg, n_slots=args.slots, on_token=stream_cb,
             log_every=0 if stream_cb else args.log_every,
             max_queue=args.queue_limit, default_deadline_s=args.deadline_s,
-            device=dev, **_server_kwargs(args))
+            registry=reg, device=dev, **spec_kw, **_server_kwargs(args))
 
     def shutdown(server: InferenceServer) -> int:
         """Drain in-flight work, flush the metrics; 75 after a signal."""
         server.run_until_drained()
         if args.metrics_json:
             server.metrics.write_json(args.metrics_json)
+        if tserver is not None:
+            tserver.close()
         if guard.stop_requested:
             print(f"[serve] drained after signal; exiting "
                   f"{REQUEUE_EXIT_CODE} (requeue)", file=sys.stderr)

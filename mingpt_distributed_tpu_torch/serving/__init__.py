@@ -16,12 +16,19 @@ card:
   slots at decode-step boundaries (prefix hit → chunked prefill
   interleaved with decode → first token), retirement on per-request stop
   conditions, token streaming via callbacks and request handles.
+* ``SpeculativeDecoder`` (speculative.py) — a draft model's engine with
+  a mirrored slot pool proposes k tokens per greedy lane, the target
+  verifies them in one forward per slot and the round emits the matching
+  prefix plus the target's bonus token.
+* ``quant`` (quant.py) — int8/fp8 KV payloads with power-of-two fp32 scale
+  planes (``kv_dtype``).
 * ``ServingMetrics`` (metrics.py) — tokens/s, queue depth, slot
-  utilisation, TTFT and inter-token latency on the telemetry registry.
+  utilisation, TTFT, inter-token latency and speculation on the telemetry
+  registry.
 
-``serve.py`` drives it (REPL, offline batch, ``--selftest``). Speculative
-decoding and the quantized pool (ROADMAP.md Queue 1 item 14), the fleet
-(item 15) and tensor parallelism (item 9) are not ported yet.
+``serve.py`` drives it (REPL, offline batch, ``--selftest``,
+``--selftest-spec``, ``--selftest-quant``). The fleet (ROADMAP.md Queue 1
+item 15) and tensor parallelism (item 9) are not ported yet.
 """
 
 from mingpt_distributed_tpu_torch.serving import quant  # noqa: F401
@@ -42,4 +49,8 @@ from mingpt_distributed_tpu_torch.serving.requests import (  # noqa: F401
 from mingpt_distributed_tpu_torch.serving.scheduler import (  # noqa: F401
     InferenceServer,
     SlotTable,
+)
+from mingpt_distributed_tpu_torch.serving.speculative import (  # noqa: F401
+    DraftEngine,
+    SpeculativeDecoder,
 )

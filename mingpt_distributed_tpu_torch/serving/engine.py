@@ -25,6 +25,19 @@ chain solo ``generate()`` runs, with the einsum ``causal_attention``):
 3. **prefix extract / install** (only when the prefix store is on) — row
    copies between a slot lane and a shared-prefix entry.
 
+4. **verify** (speculative decoding, serving/speculative.py) — the
+   prefill-at-offset forward over a fixed ``k + 1``-row chunk with the
+   logits read at every row, each through the slot's own sampler.
+
+A quantized pool (``kv_dtype`` int8 or fp8, serving/quant.py) keeps the
+same calls and shapes. The JAX engine dequantizes the whole slot lane
+before every prefill, decode and verify forward and requantizes the whole
+lane after it; here each layer attends its dequantized rows and only the
+rows the call writes are quantized into the pool
+(``quant.write_layer_rows``). Power-of-two scales make requantizing an
+untouched row return it bit for bit, so the int8 pool is the JAX engine's
+(``tests/test_torch_quant.py``) without two whole-lane passes per call.
+
 Padding correctness: the *stale-row invariant*. A cache row only becomes
 visible to attention once a query position reaches it, and every writer
 (prefill chunk or decode step) writes real K/V to a row *before* the first
@@ -50,10 +63,10 @@ copies: the row count), the JAX engine's contract of one decode program and
 at most ``len(ladder)`` prefill programs, which is what a later CUDA-graph
 capture of these calls needs.
 
-Tensor-parallel serving (``mesh``) is ROADMAP.md Queue 1 item 9, the
-quantized pool (``kv_dtype`` int8/fp8) item 14, attribution and the audit
-contracts (``register_attrib``, ``audit_contracts``) item 16, and live
-migration between replicas item 15.
+Tensor-parallel serving (``mesh``) is ROADMAP.md Queue 1 item 9,
+attribution and the audit contracts (``register_attrib``,
+``audit_contracts``) item 16, and live migration between replicas
+(extracting and installing a slot's rows) item 15.
 """
 
 from __future__ import annotations
@@ -187,8 +200,8 @@ class DecodeEngine:
             raise ValueError(f"params live on {params['wte'].device}, the "
                              f"engine was asked for {self.device}")
         self.cfg = cfg
-        quant_lib.resolve_kv_dtype(kv_dtype)  # raises for int8/fp8
-        self.kv_dtype = "fp32"
+        self.kv_quant = quant_lib.resolve_kv_dtype(kv_dtype)
+        self.kv_dtype = "fp32" if self.kv_quant is None else self.kv_quant.name
         self.params = params
         self.prefill_len = int(prefill_len or cfg.block_size)
         if not (1 <= self.prefill_len <= cfg.block_size):
@@ -204,12 +217,15 @@ class DecodeEngine:
         self.prefill_chunk = prefill_chunk
         self.buckets = bucket_ladder(
             self.prefill_len, prefill_buckets, prefill_chunk)
-        self.pool = SlotKVPool(cfg, n_slots, device=self.device)
+        self.pool = SlotKVPool(cfg, n_slots, device=self.device,
+                               quant=self.kv_quant)
         self.prefix_store = (
             PrefixKVStore(int(prefix_cache_mb * (1 << 20)))
             if prefix_cache_mb > 0 else None)
-        # distinct input shapes per family (the JAX engine's trace counts)
+        # distinct input shapes per family (the JAX engine's trace counts);
+        # verify's rows are speculation's family (SpeculativeDecoder)
         self._shapes: Dict[str, Set[int]] = {f: set() for f in FAMILIES}
+        self.verify_shapes: Set[int] = set()
 
     @property
     def n_slots(self) -> int:
@@ -274,6 +290,40 @@ class DecodeEngine:
             [do_sample], [generator])
         self._shapes["prefill"].add(bucket)
         return int(tok[0]), bucket
+
+    @torch.no_grad()
+    def verify_call(
+        self,
+        slot: int,
+        row_tokens: Sequence[int],
+        offset: int,
+        temperature: float,
+        top_k: Optional[int],
+        top_p: Optional[float],
+    ) -> np.ndarray:
+        """Forward ``row_tokens`` into ``slot`` at absolute positions
+        ``offset ..`` and return the next token chosen at EVERY row by
+        ``_select_next_slots`` with the slot's own greedy parameters (the
+        plain decode step's selector, so ties break alike). All rows are
+        written; the ones a caller rejects go stale."""
+        rows = len(row_tokens)
+        if offset + rows > self.cfg.block_size:
+            raise ValueError(
+                f"{rows} verify rows at offset {offset} overrun the "
+                f"{self.cfg.block_size} cache window")
+        dev = self.device
+        tokens = torch.as_tensor(np.asarray(row_tokens, np.int64)).to(dev)[None]
+        x = gen._forward_cached_hidden(self.params, tokens, self._lane(slot),
+                                       offset, self.cfg)
+        logits = gen._head_logits(self.params, x, self.cfg)[0]  # (rows, V)
+        nxt = _select_next_slots(
+            logits, torch.full((rows,), temperature, dtype=torch.float32, device=dev),
+            torch.full((rows,), top_k or 0, device=dev),
+            torch.full((rows,), 1.0 if top_p is None else top_p,
+                       dtype=torch.float32, device=dev),
+            [False] * rows, [None] * rows)
+        self.verify_shapes.add(rows)
+        return nxt.cpu().numpy()
 
     # -- shared-prefix KV reuse ----------------------------------------
     def quantized_prefix_len(self, prompt_len: int) -> int:

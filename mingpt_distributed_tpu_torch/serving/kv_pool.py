@@ -9,17 +9,20 @@ to the free list. Stale K/V from a previous tenant never leaks into
 attention, because masking is positional and every writer fills a row with
 real data before the first query that could see it (the stale-row
 invariant, serving/engine.py). The buffers never change shape: the engine
-writes into them in place. The quantized pool (int8/fp8 payloads with
-scale planes) is ROADMAP.md Queue 1 item 14.
+writes into them in place. A quantized pool (``quant``: int8 or fp8)
+holds four leaves, the payloads ``k``/``v`` and their fp32 scale planes
+``k_scale``/``v_scale`` shaped like the data with ``head_dim -> 1``
+(serving/quant.py).
 
 Allocation is deterministic (lowest free index first), so a given arrival
 order always produces the same slot placement.
 
 ``PrefixKVStore`` is the byte-bounded LRU behind shared-prefix reuse (the
 system-prompt case): entries are device-resident ``(L, 1, P, KV, hd)`` K/V
-row blocks keyed by the exact token tuple they encode, with P on the
-engine's bucket ladder. A request whose prompt extends a stored entry
-copies its rows instead of recomputing them and prefills only the tail.
+row blocks keyed by the exact token tuple they encode (with the scale
+planes on a quantized pool), with P on the engine's bucket ladder. A
+request whose prompt extends a stored entry copies its rows instead of
+recomputing them and prefills only the tail.
 """
 
 from __future__ import annotations
@@ -31,21 +34,27 @@ import torch
 
 from mingpt_distributed_tpu_torch.config import GPTConfig
 from mingpt_distributed_tpu_torch.models.generate import Cache, init_cache
+from mingpt_distributed_tpu_torch.serving import quant as quant_lib
 from mingpt_distributed_tpu_torch.utils.device import Device, resolve_device
 
 
 class SlotKVPool:
     """Fixed-slot KV cache + host-side free list. The device tensors live in
-    ``.cache`` (``{"k", "v"}``) and are written in place by the engine."""
+    ``.cache`` (``{"k", "v"}``, plus ``{"k_scale", "v_scale"}`` with a
+    ``quant`` descriptor) and are written in place by the engine."""
 
     def __init__(self, cfg: GPTConfig, n_slots: int,
                  dtype: Optional[torch.dtype] = None,
-                 device: Optional[Device] = None):
+                 device: Optional[Device] = None,
+                 quant: Optional[quant_lib.KVQuant] = None):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         self.cfg = cfg
         self.n_slots = n_slots
-        self.cache: Cache = init_cache(cfg, n_slots, resolve_device(device), dtype)
+        self.quant = quant
+        dev = resolve_device(device)
+        self.cache: Cache = (init_cache(cfg, n_slots, dev, dtype) if quant is None
+                             else quant_lib.init_quant_cache(cfg, n_slots, quant, dev))
         self._free: List[int] = list(range(n_slots))  # kept sorted
 
     @property
@@ -82,8 +91,10 @@ class PrefixKVStore:
 
     Keys are exact token tuples (the prefix the rows encode, so a hit can
     never alias two different prefixes); values are lane dicts
-    (``{"k", "v"}``) of shape (L, 1, P, KV, hd) with P = len(key).
-    ``capacity_bytes`` bounds the sum of entry sizes; inserting past it
+    (``{"k", "v"}``, plus the ``{"k_scale", "v_scale"}`` planes of a
+    quantized pool) of shape (L, 1, P, KV, hd) with P = len(key).
+    ``capacity_bytes`` bounds the sum of every leaf's bytes (a quantized
+    store fits ~4x the prefixes of an fp32 one); inserting past it
     evicts least-recently-used entries first. An entry larger than the
     whole budget is refused rather than thrashing the store empty.
     """

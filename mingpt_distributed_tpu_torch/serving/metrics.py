@@ -11,8 +11,12 @@ over log windows with ``RateWindow``. Read-only attributes
 (``metrics.requests_completed``, ``metrics.bucket_histogram``, ...) view
 the instruments; ``summary()``/``write_json()`` give the JSON summary of an
 offline batch and of ``serve.py --selftest``, ``log_line()`` the periodic
-log line (every ``log_every`` scheduler steps). The speculative-decoding
-instruments come with speculation (ROADMAP.md Queue 1 item 14).
+log line (every ``log_every`` scheduler steps). Speculative decoding adds
+its rounds, proposed and accepted draft tokens, the tokens-per-verify
+histogram, the accept rate and the draft primes by path
+(``mingpt_serve_spec_*``); ``kv_dtype_gauges`` registers the KV storage
+dtype as a build-info gauge and, on a quantized pool, the sampled
+quantization error gauge.
 """
 
 from __future__ import annotations
@@ -126,6 +130,36 @@ class ServingMetrics:
             help="wall time of one padded prefill call",
             buckets=LATENCY_BUCKETS_S,
         )
+        # speculative decoding (serving/speculative.py): proposal volume,
+        # acceptance and the emitted-tokens-per-verify distribution, what
+        # speculation bought per target forward (1 = draft useless, k+1 =
+        # full acceptance)
+        self._spec_rounds = r.counter(
+            "mingpt_serve_spec_rounds_total",
+            help="verify rounds executed (one batched target forward each)")
+        self._spec_proposed = r.counter(
+            "mingpt_serve_spec_proposed_total",
+            help="draft tokens proposed across verify rounds")
+        self._spec_accepted = r.counter(
+            "mingpt_serve_spec_accepted_total",
+            help="draft tokens accepted (matched the target's greedy "
+                 "choice)")
+        self._spec_tokens_per_verify = r.histogram(
+            "mingpt_serve_spec_tokens_per_verify",
+            help="tokens emitted per verify round (accepted prefix + the "
+                 "bonus token)",
+            buckets=(1, 2, 3, 4, 6, 8, 12, 16),
+        )
+        self._spec_accept_rate = r.gauge(
+            "mingpt_serve_spec_accept_rate",
+            help="cumulative accepted/proposed draft tokens")
+        self._spec_prime = r.counter(
+            "mingpt_serve_spec_prime_total",
+            help="draft primes by path: full = paid a draft prefill, "
+                 "adopted = resumed from migrated draft rows",
+            labels=("mode",))
+        for mode in ("full", "adopted"):
+            self._spec_prime.labels(mode=mode).inc(0)
         # gauges sampled at step boundaries
         self._queue_depth = r.gauge(
             "mingpt_serve_queue_depth", help="queued requests after the "
@@ -271,6 +305,22 @@ class ServingMetrics:
     def on_tokens(self, n: int) -> None:
         self._tokens.inc(n)
 
+    def on_spec_prime(self, mode: str) -> None:
+        """One draft prime: ``mode`` is ``"full"`` (paid a prefill) or
+        ``"adopted"`` (resumed from migrated draft rows)."""
+        self._spec_prime.labels(mode=mode).inc()
+
+    def on_spec_round(self, proposed: int, emitted: int) -> None:
+        """One verify round on one slot: ``proposed`` = k draft tokens
+        offered, ``emitted`` = accepted prefix + bonus token (>= 1), so
+        accepted draft tokens = emitted - 1."""
+        self._spec_rounds.inc()
+        self._spec_proposed.inc(proposed)
+        self._spec_accepted.inc(emitted - 1)
+        self._spec_tokens_per_verify.observe(emitted)
+        if self.spec_proposed:
+            self._spec_accept_rate.set(self.spec_accepted / self.spec_proposed)
+
     def on_complete(self, n_generated: int, gen_span_s: float) -> None:
         """gen_span_s: first-token to last-token wall time."""
         self._requests.labels(outcome="completed").inc()
@@ -323,6 +373,29 @@ class ServingMetrics:
         }
 
     @property
+    def spec_rounds(self) -> int:
+        return int(self._spec_rounds.value)
+
+    @property
+    def spec_proposed(self) -> int:
+        return int(self._spec_proposed.value)
+
+    @property
+    def spec_accepted(self) -> int:
+        return int(self._spec_accepted.value)
+
+    @property
+    def spec_accept_rate(self) -> Optional[float]:
+        if not self.spec_proposed:
+            return None
+        return self.spec_accepted / self.spec_proposed
+
+    @property
+    def spec_tokens_per_verify_mean(self) -> Optional[float]:
+        h = self._spec_tokens_per_verify
+        return h.sum / h.count if h.count else None
+
+    @property
     def admission_stall_mean_s(self) -> Optional[float]:
         return self._stall.sum / self.prefills if self.prefills else None
 
@@ -371,6 +444,9 @@ class ServingMetrics:
         if self.prefix_lookups:
             parts.append(
                 f"prefix_hit {self.prefix_hits}/{self.prefix_lookups}")
+        if self.spec_rounds:
+            parts.append(
+                f"spec_accept {self.spec_accepted}/{self.spec_proposed}")
         return " | ".join(parts)
 
     def summary(self) -> Dict[str, Any]:
@@ -403,9 +479,33 @@ class ServingMetrics:
             "tokens_per_sec": self._tokens_per_sec,
             "ttft_mean_s": self.ttft_mean_s,
             "itl_mean_s": self.itl_mean_s,
+            "spec_rounds": self.spec_rounds,
+            "spec_proposed": self.spec_proposed,
+            "spec_accepted": self.spec_accepted,
+            "spec_accept_rate": self.spec_accept_rate,
+            "spec_tokens_per_verify_mean": self.spec_tokens_per_verify_mean,
         }
 
     def write_json(self, path: str) -> None:
         with open(path, "w") as f:
             json.dump(self.summary(), f, indent=2)
             f.write("\n")
+
+
+def kv_dtype_gauges(registry: MetricsRegistry, kv_dtype: str):
+    """The KV storage dtype as a build-info gauge (``mingpt_serve_kv_dtype``:
+    the child labelled with the dtype is 1) and, on a quantized pool, the
+    ``mingpt_serve_quant_logit_err_max`` gauge, which is returned (None on
+    an fp32 pool, whose page carries no quantization family)."""
+    registry.gauge(
+        "mingpt_serve_kv_dtype",
+        help="KV-cache storage dtype (build-info style: the labeled child "
+             "is 1)",
+        labels=("kv_dtype",),
+    ).labels(kv_dtype=kv_dtype).set(1)
+    if kv_dtype == "fp32":
+        return None
+    return registry.gauge(
+        "mingpt_serve_quant_logit_err_max",
+        help="max |logit delta| of a KV quantize/dequantize round trip, as "
+             "sampled by the quant selftest")

@@ -164,10 +164,13 @@ class RequestHandle:
     prefill_pos: int = 0
     prefix_rows: int = 0          # rows served from the shared-prefix store
     admit_time: Optional[float] = None
-    # request tracing and speculative decoding (ROADMAP.md Queue 1 items
-    # 16 and 14) fill these; the port's scheduler leaves them as they are
+    # request tracing (ROADMAP.md Queue 1 item 16) fills these; the port's
+    # scheduler leaves them as they are
     trace: Optional[Any] = None
     trace_owner: bool = False
+    # speculative decoding (serving/speculative.py): draft tokens this
+    # request was offered / accepted over its verify rounds (its accept
+    # rate is spec_accepted / spec_proposed)
     spec_proposed: int = 0
     spec_accepted: int = 0
 

@@ -52,12 +52,17 @@ Robustness under sustained traffic:
   request and frees its slot (``finish_reason="error"``, the exception on
   ``handle.error``) instead of leaking the slot or tearing down the loop.
 
-Not ported yet, each raising with its ROADMAP.md Queue 1 item: speculative
-decoding (``draft_params``, ``draft_cfg``, ``spec_k``) and the quantized
-pool (``kv_dtype``), item 14; request tracing (``trace_recorder``),
-attribution (``attrib``) and the recompile watchdog (``recompile_fail``),
-item 16; tensor parallelism (``mesh``), item 9; the fleet's fault hook
-(``fault_hook``), item 15.
+Speculative decoding (``draft_params``, ``draft_cfg``, ``spec_k``;
+serving/speculative.py): greedy lanes with ``k + 1`` rows of window
+headroom run propose → verify → accept-n each round while the plain step
+advances the others (the speculating lanes parked during it, since verify
+writes their rows); every emitted token is still the target's own greedy
+choice. ``kv_dtype`` int8/fp8 stores the pool quantized (serving/quant.py).
+
+Not ported yet, each raising with its ROADMAP.md Queue 1 item: request
+tracing (``trace_recorder``), attribution (``attrib``) and the recompile
+watchdog (``recompile_fail``), item 16; tensor parallelism (``mesh``),
+item 9; the fleet's fault hook (``fault_hook``), item 15.
 """
 
 from __future__ import annotations
@@ -73,12 +78,13 @@ import torch
 from mingpt_distributed_tpu_torch.config import GPTConfig
 from mingpt_distributed_tpu_torch.serving.admission import AdmissionPolicy, FifoPolicy
 from mingpt_distributed_tpu_torch.serving.engine import DecodeEngine
-from mingpt_distributed_tpu_torch.serving.metrics import ServingMetrics
+from mingpt_distributed_tpu_torch.serving.metrics import ServingMetrics, kv_dtype_gauges
 from mingpt_distributed_tpu_torch.serving.requests import (
     QueueFullError,
     Request,
     RequestHandle,
 )
+from mingpt_distributed_tpu_torch.serving.speculative import SpeculativeDecoder
 from mingpt_distributed_tpu_torch.telemetry import MetricsRegistry, SpanTracer, log_event
 from mingpt_distributed_tpu_torch.utils.device import Device
 
@@ -183,8 +189,6 @@ class InferenceServer:
         kv_dtype: Optional[str] = None,
         device: Optional[Device] = None,
     ):
-        if draft_params is not None or draft_cfg is not None or spec_k:
-            _refuse("speculative decoding (draft_params, draft_cfg, spec_k)", "14")
         if trace_recorder is not None:
             _refuse("request tracing (trace_recorder)", "16")
         if attrib:
@@ -199,18 +203,31 @@ class InferenceServer:
             prefill_buckets=prefill_buckets, prefill_chunk=prefill_chunk,
             prefix_cache_mb=prefix_cache_mb, mesh=mesh, kv_dtype=kv_dtype,
             device=device)
+        # speculative decoding: a draft model and spec_k >= 1 turn the
+        # decode round into propose → verify → accept-n; off by default,
+        # and then the round is the plain one
+        self.spec: Optional[SpeculativeDecoder] = None
+        if draft_params is not None:
+            if draft_cfg is None:
+                raise ValueError("draft_params given without draft_cfg")
+            if spec_k < 1:
+                raise ValueError(
+                    "draft model given but spec_k < 1: pass spec_k >= 1 to "
+                    "enable speculation (or drop the draft)")
+            self.spec = SpeculativeDecoder(self.engine, draft_params,
+                                           draft_cfg, spec_k)
+        elif spec_k >= 1:
+            raise ValueError("spec_k >= 1 requires draft_params/draft_cfg")
+        # round-level speculation on/off: token-exact either way (a gated
+        # round's draft rows merely go stale)
+        self.spec_enabled = True
         self.metrics = metrics or ServingMetrics(
             n_slots, log_every=log_every, registry=registry)
         # disabled by default: span() returns a shared no-op, so the
         # scheduling loop pays nothing unless telemetry is wired in
         self.tracer = tracer if tracer is not None else SpanTracer(enabled=False)
         reg = self.metrics.registry if registry is None else registry
-        reg.gauge(
-            "mingpt_serve_kv_dtype",
-            help="KV-cache storage dtype (build-info style: the labeled "
-                 "child is 1)",
-            labels=("kv_dtype",),
-        ).labels(kv_dtype=self.engine.kv_dtype).set(1)
+        self._quant_err_gauge = kv_dtype_gauges(reg, self.engine.kv_dtype)
         self.on_token = on_token
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
@@ -225,6 +242,16 @@ class InferenceServer:
         self._ids = itertools.count()
         if warmup:
             self.engine.warmup()
+            if self.spec is not None:
+                self.spec.warmup()
+
+    def observe_quant_logit_error(self, err: float) -> None:
+        """Record a sampled quantization quality number (max |Δlogit| of a
+        KV round trip, ``quant.max_abs_logit_error``) into the
+        ``mingpt_serve_quant_logit_err_max`` gauge; a no-op on an fp32
+        server."""
+        if self._quant_err_gauge is not None:
+            self._quant_err_gauge.set(float(err))
 
     # -- submission ----------------------------------------------------
     def submit(self, request: Request) -> RequestHandle:
@@ -311,6 +338,8 @@ class InferenceServer:
             handle.prefilling = False
             self.slots.release(slot)
             self.engine.pool.free(slot)
+            if self.spec is not None:
+                self.spec.release(slot)
 
     def _retire(self, handle: RequestHandle) -> None:
         handle.finished = True
@@ -359,6 +388,11 @@ class InferenceServer:
         slot = self.engine.pool.allocate()
         if slot is None:
             raise RuntimeError("admission without a free slot")
+        if self.spec is not None:
+            # the mirrored draft lane: both pools allocate the lowest free
+            # index and free together, so the indices coincide (bind
+            # raises otherwise)
+            self.spec.bind(slot)
         handle.prefilling = True
         handle.admit_time = self.clock()
         req = handle.request
@@ -407,6 +441,8 @@ class InferenceServer:
         handle.prefilling = False
         if self.engine.prefix_store is not None:
             self.engine.save_prefix(slot, prompt)
+        if self.spec is not None:
+            self.metrics.on_spec_prime(self.spec.prime(slot, prompt))
         ok = self._emit(handle, tok)
         now = self.clock()
         self.metrics.on_prefill(
@@ -451,24 +487,82 @@ class InferenceServer:
         active = self.slots.decoding_slots()
         if active:
             with self.tracer.span("serve.decode_round", lanes=len(active)):
-                st = self.slots
-                nxt = self.engine.decode_step(
-                    st.tokens, st.positions, st.temps, st.top_ks, st.top_ps,
-                    st.do_sample, st.generators)
-                for s in active:
-                    handle = st.handles[s]
-                    token = int(nxt[s])
-                    ok = self._emit(handle, token)
-                    st.tokens[s] = token
-                    st.positions[s] += 1
-                    if not ok:
-                        self._fail(handle, "error")
-                    elif self._check_stop(handle, token):
-                        self._retire(handle)
+                self._decode_round(active)
 
         occupied = self.slots.occupied
         self.metrics.on_step(len(self.queue), occupied, lanes_used=len(active))
         return bool(self.queue) or occupied > 0
+
+    def _decode_round(self, active: List[int]) -> None:
+        """Advance every decoding slot. Greedy lanes with k+1 rows of
+        window headroom speculate when a draft is configured; the rest take
+        the plain one-token step, with the speculating lanes parked (verify
+        is their row writer this round). Then each lane emits its burst."""
+        st = self.slots
+        spec_slots: List[int] = []
+        if self.spec is not None and self.spec_enabled:
+            spec_slots = [s for s in active if self.spec.eligible(
+                bool(st.do_sample[s]), int(st.positions[s]))]
+        plain = [s for s in active if s not in spec_slots]
+        burst: Dict[int, List[int]] = {}
+        if plain:
+            pos = st.positions
+            if spec_slots:
+                pos = np.where(np.isin(np.arange(st.n_slots), plain), pos, st.parked)
+            nxt = self.engine.decode_step(st.tokens, pos, st.temps, st.top_ks,
+                                          st.top_ps, st.do_sample, st.generators)
+            for s in plain:
+                burst[s] = [int(nxt[s])]
+        if spec_slots:
+            self._spec_round(spec_slots, burst)
+        for s in active:
+            handle = st.handles[s]
+            toks = burst[s]
+            if s in spec_slots:
+                handle.spec_proposed += self.spec.k
+                handle.spec_accepted += len(toks) - 1
+                self.metrics.on_spec_round(self.spec.k, len(toks))
+            for token in toks:
+                ok = self._emit(handle, token)
+                st.tokens[s] = token
+                st.positions[s] += 1
+                if not ok:
+                    self._fail(handle, "error")
+                    break
+                if self._check_stop(handle, token):
+                    self._retire(handle)
+                    break
+                # a burst is the round's granularity now: a deadline that
+                # passes mid-burst drops the burst's tail and frees both
+                # the target and the draft slot
+                if handle.deadline is not None and self.clock() >= handle.deadline:
+                    self._fail(handle, "deadline")
+                    break
+
+    def _spec_round(self, spec_slots: List[int], burst: Dict[int, List[int]]) -> None:
+        """propose (k draft steps over every speculating lane), one verify
+        per speculating slot, accept-n into ``burst``; then the draft
+        backfill of the fully accepted lanes."""
+        st, spec = self.slots, self.spec
+        smask = np.zeros(st.n_slots, bool)
+        smask[spec_slots] = True
+        proposals = spec.propose(st.tokens, st.positions, smask)
+        fill_mask = np.zeros(st.n_slots, bool)
+        fill_toks = np.zeros(st.n_slots, np.int64)
+        fill_pos = np.zeros(st.n_slots, np.int64)
+        for s in spec_slots:
+            rows = [int(st.tokens[s])] + [int(t) for t in proposals[s]]
+            g = spec.verify(s, rows, int(st.positions[s]), float(st.temps[s]),
+                            int(st.top_ks[s]), float(st.top_ps[s]))
+            n_acc = spec.accept_len(proposals[s], g)
+            burst[s] = [int(t) for t in g[:n_acc]]
+            if n_acc == spec.k + 1:
+                # full acceptance: the draft row pos+k was never written;
+                # backfill d_k there so the next propose attends a real row
+                fill_mask[s] = True
+                fill_toks[s] = int(proposals[s][-1])
+                fill_pos[s] = int(st.positions[s]) + spec.k
+        spec.backfill(fill_toks, fill_pos, fill_mask)
 
     def unfinished(self) -> List[RequestHandle]:
         """Every accepted-but-unfinished request (queued, prefilling or
@@ -494,7 +588,12 @@ class InferenceServer:
         return handles
 
     def compile_counts(self) -> Dict[str, int]:
-        return self.engine.compile_counts()
+        """The engine's shape families, plus verify and the draft's when
+        speculation is on (absent otherwise)."""
+        counts = self.engine.compile_counts()
+        if self.spec is not None:
+            counts.update(self.spec.compile_counts())
+        return counts
 
     def summary(self) -> Dict[str, Any]:
         return self.metrics.summary()

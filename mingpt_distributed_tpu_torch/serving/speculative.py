@@ -1,0 +1,248 @@
+"""Speculative decoding: a draft model proposes, the target verifies.
+
+Counterpart of ``mingpt_distributed_tpu/serving/speculative.py``. The plain
+decode round emits one token per step per slot. Speculation emits up to
+``k + 1`` per round without changing a single emitted token:
+
+* a **DraftEngine**, a ``DecodeEngine`` over the draft model's params with
+  its own ``SlotKVPool`` whose slot indices mirror the target's 1:1,
+  proposes ``k`` tokens autoregressively (k draft decode steps over every
+  speculating lane at once, queued back to back on the device and read
+  once), and
+* the target scores all ``k + 1`` positions of a slot in one forward
+  (``DecodeEngine.verify_call``: the prefill-at-offset body with a fixed
+  ``k + 1``-row chunk and logits read at every row), one call per
+  speculating slot, one input shape for the server's lifetime
+  (``compile_counts()``).
+
+Acceptance is greedy longest-matching-prefix: feeding ``[cur, d_1..d_k]``
+at positions ``pos..pos+k`` gives the target's own next-token choice
+``g_j`` at every row; proposals are accepted while ``d_{j+1} == g_j``, and
+``g_{n_acc-1}`` rides along as the bonus token, so every emitted token is
+the target's own greedy choice (token-exact with the plain path) and a
+verify emits at least one token even when the draft is useless.
+
+**Rollback is free.** Rejected rows on both engines stay where they are:
+the stale-row invariant (a row is visible only once a query position
+reaches it, and every writer fills a row before its first reader) means
+the next verify or decode at ``pos + n_acc`` rewrites them before anything
+attends that far. The only extra write is the draft **backfill** on full
+acceptance: one more draft decode step feeding ``d_k`` at ``pos + k`` so
+the draft row the next propose round attends is real.
+
+Not ported yet: moving draft rows between replicas (``pending_draft``,
+``migratable_draft_rows``, ``extract_draft_rows``, ``adopt_draft_rows``),
+ROADMAP.md Queue 1 item 15; attribution and the audit contracts
+(``register_attrib``, ``audit_contracts``), item 16.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from mingpt_distributed_tpu_torch.config import GPTConfig
+from mingpt_distributed_tpu_torch.serving.engine import DecodeEngine
+
+__all__ = ["DraftEngine", "SpeculativeDecoder"]
+
+
+def _refuse(what: str, item: str):
+    raise NotImplementedError(
+        f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
+
+
+class DraftEngine:
+    """The proposal model: a ``DecodeEngine`` over the draft params whose
+    slot pool mirrors the target's slot indices 1:1.
+
+    Mirroring works because both pools allocate the lowest free index and
+    this wrapper binds and frees in lockstep with the target; ``bind``
+    raises when the indices do not coincide, so a drifted mirror fails
+    loudly instead of attending the wrong lane. Draft state only shapes
+    proposal quality, never emitted tokens, so the draft prefill is one
+    un-chunked call with no prefix store."""
+
+    def __init__(self, params, cfg: GPTConfig, target: DecodeEngine):
+        if cfg.vocab_size != target.cfg.vocab_size:
+            raise ValueError(
+                f"draft vocab {cfg.vocab_size} != target {target.cfg.vocab_size}")
+        if cfg.block_size < target.cfg.block_size:
+            raise ValueError(
+                f"draft block_size {cfg.block_size} < target "
+                f"{target.cfg.block_size}: draft must cover the window")
+        self.engine = DecodeEngine(
+            params, cfg, target.n_slots, prefill_len=target.prefill_len,
+            prefill_buckets=target.buckets, kv_dtype=target.kv_dtype,
+            device=target.device)
+
+    def bind(self, slot: int) -> None:
+        got = self.engine.pool.allocate()
+        if got != slot:
+            if got is not None:
+                self.engine.pool.free(got)
+            raise RuntimeError(
+                f"draft/target slot mirror broken: target gave {slot}, "
+                f"draft gave {got}")
+
+    def release(self, slot: int) -> None:
+        self.engine.pool.free(slot)
+
+    def prime(self, slot: int, prompt_ids: Sequence[int]) -> None:
+        """Prefill the draft lane with the whole prompt in one call (the
+        ladder always covers prefill_len, so one bucket suffices)."""
+        self.engine.prefill_chunk_call(
+            slot, list(prompt_ids), 0, 1.0, None, None, False, None)
+
+
+class SpeculativeDecoder:
+    """propose → verify → accept-n for the scheduler's decode round.
+
+    Owns the draft engine. The scheduler calls ``bind``/``release`` in
+    lockstep with the target pool, ``prime`` at the end of a prefill, and
+    per round: ``propose`` (k draft steps), ``verify`` per speculating
+    slot, ``accept_len``, then ``backfill`` for fully accepted slots."""
+
+    def __init__(self, target: DecodeEngine, draft_params, draft_cfg: GPTConfig,
+                 k: int):
+        k = int(k)
+        if k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {k}")
+        if k + 1 > target.cfg.block_size:
+            raise ValueError(
+                f"spec_k {k} leaves no room for the bonus row in a "
+                f"{target.cfg.block_size}-position window")
+        self.target = target
+        self.k = k
+        self.rows = k + 1
+        self.draft = DraftEngine(draft_params, draft_cfg, target)
+        self._parked = target.cfg.block_size - 1
+
+    # -- slot lifecycle (mirrors the target pool) ----------------------
+    def bind(self, slot: int) -> None:
+        self.draft.bind(slot)
+
+    def release(self, slot: int) -> None:
+        self.draft.release(slot)
+
+    def prime(self, slot: int, prompt_ids: Sequence[int]) -> str:
+        """Fill the draft lane of a freshly prefilled request: one full
+        un-chunked draft prefill. Returns the path taken ("full"; the JAX
+        package's "adopted", from migrated draft rows, is item 15)."""
+        self.draft.prime(slot, [int(t) for t in prompt_ids])
+        return "full"
+
+    # -- draft-row migration (item 15) ---------------------------------
+    @property
+    def pending_draft(self) -> Dict[tuple, dict]:
+        _refuse("draft-row migration (pending_draft)", "15")
+
+    def migratable_draft_rows(self, prompt_len: int) -> int:
+        _refuse("draft-row migration (migratable_draft_rows)", "15")
+
+    def extract_draft_rows(self, slot: int, rows: int):
+        _refuse("draft-row migration (extract_draft_rows)", "15")
+
+    def adopt_draft_rows(self, key: Sequence[int], entry: dict) -> bool:
+        _refuse("draft-row migration (adopt_draft_rows)", "15")
+
+    # -- eligibility ---------------------------------------------------
+    def eligible(self, do_sample: bool, position: int) -> bool:
+        """A lane speculates only when greedy (sampled lanes keep the plain
+        path's one draw per token) and when all k+1 verify rows fit inside
+        the cache window; near-window tails take the plain decode step."""
+        return (not do_sample) and position + self.rows <= self.target.cfg.block_size
+
+    # -- the round -----------------------------------------------------
+    @torch.no_grad()
+    def propose(self, tokens: np.ndarray, positions: np.ndarray,
+                spec_mask: np.ndarray) -> np.ndarray:
+        """k greedy draft decode steps over every speculating lane at once,
+        queued on the device and read once at the end; the other lanes ride
+        along parked (their draft rows at block_size-1 go stale, never
+        read). Returns (S, k) proposals; rows where ``spec_mask`` is False
+        are meaningless."""
+        eng = self.draft.engine
+        dev = eng.device
+        s = len(tokens)
+        mask = torch.as_tensor(np.asarray(spec_mask, bool)).to(dev)
+        parked = torch.full((s,), self._parked, dtype=torch.int64, device=dev)
+        toks = torch.where(mask, torch.as_tensor(np.asarray(tokens, np.int64)).to(dev), 0)
+        pos = torch.where(mask, torch.as_tensor(np.asarray(positions, np.int64)).to(dev),
+                          parked)
+        ones = torch.ones(s, dtype=torch.float32, device=dev)
+        zeros = torch.zeros(s, dtype=torch.int64, device=dev)
+        out = []
+        for _ in range(self.k):
+            nxt = eng.decode_on_device(toks, pos, ones, zeros, ones, [False] * s,
+                                       [None] * s)
+            out.append(nxt)
+            toks = torch.where(mask, nxt, 0)
+            pos = torch.where(mask, pos + 1, parked)
+        return torch.stack(out, dim=1).cpu().numpy()
+
+    def verify(self, slot: int, row_tokens: Sequence[int], offset: int,
+               temperature: float, top_k: Optional[int],
+               top_p: Optional[float]) -> np.ndarray:
+        """One target forward over the k+1 rows at ``offset..offset+k``;
+        returns the target's greedy choice at every row (the lane keeps
+        all k+1 written rows; rejected ones go stale)."""
+        if len(row_tokens) != self.rows:
+            raise ValueError(
+                f"verify expects {self.rows} rows, got {len(row_tokens)}")
+        if offset + self.rows > self.target.cfg.block_size:
+            raise ValueError(
+                f"verify rows at offset {offset} overrun the "
+                f"{self.target.cfg.block_size} cache window (the scheduler "
+                "gates eligibility on window headroom)")
+        return self.target.verify_call(slot, row_tokens, offset, temperature,
+                                       top_k, top_p)
+
+    def accept_len(self, proposals: np.ndarray, greedy: np.ndarray) -> int:
+        """Longest matching prefix + 1: the round emits ``greedy[:n_acc]``,
+        always >= 1 token (the bonus) and all the target's own choices."""
+        n_acc = 1
+        while n_acc <= self.k and int(proposals[n_acc - 1]) == int(greedy[n_acc - 1]):
+            n_acc += 1
+        return n_acc
+
+    def backfill(self, tokens: np.ndarray, positions: np.ndarray,
+                 fill_mask: np.ndarray) -> None:
+        """On full acceptance the draft row ``pos+k`` was never written (the
+        k-th draft step read ``d_k`` as its output, not its input), but the
+        next propose round attends it: one more draft step feeds ``d_k``
+        there. Skipped when no lane fully accepted."""
+        if not np.any(fill_mask):
+            return
+        s = len(tokens)
+        toks = np.where(fill_mask, tokens, 0)
+        pos = np.where(fill_mask, positions, self._parked)
+        self.draft.engine.decode_step(
+            toks, pos, np.ones(s, np.float32), np.zeros(s, np.int64),
+            np.ones(s, np.float32), np.zeros(s, bool), [None] * s)
+
+    # -- warmup / accounting -------------------------------------------
+    def warmup(self) -> None:
+        """Run the draft family (ladder and decode) and the verify call
+        once. Scribbles slot 0 rows on both engines, harmless under the
+        stale-row invariant, so both pools must be empty."""
+        if self.target.pool.used_count:
+            raise RuntimeError("spec warmup requires an empty target pool")
+        self.draft.engine.warmup()
+        self.verify(0, [0] * self.rows, 0, 1.0, None, None)
+
+    def compile_counts(self) -> Dict[str, int]:
+        """Speculation's shape families: verify 1 for the server's lifetime
+        (fixed row count), draft prefill <= len(ladder), draft decode 1."""
+        draft = self.draft.engine.compile_counts()
+        return {"verify": len(self.target.verify_shapes),
+                "draft_prefill": draft["prefill"],
+                "draft_decode": draft["decode"]}
+
+    def register_attrib(self, *args, **kwargs) -> None:
+        _refuse("performance attribution (register_attrib)", "16")
+
+    def audit_contracts(self, *args, **kwargs):
+        _refuse("the static audit contracts (audit_contracts)", "16")

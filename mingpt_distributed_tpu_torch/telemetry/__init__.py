@@ -4,17 +4,20 @@
   :class:`MetricsRegistry`, and ``RateWindow`` (windowed rates);
 * ``spans``    — monotonic-clock nested spans in a bounded ring with an
   optional JSONL sink, and ``log_event``;
-* ``export``   — Prometheus text exposition with its strict parser, and the
-  versioned JSONL event sink.
+* ``export``   — Prometheus text exposition with its strict parser, the
+  versioned JSONL event sink and the ``/metrics`` + ``/healthz`` endpoint
+  (``TelemetryServer``).
 
-The rest of the JAX package's ``telemetry/`` (the HTTP endpoint, the
-recompile watchdog, request tracing, the flight recorder, SLO reports and
-attribution) is ROADMAP.md Queue 1 items 5 and 16.
+``get_registry()`` is the process-wide registry the entry points export
+from. The rest of the JAX package's ``telemetry/`` (the recompile
+watchdog, request tracing, the flight recorder, SLO reports and
+attribution) is ROADMAP.md Queue 1 item 16.
 """
 
 from mingpt_distributed_tpu_torch.telemetry.export import (  # noqa: F401
     SCHEMA_VERSION,
     JsonlEventSink,
+    TelemetryServer,
     parse_prometheus,
     render_prometheus,
 )
@@ -32,3 +35,13 @@ from mingpt_distributed_tpu_torch.telemetry.spans import (  # noqa: F401
     log_event,
     process_index,
 )
+
+_registry = None
+
+
+def get_registry() -> MetricsRegistry:
+    """The process-wide registry every entry point exports from."""
+    global _registry
+    if _registry is None:
+        _registry = MetricsRegistry()
+    return _registry

@@ -12,8 +12,11 @@ that serving needs:
   the producer's payload flat at the top level (``span`` and ``event``
   records of ``telemetry/spans.py``).
 
-The HTTP endpoint (``TelemetryServer``, ``serve.py --metrics-port``) is
-ROADMAP.md Queue 1 item 5.
+* **Pull endpoint** (:class:`TelemetryServer`): ``/metrics`` (the
+  exposition) and ``/healthz`` (JSON liveness) on a daemon-threaded stdlib
+  HTTP server, behind ``serve.py --metrics-port`` and the trainer's
+  ``metrics_port``. ``/debug/flight`` and ``/attrib`` answer 404 until the
+  flight recorder and attribution are ported (ROADMAP.md Queue 1 item 16).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import json
 import re
 import threading
 import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, List, Optional, TextIO, Tuple
 
 from mingpt_distributed_tpu_torch.telemetry.registry import MetricsRegistry
@@ -29,6 +33,7 @@ from mingpt_distributed_tpu_torch.telemetry.registry import MetricsRegistry
 __all__ = [
     "SCHEMA_VERSION",
     "JsonlEventSink",
+    "TelemetryServer",
     "parse_prometheus",
     "render_prometheus",
 ]
@@ -257,3 +262,75 @@ def parse_prometheus(text: str) -> Dict[str, Any]:
                     f"{rec['count']}"
                 )
     return {"types": types, "samples": samples}
+
+
+class TelemetryServer:
+    """``/metrics`` (Prometheus text) and ``/healthz`` (JSON liveness) on a
+    daemon-threaded stdlib server. ``port=0`` binds an ephemeral port (read
+    it from ``.port``), so parallel runs never collide.
+
+    ``health_provider`` and ``metrics_provider`` are settable attributes,
+    read per request: the first returns a dict merged into the healthz
+    document, the second overrides the ``/metrics`` body. ``/debug/flight``
+    and ``/attrib`` answer 404 (ROADMAP.md Queue 1 item 16)."""
+
+    def __init__(self, registry: MetricsRegistry, port: int = 0,
+                 host: str = "127.0.0.1", health_provider=None,
+                 metrics_provider=None):
+        self.registry = registry
+        self.health_provider = health_provider
+        self.metrics_provider = metrics_provider
+        self._t0 = time.time()
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_GET(self) -> None:  # noqa: N802 (the stdlib's name)
+                path = self.path.split("?", 1)[0]
+                if path == "/metrics":
+                    mp = outer.metrics_provider
+                    body = (render_prometheus(outer.registry) if mp is None
+                            else mp()).encode()
+                    ctype = "text/plain; version=0.0.4; charset=utf-8"
+                elif path == "/healthz":
+                    doc = {"status": "ok",
+                           "uptime_s": round(time.time() - outer._t0, 3)}
+                    hp = outer.health_provider
+                    if hp is not None:
+                        try:
+                            doc.update(hp())
+                        except Exception as e:  # liveness must survive
+                            doc["status"] = "error"
+                            doc["health_provider_error"] = repr(e)
+                    body = json.dumps(doc).encode()
+                    ctype = "application/json"
+                elif path in ("/debug/flight", "/attrib"):
+                    self.send_error(404, f"{path} is not ported yet "
+                                         "(ROADMAP.md Queue 1 item 16)")
+                    return
+                else:
+                    self.send_error(404, "unknown path (try /metrics)")
+                    return
+                self.send_response(200)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *args) -> None:  # scrapes are noise
+                pass
+
+        self._httpd = ThreadingHTTPServer((host, port), Handler)
+        self._httpd.daemon_threads = True
+        self.host = host
+        self.port = self._httpd.server_address[1]
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        name="telemetry-http", daemon=True)
+        self._thread.start()
+
+    def url(self, path: str = "/metrics") -> str:
+        return f"http://{self.host}:{self.port}{path}"
+
+    def close(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        self._thread.join(timeout=5)

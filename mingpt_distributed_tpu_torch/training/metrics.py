@@ -1,21 +1,30 @@
 """Training metrics: the FLOP model, the card's peak table and bounds, and
-the step line (stdout, optionally a JSONL file).
+the step line (stdout, optionally a JSONL file and TensorBoard).
 
 Counterpart of ``mingpt_distributed_tpu/training/metrics.py``. The step
 line carries step, loss, lr, grad_norm, update_norm, tokens/s and MFU;
 tokens/s and MFU are taken over the window since the previous logged step
-(the loop syncs with the card only at logged steps).
+(the loop syncs with the card only at logged steps). Every scalar is also
+set on a ``mingpt_train_*`` gauge of a metrics registry: pass the process
+registry (``telemetry.get_registry()``) to put them on the ``/metrics``
+page beside the serving families. ``tensorboard_dir`` adds a TensorBoard
+sink (``torch.utils.tensorboard``); where that cannot be imported the
+logger says so once and keeps its other sinks.
 """
 
 from __future__ import annotations
 
 import functools
 import json
+import re
 import subprocess
 import time
 from typing import Any, Dict, Iterable, Optional, Tuple
 
 from mingpt_distributed_tpu_torch.config import GPTConfig
+from mingpt_distributed_tpu_torch.telemetry import MetricsRegistry, log_event
+
+_GAUGE_SAFE_RE = re.compile(r"[^a-zA-Z0-9_]")
 
 # Published peaks of the cards the port runs on (NVIDIA data sheets; dense,
 # no sparsity), keyed by a substring of torch.cuda.get_device_name(). The
@@ -83,15 +92,45 @@ def flops_per_token(cfg: GPTConfig, seq_len: Optional[int] = None) -> float:
 
 class MetricsLogger:
     """The step line to stdout and, with ``jsonl_path``, one JSON object
-    per logged step (``kind: "train_step"``)."""
+    per logged step (``kind: "train_step"``); with ``tensorboard_dir``, one
+    TensorBoard scalar per key; always the ``mingpt_train_*`` gauges of
+    ``registry`` (a private one by default)."""
 
     def __init__(self, cfg: GPTConfig, *, jsonl_path: Optional[str] = None,
-                 peak: Optional[float] = None, enabled: bool = True):
+                 peak: Optional[float] = None, enabled: bool = True,
+                 tensorboard_dir: Optional[str] = None,
+                 registry: Optional[MetricsRegistry] = None):
         self.cfg = cfg
         self.peak = peak
         self.enabled = enabled
         self._jsonl = open(jsonl_path, "a") if (enabled and jsonl_path) else None
+        self._tb = None
+        if enabled and tensorboard_dir:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+
+                self._tb = SummaryWriter(log_dir=tensorboard_dir)
+            except Exception as e:  # an optional sink: keep the others
+                log_event(f"tensorboard sink unavailable ({e}); continuing")
         self._last: Optional[tuple] = None  # (step, perf_counter)
+        self.registry = registry if registry is not None else MetricsRegistry()
+        self._step_gauge = self.registry.gauge(
+            "mingpt_train_step", help="last logged training step")
+        # the headline families are on the page from the start: MFU may
+        # never be observed on a card missing from the peak table
+        self._gauges = {
+            key: self.registry.gauge(f"mingpt_train_{key}", help=help_)
+            for key, help_ in (
+                ("loss", "training loss (global mean over the batch)"),
+                ("mfu", "model FLOPs utilization against the card's peak"))}
+
+    def _gauge(self, key: str):
+        g = self._gauges.get(key)
+        if g is None:
+            g = self.registry.gauge(f"mingpt_train_{_GAUGE_SAFE_RE.sub('_', key)}",
+                                    help=f"training scalar {key!r}")
+            self._gauges[key] = g
+        return g
 
     def log_step(self, step: int, tokens_per_step: int, seq_len: int,
                  scalars: Dict[str, Any]) -> Dict[str, Any]:
@@ -106,6 +145,10 @@ class MetricsLogger:
             if self.peak:
                 rec["mfu"] = flops / self.peak
         self._last = (step, now)
+        self._step_gauge.set(step)
+        for k, v in rec.items():
+            if k != "step":
+                self._gauge(k).set(v)
         if self.enabled:
             print(" | ".join([f"step {step}"] + [
                 f"{k} {v:.4g}" for k, v in rec.items() if k != "step"]),
@@ -113,9 +156,16 @@ class MetricsLogger:
             if self._jsonl is not None:
                 self._jsonl.write(json.dumps({"kind": "train_step", **rec}) + "\n")
                 self._jsonl.flush()
+            if self._tb is not None:
+                for k, v in rec.items():
+                    if k != "step":
+                        self._tb.add_scalar(k, v, step)
         return rec
 
     def close(self) -> None:
         if self._jsonl is not None:
             self._jsonl.close()
             self._jsonl = None
+        if self._tb is not None:
+            self._tb.close()
+            self._tb = None

@@ -25,6 +25,15 @@ the last ``keep_snapshots`` are kept, transient I/O is retried
 ``seed``), and a resume falls back past a torn or corrupt snapshot to the
 newest good one.
 
+Telemetry (rank 0): ``spans_jsonl`` streams a span per step
+(``train.step``), eval and snapshot; ``metrics_port`` serves the process
+registry's ``/metrics`` (the ``mingpt_train_*`` gauges) and ``/healthz``;
+``tensorboard_dir`` adds a TensorBoard sink; ``profile_dir`` writes a
+``torch.profiler`` Chrome trace of the steps after ``profile_steps[0]`` up
+to ``profile_steps[1]``. ``debug_nans`` stops the step whose loss or
+gradients are not finite with ``FloatingPointError``, before its update
+(one read from the card per step).
+
 ZeRO, Orbax, asynchronous saves, the mesh axes other than dp and sp, and
 the other options ``TrainerConfig.check_ported`` names raise.
 """
@@ -32,6 +41,7 @@ the other options ``TrainerConfig.check_ported`` names raise.
 from __future__ import annotations
 
 import dataclasses
+import os
 import signal
 import threading
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -54,11 +64,18 @@ from mingpt_distributed_tpu_torch.data.prefetch import PrefetchIterator
 from mingpt_distributed_tpu_torch.models import gpt
 from mingpt_distributed_tpu_torch.parallel import distributed as D
 from mingpt_distributed_tpu_torch.parallel.mesh import Mesh
+from mingpt_distributed_tpu_torch.telemetry import (
+    SpanTracer,
+    TelemetryServer,
+    get_registry,
+    log_event,
+)
 from mingpt_distributed_tpu_torch.training import checkpoint as ckpt_lib
 from mingpt_distributed_tpu_torch.training.durability import RetryPolicy
 from mingpt_distributed_tpu_torch.training.metrics import MetricsLogger, peak_flops
 from mingpt_distributed_tpu_torch.training.optimizer import (
     AdamW,
+    _global_norm,
     lr_schedule,
     make_optimizer,
 )
@@ -114,9 +131,21 @@ def all_reduce_grads(params) -> None:
         p.grad = g.view_as(p)
 
 
+def check_finite(loss: torch.Tensor, params: gpt.Params, step: int) -> None:
+    """``debug_nans``: raise FloatingPointError naming ``step`` when the
+    loss or any gradient is not finite (one read from the card)."""
+    grads = [p.grad for p in gpt._leaves(params) if p.grad is not None]
+    norm = _global_norm(grads) if grads else loss.new_zeros(())
+    if not bool(torch.isfinite(loss) & torch.isfinite(norm)):
+        raise FloatingPointError(
+            f"debug_nans: non-finite loss or gradient at step {step} (loss "
+            f"{loss.item()}, gradient norm {norm.item()}); the update was "
+            "not applied")
+
+
 def make_train_step(cfg: GPTConfig, grad_accum: int = 1,
                     lr_fn: Optional[Callable[[int], float]] = None,
-                    mesh: Optional[Mesh] = None):
+                    mesh: Optional[Mesh] = None, debug_nans: bool = False):
     """(state, (x, y), generator) -> metrics: forward and backward (loss-only
     mode, chunked head), clip, AdamW, ``state.step += 1``. Metrics are
     device scalars: ``loss``, pre-clip ``grad_norm``, ``update_norm`` (the
@@ -128,10 +157,13 @@ def make_train_step(cfg: GPTConfig, grad_accum: int = 1,
     counts with equal weight (the JAX step's mean of means).
 
     With a ``mesh`` of several processes, ``(x, y)`` is this rank's share of
-    the global batch and the step is ``_distributed_step``'s."""
+    the global batch and the step is ``_distributed_step``'s.
+
+    ``debug_nans`` checks the loss and the gradients before the update
+    (``check_finite``)."""
     det = deterministic(cfg)
     if _distributed(mesh):
-        return _distributed_step(cfg, grad_accum, lr_fn, mesh)
+        return _distributed_step(cfg, grad_accum, lr_fn, mesh, debug_nans)
 
     def loss_of(params, x, y, generator):
         _, loss = gpt.forward(params, x, cfg, targets=y,
@@ -155,6 +187,8 @@ def make_train_step(cfg: GPTConfig, grad_accum: int = 1,
             loss = loss_of(state.params, x, y, generator)
             loss.backward()
             loss = loss.detach()
+        if debug_nans:
+            check_finite(loss, state.params, state.step + 1)
         metrics = {"loss": loss, **state.optimizer.step(state.step)}
         if lr_fn is not None:
             metrics["lr"] = torch.tensor(float(lr_fn(state.step)))
@@ -170,7 +204,7 @@ def _split(x, y, grad_accum):
     return zip(x.chunk(grad_accum), y.chunk(grad_accum))
 
 
-def _distributed_step(cfg, grad_accum, lr_fn, mesh):
+def _distributed_step(cfg, grad_accum, lr_fn, mesh, debug_nans=False):
     """The train step of one rank of a dp x sp job: each micro-batch's loss
     is its global token mean (this rank's sum over the world's count),
     the gradients are summed over the world, then clip and AdamW run alike
@@ -192,6 +226,8 @@ def _distributed_step(cfg, grad_accum, lr_fn, mesh):
             loss = loss + total.detach() / count
         loss = D.all_reduce(loss) / grad_accum
         all_reduce_grads(state.params)
+        if debug_nans:
+            check_finite(loss, state.params, state.step + 1)
         metrics = {"loss": loss, **state.optimizer.step(state.step)}
         if lr_fn is not None:
             metrics["lr"] = torch.tensor(float(lr_fn(state.step)))
@@ -264,6 +300,18 @@ class GPTTrainer:
                                   seed=config.seed)
         self._stop_requested = False
         self.preempted = False
+        # telemetry on rank 0 (the single writer, like MetricsLogger)
+        self.tracer = SpanTracer(enabled=self.is_main)
+        if config.spans_jsonl and self.is_main:
+            self.tracer.attach_jsonl(config.spans_jsonl)
+        self.telemetry_server: Optional[TelemetryServer] = None
+        registry = None
+        if config.metrics_port and self.is_main:
+            registry = get_registry()
+            self.telemetry_server = TelemetryServer(registry, port=config.metrics_port)
+            log_event(f"telemetry: serving /metrics and /healthz on "
+                      f"{self.telemetry_server.url('')}", tracer=self.tracer)
+        self._profiler = None
 
         self._lr_fn = lr_schedule(optimizer_config)
         params = trainable(gpt.init(gpt_config, torch.Generator().manual_seed(config.seed),
@@ -282,7 +330,7 @@ class GPTTrainer:
 
         self._train_step = make_train_step(
             gpt_config, grad_accum=config.grad_accum_steps, lr_fn=self._lr_fn,
-            mesh=self.mesh)
+            mesh=self.mesh, debug_nans=config.debug_nans)
         self._eval_step = make_eval_step(gpt_config, self.mesh)
         name = (torch.cuda.get_device_name(self.device)
                 if self.device.type == "cuda" else "cpu")
@@ -293,7 +341,9 @@ class GPTTrainer:
         peak = peak_flops(name, gpt_config.dtype)
         self.metrics = MetricsLogger(gpt_config, jsonl_path=config.metrics_jsonl,
                                      peak=peak and peak * cards,
-                                     enabled=self.is_main)
+                                     enabled=self.is_main,
+                                     tensorboard_dir=config.tensorboard_dir,
+                                     registry=registry)
         self._print(gpt.model_size_report(params, gpt_config))
 
     def _print(self, msg: str) -> None:
@@ -390,9 +440,14 @@ class GPTTrainer:
             if cfg.prefetch > 0:
                 source = PrefetchIterator(source, depth=cfg.prefetch)
             for xy in source:
-                m = self._train_step(self.state, self._put_batch(xy), self.generator)
+                # host-visible step time: the step's enqueue (and, at logged
+                # steps, the wait for the card)
+                with self.tracer.span("train.step", step=self.state.step + 1):
+                    m = self._train_step(self.state, self._put_batch(xy),
+                                         self.generator)
                 step = self.state.step
                 consumed += 1
+                self._profile(step)
                 if step % cfg.log_every == 0 or (cfg.max_steps and step >= cfg.max_steps):
                     scalars = {k: v.item() for k, v in m.items()}
                     scalars["epoch"] = epoch
@@ -422,9 +477,38 @@ class GPTTrainer:
                 break
         return last
 
+    def _profile(self, step: int) -> None:
+        """``profile_dir``: a torch.profiler trace from the end of step
+        ``profile_steps[0]`` to the end of step ``profile_steps[1]``,
+        written as ``trace_steps_<a>-<b>.json`` (Chrome trace format)."""
+        cfg = self.config
+        if not (cfg.profile_dir and self.is_main):
+            return
+        first, last = cfg.profile_steps
+        if step == first and self._profiler is None:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self._profiler = torch.profiler.profile(activities=acts)
+            self._profiler.__enter__()
+        elif step == last and self._profiler is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self._profiler.__exit__(None, None, None)
+            os.makedirs(cfg.profile_dir, exist_ok=True)
+            path = os.path.join(cfg.profile_dir, f"trace_steps_{first}-{last}.json")
+            self._profiler.export_chrome_trace(path)
+            self._profiler = None
+            log_event(f"profiler trace written to {path}", tracer=self.tracer,
+                      step=step)
+
     def evaluate(self) -> float:
         """Mean loss over the eval set (``eval_batches`` caps it); read from
         the card once, at the end."""
+        with self.tracer.span("train.eval"):
+            return self._evaluate()
+
+    def _evaluate(self) -> float:
         losses = []
         self.test_iter.state = IteratorState(seed=self.config.seed)
         for i, xy in enumerate(self.test_iter.epoch_batches()):
@@ -439,6 +523,11 @@ class GPTTrainer:
         if not self.is_main:
             D.barrier()
             return
+        with self.tracer.span("train.snapshot", epoch=epoch):
+            self._save(epoch)
+        D.barrier()
+
+    def _save(self, epoch: int) -> None:
         cpu = lambda t: {k: cpu(v) if isinstance(v, dict)  # noqa: E731
                          else v.detach().cpu() for k, v in t.items()}
         ckpt_lib.save_snapshot(self.snapshot_path, {
@@ -453,7 +542,13 @@ class GPTTrainer:
         }, keep=self.config.keep_snapshots, retry=self._retry)
         print(f"Snapshot saved to {self.snapshot_path} (epoch {epoch}, "
               f"step {self.state.step})", flush=True)
-        D.barrier()
 
     def close(self) -> None:
+        if self._profiler is not None:  # the run ended inside the window
+            self._profiler.__exit__(None, None, None)
+            self._profiler = None
         self.metrics.close()
+        self.tracer.close()
+        if self.telemetry_server is not None:
+            self.telemetry_server.close()
+            self.telemetry_server = None

@@ -238,3 +238,125 @@ def test_serve_prompts_share_their_head():
     out = chip_smoke._serve_prompts(rng, [6, 9, 5], head, [True, False, True])
     assert [len(p) for p in out] == [6, 9, 5]
     assert out[0][:4] == out[2][:4] == head and out[1][:4] != head
+
+
+# ---------------------------------------------------------------------------
+# the speculative and quantized serving phases, the trainer's telemetry run
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("kv_dtype, want", [("fp32", 301_989_888),
+                                            ("int8", 160_432_128),
+                                            ("fp8", 160_432_128)])
+def test_serve_pool_bytes_at_gpt2_width(kv_dtype, want):
+    """serve's pool: 8 slots x 12 layers x 1024 rows x 768 of K and V in
+    bf16, or one byte each plus an fp32 scale per row and head (0.531x)."""
+    cfg = chip_smoke.gpt2_config("flash", "bfloat16")
+    assert chip_smoke.pool_bytes_want(cfg, 8, kv_dtype) == want
+
+
+def test_serve_traffic_prefixes_the_serve_phase():
+    """serve_spec's 16 requests are the first 16 of serve's 32: the same
+    prompts, samplers and seeds."""
+    reqs32, lengths32, sampled32 = chip_smoke.serve_traffic(32)
+    reqs16, lengths16, sampled16 = chip_smoke.serve_traffic(16)
+    assert [r.prompt for r in reqs16] == [r.prompt for r in reqs32[:16]]
+    assert list(lengths16) == list(lengths32[:16]) and sampled16 == sampled32[:16]
+    assert sum(sampled32) == 8 and all(32 <= n <= 896 for n in lengths32)
+    assert all(r.max_new_tokens == chip_smoke.SERVE_NEW for r in reqs32)
+    prompts, lengths = chip_smoke.parity_prompts()
+    assert list(lengths[:2]) == [5, 700] and prompts[2][:128] == prompts[4][:128]
+
+
+def _tiny_spec_server(draft_layers):
+    import dataclasses
+
+    import torch
+
+    from mingpt_distributed_tpu_torch.config import GPTConfig
+    from mingpt_distributed_tpu_torch.models import gpt
+    from mingpt_distributed_tpu_torch.serve import first_layers
+    from mingpt_distributed_tpu_torch.serving import InferenceServer
+
+    cfg = GPTConfig.make(n_layer=2, n_head=2, n_embd=32, vocab_size=50, block_size=32,
+                         embd_pdrop=0.0, resid_pdrop=0.0, attn_pdrop=0.0,
+                         dtype="float32")
+    params = gpt.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    server = InferenceServer(
+        params, cfg, n_slots=2, device="cpu", prefill_chunk=4,
+        draft_params=first_layers(params, draft_layers),
+        draft_cfg=dataclasses.replace(cfg, n_layer=draft_layers), spec_k=3)
+    return server, params, cfg
+
+
+@pytest.mark.parametrize("draft_layers", [1, 2])
+def test_logit_tap_records_the_logits_of_every_emitted_token(draft_layers):
+    """Through prefill, plain decode (a sampled lane) and verify rounds,
+    the tap keeps for each emitted token the logits it was chosen from
+    (greedy: their argmax), none of the draft's; and it restores the
+    engine."""
+    from mingpt_distributed_tpu_torch.serving import Request
+    from mingpt_distributed_tpu_torch.serving import engine as engine_mod
+
+    server, _, _ = _tiny_spec_server(draft_layers)
+    real = engine_mod._select_next_slots
+    reqs = [Request(prompt=[1, 2, 3, 4, 5, 6], max_new_tokens=9),
+            Request(prompt=[7, 8, 9], max_new_tokens=7, do_sample=True, seed=3),
+            Request(prompt=[10, 11], max_new_tokens=8)]
+    with chip_smoke.logit_tap(server) as rows:
+        handles = server.generate_batch(reqs)
+    assert engine_mod._select_next_slots is real
+    assert "verify_call" not in vars(server.engine)
+    assert server.metrics.spec_rounds > 0
+    for h in handles:
+        got = [rows[(h.request_id, i)] for i in range(len(h.tokens))]
+        assert all(r.shape == (50,) for r in got)
+        if not h.request.do_sample:
+            assert [int(r.argmax()) for r in got] == h.tokens
+
+
+def test_tie_rule_allows_divergences_only_at_near_ties():
+    import torch
+
+    ref = torch.tensor([[3.0, 1.0, 0.0], [2.0, 1.99, 0.0]])
+    solo = [([0, 0], ref)]
+
+    class H:
+        request_id, tokens = "r", [0, 1]
+
+    rows = {("r", 0): ref[0] + 1e-3, ("r", 1): ref[1]}
+    res = chip_smoke.tie_rule([H], solo, rows, 2)
+    assert res["compared_steps"] == 1 and res["max_logit_err"] == pytest.approx(1e-3, rel=1e-3)
+    assert res["divergences"][0]["top2_gap"] == pytest.approx(0.01)
+    with pytest.raises(chip_smoke.SmokeFailure, match="top-2 gap"):
+        chip_smoke.check_tie_rule("x", res, 2)  # 0.01 > 3 x 1e-3
+    rows[("r", 0)] = ref[0] + 4e-3
+    res = chip_smoke.tie_rule([H], solo, rows, 2)
+    with pytest.raises(chip_smoke.SmokeFailure, match="compared"):
+        chip_smoke.check_tie_rule("x", res, 2)  # a tie, but 1 of 2 compared
+    chip_smoke.check_tie_rule("x", res, 1)
+
+
+def test_train_telemetry_readers(tmp_path):
+    """step_spans reads the train.step spans of a spans_jsonl file, one
+    list of host ms per step; trace_kernel_names the kernel events of a
+    Chrome trace."""
+    import json
+
+    spans = tmp_path / "s.jsonl"
+    spans.write_text("\n".join(json.dumps(r) for r in [
+        {"schema": "mingpt-telemetry/1", "kind": "span", "name": "train.step",
+         "step": 1, "dur_s": 0.5},
+        {"kind": "span", "name": "train.eval", "dur_s": 1.0},
+        {"kind": "event", "name": "log", "message": "x"},
+        {"kind": "span", "name": "train.step", "step": 2, "dur_s": 0.25}]) + "\n")
+    assert chip_smoke.step_spans(spans) == {1: [500.0], 2: [250.0]}
+    trace = tmp_path / "t.json"
+    trace.write_text(json.dumps({"traceEvents": [
+        {"name": "_ZN12_GLOBAL__N_121flash_fwd_bf16_kernelILi64E", "cat": "kernel"},
+        {"name": "aten::mm", "cat": "cpu_op"},
+        {"name": "flash_bwd_prep_kernel", "cat": "kernel"},
+        {"name": "flash_bwd_prep_kernel", "cat": "kernel"}]}))
+    assert chip_smoke.trace_kernel_names(trace) == [
+        "_ZN12_GLOBAL__N_121flash_fwd_bf16_kernelILi64E", "flash_bwd_prep_kernel"]
+    assert chip_smoke.TRACE_KERNELS == ("flash_fwd", "flash_bwd_prep", "flash_dq", "flash_dkv")

@@ -765,10 +765,6 @@ def test_deadline_expiry_mid_prefill_frees_slot_and_counts(cfg_params):
 
 
 @pytest.mark.parametrize("option, item", [
-    (dict(spec_k=2), "item 14"),
-    (dict(draft_params={}), "item 14"),
-    (dict(kv_dtype="int8"), "item 14"),
-    (dict(kv_dtype="fp8"), "item 14"),
     (dict(trace_recorder=object()), "item 16"),
     (dict(attrib=True), "item 16"),
     (dict(recompile_fail=True), "item 16"),
@@ -779,6 +775,30 @@ def test_unported_options_raise_naming_their_item(cfg_params, option, item):
     cfg, params = cfg_params
     with pytest.raises(NotImplementedError, match=item):
         server(params, cfg, n_slots=1, **option)
+
+
+@pytest.mark.parametrize("option", ["spec_k", "draft_params", "kv_dtype=int8",
+                                    "kv_dtype=fp8"])
+def test_speculation_and_quantized_pool_options_run(cfg_params, option):
+    """The options that raised naming item 14 run: speculation (a 1-layer
+    draft, k = 2) and the int8 and fp8 pools, each serving the requests to
+    the end; speculation keeps the greedy tokens solo generate's."""
+    cfg, params = cfg_params
+    if option.startswith("kv_dtype"):
+        kw = dict(kv_dtype=option.split("=")[1])
+    else:
+        kw = dict(draft_params=t_serve.first_layers(params, 1),
+                  draft_cfg=dataclasses.replace(cfg, n_layer=1), spec_k=2)
+    s = server(params, cfg, n_slots=2, **kw)
+    handles = s.generate_batch([Request(prompt=p, max_new_tokens=6) for p in PROMPTS])
+    assert all(h.finished and len(h.tokens) == 6 for h in handles)
+    if "spec_k" in kw:
+        assert s.metrics.spec_rounds > 0
+        for p, h in zip(PROMPTS, handles):
+            assert h.tokens == solo_greedy(params, cfg, p, 6)
+    else:
+        assert s.engine.kv_dtype == kw["kv_dtype"]
+        assert sorted(s.engine.pool.cache) == ["k", "k_scale", "v", "v_scale"]
 
 
 def test_engine_refuses_attribution_and_foreign_devices(cfg_params):
@@ -951,6 +971,106 @@ def test_unported_serve_flags_exit_naming_their_item(flag, capsys):
 
 def test_kv_dtype_fp32_is_accepted():
     assert t_serve.parse_args(["--kv-dtype", "fp32", "--selftest"]).selftest
+
+
+@pytest.mark.parametrize("argv, expect", [
+    (["--selftest", "--metrics-port", "0"], "selftest scrape:"),
+    (["--selftest", "--kv-dtype", "int8"], "selftest PASSED"),
+    (["--selftest", "--kv-dtype", "fp8", "--warmup"], "selftest PASSED"),
+    (["--selftest-spec"], "selftest-spec PASSED"),
+    (["--selftest-spec", "--spec-k", "2", "--kv-dtype", "int8"], "selftest-spec PASSED"),
+    (["--selftest-quant"], "selftest-quant PASSED"),
+])
+def test_ported_serve_flags_run(argv, expect, capsys):
+    """The flags that exited naming items 5 and 14 run (the int8 and fp8
+    pools through the greedy selftest: its prompts keep their tokens)."""
+    assert t_serve.main([*argv, "--device", "cpu", "--log-every", "0"]) == 0
+    assert expect in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("draft", ["self", "self:1", "n_layer=1,n_embd=32"])
+def test_serve_prompts_file_with_speculation(snapshot_argv, tmp_path, capsys, draft):
+    """--draft-config/--spec-k over the trainer's snapshot: the greedy
+    completions equal solo generate's whatever the draft (a random-init
+    draft is mostly rejected), and the summary counts the verify rounds."""
+    prompts = tmp_path / "prompts.txt"
+    prompts.write_text("the king \nwhat is \n")
+    assert t_serve.main(["--prompts-file", str(prompts), "--device", "cpu",
+                         "--greedy", "--max-new-tokens", "7", "--slots", "2",
+                         "--draft-config", draft, "--spec-k", "3",
+                         *snapshot_argv]) == 0
+    out = capsys.readouterr().out
+    blocks = re.split(r"^=== req-\d+ \(length\) ===\n", out, flags=re.M)[1:]
+    last, summary = blocks[-1].rsplit("\n{", 1)
+    blocks[-1], summary = last + "\n", json.loads("{" + summary)
+    assert [b[:-1] for b in blocks] == [_solo_text(snapshot_argv, p, 7)
+                                        for p in ("the king ", "what is ")]
+    assert summary["spec_rounds"] > 0
+    if draft == "self":
+        assert summary["spec_accept_rate"] == 1.0
+
+
+def test_draft_from_takes_the_target_or_its_first_layers(cfg_params):
+    cfg, params = cfg_params
+    assert t_serve.draft_from("self", params, cfg, "cpu") == (params, cfg)
+    dparams, dcfg = t_serve.draft_from("self:1", params, cfg, "cpu")
+    assert dcfg.n_layer == 1 and dparams["blocks"]["wq"].shape[0] == 1
+    assert dparams["wte"] is params["wte"]
+    dparams, dcfg = t_serve.draft_from("n_layer=1,n_embd=16", params, cfg, "cpu")
+    assert (dcfg.n_layer, dcfg.n_embd, dcfg.vocab_size) == (1, 16, cfg.vocab_size)
+    assert dparams["wte"].shape == (cfg.vocab_size, 16)
+
+
+@pytest.mark.parametrize("argv, message", [
+    (["--spec-k", "2"], "must be given together"),
+    (["--draft-config", "self"], "must be given together"),
+    (["--draft-config", "self:9", "--spec-k", "2"], "outside"),
+    (["--draft-config", "self:x", "--spec-k", "2"], "needs an int"),
+    (["--draft-config", "n_layer", "--spec-k", "2"], "is not k=v"),
+])
+def test_serve_draft_config_errors(snapshot_argv, tmp_path, argv, message):
+    prompts = tmp_path / "prompts.txt"
+    prompts.write_text("the king \n")
+    with pytest.raises(SystemExit, match=message):
+        t_serve.main(["--prompts-file", str(prompts), "--device", "cpu", *argv,
+                      *snapshot_argv])
+
+
+def test_serve_metrics_port_serves_the_page(snapshot_argv, tmp_path, monkeypatch):
+    """--metrics-port on the batch path: the process registry is served
+    while requests run (scraped from the on_token stream's first call) and
+    the endpoint closes at shutdown."""
+    import urllib.request
+
+    from mingpt_distributed_tpu_torch import telemetry
+
+    seen = {}
+    real = telemetry.TelemetryServer
+
+    class Recording(real):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            seen["server"] = self
+
+    monkeypatch.setattr(telemetry, "TelemetryServer", Recording)
+    real_close = Recording.close
+
+    def close(self):
+        with urllib.request.urlopen(self.url("/metrics"), timeout=10) as resp:
+            seen["page"] = resp.read().decode()
+        with urllib.request.urlopen(self.url("/healthz"), timeout=10) as resp:
+            seen["health"] = json.loads(resp.read().decode())
+        real_close(self)
+
+    monkeypatch.setattr(Recording, "close", close)
+    prompts = tmp_path / "prompts.txt"
+    prompts.write_text("the king \n")
+    assert t_serve.main(["--prompts-file", str(prompts), "--device", "cpu",
+                         "--greedy", "--max-new-tokens", "3", "--metrics-port", "0",
+                         *snapshot_argv]) == 0
+    parsed = telemetry.parse_prometheus(seen["page"])
+    assert parsed["types"]["mingpt_serve_ttft_seconds"] == "histogram"
+    assert seen["health"]["status"] == "ok"
 
 
 def test_restore_inference_params(snapshot_argv, tmp_path):

@@ -2,10 +2,13 @@
 tracer) against the JAX package's: the counterparts of
 tests/test_telemetry.py's registry, exposition, JSONL and span tests, and
 the same operations through both packages giving the same exposition page
-and the same parse. The recompile watchdog and the HTTP endpoint are not
-ported (ROADMAP.md Queue 1 items 16 and 5)."""
+and the same parse, the speculation families included; the HTTP endpoint
+(``TelemetryServer``) scraped and parsed, and the trainer's gauges and
+TensorBoard sink. The recompile watchdog is not ported (ROADMAP.md Queue 1
+item 16)."""
 
 import json
+import os
 import re
 
 import pytest
@@ -198,16 +201,18 @@ def _drive_serving_metrics(m):
     m.on_tokens(3)
     m.on_complete(n_generated=3, gen_span_s=0.02)
     m.on_step(queue_depth=0, slots_active=1, lanes_used=1)
+    m.on_spec_prime("full")
+    m.on_spec_round(proposed=3, emitted=4)
+    m.on_spec_round(proposed=3, emitted=1)
 
 
 def _serve_samples(page):
     """The mingpt_serve_* / mingpt_serving_* samples of a page, minus the
-    wall-clock prefill-rate and tokens/s gauges and the speculation
-    families, which the port does not carry."""
+    wall-clock prefill-rate and tokens/s gauges."""
     out = {}
     for n, labels, v in parse_prometheus(page)["samples"]:
         if (n.startswith(("mingpt_serve_", "mingpt_serving_"))
-                and "_spec_" not in n and not n.endswith("per_sec")):
+                and not n.endswith("per_sec")):
             out[(n, tuple(sorted(labels.items())))] = v
     return out
 
@@ -222,12 +227,14 @@ def test_serving_page_matches_the_jax_package():
         j_tel.render_prometheus(jreg))
     assert got == pytest.approx(want)
     assert ("mingpt_serve_requests_total", (("outcome", "completed"),)) in got
+    assert got[("mingpt_serve_spec_accept_rate", ())] == 0.5
+    assert got[("mingpt_serve_spec_prime_total", (("mode", "full"),))] == 1
 
 
 def test_unified_page_carries_serve_families():
     """One registry, one valid exposition page with TTFT/ITL histograms
     and the utilisation and prefix gauges, checked through the strict
-    parser (the trainer's families join it with item 5)."""
+    parser."""
     reg = MetricsRegistry()
     _drive_serving_metrics(ServingMetrics(n_slots=2, registry=reg))
     parsed = parse_prometheus(render_prometheus(reg))
@@ -390,3 +397,117 @@ def test_log_event_prefixes_and_mirrors(capsys):
     assert "from scratch" in rec["message"]
     log_event("no tracer: printed only")
     assert "printed only" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# the HTTP endpoint and the trainer's gauges
+# ---------------------------------------------------------------------------
+
+
+def _get(url):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=10) as resp:
+        return resp.status, resp.headers.get("Content-Type"), resp.read().decode()
+
+
+def test_telemetry_server_scrape_parses_and_healthz():
+    """port=0 binds an ephemeral port; /metrics is the registry's page
+    (through the strict parser, equal to render_prometheus), /healthz the
+    liveness document with a provider's keys merged; unknown and unported
+    routes answer 404."""
+    import urllib.error
+
+    reg = MetricsRegistry()
+    _drive_serving_metrics(ServingMetrics(n_slots=2, registry=reg))
+    srv = telemetry.TelemetryServer(reg, port=0)
+    try:
+        assert srv.port > 0 and srv.url("") == f"http://127.0.0.1:{srv.port}"
+        status, ctype, body = _get(srv.url("/metrics"))
+        assert status == 200 and ctype.startswith("text/plain; version=0.0.4")
+        assert body == render_prometheus(reg)
+        parsed = parse_prometheus(body)
+        assert parsed["types"]["mingpt_serve_spec_tokens_per_verify"] == "histogram"
+        status, _, body = _get(srv.url("/healthz"))
+        doc = json.loads(body)
+        assert status == 200 and doc["status"] == "ok" and doc["uptime_s"] >= 0
+        srv.health_provider = lambda: {"replicas": 1}
+        assert json.loads(_get(srv.url("/healthz"))[2])["replicas"] == 1
+        srv.health_provider = lambda: 1 / 0
+        doc = json.loads(_get(srv.url("/healthz"))[2])
+        assert doc["status"] == "error" and "ZeroDivisionError" in doc["health_provider_error"]
+        srv.metrics_provider = lambda: "# TYPE x gauge\nx 1\n"
+        assert parse_prometheus(_get(srv.url("/metrics"))[2])["types"] == {"x": "gauge"}
+        for path in ("/debug/flight", "/attrib", "/nope"):
+            with pytest.raises(urllib.error.HTTPError) as e:
+                _get(srv.url(path))
+            assert e.value.code == 404
+    finally:
+        srv.close()
+
+
+def test_the_process_registry_is_one():
+    assert telemetry.get_registry() is telemetry.get_registry()
+    assert isinstance(telemetry.get_registry(), MetricsRegistry)
+
+
+def test_trainer_gauges_match_the_jax_logger_families():
+    """The step line's scalars land on mingpt_train_* gauges, as the JAX
+    logger's do (both loggers silent)."""
+    from mingpt_distributed_tpu.config import GPTConfig as JConfig
+    from mingpt_distributed_tpu.training.metrics import MetricsLogger as JLogger
+    from mingpt_distributed_tpu_torch.config import GPTConfig
+    from mingpt_distributed_tpu_torch.training.metrics import MetricsLogger
+
+    kw = dict(n_layer=2, n_head=2, n_embd=32, vocab_size=50, block_size=32)
+    reg, jreg = MetricsRegistry(), j_tel.MetricsRegistry()
+    t = MetricsLogger(GPTConfig.make(**kw), enabled=False, registry=reg)
+    j = JLogger(JConfig.make(**kw), enabled=False, registry=jreg)
+    for logger in (t, j):
+        logger.log_step(3, 64, 32, {"loss": 2.5, "grad_norm": 1.25, "lr": 1e-3})
+    names = lambda page, parse: {n: v for n, _, v in parse(page)["samples"]}  # noqa: E731
+    got = names(render_prometheus(reg), parse_prometheus)
+    want = names(j_tel.render_prometheus(jreg), j_tel.parse_prometheus)
+    for key in ("mingpt_train_step", "mingpt_train_loss", "mingpt_train_grad_norm",
+                "mingpt_train_lr"):
+        assert got[key] == want[key]
+    assert "mingpt_train_mfu" in got and "mingpt_train_mfu" in want
+
+
+def test_tensorboard_sink_writes_scalars(tmp_path):
+    from mingpt_distributed_tpu_torch.config import GPTConfig
+    from mingpt_distributed_tpu_torch.training.metrics import MetricsLogger
+
+    cfg = GPTConfig.make(n_layer=2, n_head=2, n_embd=32, vocab_size=50, block_size=32)
+    m = MetricsLogger(cfg, tensorboard_dir=str(tmp_path / "tb"))
+    m.log_step(1, 64, 32, {"loss": 3.0})
+    m.log_step(2, 64, 32, {"loss": 2.0})
+    m.close()
+    files = os.listdir(tmp_path / "tb")
+    assert len(files) == 1 and files[0].startswith("events.out.tfevents")
+    assert os.path.getsize(tmp_path / "tb" / files[0]) > 0
+
+
+def test_tensorboard_sink_degrades_without_the_writer(tmp_path, monkeypatch, capsys):
+    """Where torch.utils.tensorboard cannot be imported the logger says so
+    and keeps its other sinks."""
+    import builtins
+
+    from mingpt_distributed_tpu_torch.config import GPTConfig
+    from mingpt_distributed_tpu_torch.training.metrics import MetricsLogger
+
+    real_import = builtins.__import__
+
+    def no_tensorboard(name, *a, **kw):
+        if name == "torch.utils.tensorboard":
+            raise ImportError("no tensorboard here")
+        return real_import(name, *a, **kw)
+
+    monkeypatch.setattr(builtins, "__import__", no_tensorboard)
+    cfg = GPTConfig.make(n_layer=2, n_head=2, n_embd=32, vocab_size=50, block_size=32)
+    m = MetricsLogger(cfg, tensorboard_dir=str(tmp_path / "tb"),
+                      jsonl_path=str(tmp_path / "m.jsonl"))
+    m.log_step(1, 64, 32, {"loss": 3.0})
+    m.close()
+    assert "tensorboard sink unavailable" in capsys.readouterr().out
+    assert json.loads(open(tmp_path / "m.jsonl").read())["loss"] == 3.0

@@ -45,6 +45,7 @@ from mingpt_distributed_tpu.models import gpt as j_gpt
 from mingpt_distributed_tpu.training import metrics as j_metrics
 from mingpt_distributed_tpu.training import optimizer as j_opt
 from mingpt_distributed_tpu.training import trainer as j_trainer
+from mingpt_distributed_tpu_torch import telemetry
 from mingpt_distributed_tpu_torch import train as t_train
 from mingpt_distributed_tpu_torch.config import (
     UNPORTED_TRAINER_OPTIONS,
@@ -466,8 +467,6 @@ def test_entry_point_without_a_gpu_raises(tmp_path):
 
 NOT_PORTED = {
     "zero_dp": True, "async_save": True, "msgpack_gather_limit_mb": 1, "dl_num_workers": 2,
-    "metrics_port": 9100, "spans_jsonl": "spans.jsonl", "tensorboard_dir": "tb",
-    "profile_dir": "prof", "profile_steps": [1, 2], "debug_nans": True,
 }
 
 
@@ -525,3 +524,112 @@ def test_bpe_tokenizer_raises(tmp_path, capsys):
 
     with pytest.raises(ConfigError, match="unknown tokenizer"):
         t_train.main(_cli(tmp_path, "data_config.tokenizer=wordpiece"))
+
+
+# ---------------------------------------------------------------------------
+# trainer telemetry: the options that raised naming item 5
+# ---------------------------------------------------------------------------
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _telemetry_run(tmp_path, option):
+    """A 6-step CPU run of the entry point with one telemetry option on;
+    what it wrote."""
+    extra = {
+        "spans_jsonl": [f"trainer_config.spans_jsonl={tmp_path / 'spans.jsonl'}"],
+        "tensorboard_dir": [f"trainer_config.tensorboard_dir={tmp_path / 'tb'}"],
+        "profile_dir": [f"trainer_config.profile_dir={tmp_path / 'prof'}",
+                        "trainer_config.profile_steps=[2,4]"],
+        "profile_steps": [f"trainer_config.profile_dir={tmp_path / 'prof'}",
+                          "trainer_config.profile_steps=[1,3]"],
+        "debug_nans": ["trainer_config.debug_nans=true"],
+        "metrics_port": [f"trainer_config.metrics_port={_free_port()}"],
+    }[option]
+    assert t_train.main(_cli(tmp_path, "trainer_config.max_steps=6",
+                             "trainer_config.log_every=3", *extra)) == 0
+    return sorted(os.listdir(tmp_path))
+
+
+@pytest.mark.parametrize("option", ["spans_jsonl", "tensorboard_dir", "profile_dir",
+                                    "profile_steps", "debug_nans", "metrics_port"])
+def test_trainer_telemetry_options_run(tmp_path, option, capsys):
+    files = _telemetry_run(tmp_path, option)
+    out = capsys.readouterr().out
+    assert "Snapshot saved" in out
+    if option == "spans_jsonl":
+        recs = [json.loads(line) for line in open(tmp_path / "spans.jsonl")]
+        steps = [r["step"] for r in recs if r.get("name") == "train.step"]
+        assert steps == list(range(1, 7))
+        assert {"train.eval", "train.snapshot"} <= {r.get("name") for r in recs}
+        assert all(r["schema"] == "mingpt-telemetry/1" for r in recs)
+    elif option == "tensorboard_dir":
+        assert "tb" in files and os.listdir(tmp_path / "tb")
+    elif option.startswith("profile"):
+        first, last = (2, 4) if option == "profile_dir" else (1, 3)
+        name = f"trace_steps_{first}-{last}.json"
+        assert os.listdir(tmp_path / "prof") == [name]
+        trace = json.load(open(tmp_path / "prof" / name))
+        assert any("addmm" in e.get("name", "") or "mm" in e.get("name", "")
+                   for e in trace["traceEvents"])
+        assert f"profiler trace written to {tmp_path / 'prof' / name}" in out
+    elif option == "metrics_port":
+        assert "telemetry: serving /metrics and /healthz on http://127.0.0.1:" in out
+
+
+def test_debug_nans_stops_at_the_first_non_finite_step(tmp_path, monkeypatch):
+    """A NaN planted in step 3's loss: debug_nans raises FloatingPointError
+    naming step 3 before its update, and the parameters keep step 2's
+    values; without debug_nans the step runs and the NaN reaches them."""
+    real = t_gpt.forward
+    calls = {"n": 0}
+
+    def poisoned(params, x, cfg, *a, **kw):
+        logits, loss = real(params, x, cfg, *a, **kw)
+        if loss is not None and torch.is_grad_enabled():
+            calls["n"] += 1
+            if calls["n"] == 3:
+                loss = loss * float("nan")
+        return logits, loss
+
+    monkeypatch.setattr(t_gpt, "forward", poisoned)
+    tr = _trainer(tmp_path, 5, debug_nans=True)
+    with pytest.raises(FloatingPointError, match="step 3"):
+        tr.train()
+    assert tr.step == 2
+    assert all(bool(torch.isfinite(p).all()) for p in t_gpt._leaves(tr.state.params))
+    calls["n"] = 0
+    tr2 = _trainer(tmp_path / "off", 3)
+    tr2.train()
+    assert not all(bool(torch.isfinite(p).all()) for p in t_gpt._leaves(tr2.state.params))
+
+
+def test_metrics_port_serves_the_trainer_gauges(tmp_path):
+    """metrics_port: /metrics carries the mingpt_train_* gauges of the
+    logged steps through the strict parser, /healthz says ok, the debug
+    routes answer 404 (item 16)."""
+    import urllib.error
+    import urllib.request
+
+    tr = _trainer(tmp_path, 4, metrics_port=_free_port())
+    tr.train()
+    srv = tr.telemetry_server
+    with urllib.request.urlopen(srv.url("/metrics"), timeout=10) as resp:
+        parsed = telemetry.parse_prometheus(resp.read().decode())
+    vals = {n: v for n, _, v in parsed["samples"]}
+    assert vals["mingpt_train_step"] == 4 and vals["mingpt_train_loss"] > 0
+    assert parsed["types"]["mingpt_train_mfu"] == "gauge"
+    with urllib.request.urlopen(srv.url("/healthz"), timeout=10) as resp:
+        assert json.loads(resp.read())["status"] == "ok"
+    for path in ("/debug/flight", "/attrib"):
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(srv.url(path), timeout=10)
+        assert e.value.code == 404
+    tr.close()
+    assert tr.telemetry_server is None
