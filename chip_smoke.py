@@ -6,8 +6,9 @@
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 per source, in parallel), holds each against its plain PyTorch version on
 the card, drives the port's inference, training and sequence-parallel
-training paths at GPT-2 124M width (random weights, fixed seeds) through the
-entry points a user calls, checks that each path went through the kernels,
+training paths at GPT-2 124M width and the mixture-of-experts path at
+Mixtral-8x7B width (random weights, fixed seeds) through the entry points
+a user calls, checks that each path went through the kernels,
 and times them. Imports nothing of JAX. Prints JSON lines as it goes; any
 failed check raises, so the exit code is non-zero and the final line is
 never printed.
@@ -65,7 +66,21 @@ Phases:
      numbers and 160,432,128 pool bytes); serve_spec (serve's first 16
      requests with the draft 'self:2' and 'self', k = 4: tokens/s, TTFT,
      ITL, accept rate, tokens per verify, host ms per propose, verify and
-     round, beside serve's); 0 launches of every kernel on each;
+     round, beside serve's); serve_telemetry (serve's first 16 requests
+     with request tracing, the flight recorder, attribution and the
+     watchdog: the trace file, the flight dumps and /debug/flight, the
+     attribution report and /attrib through the port's validators, the
+     SLO report, the prefill and decode rows, 0 new shapes after warmup);
+     0 launches of every kernel on each;
+  3c. mixture of experts at Mixtral-8x7B width (d 4096, E 8, top-2,
+     SwiGLU experts of 14336, 32/8 heads, V 32000): moe_check (the layer on
+     256 tokens, bf16 against fp32 on the same bf16 input, and with one
+     expert against the dense SwiGLU; the layer's ms and the per-call cost
+     of casting its experts to bf16); serve_moe_parity (2 layers, block
+     1024, fp32, capacity factor E / k = 4: serve_parity's requests and
+     tie rule against solo decode) and serve_moe (2 layers, bf16,
+     capacity factor 1.25, serve's traffic, attribution on: its rows and
+     the HBM ledger against torch.cuda.memory_allocated); 0 launches;
   4. training: the train step at the bench shape (GPT-2 124M, T=1024, batch
      16, bf16, no dropout), 12 forward, 12 prep, 12 dq and 12 dk/dv
      launches per step; the same step with FLASH_FUSED_BWD=1, 12 forward,
@@ -74,7 +89,16 @@ Phases:
      more with its telemetry (train_cli_telemetry: spans_jsonl, a
      torch.profiler trace of steps 3-4 naming the split step's kernels,
      debug_nans on and off, step ms of each), and the serve entry point
-     (serve_cli): --selftest, then --prompts-file over that snapshot;
+     (serve_cli): --selftest, then --prompts-file over that snapshot; the
+     train CLI's first call writes its snapshot with async_save (the
+     resume reads it) and gathers its batches with the C gather;
+     moe_train_step (the MoE training path: 1 layer at Mixtral-8x7B width,
+     T=4096, batch 2, bf16; first K1, the prep pass, K2a/K2b and K2c
+     against their plain versions at its attention shape, 32 heads over 8
+     KV heads, hd 128; its first loss against plain attention's; 1 K1, 1
+     prep, 1 K2a and 1 K2b launch per step, and with FLASH_FUSED_BWD=1 1
+     K1, 1 prep and 1 K2c: step ms, tokens/s, MFU by the JAX formula and
+     by the routed operations, peak memory);
   4b. sequence parallel: 4 ranks spawned on the one card over gloo: ring
      and Ulysses attention at GPT-2 width (T=4096) against dense plain
      attention; the sp = 4 ring train step at full GPT-2 width, block 4096,
@@ -92,8 +116,9 @@ Phases:
      reps), 64 reps timed against 32, and the opcodes of K6's compiled
      kernels. The SM clock, power and
      throttle reasons are logged before and after.
-The last three lines are the card, the kernels line (twelve kernels) and the
-ok line. Exits 2 without CUDA, 1 on any failure.
+The seconds of the phases added with MoE and telemetry are one line
+(new_phase_seconds). The last three lines are the card, the kernels line
+(twelve kernels) and the ok line. Exits 2 without CUDA, 1 on any failure.
 """
 
 from __future__ import annotations
@@ -1088,12 +1113,12 @@ SERVE_COMPARED_MIN = 0.9
 SERVE_SEED = 9
 
 
-def _serve_prompts(rng, lengths, head, shared):
-    """Token prompts of ``lengths``; those flagged ``shared`` start with
-    ``head``."""
+def _serve_prompts(rng, lengths, head, shared, vocab=50257):
+    """Token prompts of ``lengths`` below ``vocab``; those flagged
+    ``shared`` start with ``head``."""
     out = []
     for n, s in zip(lengths, shared):
-        p = rng.integers(0, 50257, int(n)).tolist()
+        p = rng.integers(0, vocab, int(n)).tolist()
         if s:
             p[:len(head)] = head
         out.append(p)
@@ -1200,32 +1225,34 @@ def check_tie_rule(phase, res, n_steps):
           f"{phase}: {res['compared_steps']} of {n_steps} steps compared")
 
 
-def parity_prompts():
+def parity_prompts(vocab=50257):
     """serve_parity's six prompts (5 to 700 tokens, two sharing a 128-token
     head) and their lengths."""
     rng = np.random.default_rng(SERVE_SEED)
     lengths = rng.integers(5, 701, 6)
     lengths[0], lengths[1] = 5, 700
     lengths[2], lengths[4] = rng.integers(129, 257), rng.integers(129, 701)
-    head = rng.integers(0, 50257, 128).tolist()
-    return _serve_prompts(rng, lengths, head, [i in (2, 4) for i in range(6)]), lengths
+    head = rng.integers(0, vocab, 128).tolist()
+    return _serve_prompts(rng, lengths, head, [i in (2, 4) for i in range(6)],
+                          vocab), lengths
 
 
 PARITY_NEW = 24
 
 
-def phase_serve_parity(params32, card):
-    """The server at GPT-2 124M width, fp32: 4 slots, 6 greedy requests
-    (prompts of 5 to 700 tokens, two sharing a 128-token head), 24 new
-    tokens each, chunked prefill (256) and the prefix cache on; every
-    request's tokens against the port's solo KV-cached generate on the card
-    under the tie rule. Returns (prompts, solo decode) for the speculative
-    and quantized parity phases."""
+def phase_serve_parity(params32, card, cfg=None, phase="serve_parity",
+                       model="gpt2 124M"):
+    """The server at GPT-2 124M width (or ``cfg``'s), fp32: 4 slots, 6
+    greedy requests (prompts of 5 to 700 tokens, two sharing a 128-token
+    head), 24 new tokens each, chunked prefill (256) and the prefix cache
+    on; every request's tokens against the port's solo KV-cached generate
+    on the card under the tie rule. Returns (prompts, solo decode) for the
+    speculative and quantized parity phases."""
     from mingpt_distributed_tpu_torch.models import generate as gen
     from mingpt_distributed_tpu_torch.serving import InferenceServer, Request
 
-    cfg, new = gpt2_config("flash", "float32"), PARITY_NEW
-    prompts, lengths = parity_prompts()
+    cfg, new = cfg or gpt2_config("flash", "float32"), PARITY_NEW
+    prompts, lengths = parity_prompts(cfg.vocab_size)
     server = InferenceServer(params32, cfg, n_slots=4, prefill_chunk=256,
                              prefix_cache_mb=64, device="cuda")
     reset_counts()
@@ -1238,17 +1265,20 @@ def phase_serve_parity(params32, card):
         want = gen.generate(params32, cfg, [p], new, device="cuda")[0, len(p):]
         check(want.tolist() == toks, "solo decode differs from generate()")
     res = tie_rule(handles, solo, rows, new)
-    rec = {"phase": "serve_parity", "model": "gpt2 124M", "dtype": "float32",
+    rec = {"phase": phase, "model": model, "dtype": "float32",
            "slots": 4, "requests": 6, "prompt_lengths": [int(n) for n in lengths],
            "new_tokens": new, "prefill_chunk": 256, "steps": 6 * new,
            "compared_min": SERVE_COMPARED_MIN, **res,
            "prefix_hits": server.metrics.prefix_hits,
            "shapes": server.compile_counts(), "launches": launches,
            "seconds": dt, "card": card}
+    if cfg.n_experts:
+        rec["moe"] = {"experts": cfg.n_experts, "top_k": cfg.moe_top_k,
+                      "capacity_factor": cfg.moe_capacity_factor}
     emit(rec)
-    check(all(len(h.tokens) == new for h in handles), "a request fell short")
-    check_tie_rule("serve_parity", res, 6 * new)
-    check(server.metrics.prefix_hits >= 1, "serve_parity: no prefix hit")
+    check(all(len(h.tokens) == new for h in handles), f"{phase}: a request fell short")
+    check_tie_rule(phase, res, 6 * new)
+    check(server.metrics.prefix_hits >= 1, f"{phase}: no prefix hit")
     check(not any(launches.values()), f"serving launched kernels: {launches}")
     return prompts, solo
 
@@ -1434,18 +1464,19 @@ def decode_device_ms(engine, tokens, positions, do_sample, steps=20):
 SERVE_NEW = 64
 
 
-def serve_traffic(n_req):
+def serve_traffic(n_req, vocab=50257):
     """serve's traffic: the first ``n_req`` of its 32 requests (32 to 896
-    prompt tokens, half sharing a 256-token head, one in four sampled with
-    top-k 50), 64 new tokens each. (requests, prompt lengths, sampled)."""
+    prompt tokens below ``vocab``, half sharing a 256-token head, one in
+    four sampled with top-k 50), 64 new tokens each. (requests, prompt
+    lengths, sampled)."""
     from mingpt_distributed_tpu_torch.serving import Request
 
     rng = np.random.default_rng(SERVE_SEED + 1)
     shared = [i % 2 == 1 for i in range(32)]
     lengths = np.where(shared, rng.integers(257, 897, 32), rng.integers(32, 897, 32))
     lengths[1] = rng.integers(257, 513)  # the first sharer stores the head
-    head = rng.integers(0, 50257, 256).tolist()
-    prompts = _serve_prompts(rng, lengths, head, shared)
+    head = rng.integers(0, vocab, 256).tolist()
+    prompts = _serve_prompts(rng, lengths, head, shared, vocab)
     sampled = [i % 4 == 3 for i in range(32)]
     reqs = [Request(prompt=p, max_new_tokens=SERVE_NEW, do_sample=s,
                     top_k=50 if s else None, seed=i)
@@ -1454,16 +1485,18 @@ def serve_traffic(n_req):
 
 
 def pool_bytes_want(cfg, slots, kv_dtype):
-    """The bytes of a pool at GPT-2 width: K and V (one byte per element at
-    int8/fp8, the compute dtype's otherwise) and, quantized, their fp32
-    scale planes (one per row and head)."""
+    """The bytes of a pool: K and V (one byte per element at int8/fp8, the
+    compute dtype's otherwise) and, quantized, their fp32 scale planes (one
+    per row and KV head)."""
     rows = 2 * slots * cfg.n_layer * cfg.block_size
+    width = cfg.kv_heads * cfg.head_dim
     if kv_dtype == "fp32":
-        return rows * cfg.n_embd * torch.finfo(getattr(torch, cfg.dtype)).bits // 8
-    return rows * cfg.n_embd + rows * cfg.kv_heads * 4
+        return rows * width * torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    return rows * width + rows * cfg.kv_heads * 4
 
 
-def phase_serve(params32, card, kv_dtype="fp32", draft=None, n_req=32, serve_rec=None):
+def phase_serve(params32, card, kv_dtype="fp32", draft=None, n_req=32, serve_rec=None,
+                cfg=None, phase=None, model="gpt2 124M", attrib=False):
     """The serving main path at GPT-2 124M width, bf16, block 1024: 8 slots,
     serve's traffic (``serve_traffic``), chunked prefill (256), default
     buckets, a 256 MiB prefix cache, warmup. Tokens/s, TTFT and ITL
@@ -1473,13 +1506,17 @@ def phase_serve(params32, card, kv_dtype="fp32", draft=None, n_req=32, serve_rec
     phase is ``serve`` (the fp32 pool, the bf16 model's dtype),
     ``serve_quant`` (an int8 or fp8 pool) or ``serve_spec`` (a ``draft``:
     'self' or 'self:N', k = 4; host ms per propose, verify and round, set
-    beside ``serve_rec``)."""
+    beside ``serve_rec``). ``cfg``, ``phase`` and ``model`` name another
+    model (``serve_moe``); ``attrib`` turns the server's attribution on and
+    adds its program rows and HBM ledger, audited against
+    torch.cuda.memory_allocated, to the record."""
     from mingpt_distributed_tpu_torch.serve import draft_from
     from mingpt_distributed_tpu_torch.serving import InferenceServer
 
-    phase = "serve_spec" if draft else "serve" if kv_dtype == "fp32" else "serve_quant"
-    cfg = gpt2_config("flash", "bfloat16")
-    reqs, lengths, sampled = serve_traffic(n_req)
+    phase = phase or ("serve_spec" if draft else "serve" if kv_dtype == "fp32"
+                      else "serve_quant")
+    cfg = cfg or gpt2_config("flash", "bfloat16")
+    reqs, lengths, sampled = serve_traffic(n_req, cfg.vocab_size)
     token_times = {}
 
     def on_token(handle, _tok):
@@ -1493,7 +1530,7 @@ def phase_serve(params32, card, kv_dtype="fp32", draft=None, n_req=32, serve_rec
     torch.cuda.reset_peak_memory_stats()
     server = InferenceServer(params32, cfg, n_slots=8, prefill_chunk=256,
                              prefix_cache_mb=256, warmup=True, kv_dtype=kv_dtype,
-                             on_token=on_token, device="cuda", **spec_kw)
+                             on_token=on_token, attrib=attrib, device="cuda", **spec_kw)
     eng = server.engine
     host_ms = {"decode_step": [], "propose": [], "verify": [], "spec_round": [],
                "decode_round": []}
@@ -1537,7 +1574,7 @@ def phase_serve(params32, card, kv_dtype="fp32", draft=None, n_req=32, serve_rec
     itl = [b - a for ts in token_times.values() for a, b in zip(ts, ts[1:])]
     counts = server.compile_counts()
     m = server.metrics
-    rec = {"phase": phase, "main_path": phase == "serve", "model": "gpt2 124M",
+    rec = {"phase": phase, "main_path": phase in ("serve", "serve_moe"), "model": model,
            "dtype": "bfloat16", "kv_dtype": kv_dtype, "block_size": cfg.block_size,
            "slots": 8, "requests": n_req, "sampled_top_k50": sum(sampled),
            "prompt_tokens": int(sum(lengths)), "new_tokens": SERVE_NEW,
@@ -1580,6 +1617,11 @@ def phase_serve(params32, card, kv_dtype="fp32", draft=None, n_req=32, serve_rec
             "host_bound": kernel_ms < 0.5 * step_ms,
             "decode_kernels_per_step": kernels, "decode_top_kernels": top,
             "decode_top_host_ops": top_host})
+    if attrib:
+        report = server.attrib_report(include_live=True)
+        rec["attrib_rows"] = [r for r in report["programs"] if r["calls"]]
+        rec["hbm"] = report["hbm"]
+        rec["watchdog_recompiles"] = server.watchdog.recompiles
     if serve_rec is not None:
         rec["serve"] = {k: serve_rec[k] for k in (
             "tokens_per_s", "ttft_s", "itl_s", "decode_step_host_ms",
@@ -1603,9 +1645,349 @@ def phase_serve(params32, card, kv_dtype="fp32", draft=None, n_req=32, serve_rec
         check(server.spec.draft.engine.pool.free_count == 8,
               f"{phase}: a draft slot is still held")
     check(not any(launches.values()), f"{phase} launched kernels: {launches}")
+    if attrib:
+        hbm = rec["hbm"]
+        check(hbm["owners"]["kv_pool"] == eng.pool.nbytes
+              and hbm["audit"]["live_bytes"] >= hbm["total_bytes"],
+              f"{phase}: HBM ledger {hbm} against the pool's {eng.pool.nbytes} bytes")
+        check(server.watchdog.recompiles == 0,
+              f"{phase}: {server.watchdog.recompiles} new shapes after warmup")
     del server
     torch.cuda.empty_cache()
     return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: mixture of experts at Mixtral-8x7B width
+# ---------------------------------------------------------------------------
+
+# Mixtral-8x7B's widths (the mixtral-8x7b preset: d 4096, 32 heads over 8
+# KV heads, hd 128, SwiGLU experts of 14336, E = 8, top-2, V = 32000, RoPE
+# theta 1e6), cut in depth to fit one card with room to train: 1 layer for
+# the train step (1.71 G parameters, ~27 GB with fp32 gradients and Adam
+# moments), 2 for serving (3.17 G, 12.66 GB fp32). Random weights from
+# fixed seeds.
+MOE_TOKENS = 256
+# moe_check: the layer's bf16 output against fp32 on the same bf16-rounded
+# input (so both route alike): max |diff| over max |fp32 out|
+MOE_BF16_REL_TOL = 2e-2
+# E = 1, k = 1, ample capacity: the MoE layer against the dense SwiGLU
+# with the same weights, fp32 (the products are summed in another order)
+MOE_E1_REL_TOL = 1e-4
+MOE_TRAIN_T, MOE_TRAIN_B, MOE_TRAIN_STEPS = 4096, 2, 3
+MOE_SERVE_LAYERS = 2
+# K1/K2 at the shape the MoE train step gives them, bf16
+MOE_KERNEL_CASE = ("mixtral_train", MOE_TRAIN_B, MOE_TRAIN_T, 32, 8, 128, None, None)
+# the MoE step's first loss against the same step's loss through plain
+# attention, relative
+MOE_PLAIN_LOSS_REL_TOL = 1e-2
+
+
+def mixtral_config(dtype, n_layer, block_size, attention="flash", capacity_factor=None):
+    """The mixtral-8x7b preset at ``n_layer`` layers and ``block_size``
+    positions (the preset's own 8192 would win over a block_size given to
+    make), no dropout."""
+    from mingpt_distributed_tpu_torch.config import GPTConfig
+
+    cfg = GPTConfig.make(model_type="mixtral-8x7b", attention=attention, dtype=dtype,
+                         embd_pdrop=0.0, resid_pdrop=0.0, attn_pdrop=0.0)
+    kw = {"n_layer": n_layer, "block_size": block_size}
+    if capacity_factor is not None:
+        kw["moe_capacity_factor"] = capacity_factor
+    return dataclasses.replace(cfg, **kw)
+
+
+def mixtral_params(cfg, seed=0):
+    from mingpt_distributed_tpu_torch.models import gpt
+
+    return gpt.init(cfg, torch.Generator(device="cuda").manual_seed(seed), device="cuda")
+
+
+def moe_layer_flops(cfg, tokens, per_row=False, rows=1):
+    from mingpt_distributed_tpu_torch.ops import moe
+
+    return moe.moe_flops(tokens, cfg.n_embd, int(cfg.ffn_mult * cfg.n_embd),
+                         cfg.n_experts, cfg.moe_top_k, cfg.moe_capacity_factor,
+                         cfg.swiglu, per_row=per_row, rows=rows)
+
+
+def routed_train_flops_per_token(cfg, t, b):
+    """Training operations per token as the step runs them: 3 x the
+    forward's matrix products, the experts over their whole capacity
+    buffers with the router, dispatch and combine (``moe_layer_flops``),
+    plus flops_per_token's attention term 12 L d T. flops_per_token itself
+    (the JAX formula) counts one dense FFN per layer."""
+    d, kv = cfg.n_embd, cfg.kv_heads * cfg.head_dim
+    proj = 2 * (d * (d + 2 * kv) + d * d)
+    fwd = cfg.n_layer * (proj + moe_layer_flops(cfg, b * t) / (b * t)) \
+        + 2 * d * cfg.vocab_size
+    return 3 * fwd + 12 * cfg.n_layer * d * t
+
+
+def phase_moe_check(card):
+    """moe_mlp at Mixtral-8x7B width on 256 tokens: bf16 against fp32 on the
+    same bf16-rounded input (the router runs in fp32 in both, so both route
+    alike: equal aux loss), and with one expert against the dense SwiGLU
+    MLP; device ms of the bf16 layer and of casting one layer's expert
+    weights to bf16 (what every call pays), beside their routed operations
+    and bytes."""
+    from mingpt_distributed_tpu_torch.ops import layers as L
+    from mingpt_distributed_tpu_torch.ops import moe
+
+    cfg = mixtral_config("bfloat16", 1, MOE_TRAIN_T)
+    d, f, e = cfg.n_embd, int(cfg.ffn_mult * cfg.n_embd), cfg.n_experts
+    g = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn((1, MOE_TOKENS, d), generator=g, device="cuda").bfloat16()
+
+    def w(*shape, std=0.02):
+        return torch.randn(shape, generator=g, device="cuda") * std
+
+    wr, w1, w2, wg = w(d, e, std=1.0), w(e, d, f), w(e, f, d), w(e, d, f)
+    kw = dict(top_k=cfg.moe_top_k, capacity_factor=cfg.moe_capacity_factor, w_gate=wg)
+    with torch.no_grad():
+        out16, aux16 = moe.moe_mlp(x, wr, w1, w2, **kw)
+        out32, aux32 = moe.moe_mlp(x.float(), wr, w1, w2, **kw)
+        one, _ = moe.moe_mlp(x.float(), torch.zeros((d, 1), device="cuda"), w1[:1],
+                             w2[:1], top_k=1, capacity_factor=2.0, w_gate=wg[:1])
+        dense = L.mlp_swiglu(x.float(), wg[0], w1[0], w2[0])
+        layer_ms = cuda_ms(lambda: moe.moe_mlp(x, wr, w1, w2, **kw), iters=5)
+        cast_ms = cuda_ms(lambda: [t.to(torch.bfloat16) for t in (w1, w2, wg)], iters=5)
+    err = ((out16.float() - out32).abs().max() / out32.abs().max()).item()
+    e1_err = ((one - dense).abs().max() / dense.abs().max()).item()
+    flops = moe_layer_flops(cfg, MOE_TOKENS)
+    weight_bytes = 3 * e * d * f * 4
+    rec = {"phase": "moe_check", "model": "mixtral-8x7b width", "tokens": MOE_TOKENS,
+           "experts": e, "top_k": cfg.moe_top_k, "capacity_factor": cfg.moe_capacity_factor,
+           "bf16_vs_fp32_max_rel_err": err, "tol": MOE_BF16_REL_TOL,
+           "aux_bf16": aux16.item(), "aux_fp32": aux32.item(),
+           "e1_vs_dense_swiglu_max_rel_err": e1_err, "e1_tol": MOE_E1_REL_TOL,
+           "layer_ms_bf16": layer_ms, "routed_gflop": flops / 1e9,
+           "layer_bound_ms": roofline_ms(weight_bytes, [(flops, H100_SXM["bfloat16"])])[0],
+           "expert_cast_ms_per_layer": cast_ms,
+           "expert_cast_bytes_per_layer": weight_bytes * 3 // 2,
+           "expert_cast_bound_ms": roofline_ms(weight_bytes * 3 // 2)[0], "card": card}
+    emit(rec)
+    check(bool(torch.isfinite(out16).all()) and bool(torch.isfinite(out32).all()),
+          "moe_check: non-finite output")
+    check(err <= MOE_BF16_REL_TOL, f"moe_check: bf16 vs fp32 {err} > {MOE_BF16_REL_TOL}")
+    check(aux16.item() == aux32.item(), "moe_check: bf16 and fp32 routed differently")
+    check(e1_err <= MOE_E1_REL_TOL, f"moe_check: E=1 vs dense SwiGLU {e1_err}")
+    del w1, w2, wg
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_moe_train(fa, card):
+    """The MoE training path: make_train_step on the mixtral-8x7b preset
+    at 1 layer, T = 4096, batch 2, bf16, flash attention, no dropout. First
+    K1, the prep pass, K2a/K2b and K2c against their plain versions at the
+    shape this step gives them (bf16); the step's first loss against the
+    same forward through plain attention; then MOE_TRAIN_STEPS split steps
+    (1 K1, 1 prep, 1 K2a, 1 K2b launch each) and MOE_TRAIN_STEPS with
+    FLASH_FUSED_BWD=1 (1 K1, 1 prep, 1 K2c each) on one state: step ms,
+    tokens/s, the trainer's MFU (flops_per_token, the JAX formula) and the
+    routed-operations MFU, peak memory, launches. Returns (split, fused)
+    records."""
+    from mingpt_distributed_tpu_torch.config import OptimizerConfig
+    from mingpt_distributed_tpu_torch.models import gpt
+    from mingpt_distributed_tpu_torch.training.metrics import flops_per_token
+    from mingpt_distributed_tpu_torch.training.optimizer import make_optimizer
+    from mingpt_distributed_tpu_torch.training.trainer import (
+        TrainState, make_train_step, trainable)
+
+    i = len(KERNEL_CASES) + len(FWD_RING_CASES) + len(BWD_RING_CASES)
+    for fn in (fwd_case, prep_case, bwd_case, fused_case):
+        rec, fails = fn(fa, i, MOE_KERNEL_CASE, torch.bfloat16)
+        emit(rec)
+        check(not fails, "; ".join(msg for _, msg in fails))
+    torch.cuda.empty_cache()
+
+    cfg = mixtral_config("bfloat16", 1, MOE_TRAIN_T)
+    t, b = MOE_TRAIN_T, MOE_TRAIN_B
+    params = trainable(mixtral_params(cfg))
+    state = TrainState(params, make_optimizer(OptimizerConfig(), params, 1.0))
+    g = torch.Generator(device="cuda").manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (b, t + 1), generator=g, device="cuda")
+    batch = (tokens[:, :-1], tokens[:, 1:])
+    with torch.no_grad():
+        _, plain_loss = gpt.forward(params, batch[0], dataclasses.replace(
+            cfg, attention="einsum"), targets=batch[1], return_logits=False)
+    plain_loss = plain_loss.item()
+    torch.cuda.empty_cache()
+    step = make_train_step(cfg)
+    fpt = flops_per_token(cfg, t)
+    routed = routed_train_flops_per_token(cfg, t, b)
+    peak = PEAK_FLOPS[torch.bfloat16]
+    recs = {}
+    for fused in (False, True):
+        with fused_switch(fused):
+            first = step(state, batch)["loss"].item()  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            losses = [step(state, batch)["loss"] for _ in range(MOE_TRAIN_STEPS)]
+            torch.cuda.synchronize()
+            dt = (time.perf_counter() - t0) / MOE_TRAIN_STEPS
+            counts = read_counts()
+        n = MOE_TRAIN_STEPS
+        want = (expected(flash_fwd=n, flash_bwd_prep=n, flash_bwd_fused=n) if fused
+                else expected(flash_fwd=n, flash_bwd_prep=n, flash_bwd_dq=n,
+                              flash_bwd_dkv=n))
+        tps = b * t / dt
+        phase = "moe_train_step_fused" if fused else "moe_train_step"
+        rec = {"phase": phase, "main_path": not fused, "flash_fused_bwd": fused,
+               "model": "mixtral-8x7b width, 1 layer", "params": gpt.param_count(params),
+               "batch": b, "seq": t, "dtype": cfg.dtype, "steps": n,
+               "experts": cfg.n_experts, "top_k": cfg.moe_top_k,
+               "capacity_factor": cfg.moe_capacity_factor,
+               "launches": counts, "launches_want": want, "step_ms": dt * 1e3,
+               "tokens_per_s": tps, "flops_per_token": fpt, "mfu": fpt * tps / peak,
+               "routed_flops_per_token": routed, "routed_mfu": routed * tps / peak,
+               "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+               "warmup_loss": first, "losses": [v.item() for v in losses],
+               "card": card}
+        if not fused:
+            rec.update(plain_attention_loss=plain_loss,
+                       plain_loss_rel_err=abs(first - plain_loss) / abs(plain_loss),
+                       plain_loss_tol=MOE_PLAIN_LOSS_REL_TOL)
+        emit(rec)
+        recs[fused] = rec
+        check(counts == want, f"{phase}: launches {counts}, want {want}")
+        check(all(math.isfinite(v) for v in rec["losses"]), f"{phase}: non-finite loss")
+        check(rec["losses"][-1] < first, f"{phase}: the loss on a repeated batch did not fall")
+    check(recs[False]["plain_loss_rel_err"] <= MOE_PLAIN_LOSS_REL_TOL,
+          f"moe_train_step: first loss {recs[False]['warmup_loss']} against plain "
+          f"attention's {plain_loss}")
+    del state, params, batch, tokens
+    torch.cuda.empty_cache()
+    return recs[False], recs[True]
+
+
+def phase_serve_moe(card):
+    """Serving at Mixtral-8x7B width, 2 layers, block 1024 (serve's
+    traffic needs at most 960 positions): serve_moe_parity (fp32, capacity
+    factor E / k = 4 so no token drops and the server's per-slot routing
+    equals solo decode's, serve_parity's requests and tie rule) and
+    serve_moe (bf16 compute over the same fp32 weights, the preset's
+    capacity factor 1.25, serve's traffic, attribution on: its prefill and
+    decode rows and the HBM ledger against torch.cuda.memory_allocated).
+    Returns (parity launches, serve_moe record)."""
+    cfg32 = mixtral_config("float32", MOE_SERVE_LAYERS, 1024, capacity_factor=4.0)
+    check(cfg32.moe_capacity_factor >= cfg32.n_experts / cfg32.moe_top_k,
+          "serve_moe_parity: capacity binds")
+    params = mixtral_params(cfg32)
+    phase_serve_parity(params, card, cfg=cfg32, phase="serve_moe_parity",
+                       model="mixtral-8x7b width, 2 layers")
+    launches = read_counts()
+    cfg16 = mixtral_config("bfloat16", MOE_SERVE_LAYERS, 1024)
+    rec = phase_serve(params, card, cfg=cfg16, phase="serve_moe",
+                      model="mixtral-8x7b width, 2 layers", attrib=True)
+    del params
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
+def _served(params32, cfg, reqs, **kw):
+    """serve's server (8 slots, chunked prefill 256, a 256 MiB prefix cache,
+    warmup) over ``reqs`` with the options ``kw``: (server, handles,
+    seconds, host ms of each decode step)."""
+    from mingpt_distributed_tpu_torch.serving import InferenceServer
+
+    server = InferenceServer(params32, cfg, n_slots=8, prefill_chunk=256,
+                             prefix_cache_mb=256, warmup=True, device="cuda", **kw)
+    eng, step_ms = server.engine, []
+    real = eng.decode_step
+
+    def decode_step(*args):
+        t0 = time.perf_counter()
+        out = real(*args)
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    eng.decode_step = decode_step
+    handles, dt = timed(lambda: server.generate_batch(reqs))
+    del eng.decode_step
+    return server, handles, dt, step_ms
+
+
+def phase_serve_telemetry(params32, card, tmp):
+    """serve (GPT-2 124M width, bf16, 8 slots) on its first 16 requests
+    with request tracing (a JSONL sink), the flight recorder, attribution
+    and a TelemetryServer: the trace file, the flight dump (on demand and
+    from /debug/flight) and the attribution report (/attrib) through the
+    port's validators; the SLO report over the traces; the prefill and
+    decode rows; the watchdog at 0 after warmup; 0 launches. What the
+    instruments cost: the same requests without them, before and after
+    (plain, traced, plain), tokens/s and host ms per decode step."""
+    import urllib.request
+
+    from mingpt_distributed_tpu_torch import telemetry
+
+    cfg = gpt2_config("flash", "bfloat16")
+    reqs, _, _ = serve_traffic(16)
+    plain = [_served(params32, cfg, reqs)[1:]]
+    reg = telemetry.MetricsRegistry()
+    flight = telemetry.FlightRecorder(out_dir=os.path.join(tmp, "flight"), registry=reg)
+    flight.metrics_providers["process"] = lambda: telemetry.render_prometheus(reg)
+    trace_path = os.path.join(tmp, "traces.jsonl")
+    recorder = telemetry.TraceRecorder(sink=telemetry.trace_sink(trace_path),
+                                       registry=reg, flight=flight)
+    tserver = telemetry.TelemetryServer(reg, port=0)
+    try:
+        reset_counts()
+        server, handles, dt, step_ms = _served(
+            params32, cfg, reqs, registry=reg, trace_recorder=recorder, attrib=True,
+            recompile_fail=True)
+        launches = read_counts()
+        tserver.flight_provider = lambda: flight.snapshot("on_demand")
+        tserver.attrib_provider = server.attrib_report
+        with urllib.request.urlopen(tserver.url("/attrib"), timeout=30) as resp:
+            served = json.loads(resp.read().decode())
+        with urllib.request.urlopen(tserver.url("/debug/flight"), timeout=30) as resp:
+            snap = json.loads(resp.read().decode())
+    finally:
+        tserver.close()
+    plain.append(_served(params32, cfg, reqs)[1:])
+    flight.dump("smoke")
+    recorder.close()
+    traces = telemetry.load_trace_jsonl(trace_path)
+    _, dumps = telemetry.load_flight_dir(flight.out_dir)
+    telemetry.validate_flight_dump(snap)
+    telemetry.validate_attrib_report(served)
+    report = server.attrib_report()
+    telemetry.validate_attrib_report(report)
+    slo = telemetry.evaluate_slos(recorder.completed_requests(),
+                                  telemetry.parse_slo_spec("default"))
+    rows = [r for r in report["programs"] if r["family"] in ("prefill", "decode")
+            and r["calls"]]
+    generated = sum(len(h.tokens) for h in handles)
+    rec = {"phase": "serve_telemetry", "model": "gpt2 124M", "dtype": "bfloat16",
+           "slots": 8, "requests": len(reqs), "generated_tokens": generated,
+           "seconds": dt, "tokens_per_s": generated / dt,
+           "decode_step_host_ms": _percentiles(step_ms),
+           "plain_tokens_per_s": [sum(len(h.tokens) for h in hs) / t for hs, t, _ in plain],
+           "plain_decode_step_host_ms": [_percentiles(ms) for _, _, ms in plain],
+           "tokens_equal_to_plain": [[h.tokens for h in handles] == [h.tokens for h in hs]
+                                     for hs, _, _ in plain],
+           "traces": len(traces), "trace_records": sum(
+               len(v["spans"]) + len(v["events"]) + 1 for v in traces.values()),
+           "flight_dumps": len(dumps), "flight_records": len(snap["records"]),
+           "slo": {k: slo[k] for k in ("grade", "attained", "evaluable", "objectives")},
+           "attrib_rows": rows, "hbm_owners": report["hbm"]["owners"],
+           "watchdog_recompiles": server.watchdog.recompiles, "launches": launches,
+           "card": card}
+    emit(rec)
+    check(len(traces) == len(reqs) and all(
+        v["request"]["n_tokens"] == SERVE_NEW for v in traces.values()),
+        f"serve_telemetry: {len(traces)} traces for {len(reqs)} requests")
+    check(server.watchdog.recompiles == 0, "serve_telemetry: new shapes after warmup")
+    check({r["family"] for r in rows} == {"prefill", "decode"},
+          f"serve_telemetry: attribution rows {rows}")
+    check(not any(launches.values()), f"serve_telemetry launched kernels: {launches}")
+    del server
+    torch.cuda.empty_cache()
+    return launches
 
 
 SERVE_CLI_PROMPTS = ("the king ", "and so the ", "what is ", "o my lord. ")
@@ -1861,9 +2243,11 @@ def run_entry(argv):
 
 def phase_train_entry(card, tmp):
     """python -m mingpt_distributed_tpu_torch.train, driven through main():
-    GPT-2 width on the corpus, then a second call that resumes. The
-    snapshot is written under ``tmp``; returns the arguments that name it
-    and the model."""
+    GPT-2 width on the corpus with async_save (the snapshot written by a
+    background thread, joined before train() returns; the batches gathered
+    by the C gather), then a second call that resumes from that snapshot.
+    The snapshot is written under ``tmp``; returns the arguments that name
+    it and the model."""
     snap = os.path.join(tmp, "snapshot.pt")
     argv = ["--config", os.path.join(REPO, "gpt2_config.yaml"),
             "gpt_config.model_type=gpt2", "~gpt_config.n_layer",
@@ -1878,7 +2262,8 @@ def phase_train_entry(card, tmp):
     reset_counts()
     t0 = time.perf_counter()
     with fused_switch(False):
-        rc, out = run_entry(argv + [f"trainer_config.max_steps={ENTRY_STEPS}"])
+        rc, out = run_entry(argv + [f"trainer_config.max_steps={ENTRY_STEPS}",
+                                    "trainer_config.async_save=true"])
     dt = time.perf_counter() - t0
     counts = read_counts()
     losses = {int(a): float(b) for a, b in
@@ -1898,11 +2283,13 @@ def phase_train_entry(card, tmp):
           "loss_drop_min": ENTRY_LOSS_DROP,
           "eval_loss": float(evals[-1]) if evals else None,
           "snapshot_committed": os.path.exists(snap + ".manifest.json"),
+          "async_save": True, "async_snapshot_saved": ", async)" in out,
           "resume_rc": rc2, "resumed_at_saved_step": resumed in out2,
           "resumed_steps": [int(v) for v in losses2], "card": card})
     check(drop >= ENTRY_LOSS_DROP, f"loss fell by {drop} < {ENTRY_LOSS_DROP}")
     check(len(evals) == 1 and math.isfinite(float(evals[0])), "no eval loss")
     check(os.path.exists(snap + ".manifest.json"), "no snapshot committed")
+    check(", async)" in out, "train entry: the snapshot was not written asynchronously")
     check(counts["flash_bwd_dq"] == 12 * ENTRY_STEPS,
           f"train entry: {counts} launches")
     check(rc2 == 0 and resumed in out2, "second call did not resume")
@@ -2924,14 +3311,29 @@ def main() -> int:
                    for kv in ("int8", "fp8")}
     serve_spec = {d: phase_serve(model32.params, card, draft=d, n_req=16, serve_rec=serve)
                   for d in ("self:2", "self")}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    seconds = {}
+    t0 = time.perf_counter()
+    serve_telemetry = phase_serve_telemetry(model32.params, card, tmp)
+    seconds["serve_telemetry"] = time.perf_counter() - t0
     del model32
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_moe_check(card)
+    seconds["moe_check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve_moe_parity, serve_moe = phase_serve_moe(card)
+    seconds["serve_moe_parity+serve_moe"] = time.perf_counter() - t0
 
     split = phase_train_step(card)
     fused = phase_train_step(card, fused=True, split=split)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    t0 = time.perf_counter()
+    moe_split, moe_fused = phase_moe_train(fa, card)
+    seconds["moe_train_step+fused"] = time.perf_counter() - t0
     try:
+        t0 = time.perf_counter()
         train_argv = phase_train_entry(card, tmp)
+        seconds["train_cli"] = time.perf_counter() - t0
         phase_train_telemetry(card, train_argv, tmp)
         phase_serve_cli(card, train_argv, tmp)
     finally:
@@ -2999,7 +3401,11 @@ def main() -> int:
           **{f"serve_spec_parity_{d}": v for d, v in spec_parity.items()},
           **{f"serve_quant_parity_{kv}": v for kv, v in quant_parity.items()},
           **{f"serve_quant_{kv}": r["launches"] for kv, r in serve_quant.items()},
-          **{f"serve_spec_{d}": r["launches"] for d, r in serve_spec.items()}})
+          **{f"serve_spec_{d}": r["launches"] for d, r in serve_spec.items()},
+          "serve_telemetry": serve_telemetry, "serve_moe_parity": serve_moe_parity,
+          "serve_moe": serve_moe["launches"], "moe_train_step": moe_split["launches"],
+          "moe_train_step_fused": moe_fused["launches"]})
+    emit({"phase": "new_phase_seconds", **seconds})
     print(card_line(), flush=True)
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",

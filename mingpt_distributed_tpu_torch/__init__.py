@@ -13,12 +13,15 @@ Ported so far: the inference path (config, layers, attention, the causal
 flash-attention forward kernel, the GPT forward, KV-cached and
 sliding-window generation, the sample CLI), training on one GPU and dp x
 sp across processes (the flash-attention backward kernels, chunked
-cross-entropy, remat, AdamW, the data iterator, durable snapshots, the
-trainer, its telemetry and the train CLI; ring and Ulysses attention),
-the char and byte-level BPE tokenizers, the HuggingFace GPT-2 and Llama
-weight loaders, and serving (the continuous-batching engine and scheduler,
-speculative decoding, int8/fp8 KV pools, their metrics and the /metrics
-endpoint, the serve CLI).
+cross-entropy, remat, AdamW, the data iterator with its C batch gather,
+durable and asynchronous snapshots, the trainer, its telemetry and the
+train CLI; ring and Ulysses attention), mixture-of-experts blocks in one
+process, the char and byte-level BPE tokenizers, the HuggingFace GPT-2 and
+Llama weight loaders, and serving (the continuous-batching engine and
+scheduler, speculative decoding, int8/fp8 KV pools, their metrics, request
+tracing, the flight recorder, SLO reports, attribution and the recompile
+watchdog, the /metrics, /debug/flight and /attrib endpoints, the serve
+CLI).
 """
 
 from mingpt_distributed_tpu_torch.config import (  # noqa: F401

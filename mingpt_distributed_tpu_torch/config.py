@@ -50,7 +50,8 @@ MODEL_PRESETS: dict[str, dict[str, Any]] = {
                           rope=True, swiglu=True, rmsnorm=True, tie_weights=False,
                           vocab_size=32000, block_size=8192, ffn_mult=3.5,
                           rope_theta=1000000.0, attention_window=4096),
-    # Mixtral-style sparse MoE presets (the MoE MLP is not ported yet)
+    # Mixtral-style sparse MoE presets (SwiGLU experts, top-2 routing;
+    # ops/moe.py, one process)
     "mixtral-tiny":  dict(n_layer=4,  n_head=4,  n_embd=256,  n_kv_head=2,
                           rope=True, swiglu=True, rmsnorm=True, tie_weights=False,
                           n_experts=4, moe_top_k=2),
@@ -222,7 +223,7 @@ class DataConfig:
     block_size: int = 128
     train_split: float = 0.9
     truncate: float = 1.0
-    # "char" is ported; "bpe" is queued (ROADMAP.md Queue 1 item 2)
+    # "char" (data/char_dataset.py) or "bpe" (data/bpe.py)
     tokenizer: str = "char"
     bpe_vocab_size: int = 512
     bpe_path: Optional[str] = None
@@ -283,9 +284,7 @@ class MeshConfig:
 # the ROADMAP.md item that brings it.
 UNPORTED_TRAINER_OPTIONS = {
     "zero_dp": "Queue 1 item 10 (parallel/zero.py)",
-    "async_save": "Queue 1 item 1 (asynchronous snapshot writes)",
     "msgpack_gather_limit_mb": "Queue 1 item 8 (multi-process saves)",
-    "dl_num_workers": "Queue 1 item 3 (runtime/native_batcher.c)",
 }
 
 

@@ -10,8 +10,10 @@ batches. Under dp x sp each process takes its share of every global batch:
 its dp replica's rows (``process_index`` of ``process_count``, as in JAX)
 and its sp rank's columns (``seq_index`` of ``seq_count``), so the ranks
 together hold exactly the JAX global batch. The corpus is a local file;
-batches are gathered with numpy (the JAX package's optional C gather,
-``runtime/native_batcher.c``, is queued).
+batches are gathered by the C loop of ``data/native_batcher.py`` (built with
+gcc at first use; the port's copy of ``runtime/native_batcher.c``), which
+releases the GIL so a prefetch thread overlaps it with the step;
+``gather_numpy`` is its plain version.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 
 from mingpt_distributed_tpu_torch.config import DataConfig
+from mingpt_distributed_tpu_torch.data import native_batcher
 
 
 class CharDataset:
@@ -81,7 +84,15 @@ class CharView:
         return max(0, (self.stop - self.start) - self.block_size)
 
     def gather(self, indices: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
-        """(x, y) int32 batch for window start offsets within this view."""
+        """(x, y) int32 batch for window start offsets within this view,
+        gathered by the C loop."""
+        starts = np.asarray(indices, dtype=np.int64) + self.start
+        chunks = native_batcher.gather_windows(self.parent.data, starts,
+                                               self.block_size)
+        return chunks[:, :-1], chunks[:, 1:]
+
+    def gather_numpy(self, indices: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """``gather``'s plain version: numpy fancy indexing."""
         starts = np.asarray(indices, dtype=np.int64) + self.start
         offs = np.arange(self.block_size + 1, dtype=np.int64)
         chunks = self.parent.data[starts[:, None] + offs[None, :]]

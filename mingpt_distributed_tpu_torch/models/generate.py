@@ -24,6 +24,10 @@ batched form of the JAX engine's ``vmap`` over the solo decode body: each
 row's K/V is written at its own position by advanced indexing, its
 attention mask and its learned position (``wpe``) or RoPE tables are its
 own, and every row computes what the solo body would at that position.
+A mixture-of-experts block routes each such row as its own group
+(``moe_mlp(per_row=True)``), as the vmapped JAX body does, so the slots never
+compete for expert capacity; a call with one shared offset (prefill, solo
+decode, verify) routes its B*T tokens together, as JAX does.
 """
 
 from __future__ import annotations
@@ -114,11 +118,7 @@ def _cached_block(
     x = x + L.dense(att, blk["wo"], blk.get("bo"))
 
     h2 = gpt._norm(x, blk["ln2_scale"], blk.get("ln2_bias"), cfg)
-    if cfg.swiglu:
-        m = L.mlp_swiglu(h2, blk["w_gate"], blk["w_up"], blk["w_down"])
-    else:
-        m = L.mlp_gelu(h2, blk["w_fc"], blk.get("b_fc"), blk["w_proj"],
-                       blk.get("b_proj"))
+    m, _ = gpt.mlp(h2, blk, cfg, per_row=per_row)
     return x + m
 
 

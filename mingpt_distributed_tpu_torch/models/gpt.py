@@ -18,8 +18,12 @@ start at ``sp_rank * T_local``, which GSPMD does implicitly in the JAX
 package; ``loss_terms`` returns the rank's token sum and count for the
 trainer's global mean.
 
-Not in this slice: mixture-of-experts blocks raise NotImplementedError
-(ROADMAP.md, Queue 1).
+Mixture-of-experts blocks (``n_experts > 0``, ``ops/moe.py``) replace the
+dense MLP with routed experts: the leaves ``w_router``, ``w_e1``, ``w_e2``
+and, with SwiGLU, ``w_eg``; the loss adds ``moe_aux_weight * aux /
+n_layer``, the per-layer sum of the Switch aux loss, as in the JAX package.
+MoE runs in one process: across processes each rank would route only its
+own rows (ROADMAP.md Queue 1 item 12b).
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from mingpt_distributed_tpu_torch.config import GPTConfig
 from mingpt_distributed_tpu_torch.ops import attention as attn_ops
 from mingpt_distributed_tpu_torch.ops import flash_attention
 from mingpt_distributed_tpu_torch.ops import layers as L
+from mingpt_distributed_tpu_torch.ops import moe
 from mingpt_distributed_tpu_torch.parallel import ring_attention, ulysses
 
 Params = Dict[str, Any]
@@ -47,13 +52,6 @@ def compute_dtype(cfg: GPTConfig) -> torch.dtype:
     return dtype
 
 
-def check_supported(cfg: GPTConfig) -> None:
-    """Raise for the configurations this slice does not run yet."""
-    if cfg.n_experts:
-        raise NotImplementedError(
-            "mixture-of-experts blocks are not ported yet (ROADMAP.md Queue 1)")
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
@@ -64,7 +62,6 @@ def param_spec(cfg: GPTConfig) -> Params:
     "zeros"}: the same tree ``mingpt_distributed_tpu.models.gpt.init``
     builds."""
     cfg.validate()
-    check_supported(cfg)
     d, nl, nh = cfg.n_embd, cfg.n_layer, cfg.n_head
     hd, kv = cfg.head_dim, cfg.kv_heads
     ffn = int(cfg.ffn_mult * d)
@@ -84,7 +81,14 @@ def param_spec(cfg: GPTConfig) -> Params:
     if use_bias:
         blocks.update(bq=((nl, nh * hd), "zeros"), bk=((nl, kv * hd), "zeros"),
                       bv=((nl, kv * hd), "zeros"), bo=((nl, d), "zeros"))
-    if cfg.swiglu:
+    if cfg.n_experts:
+        e = cfg.n_experts
+        blocks.update(w_router=((nl, d, e), "normal"),
+                      w_e1=((nl, e, d, ffn), "normal"),
+                      w_e2=((nl, e, ffn, d), "resid"))
+        if cfg.swiglu:  # Mixtral-style SwiGLU experts
+            blocks["w_eg"] = ((nl, e, d, ffn), "normal")
+    elif cfg.swiglu:
         blocks.update(w_gate=((nl, d, ffn), "normal"),
                       w_up=((nl, d, ffn), "normal"),
                       w_down=((nl, ffn, d), "resid"))
@@ -139,6 +143,15 @@ def init(cfg: GPTConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 
+def check_supported(cfg: GPTConfig, across_processes: bool = False) -> None:
+    """Raise for what this port does not run yet: mixture-of-experts blocks
+    across processes, where each rank would route only its own rows."""
+    if cfg.n_experts and across_processes:
+        raise NotImplementedError(
+            "mixture-of-experts across processes (dp, sp or ep > 1) is not "
+            "ported yet (ROADMAP.md Queue 1 item 12b)")
+
+
 def _attention_dispatch(cfg: GPTConfig, mesh=None) -> Callable[..., torch.Tensor]:
     """The attention implementation named by cfg.attention: "einsum" (the
     oracle), "flash" (the hand-written kernels), "ring" or "ulysses"
@@ -171,8 +184,9 @@ def _block(
     generator: Optional[torch.Generator],
     deterministic: bool,
     mesh=None,
-) -> torch.Tensor:
-    """One pre-LN transformer block: x + attn(ln1(x)); x + mlp(ln2(x))."""
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One pre-LN transformer block: x + attn(ln1(x)); x + mlp(ln2(x)).
+    Returns (x, the MoE aux loss, or None for a dense MLP)."""
     b, t, d = x.shape
     nh, kv, hd = cfg.n_head, cfg.kv_heads, cfg.head_dim
 
@@ -200,12 +214,26 @@ def _block(
     x = x + L.dropout(att, cfg.resid_pdrop, generator, deterministic)
 
     h2 = _norm(x, blk["ln2_scale"], blk.get("ln2_bias"), cfg)
+    m, aux = mlp(h2, blk, cfg)
+    return x + L.dropout(m, cfg.resid_pdrop, generator, deterministic), aux
+
+
+def mlp(h: torch.Tensor, blk: Params, cfg: GPTConfig, per_row: bool = False
+        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The block's MLP on ln2's output: routed experts (``per_row``: each
+    batch row routed on its own, ``moe.moe_mlp``), SwiGLU or GELU. Returns
+    (out, the MoE aux loss, or None for a dense MLP)."""
+    if cfg.n_experts:
+        return moe.moe_mlp(h, blk["w_router"], blk["w_e1"], blk["w_e2"],
+                           top_k=cfg.moe_top_k,
+                           capacity_factor=cfg.moe_capacity_factor,
+                           w_gate=blk.get("w_eg"), per_row=per_row)
     if cfg.swiglu:
-        m = L.mlp_swiglu(h2, blk["w_gate"], blk["w_up"], blk["w_down"])
+        m = L.mlp_swiglu(h, blk["w_gate"], blk["w_up"], blk["w_down"])
     else:
-        m = L.mlp_gelu(h2, blk["w_fc"], blk.get("b_fc"), blk["w_proj"],
+        m = L.mlp_gelu(h, blk["w_fc"], blk.get("b_fc"), blk["w_proj"],
                        blk.get("b_proj"))
-    return x + L.dropout(m, cfg.resid_pdrop, generator, deterministic)
+    return m, None
 
 
 def layer_params(params: Params, layer: int) -> Params:
@@ -278,21 +306,31 @@ def forward(
     sp > 1, ``tokens`` is this rank's chunk of the sequence and everything
     returned is the chunk's.
     """
-    x = _hidden(params, tokens, cfg, generator, deterministic, mesh)
+    x, aux = _hidden(params, tokens, cfg, generator, deterministic, mesh)
     nc = _loss_chunks(cfg, tokens.shape[1])
     if targets is not None and not return_logits and nc > 1:
-        return None, chunked_cross_entropy(
-            x, _head_weight(params, cfg), targets, nc,
-            softcap=cfg.final_logit_softcap)
+        loss = chunked_cross_entropy(x, _head_weight(params, cfg), targets, nc,
+                                     softcap=cfg.final_logit_softcap)
+        return None, _with_aux(loss, aux, cfg)
     logits = head_logits(params, x, cfg)
-    loss = cross_entropy(logits, targets) if targets is not None else None
+    loss = None
+    if targets is not None:
+        loss = _with_aux(cross_entropy(logits, targets), aux, cfg)
     return (logits if return_logits else None), loss
 
 
+def _with_aux(loss: torch.Tensor, aux: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
+    """The loss plus the per-layer mean of the MoE aux loss, weighted."""
+    if not cfg.n_experts:
+        return loss
+    return loss + cfg.moe_aux_weight * aux / cfg.n_layer
+
+
 def _hidden(params, tokens, cfg, generator, deterministic, mesh):
-    """Embeddings, the blocks and the final norm -> (B, T, D) hidden
-    states. Under sp > 1 the chunk's positions start at sp_rank * T."""
-    check_supported(cfg)
+    """Embeddings, the blocks and the final norm -> ((B, T, D) hidden
+    states, the blocks' summed MoE aux loss or None). Under sp > 1 the chunk's
+    positions start at sp_rank * T."""
+    check_supported(cfg, across_processes=mesh is not None)
     b, t = tokens.shape
     pos0 = 0 if mesh is None else mesh.sp_rank * t
     if pos0 + t > cfg.block_size:
@@ -312,9 +350,11 @@ def _hidden(params, tokens, cfg, generator, deterministic, mesh):
         rope = attn_ops.rope_tables(torch.arange(pos0, pos0 + t, device=x.device),
                                     cfg.head_dim, cfg.rope_theta)
     block = _remat_block if cfg.remat else _block
+    aux = None
     for blk in _unstack(params["blocks"]):
-        x = block(x, blk, cfg, rope, generator, deterministic, mesh)
-    return _norm(x, params["lnf_scale"], params.get("lnf_bias"), cfg)
+        x, a = block(x, blk, cfg, rope, generator, deterministic, mesh)
+        aux = a if aux is None else aux + a
+    return _norm(x, params["lnf_scale"], params.get("lnf_bias"), cfg), aux
 
 
 def _loss_chunks(cfg: GPTConfig, t: int) -> int:
@@ -338,7 +378,8 @@ def loss_terms(
     tokens (this rank's rows and chunk), with the head and the softmax run
     per chunk as in the loss-only forward. A trainer divides the sums of
     both over the ranks."""
-    x = _hidden(params, tokens, cfg, generator, deterministic, mesh)
+    check_supported(cfg, across_processes=True)
+    x, _ = _hidden(params, tokens, cfg, generator, deterministic, mesh)
     nc = _loss_chunks(cfg, tokens.shape[1])
     w = _head_weight(params, cfg)
     count = (targets != -1).sum()

@@ -25,9 +25,9 @@ from mingpt_distributed_tpu_torch.parallel import distributed
 AXES = ("pp", "dp", "fsdp", "ep", "tp", "sp")
 BATCH_AXES = ("dp", "fsdp", "ep")
 UNPORTED_AXES = {
-    "pp": "Queue 1 item 12 (parallel/pipeline.py)",
+    "pp": "Queue 1 item 12b (parallel/pipeline.py)",
     "fsdp": "Queue 1 item 9 (parameter sharding)",
-    "ep": "Queue 1 item 12 (ops/moe.py)",
+    "ep": "Queue 1 item 12b (expert parallelism)",
     "tp": "Queue 1 item 9 (tensor parallelism)",
 }
 

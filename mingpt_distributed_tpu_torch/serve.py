@@ -46,10 +46,19 @@ Usage:
   python -m mingpt_distributed_tpu_torch.serve --selftest [--device cpu]
   python -m mingpt_distributed_tpu_torch.serve --selftest-spec [--device cpu]
   python -m mingpt_distributed_tpu_torch.serve --selftest-quant [--device cpu]
+  python -m mingpt_distributed_tpu_torch.serve --selftest-attrib [--device cpu]
   python -m mingpt_distributed_tpu_torch.serve --prompts-file prompts.txt \\
       [--config gpt2_config.yaml] [--slots 4] [--greedy] \\
       [--prefill-chunk 256] [--prefix-cache-mb 64] [--warmup] \\
       [trainer_config.snapshot_path=...] [section.key=value ...]
+
+Telemetry: ``--trace-jsonl PATH`` exports request traces (mingpt-trace/1;
+``--trace-sample P`` samples the happy path), ``--flight-dir DIR`` arms the
+flight recorder (dumps on a post-warmup new shape and on a SIGTERM drain,
+``/debug/flight`` on ``--metrics-port``), ``--slo [SPEC]`` and ``--slo-json
+PATH`` grade SLOs from the traces at shutdown, ``--attrib-json PATH`` writes
+the attribution report (``/attrib`` on ``--metrics-port``);
+``--selftest-attrib`` is the attribution self-test.
 
 SIGTERM (or one SIGINT) stops admission, drains in-flight requests, flushes
 the metrics and exits 75 so a scheduler requeues the job; a second SIGINT
@@ -91,9 +100,6 @@ UNPORTED_FLAGS = {
     "--hang-deadline": "15", "--hosts": "15", "--fleet-secret": "15",
     "--selftest-chaos": "15", "--selftest-procfleet": "15",
     "--selftest-standby": "15", "--selftest-crosshost": "15",
-    "--trace-jsonl": "16", "--trace-sample": "16", "--flight-dir": "16",
-    "--slo": "16", "--slo-json": "16", "--attrib-json": "16",
-    "--selftest-attrib": "16",
 }
 
 SELFTEST_PROMPTS = ["O God, O God!", "Once more unto", "All the world's"]
@@ -174,6 +180,41 @@ def build_argparser() -> argparse.ArgumentParser:
                         "chunks, prefix reuse and speculation: greedy "
                         "prefix >= 0.9, equal shape counts, pool bytes <= "
                         "0.27x, power-of-two scales; then exits")
+    p.add_argument("--trace-jsonl", default=None,
+                   help="export request-scoped traces (mingpt-trace/1 JSONL: "
+                        "spans, emit events, one request summary per trace) "
+                        "to this path")
+    p.add_argument("--trace-sample", type=float, default=1.0,
+                   help="happy-path trace sampling probability in [0, 1]; "
+                        "errors, sheds and retried requests always export")
+    p.add_argument("--flight-dir", default=None,
+                   help="arm the flight recorder: dump recent spans, events "
+                        "and metrics here (mingpt-flight/1, atomic write + "
+                        "manifest) on a post-warmup new shape and on a "
+                        "SIGTERM drain; also serves GET /debug/flight on "
+                        "--metrics-port")
+    p.add_argument("--slo", nargs="?", const="default", default=None,
+                   metavar="SPEC",
+                   help="print a graded SLO report at shutdown from exact "
+                        "per-request trace durations; SPEC is "
+                        "'metric<=threshold' clauses (ttft_pNN, itl_pNN, "
+                        "shed_rate, error_rate) joined by ','; bare --slo "
+                        "uses the default objectives")
+    p.add_argument("--slo-json", default=None, metavar="PATH",
+                   help="write the shutdown SLO report (mingpt-slo/1) as "
+                        "JSON to PATH; objectives from --slo, or the "
+                        "defaults")
+    p.add_argument("--attrib-json", default=None, metavar="PATH",
+                   help="performance attribution: write the mingpt-attrib/1 "
+                        "report (per-family operations, bytes, calls, device "
+                        "seconds, roofline; HBM bytes by owner) to PATH at "
+                        "shutdown; also serves GET /attrib on --metrics-port")
+    p.add_argument("--selftest-attrib", action="store_true",
+                   help="random-init small model served with attribution "
+                        "and speculation: every family in a valid report "
+                        "with its operations, the HBM owners equal to the "
+                        "pools' bytes, two runs on a ticking clock "
+                        "byte-identical, /attrib scraped; then exits")
     for flag in UNPORTED_FLAGS:
         p.add_argument(flag, nargs="?", const=True, default=None,
                        help=argparse.SUPPRESS)
@@ -314,6 +355,47 @@ def _selftest_scrape(tserver) -> int:
             rc = 1
     print(f"selftest scrape: {len(parsed['samples'])} samples")
     return rc
+
+
+def _make_observability(args, reg):
+    """(TraceRecorder or None, FlightRecorder or None) from the tracing
+    flags. The flight recorder samples the process registry and the span
+    tracer's ring at dump time; the trace recorder mirrors every record
+    into the flight ring. --slo needs the per-request summaries, so it
+    makes a recorder even without an export path."""
+    flight = None
+    if args.flight_dir is not None:
+        flight = telemetry.FlightRecorder(out_dir=args.flight_dir, registry=reg)
+        flight.source_providers["tracer"] = telemetry.get_tracer().records
+        flight.metrics_providers["process"] = lambda: telemetry.render_prometheus(reg)
+    recorder = None
+    if (args.trace_jsonl is not None or args.slo is not None
+            or args.slo_json is not None or flight is not None):
+        if not 0.0 <= args.trace_sample <= 1.0:
+            raise SystemExit(f"--trace-sample must be in [0, 1], got {args.trace_sample}")
+        sink = (telemetry.trace_sink(args.trace_jsonl)
+                if args.trace_jsonl is not None else None)
+        recorder = telemetry.TraceRecorder(sink=sink, sample=args.trace_sample,
+                                           registry=reg, flight=flight)
+    return recorder, flight
+
+
+def _slo_report(args, recorder):
+    """Grade the SLO objectives over the recorder's finished requests:
+    print the report with --slo, write it as sorted-key JSON with
+    --slo-json. Returns the report (None when neither flag is set)."""
+    if (args.slo is None and args.slo_json is None) or recorder is None:
+        return None
+    report = telemetry.evaluate_slos(recorder.completed_requests(),
+                                     telemetry.parse_slo_spec(args.slo or "default"))
+    if args.slo is not None:
+        print(telemetry.render_slo_report(report))
+    if args.slo_json is not None:
+        with open(args.slo_json, "w") as f:
+            f.write(json.dumps(report, sort_keys=True, indent=2) + "\n")
+        print(f"[serve] SLO report (mingpt-slo/1) written to {args.slo_json}",
+              file=sys.stderr)
+    return report
 
 
 def _request_for(args, tokens, eos_id=None) -> Request:
@@ -610,13 +692,14 @@ def selftest_quant(args) -> int:
             params, cfg, n_slots=2, registry=reg, device=dev,
             prefill_buckets=(8, 48), prefill_chunk=6, prefix_cache_mb=0.5,
             warmup=True, draft_params=params, draft_cfg=cfg, spec_k=2,
-            kv_dtype=kv_dtype)
+            kv_dtype=kv_dtype, attrib=True)
         handles = srv.generate_batch(
             [Request(prompt=p, max_new_tokens=max_new) for p in prompts])
         return srv, reg, [h.tokens for h in handles]
 
     srv32, _, toks32 = run_once("fp32")
-    c32, bytes32 = srv32.compile_counts(), pool_bytes(srv32.engine.pool.cache)
+    c32 = srv32.compile_counts()
+    bytes32 = srv32.attrib_report()["hbm"]["owners"]["kv_pool"]
     dtypes = ["int8"] + (["fp8"] if quant_lib.fp8_dtype() is not None else [])
 
     def check(kv_dtype) -> int:
@@ -651,9 +734,16 @@ def selftest_quant(args) -> int:
                   f"{srv.metrics.prefix_hits}, spec rounds "
                   f"{srv.metrics.spec_rounds} (want >= 1 each)")
             rc = 1
+        # the pool's bytes as the HBM ledger accounts them, held against
+        # the tensors it holds
         pool = srv.engine.pool.cache
         data, scales = quant_lib.split_scales(pool)
-        qbytes, sbytes = pool_bytes(pool), pool_bytes(scales)
+        owners = srv.attrib_report()["hbm"]["owners"]
+        qbytes, sbytes = owners["kv_pool"] + owners["kv_scales"], owners["kv_scales"]
+        if (owners["kv_pool"], sbytes) != (pool_bytes(data), pool_bytes(scales)):
+            print(f"selftest-quant FAIL: {kv_dtype} HBM ledger owners {owners} "
+                  f"!= the pool's {pool_bytes(data)} + {pool_bytes(scales)} bytes")
+            rc = 1
         ratio = qbytes / bytes32
         if sbytes != quant_lib.scale_bytes(cfg, 2) or sbytes <= 0:
             print(f"selftest-quant FAIL: {kv_dtype} scale planes hold {sbytes} "
@@ -702,6 +792,123 @@ def selftest_quant(args) -> int:
     return rc
 
 
+class TickingClock:
+    """A deterministic clock: each read advances by a fixed quantum, so two
+    identical runs observe identical timestamps and durations."""
+
+    def __init__(self, dt: float = 1e-4):
+        self.t = 0.0
+        self.dt = dt
+
+    def __call__(self) -> float:
+        self.t += self.dt
+        return self.t
+
+
+def selftest_attrib(args) -> int:
+    """Attribution on a random-init small model with speculation (and, with
+    --prefix-cache-mb, the prefix store), on the CPU unless asked: every
+    family registered and called appears in a ``mingpt-attrib/1`` report
+    that validates, with nonzero operations; the HBM ledger's pool owners
+    equal the pools' bytes; two runs on a ticking clock dump byte-identical
+    reports (on the CPU, where the clock times the calls); ``/attrib``
+    serves the report and the ``/metrics`` page carries the
+    ``mingpt_attrib_*`` families."""
+    import urllib.request
+
+    import torch
+
+    dev = resolve_device(args.device)
+    cfg = GPTConfig.make(
+        n_layer=2, n_head=2, n_embd=32, vocab_size=96, block_size=48,
+        embd_pdrop=0.0, resid_pdrop=0.0, attn_pdrop=0.0, dtype="float32")
+    params = gpt.init(cfg, torch.Generator().manual_seed(0), device=dev)
+    canned = list(SELFTEST_PROMPTS)
+    if args.prefix_cache_mb > 0:
+        canned += SELFTEST_SHARED
+    prompts = [[ord(c) % cfg.vocab_size for c in s] for s in canned]
+    spec_k = args.spec_k if args.spec_k > 0 else 2
+
+    def run_once(reg):
+        srv = InferenceServer(params, cfg, n_slots=2, clock=TickingClock(),
+                              attrib=True, registry=reg, device=dev,
+                              draft_params=first_layers(params, 1),
+                              draft_cfg=dataclasses.replace(cfg, n_layer=1),
+                              spec_k=spec_k, **_server_kwargs(args))
+        srv.generate_batch([Request(prompt=p, max_new_tokens=8) for p in prompts])
+        return srv, srv.attrib_report()
+
+    rc = 0
+    reg = telemetry.MetricsRegistry()
+    srv, report = run_once(reg)
+    try:
+        telemetry.validate_attrib_report(report)
+    except ValueError as e:
+        print(f"selftest-attrib FAIL: the report does not validate: {e}")
+        return 1
+    rows = {(r["family"], r["variant"]): r for r in report["programs"]}
+    families = {fam for fam, _ in rows}
+    # every family that ran (compile_counts) is registered and was called;
+    # with speculation the greedy rounds go through verify and the draft's
+    # decode, and the plain decode may stay at 0 calls
+    ran = {fam for fam, n in srv.compile_counts().items() if n}
+    expected = {"prefill", "decode", "verify", "draft_prefill", "draft_decode"} | ran
+    if expected - families:
+        print(f"selftest-attrib FAIL: families missing: {sorted(expected - families)}")
+        rc = 1
+    for (fam, variant), row in sorted(rows.items()):
+        if fam in ("prefill", "decode", "verify") and not row["flops"]:
+            print(f"selftest-attrib FAIL: {fam}:{variant} has no operations")
+            rc = 1
+    for fam in ran:
+        if sum(r["calls"] for (f, _), r in rows.items() if f == fam) < 1:
+            print(f"selftest-attrib FAIL: no calls of {fam} observed")
+            rc = 1
+    owners = report["hbm"]["owners"]
+    for owner, cache in (("kv_pool", srv.engine.pool.cache),
+                         ("draft_pool", srv.spec.draft.engine.pool.cache)):
+        if owners.get(owner) != pool_bytes(cache):
+            print(f"selftest-attrib FAIL: hbm owner {owner} = {owners.get(owner)}, "
+                  f"the pool holds {pool_bytes(cache)}")
+            rc = 1
+    if owners.get("params", 0) <= 0:
+        print("selftest-attrib FAIL: params not accounted")
+        rc = 1
+    if srv.watchdog.recompiles:
+        print(f"selftest-attrib FAIL: {srv.watchdog.recompiles} new shapes after warmup")
+        rc = 1
+    dump = telemetry.dump_attrib_report(report)
+    if dev.type == "cpu":
+        _, report_b = run_once(telemetry.MetricsRegistry())
+        if telemetry.dump_attrib_report(report_b) != dump:
+            print("selftest-attrib FAIL: two identical runs dumped different reports")
+            rc = 1
+    tserver = telemetry.TelemetryServer(reg, port=0 if args.metrics_port is None
+                                        else args.metrics_port)
+    tserver.attrib_provider = srv.attrib_report
+    try:
+        with urllib.request.urlopen(tserver.url("/attrib"), timeout=10) as resp:
+            served = json.loads(resp.read().decode())
+        telemetry.validate_attrib_report(served)
+        with urllib.request.urlopen(tserver.url("/metrics"), timeout=10) as resp:
+            types = telemetry.parse_prometheus(resp.read().decode())["types"]
+        for name in ("mingpt_attrib_flops", "mingpt_attrib_calls_total",
+                     "mingpt_attrib_hbm_bytes"):
+            if name not in types:
+                print(f"selftest-attrib FAIL: /metrics lacks {name}")
+                rc = 1
+    finally:
+        tserver.close()
+    if args.attrib_json:
+        with open(args.attrib_json, "w") as f:
+            f.write(dump + "\n")
+        print(f"[serve] attribution report written to {args.attrib_json}",
+              file=sys.stderr)
+    print(telemetry.render_attrib_report(report))
+    print("selftest-attrib", "PASSED" if rc == 0 else "FAILED")
+    return rc
+
+
 def _load_params(args, gpt_cfg, exp, dev):
     """(params, where they came from), or (None, why not)."""
     if args.params is not None:
@@ -724,6 +931,8 @@ def main(argv=None) -> int:
         return selftest_spec(args)
     if args.selftest_quant:
         return selftest_quant(args)
+    if args.selftest_attrib:
+        return selftest_attrib(args)
 
     dev = resolve_device(args.device)
     exp = load_config(args.config, args.overrides)
@@ -766,22 +975,45 @@ def _serve(args, dataset, gpt_cfg, params, dev, eos_id, guard) -> int:
         printed[handle.request_id] = text
         sys.stdout.flush()
 
-    # the process registry is served with --metrics-port; without it each
-    # server keeps its own
-    reg = telemetry.get_registry() if args.metrics_port is not None else None
+    # the process registry is served with --metrics-port and dumped by the
+    # flight recorder; without either each server keeps its own
+    reg = (telemetry.get_registry()
+           if args.metrics_port is not None or args.flight_dir is not None else None)
     tserver = _start_telemetry(args, reg)
+    recorder, flight = _make_observability(args, reg)
+    if tserver is not None and flight is not None:
+        tserver.flight_provider = lambda: flight.snapshot("on_demand")
     spec_kw = _spec_kwargs(args, params, gpt_cfg, dev)
 
     def build_server(stream_cb) -> InferenceServer:
-        return InferenceServer(
+        server = InferenceServer(
             params, gpt_cfg, n_slots=args.slots, on_token=stream_cb,
             log_every=0 if stream_cb else args.log_every,
             max_queue=args.queue_limit, default_deadline_s=args.deadline_s,
-            registry=reg, device=dev, **spec_kw, **_server_kwargs(args))
+            registry=reg, trace_recorder=recorder, attrib=bool(args.attrib_json),
+            device=dev, **spec_kw, **_server_kwargs(args))
+        if tserver is not None and args.attrib_json:
+            tserver.attrib_provider = server.attrib_report
+        if flight is not None:
+            server.watchdog.on_recompile = (
+                lambda grown: flight.dump("watchdog_recompile", families=grown))
+        return server
 
     def shutdown(server: InferenceServer) -> int:
-        """Drain in-flight work, flush the metrics; 75 after a signal."""
+        """Drain in-flight work, flush the metrics, the SLO report and the
+        attribution report; a flight dump after a signal; 75 after a
+        signal."""
         server.run_until_drained()
+        if guard.stop_requested and flight is not None:
+            flight.dump("sigterm_drain")
+        _slo_report(args, recorder)
+        if args.attrib_json:
+            with open(args.attrib_json, "w") as f:
+                f.write(telemetry.dump_attrib_report(server.attrib_report()) + "\n")
+            print(f"[serve] attribution report written to {args.attrib_json}",
+                  file=sys.stderr)
+        if recorder is not None:
+            recorder.close()
         if args.metrics_json:
             server.metrics.write_json(args.metrics_json)
         if tserver is not None:

@@ -27,8 +27,9 @@ card:
   registry.
 
 ``serve.py`` drives it (REPL, offline batch, ``--selftest``,
-``--selftest-spec``, ``--selftest-quant``). The fleet (ROADMAP.md Queue 1
-item 15) and tensor parallelism (item 9) are not ported yet.
+``--selftest-spec``, ``--selftest-quant``, ``--selftest-attrib``). The
+fleet (ROADMAP.md Queue 1 item 15) and tensor parallelism (item 9) are not
+ported yet.
 """
 
 from mingpt_distributed_tpu_torch.serving import quant  # noqa: F401

@@ -63,10 +63,11 @@ copies: the row count), the JAX engine's contract of one decode program and
 at most ``len(ladder)`` prefill programs, which is what a later CUDA-graph
 capture of these calls needs.
 
-Tensor-parallel serving (``mesh``) is ROADMAP.md Queue 1 item 9,
-attribution and the audit contracts (``register_attrib``,
-``audit_contracts``) item 16, and live migration between replicas
-(extracting and installing a slot's rows) item 15.
+Attribution (``register_attrib``) registers each family's shapes with
+analytic costs. Tensor-parallel serving (``mesh``) is ROADMAP.md Queue 1
+item 9, the audit contracts (``audit_contracts``) item 16b, and live
+migration between replicas (extracting and installing a slot's rows)
+item 15.
 """
 
 from __future__ import annotations
@@ -441,12 +442,39 @@ class DecodeEngine:
         serves."""
         return {f: len(self._shapes[f]) for f in FAMILIES}
 
-    def register_attrib(self, *args, **kwargs) -> None:
-        raise NotImplementedError(
-            "performance attribution is not ported yet (ROADMAP.md Queue 1 "
-            "item 16)")
+    def kv_bytes_per_row(self) -> int:
+        """Pool bytes of one cache row (one position of one slot, every
+        layer, K and V with their scale planes)."""
+        total = sum(int(a.nbytes) for a in self.pool.cache.values())
+        return total // (self.n_slots * self.cfg.block_size)
+
+    def register_attrib(self, ledger, family_prefix: str = "") -> None:
+        """Register every call family of this engine with a
+        ``telemetry.attribution.ProgramLedger``, one row per shape, with the
+        analytic operations and bytes of one call
+        (``attribution.forward_cost``): a prefill per ladder bucket, the
+        decode step and, with the prefix store, the row copies per storable
+        bucket. Family names are ``compile_counts()``'s keys (prefixed for
+        a draft engine); nothing runs, so the shape counts are unchanged."""
+        from mingpt_distributed_tpu_torch.telemetry import attribution
+
+        cfg, row = self.cfg, self.kv_bytes_per_row()
+        weights = attribution.tree_bytes(self.params)
+        for b in self.buckets:
+            flops, nbytes = attribution.forward_cost(
+                cfg, 1, b, cfg.block_size, weights, row)
+            ledger.observe_compile(family_prefix + "prefill", 0.0, flops, nbytes,
+                                   variant=f"b{b}")
+        flops, nbytes = attribution.forward_cost(
+            cfg, self.n_slots, 1, cfg.block_size, weights, row, per_row=True)
+        ledger.observe_compile(family_prefix + "decode", 0.0, flops, nbytes)
+        if self.prefix_store is not None:
+            for b in (b for b in self.buckets if b <= self.prefill_len - 1):
+                for fam in ("prefix_save", "prefix_load"):
+                    ledger.observe_compile(family_prefix + fam, 0.0, 0.0,
+                                           float(2 * b * row), variant=f"b{b}")
 
     def audit_contracts(self, *args, **kwargs):
         raise NotImplementedError(
             "the static audit contracts are not ported yet (ROADMAP.md "
-            "Queue 1 item 16)")
+            "Queue 1 item 16b)")

@@ -84,8 +84,9 @@ class Request:
     deadline_s: Optional[float] = None  # expire this long after submit
     request_id: Optional[str] = None
     tenant: Optional[str] = None   # trace baggage: who submitted this
-    # request-scoped trace context (request tracing is ROADMAP.md Queue 1
-    # item 16; the port's scheduler refuses a trace recorder)
+    # request-scoped trace context (telemetry/tracing.py): a request that
+    # arrives with one parents its spans into that trace; without one a
+    # server with a trace recorder mints it
     trace: Optional[Any] = None
 
     def validate(
@@ -164,8 +165,8 @@ class RequestHandle:
     prefill_pos: int = 0
     prefix_rows: int = 0          # rows served from the shared-prefix store
     admit_time: Optional[float] = None
-    # request tracing (ROADMAP.md Queue 1 item 16) fills these; the port's
-    # scheduler leaves them as they are
+    # the request's trace context, and whether this server minted it (and
+    # so records the emit events and ends the trace)
     trace: Optional[Any] = None
     trace_owner: bool = False
     # speculative decoding (serving/speculative.py): draft tokens this

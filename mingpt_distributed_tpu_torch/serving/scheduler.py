@@ -59,10 +59,26 @@ advances the others (the speculating lanes parked during it, since verify
 writes their rows); every emitted token is still the target's own greedy
 choice. ``kv_dtype`` int8/fp8 stores the pool quantized (serving/quant.py).
 
-Not ported yet, each raising with its ROADMAP.md Queue 1 item: request
-tracing (``trace_recorder``), attribution (``attrib``) and the recompile
-watchdog (``recompile_fail``), item 16; tensor parallelism (``mesh``),
-item 9; the fleet's fault hook (``fault_hook``), item 15.
+Telemetry, as in the JAX scheduler:
+
+* **recompile watchdog** — armed after ``warmup``, checked every round
+  over ``compile_counts()`` (the new input shapes of each call family);
+  ``recompile_fail=True`` (or ``MINGPT_RECOMPILE_FATAL=1``) raises on
+  growth;
+* **request tracing** (``trace_recorder``, telemetry/tracing.py) — a
+  request without a trace context gets one minted at submit, and this
+  server then records its ``emit`` events and ends it; spans for the queue
+  wait, the prefix lookup, each prefill chunk and each decode or
+  speculation round, all on the injected clock;
+* **attribution** (``attrib=True``, telemetry/attribution.py) — a program
+  ledger with every family's shapes registered at construction and each
+  call's device seconds (CUDA events around the call on a card, the
+  injected clock on the CPU), and an HBM ledger of bytes by owner;
+  ``attrib_report()`` is the ``mingpt-attrib/1`` document.
+
+Not ported yet, each raising with its ROADMAP.md Queue 1 item: tensor
+parallelism (``mesh``), item 9; the fleet's fault hook (``fault_hook``),
+item 15.
 """
 
 from __future__ import annotations
@@ -76,7 +92,9 @@ import numpy as np
 import torch
 
 from mingpt_distributed_tpu_torch.config import GPTConfig
+from mingpt_distributed_tpu_torch.models import gpt
 from mingpt_distributed_tpu_torch.serving.admission import AdmissionPolicy, FifoPolicy
+from mingpt_distributed_tpu_torch.serving import quant as quant_lib
 from mingpt_distributed_tpu_torch.serving.engine import DecodeEngine
 from mingpt_distributed_tpu_torch.serving.metrics import ServingMetrics, kv_dtype_gauges
 from mingpt_distributed_tpu_torch.serving.requests import (
@@ -85,13 +103,32 @@ from mingpt_distributed_tpu_torch.serving.requests import (
     RequestHandle,
 )
 from mingpt_distributed_tpu_torch.serving.speculative import SpeculativeDecoder
-from mingpt_distributed_tpu_torch.telemetry import MetricsRegistry, SpanTracer, log_event
+from mingpt_distributed_tpu_torch.telemetry import (
+    HBMLedger,
+    MetricsRegistry,
+    ProgramLedger,
+    RecompileWatchdog,
+    SpanTracer,
+    TraceRecorder,
+    build_attrib_report,
+    log_event,
+    trace_baggage,
+    tree_bytes,
+)
 from mingpt_distributed_tpu_torch.utils.device import Device
 
 
 def _refuse(what: str, item: str) -> None:
     raise NotImplementedError(
         f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
+
+
+def _trace_attrs(handle: RequestHandle) -> Dict[str, Any]:
+    """The trace_id attribute for the process SpanTracer's spans, so its
+    wall-time spans land in the per-request timeline too."""
+    if handle.trace is None:
+        return {}
+    return {"trace_id": handle.trace.trace_id}
 
 
 class SlotTable:
@@ -179,7 +216,7 @@ class InferenceServer:
         recompile_fail: bool = False,
         strict_window: bool = False,
         fault_hook: Optional[Callable[[str], None]] = None,
-        trace_recorder=None,
+        trace_recorder: Optional[TraceRecorder] = None,
         draft_params=None,
         draft_cfg: Optional[GPTConfig] = None,
         spec_k: int = 0,
@@ -189,12 +226,6 @@ class InferenceServer:
         kv_dtype: Optional[str] = None,
         device: Optional[Device] = None,
     ):
-        if trace_recorder is not None:
-            _refuse("request tracing (trace_recorder)", "16")
-        if attrib:
-            _refuse("performance attribution (attrib)", "16")
-        if recompile_fail:
-            _refuse("the recompile watchdog (recompile_fail)", "16")
         if fault_hook is not None:
             _refuse("the fleet's fault hook (fault_hook)", "15")
         self.cfg = cfg
@@ -227,7 +258,24 @@ class InferenceServer:
         # scheduling loop pays nothing unless telemetry is wired in
         self.tracer = tracer if tracer is not None else SpanTracer(enabled=False)
         reg = self.metrics.registry if registry is None else registry
+        # post-warmup growth of the shape families (draft and verify
+        # included): armed after warmup(), checked every round
+        self.watchdog = RecompileWatchdog(self.compile_counts, registry=reg,
+                                          tracer=self.tracer,
+                                          hard_fail=recompile_fail)
         self._quant_err_gauge = kv_dtype_gauges(reg, self.engine.kv_dtype)
+        # request tracing: a settable attribute, as in the JAX scheduler
+        self.trace_recorder = trace_recorder
+        # attribution: the program and HBM ledgers on this server's registry
+        self.attrib: Optional[ProgramLedger] = None
+        self.hbm: Optional[HBMLedger] = None
+        if attrib:
+            self.attrib = ProgramLedger(registry=reg)
+            self.hbm = HBMLedger(registry=reg, device=self.engine.device)
+            self.engine.register_attrib(self.attrib)
+            if self.spec is not None:
+                self.spec.register_attrib(self.attrib)
+            self._account_hbm()
         self.on_token = on_token
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
@@ -244,6 +292,68 @@ class InferenceServer:
             self.engine.warmup()
             if self.spec is not None:
                 self.spec.warmup()
+            self.watchdog.arm()
+
+    # -- attribution ---------------------------------------------------
+    def _account_hbm(self) -> None:
+        """Declare bytes by owner from shapes and dtypes: params, the KV
+        pool (a quantized pool's scale planes apart), the prefix store's
+        current residency and, with speculation, the draft's params and
+        pool. Re-run before each report, so prefix-store churn shows."""
+        if self.hbm is None:
+            return
+        eng = self.engine
+        self.hbm.account("params", tree_bytes(eng.params))
+        if eng.kv_quant is not None:
+            data, scales = quant_lib.split_scales(eng.pool.cache)
+            self.hbm.account("kv_pool", tree_bytes(data))
+            self.hbm.account("kv_scales", tree_bytes(scales))
+        else:
+            self.hbm.account("kv_pool", tree_bytes(eng.pool.cache))
+        store = eng.prefix_store
+        self.hbm.account("prefix_store", 0 if store is None else store.used_bytes)
+        if self.spec is not None:
+            de = self.spec.draft.engine
+            # a draft that shares the target's storage ("self", "self:N")
+            # holds no bytes of its own
+            own = {t.untyped_storage().data_ptr() for t in gpt._leaves(eng.params)}
+            self.hbm.account("draft_params", sum(
+                int(t.nbytes) for t in gpt._leaves(de.params)
+                if t.untyped_storage().data_ptr() not in own))
+            self.hbm.account("draft_pool", tree_bytes(de.pool.cache))
+
+    def attrib_report(self, include_live: bool = False) -> Dict[str, Any]:
+        """This server's ``mingpt-attrib/1`` report (raises when it was
+        built without ``attrib=True``)."""
+        if self.attrib is None:
+            raise ValueError("attribution not enabled: construct with attrib=True")
+        self._account_hbm()
+        return build_attrib_report(self.attrib, self.hbm, include_live=include_live)
+
+    def _attrib_begin(self):
+        """Start timing one engine call for the program ledger (None when
+        attribution is off): a CUDA event on a card, the clock on the CPU."""
+        if self.attrib is None:
+            return None
+        if self.engine.device.type == "cuda":
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return self.clock()
+
+    def _attrib_end(self, start, family: str, variant: str = "", n: int = 1) -> None:
+        """Add the call's device seconds to ``family``. The engine calls end
+        in a read of their result, so the end event has little to wait for."""
+        if start is None:
+            return
+        if isinstance(start, torch.cuda.Event):
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            end.synchronize()
+            seconds = start.elapsed_time(end) / 1e3
+        else:
+            seconds = self.clock() - start
+        self.attrib.observe_call(family, seconds, variant=variant, n=n)
 
     def observe_quant_logit_error(self, err: float) -> None:
         """Record a sampled quantization quality number (max |Δlogit| of a
@@ -292,6 +402,16 @@ class InferenceServer:
             submit_time=now,
             deadline=None if deadline_s is None else now + deadline_s,
         )
+        rec = self.trace_recorder
+        if request.trace is not None:
+            handle.trace = request.trace
+        elif rec is not None:
+            handle.trace = rec.start_trace(handle.request_id, now=now,
+                                           baggage=trace_baggage(request))
+            handle.trace_owner = True
+        if rec is not None and handle.trace is not None:
+            rec.add_event(handle.trace, "queued", now, request_id=handle.request_id,
+                          queue_depth=len(self.queue))
         self.queue.append(handle)
         self.metrics.on_submit()
         return handle
@@ -317,6 +437,12 @@ class InferenceServer:
         handle.last_token_time = now
         handle.tokens.append(token)
         self.metrics.on_tokens(1)
+        # the server that minted the trace records its emit events, so each
+        # visible token is one event
+        if (self.trace_recorder is not None and handle.trace is not None
+                and handle.trace_owner):
+            self.trace_recorder.add_event(handle.trace, "emit", now,
+                                          token_index=len(handle.tokens) - 1)
         if self.on_token is not None:
             try:
                 self.on_token(handle, token)
@@ -346,6 +472,20 @@ class InferenceServer:
         self._release_slot(handle)
         span = (handle.last_token_time or 0.0) - (handle.first_token_time or 0.0)
         self.metrics.on_complete(len(handle.tokens), span)
+        self._end_owned_trace(handle)
+
+    def _end_owned_trace(self, handle: RequestHandle) -> None:
+        if (self.trace_recorder is not None and handle.trace is not None
+                and handle.trace_owner):
+            extra: Dict[str, Any] = {}
+            if self.spec is not None:
+                # the request's speculation outcome rides on its summary
+                extra = dict(spec_proposed=handle.spec_proposed,
+                             spec_accepted=handle.spec_accepted)
+            self.trace_recorder.end_trace(
+                handle.trace, now=self.clock(),
+                outcome=handle.finish_reason or "error",
+                n_tokens=len(handle.tokens), attempts=1, **extra)
 
     def _fail(self, handle: RequestHandle, reason: str) -> None:
         """Terminal non-success: deadline expiry (queued, mid-prefill or
@@ -358,6 +498,7 @@ class InferenceServer:
             self.metrics.on_expire()
         else:
             self.metrics.on_error()
+        self._end_owned_trace(handle)
 
     def _expire_if_due(self, handle: RequestHandle, now: float) -> bool:
         if handle.deadline is not None and now >= handle.deadline:
@@ -395,13 +536,26 @@ class InferenceServer:
             self.spec.bind(slot)
         handle.prefilling = True
         handle.admit_time = self.clock()
+        rec = self.trace_recorder
+        if rec is not None and handle.trace is not None:
+            rec.add_span(handle.trace, "serve.queue_wait", ts=handle.submit_time,
+                         dur_s=handle.admit_time - handle.submit_time,
+                         request_id=handle.request_id)
         req = handle.request
         generator = None
         if req.do_sample:
             generator = torch.Generator(device=self.engine.device)
             generator.manual_seed(req.seed)
         self.slots.bind(slot, handle, generator)
+        t0 = self.clock()
+        a0 = self._attrib_begin()
         hit = self.engine.try_load_prefix(slot, handle.prompt_used)
+        if hit > 0:
+            self._attrib_end(a0, "prefix_load", variant=f"b{hit}")
+        if rec is not None and handle.trace is not None:
+            rec.add_span(handle.trace, "serve.prefix_lookup", ts=t0,
+                         dur_s=self.clock() - t0, hit_rows=hit,
+                         request_id=handle.request_id)
         self.metrics.on_prefix_lookup(
             hit > 0, hit, enabled=self.engine.prefix_store is not None)
         handle.prefix_rows = hit
@@ -427,6 +581,7 @@ class InferenceServer:
             # deterministic and row-wise), so parity is unaffected.
             off = self.cfg.block_size - bucket
         t0 = self.clock()
+        a0 = self._attrib_begin()
         # only the final chunk's token is used, and only it may draw from
         # the request's generator (a prefix hit changes the chunk count)
         tok, padded = self.engine.prefill_chunk_call(
@@ -434,15 +589,28 @@ class InferenceServer:
             req.temperature, req.top_k, req.top_p, req.do_sample and last,
             self.slots.generators[slot],
         )
-        self.metrics.on_prefill_chunk(end - pos, padded, self.clock() - t0)
+        self._attrib_end(a0, "prefill", variant=f"b{padded}")
+        t1 = self.clock()
+        self.metrics.on_prefill_chunk(end - pos, padded, t1 - t0)
+        if self.trace_recorder is not None and handle.trace is not None:
+            self.trace_recorder.add_span(
+                handle.trace, "serve.prefill_chunk", ts=t0, dur_s=t1 - t0,
+                pos=pos, tokens=end - pos, padded=padded,
+                request_id=handle.request_id)
         handle.prefill_pos = end
         if not last:
             return
         handle.prefilling = False
         if self.engine.prefix_store is not None:
-            self.engine.save_prefix(slot, prompt)
+            a0 = self._attrib_begin()
+            rows = self.engine.save_prefix(slot, prompt)
+            if rows > 0:
+                self._attrib_end(a0, "prefix_save", variant=f"b{rows}")
         if self.spec is not None:
+            a0 = self._attrib_begin()
             self.metrics.on_spec_prime(self.spec.prime(slot, prompt))
+            b = self.spec.draft.engine.bucket_for(len(prompt))
+            self._attrib_end(a0, "draft_prefill", variant=f"b{b}")
         ok = self._emit(handle, tok)
         now = self.clock()
         self.metrics.on_prefill(
@@ -471,7 +639,8 @@ class InferenceServer:
             h = self.queue[idx]
             del self.queue[idx]
             self.admission_policy.on_admit(h)
-            with self.tracer.span("serve.admit", request_id=h.request_id):
+            with self.tracer.span("serve.admit", request_id=h.request_id,
+                                  **_trace_attrs(h)):
                 self._admit(h)
 
         # one chunk per prefilling slot per round: a long prompt's
@@ -481,7 +650,7 @@ class InferenceServer:
             if h.prefilling:
                 with self.tracer.span("serve.prefill_chunk",
                                       request_id=h.request_id,
-                                      pos=h.prefill_pos):
+                                      pos=h.prefill_pos, **_trace_attrs(h)):
                     self._prefill_one_chunk(h)
 
         active = self.slots.decoding_slots()
@@ -491,6 +660,7 @@ class InferenceServer:
 
         occupied = self.slots.occupied
         self.metrics.on_step(len(self.queue), occupied, lanes_used=len(active))
+        self.watchdog.check()
         return bool(self.queue) or occupied > 0
 
     def _decode_round(self, active: List[int]) -> None:
@@ -499,6 +669,7 @@ class InferenceServer:
         the plain one-token step, with the speculating lanes parked (verify
         is their row writer this round). Then each lane emits its burst."""
         st = self.slots
+        td0 = self.clock()
         spec_slots: List[int] = []
         if self.spec is not None and self.spec_enabled:
             spec_slots = [s for s in active if self.spec.eligible(
@@ -509,12 +680,31 @@ class InferenceServer:
             pos = st.positions
             if spec_slots:
                 pos = np.where(np.isin(np.arange(st.n_slots), plain), pos, st.parked)
+            a0 = self._attrib_begin()
             nxt = self.engine.decode_step(st.tokens, pos, st.temps, st.top_ks,
                                           st.top_ps, st.do_sample, st.generators)
+            self._attrib_end(a0, "decode")
             for s in plain:
                 burst[s] = [int(nxt[s])]
         if spec_slots:
             self._spec_round(spec_slots, burst)
+        # per-request round spans are recorded before the emits: a retiring
+        # emit ends its trace, and a later span would be an orphan
+        if self.trace_recorder is not None:
+            td1 = self.clock()
+            for s in active:
+                h = st.handles[s]
+                if h.trace is None:
+                    continue
+                if s in spec_slots:
+                    self.trace_recorder.add_span(
+                        h.trace, "serve.spec_round", ts=td0, dur_s=td1 - td0,
+                        lanes=len(active), proposed=self.spec.k,
+                        accepted=len(burst[s]) - 1, request_id=h.request_id)
+                else:
+                    self.trace_recorder.add_span(
+                        h.trace, "serve.decode_round", ts=td0, dur_s=td1 - td0,
+                        lanes=len(active), request_id=h.request_id)
         for s in active:
             handle = st.handles[s]
             toks = burst[s]
@@ -546,14 +736,18 @@ class InferenceServer:
         st, spec = self.slots, self.spec
         smask = np.zeros(st.n_slots, bool)
         smask[spec_slots] = True
+        a0 = self._attrib_begin()
         proposals = spec.propose(st.tokens, st.positions, smask)
+        self._attrib_end(a0, "draft_decode", n=spec.k)
         fill_mask = np.zeros(st.n_slots, bool)
         fill_toks = np.zeros(st.n_slots, np.int64)
         fill_pos = np.zeros(st.n_slots, np.int64)
         for s in spec_slots:
             rows = [int(st.tokens[s])] + [int(t) for t in proposals[s]]
+            a0 = self._attrib_begin()
             g = spec.verify(s, rows, int(st.positions[s]), float(st.temps[s]),
                             int(st.top_ks[s]), float(st.top_ps[s]))
+            self._attrib_end(a0, "verify", variant=f"k{spec.k}")
             n_acc = spec.accept_len(proposals[s], g)
             burst[s] = [int(t) for t in g[:n_acc]]
             if n_acc == spec.k + 1:

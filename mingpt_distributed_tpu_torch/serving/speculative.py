@@ -32,8 +32,8 @@ the draft row the next propose round attends is real.
 
 Not ported yet: moving draft rows between replicas (``pending_draft``,
 ``migratable_draft_rows``, ``extract_draft_rows``, ``adopt_draft_rows``),
-ROADMAP.md Queue 1 item 15; attribution and the audit contracts
-(``register_attrib``, ``audit_contracts``), item 16.
+ROADMAP.md Queue 1 item 15; the audit contracts (``audit_contracts``),
+item 16b.
 """
 
 from __future__ import annotations
@@ -241,8 +241,20 @@ class SpeculativeDecoder:
                 "draft_prefill": draft["prefill"],
                 "draft_decode": draft["decode"]}
 
-    def register_attrib(self, *args, **kwargs) -> None:
-        _refuse("performance attribution (register_attrib)", "16")
+    def register_attrib(self, ledger, family_prefix: str = "") -> None:
+        """Register verify (one row per k) and the draft engine's families
+        under the ``draft_`` prefix, the ``compile_counts()`` names, with
+        analytic costs (``DecodeEngine.register_attrib``)."""
+        from mingpt_distributed_tpu_torch.telemetry import attribution
+
+        tgt = self.target
+        flops, nbytes = attribution.forward_cost(
+            tgt.cfg, 1, self.rows, tgt.cfg.block_size,
+            attribution.tree_bytes(tgt.params), tgt.kv_bytes_per_row(),
+            head_rows=self.rows)
+        ledger.observe_compile(f"{family_prefix}verify", 0.0, flops, nbytes,
+                               variant=f"k{self.k}")
+        self.draft.engine.register_attrib(ledger, family_prefix=f"{family_prefix}draft_")
 
     def audit_contracts(self, *args, **kwargs):
-        _refuse("the static audit contracts (audit_contracts)", "16")
+        _refuse("the static audit contracts (audit_contracts)", "16b")

@@ -15,8 +15,9 @@ that serving needs:
 * **Pull endpoint** (:class:`TelemetryServer`): ``/metrics`` (the
   exposition) and ``/healthz`` (JSON liveness) on a daemon-threaded stdlib
   HTTP server, behind ``serve.py --metrics-port`` and the trainer's
-  ``metrics_port``. ``/debug/flight`` and ``/attrib`` answer 404 until the
-  flight recorder and attribution are ported (ROADMAP.md Queue 1 item 16).
+  ``metrics_port``; ``/debug/flight`` (a flight-recorder snapshot) and
+  ``/attrib`` (the attribution report) where their providers are set,
+  404 otherwise.
 """
 
 from __future__ import annotations
@@ -269,16 +270,21 @@ class TelemetryServer:
     daemon-threaded stdlib server. ``port=0`` binds an ephemeral port (read
     it from ``.port``), so parallel runs never collide.
 
-    ``health_provider`` and ``metrics_provider`` are settable attributes,
-    read per request: the first returns a dict merged into the healthz
-    document, the second overrides the ``/metrics`` body. ``/debug/flight``
-    and ``/attrib`` answer 404 (ROADMAP.md Queue 1 item 16)."""
+    ``health_provider``, ``flight_provider``, ``attrib_provider`` and
+    ``metrics_provider`` are settable attributes, read per request: the
+    first returns a dict merged into the healthz document, the second a
+    flight-recorder snapshot served on ``/debug/flight``, the third the
+    ``mingpt-attrib/1`` report served on ``/attrib`` (each of the two 404
+    without its provider), the last overrides the ``/metrics`` body."""
 
     def __init__(self, registry: MetricsRegistry, port: int = 0,
                  host: str = "127.0.0.1", health_provider=None,
+                 flight_provider=None, attrib_provider=None,
                  metrics_provider=None):
         self.registry = registry
         self.health_provider = health_provider
+        self.flight_provider = flight_provider
+        self.attrib_provider = attrib_provider
         self.metrics_provider = metrics_provider
         self._t0 = time.time()
         outer = self
@@ -304,9 +310,17 @@ class TelemetryServer:
                     body = json.dumps(doc).encode()
                     ctype = "application/json"
                 elif path in ("/debug/flight", "/attrib"):
-                    self.send_error(404, f"{path} is not ported yet "
-                                         "(ROADMAP.md Queue 1 item 16)")
-                    return
+                    provider = (outer.flight_provider if path == "/debug/flight"
+                                else outer.attrib_provider)
+                    if provider is None:
+                        self.send_error(404, f"no {path[1:]} provider configured")
+                        return
+                    try:
+                        doc = provider()
+                    except Exception as e:  # the endpoint must survive
+                        doc = {"error": repr(e)}
+                    body = json.dumps(doc, sort_keys=True, default=repr).encode()
+                    ctype = "application/json"
                 else:
                     self.send_error(404, "unknown path (try /metrics)")
                     return

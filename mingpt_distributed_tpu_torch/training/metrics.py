@@ -23,16 +23,14 @@ from typing import Any, Dict, Iterable, Optional, Tuple
 
 from mingpt_distributed_tpu_torch.config import GPTConfig
 from mingpt_distributed_tpu_torch.telemetry import MetricsRegistry, log_event
+# the card's peaks live in one table (telemetry/peaks.py), re-exported here
+from mingpt_distributed_tpu_torch.telemetry.peaks import (  # noqa: F401
+    H100_SXM,
+    PEAKS,
+    peak_flops,
+)
 
 _GAUGE_SAFE_RE = re.compile(r"[^a-zA-Z0-9_]")
-
-# Published peaks of the cards the port runs on (NVIDIA data sheets; dense,
-# no sparsity), keyed by a substring of torch.cuda.get_device_name(). The
-# rates assume the card's full power limit (700 W for the H100 SXM).
-PEAKS: Dict[str, Dict[str, float]] = {
-    "H100": {"bfloat16": 989e12, "float32": 67e12, "hbm_bytes_per_s": 3.35e12},
-}
-H100_SXM = PEAKS["H100"]
 # Exponentials per clock per SM: the special-function unit's MUFU.EX2 on
 # compute capability 9.0 (CUDA C++ programming guide, throughput of
 # arithmetic instructions), where the FMA pipes give 128 results. Every
@@ -66,15 +64,6 @@ def roofline_ms(nbytes: float,
     t_bytes = nbytes / H100_SXM["hbm_bytes_per_s"]
     t_ops = max((count / rate for count, rate in work if count), default=0.0)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
-
-
-def peak_flops(device_name: str, dtype: str) -> Optional[float]:
-    """The card's peak operations per second for ``dtype``, or None when the
-    card (or the CPU) is not in the table."""
-    for key, peaks in PEAKS.items():
-        if key in device_name:
-            return peaks.get(dtype)
-    return None
 
 
 def flops_per_token(cfg: GPTConfig, seq_len: Optional[int] = None) -> float:

@@ -23,7 +23,11 @@ Snapshots are committed through ``training/checkpoint.py``'s manifest:
 the last ``keep_snapshots`` are kept, transient I/O is retried
 ``io_retries`` times from ``io_retry_delay_s`` (jitter seeded from
 ``seed``), and a resume falls back past a torn or corrupt snapshot to the
-newest good one.
+newest good one. ``async_save`` writes in a background thread: the
+parameters and optimizer state are copied to host memory first (the next
+step updates them in place), a new save first joins the previous write and
+re-raises its failure, and ``train()`` joins the last write before it
+returns, re-raising a failure there too.
 
 Telemetry (rank 0): ``spans_jsonl`` streams a span per step
 (``train.step``), eval and snapshot; ``metrics_port`` serves the process
@@ -34,8 +38,8 @@ to ``profile_steps[1]``. ``debug_nans`` stops the step whose loss or
 gradients are not finite with ``FloatingPointError``, before its update
 (one read from the card per step).
 
-ZeRO, Orbax, asynchronous saves, the mesh axes other than dp and sp, and
-the other options ``TrainerConfig.check_ported`` names raise.
+ZeRO, Orbax, the mesh axes other than dp and sp, and the other options
+``TrainerConfig.check_ported`` names raise.
 """
 
 from __future__ import annotations
@@ -141,6 +145,18 @@ def check_finite(loss: torch.Tensor, params: gpt.Params, step: int) -> None:
             f"debug_nans: non-finite loss or gradient at step {step} (loss "
             f"{loss.item()}, gradient norm {norm.item()}); the update was "
             "not applied")
+
+
+def _host_copy(obj):
+    """A copy of a snapshot tree in host memory that shares no storage with
+    the live tensors."""
+    if torch.is_tensor(obj):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _host_copy(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_copy(v) for v in obj)
+    return obj
 
 
 def make_train_step(cfg: GPTConfig, grad_accum: int = 1,
@@ -272,7 +288,7 @@ class GPTTrainer:
     ):
         world = D.world_size()
         config.check_ported(world)
-        gpt.check_supported(gpt_config)
+        gpt.check_supported(gpt_config, across_processes=world > 1)
         self.config = config
         self.gpt_config = gpt_config
         self.experiment_config = experiment_config
@@ -300,6 +316,9 @@ class GPTTrainer:
                                   seed=config.seed)
         self._stop_requested = False
         self.preempted = False
+        # async_save: the writer thread in flight and a failure it left
+        self._save_thread: Optional[threading.Thread] = None
+        self._save_exc: Optional[BaseException] = None
         # telemetry on rank 0 (the single writer, like MetricsLogger)
         self.tracer = SpanTracer(enabled=self.is_main)
         if config.spans_jsonl and self.is_main:
@@ -475,6 +494,7 @@ class GPTTrainer:
                 self.save_snapshot(epoch_done)
             if stop:
                 break
+        self._join_pending_save()
         return last
 
     def _profile(self, step: int) -> None:
@@ -530,7 +550,7 @@ class GPTTrainer:
     def _save(self, epoch: int) -> None:
         cpu = lambda t: {k: cpu(v) if isinstance(v, dict)  # noqa: E731
                          else v.detach().cpu() for k, v in t.items()}
-        ckpt_lib.save_snapshot(self.snapshot_path, {
+        snap = {
             "params": cpu(self.state.params),
             "opt_state": self.state.optimizer.opt.state_dict(),
             "step": self.state.step,
@@ -539,9 +559,40 @@ class GPTTrainer:
             "generator": self.generator.get_state(),
             "config": (self.experiment_config.to_dict()
                        if self.experiment_config else {}),
-        }, keep=self.config.keep_snapshots, retry=self._retry)
-        print(f"Snapshot saved to {self.snapshot_path} (epoch {epoch}, "
-              f"step {self.state.step})", flush=True)
+        }
+        if not self.config.async_save:
+            self._write(snap, "")
+            return
+        # the next step updates parameters and moments in place: copy them
+        # whole before the writer starts (a .cpu() of a CPU tensor aliases)
+        snap = _host_copy(snap)
+        self._join_pending_save()
+        self._save_thread = threading.Thread(
+            target=self._write_async, args=(snap,), name="snapshot-writer")
+        self._save_thread.start()
+
+    def _write(self, snap: Dict[str, Any], how: str) -> None:
+        ckpt_lib.save_snapshot(self.snapshot_path, snap,
+                               keep=self.config.keep_snapshots, retry=self._retry)
+        print(f"Snapshot saved to {self.snapshot_path} (epoch {snap['epoch']}, "
+              f"step {snap['step']}{how})", flush=True)
+
+    def _write_async(self, snap: Dict[str, Any]) -> None:
+        try:
+            self._write(snap, ", async")
+        except BaseException as e:  # noqa: BLE001 (re-raised at the next join)
+            self._save_exc = e
+
+    def _join_pending_save(self) -> None:
+        """Wait for an in-flight async snapshot write and re-raise its
+        failure: a swallowed one would resume from a stale snapshot."""
+        if self._save_thread is not None:
+            self._save_thread.join()
+            self._save_thread = None
+        exc, self._save_exc = self._save_exc, None
+        if exc is not None:
+            raise RuntimeError(
+                f"async snapshot write to {self.snapshot_path} failed") from exc
 
     def close(self) -> None:
         if self._profiler is not None:  # the run ended inside the window

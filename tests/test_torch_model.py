@@ -138,7 +138,6 @@ def test_cross_entropy_matches_jax():
     # a rank's chunk under sp > 1 needs sequence-parallel attention
     (dict(attention="einsum"), SimpleNamespace(sp=2, sp_rank=0), ValueError,
      "needs attention=ring or ulysses"),
-    (dict(n_experts=4), None, NotImplementedError, "mixture-of-experts"),
 ])
 def test_unported_options_raise(override, mesh, error, match):
     cfg = TConfig.make(**dict(SMALL, **override))

@@ -12,6 +12,7 @@ import os
 import re
 
 import pytest
+import torch
 
 from mingpt_distributed_tpu import telemetry as j_tel
 from mingpt_distributed_tpu.serving.metrics import ServingMetrics as JServingMetrics
@@ -511,3 +512,114 @@ def test_tensorboard_sink_degrades_without_the_writer(tmp_path, monkeypatch, cap
     m.close()
     assert "tensorboard sink unavailable" in capsys.readouterr().out
     assert json.loads(open(tmp_path / "m.jsonl").read())["loss"] == 3.0
+
+
+# ---------------------------------------------------------------------------
+# the recompile watchdog (counterparts of tests/test_telemetry.py's)
+# ---------------------------------------------------------------------------
+
+
+def _counts_fn(box):
+    return lambda: dict(box)
+
+
+def test_watchdog_unarmed_is_dormant():
+    box = {"prefill": 0, "decode": 0}
+    wd = telemetry.RecompileWatchdog(_counts_fn(box), registry=MetricsRegistry())
+    box["decode"] = 5  # shapes before warmup are free
+    assert wd.check() == 0
+    assert not wd.armed and wd.recompiles == 0
+
+
+def test_watchdog_counts_each_new_shape_once():
+    box = {"prefill": 2, "decode": 1}
+    reg = MetricsRegistry()
+    tr = SpanTracer()
+    wd = telemetry.RecompileWatchdog(_counts_fn(box), registry=reg, tracer=tr)
+    wd.arm()
+    assert wd.check() == 0
+    box["prefill"] = 4
+    assert wd.check() == 2
+    assert wd.check() == 0
+    assert wd.recompiles == 2
+    fam = reg.counter("mingpt_recompiles_total", labels=("family",))
+    assert fam.labels(family="prefill").value == 2
+    assert any(r["name"] == "recompile" for r in tr.records())
+
+
+def test_watchdog_hard_fail_raises():
+    box = {"decode": 1}
+    wd = telemetry.RecompileWatchdog(_counts_fn(box), registry=MetricsRegistry(),
+                                     hard_fail=True)
+    wd.arm()
+    box["decode"] = 2
+    with pytest.raises(telemetry.RecompileError, match="decode"):
+        wd.check()
+
+
+def test_watchdog_hard_fail_via_env(monkeypatch):
+    monkeypatch.setenv("MINGPT_RECOMPILE_FATAL", "1")
+    box = {"decode": 0}
+    wd = telemetry.RecompileWatchdog(_counts_fn(box), registry=MetricsRegistry())
+    wd.arm()
+    box["decode"] = 1
+    with pytest.raises(telemetry.RecompileError):
+        wd.check()
+
+
+def test_server_watchdog_stays_at_zero_after_warmup():
+    """The scheduler arms its watchdog after warmup and checks every round:
+    a warmed server's traffic adds no shape; an unwarmed one is never
+    armed."""
+    from mingpt_distributed_tpu_torch.config import GPTConfig
+    from mingpt_distributed_tpu_torch.models import gpt as t_gpt
+    from mingpt_distributed_tpu_torch.serving import InferenceServer, Request
+
+    cfg = GPTConfig.make(n_layer=2, n_head=2, n_embd=32, vocab_size=50, block_size=32,
+                         embd_pdrop=0.0, resid_pdrop=0.0, attn_pdrop=0.0, dtype="float32")
+    params = t_gpt.init(cfg, torch.Generator().manual_seed(0))
+    reg = MetricsRegistry()
+    srv = InferenceServer(params, cfg, n_slots=2, warmup=True, registry=reg,
+                          recompile_fail=True, prefill_buckets=(8, 32), prefill_chunk=8,
+                          prefix_cache_mb=1.0, device="cpu")
+    srv.generate_batch([Request(prompt=list(range(1, 1 + n)), max_new_tokens=4)
+                        for n in (3, 12, 20, 9)])
+    assert srv.watchdog.armed and srv.watchdog.recompiles == 0
+    assert ("mingpt_recompiles_total" in parse_prometheus(render_prometheus(reg))["types"])
+    cold = InferenceServer(params, cfg, n_slots=1, registry=MetricsRegistry(), device="cpu")
+    cold.generate_batch([Request(prompt=[1, 2], max_new_tokens=2)])
+    assert not cold.watchdog.armed
+
+
+# ---------------------------------------------------------------------------
+# the peak table: one source (counterparts of tests/test_telemetry.py's)
+# ---------------------------------------------------------------------------
+
+
+def test_peak_table_is_the_h100s_and_finite():
+    from mingpt_distributed_tpu_torch.telemetry import peaks
+
+    assert set(peaks.PEAKS) == {"H100"}
+    assert peaks.H100_SXM == {"bfloat16": 989e12, "float32": 67e12,
+                              "hbm_bytes_per_s": 3.35e12}
+    assert peaks.peak_flops("NVIDIA H100 80GB HBM3", "bfloat16") == 989e12
+    assert peaks.peak_flops("NVIDIA A100-SXM4-80GB", "bfloat16") is None
+    assert peaks.peak_flops(None, "bfloat16") is None
+    if not torch.cuda.is_available():
+        assert peaks.peak_flops_per_chip() is None
+        assert peaks.peak_hbm_bytes_per_chip() is None
+        assert peaks.peak_hbm_capacity_per_chip() is None
+
+
+def test_training_metrics_reexports_peaks():
+    from mingpt_distributed_tpu_torch.telemetry import peaks
+    from mingpt_distributed_tpu_torch.training import metrics as tm
+
+    assert tm.PEAKS is peaks.PEAKS is telemetry.PEAKS
+    assert tm.H100_SXM is peaks.H100_SXM
+    assert tm.peak_flops is peaks.peak_flops
+
+
+def test_get_registry_and_tracer_are_process_singletons():
+    assert telemetry.get_registry() is telemetry.get_registry()
+    assert telemetry.get_tracer() is telemetry.get_tracer()

@@ -465,9 +465,7 @@ def test_entry_point_without_a_gpu_raises(tmp_path):
         t_train.main(argv)
 
 
-NOT_PORTED = {
-    "zero_dp": True, "async_save": True, "msgpack_gather_limit_mb": 1, "dl_num_workers": 2,
-}
+NOT_PORTED = {"zero_dp": True, "msgpack_gather_limit_mb": 1}
 
 
 @pytest.mark.parametrize("option", sorted(NOT_PORTED))
@@ -633,3 +631,166 @@ def test_metrics_port_serves_the_trainer_gauges(tmp_path):
         assert e.value.code == 404
     tr.close()
     assert tr.telemetry_server is None
+
+
+# ---------------------------------------------------------------------------
+# the C batch gather and dl_num_workers
+# ---------------------------------------------------------------------------
+
+
+def test_c_gather_equals_the_numpy_gather_and_the_jax_package():
+    """data/csrc/native_batcher.c, built with gcc at first use into
+    data/_build/, gathers the same (x, y) windows as the numpy gather and
+    the JAX package's CharView.gather (its C extension when built, else its
+    numpy path) over random starts of both views."""
+    from mingpt_distributed_tpu_torch.data import native_batcher
+
+    port = t_data.CharDataset(DataConfig.make(block_size=32), text=TEXT)
+    jax_ds = j_data.CharDataset(JDataConfig(path="<inline>", block_size=32), text=TEXT)
+    rng = np.random.default_rng(0)
+    for view, jview in zip(port.split(), jax_ds.split()):
+        idx = rng.integers(0, len(view), 64)
+        x, y = view.gather(idx)
+        xn, yn = view.gather_numpy(idx)
+        xj, yj = jview.gather(idx)
+        assert x.dtype == y.dtype == np.int32 and x.shape == (64, 32)
+        np.testing.assert_array_equal(x, xn)
+        np.testing.assert_array_equal(y, yn)
+        np.testing.assert_array_equal(x, np.asarray(xj))
+        np.testing.assert_array_equal(y, np.asarray(yj))
+    lib = native_batcher.library_path()
+    assert lib.exists() and lib.parent.name == "_build"
+
+
+def test_c_gather_refuses_windows_outside_the_corpus():
+    from mingpt_distributed_tpu_torch.data import native_batcher
+
+    data = np.arange(100, dtype=np.int32)
+    np.testing.assert_array_equal(native_batcher.gather_windows(data, [0, 90], 9),
+                                  np.stack([data[0:10], data[90:100]]))
+    for bad in ([91], [-1], [0, 95]):
+        with pytest.raises(IndexError, match="out of range"):
+            native_batcher.gather_windows(data, bad, 9)
+    with pytest.raises(ValueError, match="int32"):
+        native_batcher.gather_windows(data.astype(np.int64), [0], 9)
+
+
+def test_c_gather_from_many_threads_at_once():
+    """Eight threads gather at once (the GIL is released in the C loop, and
+    the library is built and loaded once under a lock), each equal to the
+    numpy gather."""
+    import sys
+    import threading
+
+    view = t_data.CharDataset(DataConfig.make(block_size=32), text=TEXT).split()[0]
+    errors = []
+
+    def work(seed):
+        try:
+            idx = np.random.default_rng(seed).integers(0, len(view), 256)
+            for _ in range(20):
+                x, y = view.gather(idx)
+                xn, yn = view.gather_numpy(idx)
+                assert np.array_equal(x, xn) and np.array_equal(y, yn)
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads) and not errors
+
+
+def test_dl_num_workers_is_accepted_as_in_the_jax_package(tmp_path):
+    TrainerConfig.make(dl_num_workers=2).check_ported()
+    tr = _trainer(tmp_path, 2, dl_num_workers=2)
+    tr.train()
+    assert tr.step == 2
+
+
+# ---------------------------------------------------------------------------
+# async_save
+# ---------------------------------------------------------------------------
+
+
+def _snapshot(tmp_path):
+    return t_ckpt.load_snapshot(str(tmp_path / "snap.pt"))
+
+
+def _assert_trees_equal(a, b):
+    if torch.is_tensor(a):
+        assert torch.equal(a, b)
+    elif isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            _assert_trees_equal(a[k], b[k])
+    elif isinstance(a, (list, tuple)):
+        assert len(a) == len(b)
+        for x, y in zip(a, b):
+            _assert_trees_equal(x, y)
+    else:
+        assert a == b
+
+
+def test_async_snapshot_equals_a_synchronous_runs(tmp_path):
+    """The snapshot an async_save run leaves when train() returns is the
+    synchronous run's: parameters, Adam state, step, data position and
+    generator. The host copy is whole: the parameters the writer saw are
+    the step's, not the next update's."""
+    sync = _trainer(tmp_path / "sync", 4)
+    sync.train()
+    tr = _trainer(tmp_path / "async", 4, async_save=True)
+    tr.train()
+    assert tr._save_thread is None  # joined before train() returned
+    a, b = _snapshot(tmp_path / "async"), _snapshot(tmp_path / "sync")
+    assert a["step"] == b["step"] == 4
+    _assert_trees_equal(a["params"], b["params"])
+    _assert_trees_equal(a["opt_state"], b["opt_state"])
+    _assert_trees_equal({k: a[k] for k in ("epoch", "data_state", "generator")},
+                        {k: b[k] for k in ("epoch", "data_state", "generator")})
+    # a later in-place update does not reach the copy the writer was given
+    snap = t_trainer._host_copy({"w": tr.state.params["wte"]})
+    with torch.no_grad():
+        tr.state.params["wte"].add_(1.0)
+    assert not torch.equal(snap["w"], tr.state.params["wte"])
+
+
+def test_async_writer_failure_is_reraised_at_the_next_save_and_at_return(
+        tmp_path, monkeypatch, capsys):
+    """Every write through a fault-injecting file system fails; the writer
+    thread keeps the error, the next save re-raises it before writing, and
+    train() re-raises at its end."""
+    from mingpt_distributed_tpu_torch.training import faults
+
+    faulty = faults.FaultInjectionFileSystem("write:every=1", sleep=lambda _: None)
+    real = t_ckpt.save_snapshot
+    monkeypatch.setattr(t_ckpt, "save_snapshot",
+                        lambda *a, **k: real(*a, fs=faulty, **k))
+    tr = _trainer(tmp_path, 2, async_save=True, io_retries=1, io_retry_delay_s=0.0)
+    with pytest.raises(RuntimeError, match="async snapshot write") as e:
+        tr.train()
+    assert isinstance(e.value.__cause__, OSError)
+    tr.save_snapshot(0)  # starts a write that fails in the thread
+    tr._save_thread.join(timeout=60)
+    with pytest.raises(RuntimeError, match="async snapshot write"):
+        tr.save_snapshot(0)
+    tr._join_pending_save()  # nothing pending, nothing kept
+    assert "Snapshot saved" not in capsys.readouterr().out
+
+
+def test_resume_from_an_async_snapshot(tmp_path):
+    whole = _trainer(tmp_path / "a", 6)
+    whole.train()
+    _trainer(tmp_path / "b", 3, async_save=True).train()
+    resumed = _trainer(tmp_path / "b", 6, async_save=True)
+    assert resumed.step == 3
+    resumed.train()
+    for a, b in zip(t_gpt._leaves(resumed.state.params), t_gpt._leaves(whole.state.params)):
+        assert torch.equal(a, b)
