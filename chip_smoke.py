@@ -5,9 +5,10 @@
 
 Builds the port's CUDA kernels from the sources in this checkout (one nvcc
 per source, in parallel), holds each against its plain PyTorch version on
-the card, drives the port's inference, training and sequence-parallel
-training paths at GPT-2 124M width and the mixture-of-experts path at
-Mixtral-8x7B width (random weights, fixed seeds) through the entry points
+the card, drives the port's inference, serving (one server and the
+in-process fleet), traffic-lab, training and sequence-parallel training
+paths at GPT-2 124M width and the mixture-of-experts path at Mixtral-8x7B
+width (random weights, fixed seeds) through the entry points
 a user calls, checks that each path went through the kernels,
 and times them. Imports nothing of JAX. Prints JSON lines as it goes; any
 failed check raises, so the exit code is non-zero and the final line is
@@ -81,6 +82,29 @@ Phases:
      tie rule against solo decode) and serve_moe (2 layers, bf16,
      capacity factor 1.25, serve's traffic, attribution on: its rows and
      the HBM ledger against torch.cuda.memory_allocated); 0 launches;
+  3d. the in-process fleet and the traffic lab at GPT-2 124M width (no
+     kernel on their path, 0 launches checked; the router's crashes and
+     step failures held to the injected ones): fleet_parity (fp32, 3
+     replicas x 2 slots on a virtual clock under
+     crash:nth=6:match=replica0;slow:every=1:delay=0.25:match=replica1, 6
+     greedy requests of 5 to 300 prompt tokens, 24 new tokens: every stream
+     equal to solo decode and to what the caller was streamed, the crash,
+     retry, duplicate, health and drain counters, memory_allocated back
+     within one pool after the restart, each replica's HBM owners beside
+     one memory_allocated reading; the migration seam at fp32 and int8: a
+     300-token prompt's 256 rows extracted, adopted into a second server's
+     prefix store, hit, continued exactly, bit-equal); fleet (bf16, serve's
+     32 requests through 2 replicas x 4 slots on the wall clock: tokens/s
+     beside serve's, TTFT and ITL, host ms per router round, requests and
+     prefix hits per replica; a second run with the engines' logits
+     recorded, the same tokens, greedy rows under the tie rule at every
+     step, teacher-forced); traffic (bf16, the traffic lab's canned sweep:
+     poisson:rate=40, ladder 1 and 24, fifo and edf, 40 requests per rung,
+     1 replica x 2 slots, V = 50257, the prefix cache scaled to the tiny
+     model's row count: validation after a JSON round trip, the knee's
+     pass->fail shape, EDF above FIFO at the overload rung, a byte-identical
+     rerun, the report equal field for field to the tiny model's on the CPU
+     with the same mix);
   4. training: the train step at the bench shape (GPT-2 124M, T=1024, batch
      16, bf16, no dropout), 12 forward, 12 prep, 12 dq and 12 dk/dv
      launches per step; the same step with FLASH_FUSED_BWD=1, 12 forward,
@@ -117,14 +141,17 @@ Phases:
      kernels. The SM clock, power and
      throttle reasons are logged before and after.
 The seconds of the phases added with MoE and telemetry are one line
-(new_phase_seconds). The last three lines are the card, the kernels line
-(twelve kernels) and the ok line. Exits 2 without CUDA, 1 on any failure.
+(phase_seconds), those of the fleet phases another (new_phase_seconds, with
+the smoke's seconds so far). The last three lines are the card, the kernels
+line (twelve kernels) and the ok line. Exits 2 without CUDA, 1 on any
+failure.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import importlib
 import io
 import json
@@ -1126,23 +1153,27 @@ def _serve_prompts(rng, lengths, head, shared, vocab=50257):
 
 
 @contextlib.contextmanager
-def logit_tap(server):
+def logit_tap(*servers):
     """Records the logits the target engine picks each request's tokens
-    from, keyed (request id, token index): the engine's selector is
-    wrapped, and the target's prefill, decode and verify calls mark what
-    the next selection belongs to (the draft engine's calls are not
-    recorded). A verify's row j gives token len(tokens) + j; the rows a
-    round rejects are overwritten by the round that emits those indices."""
+    from, keyed (request id, token index), over one or more servers (a
+    fleet's replicas): the engine's selector is wrapped, and each target's
+    prefill, decode and verify calls mark what the next selection belongs
+    to (the draft engine's calls are not recorded). A verify's row j gives
+    token len(tokens) + j; the rows a round rejects are overwritten by the
+    round that emits those indices."""
     from mingpt_distributed_tpu_torch.serving import engine as engine_mod
 
     rows, current = {}, {}
-    real_select, eng = engine_mod._select_next_slots, server.engine
-    real = {name: getattr(eng, name) for name in
-            ("prefill_chunk_call", "verify_call", "decode_on_device")}
+    kinds = {"prefill_chunk_call": "prefill", "verify_call": "verify",
+             "decode_on_device": "decode"}
+    real_select = engine_mod._select_next_slots
+    real = [(srv, {name: getattr(srv.engine, name) for name in kinds})
+            for srv in servers]
 
-    def marked(kind, fn):
+    def marked(server, kind, fn):
         def call(*args, **kwargs):
-            current.update(kind=kind, slot=args[0] if kind != "decode" else None)
+            current.update(kind=kind, server=server,
+                           slot=args[0] if kind != "decode" else None)
             try:
                 return fn(*args, **kwargs)
             finally:
@@ -1150,7 +1181,7 @@ def logit_tap(server):
         return call
 
     def select(logits, *args):
-        kind = current.get("kind")
+        kind, server = current.get("kind"), current.get("server")
         if kind == "decode":
             for s in server.slots.decoding_slots():
                 h = server.slots.handles[s]
@@ -1165,15 +1196,16 @@ def logit_tap(server):
         return real_select(logits, *args)
 
     engine_mod._select_next_slots = select
-    eng.prefill_chunk_call = marked("prefill", real["prefill_chunk_call"])
-    eng.verify_call = marked("verify", real["verify_call"])
-    eng.decode_on_device = marked("decode", real["decode_on_device"])
+    for srv, fns in real:
+        for name, fn in fns.items():
+            setattr(srv.engine, name, marked(srv, kinds[name], fn))
     try:
         yield rows
     finally:
         engine_mod._select_next_slots = real_select
-        for name in real:
-            delattr(eng, name)
+        for srv, fns in real:
+            for name in fns:
+                delattr(srv.engine, name)
 
 
 def solo_greedy(params, cfg, prompt, n):
@@ -1986,6 +2018,457 @@ def phase_serve_telemetry(params32, card, tmp):
           f"serve_telemetry: attribution rows {rows}")
     check(not any(launches.values()), f"serve_telemetry launched kernels: {launches}")
     del server
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 3d: the in-process fleet and the traffic lab at GPT-2 124M width
+# ---------------------------------------------------------------------------
+
+FLEET_CHAOS = "crash:nth=6:match=replica0;slow:every=1:delay=0.25:match=replica1"
+FLEET_REPLICAS, FLEET_SLOTS = 3, 2
+MIGRATE_PROMPT, MIGRATE_ROWS = 300, 256
+
+
+@contextlib.contextmanager
+def router_faults():
+    """Counts every crash and step failure any fleet Router handles while
+    open: {"crash": n, "step_failure": n}. The fleet phases hold these to
+    the faults the injector fired, so a real error in a replica (a CUDA
+    fault, say) cannot pass as injected chaos."""
+    from mingpt_distributed_tpu_torch.serving import fleet
+
+    seen = {"crash": 0, "step_failure": 0}
+    real = {"crash": fleet.Router._handle_crash,
+            "step_failure": fleet.Router._handle_step_failure}
+
+    def counting(kind):
+        def call(self, rep, exc):
+            seen[kind] += 1
+            print(f"[fleet] {kind} on {rep.name}: {exc!r}", file=sys.stderr)
+            return real[kind](self, rep, exc)
+        return call
+
+    fleet.Router._handle_crash = counting("crash")
+    fleet.Router._handle_step_failure = counting("step_failure")
+    try:
+        yield seen
+    finally:
+        fleet.Router._handle_crash = real["crash"]
+        fleet.Router._handle_step_failure = real["step_failure"]
+
+
+def fleet_prompts(router, n_per, lo=5, hi=300, vocab=50257):
+    """Seeded prompts of lo..hi tokens, ``n_per`` landing on each replica by
+    the router's prefix affinity (the chaos spec names replicas, so work
+    must reach the named ones), in replica order."""
+    rng = np.random.default_rng(SERVE_SEED + 2)
+    per = {i: [] for i in range(len(router.supervisor.replicas))}
+    while any(len(v) < n_per for v in per.values()):
+        p = rng.integers(0, vocab, int(rng.integers(lo, hi + 1))).tolist()
+        i = router._affinity_index(p)
+        if len(per[i]) < n_per:
+            per[i].append(p)
+    return [p for i in sorted(per) for p in per[i]]
+
+
+def migrate_check(params32, cfg, kv_dtype):
+    """The migration seam at full width: a 300-token prompt prefilled on a
+    source server (chunked 256: rows 0-255, then the 44-row tail), its
+    ``migratable_rows`` (256) extracted and adopted into a second server's
+    prefix store; that server must hit all 256 rows, prefill only the tail
+    and continue exactly as the source did, with the adopted payloads (and
+    an int8 pool's scale planes) bit-equal to the extracted ones."""
+    from mingpt_distributed_tpu_torch.serving import InferenceServer, Request
+
+    rng = np.random.default_rng(SERVE_SEED + 3)
+    prompt = rng.integers(0, cfg.vocab_size, MIGRATE_PROMPT).tolist()
+    kw = dict(n_slots=2, prefill_chunk=256, kv_dtype=kv_dtype, device="cuda")
+    src = InferenceServer(params32, cfg, **kw)
+    h = src.submit(Request(prompt=prompt, max_new_tokens=PARITY_NEW))
+    while h.prefilling or h.slot is None:
+        src.step()
+    rows = src.engine.migratable_rows(len(prompt), h.prefill_pos)
+    entry = src.engine.extract_slot_rows(h.slot, rows)
+    src.run_until_drained()
+    dst = InferenceServer(params32, cfg, prefix_cache_mb=64, **kw)
+    adopted = dst.engine.adopt_prefix_entry(prompt[:rows], entry)
+    stored = dict(dst.engine.prefix_store.entries()).get(tuple(prompt[:rows]), {})
+    h2 = dst.generate_batch([Request(prompt=prompt, max_new_tokens=PARITY_NEW)])[0]
+    lane = {n: a[:, 0:1, :rows] for n, a in dst.engine.pool.cache.items()}
+    bit_equal = (sorted(stored) == sorted(entry) and all(
+        torch.equal(stored[n], entry[n]) and torch.equal(lane[n], entry[n])
+        for n in entry))
+    rec = {"kv_dtype": kv_dtype, "prompt_tokens": len(prompt), "rows": rows,
+           "adopted": adopted, "leaves": {n: str(a.dtype) for n, a in entry.items()},
+           "entry_bytes": sum(int(a.nbytes) for a in entry.values()),
+           "hit_rows": h2.prefix_rows, "prefix_hits": dst.metrics.prefix_hits,
+           "tokens_equal": h2.tokens == h.tokens, "bit_equal": bit_equal}
+    check(rows == MIGRATE_ROWS and adopted and h2.prefix_rows == rows
+          and dst.metrics.prefix_hits == 1,
+          f"fleet_parity: migration at {kv_dtype} did not hit {MIGRATE_ROWS} rows: {rec}")
+    check(rec["tokens_equal"] and len(h.tokens) == PARITY_NEW,
+          f"fleet_parity: the adopted rows' continuation differs at {kv_dtype}: "
+          f"{h2.tokens} vs {h.tokens}")
+    check(bit_equal, f"fleet_parity: migrated {kv_dtype} rows are not bit-equal")
+    return rec
+
+
+def phase_fleet_parity(params32, card):
+    """The in-process fleet at GPT-2 124M width, fp32: 3 replicas x 2 slots
+    on one VirtualClock under the chaos spec FLEET_CHAOS (replica0 crashes
+    in its 6th round, replica1 is slowed 0.25 virtual seconds per round), 6
+    greedy requests of 5 to 300 prompt tokens (two landing on each replica
+    by affinity), 24 new tokens each, attribution on each replica. Every
+    stream token-identical to solo decode and to what the caller was
+    streamed; the crash, retry, duplicate, health and drain counters; device
+    memory back within one pool's bytes after the restart; each replica's
+    HBM owners beside one memory_allocated reading (the shared tree once);
+    then the migration seam at fp32 and int8 (``migrate_check``)."""
+    from mingpt_distributed_tpu_torch.serving import (
+        ReplicaSupervisor,
+        Request,
+        Router,
+        ShedError,
+        VirtualClock,
+        default_server_factory,
+    )
+    from mingpt_distributed_tpu_torch.telemetry import tree_bytes
+    from mingpt_distributed_tpu_torch.training.faults import ServingFaultInjector
+
+    gc.collect()  # earlier phases' servers (reference cycles) go first
+    cfg, new = gpt2_config("flash", "float32"), PARITY_NEW
+    injector = ServingFaultInjector(FLEET_CHAOS)
+    supervisor = ReplicaSupervisor(
+        default_server_factory(params32, cfg, n_slots=FLEET_SLOTS, attrib=True,
+                               device="cuda"),
+        n_replicas=FLEET_REPLICAS, clock=VirtualClock(tick_s=0.001),
+        injector=injector, max_restarts=1, restart_backoff_s=0.01, itl_slo_s=0.1)
+    streamed = {}
+    router = Router(supervisor, max_retries=3, retry_backoff_s=0.01,
+                    breaker_reset_s=0.05,
+                    on_token=lambda fh, t: streamed.setdefault(fh.request_id, []).append(t))
+    memory = {}
+    real_mark, real_poll = supervisor.mark_crashed, supervisor.poll_restarts
+
+    def mark_crashed(rep):
+        gc.collect()  # garbage of earlier phases is not the crashed server's
+        torch.cuda.synchronize()
+        memory["before_crash"] = torch.cuda.memory_allocated()
+        memory["pool_bytes"] = rep.server.engine.pool.nbytes
+        real_mark(rep)
+
+    def poll_restarts():
+        out = real_poll()
+        if out:
+            torch.cuda.synchronize()
+            memory["after_restart"] = torch.cuda.memory_allocated()
+        return out
+
+    supervisor.mark_crashed, supervisor.poll_restarts = mark_crashed, poll_restarts
+    prompts = fleet_prompts(router, FLEET_SLOTS)
+    reset_counts()
+    with router_faults() as faults:
+        handles, dt = timed(lambda: router.generate_batch(
+            [Request(prompt=p, max_new_tokens=new) for p in prompts]))
+    launches = read_counts()
+    summary = router.summary()
+    solo = [solo_greedy(params32, cfg, p, new)[0] for p in prompts]
+    exact = [h.tokens == want for h, want in zip(handles, solo)]
+    reps = summary["replicas"]
+    router.drain()
+    try:
+        router.submit(Request(prompt=prompts[0], max_new_tokens=2))
+        drain_reason = None
+    except ShedError as e:
+        drain_reason = e.reason
+    owners = {rep.name: rep.server.attrib_report(include_live=True)["hbm"]
+              for rep in supervisor.replicas}
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    params_bytes = tree_bytes(params32)
+    pools = sum(rep.server.engine.pool.nbytes for rep in supervisor.replicas)
+    fired = {op: sum(f.startswith(op + ":") for f in injector.fired)
+             for op in ("crash", "poison", "slow")}
+    rec = {"phase": "fleet_parity", "model": "gpt2 124M", "dtype": "float32",
+           "replicas": FLEET_REPLICAS, "slots": FLEET_SLOTS, "chaos": FLEET_CHAOS,
+           "requests": len(prompts), "prompt_lengths": [len(p) for p in prompts],
+           "new_tokens": new, "tokens_exact": sum(exact),
+           "attempts": [h.attempts for h in handles],
+           "replica_of": [h.replica for h in handles],
+           "summary": summary, "fired": fired, "router_faults": faults,
+           "drain_shed_reason": drain_reason, "memory": memory,
+           "hbm_owners": {n: o["owners"] for n, o in owners.items()},
+           "hbm_audit_live_bytes": {n: o["audit"]["live_bytes"] for n, o in owners.items()},
+           "memory_allocated": allocated, "params_bytes_once": params_bytes,
+           "pools_bytes": pools, "launches": launches, "seconds": dt, "card": card}
+    rec["migration"] = [migrate_check(params32, cfg, kv) for kv in ("fp32", "int8")]
+    emit(rec)
+    check(all(h.finish_reason == "length" for h in handles) and all(exact),
+          f"fleet_parity: {sum(exact)}/{len(handles)} streams equal solo decode")
+    check(all(streamed.get(h.request_id) == h.tokens for h in handles),
+          "fleet_parity: the caller's stream differs from the handle's (a "
+          "duplicate or lost emission)")
+    check(reps["replica0"]["crashes"] >= 1 and reps["replica0"]["state"] == "ready",
+          f"fleet_parity: replica0 {reps['replica0']}")
+    check(summary["retries_by_reason"]["crash"] >= 1
+          and summary["duplicates_suppressed"] >= 1,
+          f"fleet_parity: retries {summary['retries_by_reason']}, duplicates "
+          f"{summary['duplicates_suppressed']}")
+    check("itl_p99" in reps["replica1"]["health_reasons"],
+          f"fleet_parity: replica1 not gated on itl_p99: {reps['replica1']}")
+    check(drain_reason == "draining", f"fleet_parity: drain shed {drain_reason!r}")
+    check(faults == {"crash": fired["crash"], "step_failure": fired["poison"]},
+          f"fleet_parity: router faults {faults} beyond the injected {fired}")
+    check({"before_crash", "after_restart"} <= set(memory) and abs(
+        memory["after_restart"] - memory["before_crash"]) < memory["pool_bytes"],
+        f"fleet_parity: device memory not back after the restart: {memory}")
+    check(allocated - pools < 2 * params_bytes,
+          f"fleet_parity: {allocated} bytes allocated for {pools} pool bytes and "
+          f"{params_bytes} parameter bytes: a replica copied the tree")
+    check(all(o["audit"]["live_bytes"] >= o["total_bytes"] for o in owners.values()),
+          f"fleet_parity: a replica's HBM ledger exceeds the card's {owners}")
+    check(not any(launches.values()), f"fleet_parity launched kernels: {launches}")
+    del router, supervisor
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _fleet_run(params32, cfg, reqs, tap=False):
+    """serve's requests through a fresh 2 x 4-slot fleet on the wall clock:
+    (router, handles, seconds, token stamps per request, host ms per router
+    round, router faults, launches, the engines' logit rows when ``tap``)."""
+    from mingpt_distributed_tpu_torch.serving import (
+        ReplicaSupervisor,
+        Router,
+        WallClock,
+        default_server_factory,
+    )
+
+    supervisor = ReplicaSupervisor(
+        default_server_factory(params32, cfg, n_slots=4, prefill_chunk=256,
+                               prefix_cache_mb=256, warmup=True, device="cuda"),
+        n_replicas=2, clock=WallClock())
+    token_times = {}
+    router = Router(supervisor, on_token=lambda fh, _t: token_times.setdefault(
+        fh.request_id, []).append(time.perf_counter()))
+    round_ms = []
+    real_step = router.step
+
+    def step():
+        t0 = time.perf_counter()
+        out = real_step()
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    router.step = step
+    servers = [rep.server for rep in supervisor.replicas]
+    reset_counts()
+    with router_faults() as faults, (logit_tap(*servers) if tap
+                                     else contextlib.nullcontext({})) as rows:
+        handles, dt = timed(lambda: router.generate_batch(reqs))
+    launches = read_counts()
+    del router.step
+    return router, handles, dt, token_times, round_ms, faults, launches, rows
+
+
+def phase_fleet(params32, card, serve_rec):
+    """The fleet on serve's traffic (``serve_traffic``: 32 requests, bf16,
+    64 new tokens, one in four sampled) through 2 replicas x 4 slots on the
+    wall clock, each replica built like serve's server (chunked prefill 256,
+    a 256 MiB prefix cache, warmup): tokens/s beside serve's (one server, 8
+    slots, the same call), TTFT and ITL p99, the host ms of a router round,
+    requests and prefix hits per replica. A second run with the engines'
+    logits recorded (which costs host time, so the first run is the timed
+    one) must give the same tokens (the schedule does not depend on the
+    clock), and its greedy rows hold the tie rule against solo decoding at
+    every step. No crash, no step failure, no kernel launch."""
+    cfg = gpt2_config("flash", "bfloat16")
+    reqs, lengths, sampled = serve_traffic(32, cfg.vocab_size)
+    router, handles, dt, token_times, round_ms, faults, launches, _ = _fleet_run(
+        params32, cfg, reqs)
+    generated = sum(len(h.tokens) for h in handles)
+    itl = [b - a for ts in token_times.values() for a, b in zip(ts, ts[1:])]
+    supervisor = router.supervisor
+    per_replica = {rep.name: {
+        "requests": sum(h.replica == rep.name for h in handles),
+        "prefix_hits": rep.server.metrics.prefix_hits,
+        "prefix_lookups": rep.server.metrics.prefix_lookups,
+        "shapes": rep.server.compile_counts()} for rep in supervisor.replicas}
+    held = all(rep.server.engine.pool.free_count == 4 for rep in supervisor.replicas)
+    summary = router.summary()
+    del router, supervisor
+    gc.collect()
+    tapped = _fleet_run(params32, cfg, reqs, tap=True)
+    same_tokens = [h.tokens for h in tapped[1]] == [h.tokens for h in handles]
+    greedy = [(h, r) for h, r, s in zip(tapped[1], reqs, sampled) if not s]
+    res = forced_tie_rule(params32, cfg, [(f"{h.request_id}-a1", list(r.prompt), h.tokens)
+                                          for h, r in greedy], tapped[7])
+    tps = generated / dt
+    rec = {"phase": "fleet", "model": "gpt2 124M", "dtype": "bfloat16",
+           "replicas": 2, "slots_per_replica": 4, "requests": len(reqs),
+           "sampled_top_k50": sum(sampled), "prompt_tokens": int(sum(lengths)),
+           "new_tokens": SERVE_NEW, "generated_tokens": generated, "seconds": dt,
+           "tokens_per_s": tps, "serve_tokens_per_s": serve_rec["tokens_per_s"],
+           "ratio_to_serve": tps / serve_rec["tokens_per_s"],
+           "tapped_run_seconds": tapped[2],
+           "ttft_s": _percentiles([h.first_token_at - h.submit_time for h in handles]),
+           "itl_s": _percentiles(itl), "serve_ttft_s": serve_rec["ttft_s"],
+           "serve_itl_s": serve_rec["itl_s"], "router_rounds": len(round_ms),
+           "router_round_host_ms": _percentiles(round_ms),
+           "serve_decode_round_host_ms": serve_rec["decode_round_host_ms"],
+           "per_replica": per_replica, "greedy_requests": len(greedy),
+           "tokens_equal_across_runs": same_tokens, **res,
+           "divergence_count": len(res["divergences"]), "summary": summary,
+           "router_faults": [faults, tapped[5]], "launches": launches, "card": card}
+    emit(rec)
+    check(all(h.finish_reason == "length" and len(h.tokens) == SERVE_NEW
+              and h.attempts == 1 for h in handles),
+          f"fleet: a request did not end with {SERVE_NEW} tokens on its first attempt")
+    check(all(0 <= t < cfg.vocab_size for h in handles for t in h.tokens),
+          "fleet: token ids out of range")
+    check(same_tokens, "fleet: the recorded run's tokens differ from the timed run's")
+    check_tie_rule("fleet", res, len(greedy) * SERVE_NEW)
+    check(faults == tapped[5] == {"crash": 0, "step_failure": 0},
+          f"fleet: the router handled faults with no injector: {faults}, {tapped[5]}")
+    check(held, "fleet: a slot is still held")
+    check(not any(launches.values()) and not any(tapped[6].values()),
+          f"fleet launched kernels: {launches}, {tapped[6]}")
+    del tapped
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def forced_tie_rule(params, cfg, streams, rows):
+    """The tie rule along each stream, teacher-forced: solo logits at every
+    generated position from ONE cached forward of the prompt and the
+    stream's own tokens (``streams``: (request id, prompt, tokens)), so all
+    steps are compared, not only those before a first divergence. e is the
+    largest engine-vs-solo logit difference over every step; a token that
+    is not solo's argmax is allowed where solo's top logit exceeds that
+    token's by at most SERVE_TIE_X * e. At bf16 the engine's batched decode
+    and chunked prefill round differently from one solo forward, and the
+    random-init logits are near-tied often enough that a free-running solo
+    decode would leave most steps uncompared."""
+    from mingpt_distributed_tpu_torch.models import generate as gen
+
+    refs, e = [], 0.0
+    with torch.no_grad():
+        for rid, prompt, toks in streams:
+            cache = gen.init_cache(cfg, 1, torch.device("cuda"))
+            seq = torch.tensor([prompt + toks[:-1]], device="cuda")
+            x = gen._forward_cached_hidden(params, seq, cache, 0, cfg)
+            ref = gen._head_logits(params, x[:, len(prompt) - 1:], cfg)[0].float()
+            refs.append(ref)
+            e = max(e, max((rows[(rid, i)].float() - ref[i]).abs().max().item()
+                           for i in range(len(toks))))
+    divergences = []
+    for (rid, _, toks), ref in zip(streams, refs):
+        for i, tok in enumerate(toks):
+            top = ref[i].max()
+            if int(ref[i].argmax()) != tok:
+                divergences.append({"request": rid, "step": i, "server": tok,
+                                    "solo": int(ref[i].argmax()),
+                                    "top2_gap": (top - ref[i][tok]).item()})
+    return {"compared_steps": sum(len(t) for _, _, t in streams), "max_logit_err": e,
+            "tie_margin": SERVE_TIE_X * e, "divergences": divergences}
+
+
+def _diff_paths(a, b, path=""):
+    if isinstance(a, dict) and isinstance(b, dict):
+        return [p for k in sorted(set(a) | set(b))
+                for p in _diff_paths(a.get(k), b.get(k), f"{path}.{k}")]
+    if isinstance(a, list) and isinstance(b, list) and len(a) == len(b):
+        return [p for i, (x, y) in enumerate(zip(a, b))
+                for p in _diff_paths(x, y, f"{path}[{i}]")]
+    return [] if a == b else [path]
+
+
+def phase_traffic(params32, card):
+    """The traffic lab at GPT-2 124M width, bf16: the canned self-test sweep
+    (poisson:rate=40, ladder 1 and 24, fifo and edf, 40 requests per rung,
+    1 replica x 2 slots, ttft_p95<=0.025,shed_rate<=0.5) over the self-test
+    mix at V = 50257, the prefix cache scaled to hold as many rows as the
+    tiny model's 0.5 MiB; the report validated after a JSON round trip, the
+    knee's pass->fail shape, EDF strictly above FIFO at the overload rung, a
+    second sweep byte-identical; the same sweep on the tiny model on the
+    CPU, and the report fields that differ between the two."""
+    from mingpt_distributed_tpu_torch import traffic as traffic_cli
+    from mingpt_distributed_tpu_torch.models import gpt
+    from mingpt_distributed_tpu_torch.trafficlab import run_sweep, runner
+    from mingpt_distributed_tpu_torch.trafficlab.report import dump_report
+
+    cfg = gpt2_config("flash", "bfloat16")
+    tiny = traffic_cli.tiny_config()
+    row_bytes = 2 * cfg.n_layer * cfg.kv_heads * cfg.head_dim * 2      # bf16
+    tiny_row_bytes = 2 * tiny.n_layer * tiny.kv_heads * tiny.head_dim * 4  # fp32
+    prefix_mb = 0.5 * row_bytes / tiny_row_bytes
+    spec = traffic_cli.selftest_sweep_spec(prefix_cache_mb=prefix_mb)
+    mix = traffic_cli.selftest_mix(cfg.vocab_size)
+    cells = []
+    real_run_one = runner._run_one
+
+    def run_one(*args, **kwargs):
+        t0 = time.perf_counter()
+        cell = real_run_one(*args, **kwargs)
+        cells.append({"policy": args[3], "wall_s": time.perf_counter() - t0,
+                      "tokens": cell["tokens"], "rounds": cell["rounds"]})
+        return cell
+
+    runner._run_one = run_one
+    reset_counts()
+    try:
+        with router_faults() as faults:
+            report, dt = timed(lambda: run_sweep(params32, cfg, spec, mix=mix,
+                                                 server_kwargs=dict(device="cuda")))
+            report2, dt2 = timed(lambda: run_sweep(params32, cfg, spec, mix=mix,
+                                                   server_kwargs=dict(device="cuda")))
+    finally:
+        runner._run_one = real_run_one
+    launches = read_counts()
+    rc = traffic_cli.selftest_checks(report, report2, tag="traffic")
+    # the same sweep on the CPU at tiny width: with the self-test's V = 96
+    # mix (the vocabulary keys the mix's RNG, so the rendered trace differs)
+    # and with this phase's V = 50257 mix (the same trace)
+    cpu = {}
+    for vocab in (tiny.vocab_size, cfg.vocab_size):
+        tcfg = dataclasses.replace(tiny, vocab_size=vocab)
+        tparams = gpt.init(tcfg, torch.Generator().manual_seed(0), device="cpu")
+        cpu[vocab] = run_sweep(tparams, tcfg, traffic_cli.selftest_sweep_spec(),
+                               mix=traffic_cli.selftest_mix(vocab),
+                               server_kwargs=dict(device="cpu"))
+    differ = {v: _diff_paths(json.loads(json.dumps(r)), json.loads(json.dumps(report)))
+              for v, r in cpu.items()}
+    cpu_report = cpu[tiny.vocab_size]
+    last = report["rungs"][-1]["policies"]
+    tokens = sum(c["tokens"] for c in cells)
+    rec = {"phase": "traffic", "model": "gpt2 124M", "dtype": "bfloat16",
+           "arrival": spec.arrival, "ladder": list(spec.ladder),
+           "policies": list(spec.policies), "requests_per_rung": spec.n_requests,
+           "prefix_cache_mb": prefix_mb, "knee": report["knee"],
+           "deadline_hit_rate": {p: c["deadline_hit_rate"] for p, c in last.items()},
+           "cells": cells, "sweep_seconds": [dt, dt2],
+           "tokens_per_wall_s": tokens / sum(c["wall_s"] for c in cells),
+           "byte_identical_rerun": dump_report(report) == dump_report(report2),
+           "cpu_tiny_knee": cpu_report["knee"],
+           "fields_differing_from_cpu_tiny": {
+               f"V{v}": {"paths": len(d), "fields": sorted({
+                   re.sub(r"\[\d+\]", "[]", p) for p in d})} for v, d in differ.items()},
+           "router_faults": faults, "launches": launches, "card": card}
+    emit(rec)
+    check(rc == 0, "traffic: a self-test gate failed (lines above)")
+    check(report["knee"] == cpu_report["knee"] and (
+        last["edf"]["deadline_hit_rate"] > last["fifo"]["deadline_hit_rate"]),
+        f"traffic: verdicts differ from the CPU run's: {report['knee']} vs "
+        f"{cpu_report['knee']}")
+    check(differ[cfg.vocab_size] == [],
+          f"traffic: the report differs from the tiny CPU run on the same mix "
+          f"in {differ[cfg.vocab_size]}")
+    check(faults == {"crash": 0, "step_failure": 0},
+          f"traffic: the router handled faults with no injector: {faults}")
+    check(not any(launches.values()), f"traffic launched kernels: {launches}")
     torch.cuda.empty_cache()
     return launches
 
@@ -3266,6 +3749,7 @@ def main() -> int:
     from mingpt_distributed_tpu_torch.tools import exp_exp2 as ex
     from mingpt_distributed_tpu_torch.tools import proto_nh_kernel as nh
 
+    smoke_t0 = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3316,6 +3800,13 @@ def main() -> int:
     t0 = time.perf_counter()
     serve_telemetry = phase_serve_telemetry(model32.params, card, tmp)
     seconds["serve_telemetry"] = time.perf_counter() - t0
+    fleet_launches, new_seconds = {}, {}
+    for name, run in (("fleet_parity", lambda: phase_fleet_parity(model32.params, card)),
+                      ("fleet", lambda: phase_fleet(model32.params, card, serve)),
+                      ("traffic", lambda: phase_traffic(model32.params, card))):
+        t0 = time.perf_counter()
+        fleet_launches[name] = run()
+        new_seconds[name] = time.perf_counter() - t0
     del model32
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3404,8 +3895,11 @@ def main() -> int:
           **{f"serve_spec_{d}": r["launches"] for d, r in serve_spec.items()},
           "serve_telemetry": serve_telemetry, "serve_moe_parity": serve_moe_parity,
           "serve_moe": serve_moe["launches"], "moe_train_step": moe_split["launches"],
-          "moe_train_step_fused": moe_fused["launches"]})
-    emit({"phase": "new_phase_seconds", **seconds})
+          "moe_train_step_fused": moe_fused["launches"], **fleet_launches})
+    emit({"phase": "phase_seconds", **seconds})
+    emit({"phase": "new_phase_seconds", **new_seconds,
+          "total": sum(new_seconds.values()),
+          "smoke_so_far": time.perf_counter() - smoke_t0})
     print(card_line(), flush=True)
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -29,6 +29,22 @@ Modes:
                       and speculation against the fp32 pool: common greedy
                       prefix >= 0.9, equal shape counts, <= 0.27x the pool
                       bytes, power-of-two scales: --selftest-quant
+  chaos self-test     3 supervised replicas on a virtual clock, replica0
+                      crashed mid-decode and replica1 slowed by injected
+                      faults: greedy parity with solo generate(), no
+                      duplicate streamed token, the fleet's counters on a
+                      strict-parsed /metrics scrape: --selftest-chaos
+
+Fleet: ``--replicas N`` serves through N supervised in-process replicas on
+one device (``--isolation thread``; ``process`` is ROADMAP.md Queue 1 item
+15b) behind the health/affinity router (``serving/fleet.py``): a crashed
+replica restarts with a backoff and its requests retry idempotently on
+survivors; ``--shed-watermark D`` sheds new requests once the fleet-wide
+queue depth reaches D; ``--chaos-spec`` (or ``MINGPT_SERVING_FAULTS``)
+injects deterministic serving faults (crash, poison, slow, admit). With
+``--metrics-port``, /healthz carries each replica's breaker and health
+reasons and /metrics the merged page (each replica's families under a
+``replica`` label).
 
 Speculative decoding: ``--draft-config self|self:N|k=v,...`` with
 ``--spec-k K``; the KV pool's storage: ``--kv-dtype fp32|int8|fp8``;
@@ -47,6 +63,9 @@ Usage:
   python -m mingpt_distributed_tpu_torch.serve --selftest-spec [--device cpu]
   python -m mingpt_distributed_tpu_torch.serve --selftest-quant [--device cpu]
   python -m mingpt_distributed_tpu_torch.serve --selftest-attrib [--device cpu]
+  python -m mingpt_distributed_tpu_torch.serve --selftest-chaos [--device cpu]
+  python -m mingpt_distributed_tpu_torch.serve --replicas 2 --prompts-file p.txt \\
+      [--chaos-spec 'crash:nth=6:match=replica0'] [--shed-watermark 16] ...
   python -m mingpt_distributed_tpu_torch.serve --prompts-file prompts.txt \\
       [--config gpt2_config.yaml] [--slots 4] [--greedy] \\
       [--prefill-chunk 256] [--prefix-cache-mb 64] [--warmup] \\
@@ -63,7 +82,9 @@ the attribution report (``/attrib`` on ``--metrics-port``);
 SIGTERM (or one SIGINT) stops admission, drains in-flight requests, flushes
 the metrics and exits 75 so a scheduler requeues the job; a second SIGINT
 aborts. The JAX serve.py's other flags are parsed and refused (exit 2),
-naming the ROADMAP.md Queue 1 item that brings them (``UNPORTED_FLAGS``).
+naming the ROADMAP.md Queue 1 item that brings them (``UNPORTED_FLAGS``:
+tensor parallelism, item 9; the process and cross-host fleet, 15b; the
+autoscaler, 15c).
 """
 
 from __future__ import annotations
@@ -91,15 +112,14 @@ from mingpt_distributed_tpu_torch.training.trainer import REQUEUE_EXIT_CODE
 from mingpt_distributed_tpu_torch.utils.device import resolve_device
 
 # the JAX serve.py's flags that the port does not run yet, each with the
-# ROADMAP.md Queue 1 item that brings it
+# ROADMAP.md Queue 1 item that brings it: tensor parallelism (9), the
+# process and cross-host fleet (15b), the autoscaler (15c)
 UNPORTED_FLAGS = {
     "--mesh": "9", "--selftest-sharded": "9",
-    "--replicas": "15", "--isolation": "15", "--autoscale": "15",
-    "--slo-target": "15", "--control-log": "15", "--shed-watermark": "15",
-    "--chaos-spec": "15", "--spill-dir": "15", "--standby": "15",
-    "--hang-deadline": "15", "--hosts": "15", "--fleet-secret": "15",
-    "--selftest-chaos": "15", "--selftest-procfleet": "15",
-    "--selftest-standby": "15", "--selftest-crosshost": "15",
+    "--spill-dir": "15b", "--standby": "15b", "--hang-deadline": "15b",
+    "--hosts": "15b", "--fleet-secret": "15b", "--selftest-procfleet": "15b",
+    "--selftest-standby": "15b", "--selftest-crosshost": "15b",
+    "--autoscale": "15c", "--slo-target": "15c", "--control-log": "15c",
 }
 
 SELFTEST_PROMPTS = ["O God, O God!", "Once more unto", "All the world's"]
@@ -215,6 +235,30 @@ def build_argparser() -> argparse.ArgumentParser:
                         "with its operations, the HBM owners equal to the "
                         "pools' bytes, two runs on a ticking clock "
                         "byte-identical, /attrib scraped; then exits")
+    p.add_argument("--replicas", type=int, default=1,
+                   help="serve through N supervised in-process replicas on "
+                        "one device (sharing one parameter tree) behind the "
+                        "health/affinity router (default 1: one server, no "
+                        "fleet layer)")
+    p.add_argument("--isolation", choices=("thread", "process"), default="thread",
+                   help="fleet replica isolation: 'thread' (in-process "
+                        "replicas, the default); 'process' is not ported yet "
+                        "(ROADMAP.md Queue 1 item 15b)")
+    p.add_argument("--shed-watermark", type=int, default=None,
+                   help="fleet mode: shed new requests once the fleet-wide "
+                        "queue depth reaches this watermark")
+    p.add_argument("--chaos-spec", default=None,
+                   help="deterministic serving fault spec, e.g. "
+                        "'crash:nth=6:match=replica0;slow:every=1:"
+                        "delay=0.25:match=replica1' (default: the "
+                        "MINGPT_SERVING_FAULTS environment variable; ops "
+                        "crash|poison|slow|admit)")
+    p.add_argument("--selftest-chaos", action="store_true",
+                   help="random-init small model through 3 replicas on a "
+                        "virtual clock under an injected crash and a slow "
+                        "replica: greedy parity with solo generate(), no "
+                        "duplicate streamed token, the fleet's counters on a "
+                        "strict-parsed /metrics and /healthz; then exits")
     for flag in UNPORTED_FLAGS:
         p.add_argument(flag, nargs="?", const=True, default=None,
                        help=argparse.SUPPRESS)
@@ -232,6 +276,11 @@ def parse_args(argv=None) -> argparse.Namespace:
         if value is None:
             continue
         p.error(f"{flag} is not ported yet (ROADMAP.md Queue 1 item {item})")
+    if args.isolation == "process":
+        p.error("--isolation process is not ported yet (ROADMAP.md Queue 1 "
+                "item 15b)")
+    if args.replicas < 1:
+        p.error(f"--replicas must be >= 1, got {args.replicas}")
     return args
 
 
@@ -897,6 +946,7 @@ def selftest_attrib(args) -> int:
             if name not in types:
                 print(f"selftest-attrib FAIL: /metrics lacks {name}")
                 rc = 1
+        rc |= _selftest_attrib_fleet(args, params, cfg, prompts, tserver)
     finally:
         tserver.close()
     if args.attrib_json:
@@ -906,6 +956,351 @@ def selftest_attrib(args) -> int:
               file=sys.stderr)
     print(telemetry.render_attrib_report(report))
     print("selftest-attrib", "PASSED" if rc == 0 else "FAILED")
+    return rc
+
+
+def _selftest_attrib_fleet(args, params, cfg, prompts, tserver) -> int:
+    """The fleet half of --selftest-attrib: 2 instrumented replicas on a
+    virtual clock serve the prompts; ``Router.attrib_report`` must be a
+    ``mingpt-attrib-fleet/1`` document with one valid report per replica,
+    and through ``tserver`` the merged /metrics page must strict-parse (one
+    TYPE line per family) with per-replica ``mingpt_attrib_*`` samples under
+    the replica label, and /attrib must serve the per-replica union."""
+    import urllib.request
+
+    from mingpt_distributed_tpu_torch.serving import (
+        ReplicaSupervisor,
+        Router,
+        VirtualClock,
+        default_server_factory,
+    )
+
+    rc = 0
+    supervisor = ReplicaSupervisor(
+        default_server_factory(params, cfg, n_slots=2, attrib=True,
+                               device=params["wte"].device, **_server_kwargs(args)),
+        n_replicas=2, clock=VirtualClock(tick_s=0.001))
+    router = Router(supervisor)
+    handles = [router.submit(Request(prompt=p, max_new_tokens=8)) for p in prompts]
+    router.run_until_drained(max_steps=5000)
+    if any(h.finish_reason != "length" for h in handles):
+        print("selftest-attrib FAIL: fleet requests did not complete")
+        rc = 1
+    doc = router.attrib_report()
+    names = {"replica0", "replica1"}
+    if doc.get("schema") != "mingpt-attrib-fleet/1" or set(doc.get("replicas", {})) != names:
+        print(f"selftest-attrib FAIL: fleet attrib report malformed: "
+              f"{sorted(doc.get('replicas', {}))}")
+        rc = 1
+    for name, rep in doc.get("replicas", {}).items():
+        try:
+            telemetry.validate_attrib_report(rep)
+        except ValueError as e:
+            print(f"selftest-attrib FAIL: fleet replica {name} report invalid: {e}")
+            rc = 1
+    tserver.attrib_provider = router.attrib_report
+    tserver.metrics_provider = router.fleet_metrics_page
+    with urllib.request.urlopen(tserver.url("/metrics"), timeout=10) as resp:
+        text = resp.read().decode()
+    try:
+        parsed = telemetry.parse_prometheus(text)
+    except ValueError as e:
+        print(f"selftest-attrib FAIL: the fleet's merged /metrics is not valid "
+              f"exposition text: {e}")
+        return 1
+    for name, kind in (("mingpt_attrib_flops", "gauge"),
+                       ("mingpt_attrib_calls_total", "counter"),
+                       ("mingpt_attrib_hbm_bytes", "gauge"),
+                       ("mingpt_fleet_replica_up", "gauge")):
+        if parsed["types"].get(name) != kind:
+            print(f"selftest-attrib FAIL: merged page lacks {kind} {name} "
+                  f"(got {parsed['types'].get(name)})")
+            rc = 1
+    per_replica = {}
+    for n, labels, v in parsed["samples"]:
+        if n != "mingpt_attrib_flops":
+            continue
+        if "replica" not in labels:
+            print(f"selftest-attrib FAIL: unlabelled attrib sample on the merged "
+                  f"page: {labels}")
+            rc = 1
+        elif labels.get("family") == "decode" and v > 0:
+            per_replica[labels["replica"]] = v
+    if set(per_replica) != names:
+        print(f"selftest-attrib FAIL: merged page missing per-replica decode "
+              f"operations (got {sorted(per_replica)})")
+        rc = 1
+    with urllib.request.urlopen(tserver.url("/attrib"), timeout=10) as resp:
+        served = json.loads(resp.read().decode())
+    if set(served.get("replicas", {})) != names:
+        print(f"selftest-attrib FAIL: /attrib fleet document lacks replicas: "
+              f"{sorted(served.get('replicas', {}))}")
+        rc = 1
+    print(f"selftest-attrib fleet scrape: {len(parsed['samples'])} samples, decode "
+          f"operations per replica { {k: per_replica[k] for k in sorted(per_replica)} }")
+    return rc
+
+
+CHAOS_CANNED = ["O God, O God!", "Once more unto", "All the world's",
+                "Now is the winter", "Friends, Romans", "To be, or not"]
+CHAOS_SPEC = "crash:nth=6:match=replica0;slow:every=1:delay=0.25:match=replica1"
+
+
+def selftest_chaos(args) -> int:
+    """Canned prompts through 3 supervised replicas (2 slots each) on a
+    virtual clock while the injector crashes replica0 mid-decode and makes
+    replica1 slow: every request must finish on a surviving replica with
+    greedy output token-identical to solo generate(), the caller-visible
+    stream must hold no duplicate token, the breaker, retry, crash and shed
+    counters must be on a strict-parsed /metrics scrape and the per-replica
+    breaker state on /healthz; a drained router sheds with reason
+    "draining". With tracing flags, the trace stream and flight dumps are
+    held too (``_chaos_observability_checks``)."""
+    import torch
+
+    from mingpt_distributed_tpu_torch.serving import (
+        ReplicaSupervisor,
+        Router,
+        ShedError,
+        VirtualClock,
+        default_server_factory,
+    )
+    from mingpt_distributed_tpu_torch.training.faults import ServingFaultInjector
+
+    dev = resolve_device(args.device)
+    cfg = GPTConfig.make(
+        n_layer=2, n_head=2, n_embd=32, vocab_size=96, block_size=48,
+        embd_pdrop=0.0, resid_pdrop=0.0, attn_pdrop=0.0, dtype="float32")
+    params = gpt.init(cfg, torch.Generator().manual_seed(0), device=dev)
+    prompts = [[ord(c) % cfg.vocab_size for c in s] for s in CHAOS_CANNED]
+    max_new = 12
+    n_replicas = args.replicas if args.replicas > 1 else 3
+    if args.metrics_port is None:
+        args.metrics_port = 0  # the scrape is part of the gate
+    reg = telemetry.MetricsRegistry()
+    tserver = _start_telemetry(args, reg)
+    recorder, flight = _make_observability(args, reg)
+    if flight is not None:
+        tserver.flight_provider = lambda: flight.snapshot("on_demand")
+    supervisor = ReplicaSupervisor(
+        default_server_factory(params, cfg, n_slots=2, device=dev,
+                               **_server_kwargs(args)),
+        n_replicas=n_replicas, clock=VirtualClock(tick_s=0.001),
+        injector=ServingFaultInjector(args.chaos_spec or CHAOS_SPEC),
+        registry=reg, max_restarts=1, restart_backoff_s=0.01, itl_slo_s=0.1)
+    streamed = {}
+
+    def on_token(fh, tok):
+        streamed.setdefault(fh.request_id, []).append(tok)
+
+    router = Router(supervisor, on_token=on_token, max_retries=3,
+                    retry_backoff_s=0.01, breaker_reset_s=0.05,
+                    shed_watermark=args.shed_watermark,
+                    trace_recorder=recorder, flight=flight)
+    tserver.health_provider = router.health_report
+    tserver.metrics_provider = router.fleet_metrics_page
+    handles = [router.submit(Request(prompt=p, max_new_tokens=max_new))
+               for p in prompts]
+    router.run_until_drained(max_steps=5000)
+    summary = router.summary()
+    print("selftest-chaos fleet:", json.dumps(summary))
+
+    rc = 0
+    for text, p, h in zip(CHAOS_CANNED, prompts, handles):
+        want = gen.generate(params, cfg, [p], max_new, device=dev)[0, len(p):].tolist()
+        ok = h.finish_reason == "length" and h.tokens == want
+        if streamed.get(h.request_id, []) != h.tokens:
+            print(f"selftest-chaos FAIL {h.request_id}: streamed "
+                  f"{streamed.get(h.request_id)} != handle {h.tokens} "
+                  f"(duplicate or lost emission)")
+            rc = 1
+        print(f"selftest-chaos {h.request_id} ({text!r}): attempts={h.attempts} "
+              f"replica={h.replica} dups_suppressed={h.duplicates_suppressed} "
+              + ("OK" if ok else f"MISMATCH reason={h.finish_reason} "
+                                 f"server={h.tokens} solo={want}"))
+        rc |= not ok
+    reps = summary["replicas"]
+    for what, ok in (
+            ("replica0 crashed at least once", reps["replica0"]["crashes"] >= 1),
+            ("crashed replica was restarted",
+             summary["requests_by_outcome"]["completed"] == len(prompts)
+             and reps["replica0"]["state"] == "ready"),
+            ("crash retries were counted", summary["retries_by_reason"]["crash"] >= 1),
+            ("re-emitted tokens were suppressed, not double-streamed",
+             summary["duplicates_suppressed"] >= 1),
+            ("slow replica accumulated injected clock skew",
+             reps["replica1"]["clock_skew_s"] > 0),
+            ("slow replica is health-gated on ITL p99",
+             "itl_p99" in reps["replica1"]["health_reasons"])):
+        if not ok:
+            print(f"selftest-chaos FAIL: {what}")
+            rc = 1
+
+    # drain: admission stops with a typed, counted rejection
+    router.drain()
+    try:
+        router.submit(Request(prompt=prompts[0], max_new_tokens=2))
+        print("selftest-chaos FAIL: draining fleet accepted a request")
+        rc = 1
+    except ShedError as e:
+        if e.reason != "draining":
+            print(f"selftest-chaos FAIL: drain shed reason {e.reason!r}")
+            rc = 1
+    if router.summary()["rejected_by_reason"]["draining"] < 1:
+        print("selftest-chaos FAIL: draining rejection not counted")
+        rc = 1
+    if flight is not None:
+        flight.dump("sigterm_drain")  # the dump a signalled shutdown writes
+    if recorder is not None:
+        rc |= _chaos_observability_checks(args, recorder, flight, handles)
+    rc |= _chaos_scrape(tserver, has_flight=flight is not None)
+    tserver.close()
+    if args.metrics_json:
+        with open(args.metrics_json, "w") as f:
+            json.dump(router.summary(), f, indent=2)
+            f.write("\n")
+    print("selftest-chaos", "PASSED" if rc == 0 else "FAILED")
+    return rc
+
+
+def _chaos_observability_checks(args, recorder, flight, handles) -> int:
+    """Under tracing flags: every request yields exactly ONE strict-valid
+    trace whose attempt spans match its retries and whose emit events match
+    its streamed tokens, with the scheduler's spans joined; exactly one
+    forced shed trace; the crash and drain flight dumps strict-parse
+    through the manifest; --slo grades from the exact trace durations."""
+    rc = 0
+    if recorder.active_traces:
+        print(f"selftest-chaos FAIL: {recorder.active_traces} trace(s) still "
+              f"open after drain")
+        rc = 1
+    if recorder.orphan_records:
+        print(f"selftest-chaos FAIL: {recorder.orphan_records} orphan trace record(s)")
+        rc = 1
+    report = _slo_report(args, recorder)
+    if args.slo is not None and (report is None or not report.get("grade")):
+        print("selftest-chaos FAIL: --slo produced no graded report")
+        rc = 1
+    recorder.close()  # flush the JSONL sink before loading it
+    if args.trace_jsonl is not None:
+        try:
+            traces = telemetry.load_trace_jsonl(args.trace_jsonl)
+        except ValueError as e:
+            print(f"selftest-chaos FAIL: trace stream invalid: {e}")
+            return 1
+        retried = 0
+        for h in handles:
+            t = traces.get(h.request_id)
+            if t is None:
+                print(f"selftest-chaos FAIL: no trace for {h.request_id}")
+                rc = 1
+                continue
+            emits = [e for e in t["events"] if e["name"] == "emit"]
+            attempts = [sp for sp in t["spans"] if sp["name"] == "fleet.attempt"]
+            retries = [e for e in t["events"] if e["name"] == "retry"]
+            for what, ok in (
+                    ("one emit event per streamed token", len(emits) == len(h.tokens)),
+                    ("one attempt span per attempt", len(attempts) == h.attempts),
+                    ("retry events mark every extra attempt",
+                     len(retries) == h.attempts - 1),
+                    ("summary agrees with the handle",
+                     t["request"]["attempts"] == h.attempts
+                     and t["request"]["n_tokens"] == len(h.tokens)
+                     and t["request"]["outcome"] == h.finish_reason),
+                    ("scheduler spans joined the fleet trace",
+                     {"serve.queue_wait", "serve.prefix_lookup", "serve.decode_round"}
+                     <= {sp["name"] for sp in t["spans"]})):
+                if not ok:
+                    print(f"selftest-chaos FAIL {h.request_id}: {what}")
+                    rc = 1
+            retried += h.attempts > 1
+        if not retried:
+            print("selftest-chaos FAIL: no retried request in the trace stream")
+            rc = 1
+        shed = [t for t in traces.values() if t["request"]["outcome"] == "shed"]
+        if len(shed) != 1:
+            print(f"selftest-chaos FAIL: expected 1 forced shed trace, got {len(shed)}")
+            rc = 1
+        print(f"selftest-chaos traces: {len(traces)} trace(s), {retried} retried, "
+              f"{len(shed)} shed")
+    if flight is not None and flight.out_dir is not None:
+        try:
+            manifest, docs = telemetry.load_flight_dir(flight.out_dir)
+        except (OSError, ValueError) as e:
+            print(f"selftest-chaos FAIL: flight dir invalid: {e}")
+            return 1
+        triggers = [d["trigger"] for d in docs]
+        for want in ("crash", "sigterm_drain"):
+            if want not in triggers:
+                print(f"selftest-chaos FAIL: no {want!r} flight dump (got {triggers})")
+                rc = 1
+        print(f"selftest-chaos flight: {len(docs)} dump(s) {triggers}, "
+              f"latest {manifest['latest']}")
+    return rc
+
+
+def _chaos_scrape(tserver, has_flight: bool = False) -> int:
+    """Strict-parse the fleet's /metrics page and hold it to the fleet's
+    resilience families (breaker state, retries, crashes, restarts,
+    rejections by reason, duplicate suppression) with >= 1 crash and retry;
+    /healthz must carry each replica's breaker and health reasons and, with
+    the flight recorder armed, /debug/flight a strict-valid snapshot."""
+    import urllib.request
+
+    rc = 0
+    with urllib.request.urlopen(tserver.url("/healthz"), timeout=10) as resp:
+        health = json.loads(resp.read().decode())
+    reps = health.get("replicas")
+    if not isinstance(reps, dict) or not all(
+            "breaker" in v and "reasons" in v for v in reps.values()):
+        print(f"selftest-chaos FAIL: /healthz lacks per-replica breaker state "
+              f"and health reasons: {health}")
+        rc = 1
+    if has_flight:
+        with urllib.request.urlopen(tserver.url("/debug/flight"), timeout=10) as resp:
+            snap = json.loads(resp.read().decode())
+        try:
+            telemetry.validate_flight_dump(snap)
+        except ValueError as e:
+            print(f"selftest-chaos FAIL: /debug/flight snapshot invalid: {e}")
+            rc = 1
+    with urllib.request.urlopen(tserver.url("/metrics"), timeout=10) as resp:
+        text = resp.read().decode()
+    try:
+        parsed = telemetry.parse_prometheus(text)
+    except ValueError as e:
+        print(f"selftest-chaos FAIL: /metrics is not valid exposition text: {e}")
+        return 1
+    required = {
+        "mingpt_serving_rejected_total": "counter",
+        "mingpt_fleet_retries_total": "counter",
+        "mingpt_fleet_crashes_total": "counter",
+        "mingpt_fleet_restarts_total": "counter",
+        "mingpt_fleet_breaker_state": "gauge",
+        "mingpt_fleet_replica_up": "gauge",
+        "mingpt_fleet_replica_healthy": "gauge",
+        "mingpt_fleet_duplicate_tokens_suppressed_total": "counter",
+        "mingpt_serve_ttft_seconds": "histogram",
+    }
+    for name, kind in required.items():
+        got = parsed["types"].get(name)
+        if got != kind:
+            print(f"selftest-chaos FAIL: /metrics lacks {kind} {name} (got {got})")
+            rc = 1
+    crashes = sum(v for n, _l, v in parsed["samples"] if n == "mingpt_fleet_crashes_total")
+    retries = sum(v for n, _l, v in parsed["samples"] if n == "mingpt_fleet_retries_total")
+    if crashes < 1 or retries < 1:
+        print(f"selftest-chaos FAIL: scrape shows crashes={crashes:g} "
+              f"retries={retries:g} (expected >= 1 each)")
+        rc = 1
+    replicas = {lb.get("replica") for n, lb, _v in parsed["samples"]
+                if n == "mingpt_serve_ttft_seconds_count"}
+    if not {"replica0", "replica1"} <= replicas:
+        print(f"selftest-chaos FAIL: the merged page lacks per-replica serving "
+              f"samples (replicas {sorted(r for r in replicas if r)})")
+        rc = 1
+    print(f"selftest-chaos scrape: {len(parsed['samples'])} samples, crashes_total "
+          f"{crashes:g}, retries_total {retries:g}")
     return rc
 
 
@@ -933,6 +1328,8 @@ def main(argv=None) -> int:
         return selftest_quant(args)
     if args.selftest_attrib:
         return selftest_attrib(args)
+    if args.selftest_chaos:
+        return selftest_chaos(args)
 
     dev = resolve_device(args.device)
     exp = load_config(args.config, args.overrides)
@@ -985,7 +1382,46 @@ def _serve(args, dataset, gpt_cfg, params, dev, eos_id, guard) -> int:
         tserver.flight_provider = lambda: flight.snapshot("on_demand")
     spec_kw = _spec_kwargs(args, params, gpt_cfg, dev)
 
-    def build_server(stream_cb) -> InferenceServer:
+    def build_fleet(stream_cb):
+        """--replicas N: N supervised in-process replicas sharing ``params``
+        on ``dev`` behind the router, on the wall clock, with --chaos-spec's
+        (or MINGPT_SERVING_FAULTS') faults; /healthz, the merged /metrics
+        page and, with --attrib-json, /attrib wired to the router."""
+        from mingpt_distributed_tpu_torch.serving import (
+            ReplicaSupervisor,
+            Router,
+            WallClock,
+            default_server_factory,
+        )
+        from mingpt_distributed_tpu_torch.training.faults import ServingFaultInjector
+
+        injector = ServingFaultInjector(args.chaos_spec)
+        supervisor = ReplicaSupervisor(
+            default_server_factory(
+                params, gpt_cfg, n_slots=args.slots, max_queue=args.queue_limit,
+                default_deadline_s=args.deadline_s, attrib=bool(args.attrib_json),
+                device=dev, **spec_kw, **_server_kwargs(args)),
+            n_replicas=args.replicas, clock=WallClock(),
+            injector=injector if injector.specs else None, registry=reg)
+        router = Router(supervisor, on_token=stream_cb,
+                        shed_watermark=args.shed_watermark,
+                        trace_recorder=recorder, flight=flight)
+        if tserver is not None:
+            tserver.health_provider = router.health_report
+            tserver.metrics_provider = router.fleet_metrics_page
+            if args.attrib_json:
+                tserver.attrib_provider = router.attrib_report
+        print(f"[serve] fleet: {args.replicas} replicas x {args.slots} slots"
+              + (f", chaos {args.chaos_spec}" if injector.specs else ""),
+              file=sys.stderr)
+        return router
+
+    def build_server(stream_cb):
+        """One InferenceServer, or with --replicas N > 1 the fleet router in
+        front of N replicas (``build_fleet``); either takes submit, step,
+        run_until_drained and summary, and streams through ``stream_cb``."""
+        if args.replicas > 1:
+            return build_fleet(stream_cb)
         server = InferenceServer(
             params, gpt_cfg, n_slots=args.slots, on_token=stream_cb,
             log_every=0 if stream_cb else args.log_every,
@@ -999,23 +1435,32 @@ def _serve(args, dataset, gpt_cfg, params, dev, eos_id, guard) -> int:
                 lambda grown: flight.dump("watchdog_recompile", families=grown))
         return server
 
-    def shutdown(server: InferenceServer) -> int:
-        """Drain in-flight work, flush the metrics, the SLO report and the
-        attribution report; a flight dump after a signal; 75 after a
-        signal."""
+    def shutdown(server) -> int:
+        """Drain in-flight work (a fleet stops admission first after a
+        signal), flush the metrics, the SLO report and the attribution
+        report; a flight dump after a signal; 75 after a signal."""
+        if guard.stop_requested and hasattr(server, "drain"):
+            server.drain()
         server.run_until_drained()
         if guard.stop_requested and flight is not None:
             flight.dump("sigterm_drain")
         _slo_report(args, recorder)
         if args.attrib_json:
+            doc = server.attrib_report()
             with open(args.attrib_json, "w") as f:
-                f.write(telemetry.dump_attrib_report(server.attrib_report()) + "\n")
+                f.write((json.dumps(doc, sort_keys=True, indent=2) if "replicas" in doc
+                         else telemetry.dump_attrib_report(doc)) + "\n")
             print(f"[serve] attribution report written to {args.attrib_json}",
                   file=sys.stderr)
         if recorder is not None:
             recorder.close()
         if args.metrics_json:
-            server.metrics.write_json(args.metrics_json)
+            if hasattr(server, "metrics"):
+                server.metrics.write_json(args.metrics_json)
+            else:
+                with open(args.metrics_json, "w") as f:
+                    json.dump(server.summary(), f, indent=2)
+                    f.write("\n")
         if tserver is not None:
             tserver.close()
         if guard.stop_requested:

@@ -26,10 +26,16 @@ card:
   utilisation, TTFT, inter-token latency and speculation on the telemetry
   registry.
 
-``serve.py`` drives it (REPL, offline batch, ``--selftest``,
-``--selftest-spec``, ``--selftest-quant``, ``--selftest-attrib``). The
-fleet (ROADMAP.md Queue 1 item 15) and tensor parallelism (item 9) are not
-ported yet.
+* ``Router`` / ``ReplicaSupervisor`` (fleet.py) — the in-process fleet:
+  supervised replicas sharing one parameter tree behind a prefix-affinity,
+  health- and breaker-aware router with idempotent retries, shedding and
+  drain, on an injected clock (``VirtualClock``, ``WallClock``).
+
+``serve.py`` drives it (REPL, offline batch, ``--replicas N``,
+``--selftest``, ``--selftest-spec``, ``--selftest-quant``,
+``--selftest-attrib``, ``--selftest-chaos``) and ``traffic.py`` sweeps it
+(``trafficlab/``). The process fleet (ROADMAP.md Queue 1 item 15b) and
+tensor parallelism (item 9) are not ported yet.
 """
 
 from mingpt_distributed_tpu_torch.serving import quant  # noqa: F401
@@ -39,6 +45,19 @@ from mingpt_distributed_tpu_torch.serving.admission import (  # noqa: F401
     HealthAwarePolicy,
 )
 from mingpt_distributed_tpu_torch.serving.engine import DecodeEngine, bucket_ladder  # noqa: F401
+from mingpt_distributed_tpu_torch.serving.fleet import (  # noqa: F401
+    REQUEUE_EXIT_CODE,
+    CircuitBreaker,
+    FleetHandle,
+    Replica,
+    ReplicaHealth,
+    ReplicaSupervisor,
+    Router,
+    SkewedClock,
+    VirtualClock,
+    WallClock,
+    default_server_factory,
+)
 from mingpt_distributed_tpu_torch.serving.kv_pool import PrefixKVStore, SlotKVPool  # noqa: F401
 from mingpt_distributed_tpu_torch.serving.metrics import ServingMetrics  # noqa: F401
 from mingpt_distributed_tpu_torch.serving.requests import (  # noqa: F401

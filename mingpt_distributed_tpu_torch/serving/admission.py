@@ -4,8 +4,8 @@ Counterpart of ``mingpt_distributed_tpu/serving/admission.py``. Which
 waiting request takes the next free KV slot is an
 :class:`AdmissionPolicy`'s decision (``InferenceServer(admission_policy=
 ...)``). :class:`FifoPolicy` selects index 0, the arrival order, and is the
-default. The deadline-aware and fair-share policies of the JAX package's
-traffic lab come with the fleet (ROADMAP.md Queue 1 item 15).
+default. The deadline-aware and fair-share policies the traffic lab grades
+live in ``trafficlab/policies.py``.
 
 The contract: ``sort_key(handle, position, now)`` returns a total-order
 key over *waiting* handles (smaller = admit sooner). Handles are duck-

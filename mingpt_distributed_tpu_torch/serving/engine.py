@@ -63,11 +63,18 @@ copies: the row count), the JAX engine's contract of one decode program and
 at most ``len(ladder)`` prefill programs, which is what a later CUDA-graph
 capture of these calls needs.
 
+5. **the migration seam** — ``migratable_rows``, ``extract_slot_rows``,
+   ``install_slot_rows`` and ``adopt_prefix_entry`` move a slot's leading
+   rows (on the bucket ladder only, through the prefix copies' shapes) to
+   another engine: into its prefix store, or straight into a slot of an
+   engine without one (the draft engine). A quantized pool's payloads and
+   scale planes move as they are, bytes for bytes: nothing is requantized.
+   The process fleet's wire that carries them is ROADMAP.md Queue 1 item
+   15b.
+
 Attribution (``register_attrib``) registers each family's shapes with
 analytic costs. Tensor-parallel serving (``mesh``) is ROADMAP.md Queue 1
-item 9, the audit contracts (``audit_contracts``) item 16b, and live
-migration between replicas (extracting and installing a slot's rows)
-item 15.
+item 9, and the audit contracts (``audit_contracts``) item 16b.
 """
 
 from __future__ import annotations
@@ -370,6 +377,81 @@ class DecodeEngine:
         entry = {name: lane.clone() for name, lane in self._lane(slot, rows).items()}
         self._shapes["prefix_save"].add(rows)
         return rows if self.prefix_store.insert(key, entry) else 0
+
+    # -- the migration seam --------------------------------------------
+    def migratable_rows(self, prompt_len: int, frontier: int) -> int:
+        """Rows worth moving from a slot whose cache holds ``frontier``
+        valid leading rows of a ``prompt_len``-token prompt: the largest
+        ladder bucket <= min(frontier, prompt_len - 1). Capped at the
+        frontier (past it a mid-prefill slot holds garbage) and one short
+        of the prompt (a hit on the peer must leave >= 1 tail token to
+        prefill); ``quantized_prefix_len`` for a slot that finished its
+        prefill. 0 = nothing to move."""
+        cap = min(frontier, prompt_len - 1)
+        best = 0
+        for b in self.buckets:
+            if b <= cap:
+                best = b
+        return best
+
+    def _check_ladder(self, rows: int, what: str) -> None:
+        if rows not in self.buckets:
+            raise ValueError(
+                f"{what} rows {rows} not on the bucket ladder {self.buckets}: "
+                "migration moves the prefix copies' shapes only")
+
+    def _place_entry(self, entry) -> Dict[str, torch.Tensor]:
+        """An entry dict (tensors on any device, or numpy arrays) on this
+        engine's device, leaf for leaf in the pool's dtypes: the bytes move
+        unchanged, and a dtype or leaf-set mismatch raises rather than
+        being cast."""
+        if set(entry) != set(self.pool.cache):
+            raise ValueError(f"entry leaves {sorted(entry)} != the pool's "
+                             f"{sorted(self.pool.cache)}")
+        out = {}
+        for name, a in entry.items():
+            t = torch.as_tensor(a)
+            want = self.pool.cache[name].dtype
+            if t.dtype != want:
+                raise ValueError(f"entry leaf {name} is {t.dtype}, the pool "
+                                 f"holds {want}: rows move as bytes, never recast")
+            out[name] = t.to(self.device).contiguous()
+        return out
+
+    @torch.no_grad()
+    def extract_slot_rows(self, slot: int, rows: int) -> Dict[str, torch.Tensor]:
+        """Copies of ``slot``'s ``rows`` leading cache rows as an
+        (L, 1, rows, KV, hd) entry dict (payloads and scale planes on a
+        quantized pool): the extract half of migration, ``save_prefix``'s
+        copy. ``rows`` must sit on the bucket ladder."""
+        self._check_ladder(rows, "extract")
+        self._shapes["prefix_save"].add(rows)
+        return {name: lane.clone() for name, lane in self._lane(slot, rows).items()}
+
+    @torch.no_grad()
+    def install_slot_rows(self, slot: int, entry) -> int:
+        """Copy an extracted entry dict into ``slot``'s leading rows: the
+        install half of migration for an engine with no prefix store (the
+        draft engine), ``try_load_prefix``'s copy. Returns the rows
+        installed."""
+        placed = self._place_entry(entry)
+        rows = int(placed["k"].shape[2])
+        self._check_ladder(rows, "install")
+        for name, lane in self._lane(slot, rows).items():
+            lane.copy_(placed[name])
+        self._shapes["prefix_load"].add(rows)
+        return rows
+
+    def adopt_prefix_entry(self, key: Sequence[int], entry) -> bool:
+        """Put a migrated entry dict into this engine's prefix store under
+        the token tuple ``key``. Returns False when the store is off, holds
+        the key already, or cannot fit the entry."""
+        if self.prefix_store is None:
+            return False
+        key = tuple(int(t) for t in key)
+        if self.prefix_store.contains(key):
+            return False
+        return self.prefix_store.insert(key, self._place_entry(entry))
 
     # -- warmup --------------------------------------------------------
     def warmup(self) -> None:

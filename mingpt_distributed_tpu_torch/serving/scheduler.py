@@ -76,9 +76,13 @@ Telemetry, as in the JAX scheduler:
   injected clock on the CPU), and an HBM ledger of bytes by owner;
   ``attrib_report()`` is the ``mingpt-attrib/1`` document.
 
-Not ported yet, each raising with its ROADMAP.md Queue 1 item: tensor
-parallelism (``mesh``), item 9; the fleet's fault hook (``fault_hook``),
-item 15.
+Chaos (``fault_hook``, serving/fleet.py): called with the fault point's
+name, ``"decode_round"``, once per round after the decode step (and the
+speculating lanes' verify) and before any of the round's tokens is emitted.
+A raise there loses the round's computed tokens, so a replica that fails
+mid-round never streams a token twice; the fleet's retry recomputes them.
+
+Not ported yet: tensor parallelism (``mesh``), ROADMAP.md Queue 1 item 9.
 """
 
 from __future__ import annotations
@@ -116,11 +120,6 @@ from mingpt_distributed_tpu_torch.telemetry import (
     tree_bytes,
 )
 from mingpt_distributed_tpu_torch.utils.device import Device
-
-
-def _refuse(what: str, item: str) -> None:
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
 
 
 def _trace_attrs(handle: RequestHandle) -> Dict[str, Any]:
@@ -226,8 +225,6 @@ class InferenceServer:
         kv_dtype: Optional[str] = None,
         device: Optional[Device] = None,
     ):
-        if fault_hook is not None:
-            _refuse("the fleet's fault hook (fault_hook)", "15")
         self.cfg = cfg
         self.engine = DecodeEngine(
             params, cfg, n_slots, prefill_len,
@@ -277,6 +274,9 @@ class InferenceServer:
                 self.spec.register_attrib(self.attrib)
             self._account_hbm()
         self.on_token = on_token
+        # the chaos harness's hook (serving/fleet.py): called with a fault
+        # point's name; a raise propagates out of step() to the fleet
+        self.fault_hook = fault_hook
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         self.max_queue = max_queue
@@ -621,6 +621,10 @@ class InferenceServer:
         elif self._check_stop(handle, tok):
             self._retire(handle)
 
+    def _fire_fault(self, where: str) -> None:
+        if self.fault_hook is not None:
+            self.fault_hook(where)
+
     def step(self) -> bool:
         """One scheduling round (expire → admit → prefill chunks → decode
         → retire). Returns True while any request is queued or in flight."""
@@ -705,6 +709,10 @@ class InferenceServer:
                     self.trace_recorder.add_span(
                         h.trace, "serve.decode_round", ts=td0, dur_s=td1 - td0,
                         lanes=len(active), request_id=h.request_id)
+        # the chaos fault point, reached once per round by the plain and the
+        # speculating lanes alike: a raise here loses the round's computed
+        # tokens (a whole accepted burst included) before any is emitted
+        self._fire_fault("decode_round")
         for s in active:
             handle = st.handles[s]
             toks = burst[s]

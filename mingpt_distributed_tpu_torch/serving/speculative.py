@@ -30,10 +30,15 @@ attends that far. The only extra write is the draft **backfill** on full
 acceptance: one more draft decode step feeding ``d_k`` at ``pos + k`` so
 the draft row the next propose round attends is real.
 
-Not ported yet: moving draft rows between replicas (``pending_draft``,
-``migratable_draft_rows``, ``extract_draft_rows``, ``adopt_draft_rows``),
-ROADMAP.md Queue 1 item 15; the audit contracts (``audit_contracts``),
-item 16b.
+**Draft-row migration.** A migrated request's draft rows travel with it:
+``extract_draft_rows`` copies a primed draft lane (``migratable_draft_rows``:
+the largest ladder bucket <= the prompt, no ``- 1``, since the draft never
+regenerates prompt logits), ``adopt_draft_rows`` parks them on the peer
+(``pending_draft``, a FIFO of at most 32 entries) and the re-routed
+request's ``prime`` installs them and prefills only the uncovered tail
+(``"adopted"``). The process fleet's wire is ROADMAP.md Queue 1 item 15b.
+
+Not ported yet: the audit contracts (``audit_contracts``), item 16b.
 """
 
 from __future__ import annotations
@@ -119,6 +124,13 @@ class SpeculativeDecoder:
         self.rows = k + 1
         self.draft = DraftEngine(draft_params, draft_cfg, target)
         self._parked = target.cfg.block_size - 1
+        # migrated draft rows parked until their request primes: prompt
+        # prefix -> entry dict on the draft's device. A bounded FIFO of
+        # advisory state (a miss only costs a full draft prefill)
+        self.pending_draft: Dict[tuple, dict] = {}
+        self.pending_draft_cap = 32
+        self.prime_full = 0     # primes that paid a full draft prefill
+        self.prime_adopted = 0  # primes served from migrated rows
 
     # -- slot lifecycle (mirrors the target pool) ----------------------
     def bind(self, slot: int) -> None:
@@ -129,24 +141,59 @@ class SpeculativeDecoder:
 
     def prime(self, slot: int, prompt_ids: Sequence[int]) -> str:
         """Fill the draft lane of a freshly prefilled request: one full
-        un-chunked draft prefill. Returns the path taken ("full"; the JAX
-        package's "adopted", from migrated draft rows, is item 15)."""
-        self.draft.prime(slot, [int(t) for t in prompt_ids])
+        un-chunked draft prefill or, when migration parked draft rows for a
+        prefix of this prompt (``adopt_draft_rows``), a row install plus a
+        prefill of the uncovered tail only (none for a bucket-aligned
+        prompt). Returns the path taken, "full" or "adopted"."""
+        prompt = [int(t) for t in prompt_ids]
+        best = None
+        for key in self.pending_draft:
+            if len(key) <= len(prompt) and list(key) == prompt[:len(key)]:
+                if best is None or len(key) > len(best):
+                    best = key
+        if best is not None:
+            # one-shot: the rows now live in the slot's lane
+            entry = self.pending_draft.pop(best)
+            eng = self.draft.engine
+            rows = eng.install_slot_rows(slot, entry)
+            if rows < len(prompt):
+                eng.prefill_chunk_call(slot, prompt[rows:], rows, 1.0, None,
+                                       None, False, None)
+            self.prime_adopted += 1
+            return "adopted"
+        self.draft.prime(slot, prompt)
+        self.prime_full += 1
         return "full"
 
-    # -- draft-row migration (item 15) ---------------------------------
-    @property
-    def pending_draft(self) -> Dict[tuple, dict]:
-        _refuse("draft-row migration (pending_draft)", "15")
-
+    # -- draft-row migration -------------------------------------------
     def migratable_draft_rows(self, prompt_len: int) -> int:
-        _refuse("draft-row migration (migratable_draft_rows)", "15")
+        """Rows worth moving from a primed draft lane: the largest ladder
+        bucket <= prompt_len (no ``- 1``: the draft never regenerates
+        prompt logits, so a bucket-aligned prompt moves its whole lane)."""
+        best = 0
+        for b in self.draft.engine.buckets:
+            if b <= prompt_len:
+                best = b
+        return best
 
-    def extract_draft_rows(self, slot: int, rows: int):
-        _refuse("draft-row migration (extract_draft_rows)", "15")
+    def extract_draft_rows(self, slot: int, rows: int) -> Dict[str, torch.Tensor]:
+        """The extract half of draft migration: the target's row copy, on
+        the draft pool."""
+        return self.draft.engine.extract_slot_rows(slot, rows)
 
     def adopt_draft_rows(self, key: Sequence[int], entry: dict) -> bool:
-        _refuse("draft-row migration (adopt_draft_rows)", "15")
+        """Park a migrated draft entry (a quantized lane with its scale
+        planes) under the prompt prefix ``key`` until the re-routed
+        request's ``prime``; the oldest entry leaves past the cap. Returns
+        False when ``key`` is parked already."""
+        key = tuple(int(t) for t in key)
+        if key in self.pending_draft:
+            return False
+        entry = self.draft.engine._place_entry(entry)
+        while len(self.pending_draft) >= self.pending_draft_cap:
+            self.pending_draft.pop(next(iter(self.pending_draft)))
+        self.pending_draft[key] = entry
+        return True
 
     # -- eligibility ---------------------------------------------------
     def eligible(self, do_sample: bool, position: int) -> bool:

@@ -6,7 +6,8 @@
   roofline numbers);
 * ``spans``       — monotonic-clock nested spans in a bounded ring with an
   optional JSONL sink, and ``log_event``;
-* ``export``      — Prometheus text exposition with its strict parser, the
+* ``export``      — Prometheus text exposition (one registry, or a fleet's
+  merged page) with its strict parser, the
   versioned JSONL event sink and the ``/metrics``, ``/healthz``,
   ``/debug/flight`` and ``/attrib`` endpoint (``TelemetryServer``);
 * ``watchdog``    — post-warmup growth of the serving shape families;
@@ -41,6 +42,7 @@ from mingpt_distributed_tpu_torch.telemetry.export import (  # noqa: F401
     JsonlEventSink,
     TelemetryServer,
     parse_prometheus,
+    render_fleet_prometheus,
     render_prometheus,
 )
 from mingpt_distributed_tpu_torch.telemetry.flightrec import (  # noqa: F401

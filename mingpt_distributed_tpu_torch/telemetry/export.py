@@ -3,8 +3,9 @@
 Counterpart of the parts of ``mingpt_distributed_tpu/telemetry/export.py``
 that serving needs:
 
-* **Prometheus text exposition** (``render_prometheus``) and its strict
-  counterpart ``parse_prometheus``: every non-comment line must match the
+* **Prometheus text exposition** (``render_prometheus``; a fleet's merged
+  page, ``render_fleet_prometheus``) and its strict counterpart
+  ``parse_prometheus``: every non-comment line must match the
   exposition grammar and histogram triplets must be coherent, so tests
   check a page by parsing it, not by string matching.
 * **Versioned JSONL events** (:class:`JsonlEventSink`): every line is
@@ -109,6 +110,20 @@ def _sample(name: str, labels: Dict[str, str], value: float) -> str:
     return f"{name} {_fmt(value)}"
 
 
+def _child_samples(name: str, kind: str, labels: Dict[str, str], child) -> List[str]:
+    """One labelled child's sample lines: a histogram's cumulative buckets,
+    sum and count, else its value."""
+    if kind != "histogram":
+        return [_sample(name, labels, child.value)]
+    out = []
+    for upper, cum in child.cumulative():
+        le = "+Inf" if upper == float("inf") else _fmt(upper)
+        out.append(_sample(name + "_bucket", {**labels, "le": le}, cum))
+    out.append(_sample(name + "_sum", labels, child.sum))
+    out.append(_sample(name + "_count", labels, child.count))
+    return out
+
+
 def render_prometheus(registry: MetricsRegistry) -> str:
     """The registry as Prometheus text exposition. Families with no
     children yet still emit HELP/TYPE lines, so a scrape can assert a
@@ -120,17 +135,52 @@ def render_prometheus(registry: MetricsRegistry) -> str:
             out.append(f"# HELP {fam.name} {_escape_help(fam.help)}")
         out.append(f"# TYPE {fam.name} {fam.kind}")
         for labels, child in fam.children():
-            if fam.kind == "histogram":
-                for upper, cum in child.cumulative():
-                    le = "+Inf" if upper == float("inf") else _fmt(upper)
-                    out.append(
-                        _sample(fam.name + "_bucket",
-                                {**labels, "le": le}, cum)
-                    )
-                out.append(_sample(fam.name + "_sum", labels, child.sum))
-                out.append(_sample(fam.name + "_count", labels, child.count))
-            else:
-                out.append(_sample(fam.name, labels, child.value))
+            out.extend(_child_samples(fam.name, fam.kind, labels, child))
+    return "\n".join(out) + "\n"
+
+
+def render_fleet_prometheus(
+    base_registry: Optional[MetricsRegistry],
+    replica_registries: Dict[str, MetricsRegistry],
+) -> str:
+    """One exposition page for a fleet: every replica's private registry
+    under an injected ``replica`` label, plus an optional base registry
+    (the router's and supervisor's families) as it is.
+
+    A family that several replicas share is emitted under ONE HELP/TYPE
+    header (the strict parser rejects a second TYPE line); a name with two
+    instrument kinds anywhere in the fleet raises, as a registry does
+    within one process. Families in sorted name order, replicas in sorted
+    name order: the same registry states give the same bytes."""
+    sources: List[Tuple[Optional[str], MetricsRegistry]] = []
+    if base_registry is not None:
+        sources.append((None, base_registry))
+    sources.extend(sorted(replica_registries.items()))
+    fams: Dict[str, List[Tuple[Optional[str], Any]]] = {}
+    kinds: Dict[str, str] = {}
+    helps: Dict[str, str] = {}
+    for replica, reg in sources:
+        for fam in reg.collect():
+            prev = kinds.get(fam.name)
+            if prev is not None and prev != fam.kind:
+                raise ValueError(
+                    f"fleet merge: family {fam.name!r} is {fam.kind} on "
+                    f"{replica or 'base'} but {prev} elsewhere — exposition "
+                    f"would be incoherent")
+            kinds[fam.name] = fam.kind
+            if fam.help and fam.name not in helps:
+                helps[fam.name] = fam.help
+            fams.setdefault(fam.name, []).append((replica, fam))
+    out: List[str] = []
+    for name in sorted(fams):
+        if helps.get(name):
+            out.append(f"# HELP {name} {_escape_help(helps[name])}")
+        out.append(f"# TYPE {name} {kinds[name]}")
+        for replica, fam in fams[name]:
+            for labels, child in fam.children():
+                if replica is not None:
+                    labels = {"replica": replica, **labels}
+                out.extend(_child_samples(name, fam.kind, labels, child))
     return "\n".join(out) + "\n"
 
 

@@ -3,11 +3,13 @@ and the speculative decoder's ``register_attrib``, the scheduler's ledgers,
 ``/attrib`` and ``serve.py --selftest-attrib``), with the report held by the
 JAX package's own ``validate_attrib_report``.
 
-Counterparts of tests/test_attribution.py without its fleet scrape and
-perf_diff cases (the fleet is ROADMAP.md item 15, tools/perf_diff.py item
-16b): the program ledger's rows, costs and gauges, the roofline fields, the
-HBM ledger, the report's validation, dump and render. Then what the port
-adds: each family's analytic cost against ``torch.utils.flop_counter`` on a
+Counterparts of tests/test_attribution.py without its perf_diff cases
+(tools/perf_diff.py is ROADMAP.md item 16b): the program ledger's rows,
+costs and gauges, the roofline fields, the HBM ledger, the report's
+validation, dump and render, and the fleet's merged scrape page
+(``render_fleet_prometheus``: one TYPE line per family, the replica label,
+a kind conflict raising, deterministic bytes; the same samples as the JAX
+package's merge of the same observations). Then what the port adds: each family's analytic cost against ``torch.utils.flop_counter`` on a
 real call, the HBM owners against the pools' tensors, the allocator audit,
 and a served run's report. CPU, tiny config, fp32.
 """
@@ -353,3 +355,58 @@ def test_attribution_does_not_change_tokens():
     b = InferenceServer(params, cfg, n_slots=2, device="cpu").generate_batch(reqs())
     assert [h.tokens for h in a] == [h.tokens for h in b]
     np.testing.assert_array_equal(np.array([len(h.tokens) for h in a]), [5, 5])
+
+
+# ---------------------------------------------------------------------------
+# the fleet's merged scrape
+# ---------------------------------------------------------------------------
+
+
+def _fleet_registries(tel):
+    """Two replicas' ledgers and a base registry, built in package ``tel``."""
+    regs = {}
+    for name in ("replica0", "replica1"):
+        reg = tel.MetricsRegistry()
+        led = tel.ProgramLedger(registry=reg)
+        led.observe_compile("decode", 0.1, 10.0, 20.0)
+        led.observe_call("decode", 0.01)
+        regs[name] = reg
+    base = tel.MetricsRegistry()
+    base.gauge("mingpt_fleet_replica_up", labels=("replica",)) \
+        .labels(replica="replica0").set(1)
+    return base, regs
+
+
+def test_fleet_merge_one_type_line_per_family_with_replica_label():
+    page = telemetry.render_fleet_prometheus(*_fleet_registries(telemetry))
+    parsed = parse_prometheus(page)  # strict: no duplicate TYPE line survived
+    assert page.count("# TYPE mingpt_attrib_flops gauge") == 1
+    assert sorted(lb["replica"] for n, lb, _ in parsed["samples"]
+                  if n == "mingpt_attrib_flops") == ["replica0", "replica1"]
+    # base-registry families are emitted as they are
+    assert ("mingpt_fleet_replica_up", {"replica": "replica0"}, 1.0) in parsed["samples"]
+    # the JAX package's merge of the same observations: the same samples
+    theirs = parse_prometheus(j_tel.render_fleet_prometheus(*_fleet_registries(j_tel)))
+    assert parsed["types"] == theirs["types"]
+    assert sorted(map(repr, parsed["samples"])) == sorted(map(repr, theirs["samples"]))
+
+
+def test_fleet_merge_rejects_cross_replica_kind_conflict():
+    a, b = MetricsRegistry(), MetricsRegistry()
+    a.counter("mingpt_test_thing_total")
+    b.gauge("mingpt_test_thing_total")
+    with pytest.raises(ValueError, match="incoherent"):
+        telemetry.render_fleet_prometheus(None, {"replica0": a, "replica1": b})
+
+
+def test_fleet_merge_page_is_deterministic():
+    def build():
+        regs = {}
+        for name in ("r1", "r0"):
+            reg = MetricsRegistry()
+            ProgramLedger(registry=reg).observe_compile("decode", 0.5, 1.0, 2.0)
+            regs[name] = reg
+        return telemetry.render_fleet_prometheus(None, regs)
+
+    assert build() == build()
+    assert build().index('replica="r0"') < build().index('replica="r1"')

@@ -360,3 +360,28 @@ def test_train_telemetry_readers(tmp_path):
     assert chip_smoke.trace_kernel_names(trace) == [
         "_ZN12_GLOBAL__N_121flash_fwd_bf16_kernelILi64E", "flash_bwd_prep_kernel"]
     assert chip_smoke.TRACE_KERNELS == ("flash_fwd", "flash_bwd_prep", "flash_dq", "flash_dkv")
+
+
+def test_diff_paths_names_every_differing_leaf():
+    """The traffic phase's comparison of the card's report with the CPU's:
+    every differing leaf by its path, nothing for equal documents."""
+    a = {"mix": {"vocab_size": 96}, "rungs": [{"x": 1, "y": [1, 2]}], "k": None}
+    b = {"mix": {"vocab_size": 50257}, "rungs": [{"x": 1, "y": [1, 3]}], "k": None}
+    assert chip_smoke._diff_paths(a, a) == []
+    assert chip_smoke._diff_paths(a, b) == [".mix.vocab_size", ".rungs[0].y[1]"]
+    assert chip_smoke._diff_paths({"a": [1]}, {"a": [1, 2]}) == [".a"]
+
+
+def test_fleet_prompts_land_on_each_replica_by_affinity():
+    """fleet_parity's prompts: seeded, 5-300 tokens, n per replica by the
+    router's own prefix hash, so the chaos spec's named replicas get work."""
+    from types import SimpleNamespace
+
+    from mingpt_distributed_tpu_torch.serving import Router
+
+    router = SimpleNamespace(supervisor=SimpleNamespace(replicas=[0, 1, 2]), affinity_len=16)
+    router._affinity_index = lambda p: Router._affinity_index(router, p)
+    prompts = chip_smoke.fleet_prompts(router, 2)
+    assert [router._affinity_index(p) for p in prompts] == [0, 0, 1, 1, 2, 2]
+    assert all(5 <= len(p) <= 300 and max(p) < 50257 for p in prompts)
+    assert prompts == chip_smoke.fleet_prompts(router, 2)

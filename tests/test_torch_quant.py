@@ -427,3 +427,49 @@ def test_selftest_quant_fails_when_the_engine_stores_wrong_rows(monkeypatch, cap
     monkeypatch.setattr(tq, "write_layer_rows", doubled)
     assert t_serve.main(["--selftest-quant", "--device", "cpu"]) != 0
     assert "selftest-quant FAILED" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("name", DTYPES)
+def test_migrated_quantized_rows_resume_bit_identical(both, name):
+    """tests/test_quant.py:217 on the port, and at fp8 too: prefill a
+    quantized slot, pull its rows through extract_slot_rows (payloads and
+    scale planes), install them into a FRESH engine, then decode the same
+    tokens on both: the token streams are identical and the final pools
+    bit-identical leaf for leaf — migration moves bytes, it never
+    requantizes. At int8 the extracted rows also equal the JAX engine's
+    bit for bit."""
+    jcfg, tree, tcfg, params = both
+    if name == "fp8" and tq.fp8_dtype() is None:
+        pytest.skip("this torch has no float8_e4m3fn")
+    prompt = list(range(5, 21))  # 16 tokens: a ladder bucket
+
+    def engine():
+        return DecodeEngine(params, tcfg, n_slots=1, prefill_buckets=(8, 16, 32),
+                            kv_dtype=name, device="cpu")
+
+    def decode(eng, tok):
+        toks = []
+        for i in range(6):
+            tok = int(eng.decode_step(np.asarray([tok]), np.asarray([len(prompt) + i]),
+                                      np.ones(1, np.float32), np.zeros(1, np.int64),
+                                      np.ones(1, np.float32), np.zeros(1, bool), [None])[0])
+            toks.append(tok)
+        return toks
+
+    src = engine()
+    first, _ = src.prefill_chunk_call(0, prompt, 0, 1.0, None, None, False, None)
+    entry = src.extract_slot_rows(0, 16)
+    assert sorted(entry) == ["k", "k_scale", "v", "v_scale"]
+    assert entry["k"].dtype == src.pool.cache["k"].dtype != torch.float32
+    dst = engine()
+    assert dst.install_slot_rows(0, {n: a.clone() for n, a in entry.items()}) == 16
+    assert decode(dst, first) == decode(src, first)
+    for leaf in sorted(src.pool.cache):
+        assert torch.equal(src.pool.cache[leaf], dst.pool.cache[leaf]), leaf
+    if name == "int8":
+        jeng = JEngine(tree, jcfg, n_slots=1, prefill_buckets=(8, 16, 32), kv_dtype="int8")
+        jeng.prefill_chunk_call(0, prompt, 0, 1.0, None, None, False, jax.random.key(7))
+        for leaf, a in jeng.extract_slot_rows(0, 16).items():
+            np.testing.assert_array_equal(entry[leaf].numpy(), np.asarray(a))
+    with pytest.raises(ValueError, match="recast"):
+        dst.install_slot_rows(0, {n: a.float() for n, a in entry.items()})

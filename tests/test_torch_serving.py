@@ -767,7 +767,6 @@ def test_deadline_expiry_mid_prefill_frees_slot_and_counts(cfg_params):
 @pytest.mark.parametrize("option, item", [
     # the ids the cases had beside the three item-16 options, which run now
     pytest.param(dict(mesh=object()), "item 9", id="option3-item 9"),
-    pytest.param(dict(fault_hook=lambda where: None), "item 15", id="option4-item 15"),
 ])
 def test_unported_options_raise_naming_their_item(cfg_params, option, item):
     cfg, params = cfg_params
@@ -894,6 +893,68 @@ def test_serve_prompts_file_over_a_trained_snapshot(snapshot_argv, tmp_path, cap
     assert [b[:-1] for b in blocks] == [_solo_text(snapshot_argv, p, 7)
                                         for p in served]
     assert summary["requests_completed"] == 3 and summary["tokens_generated"] == 21
+
+
+def test_serve_prompts_file_through_the_fleet(snapshot_argv, tmp_path, capsys):
+    """--replicas 2 over the trainer's snapshot: the router in front of two
+    replicas on the wall clock, with a crash injected into replica0's
+    first round; every greedy completion equals solo generate, the fleet
+    summary is printed and --metrics-json writes it."""
+    prompts = tmp_path / "prompts.txt"
+    prompts.write_text("the king \nand so \nwhat is \n")
+    metrics = tmp_path / "fleet.json"
+    assert t_serve.main(["--prompts-file", str(prompts), "--device", "cpu",
+                         "--greedy", "--max-new-tokens", "7", "--slots", "2",
+                         "--replicas", "2", "--isolation", "thread",
+                         "--shed-watermark", "64", "--chaos-spec",
+                         "crash:nth=1:match=replica0", "--metrics-json", str(metrics),
+                         *snapshot_argv]) == 0
+    cap = capsys.readouterr()
+    assert "fleet: 2 replicas x 2 slots" in cap.err
+    blocks = re.split(r"^=== fleet-\d+ \(length\) ===\n", cap.out, flags=re.M)[1:]
+    last, summary = blocks[-1].rsplit("\n{", 1)
+    blocks[-1], summary = last + "\n", json.loads("{" + summary)
+    assert [b[:-1] for b in blocks] == [_solo_text(snapshot_argv, p, 7)
+                                        for p in ("the king ", "and so ", "what is ")]
+    assert summary["requests_by_outcome"]["completed"] == 3
+    assert set(summary["replicas"]) == {"replica0", "replica1"}
+    assert summary["replicas"]["replica0"]["crashes"] == summary["retries_by_reason"]["crash"] > 0
+    assert json.loads(metrics.read_text()) == summary
+
+
+def test_engine_migration_seam_matches_jax(cfg_params):
+    """The engine's migration seam against the JAX engine's, fp32: the same
+    bucket from ``migratable_rows`` for every (prompt, frontier), the
+    extracted rows within 1e-5 of JAX's, and an adopted prefix entry hit by
+    the next request, which continues as solo generate does."""
+    cfg, params = cfg_params
+    jcfg = JConfig.make(**TINY)
+    tree = j_gpt.init(jax.random.key(0), jcfg)
+    from mingpt_distributed_tpu.serving.engine import DecodeEngine as JEngine
+
+    ours = DecodeEngine(params, cfg, n_slots=2, prefill_buckets=(4, 8, 16), device="cpu")
+    theirs = JEngine(tree, jcfg, n_slots=2, prefill_buckets=(4, 8, 16))
+    for n in range(1, 33):
+        for frontier in (0, 3, 8, n):
+            assert ours.migratable_rows(n, frontier) == theirs.migratable_rows(n, frontier)
+    prompt = list(range(1, 18))
+    ours.prefill_chunk_call(1, prompt, 0, 1.0, None, None, False, None)
+    theirs.prefill_chunk_call(1, prompt, 0, 1.0, None, None, False, jax.random.key(0))
+    rows = ours.migratable_rows(len(prompt), len(prompt))
+    assert rows == 16
+    entry = ours.extract_slot_rows(1, rows)
+    for leaf, a in theirs.extract_slot_rows(1, rows).items():
+        np.testing.assert_allclose(entry[leaf].numpy(), np.asarray(a), atol=1e-5)
+    with pytest.raises(ValueError, match="bucket ladder"):
+        ours.extract_slot_rows(1, 12)
+    dst = server(params, cfg, n_slots=2, prefill_buckets=(4, 8, 16, 32),
+                 prefix_cache_mb=1.0)
+    assert not server(params, cfg, n_slots=1).engine.adopt_prefix_entry(prompt[:rows], entry)
+    assert dst.engine.adopt_prefix_entry(prompt[:rows], entry)
+    assert not dst.engine.adopt_prefix_entry(prompt[:rows], entry)  # held already
+    h = dst.generate_batch([Request(prompt=prompt, max_new_tokens=6)])[0]
+    assert h.prefix_rows == 16 and dst.metrics.prefix_hits == 1
+    assert h.tokens == solo_greedy(params, cfg, prompt, 6)
 
 
 def test_serve_repl_streams_each_completion(snapshot_argv, monkeypatch, capsys):

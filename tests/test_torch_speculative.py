@@ -277,17 +277,91 @@ def test_constructor_validation(both):
 
 
 def test_migration_and_attribution_raise_naming_their_items(both):
+    """The draft-row migration seam runs now (the tests below); the audit
+    contracts still raise naming item 16b."""
     _, _, tcfg, params = both
     ts = InferenceServer(params, tcfg, n_slots=1, device="cpu",
                          draft_params=params, draft_cfg=tcfg, spec_k=2)
     spec: SpeculativeDecoder = ts.spec
-    for call in (lambda: spec.pending_draft, lambda: spec.migratable_draft_rows(8),
-                 lambda: spec.extract_draft_rows(0, 8),
-                 lambda: spec.adopt_draft_rows([1], {})):
-        with pytest.raises(NotImplementedError, match="item 15"):
-            call()
+    assert spec.pending_draft == {} and spec.pending_draft_cap == 32
     with pytest.raises(NotImplementedError, match="item 16b"):
         spec.audit_contracts()
+
+
+MIGRATE = list(range(3, 20))  # 17 tokens: target rows 16, draft rows 16
+
+
+def _migrate(server_cls, request_cls, params, cfg, dparams, dcfg, **place):
+    """A request primed on a source server, its target rows adopted into a
+    fresh server's prefix store and its draft rows parked on that server's
+    speculative decoder; the request then served there. Returns the
+    source's and the destination's tokens, the rows moved, the entries and
+    the destination's speculation counters."""
+    opts = dict(n_slots=2, prefill_buckets=(8, 16, 32), draft_params=dparams,
+                draft_cfg=dcfg, spec_k=3, **place)
+    src = server_cls(params, cfg, **opts)
+    h = src.submit(request_cls(prompt=MIGRATE, max_new_tokens=8))
+    while h.prefilling or h.slot is None:
+        src.step()
+    rows = src.engine.migratable_rows(len(MIGRATE), h.prefill_pos)
+    drows = src.spec.migratable_draft_rows(len(MIGRATE))
+    entry = src.engine.extract_slot_rows(h.slot, rows)
+    dentry = src.spec.extract_draft_rows(h.slot, drows)
+    src.run_until_drained()
+    dst = server_cls(params, cfg, prefix_cache_mb=1.0, **opts)
+    adopted = (dst.engine.adopt_prefix_entry(MIGRATE[:rows], entry),
+               dst.spec.adopt_draft_rows(MIGRATE[:drows], dentry),
+               dst.spec.adopt_draft_rows(MIGRATE[:drows], dentry))  # parked once
+    h2 = dst.generate_batch([request_cls(prompt=MIGRATE, max_new_tokens=8)])[0]
+    return dict(tokens=(h.tokens, h2.tokens), rows=(rows, drows), adopted=adopted,
+                entry={n: np.asarray(a) for n, a in entry.items()},
+                dentry={n: np.asarray(a) for n, a in dentry.items()},
+                prefix_rows=h2.prefix_rows, spec=(h2.spec_proposed, h2.spec_accepted),
+                prime=(dst.spec.prime_adopted, dst.spec.prime_full,
+                       len(dst.spec.pending_draft)))
+
+
+@pytest.mark.parametrize("n_layer", [None, 1], ids=["self", "self:1"])
+def test_draft_rows_migrate_and_prime_adopted_like_jax(both, n_layer):
+    """The migration seam in-process, draft rows included: the same buckets
+    chosen by both packages (target 16 = one short of 17 tokens on the
+    ladder, draft 16 = the ladder bucket <= 17), rows within 1e-5 of JAX's,
+    the adopted prefix hit, the parked draft rows consumed by an "adopted"
+    prime, and the same greedy continuation and speculation counters as the
+    source server and as JAX's destination."""
+    jcfg, tree, tcfg, params = both
+    jd, jdc, td, tdc = drafts(both, n_layer)
+    ours = _migrate(InferenceServer, Request, params, tcfg, td, tdc, device="cpu")
+    theirs = _migrate(JServer, JRequest, tree, jcfg, jd, jdc)
+    assert ours["rows"] == theirs["rows"] == (16, 16)
+    assert ours["adopted"] == theirs["adopted"] == (True, True, False)
+    for name in ("entry", "dentry"):
+        assert sorted(ours[name]) == sorted(theirs[name]) == ["k", "v"]
+        for leaf in ours[name]:
+            np.testing.assert_allclose(ours[name][leaf], theirs[name][leaf], atol=1e-5)
+    src_tokens, dst_tokens = ours["tokens"]
+    assert src_tokens == dst_tokens == solo_greedy(params, tcfg, MIGRATE, 8)
+    assert ours["tokens"] == theirs["tokens"]
+    assert ours["prefix_rows"] == theirs["prefix_rows"] == 16
+    assert ours["spec"] == theirs["spec"]
+    assert ours["prime"] == theirs["prime"] == (1, 0, 0)
+
+
+def test_pending_draft_is_a_bounded_fifo(both):
+    _, _, tcfg, params = both
+    ts = InferenceServer(params, tcfg, n_slots=1, device="cpu", draft_params=params,
+                         draft_cfg=tcfg, spec_k=2, prefill_buckets=(8, 16, 32))
+    spec = ts.spec
+    entry = spec.extract_draft_rows(0, 8)
+    for i in range(spec.pending_draft_cap + 3):
+        assert spec.adopt_draft_rows([i] * 8, entry)
+    assert len(spec.pending_draft) == spec.pending_draft_cap
+    assert (0,) * 8 not in spec.pending_draft  # the oldest left first
+    assert (spec.pending_draft_cap + 2,) * 8 in spec.pending_draft
+    with pytest.raises(ValueError, match="bucket ladder"):
+        spec.extract_draft_rows(0, 7)
+    with pytest.raises(ValueError, match="recast"):
+        spec.adopt_draft_rows([99] * 8, {n: a.double() for n, a in entry.items()})
 
 
 def test_spec_gate_off_is_token_exact(both):

@@ -2,10 +2,12 @@
 (telemetry/{tracing,flightrec,slo}.py, wired into serving/scheduler.py and
 serve.py), with the schema held by the JAX package's own validators.
 
-Counterparts of tests/test_tracing.py without its fleet cases (the fleet is
-ROADMAP.md item 15): the recorder, sampling, orphans, validation, the exact
-quantile and SLO grading, the flight ring and its manifest, and a solo
-server that owns its traces. The port's trace records, flight dumps and
+Counterparts of tests/test_tracing.py: the recorder, sampling, orphans,
+validation, the exact quantile and SLO grading, the flight ring and its
+manifest, a solo server that owns its traces, and the fleet's cases (a
+crash and retry as one trace with no orphans, the scheduler's spans under
+the fleet's attempt span, forced shed traces, the drain's and the crash's
+flight dumps, /healthz's per-replica detail). The port's trace records, flight dumps and
 attribution of a served run pass ``validate_trace_records`` /
 ``validate_flight_dump`` of both packages. Every timestamp comes from an
 injected clock, so durations are exact. CPU, tiny config, fp32.
@@ -439,6 +441,169 @@ def test_debug_flight_endpoint_serves_a_valid_snapshot(cfg_params):
             doc = json.loads(resp.read().decode())
         j_tel.validate_flight_dump(doc)
         assert doc["trigger"] == "on_demand" and doc["records"][0]["name"] == "x"
+    finally:
+        srv.close()
+
+
+# ---------------------------------------------------------------------------
+# the fleet: one trace per request across replicas and retries
+# ---------------------------------------------------------------------------
+
+
+def make_fleet(cfg_params, spec=None, registry=None, **router_kw):
+    """tests/test_fleet.py's fleet: 2 replicas x 2 slots on a virtual clock
+    with fast backoffs."""
+    from mingpt_distributed_tpu_torch.serving import (
+        ReplicaSupervisor,
+        Router,
+        VirtualClock,
+        default_server_factory,
+    )
+    from mingpt_distributed_tpu_torch.training.faults import ServingFaultInjector
+
+    cfg, params = cfg_params
+    sup = ReplicaSupervisor(
+        default_server_factory(params, cfg, n_slots=2, device="cpu"), n_replicas=2,
+        clock=VirtualClock(tick_s=0.001),
+        injector=ServingFaultInjector(spec) if spec else None, registry=registry,
+        max_restarts=1, restart_backoff_s=0.01, itl_slo_s=0.1)
+    return Router(sup, max_retries=3, retry_backoff_s=0.01, breaker_reset_s=0.05,
+                  **router_kw)
+
+
+def prompts_on(router, index, n, length=3):
+    """n prompts whose affinity hash lands on replica ``index``."""
+    out = [p for p in ([s + j for j in range(length)] for s in range(1, 40))
+           if router._affinity_index(p) == index]
+    return out[:n]
+
+
+def test_crash_retry_is_one_trace_with_no_orphans(cfg_params, tmp_path):
+    """A crash and retry yield ONE trace whose second attempt is a marked
+    span, with no orphan record and emit events matching the stream; the
+    file passes both packages' validators."""
+    cfg, params = cfg_params
+    path = str(tmp_path / "trace.jsonl")
+    rec = TraceRecorder(sink=trace_sink(path))
+    streamed = {}
+    router = make_fleet(cfg_params, spec="crash:nth=6:match=replica0", trace_recorder=rec,
+                        on_token=lambda fh, t: streamed.setdefault(fh.request_id, []).append(t))
+    prompts = prompts_on(router, 0, 3)
+    handles = router.generate_batch([Request(prompt=p, max_new_tokens=8) for p in prompts])
+    assert any(h.attempts > 1 for h in handles)
+    for p, h in zip(prompts, handles):
+        assert h.finish_reason == "length"
+        assert h.tokens == gen.generate(params, cfg, [p], 8, device="cpu")[0, 3:].tolist()
+    assert rec.orphan_records == 0 and rec.active_traces == 0
+    rec.close()
+    validate_trace_records(_records(path))
+    j_tel.validate_trace_records(_records(path))
+    traces = load_trace_jsonl(path)
+    assert set(traces) == {h.request_id for h in handles}
+    for h in handles:
+        t = traces[h.request_id]
+        attempts = [sp for sp in t["spans"] if sp["name"] == "fleet.attempt"]
+        retries = [e for e in t["events"] if e["name"] == "retry"]
+        emits = [e for e in t["events"] if e["name"] == "emit"]
+        assert len(attempts) == h.attempts and len(retries) == h.attempts - 1
+        assert [e["token_index"] for e in emits] == list(range(len(h.tokens)))
+        assert len(emits) == len(streamed[h.request_id])
+        assert t["request"]["retried"] == (h.attempts > 1)
+        if h.attempts > 1:
+            assert retries[0]["reason"] == "crash"
+            assert t["request"]["sample_cause"] == "forced"
+            assert t["request"]["recovery_s"] > 0
+        assert all("replica" in sp for sp in attempts)
+        assert attempts[-1]["replica"] == h.replica
+
+
+def test_scheduler_spans_join_fleet_trace(cfg_params, tmp_path):
+    """The replica scheduler's spans parent under the fleet's attempt span
+    through the context riding on the attempt Request."""
+    path = str(tmp_path / "trace.jsonl")
+    rec = TraceRecorder(sink=trace_sink(path))
+    router = make_fleet(cfg_params, trace_recorder=rec)
+    h = router.generate_batch([Request(prompt=[1, 2, 3], max_new_tokens=4)])[0]
+    rec.close()
+    t = load_trace_jsonl(path)[h.request_id]
+    names = {sp["name"] for sp in t["spans"]}
+    assert {"fleet.attempt", "serve.queue_wait", "serve.prefix_lookup",
+            "serve.prefill_chunk", "serve.decode_round"} <= names
+    attempt_id = next(sp["span_id"] for sp in t["spans"] if sp["name"] == "fleet.attempt")
+    for sp in t["spans"]:
+        if sp["name"].startswith("serve."):
+            assert sp["parent_id"] == attempt_id
+
+
+def test_shed_requests_get_forced_traces(cfg_params):
+    from mingpt_distributed_tpu_torch.serving import ShedError
+
+    rec = TraceRecorder(sample=0.0)  # sheds export regardless
+    router = make_fleet(cfg_params, trace_recorder=rec)
+    router.drain()
+    with pytest.raises(ShedError):
+        router.submit(Request(prompt=[1, 2, 3]))
+    (summary,) = rec.completed_requests()
+    assert summary["outcome"] == "shed" and summary["shed_reason"] == "draining"
+    assert summary["sampled"] and summary["sample_cause"] == "forced"
+
+
+def test_fleet_drain_dumps_strict_flight_record(cfg_params, tmp_path):
+    """serve's SIGTERM-drain path under the fleet: the dump strict-parses
+    through the manifest, mirrors the requests' records and carries each
+    replica's registry page."""
+    reg = MetricsRegistry()
+    fl = FlightRecorder(out_dir=str(tmp_path / "flight"), registry=reg)
+    rec = TraceRecorder(registry=reg, flight=fl)
+    router = make_fleet(cfg_params, registry=reg, trace_recorder=rec, flight=fl)
+    router.generate_batch([Request(prompt=[1, 2, 3], max_new_tokens=4),
+                           Request(prompt=[9, 8, 7], max_new_tokens=4)])
+    router.drain()
+    path, _ = fl.dump("sigterm_drain")
+    assert path is not None
+    _, docs = load_flight_dir(str(tmp_path / "flight"))
+    j_tel.validate_flight_dump(docs[-1])
+    assert docs[-1]["trigger"] == "sigterm_drain"
+    assert {"span", "event", "request"} <= {r["kind"] for r in docs[-1]["records"]}
+    assert any(name.startswith("replica") for name in docs[-1]["metrics"])
+
+
+def test_crash_triggers_flight_dump(cfg_params, tmp_path):
+    fl = FlightRecorder(out_dir=str(tmp_path))
+    rec = TraceRecorder(flight=fl)
+    router = make_fleet(cfg_params, spec="crash:nth=6:match=replica0",
+                        trace_recorder=rec, flight=fl)
+    handles = router.generate_batch([Request(prompt=p, max_new_tokens=8)
+                                     for p in prompts_on(router, 0, 3)])
+    assert all(h.finish_reason == "length" for h in handles)
+    _, docs = load_flight_dir(str(tmp_path))
+    crash = [d for d in docs if d["trigger"] == "crash"]
+    assert crash and crash[0]["attrs"]["replica"] == "replica0"
+
+
+def test_healthz_carries_each_replicas_breaker_and_reasons(cfg_params):
+    reg = MetricsRegistry()
+    fl = FlightRecorder()
+    fl.record("event", {"name": "x", "ts": 0.0})
+    router = make_fleet(cfg_params, registry=reg, flight=fl)
+    srv = telemetry.TelemetryServer(reg, port=0, health_provider=router.health_report,
+                                    metrics_provider=router.fleet_metrics_page)
+    try:
+        srv.flight_provider = lambda: fl.snapshot("on_demand")
+        with urllib.request.urlopen(srv.url("/healthz"), timeout=10) as resp:
+            health = json.loads(resp.read().decode())
+        assert health["status"] == "ok" and set(health["replicas"]) == {"replica0",
+                                                                        "replica1"}
+        for r in health["replicas"].values():
+            assert r["breaker"] in ("closed", "half_open", "open")
+            assert isinstance(r["reasons"], list)
+        with urllib.request.urlopen(srv.url("/debug/flight"), timeout=10) as resp:
+            j_tel.validate_flight_dump(json.loads(resp.read().decode()))
+        with urllib.request.urlopen(srv.url("/metrics"), timeout=10) as resp:
+            parsed = telemetry.parse_prometheus(resp.read().decode())
+        assert parsed["types"]["mingpt_fleet_replica_up"] == "gauge"
+        assert {lb.get("replica") for n, lb, _ in parsed["samples"]
+                if n == "mingpt_serve_ttft_seconds_count"} == {"replica0", "replica1"}
     finally:
         srv.close()
 
