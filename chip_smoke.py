@@ -159,6 +159,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2059,11 +2060,11 @@ def router_faults():
         fleet.Router._handle_step_failure = real["step_failure"]
 
 
-def fleet_prompts(router, n_per, lo=5, hi=300, vocab=50257):
+def fleet_prompts(router, n_per, lo=5, hi=300, vocab=50257, seed=SERVE_SEED + 2):
     """Seeded prompts of lo..hi tokens, ``n_per`` landing on each replica by
     the router's prefix affinity (the chaos spec names replicas, so work
     must reach the named ones), in replica order."""
-    rng = np.random.default_rng(SERVE_SEED + 2)
+    rng = np.random.default_rng(seed)
     per = {i: [] for i in range(len(router.supervisor.replicas))}
     while any(len(v) < n_per for v in per.values()):
         p = rng.integers(0, vocab, int(rng.integers(lo, hi + 1))).tolist()
@@ -2338,10 +2339,10 @@ def phase_fleet(params32, card, serve_rec):
     del tapped
     gc.collect()
     torch.cuda.empty_cache()
-    return launches
+    return launches, rec
 
 
-def forced_tie_rule(params, cfg, streams, rows):
+def forced_tie_rule(params, cfg, streams, rows, e=None):
     """The tie rule along each stream, teacher-forced: solo logits at every
     generated position from ONE cached forward of the prompt and the
     stream's own tokens (``streams``: (request id, prompt, tokens)), so all
@@ -2351,10 +2352,13 @@ def forced_tie_rule(params, cfg, streams, rows):
     token's by at most SERVE_TIE_X * e. At bf16 the engine's batched decode
     and chunked prefill round differently from one solo forward, and the
     random-init logits are near-tied often enough that a free-running solo
-    decode would leave most steps uncompared."""
+    decode would leave most steps uncompared. Without ``rows`` (a worker
+    process's logits stay in it), ``e`` is given: a margin measured on the
+    same engine code elsewhere."""
     from mingpt_distributed_tpu_torch.models import generate as gen
 
-    refs, e = [], 0.0
+    refs, measure = [], e is None
+    e = 0.0 if measure else e
     with torch.no_grad():
         for rid, prompt, toks in streams:
             cache = gen.init_cache(cfg, 1, torch.device("cuda"))
@@ -2362,8 +2366,9 @@ def forced_tie_rule(params, cfg, streams, rows):
             x = gen._forward_cached_hidden(params, seq, cache, 0, cfg)
             ref = gen._head_logits(params, x[:, len(prompt) - 1:], cfg)[0].float()
             refs.append(ref)
-            e = max(e, max((rows[(rid, i)].float() - ref[i]).abs().max().item()
-                           for i in range(len(toks))))
+            if measure:
+                e = max(e, max((rows[(rid, i)].float() - ref[i]).abs().max().item()
+                               for i in range(len(toks))))
     divergences = []
     for (rid, _, toks), ref in zip(streams, refs):
         for i, tok in enumerate(toks):
@@ -2473,6 +2478,741 @@ def phase_traffic(params32, card):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 3e: the process fleet (worker subprocesses behind mingpt-rpc/1)
+# ---------------------------------------------------------------------------
+
+# The card's free memory after a SIGKILLed worker is reaped must rise by that
+# worker's footprint (free memory before its spawn minus after it) within
+# this margin: the parent is idle while it polls, so what moves the reading
+# besides the dead context is allocator jitter in the other processes, a
+# few MiB; 128 MiB bounds it with room to spare and is far below one
+# worker's footprint (its CUDA context alone is several hundred MiB).
+PROC_MEM_MARGIN = 128 << 20
+PROC_MEM_WAIT_S = 30.0
+# hang ladder (phase B of standby): the step RPC's socket timeout, the
+# liveness deadline and the SIGTERM -> SIGKILL grace, seconds
+HANG_RPC_S, HANG_DEADLINE_S, HANG_GRACE_S = 1.5, 1.0, 1.0
+
+
+class TraceList:
+    """A trace sink keeping the mingpt-trace/1 records in a list."""
+
+    def __init__(self):
+        self.records = []
+
+    def write(self, kind, rec):
+        from mingpt_distributed_tpu_torch.telemetry import TRACE_SCHEMA
+
+        self.records.append({"schema": TRACE_SCHEMA, "kind": kind, **rec})
+
+    def close(self):
+        pass
+
+
+def worker_spec(cfg, **server):
+    """A worker spec on cuda:0 drawing ``cfg``'s weights from seed 0 on a
+    CPU generator, as GPT(seed=0) draws the parent's."""
+    from mingpt_distributed_tpu_torch.serving.procfleet import cfg_to_spec
+
+    return {"cfg": cfg_to_spec(cfg), "init_seed": 0, "device": "cuda", "server": server}
+
+
+def timed_spawns(spawns):
+    """A ``proc_fleet`` wrap: every spawn (replicas, spares, respawns)
+    logged with its seconds and the card's free memory before and after."""
+    def wrap(factory):
+        def make(name, clock, fault_hook):
+            torch.cuda.synchronize()
+            free0, t0 = torch.cuda.mem_get_info()[0], time.perf_counter()
+            backend = factory(name=name, clock=clock, fault_hook=fault_hook)
+            WORKERS.append(backend)
+            spawns.append({"name": name, "pid": backend.pid,
+                           "seconds": time.perf_counter() - t0, "free_before": free0,
+                           "free_after": torch.cuda.mem_get_info()[0]})
+            return backend
+        return make
+    return wrap
+
+
+def proc_fleet(spec, spill, **kwargs):
+    """serve's ``proc_fleet`` (2 worker subprocesses on the wall clock) with
+    its spawns timed: (supervisor, router, streamed, spawns)."""
+    from mingpt_distributed_tpu_torch.serve import proc_fleet as serve_proc_fleet
+
+    spawns = []
+    return (*serve_proc_fleet(spec, spill, wrap=timed_spawns(spawns), **kwargs), spawns)
+
+
+def kill_mid_decode(supervisor, router, spawns, await_memory=True):
+    """SIGKILL the worker of a replica decoding a request that has emitted a
+    token, reap it (waitpid), and (``await_memory``) wait for the card to get
+    its memory back: (victim name, exit code, memory record or None)."""
+    from mingpt_distributed_tpu_torch.serve import mid_decode_replica, step_until
+
+    victim = step_until(router, lambda: mid_decode_replica(supervisor, router))
+    check(victim is not None, "process fleet: no replica ever mid-decode")
+    pid = victim.backend.pid
+    born = next(s for s in spawns if s["pid"] == pid)
+    footprint = born["free_before"] - born["free_after"]
+    torch.cuda.synchronize()
+    free_kill = torch.cuda.mem_get_info()[0]
+    os.kill(pid, signal.SIGKILL)
+    code = victim.backend.proc.wait()
+    if not await_memory:
+        return victim.name, code, None
+    t_reap = time.perf_counter()
+    free = torch.cuda.mem_get_info()[0]
+    while (free < free_kill + footprint - PROC_MEM_MARGIN
+           and time.perf_counter() - t_reap < PROC_MEM_WAIT_S):
+        time.sleep(0.005)
+        free = torch.cuda.mem_get_info()[0]
+    memory = {"worker_footprint_at_spawn": footprint, "free_before_kill": free_kill,
+              "free_after_reap": free, "returned": free - free_kill,
+              "margin": PROC_MEM_MARGIN,
+              "release_s_after_waitpid": time.perf_counter() - t_reap}
+    return victim.name, code, memory
+
+
+def drain_and_respawn(supervisor, router, name):
+    from mingpt_distributed_tpu_torch.serve import step_until
+
+    router.run_until_drained(max_steps=500000)
+    step_until(router, lambda: supervisor.replica_by_name(name).state == "ready",
+               max_steps=500000)
+
+
+def migrate_prompts(router, n_per=3):
+    """Prompts a migration ships rows of: 130 to 300 tokens (128 or 256
+    rows on the default ladder), seeded apart from the fleet's others, so no
+    peer holds their entries already."""
+    return fleet_prompts(router, n_per, lo=130, seed=SERVE_SEED + 5)
+
+
+def migrate_leg(supervisor, router, streamed, prompts, new, records):
+    """Drain with migration over the real socket: submit ``prompts`` (ones
+    the fleet has not served: a peer skips an entry it holds already), migrate
+    a mid-decode replica's state to its peer and retire it, drain. Then the
+    checks' inputs: every shipped leaf against the peer's copy (the peer's
+    own migrate_out blob), and the moved prompts run again on the peer,
+    undisturbed. Returns the record (tokens under "tokens")."""
+    from mingpt_distributed_tpu_torch.serve import mid_decode_replica, step_until
+    from mingpt_distributed_tpu_torch.serving import Request
+    from mingpt_distributed_tpu_torch.serving.procfleet import unpack_frames
+
+    handles = [router.submit(Request(prompt=p, max_new_tokens=new)) for p in prompts]
+    src = step_until(router, lambda: mid_decode_replica(supervisor, router))
+    check(src is not None, "process migration: never mid-decode")
+    shipped = []
+    real_export = router.export_migrate_blob
+
+    def export(rep):
+        blob = real_export(rep)
+        shipped.append(blob)
+        return blob
+
+    router.export_migrate_blob = export
+    t0 = time.perf_counter()
+    report = router.migrate_and_drain(src.name)
+    migrate_s = time.perf_counter() - t0
+    del router.export_migrate_blob
+    router.run_until_drained(max_steps=500000)
+    moved = [h for h in handles if h.request_id in report["requests_moved"]]
+    again = [router.submit(Request(prompt=list(h.request.prompt), max_new_tokens=new))
+             for h in moved]
+    router.run_until_drained(max_steps=500000)
+    dst = supervisor.replica_by_name(report["to"])
+    peer = {(m["type"], tuple(m["key"])): (m["leaves"], payload) for m, payload in
+            unpack_frames(dst.backend.transport.fetch_bytes("/rpc/migrate_out"))
+            if m["type"] == "prefix_entry"}
+    # the rows of this leg's prompts (a key the peer held already, from
+    # traffic both served, is skipped on install and is the peer's own)
+    heads = {tuple(p[:n]) for p in prompts for n in range(1, len(p) + 1)}
+    sent = [(m, payload) for m, payload in unpack_frames(shipped[0])
+            if m["type"] in ("prefix_entry", "slot_rows")
+            and tuple(m["key"]) in heads] if shipped else []
+    bit_equal = bool(sent) and all(
+        peer.get(("prefix_entry", tuple(m["key"]))) == (m["leaves"], payload)
+        for m, payload in sent)
+    spanning = sum(len({e["replica"] for e in records
+                        if e["kind"] == "event" and e["name"] == "emit"
+                        and e["trace_id"] == h.request_id}) > 1 for h in moved)
+    migrate_events = sum(any(e["kind"] == "event" and e["name"] == "migrate"
+                             and e["trace_id"] == h.request_id for e in records)
+                         for h in moved)
+    return {"report": report, "migrate_s": migrate_s, "blob_bytes": len(shipped[0]) if shipped else 0,
+            "leaves": sorted({leaf["dtype"] for m, _ in sent for leaf in m["leaves"]}),
+            "frames_shipped": len(sent), "rows_bit_equal_on_peer": bit_equal,
+            "moved": len(moved), "moved_equal_undisturbed_rerun": [
+                h.tokens == a.tokens for h, a in zip(moved, again)],
+            "streams_equal": [streamed.get(h.request_id) == h.tokens for h in handles],
+            "finished": [h.finish_reason for h in handles],
+            "traces_spanning_both": spanning, "migrate_events": migrate_events,
+            "tokens": [h.tokens for h in handles]}
+
+
+def check_migrate_leg(tag, rec, new):
+    r = rec["report"]
+    check(r["outcome"] == "ok" and r["entries_installed"] >= 1 and rec["moved"] >= 1,
+          f"{tag}: migration {r}")
+    check(r["src_exit_code"] == 75, f"{tag}: the drained worker exited {r['src_exit_code']}")
+    check(all(f == "length" for f in rec["finished"])
+          and all(len(t) == new for t in rec["tokens"]), f"{tag}: a request fell short")
+    check(all(rec["streams_equal"]), f"{tag}: a caller stream differs from its handle "
+          f"(a duplicate or lost token)")
+    check(all(rec["moved_equal_undisturbed_rerun"]),
+          f"{tag}: a migrated stream differs from its undisturbed rerun on the peer")
+    check(rec["rows_bit_equal_on_peer"], f"{tag}: shipped rows are not bit-equal on the peer")
+    check(rec["migrate_events"] == rec["moved"] and rec["traces_spanning_both"] >= 1,
+          f"{tag}: traces {rec['migrate_events']} migrate events, "
+          f"{rec['traces_spanning_both']} spanning both replicas")
+
+
+def stream_leg(supervisor, router, prompt, new):
+    """/rpc/stream over the real socket, consumed on a thread while the
+    router drives the rounds: (streamed tokens, stream_end docs, handle)."""
+    import threading
+
+    from mingpt_distributed_tpu_torch.serving import Request
+
+    h = router.submit(Request(prompt=prompt, max_new_tokens=new))
+    router.step()
+    name, aid = next((name, aid) for (name, aid), (fh, _) in router._attempts.items()
+                     if fh.request_id == h.request_id)
+    transport = supervisor.replica_by_name(name).backend.transport
+    got = []
+    t = threading.Thread(target=lambda: got.extend(
+        transport.stream(f"/rpc/stream?request_id={aid}")), daemon=True)
+    t.start()
+    router.run_until_drained(max_steps=500000)
+    t.join(timeout=60.0)
+    check(not t.is_alive(), "procfleet_parity: /rpc/stream never ended")
+    return ([d["token"] for d in got if d["kind"] == "stream_token"],
+            [d for d in got if d["kind"] == "stream_end"], h, name)
+
+
+def phase_procfleet_parity(params32, card, tmp, then=None):
+    """The process fleet at GPT-2 124M width, fp32: two worker processes x 2
+    slots on the wall clock (a 256 MiB prefix cache each), each its own CUDA
+    context on the card, the weights drawn in each from seed 0. Six greedy
+    requests of 5 to 300 prompt tokens (three landing on each replica by
+    affinity), 24 new tokens each; one worker SIGKILLed while it decodes:
+    every stream token-identical to solo decoding and to what the caller was
+    streamed, exit -9 reaped, the spill collected, the card's free memory
+    back by the dead worker's footprint (``PROC_MEM_MARGIN``) and the
+    seconds that took, the victim respawned cold (its recovery is the cold
+    leg of ``standby``). Then the chunked /rpc/stream replay, drain with
+    migration over the real socket at fp32 (``migrate_leg``; the peer's own
+    migrate_out blob, read for the bit check, drains it too) and an
+    int8-pool fleet's migration (bf16's is in ``procfleet``). Last, the same requests
+    and the same kill through a LoopbackBackend fleet in this process: its
+    ReplicaWorker code launches no kernel (the subprocesses' launches are
+    their own counters, not counted here). The int8 fleet's workers and
+    ``then`` (the next phase's) start on threads after the kill leg: no
+    other spawn moves its memory readings or its cold respawn's time, and
+    the later legs hold no time. Returns (launches, record, ``then``'s
+    Background or None)."""
+    from mingpt_distributed_tpu_torch.serving import Request, VirtualClock
+    from mingpt_distributed_tpu_torch.serving.procfleet import (
+        ProcessSupervisor,
+        ProcRouter,
+        loopback_backend_factory,
+    )
+    from mingpt_distributed_tpu_torch.telemetry import TraceRecorder, validate_trace_records
+    from mingpt_distributed_tpu_torch.training.faults import ProcessFaultInjector
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, new = gpt2_config("flash", "float32"), PARITY_NEW
+    spec = worker_spec(cfg, n_slots=2, prefix_cache_mb=256)
+    sink = TraceList()
+    recorder = TraceRecorder(sink=sink)
+    t0 = time.perf_counter()
+    supervisor, router, streamed, spawns = proc_fleet(
+        spec, os.path.join(tmp, "procfleet-fp32"), trace_recorder=recorder)
+    first_spawns_s = time.perf_counter() - t0
+    prompts = fleet_prompts(router, 3)
+    solo = [solo_greedy(params32, cfg, p, new)[0] for p in prompts]
+    pids = {rep.name: rep.backend.pid for rep in supervisor.replicas}
+    with router_faults() as faults:
+        handles = [router.submit(Request(prompt=p, max_new_tokens=new)) for p in prompts]
+        t0 = time.perf_counter()
+        victim, code, memory = kill_mid_decode(supervisor, router, spawns)
+        drain_and_respawn(supervisor, router, victim)
+        kill_leg_s = time.perf_counter() - t0
+        crash = next(c for c in supervisor.crash_reports if c["replica"] == victim)
+        cold = supervisor.recovery_info(victim)
+        summary = router.summary()
+        exact = [h.tokens == want for h, want in zip(handles, solo)]
+        # the kill leg's readings are taken: the int8 fleet's workers and
+        # ``then`` start on threads while the legs below run
+        sink8 = TraceList()
+        int8_fleet = Background(lambda: proc_fleet(
+            dict(spec, server=dict(spec["server"], kv_dtype="int8")),
+            os.path.join(tmp, "procfleet-int8"), trace_recorder=TraceRecorder(sink=sink8)))
+        upcoming = Background(then) if then is not None else None
+        stream_toks, stream_ends, stream_h, stream_rep = stream_leg(
+            supervisor, router, prompts[0], new)
+        fresh = migrate_prompts(router)
+        fp32 = migrate_leg(supervisor, router, streamed, fresh, new, sink.records)
+    exits = supervisor.shutdown_all()
+    recorder.close()
+    validate_trace_records(sink.records)
+    # an int8 pool's rows (payloads and scale planes) over the socket
+    sup8, router8, streamed8, spawns8 = int8_fleet.result()
+    try:
+        int8 = migrate_leg(sup8, router8, streamed8, fresh, new, sink8.records)
+    finally:
+        exits8 = sup8.shutdown_all()
+    # the same requests, the same kill, in this process: 0 launches
+    loop_sup = ProcessSupervisor(
+        loopback_backend_factory(params32, cfg, n_slots=2, prefix_cache_mb=256, device="cuda"),
+        n_replicas=2, clock=VirtualClock(tick_s=0.001),
+        process_injector=ProcessFaultInjector("kill:nth=3:match=replica0"),
+        max_restarts=1, restart_backoff_s=0.01)
+    loop_router = ProcRouter(loop_sup, max_retries=3, retry_backoff_s=0.01,
+                             breaker_reset_s=0.05)
+    reset_counts()
+    loop_handles = loop_router.generate_batch(
+        [Request(prompt=p, max_new_tokens=new) for p in prompts])
+    launches = read_counts()
+    loop_exits = loop_sup.shutdown_all()
+    rec = {"phase": "procfleet_parity", "model": "gpt2 124M", "dtype": "float32",
+           "workers": 2, "slots": 2, "requests": len(prompts),
+           "prompt_lengths": [len(p) for p in prompts], "new_tokens": new,
+           "spawns": spawns, "first_two_spawns_s": first_spawns_s,
+           "killed": victim, "exit_code": code, "crash_report": crash,
+           "tokens_exact": sum(exact), "attempts": [h.attempts for h in handles],
+           "memory": memory, "cold_recovery": cold, "kill_leg_s": kill_leg_s,
+           "summary": summary, "router_faults": faults,
+           "migrate_fp32": {k: v for k, v in fp32.items() if k != "tokens"},
+           "migrate_fp32_solo_equal": sum(
+               t == solo_greedy(params32, cfg, p, new)[0] for t, p in zip(fp32["tokens"], fresh)),
+           "migrate_int8": {k: v for k, v in int8.items() if k != "tokens"},
+           "stream": {"tokens_equal": stream_toks == stream_h.tokens,
+                      "end": stream_ends, "replica": stream_rep},
+           "exits": exits, "exits_int8": exits8, "int8_spawns": spawns8,
+           "loopback_tokens_exact": sum(h.tokens == want for h, want in zip(loop_handles, solo)),
+           "loopback_exits": loop_exits, "launches": launches,
+           "launches_subprocess_legs": "not counted (the workers' own counters)",
+           "card": card}
+    emit(rec)
+    check(all(h.finish_reason == "length" for h in handles) and all(exact),
+          f"procfleet_parity: {sum(exact)}/{len(handles)} streams equal solo decode")
+    check(all(streamed.get(h.request_id) == h.tokens for h in handles),
+          "procfleet_parity: a caller stream differs from its handle (a duplicate or lost token)")
+    check(code == -9 and crash["exit_code"] == -9 and len(crash["spill_dumps"]) >= 1,
+          f"procfleet_parity: reaped {crash}")
+    check(memory["returned"] >= memory["worker_footprint_at_spawn"] - PROC_MEM_MARGIN,
+          f"procfleet_parity: the card did not get the killed worker's memory back: {memory}")
+    check(supervisor.replica_by_name(victim).backend.pid != pids[victim]
+          and cold is not None and cold["path"] == "cold",
+          f"procfleet_parity: the victim was not respawned cold: {cold}")
+    check(summary["retries_by_reason"]["crash"] >= 1 and summary["duplicates_suppressed"] >= 1,
+          f"procfleet_parity: retries {summary['retries_by_reason']}, duplicates "
+          f"{summary['duplicates_suppressed']}")
+    check(faults == {"crash": 1, "step_failure": 0},
+          f"procfleet_parity: router faults {faults} beyond the one kill")
+    check_migrate_leg("procfleet_parity fp32", fp32, new)
+    check(fp32["leaves"] == ["float32"], f"procfleet_parity: fp32 leaves {fp32['leaves']}")
+    check_migrate_leg("procfleet_parity int8", int8, new)
+    check(int8["leaves"] == ["float32", "int8"], f"procfleet_parity: int8 leaves {int8['leaves']}")
+    check(stream_toks == stream_h.tokens and len(stream_ends) == 1
+          and stream_ends[0]["finish_reason"] == "length",
+          f"procfleet_parity: /rpc/stream gave {stream_toks} {stream_ends} vs {stream_h.tokens}")
+    check(all(c in (75, -9) for c in (*exits.values(), *exits8.values())),
+          f"procfleet_parity: worker exits {exits} {exits8}")
+    check(rec["loopback_tokens_exact"] == len(prompts),
+          "procfleet_parity: the loopback fleet's streams differ from solo decode")
+    check(not any(launches.values()), f"procfleet_parity launched kernels: {launches}")
+    del loop_router, loop_sup
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, rec, upcoming
+
+
+def procfleet_workers(tmp):
+    """procfleet's fleet: 2 worker processes x 4 slots at GPT-2 124M width,
+    bf16, each built like serve's server (chunked prefill 256, a 256 MiB
+    prefix cache, warmup), traced into a list: (supervisor, router,
+    streamed, spawns, trace list)."""
+    from mingpt_distributed_tpu_torch.telemetry import TraceRecorder
+
+    sink = TraceList()
+    spec = worker_spec(gpt2_config("flash", "bfloat16"), n_slots=4, prefill_chunk=256,
+                       prefix_cache_mb=256, warmup=True)
+    return (*proc_fleet(spec, os.path.join(tmp, "procfleet-bf16"),
+                        trace_recorder=TraceRecorder(sink=sink)), sink)
+
+
+def phase_procfleet(params32, card, serve_rec, fleet_rec, workers):
+    """serve's traffic (32 requests, bf16, 64 new tokens, one in four
+    sampled) through ``procfleet_workers`` (2 x 4 slots on the wall clock;
+    built while procfleet_parity's later legs ran, idle since): tokens/s
+    beside serve's and the thread fleet's, TTFT and ITL
+    p50/p99, wall ms per router round and the step RPC's ms and bytes per
+    round; the greedy rows under the teacher-forced tie rule, with the tie
+    margin the thread fleet measured on its recorded logits (a worker's
+    logits stay in its process). Then a bf16 migration on the same workers
+    (``migrate_leg``)."""
+    from mingpt_distributed_tpu_torch.serving.procfleet import transport as tr
+
+    cfg = gpt2_config("flash", "bfloat16")
+    reqs, lengths, sampled = serve_traffic(32, cfg.vocab_size)
+    supervisor, router, streamed, spawns, sink = workers
+    token_times = {}
+    router.on_token = lambda fh, t: (streamed.setdefault(fh.request_id, []).append(t),
+                                     token_times.setdefault(fh.request_id, []).append(
+                                         time.perf_counter()))
+    rpcs = []
+    real_rt = tr.SocketTransport._roundtrip
+
+    def roundtrip(self, method, path, body, timeout_s=None):
+        t0 = time.perf_counter()
+        status, payload = real_rt(self, method, path, body, timeout_s)
+        rpcs.append((path, (time.perf_counter() - t0) * 1e3, len(body) + len(payload)))
+        return status, payload
+
+    round_ms = []
+    real_step = router.step
+
+    def step():
+        t0 = time.perf_counter()
+        out = real_step()
+        round_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    tr.SocketTransport._roundtrip = roundtrip
+    router.step = step
+    try:
+        with router_faults() as faults:
+            handles, dt = timed(lambda: router.generate_batch(reqs))
+    finally:
+        tr.SocketTransport._roundtrip = real_rt
+        del router.step
+    steps = [(ms, n) for path, ms, n in rpcs if path == "/rpc/step"]
+    generated = sum(len(h.tokens) for h in handles)
+    itl = [b - a for ts in token_times.values() for a, b in zip(ts, ts[1:])]
+    greedy = [(h, r) for h, r, s in zip(handles, reqs, sampled) if not s]
+    res = forced_tie_rule(params32, cfg, [(h.request_id, list(r.prompt), h.tokens)
+                                          for h, r in greedy], None,
+                          e=fleet_rec["max_logit_err"])
+    summary = router.summary()
+    bf16 = migrate_leg(supervisor, router, streamed, migrate_prompts(router, 4),
+                       SERVE_NEW, sink.records)
+    exits = supervisor.shutdown_all()
+    tps = generated / dt
+    rec = {"phase": "procfleet", "model": "gpt2 124M", "dtype": "bfloat16",
+           "workers": 2, "slots_per_worker": 4, "requests": len(reqs),
+           "sampled_top_k50": sum(sampled), "prompt_tokens": int(sum(lengths)),
+           "new_tokens": SERVE_NEW, "generated_tokens": generated, "seconds": dt,
+           "tokens_per_s": tps, "serve_tokens_per_s": serve_rec["tokens_per_s"],
+           "fleet_tokens_per_s": fleet_rec["tokens_per_s"],
+           "ratio_to_serve": tps / serve_rec["tokens_per_s"],
+           "ratio_to_fleet": tps / fleet_rec["tokens_per_s"],
+           "ttft_s": _percentiles([h.first_token_at - h.submit_time for h in handles]),
+           "itl_s": _percentiles(itl), "router_rounds": len(round_ms),
+           "router_round_wall_ms": _percentiles(round_ms),
+           "step_rpcs": len(steps), "step_rpcs_per_round": len(steps) / max(1, len(round_ms)),
+           "step_rpc_ms": _percentiles([ms for ms, _ in steps]),
+           "step_rpc_bytes": _percentiles([n for _, n in steps]),
+           "step_rpc_bytes_per_round": sum(n for _, n in steps) / max(1, len(round_ms)),
+           "rpc_paths": sorted({p for p, _, _ in rpcs}), "spawns": spawns,
+           "greedy_requests": len(greedy), **res,
+           "tie_margin_from": "the thread fleet's recorded logits (phase fleet)",
+           "divergence_count": len(res["divergences"]), "summary": summary,
+           "router_faults": faults,
+           "migrate_bf16": {k: v for k, v in bf16.items() if k != "tokens"},
+           "exits": exits, "launches": "not counted (the workers' own counters)",
+           "card": card}
+    emit(rec)
+    check(all(h.finish_reason == "length" and len(h.tokens) == SERVE_NEW
+              and h.attempts == 1 for h in handles),
+          f"procfleet: a request did not end with {SERVE_NEW} tokens on its first attempt")
+    check(all(streamed.get(h.request_id) == h.tokens for h in handles),
+          "procfleet: a caller stream differs from its handle")
+    check(all(0 <= t < cfg.vocab_size for h in handles for t in h.tokens),
+          "procfleet: token ids out of range")
+    check_tie_rule("procfleet", res, len(greedy) * SERVE_NEW)
+    check(faults == {"crash": 0, "step_failure": 0},
+          f"procfleet: the router handled faults with no injector: {faults}")
+    check_migrate_leg("procfleet bf16", bf16, SERVE_NEW)
+    check(bf16["leaves"] == ["bfloat16"], f"procfleet: bf16 leaves {bf16['leaves']}")
+    check(all(c == 75 for c in exits.values()), f"procfleet: worker exits {exits}")
+    return rec
+
+
+def phase_standby(params32, card, cold, tmp, overlap=None):
+    """selftest-standby's phases on the card. A, at GPT-2 124M width, fp32:
+    procfleet_parity's fleet and requests with one warm spare, the same kill
+    -9 of a mid-decode worker; its recovery (crash to the replacement
+    serving) beside procfleet_parity's cold respawn (``cold``), strictly
+    faster, the spare adopted by name and the pool backfilled, every stream
+    token-identical to solo decoding. B and C at GPT-2 width with the depth
+    cut to 2 layers, fp32, one fleet with one spare and self-speculation
+    (k = 3): B, replica0's worker wedges in its third step RPC (the
+    stuck_step process fault, worker-side) and refuses SIGTERM: the ladder
+    sends SIGTERM at HANG_DEADLINE_S without progress and SIGKILL
+    HANG_GRACE_S later, the crash path adopts the spare, streams exact; C,
+    on the same workers, a migration ships draft-pool rows and the peer
+    primes the migrated request from them, streams exact. B and C's
+    workers, and ``overlap`` when given, start on threads with the phase:
+    returns (record, ``overlap``'s Background or None)."""
+    from mingpt_distributed_tpu_torch.models import gpt
+    from mingpt_distributed_tpu_torch.serve import mid_decode_replica, step_until
+    from mingpt_distributed_tpu_torch.serving import Request
+    from mingpt_distributed_tpu_torch.telemetry import parse_prometheus
+
+    cfg, new = gpt2_config("flash", "float32"), PARITY_NEW
+    # B and C's workers (and ``overlap``) start with the phase, on threads:
+    # A's checks hold no memory reading, and its recovery is an adoption
+    cfg2 = dataclasses.replace(cfg, n_layer=2)
+    spec = dict(worker_spec(cfg2, n_slots=2, prefix_cache_mb=256, warmup=True),
+                draft="self", spec_k=3, process_faults="stuck_step:nth=3:match=replica0")
+    bc_fleet = Background(lambda: proc_fleet(
+        spec, os.path.join(tmp, "standby-bc"), rpc_timeout_s=HANG_RPC_S, standby=1,
+        hang_deadline_s=HANG_DEADLINE_S, hang_kill_grace_s=HANG_GRACE_S))
+    pending = Background(overlap) if overlap is not None else None
+    supervisor, router, streamed, spawns = proc_fleet(
+        worker_spec(cfg, n_slots=2, prefix_cache_mb=256),
+        os.path.join(tmp, "standby-a"), standby=1)
+    prompts = fleet_prompts(router, 3)
+    solo = [solo_greedy(params32, cfg, p, new)[0] for p in prompts]
+    handles = [router.submit(Request(prompt=p, max_new_tokens=new)) for p in prompts]
+    victim, code, _ = kill_mid_decode(supervisor, router, spawns, await_memory=False)
+    drain_and_respawn(supervisor, router, victim)
+    stby = supervisor.recovery_info(victim)
+    exact_a = [h.tokens == want and streamed.get(h.request_id) == h.tokens
+               for h, want in zip(handles, solo)]
+    pool_a = supervisor.standby_pool.available()
+    exits_a = supervisor.shutdown_all()
+
+    params2 = gpt.init(cfg2, torch.Generator().manual_seed(0), device="cuda")
+    supervisor, router, streamed, spawns_bc = bc_fleet.result()
+    spec.pop("process_faults")  # respawns and backfills come up clean
+    first_pid = supervisor.replica_by_name("replica0").backend.pid
+    solo2 = [solo_greedy(params2, cfg2, p, new)[0] for p in prompts]
+    t0 = time.perf_counter()
+    handles = [router.submit(Request(prompt=p, max_new_tokens=new)) for p in prompts]
+    drain_and_respawn(supervisor, router, "replica0")
+    hang_s = time.perf_counter() - t0
+    esc = {labels.get("signal"): v for n, labels, v in
+           parse_prometheus(router.fleet_metrics_page())["samples"]
+           if n == "mingpt_fleet_hang_escalations_total"}
+    crash = next((c for c in supervisor.crash_reports if c["replica"] == "replica0"), None)
+    rec_b = supervisor.recovery_info("replica0")
+    rep0 = supervisor.replica_by_name("replica0")
+    replaced = rep0.state == "ready" and rep0.backend.pid != first_pid
+    exact_b = [h.tokens == want and streamed.get(h.request_id) == h.tokens
+               for h, want in zip(handles, solo2)]
+    # C: draft rows ride the migration, on the same workers
+    handles_c = [router.submit(Request(prompt=p, max_new_tokens=new)) for p in prompts]
+    src = step_until(router, lambda: mid_decode_replica(supervisor, router))
+    check(src is not None, "standby C: never mid-decode")
+    report = router.migrate_and_drain(src.name)
+    router.run_until_drained(max_steps=500000)
+    dst = supervisor.replica_by_name(report["to"])
+    primes = {labels.get("mode"): v for n, labels, v in
+              parse_prometheus(dst.backend.transport.fetch_text("/metrics"))["samples"]
+              if n == "mingpt_serve_spec_prime_total"}
+    exact_c = [h.tokens == want and streamed.get(h.request_id) == h.tokens
+               for h, want in zip(handles_c, solo2)]
+    exits_bc = supervisor.shutdown_all()
+    rec = {"phase": "standby", "card": card,
+           "A": {"model": "gpt2 124M", "dtype": "float32", "workers": 2, "standby": 1,
+                 "killed": victim, "exit_code": code,
+                 "recovery_s": {"cold": cold["recovery_s"], "standby": stby["recovery_s"]},
+                 "cold_from": "procfleet_parity's kill (same fleet, requests and fault)",
+                 "adopted": stby.get("adopted"), "path": stby["path"],
+                 "pool_after": pool_a, "streams_exact": sum(exact_a), "spawns": spawns,
+                 "exits": exits_a},
+           "B": {"model": "gpt2 width, 2 layers", "dtype": "float32",
+                 "reduced": "n_layer 12 -> 2", "escalations": esc,
+                 "exit_code": None if crash is None else crash["exit_code"],
+                 "recovery": rec_b, "seconds": hang_s, "streams_exact": sum(exact_b),
+                 "replaced_by_a_new_process": replaced},
+           "C": {"migration": report, "spec_prime": primes, "streams_exact": sum(exact_c)},
+           "spawns_bc": spawns_bc, "exits_bc": exits_bc,
+           "launches": "not counted (the workers' own counters)"}
+    emit(rec)
+    check(all(exact_a), f"standby A: {sum(exact_a)}/{len(exact_a)} streams exact")
+    check(code == -9 and stby["path"] == "standby"
+          and str(stby.get("adopted")).startswith("standby"),
+          f"standby A: recovery {stby}")
+    check(stby["recovery_s"] < cold["recovery_s"],
+          f"standby A: standby recovery {stby['recovery_s']} s not below cold "
+          f"{cold['recovery_s']} s")
+    check(pool_a == 1, f"standby A: the pool holds {pool_a} after the backfill")
+    check(all(exact_b), f"standby B: {sum(exact_b)}/{len(exact_b)} streams exact")
+    check(esc.get("term", 0) >= 1 and esc.get("kill", 0) >= 1,
+          f"standby B: escalations {esc}")
+    check(crash is not None and crash["exit_code"] == -9,
+          f"standby B: the wedged worker's exit {crash}")
+    check(replaced and rec_b is not None and rec_b["path"] == "standby",
+          f"standby B: replica0's replacement {rec_b}")
+    check(report["outcome"] == "ok" and report["draft_rows_installed"] >= 1
+          and report["src_exit_code"] == 75, f"standby C: migration {report}")
+    check(primes.get("adopted", 0) >= 1, f"standby C: primes {primes}")
+    check(all(exact_c), f"standby C: {sum(exact_c)}/{len(exact_c)} streams exact")
+    return rec, pending
+
+
+CROSSHOST_RATE, CROSSHOST_LINK_DELAY = 1e7, 0.02  # bytes/s; s per chunk
+
+
+class Background:
+    """``fn()`` on a thread; ``result()`` joins it and re-raises its
+    error. The smoke builds the next phase's workers while a phase whose
+    checks hold no time runs; every one is in ``BACKGROUND``, which main
+    joins before it stops the workers, so a failure leaves none spawning."""
+
+    def __init__(self, fn):
+        import threading
+
+        self._out = {}
+        self._thread = threading.Thread(target=self._run, args=(fn,), daemon=True)
+        BACKGROUND.append(self)
+        self._thread.start()
+
+    def _run(self, fn):
+        try:
+            self._out["value"] = fn()
+        except BaseException as e:  # handed to result()
+            self._out["error"] = e
+
+    def result(self):
+        self._thread.join()
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["value"]
+
+
+def crosshost_mesh(tmp):
+    """crosshost's mesh: 2 localhost host agents x 2 worker processes at
+    GPT-2 width, depth cut to 2 layers, fp32, signed control envelopes,
+    quorum 1, pacing at CROSSHOST_RATE with real sleeps, slow_link on
+    host0->host1. Built on a thread while standby runs (the spawns are most
+    of its time)."""
+    from mingpt_distributed_tpu_torch.models import gpt
+    from mingpt_distributed_tpu_torch.serve import ProcDrill, build_crosshost_mesh
+
+    cfg = dataclasses.replace(gpt2_config("flash", "float32"), n_layer=2)
+    params = gpt.init(cfg, torch.Generator().manual_seed(0), device="cuda")
+    drill = ProcDrill("crosshost", torch.device("cuda"), cfg, params,
+                      fleet_prompts_n(6), PARITY_NEW, tmp)
+    spawns = []
+    t0 = time.perf_counter()
+    frontend, agents, streamed = build_crosshost_mesh(
+        drill, "mesh", 2, "crosshost-drill-secret",
+        net_faults=f"slow_link:every=1:match=host0->host1:delay={CROSSHOST_LINK_DELAY}",
+        paced_bytes_per_s=CROSSHOST_RATE,
+        spec=worker_spec(cfg, n_slots=2, prefix_cache_mb=256, warmup=True),
+        wrap=timed_spawns(spawns))
+    return {"drill": drill, "frontend": frontend, "agents": agents, "streamed": streamed,
+            "spawns": spawns, "seconds": time.perf_counter() - t0}
+
+
+def phase_crosshost(card, mesh):
+    """selftest-crosshost's legs on the card over ``crosshost_mesh``'s
+    hosts, one mesh for the three legs (the paced migration first, while
+    both hosts serve): B, a mid-decode replica of host0 migrated to host1
+    through the PacedChannel under slow_link, the wall time at least the
+    budget (bytes / CROSSHOST_RATE + CROSSHOST_LINK_DELAY per chunk); A,
+    host0 dies whole (every worker SIGKILLed) while a request decodes
+    there, every stream token-exact on host1; C, a tampered heartbeat
+    rejected as BadSignature and counted as bad_mac. Then one rung of the
+    traffic lab on the loopback host mesh in this process (2 hosts, a
+    partition of host0), its report strictly valid, no kernel launched."""
+    from mingpt_distributed_tpu_torch import traffic as traffic_cli
+    from mingpt_distributed_tpu_torch.serve import crosshost_kill_leg, mid_decode_on, step_until
+    from mingpt_distributed_tpu_torch.serving import Request
+    from mingpt_distributed_tpu_torch.serving.procfleet import envelope
+    from mingpt_distributed_tpu_torch.telemetry import parse_prometheus
+    from mingpt_distributed_tpu_torch.trafficlab import SweepSpec, run_sweep, validate_traffic_report
+
+    drill, frontend, agents, streamed = (mesh[k] for k in ("drill", "frontend", "agents",
+                                                           "streamed"))
+    cfg, params, prompts, new = drill.cfg, drill.params, drill.prompts, drill.max_new
+    bytes_per_s, link_delay = CROSSHOST_RATE, CROSSHOST_LINK_DELAY
+    try:
+        handles = [frontend.submit(Request(prompt=p, max_new_tokens=new)) for p in prompts]
+        check(step_until(frontend, lambda: mid_decode_on(frontend, "host0"),
+                         max_steps=200000) is not None, "crosshost: nothing mid-decode on host0")
+        t0 = time.perf_counter()
+        report = frontend.migrate_crosshost("host0", "host1")
+        wall = time.perf_counter() - t0
+        frontend.run_until_drained(max_steps=500000)
+        paced_ok = drill.parity("paced", handles, streamed)
+        budget = report["bytes"] / bytes_per_s + link_delay * report["chunks"]
+        handles_a = [frontend.submit(Request(prompt=p, max_new_tokens=new)) for p in prompts]
+        victim = step_until(frontend, lambda: mid_decode_on(frontend, "host0"),
+                            max_steps=200000)
+        check(victim is not None, "crosshost: nothing mid-decode on host0 for the kill")
+        t0 = time.perf_counter()
+        kill_rc = crosshost_kill_leg(drill, frontend, agents, streamed, handles_a, victim)
+        kill_s = time.perf_counter() - t0
+        doc = envelope("heartbeat", host="host0", epoch=0, seq=10_000)
+        agents["host0"].auth.sign(doc)
+        doc["seq"] = 10_001  # tampered after signing
+        resp = json.loads(agents["host1"].handle_host(
+            "/host/heartbeat", json.dumps(doc, sort_keys=True).encode()))
+        bad_mac = sum(v for n, labels, v in parse_prometheus(
+            agents["host1"].router.fleet_metrics_page())["samples"]
+            if n == "mingpt_fleet_auth_rejects_total" and labels.get("reason") == "bad_mac")
+    finally:
+        for host in sorted(agents):
+            agents[host].router.supervisor.shutdown_all()
+    # one rung of the traffic lab on the loopback host mesh, in this process
+    chaos = ";".join(f"partition:nth=1:match={a}->{b}:delay=0.1"
+                     for a, b in (("host0", "host1"), ("host1", "host0")))
+    sweep = SweepSpec(arrival="poisson:rate=200.0", ladder=(1.0,), policies=("fifo", "edf"),
+                      n_requests=10, seed=3, n_replicas=1, n_slots=2, n_hosts=2,
+                      heartbeat_interval_s=0.005, slo="ttft_p95<=60,error_rate<=0.5",
+                      recovery_slo_s=30.0, net_chaos_spec=chaos, prefix_cache_mb=64)
+    reset_counts()
+    lab, lab_s = timed(lambda: run_sweep(params, cfg, sweep,
+                                         mix=traffic_cli.selftest_mix(cfg.vocab_size),
+                                         server_kwargs=dict(device="cuda")))
+    launches = read_counts()
+    problems = validate_traffic_report(json.loads(json.dumps(lab)), strict=False)
+    cells = lab["rungs"][0]["policies"]
+    rec = {"phase": "crosshost", "model": "gpt2 width, 2 layers", "dtype": "float32",
+           "reduced": "n_layer 12 -> 2", "hosts": 2, "workers_per_host": 2,
+           "mesh_spawn_s": mesh["seconds"], "mesh_built_during": "standby",
+           "spawns": mesh["spawns"],
+           "B_paced": {"report": report, "budget_s": budget, "wall_s": wall,
+                       "streams_exact": paced_ok},
+           "A_host_death": {"rc": kill_rc, "recovery_s": victim.recovery_s,
+                            "hosts": victim.hosts, "seconds": kill_s},
+           "C_auth": {"reject": resp.get("error"), "bad_mac": bad_mac},
+           "traffic_rung": {"cells": {p: {k: c[k] for k in ("completed", "shed", "expired",
+                                                           "errors", "recovered", "tokens")}
+                                      for p, c in cells.items()},
+                            "problems": problems, "seconds": lab_s},
+           "launches": launches, "launches_subprocess_legs": "not counted", "card": card}
+    emit(rec)
+    check(report["outcome"] == "ok" and report["src_exit_code"] == 75 and paced_ok,
+          f"crosshost B: {report}")
+    check(report["transfer_s"] >= 0.95 * budget and wall >= 0.95 * budget,
+          f"crosshost B: transfer {report['transfer_s']} s, wall {wall} s, budget {budget} s")
+    check(kill_rc == 0, "crosshost A: the host-death leg failed (lines above)")
+    check(resp.get("kind") == "error" and resp.get("error") == "BadSignature" and bad_mac >= 1,
+          f"crosshost C: {resp}, bad_mac {bad_mac}")
+    check(problems == [] and all(c["completed"] + c["shed"] + c["expired"] + c["errors"] == 10
+                                 for c in cells.values()),
+          f"crosshost traffic rung: {problems}")
+    check(not any(launches.values()), f"crosshost launched kernels: {launches}")
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
+def fleet_prompts_n(n, lo=5, hi=300, vocab=50257):
+    """``n`` seeded prompts of lo..hi tokens (fleet_prompts' draw, without
+    the affinity sort)."""
+    rng = np.random.default_rng(SERVE_SEED + 4)
+    return [rng.integers(0, vocab, int(rng.integers(lo, hi + 1))).tolist() for _ in range(n)]
+
+
 SERVE_CLI_PROMPTS = ("the king ", "and so the ", "what is ", "o my lord. ")
 
 
@@ -2490,18 +3230,23 @@ def run_serve(argv):
 
 def served_texts(out):
     """The prompt + completion texts of ``serve.py --prompts-file``'s
-    stdout: each follows its ``=== req-N (reason) ===`` header and may hold
-    newlines; the summary's JSON line ends the output."""
-    blocks = re.split(r"^=== req-\d+ \(\w+\) ===\n", out, flags=re.M)[1:]
+    stdout: each follows its ``=== req-N (reason) ===`` header (``fleet-N``
+    through a fleet) and may hold newlines; the summary's JSON line ends the
+    output."""
+    blocks = re.split(r"^=== (?:req|fleet)-\d+ \(\w+\) ===\n", out, flags=re.M)[1:]
     if blocks:
         blocks[-1] = blocks[-1].rsplit("\n{", 1)[0] + "\n"
     return [b[:-1] for b in blocks]
 
 
-def phase_serve_cli(card, train_argv, tmp):
+def phase_serve_cli(card, train_argv, tmp, new_seconds):
     """python -m mingpt_distributed_tpu_torch.serve, driven through main():
     --selftest on the card, then --prompts-file over the snapshot the train
-    entry point wrote (GPT-2 width, char vocabulary)."""
+    entry point wrote (GPT-2 width, char vocabulary); then the same prompts
+    through --replicas 2 with --isolation thread and --isolation process
+    (two worker processes, each restoring the snapshot itself): the
+    completions byte-equal, the workers' exits 75 (its seconds in
+    ``new_seconds``)."""
     rc, out = run_serve(["--selftest", "--log-every", "0"])
     check(rc == 0 and "selftest PASSED" in out, f"serve --selftest exited {rc}")
     path = os.path.join(tmp, "prompts.txt")
@@ -2519,6 +3264,21 @@ def phase_serve_cli(card, train_argv, tmp):
         t.startswith(p) for p, t in zip(SERVE_CLI_PROMPTS, texts))
         and all(len(c) > 0 for c in completions),
         f"serve --prompts-file: completions {completions}")
+    t0 = time.perf_counter()
+    fleet_argv = ["--prompts-file", path, "--greedy", "--max-new-tokens", "32",
+                  "--slots", "2", "--log-every", "0", "--replicas", "2"]
+    rc_t, out_t = run_serve(fleet_argv + ["--isolation", "thread", *train_argv])
+    rc_p, out_p = run_serve(fleet_argv + ["--isolation", "process", "--spill-dir",
+                                          os.path.join(tmp, "serve-procfleet"), *train_argv])
+    thread_texts, process_texts = served_texts(out_t), served_texts(out_p)
+    new_seconds["serve_cli_process"] = time.perf_counter() - t0
+    emit({"phase": "serve_cli_process", "thread_rc": rc_t, "process_rc": rc_p,
+          "completions_equal": process_texts == thread_texts,
+          "completions": [t[len(p):] for p, t in zip(SERVE_CLI_PROMPTS, process_texts)],
+          "seconds": new_seconds["serve_cli_process"], "card": card})
+    check(rc_t == 0 and rc_p == 0, f"serve --replicas 2 exited {rc_t} (thread), {rc_p} (process)")
+    check(len(process_texts) == 4 and process_texts == thread_texts,
+          f"serve --isolation process: {process_texts} != --isolation thread's {thread_texts}")
 
 
 def phase_grads(params32, card):
@@ -3738,7 +4498,26 @@ def preserved_counts():
             setattr(*_counter(name), saved[name])
 
 
+#: every worker process the process-fleet phases spawned (``timed_spawns``),
+#: SIGKILLed on the way out if a failed check left one running, once the
+#: threads still spawning (``BACKGROUND``) are done
+WORKERS = []
+BACKGROUND = []
+
+
 def main() -> int:
+    try:
+        return _main()
+    finally:
+        for pending in BACKGROUND:
+            pending._thread.join()
+        for backend in WORKERS:
+            if backend.alive():
+                backend.sigkill()
+                backend.wait(timeout_s=30.0)
+
+
+def _main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this check "
               "needs one NVIDIA GPU", file=sys.stderr)
@@ -3801,12 +4580,30 @@ def main() -> int:
     serve_telemetry = phase_serve_telemetry(model32.params, card, tmp)
     seconds["serve_telemetry"] = time.perf_counter() - t0
     fleet_launches, new_seconds = {}, {}
-    for name, run in (("fleet_parity", lambda: phase_fleet_parity(model32.params, card)),
-                      ("fleet", lambda: phase_fleet(model32.params, card, serve)),
-                      ("traffic", lambda: phase_traffic(model32.params, card))):
-        t0 = time.perf_counter()
-        fleet_launches[name] = run()
-        new_seconds[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fleet_launches["fleet_parity"] = phase_fleet_parity(model32.params, card)
+    seconds["fleet_parity"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fleet_launches["fleet"], fleet_rec = phase_fleet(model32.params, card, serve)
+    seconds["fleet"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fleet_launches["traffic"] = phase_traffic(model32.params, card)
+    seconds["traffic"] = time.perf_counter() - t0
+    # the process fleet: worker subprocesses, each its own CUDA context
+    t0 = time.perf_counter()
+    fleet_launches["procfleet_parity_loopback"], proc_parity, workers = phase_procfleet_parity(
+        model32.params, card, tmp, then=lambda: procfleet_workers(tmp))
+    new_seconds["procfleet_parity"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_procfleet(model32.params, card, serve, fleet_rec, workers.result())
+    new_seconds["procfleet"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, mesh = phase_standby(model32.params, card, proc_parity["cold_recovery"], tmp,
+                            overlap=lambda: crosshost_mesh(tmp))
+    new_seconds["standby"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fleet_launches["crosshost_traffic_rung"], _ = phase_crosshost(card, mesh.result())
+    new_seconds["crosshost"] = time.perf_counter() - t0
     del model32
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3826,7 +4623,7 @@ def main() -> int:
         train_argv = phase_train_entry(card, tmp)
         seconds["train_cli"] = time.perf_counter() - t0
         phase_train_telemetry(card, train_argv, tmp)
-        phase_serve_cli(card, train_argv, tmp)
+        phase_serve_cli(card, train_argv, tmp, new_seconds)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     sp_counts = phase_sp(card)
@@ -3895,7 +4692,11 @@ def main() -> int:
           **{f"serve_spec_{d}": r["launches"] for d, r in serve_spec.items()},
           "serve_telemetry": serve_telemetry, "serve_moe_parity": serve_moe_parity,
           "serve_moe": serve_moe["launches"], "moe_train_step": moe_split["launches"],
-          "moe_train_step_fused": moe_fused["launches"], **fleet_launches})
+          "moe_train_step_fused": moe_fused["launches"], **fleet_launches,
+          "procfleet_subprocess_legs": "not counted: each worker process counts its own "
+                                       "launches; the same ReplicaWorker code through a "
+                                       "LoopbackBackend in this process is "
+                                       "procfleet_parity_loopback"})
     emit({"phase": "phase_seconds", **seconds})
     emit({"phase": "new_phase_seconds", **new_seconds,
           "total": sum(new_seconds.values()),

@@ -34,17 +34,31 @@ Modes:
                       faults: greedy parity with solo generate(), no
                       duplicate streamed token, the fleet's counters on a
                       strict-parsed /metrics scrape: --selftest-chaos
+  process self-tests  real worker subprocesses behind mingpt-rpc/1:
+                      kill -9 mid-decode, drain with live KV migration and
+                      the chunked stream (--selftest-procfleet); cold
+                      against warm-standby recovery, the SIGTERM->SIGKILL
+                      hang ladder and draft rows riding a migration
+                      (--selftest-standby); two host agents, a whole host
+                      SIGKILLed, a paced migration under slow_link and a
+                      tampered frame (--selftest-crosshost)
 
-Fleet: ``--replicas N`` serves through N supervised in-process replicas on
-one device (``--isolation thread``; ``process`` is ROADMAP.md Queue 1 item
-15b) behind the health/affinity router (``serving/fleet.py``): a crashed
-replica restarts with a backoff and its requests retry idempotently on
-survivors; ``--shed-watermark D`` sheds new requests once the fleet-wide
-queue depth reaches D; ``--chaos-spec`` (or ``MINGPT_SERVING_FAULTS``)
-injects deterministic serving faults (crash, poison, slow, admit). With
+Fleet: ``--replicas N`` serves through N supervised replicas behind the
+health/affinity router (``serving/fleet.py``): a crashed replica restarts
+with a backoff and its requests retry idempotently on survivors;
+``--shed-watermark D`` sheds new requests once the fleet-wide queue depth
+reaches D; ``--chaos-spec`` (or ``MINGPT_SERVING_FAULTS``) injects
+deterministic serving faults (crash, poison, slow, admit). With
+``--isolation thread`` (the default) the replicas are in-process servers on
+one device sharing one parameter tree; with ``--isolation process`` each is
+a worker subprocess (``serving/procfleet``) that derives the same weights
+from the snapshot (or ``--params``), SIGKILL-able and drained with exit 75,
+with ``--standby N`` warm spares, ``--hang-deadline S`` for the liveness
+ladder, ``--spill-dir`` for each worker's spec, stderr and flight dumps,
+and process faults from ``MINGPT_PROCESS_FAULTS``. With
 ``--metrics-port``, /healthz carries each replica's breaker and health
 reasons and /metrics the merged page (each replica's families under a
-``replica`` label).
+``replica`` label; a process fleet's pages fetched over RPC).
 
 Speculative decoding: ``--draft-config self|self:N|k=v,...`` with
 ``--spec-k K``; the KV pool's storage: ``--kv-dtype fp32|int8|fp8``;
@@ -64,6 +78,10 @@ Usage:
   python -m mingpt_distributed_tpu_torch.serve --selftest-quant [--device cpu]
   python -m mingpt_distributed_tpu_torch.serve --selftest-attrib [--device cpu]
   python -m mingpt_distributed_tpu_torch.serve --selftest-chaos [--device cpu]
+  python -m mingpt_distributed_tpu_torch.serve --selftest-procfleet [--device cpu]
+  python -m mingpt_distributed_tpu_torch.serve --selftest-standby [--device cpu]
+  python -m mingpt_distributed_tpu_torch.serve --selftest-crosshost [--device cpu] \\
+      [--hosts N] [--fleet-secret S]
   python -m mingpt_distributed_tpu_torch.serve --replicas 2 --prompts-file p.txt \\
       [--chaos-spec 'crash:nth=6:match=replica0'] [--shed-watermark 16] ...
   python -m mingpt_distributed_tpu_torch.serve --prompts-file prompts.txt \\
@@ -83,8 +101,7 @@ SIGTERM (or one SIGINT) stops admission, drains in-flight requests, flushes
 the metrics and exits 75 so a scheduler requeues the job; a second SIGINT
 aborts. The JAX serve.py's other flags are parsed and refused (exit 2),
 naming the ROADMAP.md Queue 1 item that brings them (``UNPORTED_FLAGS``:
-tensor parallelism, item 9; the process and cross-host fleet, 15b; the
-autoscaler, 15c).
+tensor parallelism, item 9; the autoscaler, 15c).
 """
 
 from __future__ import annotations
@@ -92,6 +109,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import signal
 import sys
 from typing import List
@@ -113,12 +131,9 @@ from mingpt_distributed_tpu_torch.utils.device import resolve_device
 
 # the JAX serve.py's flags that the port does not run yet, each with the
 # ROADMAP.md Queue 1 item that brings it: tensor parallelism (9), the
-# process and cross-host fleet (15b), the autoscaler (15c)
+# autoscaler (15c)
 UNPORTED_FLAGS = {
     "--mesh": "9", "--selftest-sharded": "9",
-    "--spill-dir": "15b", "--standby": "15b", "--hang-deadline": "15b",
-    "--hosts": "15b", "--fleet-secret": "15b", "--selftest-procfleet": "15b",
-    "--selftest-standby": "15b", "--selftest-crosshost": "15b",
     "--autoscale": "15c", "--slo-target": "15c", "--control-log": "15c",
 }
 
@@ -242,8 +257,51 @@ def build_argparser() -> argparse.ArgumentParser:
                         "fleet layer)")
     p.add_argument("--isolation", choices=("thread", "process"), default="thread",
                    help="fleet replica isolation: 'thread' (in-process "
-                        "replicas, the default); 'process' is not ported yet "
-                        "(ROADMAP.md Queue 1 item 15b)")
+                        "replicas sharing one parameter tree, the default); "
+                        "'process' = each replica a spawned worker "
+                        "subprocess behind the mingpt-rpc/1 socket surface, "
+                        "SIGKILL-able and drained with exit 75")
+    p.add_argument("--spill-dir", default=None,
+                   help="process isolation: root directory of each worker's "
+                        "spill state (spec.json, stderr.log, flight dumps "
+                        "collected when the process dies); default: a temp "
+                        "directory")
+    p.add_argument("--standby", type=int, default=0, metavar="N",
+                   help="process isolation: keep N warm spare workers; a "
+                        "crashed replica adopts a spare instead of a cold "
+                        "respawn, and the pool backfills afterwards "
+                        "(default 0: cold respawns only)")
+    p.add_argument("--hang-deadline", type=float, default=None, metavar="SECONDS",
+                   help="process isolation: arm the liveness ladder: a "
+                        "replica holding work that completes no round for "
+                        "this long gets SIGTERM, then SIGKILL after a grace "
+                        "window if it ignored the term; default: no ladder")
+    p.add_argument("--hosts", type=int, default=1, metavar="N",
+                   help="roster size of the cross-host drill "
+                        "(--selftest-crosshost; at least 2)")
+    p.add_argument("--fleet-secret", default=None, metavar="SECRET",
+                   help="shared fleet secret of the cross-host drill: every "
+                        "control envelope HMAC-signed over its canonical "
+                        "bytes (default: a fixed drill secret)")
+    p.add_argument("--selftest-procfleet", action="store_true",
+                   help="2 real replica subprocesses behind mingpt-rpc/1: "
+                        "kill -9 one mid-decode (greedy parity, no duplicate "
+                        "or lost token, exit -9 reaped, spill collected), "
+                        "drain with live migration (streams bit-identical, "
+                        "exit 75, traces spanning both replicas), the "
+                        "chunked stream endpoint; then exits")
+    p.add_argument("--selftest-standby", action="store_true",
+                   help="real replica subprocesses: kill -9 under a warm "
+                        "spare recovers strictly faster than a cold respawn; "
+                        "a wedged worker is cleared by SIGTERM then SIGKILL; "
+                        "draft rows ride a migration; then exits")
+    p.add_argument("--selftest-crosshost", action="store_true",
+                   help="two (or --hosts) localhost host agents, each with "
+                        "real replica subprocesses: a whole host SIGKILLed "
+                        "mid-decode (streams exact on the peer), a paced "
+                        "migration under slow_link (wall time >= the "
+                        "bandwidth budget), a tampered frame rejected as "
+                        "BadSignature; then exits")
     p.add_argument("--shed-watermark", type=int, default=None,
                    help="fleet mode: shed new requests once the fleet-wide "
                         "queue depth reaches this watermark")
@@ -276,9 +334,6 @@ def parse_args(argv=None) -> argparse.Namespace:
         if value is None:
             continue
         p.error(f"{flag} is not ported yet (ROADMAP.md Queue 1 item {item})")
-    if args.isolation == "process":
-        p.error("--isolation process is not ported yet (ROADMAP.md Queue 1 "
-                "item 15b)")
     if args.replicas < 1:
         p.error(f"--replicas must be >= 1, got {args.replicas}")
     return args
@@ -1304,6 +1359,628 @@ def _chaos_scrape(tserver, has_flight: bool = False) -> int:
     return rc
 
 
+# -- the process fleet's self-tests (real worker subprocesses) -------------------
+
+PROCFLEET_CANNED = ["O God, O God!", "Once more unto", "All the world's",
+                    "Now is the winter", "Friends, Romans", "To be, or not"]
+PROCFLEET_CFG = dict(n_layer=2, n_head=2, n_embd=32, vocab_size=96, block_size=48,
+                     embd_pdrop=0.0, resid_pdrop=0.0, attn_pdrop=0.0, dtype="float32")
+
+
+class ProcDrill:
+    """What the process self-tests (and the card's smoke phases) share: the
+    model (its weights drawn from seed 0 on a CPU generator, as each worker
+    draws them from the spec's ``init_seed``), the prompts, solo greedy
+    decoding, the workers' spec, the spill root and the parity checks."""
+
+    def __init__(self, tag, dev, cfg, params, prompts, max_new, spill_root):
+        self.tag, self.dev, self.cfg, self.params = tag, dev, cfg, params
+        self.prompts, self.max_new, self.spill_root = prompts, max_new, spill_root
+        self._solo = {}
+
+    @classmethod
+    def tiny(cls, args, tag: str, n_prompts: int, max_new: int) -> "ProcDrill":
+        """The self-tests' tiny model and canned prompts on --device."""
+        import tempfile
+
+        import torch
+
+        dev = resolve_device(args.device)
+        cfg = GPTConfig.make(**PROCFLEET_CFG)
+        params = gpt.init(cfg, torch.Generator().manual_seed(0), device=dev)
+        prompts = [[ord(c) % cfg.vocab_size for c in s]
+                   for s in PROCFLEET_CANNED[:n_prompts]]
+        return cls(tag, dev, cfg, params, prompts, max_new,
+                   args.spill_dir or tempfile.mkdtemp(prefix=f"{tag}-"))
+
+    def spec(self, **server):
+        """A worker spec: this model on this device from seed 0, 2 slots
+        with chunks of 8 unless ``server`` says otherwise (one intra-op
+        thread on the CPU, where the workers share the cores)."""
+        from mingpt_distributed_tpu_torch.serving.procfleet import cfg_to_spec
+
+        out = {"cfg": cfg_to_spec(self.cfg), "init_seed": 0, "device": str(self.dev),
+               "server": {"n_slots": 2, "prefill_chunk": 8, **server}}
+        if self.dev.type == "cpu":
+            out["threads"] = 1
+        return out
+
+    def solo(self, p):
+        key = tuple(p)
+        if key not in self._solo:
+            self._solo[key] = gen.generate(self.params, self.cfg, [p], self.max_new,
+                                           device=self.dev)[0, len(p):].tolist()
+        return self._solo[key]
+
+    def parity(self, label, handles, streamed) -> bool:
+        """Every request finished by length with solo's tokens, streamed
+        once each."""
+        ok = True
+        for p, h in zip(self.prompts, handles):
+            want = self.solo(p)
+            if h.finish_reason != "length" or h.tokens != want:
+                print(f"{self.tag} FAIL ({label}) {h.request_id}: reason="
+                      f"{h.finish_reason} fleet={h.tokens} solo={want}")
+                ok = False
+            if streamed.get(h.request_id, []) != h.tokens:
+                print(f"{self.tag} FAIL ({label}) {h.request_id}: streamed "
+                      f"{streamed.get(h.request_id)} != handle {h.tokens} "
+                      f"(duplicate or lost emission)")
+                ok = False
+        return ok
+
+    def gate(self, label, checks) -> int:
+        rc = 0
+        for what, ok in checks:
+            if not ok:
+                print(f"{self.tag} FAIL ({label}): {what}")
+                rc = 1
+        return rc
+
+
+class _TraceList:
+    """A trace sink keeping the mingpt-trace/1 records in a list."""
+
+    def __init__(self):
+        self.records = []
+
+    def write(self, kind, rec):
+        self.records.append({"schema": telemetry.TRACE_SCHEMA, "kind": kind, **rec})
+
+    def close(self):
+        pass
+
+
+def mid_decode_replica(supervisor, router):
+    """A ready replica decoding a request that has emitted at least one
+    token: killing (or migrating) it makes the retry re-derive tokens the
+    caller saw, which the dedup must absorb."""
+    for (name, _), (_fh, rh) in router._attempts.items():
+        rep = supervisor.replica_by_name(name)
+        if rep.state == "ready" and not rh.finished and len(rh.tokens) >= 1:
+            return rep
+    return None
+
+
+def step_until(router, cond, max_steps=2000):
+    """Step the router until ``cond()`` is truthy; returns its value."""
+    for _ in range(max_steps):
+        router.step()
+        out = cond()
+        if out:
+            return out
+    return None
+
+
+def _samples(page, family):
+    """{labels tuple: value} of one family on a strict-parsed page."""
+    return {tuple(sorted(labels.items())): value
+            for name, labels, value in telemetry.parse_prometheus(page)["samples"]
+            if name == family}
+
+
+def selftest_procfleet(args) -> int:
+    """Two replica worker subprocesses behind the mingpt-rpc/1 socket.
+
+    Phase A, ``kill -9`` one worker mid-decode: every request finishes on
+    the survivor (and the respawned worker) token-identical to solo
+    generate(), its stream holding no duplicate or lost token; the
+    supervisor reaped exit -9 and collected the dead worker's flight spill.
+
+    Phase B, drain with migration: the source ships its KV/prefix state to
+    the peer and exits 75; every in-flight request completes bit-identical
+    to an undisturbed run, and its strict-validated mingpt-trace/1 timeline
+    spans both replicas (emits on the source, a migrate event, emits on the
+    destination).
+
+    Phase C, the chunked /rpc/stream endpoint replays one request's tokens
+    over the real socket, equal to its handle."""
+    d = ProcDrill.tiny(args, "selftest-procfleet", n_prompts=6, max_new=12)
+    sink = _TraceList()
+    records = sink.records
+    recorder = telemetry.TraceRecorder(sink=sink)
+    supervisor, router, streamed = proc_fleet(d.spec(prefix_cache_mb=4.0), d.spill_root,
+                                              trace_recorder=recorder)
+    pids = {rep.name: rep.backend.pid for rep in supervisor.replicas}
+    print(f"selftest-procfleet workers: {pids} (spill: {d.spill_root})")
+    try:
+        rc = _procfleet_phases(d, supervisor, router, streamed, records, pids)
+    finally:
+        exits = supervisor.shutdown_all()
+    recorder.close()
+    if recorder.active_traces:
+        print(f"selftest-procfleet FAIL: {recorder.active_traces} trace(s) still open")
+        rc = 1
+    try:
+        telemetry.validate_trace_records(records)
+    except ValueError as e:
+        print(f"selftest-procfleet FAIL: trace validation: {e}")
+        rc = 1
+    bad_exits = {n: c for n, c in exits.items() if c not in (75, -signal.SIGKILL)}
+    if bad_exits:
+        print(f"selftest-procfleet FAIL: unexpected worker exit codes {bad_exits} "
+              f"(want 75 for drained, -9 for killed)")
+        rc = 1
+    print(f"selftest-procfleet worker exits: {exits}")
+    print("selftest-procfleet", "PASSED" if rc == 0 else "FAILED")
+    return rc
+
+
+def _procfleet_phases(d, supervisor, router, streamed, records, pids) -> int:
+    import threading
+
+    from mingpt_distributed_tpu_torch.serving import Request
+
+    # -- phase A: kill -9 mid-decode -----------------------------------------
+    handles = [router.submit(Request(prompt=p, max_new_tokens=d.max_new))
+               for p in d.prompts]
+    victim = step_until(router, lambda: mid_decode_replica(supervisor, router))
+    if victim is None:
+        print("selftest-procfleet FAIL: no replica ever mid-decode")
+        return 1
+    os.kill(victim.backend.pid, signal.SIGKILL)
+    print(f"selftest-procfleet kill -9 {victim.name} (pid {victim.backend.pid}) "
+          f"mid-decode")
+    router.run_until_drained(max_steps=20000)
+    # the restart backoff is wall time: idle-step until the victim is back
+    step_until(router, lambda: supervisor.replica_by_name(victim.name).state == "ready")
+    ok_a = d.parity("kill", handles, streamed)
+    for h in handles:
+        print(f"selftest-procfleet {h.request_id}: attempts={h.attempts} "
+              f"replica={h.replica}")
+    summary = router.summary()
+    crash = next((c for c in supervisor.crash_reports
+                  if c["replica"] == victim.name), None)
+    reborn = supervisor.replica_by_name(victim.name)
+    rc = d.gate("phase A", [
+        ("streams stayed exact through the kill", ok_a),
+        ("crash retries were counted", summary["retries_by_reason"].get("crash", 0) >= 1),
+        ("re-derived tokens were suppressed, not double-streamed",
+         summary["duplicates_suppressed"] >= 1),
+        ("supervisor reaped exit code -9",
+         crash is not None and crash["exit_code"] == -signal.SIGKILL),
+        ("dead worker's flight spill was collected",
+         crash is not None and len(crash["spill_dumps"]) >= 1),
+        ("killed worker was respawned as a new process",
+         reborn.state == "ready" and reborn.backend.pid != pids[victim.name])])
+
+    # -- phase B: drain with migration ----------------------------------------
+    handles_b = [router.submit(Request(prompt=p, max_new_tokens=d.max_new))
+                 for p in d.prompts]
+    src = step_until(router, lambda: mid_decode_replica(supervisor, router))
+    if src is None:
+        print("selftest-procfleet FAIL: phase B never reached mid-decode")
+        return 1
+    report = router.migrate_and_drain(src.name)
+    print(f"selftest-procfleet migration: {json.dumps(report)}")
+    router.run_until_drained(max_steps=20000)
+    ok_b = d.parity("migrate", handles_b, streamed)
+    moved = set(report["requests_moved"])
+    spanning = 0
+    for h in handles_b:
+        if h.request_id not in moved:
+            continue
+        events = [r for r in records
+                  if r["kind"] == "event" and r["trace_id"] == h.request_id]
+        if not any(e["name"] == "migrate" for e in events):
+            print(f"selftest-procfleet FAIL: migrated {h.request_id} has no "
+                  f"migrate event")
+            rc = 1
+        if len({e["replica"] for e in events if e["name"] == "emit"}) > 1:
+            spanning += 1
+    rc |= d.gate("phase B", [
+        ("migrated streams stayed exact", ok_b),
+        ("migration shipped state (outcome=ok)", report["outcome"] == "ok"),
+        ("drained worker exited with the requeue code (75)",
+         report["src_exit_code"] == 75),
+        ("prefix/KV entries were installed on the peer",
+         report["entries_installed"] >= 1),
+        ("at least one in-flight request was migrated", len(moved) >= 1),
+        ("a migrated request's timeline spans both replicas", spanning >= 1)])
+
+    # -- phase C: the chunked token stream over the real socket ----------------
+    h = router.submit(Request(prompt=d.prompts[0], max_new_tokens=d.max_new))
+    router.step()
+    attempt = next(((name, aid) for (name, aid), (fh, _) in router._attempts.items()
+                    if fh.request_id == h.request_id), None)
+    if attempt is None:
+        print("selftest-procfleet FAIL: phase C request not in flight")
+        return 1
+    name, aid = attempt
+    transport = supervisor.replica_by_name(name).backend.transport
+    got = []
+    t = threading.Thread(target=lambda: got.extend(
+        transport.stream(f"/rpc/stream?request_id={aid}")), daemon=True)
+    t.start()
+    router.run_until_drained(max_steps=20000)
+    t.join(timeout=60.0)
+    toks = [doc["token"] for doc in got if doc["kind"] == "stream_token"]
+    ends = [doc for doc in got if doc["kind"] == "stream_end"]
+    rc |= d.gate("phase C", [
+        (f"the stream endpoint gave tokens={toks} ends={ends} vs handle={h.tokens}",
+         not t.is_alive() and toks == h.tokens and ends
+         and ends[0]["finish_reason"] == "length")])
+
+    # -- fleet observability over the socket ----------------------------------
+    page = router.fleet_metrics_page()  # strict: one TYPE line per family
+    migrations = _samples(page, "mingpt_fleet_migrations_total")
+    restarts = _samples(page, "mingpt_fleet_process_restarts_total")
+    steps = _samples(page, "mingpt_serve_steps_total")
+    rc |= d.gate("scrape", [
+        ("merged page counts the migration",
+         migrations.get((("outcome", "ok"),), 0) >= 1),
+        ("merged page counts the process restart",
+         any(v >= 1 for v in restarts.values())),
+        ("worker pages merged under the replica label",
+         any("replica" in dict(k) for k in steps))])
+    return rc
+
+
+def proc_fleet(spec, spill, rpc_timeout_s=120.0, trace_recorder=None, wrap=None,
+               **sup_kwargs):
+    """(supervisor, router, streamed) over 2 worker subprocesses of
+    ``spec`` on the wall clock, fast backoffs; ``wrap`` (factory ->
+    factory) decorates every spawn (the card's smoke times them)."""
+    from mingpt_distributed_tpu_torch.serving import (
+        ProcessSupervisor,
+        ProcRouter,
+        WallClock,
+        process_backend_factory,
+    )
+
+    factory = process_backend_factory(spec, spill, rpc_timeout_s=rpc_timeout_s)
+    streamed = {}
+    supervisor = ProcessSupervisor(
+        wrap(factory) if wrap is not None else factory, n_replicas=2,
+        clock=WallClock(), max_restarts=1, restart_backoff_s=0.05, **sup_kwargs)
+    router = ProcRouter(supervisor, max_retries=3, retry_backoff_s=0.01,
+                        breaker_reset_s=0.05, trace_recorder=trace_recorder,
+                        on_token=lambda fh, t: streamed.setdefault(
+                            fh.request_id, []).append(t))
+    return supervisor, router, streamed
+
+
+def standby_kill_run(d, label, spec, standby):
+    """The kill -9 of a mid-decode worker over a fleet of ``spec`` with
+    ``standby`` warm spares, drained and stepped until the victim serves
+    again: (recovery row or None, streams exact, supervisor)."""
+    from mingpt_distributed_tpu_torch.serving import Request
+
+    supervisor, router, streamed = proc_fleet(
+        spec, os.path.join(d.spill_root, label), standby=standby)
+    handles = [router.submit(Request(prompt=p, max_new_tokens=d.max_new))
+               for p in d.prompts]
+    victim = step_until(router, lambda: mid_decode_replica(supervisor, router))
+    if victim is None:
+        print(f"{d.tag} FAIL ({label}): never mid-decode")
+        return None, False, supervisor
+    os.kill(victim.backend.pid, signal.SIGKILL)
+    router.run_until_drained(max_steps=20000)
+    step_until(router, lambda: supervisor.replica_by_name(victim.name).state == "ready")
+    ok = d.parity(label, handles, streamed)
+    return supervisor.recovery_info(victim.name), ok, supervisor
+
+
+def selftest_standby(args) -> int:
+    """Real worker subprocesses again.
+
+    Phase A, cold against standby on the same fault: kill -9 a mid-decode
+    worker twice, over a plain supervisor and with one warm spare. Both
+    runs stay token-exact with no duplicate or lost stream token; the
+    standby run records a strictly smaller crash-to-serving recovery,
+    labelled ``path="standby"``, and backfills its pool.
+
+    Phase B, the hang ladder: a worker wedges inside its step RPC (the
+    ``stuck_step`` process fault, worker-side) and refuses SIGTERM; the
+    liveness ladder escalates SIGTERM -> SIGKILL, the crash path recovers
+    through standby adoption, and every stream stays exact.
+
+    Phase C, draft rows ride the migration: the workers self-speculate
+    (k = 3); ``migrate_and_drain`` ships draft-pool rows and the peer primes
+    the migrated request from them (``spec_prime_total{mode="adopted"}``),
+    token-identical to solo generate()."""
+    from mingpt_distributed_tpu_torch.serving import Request
+
+    d = ProcDrill.tiny(args, "selftest-standby", n_prompts=4, max_new=10)
+    rc = 0
+
+    # -- phase A: cold against standby recovery on the same fault -------------
+    rec_cold, ok_cold, sup_cold = standby_kill_run(d, "cold", d.spec(), standby=0)
+    sup_cold.shutdown_all()
+    rec_stby, ok_stby, sup_stby = standby_kill_run(d, "standby", d.spec(), standby=1)
+    pool_refilled = (sup_stby.standby_pool is not None
+                     and sup_stby.standby_pool.available() == 1)
+    sup_stby.shutdown_all()
+    if rec_cold and rec_stby:
+        print(f"selftest-standby recovery: cold={rec_cold['recovery_s']:.3f}s "
+              f"standby={rec_stby['recovery_s']:.3f}s (adopted {rec_stby['adopted']})")
+    rc |= d.gate("phase A", [
+        ("cold run stayed token-exact", ok_cold),
+        ("standby run stayed token-exact", ok_stby),
+        ("cold respawn recorded path=cold",
+         rec_cold is not None and rec_cold["path"] == "cold"),
+        ("standby respawn recorded path=standby",
+         rec_stby is not None and rec_stby["path"] == "standby"),
+        ("a spare was adopted by name",
+         rec_stby is not None and str(rec_stby["adopted"]).startswith("standby")),
+        ("standby recovery strictly beat cold on the same fault",
+         rec_cold is not None and rec_stby is not None
+         and rec_stby["recovery_s"] < rec_cold["recovery_s"]),
+        ("the pool was backfilled after adoption", pool_refilled)])
+
+    # -- phase B: stuck_step -> SIGTERM -> SIGKILL ----------------------------
+    spec_b = dict(d.spec(), process_faults="stuck_step:nth=3:match=replica0")
+    supervisor, router, streamed = proc_fleet(
+        spec_b, os.path.join(d.spill_root, "hang"), rpc_timeout_s=2.0,
+        standby=1, hang_deadline_s=1.0, hang_kill_grace_s=1.0)
+    # the first workers and the spare read their specs already; respawns
+    # and backfills come up clean, or the replacement wedges again
+    spec_b.pop("process_faults")
+    try:
+        first_pid = supervisor.replica_by_name("replica0").backend.pid
+        handles = [router.submit(Request(prompt=p, max_new_tokens=d.max_new))
+                   for p in d.prompts]
+        router.run_until_drained(max_steps=20000)
+        step_until(router, lambda: supervisor.replica_by_name("replica0").state == "ready")
+        ok_b = d.parity("hang", handles, streamed)
+        esc = {dict(k).get("signal"): v for k, v in _samples(
+            router.fleet_metrics_page(), "mingpt_fleet_hang_escalations_total").items()}
+        crash = next((c for c in supervisor.crash_reports
+                      if c["replica"] == "replica0"), None)
+        rep0 = supervisor.replica_by_name("replica0")
+        rc |= d.gate("phase B", [
+            ("streams stayed exact through the wedge", ok_b),
+            ("the ladder fired SIGTERM first", esc.get("term", 0) >= 1),
+            ("SIGTERM was refused, SIGKILL followed", esc.get("kill", 0) >= 1),
+            ("the wedged worker died of SIGKILL",
+             crash is not None and crash["exit_code"] == -signal.SIGKILL),
+            ("the replacement is a new, serving process",
+             rep0.state == "ready" and rep0.backend.pid != first_pid)])
+        print(f"selftest-standby escalations: {esc} "
+              f"(exit={None if crash is None else crash['exit_code']})")
+    finally:
+        supervisor.shutdown_all()
+
+    # -- phase C: draft rows ride the migration -------------------------------
+    spec_c = dict(d.spec(prefix_cache_mb=4.0), draft="self", spec_k=3)
+    supervisor, router, streamed = proc_fleet(spec_c, os.path.join(d.spill_root, "spec"))
+    try:
+        handles = [router.submit(Request(prompt=p, max_new_tokens=d.max_new))
+                   for p in d.prompts]
+        src = step_until(router, lambda: mid_decode_replica(supervisor, router))
+        report = {}
+        if src is None:
+            print("selftest-standby FAIL (phase C): never mid-decode")
+            rc = 1
+        else:
+            report = router.migrate_and_drain(src.name)
+            print(f"selftest-standby migration: {json.dumps(report)}")
+            router.run_until_drained(max_steps=20000)
+        ok_c = d.parity("spec", handles, streamed)
+        adopted_primes = 0.0
+        dst = supervisor.replica_by_name(report["to"]) if report.get("to") else None
+        if dst is not None and dst.backend is not None:
+            primes = _samples(dst.backend.transport.fetch_text("/metrics"),
+                              "mingpt_serve_spec_prime_total")
+            adopted_primes = primes.get((("mode", "adopted"),), 0.0)
+        rc |= d.gate("phase C", [
+            ("migrated speculative streams stayed token-exact", ok_c),
+            ("migration shipped state (outcome=ok)", report.get("outcome") == "ok"),
+            ("draft-pool rows rode the transfer channel",
+             report.get("draft_rows_installed", 0) >= 1),
+            ("the peer primed from shipped rows, not a re-prefill",
+             adopted_primes >= 1)])
+    finally:
+        exits = supervisor.shutdown_all()
+    print(f"selftest-standby worker exits: {exits}")
+    print("selftest-standby", "PASSED" if rc == 0 else "FAILED")
+    return rc
+
+
+def build_crosshost_mesh(d, label, n_hosts, secret, net_faults="",
+                         paced_bytes_per_s=None, spec=None, wrap=None):
+    """``n_hosts`` localhost HostAgents on the wall clock, each with a
+    ProcessSupervisor of 2 worker subprocesses, HMAC-signed control
+    envelopes, quorum 1, the frontend pacing with real sleeps: (frontend,
+    agents, streamed)."""
+    import time
+
+    from mingpt_distributed_tpu_torch.serving import WallClock
+    from mingpt_distributed_tpu_torch.serving.procfleet import (
+        CrossHostRouter,
+        HostAgent,
+        LoopbackHostLink,
+        PacedChannel,
+    )
+    from mingpt_distributed_tpu_torch.training.faults import NetworkFaultInjector
+
+    clock = WallClock()
+    net = NetworkFaultInjector(net_faults)
+    roster = [f"host{i}" for i in range(n_hosts)]
+    agents = {}
+    for host in roster:
+        supervisor, router, _ = proc_fleet(
+            spec or d.spec(prefix_cache_mb=4.0),
+            os.path.join(d.spill_root, f"{label}-{host}"), wrap=wrap,
+            registry=telemetry.MetricsRegistry())
+        agents[host] = HostAgent(host, router, roster, clock, secret=secret,
+                                 heartbeat_interval_s=0.05, quorum=1)
+    for src in roster:
+        agents[src].connect({dst: LoopbackHostLink(src, dst, agents[dst], net=net)
+                             for dst in roster if dst != src})
+    streamed = {}
+    frontend = CrossHostRouter(
+        agents, clock, net=net,
+        on_token=lambda c, t: streamed.setdefault(c.request_id, []).append(t))
+    # real waits: the drill paces against the wall clock
+    frontend.paced = PacedChannel(clock, bytes_per_s=paced_bytes_per_s,
+                                  registry=frontend.registry, sleep=time.sleep)
+    return frontend, agents, streamed
+
+
+def mid_decode_on(frontend, host):
+    for c in frontend.handles.values():
+        if c.current_host == host and not c.finished and len(c.tokens) >= 1:
+            return c
+    return None
+
+
+def _shutdown_hosts(agents):
+    for host in sorted(agents):
+        agents[host].router.supervisor.shutdown_all()
+
+
+def selftest_crosshost(args) -> int:
+    """Two (or ``--hosts``) localhost HostAgents on the wall clock, each
+    owning a ProcessSupervisor of real worker subprocesses, exchanging
+    HMAC-signed control envelopes. Quorum is 1: a majority of two is two,
+    which no single-failure drill survives.
+
+    Leg A, host death: SIGKILL every worker of host0 while one of its
+    requests is mid-decode and stop its agent. The peer's heartbeat ladder
+    quarantines it, the frontend declares it failed and re-places its
+    requests, and every caller stream stays token-exact with no duplicate
+    or lost emission (``recovery_log`` path ``crosshost`` on the adopting
+    host).
+
+    Leg B, paced migration under ``slow_link``: live-migrate a mid-decode
+    replica host0 -> host1 through the PacedChannel with real sleeps; the
+    wall transfer time is at least the token-bucket budget (bytes over the
+    rate plus the injected latency per chunk) and the migrated streams stay
+    token-exact.
+
+    Leg C: a control frame tampered after signing is rejected with the
+    typed ``BadSignature`` error and counted under
+    ``mingpt_fleet_auth_rejects_total{reason="bad_mac"}``."""
+    import time
+
+    from mingpt_distributed_tpu_torch.serving import Request
+    from mingpt_distributed_tpu_torch.serving.procfleet import envelope
+
+    d = ProcDrill.tiny(args, "selftest-crosshost", n_prompts=6, max_new=12)
+    secret = args.fleet_secret or "crosshost-drill-secret"
+    n_hosts = max(2, args.hosts)
+    rc = 0
+
+    # -- leg A: SIGKILL a whole host mid-decode -------------------------------
+    frontend, agents, streamed = build_crosshost_mesh(d, "kill", n_hosts, secret)
+    try:
+        pids = {h: [r.backend.pid for r in a.router.supervisor.replicas]
+                for h, a in agents.items()}
+        print(f"selftest-crosshost workers: {pids} (spill: {d.spill_root})")
+        handles = [frontend.submit(Request(prompt=p, max_new_tokens=d.max_new))
+                   for p in d.prompts]
+        victim = step_until(frontend, lambda: mid_decode_on(frontend, "host0"),
+                             max_steps=20000)
+        if victim is None:
+            print("selftest-crosshost FAIL (kill): nothing mid-decode on host0")
+            rc = 1
+        else:
+            rc |= crosshost_kill_leg(d, frontend, agents, streamed, handles, victim)
+    finally:
+        _shutdown_hosts(agents)
+
+    # -- leg B: paced migration under slow_link -------------------------------
+    bytes_per_s, link_delay = 1e6, 0.02
+    frontend, agents, streamed = build_crosshost_mesh(
+        d, "paced", n_hosts, secret,
+        net_faults=f"slow_link:every=1:match=host0->host1:delay={link_delay}",
+        paced_bytes_per_s=bytes_per_s)
+    try:
+        handles = [frontend.submit(Request(prompt=p, max_new_tokens=d.max_new))
+                   for p in d.prompts]
+        step_until(frontend, lambda: mid_decode_on(frontend, "host0"), max_steps=20000)
+        t0 = time.monotonic()
+        report = frontend.migrate_crosshost("host0", "host1")
+        elapsed = time.monotonic() - t0
+        print(f"selftest-crosshost migration: {json.dumps(report)}")
+        frontend.run_until_drained(max_steps=200000)
+        ok_paced = d.parity("paced", handles, streamed)
+        budget = report["bytes"] / bytes_per_s + link_delay * report["chunks"]
+        shipped = _samples(frontend.fleet_metrics_page(),
+                           "mingpt_fleet_xfer_bytes_total").get((("paced", "true"),), 0)
+        rc |= d.gate("paced", [
+            ("migration shipped state (outcome=ok)", report["outcome"] == "ok"),
+            ("migrated streams stayed token-exact", ok_paced),
+            ("the source replica retired with the requeue exit code",
+             report["src_exit_code"] == 75),
+            (f"the wall transfer respected the bandwidth budget (transfer_s="
+             f"{report['transfer_s']:.3f}s budget={budget:.3f}s wall={elapsed:.3f}s)",
+             report["transfer_s"] >= 0.95 * budget and elapsed >= 0.95 * budget),
+            ("pacing waited, not stalled (within 2 s of the budget)",
+             report["transfer_s"] <= budget + 2.0),
+            ("the paced byte counter saw the transfer", shipped >= report["bytes"])])
+
+        # -- leg C: a tampered frame -> typed reject + counter ------------------
+        doc = envelope("heartbeat", host="host0", epoch=0, seq=10_000)
+        agents["host0"].auth.sign(doc)
+        doc["seq"] = 10_001  # tampered after signing
+        resp = json.loads(agents["host1"].handle_host(
+            "/host/heartbeat", json.dumps(doc, sort_keys=True).encode()))
+        bad_mac = _samples(agents["host1"].router.fleet_metrics_page(),
+                           "mingpt_fleet_auth_rejects_total").get((("reason", "bad_mac"),), 0)
+        rc |= d.gate("auth", [
+            ("tampered frame rejected with the typed error",
+             resp.get("kind") == "error" and resp.get("error") == "BadSignature"),
+            ("the bad_mac reject counter incremented", bad_mac >= 1)])
+        print(f"selftest-crosshost auth: reject={resp.get('error')} bad_mac={bad_mac}")
+    finally:
+        _shutdown_hosts(agents)
+    print("selftest-crosshost", "PASSED" if rc == 0 else "FAILED")
+    return rc
+
+
+def crosshost_kill_leg(d, frontend, agents, streamed, handles, victim) -> int:
+    """Leg A after ``victim`` (a request mid-decode on host0) was found:
+    host0 dies whole, the mesh drains, the checks. Returns 0 or 1."""
+    agents["host0"].kill_host()  # SIGKILLs every host0 worker
+    rc = 0
+    try:
+        frontend.run_until_drained(max_steps=200000)
+    except RuntimeError as e:
+        print(f"{d.tag} FAIL (kill): {e}")
+        rc = 1
+    ok_kill = d.parity("kill", handles, streamed)
+    rows = [row for a in agents.values() for row in a.router.supervisor.recovery_log
+            if row.get("path") == "crosshost"]
+    failovers = _samples(frontend.fleet_metrics_page(),
+                         "mingpt_fleet_crosshost_failovers_total")
+    rc |= d.gate("kill", [
+        ("streams stayed exact across the host death", ok_kill),
+        ("the frontend declared host0 failed",
+         "host0" in frontend.summary()["declared_failed"]),
+        ("the victim request failed over cross-host",
+         victim.recovery_s is not None and len(set(victim.hosts)) >= 2),
+        ("the adopting host logged path=crosshost recovery rows",
+         bool(rows) and all(r["recovery_s"] > 0 for r in rows)),
+        ("the failover counter names host0",
+         failovers.get((("from_host", "host0"),), 0) >= 1)])
+    if victim.recovery_s is not None:
+        print(f"{d.tag} host-death recovery: {victim.recovery_s:.3f}s over hosts "
+              f"{victim.hosts}")
+    return rc
+
+
 def _load_params(args, gpt_cfg, exp, dev):
     """(params, where they came from), or (None, why not)."""
     if args.params is not None:
@@ -1320,6 +1997,12 @@ def _load_params(args, gpt_cfg, exp, dev):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    if args.selftest_procfleet:
+        return selftest_procfleet(args)
+    if args.selftest_standby:
+        return selftest_standby(args)
+    if args.selftest_crosshost:
+        return selftest_crosshost(args)
     if args.selftest:
         return selftest(args)
     if args.selftest_spec:
@@ -1353,14 +2036,23 @@ def main(argv=None) -> int:
             return 1
         eos_id = int(eos[0])
 
+    # where a process fleet's workers read the same weights
+    if args.params is not None:
+        weights = {"params": os.path.abspath(args.params)}
+    else:
+        weights = {"snapshot": os.path.abspath(
+            exp.trainer_config.snapshot_path or ckpt_lib.DEFAULT_SNAPSHOT_PATH)}
     guard = _ShutdownGuard().install()
+    fleets = []  # process fleets: their workers are stopped however we leave
     try:
-        return _serve(args, dataset, gpt_cfg, params, dev, eos_id, guard)
+        return _serve(args, dataset, gpt_cfg, params, dev, eos_id, guard, weights, fleets)
     finally:
+        for supervisor in fleets:
+            supervisor.shutdown_all()
         guard.restore()
 
 
-def _serve(args, dataset, gpt_cfg, params, dev, eos_id, guard) -> int:
+def _serve(args, dataset, gpt_cfg, params, dev, eos_id, guard, weights, fleets) -> int:
     """The offline batch (``--prompts-file``) or the REPL."""
     # stream tokens as they decode: print the newly decoded text suffix of
     # each request (decode-accumulated-and-diff is tokenizer-agnostic)
@@ -1416,10 +2108,62 @@ def _serve(args, dataset, gpt_cfg, params, dev, eos_id, guard) -> int:
               file=sys.stderr)
         return router
 
+    def build_process_fleet(stream_cb):
+        """--isolation process: N worker subprocesses (``serving/procfleet``)
+        on ``dev``, each restoring ``weights`` itself, behind the process
+        router on the wall clock: --chaos-spec's serving faults ride in the
+        workers' spec, process faults come from MINGPT_PROCESS_FAULTS, with
+        --standby warm spares and --hang-deadline's ladder; /metrics merges
+        the workers' pages fetched over RPC."""
+        import tempfile
+
+        from mingpt_distributed_tpu_torch.serving import (
+            ProcessSupervisor,
+            ProcRouter,
+            WallClock,
+            process_backend_factory,
+        )
+        from mingpt_distributed_tpu_torch.serving.procfleet import cfg_to_spec
+        from mingpt_distributed_tpu_torch.training.faults import ProcessFaultInjector
+
+        spec = {"cfg": cfg_to_spec(gpt_cfg), "device": str(dev), **weights,
+                "server": {"n_slots": args.slots, "max_queue": args.queue_limit,
+                           "default_deadline_s": args.deadline_s,
+                           "attrib": bool(args.attrib_json), **_server_kwargs(args)},
+                "serving_faults": args.chaos_spec}
+        if spec_kw:
+            if args.draft_config != "self":
+                raise SystemExit("--isolation process speculates with "
+                                 "--draft-config self only (each worker is "
+                                 "its own draft)")
+            spec.update(draft="self", spec_k=args.spec_k)
+        spill_root = args.spill_dir or tempfile.mkdtemp(prefix="procfleet-")
+        pinj = ProcessFaultInjector()
+        supervisor = ProcessSupervisor(
+            process_backend_factory(spec, spill_root),
+            n_replicas=args.replicas, clock=WallClock(),
+            process_injector=pinj if pinj.specs else None, registry=reg,
+            standby=max(0, args.standby), hang_deadline_s=args.hang_deadline)
+        fleets.append(supervisor)
+        router = ProcRouter(supervisor, on_token=stream_cb,
+                            shed_watermark=args.shed_watermark,
+                            trace_recorder=recorder, flight=flight)
+        if tserver is not None:
+            tserver.health_provider = router.health_report
+            tserver.metrics_provider = router.fleet_metrics_page
+            if args.attrib_json:
+                tserver.attrib_provider = router.attrib_report
+        print(f"[serve] process fleet: {args.replicas} worker processes x "
+              f"{args.slots} slots (spill: {spill_root})", file=sys.stderr)
+        return router
+
     def build_server(stream_cb):
         """One InferenceServer, or with --replicas N > 1 the fleet router in
-        front of N replicas (``build_fleet``); either takes submit, step,
+        front of N replicas (``build_fleet``; ``build_process_fleet`` with
+        --isolation process, at any N); each takes submit, step,
         run_until_drained and summary, and streams through ``stream_cb``."""
+        if args.isolation == "process":
+            return build_process_fleet(stream_cb)
         if args.replicas > 1:
             return build_fleet(stream_cb)
         server = InferenceServer(
@@ -1454,6 +2198,10 @@ def _serve(args, dataset, gpt_cfg, params, dev, eos_id, guard) -> int:
                   file=sys.stderr)
         if recorder is not None:
             recorder.close()
+        supervisor = getattr(server, "supervisor", None)
+        if hasattr(supervisor, "shutdown_all"):  # a process fleet's workers
+            exits = supervisor.shutdown_all()
+            print(f"[serve] worker exits: {exits}", file=sys.stderr)
         if args.metrics_json:
             if hasattr(server, "metrics"):
                 server.metrics.write_json(args.metrics_json)

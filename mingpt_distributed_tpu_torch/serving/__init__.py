@@ -31,11 +31,20 @@ card:
   health- and breaker-aware router with idempotent retries, shedding and
   drain, on an injected clock (``VirtualClock``, ``WallClock``).
 
+* ``ProcessSupervisor`` / ``ProcRouter`` (procfleet/) — the same fleet
+  with the failure domain moved to an OS process: replicas are spawned
+  worker subprocesses behind the versioned ``mingpt-rpc/1`` HTTP surface
+  (with a deterministic in-process loopback twin for chaos tests),
+  SIGKILL-able crash detection through the socket and waitpid, warm
+  standby, the hang ladder, live KV/prefix migration, and the cross-host
+  control plane (``procfleet/hostplane.py``).
+
 ``serve.py`` drives it (REPL, offline batch, ``--replicas N``,
-``--selftest``, ``--selftest-spec``, ``--selftest-quant``,
-``--selftest-attrib``, ``--selftest-chaos``) and ``traffic.py`` sweeps it
-(``trafficlab/``). The process fleet (ROADMAP.md Queue 1 item 15b) and
-tensor parallelism (item 9) are not ported yet.
+``--isolation process``, ``--selftest``, ``--selftest-spec``,
+``--selftest-quant``, ``--selftest-attrib``, ``--selftest-chaos``,
+``--selftest-procfleet``, ``--selftest-standby``,
+``--selftest-crosshost``) and ``traffic.py`` sweeps it (``trafficlab/``).
+Tensor parallelism (ROADMAP.md Queue 1 item 9) is not ported yet.
 """
 
 from mingpt_distributed_tpu_torch.serving import quant  # noqa: F401
@@ -60,6 +69,12 @@ from mingpt_distributed_tpu_torch.serving.fleet import (  # noqa: F401
 )
 from mingpt_distributed_tpu_torch.serving.kv_pool import PrefixKVStore, SlotKVPool  # noqa: F401
 from mingpt_distributed_tpu_torch.serving.metrics import ServingMetrics  # noqa: F401
+from mingpt_distributed_tpu_torch.serving.procfleet import (  # noqa: F401
+    ProcRouter,
+    ProcessSupervisor,
+    loopback_backend_factory,
+    process_backend_factory,
+)
 from mingpt_distributed_tpu_torch.serving.requests import (  # noqa: F401
     QueueFullError,
     Request,

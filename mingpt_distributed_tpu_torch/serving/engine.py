@@ -69,8 +69,8 @@ capture of these calls needs.
    another engine: into its prefix store, or straight into a slot of an
    engine without one (the draft engine). A quantized pool's payloads and
    scale planes move as they are, bytes for bytes: nothing is requantized.
-   The process fleet's wire that carries them is ROADMAP.md Queue 1 item
-   15b.
+   The process fleet's wire (``procfleet/worker.py``) carries them between
+   processes, each leaf as its raw bytes under its dtype's name.
 
 Attribution (``register_attrib``) registers each family's shapes with
 analytic costs. Tensor-parallel serving (``mesh``) is ROADMAP.md Queue 1

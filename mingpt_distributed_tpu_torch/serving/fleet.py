@@ -51,8 +51,9 @@ work to the CPU: a replica runs where its factory put it.
 
 Exit code 75 (``REQUEUE_EXIT_CODE``) is the trainer's preemption code:
 ``serve`` exits with it after a SIGTERM-triggered drain. The process fleet
-and its live migration wire are ROADMAP.md Queue 1 item 15b; the
-autoscaler that calls ``spawn_replica``/``retire_replica`` is item 15c.
+(``procfleet/``) re-bases this machinery onto worker processes with live
+migration; the autoscaler that calls ``spawn_replica``/``retire_replica``
+is ROADMAP.md Queue 1 item 15c.
 """
 
 from __future__ import annotations
@@ -285,7 +286,7 @@ class Replica:
         self.state = "ready"          # "ready" | "crashed"
         self.crashes = 0
         self.crashed_at: Optional[float] = None  # fleet-clock crash time
-        self.last_spawn_path = "cold"            # "cold" (the process fleet adds "standby")
+        self.last_spawn_path = "cold"            # "cold" | "standby" (procfleet)
         self.server: InferenceServer = self._spawn()
 
     def _spawn(self) -> InferenceServer:
@@ -354,7 +355,7 @@ class ReplicaSupervisor:
     should not be hammered forever)."""
 
     #: Replica wrapper class — a subclass swaps in a different isolation
-    #: boundary (the process fleet's, item 15b) without copying the lifecycle.
+    #: boundary (procfleet's ProcReplica) without copying the lifecycle.
     replica_cls = Replica
 
     def __init__(
@@ -411,7 +412,8 @@ class ReplicaSupervisor:
         self._recovery = r.histogram(
             "mingpt_fleet_recovery_seconds",
             help="crash -> replacement-serving time per respawn, by "
-                 "path: cold = spawn a fresh server",
+                 "path: cold = spawn a fresh server (or worker), standby "
+                 "= adopt a warm spare (procfleet)",
             labels=("path",))
         for rep in self.replicas:
             self._up.labels(replica=rep.name).set(1)
@@ -477,8 +479,8 @@ class ReplicaSupervisor:
         """Hang-escalation hook: (replica, signal) pairs escalated this
         poll. The in-process fleet has no process to signal — a hung
         thread replica cannot exist on the cooperative scheduler — so
-        this supervisor never escalates (the process fleet's
-        SIGTERM→SIGKILL ladder is item 15b)."""
+        this supervisor never escalates; procfleet's ProcessSupervisor
+        overrides this with the SIGTERM→SIGKILL liveness ladder."""
         return []
 
     # -- control-plane actuation (the autoscaler's, item 15c) ------------

@@ -36,7 +36,8 @@ the largest ladder bucket <= the prompt, no ``- 1``, since the draft never
 regenerates prompt logits), ``adopt_draft_rows`` parks them on the peer
 (``pending_draft``, a FIFO of at most 32 entries) and the re-routed
 request's ``prime`` installs them and prefills only the uncovered tail
-(``"adopted"``). The process fleet's wire is ROADMAP.md Queue 1 item 15b.
+(``"adopted"``). The process fleet carries them between workers as
+``draft_rows`` frames (``procfleet/worker.py``).
 
 Not ported yet: the audit contracts (``audit_contracts``), item 16b.
 """

@@ -41,6 +41,7 @@ from mingpt_distributed_tpu_torch.telemetry.export import (  # noqa: F401
     SCHEMA_VERSION,
     JsonlEventSink,
     TelemetryServer,
+    merge_fleet_pages,
     parse_prometheus,
     render_fleet_prometheus,
     render_prometheus,

@@ -4,7 +4,8 @@ Counterpart of the parts of ``mingpt_distributed_tpu/telemetry/export.py``
 that serving needs:
 
 * **Prometheus text exposition** (``render_prometheus``; a fleet's merged
-  page, ``render_fleet_prometheus``) and its strict counterpart
+  page, ``render_fleet_prometheus`` from live registries and
+  ``merge_fleet_pages`` from rendered pages) and its strict counterpart
   ``parse_prometheus``: every non-comment line must match the
   exposition grammar and histogram triplets must be coherent, so tests
   check a page by parsing it, not by string matching.
@@ -36,6 +37,7 @@ __all__ = [
     "SCHEMA_VERSION",
     "JsonlEventSink",
     "TelemetryServer",
+    "merge_fleet_pages",
     "parse_prometheus",
     "render_prometheus",
 ]
@@ -313,6 +315,73 @@ def parse_prometheus(text: str) -> Dict[str, Any]:
                     f"{rec['count']}"
                 )
     return {"types": types, "samples": samples}
+
+
+def merge_fleet_pages(
+    base_page: Optional[str],
+    replica_pages: Dict[str, str],
+    label: str = "replica",
+) -> str:
+    """A fleet's page merged from ALREADY-RENDERED exposition pages.
+
+    :func:`render_fleet_prometheus` merges live registries, which needs every
+    replica in the router's process; a process-isolated fleet has only each
+    replica's ``/metrics`` text, fetched over its RPC socket. This merges
+    those pages under the same contract: ONE HELP/TYPE header per family (the
+    strict parser rejects a second TYPE line, so the pages cannot simply be
+    concatenated), the ``label`` (``replica``) injected on every replica
+    sample, a kind conflict anywhere in the fleet raises, and the output is
+    sorted (families, then the base page before the replicas in sorted
+    order) so the same pages give the same bytes. Every input page is
+    strict-parsed first: a malformed replica page fails the merge.
+
+    The cross-host fleet merges per-host pages, which carry ``replica``
+    labels already, under ``label="host"``."""
+    sources: List[Tuple[Optional[str], str]] = []
+    if base_page is not None:
+        sources.append((None, base_page))
+    sources.extend(sorted(replica_pages.items()))
+    kinds: Dict[str, str] = {}
+    helps: Dict[str, str] = {}
+    fam_samples: Dict[str, List[Tuple[Optional[str], str, Dict[str, str], float]]] = {}
+    for replica, page in sources:
+        parsed = parse_prometheus(page)
+        for fam, kind in parsed["types"].items():
+            prev = kinds.get(fam)
+            if prev is not None and prev != kind:
+                raise ValueError(
+                    f"fleet page merge: family {fam!r} is {kind} on "
+                    f"{replica or 'base'} but {prev} elsewhere — exposition "
+                    f"would be incoherent")
+            kinds[fam] = kind
+            fam_samples.setdefault(fam, [])
+        for line in page.splitlines():
+            m = _HELP_RE.match(line)
+            if m and m.group(1) not in helps:
+                helps[m.group(1)] = m.group(2)
+        for name, labels, value in parsed["samples"]:
+            fam = name
+            if fam not in parsed["types"]:
+                for suffix in ("_bucket", "_sum", "_count"):
+                    stem = name[: -len(suffix)]
+                    if name.endswith(suffix) and stem in parsed["types"]:
+                        fam = stem
+                        break
+            if fam not in parsed["types"]:
+                raise ValueError(f"fleet page merge: sample {name!r} on "
+                                 f"{replica or 'base'} has no TYPE header")
+            fam_samples[fam].append((replica, name, labels, value))
+    out: List[str] = []
+    for fam in sorted(kinds):
+        if helps.get(fam):
+            # help text comes off the wire already escaped: verbatim
+            out.append(f"# HELP {fam} {helps[fam]}")
+        out.append(f"# TYPE {fam} {kinds[fam]}")
+        for replica, name, labels, value in fam_samples[fam]:
+            if replica is not None:
+                labels = {label: replica, **labels}
+            out.append(_sample(name, labels, value))
+    return "\n".join(out) + "\n"
 
 
 class TelemetryServer:

@@ -36,12 +36,13 @@ period=..:duty=.. | ramp:rate0=..:rate1=..:duration=..), --ladder
 geometry), --slo SPEC (telemetry/slo.py grammar), --knee-objective NAME
 (default: the first objective), --chaos-spec SPEC (ServingFaultInjector
 grammar — the same sweep graded under crashes), --shed-watermark D,
---prefix-cache-mb M, --out PATH (report JSON).
+--prefix-cache-mb M, --out PATH (report JSON), --hosts N (> 1: every cell
+on the loopback cross-host mesh, --replicas per host) with
+--net-chaos-spec SPEC (NetworkFaultInjector grammar: partition, drop_frame,
+slow_link, host_kill).
 
-Not ported yet, each exiting 2 with its ROADMAP.md Queue 1 item: the
-cross-host axis (``--hosts`` > 1, ``--net-chaos-spec``), item 15b; the
-autoscaler axis (``--controllers auto:...``, ``--selftest-controller``),
-item 15c.
+Not ported yet, exiting 2 with ROADMAP.md Queue 1 item 15c: the autoscaler
+axis (``--controllers auto:...``, ``--selftest-controller``).
 """
 
 from __future__ import annotations
@@ -88,11 +89,12 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="ServingFaultInjector spec: grade the same sweep "
                         "under injected faults")
     p.add_argument("--hosts", type=int, default=1,
-                   help="> 1 runs every cell on a cross-host mesh (not "
-                        "ported yet: ROADMAP.md Queue 1 item 15b)")
+                   help="> 1 runs every cell on the loopback cross-host "
+                        "mesh (--replicas becomes per host)")
     p.add_argument("--net-chaos-spec", default=None,
-                   help="network faults over the host mesh (not ported "
-                        "yet: item 15b)")
+                   help="NetworkFaultInjector spec (partition / drop_frame / "
+                        "slow_link / host_kill) over the host mesh; needs "
+                        "--hosts >= 2")
     p.add_argument("--controllers", default="static",
                    help="comma-separated controller axis: 'static' runs; "
                         "an 'auto[:k=v...]' autoscaler is item 15c")
@@ -122,10 +124,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     axis."""
     p = build_argparser()
     args = p.parse_args(argv)
-    if args.hosts > 1:
-        p.error("--hosts > 1 is not ported yet (ROADMAP.md Queue 1 item 15b)")
-    if args.net_chaos_spec is not None:
-        p.error("--net-chaos-spec is not ported yet (ROADMAP.md Queue 1 item 15b)")
     if args.selftest_controller:
         p.error("--selftest-controller is not ported yet (ROADMAP.md Queue 1 "
                 "item 15c)")
@@ -162,6 +160,8 @@ def _sweep_spec(args):
         slo=args.slo,
         knee_objective=args.knee_objective,
         chaos_spec=args.chaos_spec,
+        n_hosts=args.hosts,
+        net_chaos_spec=args.net_chaos_spec,
         shed_watermark=args.shed_watermark,
         prefix_cache_mb=args.prefix_cache_mb,
     )

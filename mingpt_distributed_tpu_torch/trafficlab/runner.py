@@ -24,9 +24,18 @@ double-count) and hands the rows to ``telemetry.slo.evaluate_slos``. A
 graded under crashes. Every cell carries the cost model's block
 (``control/cost.py``).
 
-Not ported yet, each raising with its ROADMAP.md Queue 1 item: the
-cross-host axis (``n_hosts > 1``, ``net_chaos_spec``), item 15b; autoscaled
-cells (a controller other than ``"static"``), item 15c.
+Network chaos is a second axis: ``n_hosts > 1`` runs every cell on the
+loopback cross-host mesh (``build_loopback_fleet``: a CrossHostRouter over
+per-host ProcessSupervisors, all on the cell's VirtualClock), and
+``net_chaos_spec`` drives the shared ``NetworkFaultInjector``
+(``partition`` / ``drop_frame`` / ``slow_link`` / ``host_kill``). Cross-host
+failover rows carry the same per-request ``recovery_s`` the thread fleet's
+rows do, so ``recovery_slo_s`` grades a partition's failovers as it grades a
+crash's re-routes, and the sweep stays byte-replayable, partitions
+included.
+
+Not ported yet: autoscaled cells (a controller other than ``"static"``),
+raising with ROADMAP.md Queue 1 item 15c.
 """
 
 from __future__ import annotations
@@ -67,7 +76,10 @@ from mingpt_distributed_tpu_torch.trafficlab.workloads import (
     default_mix,
     trace_digest,
 )
-from mingpt_distributed_tpu_torch.training.faults import ServingFaultInjector
+from mingpt_distributed_tpu_torch.training.faults import (
+    NetworkFaultInjector,
+    ServingFaultInjector,
+)
 
 __all__ = [
     "SweepSpec",
@@ -104,10 +116,14 @@ class SweepSpec:
     shed_watermark: Optional[int] = None
     prefix_cache_mb: float = 0.0
     max_rounds: int = 200_000
-    #: the cross-host axis (item 15b): only 1 runs here
+    #: the cross-host axis: > 1 runs every cell on the loopback host mesh
+    #: (n_replicas becomes per host), where network chaos and quorum sheds
+    #: exist
     n_hosts: int = 1
-    #: network chaos over a host mesh (item 15b): only None runs here
+    #: NetworkFaultInjector grammar (partition / drop_frame / slow_link /
+    #: host_kill); needs n_hosts > 1
     net_chaos_spec: Optional[str] = None
+    heartbeat_interval_s: float = 0.05
     #: the controller axis: ``"static"`` (no control loop) runs; an
     #: ``auto[:k=v...]`` autoscaler is item 15c
     controllers: Tuple[str, ...] = ("static",)
@@ -140,10 +156,25 @@ class SweepSpec:
                 f"recovery_slo_s must be > 0, got {self.recovery_slo_s}")
         if self.n_hosts < 1:
             raise ValueError(f"n_hosts must be >= 1, got {self.n_hosts}")
-        if self.n_hosts > 1:
-            _refuse("the cross-host sweep axis (n_hosts > 1)", "15b")
         if self.net_chaos_spec:
-            _refuse("network chaos over a host mesh (net_chaos_spec)", "15b")
+            # checks the op vocabulary (partition/drop_frame/...)
+            NetworkFaultInjector(self.net_chaos_spec)
+            if self.n_hosts < 2:
+                raise ValueError(
+                    "net_chaos_spec needs a mesh: set n_hosts >= 2 (network "
+                    "faults have no single-host fault point)")
+        if self.n_hosts > 1:
+            if self.chaos_spec:
+                raise ValueError(
+                    "chaos_spec (ServingFaultInjector) is the thread-fleet "
+                    "axis; on a host mesh use net_chaos_spec")
+            if self.shed_watermark is not None:
+                raise ValueError(
+                    "shed_watermark is a single-host Router knob; the host "
+                    "mesh sheds on lost quorum instead")
+        if self.heartbeat_interval_s <= 0:
+            raise ValueError(f"heartbeat_interval_s must be > 0, got "
+                             f"{self.heartbeat_interval_s}")
         if not self.controllers or (
                 len(set(self.controllers)) != len(self.controllers)):
             raise ValueError(f"bad controller list {self.controllers}")
@@ -153,10 +184,121 @@ class SweepSpec:
         parse_slo_spec(self.effective_slo())
 
 
+def _run_one_crosshost(params, cfg, spec: SweepSpec, policy_name: str,
+                       timed: List[TimedRequest],
+                       server_kwargs: Optional[Dict[str, Any]],
+                       ) -> Dict[str, Any]:
+    """One cross-host (rung, policy) cell: the identical open-loop
+    drive, but against a fresh loopback host mesh under network chaos.
+    Rows are built from the CrossHandles (TTFT from the handle's first
+    caller-visible token, ITL from per-token clock stamps collected at
+    the frontend's on_token hook — the fence means a token is stamped
+    exactly once), so a failed-over request's ``recovery_s`` grades the
+    recovery-tail objective just like a thread-fleet crash row."""
+    from mingpt_distributed_tpu_torch.serving.procfleet.hostplane import (
+        build_loopback_fleet,
+    )
+
+    clock = VirtualClock(tick_s=spec.tick_s, start=0.0)
+    policy = make_policy(policy_name)
+    token_times: Dict[str, List[float]] = {}
+    frontend, _agents, _net = build_loopback_fleet(
+        params, cfg, n_hosts=spec.n_hosts, n_replicas=spec.n_replicas,
+        clock=clock, net_faults=spec.net_chaos_spec or "",
+        heartbeat_interval_s=spec.heartbeat_interval_s,
+        server_kwargs=dict(n_slots=spec.n_slots,
+                           prefix_cache_mb=spec.prefix_cache_mb,
+                           admission_policy=policy,
+                           **(server_kwargs or {})),
+        on_token=lambda c, _t: token_times.setdefault(
+            c.request_id, []).append(clock.now()))
+
+    handles: Dict[str, Any] = {}
+    shed: Dict[str, str] = {}
+    i = 0
+    rounds = 0
+    in_flight = True
+    while i < len(timed) or in_flight:
+        now = clock.now()
+        while i < len(timed) and timed[i].t <= now:
+            tr = timed[i]
+            try:
+                handles[tr.request_id] = frontend.submit(tr.to_request())
+            except ShedError as e:
+                shed[tr.request_id] = e.reason
+            i += 1
+        in_flight = frontend.step()
+        rounds += 1
+        if not in_flight and i < len(timed) and timed[i].t > clock.now():
+            clock.advance(timed[i].t - clock.now())
+        if rounds > spec.max_rounds:
+            raise RuntimeError(
+                f"cross-host sweep cell not drained after "
+                f"{spec.max_rounds} rounds (policy={policy_name}, "
+                f"submitted={i}/{len(timed)})")
+
+    rows: List[Dict[str, Any]] = []
+    counts = {"completed": 0, "shed": 0, "expired": 0, "errors": 0}
+    tokens = 0
+    deadline_total = deadline_hit = 0
+    for tr in timed:
+        if tr.request_id in shed:
+            rows.append({"request_id": tr.request_id, "outcome": "shed",
+                         "ttft_s": None, "itl_s": []})
+            counts["shed"] += 1
+            if tr.deadline_s is not None:
+                deadline_total += 1
+            continue
+        cross = handles[tr.request_id]
+        outcome = cross.finish_reason or "error"
+        stamps = token_times.get(cross.request_id, [])
+        row = {
+            "request_id": cross.request_id,
+            "outcome": outcome,
+            "ttft_s": (None if cross.first_token_time is None
+                       else cross.first_token_time - cross.submit_time),
+            "itl_s": [b - a for a, b in zip(stamps, stamps[1:])],
+        }
+        if cross.recovery_s is not None:
+            row["recovery_s"] = cross.recovery_s
+        rows.append(row)
+        if outcome in ("length", "eos"):
+            counts["completed"] += 1
+        elif outcome == "deadline":
+            counts["expired"] += 1
+        else:
+            counts["errors"] += 1
+        tokens += len(cross.tokens)
+        if tr.deadline_s is not None:
+            deadline_total += 1
+            if outcome in ("length", "eos"):
+                deadline_hit += 1
+    cell = {
+        "slo": evaluate_slos(rows, parse_slo_spec(spec.effective_slo())),
+        "deadline_hit_rate": (
+            (deadline_hit / deadline_total) if deadline_total else None),
+        "deadline_requests": deadline_total,
+        "recovered": sum(1 for row in rows
+                         if row.get("recovery_s") is not None),
+        "completed": counts["completed"],
+        "shed": counts["shed"],
+        "expired": counts["expired"],
+        "errors": counts["errors"],
+        "tokens": tokens,
+        "rounds": rounds,
+        "virtual_duration_s": clock.now(),
+    }
+    cell["cost"] = cost_from_cell(cell)
+    return cell
+
+
 def _run_one(params, cfg, spec: SweepSpec, policy_name: str,
              timed: List[TimedRequest],
              server_kwargs: Optional[Dict[str, Any]]) -> Dict[str, Any]:
     """One (rung, policy) cell: fresh fleet, replayed trace, SLO rows."""
+    if spec.n_hosts > 1:
+        return _run_one_crosshost(params, cfg, spec, policy_name, timed,
+                                  server_kwargs)
     clock = VirtualClock(tick_s=spec.tick_s, start=0.0)
     # sheds are recorded as extra traces, so size the ring for both
     recorder = TraceRecorder(max_completed=2 * len(timed) + 64)

@@ -385,3 +385,46 @@ def test_fleet_prompts_land_on_each_replica_by_affinity():
     assert [router._affinity_index(p) for p in prompts] == [0, 0, 1, 1, 2, 2]
     assert all(5 <= len(p) <= 300 and max(p) < 50257 for p in prompts)
     assert prompts == chip_smoke.fleet_prompts(router, 2)
+
+
+def test_served_texts_reads_fleet_headers():
+    """serve --replicas N names its requests fleet-N: serve_cli_process
+    reads the thread and process fleets' completions alike."""
+    out = ("=== fleet-0 (length) ===\nthe king ab\n"
+           "=== fleet-1 (length) ===\nwhat is x\ny\n"
+           '{"requests_by_outcome": {"completed": 2}}\n')
+    assert chip_smoke.served_texts(out) == ["the king ab", "what is x\ny"]
+
+
+def test_migrate_prompts_ship_rows_on_each_replica():
+    """The migration legs' prompts: 130-300 tokens (128 or 256 rows on the
+    default bucket ladder, so a migration ships rows), three per replica,
+    drawn apart from fleet_prompts' seed."""
+    from types import SimpleNamespace
+
+    from mingpt_distributed_tpu_torch.serving import Router, bucket_ladder
+
+    router = SimpleNamespace(supervisor=SimpleNamespace(replicas=[0, 1]), affinity_len=16)
+    router._affinity_index = lambda p: Router._affinity_index(router, p)
+    prompts = chip_smoke.migrate_prompts(router)
+    assert [router._affinity_index(p) for p in prompts] == [0, 0, 0, 1, 1, 1]
+    ladder = bucket_ladder(1024)
+    assert all(130 <= len(p) <= 300 for p in prompts)
+    assert all(max(b for b in ladder if b <= len(p) - 1) in (128, 256) for p in prompts)
+    assert not set(map(tuple, prompts)) & set(map(tuple, chip_smoke.fleet_prompts(router, 3)))
+
+
+def test_worker_spec_round_trips_the_gpt2_config():
+    """A worker rebuilds the parent's GPT-2 config from the spec's JSON."""
+    import json
+
+    from mingpt_distributed_tpu_torch.config import GPTConfig
+
+    cfg = chip_smoke.gpt2_config("flash", "bfloat16")
+    spec = json.loads(json.dumps(chip_smoke.worker_spec(cfg, n_slots=4, warmup=True)))
+    back = GPTConfig.make(**spec["cfg"])
+    assert back.n_layer == 12 and back.n_embd == 768 and back.dtype == "bfloat16"
+    assert {f: getattr(back, f) for f in spec["cfg"]} == {
+        f: getattr(cfg, f) for f in spec["cfg"]}
+    assert (spec["init_seed"], spec["device"], spec["server"]) == (
+        0, "cuda", {"n_slots": 4, "warmup": True})

@@ -1034,6 +1034,23 @@ def test_unported_serve_flags_exit_naming_their_item(flag, capsys):
         capsys.readouterr().err
 
 
+@pytest.mark.parametrize("argv", [
+    ["--isolation", "process", "--replicas", "2"], ["--spill-dir", "d"],
+    ["--standby", "2"], ["--hang-deadline", "1.5"], ["--hosts", "3"],
+    ["--fleet-secret", "s"], ["--selftest-procfleet"], ["--selftest-standby"],
+    ["--selftest-crosshost"],
+])
+def test_process_fleet_serve_flags_parse(argv, capsys):
+    """The process and cross-host fleet's flags run now: they parse, and
+    none is refused."""
+    args = t_serve.parse_args(argv)
+    assert capsys.readouterr().err == ""
+    assert not set(argv) & set(t_serve.UNPORTED_FLAGS)
+    assert (args.standby, args.hang_deadline, args.hosts) == (
+        2 if "--standby" in argv else 0, 1.5 if "--hang-deadline" in argv else None,
+        3 if "--hosts" in argv else 1)
+
+
 def test_kv_dtype_fp32_is_accepted():
     assert t_serve.parse_args(["--kv-dtype", "fp32", "--selftest"]).selftest
 

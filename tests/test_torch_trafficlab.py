@@ -2,8 +2,8 @@
 and traffic CLI against the JAX package's.
 
 Counterparts of tests/test_trafficlab.py's tests of arrivals, workloads,
-policies and the sweep (its cross-host cases are ROADMAP.md Queue 1 item
-15b) and of tests/test_control.py's cost-model tests, each held against the
+policies and the sweep (its cross-host cases on the loopback host mesh
+included) and of tests/test_control.py's cost-model tests, each held against the
 JAX function on the same inputs where one exists: the same ``(seed, spec)``
 gives the same arrival times, the same ``(seed, mix)`` the same rendered
 requests and digest, the policies the same order. The canned self-test
@@ -35,6 +35,7 @@ from mingpt_distributed_tpu.serving import admission as j_admission
 from mingpt_distributed_tpu.trafficlab.report import dump_report as j_dump
 from mingpt_distributed_tpu.trafficlab.workloads import trace_digest as j_digest
 from mingpt_distributed_tpu_torch import traffic as traffic_cli
+from mingpt_distributed_tpu_torch import trafficlab as t_lab
 from mingpt_distributed_tpu_torch.control import (
     FleetSignalsView,
     SignalSampler,
@@ -601,8 +602,85 @@ def test_sweep_spec_validation():
     (dict(controllers=("static", "auto:target=0.03")), "item 15c"),
 ])
 def test_unported_sweep_axes_raise_naming_their_item(fields, item):
+    """The autoscaler axis (15c) still raises naming its item; the host
+    axis of item 15b is ported: a host mesh validates, and network chaos
+    without one is refused as the JAX package refuses it."""
+    if item == "item 15b":
+        spec = SweepSpec(**fields)
+        if spec.n_hosts > 1:
+            spec.validate()
+        else:
+            with pytest.raises(ValueError, match="needs a mesh"):
+                spec.validate()
+        SweepSpec(**dict(fields, n_hosts=3)).validate()
+        return
     with pytest.raises(NotImplementedError, match=item):
         SweepSpec(**fields).validate()
+
+
+# -- the cross-host axis ---------------------------------------------------
+
+# host0 cut off from its peers (both directions) at the first heartbeat
+# crossing, healing 0.1 virtual seconds later, past the quarantine threshold
+# (5x the 5 ms heartbeat): the survivors declare host0 failed and adopt its
+# in-flight requests mid-partition
+_CROSSHOST_CHAOS = ";".join(
+    f"partition:nth=1:match={a}->{b}:delay=0.1"
+    for a, b in [("host0", "host1"), ("host0", "host2"),
+                 ("host1", "host0"), ("host2", "host0")])
+
+
+def _crosshost_spec(mod, **overrides):
+    base = dict(arrival="poisson:rate=200.0", ladder=(1.0,), policies=("fifo", "edf"),
+                n_requests=10, seed=3, n_replicas=1, n_slots=2, n_hosts=3,
+                heartbeat_interval_s=0.005, slo="ttft_p95<=60,error_rate<=0.5",
+                recovery_slo_s=30.0, net_chaos_spec=_CROSSHOST_CHAOS)
+    base.update(overrides)
+    return mod.SweepSpec(**base)
+
+
+def test_crosshost_partition_sweep_recovers_and_is_byte_identical(cfg_params):
+    """An EDF-vs-FIFO sweep on a 3-host loopback mesh under a partition that
+    cuts host0 off mid-decode: the report strict-validates with every
+    request accounted for, a request rides a cross-host failover graded by
+    the recovery-tail objective, two runs are byte-identical, and the
+    report equals the JAX package's byte for byte."""
+    cfg, params, jcfg, tree = cfg_params
+    spec = _crosshost_spec(j_lab)
+    report = run_sweep(params, cfg, _crosshost_spec(t_lab),
+                       mix=traffic_cli.selftest_mix(), server_kwargs=CPU)
+    assert validate_traffic_report(json.loads(dump_report(report)), strict=False) == []
+    assert report["net_chaos_spec"] == _CROSSHOST_CHAOS
+    assert report["fleet"]["n_hosts"] == 3
+    assert report["slo_spec"] == spec.effective_slo()
+    cells = report["rungs"][0]["policies"]
+    for policy in ("fifo", "edf"):
+        cell = cells[policy]
+        assert cell["completed"] + cell["shed"] + cell["expired"] + cell["errors"] == 10
+        assert cell["completed"] > 0
+    recovered = [c for c in cells.values() if c["recovered"] >= 1]
+    assert recovered, "no request crossed hosts — vacuous drill"
+    for cell in recovered:
+        row = next(r for r in cell["slo"]["objectives"] if r["name"] == "recovery_p99")
+        assert row["observed"] is not None and row["observed"] > 0 and row["pass"] is True
+    again = run_sweep(params, cfg, _crosshost_spec(t_lab),
+                      mix=traffic_cli.selftest_mix(), server_kwargs=CPU)
+    assert dump_report(report) == dump_report(again)
+    jax_report = j_lab.run_sweep(tree, jcfg, spec, mix=j_traffic_cli.selftest_mix())
+    assert dump_report(report) == j_dump(jax_report)
+
+
+def test_sweep_spec_crosshost_validation():
+    for mod in (t_lab, j_lab):
+        for bad in (dict(net_chaos_spec=_CROSSHOST_CHAOS),        # chaos needs a mesh
+                    dict(n_hosts=3, chaos_spec="crash:nth=1"),    # thread-fleet axis
+                    dict(n_hosts=3, shed_watermark=4),            # sheds on lost quorum
+                    dict(n_hosts=0),
+                    dict(n_hosts=2, heartbeat_interval_s=0.0),
+                    dict(n_hosts=2, net_chaos_spec="gremlins:nth=1")):
+            with pytest.raises(ValueError):
+                mod.SweepSpec(**bad).validate()
+        mod.SweepSpec(n_hosts=3, net_chaos_spec=_CROSSHOST_CHAOS).validate()
 
 
 # ---------------------------------------------------------------------
@@ -631,6 +709,24 @@ def test_random_init_sweep_cli(tmp_path, capsys):
     assert "traffic sweep (mingpt-traffic/1)" in capsys.readouterr().out
 
 
+def test_crosshost_sweep_cli(tmp_path, capsys):
+    """traffic --hosts 2 --net-chaos-spec: every cell on the loopback host
+    mesh, the net-chaos line in the rendered table."""
+    out_path = str(tmp_path / "r.json")
+    chaos = "partition:nth=1:match=host0->host1:delay=0.05"
+    argv = ["--device", "cpu", "--random-init", "--ladder", "1", "--requests", "6",
+            "--replicas", "1", "--slots", "2", "--hosts", "2", "--net-chaos-spec", chaos,
+            "--out", out_path, "gpt_config.n_layer=1", "gpt_config.n_head=2",
+            "gpt_config.n_embd=32", "gpt_config.dtype=float32",
+            "data_config.block_size=48"]
+    assert traffic_cli.main(argv) == 0
+    with open(out_path) as f:
+        report = json.load(f)
+    assert validate_traffic_report(report, strict=True) == []
+    assert report["fleet"]["n_hosts"] == 2 and report["net_chaos_spec"] == chaos
+    assert f"net-chaos: {chaos} (2 hosts)" in capsys.readouterr().out
+
+
 def test_traffic_cli_defaults_to_cuda():
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: this checks the CPU-only behaviour")
@@ -647,6 +743,12 @@ def test_traffic_cli_defaults_to_cuda():
     (["--selftest-controller"], "item 15c"),
 ])
 def test_unported_traffic_flags_exit_naming_their_item(argv, item, capsys):
+    """Item 15c's flags exit 2 naming it; item 15b's host flags are ported
+    and parse (the sweep spec checks --net-chaos-spec against --hosts)."""
+    if item == "item 15b":
+        args = traffic_cli.parse_args(argv)
+        assert (args.hosts, args.net_chaos_spec) in ((3, None), (1, "partition:nth=1"))
+        return
     with pytest.raises(SystemExit) as e:
         traffic_cli.parse_args(argv)
     assert e.value.code == 2 and item in capsys.readouterr().err
