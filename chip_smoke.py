@@ -104,7 +104,19 @@ Phases:
      model's row count: validation after a JSON round trip, the knee's
      pass->fail shape, EDF above FIFO at the overload rung, a byte-identical
      rerun, the report equal field for field to the tiny model's on the CPU
-     with the same mix);
+     with the same mix); traffic_controller (the controller axis: traffic
+     --selftest-controller's down-ramp rung, FIFO static against FIFO with
+     the SLO autoscaler, at V = 50257, twice: the CLI's gates, every
+     control-log row strict-valid, the report and the log equal to the tiny
+     model's on the CPU on the same mix);
+  3f. autoscale: the SLO autoscaler over a process fleet at GPT-2 124M
+     width, bf16 (one worker x 4 slots and one warm standby, 1..2
+     replicas, the backfill on a thread): serve's 32 requests as a burst of
+     16 and then one every 3 router rounds; a replicas/up adopting the
+     standby, a replicas/down whose worker exits 75 and gives the card its
+     memory back, every stream exact, the greedy ones under the tie rule,
+     the log strict-valid; tokens/s beside procfleet's, the seconds from the
+     decision to the newcomer's first token and the backfill's;
   4. training: the train step at the bench shape (GPT-2 124M, T=1024, batch
      16, bf16, no dropout), 12 forward, 12 prep, 12 dq and 12 dk/dv
      launches per step; the same step with FLASH_FUSED_BWD=1, 12 forward,
@@ -113,7 +125,9 @@ Phases:
      more with its telemetry (train_cli_telemetry: spans_jsonl, a
      torch.profiler trace of steps 3-4 naming the split step's kernels,
      debug_nans on and off, step ms of each), and the serve entry point
-     (serve_cli): --selftest, then --prompts-file over that snapshot; the
+     (serve_cli): --selftest, then --prompts-file over that snapshot, and
+     with --replicas 1 --autoscale --control-log (serve_cli_autoscale:
+     completions byte-equal, the log strict-valid); the
      train CLI's first call writes its snapshot with async_save (the
      resume reads it) and gathers its batches with the C gather;
      moe_train_step (the MoE training path: 1 layer at Mixtral-8x7B width,
@@ -129,20 +143,32 @@ Phases:
      global batch 4 (exactly 72 K3, 72 prep, 72 K4a and 72 K4b launches per
      rank per step), its loss against a single-process dense-attention
      step; a dp = 2 x sp = 2 Ulysses step at 2 layers;
+  4d. fsdp x tp: 4 ranks (dp 1 x fsdp 2 x tp 2) spawned once on the one
+     card over gloo: an fp32 leg at GPT-2 width, 2 layers (losses, every
+     parameter's first gradient and the parameters after the first update
+     against the single-process step on the same weights and batch), then
+     the main path at GPT-2 124M, T=1024, global batch 16, bf16, split
+     backward (exactly 12 K1, 12 prep, 12 K2a and 12 K2b launches per rank
+     per step on (8, 1024, 6, 64) heads; step ms and the collectives' ms,
+     shared-card, not multi-GPU throughput; each rank's parameter and Adam
+     bytes against the rules; the downgrade counter);
   4c. the prototype tool (tools/proto_nh_kernel.py, K5's path) at its shape
      (B=16, T=1024, H=12, hd=64, bf16): its parity and time lines;
   5. times: kernels, plain versions, bounds and library yardsticks (K1 at
      the generation shape also its wrapper's host microseconds per launch);
      the prep pass with and without K2c's dq zero-fill; the whole fused
      backward (prep, K2c, cast) beside the split one (prep, K2a, K2b); peak
-     device memory; then the exp-vs-exp2 tool (tools/exp_exp2.py, K6's
+     device memory; K1, the prep pass, K2a and K2b at the fsdp x tp local
+     shape (8, 1024, 6, 64); then the exp-vs-exp2 tool (tools/exp_exp2.py, K6's
      path) through its main() at its shape (64 x 512 x 512 float32, 64
      reps), 64 reps timed against 32, and the opcodes of K6's compiled
      kernels. The SM clock, power and
      throttle reasons are logged before and after.
 The seconds of the phases added with MoE and telemetry are one line
 (phase_seconds), those of the fleet phases another (new_phase_seconds, with
-the smoke's seconds so far). The last three lines are the card, the kernels
+the smoke's seconds so far), and the autoscaler's and fsdp x tp's phases a
+third (smoke_budget: each against ADDED_PHASES_BUDGET_S together, and the
+whole smoke against SMOKE_BUDGET_S, reported, not failed). The last three lines are the card, the kernels
 line (twelve kernels) and the ok line. Exits 2 without CUDA, 1 on any
 failure.
 """
@@ -363,7 +389,9 @@ def fused_switch(on: bool):
 # ---------------------------------------------------------------------------
 
 # name, B, T, H, KV, hd, window, softcap; gpt2_train is the shape the
-# training main path (the bench-shape train step) gives every kernel
+# training main path (the bench-shape train step) gives every kernel, and
+# fsdp_tp_local the shape the fsdp 2 x tp 2 step gives it on each rank (its
+# rows over fsdp, its heads over tp)
 KERNEL_CASES = [
     ("gpt2_main", 4, 1024, 12, 12, 64, None, None),
     ("gqa_h8_kv2_hd128", 2, 512, 8, 2, 128, None, None),
@@ -374,6 +402,7 @@ KERNEL_CASES = [
     ("hd16_t200", 2, 200, 4, 4, 16, None, None),
     ("hd32_gqa_window100_softcap30", 2, 300, 8, 4, 32, 100, 30.0),
     ("gpt2_train", 16, 1024, 12, 12, 64, None, None),
+    ("fsdp_tp_local", 8, 1024, 6, 6, 64, None, None),
 ]
 # The bf16 forward's ring of k/v tiles (two stages of 128 keys) at every
 # head width: one tile and its edges (T = 1, 63, 65), q/k/v as strided
@@ -3246,7 +3275,7 @@ def phase_serve_cli(card, train_argv, tmp, new_seconds):
     through --replicas 2 with --isolation thread and --isolation process
     (two worker processes, each restoring the snapshot itself): the
     completions byte-equal, the workers' exits 75 (its seconds in
-    ``new_seconds``)."""
+    ``new_seconds``). Returns the plain run's texts."""
     rc, out = run_serve(["--selftest", "--log-every", "0"])
     check(rc == 0 and "selftest PASSED" in out, f"serve --selftest exited {rc}")
     path = os.path.join(tmp, "prompts.txt")
@@ -3279,6 +3308,7 @@ def phase_serve_cli(card, train_argv, tmp, new_seconds):
     check(rc_t == 0 and rc_p == 0, f"serve --replicas 2 exited {rc_t} (thread), {rc_p} (process)")
     check(len(process_texts) == 4 and process_texts == thread_texts,
           f"serve --isolation process: {process_texts} != --isolation thread's {thread_texts}")
+    return texts
 
 
 def phase_grads(params32, card):
@@ -3980,6 +4010,646 @@ def phase_sp(card):
 
 
 # ---------------------------------------------------------------------------
+# phase 3f: the SLO autoscaler (control/controller.py) over the process fleet
+# ---------------------------------------------------------------------------
+
+# The controller of the autoscale phase: the burst (16 requests at once on
+# one replica of 4 slots: 12 queued) breaches a backlog of 2 per replica at
+# the first tick, the standby is adopted, and 20 comfortable ticks in a row
+# (a second with no backlog) drain the newcomer again. Evaluated every 50 ms
+# of the wall clock.
+AUTOSCALE_SPEC = ("auto:metric=queue_depth:target=2.0:comfort=0.5:interval_s=0.05"
+                  ":cooldown_s=0.5:up_after=1:down_after=20:min_replicas=1:max_replicas=2")
+AUTOSCALE_BURST = 16
+AUTOSCALE_PACE_ROUNDS = 3   # router rounds between the later arrivals
+AUTOSCALE_DRAIN_WAIT_S = 30.0
+
+
+def control_rows(text):
+    """A mingpt-control/1 document's rows (none when it does not validate)
+    and its validator's problems."""
+    from mingpt_distributed_tpu_torch.control import validate_control_log
+
+    problems = validate_control_log(text)
+    rows = [] if problems else [json.loads(ln) for ln in text.splitlines() if ln.strip()]
+    return rows, problems
+
+
+def autoscale_arrivals(n_req, burst=AUTOSCALE_BURST, pace=AUTOSCALE_PACE_ROUNDS):
+    """The router round at which each of ``n_req`` requests is submitted:
+    ``burst`` at round 0, then one every ``pace`` rounds."""
+    return [0] * min(burst, n_req) + [pace * (i + 1) for i in range(max(0, n_req - burst))]
+
+
+def phase_autoscale(params32, card, tmp, procfleet_rec, fleet_rec):
+    """The SLO autoscaler on a process fleet at GPT-2 124M width, bf16: one
+    worker x 4 slots built like serve's server, one warm standby, the
+    controller ``AUTOSCALE_SPEC`` (1..2 replicas) with its log on disk, the
+    backfill on a thread (the fleet runs on the wall clock). serve's traffic: a burst
+    of 16 requests, then one every 3 router rounds. Checks: a replicas/up row
+    whose reason reads path=standby, a replicas/down after the traffic whose
+    worker exits 75 and gives the card its memory back (PROC_MEM_MARGIN),
+    every request's 64 tokens streamed once (no token lost or repeated), the
+    greedy streams under the teacher-forced tie rule with the thread fleet's
+    margin, every log row strict-valid mingpt-control/1. Prints tokens/s
+    beside procfleet's, the seconds from the scale-up decision to the
+    newcomer's first token, the adoption's seconds and the backfill's."""
+    from mingpt_distributed_tpu_torch.control import SLOAutoscaler, parse_controller_spec
+
+    cfg = gpt2_config("flash", "bfloat16")
+    reqs, lengths, sampled = serve_traffic(32, cfg.vocab_size)
+    spec = worker_spec(cfg, n_slots=4, prefill_chunk=256, prefix_cache_mb=256, warmup=True)
+    t_build = time.perf_counter()
+    supervisor, router, streamed, spawns = proc_fleet(
+        spec, os.path.join(tmp, "autoscale"), n_replicas=1, standby=1)
+    build_s = time.perf_counter() - t_build
+    log_path = os.path.join(tmp, "autoscale-control.jsonl")
+    controller = SLOAutoscaler(router, parse_controller_spec(AUTOSCALE_SPEC), log_path=log_path)
+    router.controller = controller
+    ups, retired = [], []
+    real_up, real_retire = controller._scale_up, supervisor.retire_replica
+
+    def scale_up(snap, reason):
+        t0 = time.perf_counter()
+        out = real_up(snap, reason)
+        ups.append({"decided_at": t0, "seconds": time.perf_counter() - t0,
+                    "actuator": out[0], "reason": out[1]})
+        return out
+
+    def retire(rep):
+        torch.cuda.synchronize()
+        free0, pid = torch.cuda.mem_get_info()[0], rep.backend.pid
+        info = real_retire(rep)
+        retired.append({"name": rep.name, "pid": pid, "free_before": free0,
+                        "exit": info.get("exit_code"), "at": time.perf_counter()})
+        return info
+
+    controller._scale_up, supervisor.retire_replica = scale_up, retire
+    first_token = {}  # replica -> first token's time
+    router.on_token = lambda fh, t: (streamed.setdefault(fh.request_id, []).append(t),
+                                     first_token.setdefault(fh.replica, time.perf_counter()))
+    at = autoscale_arrivals(len(reqs))
+    handles, rounds = [], 0
+    t0 = time.perf_counter()
+    with router_faults() as faults:
+        while len(handles) < len(reqs) or not all(h.finished for h in handles):
+            while len(handles) < len(reqs) and at[len(handles)] <= rounds:
+                handles.append(router.submit(reqs[len(handles)]))
+            router.step()
+            rounds += 1
+        dt = time.perf_counter() - t0
+        supervisor.standby_pool.join()
+        t_idle = time.perf_counter()
+        while not retired and time.perf_counter() - t_idle < AUTOSCALE_DRAIN_WAIT_S:
+            router.step()
+            time.sleep(0.005)
+    memory = None
+    if retired:
+        born = next(s for s in spawns if s["pid"] == retired[0]["pid"])
+        footprint = born["free_before"] - born["free_after"]
+        free = torch.cuda.mem_get_info()[0]
+        while (free < retired[0]["free_before"] + footprint - PROC_MEM_MARGIN
+               and time.perf_counter() - retired[0]["at"] < PROC_MEM_WAIT_S):
+            time.sleep(0.005)
+            free = torch.cuda.mem_get_info()[0]
+        memory = {"worker_footprint_at_spawn": footprint,
+                  "free_before_retire": retired[0]["free_before"], "free_after_exit": free,
+                  "returned": free - retired[0]["free_before"], "margin": PROC_MEM_MARGIN,
+                  "release_s_after_retire": time.perf_counter() - retired[0]["at"]}
+    drained_exits = dict(supervisor.drained_exits)
+    exits = supervisor.shutdown_all()
+    with open(log_path) as f:
+        rows, problems = control_rows(f.read())
+    up_rows = [r for r in rows if r["action"] == {"actuator": "replicas", "direction": "up"}]
+    down_rows = [r for r in rows if r["action"] == {"actuator": "replicas", "direction": "down"}]
+    up = next((u for u in ups if u["actuator"] == "replicas"), None)
+    newcomer = next((s["name"] for s in spawns if s["name"].startswith("standby")), None)
+    new_replica = "replica1"
+    first_new = first_token.get(new_replica)
+    backfill = [s for s in spawns if s["name"] != newcomer and s["name"].startswith("standby")]
+    generated = sum(len(h.tokens) for h in handles)
+    greedy = [(h, r) for h, r, s in zip(handles, reqs, sampled) if not s]
+    res = forced_tie_rule(params32, cfg, [(h.request_id, list(r.prompt), h.tokens)
+                                          for h, r in greedy], None,
+                          e=fleet_rec["max_logit_err"])
+    tps = generated / dt
+    rec = {"phase": "autoscale", "model": "gpt2 124M", "dtype": "bfloat16",
+           "controller": AUTOSCALE_SPEC, "start_replicas": 1, "standby": 1,
+           "slots_per_worker": 4, "requests": len(reqs), "burst": AUTOSCALE_BURST,
+           "pace_rounds": AUTOSCALE_PACE_ROUNDS, "sampled_top_k50": sum(sampled),
+           "prompt_tokens": int(sum(lengths)), "new_tokens": SERVE_NEW,
+           "generated_tokens": generated, "seconds": dt, "router_rounds": rounds,
+           "tokens_per_s": tps, "procfleet_tokens_per_s": procfleet_rec["tokens_per_s"],
+           "ratio_to_procfleet": tps / procfleet_rec["tokens_per_s"],
+           "build_seconds": build_s,
+           "scale_up_actuation_s": up["seconds"] if up else None,
+           "decision_to_first_new_replica_token_s": (
+               first_new - up["decided_at"] if up and first_new else None),
+           "backfill_spawn_s": [s["seconds"] for s in backfill],
+           "requests_on_new_replica": sum(h.replica == new_replica for h in handles),
+           "ticks": controller.tick, "actions": controller.action_counts(),
+           "up_reasons": [r["reason"] for r in up_rows],
+           "down_reasons": [r["reason"] for r in down_rows],
+           "log_problems": problems, "retired": retired, "drained_exits": drained_exits,
+           "memory": memory, "exits": exits, "spawns": spawns,
+           "greedy_requests": len(greedy), **res,
+           "divergence_count": len(res["divergences"]),
+           "tie_margin_from": "the thread fleet's recorded logits (phase fleet)",
+           "router_faults": faults, "summary": router.summary(),
+           "launches": "not counted (the workers' own counters)",
+           "wall_clock_note": "decisions ride the wall clock: ticks and timings vary by run",
+           "card": card}
+    emit(rec)
+    check(not problems and rows, f"autoscale: control log problems {problems[:3]}")
+    check(up_rows and "path=standby" in up_rows[0]["reason"],
+          f"autoscale: no replicas/up adopting the standby: {rec['up_reasons']}")
+    check(down_rows and retired and drained_exits.get(retired[0]["name"]) == 75,
+          f"autoscale: no drained replica exiting 75: {drained_exits}, {retired}")
+    check(memory is not None and memory["returned"] >= memory["worker_footprint_at_spawn"]
+          - PROC_MEM_MARGIN, f"autoscale: the drained worker's memory did not come back: "
+          f"{memory}")
+    check(first_new is not None, "autoscale: the new replica never emitted a token")
+    check(all(h.finish_reason == "length" and len(h.tokens) == SERVE_NEW for h in handles),
+          f"autoscale: a request did not end with {SERVE_NEW} tokens")
+    check(all(streamed.get(h.request_id) == h.tokens for h in handles),
+          "autoscale: a caller stream lost or repeated a token")
+    check_tie_rule("autoscale", res, len(greedy) * SERVE_NEW)
+    check(faults == {"crash": 0, "step_failure": 0},
+          f"autoscale: the router handled faults with no injector: {faults}")
+    check(all(c == 75 for c in exits.values()), f"autoscale: worker exits {exits}")
+    return rec
+
+
+def phase_traffic_controller(params32, card):
+    """The traffic lab's controller axis at GPT-2 124M width, bf16:
+    ``traffic --selftest-controller``'s canned sweep (one down-ramp rung,
+    FIFO static against FIFO autoscaled, 36 requests, 1 replica x 2 slots at
+    first) over the self-test mix at V = 50257, twice, through the CLI's
+    gates (the controller scales up and down, beats static on deadline hit
+    rate and cost, a valid log, byte-identical reruns); the report and the
+    control log equal field for field to the tiny model's on the CPU on the
+    same mix."""
+    from mingpt_distributed_tpu_torch import traffic as traffic_cli
+    from mingpt_distributed_tpu_torch.models import gpt
+
+    cfg = gpt2_config("flash", "bfloat16")
+    tiny = traffic_cli.tiny_config()
+    row_bytes = 2 * cfg.n_layer * cfg.kv_heads * cfg.head_dim * 2
+    tiny_row_bytes = 2 * tiny.n_layer * tiny.kv_heads * tiny.head_dim * 4
+    spec = dataclasses.replace(traffic_cli.selftest_controller_spec(),
+                               prefix_cache_mb=0.5 * row_bytes / tiny_row_bytes)
+    mix = traffic_cli.selftest_mix(cfg.vocab_size)
+    reset_counts()
+    with router_faults() as faults:
+        (report, logs), dt = timed(lambda: traffic_cli.run_with_logs(
+            params32, cfg, spec, mix, dict(device="cuda")))
+        (report2, logs2), dt2 = timed(lambda: traffic_cli.run_with_logs(
+            params32, cfg, spec, mix, dict(device="cuda")))
+    launches = read_counts()
+    rc = traffic_cli.controller_checks(report, logs, report2, logs2, tag="traffic_controller")
+    tcfg = dataclasses.replace(tiny, vocab_size=cfg.vocab_size)
+    tparams = gpt.init(tcfg, torch.Generator().manual_seed(0), device="cpu")
+    cpu, cpu_logs = traffic_cli.run_with_logs(tparams, tcfg, traffic_cli.selftest_controller_spec(),
+                                              mix, dict(device="cpu"))
+    differ = _diff_paths(json.loads(json.dumps(cpu)), json.loads(json.dumps(report)))
+    rows, problems = control_rows(logs.get((0, "fifo+auto"), ""))
+    cells = report["rungs"][0]["policies"]
+    emit({"phase": "traffic_controller", "model": "gpt2 124M", "dtype": "bfloat16",
+          "arrival": spec.arrival, "controllers": list(spec.controllers),
+          "requests": spec.n_requests, "prefix_cache_mb": spec.prefix_cache_mb,
+          "deadline_hit_rate": {p: c["deadline_hit_rate"] for p, c in cells.items()},
+          "cost": {p: c["cost"]["cost"] for p, c in cells.items()},
+          "control": cells["fifo+auto"].get("control"), "log_rows": len(rows),
+          "log_problems": problems, "sweep_seconds": [dt, dt2],
+          "fields_differing_from_cpu_tiny": sorted({re.sub(r"\[\d+\]", "[]", p)
+                                                     for p in differ}),
+          "control_log_equal_to_cpu_tiny": logs == cpu_logs,
+          "router_faults": faults, "launches": launches, "card": card})
+    check(rc == 0, "traffic_controller: a self-test gate failed (lines above)")
+    check(not problems, f"traffic_controller: control log problems {problems[:3]}")
+    check(differ == [] and logs == cpu_logs,
+          f"traffic_controller: the report differs from the tiny CPU run in {differ}")
+    check(faults == {"crash": 0, "step_failure": 0},
+          f"traffic_controller: the router handled faults: {faults}")
+    check(not any(launches.values()), f"traffic_controller launched kernels: {launches}")
+    torch.cuda.empty_cache()
+    return launches
+
+
+SERVE_CLI_AUTOSCALE = ("auto:metric=queue_depth:target=0.5:comfort=0.5:interval_s=0"
+                       ":cooldown_s=0:up_after=1:down_after=1:min_replicas=1:max_replicas=2")
+
+
+def phase_serve_cli_autoscale(card, train_argv, tmp, plain_texts):
+    """serve --replicas 1 --autoscale SERVE_CLI_AUTOSCALE --control-log
+    over the train entry point's snapshot (thread isolation): completions
+    byte-equal to the plain --prompts-file run's, every log row strict-valid
+    mingpt-control/1, the log's actions printed."""
+    path = os.path.join(tmp, "prompts.txt")
+    log = os.path.join(tmp, "serve-control.jsonl")
+    (rc, out), dt = timed(lambda: run_serve(
+        ["--prompts-file", path, "--greedy", "--max-new-tokens", "32", "--slots", "2",
+         "--log-every", "0", "--replicas", "1", "--autoscale", SERVE_CLI_AUTOSCALE,
+         "--control-log", log, *train_argv]))
+    texts = served_texts(out)
+    with open(log) as f:
+        rows, problems = control_rows(f.read())
+    acted = [r["action"] for r in rows if r["action"]["direction"] != "hold"]
+    emit({"phase": "serve_cli_autoscale", "rc": rc, "controller": SERVE_CLI_AUTOSCALE,
+          "completions_equal": texts == plain_texts, "log_rows": len(rows),
+          "log_problems": problems, "actions": acted, "seconds": dt, "card": card})
+    check(rc == 0, f"serve --autoscale exited {rc}")
+    check(len(texts) == len(plain_texts) and texts == plain_texts,
+          f"serve --autoscale: {texts} != the plain run's {plain_texts}")
+    check(rows and not problems, f"serve --autoscale: control log problems {problems[:3]}")
+
+
+# ---------------------------------------------------------------------------
+# phase 4d: fsdp x tp training (dp 1 x fsdp 2 x tp 2, gloo ranks on one card)
+# ---------------------------------------------------------------------------
+
+FT_MESH = dict(dp=1, fsdp=2, tp=2)
+FT_RANKS = 4
+FT_T = 1024
+FT_BATCH = 16
+FT_STEPS = 3
+FT_PARITY_LAYERS = 2
+FT_PARITY_BATCH = 4
+FT_PARITY_STEPS = 2
+# The fp32 parity leg against the single-process step on the same weights
+# and batch (fp32 on the card: the collectives sum in another order than
+# one process does; the kernels' own fp32 gates are 1e-5 forward, 2e-4
+# gradients): losses within 1e-4 relative; every parameter's first gradient
+# within GRAD_FP32_REL_TOL relative (norm-wise; blocks/bk, 0 in exact
+# arithmetic, only within the total); the parameters after the first update
+# within 1e-4 absolute. Adam's first update is lr * g / (|g| + eps): where |g|
+# nears eps (1e-8) the update moves by lr * eps / (|g| + eps)^2 per unit of
+# g, so the summation order moves those parameters most; the largest
+# difference where |g| > 1e-6 is printed beside the largest of all (first
+# card run: 1.2e-7 and 2.9e-5).
+FT_LOSS_REL_TOL = 1e-4
+FT_PARAM_ATOL = 1e-4
+FT_STEADY_GRAD = 1e-6
+# the main path's attention kernels per rank per step: one of each per layer
+FT_PER_STEP = 12
+
+
+def _ft_config(n_layer=None, dtype="bfloat16"):
+    from mingpt_distributed_tpu_torch.config import GPTConfig
+
+    dims = (dict(model_type="gpt2") if n_layer is None
+            else dict(n_layer=n_layer, n_head=12, n_embd=768))
+    return GPTConfig.make(vocab_size=50257, block_size=FT_T, attention="flash",
+                          dtype=dtype, embd_pdrop=0.0, resid_pdrop=0.0, attn_pdrop=0.0,
+                          **dims)
+
+
+def _ft_batch(seed, rows):
+    g = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, 50257, (rows, FT_T + 1), generator=g)
+    return tokens[:, :-1], tokens[:, 1:]
+
+
+def _ft_state(cfg, device, mesh=None):
+    from mingpt_distributed_tpu_torch.config import OptimizerConfig
+    from mingpt_distributed_tpu_torch.models import gpt
+    from mingpt_distributed_tpu_torch.training.optimizer import make_optimizer
+    from mingpt_distributed_tpu_torch.training.trainer import TrainState, trainable
+
+    params = gpt.init(cfg, torch.Generator().manual_seed(0), device=device)
+    if mesh is not None:
+        params = mesh.shard_params(params)
+    params = trainable(params)
+    return TrainState(params, make_optimizer(OptimizerConfig(), params, 1.0, mesh=mesh))
+
+
+def _ft_rows(a, mesh, device):
+    n = a.shape[0] // mesh.batch_count
+    return a[mesh.batch_index * n:(mesh.batch_index + 1) * n].to(device)
+
+
+def _ft_whole(mesh, tree, grads=False):
+    """Every rank joins the gathers; the whole leaves (or gradients)."""
+    from mingpt_distributed_tpu_torch.models import convert
+
+    return {n: mesh.gather_full(n, p.grad if grads else p)
+            for n, p in convert.flatten(tree).items()}
+
+
+def _ft_parity(mesh, device):
+    """The fp32 leg: FT_PARITY_STEPS sharded steps, then on rank 0 the
+    single-process steps on the same weights and batch; the comparisons."""
+    from mingpt_distributed_tpu_torch.models import convert
+    from mingpt_distributed_tpu_torch.training.trainer import make_train_step
+
+    cfg = _ft_config(FT_PARITY_LAYERS, "float32")
+    x, y = _ft_batch(11, FT_PARITY_BATCH)
+    state = _ft_state(cfg, device, mesh)
+    step = make_train_step(cfg, mesh=mesh)
+    losses = []
+    for i in range(FT_PARITY_STEPS):
+        losses.append(step(state, (_ft_rows(x, mesh, device), _ft_rows(y, mesh, device)))
+                      ["loss"].item())
+        if i == 0:
+            grads, params = _ft_whole(mesh, state.params, True), _ft_whole(mesh, state.params)
+    del state
+    out = {"losses": losses}
+    if mesh.rank == 0:
+        ref = _ft_state(cfg, device)
+        before = {n: p.detach().clone() for n, p in convert.flatten(ref.params).items()}
+        rstep = make_train_step(cfg)
+        ref_losses = []
+        for i in range(FT_PARITY_STEPS):
+            ref_losses.append(rstep(ref, (x.to(device), y.to(device)))["loss"].item())
+            if i == 0:
+                rgrads = {n: p.grad for n, p in convert.flatten(ref.params).items()}
+                rparams = {n: p.detach().clone() for n, p in convert.flatten(ref.params).items()}
+        rel = {n: ((grads[n] - g).norm() / g.norm().clamp_min(1e-30)).item()
+               for n, g in rgrads.items()}
+        total = (torch.stack([(grads[n] - g).norm() for n, g in rgrads.items()]).norm()
+                 / torch.stack([g.norm() for g in rgrads.values()]).norm()).item()
+        steady_err = max(((params[n] - w).abs()[rgrads[n].abs() > FT_STEADY_GRAD].max().item()
+                          if (rgrads[n].abs() > FT_STEADY_GRAD).any() else 0.0)
+                         for n, w in rparams.items())
+        out.update(ref_losses=ref_losses, grad_rel_err=rel, grad_total_rel_err=total,
+                   param_max_abs_err_steady=steady_err,
+                   param_max_abs_err_all=max((params[n] - w).abs().max().item()
+                                             for n, w in rparams.items()),
+                   steady_share=(sum(int((rgrads[n].abs() > FT_STEADY_GRAD).sum())
+                                     for n in rgrads)
+                                 / sum(g.numel() for g in rgrads.values())),
+                   update_max_abs=max((rparams[n] - before[n]).abs().max().item()
+                                      for n in before))
+        del ref, rgrads, rparams, before
+    del grads, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _ft_main(mesh, device):
+    """The main path: GPT-2 124M, T 1024, global batch FT_BATCH, bf16, the
+    split backward; one warm-up step, then FT_STEPS steps with the launch
+    counts set to 0 just before and read just after, each step's wall ms
+    and the ms spent in collectives (the device synchronised before each,
+    so it is host traffic alone), the q shapes K1 saw, the bytes this rank
+    holds against the unsharded tree's, and the downgrade counter."""
+    from mingpt_distributed_tpu_torch import telemetry
+    from mingpt_distributed_tpu_torch.ops import flash_attention as fa
+    from mingpt_distributed_tpu_torch.parallel import distributed as D
+    from mingpt_distributed_tpu_torch.training.trainer import make_train_step
+
+    cfg = _ft_config(None, "bfloat16")
+    state = _ft_state(cfg, device, mesh)
+    step = make_train_step(cfg, mesh=mesh)
+    x, y = _ft_batch(12, FT_BATCH)
+    batch = (_ft_rows(x, mesh, device), _ft_rows(y, mesh, device))
+    losses = [step(state, batch)["loss"].item()]  # warm-up
+    spent = {"s": 0.0, "calls": 0}
+    shapes = set()
+    real = {"_exchange": D._exchange, "all_reduce": D.all_reduce}
+    real_attention = fa.causal_attention
+
+    def timed_collective(fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent["s"] += time.perf_counter() - t0
+                spent["calls"] += 1
+        return run
+
+    def causal_attention(q, *args, **kwargs):
+        shapes.add(tuple(q.shape))
+        return real_attention(q, *args, **kwargs)
+
+    for name, fn in real.items():
+        setattr(D, name, timed_collective(fn))
+    fa.causal_attention = causal_attention
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    seconds = []
+    try:
+        for _ in range(FT_STEPS):
+            t0 = time.perf_counter()
+            m = step(state, batch)
+            losses.append(m["loss"].item())
+            seconds.append(time.perf_counter() - t0)
+        counts = read_counts()
+    finally:
+        for name, fn in real.items():
+            setattr(D, name, fn)
+        fa.causal_attention = real_attention
+    opt = state.optimizer
+    moments = opt.adam_state()
+    held = sum(p.numel() * p.element_size() for p in opt.params)
+    whole = sum(math.prod(mesh.full_shapes[n]) * 4 for n in opt.names)
+    fam = telemetry.get_registry().counter("mingpt_train_sharding_downgrades_total",
+                                           labels=("param",))
+    out = {"losses": losses, "seconds": seconds, "collective_s": spent["s"],
+           "collective_calls": spent["calls"], "launches": counts,
+           "q_shapes": sorted(shapes), "grad_norm": m["grad_norm"].item(),
+           "param_bytes": held, "param_bytes_unsharded": whole,
+           "moment_bytes": sum(t.numel() * t.element_size()
+                               for d in (moments["mu"], moments["nu"]) for t in d.values()),
+           "moment_bytes_unsharded": 2 * whole,
+           "param_bytes_by_rule": ft_rule_bytes(mesh.full_shapes),
+           "downgraded_leaves": {n: list(s) for n, s in mesh.specs.items()
+                                 if s != mesh_lib_spec(n, len(s))},
+           "downgrades": {lab["param"]: child.value for lab, child in fam.children()},
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated()}
+    del state, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def ft_rule_bytes(full_shapes, mesh=FT_MESH):
+    """The float32 bytes one rank should hold, worked from PARAM_RULES and
+    the leaves' whole shapes alone: each dimension split by its axis's
+    extent where that divides it, kept whole where it does not."""
+    total = 0
+    for path, shape in full_shapes.items():
+        n = math.prod(shape)
+        for size, axis in zip(shape, mesh_lib_spec(path, len(shape))):
+            extent = mesh.get(axis, 1) if axis else 1
+            if size % extent == 0:
+                n //= extent
+        total += 4 * n
+    return total
+
+
+def mesh_lib_spec(path, ndim):
+    """A leaf's PARAM_RULES spec padded to ``ndim`` (before downgrades)."""
+    from mingpt_distributed_tpu_torch.parallel.mesh import PARAM_RULES
+
+    spec = PARAM_RULES[path.rsplit("/", 1)[-1]]
+    return tuple(spec) + (None,) * (ndim - len(spec))
+
+
+def ft_rank(rank):
+    """One of the FT_RANKS ranks (dp 1 x fsdp 2 x tp 2, sharing cuda:0 over
+    gloo): the fp32 parity leg, then the main path."""
+    from mingpt_distributed_tpu_torch.config import MeshConfig
+    from mingpt_distributed_tpu_torch.parallel.mesh import Mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    mesh = Mesh(MeshConfig(**FT_MESH))
+    return {"parity": _ft_parity(mesh, device), "main": _ft_main(mesh, device),
+            "coords": {"fsdp": mesh.fsdp_rank, "tp": mesh.tp_rank}}
+
+
+def ft_checks(ranks, card, seconds):
+    """The fsdp_tp records and the message of every check they fail."""
+    fails = []
+    par = ranks[0]["parity"]
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(par["losses"], par["ref_losses"])]
+    rel = {n: v for n, v in par["grad_rel_err"].items() if n not in ZERO_GRAD_PARAMS}
+    records = [{"phase": "fsdp_tp_parity_fp32", "mesh": FT_MESH, "ranks": FT_RANKS,
+                "layers": FT_PARITY_LAYERS, "global_batch": FT_PARITY_BATCH, "seq": FT_T,
+                "losses": par["losses"], "single_process_losses": par["ref_losses"],
+                "loss_rel_err": loss_rel, "loss_rel_tol": FT_LOSS_REL_TOL,
+                "grad_max_rel_err": max(rel.values()), "grad_worst_param": max(rel, key=rel.get),
+                "grad_total_rel_err": par["grad_total_rel_err"],
+                "grad_rel_tol": GRAD_FP32_REL_TOL,
+                "param_max_abs_err_steady": par["param_max_abs_err_steady"],
+                "param_max_abs_err_all": par["param_max_abs_err_all"],
+                "steady_share": par["steady_share"], "param_atol": FT_PARAM_ATOL,
+                "update_max_abs": par["update_max_abs"], "card": card}]
+    if any(r["parity"]["losses"] != par["losses"] for r in ranks[1:]):
+        fails.append("fsdp_tp parity: the ranks' losses differ")
+    if not all(v <= FT_LOSS_REL_TOL for v in loss_rel):
+        fails.append(f"fsdp_tp parity: loss rel err {loss_rel}")
+    if not (max(rel.values()) <= GRAD_FP32_REL_TOL
+            and par["grad_total_rel_err"] <= GRAD_FP32_REL_TOL):
+        fails.append(f"fsdp_tp parity: gradient rel err {max(rel.values())} "
+                     f"({max(rel, key=rel.get)}), total {par['grad_total_rel_err']}")
+    if not par["param_max_abs_err_all"] <= FT_PARAM_ATOL:
+        fails.append(f"fsdp_tp parity: post-update params {par['param_max_abs_err_all']}")
+
+    main = [r["main"] for r in ranks]
+    want = expected(flash_fwd=FT_PER_STEP * FT_STEPS, flash_bwd_prep=FT_PER_STEP * FT_STEPS,
+                    flash_bwd_dq=FT_PER_STEP * FT_STEPS, flash_bwd_dkv=FT_PER_STEP * FT_STEPS)
+    local = (FT_BATCH // FT_MESH["fsdp"], FT_T, 12 // FT_MESH["tp"], 64)
+    step_s = sum(sum(m["seconds"]) for m in main) / (FT_RANKS * FT_STEPS)
+    coll_s = sum(m["collective_s"] for m in main) / (FT_RANKS * FT_STEPS)
+    m0 = main[0]
+    records.append({
+        "phase": "fsdp_tp_train_step", "main_path": True, "model": "gpt2 124M",
+        "mesh": FT_MESH, "ranks": FT_RANKS, "backend": "gloo, one shared card",
+        "global_batch": FT_BATCH, "seq": FT_T, "dtype": "bfloat16", "steps": FT_STEPS,
+        "flash_fused_bwd": False, "losses": m0["losses"],
+        "step_ms": step_s * 1e3, "collective_ms_per_step": coll_s * 1e3,
+        "collective_calls_per_step": m0["collective_calls"] / FT_STEPS,
+        "step_ms_per_rank": [sum(m["seconds"]) / FT_STEPS * 1e3 for m in main],
+        "shared_card_tokens_per_s": FT_BATCH * FT_T / step_s,
+        "throughput_note": "shared-card, not multi-GPU throughput: 4 gloo ranks on one "
+                           "H100, collectives through host memory",
+        "launches_per_rank": [m["launches"] for m in main], "launches_want": want,
+        "launches_per_rank_per_step": {k: v / FT_STEPS for k, v in m0["launches"].items()
+                                       if v},
+        "attention_q_shapes": m0["q_shapes"], "local_attention_shape": list(local),
+        "param_bytes_per_rank": [m["param_bytes"] for m in main],
+        "param_bytes_unsharded": m0["param_bytes_unsharded"],
+        "param_share": [m["param_bytes"] / m["param_bytes_unsharded"] for m in main],
+        "moment_bytes_per_rank": [m["moment_bytes"] for m in main],
+        "moment_bytes_unsharded": m0["moment_bytes_unsharded"],
+        "downgraded_leaves": m0["downgraded_leaves"], "downgrade_counter": m0["downgrades"],
+        "peak_allocated_bytes_per_rank": [m["peak_allocated_bytes"] for m in main],
+        "spawn_seconds": seconds, "card": card})
+    fails += [f"fsdp_tp launches {m['launches']}, want {want}"
+              for m in main if m["launches"] != want]
+    if m0["q_shapes"] != [local]:
+        fails.append(f"fsdp_tp: K1 saw q shapes {m0['q_shapes']}, want {[local]}")
+    if any(m["losses"] != m0["losses"] for m in main[1:]):
+        fails.append("fsdp_tp: the ranks' losses differ")
+    if not all(math.isfinite(v) for v in m0["losses"]) or not m0["losses"][-1] < m0["losses"][0]:
+        fails.append(f"fsdp_tp: losses {m0['losses']}")
+    if m0["downgrades"] != {"wte": 1.0, "head": 1.0}:
+        fails.append(f"fsdp_tp: downgrade counter {m0['downgrades']}")
+    for m in main:
+        if m["param_bytes"] != m["param_bytes_by_rule"]:
+            fails.append(f"fsdp_tp: rank holds {m['param_bytes']} parameter bytes, "
+                         f"want {m['param_bytes_by_rule']}")
+        if m["moment_bytes"] != 2 * m["param_bytes"]:
+            fails.append(f"fsdp_tp: moments {m['moment_bytes']} != 2 x params")
+    return records, fails
+
+
+def phase_fsdp_tp(card):
+    """The fsdp x tp slice on FT_RANKS ranks sharing the card, spawned once.
+    Returns rank 0's main-path launch counts."""
+    from mingpt_distributed_tpu_torch.parallel.spawn import run_ranks
+
+    t0 = time.perf_counter()
+    with fused_switch(False):  # the ranks inherit it: K2a/K2b
+        ranks = run_ranks(ft_rank, FT_RANKS, timeout_s=600)
+    records, fails = ft_checks(ranks, card, time.perf_counter() - t0)
+    for rec in records:
+        emit(rec)
+    check(not fails, "; ".join(fails))
+    return ranks[0]["main"]["launches"]
+
+
+def phase_fsdp_tp_times(fa, card):
+    """K1, the prep pass, K2a and K2b at the fsdp x tp main path's local
+    attention shape (8, 1024, 6, 64), bf16: kernel, plain version and SDPA
+    times with their bounds (time lines, shape_of "fsdp_tp")."""
+    b, t, h, hd = FT_BATCH // FT_MESH["fsdp"], FT_T, 12 // FT_MESH["tp"], 64
+    dtype, scale = torch.bfloat16, 1.0 / math.sqrt(64)
+    q, k, v = make_qkv(b, t, h, h, hd, dtype, seed=900)
+    g = torch.Generator(device="cuda").manual_seed(901)
+    do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+    with preserved_counts(), fused_switch(False):
+        out, lse = fa.flash_fwd(q, k, v, scale=scale)
+        delta = fa.flash_bwd_prep(out, do)
+        fwd_ms = cuda_ms(lambda: fa.flash_fwd(q, k, v, scale=scale))
+        prep_ms = cuda_ms(lambda: fa.flash_bwd_prep(out, do))
+        dq_ms = cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, scale=scale))
+        dkv_ms = cuda_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale=scale))
+    fwd_plain = cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, scale=scale), iters=3)
+    prep_plain = cuda_ms(lambda: fa.flash_bwd_prep_plain(out, do), iters=3)
+    bwd_plain = cuda_ms(lambda: fa.flash_bwd_plain(q, k, v, out, lse, do, scale=scale),
+                        iters=3)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    fwd_lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    bwd_lib = cuda_ms(sdpa_backward(q, k, v, do))
+    bwd_is = ("flash_bwd_plain (dq, dk and dv)", "SDPA backward (dq, dk and dv)")
+    rows = emit_times((("flash_fwd", fwd_ms, fwd_plain, "flash_fwd_plain", fwd_lib,
+                        "SDPA forward"),
+                       ("flash_bwd_prep", prep_ms, prep_plain, "flash_bwd_prep_plain (delta)",
+                        None, "none: no one PyTorch call sums out * dO in float32"),
+                       ("flash_bwd_dq", dq_ms, bwd_plain, bwd_is[0], bwd_lib, bwd_is[1]),
+                       ("flash_bwd_dkv", dkv_ms, bwd_plain, bwd_is[0], bwd_lib, bwd_is[1])),
+                      (b, t, h, h, hd), dtype, "fsdp_tp", card)
+    del q, k, v, do, out, lse, delta
+    torch.cuda.empty_cache()
+    return rows
+
+
+# The time this slice's phases may take together, and the whole smoke, in
+# seconds of the command (the smoke must end well inside 900 s).
+ADDED_PHASES_BUDGET_S = 150.0
+SMOKE_BUDGET_S = 780.0
+
+
+def budget_record(added_seconds, smoke_seconds):
+    """The budget line: each added phase's seconds, their total and the
+    whole smoke's, each against its budget (reported; a slow host is not a
+    failed check)."""
+    total = sum(added_seconds.values())
+    return {"phase": "smoke_budget", **{f"{k}_s": v for k, v in added_seconds.items()},
+            "added_total_s": total, "added_budget_s": ADDED_PHASES_BUDGET_S,
+            "added_within_budget": total <= ADDED_PHASES_BUDGET_S,
+            "smoke_s": smoke_seconds, "smoke_budget_s": SMOKE_BUDGET_S,
+            "smoke_within_budget": smoke_seconds <= SMOKE_BUDGET_S}
+
+
+# ---------------------------------------------------------------------------
 # phase 5: times
 # ---------------------------------------------------------------------------
 
@@ -4589,13 +5259,17 @@ def _main() -> int:
     t0 = time.perf_counter()
     fleet_launches["traffic"] = phase_traffic(model32.params, card)
     seconds["traffic"] = time.perf_counter() - t0
+    added_seconds = {}
+    t0 = time.perf_counter()
+    fleet_launches["traffic_controller"] = phase_traffic_controller(model32.params, card)
+    added_seconds["traffic_controller"] = time.perf_counter() - t0
     # the process fleet: worker subprocesses, each its own CUDA context
     t0 = time.perf_counter()
     fleet_launches["procfleet_parity_loopback"], proc_parity, workers = phase_procfleet_parity(
         model32.params, card, tmp, then=lambda: procfleet_workers(tmp))
     new_seconds["procfleet_parity"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    phase_procfleet(model32.params, card, serve, fleet_rec, workers.result())
+    procfleet_rec = phase_procfleet(model32.params, card, serve, fleet_rec, workers.result())
     new_seconds["procfleet"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     _, mesh = phase_standby(model32.params, card, proc_parity["cold_recovery"], tmp,
@@ -4604,6 +5278,9 @@ def _main() -> int:
     t0 = time.perf_counter()
     fleet_launches["crosshost_traffic_rung"], _ = phase_crosshost(card, mesh.result())
     new_seconds["crosshost"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_autoscale(model32.params, card, tmp, procfleet_rec, fleet_rec)
+    added_seconds["autoscale"] = time.perf_counter() - t0
     del model32
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -4623,13 +5300,22 @@ def _main() -> int:
         train_argv = phase_train_entry(card, tmp)
         seconds["train_cli"] = time.perf_counter() - t0
         phase_train_telemetry(card, train_argv, tmp)
-        phase_serve_cli(card, train_argv, tmp, new_seconds)
+        plain_texts = phase_serve_cli(card, train_argv, tmp, new_seconds)
+        t0 = time.perf_counter()
+        phase_serve_cli_autoscale(card, train_argv, tmp, plain_texts)
+        added_seconds["serve_cli_autoscale"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     sp_counts = phase_sp(card)
+    t0 = time.perf_counter()
+    ft_counts = phase_fsdp_tp(card)
+    added_seconds["fsdp_tp"] = time.perf_counter() - t0
     proto_counts = phase_proto(nh, card)
     emit_clocks("before times")
     rows = phase_times(fa, card)
+    t0 = time.perf_counter()
+    phase_fsdp_tp_times(fa, card)
+    added_seconds["fsdp_tp_times"] = time.perf_counter() - t0
     rows.update(phase_lse_times(fa, card))
     rows.update(phase_nh_times(nh, card))
     exp_counts, rows["exp_chain"] = phase_exp_tool(ex, card)
@@ -4683,6 +5369,7 @@ def _main() -> int:
           f"a kernel never ran on its path: {[k['name'] for k in line]}")
     emit({"phase": "launches_by_path", "train_step": split["launches"],
           "train_step_fused": fused["launches"], "sp_train_step_rank0": sp_counts,
+          "fsdp_tp_train_step_rank0": ft_counts,
           "proto_nh_kernel": proto_counts, "exp_exp2": exp_counts,
           "generate_sliding_bf16": {"flash_fwd": generate_launches},
           "serve": serve["launches"],
@@ -4701,6 +5388,7 @@ def _main() -> int:
     emit({"phase": "new_phase_seconds", **new_seconds,
           "total": sum(new_seconds.values()),
           "smoke_so_far": time.perf_counter() - smoke_t0})
+    emit(budget_record(added_seconds, time.perf_counter() - smoke_t0))
     print(card_line(), flush=True)
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",

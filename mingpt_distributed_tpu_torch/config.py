@@ -265,8 +265,8 @@ class OptimizerConfig:
 @dataclass
 class MeshConfig:
     """The JAX package's device-mesh shape: pp, dp, fsdp, ep, tp, sp; -1
-    absorbs the remaining devices (here: processes). The port runs dp x sp
-    (``TrainerConfig.check_ported``)."""
+    absorbs the remaining devices (here: processes). The port runs dp x fsdp
+    x tp and dp x sp (``TrainerConfig.check_ported``)."""
 
     pp: int = 1
     dp: int = -1
@@ -284,7 +284,6 @@ class MeshConfig:
 # the ROADMAP.md item that brings it.
 UNPORTED_TRAINER_OPTIONS = {
     "zero_dp": "Queue 1 item 10 (parallel/zero.py)",
-    "msgpack_gather_limit_mb": "Queue 1 item 8 (multi-process saves)",
 }
 
 
@@ -343,9 +342,9 @@ class TrainerConfig:
 
     def check_ported(self, world_size: int = 1) -> None:
         """Raise NotImplementedError for an option this slice does not run:
-        a non-default value of an unported option, or a mesh axis other
-        than dp and sp above 1; ValueError when dp x sp does not come to
-        ``world_size`` processes."""
+        a non-default value of an unported option, or a mesh the port does
+        not run (``parallel.mesh.check_axes``); ValueError when the mesh does
+        not come to ``world_size`` processes."""
         from mingpt_distributed_tpu_torch.parallel import mesh as mesh_lib
 
         defaults = TrainerConfig()
@@ -359,8 +358,8 @@ class TrainerConfig:
             dims = mesh_lib.resolve_mesh_shape(self.mesh, world_size)
         except ValueError as e:
             raise ValueError(
-                f"{e} processes: launch dp x sp processes with python -m "
-                "torch.distributed.run --nproc-per-node N") from None
+                f"{e} processes: launch one process per mesh device with "
+                "python -m torch.distributed.run --nproc-per-node N") from None
         mesh_lib.check_axes(dict(zip(mesh_lib.AXES, dims)))
 
 

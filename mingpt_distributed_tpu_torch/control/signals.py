@@ -1,9 +1,8 @@
 """Control signals: one typed snapshot of fleet state per control tick.
 
 Counterpart of ``mingpt_distributed_tpu/control/signals.py``. The
-controller that consumes the snapshots is ROADMAP.md Queue 1 item 15c; the
-traffic lab's ``health`` policy binds :class:`FleetSignalsView` now. The
-controller decides from ONE immutable view of the fleet, sampled on the injected clock — never from ad-hoc pokes at router
+controller (controller.py) decides from ONE immutable view of the fleet,
+sampled on the injected clock — never from ad-hoc pokes at router
 internals scattered through the decision code. :class:`SignalSampler`
 is that seam: it subscribes to the router's finish hook to maintain
 rolling windows (TTFT, deadline outcomes — *rolling*, not cumulative,

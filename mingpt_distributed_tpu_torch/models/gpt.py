@@ -18,6 +18,21 @@ start at ``sp_rank * T_local``, which GSPMD does implicitly in the JAX
 package; ``loss_terms`` returns the rank's token sum and count for the
 trainer's global mean.
 
+Parameter and tensor parallelism (a ``parallel.mesh.Mesh`` with fsdp or tp
+above 1, whose ``shard_params`` made ``params`` this rank's slices): each
+block gathers its layer's weights over fsdp just before it runs (under
+``remat`` again in the backward), and ``wte``, ``wpe``, ``head`` and the
+final norm are gathered whole. When ``mesh.tp_manual(cfg)`` the blocks run
+the Megatron recipe, as the JAX package's manual-tp block does: each tp rank
+holds ``n_head/tp`` query heads, ``kv_heads/tp`` KV heads and ``ffn/tp`` MLP
+columns (wq, wk, wv, w_fc, w_gate and w_up column-parallel, wo, w_proj and
+w_down row-parallel), attention runs on the local heads, and each residual
+branch sums its partial outputs over tp once, before its output bias.
+Otherwise tp gathers the weights whole and every tp rank computes alike.
+Residual and embedding dropout draw the same masks on every tp rank (the
+activations are replicated); attention dropout on a rank's own heads draws
+its own (the tp rank mixed into its seed).
+
 Mixture-of-experts blocks (``n_experts > 0``, ``ops/moe.py``) replace the
 dense MLP with routed experts: the leaves ``w_router``, ``w_e1``, ``w_e2``
 and, with SwiGLU, ``w_eg``; the loss adds ``moe_aux_weight * aux /
@@ -33,6 +48,7 @@ import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from mingpt_distributed_tpu_torch.config import GPTConfig
@@ -40,6 +56,7 @@ from mingpt_distributed_tpu_torch.ops import attention as attn_ops
 from mingpt_distributed_tpu_torch.ops import flash_attention
 from mingpt_distributed_tpu_torch.ops import layers as L
 from mingpt_distributed_tpu_torch.ops import moe
+from mingpt_distributed_tpu_torch.parallel import distributed as D
 from mingpt_distributed_tpu_torch.parallel import ring_attention, ulysses
 
 Params = Dict[str, Any]
@@ -145,11 +162,12 @@ def init(cfg: GPTConfig, generator: torch.Generator,
 
 def check_supported(cfg: GPTConfig, across_processes: bool = False) -> None:
     """Raise for what this port does not run yet: mixture-of-experts blocks
-    across processes, where each rank would route only its own rows."""
+    across processes, where each rank would route only its own rows (and
+    MoE beside fsdp or tp)."""
     if cfg.n_experts and across_processes:
         raise NotImplementedError(
-            "mixture-of-experts across processes (dp, sp or ep > 1) is not "
-            "ported yet (ROADMAP.md Queue 1 item 12b)")
+            "mixture-of-experts across processes (dp, fsdp, tp, sp or ep > 1) "
+            "is not ported yet (ROADMAP.md Queue 1 item 12b)")
 
 
 def _attention_dispatch(cfg: GPTConfig, mesh=None) -> Callable[..., torch.Tensor]:
@@ -186,11 +204,28 @@ def _block(
     mesh=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One pre-LN transformer block: x + attn(ln1(x)); x + mlp(ln2(x)).
-    Returns (x, the MoE aux loss, or None for a dense MLP)."""
+    Returns (x, the MoE aux loss, or None for a dense MLP). With a sharded
+    ``mesh``, ``blk`` holds this rank's slices of the layer's weights: they
+    are gathered here, and under ``mesh.tp_manual`` the block runs the
+    Megatron recipe on this rank's heads and columns."""
     b, t, d = x.shape
     nh, kv, hd = cfg.n_head, cfg.kv_heads, cfg.head_dim
+    tp_group = None
+    if _sharded(mesh):
+        manual = mesh.tp_manual(cfg)
+        blk = {k: mesh.gather(f"blocks/{k}", v, keep_tp=manual, layer=True)
+               for k, v in blk.items()}
+        if manual:
+            tp_group = mesh.tp_group
+            nh, kv = nh // mesh.tp, kv // mesh.tp
+    attn_gen = generator
+    if tp_group is not None and generator is not None and not deterministic:
+        attn_gen = torch.Generator(device=generator.device).manual_seed(
+            D.mix_seed(D.dropout_base(generator), mesh.tp_rank))
 
     h = _norm(x, blk["ln1_scale"], blk.get("ln1_bias"), cfg)
+    if tp_group is not None:
+        h = D.copy_to_group(h, tp_group)
     q = L.dense(h, blk["wq"], blk.get("bq")).reshape(b, t, nh, hd)
     k = L.dense(h, blk["wk"], blk.get("bk")).reshape(b, t, kv, hd)
     v = L.dense(h, blk["wv"], blk.get("bv")).reshape(b, t, kv, hd)
@@ -206,34 +241,46 @@ def _block(
     att = _attention_dispatch(cfg, mesh)(
         q, k, v,
         attn_pdrop=cfg.attn_pdrop,
-        generator=generator,
+        generator=attn_gen,
         deterministic=deterministic,
         **attn_kw,
     ).reshape(b, t, nh * hd)
-    att = L.dense(att, blk["wo"], blk.get("bo"))
+    att = _row_parallel(att, blk["wo"], blk.get("bo"), tp_group)
     x = x + L.dropout(att, cfg.resid_pdrop, generator, deterministic)
 
     h2 = _norm(x, blk["ln2_scale"], blk.get("ln2_bias"), cfg)
-    m, aux = mlp(h2, blk, cfg)
+    if tp_group is not None:
+        h2 = D.copy_to_group(h2, tp_group)
+    m, aux = mlp(h2, blk, cfg, tp_group=tp_group)
     return x + L.dropout(m, cfg.resid_pdrop, generator, deterministic), aux
 
 
-def mlp(h: torch.Tensor, blk: Params, cfg: GPTConfig, per_row: bool = False
-        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+def _row_parallel(h, w, b, tp_group):
+    """h @ w + b; under tensor parallelism h and w hold this rank's columns
+    and rows, so the partial products are summed over tp before the bias
+    (added once, not tp times)."""
+    if tp_group is None:
+        return L.dense(h, w, b)
+    y = D.sum_from_group(L.dense(h, w), tp_group)
+    return y if b is None else y + b.to(y.dtype)
+
+
+def mlp(h: torch.Tensor, blk: Params, cfg: GPTConfig, per_row: bool = False,
+        tp_group=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The block's MLP on ln2's output: routed experts (``per_row``: each
     batch row routed on its own, ``moe.moe_mlp``), SwiGLU or GELU. Returns
-    (out, the MoE aux loss, or None for a dense MLP)."""
+    (out, the MoE aux loss, or None for a dense MLP). With ``tp_group`` the
+    weights are this tp rank's columns and rows (``_row_parallel``)."""
     if cfg.n_experts:
         return moe.moe_mlp(h, blk["w_router"], blk["w_e1"], blk["w_e2"],
                            top_k=cfg.moe_top_k,
                            capacity_factor=cfg.moe_capacity_factor,
                            w_gate=blk.get("w_eg"), per_row=per_row)
     if cfg.swiglu:
-        m = L.mlp_swiglu(h, blk["w_gate"], blk["w_up"], blk["w_down"])
-    else:
-        m = L.mlp_gelu(h, blk["w_fc"], blk.get("b_fc"), blk["w_proj"],
-                       blk.get("b_proj"))
-    return m, None
+        inner = F.silu(L.dense(h, blk["w_gate"])) * L.dense(h, blk["w_up"])
+        return _row_parallel(inner, blk["w_down"], None, tp_group), None
+    inner = L.gelu(L.dense(h, blk["w_fc"], blk.get("b_fc")))
+    return _row_parallel(inner, blk["w_proj"], blk.get("b_proj"), tp_group), None
 
 
 def layer_params(params: Params, layer: int) -> Params:
@@ -273,16 +320,33 @@ def _remat_block(x, blk, cfg, rope, generator, deterministic, mesh=None):
     return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 
 
-def head_logits(params: Params, x: torch.Tensor, cfg: GPTConfig) -> torch.Tensor:
+def head_logits(params: Params, x: torch.Tensor, cfg: GPTConfig,
+                mesh=None) -> torch.Tensor:
     """LM head over (B, T, D) hidden states -> (B, T, V) float32 logits
     (``_head_matmul``), with the final softcap when configured: the one head
     of the forward, the chunked loss and decoding."""
-    return attn_ops.softcap(_head_matmul(x, _head_weight(params, cfg)),
+    return attn_ops.softcap(_head_matmul(x, _head_weight(params, cfg, mesh)),
                             cfg.final_logit_softcap)
 
 
-def _head_weight(params: Params, cfg: GPTConfig) -> torch.Tensor:
-    return params["wte"].t() if cfg.tie_weights else params["head"]
+def _head_weight(params: Params, cfg: GPTConfig, mesh=None) -> torch.Tensor:
+    if cfg.tie_weights:
+        return _whole(params, "wte", mesh).t()
+    return _whole(params, "head", mesh)
+
+
+def _whole(params: Params, name: str, mesh) -> Optional[torch.Tensor]:
+    """A top-level leaf, gathered whole from its slices under a sharded
+    mesh (None when the config has no such leaf)."""
+    leaf = params.get(name)
+    if leaf is None or not _sharded(mesh):
+        return leaf
+    return mesh.gather(name, leaf)
+
+
+def _sharded(mesh) -> bool:
+    """Whether ``mesh`` splits the parameters (fsdp or tp above 1)."""
+    return getattr(mesh, "sharded", False)
 
 
 def forward(
@@ -309,10 +373,10 @@ def forward(
     x, aux = _hidden(params, tokens, cfg, generator, deterministic, mesh)
     nc = _loss_chunks(cfg, tokens.shape[1])
     if targets is not None and not return_logits and nc > 1:
-        loss = chunked_cross_entropy(x, _head_weight(params, cfg), targets, nc,
+        loss = chunked_cross_entropy(x, _head_weight(params, cfg, mesh), targets, nc,
                                      softcap=cfg.final_logit_softcap)
         return None, _with_aux(loss, aux, cfg)
-    logits = head_logits(params, x, cfg)
+    logits = head_logits(params, x, cfg, mesh)
     loss = None
     if targets is not None:
         loss = _with_aux(cross_entropy(logits, targets), aux, cfg)
@@ -339,9 +403,9 @@ def _hidden(params, tokens, cfg, generator, deterministic, mesh):
     if not deterministic and generator is None:
         raise ValueError("training-mode forward needs a torch.Generator")
 
-    x = params["wte"][tokens]  # (B, T, D) fp32 gather
+    x = _whole(params, "wte", mesh)[tokens]  # (B, T, D) fp32 gather
     if not cfg.rope:
-        x = x + params["wpe"][pos0:pos0 + t]
+        x = x + _whole(params, "wpe", mesh)[pos0:pos0 + t]
     x = L.dropout(x, cfg.embd_pdrop, generator, deterministic)
     x = x.to(compute_dtype(cfg))
 
@@ -354,7 +418,8 @@ def _hidden(params, tokens, cfg, generator, deterministic, mesh):
     for blk in _unstack(params["blocks"]):
         x, a = block(x, blk, cfg, rope, generator, deterministic, mesh)
         aux = a if aux is None else aux + a
-    return _norm(x, params["lnf_scale"], params.get("lnf_bias"), cfg), aux
+    return _norm(x, _whole(params, "lnf_scale", mesh), _whole(params, "lnf_bias", mesh),
+                 cfg), aux
 
 
 def _loss_chunks(cfg: GPTConfig, t: int) -> int:
@@ -381,7 +446,7 @@ def loss_terms(
     check_supported(cfg, across_processes=True)
     x, _ = _hidden(params, tokens, cfg, generator, deterministic, mesh)
     nc = _loss_chunks(cfg, tokens.shape[1])
-    w = _head_weight(params, cfg)
+    w = _head_weight(params, cfg, mesh)
     count = (targets != -1).sum()
     if nc > 1:
         return chunked_cross_entropy_sum(x, w, targets, nc,

@@ -4,8 +4,12 @@ Counterpart of ``mingpt_distributed_tpu/parallel/distributed.py`` (the
 runtime's lifecycle) and of the collectives XLA inserts for the JAX
 package: ``lax.ppermute`` and ``lax.all_to_all`` become the differentiable
 ``ppermute`` and ``all_to_all`` here, each a ``torch.autograd.Function``
-whose backward is the inverse exchange; ``all_reduce`` sums gradients and
-loss terms.
+whose backward is the inverse exchange; ``all_gather`` and
+``reduce_scatter`` are each other's backward (fsdp's parameter gather and
+gradient reduce-scatter); ``gather_replicated``, ``copy_to_group`` and
+``sum_from_group`` are tensor parallelism's (a gather whose backward keeps
+this rank's slice, and Megatron's f and g); ``all_reduce`` sums gradients
+and loss terms.
 
 ``initialize(backend)`` joins the job that ``torch.distributed.run`` (or
 ``spawn.run_ranks``) describes in the environment (RANK, WORLD_SIZE,
@@ -245,24 +249,114 @@ def all_to_all(x: torch.Tensor, group, split_axis: int, concat_axis: int
     return _AllToAll.apply(group, split_axis, concat_axis, x)
 
 
+def gather_tensor(x: torch.Tensor, group, axis: int) -> torch.Tensor:
+    """All-gather along ``axis`` in rank order (no gradient)."""
+    return torch.cat(_all_to_all(group, [x] * _group_size(group)), axis)
+
+
+def _reduce_scatter(group, x: torch.Tensor, axis: int) -> torch.Tensor:
+    """x cut into n pieces along ``axis``; rank r gets the sum over the
+    group of everyone's piece r (no gradient)."""
+    parts = _all_to_all(group, _split(x, _group_size(group), axis))
+    return torch.stack(parts).sum(0)
+
+
 class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, group, axis, x):
         ctx.group, ctx.axis = group, axis
-        n = _group_size(group)
-        return torch.cat(_all_to_all(group, [x] * n), axis)
+        return gather_tensor(x, group, axis)
 
     @staticmethod
     def backward(ctx, g):
-        n = _group_size(ctx.group)
-        parts = _all_to_all(ctx.group, _split(g, n, ctx.axis))
-        return None, None, torch.stack(parts).sum(0)
+        return None, None, _reduce_scatter(ctx.group, g, ctx.axis)
 
 
 def all_gather(x: torch.Tensor, group, axis: int) -> torch.Tensor:
     """Differentiable all-gather along ``axis`` in rank order; its backward
-    sums each rank's slice of the gradient over the group."""
+    is the reduce-scatter: each rank's slice of the gradient summed over the
+    group (the ranks computed on different data)."""
     return _AllGather.apply(group, axis, x)
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, axis, x):
+        ctx.group, ctx.axis = group, axis
+        return _reduce_scatter(group, x, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, gather_tensor(g, ctx.group, ctx.axis)
+
+
+def reduce_scatter(x: torch.Tensor, group, axis: int) -> torch.Tensor:
+    """Differentiable reduce-scatter: x cut into n pieces along ``axis``,
+    rank r gets piece r summed over the group. Its backward is the
+    all-gather."""
+    return _ReduceScatter.apply(group, axis, x)
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, axis, x):
+        ctx.axis, ctx.n, ctx.me = axis, _group_size(group), _group_rank(group)
+        return gather_tensor(x, group, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, None, g.chunk(ctx.n, ctx.axis)[ctx.me].contiguous()
+
+
+def gather_replicated(x: torch.Tensor, group, axis: int) -> torch.Tensor:
+    """All-gather along ``axis`` for a computation the group replicates (tp
+    ranks on the same rows): every rank's gradient of the whole is the same,
+    so the backward keeps this rank's slice and sends nothing."""
+    return _GatherReplicated.apply(group, axis, x)
+
+
+def _sum_over(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum over ``group`` of x, summed in float32, in x's dtype."""
+    y = x.float().contiguous()
+    if y is x:
+        y = y.clone()
+    all_reduce(y, group)
+    return y.to(x.dtype)
+
+
+class _CopyToGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, _sum_over(g, ctx.group)
+
+
+class _SumFromGroup(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, x):
+        return _sum_over(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's f: identity forward; the backward sums the gradient over
+    the group (each tp rank's column-parallel matmuls see only their
+    columns of the replicated input's gradient)."""
+    return _CopyToGroup.apply(group, x)
+
+
+def sum_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """Megatron's g: the forward sums the row-parallel partial outputs over
+    the group (in float32); the backward passes the replicated gradient
+    through."""
+    return _SumFromGroup.apply(group, x)
 
 
 def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:

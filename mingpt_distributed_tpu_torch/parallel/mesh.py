@@ -1,22 +1,39 @@
-"""The device mesh of a job of processes: each rank's (dp, sp) coordinates
-and the process groups of its sequence ring and its data-parallel replicas.
+"""The device mesh of a job of processes: each rank's coordinates, the
+process groups of its axes, and the parameter-sharding rules.
 
 Counterpart of ``mingpt_distributed_tpu/parallel/mesh.py``: the same six
-axes in the same order (``AXES``) and the same shape resolution
-(``resolve_mesh_shape``, -1 absorbs the remaining ranks), so a config's
-``trainer_config.mesh`` means here what it means there. A rank's
-coordinates follow the JAX mesh's device order: rank = dp_index * sp +
-sp_index. Only dp and sp run in the port so far; fsdp, tp, pp and ep above
-1 raise NotImplementedError naming their ROADMAP item, and the parameters
-stay replicated (``PARAM_RULES`` has no counterpart yet).
+axes in the same order (``AXES``), the same shape resolution
+(``resolve_mesh_shape``, -1 absorbs the remaining ranks) and the same
+``PARAM_RULES``, so a config's ``trainer_config.mesh`` means here what it
+means there. A rank's coordinates follow the JAX mesh's device order: the
+rank is the row-major index of its (pp, dp, fsdp, ep, tp, sp) coordinates.
+
+dp, fsdp, tp and sp run; pp and ep above 1 raise NotImplementedError naming
+their ROADMAP item, and sp above 1 beside fsdp or tp above 1 raises naming
+item 9b. The batch is split over dp and fsdp (``BATCH_AXES``; every tp rank
+of a group reads the same rows) and the sequence over sp.
+
+Parameter sharding (fsdp and tp): ``Mesh.shard_params`` keeps this rank's
+slice of every leaf, cut by its ``PARAM_RULES`` spec. A spec axis whose
+extent does not divide the dimension is downgraded to replication, logged
+once and counted once in ``mingpt_train_sharding_downgrades_total{param}``
+(GPT-2's vocabulary of 50257 downgrades the fsdp split of ``wte`` and
+``head``). ``Mesh.gather`` rebuilds a leaf for use: over fsdp with
+``distributed.all_gather`` (its backward a reduce-scatter: the fsdp ranks
+hold different rows), over tp with ``distributed.gather_replicated`` (its
+backward keeps this rank's slice: the computation is replicated over tp).
+The model gathers one layer's weights just before the layer runs; under
+Megatron tensor parallelism (``tp_manual``) the tp dimensions stay local.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
 from mingpt_distributed_tpu_torch.config import MeshConfig
@@ -26,9 +43,44 @@ AXES = ("pp", "dp", "fsdp", "ep", "tp", "sp")
 BATCH_AXES = ("dp", "fsdp", "ep")
 UNPORTED_AXES = {
     "pp": "Queue 1 item 12b (parallel/pipeline.py)",
-    "fsdp": "Queue 1 item 9 (parameter sharding)",
     "ep": "Queue 1 item 12b (expert parallelism)",
-    "tp": "Queue 1 item 9 (tensor parallelism)",
+}
+
+Spec = Tuple[Optional[str], ...]
+
+# name -> axes per dimension, the JAX package's rules (trailing dimensions
+# not named replicate). Block leaves carry a leading layer axis ("pp").
+# Column-parallel (d_model -> wide): input dim fsdp, output dim tp;
+# row-parallel (wide -> d_model): input dim tp, output dim fsdp.
+PARAM_RULES: Dict[str, Spec] = {
+    "wte": ("fsdp", "tp"),
+    "wpe": (),
+    "head": ("tp", "fsdp"),
+    "lnf_scale": (),
+    "lnf_bias": (),
+    "wq": ("pp", "fsdp", "tp"),
+    "wk": ("pp", "fsdp", "tp"),
+    "wv": ("pp", "fsdp", "tp"),
+    "wo": ("pp", "tp", "fsdp"),
+    "w_fc": ("pp", "fsdp", "tp"),
+    "w_gate": ("pp", "fsdp", "tp"),
+    "w_up": ("pp", "fsdp", "tp"),
+    "w_proj": ("pp", "tp", "fsdp"),
+    "w_down": ("pp", "tp", "fsdp"),
+    "bq": ("pp", "tp"),
+    "bk": ("pp", "tp"),
+    "bv": ("pp", "tp"),
+    "bo": ("pp",),
+    "b_fc": ("pp", "tp"),
+    "b_proj": ("pp",),
+    "ln1_scale": ("pp",),
+    "ln1_bias": ("pp",),
+    "ln2_scale": ("pp",),
+    "ln2_bias": ("pp",),
+    "w_router": ("pp",),
+    "w_e1": ("pp", "ep", "fsdp", "tp"),
+    "w_e2": ("pp", "ep", "tp", "fsdp"),
+    "w_eg": ("pp", "ep", "fsdp", "tp"),
 }
 
 
@@ -53,18 +105,89 @@ def resolve_mesh_shape(cfg: MeshConfig, n_devices: int) -> tuple[int, ...]:
 
 
 def check_axes(shape: Dict[str, int]) -> None:
-    """Raise NotImplementedError for an axis the port does not run yet."""
+    """Raise NotImplementedError for an axis, or a mix of axes, the port does
+    not run yet."""
     for ax, item in UNPORTED_AXES.items():
         if shape[ax] > 1:
             raise NotImplementedError(
                 f"mesh axis {ax}={shape[ax]} is not ported yet (ROADMAP.md "
-                f"{item}); the port runs dp x sp")
+                f"{item}); the port runs dp x fsdp x tp, or dp x sp")
+    if shape["sp"] > 1 and (shape["fsdp"] > 1 or shape["tp"] > 1):
+        raise NotImplementedError(
+            f"sp={shape['sp']} with fsdp={shape['fsdp']} x tp={shape['tp']} is "
+            "not ported yet (ROADMAP.md Queue 1 item 9b); the port runs dp x "
+            "fsdp x tp, or dp x sp")
+
+
+def param_specs(params: Dict, prefix: str = "") -> Dict:
+    """The PARAM_RULES spec of every leaf, as a tree like ``params``;
+    ValueError for a leaf no rule covers."""
+    out = {}
+    for name, leaf in params.items():
+        if isinstance(leaf, dict):
+            out[name] = param_specs(leaf, f"{prefix}{name}/")
+        elif name in PARAM_RULES:
+            out[name] = PARAM_RULES[name]
+        else:
+            raise ValueError(f"no sharding rule for parameter {prefix}{name!r}")
+    return out
+
+
+# (param, axes) pairs already logged and counted in this process: each
+# downgrade is reported once, not once per mesh or per moment tree
+_DOWNGRADES_SEEN: set = set()
+
+
+def _note_downgrade(name: str, axes: str, size: int, n: int) -> None:
+    key = (name, axes)
+    if key in _DOWNGRADES_SEEN:
+        return
+    _DOWNGRADES_SEEN.add(key)
+    from mingpt_distributed_tpu_torch import telemetry
+
+    telemetry.get_registry().counter(
+        "mingpt_train_sharding_downgrades_total",
+        help="Parameter-sharding rules silently downgraded to replication "
+             "because the mesh axis extent does not divide the dimension.",
+        labels=("param",),
+    ).labels(param=name).inc()
+    telemetry.log_event(
+        f"sharding downgrade: {name} dim of size {size} not divisible by "
+        f"mesh extent {n} of axes {axes!r} — replicating that dimension",
+        param=name,
+    )
+
+
+def shard_by_rule(shape: Dict[str, int], dims: Sequence[int], spec: Spec,
+                  name: Optional[str] = None) -> Spec:
+    """The spec one array of dimensions ``dims`` gets on a mesh of
+    ``shape``: ``spec`` padded with None to the rank, every axis whose
+    extent does not divide its dimension downgraded to None (replicated).
+    With ``name``, each downgrade is logged and counted once."""
+    fixed = []
+    for i, size in enumerate(dims):
+        axis = spec[i] if i < len(spec) else None
+        if axis is None or size % shape[axis] == 0:
+            fixed.append(axis)
+            continue
+        if name is not None:
+            _note_downgrade(name, axis, size, shape[axis])
+        fixed.append(None)
+    return tuple(fixed)
 
 
 class Mesh:
-    """This rank's place in a dp x sp job. ``sp_group`` and ``dp_group``
-    are its ring's and its replica set's process groups (None when the axis
-    is 1); ``world_size`` ranks in all."""
+    """This rank's place in a job of ``world_size`` ranks.
+
+    ``sp_group`` and ``dp_group`` are its ring's and its replica set's
+    process groups (None when the axis is 1). With fsdp or tp above 1
+    (``sharded``): ``fsdp_group`` and ``tp_group``; ``batch_group``, the
+    ranks of its tp coordinate (they hold different tokens: loss terms and
+    the gradients of leaves replicated over fsdp are summed there);
+    ``replica_group``, the ranks of its fsdp and tp coordinates (the
+    gradients of fsdp-sharded leaves); ``model_group``, the ranks of its dp
+    and sp coordinates (together they hold one copy of the model: the
+    gradient norm). ``batch_group`` is None, the world, when unsharded."""
 
     def __init__(self, cfg: Optional[MeshConfig] = None):
         cfg = cfg or MeshConfig()
@@ -73,18 +196,121 @@ class Mesh:
         dims = resolve_mesh_shape(cfg, self.world_size)
         self.shape = dict(zip(AXES, dims))
         check_axes(self.shape)
-        coords = dict(zip(AXES, (int(c) for c in np.unravel_index(self.rank, dims))))
+        self.coords = dict(zip(AXES, (int(c) for c in np.unravel_index(self.rank, dims))))
         self.dp, self.sp = self.shape["dp"], self.shape["sp"]
-        self.dp_rank, self.sp_rank = coords["dp"], coords["sp"]
-        self.sp_group = self.dp_group = None
+        self.fsdp, self.tp = self.shape["fsdp"], self.shape["tp"]
+        self.dp_rank, self.sp_rank = self.coords["dp"], self.coords["sp"]
+        self.fsdp_rank, self.tp_rank = self.coords["fsdp"], self.coords["tp"]
+        self.sharded = self.fsdp * self.tp > 1
+        # the data shard: rows over (dp, fsdp), dp-major as BATCH_AXES
+        self.batch_index = self.dp_rank * self.fsdp + self.fsdp_rank
+        self.batch_count = self.dp * self.fsdp
+        # this rank's index among the ranks of distinct data (tp dropped):
+        # the seed of its replicated dropout draws
+        no_tp = [self.shape[a] for a in AXES if a != "tp"]
+        self.data_rank = int(np.ravel_multi_index(
+            [self.coords[a] for a in AXES if a != "tp"], no_tp))
         # every rank creates every group, in the same order
-        if self.sp > 1:
-            for d in range(self.dp):
-                g = dist.new_group([d * self.sp + s for s in range(self.sp)])
-                if d == self.dp_rank:
-                    self.sp_group = g
-        if self.dp > 1:
-            for s in range(self.sp):
-                g = dist.new_group([d * self.sp + s for d in range(self.dp)])
-                if s == self.sp_rank:
-                    self.dp_group = g
+        self.sp_group = self._group_over(("sp",)) if self.sp > 1 else None
+        self.dp_group = self._group_over(("dp",)) if self.dp > 1 else None
+        self.fsdp_group = self.tp_group = None
+        self.replica_group = self.model_group = self.batch_group = None
+        if self.sharded:
+            self.fsdp_group = self._group_over(("fsdp",))
+            self.tp_group = self._group_over(("tp",))
+            self.batch_group = self._group_over(("dp", "fsdp", "sp"))
+            self.replica_group = self._group_over(("dp", "sp"))
+            self.model_group = self._group_over(("fsdp", "tp"))
+        self.specs: Dict[str, Spec] = {}
+        self.full_shapes: Dict[str, Tuple[int, ...]] = {}
+
+    def _group_over(self, varying: Tuple[str, ...]):
+        """The process group of the ranks that share this rank's coordinates
+        on every axis but ``varying``."""
+        grid = np.arange(self.world_size).reshape([self.shape[a] for a in AXES])
+        fixed = [a for a in AXES if a not in varying]
+        mine = None
+        for combo in itertools.product(*(range(self.shape[a]) for a in fixed)):
+            index = [slice(None)] * len(AXES)
+            for a, c in zip(fixed, combo):
+                index[AXES.index(a)] = c
+            members = sorted(int(r) for r in grid[tuple(index)].ravel())
+            group = dist.new_group(members)
+            if self.rank in members:
+                mine = group
+        return mine
+
+    def group(self, axis: str):
+        return {"fsdp": self.fsdp_group, "tp": self.tp_group}[axis]
+
+    # -- parameters ----------------------------------------------------------
+    def tp_manual(self, cfg) -> bool:
+        """Whether the blocks run the Megatron recipe: tp > 1 and the query
+        heads, the KV heads and the FFN width all divide by tp (no MoE).
+        Otherwise tp falls back to gathered weights, as in the JAX
+        package."""
+        ffn = int(cfg.ffn_mult * cfg.n_embd)
+        return (self.tp > 1 and not cfg.n_experts and cfg.n_head % self.tp == 0
+                and cfg.kv_heads % self.tp == 0 and ffn % self.tp == 0)
+
+    def shard_params(self, params: Dict, prefix: str = "") -> Dict:
+        """This rank's slice of every leaf of the whole tree ``params``,
+        recording each leaf's spec (downgrades counted) and whole shape."""
+        out = {}
+        for name, leaf in params.items():
+            path = f"{prefix}{name}"
+            if isinstance(leaf, dict):
+                out[name] = self.shard_params(leaf, path + "/")
+                continue
+            if name not in PARAM_RULES:
+                raise ValueError(f"no sharding rule for parameter {path!r}")
+            self.full_shapes[path] = tuple(leaf.shape)
+            self.specs[path] = shard_by_rule(self.shape, leaf.shape, PARAM_RULES[name],
+                                             name=name)
+            out[name] = self.shard(path, leaf)
+        return out
+
+    def shard(self, path: str, full: torch.Tensor) -> torch.Tensor:
+        """This rank's slice of the whole leaf at ``path`` (a copy)."""
+        t = full
+        for dim, axis in enumerate(self.specs[path]):
+            if axis is not None and self.shape[axis] > 1:
+                t = t.chunk(self.shape[axis], dim)[self.coords[axis]]
+        return t.contiguous().clone()
+
+    def gather(self, path: str, local: torch.Tensor, keep_tp: bool = False,
+               layer: bool = False) -> torch.Tensor:
+        """The leaf at ``path`` rebuilt for use, differentiably: gathered
+        over fsdp, and over tp unless ``keep_tp``. ``layer``: ``local`` is
+        one layer of a stacked block leaf (its leading axis dropped)."""
+        spec = self.specs[path][1:] if layer else self.specs[path]
+        t = local
+        for dim, axis in enumerate(spec):
+            if axis == "fsdp" and self.fsdp > 1:
+                t = distributed.all_gather(t, self.fsdp_group, dim)
+        for dim, axis in enumerate(spec):
+            if axis == "tp" and self.tp > 1 and not keep_tp:
+                t = distributed.gather_replicated(t, self.tp_group, dim)
+        return t
+
+    def gather_full(self, path: str, local: torch.Tensor) -> torch.Tensor:
+        """The whole leaf at ``path`` from every rank's slice, a new tensor
+        that shares no storage with ``local`` (no gradient): what a snapshot
+        stores."""
+        t = local.detach()
+        for dim, axis in enumerate(self.specs[path]):
+            if axis is not None and self.shape[axis] > 1:
+                t = distributed.gather_tensor(t, self.group(axis), dim)
+        return t.clone() if t.data_ptr() == local.data_ptr() else t
+
+    def fsdp_sharded(self, path: str) -> bool:
+        return "fsdp" in self.specs[path] and self.fsdp > 1
+
+    def copies(self, path: str) -> int:
+        """How many ranks of ``model_group`` hold the same slice of the
+        leaf at ``path``: its weight in a sum over that group is 1/copies."""
+        n = self.fsdp * self.tp
+        for axis in self.specs[path]:
+            if axis in ("fsdp", "tp"):
+                n //= self.shape[axis]
+        return n

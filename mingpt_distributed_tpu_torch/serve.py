@@ -60,6 +60,16 @@ and process faults from ``MINGPT_PROCESS_FAULTS``. With
 reasons and /metrics the merged page (each replica's families under a
 ``replica`` label; a process fleet's pages fetched over RPC).
 
+Autoscaling: ``--autoscale auto[:k=v...]`` (``control/controller.py``'s
+grammar; ``--slo-target X`` is shorthand for ``auto:target=X``) hangs the
+SLO autoscaler off the fleet router, under either isolation, and builds a
+fleet even at ``--replicas 1``: it spawns replicas (a process fleet adopts a
+warm ``--standby`` spare first), gates speculation, halves the prefill
+chunk and lowers the shed watermark under breach, and restores them in
+reverse, draining a replica before it retires (exit 75 for a worker
+process). ``--control-log PATH`` appends each ``mingpt-control/1`` decision
+row as it is made.
+
 Speculative decoding: ``--draft-config self|self:N|k=v,...`` with
 ``--spec-k K``; the KV pool's storage: ``--kv-dtype fp32|int8|fp8``;
 ``--metrics-port P`` serves the process registry on ``/metrics`` and
@@ -101,7 +111,7 @@ SIGTERM (or one SIGINT) stops admission, drains in-flight requests, flushes
 the metrics and exits 75 so a scheduler requeues the job; a second SIGINT
 aborts. The JAX serve.py's other flags are parsed and refused (exit 2),
 naming the ROADMAP.md Queue 1 item that brings them (``UNPORTED_FLAGS``:
-tensor parallelism, item 9; the autoscaler, 15c).
+serving tensor parallelism, item 9b).
 """
 
 from __future__ import annotations
@@ -130,12 +140,8 @@ from mingpt_distributed_tpu_torch.training.trainer import REQUEUE_EXIT_CODE
 from mingpt_distributed_tpu_torch.utils.device import resolve_device
 
 # the JAX serve.py's flags that the port does not run yet, each with the
-# ROADMAP.md Queue 1 item that brings it: tensor parallelism (9), the
-# autoscaler (15c)
-UNPORTED_FLAGS = {
-    "--mesh": "9", "--selftest-sharded": "9",
-    "--autoscale": "15c", "--slo-target": "15c", "--control-log": "15c",
-}
+# ROADMAP.md Queue 1 item that brings it: serving tensor parallelism (9b)
+UNPORTED_FLAGS = {"--mesh": "9b", "--selftest-sharded": "9b"}
 
 SELFTEST_PROMPTS = ["O God, O God!", "Once more unto", "All the world's"]
 SELFTEST_SHARED = ["Once more unto the breach", "Once more unto the wall!"]
@@ -255,6 +261,18 @@ def build_argparser() -> argparse.ArgumentParser:
                         "one device (sharing one parameter tree) behind the "
                         "health/affinity router (default 1: one server, no "
                         "fleet layer)")
+    p.add_argument("--autoscale", default=None, metavar="SPEC",
+                   help="attach the SLO autoscaler to the fleet router: "
+                        "'auto[:k=v...]' (control/controller.py grammar), "
+                        "e.g. auto:metric=ttft_p99:target=0.05:"
+                        "max_replicas=4; implies the fleet path even at "
+                        "--replicas 1")
+    p.add_argument("--slo-target", type=float, default=None, metavar="X",
+                   help="shorthand for --autoscale auto:target=X (TTFT "
+                        "p99 seconds the controller defends)")
+    p.add_argument("--control-log", default=None, metavar="PATH",
+                   help="append each mingpt-control/1 autoscaler "
+                        "decision row to this JSONL file as it is made")
     p.add_argument("--isolation", choices=("thread", "process"), default="thread",
                    help="fleet replica isolation: 'thread' (in-process "
                         "replicas sharing one parameter tree, the default); "
@@ -1637,10 +1655,11 @@ def _procfleet_phases(d, supervisor, router, streamed, records, pids) -> int:
 
 
 def proc_fleet(spec, spill, rpc_timeout_s=120.0, trace_recorder=None, wrap=None,
-               **sup_kwargs):
-    """(supervisor, router, streamed) over 2 worker subprocesses of
-    ``spec`` on the wall clock, fast backoffs; ``wrap`` (factory ->
-    factory) decorates every spawn (the card's smoke times them)."""
+               n_replicas=2, **sup_kwargs):
+    """(supervisor, router, streamed) over ``n_replicas`` worker
+    subprocesses of ``spec`` on the wall clock, fast backoffs; ``wrap``
+    (factory -> factory) decorates every spawn (the card's smoke times
+    them)."""
     from mingpt_distributed_tpu_torch.serving import (
         ProcessSupervisor,
         ProcRouter,
@@ -1651,7 +1670,7 @@ def proc_fleet(spec, spill, rpc_timeout_s=120.0, trace_recorder=None, wrap=None,
     factory = process_backend_factory(spec, spill, rpc_timeout_s=rpc_timeout_s)
     streamed = {}
     supervisor = ProcessSupervisor(
-        wrap(factory) if wrap is not None else factory, n_replicas=2,
+        wrap(factory) if wrap is not None else factory, n_replicas=n_replicas,
         clock=WallClock(), max_restarts=1, restart_backoff_s=0.05, **sup_kwargs)
     router = ProcRouter(supervisor, max_retries=3, retry_backoff_s=0.01,
                         breaker_reset_s=0.05, trace_recorder=trace_recorder,
@@ -1995,6 +2014,25 @@ def _load_params(args, gpt_cfg, exp, dev):
     return snap.params, f"snapshot step {snap.step} at {path}"
 
 
+def _autoscale_spec(args):
+    """--autoscale / --slo-target as one controller spec, or None; a
+    malformed spec exits. ``--autoscale static`` is an explicit no-op, so a
+    script can parameterise the flag."""
+    spec = args.autoscale
+    if spec is None and args.slo_target is not None:
+        spec = f"auto:target={args.slo_target}"
+    if spec is None:
+        return None
+    from mingpt_distributed_tpu_torch.control.controller import parse_controller_spec
+
+    try:
+        if parse_controller_spec(spec) is None:
+            return None
+    except ValueError as e:
+        raise SystemExit(f"bad --autoscale spec: {e}")
+    return spec
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     if args.selftest_procfleet:
@@ -2073,6 +2111,22 @@ def _serve(args, dataset, gpt_cfg, params, dev, eos_id, guard, weights, fleets) 
     if tserver is not None and flight is not None:
         tserver.flight_provider = lambda: flight.snapshot("on_demand")
     spec_kw = _spec_kwargs(args, params, gpt_cfg, dev)
+    autoscale = _autoscale_spec(args)
+
+    def attach_controller(router):
+        """Hang the SLO autoscaler off the router; the control tick rides
+        router.step(), so no extra thread is needed."""
+        if not autoscale:
+            return
+        from mingpt_distributed_tpu_torch.control.controller import (
+            SLOAutoscaler,
+            parse_controller_spec,
+        )
+        router.controller = SLOAutoscaler(
+            router, parse_controller_spec(autoscale), log_path=args.control_log)
+        print("[serve] SLO autoscaler attached (" + autoscale + ")"
+              + (f"; decisions -> {args.control_log}" if args.control_log else ""),
+              file=sys.stderr)
 
     def build_fleet(stream_cb):
         """--replicas N: N supervised in-process replicas sharing ``params``
@@ -2098,6 +2152,7 @@ def _serve(args, dataset, gpt_cfg, params, dev, eos_id, guard, weights, fleets) 
         router = Router(supervisor, on_token=stream_cb,
                         shed_watermark=args.shed_watermark,
                         trace_recorder=recorder, flight=flight)
+        attach_controller(router)
         if tserver is not None:
             tserver.health_provider = router.health_report
             tserver.metrics_provider = router.fleet_metrics_page
@@ -2148,6 +2203,7 @@ def _serve(args, dataset, gpt_cfg, params, dev, eos_id, guard, weights, fleets) 
         router = ProcRouter(supervisor, on_token=stream_cb,
                             shed_watermark=args.shed_watermark,
                             trace_recorder=recorder, flight=flight)
+        attach_controller(router)
         if tserver is not None:
             tserver.health_provider = router.health_report
             tserver.metrics_provider = router.fleet_metrics_page
@@ -2158,13 +2214,14 @@ def _serve(args, dataset, gpt_cfg, params, dev, eos_id, guard, weights, fleets) 
         return router
 
     def build_server(stream_cb):
-        """One InferenceServer, or with --replicas N > 1 the fleet router in
-        front of N replicas (``build_fleet``; ``build_process_fleet`` with
-        --isolation process, at any N); each takes submit, step,
-        run_until_drained and summary, and streams through ``stream_cb``."""
+        """One InferenceServer, or with --replicas N > 1 or --autoscale the
+        fleet router in front of N replicas (``build_fleet``;
+        ``build_process_fleet`` with --isolation process, at any N); each
+        takes submit, step, run_until_drained and summary, and streams
+        through ``stream_cb``."""
         if args.isolation == "process":
             return build_process_fleet(stream_cb)
-        if args.replicas > 1:
+        if args.replicas > 1 or autoscale:
             return build_fleet(stream_cb)
         server = InferenceServer(
             params, gpt_cfg, n_slots=args.slots, on_token=stream_cb,

@@ -44,7 +44,7 @@ card:
 ``--selftest-quant``, ``--selftest-attrib``, ``--selftest-chaos``,
 ``--selftest-procfleet``, ``--selftest-standby``,
 ``--selftest-crosshost``) and ``traffic.py`` sweeps it (``trafficlab/``).
-Tensor parallelism (ROADMAP.md Queue 1 item 9) is not ported yet.
+Serving tensor parallelism (ROADMAP.md Queue 1 item 9b) is not ported yet.
 """
 
 from mingpt_distributed_tpu_torch.serving import quant  # noqa: F401

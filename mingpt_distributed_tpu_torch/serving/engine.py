@@ -74,7 +74,7 @@ capture of these calls needs.
 
 Attribution (``register_attrib``) registers each family's shapes with
 analytic costs. Tensor-parallel serving (``mesh``) is ROADMAP.md Queue 1
-item 9, and the audit contracts (``audit_contracts``) item 16b.
+item 9b, and the audit contracts (``audit_contracts``) item 16b.
 """
 
 from __future__ import annotations
@@ -202,7 +202,7 @@ class DecodeEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "tensor-parallel serving (mesh) is not ported yet "
-                "(ROADMAP.md Queue 1 item 9)")
+                "(ROADMAP.md Queue 1 item 9b)")
         self.device = resolve_device(device)
         if params["wte"].device.type != self.device.type:
             raise ValueError(f"params live on {params['wte'].device}, the "

@@ -53,7 +53,7 @@ Exit code 75 (``REQUEUE_EXIT_CODE``) is the trainer's preemption code:
 ``serve`` exits with it after a SIGTERM-triggered drain. The process fleet
 (``procfleet/``) re-bases this machinery onto worker processes with live
 migration; the autoscaler that calls ``spawn_replica``/``retire_replica``
-is ROADMAP.md Queue 1 item 15c.
+is ``control/controller.py``.
 """
 
 from __future__ import annotations
@@ -483,7 +483,7 @@ class ReplicaSupervisor:
         overrides this with the SIGTERM→SIGKILL liveness ladder."""
         return []
 
-    # -- control-plane actuation (the autoscaler's, item 15c) ------------
+    # -- control-plane actuation (the autoscaler's) -----------------------
     def _make_replica(self, name: str, index: int) -> Replica:
         """Construction hook for late (scale-up) replicas: a subclass
         pre-configures its isolation wiring here, before the first
@@ -615,7 +615,7 @@ class Router:
         # rides on the attempt Request into the replica scheduler.
         self.trace_recorder = trace_recorder
         self.flight = flight
-        # control plane (item 15c): an attached autoscaler gets one
+        # control plane: an attached autoscaler gets one
         # on_round() per scheduling round; on_finish feeds its signal
         # windows one call per finished fleet request
         self.controller = None

@@ -71,6 +71,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from mingpt_distributed_tpu_torch.serving.fleet import (
@@ -80,6 +81,7 @@ from mingpt_distributed_tpu_torch.serving.fleet import (
     ReplicaSupervisor,
     Router,
     SkewedClock,
+    WallClock,
 )
 from mingpt_distributed_tpu_torch.serving.procfleet.rpc import (
     EnvelopeError,
@@ -522,7 +524,10 @@ class StandbyPool:
 
     ``fill()`` is synchronous and is called from ``poll_restarts`` —
     AFTER the adoption that emptied the slot — so backfill cost never
-    sits on the recovery critical path.
+    sits on the recovery critical path. ``fill_in_background()`` runs the
+    same fill on a thread (a fleet on the wall clock scaling up: a spawn
+    takes seconds, and the router keeps stepping meanwhile); ``join()``
+    waits for it and re-raises its failure.
     """
 
     def __init__(self, factory, fleet_clock, size: int,
@@ -535,6 +540,12 @@ class StandbyPool:
         self.name_prefix = name_prefix
         self._spares: List[Tuple[str, Any, SkewedClock]] = []
         self._spawned = 0
+        # the background fill's thread, the spawns it has in flight and its
+        # failure; the lock guards _spares, _spawned and _inflight
+        self._lock = threading.Lock()
+        self._filler: Optional[threading.Thread] = None
+        self._inflight = 0
+        self._fill_error: Optional[BaseException] = None
         self._gauge = registry.gauge(
             "mingpt_fleet_standby_pool_size",
             help="pre-warmed spare workers currently available for "
@@ -548,38 +559,78 @@ class StandbyPool:
         self.fill()
 
     def available(self) -> int:
-        return len(self._spares)
+        with self._lock:
+            return len(self._spares)
 
     def fill(self) -> int:
-        """Spawn spares until the pool holds ``size``; returns how many
-        were added."""
+        """Spawn spares until the pool holds ``size`` (counting spawns a
+        background fill has in flight); returns how many were added."""
         added = 0
-        while len(self._spares) < self.size:
-            name = f"{self.name_prefix}{self._spawned}"
-            self._spawned += 1
-            clock = SkewedClock(self.fleet_clock.now)
-            backend = self.factory(name=name, clock=clock, fault_hook=None)
-            self._spares.append((name, backend, clock))
+        while True:
+            with self._lock:
+                if len(self._spares) + self._inflight >= self.size:
+                    break
+                name = f"{self.name_prefix}{self._spawned}"
+                self._spawned += 1
+                self._inflight += 1
+            try:
+                clock = SkewedClock(self.fleet_clock.now)
+                backend = self.factory(name=name, clock=clock, fault_hook=None)
+            finally:
+                with self._lock:
+                    self._inflight -= 1
+            with self._lock:
+                self._spares.append((name, backend, clock))
+                self._gauge.set(len(self._spares))
             added += 1
-        self._gauge.set(len(self._spares))
         return added
+
+    def fill_in_background(self) -> None:
+        """``fill()`` on a thread, unless one is running already."""
+        if self._filler is not None and self._filler.is_alive():
+            return
+
+        def run():
+            try:
+                self.fill()
+            except BaseException as e:  # noqa: BLE001 (re-raised by join)
+                self._fill_error = e
+
+        self._filler = threading.Thread(target=run, name="standby-backfill",
+                                        daemon=True)
+        self._filler.start()
+
+    def join(self, timeout_s: Optional[float] = None) -> None:
+        """Wait for a background fill; re-raise its failure."""
+        if self._filler is not None:
+            self._filler.join(timeout_s)
+            if self._filler.is_alive():
+                raise TimeoutError(f"standby backfill still running after {timeout_s} s")
+            self._filler = None
+        err, self._fill_error = self._fill_error, None
+        if err is not None:
+            raise RuntimeError("standby backfill failed") from err
 
     def acquire(self) -> Optional[Tuple[str, Any, SkewedClock]]:
         """Pop the oldest (warmest) spare, or None when exhausted. Does
         NOT backfill — the caller is mid-recovery."""
-        while self._spares:
-            name, backend, clock = self._spares.pop(0)
-            self._gauge.set(len(self._spares))
+        while True:
+            with self._lock:
+                if not self._spares:
+                    return None
+                name, backend, clock = self._spares.pop(0)
+                self._gauge.set(len(self._spares))
             if not backend.alive():
                 # a spare that died while idle is not adoptable; skip it
                 backend.transport.close()
                 continue
             self._adoptions.inc()
             return name, backend, clock
-        return None
 
     def shutdown(self) -> None:
-        """Retire every remaining spare (test teardown / end of serving)."""
+        """Retire every remaining spare (test teardown / end of serving),
+        once a background fill has finished."""
+        self.join()
         for _, backend, _ in self._spares:
             if backend.alive():
                 backend.sigterm()
@@ -871,7 +922,7 @@ class ProcessSupervisor(ReplicaSupervisor):
                 self._liveness.pop(rep.name, None)
         return escalated
 
-    # -- control-plane actuation (the autoscaler's, item 15c) ------------
+    # -- control-plane actuation (the autoscaler's) -----------------------
     def _make_replica(self, name: str, index: int):
         """Scale-up construction with the process wiring in place
         BEFORE the first spawn: the injector so chaos reaches the
@@ -893,9 +944,14 @@ class ProcessSupervisor(ReplicaSupervisor):
         self._proc_restarts.labels(replica=rep.name).inc(0)
         if self.standby_pool is not None:
             # backfill after a possible adoption, same ordering contract
-            # as poll_restarts: the spawn cost lands here, not on the
-            # scale-up decision's latency
-            self.standby_pool.fill()
+            # as poll_restarts. On the wall clock the spawn (seconds) runs
+            # on a thread, so the router keeps stepping and routes to the
+            # newcomer meanwhile; on an injected clock it runs in line and
+            # the fleet replays deterministically
+            if isinstance(self.clock, WallClock):
+                self.standby_pool.fill_in_background()
+            else:
+                self.standby_pool.fill()
         return rep
 
     def retire_replica(self, replica) -> Dict[str, Any]:

@@ -82,7 +82,7 @@ speculating lanes' verify) and before any of the round's tokens is emitted.
 A raise there loses the round's computed tokens, so a replica that fails
 mid-round never streams a token twice; the fleet's retry recomputes them.
 
-Not ported yet: tensor parallelism (``mesh``), ROADMAP.md Queue 1 item 9.
+Not ported yet: tensor parallelism (``mesh``), ROADMAP.md Queue 1 item 9b.
 """
 
 from __future__ import annotations

@@ -28,6 +28,14 @@ Modes:
                       second run is byte-identical:
                         python -m mingpt_distributed_tpu_torch.traffic \\
                             --device cpu --selftest-traffic
+  controller test     one down-ramp rung, static vs SLO-autoscaled FIFO on
+                      the identical trace; asserts the controller scales up
+                      AND back down, beats static on deadline hit rate and
+                      on the cost model, the control log is valid
+                      mingpt-control/1, and a rerun is byte-identical
+                      (report and log):
+                        python -m mingpt_distributed_tpu_torch.traffic \\
+                            --device cpu --selftest-controller
 
 Knobs: --arrival SPEC (poisson:rate=R | bursty:rate_on=..:rate_off=..:
 period=..:duty=.. | ramp:rate0=..:rate1=..:duration=..), --ladder
@@ -39,10 +47,8 @@ grammar — the same sweep graded under crashes), --shed-watermark D,
 --prefix-cache-mb M, --out PATH (report JSON), --hosts N (> 1: every cell
 on the loopback cross-host mesh, --replicas per host) with
 --net-chaos-spec SPEC (NetworkFaultInjector grammar: partition, drop_frame,
-slow_link, host_kill).
-
-Not ported yet, exiting 2 with ROADMAP.md Queue 1 item 15c: the autoscaler
-axis (``--controllers auto:...``, ``--selftest-controller``).
+slow_link, host_kill), --controllers "static,auto:..." (the SLO-autoscaler
+axis: every policy runs once per controller on the identical trace).
 """
 
 from __future__ import annotations
@@ -96,8 +102,11 @@ def build_argparser() -> argparse.ArgumentParser:
                         "slow_link / host_kill) over the host mesh; needs "
                         "--hosts >= 2")
     p.add_argument("--controllers", default="static",
-                   help="comma-separated controller axis: 'static' runs; "
-                        "an 'auto[:k=v...]' autoscaler is item 15c")
+                   help="comma-separated controller axis: each entry is "
+                        "'static' or an 'auto[:k=v...]' SLO-autoscaler "
+                        "spec; every policy runs once per controller on "
+                        "the identical trace (autoscaled cells are "
+                        "labelled policy+auto)")
     p.add_argument("--shed-watermark", type=int, default=None,
                    help="fleet-wide queue depth that sheds new arrivals")
     p.add_argument("--prefix-cache-mb", type=float, default=0.0,
@@ -113,24 +122,18 @@ def build_argparser() -> argparse.ArgumentParser:
                         "sweep; asserts knee + policy separation + "
                         "byte-identical replay, then exits")
     p.add_argument("--selftest-controller", action="store_true",
-                   help="the autoscaler's self-test (not ported yet: "
-                        "ROADMAP.md Queue 1 item 15c)")
+                   help="tiny random-init model, one down-ramp rung, "
+                        "static vs SLO-autoscaled cells on the identical "
+                        "trace; asserts the controller scales up AND back "
+                        "down, beats static on deadline hit-rate and "
+                        "cost, and replays byte-identically (report and "
+                        "mingpt-control/1 log), then exits")
     p.add_argument("overrides", nargs="*")
     return p
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    """The arguments; exits 2 naming the ROADMAP.md item of an unported
-    axis."""
-    p = build_argparser()
-    args = p.parse_args(argv)
-    if args.selftest_controller:
-        p.error("--selftest-controller is not ported yet (ROADMAP.md Queue 1 "
-                "item 15c)")
-    if any(c.strip() != "static" for c in args.controllers.split(",") if c.strip()):
-        p.error("--controllers auto:... is not ported yet (ROADMAP.md Queue 1 "
-                "item 15c)")
-    return args
+    return build_argparser().parse_args(argv)
 
 
 def _parse_ladder(text: str):
@@ -162,6 +165,8 @@ def _sweep_spec(args):
         chaos_spec=args.chaos_spec,
         n_hosts=args.hosts,
         net_chaos_spec=args.net_chaos_spec,
+        controllers=tuple(c.strip() for c in args.controllers.split(",")
+                          if c.strip()),
         shed_watermark=args.shed_watermark,
         prefix_cache_mb=args.prefix_cache_mb,
     )
@@ -276,10 +281,126 @@ def selftest_traffic(args) -> int:
     return rc
 
 
+AUTO_SPEC = ("auto:metric=queue_depth:target=2.0:comfort=0.5"
+             ":interval_s=0.002:cooldown_s=0.02:up_after=2:down_after=5"
+             ":min_replicas=1:max_replicas=3")
+
+
+def selftest_controller_spec():
+    """The canned controller geometry: a DOWN-ramp, so one cell runs both
+    directions — the early burst (~300/s against a 1 x 2-slot fleet) forces
+    scale-ups, the sparse tail (~6/s) leaves the extra replicas comfortable
+    long enough to drain back down."""
+    from mingpt_distributed_tpu_torch.trafficlab import SweepSpec
+
+    return SweepSpec(
+        arrival="ramp:rate0=1400.0:rate1=4.0:duration=0.04",
+        ladder=(1.0,),
+        policies=("fifo",),
+        controllers=("static", AUTO_SPEC),
+        n_requests=36,
+        seed=0,
+        n_replicas=1,
+        n_slots=2,
+        slo="ttft_p95<=0.025,shed_rate<=0.5",
+        prefix_cache_mb=0.5,
+    )
+
+
+def controller_checks(report, logs, report2, logs2,
+                      tag: str = "selftest-controller") -> int:
+    """The controller self-test's gates on a report, its control logs
+    (``{(rung, label): text}``) and their rerun: strict validation after a
+    JSON round trip, the ``policy+auto`` label, at least one replica
+    scale-up and one scale-down, the autoscaled cell above the static one on
+    deadline hit rate and below it on cost, every log line a
+    ``mingpt-control/1`` row (one per tick) and byte-identical replay of
+    both. Prints a line per gate; returns 0 when all hold."""
+    from mingpt_distributed_tpu_torch.control.controller import CONTROL_SCHEMA
+    from mingpt_distributed_tpu_torch.trafficlab import validate_traffic_report
+    from mingpt_distributed_tpu_torch.trafficlab.report import dump_report
+
+    rc = 0
+
+    def check(ok: bool, what: str) -> None:
+        nonlocal rc
+        print(f"{tag} {'OK' if ok else 'FAIL'}: {what}")
+        if not ok:
+            rc = 1
+
+    parsed = json.loads(dump_report(report))
+    problems = validate_traffic_report(parsed, strict=False)
+    check(not problems, f"report strict-parses (problems={problems})")
+    check(parsed["policies"] == ["fifo", "fifo+auto"],
+          f"cell labels carry the controller axis ({parsed['policies']})")
+    rung = parsed["rungs"][0]
+    static_cell = rung["policies"]["fifo"]
+    auto_cell = rung["policies"]["fifo+auto"]
+    control = auto_cell.get("control") or {}
+    rep_actions = (control.get("actions") or {}).get("replicas", {})
+    check(rep_actions.get("up", 0) >= 1,
+          f"controller scaled up (replica actions={rep_actions})")
+    check(rep_actions.get("down", 0) >= 1,
+          f"controller scaled back down (replica actions={rep_actions})")
+    s_hit, a_hit = (static_cell["deadline_hit_rate"],
+                    auto_cell["deadline_hit_rate"])
+    check(s_hit is not None and a_hit is not None and a_hit > s_hit,
+          f"autoscaled beats static on deadline hit-rate "
+          f"(auto={a_hit} static={s_hit})")
+    s_cost, a_cost = static_cell["cost"]["cost"], auto_cell["cost"]["cost"]
+    check(a_cost < s_cost,
+          f"autoscaled cell is cheaper under the cost model "
+          f"(auto={a_cost:.6g} static={s_cost:.6g})")
+    rows = [json.loads(line)
+            for line in logs.get((0, "fifo+auto"), "").splitlines()]
+    check(bool(rows) and all(r.get("schema") == CONTROL_SCHEMA for r in rows),
+          f"control log is valid {CONTROL_SCHEMA} JSONL ({len(rows)} rows)")
+    check(control.get("ticks") == len(rows),
+          f"cell ticks match log rows ({control.get('ticks')} vs {len(rows)})")
+    check(dump_report(report) == dump_report(report2),
+          "same-seed rerun report is byte-identical")
+    check(logs == logs2, "same-seed rerun control log is byte-identical")
+    return rc
+
+
+def run_with_logs(params, cfg, spec, mix, server_kwargs):
+    """``run_sweep`` plus its autoscaled cells' control logs, keyed by
+    (rung, cell label)."""
+    from mingpt_distributed_tpu_torch.trafficlab import run_sweep
+
+    logs = {}
+    report = run_sweep(params, cfg, spec, mix=mix, server_kwargs=server_kwargs,
+                       control_log_sink=lambda r, lb, text: logs.__setitem__(
+                           (r, lb), text))
+    return report, logs
+
+
+def selftest_controller(args) -> int:
+    """Static and autoscaled cells replay the IDENTICAL down-ramp trace on
+    the tiny random-init model, twice, through ``controller_checks``."""
+    import torch
+
+    from mingpt_distributed_tpu_torch.models import gpt
+    from mingpt_distributed_tpu_torch.trafficlab import render_traffic_report
+
+    dev = resolve_device(args.device)
+    cfg = tiny_config()
+    params = gpt.init(cfg, torch.Generator().manual_seed(0), device=dev)
+    spec, mix, kw = selftest_controller_spec(), selftest_mix(), dict(device=dev)
+    report, logs = run_with_logs(params, cfg, spec, mix, kw)
+    print(render_traffic_report(report))
+    report2, logs2 = run_with_logs(params, cfg, spec, mix, kw)
+    rc = controller_checks(report, logs, report2, logs2)
+    print("selftest-controller " + ("PASSED" if rc == 0 else "FAILED"))
+    return rc
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
     if args.selftest_traffic:
         return selftest_traffic(args)
+    if args.selftest_controller:
+        return selftest_controller(args)
 
     import torch
 

@@ -25,8 +25,8 @@ the fault-spec style used elsewhere in the repo::
 ``scaled(f)`` multiplies every intensity by ``f`` — the sweep ladder is
 "the same shape, offered harder".
 
-``recorded:`` is the replay kind a trace importer (ROADMAP.md Queue 1
-item 15c) emits: its times are not sampled at all —
+``recorded:`` is the replay kind the trace importer
+(``control/importer.py``) emits: its times are not sampled at all —
 ``arrival_times`` returns them verbatim, so a sweep over a recorded
 spec replays production-shaped load byte-identically. ``scaled(f)``
 divides every timestamp by ``f`` (gap compression), which is the same

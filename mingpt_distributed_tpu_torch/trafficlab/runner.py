@@ -34,15 +34,28 @@ rows do, so ``recovery_slo_s`` grades a partition's failovers as it grades a
 crash's re-routes, and the sweep stays byte-replayable, partitions
 included.
 
-Not ported yet: autoscaled cells (a controller other than ``"static"``),
-raising with ROADMAP.md Queue 1 item 15c.
+The controller axis: each entry of ``controllers`` is ``"static"`` (no
+control loop) or an ``auto[:k=v...]`` SLO-autoscaler spec. Every policy runs
+once per controller on the identical rung trace; an autoscaled cell hangs an
+``SLOAutoscaler`` off its router (the control tick rides ``router.step()``,
+so the closed loop replays byte-identically on the cell's VirtualClock), is
+labelled ``policy+auto`` and carries a ``control`` block (spec, ticks,
+actions, the replicas left and the sha256 of its ``mingpt-control/1`` log).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+import hashlib
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
+# control submodules are imported directly (never ``control/__init__``):
+# the package pulls in the trace importer, which imports
+# trafficlab.arrivals — going through it from here would be a cycle
+from mingpt_distributed_tpu_torch.control.controller import (
+    SLOAutoscaler,
+    parse_controller_spec,
+)
 from mingpt_distributed_tpu_torch.control.cost import cost_from_cell
 from mingpt_distributed_tpu_torch.control.signals import FleetSignalsView
 from mingpt_distributed_tpu_torch.serving.fleet import (
@@ -87,11 +100,6 @@ __all__ = [
 ]
 
 
-def _refuse(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
-
-
 @dataclasses.dataclass(frozen=True)
 class SweepSpec:
     """Everything a sweep needs besides model params and the mix —
@@ -124,8 +132,9 @@ class SweepSpec:
     #: host_kill); needs n_hosts > 1
     net_chaos_spec: Optional[str] = None
     heartbeat_interval_s: float = 0.05
-    #: the controller axis: ``"static"`` (no control loop) runs; an
-    #: ``auto[:k=v...]`` autoscaler is item 15c
+    #: the controller axis: each entry is ``"static"`` (no control loop) or
+    #: an ``auto[:k=v...]`` SLOAutoscaler spec; autoscaled cells are
+    #: labelled ``policy+auto``
     controllers: Tuple[str, ...] = ("static",)
 
     def effective_slo(self) -> str:
@@ -179,8 +188,12 @@ class SweepSpec:
                 len(set(self.controllers)) != len(self.controllers)):
             raise ValueError(f"bad controller list {self.controllers}")
         for ctrl in self.controllers:
-            if ctrl.strip() != "static":
-                _refuse(f"the SLO autoscaler (controller {ctrl!r})", "15c")
+            if (parse_controller_spec(ctrl) is not None
+                    and self.n_hosts > 1):
+                raise ValueError(
+                    "autoscaled cells actuate the thread fleet's "
+                    "router/supervisor seams; on a host mesh use "
+                    "controllers=('static',)")
         parse_slo_spec(self.effective_slo())
 
 
@@ -294,8 +307,13 @@ def _run_one_crosshost(params, cfg, spec: SweepSpec, policy_name: str,
 
 def _run_one(params, cfg, spec: SweepSpec, policy_name: str,
              timed: List[TimedRequest],
-             server_kwargs: Optional[Dict[str, Any]]) -> Dict[str, Any]:
-    """One (rung, policy) cell: fresh fleet, replayed trace, SLO rows."""
+             server_kwargs: Optional[Dict[str, Any]],
+             controller_spec: Optional[str] = None,
+             control_sink: Optional[Callable[[str], None]] = None,
+             ) -> Dict[str, Any]:
+    """One (rung, policy, controller) cell: fresh fleet, replayed trace, SLO
+    rows; with an ``auto:`` ``controller_spec``, an :class:`SLOAutoscaler`
+    attached to the router, whose log goes to ``control_sink``."""
     if spec.n_hosts > 1:
         return _run_one_crosshost(params, cfg, spec, policy_name, timed,
                                   server_kwargs)
@@ -319,6 +337,12 @@ def _run_one(params, cfg, spec: SweepSpec, policy_name: str,
         # health-aware admission reads live fleet state through the
         # signals seam; binding after the router exists closes the loop
         policy.bind(FleetSignalsView(router))
+    controller = None
+    if controller_spec is not None:
+        ccfg = parse_controller_spec(controller_spec)
+        if ccfg is not None:
+            controller = SLOAutoscaler(router, ccfg)
+            router.controller = controller
 
     handles: Dict[str, Any] = {}
     shed: Dict[str, str] = {}
@@ -396,17 +420,52 @@ def _run_one(params, cfg, spec: SweepSpec, policy_name: str,
         "virtual_duration_s": clock.now(),
     }
     cell["cost"] = cost_from_cell(cell)
+    if controller is not None:
+        log_text = controller.render_log()
+        cell["control"] = {
+            "spec": controller_spec,
+            "ticks": controller.tick,
+            "actions": controller.action_counts(),
+            "final_replicas": sum(
+                1 for rep in supervisor.replicas
+                if rep.state != "drained" and not rep.draining),
+            "log_sha256": hashlib.sha256(log_text.encode("utf-8")).hexdigest(),
+        }
+        if control_sink is not None:
+            control_sink(log_text)
     return cell
+
+
+def _cell_plan(spec: SweepSpec) -> List[Tuple[str, str, Optional[str]]]:
+    """``(label, policy, controller_spec_or_None)`` per cell, policy-major.
+    "static" keeps the bare policy name; auto controllers suffix ``+auto``
+    (indexed when there are several)."""
+    auto_specs = [c for c in spec.controllers
+                  if parse_controller_spec(c) is not None]
+    plan: List[Tuple[str, str, Optional[str]]] = []
+    for policy in spec.policies:
+        for ctrl in spec.controllers:
+            if parse_controller_spec(ctrl) is None:
+                plan.append((policy, policy, None))
+            else:
+                suffix = ("auto" if len(auto_specs) == 1
+                          else f"auto{auto_specs.index(ctrl)}")
+                plan.append((f"{policy}+{suffix}", policy, ctrl))
+    return plan
 
 
 def run_sweep(params, cfg, spec: SweepSpec,
               mix: Optional[WorkloadMix] = None,
               server_kwargs: Optional[Dict[str, Any]] = None,
+              control_log_sink: Optional[
+                  Callable[[int, str, str], None]] = None,
               ) -> Dict[str, Any]:
-    """Run the full ladder x policy grid; returns a validated
+    """Run the full ladder x policy x controller grid; returns a validated
     mingpt-traffic/1 report dict (see report.py for the shape).
     ``server_kwargs`` reach every replica's ``InferenceServer`` (``device``
-    among them)."""
+    among them). ``control_log_sink(rung_index, cell_label, log_text)``
+    receives each autoscaled cell's whole mingpt-control/1 document; the
+    report carries only its sha256."""
     spec.validate()
     if mix is None:
         mix = default_mix(vocab_size=cfg.vocab_size,
@@ -420,8 +479,8 @@ def run_sweep(params, cfg, spec: SweepSpec,
         raise ValueError(
             f"knee objective {knee_objective!r} not in SLO spec "
             f"{spec.slo!r}")
-    # one column per policy: "static" cells keep the bare policy name
-    labels = list(spec.policies)
+    plan = _cell_plan(spec)
+    labels = [label for label, _, _ in plan]
     rungs: List[Dict[str, Any]] = []
     for rung_idx, factor in enumerate(spec.ladder):
         scaled = base.scaled(factor)
@@ -429,8 +488,15 @@ def run_sweep(params, cfg, spec: SweepSpec,
         # rendering draws from an RNG keyed by (seed, mix) only, so
         # every rung offers the SAME request bodies, just faster
         timed = mix.render(times, spec.seed)
-        cells = {policy: _run_one(params, cfg, spec, policy, timed, server_kwargs)
-                 for policy in labels}
+        cells = {}
+        for label, policy, ctrl in plan:
+            sink = None
+            if control_log_sink is not None and ctrl is not None:
+                sink = (lambda text, r=rung_idx, lb=label:
+                        control_log_sink(r, lb, text))
+            cells[label] = _run_one(params, cfg, spec, policy, timed,
+                                    server_kwargs, controller_spec=ctrl,
+                                    control_sink=sink)
         rungs.append({
             "rung": rung_idx,
             "load_factor": float(factor),

@@ -15,6 +15,14 @@ does differently from PyTorch's usual recipe:
   ``schedule(0)``, which is 0 under warmup;
 * ``decay_mask`` refuses a parameter name it does not know, as the
   reference's partition asserts do.
+
+Under fsdp or tp (``mesh.sharded``) every rank updates only its slices of
+the parameters, so its Adam moments are slices too. The global gradient
+norm (and the update norm) sums each leaf's squares over ``mesh.model_group``
+(the ranks that together hold one copy of the model) with the weight
+1/``mesh.copies(leaf)``: a replicated leaf counts once, not once per rank,
+and a leaf replicated along one axis and sharded along the other counts
+once per distinct slice.
 """
 
 from __future__ import annotations
@@ -103,6 +111,17 @@ def _global_norm(tensors) -> torch.Tensor:
         torch.stack([torch.linalg.vector_norm(t.float()) for t in tensors]))
 
 
+def sharded_norm(tensors, names, mesh) -> torch.Tensor:
+    """The global norm of a tree whose leaves are this rank's slices: each
+    leaf's sum of squares over its copies in ``mesh.model_group``, summed
+    there."""
+    from mingpt_distributed_tpu_torch.parallel import distributed as D
+
+    sq = torch.stack([torch.linalg.vector_norm(t.float()).square() / mesh.copies(n)
+                      for t, n in zip(tensors, names)]).sum()
+    return D.all_reduce(sq, mesh.model_group).sqrt()
+
+
 class AdamW:
     """clip -> AdamW (masked decay) -> lr(count) over a parameter tree whose
     leaves require grad. ``step(count)`` applies one update from the
@@ -112,8 +131,10 @@ class AdamW:
 
     def __init__(self, params: Dict, cfg: OptimizerConfig,
                  grad_norm_clip: Optional[float] = None,
-                 schedule: Optional[Callable[[int], float]] = None):
+                 schedule: Optional[Callable[[int], float]] = None,
+                 mesh=None):
         self.names, self.params = zip(*_leaves(params))
+        self.mesh = mesh if getattr(mesh, "sharded", False) else None
         mask = dict(_leaves(decay_mask(params)))
         groups = [
             {"params": [p for n, p in zip(self.names, self.params) if mask[n]],
@@ -136,7 +157,7 @@ class AdamW:
                  for p in self.params]
         for p, g in zip(self.params, grads):
             p.grad = g
-        grad_norm = _global_norm(grads)
+        grad_norm = self.norm(grads)
         if self.clip is not None:
             factor = torch.where(grad_norm < self.clip, 1.0,
                                  self.clip / grad_norm)
@@ -147,8 +168,45 @@ class AdamW:
             group["lr"] = lr
         old = [p.detach().clone() for p in self.params]
         self.opt.step()
-        update_norm = _global_norm([p - o for p, o in zip(self.params, old)])
+        update_norm = self.norm([p - o for p, o in zip(self.params, old)])
         return {"grad_norm": grad_norm, "update_norm": update_norm}
+
+    def norm(self, tensors) -> torch.Tensor:
+        """The global norm of tensors shaped like the parameters (their
+        slices under a sharded mesh)."""
+        if self.mesh is None:
+            return _global_norm(tensors)
+        return sharded_norm(tensors, self.names, self.mesh)
+
+    def canonical_state_dict(self, whole: Callable[[str, torch.Tensor], torch.Tensor]
+                             ) -> Dict:
+        """``opt.state_dict()`` with every moment passed through
+        ``whole(name, tensor)``: under a sharded mesh, the moments gathered
+        whole, the layout an unsharded run writes."""
+        sd = self.opt.state_dict()
+        by_id = {id(p): n for n, p in zip(self.names, self.params)}
+        names = [by_id[id(p)] for g in self.opt.param_groups for p in g["params"]]
+        order = [i for g in sd["param_groups"] for i in g["params"]]
+        state = {}
+        for i, name in zip(order, names):
+            st = sd["state"].get(i)
+            if st is not None:
+                st = dict(st, exp_avg=whole(name, st["exp_avg"]),
+                          exp_avg_sq=whole(name, st["exp_avg_sq"]))
+                state[i] = st
+        return dict(sd, state=state)
+
+    def load_canonical_state_dict(self, sd: Dict,
+                                  part: Callable[[str, torch.Tensor], torch.Tensor]
+                                  ) -> None:
+        """Load a state dict of whole moments, each cut to this rank's
+        slice by ``part(name, tensor)``."""
+        self.opt.load_state_dict(sd)
+        for name, p in zip(self.names, self.params):
+            st = self.opt.state.get(p)
+            if st:
+                st["exp_avg"] = part(name, st["exp_avg"])
+                st["exp_avg_sq"] = part(name, st["exp_avg_sq"])
 
     # -- the Adam moments, by parameter name ---------------------------------
     def adam_state(self) -> Dict:
@@ -174,5 +232,6 @@ class AdamW:
 
 def make_optimizer(cfg: OptimizerConfig, params: Dict,
                    grad_norm_clip: Optional[float] = None,
-                   schedule: Optional[Callable[[int], float]] = None) -> AdamW:
-    return AdamW(params, cfg, grad_norm_clip, schedule)
+                   schedule: Optional[Callable[[int], float]] = None,
+                   mesh=None) -> AdamW:
+    return AdamW(params, cfg, grad_norm_clip, schedule, mesh)

@@ -1,4 +1,5 @@
-"""The training loop, on one device or on a dp x sp job of processes.
+"""The training loop, on one device or on a job of processes (dp x fsdp x tp,
+or dp x sp).
 
 Counterpart of ``mingpt_distributed_tpu/training/trainer.py``:
 ``make_train_step`` (forward, backward, clip, AdamW update, with gradient
@@ -9,15 +10,25 @@ donated state; here the step runs eagerly and updates the parameters in
 place. The loop reads metrics from the card only at logged steps, so the
 host enqueues the next step while the card runs this one.
 
-Across processes (``python -m torch.distributed.run``, a ``Mesh`` of dp x
-sp ranks; parameters replicated): each rank holds its dp replica's rows and
-its sp chunk of the columns of every global batch. The loss is the global
-token mean (the ranks' token sums and counts summed with ``all_reduce``),
-the gradients are summed over the world before the clip and AdamW, so every
-rank applies the same update. Rank 0 alone logs and writes snapshots; every
-rank restores. A stop request (SIGTERM) is agreed on by all ranks at a step
-boundary, over a host-side group, so none leaves while the others wait in a
-collective.
+Across processes (``python -m torch.distributed.run``, a ``Mesh``): each
+rank holds its data shard's rows (over dp and fsdp; every tp rank of a
+group reads the same rows) and its sp chunk of the columns of every global
+batch. The loss is the global token mean (the token sums and counts of the
+ranks that hold distinct tokens, ``mesh.batch_group``, summed with
+``all_reduce``). Under dp x sp the parameters are replicated and the
+gradients summed over the world. Under fsdp or tp each rank keeps its
+slices of the parameters and of the Adam moments (``Mesh.shard_params``):
+the model gathers each layer over fsdp as it runs and reduce-scatters its
+gradient, and ``all_reduce_grads`` sums a sliced leaf's gradient only over
+the ranks that hold the same slice (``replica_group`` for an fsdp-sharded
+leaf, ``batch_group`` for one replicated over fsdp; never over tp, where
+every rank's gradient is already whole for its slice). Rank 0 alone logs;
+every rank joins a snapshot's gather and rank 0 writes the whole tree, the
+layout an unsharded run writes, so a snapshot restores at any mesh (one
+that would gather more than ``msgpack_gather_limit_mb`` is refused, as in
+the JAX package). A stop request (SIGTERM) is agreed on by all ranks at a
+step boundary, over a host-side group, so none leaves while the others wait
+in a collective.
 
 Snapshots are committed through ``training/checkpoint.py``'s manifest:
 the last ``keep_snapshots`` are kept, transient I/O is retried
@@ -38,13 +49,14 @@ to ``profile_steps[1]``. ``debug_nans`` stops the step whose loss or
 gradients are not finite with ``FloatingPointError``, before its update
 (one read from the card per step).
 
-ZeRO, Orbax, the mesh axes other than dp and sp, and the other options
-``TrainerConfig.check_ported`` names raise.
+ZeRO, Orbax, the pp and ep axes, sp beside fsdp or tp, and the other
+options ``TrainerConfig.check_ported`` names raise.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import os
 import signal
 import threading
@@ -80,6 +92,7 @@ from mingpt_distributed_tpu_torch.training.metrics import MetricsLogger, peak_fl
 from mingpt_distributed_tpu_torch.training.optimizer import (
     AdamW,
     _global_norm,
+    _leaves,
     lr_schedule,
     make_optimizer,
 )
@@ -120,17 +133,33 @@ def _distributed(mesh: Optional[Mesh]) -> bool:
 def rank_generator(generator: torch.Generator, rank: int) -> torch.Generator:
     """A generator of this rank's own, seeded from one draw of the shared
     ``generator`` (which every rank advances alike, so a snapshot of rank
-    0's holds for all): dp replicas and sp chunks draw different masks."""
+    0's holds for all): data shards and sp chunks draw different masks. The
+    trainer passes ``mesh.data_rank``, so the tp ranks of a group draw the
+    same (their activations are replicated)."""
     return torch.Generator(device=generator.device).manual_seed(
         D.mix_seed(D.dropout_base(generator), rank))
 
 
-def all_reduce_grads(params) -> None:
-    """Sum every parameter's gradient over the world, in one collective."""
-    leaves = list(gpt._leaves(params))
+def all_reduce_grads(params, mesh: Optional[Mesh] = None) -> None:
+    """Sum every parameter's gradient over the ranks that hold the same
+    slice of it: the world, unless the mesh shards the parameters; then
+    ``mesh.replica_group`` for fsdp-sharded leaves (their gathers'
+    reduce-scatters summed fsdp already) and ``mesh.batch_group`` for the
+    rest. One collective per group."""
+    named = list(_leaves(params))
+    if mesh is None or not mesh.sharded:
+        _sum_grads([p for _, p in named], None)
+        return
+    _sum_grads([p for n, p in named if mesh.fsdp_sharded(n)], mesh.replica_group)
+    _sum_grads([p for n, p in named if not mesh.fsdp_sharded(n)], mesh.batch_group)
+
+
+def _sum_grads(leaves, group) -> None:
+    if not leaves:
+        return
     flat = torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
                       .reshape(-1) for p in leaves])
-    D.all_reduce(flat)
+    D.all_reduce(flat, group)
     for p, g in zip(leaves, flat.split([p.numel() for p in leaves])):
         p.grad = g.view_as(p)
 
@@ -221,10 +250,11 @@ def _split(x, y, grad_accum):
 
 
 def _distributed_step(cfg, grad_accum, lr_fn, mesh, debug_nans=False):
-    """The train step of one rank of a dp x sp job: each micro-batch's loss
-    is its global token mean (this rank's sum over the world's count),
-    the gradients are summed over the world, then clip and AdamW run alike
-    on every rank. Dropout draws from ``rank_generator``."""
+    """The train step of one rank of a job: each micro-batch's loss is its
+    global token mean (this rank's sum over the count of ``batch_group``),
+    the gradients are summed (``all_reduce_grads``), then clip and AdamW run
+    on every rank (on its slices under fsdp or tp). Dropout draws from
+    ``rank_generator``."""
     det = deterministic(cfg)
 
     def train_step(state: TrainState, batch: Batch,
@@ -232,16 +262,17 @@ def _distributed_step(cfg, grad_accum, lr_fn, mesh, debug_nans=False):
                    ) -> Dict[str, torch.Tensor]:
         x, y = batch
         state.optimizer.zero_grad()
-        gen = None if det else rank_generator(generator, mesh.rank)
+        gen = None if det else rank_generator(generator, mesh.data_rank)
         loss = x.new_zeros((), dtype=torch.float32)
         for xm, ym in _split(x, y, grad_accum):
-            count = D.all_reduce((ym != -1).sum().float()).clamp_min(1)
+            count = D.all_reduce((ym != -1).sum().float(),
+                                 mesh.batch_group).clamp_min(1)
             total, _ = gpt.loss_terms(state.params, xm, ym, cfg, generator=gen,
                                       deterministic=det, mesh=mesh)
             (total / count / grad_accum).backward()
             loss = loss + total.detach() / count
-        loss = D.all_reduce(loss) / grad_accum
-        all_reduce_grads(state.params)
+        loss = D.all_reduce(loss, mesh.batch_group) / grad_accum
+        all_reduce_grads(state.params, mesh)
         if debug_nans:
             check_finite(loss, state.params, state.step + 1)
         metrics = {"loss": loss, **state.optimizer.step(state.step)}
@@ -262,7 +293,8 @@ def make_eval_step(cfg: GPTConfig, mesh: Optional[Mesh] = None):
         x, y = batch
         if _distributed(mesh):
             total, count = gpt.loss_terms(state.params, x, y, cfg, mesh=mesh)
-            return D.all_reduce(total) / D.all_reduce(count.float()).clamp_min(1)
+            return (D.all_reduce(total, mesh.batch_group)
+                    / D.all_reduce(count.float(), mesh.batch_group).clamp_min(1))
         _, loss = gpt.forward(state.params, x, cfg, targets=y,
                               return_logits=False)
         return loss
@@ -294,11 +326,12 @@ class GPTTrainer:
         self.experiment_config = experiment_config
         self.device = resolve_device(device)
         self.mesh = Mesh(config.mesh) if world > 1 else None
+        self.process_count = world
         self.is_main = D.rank() == 0
         shard = {}
         if self.mesh is not None:
-            shard = dict(process_index=self.mesh.dp_rank,
-                         process_count=self.mesh.dp,
+            shard = dict(process_index=self.mesh.batch_index,
+                         process_count=self.mesh.batch_count,
                          seq_index=self.mesh.sp_rank, seq_count=self.mesh.sp)
         self.train_iter = ShardedBatchIterator(
             train_dataset, config.batch_size, shuffle=True, seed=config.seed,
@@ -333,10 +366,15 @@ class GPTTrainer:
         self._profiler = None
 
         self._lr_fn = lr_schedule(optimizer_config)
-        params = trainable(gpt.init(gpt_config, torch.Generator().manual_seed(config.seed),
-                                    device=self.device))
+        params = gpt.init(gpt_config, torch.Generator().manual_seed(config.seed),
+                          device=self.device)
+        size_report = gpt.model_size_report(params, gpt_config)
+        if self.sharded:
+            params = self.mesh.shard_params(params)
+        params = trainable(params)
         self.state = TrainState(params, make_optimizer(
-            optimizer_config, params, config.grad_norm_clip, self._lr_fn))
+            optimizer_config, params, config.grad_norm_clip, self._lr_fn,
+            mesh=self.mesh))
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
         self.start_epoch = 0
         restored = ckpt_lib.load_snapshot(self.snapshot_path, self._retry)
@@ -363,29 +401,40 @@ class GPTTrainer:
                                      enabled=self.is_main,
                                      tensorboard_dir=config.tensorboard_dir,
                                      registry=registry)
-        self._print(gpt.model_size_report(params, gpt_config))
+        self._print(size_report)
+
+    @property
+    def sharded(self) -> bool:
+        """Whether this rank holds slices of the parameters (fsdp or tp)."""
+        return self.mesh is not None and self.mesh.sharded
 
     def _print(self, msg: str) -> None:
         if self.is_main:
             print(msg, flush=True)
 
     def _restore(self, snap: Dict[str, Any]) -> None:
+        """Load a snapshot (whole tensors, whatever mesh wrote it), each
+        leaf and moment cut to this rank's slice under fsdp or tp."""
+        part = self.mesh.shard if self.sharded else (lambda _name, t: t)
         with torch.no_grad():
             def load(dst, src, where=""):
                 if set(dst) != set(src):
                     raise ValueError(f"snapshot params{where}: keys {sorted(src)} "
                                      f"do not match the config's {sorted(dst)}")
                 for k, v in dst.items():
+                    path = f"{where}/{k}".lstrip("/")
                     if isinstance(v, dict):
                         load(v, src[k], f"{where}/{k}")
-                    elif v.shape != src[k].shape:
+                        continue
+                    want = (self.mesh.full_shapes[path] if self.sharded
+                            else tuple(v.shape))
+                    if want != tuple(src[k].shape):
                         raise ValueError(f"snapshot params{where}/{k}: shape "
                                          f"{tuple(src[k].shape)}, config wants "
-                                         f"{tuple(v.shape)}")
-                    else:
-                        v.copy_(src[k])
+                                         f"{want}")
+                    v.copy_(part(path, src[k].to(v.device)))
             load(self.state.params, snap["params"])
-        self.state.optimizer.opt.load_state_dict(snap["opt_state"])
+        self.state.optimizer.load_canonical_state_dict(snap["opt_state"], part)
         self.state.step = int(snap["step"])
         self.start_epoch = int(snap["epoch"])
         self.train_iter.state = IteratorState.from_dict(snap["data_state"])
@@ -538,21 +587,63 @@ class GPTTrainer:
         return float(torch.stack(losses).mean().item())
 
     def save_snapshot(self, epoch: int) -> None:
-        """Rank 0 writes (the ranks' parameters and optimizer states are
-        equal); the others wait for it."""
+        """Rank 0 writes; under fsdp or tp every rank first joins the gather
+        of the whole tree. The others wait for the write. In a job of
+        several processes a state above ``msgpack_gather_limit_mb`` is
+        refused before any collective, with the JAX package's message."""
+        if self.process_count > 1:
+            self._check_gather_limit()
+        whole = self._gather_state() if self.sharded else None
         if not self.is_main:
             D.barrier()
             return
         with self.tracer.span("train.snapshot", epoch=epoch):
-            self._save(epoch)
+            self._save(epoch, whole)
         D.barrier()
 
-    def _save(self, epoch: int) -> None:
+    def _check_gather_limit(self) -> None:
+        """The JAX trainer's guard on its multi-host msgpack save: the whole
+        state (parameters and Adam moments, at their whole shapes) gathered
+        to a writer must fit ``msgpack_gather_limit_mb``."""
+        opt = self.state.optimizer
+        state_bytes = 0
+        for name, p in zip(opt.names, opt.params):
+            shape = self.mesh.full_shapes[name] if self.sharded else p.shape
+            copies = 3 if opt.opt.state.get(p) else 1
+            state_bytes += copies * math.prod(shape) * p.element_size()
+        state_mb = state_bytes / 2**20
+        limit_mb = self.config.msgpack_gather_limit_mb
+        if state_mb > limit_mb:
+            raise RuntimeError(
+                f"multi-host msgpack save would allgather {state_mb:.0f} MB of "
+                f"state to every host (limit {limit_mb} MB). Use the Orbax "
+                f"backend — a snapshot_path without the .msgpack suffix — for "
+                f"sharded collective writes with no gather, or raise "
+                f"trainer_config.msgpack_gather_limit_mb if your hosts have "
+                f"the RAM.")
+
+    def _gather_state(self) -> Tuple[gpt.Params, Dict]:
+        """The whole parameter tree and optimizer state dict, gathered from
+        every rank's slices (every rank takes part)."""
+        mesh = self.mesh
+
+        def whole(tree, prefix=""):
+            return {k: whole(v, f"{prefix}{k}/") if isinstance(v, dict)
+                    else mesh.gather_full(f"{prefix}{k}", v).cpu()
+                    for k, v in tree.items()}
+
+        opt_state = self.state.optimizer.canonical_state_dict(
+            lambda name, t: mesh.gather_full(name, t).cpu())
+        return whole(self.state.params), opt_state
+
+    def _save(self, epoch: int, whole=None) -> None:
         cpu = lambda t: {k: cpu(v) if isinstance(v, dict)  # noqa: E731
                          else v.detach().cpu() for k, v in t.items()}
+        params, opt_state = whole or (cpu(self.state.params),
+                                      self.state.optimizer.opt.state_dict())
         snap = {
-            "params": cpu(self.state.params),
-            "opt_state": self.state.optimizer.opt.state_dict(),
+            "params": params,
+            "opt_state": opt_state,
             "step": self.state.step,
             "epoch": epoch,
             "data_state": self.train_iter.state.to_dict(),

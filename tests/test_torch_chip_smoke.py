@@ -428,3 +428,132 @@ def test_worker_spec_round_trips_the_gpt2_config():
         f: getattr(cfg, f) for f in spec["cfg"]}
     assert (spec["init_seed"], spec["device"], spec["server"]) == (
         0, "cuda", {"n_slots": 4, "warmup": True})
+
+
+# -- the autoscaler, the controller axis and fsdp x tp -----------------------
+
+
+def test_autoscale_arrivals_burst_then_pace():
+    at = chip_smoke.autoscale_arrivals(32)
+    assert at[:16] == [0] * 16 and at[16:] == [3 * (i + 1) for i in range(16)]
+    assert chip_smoke.autoscale_arrivals(4) == [0] * 4
+
+
+def test_autoscale_controllers_parse_to_one_or_two_replicas():
+    from mingpt_distributed_tpu_torch.control import parse_controller_spec
+
+    for text in (chip_smoke.AUTOSCALE_SPEC, chip_smoke.SERVE_CLI_AUTOSCALE):
+        cfg = parse_controller_spec(text)
+        assert (cfg.metric, cfg.min_replicas, cfg.max_replicas) == ("queue_depth", 1, 2)
+    cfg = parse_controller_spec(chip_smoke.AUTOSCALE_SPEC)
+    # the burst breaches at the first tick: 16 requests on 4 slots leave 12 queued
+    assert chip_smoke.AUTOSCALE_BURST - 4 > cfg.target and cfg.up_after == 1
+
+
+def test_autoscale_later_arrivals_reach_the_new_replica_by_affinity():
+    """The paced half of serve's traffic holds prompts whose affinity hash
+    lands on the second replica, so the newcomer is routed work even while
+    the first replica stays healthy."""
+    import zlib
+
+    import numpy as np
+
+    reqs, _, _ = chip_smoke.serve_traffic(32)
+    late = reqs[chip_smoke.AUTOSCALE_BURST:]
+    idx = [zlib.crc32(np.asarray(r.prompt[:16], np.uint32).tobytes()) % 2 for r in late]
+    assert 1 in idx and 0 in idx
+
+
+def _control_log(rows):
+    import json
+
+    return "".join(json.dumps(r, sort_keys=True) + "\n" for r in rows)
+
+
+def _row(tick, now, actuator="none", direction="hold", value=0.5):
+    return {"schema": "mingpt-control/1", "tick": tick, "now": now, "signals": "ab" * 8,
+            "metric": "queue_depth", "value": value, "queue_per_replica": 0.5,
+            "replicas_ready": 1, "action": {"actuator": actuator, "direction": direction},
+            "reason": "queue_depth=0.5 in deadband"}
+
+
+def test_control_log_validator_accepts_a_log_and_refuses_tampering():
+    good = [_row(1, 0.0), _row(2, 0.05, "replicas", "up"), _row(3, 0.1, value=None),
+            _row(1, 0.0)]  # an appended second run starts at tick 1
+    rows, problems = chip_smoke.control_rows(_control_log(good))
+    assert len(rows) == 4 and problems == []
+    for bad in ([_row(1, 0.0), _row(3, 0.1)],                       # a tick skipped
+                [_row(1, 0.2), _row(2, 0.1)],                       # time runs back
+                [dict(_row(1, 0.0), schema="mingpt-control/0")],
+                [_row(1, 0.0, "replicas", "hold")],                 # an actuator on a hold
+                [_row(1, 0.0, "none", "up")],
+                [_row(1, 0.0, "gpu", "up")],
+                [dict(_row(1, 0.0), extra=1)],
+                [dict(_row(1, 0.0), tick="1")],
+                [dict(_row(1, 0.0), metric="ttft_p50")]):
+        assert chip_smoke.control_rows(_control_log(bad))[1], bad
+    assert chip_smoke.control_rows("")[1] == ["no rows"]
+    assert chip_smoke.control_rows("{not json\n")[1]
+
+
+def test_budget_record_arithmetic():
+    rec = chip_smoke.budget_record({"autoscale": 40.0, "fsdp_tp": 60.0, "traffic_controller": 20.0,
+                                    "serve_cli_autoscale": 10.0}, 700.0)
+    assert rec["added_total_s"] == 130.0 and rec["added_within_budget"]
+    assert rec["smoke_within_budget"] and rec["autoscale_s"] == 40.0
+    over = chip_smoke.budget_record({"fsdp_tp": 151.0}, 781.0)
+    assert not over["added_within_budget"] and not over["smoke_within_budget"]
+    assert (chip_smoke.ADDED_PHASES_BUDGET_S, chip_smoke.SMOKE_BUDGET_S) == (150.0, 780.0)
+
+
+def test_fsdp_tp_geometry_and_rule_bytes_at_gpt2():
+    """The fsdp 2 x tp 2 main path at GPT-2 124M: 6 local heads over 8 rows
+    (the kernel case of that shape is checked against its plain version),
+    one launch of each attention kernel per layer, and the bytes a rank
+    holds by the rules: a quarter of every block matrix, half of wte and
+    head (vocab 50257 does not split over fsdp)."""
+    import math
+
+    from mingpt_distributed_tpu_torch.config import GPTConfig
+    from mingpt_distributed_tpu_torch.models import convert, gpt
+
+    assert ("fsdp_tp_local", 8, 1024, 6, 6, 64, None, None) in chip_smoke.KERNEL_CASES
+    cfg = GPTConfig.make(model_type="gpt2", vocab_size=50257, block_size=1024)
+    assert chip_smoke.FT_PER_STEP == cfg.n_layer
+    assert (chip_smoke.FT_BATCH // chip_smoke.FT_MESH["fsdp"],
+            cfg.n_head // chip_smoke.FT_MESH["tp"]) == (8, 6)
+    shapes = {n: tuple(s) for n, (s, _) in convert.flatten(gpt.param_spec(cfg)).items()}
+    whole = sum(4 * math.prod(s) for s in shapes.values())
+    held = chip_smoke.ft_rule_bytes(shapes)
+    vocab = 4 * 50257 * 768
+    small = sum(4 * math.prod(s) for n, s in shapes.items()
+                if n.split("/")[-1] in ("wpe", "lnf_scale", "lnf_bias", "bo", "b_proj",
+                                         "ln1_scale", "ln1_bias", "ln2_scale", "ln2_bias"))
+    halves = sum(4 * math.prod(s) for n, s in shapes.items()
+                 if n.split("/")[-1] in ("bq", "bk", "bv", "b_fc"))
+    assert held == (whole - 2 * vocab - small - halves) // 4 + vocab + small + halves // 2
+    assert 0.25 < held / whole < 0.5
+
+
+def test_main_runs_the_added_phases_and_reports_their_seconds():
+    """_main drives the four added phases (and the times at the fsdp x tp
+    shape) with their seconds in the budget line, and lists the fsdp x tp
+    step's launches among the paths."""
+    import ast
+    import inspect
+
+    tree = ast.parse(inspect.getsource(chip_smoke._main))
+    called = [n.func.id for n in ast.walk(tree)
+              if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)]
+    for phase in ("phase_traffic_controller", "phase_autoscale", "phase_serve_cli_autoscale",
+                  "phase_fsdp_tp", "phase_fsdp_tp_times", "budget_record"):
+        assert phase in called, phase
+    keys = {k.value for n in ast.walk(tree) if isinstance(n, ast.Subscript)
+            and isinstance(n.value, ast.Name) and n.value.id == "added_seconds"
+            for k in [n.slice] if isinstance(k, ast.Constant)}
+    assert keys == {"traffic_controller", "autoscale", "serve_cli_autoscale", "fsdp_tp",
+                    "fsdp_tp_times"}
+    assert "fsdp_tp_train_step_rank0" in inspect.getsource(chip_smoke._main)
+    # the autoscale phase compares with procfleet's record from the same call
+    assert called.index("phase_procfleet") < called.index("phase_autoscale")
+    assert called.index("phase_serve_cli") < called.index("phase_serve_cli_autoscale")

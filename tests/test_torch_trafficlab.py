@@ -602,9 +602,10 @@ def test_sweep_spec_validation():
     (dict(controllers=("static", "auto:target=0.03")), "item 15c"),
 ])
 def test_unported_sweep_axes_raise_naming_their_item(fields, item):
-    """The autoscaler axis (15c) still raises naming its item; the host
-    axis of item 15b is ported: a host mesh validates, and network chaos
-    without one is refused as the JAX package refuses it."""
+    """Both axes are ported. The host axis of item 15b: a host mesh
+    validates, and network chaos without one is refused as the JAX package
+    refuses it. The autoscaler axis of item 15c validates on one host and is
+    refused on a host mesh, as in the JAX package."""
     if item == "item 15b":
         spec = SweepSpec(**fields)
         if spec.n_hosts > 1:
@@ -614,8 +615,10 @@ def test_unported_sweep_axes_raise_naming_their_item(fields, item):
                 spec.validate()
         SweepSpec(**dict(fields, n_hosts=3)).validate()
         return
-    with pytest.raises(NotImplementedError, match=item):
-        SweepSpec(**fields).validate()
+    for mod in (t_lab, j_lab):
+        mod.SweepSpec(**fields).validate()
+        with pytest.raises(ValueError, match="host mesh"):
+            mod.SweepSpec(**dict(fields, n_hosts=3)).validate()
 
 
 # -- the cross-host axis ---------------------------------------------------
@@ -743,15 +746,17 @@ def test_traffic_cli_defaults_to_cuda():
     (["--selftest-controller"], "item 15c"),
 ])
 def test_unported_traffic_flags_exit_naming_their_item(argv, item, capsys):
-    """Item 15c's flags exit 2 naming it; item 15b's host flags are ported
-    and parse (the sweep spec checks --net-chaos-spec against --hosts)."""
+    """Every flag here is ported now and parses: item 15b's host flags (the
+    sweep spec checks --net-chaos-spec against --hosts) and item 15c's
+    controller axis and self-test."""
+    args = traffic_cli.parse_args(argv)
+    assert capsys.readouterr().err == ""
     if item == "item 15b":
-        args = traffic_cli.parse_args(argv)
         assert (args.hosts, args.net_chaos_spec) in ((3, None), (1, "partition:nth=1"))
-        return
-    with pytest.raises(SystemExit) as e:
-        traffic_cli.parse_args(argv)
-    assert e.value.code == 2 and item in capsys.readouterr().err
+    elif "--controllers" in argv:
+        assert traffic_cli._sweep_spec(args).controllers == ("static", "auto:target=0.03")
+    else:
+        assert args.selftest_controller
 
 
 def test_every_jax_traffic_flag_is_ported_or_refused():

@@ -1,5 +1,5 @@
 """Rank bodies of the port's multi-process tests (tests/test_torch_ring.py,
-tests/test_torch_sp_train.py).
+tests/test_torch_sp_train.py, tests/test_torch_sharded_train.py).
 
 ``parallel.spawn.run_ranks`` runs them in fresh processes, so this module
 imports torch, numpy and the port only: never jax, never the JAX package
@@ -173,6 +173,94 @@ def trainer_resume(rank: int, text: str, tmp: str, mesh_kw: dict,
                 stopped_at=stopping.step, preempted=stopping.preempted,
                 generators_equal=bool(torch.equal(whole.generator.get_state(),
                                                   resumed.generator.get_state())))
+
+
+def _whole(mesh, params) -> dict:
+    """Every rank joins the gather; rank 0 returns the whole leaves."""
+    out = {n: mesh.gather_full(n, p).numpy()
+           for n, p in convert.flatten(params).items()}
+    return out if mesh.rank == 0 else None
+
+
+def _rows(a: np.ndarray, mesh) -> torch.Tensor:
+    n = a.shape[0] // mesh.batch_count
+    return torch.from_numpy(a[mesh.batch_index * n:(mesh.batch_index + 1) * n]).long()
+
+
+def sharded_losses(rank: int, cfg_kw: dict, mesh_kw: dict, params_tree: dict,
+                   batches: list, lr: float) -> dict:
+    """``make_train_step`` on a dp x fsdp x tp mesh from the whole
+    ``params_tree`` (this rank's slices of it) on its rows of each global
+    batch: the losses, the whole parameters after the first and the last
+    step (rank 0, with the first Adam moment after the first), this rank's
+    and the whole ``wq`` sizes, the parameter and
+    Adam-moment elements this rank holds, and the downgrade counter."""
+    from mingpt_distributed_tpu_torch import telemetry
+
+    cfg = GPTConfig.make(**cfg_kw)
+    mesh = Mesh(MeshConfig(**mesh_kw))
+    params = t_trainer.trainable(mesh.shard_params(
+        convert.params_from_numpy(params_tree, cfg, "cpu")))
+    state = t_trainer.TrainState(params, make_optimizer(
+        OptimizerConfig.make(learning_rate=lr), params, 1.0, mesh=mesh))
+    step = t_trainer.make_train_step(cfg, mesh=mesh)
+    losses, first = [], None
+    for i, (x, y) in enumerate(batches):
+        losses.append(step(state, (_rows(x, mesh), _rows(y, mesh)))["loss"].item())
+        if i == 0:  # every rank joins the gathers; rank 0 keeps the result
+            mu = state.optimizer.adam_state()["mu"]
+            first = dict(params=_whole(mesh, state.params),
+                         mu=_whole(mesh, convert.unflatten(mu)))
+    moments = state.optimizer.adam_state()
+    fam = telemetry.get_registry().counter("mingpt_train_sharding_downgrades_total",
+                                           labels=("param",))
+    return dict(losses=losses, first=first, last=_whole(mesh, state.params),
+                wq_local=params["blocks"]["wq"].numel(),
+                wq_whole=int(np.prod(mesh.full_shapes["blocks/wq"])),
+                param_elems=sum(p.numel() for p in gpt._leaves(params)),
+                moment_elems=sum(t.numel() for t in moments["mu"].values())
+                + sum(t.numel() for t in moments["nu"].values()),
+                downgrades={tuple(sorted(lab.items())): child.value
+                            for lab, child in fam.children()})
+
+
+def _sharded_trainer(text, snapshot, max_steps, mesh_kw, **kw):
+    """A GPTTrainer at n_head 4, no dropout, so runs on different meshes
+    take the same steps."""
+    data = CharDataset(DataConfig.make(block_size=16), text=text)
+    train, test = data.split()
+    gcfg = GPTConfig.make(n_layer=2, n_head=4, n_embd=32, vocab_size=data.vocab_size,
+                          block_size=16, dtype="float32", embd_pdrop=0.0,
+                          resid_pdrop=0.0, attn_pdrop=0.0)
+    tcfg = TrainerConfig.make(batch_size=8, max_steps=max_steps, log_every=1,
+                              eval_batches=2, snapshot_path=snapshot, seed=3,
+                              mesh=mesh_kw, **kw)
+    return t_trainer.GPTTrainer(tcfg, gcfg, OptimizerConfig(learning_rate=1e-3),
+                                train, test, device="cpu")
+
+
+def sharded_trainer(rank: int, text: str, tmp: str, mesh_kw: dict) -> dict:
+    """GPTTrainer on the mesh: an uninterrupted 6-step run; 3 steps and a
+    snapshot (every rank gathers, rank 0 writes) that the parent resumes in
+    one process; a resume to 6 from the parent's one-process snapshot; and a
+    save refused above ``msgpack_gather_limit_mb`` on every rank."""
+    whole = _sharded_trainer(text, os.path.join(tmp, "whole22.pt"), 6, mesh_kw)
+    last = whole.train()
+    _sharded_trainer(text, os.path.join(tmp, "part22.pt"), 3, mesh_kw).train()
+    resumed = _sharded_trainer(text, os.path.join(tmp, "one.pt"), 6, mesh_kw)
+    resumed_at = resumed.step
+    last_resumed = resumed.train()
+    refused = _sharded_trainer(text, os.path.join(tmp, "refused.pt"), 1, mesh_kw,
+                               msgpack_gather_limit_mb=0)
+    try:
+        refused.save_snapshot(epoch=0)
+        refusal = None
+    except RuntimeError as e:
+        refusal = str(e)
+    return dict(whole=_whole(whole.mesh, whole.state.params), whole_loss=last["loss"],
+                eval_loss=last.get("eval_loss"), resumed_at=resumed_at,
+                resumed=_whole(resumed.mesh, resumed.state.params),
+                resumed_loss=last_resumed["loss"], refusal=refusal)
 
 
 def jobs(rank: int, todo: list) -> list:
