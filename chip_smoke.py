@@ -22,7 +22,8 @@ Phases:
      K2c's four among them, issues HGMMA and UTMALDG, none HMMA);
   1. every kernel against its plain version at the main paths' shapes
      (generation at batch 4, the train step at batch 16, the sp path's
-     zigzag hop, the prototype tool's shape) and the edge cases (GQA, a
+     zigzag hop, the sp x tp path's hop and own block on 6 of 12 heads
+     (LSE_SP_TP_CASES), the prototype tool's shape) and the edge cases (GQA, a
      window narrower than a tile, softcap, ragged T), and the bf16
      kernels' rings of tiles at every head width (FWD_RING_CASES,
      BWD_RING_CASES, LSE_RING_CASES and NH_CASES: T = 1, 63, 65, ... 4096,
@@ -73,6 +74,17 @@ Phases:
      attribution report and /attrib through the port's validators, the
      SLO report, the prefill and decode rows, 0 new shapes after warmup);
      0 launches of every kernel on each;
+  3e. tensor-parallel serving (tp = 2: this process drives, one spawned
+     follower process follows, gloo ranks sharing the card): serve_tp_parity
+     (serve_parity's requests, fp32, with a 1-layer draft at k = SPEC_K so
+     that rejections roll back, against the single-process server in this
+     call: tokens by the tie rule, the largest logit difference, shapes
+     equal, each rank's pool at half the bytes by the allocator, prefix
+     entries of 6 of 12 heads, 0 launches on both ranks) and serve_tp
+     (serve's traffic, bf16: tokens/s beside serve's, shared-card, not
+     multi-GPU throughput; TTFT and ITL p99; host ms per decode step, the
+     tp collectives' and the command broadcast's ms per step; greedy
+     streams by the teacher-forced tie rule); the follower exits 0;
   3c. mixture of experts at Mixtral-8x7B width (d 4096, E 8, top-2,
      SwiGLU experts of 14336, 32/8 heads, V 32000): moe_check (the layer on
      256 tokens, bf16 against fp32 on the same bf16 input, and with one
@@ -127,7 +139,8 @@ Phases:
      debug_nans on and off, step ms of each), and the serve entry point
      (serve_cli): --selftest, then --prompts-file over that snapshot, and
      with --replicas 1 --autoscale --control-log (serve_cli_autoscale:
-     completions byte-equal, the log strict-valid); the
+     completions byte-equal, the log strict-valid) and with --mesh tp=2
+     --dist-backend gloo (serve_cli_tp: completions byte-equal); the
      train CLI's first call writes its snapshot with async_save (the
      resume reads it) and gathers its batches with the C gather;
      moe_train_step (the MoE training path: 1 layer at Mixtral-8x7B width,
@@ -142,8 +155,13 @@ Phases:
      attention; the sp = 4 ring train step at full GPT-2 width, block 4096,
      global batch 4 (exactly 72 K3, 72 prep, 72 K4a and 72 K4b launches per
      rank per step), its loss against a single-process dense-attention
-     step; a dp = 2 x sp = 2 Ulysses step at 2 layers;
-  4d. fsdp x tp: 4 ranks (dp 1 x fsdp 2 x tp 2) spawned once on the one
+     step; a dp = 2 x sp = 2 Ulysses step at 2 layers; then on the same
+     ranks sp_tp: the dp 1 x sp 2 x tp 2 ring step at GPT-2 124M, block
+     4096, bf16 (exactly 48 K3, 48 prep, 48 K4a and 48 K4b launches per
+     rank per step on 6 of 12 heads; step ms and the collectives' ms) and
+     fp32 legs at 2 layers, sp 2 x tp 2 and sp 2 x fsdp 2, against one
+     process (losses and gradients within 1e-5 relative);
+  4d. fsdp x tp: the same 4 ranks (dp 1 x fsdp 2 x tp 2) on the one
      card over gloo: an fp32 leg at GPT-2 width, 2 layers (losses, every
      parameter's first gradient and the parameters after the first update
      against the single-process step on the same weights and batch), then
@@ -159,16 +177,18 @@ Phases:
      the prep pass with and without K2c's dq zero-fill; the whole fused
      backward (prep, K2c, cast) beside the split one (prep, K2a, K2b); peak
      device memory; K1, the prep pass, K2a and K2b at the fsdp x tp local
-     shape (8, 1024, 6, 64); then the exp-vs-exp2 tool (tools/exp_exp2.py, K6's
+     shape (8, 1024, 6, 64); K3, K4a and K4b at the sp x tp hop shape
+     (8, 1024, 6, 64, non-causal); then the exp-vs-exp2 tool (tools/exp_exp2.py, K6's
      path) through its main() at its shape (64 x 512 x 512 float32, 64
      reps), 64 reps timed against 32, and the opcodes of K6's compiled
      kernels. The SM clock, power and
      throttle reasons are logged before and after.
 The seconds of the phases added with MoE and telemetry are one line
 (phase_seconds), those of the fleet phases another (new_phase_seconds, with
-the smoke's seconds so far), and the autoscaler's and fsdp x tp's phases a
-third (smoke_budget: each against ADDED_PHASES_BUDGET_S together, and the
-whole smoke against SMOKE_BUDGET_S, reported, not failed). The last three lines are the card, the kernels
+the smoke's seconds so far), and a third (smoke_budget) gives the
+tensor-parallel phases' seconds against ADDED_PHASES_BUDGET_S together,
+the autoscaler's and fsdp x tp's beside them, and the whole smoke against
+SMOKE_BUDGET_S, reported, not failed. The last three lines are the card, the kernels
 line (twelve kernels) and the ok line. Exits 2 without CUDA, 1 on any
 failure.
 """
@@ -318,8 +338,15 @@ def check(cond: bool, msg: str) -> None:
         raise SmokeFailure(msg)
 
 
+SMOKE_T0 = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """``obj`` as a JSON line on stdout; on stderr, the seconds since the
+    smoke started beside its phase (where the smoke's time goes)."""
     print(json.dumps(obj), flush=True)
+    print(f"[chip_smoke +{time.perf_counter() - SMOKE_T0:.1f} s] {obj.get('phase', '')}",
+          file=sys.stderr, flush=True)
 
 
 def card_line() -> str:
@@ -755,6 +782,14 @@ LSE_RING_CASES = [
         (f"gqa12_4_t65_hd{hd}", 2, 65, 12, 4, hd, True, None, None, 0, "dense"),
     )
 ]
+# K3/K4 at the shapes the sp x tp main path (dp 1 x sp 2 x tp 2, T=4096,
+# batch 4) gives each rank: the batch-stacked non-causal hop and the step-0
+# causal own block, half-chunks of 1024 rows on 6 of 12 heads. Kept after
+# the ring cases so that their seeds stay as they were.
+LSE_SP_TP_CASES = [
+    ("sp_tp_hop", 8, 1024, 6, 6, 64, False, None, None, 0),
+    ("sp_tp_own", 4, 1024, 6, 6, 64, True, None, None, 0),
+]
 # A dead row (no key inside its offset band) must come out finite with
 # lse <= DEAD_LSE and out exactly 0; its dq exactly 0.
 DEAD_LSE = -1e29
@@ -856,7 +891,7 @@ def phase_lse_kernels(fa):
     """K3, K4a and K4b against their plain versions; returns the records
     by (case, dtype)."""
     results = {}
-    for i, case in enumerate(LSE_CASES + LSE_RING_CASES):
+    for i, case in enumerate(LSE_CASES + LSE_RING_CASES + LSE_SP_TP_CASES):
         for dtype in (torch.bfloat16, torch.float32):
             rec, fails = lse_case(fa, i, case, dtype)
             emit(rec)
@@ -1524,6 +1559,11 @@ def decode_device_ms(engine, tokens, positions, do_sample, steps=20):
 
 
 SERVE_NEW = 64
+# serve_spec's requests, the first of serve's 32: more than its 8 slots, so
+# the sharers queued behind them hit the prefix the first sharer stored;
+# fewer than 32, since the 'self' draft runs ~40 tokens/s and the smoke has
+# a time budget
+SERVE_SPEC_REQUESTS = 12
 
 
 def serve_traffic(n_req, vocab=50257):
@@ -1689,6 +1729,7 @@ def phase_serve(params32, card, kv_dtype="fp32", draft=None, n_req=32, serve_rec
             "tokens_per_s", "ttft_s", "itl_s", "decode_step_host_ms",
             "decode_round_host_ms", "pool_bytes", "peak_allocated_bytes")}
     emit(rec)
+    rec["_streams"] = [list(h.tokens) for h in handles]  # serve_tp's reference
     check(all(h.finished and len(h.tokens) == SERVE_NEW and h.finish_reason == "length"
               for h in handles), f"{phase}: a request did not end with {SERVE_NEW} tokens")
     check(all(0 <= t < cfg.vocab_size for h in handles for t in h.tokens),
@@ -1715,6 +1756,233 @@ def phase_serve(params32, card, kv_dtype="fp32", draft=None, n_req=32, serve_rec
         check(server.watchdog.recompiles == 0,
               f"{phase}: {server.watchdog.recompiles} new shapes after warmup")
     del server
+    torch.cuda.empty_cache()
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 3b': tensor-parallel serving (tp = 2: this process drives, one
+# follower process, gloo, both on the one card)
+# ---------------------------------------------------------------------------
+
+TP_SERVE = 2
+# each rank's pool, read as the allocator's growth when it was made, within
+# 1% of the tp = 1 pool's bytes over TP_SERVE
+TP_POOL_REL_TOL = 0.01
+
+
+def tp_serve_group():
+    """The tp = 2 group the serving phases share: (group, seconds to spawn
+    the follower and join). Started on a thread early in the smoke: until
+    the serving phases take it, this process is rank 0 of a group of two
+    and nothing else it runs reads the group."""
+    from mingpt_distributed_tpu_torch.parallel.mesh import TP_TIMEOUT_S
+    from mingpt_distributed_tpu_torch.serving.lockstep import TPGroup
+
+    return timed(lambda: TPGroup(TP_SERVE, "gloo", torch.device("cuda"), TP_TIMEOUT_S))
+
+
+def tp_rank_checks(phase, srv, want_heads, pool_total, counts):
+    """Every rank's report (the driver's and the follower's): pool and
+    prefix entries of ``want_heads`` heads, pool bytes by the allocator
+    within TP_POOL_REL_TOL of ``pool_total`` / TP_SERVE, the driver's shape
+    counts, no flash launch. Returns the reports."""
+    reports = [srv.engine.local_report()] + srv.engine.follower_reports()
+    want = pool_total / TP_SERVE
+    for rep in reports:
+        r = rep["rank"]
+        check(rep["kv_heads"] == want_heads and rep["kv_shard_count"] == TP_SERVE,
+              f"{phase}: rank {r} holds {rep['kv_heads']} pool heads, want {want_heads}")
+        check(rep["prefix_heads"] and all(h == want_heads for h in rep["prefix_heads"]),
+              f"{phase}: rank {r} prefix entries of {rep['prefix_heads']} heads")
+        check(abs(rep["pool_alloc_bytes"] - want) <= TP_POOL_REL_TOL * want,
+              f"{phase}: rank {r} pool took {rep['pool_alloc_bytes']} bytes, want {want}")
+        check(not any(rep["launches"].values()),
+              f"{phase}: rank {r} launched flash kernels {rep['launches']}")
+        mine = {f: n for f, n in counts.items() if f in rep["compile_counts"]}
+        check(rep["compile_counts"] == mine,
+              f"{phase}: rank {r} shapes {rep['compile_counts']}, the driver's {mine}")
+    return reports
+
+
+def phase_serve_tp_parity(params32, card, group):
+    """serve_parity's six requests (fp32, 4 slots, chunks of 256, the prefix
+    cache) with a 1-layer draft (k = SPEC_K, so rejections roll back) at tp
+    = 2 against the single-process server in the same call: tokens equal
+    (else only at near-ties by the tie rule, with the tp = 1 server's logits
+    as the reference), the largest logit difference, equal shapes, each
+    rank's pool at half the bytes and its prefix entries at 6 of 12 heads,
+    no flash launch on either rank."""
+    from mingpt_distributed_tpu_torch.serve import first_layers
+    from mingpt_distributed_tpu_torch.serving import InferenceServer, Request
+
+    cfg, new = gpt2_config("flash", "float32"), PARITY_NEW
+    prompts, lengths = parity_prompts(cfg.vocab_size)
+    kw = dict(n_slots=4, prefill_chunk=256, prefix_cache_mb=64,
+              draft_params=first_layers(params32, 1),
+              draft_cfg=dataclasses.replace(cfg, n_layer=1), spec_k=SPEC_K)
+
+    def run(mesh, device):
+        server = InferenceServer(params32, cfg, mesh=mesh, device=device, **kw)
+        reset_counts()
+        with logit_tap(server) as rows:
+            handles, dt = timed(lambda: server.generate_batch(
+                [Request(prompt=p, max_new_tokens=new) for p in prompts]))
+        return server, handles, rows, read_counts(), dt
+
+    one, h1, rows1, _, dt1 = run(None, "cuda")
+    ref = [(h.tokens, torch.stack([rows1[(h.request_id, i)] for i in range(new)]))
+           for h in h1]
+    counts1, pool1, draft_pool1 = (one.compile_counts(), one.engine.pool.nbytes,
+                                   one.spec.draft.engine.pool.nbytes)
+    del one, rows1
+    torch.cuda.empty_cache()
+    srv, h2, rows2, launches, dt2 = run(group.mesh, group.device)
+    res = tie_rule(h2, ref, rows2, new)
+    counts = srv.compile_counts()
+    reports = tp_rank_checks("serve_tp_parity", srv, cfg.kv_heads // TP_SERVE, pool1,
+                             counts)
+    m = srv.metrics
+    rec = {"phase": "serve_tp_parity", "model": "gpt2 124M", "dtype": "float32",
+           "tp": TP_SERVE, "backend": "gloo, one shared card", "slots": 4,
+           "requests": 6, "prompt_lengths": [int(n) for n in lengths], "new_tokens": new,
+           "prefill_chunk": 256, "draft_layers": 1, "spec_k": SPEC_K,
+           "tokens_equal": [a.tokens == b.tokens for a, b in zip(h1, h2)], **res,
+           "spec_accepted": m.spec_accepted, "spec_proposed": m.spec_proposed,
+           "prefix_hits": m.prefix_hits, "shapes": counts, "shapes_tp1": counts1,
+           "pool_bytes_tp1": pool1, "draft_pool_bytes_tp1": draft_pool1,
+           "pool_alloc_bytes_per_rank": [r["pool_alloc_bytes"] for r in reports],
+           "prefix_heads_per_rank": [r["prefix_heads"] for r in reports],
+           "launches": launches,
+           "follower_launches": [r["launches"] for r in reports[1:]],
+           "seconds_tp1": dt1, "seconds_tp2": dt2, "card": card}
+    emit(rec)
+    check(all(len(h.tokens) == new for h in h2), "serve_tp_parity: a request fell short")
+    check_tie_rule("serve_tp_parity", res, 6 * new)
+    check(counts == counts1, f"serve_tp_parity: shapes {counts} != tp = 1's {counts1}")
+    check(m.spec_accepted < m.spec_proposed and m.prefix_hits >= 1,
+          f"serve_tp_parity: accepted {m.spec_accepted} of {m.spec_proposed}, "
+          f"{m.prefix_hits} prefix hits")
+    check(not any(launches.values()), f"serve_tp_parity launched kernels: {launches}")
+    del srv, rows2
+    torch.cuda.empty_cache()
+
+
+def phase_serve_tp(params32, card, group, serve_rec):
+    """serve's traffic (bf16, 8 slots, 32 requests, 64 new, chunks of 256,
+    the prefix cache, warmup) through the tp = 2 server: tokens/s, TTFT and
+    ITL p99, host ms per decode step, the tp collectives' ms per step (the
+    card synchronised before each: host traffic alone) and the command
+    broadcast's, the ratio to serve's tokens/s in this call (shared card:
+    not multi-GPU throughput); the greedy streams by serve's tie rule at
+    bf16 (``forced_tie_rule``: each token solo's argmax, or within 3 e of
+    it), and how many equal serve's own streams."""
+    from mingpt_distributed_tpu_torch.parallel import distributed as D
+    from mingpt_distributed_tpu_torch.serving import InferenceServer
+    from mingpt_distributed_tpu_torch.serving import lockstep
+
+    cfg = gpt2_config("flash", "bfloat16")
+    reqs, lengths, sampled = serve_traffic(32, cfg.vocab_size)
+    token_times = {}
+
+    def on_token(handle, _tok):
+        token_times.setdefault(handle.request_id, []).append(time.perf_counter())
+
+    server = InferenceServer(params32, cfg, n_slots=8, prefill_chunk=256,
+                             prefix_cache_mb=256, warmup=True, on_token=on_token,
+                             mesh=group.mesh, device=group.device)
+    eng = server.engine
+    stats = {"step_ms": [], "coll_s": 0.0, "coll_calls": 0, "cmd_s": 0.0, "cmd_calls": 0}
+    inside = []
+    real = {"all_reduce": D.all_reduce, "reduce_to_first": D.reduce_to_first}
+    real_send, real_step = lockstep.Channel.send, eng.decode_step
+
+    def timed_collective(fn):
+        def run(*args, **kwargs):
+            if not inside:
+                return fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                stats["coll_s"] += time.perf_counter() - t0
+                stats["coll_calls"] += 1
+        return run
+
+    def send(ch, *args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return real_send(ch, *args, **kwargs)
+        finally:
+            if inside:
+                stats["cmd_s"] += time.perf_counter() - t0
+                stats["cmd_calls"] += 1
+
+    def decode_step(*args):
+        inside.append(1)
+        t0 = time.perf_counter()
+        try:
+            return real_step(*args)
+        finally:
+            stats["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            inside.clear()
+
+    for name, fn in real.items():
+        setattr(D, name, timed_collective(fn))
+    lockstep.Channel.send = send
+    eng.decode_step = decode_step
+    reset_counts()
+    try:
+        with logit_tap(server) as rows:
+            handles, dt = timed(lambda: server.generate_batch(reqs))
+    finally:
+        for name, fn in real.items():
+            setattr(D, name, fn)
+        lockstep.Channel.send = real_send
+        del eng.decode_step
+    launches = read_counts()
+    greedy = [i for i, r in enumerate(reqs) if not r.do_sample]
+    res = forced_tie_rule(params32, cfg, [(handles[i].request_id, list(reqs[i].prompt),
+                                           handles[i].tokens) for i in greedy], rows)
+    same = sum(handles[i].tokens == serve_rec["_streams"][i] for i in greedy)
+    n_greedy = len(greedy)
+    del rows
+    generated = sum(len(h.tokens) for h in handles)
+    itl = [b - a for ts in token_times.values() for a, b in zip(ts, ts[1:])]
+    steps = len(stats["step_ms"])
+    reports = tp_rank_checks("serve_tp", server, cfg.kv_heads // TP_SERVE,
+                             pool_bytes_want(cfg, 8, "fp32"), server.compile_counts())
+    rec = {"phase": "serve_tp", "model": "gpt2 124M", "dtype": "bfloat16", "tp": TP_SERVE,
+           "backend": "gloo, one shared card", "slots": 8, "requests": 32,
+           "sampled_top_k50": sum(sampled), "prompt_tokens": int(sum(lengths)),
+           "new_tokens": SERVE_NEW, "generated_tokens": generated, "seconds": dt,
+           "tokens_per_s": generated / dt,
+           "ratio_to_serve_tokens_per_s": generated / dt / serve_rec["tokens_per_s"],
+           "throughput_note": "shared-card, not multi-GPU throughput: 2 gloo ranks on "
+                              "one H100, collectives through host memory",
+           "serve_tokens_per_s": serve_rec["tokens_per_s"],
+           "ttft_s": _percentiles([h.ttft_s for h in handles]), "itl_s": _percentiles(itl),
+           "decode_steps": steps, "decode_step_host_ms": _percentiles(stats["step_ms"]),
+           "serve_decode_step_host_ms": serve_rec["decode_step_host_ms"],
+           "tp_collective_ms_per_step": stats["coll_s"] * 1e3 / steps,
+           "tp_collectives_per_step": stats["coll_calls"] / steps,
+           "command_broadcast_ms_per_step": stats["cmd_s"] * 1e3 / steps,
+           "commands_per_step": stats["cmd_calls"] / steps,
+           "greedy_requests": n_greedy, "greedy_streams_equal_to_serve": same,
+           "tie_rule": "teacher-forced (forced_tie_rule)", **res,
+           "prefix_hits": server.metrics.prefix_hits,
+           "shapes": server.compile_counts(),
+           "pool_alloc_bytes_per_rank": [r["pool_alloc_bytes"] for r in reports],
+           "launches": launches,
+           "follower_launches": [r["launches"] for r in reports[1:]], "card": card}
+    emit(rec)
+    check(all(h.finished and len(h.tokens) == SERVE_NEW for h in handles),
+          f"serve_tp: a request did not end with {SERVE_NEW} tokens")
+    check_tie_rule("serve_tp", res, n_greedy * SERVE_NEW)
+    check(not any(launches.values()), f"serve_tp launched kernels: {launches}")
+    check(eng.pool.free_count == 8 and not server.queue, "serve_tp: a slot is still held")
+    del server, eng
     torch.cuda.empty_cache()
     return rec
 
@@ -3661,7 +3929,7 @@ def phase_train_telemetry(card, argv, tmp):
 SP = 4
 SP_T = 4096
 SP_BATCH = 4
-SP_STEPS = 3
+SP_STEPS = 2  # a loss that falls, within the smoke's time budget
 SP_DP2_LAYERS = 2
 # Zigzag K3 launches per rank per layer and forward: 3 at step 0 (early x
 # early and late x late causal, late x early full) and one batch-stacked
@@ -3855,11 +4123,107 @@ def _sp_train(cfg, mesh, device, seed, steps):
     return out, first
 
 
+# sp x tp and sp x fsdp (meshes of the SP ranks): the main path at dp 1 x
+# sp 2 x tp 2 (GPT-2 124M, bf16, block SP_T, global batch SP_BATCH, the
+# zigzag ring on each rank's 6 of 12 heads: 3 + (2 - 1) K3 launches per layer
+# and as many of the prep pass, K4a and K4b in the backward, per rank per
+# step); then fp32 legs at SP_DP2_LAYERS layers, global batch
+# SP_TP_PARITY_BATCH, against one process: losses and every gradient within
+# SP_TP_PARITY_REL_TOL relative, the parameters after the first update
+# within FT_PARAM_ATOL (fsdp_tp's leg's gate: Adam's first step amplifies
+# the summation order where |g| nears its eps)
+SP_TP_MESH = dict(dp=1, sp=2, tp=2)
+SP_FSDP_MESH = dict(dp=1, fsdp=2, sp=2)
+SP_TP_STEPS = 2
+SP_TP_PER_LAYER = 3 + (SP_TP_MESH["sp"] - 1)
+SP_TP_PARITY_BATCH = 2
+SP_TP_PARITY_REL_TOL = 1e-5
+
+
+def _sptp_main(device, dense_loss):
+    """The sp x tp main path: SP_TP_STEPS steps with the launch counts set
+    to 0 just before and read just after, each step's wall ms, the ms in
+    collectives (the card synchronised before each: host traffic alone),
+    the q shapes K3 saw, and the first loss beside the dense single-process
+    loss of the sp main path's model and batch (``dense_loss``, rank 0)."""
+    from mingpt_distributed_tpu_torch.config import MeshConfig
+    from mingpt_distributed_tpu_torch.ops import flash_attention as fa
+    from mingpt_distributed_tpu_torch.parallel import distributed as D
+    from mingpt_distributed_tpu_torch.parallel.mesh import Mesh
+    from mingpt_distributed_tpu_torch.training.trainer import make_train_step
+
+    t_leg = time.perf_counter()
+    mesh = Mesh(MeshConfig(**SP_TP_MESH))
+    cfg = _sp_gpt_config("ring")
+    state = _ft_state(cfg, device, mesh)
+    step = make_train_step(cfg, mesh=mesh)
+    x, y = _sp_batch(5)
+    batch = (_ft_rows(x, mesh, device), _ft_rows(y, mesh, device))
+    spent, shapes = {"s": 0.0, "calls": 0}, set()
+    real = {"_exchange": D._exchange, "all_reduce": D.all_reduce}
+    real_lse = fa.attention_with_lse
+
+    def timed_collective(fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                spent["s"] += time.perf_counter() - t0
+                spent["calls"] += 1
+        return run
+
+    def attention_with_lse(q, *args, **kwargs):
+        shapes.add(tuple(q.shape))
+        return real_lse(q, *args, **kwargs)
+
+    for name, fn in real.items():
+        setattr(D, name, timed_collective(fn))
+    fa.attention_with_lse = attention_with_lse
+    torch.cuda.synchronize()
+    reset_counts()
+    losses, seconds = [], []
+    try:
+        for _ in range(SP_TP_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step(state, batch)["loss"].item())
+            seconds.append(time.perf_counter() - t0)
+        counts = read_counts()
+    finally:
+        for name, fn in real.items():
+            setattr(D, name, fn)
+        fa.attention_with_lse = real_lse
+    del state, batch
+    torch.cuda.empty_cache()
+    return {"losses": losses, "seconds": seconds, "collective_s": spent["s"],
+            "collective_calls": spent["calls"], "launches": counts,
+            "q_shapes": sorted(shapes), "dense_loss": dense_loss,
+            "coords": {"sp": mesh.sp_rank, "tp": mesh.tp_rank},
+            "leg_s": time.perf_counter() - t_leg}
+
+
+def _sptp_parity(mesh_kw, device):
+    """An fp32 leg of the sp x tp or sp x fsdp mesh against one process."""
+    from mingpt_distributed_tpu_torch.config import MeshConfig
+    from mingpt_distributed_tpu_torch.parallel.mesh import Mesh
+
+    t0 = time.perf_counter()
+    tokens = _sp_batch(7)
+    batch = tuple(a[:SP_TP_PARITY_BATCH] for a in tokens)
+    out = _ft_parity(Mesh(MeshConfig(**mesh_kw)), device,
+                     _sp_gpt_config("ring", SP_DP2_LAYERS, "float32"), batch)
+    out["leg_s"] = time.perf_counter() - t0
+    return out
+
+
 def sp_rank(rank):
     """One of the SP ranks (spawned by parallel.spawn.run_ranks, sharing
     cuda:0): the attention checks, the main path, the main path's ring in
     fp32, the dp x sp step (fp32). Rank 0 then runs each step's dense
-    single-process reference (the others wait in their next collective)."""
+    single-process reference (the others wait in their next collective).
+    Then the sp x tp main path and the sp x tp and sp x fsdp fp32 legs, and
+    the fsdp x tp slice (``ft_rank``: one spawn serves both phases)."""
     from mingpt_distributed_tpu_torch.config import MeshConfig
     from mingpt_distributed_tpu_torch.parallel.mesh import Mesh
 
@@ -3878,6 +4242,14 @@ def sp_rank(rank):
             out[key]["dense"] = sp_dense(cfg, seed, steps, device, grads)
         del grads
         torch.cuda.empty_cache()
+    dense = out["main"]["dense"]["losses"][0] if rank == 0 else None
+    out["sp_tp"] = _sptp_main(device, dense)
+    out["sp_tp_parity"] = _sptp_parity(SP_TP_MESH, device)
+    out["sp_fsdp_parity"] = _sptp_parity(SP_FSDP_MESH, device)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["ft"] = ft_rank(rank)
+    out["ft_seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -3990,12 +4362,75 @@ def sp_checks(ranks, card):
     fails += [("dp2", msg) for msg in _sp_step_fails(
         "dp2 x sp2", dp2, dp2[0]["dense"], SP_FP32_LOSS_TOL, GRAD_FP32_REL_TOL,
         GRAD_FP32_REL_TOL)]
+    if "sp_tp" in ranks[0]:
+        rec, more = sp_tp_checks(ranks, card)
+        records += rec
+        fails += [("sp_tp", msg) for msg in more]
+    return records, fails
+
+
+def sp_tp_checks(ranks, card):
+    """The sp x tp main path's record and its fp32 legs' (every rank's
+    K3/K4a/K4b/prep launches exactly SP_TP_PER_LAYER per layer per step,
+    K3 at the tp-local head count), and the message of every failed
+    check."""
+    main = [r["sp_tp"] for r in ranks]
+    m0 = main[0]
+    per_step = SP_TP_PER_LAYER * 12
+    want = expected(flash_lse_fwd=per_step * SP_TP_STEPS,
+                    flash_bwd_prep=per_step * SP_TP_STEPS,
+                    flash_lse_bwd_dq=per_step * SP_TP_STEPS,
+                    flash_lse_bwd_dkv=per_step * SP_TP_STEPS)
+    b, c, h = SP_BATCH, SP_T // SP_TP_MESH["sp"], 12 // SP_TP_MESH["tp"]
+    local = sorted({(b, c // 2, h, 64), (2 * b, c // 2, h, 64)})
+    step_s = sum(sum(m["seconds"][1:]) for m in main) / (SP * (SP_TP_STEPS - 1))
+    coll_s = sum(m["collective_s"] for m in main) / (SP * SP_TP_STEPS)
+    records = [{
+        "phase": "sp_tp_train_step", "main_path": True, "model": "gpt2 124M",
+        "mesh": SP_TP_MESH, "ranks": SP, "backend": "gloo, one shared card",
+        "attention": "ring (zigzag), heads sharded over tp", "global_batch": SP_BATCH,
+        "seq": SP_T, "dtype": "bfloat16", "steps": SP_TP_STEPS, "losses": m0["losses"],
+        "dense_first_loss": m0["dense_loss"], "loss_tol": SP_LOSS_TOL,
+        "step_ms": step_s * 1e3, "collective_ms_per_step": coll_s * 1e3,
+        "collective_calls_per_step": m0["collective_calls"] / SP_TP_STEPS,
+        "step_ms_per_rank": [sum(m["seconds"][1:]) / (SP_TP_STEPS - 1) * 1e3 for m in main],
+        "shared_card_tokens_per_s": SP_BATCH * SP_T / step_s,
+        "throughput_note": "shared-card, not multi-GPU throughput: 4 gloo ranks on one "
+                           "H100, collectives through host memory",
+        "launches_per_rank": [m["launches"] for m in main], "launches_want": want,
+        "launches_per_rank_per_step": {k: v / SP_TP_STEPS
+                                       for k, v in m0["launches"].items() if v},
+        "k3_q_shapes": [list(q) for q in m0["q_shapes"]],
+        "k3_q_shapes_want": [list(q) for q in local],
+        "coords": [m["coords"] for m in main], "card": card}]
+    fails = [f"sp_tp launches {m['launches']}, want {want}"
+             for m in main if m["launches"] != want]
+    if [tuple(q) for q in m0["q_shapes"]] != local:
+        fails.append(f"sp_tp: K3 saw q shapes {m0['q_shapes']}, want {local}")
+    if any(m["losses"] != m0["losses"] for m in main[1:]):
+        fails.append("sp_tp: the ranks' losses differ")
+    if not all(math.isfinite(v) for v in m0["losses"]):
+        fails.append(f"sp_tp: losses {m0['losses']}")
+    if not abs(m0["losses"][0] - m0["dense_loss"]) <= SP_LOSS_TOL:
+        fails.append(f"sp_tp: loss {m0['losses'][0]} vs dense {m0['dense_loss']}")
+    for key, mesh in (("sp_tp_parity", SP_TP_MESH), ("sp_fsdp_parity", SP_FSDP_MESH)):
+        rec, more = parity_checks(
+            [r[key] for r in ranks], f"{key[:-7]}_parity_fp32", card,
+            (SP_TP_PARITY_REL_TOL, SP_TP_PARITY_REL_TOL), mesh=mesh, ranks=SP,
+            layers=SP_DP2_LAYERS, global_batch=SP_TP_PARITY_BATCH, seq=SP_T)
+        records.append(rec)
+        fails += more
+    legs_s = max(m["leg_s"] for m in main) + max(r["sp_tp_parity"]["leg_s"] for r in ranks) \
+        + max(r["sp_fsdp_parity"]["leg_s"] for r in ranks)
+    records[0]["legs_seconds"] = legs_s
     return records, fails
 
 
 def phase_sp(card):
     """The sp slice on SP ranks sharing the card. Returns the main path's
-    launch counts (rank 0's)."""
+    and the sp x tp main path's launch counts (rank 0's), the sp x tp legs'
+    seconds, and each rank's fsdp x tp results with their seconds (the
+    same ranks run them: ``phase_fsdp_tp`` checks them)."""
     from mingpt_distributed_tpu_torch.parallel.spawn import run_ranks
 
     t0 = time.perf_counter()
@@ -4006,7 +4441,10 @@ def phase_sp(card):
     for rec in records:
         emit({**rec, "spawn_seconds": seconds} if rec.get("main_path") else rec)
     check(not fails, "; ".join(msg for _, msg in fails))
-    return ranks[0]["main"]["launches"]
+    sp_tp = next(r for r in records if r["phase"] == "sp_tp_train_step")
+    return (ranks[0]["main"]["launches"], ranks[0]["sp_tp"]["launches"],
+            sp_tp["legs_seconds"], ([r["ft"] for r in ranks],
+                                    max(r["ft_seconds"] for r in ranks)))
 
 
 # ---------------------------------------------------------------------------
@@ -4264,6 +4702,24 @@ def phase_serve_cli_autoscale(card, train_argv, tmp, plain_texts):
     check(rows and not problems, f"serve --autoscale: control log problems {problems[:3]}")
 
 
+def phase_serve_cli_tp(card, train_argv, tmp, plain_texts):
+    """serve --mesh tp=2 --dist-backend gloo over the train entry point's
+    snapshot (this process drives, one follower process on the card):
+    completions byte-equal to the plain --prompts-file run's, the follower
+    out by exit 0."""
+    path = os.path.join(tmp, "prompts.txt")
+    (rc, out), dt = timed(lambda: run_serve(
+        ["--prompts-file", path, "--greedy", "--max-new-tokens", "32", "--slots", "2",
+         "--log-every", "0", "--mesh", "tp=2", "--dist-backend", "gloo", *train_argv]))
+    texts = served_texts(out)
+    emit({"phase": "serve_cli_tp", "rc": rc, "completions_equal": texts == plain_texts,
+          "completions": [t[len(p):] for p, t in zip(SERVE_CLI_PROMPTS, texts)],
+          "seconds": dt, "card": card})
+    check(rc == 0, f"serve --mesh tp=2 exited {rc}")
+    check(len(texts) == len(plain_texts) and texts == plain_texts,
+          f"serve --mesh tp=2: {texts} != the plain run's {plain_texts}")
+
+
 # ---------------------------------------------------------------------------
 # phase 4d: fsdp x tp training (dp 1 x fsdp 2 x tp 2, gloo ranks on one card)
 # ---------------------------------------------------------------------------
@@ -4272,7 +4728,7 @@ FT_MESH = dict(dp=1, fsdp=2, tp=2)
 FT_RANKS = 4
 FT_T = 1024
 FT_BATCH = 16
-FT_STEPS = 3
+FT_STEPS = 2  # after the warm-up step, within the smoke's time budget
 FT_PARITY_LAYERS = 2
 FT_PARITY_BATCH = 4
 FT_PARITY_STEPS = 2
@@ -4324,8 +4780,11 @@ def _ft_state(cfg, device, mesh=None):
 
 
 def _ft_rows(a, mesh, device):
-    n = a.shape[0] // mesh.batch_count
-    return a[mesh.batch_index * n:(mesh.batch_index + 1) * n].to(device)
+    """This rank's rows of a global batch (its dp x fsdp share) and, under
+    sp, its chunk of the sequence."""
+    n, c = a.shape[0] // mesh.batch_count, a.shape[1] // mesh.sp
+    return a[mesh.batch_index * n:(mesh.batch_index + 1) * n,
+             mesh.sp_rank * c:(mesh.sp_rank + 1) * c].contiguous().to(device)
 
 
 def _ft_whole(mesh, tree, grads=False):
@@ -4336,14 +4795,17 @@ def _ft_whole(mesh, tree, grads=False):
             for n, p in convert.flatten(tree).items()}
 
 
-def _ft_parity(mesh, device):
+def _ft_parity(mesh, device, cfg=None, batch=None):
     """The fp32 leg: FT_PARITY_STEPS sharded steps, then on rank 0 the
-    single-process steps on the same weights and batch; the comparisons."""
+    single-process steps on the same weights and batch (``cfg`` with flash
+    attention, K1 and K2, where ``cfg`` runs the ring); the comparisons.
+    Default: fsdp_tp's leg (FT_PARITY_LAYERS, FT_PARITY_BATCH rows of
+    FT_T)."""
     from mingpt_distributed_tpu_torch.models import convert
     from mingpt_distributed_tpu_torch.training.trainer import make_train_step
 
-    cfg = _ft_config(FT_PARITY_LAYERS, "float32")
-    x, y = _ft_batch(11, FT_PARITY_BATCH)
+    cfg = cfg or _ft_config(FT_PARITY_LAYERS, "float32")
+    x, y = batch or _ft_batch(11, FT_PARITY_BATCH)
     state = _ft_state(cfg, device, mesh)
     step = make_train_step(cfg, mesh=mesh)
     losses = []
@@ -4355,9 +4817,10 @@ def _ft_parity(mesh, device):
     del state
     out = {"losses": losses}
     if mesh.rank == 0:
-        ref = _ft_state(cfg, device)
+        one = dataclasses.replace(cfg, attention="flash")
+        ref = _ft_state(one, device)
         before = {n: p.detach().clone() for n, p in convert.flatten(ref.params).items()}
-        rstep = make_train_step(cfg)
+        rstep = make_train_step(one)
         ref_losses = []
         for i in range(FT_PARITY_STEPS):
             ref_losses.append(rstep(ref, (x.to(device), y.to(device)))["loss"].item())
@@ -4503,33 +4966,45 @@ def ft_rank(rank):
             "coords": {"fsdp": mesh.fsdp_rank, "tp": mesh.tp_rank}}
 
 
-def ft_checks(ranks, card, seconds):
-    """The fsdp_tp records and the message of every check they fail."""
+def parity_checks(pars, phase, card, rel_tol=(FT_LOSS_REL_TOL, GRAD_FP32_REL_TOL), **what):
+    """The record of an fp32 parity leg (``_ft_parity`` on every rank) and
+    the message of every check it fails: losses and gradients within
+    ``rel_tol`` (loss, gradient) relative, parameters within
+    FT_PARAM_ATOL."""
+    loss_tol, grad_tol = rel_tol
     fails = []
-    par = ranks[0]["parity"]
+    par = pars[0]
+    tag = phase.replace("_parity_fp32", "")
     loss_rel = [abs(a - b) / abs(b) for a, b in zip(par["losses"], par["ref_losses"])]
     rel = {n: v for n, v in par["grad_rel_err"].items() if n not in ZERO_GRAD_PARAMS}
-    records = [{"phase": "fsdp_tp_parity_fp32", "mesh": FT_MESH, "ranks": FT_RANKS,
-                "layers": FT_PARITY_LAYERS, "global_batch": FT_PARITY_BATCH, "seq": FT_T,
-                "losses": par["losses"], "single_process_losses": par["ref_losses"],
-                "loss_rel_err": loss_rel, "loss_rel_tol": FT_LOSS_REL_TOL,
-                "grad_max_rel_err": max(rel.values()), "grad_worst_param": max(rel, key=rel.get),
-                "grad_total_rel_err": par["grad_total_rel_err"],
-                "grad_rel_tol": GRAD_FP32_REL_TOL,
-                "param_max_abs_err_steady": par["param_max_abs_err_steady"],
-                "param_max_abs_err_all": par["param_max_abs_err_all"],
-                "steady_share": par["steady_share"], "param_atol": FT_PARAM_ATOL,
-                "update_max_abs": par["update_max_abs"], "card": card}]
-    if any(r["parity"]["losses"] != par["losses"] for r in ranks[1:]):
-        fails.append("fsdp_tp parity: the ranks' losses differ")
-    if not all(v <= FT_LOSS_REL_TOL for v in loss_rel):
-        fails.append(f"fsdp_tp parity: loss rel err {loss_rel}")
-    if not (max(rel.values()) <= GRAD_FP32_REL_TOL
-            and par["grad_total_rel_err"] <= GRAD_FP32_REL_TOL):
-        fails.append(f"fsdp_tp parity: gradient rel err {max(rel.values())} "
+    record = {"phase": phase, **what,
+              "losses": par["losses"], "single_process_losses": par["ref_losses"],
+              "loss_rel_err": loss_rel, "loss_rel_tol": loss_tol,
+              "grad_max_rel_err": max(rel.values()), "grad_worst_param": max(rel, key=rel.get),
+              "grad_total_rel_err": par["grad_total_rel_err"],
+              "grad_rel_tol": grad_tol,
+              "param_max_abs_err_steady": par["param_max_abs_err_steady"],
+              "param_max_abs_err_all": par["param_max_abs_err_all"],
+              "steady_share": par["steady_share"], "param_atol": FT_PARAM_ATOL,
+              "update_max_abs": par["update_max_abs"], "card": card}
+    if any(r["losses"] != par["losses"] for r in pars[1:]):
+        fails.append(f"{tag} parity: the ranks' losses differ")
+    if not all(v <= loss_tol for v in loss_rel):
+        fails.append(f"{tag} parity: loss rel err {loss_rel}")
+    if not (max(rel.values()) <= grad_tol and par["grad_total_rel_err"] <= grad_tol):
+        fails.append(f"{tag} parity: gradient rel err {max(rel.values())} "
                      f"({max(rel, key=rel.get)}), total {par['grad_total_rel_err']}")
     if not par["param_max_abs_err_all"] <= FT_PARAM_ATOL:
-        fails.append(f"fsdp_tp parity: post-update params {par['param_max_abs_err_all']}")
+        fails.append(f"{tag} parity: post-update params {par['param_max_abs_err_all']}")
+    return record, fails
+
+
+def ft_checks(ranks, card, seconds):
+    """The fsdp_tp records and the message of every check they fail."""
+    record, fails = parity_checks(
+        [r["parity"] for r in ranks], "fsdp_tp_parity_fp32", card, mesh=FT_MESH,
+        ranks=FT_RANKS, layers=FT_PARITY_LAYERS, global_batch=FT_PARITY_BATCH, seq=FT_T)
+    records = [record]
 
     main = [r["main"] for r in ranks]
     want = expected(flash_fwd=FT_PER_STEP * FT_STEPS, flash_bwd_prep=FT_PER_STEP * FT_STEPS,
@@ -4560,7 +5035,7 @@ def ft_checks(ranks, card, seconds):
         "moment_bytes_unsharded": m0["moment_bytes_unsharded"],
         "downgraded_leaves": m0["downgraded_leaves"], "downgrade_counter": m0["downgrades"],
         "peak_allocated_bytes_per_rank": [m["peak_allocated_bytes"] for m in main],
-        "spawn_seconds": seconds, "card": card})
+        "seconds": seconds, "card": card})
     fails += [f"fsdp_tp launches {m['launches']}, want {want}"
               for m in main if m["launches"] != want]
     if m0["q_shapes"] != [local]:
@@ -4580,15 +5055,12 @@ def ft_checks(ranks, card, seconds):
     return records, fails
 
 
-def phase_fsdp_tp(card):
-    """The fsdp x tp slice on FT_RANKS ranks sharing the card, spawned once.
-    Returns rank 0's main-path launch counts."""
-    from mingpt_distributed_tpu_torch.parallel.spawn import run_ranks
-
-    t0 = time.perf_counter()
-    with fused_switch(False):  # the ranks inherit it: K2a/K2b
-        ranks = run_ranks(ft_rank, FT_RANKS, timeout_s=600)
-    records, fails = ft_checks(ranks, card, time.perf_counter() - t0)
+def phase_fsdp_tp(card, ft):
+    """The fsdp x tp slice's checks over what FT_RANKS ranks sharing the
+    card returned (``ft``: their results and seconds, from phase_sp's
+    spawn). Returns rank 0's main-path launch counts."""
+    ranks, seconds = ft
+    records, fails = ft_checks(ranks, card, seconds)
     for rec in records:
         emit(rec)
     check(not fails, "; ".join(fails))
@@ -4631,20 +5103,22 @@ def phase_fsdp_tp_times(fa, card):
     return rows
 
 
-# The time this slice's phases may take together, and the whole smoke, in
-# seconds of the command (the smoke must end well inside 900 s).
-ADDED_PHASES_BUDGET_S = 150.0
-SMOKE_BUDGET_S = 780.0
+# The time this slice's phases (tensor-parallel serving, sp x tp) may take
+# together, and the whole smoke, in seconds of the command (the smoke must
+# end well inside a 900 s run limit).
+ADDED_PHASES_BUDGET_S = 120.0
+SMOKE_BUDGET_S = 800.0
 
 
-def budget_record(added_seconds, smoke_seconds):
+def budget_record(added_seconds, smoke_seconds, earlier_seconds=None):
     """The budget line: each added phase's seconds, their total and the
-    whole smoke's, each against its budget (reported; a slow host is not a
-    failed check)."""
+    whole smoke's, each against its budget, and the previous slice's phases
+    (``earlier_seconds``; reported; a slow host is not a failed check)."""
     total = sum(added_seconds.values())
     return {"phase": "smoke_budget", **{f"{k}_s": v for k, v in added_seconds.items()},
             "added_total_s": total, "added_budget_s": ADDED_PHASES_BUDGET_S,
             "added_within_budget": total <= ADDED_PHASES_BUDGET_S,
+            "earlier_slice_s": earlier_seconds or {},
             "smoke_s": smoke_seconds, "smoke_budget_s": SMOKE_BUDGET_S,
             "smoke_within_budget": smoke_seconds <= SMOKE_BUDGET_S}
 
@@ -4792,9 +5266,24 @@ def phase_lse_times(fa, card):
     non-causal): kernel, plain version and library times, bounds; returns
     the kernels line's rows (bf16)."""
     name, b, t, h, kv, hd, causal, _, _, _ = LSE_CASES[0]
+    return _lse_times(fa, card, name, (b, t, h, kv, hd), causal,
+                      (torch.bfloat16, torch.float32))
+
+
+def phase_sp_tp_times(fa, card):
+    """K3, K4a and K4b at the sp x tp main path's local hop shape (the
+    batch-stacked hop of SP_BATCH rows, half-chunks of SP_T / sp / 2, 6 of
+    12 heads; non-causal), bf16 (time lines, shape_of "sp_tp_hop")."""
+    b, c, h = SP_BATCH, SP_T // SP_TP_MESH["sp"], 12 // SP_TP_MESH["tp"]
+    return _lse_times(fa, card, "sp_tp_hop", (2 * b, c // 2, h, h, 64), False,
+                      (torch.bfloat16,))
+
+
+def _lse_times(fa, card, name, shape, causal, dtypes):
+    b, t, h, kv, hd = shape
     scale = 1.0 / math.sqrt(hd)
     rows = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in dtypes:
         q, k, v = make_qkv(b, t, h, kv, hd, dtype, seed=900)
         g = torch.Generator(device="cuda").manual_seed(901)
         do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
@@ -5218,6 +5707,9 @@ def _main() -> int:
     _, spill_fails = bwd_ptxas(logs["flash_bwd"])
     check(not spill_fails, "; ".join(spill_fails))
     bwd_sass(card)
+    # the tp serving phases' follower boots while the kernel checks (which
+    # hold no time) run
+    tp_pending = Background(tp_serve_group)
 
     fwd_errors = phase_kernels(fa)
     prep_errors = phase_bwd_kernels(fa, prep_case)
@@ -5242,8 +5734,21 @@ def _main() -> int:
     serve = phase_serve(model32.params, card)
     serve_quant = {kv: phase_serve(model32.params, card, kv_dtype=kv, serve_rec=serve)
                    for kv in ("int8", "fp8")}
-    serve_spec = {d: phase_serve(model32.params, card, draft=d, n_req=16, serve_rec=serve)
+    serve_spec = {d: phase_serve(model32.params, card, draft=d, n_req=SERVE_SPEC_REQUESTS,
+                                 serve_rec=serve)
                   for d in ("self:2", "self")}
+    added_seconds, earlier_seconds = {}, {}
+    t0 = time.perf_counter()
+    group, tp_spawn_s = tp_pending.result()
+    try:
+        phase_serve_tp_parity(model32.params, card, group)
+        serve_tp = phase_serve_tp(model32.params, card, group, serve)
+    finally:
+        tp_exits = group.close()
+    emit({"phase": "serve_tp_group", "follower_exit_codes": tp_exits,
+          "spawn_seconds": tp_spawn_s, "card": card})
+    check(tp_exits == [0], f"the tp follower exited {tp_exits}")
+    added_seconds["serve_tp_parity+serve_tp"] = time.perf_counter() - t0
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     seconds = {}
     t0 = time.perf_counter()
@@ -5259,10 +5764,9 @@ def _main() -> int:
     t0 = time.perf_counter()
     fleet_launches["traffic"] = phase_traffic(model32.params, card)
     seconds["traffic"] = time.perf_counter() - t0
-    added_seconds = {}
     t0 = time.perf_counter()
     fleet_launches["traffic_controller"] = phase_traffic_controller(model32.params, card)
-    added_seconds["traffic_controller"] = time.perf_counter() - t0
+    earlier_seconds["traffic_controller"] = time.perf_counter() - t0
     # the process fleet: worker subprocesses, each its own CUDA context
     t0 = time.perf_counter()
     fleet_launches["procfleet_parity_loopback"], proc_parity, workers = phase_procfleet_parity(
@@ -5280,7 +5784,7 @@ def _main() -> int:
     new_seconds["crosshost"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     phase_autoscale(model32.params, card, tmp, procfleet_rec, fleet_rec)
-    added_seconds["autoscale"] = time.perf_counter() - t0
+    earlier_seconds["autoscale"] = time.perf_counter() - t0
     del model32
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -5303,19 +5807,24 @@ def _main() -> int:
         plain_texts = phase_serve_cli(card, train_argv, tmp, new_seconds)
         t0 = time.perf_counter()
         phase_serve_cli_autoscale(card, train_argv, tmp, plain_texts)
-        added_seconds["serve_cli_autoscale"] = time.perf_counter() - t0
+        earlier_seconds["serve_cli_autoscale"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        phase_serve_cli_tp(card, train_argv, tmp, plain_texts)
+        added_seconds["serve_cli_tp"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    sp_counts = phase_sp(card)
-    t0 = time.perf_counter()
-    ft_counts = phase_fsdp_tp(card)
-    added_seconds["fsdp_tp"] = time.perf_counter() - t0
+    sp_counts, sp_tp_counts, added_seconds["sp_tp"], ft = phase_sp(card)
+    ft_counts = phase_fsdp_tp(card, ft)
+    earlier_seconds["fsdp_tp"] = ft[1]
     proto_counts = phase_proto(nh, card)
     emit_clocks("before times")
     rows = phase_times(fa, card)
     t0 = time.perf_counter()
     phase_fsdp_tp_times(fa, card)
-    added_seconds["fsdp_tp_times"] = time.perf_counter() - t0
+    earlier_seconds["fsdp_tp_times"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_sp_tp_times(fa, card)
+    added_seconds["sp_tp_times"] = time.perf_counter() - t0
     rows.update(phase_lse_times(fa, card))
     rows.update(phase_nh_times(nh, card))
     exp_counts, rows["exp_chain"] = phase_exp_tool(ex, card)
@@ -5369,7 +5878,9 @@ def _main() -> int:
           f"a kernel never ran on its path: {[k['name'] for k in line]}")
     emit({"phase": "launches_by_path", "train_step": split["launches"],
           "train_step_fused": fused["launches"], "sp_train_step_rank0": sp_counts,
-          "fsdp_tp_train_step_rank0": ft_counts,
+          "fsdp_tp_train_step_rank0": ft_counts, "sp_tp_train_step_rank0": sp_tp_counts,
+          "serve_tp": serve_tp["launches"],
+          "serve_tp_follower": serve_tp["follower_launches"][0],
           "proto_nh_kernel": proto_counts, "exp_exp2": exp_counts,
           "generate_sliding_bf16": {"flash_fwd": generate_launches},
           "serve": serve["launches"],
@@ -5388,7 +5899,7 @@ def _main() -> int:
     emit({"phase": "new_phase_seconds", **new_seconds,
           "total": sum(new_seconds.values()),
           "smoke_so_far": time.perf_counter() - smoke_t0})
-    emit(budget_record(added_seconds, time.perf_counter() - smoke_t0))
+    emit(budget_record(added_seconds, time.perf_counter() - smoke_t0, earlier_seconds))
     print(card_line(), flush=True)
     emit({"kernels": line})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -9,8 +9,8 @@ have no effect here, because PyTorch runs the layer loop eagerly.
 Trainer options this slice does not port keep their defaults (which the
 YAML files rely on); ``TrainerConfig.check_ported`` raises
 NotImplementedError, naming the ROADMAP item, for any other value and for a
-mesh axis other than dp and sp above 1, and ValueError for a dp x sp mesh
-that does not fit the job's processes. Nothing is silently ignored.
+pp or ep mesh axis above 1, and ValueError for a mesh that does not fit the
+job's processes. Nothing is silently ignored.
 
 PyYAML is imported inside the functions that parse YAML, so the rest of the
 package works where it is not installed.

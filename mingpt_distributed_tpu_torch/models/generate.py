@@ -28,11 +28,22 @@ A mixture-of-experts block routes each such row as its own group
 (``moe_mlp(per_row=True)``), as the vmapped JAX body does, so the slots never
 compete for expert capacity; a call with one shared offset (prefill, solo
 decode, verify) routes its B*T tokens together, as JAX does.
+
+Tensor parallelism (``tp``, a ``TPShard``: the serving engine's lockstep
+ranks, ``serving/engine.py``): ``params`` and the cache are this rank's
+slices by ``parallel.mesh.PARAM_RULES``, and each block runs the Megatron
+recipe on the rank's ``n_head/tp`` query heads, ``kv_heads/tp`` KV heads and
+``ffn/tp`` MLP columns, summing each residual branch's partial output over
+tp once, in float32 (``gpt._row_parallel``). The embedding's columns are
+split over tp, so the rank's columns are placed in a zero row and summed the
+same way (exact). The head's rows are split too: ``tp_head_logits`` sums
+the partial logits of the read-out rows to the group's first rank, the
+driver, which alone samples.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Union
+from typing import Any, Dict, NamedTuple, Optional, Union
 
 import torch
 
@@ -40,6 +51,7 @@ from mingpt_distributed_tpu_torch.config import GPTConfig
 from mingpt_distributed_tpu_torch.models import gpt
 from mingpt_distributed_tpu_torch.ops import attention as attn_ops
 from mingpt_distributed_tpu_torch.ops import layers as L
+from mingpt_distributed_tpu_torch.parallel import distributed as D
 from mingpt_distributed_tpu_torch.utils.device import Device, resolve_device
 
 # {"k","v"}: (n_layer, B, block_size, KV, hd); a quantized serving pool adds
@@ -50,9 +62,23 @@ Cache = Dict[str, torch.Tensor]
 Offset = Union[int, torch.Tensor]
 
 
+class TPShard(NamedTuple):
+    """A tensor-parallel rank's place in the cached forward."""
+
+    group: Any        # the tp process group
+    n: int            # its size
+    rank: int         # this rank's index in it (0 drives)
+    embd_split: bool  # wte (and a tied head) hold n_embd/n columns
+    head_split: bool  # the LM head holds n_embd/n rows
+
+
 def init_cache(cfg: GPTConfig, batch: int, device: torch.device,
-               dtype: Optional[torch.dtype] = None) -> Cache:
-    shape = (cfg.n_layer, batch, cfg.block_size, cfg.kv_heads, cfg.head_dim)
+               dtype: Optional[torch.dtype] = None,
+               kv_heads: Optional[int] = None) -> Cache:
+    """Zeroed K/V buffers; ``kv_heads``: this rank's share of the heads
+    under tensor parallelism (default all of them)."""
+    shape = (cfg.n_layer, batch, cfg.block_size, kv_heads or cfg.kv_heads,
+             cfg.head_dim)
     dtype = dtype or gpt.compute_dtype(cfg)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -65,6 +91,7 @@ def _cached_block(
     layer: int,
     offset: Offset,       # absolute position of x[:, 0] (per row: (B,))
     cfg: GPTConfig,
+    tp: Optional[TPShard] = None,
 ) -> torch.Tensor:
     """One pre-LN block that writes this call's k/v into the cache at
     (layer, :, offset) (per row: row b at offset[b]) and attends against
@@ -77,6 +104,9 @@ def _cached_block(
     """
     b, t, _ = x.shape
     nh, kv, hd = cfg.n_head, cfg.kv_heads, cfg.head_dim
+    group = None
+    if tp is not None:
+        nh, kv, group = nh // tp.n, kv // tp.n, tp.group
     per_row = torch.is_tensor(offset) and offset.dim() == 1
     if per_row and t != 1:
         raise ValueError(f"per-row positions take one token per row, got {t}")
@@ -115,21 +145,53 @@ def _cached_block(
         q, k_all, v_all, kv_offset=offset,
         window=cfg.attention_window, logit_softcap=cfg.attn_logit_softcap,
     ).reshape(b, t, nh * hd)
-    x = x + L.dense(att, blk["wo"], blk.get("bo"))
+    x = x + gpt._row_parallel(att, blk["wo"], blk.get("bo"), group)
 
     h2 = gpt._norm(x, blk["ln2_scale"], blk.get("ln2_bias"), cfg)
-    m, _ = gpt.mlp(h2, blk, cfg, per_row=per_row)
+    m, _ = gpt.mlp(h2, blk, cfg, per_row=per_row, tp_group=group)
     return x + m
 
 
+def _embed(wte: torch.Tensor, tokens: torch.Tensor,
+           tp: Optional[TPShard]) -> torch.Tensor:
+    """The token embeddings; under tp with ``wte``'s columns split, this
+    rank's columns in a zero row, summed over tp (exact: one nonzero term
+    per element)."""
+    x = wte[tokens]
+    if tp is None or not tp.embd_split:
+        return x
+    w = x.shape[-1]
+    full = x.new_zeros(x.shape[:-1] + (w * tp.n,))
+    full[..., tp.rank * w:(tp.rank + 1) * w] = x
+    return D.sum_from_group(full, tp.group)
+
+
+def tp_head_logits(params: gpt.Params, x: torch.Tensor, cfg: GPTConfig,
+                   tp: Optional[TPShard]) -> Optional[torch.Tensor]:
+    """``gpt.head_logits`` of (B, t, D) replicated hidden states on a tp
+    rank: with the head's rows split, this rank's partial logits
+    (its columns of x times its rows of the head) summed in float32 to the
+    driver. Returns the (B, t, V) logits on the driver, None elsewhere."""
+    if tp is None or not tp.head_split:
+        logits = gpt.head_logits(params, x, cfg)
+        return logits if tp is None or tp.rank == 0 else None
+    w = params["wte"].t() if cfg.tie_weights else params["head"]
+    rows = w.shape[0]
+    part = gpt._head_matmul(x[..., tp.rank * rows:(tp.rank + 1) * rows].contiguous(), w)
+    total = D.reduce_to_first(part.float(), tp.group)
+    if tp.rank != 0:
+        return None
+    return attn_ops.softcap(total, cfg.final_logit_softcap)
+
+
 def _forward_cached_hidden(params: gpt.Params, tokens: torch.Tensor,
-                           cache: Cache, offset: Offset, cfg: GPTConfig
-                           ) -> torch.Tensor:
+                           cache: Cache, offset: Offset, cfg: GPTConfig,
+                           tp: Optional[TPShard] = None) -> torch.Tensor:
     """Forward (B, T) tokens at absolute position ``offset`` (or (B, 1)
     tokens at per-row positions) through all layers, writing the cache.
-    Returns the final-norm hidden states."""
+    Returns the final-norm hidden states (replicated over ``tp``)."""
     t = tokens.shape[1]
-    x = params["wte"][tokens]
+    x = _embed(params["wte"], tokens, tp)
     if not cfg.rope:
         if torch.is_tensor(offset) and offset.dim() == 1:
             x = x + params["wpe"][offset][:, None]
@@ -138,7 +200,7 @@ def _forward_cached_hidden(params: gpt.Params, tokens: torch.Tensor,
     x = x.to(gpt.compute_dtype(cfg))
     for layer in range(cfg.n_layer):
         x = _cached_block(x, gpt.layer_params(params, layer), cache, layer,
-                          offset, cfg)
+                          offset, cfg, tp)
     return gpt._norm(x, params["lnf_scale"], params.get("lnf_bias"), cfg)
 
 

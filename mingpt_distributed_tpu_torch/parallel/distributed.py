@@ -9,7 +9,8 @@ whose backward is the inverse exchange; ``all_gather`` and
 gradient reduce-scatter); ``gather_replicated``, ``copy_to_group`` and
 ``sum_from_group`` are tensor parallelism's (a gather whose backward keeps
 this rank's slice, and Megatron's f and g); ``all_reduce`` sums gradients
-and loss terms.
+and loss terms; ``reduce_to_first`` sums serving's partial logits to the
+driver.
 
 ``initialize(backend)`` joins the job that ``torch.distributed.run`` (or
 ``spawn.run_ranks``) describes in the environment (RANK, WORLD_SIZE,
@@ -49,22 +50,26 @@ _host_group = None  # gloo, every rank: flags exchanged on the host
 Perm = Sequence[Tuple[int, int]]  # (source, destination) ranks of a group
 
 
-def initialize(backend: Optional[str] = None, timeout_s: float = 600.0) -> None:
-    """Join the process group the environment describes; a no-op when
-    WORLD_SIZE is unset or 1, or when already joined. A job of several
-    processes needs ``backend`` ("nccl" or "gloo")."""
+def initialize(backend: Optional[str] = None, timeout_s: float = 600.0, *,
+               rank: Optional[int] = None, world: Optional[int] = None,
+               port: Optional[int] = None) -> None:
+    """Join the process group the environment describes (or ``rank``,
+    ``world`` and ``port`` on 127.0.0.1, when given); a no-op when the
+    world is 1, or when already joined. A job of several processes needs
+    ``backend`` ("nccl" or "gloo")."""
     global _backend, _host_group
-    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world is None:
+        world = int(os.environ.get("WORLD_SIZE", "1"))
     if world == 1 or dist.is_initialized():
         return
     if backend not in BACKENDS:
         raise ValueError(f"WORLD_SIZE={world}: name the backend, one of "
                          f"{BACKENDS} (train.py: --dist-backend), got {backend!r}")
-    addr = os.environ.get("MASTER_ADDR", "127.0.0.1")
-    port = os.environ["MASTER_PORT"]
+    addr = os.environ.get("MASTER_ADDR", "127.0.0.1") if port is None else "127.0.0.1"
+    port = os.environ["MASTER_PORT"] if port is None else port
     dist.init_process_group(
         backend, init_method=f"tcp://{addr}:{port}",
-        rank=int(os.environ["RANK"]), world_size=world,
+        rank=int(os.environ["RANK"]) if rank is None else rank, world_size=world,
         timeout=datetime.timedelta(seconds=timeout_s))
     _backend = backend
     _host_group = dist.new_group(backend="gloo")
@@ -366,6 +371,19 @@ def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
         return x
     wire = _wire(x)
     dist.all_reduce(wire, group=group)
+    if wire is not x:
+        x.copy_(wire)
+    return x
+
+
+def reduce_to_first(x: torch.Tensor, group) -> torch.Tensor:
+    """Sum x over ``group`` into x on the group's first rank; x is
+    returned, and on the other ranks its contents are undefined after the
+    call. Not differentiable: serving's partial logits go to the driver."""
+    if group is None or dist.get_world_size(group) == 1:
+        return x
+    wire = _wire(x)
+    dist.reduce(wire, dst=_global(group, 0), group=group)
     if wire is not x:
         x.copy_(wire)
     return x

@@ -8,10 +8,20 @@ axes in the same order (``AXES``), the same shape resolution
 means there. A rank's coordinates follow the JAX mesh's device order: the
 rank is the row-major index of its (pp, dp, fsdp, ep, tp, sp) coordinates.
 
-dp, fsdp, tp and sp run; pp and ep above 1 raise NotImplementedError naming
-their ROADMAP item, and sp above 1 beside fsdp or tp above 1 raises naming
-item 9b. The batch is split over dp and fsdp (``BATCH_AXES``; every tp rank
-of a group reads the same rows) and the sequence over sp.
+dp, fsdp, tp and sp run, in any mix; pp and ep above 1 raise
+NotImplementedError naming their ROADMAP item. The batch is split over dp
+and fsdp (``BATCH_AXES``; every tp rank of a group reads the same rows) and
+the sequence over sp: under sp x tp each sp rank's attention runs the ring
+(or Ulysses) on its tp rank's heads, which are just batch to the ring.
+
+Serving tensor parallelism (``Mesh.serving``): a mesh of tp = N over a
+group of N ranks (dp, fsdp and sp 1), whose group rank 0 drives the
+engine. Its ``tp_group`` carries the forward's collectives and fails a
+collective after ``timeout_s``; its ``cmd_group`` (always gloo, on the
+host) carries the driver's command broadcasts, with a long timeout, since a
+follower waits there for as long as the server idles. One process may
+drive several such groups (a fleet of tp replicas): ``serving_meshes``
+builds them all, on every rank, in one order.
 
 Parameter sharding (fsdp and tp): ``Mesh.shard_params`` keeps this rank's
 slice of every leaf, cut by its ``PARAM_RULES`` spec. A spec axis whose
@@ -28,9 +38,10 @@ Megatron tensor parallelism (``tp_manual``) the tp dimensions stay local.
 
 from __future__ import annotations
 
+import datetime
 import itertools
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +58,14 @@ UNPORTED_AXES = {
 }
 
 Spec = Tuple[Optional[str], ...]
+
+#: how long a serving mesh's forward collective waits for a peer before it
+#: raises (a follower that died or hangs fails the driver's call)
+TP_TIMEOUT_S = 60.0
+#: how long a follower waits for the driver's next command: a server may
+#: idle for days (a spawned follower also leaves when its driver process
+#: dies: ``serving/lockstep.py``)
+CMD_TIMEOUT_S = 7 * 24 * 3600.0
 
 # name -> axes per dimension, the JAX package's rules (trailing dimensions
 # not named replicate). Block leaves carry a leading layer axis ("pp").
@@ -105,18 +124,13 @@ def resolve_mesh_shape(cfg: MeshConfig, n_devices: int) -> tuple[int, ...]:
 
 
 def check_axes(shape: Dict[str, int]) -> None:
-    """Raise NotImplementedError for an axis, or a mix of axes, the port does
-    not run yet."""
+    """Raise NotImplementedError for an axis the port does not run yet (pp
+    and ep above 1)."""
     for ax, item in UNPORTED_AXES.items():
         if shape[ax] > 1:
             raise NotImplementedError(
                 f"mesh axis {ax}={shape[ax]} is not ported yet (ROADMAP.md "
-                f"{item}); the port runs dp x fsdp x tp, or dp x sp")
-    if shape["sp"] > 1 and (shape["fsdp"] > 1 or shape["tp"] > 1):
-        raise NotImplementedError(
-            f"sp={shape['sp']} with fsdp={shape['fsdp']} x tp={shape['tp']} is "
-            "not ported yet (ROADMAP.md Queue 1 item 9b); the port runs dp x "
-            "fsdp x tp, or dp x sp")
+                f"{item}); the port runs dp x fsdp x tp x sp")
 
 
 def param_specs(params: Dict, prefix: str = "") -> Dict:
@@ -193,10 +207,23 @@ class Mesh:
         cfg = cfg or MeshConfig()
         self.world_size = distributed.world_size()
         self.rank = distributed.rank()
-        dims = resolve_mesh_shape(cfg, self.world_size)
+        self._place(resolve_mesh_shape(cfg, self.world_size), self.rank)
+        # every rank creates every group, in the same order
+        self.sp_group = self._group_over(("sp",)) if self.sp > 1 else None
+        self.dp_group = self._group_over(("dp",)) if self.dp > 1 else None
+        if self.sharded:
+            self.fsdp_group = self._group_over(("fsdp",))
+            self.tp_group = self._group_over(("tp",))
+            self.batch_group = self._group_over(("dp", "fsdp", "sp"))
+            self.replica_group = self._group_over(("dp", "sp"))
+            self.model_group = self._group_over(("fsdp", "tp"))
+
+    def _place(self, dims: Sequence[int], index: int) -> None:
+        """The fields of the rank at row-major ``index`` of the grid ``dims``
+        (one extent per axis of AXES), its groups all None."""
         self.shape = dict(zip(AXES, dims))
         check_axes(self.shape)
-        self.coords = dict(zip(AXES, (int(c) for c in np.unravel_index(self.rank, dims))))
+        self.coords = dict(zip(AXES, (int(c) for c in np.unravel_index(index, dims))))
         self.dp, self.sp = self.shape["dp"], self.shape["sp"]
         self.fsdp, self.tp = self.shape["fsdp"], self.shape["tp"]
         self.dp_rank, self.sp_rank = self.coords["dp"], self.coords["sp"]
@@ -210,17 +237,8 @@ class Mesh:
         no_tp = [self.shape[a] for a in AXES if a != "tp"]
         self.data_rank = int(np.ravel_multi_index(
             [self.coords[a] for a in AXES if a != "tp"], no_tp))
-        # every rank creates every group, in the same order
-        self.sp_group = self._group_over(("sp",)) if self.sp > 1 else None
-        self.dp_group = self._group_over(("dp",)) if self.dp > 1 else None
-        self.fsdp_group = self.tp_group = None
+        self.sp_group = self.dp_group = self.fsdp_group = self.tp_group = None
         self.replica_group = self.model_group = self.batch_group = None
-        if self.sharded:
-            self.fsdp_group = self._group_over(("fsdp",))
-            self.tp_group = self._group_over(("tp",))
-            self.batch_group = self._group_over(("dp", "fsdp", "sp"))
-            self.replica_group = self._group_over(("dp", "sp"))
-            self.model_group = self._group_over(("fsdp", "tp"))
         self.specs: Dict[str, Spec] = {}
         self.full_shapes: Dict[str, Tuple[int, ...]] = {}
 
@@ -314,3 +332,47 @@ class Mesh:
             if axis in ("fsdp", "tp"):
                 n //= self.shape[axis]
         return n
+
+    # -- serving -------------------------------------------------------------
+    @classmethod
+    def serving(cls, timeout_s: float = TP_TIMEOUT_S) -> "Mesh":
+        """The world as one tp group serving one engine: rank 0 drives,
+        the others follow. Every rank calls it."""
+        return serving_meshes([list(range(distributed.world_size()))],
+                               timeout_s)[0]
+
+    @classmethod
+    def _serving_group(cls, ranks: List[int], me: int, tp_group, cmd_group,
+                       timeout_s: float) -> "Mesh":
+        """Rank ``me``'s mesh of tp = len(ranks) over the global ``ranks``
+        (the first drives), with the groups ``serving_meshes`` made."""
+        mesh = cls.__new__(cls)
+        n = len(ranks)
+        mesh.world_size, mesh.rank = n, me
+        mesh._place((1, 1, 1, 1, n, 1), ranks.index(me))
+        mesh.tp_group = tp_group if n > 1 else None
+        mesh.cmd_group = cmd_group
+        mesh.ranks = list(ranks)
+        mesh.driver = ranks[0]
+        mesh.timeout_s = float(timeout_s)
+        return mesh
+
+
+def serving_meshes(groups: Sequence[Sequence[int]],
+                   timeout_s: float = TP_TIMEOUT_S) -> Dict[int, Mesh]:
+    """One serving mesh (tp = len(ranks)) per rank list of ``groups``; the
+    first rank of each list drives it. Every rank of the world calls this
+    with the same lists (``new_group`` is collective); returns {index of
+    the group: this rank's mesh} for the groups this rank belongs to."""
+    me = distributed.rank()
+    out: Dict[int, Mesh] = {}
+    for i, ranks in enumerate(groups):
+        ranks = [int(r) for r in ranks]
+        if len(set(ranks)) != len(ranks) or len(ranks) < 1:
+            raise ValueError(f"tp group {ranks} must list distinct ranks")
+        tp_group = dist.new_group(ranks, timeout=datetime.timedelta(seconds=timeout_s))
+        cmd_group = dist.new_group(ranks, backend="gloo",
+                                   timeout=datetime.timedelta(seconds=CMD_TIMEOUT_S))
+        if me in ranks:
+            out[i] = Mesh._serving_group(ranks, me, tp_group, cmd_group, timeout_s)
+    return out

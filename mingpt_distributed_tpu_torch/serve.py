@@ -92,6 +92,10 @@ Usage:
   python -m mingpt_distributed_tpu_torch.serve --selftest-standby [--device cpu]
   python -m mingpt_distributed_tpu_torch.serve --selftest-crosshost [--device cpu] \\
       [--hosts N] [--fleet-secret S]
+  python -m mingpt_distributed_tpu_torch.serve --selftest-sharded \\
+      [--dist-backend gloo] [--device cpu]
+  python -m mingpt_distributed_tpu_torch.serve --mesh tp=2 --dist-backend gloo \\
+      --prompts-file p.txt [--greedy] [section.key=value ...]
   python -m mingpt_distributed_tpu_torch.serve --replicas 2 --prompts-file p.txt \\
       [--chaos-spec 'crash:nth=6:match=replica0'] [--shed-watermark 16] ...
   python -m mingpt_distributed_tpu_torch.serve --prompts-file prompts.txt \\
@@ -107,11 +111,23 @@ PATH`` grade SLOs from the traces at shutdown, ``--attrib-json PATH`` writes
 the attribution report (``/attrib`` on ``--metrics-port``);
 ``--selftest-attrib`` is the attribution self-test.
 
+Tensor parallelism: ``--mesh tp=N`` shards one model and its KV pool's
+heads over N ranks (``serving/engine.py``, item 6). This process is the
+driver, rank 0, and spawns N - 1 follower processes
+(``serving/lockstep.TPGroup``) that run every engine call in lockstep with
+it; ``--dist-backend nccl`` (the default) puts each rank on its own GPU,
+``--dist-backend gloo`` lets the ranks share one card (or the CPU, with
+``--device cpu``). A follower that fails makes the driver raise within
+``parallel.mesh.TP_TIMEOUT_S`` (60 s); nothing falls back to tp = 1.
+``--selftest-sharded`` is the tp = 2 against tp = 1 gate. A tp server is
+one replica: ``--mesh`` does not combine with ``--replicas`` above 1,
+``--autoscale`` or ``--isolation process``.
+
 SIGTERM (or one SIGINT) stops admission, drains in-flight requests, flushes
 the metrics and exits 75 so a scheduler requeues the job; a second SIGINT
-aborts. The JAX serve.py's other flags are parsed and refused (exit 2),
-naming the ROADMAP.md Queue 1 item that brings them (``UNPORTED_FLAGS``:
-serving tensor parallelism, item 9b).
+aborts. A JAX serve.py flag the port does not run yet would be parsed and
+refused (exit 2), naming the ROADMAP.md Queue 1 item that brings it
+(``UNPORTED_FLAGS``); none is left.
 """
 
 from __future__ import annotations
@@ -140,8 +156,8 @@ from mingpt_distributed_tpu_torch.training.trainer import REQUEUE_EXIT_CODE
 from mingpt_distributed_tpu_torch.utils.device import resolve_device
 
 # the JAX serve.py's flags that the port does not run yet, each with the
-# ROADMAP.md Queue 1 item that brings it: serving tensor parallelism (9b)
-UNPORTED_FLAGS = {"--mesh": "9b", "--selftest-sharded": "9b"}
+# ROADMAP.md Queue 1 item that brings it (none left)
+UNPORTED_FLAGS: dict = {}
 
 SELFTEST_PROMPTS = ["O God, O God!", "Once more unto", "All the world's"]
 SELFTEST_SHARED = ["Once more unto the breach", "Once more unto the wall!"]
@@ -335,6 +351,19 @@ def build_argparser() -> argparse.ArgumentParser:
                         "replica: greedy parity with solo generate(), no "
                         "duplicate streamed token, the fleet's counters on a "
                         "strict-parsed /metrics and /healthz; then exits")
+    p.add_argument("--mesh", default=None, metavar="tp=N",
+                   help="tensor-parallel serving: shard the model and the KV "
+                        "pool's heads over N ranks, this process driving N - 1 "
+                        "follower processes")
+    p.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                   help="the tp group's backend: nccl (the default), one rank "
+                        "per GPU; gloo, the ranks share the device (one card, or "
+                        "the CPU). The self-tests default to gloo on the CPU "
+                        "and on one card")
+    p.add_argument("--selftest-sharded", action="store_true",
+                   help="random-init small model served at tp = 2 and tp = 1: "
+                        "identical greedy tokens and shape counts, a "
+                        "head-sharded pool and prefix store; then exits")
     for flag in UNPORTED_FLAGS:
         p.add_argument(flag, nargs="?", const=True, default=None,
                        help=argparse.SUPPRESS)
@@ -374,6 +403,52 @@ def _server_kwargs(args) -> dict:
                 prefill_chunk=args.prefill_chunk,
                 prefix_cache_mb=args.prefix_cache_mb, warmup=args.warmup,
                 kv_dtype=args.kv_dtype)
+
+
+def _mesh_tp(args) -> int:
+    """--mesh 'axis=N,...' resolved to the tp extent (1 without the flag).
+    Serving shards over tp only: another axis above 1 exits, as does a
+    malformed clause (the JAX serve.py's ``_mesh_kwargs`` grammar)."""
+    if args.mesh is None:
+        return 1
+    from mingpt_distributed_tpu_torch.parallel.mesh import AXES
+
+    sizes = {}
+    for clause in str(args.mesh).split(","):
+        k, sep, v = clause.partition("=")
+        k = k.strip()
+        if not sep or k not in AXES:
+            raise SystemExit(f"--mesh clause {clause!r} is not axis=N "
+                             f"(axes: {', '.join(AXES)})")
+        try:
+            sizes[k] = int(v)
+        except ValueError:
+            raise SystemExit(f"--mesh {k}={v!r}: extent must be an int")
+    others = {k: n for k, n in sizes.items() if k != "tp" and n != 1}
+    if others:
+        raise SystemExit(f"--mesh {args.mesh!r}: serving shards one replica "
+                         f"over tp only, not {others}")
+    tp = sizes.get("tp", 1)
+    if tp < 1:
+        raise SystemExit(f"--mesh tp={tp}: the extent must be >= 1")
+    return tp
+
+
+def tp_group(n: int, args, dev, selftest: bool = False):
+    """A tp = ``n`` serving group driven by this process (``TPGroup``), on
+    ``--dist-backend`` (nccl by default; a self-test's default is gloo
+    where nccl cannot run, on the CPU or one card); its ``close()``
+    releases the followers."""
+    import torch
+
+    from mingpt_distributed_tpu_torch.parallel.mesh import TP_TIMEOUT_S
+    from mingpt_distributed_tpu_torch.serving.lockstep import TPGroup
+
+    backend = args.dist_backend
+    if backend is None:
+        shared = dev.type == "cpu" or torch.cuda.device_count() < n
+        backend = "gloo" if selftest and shared else "nccl"
+    return TPGroup(n, backend, dev, TP_TIMEOUT_S)
 
 
 def first_layers(params, n: int):
@@ -1022,6 +1097,7 @@ def selftest_attrib(args) -> int:
         rc |= _selftest_attrib_fleet(args, params, cfg, prompts, tserver)
     finally:
         tserver.close()
+    rc |= _selftest_attrib_tp(args, params, cfg, dev)
     if args.attrib_json:
         with open(args.attrib_json, "w") as f:
             f.write(dump + "\n")
@@ -1030,6 +1106,43 @@ def selftest_attrib(args) -> int:
     print(telemetry.render_attrib_report(report))
     print("selftest-attrib", "PASSED" if rc == 0 else "FAILED")
     return rc
+
+
+def _selftest_attrib_tp(args, params, cfg, dev) -> int:
+    """The tp = 2 half: a server on a two-rank group declares the pool's
+    total bytes and half of them per device, and each rank holds that half
+    (the allocator's growth when the pool was made on a card, the pool's
+    own bytes on the CPU)."""
+    group = tp_group(2, args, dev, selftest=True)
+    rc = 0
+    try:
+        srv = InferenceServer(params, cfg, n_slots=2, attrib=True,
+                              mesh=group.mesh, device=group.device,
+                              **_server_kwargs(args))
+        hbm = srv.attrib_report()["hbm"]
+        total, per_dev = hbm["owners"]["kv_pool"], hbm["per_device_bytes"]["kv_pool"]
+        if per_dev * 2 != total:
+            print(f"selftest-attrib FAIL: sharded kv_pool per-device {per_dev} "
+                  f"!= total {total} / 2")
+            rc = 1
+        held = [_held_pool_bytes(srv.engine.local_report())] + [
+            _held_pool_bytes(r) for r in srv.engine.follower_reports()]
+        if any(abs(h - per_dev) > 0.01 * per_dev for h in held):
+            print(f"selftest-attrib FAIL: ledger says {per_dev} pool bytes per "
+                  f"device, the ranks hold {held}")
+            rc = 1
+        print(f"selftest-attrib tp=2: kv_pool total {total}, per device "
+              f"{per_dev}, held by rank {held}")
+    finally:
+        group.close()
+    return rc
+
+
+def _held_pool_bytes(report) -> int:
+    """What a rank holds of its pool: the allocator's growth when it was
+    made (on a card), else the pool's bytes."""
+    alloc = report["pool_alloc_bytes"]
+    return report["pool_bytes"] if alloc is None else alloc
 
 
 def _selftest_attrib_fleet(args, params, cfg, prompts, tserver) -> int:
@@ -1495,6 +1608,125 @@ def _samples(page, family):
     return {tuple(sorted(labels.items())): value
             for name, labels, value in telemetry.parse_prometheus(page)["samples"]
             if name == family}
+
+
+def selftest_sharded(args) -> int:
+    """The tensor-parallel gate (the JAX serve.py's --selftest-sharded):
+    one server at tp = 2 (this process and one follower process) and one
+    at tp = 1 over the same random-init weights and canned prompts must
+    give identical greedy tokens and identical ``compile_counts()``, no
+    new shape after warmup, prefix-hit parity, a pool and prefix entries
+    holding half the heads on every rank, and ``per_device_bytes`` = total
+    / 2 for the pool in the attribution report; the follower exits 0."""
+    import torch
+
+    dev = resolve_device(args.device)
+    cfg = GPTConfig.make(
+        n_layer=2, n_head=2, n_embd=32, vocab_size=96, block_size=48,
+        embd_pdrop=0.0, resid_pdrop=0.0, attn_pdrop=0.0, dtype="float32")
+    params = gpt.init(cfg, torch.Generator().manual_seed(0), device=dev)
+    canned = list(SELFTEST_PROMPTS)
+    if args.prefix_cache_mb > 0:
+        canned += SELFTEST_SHARED
+    prompts = [[ord(c) % cfg.vocab_size for c in s] for s in canned]
+    max_new = 10
+    group = tp_group(2, args, dev, selftest=True)
+    try:
+        def run_once(mesh, device):
+            srv = InferenceServer(params, cfg, n_slots=2, attrib=True, mesh=mesh,
+                                  device=device, **_server_kwargs(args))
+            handles = srv.generate_batch(
+                [Request(prompt=p, max_new_tokens=max_new) for p in prompts])
+            return srv, [h.tokens for h in handles]
+
+        srv1, toks1 = run_once(None, dev)
+        srv2, toks2 = run_once(group.mesh, group.device)
+        rc = _sharded_checks(args, cfg, canned, srv1, toks1, srv2, toks2)
+    finally:
+        exits = group.close()
+    if exits != [0]:
+        print(f"selftest-sharded FAIL: follower exit codes {exits}")
+        rc = 1
+    print("selftest-sharded", "PASSED" if rc == 0 else "FAILED")
+    return rc
+
+
+def _sharded_checks(args, cfg, canned, srv1, toks1, srv2, toks2) -> int:
+    rc = 0
+    for text, a, b in zip(canned, toks1, toks2):
+        ok = a == b
+        print(f"selftest-sharded ({text!r}): "
+              + ("OK" if ok else f"MISMATCH tp1={a} tp2={b}"))
+        rc |= not ok
+    c1, c2 = srv1.compile_counts(), srv2.compile_counts()
+    if c1 != c2:
+        print(f"selftest-sharded FAIL: compile_counts diverge under "
+              f"sharding: tp1={c1} tp2={c2}")
+        rc = 1
+    ladder = len(srv2.engine.buckets)
+    if c2["decode"] != 1 or c2["prefill"] > ladder:
+        print(f"selftest-sharded FAIL: unbounded compilation: {c2} "
+              f"(ladder size {ladder})")
+        rc = 1
+    for name, srv in (("tp1", srv1), ("tp2", srv2)):
+        if srv.watchdog.recompiles:
+            print(f"selftest-sharded FAIL: {name} watchdog counted "
+                  f"{srv.watchdog.recompiles} post-warmup recompile(s)")
+            rc = 1
+    if args.warmup and not srv2.watchdog.armed:
+        print("selftest-sharded FAIL: --warmup set but watchdog not armed")
+        rc = 1
+    if srv2.engine.kv_shard_count != 2:
+        print(f"selftest-sharded FAIL: tp=2 pool is split over "
+              f"{srv2.engine.kv_shard_count} device(s), expected 2")
+        rc = 1
+    half = cfg.kv_heads // 2
+    reports = srv2.engine.follower_reports()
+    for rep in [srv2.engine.local_report()] + reports:
+        if rep["kv_heads"] != half or any(h != half for h in rep["prefix_heads"]):
+            print(f"selftest-sharded FAIL: rank {rep['rank']} holds "
+                  f"{rep['kv_heads']} pool heads and prefix entries of "
+                  f"{rep['prefix_heads']} heads, expected {half}")
+            rc = 1
+        if sum(rep["launches"].values()):
+            print(f"selftest-sharded FAIL: rank {rep['rank']} launched flash "
+                  f"kernels while serving: {rep['launches']}")
+            rc = 1
+    for rep in reports:
+        mine = {f: n for f, n in c2.items() if f in rep["compile_counts"]}
+        if rep["compile_counts"] != mine:
+            print(f"selftest-sharded FAIL: rank {rep['rank']} ran shapes "
+                  f"{rep['compile_counts']}, the driver {mine}")
+            rc = 1
+    if args.prefix_cache_mb > 0:
+        for name, srv in (("tp1", srv1), ("tp2", srv2)):
+            if srv.metrics.prefix_hits < 1:
+                print(f"selftest-sharded FAIL: no prefix hit on {name}")
+                rc = 1
+        if not srv2.engine.prefix_store.entries():
+            print("selftest-sharded FAIL: the tp=2 prefix store is empty")
+            rc = 1
+    report = srv2.attrib_report()
+    try:
+        telemetry.validate_attrib_report(report)
+    except ValueError as e:
+        print(f"selftest-sharded FAIL: attrib report invalid: {e}")
+        return 1
+    owners = report["hbm"]["owners"]
+    per_dev = report["hbm"]["per_device_bytes"]
+    if per_dev.get("kv_pool", -1) * 2 != owners.get("kv_pool", 0):
+        print(f"selftest-sharded FAIL: kv_pool per-device bytes "
+              f"{per_dev.get('kv_pool')} != total {owners.get('kv_pool')} / 2")
+        rc = 1
+    base_owners = srv1.attrib_report()["hbm"]["owners"]
+    if owners.get("kv_pool") != base_owners.get("kv_pool"):
+        print(f"selftest-sharded FAIL: sharding changed the pool's total "
+              f"bytes: tp1={base_owners.get('kv_pool')} "
+              f"tp2={owners.get('kv_pool')}")
+        rc = 1
+    print(f"selftest-sharded compile_counts: {c2}")
+    print(f"selftest-sharded hbm: total={owners} per_device={per_dev}")
+    return rc
 
 
 def selftest_procfleet(args) -> int:
@@ -2051,8 +2283,16 @@ def main(argv=None) -> int:
         return selftest_attrib(args)
     if args.selftest_chaos:
         return selftest_chaos(args)
+    if args.selftest_sharded:
+        return selftest_sharded(args)
 
     dev = resolve_device(args.device)
+    tp = _mesh_tp(args)
+    if tp > 1 and (args.replicas > 1 or args.isolation == "process"
+                   or _autoscale_spec(args)):
+        raise SystemExit("--mesh serves one tensor-parallel replica: it does "
+                         "not combine with --replicas > 1, --isolation process "
+                         "or --autoscale")
     exp = load_config(args.config, args.overrides)
     dataset = make_dataset(exp.data_config)
     gpt_cfg = dataclasses.replace(
@@ -2082,15 +2322,27 @@ def main(argv=None) -> int:
             exp.trainer_config.snapshot_path or ckpt_lib.DEFAULT_SNAPSHOT_PATH)}
     guard = _ShutdownGuard().install()
     fleets = []  # process fleets: their workers are stopped however we leave
+    group = None
     try:
-        return _serve(args, dataset, gpt_cfg, params, dev, eos_id, guard, weights, fleets)
+        if tp > 1:
+            group = tp_group(tp, args, dev)
+            print(f"[serve] tensor parallel: tp={tp} on {args.dist_backend or 'nccl'}, "
+                  f"this process drives {tp - 1} follower process(es)",
+                  file=sys.stderr)
+        rc = _serve(args, dataset, gpt_cfg, params, dev, eos_id, guard, weights,
+                    fleets, None if group is None else group.mesh)
     finally:
         for supervisor in fleets:
             supervisor.shutdown_all()
+        exits = [] if group is None else group.close()
         guard.restore()
+    if group is not None:
+        print(f"[serve] tp follower exits: {exits}", file=sys.stderr)
+    return 1 if rc == 0 and any(exits) else rc
 
 
-def _serve(args, dataset, gpt_cfg, params, dev, eos_id, guard, weights, fleets) -> int:
+def _serve(args, dataset, gpt_cfg, params, dev, eos_id, guard, weights, fleets,
+           mesh=None) -> int:
     """The offline batch (``--prompts-file``) or the REPL."""
     # stream tokens as they decode: print the newly decoded text suffix of
     # each request (decode-accumulated-and-diff is tokenizer-agnostic)
@@ -2228,7 +2480,7 @@ def _serve(args, dataset, gpt_cfg, params, dev, eos_id, guard, weights, fleets) 
             log_every=0 if stream_cb else args.log_every,
             max_queue=args.queue_limit, default_deadline_s=args.deadline_s,
             registry=reg, trace_recorder=recorder, attrib=bool(args.attrib_json),
-            device=dev, **spec_kw, **_server_kwargs(args))
+            mesh=mesh, device=dev, **spec_kw, **_server_kwargs(args))
         if tserver is not None and args.attrib_json:
             tserver.attrib_provider = server.attrib_report
         if flight is not None:

@@ -1,7 +1,6 @@
 """Continuous-batching inference serving on the port's KV-cached forward.
 
-Counterpart of ``mingpt_distributed_tpu/serving/`` for one engine on one
-card:
+Counterpart of ``mingpt_distributed_tpu/serving/``:
 
 * ``SlotKVPool`` (kv_pool.py) — a fixed (L, S_slots, block_size, KV, hd)
   cache where each slot holds one in-flight request, with a deterministic
@@ -10,7 +9,10 @@ card:
 * ``DecodeEngine`` (engine.py) — bucket-laddered prefill-at-offset, a
   one-token-per-step decode over all slots (per-slot positions and
   sampling params) and device-side prefix row copies, with a bounded set
-  of input shapes for the server's lifetime.
+  of input shapes for the server's lifetime. With a ``Mesh.serving`` mesh
+  of tp > 1 it shards the model and the KV pool's heads over a lockstep
+  group of processes: the driver's engine broadcasts every call
+  (``lockstep.py``) and the other ranks run ``DecodeEngine.follow``.
 * ``InferenceServer`` (scheduler.py) — the scheduler: a policy-ordered
   request queue (``AdmissionPolicy``, FIFO default), admission into free
   slots at decode-step boundaries (prefix hit → chunked prefill
@@ -43,8 +45,8 @@ card:
 ``--isolation process``, ``--selftest``, ``--selftest-spec``,
 ``--selftest-quant``, ``--selftest-attrib``, ``--selftest-chaos``,
 ``--selftest-procfleet``, ``--selftest-standby``,
-``--selftest-crosshost``) and ``traffic.py`` sweeps it (``trafficlab/``).
-Serving tensor parallelism (ROADMAP.md Queue 1 item 9b) is not ported yet.
+``--selftest-crosshost``, ``--mesh tp=N``, ``--selftest-sharded``) and
+``traffic.py`` sweeps it (``trafficlab/``).
 """
 
 from mingpt_distributed_tpu_torch.serving import quant  # noqa: F401
@@ -68,6 +70,7 @@ from mingpt_distributed_tpu_torch.serving.fleet import (  # noqa: F401
     default_server_factory,
 )
 from mingpt_distributed_tpu_torch.serving.kv_pool import PrefixKVStore, SlotKVPool  # noqa: F401
+from mingpt_distributed_tpu_torch.serving.lockstep import LockstepError  # noqa: F401
 from mingpt_distributed_tpu_torch.serving.metrics import ServingMetrics  # noqa: F401
 from mingpt_distributed_tpu_torch.serving.procfleet import (  # noqa: F401
     ProcRouter,

@@ -72,22 +72,51 @@ capture of these calls needs.
    The process fleet's wire (``procfleet/worker.py``) carries them between
    processes, each leaf as its raw bytes under its dtype's name.
 
+6. **tensor parallelism** (``mesh``, a ``parallel.mesh.Mesh.serving``
+   mesh of tp = N ranks): one engine per rank, kept in lockstep by the
+   command channel of ``serving/lockstep.py``. The group's first rank, the
+   driver, is the engine the scheduler holds: it alone samples, owns the
+   prefix store's keys and keeps the metrics; every other rank runs
+   ``follow()``. The driver's engine is built from the whole parameters and
+   ships each follower its slices by ``PARAM_RULES`` (``build``: a new
+   target engine replaces whatever the followers held, so a respawned
+   replica's followers never keep a stale pool). Each rank's pool, and
+   each of its prefix entries, holds its ``kv_heads/tp`` heads
+   (``kv_shard_count``): a prefix save or load is a rank-local row copy,
+   and no collective touches K or V. The forward sums its row-parallel
+   partials over tp (``models/generate.py``); the read-out rows' partial
+   logits are summed to the driver. Every call that touches the pool, the
+   prefix store or the group goes through one dispatch point (``_call``),
+   which broadcasts the command first. Migration's seam moves whole-head
+   entries: ``extract_slot_rows`` gathers the followers' heads to the
+   driver, ``install_slot_rows`` and ``adopt_prefix_entry`` send each its
+   heads. ``compile_counts()`` equals the tp = 1 engine's, family by
+   family. When the Megatron split does not apply (``Mesh.tp_manual``:
+   heads, KV heads or the FFN width not divisible by tp; the pool's
+   downgrade is counted once as ``kv_cache``) every rank holds the whole
+   model and pool and computes alike, still in lockstep. Mixture-of-experts
+   models do not run under tp (ROADMAP.md Queue 1 item 12b).
+
 Attribution (``register_attrib``) registers each family's shapes with
-analytic costs. Tensor-parallel serving (``mesh``) is ROADMAP.md Queue 1
-item 9b, and the audit contracts (``audit_contracts``) item 16b.
+analytic costs. The audit contracts (``audit_contracts``) are ROADMAP.md
+Queue 1 item 16b.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Set, Tuple
+import pickle
+from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 import torch
 
 from mingpt_distributed_tpu_torch.config import GPTConfig
+from mingpt_distributed_tpu_torch.models import convert
 from mingpt_distributed_tpu_torch.models import generate as gen
+from mingpt_distributed_tpu_torch.parallel import mesh as mesh_lib
 from mingpt_distributed_tpu_torch.serving import quant as quant_lib
 from mingpt_distributed_tpu_torch.serving.kv_pool import PrefixKVStore, SlotKVPool
+from mingpt_distributed_tpu_torch.serving.lockstep import LockstepError, channel_for, release
 from mingpt_distributed_tpu_torch.utils.device import Device, resolve_device
 
 #: smallest default bucket: prompts below this pay one 64-token forward,
@@ -181,10 +210,49 @@ def _select_next_slots(
     return nxt
 
 
+def _tp_specs(mesh, flat: Dict[str, torch.Tensor], manual: bool) -> Dict[str, tuple]:
+    """Every leaf's PARAM_RULES spec on the serving mesh (downgrades
+    counted), or all-replicated when the Megatron split does not apply."""
+    if not manual:
+        return {p: (None,) * t.dim() for p, t in flat.items()}
+    return {p: mesh_lib.shard_by_rule(mesh.shape, tuple(t.shape),
+                                      mesh_lib.PARAM_RULES[p.rsplit("/", 1)[-1]],
+                                      name=p.rsplit("/", 1)[-1])
+            for p, t in flat.items()}
+
+
+def _tp_slice(full: torch.Tensor, spec: tuple, n: int, coord: int) -> torch.Tensor:
+    """The tp coordinate ``coord``'s slice of a whole leaf by its spec."""
+    t = full
+    for dim, axis in enumerate(spec):
+        if axis == "tp":
+            t = t.chunk(n, dim)[coord]
+    return t.contiguous()
+
+
+def _tp_shape(shape: tuple, spec: tuple, n: int) -> tuple:
+    return tuple(d // n if axis == "tp" else d for d, axis in zip(shape, spec))
+
+
+def _launch_counts() -> Dict[str, int]:
+    """The flash kernels' launch counts in this process."""
+    from mingpt_distributed_tpu_torch.ops import flash_attention as fa
+
+    return {"flash_fwd": fa.flash_fwd.launches,
+            "flash_lse_fwd": fa.flash_lse_fwd.launches,
+            "flash_bwd_prep": fa.flash_bwd_prep.launches,
+            "flash_dq": fa.flash_bwd.dq_launches,
+            "flash_dkv": fa.flash_bwd.dkv_launches,
+            "flash_bwd_fused": fa.flash_bwd.fused_launches}
+
+
 class DecodeEngine:
     """Owns the slot pool, the bucket ladder, the optional prefix store and
     the prefill/decode/prefix-copy calls. Runs where ``device`` says (cuda
-    unless the caller asks for the CPU), where the params must live."""
+    unless the caller asks for the CPU), where the params must live. With a
+    serving ``mesh`` of tp > 1 this is the driver's engine of a lockstep
+    group (module docstring, item 6): build it on the group's first rank
+    while the others run ``DecodeEngine.follow``."""
 
     def __init__(
         self,
@@ -198,11 +266,10 @@ class DecodeEngine:
         mesh=None,
         kv_dtype: Optional[str] = None,
         device: Optional[Device] = None,
+        *,
+        _role: str = "target",
+        _local=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving (mesh) is not ported yet "
-                "(ROADMAP.md Queue 1 item 9b)")
         self.device = resolve_device(device)
         if params["wte"].device.type != self.device.type:
             raise ValueError(f"params live on {params['wte'].device}, the "
@@ -210,7 +277,6 @@ class DecodeEngine:
         self.cfg = cfg
         self.kv_quant = quant_lib.resolve_kv_dtype(kv_dtype)
         self.kv_dtype = "fp32" if self.kv_quant is None else self.kv_quant.name
-        self.params = params
         self.prefill_len = int(prefill_len or cfg.block_size)
         if not (1 <= self.prefill_len <= cfg.block_size):
             raise ValueError(
@@ -225,15 +291,262 @@ class DecodeEngine:
         self.prefill_chunk = prefill_chunk
         self.buckets = bucket_ladder(
             self.prefill_len, prefill_buckets, prefill_chunk)
+        if mesh is not None and not hasattr(mesh, "cmd_group"):
+            raise ValueError("serving takes a parallel.mesh.Mesh.serving mesh")
+        self.mesh = mesh if mesh is not None and mesh.tp > 1 else None
+        self.channel = None
+        self.tp: Optional[gen.TPShard] = None
+        self.kv_shard_count = 1
+        kv_heads = cfg.kv_heads
+        # the whole model's bytes (this rank holds its slices under tp)
+        self.whole_param_bytes = sum(
+            int(t.numel()) * t.element_size() for t in convert.flatten(params).values())
+        if self.mesh is not None:
+            kv_heads, params = self._join_group(
+                params, cfg, n_slots, prefix_cache_mb, _role, _local)
+        self.params = params
+        before = self._allocated()
         self.pool = SlotKVPool(cfg, n_slots, device=self.device,
-                               quant=self.kv_quant)
+                               quant=self.kv_quant, kv_heads=kv_heads)
+        # the pool's bytes as the allocator saw them arrive (None off a card)
+        after = self._allocated()
+        self.pool_alloc_bytes = None if before is None else after - before
+        follower = self.channel is not None and not self.channel.is_driver
         self.prefix_store = (
-            PrefixKVStore(int(prefix_cache_mb * (1 << 20)))
-            if prefix_cache_mb > 0 else None)
+            PrefixKVStore(int(prefix_cache_mb * (1 << 20)),
+                          shard_count=self.kv_shard_count,
+                          on_evict=self._evicted_key)
+            if prefix_cache_mb > 0 and not follower else None)
+        # tp: the driver's entry id per stored key and the ids its last
+        # insert evicted; a follower's entries by id
+        self._prefix_ids: Dict[Tuple[int, ...], int] = {}
+        self._evicted: List[int] = []
+        self._next_entry = 0
+        self._held: Dict[int, Dict[str, torch.Tensor]] = {}
+        if self.channel is not None and self.channel.is_driver:
+            self.pool.mirror = self._mirror_slot
         # distinct input shapes per family (the JAX engine's trace counts);
         # verify's rows are speculation's family (SpeculativeDecoder)
         self._shapes: Dict[str, Set[int]] = {f: set() for f in FAMILIES}
         self.verify_shapes: Set[int] = set()
+
+    # -- the lockstep group (tp > 1) -------------------------------------
+    def _join_group(self, params, cfg, n_slots, prefix_cache_mb, role, local):
+        """Take this rank's place in the mesh's lockstep group: on the
+        driver, ship every follower its slices of ``params`` with the build
+        command; on a follower, ``local`` holds what that command carried.
+        Returns (this rank's KV heads, this rank's params)."""
+        mesh = self.mesh
+        if cfg.n_experts:
+            raise NotImplementedError(
+                "mixture-of-experts under tensor parallelism is not ported "
+                "yet (ROADMAP.md Queue 1 item 12b)")
+        self.channel = channel_for(mesh)
+        cache_shape = (cfg.n_layer, n_slots, cfg.block_size, cfg.kv_heads,
+                       cfg.head_dim)
+        manual = (mesh.tp_manual(cfg) and mesh_lib.shard_by_rule(
+            mesh.shape, cache_shape, (None, None, None, "tp"),
+            name="kv_cache")[3] == "tp")
+        if local is None:
+            if not self.channel.is_driver:
+                raise ValueError("a follower's engines are built by its "
+                                 "driver's commands (DecodeEngine.follow)")
+            flat = convert.flatten(params)
+            specs = _tp_specs(mesh, flat, manual)
+            self.eid = self.channel.next_eid
+            self.channel.next_eid += 1
+            kwargs = dict(n_slots=n_slots, prefill_len=self.prefill_len,
+                          prefill_buckets=self.buckets,
+                          prefill_chunk=self.prefill_chunk,
+                          prefix_cache_mb=prefix_cache_mb, kv_dtype=self.kv_dtype)
+            leaves = [(p, tuple(t.shape), t.dtype) for p, t in flat.items()]
+            blob = pickle.dumps(dict(cfg=cfg, kwargs=kwargs, leaves=leaves,
+                                     specs=specs, role=role))
+            self.channel.send("build", self.eid, (), blob)
+            try:
+                for j, dst in enumerate(self.channel.followers, start=1):
+                    self.channel.send_tensors(
+                        [_tp_slice(flat[p], specs[p], mesh.tp, j) for p, _, _ in leaves],
+                        dst)
+            except Exception as e:
+                self.channel.fail(e)
+                raise LockstepError(f"tp group {mesh.ranks}: the build's "
+                                    f"parameters did not reach the followers: {e}") from e
+            params = convert.unflatten({p: _tp_slice(t, specs[p], mesh.tp, 0)
+                                        for p, t in flat.items()})
+        else:
+            params, specs, self.eid = local
+        if not manual:
+            return cfg.kv_heads, params
+        self.kv_shard_count = mesh.tp
+        embd = specs["wte"][-1] == "tp"
+        self.tp = gen.TPShard(mesh.tp_group, mesh.tp, mesh.tp_rank, embd_split=embd,
+                              head_split=embd if cfg.tie_weights
+                              else specs["head"][0] == "tp")
+        return cfg.kv_heads // mesh.tp, params
+
+    def _allocated(self) -> Optional[int]:
+        if self.device.type != "cuda":
+            return None
+        torch.cuda.synchronize(self.device)
+        return int(torch.cuda.memory_allocated(self.device))
+
+    def _call(self, op: str, ints: Sequence[int] = (), *extra):
+        """The one dispatch point of every engine call that touches the
+        group: broadcast ``op`` and its integer arguments to the followers,
+        then run ``_op_<op>`` here (with ``extra``, the driver's own
+        arguments). A failure after the broadcast leaves the group out of
+        step, so it breaks the channel and raises LockstepError."""
+        ints = np.asarray(list(ints), np.int64)
+        ch = self.channel
+        ch.send(op, self.eid, ints)
+        ch.active += 1
+        try:
+            return getattr(self, "_op_" + op)(ints, *extra)
+        except Exception as e:
+            ch.fail(e)
+            if isinstance(e, LockstepError):
+                raise
+            raise LockstepError(f"tp group {self.mesh.ranks}: {op} failed on "
+                                f"the driver: {e!r}") from e
+        finally:
+            ch.active -= 1
+
+    def _check_dispatch(self) -> None:
+        """A call that joins the group's collectives must run inside
+        ``_call`` (or a follower's loop): raise at once for one that a
+        driver forgot to mirror, instead of waiting on peers that never
+        join."""
+        if self.channel is not None and not self.channel.active:
+            raise LockstepError(
+                f"rank {self.mesh.rank}: an engine call that needs the tp "
+                f"group ran outside the lockstep dispatch (not mirrored)")
+
+    def _mirror_slot(self, what: str, slot: int) -> None:
+        self.channel.send("slot", self.eid, (0 if what == "allocate" else 1, slot))
+
+    def _op_slot(self, ints) -> None:
+        what, slot = int(ints[0]), int(ints[1])
+        if what == 0:
+            self.pool.claim(slot)
+        else:
+            self.pool.free(slot)
+
+    def _evicted_key(self, key) -> None:
+        gone = self._prefix_ids.pop(key, None)
+        if gone is not None:
+            self._evicted.append(gone)
+
+    def _store(self, key, entry) -> Optional[List[int]]:
+        """Insert a (this rank's heads) entry into the prefix store under
+        ``key``: the entry id and the ids the insert evicted, or None when
+        the store refused it."""
+        self._evicted = []
+        if not self.prefix_store.insert(key, entry):
+            return None
+        eid = self._next_entry
+        self._next_entry += 1
+        self._prefix_ids[key] = eid
+        return [eid] + self._evicted
+
+    def _hold(self, ints, entry) -> None:
+        """A follower keeps ``entry`` under id ints[0] and drops the ids
+        after it (the driver's store evicted them)."""
+        for gone in ints[1:]:
+            self._held.pop(int(gone), None)
+        self._held[int(ints[0])] = entry
+
+    def _heads(self, t: torch.Tensor, j: int) -> torch.Tensor:
+        """Rank j's heads of a whole-head entry leaf."""
+        return t.chunk(self.kv_shard_count, 3)[j].contiguous()
+
+    def _lane_likes(self, rows: int):
+        return [(tuple(a[:, :1, :rows].shape), a.dtype)
+                for _, a in sorted(self.pool.cache.items())]
+
+    def shutdown(self) -> None:
+        """Release the followers from ``follow`` (the driver of a tp
+        engine; a no-op otherwise and on a broken group)."""
+        if self.channel is not None:
+            release(self.mesh)
+
+    @staticmethod
+    def follow(mesh, device: Optional[Device] = None) -> int:
+        """A follower's loop (every rank of ``mesh`` but the first): run the
+        driver's commands, building the engines it builds, until it shuts
+        the group down. Returns the number of commands run. Raises on any
+        failure (LockstepError for a command out of step); the caller's
+        process should then exit, which fails the driver's next
+        collective."""
+        dev = resolve_device(device)
+        ch = channel_for(mesh)
+        if ch.is_driver:
+            raise ValueError("the group's first rank drives; follow() runs "
+                             "on the others")
+        n = 0
+        while True:
+            op, eid, ints, blob = ch.recv()
+            n += 1
+            if op == "shutdown":
+                return n
+            if op == "build":
+                DecodeEngine._build_follower(mesh, ch, dev, eid, blob)
+                continue
+            engine = ch.engines.get(eid)
+            if engine is None:
+                raise LockstepError(f"rank {mesh.rank}: command {op} for engine "
+                                    f"{eid}, which this follower does not hold")
+            ch.active += 1
+            try:
+                getattr(engine, "_op_" + op)(ints)
+            finally:
+                ch.active -= 1
+
+    @staticmethod
+    def _build_follower(mesh, ch, dev, eid, blob) -> None:
+        d = pickle.loads(blob)
+        specs = d["specs"]
+        likes = [(_tp_shape(shape, specs[p], mesh.tp), dtype)
+                 for p, shape, dtype in d["leaves"]]
+        got = ch.recv_tensors(likes, mesh.driver)
+        local = convert.unflatten({p: t.to(dev) for (p, _, _), t in zip(d["leaves"], got)})
+        if d["role"] == "target":  # a new server: its predecessor's engines go
+            ch.engines.clear()
+        ch.engines[eid] = DecodeEngine(local, d["cfg"], mesh=mesh, device=dev,
+                                       _role=d["role"], _local=(local, specs, eid),
+                                       **d["kwargs"])
+
+    def local_report(self) -> Dict[str, Any]:
+        """This rank's view of the engine: shapes, the pool's heads and
+        bytes (and the allocator's delta when it was made), the heads of
+        each held prefix entry and the flash kernels' launch counts."""
+        entries = ([e for _, e in self.prefix_store.entries()]
+                   if self.prefix_store is not None else list(self._held.values()))
+        return dict(rank=0 if self.mesh is None else self.mesh.rank,
+                    compile_counts=self.compile_counts(),
+                    verify_shapes=sorted(self.verify_shapes),
+                    kv_shard_count=self.kv_shard_count,
+                    kv_heads=int(self.pool.cache["k"].shape[3]),
+                    pool_bytes=self.pool.nbytes,
+                    pool_alloc_bytes=self.pool_alloc_bytes,
+                    free_slots=self.pool.free_count,
+                    prefix_heads=[int(e["k"].shape[3]) for e in entries],
+                    launches=_launch_counts())
+
+    def follower_reports(self) -> List[Dict[str, Any]]:
+        """Every follower's ``local_report()``, in rank order (the driver
+        of a tp engine; [] otherwise)."""
+        if self.channel is None:
+            return []
+        return self._call("report")
+
+    def _op_report(self, ints):
+        self._check_dispatch()
+        ch = self.channel
+        if ch.is_driver:
+            return [ch.recv_object(src) for src in ch.followers]
+        ch.send_object(self.local_report(), self.mesh.driver)
+        return None
 
     @property
     def n_slots(self) -> int:
@@ -283,12 +596,9 @@ class DecodeEngine:
                 f"chunk bucket {bucket} at offset {offset} overruns the "
                 f"{self.cfg.block_size} cache window (the scheduler "
                 "shifts the final chunk back to keep buckets in-window)")
-        padded = np.zeros(bucket, np.int64)
-        padded[:n] = np.asarray(chunk_ids, np.int64)
-        tokens = torch.from_numpy(padded).to(self.device)[None]
-        x = gen._forward_cached_hidden(self.params, tokens, self._lane(slot),
-                                       offset, self.cfg)
-        logits = gen._head_logits(self.params, x[:, n - 1:n], self.cfg)[:, 0]
+        ints = [slot, offset, n, bucket, *(int(t) for t in chunk_ids)]
+        logits = (self._op_prefill(np.asarray(ints, np.int64)) if self.channel is None
+                  else self._call("prefill", ints))[:, 0]
         dev = self.device
         tok = _select_next_slots(
             logits, torch.tensor([temperature], dtype=torch.float32, device=dev),
@@ -296,8 +606,20 @@ class DecodeEngine:
             torch.tensor([1.0 if top_p is None else top_p],
                          dtype=torch.float32, device=dev),
             [do_sample], [generator])
-        self._shapes["prefill"].add(bucket)
         return int(tok[0]), bucket
+
+    def _op_prefill(self, ints):
+        """The prefill forward: (1, 1, V) logits at the chunk's last real
+        row (None on a follower)."""
+        self._check_dispatch()
+        slot, offset, n, bucket = (int(v) for v in ints[:4])
+        padded = np.zeros(bucket, np.int64)
+        padded[:n] = ints[4:4 + n]
+        tokens = torch.from_numpy(padded).to(self.device)[None]
+        x = gen._forward_cached_hidden(self.params, tokens, self._lane(slot),
+                                       offset, self.cfg, self.tp)
+        self._shapes["prefill"].add(bucket)
+        return gen.tp_head_logits(self.params, x[:, n - 1:n], self.cfg, self.tp)
 
     @torch.no_grad()
     def verify_call(
@@ -320,18 +642,28 @@ class DecodeEngine:
                 f"{rows} verify rows at offset {offset} overrun the "
                 f"{self.cfg.block_size} cache window")
         dev = self.device
-        tokens = torch.as_tensor(np.asarray(row_tokens, np.int64)).to(dev)[None]
-        x = gen._forward_cached_hidden(self.params, tokens, self._lane(slot),
-                                       offset, self.cfg)
-        logits = gen._head_logits(self.params, x, self.cfg)[0]  # (rows, V)
+        ints = [slot, offset, *(int(t) for t in row_tokens)]
+        logits = (self._op_verify(np.asarray(ints, np.int64)) if self.channel is None
+                  else self._call("verify", ints))
         nxt = _select_next_slots(
             logits, torch.full((rows,), temperature, dtype=torch.float32, device=dev),
             torch.full((rows,), top_k or 0, device=dev),
             torch.full((rows,), 1.0 if top_p is None else top_p,
                        dtype=torch.float32, device=dev),
             [False] * rows, [None] * rows)
-        self.verify_shapes.add(rows)
         return nxt.cpu().numpy()
+
+    def _op_verify(self, ints):
+        """The verify forward: (rows, V) logits at every row (None on a
+        follower)."""
+        self._check_dispatch()
+        slot, offset = int(ints[0]), int(ints[1])
+        tokens = torch.from_numpy(np.asarray(ints[2:], np.int64)).to(self.device)[None]
+        x = gen._forward_cached_hidden(self.params, tokens, self._lane(slot),
+                                       offset, self.cfg, self.tp)
+        self.verify_shapes.add(int(tokens.shape[1]))
+        logits = gen.tp_head_logits(self.params, x, self.cfg, self.tp)
+        return None if logits is None else logits[0]
 
     # -- shared-prefix KV reuse ----------------------------------------
     def quantized_prefix_len(self, prompt_len: int) -> int:
@@ -356,10 +688,23 @@ class DecodeEngine:
         if hit is None:
             return 0
         rows, entry = hit
+        if self.channel is not None:  # a rank-local copy on every rank
+            self.channel.send("prefix_load", self.eid,
+                              (slot, rows, self._prefix_ids[tuple(prompt_ids[:rows])]))
+        self._copy_in(slot, rows, entry)
+        return rows
+
+    def _copy_in(self, slot: int, rows: int, entry) -> None:
         for name, lane in self._lane(slot, rows).items():
             lane.copy_(entry[name])
         self._shapes["prefix_load"].add(rows)
-        return rows
+
+    def _op_prefix_load(self, ints) -> None:
+        slot, rows, eid = (int(v) for v in ints)
+        if eid not in self._held:
+            raise LockstepError(f"rank {self.mesh.rank}: prefix entry {eid} "
+                                "is not held here")
+        self._copy_in(slot, rows, self._held[eid])
 
     @torch.no_grad()
     def save_prefix(self, slot: int, prompt_ids: Sequence[int]) -> int:
@@ -374,9 +719,23 @@ class DecodeEngine:
         key = tuple(prompt_ids[:rows])
         if self.prefix_store.contains(key):
             return 0
-        entry = {name: lane.clone() for name, lane in self._lane(slot, rows).items()}
+        entry = self._copy_out(slot, rows)
+        if self.channel is None:
+            return rows if self.prefix_store.insert(key, entry) else 0
+        # no collective: the driver stores first, then its followers copy
+        # the same rows under the entry's id (and drop what it evicted)
+        stored = self._store(key, entry)
+        if stored is None:
+            return 0
+        self.channel.send("prefix_save", self.eid, (slot, rows, *stored))
+        return rows
+
+    def _copy_out(self, slot: int, rows: int) -> Dict[str, torch.Tensor]:
         self._shapes["prefix_save"].add(rows)
-        return rows if self.prefix_store.insert(key, entry) else 0
+        return {name: lane.clone() for name, lane in self._lane(slot, rows).items()}
+
+    def _op_prefix_save(self, ints) -> None:
+        self._hold(ints[2:], self._copy_out(int(ints[0]), int(ints[1])))
 
     # -- the migration seam --------------------------------------------
     def migratable_rows(self, prompt_len: int, frontier: int) -> int:
@@ -425,8 +784,26 @@ class DecodeEngine:
         quantized pool): the extract half of migration, ``save_prefix``'s
         copy. ``rows`` must sit on the bucket ladder."""
         self._check_ladder(rows, "extract")
-        self._shapes["prefix_save"].add(rows)
-        return {name: lane.clone() for name, lane in self._lane(slot, rows).items()}
+        if self.channel is None:
+            return self._copy_out(slot, rows)
+        return self._call("extract", (slot, rows))
+
+    def _op_extract(self, ints):
+        """Every rank copies its heads of the rows; the followers' heads
+        go to the driver, which returns the whole-head entry."""
+        self._check_dispatch()
+        mine = self._copy_out(int(ints[0]), int(ints[1]))
+        if self.kv_shard_count == 1:
+            return mine
+        ch, names = self.channel, sorted(mine)
+        if not ch.is_driver:
+            ch.send_tensors([mine[n] for n in names], self.mesh.driver)
+            return None
+        likes = [(tuple(mine[n].shape), mine[n].dtype) for n in names]
+        parts = [[mine[n] for n in names]] + [
+            [t.to(self.device) for t in ch.recv_tensors(likes, src)]
+            for src in ch.followers]
+        return {n: torch.cat([p[i] for p in parts], dim=3) for i, n in enumerate(names)}
 
     @torch.no_grad()
     def install_slot_rows(self, slot: int, entry) -> int:
@@ -437,10 +814,28 @@ class DecodeEngine:
         placed = self._place_entry(entry)
         rows = int(placed["k"].shape[2])
         self._check_ladder(rows, "install")
-        for name, lane in self._lane(slot, rows).items():
-            lane.copy_(placed[name])
-        self._shapes["prefix_load"].add(rows)
+        if self.channel is None:
+            self._copy_in(slot, rows, placed)
+        else:
+            self._call("install", (slot, rows), placed)
         return rows
+
+    def _scatter(self, rows: int, whole=None) -> Dict[str, torch.Tensor]:
+        """This rank's heads of a whole-head entry of ``rows`` rows: the
+        driver (``whole``) sends each follower its heads; a follower
+        receives them."""
+        ch, names = self.channel, sorted(self.pool.cache)
+        if whole is None:
+            got = ch.recv_tensors(self._lane_likes(rows), self.mesh.driver)
+            return {n: t.to(self.device) for n, t in zip(names, got)}
+        for j, dst in enumerate(ch.followers, start=1):
+            ch.send_tensors([self._heads(whole[n], j) for n in names], dst)
+        return {n: self._heads(whole[n], 0) for n in names}
+
+    def _op_install(self, ints, whole=None) -> None:
+        self._check_dispatch()
+        slot, rows = int(ints[0]), int(ints[1])
+        self._copy_in(slot, rows, self._scatter(rows, whole))
 
     def adopt_prefix_entry(self, key: Sequence[int], entry) -> bool:
         """Put a migrated entry dict into this engine's prefix store under
@@ -451,7 +846,22 @@ class DecodeEngine:
         key = tuple(int(t) for t in key)
         if self.prefix_store.contains(key):
             return False
-        return self.prefix_store.insert(key, self._place_entry(entry))
+        placed = self._place_entry(entry)
+        if self.channel is None:
+            return self.prefix_store.insert(key, placed)
+        stored = self._store(key, {n: self._heads(t, 0) for n, t in placed.items()})
+        if stored is None:
+            return False
+        self._call("adopt", (int(placed["k"].shape[2]), *stored), placed)
+        return True
+
+    def _op_adopt(self, ints, whole=None) -> None:
+        """The driver stored its heads already; each follower receives and
+        holds its own."""
+        self._check_dispatch()
+        heads = self._scatter(int(ints[0]), whole)
+        if whole is None:
+            self._hold(ints[1:], heads)
 
     # -- warmup --------------------------------------------------------
     def warmup(self) -> None:
@@ -471,11 +881,16 @@ class DecodeEngine:
             np.ones(s, np.float32), np.zeros(s, np.int64),
             np.ones(s, np.float32), np.zeros(s, bool), [None] * s)
         if self.prefix_store is not None:
-            for b in (b for b in self.buckets if b <= self.prefill_len - 1):
-                for lane in self._lane(0, b).values():
-                    lane.copy_(lane.clone())  # an extract, then an install
-                self._shapes["prefix_save"].add(b)
-                self._shapes["prefix_load"].add(b)
+            storable = [b for b in self.buckets if b <= self.prefill_len - 1]
+            if self.channel is not None:
+                self.channel.send("warm", self.eid, storable)
+            self._op_warm(storable)
+
+    def _op_warm(self, ints) -> None:
+        """The prefix copies per storable bucket: an extract, then an
+        install."""
+        for b in (int(v) for v in ints):
+            self._copy_in(0, b, self._copy_out(0, b))
 
     @torch.no_grad()
     def decode_on_device(
@@ -490,12 +905,27 @@ class DecodeEngine:
     ) -> torch.Tensor:
         """One token for every slot, from and to device tensors: nothing in
         it waits for the device, so a caller can queue steps back to back."""
-        safe_pos = positions.clamp(0, self.cfg.block_size - 1)
-        logits = gen._forward_cached(self.params, tokens[:, None],
-                                     self.pool.cache, safe_pos, self.cfg)
-        self._shapes["decode"].add(int(tokens.shape[0]))
+        if self.channel is None:
+            logits = self._decode_logits(tokens, positions)
+        else:  # the followers need the step's tokens: one read to the host
+            logits = self._call("decode", torch.cat([tokens, positions]).tolist())
         return _select_next_slots(logits, temps, top_ks, top_ps, do_sample,
                                   generators)
+
+    def _decode_logits(self, tokens: torch.Tensor, positions: torch.Tensor):
+        """The decode forward: (S, V) logits (None on a follower)."""
+        safe_pos = positions.clamp(0, self.cfg.block_size - 1)
+        x = gen._forward_cached_hidden(self.params, tokens[:, None],
+                                       self.pool.cache, safe_pos, self.cfg, self.tp)
+        self._shapes["decode"].add(int(tokens.shape[0]))
+        logits = gen.tp_head_logits(self.params, x[:, -1:], self.cfg, self.tp)
+        return None if logits is None else logits[:, 0]
+
+    def _op_decode(self, ints):
+        self._check_dispatch()
+        s = len(ints) // 2
+        put = lambda a: torch.from_numpy(np.asarray(a, np.int64)).to(self.device)  # noqa: E731
+        return self._decode_logits(put(ints[:s]), put(ints[s:]))
 
     def decode_step(
         self,

@@ -45,8 +45,10 @@ and deadlines are all in the active clock's seconds; attribution's CUDA
 event seconds stay out of it.
 
 **Exceptions.** A replica round that raises :class:`ReplicaCrashed` is a
-crash (breaker tripped, replica respawned, victims retried); any other
-exception is a step failure that costs a breaker failure. Nothing moves
+crash (breaker tripped, replica respawned, victims retried); a
+``LockstepError`` (a tensor-parallel replica's group lost a rank) leaves the
+router at once; any other exception is a step failure that costs a breaker
+failure. Nothing moves
 work to the CPU: a replica runs where its factory put it.
 
 Exit code 75 (``REQUEUE_EXIT_CODE``) is the trainer's preemption code:
@@ -70,6 +72,7 @@ from typing import Any, Callable, Deque, Dict, List, Optional, Tuple
 import numpy as np
 
 from mingpt_distributed_tpu_torch.serving.admission import AdmissionPolicy
+from mingpt_distributed_tpu_torch.serving.lockstep import LockstepError
 from mingpt_distributed_tpu_torch.serving.requests import (
     QueueFullError,
     Request,
@@ -535,7 +538,7 @@ class ReplicaSupervisor:
         return [r for r in self.replicas if r.state == "ready"]
 
 
-def default_server_factory(params, cfg, **server_kwargs):
+def default_server_factory(params, cfg, meshes=None, **server_kwargs):
     """Factory the supervisor calls per replica (and per respawn). Every
     replica, respawns included, gets the SAME ``params`` tree (the engine
     keeps a reference: nothing is copied or recast, so a card holds the
@@ -543,11 +546,22 @@ def default_server_factory(params, cfg, **server_kwargs):
     registry — N replicas re-registering ``mingpt_serve_*`` in one registry
     would alias their counters; the fleet-level families below live in the
     shared registry instead. ``server_kwargs`` go to every
-    ``InferenceServer`` (``device`` among them)."""
+    ``InferenceServer`` (``device`` among them).
+
+    ``meshes`` ({replica name: serving mesh}) makes each replica a tensor-
+    parallel server on its own lockstep group: a group runs one server at
+    a time (a build replaces its followers' engines), so replicas never
+    share one, and a respawn rebuilds the followers' engines with it."""
 
     def make(name: str, clock, fault_hook) -> InferenceServer:
+        kw = dict(server_kwargs)
+        if meshes is not None:
+            if name not in meshes:
+                raise ValueError(f"no tp group for {name}: meshes name "
+                                 f"{sorted(meshes)}")
+            kw["mesh"] = meshes[name]
         return InferenceServer(
-            params, cfg, clock=clock, fault_hook=fault_hook, **server_kwargs)
+            params, cfg, clock=clock, fault_hook=fault_hook, **kw)
 
     return make
 
@@ -1123,6 +1137,8 @@ class Router:
                 rep.step()
             except ReplicaCrashed as e:
                 self._handle_crash(rep, e)
+            except LockstepError:
+                raise  # a tp group lost a rank: never a retryable step failure
             except Exception as e:
                 self._handle_step_failure(rep, e)
 

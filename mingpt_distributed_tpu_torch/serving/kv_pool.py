@@ -17,6 +17,13 @@ holds four leaves, the payloads ``k``/``v`` and their fp32 scale planes
 Allocation is deterministic (lowest free index first), so a given arrival
 order always produces the same slot placement.
 
+Under tensor parallelism (serving/engine.py) each rank's pool holds its
+``kv_heads/tp`` heads (``kv_heads``), and each rank's prefix entries the
+same heads of their rows. The driver's store then counts every entry's
+bytes times ``shard_count``, the whole entry's size, so the budget means
+what it means at tp = 1 and evicts alike; ``on_evict`` tells the driver
+which entries its followers must drop.
+
 ``PrefixKVStore`` is the byte-bounded LRU behind shared-prefix reuse (the
 system-prompt case): entries are device-resident ``(L, 1, P, KV, hd)`` K/V
 row blocks keyed by the exact token tuple they encode (with the scale
@@ -28,7 +35,7 @@ recomputing them and prefills only the tail.
 from __future__ import annotations
 
 from collections import OrderedDict
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -46,16 +53,21 @@ class SlotKVPool:
     def __init__(self, cfg: GPTConfig, n_slots: int,
                  dtype: Optional[torch.dtype] = None,
                  device: Optional[Device] = None,
-                 quant: Optional[quant_lib.KVQuant] = None):
+                 quant: Optional[quant_lib.KVQuant] = None,
+                 kv_heads: Optional[int] = None):
         if n_slots < 1:
             raise ValueError(f"n_slots must be >= 1, got {n_slots}")
         self.cfg = cfg
         self.n_slots = n_slots
         self.quant = quant
         dev = resolve_device(device)
-        self.cache: Cache = (init_cache(cfg, n_slots, dev, dtype) if quant is None
-                             else quant_lib.init_quant_cache(cfg, n_slots, quant, dev))
+        self.cache: Cache = (
+            init_cache(cfg, n_slots, dev, dtype, kv_heads) if quant is None
+            else quant_lib.init_quant_cache(cfg, n_slots, quant, dev, kv_heads))
         self._free: List[int] = list(range(n_slots))  # kept sorted
+        # the lockstep engine's driver mirrors each claim and release to its
+        # followers' pools: called with ("allocate" | "free", slot)
+        self.mirror: Optional[Callable[[str, int], None]] = None
 
     @property
     def nbytes(self) -> int:
@@ -73,7 +85,10 @@ class SlotKVPool:
         """Claim the lowest free slot index, or None when exhausted."""
         if not self._free:
             return None
-        return self._free.pop(0)
+        slot = self._free.pop(0)
+        if self.mirror is not None:
+            self.mirror("allocate", slot)
+        return slot
 
     def free(self, slot: int) -> None:
         """Return a slot to the pool (a double free would let two requests
@@ -84,6 +99,16 @@ class SlotKVPool:
             raise ValueError(f"slot {slot} is already free (double free)")
         self._free.append(slot)
         self._free.sort()
+        if self.mirror is not None:
+            self.mirror("free", slot)
+
+    def claim(self, slot: int) -> None:
+        """Take ``slot`` off the free list (a follower replaying its
+        driver's ``allocate``); raises when the lists disagree."""
+        if not self._free or self._free[0] != slot:
+            raise RuntimeError(f"slot {slot} claimed, the pool's next free "
+                               f"slot is {self._free[:1]}")
+        self._free.pop(0)
 
 
 class PrefixKVStore:
@@ -99,11 +124,14 @@ class PrefixKVStore:
     whole budget is refused rather than thrashing the store empty.
     """
 
-    def __init__(self, capacity_bytes: int):
+    def __init__(self, capacity_bytes: int, shard_count: int = 1,
+                 on_evict: Optional[Callable[[Tuple[int, ...]], None]] = None):
         if capacity_bytes < 1:
             raise ValueError(
                 f"capacity_bytes must be >= 1, got {capacity_bytes}")
         self.capacity_bytes = capacity_bytes
+        self.shard_count = int(shard_count)
+        self.on_evict = on_evict
         self.used_bytes = 0
         self._entries: "OrderedDict[Tuple[int, ...], dict]" = OrderedDict()
 
@@ -117,9 +145,8 @@ class PrefixKVStore:
         """(key, lane-dict) pairs in LRU order (read-only introspection)."""
         return list(self._entries.items())
 
-    @staticmethod
-    def _nbytes(kv) -> int:
-        return sum(int(a.nbytes) for a in kv.values())
+    def _nbytes(self, kv) -> int:
+        return self.shard_count * sum(int(a.nbytes) for a in kv.values())
 
     def lookup(self, tokens: Tuple[int, ...]):
         """Longest stored entry that is a *proper* prefix of ``tokens``
@@ -149,8 +176,10 @@ class PrefixKVStore:
         if need > self.capacity_bytes:
             return False
         while self.used_bytes + need > self.capacity_bytes:
-            _, old = self._entries.popitem(last=False)
+            old_key, old = self._entries.popitem(last=False)
             self.used_bytes -= self._nbytes(old)
+            if self.on_evict is not None:
+                self.on_evict(old_key)
         self._entries[key] = kv
         self.used_bytes += need
         return True

@@ -192,10 +192,14 @@ def split_scales(cache: Dict[str, torch.Tensor]
 
 
 def init_quant_cache(cfg, n_slots: int, q: KVQuant,
-                     device: Optional[torch.device] = None) -> Dict[str, torch.Tensor]:
+                     device: Optional[torch.device] = None,
+                     kv_heads: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """The quantized counterpart of ``generate.init_cache``: zeroed payload
-    buffers in ``q.qdtype`` and zeroed fp32 scale planes."""
-    shape = (cfg.n_layer, n_slots, cfg.block_size, cfg.kv_heads, cfg.head_dim)
+    buffers in ``q.qdtype`` and zeroed fp32 scale planes. ``kv_heads``:
+    this rank's share under tensor parallelism; a scale plane is per head
+    and row, so the planes shard the same axis as the payloads."""
+    shape = (cfg.n_layer, n_slots, cfg.block_size, kv_heads or cfg.kv_heads,
+             cfg.head_dim)
     sshape = shape[:-1] + (1,)
     out: Dict[str, torch.Tensor] = {}
     for n in DATA_NAMES:

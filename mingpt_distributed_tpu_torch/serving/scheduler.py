@@ -82,7 +82,9 @@ speculating lanes' verify) and before any of the round's tokens is emitted.
 A raise there loses the round's computed tokens, so a replica that fails
 mid-round never streams a token twice; the fleet's retry recomputes them.
 
-Not ported yet: tensor parallelism (``mesh``), ROADMAP.md Queue 1 item 9b.
+Tensor parallelism (``mesh``, a ``Mesh.serving`` mesh) passes through to
+the engine untouched, as in the JAX scheduler: this server runs on the
+group's driver and stays unaware of the mesh (serving/engine.py, item 6).
 """
 
 from __future__ import annotations
@@ -116,6 +118,7 @@ from mingpt_distributed_tpu_torch.telemetry import (
     TraceRecorder,
     build_attrib_report,
     log_event,
+    per_device_tree_bytes,
     trace_baggage,
     tree_bytes,
 )
@@ -303,24 +306,37 @@ class InferenceServer:
         if self.hbm is None:
             return
         eng = self.engine
-        self.hbm.account("params", tree_bytes(eng.params))
+        n = eng.kv_shard_count
+
+        def sharded(owner, tree):  # this rank holds 1/n of the owner's bytes
+            mine = per_device_tree_bytes(tree)
+            self.hbm.account(owner, mine * n, per_device_bytes=mine)
+
+        self.hbm.account("params", eng.whole_param_bytes,
+                         per_device_bytes=tree_bytes(eng.params))
         if eng.kv_quant is not None:
             data, scales = quant_lib.split_scales(eng.pool.cache)
-            self.hbm.account("kv_pool", tree_bytes(data))
-            self.hbm.account("kv_scales", tree_bytes(scales))
+            sharded("kv_pool", data)
+            sharded("kv_scales", scales)
         else:
-            self.hbm.account("kv_pool", tree_bytes(eng.pool.cache))
+            sharded("kv_pool", eng.pool.cache)
         store = eng.prefix_store
-        self.hbm.account("prefix_store", 0 if store is None else store.used_bytes)
+        used = 0 if store is None else store.used_bytes
+        self.hbm.account("prefix_store", used, per_device_bytes=used // n)
         if self.spec is not None:
             de = self.spec.draft.engine
             # a draft that shares the target's storage ("self", "self:N")
             # holds no bytes of its own
             own = {t.untyped_storage().data_ptr() for t in gpt._leaves(eng.params)}
-            self.hbm.account("draft_params", sum(
-                int(t.nbytes) for t in gpt._leaves(de.params)
-                if t.untyped_storage().data_ptr() not in own))
-            self.hbm.account("draft_pool", tree_bytes(de.pool.cache))
+            mine = sum(int(t.nbytes) for t in gpt._leaves(de.params)
+                       if t.untyped_storage().data_ptr() not in own)
+            # under tp this rank holds its slices: the whole draft's bytes
+            # in the same proportion
+            whole = de.whole_param_bytes * mine // max(1, tree_bytes(de.params))
+            self.hbm.account("draft_params", whole, per_device_bytes=mine)
+            mine = per_device_tree_bytes(de.pool.cache)
+            self.hbm.account("draft_pool", mine * de.kv_shard_count,
+                             per_device_bytes=mine)
 
     def attrib_report(self, include_live: bool = False) -> Dict[str, Any]:
         """This server's ``mingpt-attrib/1`` report (raises when it was

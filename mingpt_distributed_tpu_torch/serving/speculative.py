@@ -39,6 +39,12 @@ request's ``prime`` installs them and prefills only the uncovered tail
 (``"adopted"``). The process fleet carries them between workers as
 ``draft_rows`` frames (``procfleet/worker.py``).
 
+**Tensor parallelism.** The draft engine takes the target's mesh (the JAX
+package's ``speculative.py:119``): its pool is head-sharded and mirrored to
+the followers like the target's, each draft step is one lockstep command
+whose tokens the driver chose, and rejected rows go stale on every rank
+alike, so rollback stays free under sharding.
+
 Not ported yet: the audit contracts (``audit_contracts``), item 16b.
 """
 
@@ -81,8 +87,8 @@ class DraftEngine:
                 f"{target.cfg.block_size}: draft must cover the window")
         self.engine = DecodeEngine(
             params, cfg, target.n_slots, prefill_len=target.prefill_len,
-            prefill_buckets=target.buckets, kv_dtype=target.kv_dtype,
-            device=target.device)
+            prefill_buckets=target.buckets, mesh=target.mesh,
+            kv_dtype=target.kv_dtype, device=target.device, _role="draft")
 
     def bind(self, slot: int) -> None:
         got = self.engine.pool.allocate()

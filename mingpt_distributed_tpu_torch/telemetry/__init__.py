@@ -33,6 +33,7 @@ from mingpt_distributed_tpu_torch.telemetry.attribution import (  # noqa: F401
     build_attrib_report,
     dump_attrib_report,
     forward_cost,
+    per_device_tree_bytes,
     render_attrib_report,
     tree_bytes,
     validate_attrib_report,

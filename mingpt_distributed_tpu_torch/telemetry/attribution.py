@@ -22,6 +22,12 @@ validator accepts.
   the draft's params and pool), a leak audit against what the CUDA caching
   allocator holds (``torch.cuda.memory_allocated``, where JAX reads
   ``jax.live_arrays()``), and the headroom against the card's capacity.
+  Each owner also has a per-device column: under serving tensor
+  parallelism a rank holds ``1/tp`` of the KV pool, so ``kv_pool``'s
+  per-device bytes are the rank's own (``per_device_tree_bytes``) and its
+  total those times the shard count; a rank's audit and headroom read
+  the owners' per-device bytes against its own allocator and card (JAX's
+  ``jax.live_arrays()`` sees every device, so it audits the totals).
 
 Clock discipline: this module reads no clock. Durations arrive measured.
 """
@@ -47,6 +53,7 @@ __all__ = [
     "build_attrib_report",
     "dump_attrib_report",
     "forward_cost",
+    "per_device_tree_bytes",
     "render_attrib_report",
     "tree_bytes",
     "validate_attrib_report",
@@ -228,13 +235,25 @@ def tree_bytes(tree: Any) -> int:
     return 0
 
 
+def per_device_tree_bytes(tree: Any) -> int:
+    """Bytes one device holds of a tree. The port's tensors are a rank's
+    own (a tp rank's pool holds its kv_heads/tp heads), so a rank's tree
+    counts its size: ``tree_bytes`` under the name the JAX package gives
+    the per-device column."""
+    return tree_bytes(tree)
+
+
 class HBMLedger:
     """Bytes-by-owner device-memory accounting plus the leak audit.
 
-    ``account(owner, nbytes)`` is declarative (set, not add). ``audit()``
-    compares the owned total with what the CUDA caching allocator holds on
-    ``device`` (``torch.cuda.memory_allocated``): a growing unattributed
-    residue is the leak signal."""
+    ``account(owner, nbytes, per_device_bytes=None)`` is declarative (set,
+    not add); ``per_device_bytes`` is the owner's residency on one device
+    (total/tp for a tp-sharded owner; default ``nbytes``). ``audit()``
+    compares the bytes the owners hold on this rank's device
+    (``per_device_total``) with what the CUDA caching allocator holds on
+    ``device`` (``torch.cuda.memory_allocated``, this rank's alone): a
+    growing unattributed residue is the leak signal. The headroom is the
+    card's capacity less the same per-device bytes."""
 
     def __init__(self, registry: Optional[MetricsRegistry] = None,
                  capacity_bytes: Optional[float] = None,
@@ -244,10 +263,16 @@ class HBMLedger:
                                else peak_hbm_capacity_per_chip())
         self.device = device
         self._owners: Dict[str, int] = {}
+        self._per_device: Dict[str, int] = {}
         r = self.registry
         self._g_owner = r.gauge(
             "mingpt_attrib_hbm_bytes",
             help="accounted HBM bytes by owner (shapes/dtypes, exact)",
+            labels=("owner",))
+        self._g_owner_pd = r.gauge(
+            "mingpt_attrib_hbm_per_device_bytes",
+            help="accounted HBM bytes by owner on one device (total/tp for "
+                 "tp-sharded owners, == total unsharded)",
             labels=("owner",))
         self._g_total = r.gauge(
             "mingpt_attrib_hbm_total_bytes",
@@ -260,24 +285,41 @@ class HBMLedger:
             help="allocated bytes no owner accounts for (leak audit residue)")
         self._g_headroom = r.gauge(
             "mingpt_attrib_hbm_headroom_bytes",
-            help="card memory capacity minus accounted bytes (absent "
+            help="card memory capacity minus the bytes accounted on this "
+                 "device (absent "
                  "without a card)")
 
-    def account(self, owner: str, nbytes: int) -> None:
+    def account(self, owner: str, nbytes: int,
+                per_device_bytes: Optional[int] = None) -> None:
         if nbytes < 0:
             raise ValueError(f"owner {owner!r}: negative bytes {nbytes}")
+        if per_device_bytes is None:
+            per_device_bytes = nbytes
+        if not 0 <= per_device_bytes <= nbytes:
+            raise ValueError(f"owner {owner!r}: per_device_bytes "
+                             f"{per_device_bytes} outside [0, {nbytes}]")
         self._owners[owner] = int(nbytes)
+        self._per_device[owner] = int(per_device_bytes)
         self._g_owner.labels(owner=owner).set(int(nbytes))
-        total = self.total_bytes()
-        self._g_total.set(total)
+        self._g_owner_pd.labels(owner=owner).set(int(per_device_bytes))
+        self._g_total.set(self.total_bytes())
         if self.capacity_bytes is not None:
-            self._g_headroom.set(self.capacity_bytes - total)
+            self._g_headroom.set(self.capacity_bytes - self.per_device_total())
 
     def owners(self) -> Dict[str, int]:
         return dict(sorted(self._owners.items()))
 
+    def per_device(self) -> Dict[str, int]:
+        """Per-owner bytes on one device, the keys of ``owners()``."""
+        return dict(sorted(self._per_device.items()))
+
     def total_bytes(self) -> int:
         return sum(self._owners.values())
+
+    def per_device_total(self) -> int:
+        """Bytes the owners hold on this rank's device: ``total_bytes()``
+        on one device, the rank's share under tp."""
+        return sum(self._per_device.values())
 
     def live_bytes(self) -> int:
         if self.device is None or torch.device(self.device).type != "cuda":
@@ -286,9 +328,10 @@ class HBMLedger:
         return int(torch.cuda.memory_allocated(self.device))
 
     def audit(self) -> Dict[str, int]:
-        """Owned against allocated bytes. Process state (every tensor on
-        the card counts), so reports leave it out unless asked."""
-        owned = self.total_bytes()
+        """This rank's owned bytes against its allocator's. Process state
+        (every tensor on the card counts), so reports leave it out unless
+        asked."""
+        owned = self.per_device_total()
         live = self.live_bytes()
         self._g_live.set(live)
         self._g_unattr.set(max(0, live - owned))
@@ -317,13 +360,13 @@ def build_attrib_report(programs: ProgramLedger, hbm: Optional[HBMLedger] = None
     }
     if hbm is not None:
         owners = hbm.owners()
-        total = hbm.total_bytes()
         block: Dict[str, Any] = {
             "owners": owners,
-            "total_bytes": total,
+            "per_device_bytes": hbm.per_device(),
+            "total_bytes": hbm.total_bytes(),
             "capacity_bytes": hbm.capacity_bytes,
             "headroom_bytes": (None if hbm.capacity_bytes is None
-                               else hbm.capacity_bytes - total),
+                               else hbm.capacity_bytes - hbm.per_device_total()),
         }
         if include_live:
             block["audit"] = hbm.audit()

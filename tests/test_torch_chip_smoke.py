@@ -35,7 +35,8 @@ def test_ring_cases_cover_every_head_width(hd):
 
 def test_ring_cases_have_unique_names():
     for cases in (chip_smoke.KERNEL_CASES + chip_smoke.FWD_RING_CASES,
-                  chip_smoke.LSE_CASES + chip_smoke.LSE_RING_CASES,
+                  chip_smoke.LSE_CASES + chip_smoke.LSE_RING_CASES
+                  + chip_smoke.LSE_SP_TP_CASES,
                   chip_smoke.NH_CASES):
         names = [(c[0], c[-1]) if cases is chip_smoke.NH_CASES else c[0] for c in cases]
         assert len(names) == len(set(names))
@@ -497,13 +498,15 @@ def test_control_log_validator_accepts_a_log_and_refuses_tampering():
 
 
 def test_budget_record_arithmetic():
-    rec = chip_smoke.budget_record({"autoscale": 40.0, "fsdp_tp": 60.0, "traffic_controller": 20.0,
-                                    "serve_cli_autoscale": 10.0}, 700.0)
-    assert rec["added_total_s"] == 130.0 and rec["added_within_budget"]
-    assert rec["smoke_within_budget"] and rec["autoscale_s"] == 40.0
-    over = chip_smoke.budget_record({"fsdp_tp": 151.0}, 781.0)
+    rec = chip_smoke.budget_record({"serve_tp_parity+serve_tp": 50.0, "serve_cli_tp": 20.0,
+                                    "sp_tp": 30.0, "sp_tp_times": 10.0}, 700.0,
+                                   {"fsdp_tp": 41.0})
+    assert rec["added_total_s"] == 110.0 and rec["added_within_budget"]
+    assert rec["smoke_within_budget"] and rec["sp_tp_s"] == 30.0
+    assert rec["earlier_slice_s"] == {"fsdp_tp": 41.0}
+    over = chip_smoke.budget_record({"sp_tp": 121.0}, 801.0)
     assert not over["added_within_budget"] and not over["smoke_within_budget"]
-    assert (chip_smoke.ADDED_PHASES_BUDGET_S, chip_smoke.SMOKE_BUDGET_S) == (150.0, 780.0)
+    assert (chip_smoke.ADDED_PHASES_BUDGET_S, chip_smoke.SMOKE_BUDGET_S) == (120.0, 800.0)
 
 
 def test_fsdp_tp_geometry_and_rule_bytes_at_gpt2():
@@ -536,9 +539,11 @@ def test_fsdp_tp_geometry_and_rule_bytes_at_gpt2():
 
 
 def test_main_runs_the_added_phases_and_reports_their_seconds():
-    """_main drives the four added phases (and the times at the fsdp x tp
-    shape) with their seconds in the budget line, and lists the fsdp x tp
-    step's launches among the paths."""
+    """_main drives the previous slice's four phases (and the times at the
+    fsdp x tp shape) and this slice's (tensor-parallel serving, sp x tp and
+    its hop times), each with its seconds in the budget line, and lists the
+    fsdp x tp and sp x tp steps' and the tp servers' launches among the
+    paths."""
     import ast
     import inspect
 
@@ -546,14 +551,147 @@ def test_main_runs_the_added_phases_and_reports_their_seconds():
     called = [n.func.id for n in ast.walk(tree)
               if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)]
     for phase in ("phase_traffic_controller", "phase_autoscale", "phase_serve_cli_autoscale",
-                  "phase_fsdp_tp", "phase_fsdp_tp_times", "budget_record"):
+                  "phase_fsdp_tp", "phase_fsdp_tp_times", "budget_record",
+                  "phase_serve_tp_parity", "phase_serve_tp", "phase_serve_cli_tp",
+                  "phase_sp", "phase_sp_tp_times"):
         assert phase in called, phase
-    keys = {k.value for n in ast.walk(tree) if isinstance(n, ast.Subscript)
-            and isinstance(n.value, ast.Name) and n.value.id == "added_seconds"
-            for k in [n.slice] if isinstance(k, ast.Constant)}
-    assert keys == {"traffic_controller", "autoscale", "serve_cli_autoscale", "fsdp_tp",
-                    "fsdp_tp_times"}
-    assert "fsdp_tp_train_step_rank0" in inspect.getsource(chip_smoke._main)
+
+    def keys(name):
+        return {k.value for n in ast.walk(tree) if isinstance(n, ast.Subscript)
+                and isinstance(n.value, ast.Name) and n.value.id == name
+                for k in [n.slice] if isinstance(k, ast.Constant)}
+
+    assert keys("earlier_seconds") == {"traffic_controller", "autoscale",
+                                       "serve_cli_autoscale", "fsdp_tp", "fsdp_tp_times"}
+    assert keys("added_seconds") == {"serve_tp_parity+serve_tp", "serve_cli_tp", "sp_tp",
+                                     "sp_tp_times"}
+    src = inspect.getsource(chip_smoke._main)
+    for path in ("fsdp_tp_train_step_rank0", "sp_tp_train_step_rank0", '"serve_tp"',
+                 '"serve_tp_follower"'):
+        assert path in src, path
+    # serve_tp holds its tokens/s against serve's from the same call, and
+    # serve_cli_tp its completions against serve_cli's
+    assert called.index("phase_serve") < called.index("phase_serve_tp")
+    assert called.index("phase_serve_cli") < called.index("phase_serve_cli_tp")
     # the autoscale phase compares with procfleet's record from the same call
     assert called.index("phase_procfleet") < called.index("phase_autoscale")
     assert called.index("phase_serve_cli") < called.index("phase_serve_cli_autoscale")
+
+
+def test_sp_tp_launch_counts_per_rank_per_step_at_gpt2():
+    """dp 1 x sp 2 x tp 2: the zigzag ring makes 3 + (2 - 1) K3 launches per
+    layer (and as many of the prep pass, K4a and K4b), 48 per rank per step
+    at 12 layers, on 6 of 12 heads over half-chunks of 1024 rows."""
+    assert chip_smoke.SP_TP_PER_LAYER == 4 and chip_smoke.SP_TP_PER_LAYER * 12 == 48
+    ranks = [_sp_tp_rank(sp, tp) for tp in range(2) for sp in range(2)]
+    recs, fails = chip_smoke.sp_tp_checks(ranks, card="c")
+    assert not fails, fails
+    main = recs[0]
+    assert main["phase"] == "sp_tp_train_step" and main["main_path"]
+    assert main["launches_per_rank_per_step"] == {
+        "flash_lse_fwd": 48.0, "flash_bwd_prep": 48.0, "flash_lse_bwd_dq": 48.0,
+        "flash_lse_bwd_dkv": 48.0}
+    assert main["k3_q_shapes_want"] == [[4, 1024, 6, 64], [8, 1024, 6, 64]]
+    assert [r["phase"] for r in recs[1:]] == ["sp_tp_parity_fp32", "sp_fsdp_parity_fp32"]
+    assert main["legs_seconds"] == 3.0
+
+
+def test_the_sp_spawn_has_the_ranks_fsdp_tp_needs():
+    """phase_sp's ranks also run the fsdp x tp slice (ft_rank)."""
+    import math
+
+    assert chip_smoke.FT_RANKS == chip_smoke.SP == math.prod(chip_smoke.FT_MESH.values())
+
+
+def test_lse_checks_cover_the_sp_tp_main_path_shapes():
+    """K3/K4a/K4b are held against their plain versions at each q shape the
+    sp x tp main path gives them: the causal own block at the batch, the
+    non-causal hop at twice the batch (its two half-chunks stacked)."""
+    b, c, h = chip_smoke.SP_BATCH, chip_smoke.SP_T // chip_smoke.SP_TP_MESH["sp"], \
+        12 // chip_smoke.SP_TP_MESH["tp"]
+    cases = {(cb, ct, ch, chd): causal
+             for _, cb, ct, ch, ckv, chd, causal, window, cap, off in chip_smoke.LSE_SP_TP_CASES
+             if ckv == ch and window is None and cap is None and off == 0}
+    assert cases == {(b, c // 2, h, 64): True, (2 * b, c // 2, h, 64): False}
+
+
+@pytest.mark.parametrize("fault, message", [
+    ("launch", "sp_tp launches"), ("shape", "K3 saw q shapes"), ("loss", "vs dense"),
+    ("parity", "sp_tp parity: loss rel err")])
+def test_sp_tp_checks_fail_a_wrong_count_shape_loss_or_leg(fault, message):
+    ranks = [_sp_tp_rank(sp, tp) for tp in range(2) for sp in range(2)]
+    if fault == "launch":
+        ranks[3]["sp_tp"]["launches"]["flash_lse_fwd"] -= 1
+    elif fault == "shape":
+        for r in ranks:
+            r["sp_tp"]["q_shapes"] = [(4, 1024, 12, 64), (8, 1024, 12, 64)]
+    elif fault == "loss":
+        ranks[0]["sp_tp"]["dense_loss"] = 11.0
+    else:
+        ranks[0]["sp_tp_parity"]["ref_losses"] = [10.0, 9.0]
+    _, fails = chip_smoke.sp_tp_checks(ranks, card="c")
+    assert any(message in f for f in fails), fails
+
+
+def _sp_tp_rank(sp, tp):
+    per = {k: 96 if k in ("flash_lse_fwd", "flash_bwd_prep", "flash_lse_bwd_dq",
+                          "flash_lse_bwd_dkv") else 0 for k in chip_smoke.COUNTERS}
+    par = {"losses": [10.98, 10.19], "ref_losses": [10.98, 10.19],
+           "grad_rel_err": {"blocks/wq": 2e-6, "blocks/bk": 0.5}, "grad_total_rel_err": 1e-6,
+           "param_max_abs_err_steady": 1e-8, "param_max_abs_err_all": 3e-5,
+           "steady_share": 0.6, "update_max_abs": 3e-4, "leg_s": 1.0}
+    return {"sp_tp": {"losses": [10.9811, 10.7382], "seconds": [5.0, 4.0],
+                      "collective_s": 7.0, "collective_calls": 254, "launches": per,
+                      "q_shapes": [(4, 1024, 6, 64), (8, 1024, 6, 64)],
+                      "dense_loss": 10.9812, "coords": {"sp": sp, "tp": tp}, "leg_s": 1.0},
+            "sp_tp_parity": dict(par), "sp_fsdp_parity": dict(par)}
+
+
+class _FakeEngine:
+    def __init__(self, reports):
+        self.reports = reports
+
+    def local_report(self):
+        return self.reports[0]
+
+    def follower_reports(self):
+        return self.reports[1:]
+
+
+def _tp_report(rank, **kw):
+    rep = dict(rank=rank, kv_heads=6, kv_shard_count=2, prefix_heads=[6, 6],
+               pool_alloc_bytes=150994944, launches={"flash_fwd": 0},
+               compile_counts={"prefill": 5, "decode": 1, "prefix_load": 4, "prefix_save": 4})
+    rep.update(kw)
+    return rep
+
+
+@pytest.mark.parametrize("bad, message", [
+    (None, None), (dict(kv_heads=12), "pool heads"), (dict(prefix_heads=[12]), "prefix"),
+    (dict(pool_alloc_bytes=301989888), "pool took"), (dict(launches={"flash_fwd": 1}),
+                                                       "launched flash"),
+    (dict(compile_counts={"prefill": 4, "decode": 1, "prefix_load": 4, "prefix_save": 4}),
+     "shapes")])
+def test_tp_rank_checks_hold_every_rank(bad, message):
+    """Each rank of a tp = 2 server: 6 of 12 heads in its pool and prefix
+    entries, its pool at the tp = 1 pool's bytes over 2 within 1% by the
+    allocator, no flash launch, the driver's shapes."""
+    from types import SimpleNamespace
+
+    counts = {"prefill": 5, "decode": 1, "prefix_load": 4, "prefix_save": 4, "verify": 1}
+    srv = SimpleNamespace(engine=_FakeEngine([_tp_report(0), _tp_report(1, **(bad or {}))]))
+    if bad is None:
+        reports = chip_smoke.tp_rank_checks("x", srv, 6, 301989888, counts)
+        assert [r["rank"] for r in reports] == [0, 1]
+        return
+    with pytest.raises(chip_smoke.SmokeFailure, match=message):
+        chip_smoke.tp_rank_checks("x", srv, 6, 301989888, counts)
+
+
+def test_parity_checks_name_their_leg():
+    good = _sp_tp_rank(0, 0)["sp_tp_parity"]
+    rec, fails = chip_smoke.parity_checks([good, good], "fsdp_tp_parity_fp32", "c", mesh={})
+    assert not fails and rec["grad_worst_param"] == "blocks/wq"  # blocks/bk: total only
+    bad = dict(good, param_max_abs_err_all=2e-4)
+    _, fails = chip_smoke.parity_checks([bad], "sp_fsdp_parity_fp32", "c")
+    assert fails == ["sp_fsdp parity: post-update params 0.0002"]

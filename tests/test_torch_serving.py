@@ -764,13 +764,14 @@ def test_deadline_expiry_mid_prefill_frees_slot_and_counts(cfg_params):
     assert h2.tokens == solo_greedy(params, cfg, PROMPTS[1], 4)
 
 
-@pytest.mark.parametrize("option, item", [
-    # the ids the cases had beside the three item-16 options, which run now
-    pytest.param(dict(mesh=object()), "item 9", id="option3-item 9"),
+@pytest.mark.parametrize("option, error, message", [
+    # the ids the cases had beside the three item-16 options, which run now;
+    # the mesh (item 9) runs too, and refuses what is not a serving mesh
+    pytest.param(dict(mesh=object()), ValueError, "Mesh.serving", id="option3-item 9"),
 ])
-def test_unported_options_raise_naming_their_item(cfg_params, option, item):
+def test_unported_options_raise_naming_their_item(cfg_params, option, error, message):
     cfg, params = cfg_params
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=message):
         server(params, cfg, n_slots=1, **option)
 
 
@@ -1016,7 +1017,7 @@ def test_every_jax_serve_flag_is_ported_or_refused():
     jax_flags = _jax_serve_flags()
     assert jax_flags <= port
     ported = port - set(t_serve.UNPORTED_FLAGS)
-    assert ported - jax_flags == {"--params", "--device"}
+    assert ported - jax_flags == {"--params", "--device", "--dist-backend"}
     assert {"--slots", "--max-new-tokens", "--temperature", "--top-k", "--top-p",
             "--greedy", "--eos-text", "--seed", "--metrics-json", "--log-every",
             "--queue-limit", "--deadline-s", "--prefill-buckets",
@@ -1027,12 +1028,17 @@ def test_every_jax_serve_flag_is_ported_or_refused():
 @pytest.mark.parametrize("flag", ["--autoscale", "--control-log", "--mesh",
                                   "--selftest-sharded", "--slo-target"])
 def test_unported_serve_flags_exit_naming_their_item(flag, capsys):
-    """Serving tensor parallelism (item 9b) exits 2 naming its item; the
-    autoscaler's flags (item 15c) are ported and parse."""
+    """Every flag here is ported now and parses: the autoscaler's (item
+    15c) and serving tensor parallelism's (item 9b; ``--selftest-sharded``
+    is a switch, so its "2" is an override); a flag still refused would
+    exit 2 naming its item."""
     if flag not in t_serve.UNPORTED_FLAGS:
         args = t_serve.parse_args([flag, "2"])
         assert capsys.readouterr().err == ""
-        assert getattr(args, flag[2:].replace("-", "_")) in ("2", 2.0)
+        if flag == "--selftest-sharded":
+            assert args.selftest_sharded is True and args.overrides == ["2"]
+        else:
+            assert getattr(args, flag[2:].replace("-", "_")) in ("2", 2.0)
         return
     with pytest.raises(SystemExit) as e:
         t_serve.parse_args([flag, "2"])

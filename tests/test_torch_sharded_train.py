@@ -224,13 +224,16 @@ def test_multihost_msgpack_gather_refused_above_limit(tmp_path):
 
 
 def test_mixed_sp_and_tensor_parallel_meshes_name_item_9b():
+    """sp beside fsdp or tp runs since item 9b was ported: check_axes
+    accepts those meshes and still refuses pp and ep, naming item 12b."""
     from mingpt_distributed_tpu_torch.parallel import mesh as mesh_lib
 
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        mesh_lib.check_axes(dict(pp=1, dp=1, fsdp=2, ep=1, tp=1, sp=2))
-    with pytest.raises(NotImplementedError, match="item 9b"):
-        mesh_lib.check_axes(dict(pp=1, dp=1, fsdp=1, ep=1, tp=2, sp=2))
+    mesh_lib.check_axes(dict(pp=1, dp=1, fsdp=2, ep=1, tp=1, sp=2))
+    mesh_lib.check_axes(dict(pp=1, dp=1, fsdp=1, ep=1, tp=2, sp=2))
     mesh_lib.check_axes(dict(pp=1, dp=2, fsdp=2, ep=1, tp=2, sp=1))
+    for axis in ("pp", "ep"):
+        with pytest.raises(NotImplementedError, match="item 12b"):
+            mesh_lib.check_axes(dict(dict(pp=1, dp=1, fsdp=1, ep=1, tp=2, sp=2), **{axis: 2}))
 
 
 def _strip(spec):

@@ -1,5 +1,6 @@
 """Rank bodies of the port's multi-process tests (tests/test_torch_ring.py,
-tests/test_torch_sp_train.py, tests/test_torch_sharded_train.py).
+tests/test_torch_sp_train.py, tests/test_torch_sharded_train.py,
+tests/test_torch_sp_tp.py, tests/test_torch_sharded_serve.py).
 
 ``parallel.spawn.run_ranks`` runs them in fresh processes, so this module
 imports torch, numpy and the port only: never jax, never the JAX package
@@ -12,6 +13,7 @@ from __future__ import annotations
 import contextlib
 import os
 import signal
+import time
 
 import numpy as np
 import torch
@@ -106,6 +108,31 @@ def attention_cases(rank: int, cases: dict) -> dict:
     return results
 
 
+def tp_attention_cases(rank: int, cases: dict) -> dict:
+    """Ring and Ulysses at dp 1 x sp 2 x tp 2 on this rank's chunk of the
+    sequence and its tp share of the heads (q's and, by the GQA group, the
+    KV heads'): the output and the q/k/v gradients of sum(out * dO)."""
+    torch.set_num_threads(1)
+    mesh = Mesh(MeshConfig(sp=2, tp=2))
+    results = {}
+    for name, case in cases.items():
+        q, k, v, do = global_qkv(case["b"], case["t"], case["h"], case["kv"],
+                                 case["hd"], case["seed"])
+
+        def mine(a):
+            heads = a.shape[2] // mesh.tp
+            a = local(a, 1, mesh.sp, 0, mesh.sp_rank)
+            return a[:, :, mesh.tp_rank * heads:(mesh.tp_rank + 1) * heads].copy()
+
+        qt, kt, vt = (torch.from_numpy(mine(a)).requires_grad_() for a in (q, k, v))
+        out = IMPLS[case["impl"]](qt, kt, vt, mesh)
+        (out * torch.from_numpy(mine(do))).sum().backward()
+        results[name] = dict(out=out.detach().numpy(), dq=qt.grad.numpy(),
+                             dk=kt.grad.numpy(), dv=vt.grad.numpy(),
+                             coords=(mesh.sp_rank, mesh.tp_rank))
+    return results
+
+
 def train_losses(rank: int, cfg_kw: dict, mesh_kw: dict, params_tree: dict,
                  batches: list, lr: float) -> list:
     """``make_train_step`` with this job's mesh on the rank's share of each
@@ -183,8 +210,13 @@ def _whole(mesh, params) -> dict:
 
 
 def _rows(a: np.ndarray, mesh) -> torch.Tensor:
+    """This rank's rows (its dp x fsdp shard) and, under sp, its chunk of
+    the sequence."""
     n = a.shape[0] // mesh.batch_count
-    return torch.from_numpy(a[mesh.batch_index * n:(mesh.batch_index + 1) * n]).long()
+    c = a.shape[1] // mesh.sp
+    return torch.from_numpy(np.ascontiguousarray(
+        a[mesh.batch_index * n:(mesh.batch_index + 1) * n,
+          mesh.sp_rank * c:(mesh.sp_rank + 1) * c])).long()
 
 
 def sharded_losses(rank: int, cfg_kw: dict, mesh_kw: dict, params_tree: dict,
@@ -261,6 +293,204 @@ def sharded_trainer(rank: int, text: str, tmp: str, mesh_kw: dict) -> dict:
                 eval_loss=last.get("eval_loss"), resumed_at=resumed_at,
                 resumed=_whole(resumed.mesh, resumed.state.params),
                 resumed_loss=last_resumed["loss"], refusal=refusal)
+
+
+# -- tensor-parallel serving (tests/test_torch_sharded_serve.py) -------------
+
+SERVE_PROMPTS = [[1, 2, 3, 4, 5], [7, 8, 9], [10, 11, 12, 13], [40, 41]]
+SHARED = list(range(3, 20))  # 17 tokens: a 16-row storable prefix
+COMPOSED = [(SHARED + [25, 26], 6), ([1, 2, 3, 4, 5], 8), (SHARED + [27], 5)]
+
+
+def _solo(params, cfg, prompt, n):
+    from mingpt_distributed_tpu_torch.models import generate as gen
+
+    return gen.generate(params, cfg, torch.tensor(prompt)[None], n,
+                        device="cpu")[0, len(prompt):].tolist()
+
+
+def _composed(params, cfg, mesh, kv_dtype=None, attrib=False):
+    """Chunked prefill, prefix reuse and a 1-layer draft (k 3), each request
+    submitted while the previous ones are mid-flight."""
+    import dataclasses
+
+    from mingpt_distributed_tpu_torch.serving import InferenceServer, Request
+
+    draft = dict(params)
+    draft["blocks"] = {k: v[:1] for k, v in params["blocks"].items()}
+    srv = InferenceServer(params, cfg, n_slots=2, prefill_buckets=(4, 8, 16, 32),
+                          prefill_chunk=8, prefix_cache_mb=8.0, warmup=True,
+                          draft_params=draft, draft_cfg=dataclasses.replace(cfg, n_layer=1),
+                          spec_k=3, mesh=mesh, kv_dtype=kv_dtype, attrib=attrib, device="cpu")
+    handles = []
+    for prompt, n in COMPOSED:
+        handles.append(srv.submit(Request(prompt=prompt, max_new_tokens=n)))
+        srv.step()
+    srv.run_until_drained(max_steps=200)
+    return srv, [h.tokens for h in handles]
+
+
+def _server_record(srv, tokens) -> dict:
+    eng = srv.engine
+    entries = eng.prefix_store.entries() if eng.prefix_store is not None else []
+    return dict(tokens=tokens, counts=srv.compile_counts(),
+                recompiles=srv.watchdog.recompiles, shard=eng.kv_shard_count,
+                draft_shard=srv.spec.draft.engine.kv_shard_count if srv.spec else None,
+                prefix_hits=srv.metrics.prefix_hits,
+                spec=(srv.metrics.spec_accepted, srv.metrics.spec_proposed),
+                entry_heads=[int(e["k"].shape[3]) for _, e in entries],
+                reports=eng.follower_reports())
+
+
+def tp_serving(rank: int, tree: dict, cfg_kw: dict) -> dict:
+    """tp = 2 serving on two ranks: rank 0 drives every scenario, rank 1
+    follows. Placement, slot free and re-admission, the composed parity
+    run at tp 2 and tp 1 (and int8 pools), the HBM ledger's per-device
+    column, a call that bypasses the dispatch, and the migration seam."""
+    from mingpt_distributed_tpu_torch.parallel.mesh import Mesh
+    from mingpt_distributed_tpu_torch.serving import DecodeEngine, InferenceServer, Request
+    from mingpt_distributed_tpu_torch.serving.lockstep import LockstepError
+    from mingpt_distributed_tpu_torch.telemetry import per_device_tree_bytes, tree_bytes
+
+    torch.set_num_threads(1)
+    mesh = Mesh.serving(timeout_s=60)
+    if rank != 0:
+        return {"commands": DecodeEngine.follow(mesh, "cpu")}
+    cfg = GPTConfig.make(**cfg_kw)
+    params = convert.params_from_numpy(tree, cfg, "cpu")
+    out = {}
+    eng = DecodeEngine(params, cfg, n_slots=2, mesh=mesh, device="cpu")
+    solo = DecodeEngine(params, cfg, n_slots=2, device="cpu")
+    out["placement"] = dict(
+        shard=eng.kv_shard_count, solo_shard=solo.kv_shard_count,
+        shape=tuple(eng.pool.cache["k"].shape), solo_shape=tuple(solo.pool.cache["k"].shape),
+        per_device=per_device_tree_bytes(eng.pool.cache),
+        total=tree_bytes(solo.pool.cache), report=eng.follower_reports()[0])
+
+    srv = InferenceServer(params, cfg, n_slots=2, mesh=mesh, device="cpu")
+    handles = [srv.submit(Request(prompt=p, max_new_tokens=6)) for p in SERVE_PROMPTS]
+    srv.step()
+    queued = len(srv.queue)
+    srv.run_until_drained(max_steps=100)
+    late = srv.submit(Request(prompt=SERVE_PROMPTS[0], max_new_tokens=4))
+    srv.run_until_drained(max_steps=100)
+    out["readmit"] = dict(queued=queued, tokens=[h.tokens for h in handles],
+                          late=late.tokens, shard=srv.engine.kv_shard_count,
+                          counts=srv.compile_counts(),
+                          report=srv.engine.follower_reports()[0],
+                          solo=[_solo(params, cfg, p, 6) for p in SERVE_PROMPTS],
+                          solo_late=_solo(params, cfg, SERVE_PROMPTS[0], 4))
+    # a driver call that skips the dispatch fails at once, and the group
+    # still serves afterwards
+    t0 = time.monotonic()
+    try:
+        srv.engine._op_decode(np.zeros(4, np.int64))
+        missed = None
+    except LockstepError as e:
+        missed = str(e)
+    out["missed_mirror"] = dict(error=missed, seconds=time.monotonic() - t0)
+    again = srv.submit(Request(prompt=SERVE_PROMPTS[1], max_new_tokens=4))
+    srv.run_until_drained(max_steps=100)
+    out["missed_mirror"]["after"] = again.tokens
+
+    for name, m in (("tp1", None), ("tp2", mesh)):
+        s, toks = _composed(params, cfg, m, attrib=True)
+        out[name] = _server_record(s, toks)
+        hbm = s.attrib_report()["hbm"]
+        out[name]["hbm"] = dict(owners=hbm["owners"], per_device=hbm["per_device_bytes"])
+    out["solo"] = [_solo(params, cfg, p, n) for p, n in COMPOSED]
+    for name, m in (("int8_tp1", None), ("int8_tp2", mesh)):
+        s, toks = _composed(params, cfg, m, kv_dtype="int8")
+        out[name] = _server_record(s, toks)
+    out["seam"] = _seam(params, cfg, mesh)
+    eng.shutdown()
+    return out
+
+
+def _seam(params, cfg, mesh) -> dict:
+    """Migration's seam under tp: a slot's extracted rows are whole-head and
+    equal the tp = 1 engine's; installed into another slot and adopted into
+    the prefix store, they read back the same."""
+    from mingpt_distributed_tpu_torch.serving import DecodeEngine
+
+    kw = dict(n_slots=2, prefill_buckets=(4, 8, 16, 32), prefix_cache_mb=1.0, device="cpu")
+    one = DecodeEngine(params, cfg, **kw)
+    two = DecodeEngine(params, cfg, mesh=mesh, **kw)
+    prompt = list(range(5, 17))
+    for e in (one, two):
+        e.prefill_chunk_call(0, prompt, 0, 1.0, None, None, False, None)
+    want, got = one.extract_slot_rows(0, 8), two.extract_slot_rows(0, 8)
+    two.install_slot_rows(1, got)
+    back = two.extract_slot_rows(1, 8)
+    adopted = two.adopt_prefix_entry(prompt[:8], got)
+    hit = two.try_load_prefix(0, prompt)
+    return dict(heads=int(got["k"].shape[3]),
+                extract_err=max(float((got[n] - want[n]).abs().max()) for n in want),
+                roundtrip_err=max(float((back[n] - got[n]).abs().max()) for n in got),
+                adopted=adopted, hit=hit, report=two.follower_reports()[0])
+
+
+def _affinity_prompts(router, index: int, n: int, length: int = 3) -> list:
+    """``n`` prompts the router's prefix affinity sends to replica
+    ``index``."""
+    out = []
+    for start in range(1, 200):
+        p = [start + j for j in range(length)]
+        if max(p) < 50 and router._affinity_index(p) == index:
+            out.append(p)
+            if len(out) == n:
+                return out
+    raise AssertionError(f"no {n} prompts hash to replica {index}")
+
+
+def tp_fleet(rank: int, tree: dict, cfg_kw: dict, new: int) -> dict:
+    """Two tp = 2 replicas whose drivers share rank 0 (groups {0, 1} and
+    {0, 2}): replica0 crashes mid-decode (injected), its requests retry on
+    the survivor, and the respawned replica rebuilds its follower's
+    engines."""
+    from mingpt_distributed_tpu_torch.parallel.mesh import serving_meshes
+    from mingpt_distributed_tpu_torch.serving import (
+        DecodeEngine,
+        ReplicaSupervisor,
+        Request,
+        Router,
+        VirtualClock,
+        default_server_factory,
+    )
+    from mingpt_distributed_tpu_torch.training.faults import ServingFaultInjector
+
+    torch.set_num_threads(1)
+    meshes = serving_meshes([[0, 1], [0, 2]], timeout_s=60)
+    if rank != 0:
+        (mesh,) = meshes.values()
+        return {"commands": DecodeEngine.follow(mesh, "cpu")}
+    cfg = GPTConfig.make(**cfg_kw)
+    params = convert.params_from_numpy(tree, cfg, "cpu")
+    sup = ReplicaSupervisor(
+        default_server_factory(params, cfg, meshes={"replica0": meshes[0],
+                                                    "replica1": meshes[1]},
+                               n_slots=2, device="cpu"),
+        n_replicas=2, clock=VirtualClock(tick_s=0.001),
+        injector=ServingFaultInjector("crash:nth=3:match=replica0"),
+        max_restarts=1, restart_backoff_s=0.01)
+    router = Router(sup, max_retries=3, retry_backoff_s=0.01, breaker_reset_s=0.05)
+    prompts = _affinity_prompts(router, 0, 2) + _affinity_prompts(router, 1, 2)
+    shards = [rep.server.engine.kv_shard_count for rep in sup.replicas]
+    streamed = {}
+    router.on_token = lambda fh, tok: streamed.setdefault(fh.request_id, []).append(tok)
+    handles = router.generate_batch([Request(prompt=p, max_new_tokens=new) for p in prompts])
+    s = router.summary()
+    out = dict(shards=shards, crashes=s["replicas"]["replica0"]["crashes"],
+               retries=s["retries_by_reason"].get("crash", 0),
+               attempts=[h.attempts for h in handles],
+               reasons=[h.finish_reason for h in handles],
+               tokens=[h.tokens for h in handles],
+               streamed=[streamed.get(h.request_id) for h in handles],
+               solo=[_solo(params, cfg, p, new) for p in prompts],
+               reports=[rep.server.engine.follower_reports()[0] for rep in sup.replicas])
+    for rep in sup.replicas:
+        rep.server.engine.shutdown()
+    return out
 
 
 def jobs(rank: int, todo: list) -> list:
