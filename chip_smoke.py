@@ -64,8 +64,9 @@ Phases:
      through int8 and fp8 pools against the fp32 pool: every divergence a
      near-tie of the KV round trip's logit error, the common greedy prefix
      reported, shapes equal, <= 0.27x the pool bytes, power-of-two scales,
-     the logit-error gauge); serve_quant (serve at int8 and fp8: the same
-     numbers and 160,432,128 pool bytes); serve_spec (serve's first 16
+     the logit-error gauge); serve_quant (serve's first 16 requests at int8
+     and fp8, the decode step profiled over 5 steps: the same numbers and
+     160,432,128 pool bytes); serve_spec (serve's first 16
      requests with the draft 'self:2' and 'self', k = 4: tokens/s, TTFT,
      ITL, accept rate, tokens per verify, host ms per propose, verify and
      round, beside serve's); serve_telemetry (serve's first 16 requests
@@ -84,7 +85,12 @@ Phases:
      (serve's traffic, bf16: tokens/s beside serve's, shared-card, not
      multi-GPU throughput; TTFT and ITL p99; host ms per decode step, the
      tp collectives' and the command broadcast's ms per step; greedy
-     streams by the teacher-forced tie rule); the follower exits 0;
+     streams by the teacher-forced tie rule); serve_moe_tp_parity
+     (serve_parity's requests at Mixtral-8x7B width, 1 layer, fp32,
+     capacity factor 4, on the same group: the router replicated, each
+     rank F/2 of every expert and 4 of 8 KV heads; tokens equal to the tp
+     = 1 server's, the largest logit difference, each rank's pool half, 0
+     launches on both ranks); the follower exits 0;
   3c. mixture of experts at Mixtral-8x7B width (d 4096, E 8, top-2,
      SwiGLU experts of 14336, 32/8 heads, V 32000): moe_check (the layer on
      256 tokens, bf16 against fp32 on the same bf16 input, and with one
@@ -170,6 +176,23 @@ Phases:
      per step on (8, 1024, 6, 64) heads; step ms and the collectives' ms,
      shared-card, not multi-GPU throughput; each rank's parameter and Adam
      bytes against the rules; the downgrade counter);
+  4e. zero and moe_ep: the same 4 ranks, still in the one spawn: zero (GPT-2
+     124M at dp 4 with zero_dp, T 1024, global batch 16, bf16, the split
+     backward, beside the same step with zero_dp off on the same seeds:
+     losses, step ms, exactly 12 K1, 12 prep, 12 K2a and 12 K2b per rank
+     per step at q (4, 1024, 12, 64), each rank's Adam bytes by the
+     allocator against opt_moment_bytes (a quarter of dense), the
+     reduce-scatter's and all-gather's ms) and its fp32 leg at 2 layers
+     against one process (losses and gradients within 1e-5 relative,
+     parameters within 1e-5 where |g| > 1e-6); the narrow MoE (2 layers, E
+     8, k 2, capacity factor 0.5, one routing group spanning the ranks) at
+     ep 2 x dp 2, ep 2 x tp 2 and fsdp 2 x ep 2, fp32, against one process
+     by the same rule; moe_ep (Mixtral-8x7B widths at 1 layer, ep 4: 2 of 8
+     experts per rank, T 4096, global batch 4, 4 whole routing groups per
+     rank, bf16: 1 K1, prep, K2a and K2b per rank per step at q (1, 4096,
+     32, 128), 4 all-to-alls per step and their ms, step ms, the first loss
+     against rank 0's one-process forward of the 4 rows; K1, the prep pass
+     and K2a/K2b held against their plain versions at that shape first);
   4c. the prototype tool (tools/proto_nh_kernel.py, K5's path) at its shape
      (B=16, T=1024, H=12, hd=64, bf16): its parity and time lines;
   5. times: kernels, plain versions, bounds and library yardsticks (K1 at
@@ -178,16 +201,18 @@ Phases:
      backward (prep, K2c, cast) beside the split one (prep, K2a, K2b); peak
      device memory; K1, the prep pass, K2a and K2b at the fsdp x tp local
      shape (8, 1024, 6, 64); K3, K4a and K4b at the sp x tp hop shape
-     (8, 1024, 6, 64, non-causal); then the exp-vs-exp2 tool (tools/exp_exp2.py, K6's
+     (8, 1024, 6, 64, non-causal); K1, the prep pass, K2a and K2b at
+     zero's (4, 1024, 12, 64) and moe_ep's (1, 4096, 32/8, 128); then the exp-vs-exp2 tool (tools/exp_exp2.py, K6's
      path) through its main() at its shape (64 x 512 x 512 float32, 64
      reps), 64 reps timed against 32, and the opcodes of K6's compiled
      kernels. The SM clock, power and
      throttle reasons are logged before and after.
 The seconds of the phases added with MoE and telemetry are one line
 (phase_seconds), those of the fleet phases another (new_phase_seconds, with
-the smoke's seconds so far), and a third (smoke_budget) gives the
-tensor-parallel phases' seconds against ADDED_PHASES_BUDGET_S together,
-the autoscaler's and fsdp x tp's beside them, and the whole smoke against
+the smoke's seconds so far), and a third (smoke_budget) gives the zero,
+moe_ep and serve_moe_tp_parity phases' seconds against
+ADDED_PHASES_BUDGET_S together, the earlier slices' (tensor parallelism,
+the autoscaler, fsdp x tp) beside them, and the whole smoke against
 SMOKE_BUDGET_S, reported, not failed. The last three lines are the card, the kernels
 line (twelve kernels) and the ok line. Exits 2 without CUDA, 1 on any
 failure.
@@ -1564,6 +1589,13 @@ SERVE_NEW = 64
 # fewer than 32, since the 'self' draft runs ~40 tokens/s and the smoke has
 # a time budget
 SERVE_SPEC_REQUESTS = 12
+# serve_quant's requests: the first 16 of serve's 32 (its int8 and fp8 runs
+# took 64.9 s of the smoke at 32; the pool, the prefix hits and the decode
+# step's profile are read alike at 16); and the decode steps its profile
+# reads per window (20 for serve): each quantized step issues ~1,340
+# kernels, whose profile takes most of the phase's seconds
+SERVE_QUANT_REQUESTS = 16
+QUANT_PROFILE_STEPS = 5
 
 
 def serve_traffic(n_req, vocab=50257):
@@ -1710,7 +1742,8 @@ def phase_serve(params32, card, kv_dtype="fp32", draft=None, n_req=32, serve_rec
         span_ms = [a.elapsed_time(b) for a, b in spans]
         positions = [min(int(n) + SERVE_NEW // 2, cfg.block_size - 1) for n in lengths[:8]]
         step_ms, kernel_ms, kernels, top, top_host = decode_device_ms(
-            eng, [int(r.prompt[-1]) for r in reqs[:8]], positions, sampled[:8])
+            eng, [int(r.prompt[-1]) for r in reqs[:8]], positions, sampled[:8],
+            steps=20 if kv_dtype == "fp32" else QUANT_PROFILE_STEPS)
         rec.update({
             "decode_step_event_span_ms": _percentiles(span_ms),
             "decode_ms_per_step_full": step_ms,
@@ -4222,8 +4255,9 @@ def sp_rank(rank):
     cuda:0): the attention checks, the main path, the main path's ring in
     fp32, the dp x sp step (fp32). Rank 0 then runs each step's dense
     single-process reference (the others wait in their next collective).
-    Then the sp x tp main path and the sp x tp and sp x fsdp fp32 legs, and
-    the fsdp x tp slice (``ft_rank``: one spawn serves both phases)."""
+    Then the sp x tp main path and the sp x tp and sp x fsdp fp32 legs, the
+    fsdp x tp slice (``ft_rank``) and the zero and moe_ep slices
+    (``zero_moe_rank``): one spawn serves every phase."""
     from mingpt_distributed_tpu_torch.config import MeshConfig
     from mingpt_distributed_tpu_torch.parallel.mesh import Mesh
 
@@ -4250,6 +4284,8 @@ def sp_rank(rank):
     t0 = time.perf_counter()
     out["ft"] = ft_rank(rank)
     out["ft_seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    out["zm"] = zero_moe_rank(device)
     return out
 
 
@@ -4429,8 +4465,9 @@ def sp_tp_checks(ranks, card):
 def phase_sp(card):
     """The sp slice on SP ranks sharing the card. Returns the main path's
     and the sp x tp main path's launch counts (rank 0's), the sp x tp legs'
-    seconds, and each rank's fsdp x tp results with their seconds (the
-    same ranks run them: ``phase_fsdp_tp`` checks them)."""
+    seconds, each rank's fsdp x tp results with their seconds and each
+    rank's zero and moe_ep results (the same ranks run them:
+    ``phase_fsdp_tp`` and ``phase_zero_moe`` check them)."""
     from mingpt_distributed_tpu_torch.parallel.spawn import run_ranks
 
     t0 = time.perf_counter()
@@ -4444,7 +4481,8 @@ def phase_sp(card):
     sp_tp = next(r for r in records if r["phase"] == "sp_tp_train_step")
     return (ranks[0]["main"]["launches"], ranks[0]["sp_tp"]["launches"],
             sp_tp["legs_seconds"], ([r["ft"] for r in ranks],
-                                    max(r["ft_seconds"] for r in ranks)))
+                                    max(r["ft_seconds"] for r in ranks)),
+            [r["zm"] for r in ranks])
 
 
 # ---------------------------------------------------------------------------
@@ -4766,17 +4804,23 @@ def _ft_batch(seed, rows):
     return tokens[:, :-1], tokens[:, 1:]
 
 
-def _ft_state(cfg, device, mesh=None):
+def _ft_state(cfg, device, mesh=None, zero=False, seed=0, generator_device="cpu"):
+    """A train state from seed ``seed``: this rank's slices under a sharded
+    ``mesh``; with ``zero`` the optimizer on its 1/dp (a ZeRO plan)."""
     from mingpt_distributed_tpu_torch.config import OptimizerConfig
     from mingpt_distributed_tpu_torch.models import gpt
+    from mingpt_distributed_tpu_torch.parallel import zero as zero_lib
     from mingpt_distributed_tpu_torch.training.optimizer import make_optimizer
     from mingpt_distributed_tpu_torch.training.trainer import TrainState, trainable
 
-    params = gpt.init(cfg, torch.Generator().manual_seed(0), device=device)
-    if mesh is not None:
+    params = gpt.init(cfg, torch.Generator(device=generator_device).manual_seed(seed),
+                      device=device)
+    plan = zero_lib.make_plan(mesh, params) if zero else None
+    if mesh is not None and mesh.sharded:
         params = mesh.shard_params(params)
     params = trainable(params)
-    return TrainState(params, make_optimizer(OptimizerConfig(), params, 1.0, mesh=mesh))
+    return TrainState(params, make_optimizer(OptimizerConfig(), params, 1.0, mesh=mesh,
+                                             zero=plan))
 
 
 def _ft_rows(a, mesh, device):
@@ -4787,33 +4831,41 @@ def _ft_rows(a, mesh, device):
              mesh.sp_rank * c:(mesh.sp_rank + 1) * c].contiguous().to(device)
 
 
-def _ft_whole(mesh, tree, grads=False):
-    """Every rank joins the gathers; the whole leaves (or gradients)."""
+def _ft_whole(mesh, tree, grads=False, opt=None):
+    """Every rank joins the gathers; the whole leaves (or gradients: under
+    ZeRO, ``opt``'s shards' gathered back)."""
     from mingpt_distributed_tpu_torch.models import convert
 
-    return {n: mesh.gather_full(n, p.grad if grads else p)
-            for n, p in convert.flatten(tree).items()}
+    leaves = convert.flatten(tree)
+    if opt is not None and opt.zero is not None and grads:
+        leaves = {n: opt.gather_shard(n, s.grad) for n, s in zip(opt.names, opt.shards)}
+    elif grads:
+        leaves = {n: p.grad for n, p in leaves.items()}
+    if not mesh.sharded:
+        return {n: t.detach().clone() for n, t in leaves.items()}
+    return {n: mesh.gather_full(n, t) for n, t in leaves.items()}
 
 
-def _ft_parity(mesh, device, cfg=None, batch=None):
-    """The fp32 leg: FT_PARITY_STEPS sharded steps, then on rank 0 the
-    single-process steps on the same weights and batch (``cfg`` with flash
-    attention, K1 and K2, where ``cfg`` runs the ring); the comparisons.
-    Default: fsdp_tp's leg (FT_PARITY_LAYERS, FT_PARITY_BATCH rows of
-    FT_T)."""
+def _ft_parity(mesh, device, cfg=None, batch=None, zero=False):
+    """The fp32 leg: FT_PARITY_STEPS sharded steps (``zero``: the update
+    sharded over dp), then on rank 0 the single-process steps on the same
+    weights and batch (``cfg`` with flash attention, K1 and K2, where
+    ``cfg`` runs the ring); the comparisons. Default: fsdp_tp's leg
+    (FT_PARITY_LAYERS, FT_PARITY_BATCH rows of FT_T)."""
     from mingpt_distributed_tpu_torch.models import convert
     from mingpt_distributed_tpu_torch.training.trainer import make_train_step
 
     cfg = cfg or _ft_config(FT_PARITY_LAYERS, "float32")
     x, y = batch or _ft_batch(11, FT_PARITY_BATCH)
-    state = _ft_state(cfg, device, mesh)
+    state = _ft_state(cfg, device, mesh, zero=zero)
     step = make_train_step(cfg, mesh=mesh)
     losses = []
     for i in range(FT_PARITY_STEPS):
         losses.append(step(state, (_ft_rows(x, mesh, device), _ft_rows(y, mesh, device)))
                       ["loss"].item())
         if i == 0:
-            grads, params = _ft_whole(mesh, state.params, True), _ft_whole(mesh, state.params)
+            grads = _ft_whole(mesh, state.params, True, state.optimizer)
+            params = _ft_whole(mesh, state.params)
     del state
     out = {"losses": losses}
     if mesh.rank == 0:
@@ -5103,11 +5155,511 @@ def phase_fsdp_tp_times(fa, card):
     return rows
 
 
-# The time this slice's phases (tensor-parallel serving, sp x tp) may take
-# together, and the whole smoke, in seconds of the command (the smoke must
-# end well inside a 900 s run limit).
+# ---------------------------------------------------------------------------
+# ZeRO and mixture-of-experts across ranks (the SP ranks, sharing cuda:0)
+# ---------------------------------------------------------------------------
+
+# zero: GPT-2 124M at dp 4 with zero_dp (the update on each rank's 1/dp,
+# parallel/zero.py), T 1024, global batch 16, bf16, the split backward; beside
+# it the same step with zero_dp off on the same seeds. Each rank's Adam bytes
+# by the allocator against opt_moment_bytes (1 % for the allocator's
+# rounding of ~150 tensors to its 512-byte blocks)
+ZERO_MESH = dict(dp=4)
+ZERO_T, ZERO_BATCH, ZERO_STEPS = 1024, 16, 2
+ZERO_BYTES_REL_TOL = 0.01
+# the fp32 legs (zero at 2 layers; the narrow MoE) against one process: the
+# sharded legs' rule (sp x tp's): losses and every gradient within 1e-5
+# relative, the parameters after the first update within 1e-5 wherever
+# |g| > 1e-6 (and within FT_PARAM_ATOL everywhere)
+ZM_PARITY_REL_TOL = 1e-5
+ZM_STEADY_ATOL = 1e-5
+# moe_ep: Mixtral-8x7B widths at 1 layer, ep 4 (2 of 8 experts per rank),
+# T 4096, global batch 4 (each rank 4096 rows: 4 whole routing groups of
+# 1024), bf16. ~660 M parameters per rank, ~10.6 GB with fp32 gradients and
+# Adam moments, x 4 ranks on the card
+MOE_EP_MESH = dict(dp=1, ep=4)
+MOE_EP_T, MOE_EP_BATCH, MOE_EP_STEPS = 4096, 4, 2
+MOE_EP_KERNEL_CASE = ("moe_ep_train", 1, MOE_EP_T, 32, 8, 128, None, None)
+# the narrow fp32 MoE (2 layers, E 8, k 2, capacity factor 0.5: capacity
+# binds) at three meshes of the 4 ranks; 4 rows of 256 tokens: one routing
+# group of 1024 spans every rank of distinct data
+MOE_NARROW = dict(n_layer=2, n_head=4, n_embd=256, vocab_size=4096, block_size=256,
+                  n_experts=8, moe_top_k=2, moe_capacity_factor=0.5, swiglu=True)
+MOE_NARROW_MESHES = {"ep2_dp2": dict(dp=2, ep=2), "ep2_tp2": dict(dp=1, ep=2, tp=2),
+                     "fsdp2_ep2": dict(dp=1, fsdp=2, ep=2)}
+MOE_NARROW_ROWS = 4
+
+
+def _zero_adam_bytes(state):
+    """(the allocator's growth when the moments are made, what
+    opt_moment_bytes says they take)."""
+    from mingpt_distributed_tpu_torch.parallel import zero as zero_lib
+
+    opt = state.optimizer
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    opt.init_moments()
+    torch.cuda.synchronize()
+    grown = torch.cuda.memory_allocated() - before
+    shapes = {n: torch.empty(opt.zero.by_name[n].shape if opt.zero else p.shape,
+                             device="meta") for n, p in zip(opt.names, opt.params)}
+    from mingpt_distributed_tpu_torch.models import convert
+
+    return grown, zero_lib.opt_moment_bytes(convert.unflatten(shapes), opt.zero)
+
+
+def _timed_steps(step, state, batch, steps):
+    """One warm-up step, then ``steps`` with the launch counts set to 0
+    just before and read just after: (losses, seconds, counts)."""
+    losses = [step(state, batch)["loss"].item()]
+    torch.cuda.synchronize()
+    reset_counts()
+    seconds = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step(state, batch)["loss"].item())
+        seconds.append(time.perf_counter() - t0)
+    return losses, seconds, read_counts()
+
+
+def _zero_main(device):
+    """The zero main path and its dense twin on the same seeds: losses,
+    step seconds, launches, the q shapes K1 saw, the Adam bytes, and the
+    reduce-scatter's and all-gather's host seconds per step."""
+    from mingpt_distributed_tpu_torch.config import MeshConfig
+    from mingpt_distributed_tpu_torch.ops import flash_attention as fa
+    from mingpt_distributed_tpu_torch.parallel.mesh import Mesh
+    from mingpt_distributed_tpu_torch.training.trainer import make_train_step
+
+    mesh = Mesh(MeshConfig(**ZERO_MESH))
+    cfg = _ft_config(None, "bfloat16")
+    x, y = _ft_batch(13, ZERO_BATCH)
+    batch = (_ft_rows(x, mesh, device), _ft_rows(y, mesh, device))
+    out = {}
+    for leg, zero in (("dense", False), ("zero", True)):
+        state = _ft_state(cfg, device, mesh, zero=zero)
+        grown, planned = _zero_adam_bytes(state)
+        state.optimizer.timings = {} if zero else None
+        shapes = set()
+        real = fa.causal_attention
+
+        def causal_attention(q, *args, **kwargs):
+            shapes.add(tuple(q.shape))
+            return real(q, *args, **kwargs)
+
+        fa.causal_attention = causal_attention
+        try:
+            losses, seconds, counts = _timed_steps(make_train_step(cfg, mesh=mesh), state,
+                                                   batch, ZERO_STEPS)
+        finally:
+            fa.causal_attention = real
+        t = state.optimizer.timings or {}
+        out[leg] = {"losses": losses, "seconds": seconds, "launches": counts,
+                    "q_shapes": sorted(shapes), "adam_alloc_bytes": grown,
+                    "opt_moment_bytes": planned,
+                    # the warm-up step's collectives are in the sums too
+                    "reduce_scatter_ms_per_step": t.get("reduce_scatter", 0.0) * 1e3
+                    / (ZERO_STEPS + 1),
+                    "all_gather_ms_per_step": t.get("all_gather", 0.0) * 1e3
+                    / (ZERO_STEPS + 1),
+                    "shards": (state.optimizer.zero.dp if state.optimizer.zero else 1)}
+        del state
+        torch.cuda.empty_cache()
+    return out
+
+
+def _moe_ep_main(device):
+    """moe_ep: rank 0 first runs the one-process forward of the 4 global rows
+    (the others wait); then every rank builds its slices one rank at a time
+    (the whole 1-layer model is 6.8 GB of fp32 weights), trains a warm-up
+    step and MOE_EP_STEPS counted ones. The all-to-alls' count and host
+    seconds per step, the local expert count and q shape, and the first
+    loss against the one-process forward's."""
+    from mingpt_distributed_tpu_torch.config import MeshConfig
+    from mingpt_distributed_tpu_torch.models import gpt
+    from mingpt_distributed_tpu_torch.ops import flash_attention as fa
+    from mingpt_distributed_tpu_torch.parallel import distributed as D
+    from mingpt_distributed_tpu_torch.parallel.mesh import Mesh
+    from mingpt_distributed_tpu_torch.training.trainer import make_train_step
+
+    t_start = time.perf_counter()
+    mesh = Mesh(MeshConfig(**MOE_EP_MESH))
+    cfg = mixtral_config("bfloat16", 1, MOE_EP_T)
+    g = torch.Generator().manual_seed(31)
+    tokens = torch.randint(0, cfg.vocab_size, (MOE_EP_BATCH, MOE_EP_T + 1), generator=g)
+    x, y = tokens[:, :-1], tokens[:, 1:]
+    one_loss = None
+    if mesh.rank == 0:
+        with torch.no_grad():
+            params = gpt.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                              device=device)
+            _, loss = gpt.forward(params, x.to(device), cfg, targets=y.to(device),
+                                  return_logits=False)
+            one_loss = loss.item()
+        del params, loss
+        torch.cuda.empty_cache()
+    state = None
+    for r in range(mesh.world_size):  # one rank at a time holds the whole model
+        if r == mesh.rank:
+            state = _ft_state(cfg, device, mesh, generator_device="cuda")
+            torch.cuda.empty_cache()
+        D.barrier()
+    ex = {"calls": 0, "s": 0.0}
+    real = {"forward": D._AllToAll.forward, "backward": D._AllToAll.backward}
+    shapes = set()
+    real_attention = fa.causal_attention
+
+    def timed(fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                ex["s"] += time.perf_counter() - t0
+                ex["calls"] += 1
+        return staticmethod(run)
+
+    def causal_attention(q, *args, **kwargs):
+        shapes.add(tuple(q.shape))
+        return real_attention(q, *args, **kwargs)
+
+    batch = (_ft_rows(x, mesh, device), _ft_rows(y, mesh, device))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.causal_attention = causal_attention
+    try:
+        step = make_train_step(cfg, mesh=mesh)
+        first = step(state, batch)["loss"].item()
+        torch.cuda.synchronize()
+        reset_counts()
+        for name, fn in real.items():
+            setattr(D._AllToAll, name, timed(fn))
+        losses, seconds = [first], []
+        for _ in range(MOE_EP_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step(state, batch)["loss"].item())
+            seconds.append(time.perf_counter() - t0)
+        counts = read_counts()
+    finally:
+        for name, fn in real.items():
+            setattr(D._AllToAll, name, staticmethod(fn))
+        fa.causal_attention = real_attention
+    opt = state.optimizer
+    out = {"losses": losses, "seconds": seconds, "launches": counts,
+           "q_shapes": sorted(shapes), "one_process_loss": one_loss,
+           "local_experts": int(state.params["blocks"]["w_e1"].shape[1]),
+           "param_bytes": sum(p.numel() * p.element_size() for p in opt.params),
+           "all_to_all_calls_per_step": ex["calls"] / MOE_EP_STEPS,
+           "all_to_all_ms_per_step": ex["s"] * 1e3 / MOE_EP_STEPS,
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "leg_s": time.perf_counter() - t_start}
+    del state, batch, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _moe_narrow_parity(mesh_kw, device):
+    """An fp32 narrow-MoE leg on ``mesh_kw`` against one process."""
+    from mingpt_distributed_tpu_torch.config import GPTConfig, MeshConfig
+    from mingpt_distributed_tpu_torch.parallel.mesh import Mesh
+
+    t0 = time.perf_counter()
+    cfg = GPTConfig.make(attention="flash", dtype="float32", embd_pdrop=0.0,
+                         resid_pdrop=0.0, attn_pdrop=0.0, **MOE_NARROW)
+    g = torch.Generator().manual_seed(41)
+    tokens = torch.randint(0, cfg.vocab_size, (MOE_NARROW_ROWS, cfg.block_size + 1),
+                           generator=g)
+    out = _ft_parity(Mesh(MeshConfig(**mesh_kw)), device, cfg, (tokens[:, :-1],
+                                                                 tokens[:, 1:]))
+    out["leg_s"] = time.perf_counter() - t0
+    return out
+
+
+def zero_moe_rank(device):
+    """The ZeRO and MoE legs of an SP rank: zero's main path and its dense
+    twin, zero's fp32 leg, the narrow MoE's fp32 legs, then moe_ep."""
+    from mingpt_distributed_tpu_torch.config import MeshConfig
+    from mingpt_distributed_tpu_torch.parallel.mesh import Mesh
+
+    out, seconds = {}, {}
+    t0 = time.perf_counter()
+    out["zero"] = _zero_main(device)
+    out["zero_parity"] = _ft_parity(Mesh(MeshConfig(**ZERO_MESH)), device, zero=True)
+    seconds["zero"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for key, mesh_kw in MOE_NARROW_MESHES.items():
+        out[f"moe_{key}"] = _moe_narrow_parity(mesh_kw, device)
+    torch.cuda.empty_cache()
+    out["moe_ep"] = _moe_ep_main(device)
+    seconds["moe_ep"] = time.perf_counter() - t0
+    out["seconds"] = seconds
+    return out
+
+
+def zm_parity_checks(pars, phase, card, **what):
+    """parity_checks at ZM_PARITY_REL_TOL, plus the parameters within
+    ZM_STEADY_ATOL where |g| > FT_STEADY_GRAD."""
+    record, fails = parity_checks(pars, phase, card,
+                                  (ZM_PARITY_REL_TOL, ZM_PARITY_REL_TOL), **what)
+    record["param_steady_atol"] = ZM_STEADY_ATOL
+    if not pars[0]["param_max_abs_err_steady"] <= ZM_STEADY_ATOL:
+        fails.append(f"{phase}: post-update params where |g| > {FT_STEADY_GRAD}: "
+                     f"{pars[0]['param_max_abs_err_steady']}")
+    return record, fails
+
+
+def zero_checks(ranks, card):
+    """The zero records and the message of every check they fail."""
+    records, fails = [], []
+    rec, more = zm_parity_checks([r["zero_parity"] for r in ranks], "zero_parity_fp32",
+                                 card, mesh=ZERO_MESH, ranks=SP, zero_dp=True,
+                                 layers=FT_PARITY_LAYERS, global_batch=FT_PARITY_BATCH,
+                                 seq=FT_T)
+    records.append(rec)
+    fails += more
+    want = expected(flash_fwd=FT_PER_STEP * ZERO_STEPS,
+                    flash_bwd_prep=FT_PER_STEP * ZERO_STEPS,
+                    flash_bwd_dq=FT_PER_STEP * ZERO_STEPS,
+                    flash_bwd_dkv=FT_PER_STEP * ZERO_STEPS)
+    local = (ZERO_BATCH // ZERO_MESH["dp"], ZERO_T, 12, 64)
+    legs = {leg: [r["zero"][leg] for r in ranks] for leg in ("dense", "zero")}
+    step_ms = {leg: sum(sum(m["seconds"]) for m in ms) / (SP * ZERO_STEPS) * 1e3
+               for leg, ms in legs.items()}
+    z0, d0 = legs["zero"][0], legs["dense"][0]
+    records.append({
+        "phase": "zero_train_step", "main_path": True, "model": "gpt2 124M",
+        "mesh": ZERO_MESH, "zero_dp": True, "ranks": SP,
+        "backend": "gloo, one shared card", "global_batch": ZERO_BATCH, "seq": ZERO_T,
+        "dtype": "bfloat16", "steps": ZERO_STEPS, "losses": z0["losses"],
+        "dense_losses": d0["losses"], "step_ms": step_ms["zero"],
+        "dense_step_ms": step_ms["dense"],
+        "step_ms_per_rank": [sum(m["seconds"]) / ZERO_STEPS * 1e3 for m in legs["zero"]],
+        "reduce_scatter_ms_per_step": [m["reduce_scatter_ms_per_step"]
+                                       for m in legs["zero"]],
+        "all_gather_ms_per_step": [m["all_gather_ms_per_step"] for m in legs["zero"]],
+        "adam_alloc_bytes_per_rank": [m["adam_alloc_bytes"] for m in legs["zero"]],
+        "opt_moment_bytes": z0["opt_moment_bytes"],
+        "dense_adam_alloc_bytes_per_rank": [m["adam_alloc_bytes"] for m in legs["dense"]],
+        "dense_opt_moment_bytes": d0["opt_moment_bytes"],
+        "adam_share": z0["adam_alloc_bytes"] / max(1, d0["adam_alloc_bytes"]),
+        "shared_card_tokens_per_s": ZERO_BATCH * ZERO_T / (step_ms["zero"] / 1e3),
+        "throughput_note": "shared-card, not multi-GPU throughput: 4 gloo ranks on one "
+                           "H100, collectives through host memory",
+        "launches_per_rank": [m["launches"] for m in legs["zero"]], "launches_want": want,
+        "launches_per_rank_per_step": {k: v / ZERO_STEPS for k, v in z0["launches"].items()
+                                       if v},
+        "attention_q_shapes": z0["q_shapes"], "local_attention_shape": list(local),
+        "card": card})
+    for leg, ms in legs.items():
+        fails += [f"zero {leg}: launches {m['launches']}, want {want}"
+                  for m in ms if m["launches"] != want]
+        if any(m["losses"] != ms[0]["losses"] for m in ms[1:]):
+            fails.append(f"zero {leg}: the ranks' losses differ")
+        if ms[0]["q_shapes"] != [local]:
+            fails.append(f"zero {leg}: K1 saw {ms[0]['q_shapes']}, want {[local]}")
+        for m in ms:
+            if abs(m["adam_alloc_bytes"] - m["opt_moment_bytes"]) > \
+                    ZERO_BYTES_REL_TOL * m["opt_moment_bytes"]:
+                fails.append(f"zero {leg}: Adam took {m['adam_alloc_bytes']} bytes, "
+                             f"opt_moment_bytes {m['opt_moment_bytes']}")
+    if not all(math.isfinite(v) for v in z0["losses"]) or \
+            not z0["losses"][-1] < z0["losses"][0]:
+        fails.append(f"zero: losses {z0['losses']}")
+    if abs(z0["losses"][0] - d0["losses"][0]) > SP_LOSS_TOL:
+        fails.append(f"zero: first loss {z0['losses'][0]} vs dense {d0['losses'][0]}")
+    if not 0.2 <= z0["opt_moment_bytes"] / d0["opt_moment_bytes"] <= 0.3:
+        fails.append("zero: the moments are not a quarter of the dense ones")
+    return records, fails
+
+
+def moe_ep_checks(ranks, card):
+    """The moe_ep records (and the narrow fp32 legs') and the message of
+    every check they fail."""
+    records, fails = [], []
+    for key, mesh_kw in MOE_NARROW_MESHES.items():
+        rec, more = zm_parity_checks(
+            [r[f"moe_{key}"] for r in ranks], f"moe_{key}_parity_fp32", card, mesh=mesh_kw,
+            ranks=SP, model=MOE_NARROW, global_batch=MOE_NARROW_ROWS,
+            seq=MOE_NARROW["block_size"],
+            routing="one group of 1024 tokens spans the ranks; capacity binds")
+        rec["leg_s"] = max(r[f"moe_{key}"]["leg_s"] for r in ranks)
+        records.append(rec)
+        fails += more
+    ms = [r["moe_ep"] for r in ranks]
+    m0 = ms[0]
+    n = MOE_EP_STEPS
+    want = expected(flash_fwd=n, flash_bwd_prep=n, flash_bwd_dq=n, flash_bwd_dkv=n)
+    local = (MOE_EP_BATCH // MOE_EP_MESH["ep"], MOE_EP_T, 32, 128)
+    step_s = sum(sum(m["seconds"]) for m in ms) / (SP * n)
+    rel = abs(m0["losses"][0] - m0["one_process_loss"]) / abs(m0["one_process_loss"])
+    records.append({
+        "phase": "moe_ep_train_step", "main_path": True,
+        "model": "mixtral-8x7b width, 1 layer", "mesh": MOE_EP_MESH, "ranks": SP,
+        "backend": "gloo, one shared card", "global_batch": MOE_EP_BATCH, "seq": MOE_EP_T,
+        "dtype": "bfloat16", "steps": n, "losses": m0["losses"],
+        "one_process_first_loss": m0["one_process_loss"], "first_loss_rel_err": rel,
+        "first_loss_tol": MOE_PLAIN_LOSS_REL_TOL, "step_ms": step_s * 1e3,
+        "step_ms_per_rank": [sum(m["seconds"]) / n * 1e3 for m in ms],
+        "all_to_all_calls_per_step": [m["all_to_all_calls_per_step"] for m in ms],
+        "all_to_all_ms_per_step": [m["all_to_all_ms_per_step"] for m in ms],
+        "local_experts": [m["local_experts"] for m in ms],
+        "param_bytes_per_rank": [m["param_bytes"] for m in ms],
+        "peak_allocated_bytes_per_rank": [m["peak_allocated_bytes"] for m in ms],
+        "launches_per_rank": [m["launches"] for m in ms], "launches_want": want,
+        "attention_q_shapes": m0["q_shapes"], "local_attention_shape": list(local),
+        "shared_card_tokens_per_s": MOE_EP_BATCH * MOE_EP_T / step_s,
+        "leg_s": max(m["leg_s"] for m in ms), "card": card})
+    fails += [f"moe_ep: launches {m['launches']}, want {want}" for m in ms
+              if m["launches"] != want]
+    fails += [f"moe_ep: rank holds {m['local_experts']} experts, want 2" for m in ms
+              if m["local_experts"] != 2]
+    fails += [f"moe_ep: {m['all_to_all_calls_per_step']} all-to-alls per step, want 4"
+              for m in ms if m["all_to_all_calls_per_step"] != 4]
+    if m0["q_shapes"] != [local]:
+        fails.append(f"moe_ep: K1 saw {m0['q_shapes']}, want {[local]}")
+    if any(m["losses"] != m0["losses"] for m in ms[1:]):
+        fails.append("moe_ep: the ranks' losses differ")
+    if not all(math.isfinite(v) for v in m0["losses"]) or \
+            not m0["losses"][-1] < m0["losses"][0]:
+        fails.append(f"moe_ep: losses {m0['losses']}")
+    if not rel <= MOE_PLAIN_LOSS_REL_TOL:
+        fails.append(f"moe_ep: first loss {m0['losses'][0]} vs one process "
+                     f"{m0['one_process_loss']}")
+    return records, fails
+
+
+def phase_zero_moe(card, ranks):
+    """The zero and moe_ep slices' checks over what the SP ranks returned
+    (phase_sp's spawn). Returns rank 0's zero and moe_ep launch counts and
+    the legs' seconds."""
+    records, fails = zero_checks(ranks, card)
+    more_records, more = moe_ep_checks(ranks, card)
+    for rec in records + more_records:
+        emit(rec)
+    check(not (fails + more), "; ".join(fails + more))
+    seconds = {k: max(r["seconds"][k] for r in ranks) for k in ranks[0]["seconds"]}
+    return ranks[0]["zero"]["zero"]["launches"], ranks[0]["moe_ep"]["launches"], seconds
+
+
+def phase_moe_ep_kernels(fa, card):
+    """K1, the prep pass and K2a/K2b against their plain versions at the
+    shape moe_ep gives them, bf16 (zero's (4, 1024, 12, 64) is KERNEL_CASES'
+    gpt2_main)."""
+    i = len(KERNEL_CASES) + len(FWD_RING_CASES) + len(BWD_RING_CASES) + 1
+    with preserved_counts():
+        for fn in (fwd_case, prep_case, bwd_case):
+            rec, fails = fn(fa, i, MOE_EP_KERNEL_CASE, torch.bfloat16)
+            emit({**rec, "card": card})
+            check(not fails, "; ".join(msg for _, msg in fails))
+    torch.cuda.empty_cache()
+
+
+def phase_zero_moe_times(fa, card):
+    """K1, the prep pass, K2a and K2b at zero's local attention shape (4,
+    1024, 12, 64) and moe_ep's (1, 4096, 32 heads, 8 KV, 128), bf16:
+    kernel, plain version and SDPA times with their bounds (time lines,
+    shape_of "zero" and "moe_ep"; SDPA takes K and V repeated to 32
+    heads)."""
+    dtype = torch.bfloat16
+    for shape_of, (b, t, h, kv, hd) in (("zero", (4, ZERO_T, 12, 12, 64)),
+                                        ("moe_ep", (1, MOE_EP_T, 32, 8, 128))):
+        scale = 1.0 / math.sqrt(hd)
+        q, k, v = make_qkv(b, t, h, kv, hd, dtype, seed=910)
+        g = torch.Generator(device="cuda").manual_seed(911)
+        do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+        with preserved_counts(), fused_switch(False):
+            out, lse = fa.flash_fwd(q, k, v, scale=scale)
+            delta = fa.flash_bwd_prep(out, do)
+            fwd_ms = cuda_ms(lambda: fa.flash_fwd(q, k, v, scale=scale))
+            prep_ms = cuda_ms(lambda: fa.flash_bwd_prep(out, do))
+            dq_ms = cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, scale=scale))
+            dkv_ms = cuda_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale=scale))
+        fwd_plain = cuda_ms(lambda: fa.flash_fwd_plain(q, k, v, scale=scale), iters=3)
+        prep_plain = cuda_ms(lambda: fa.flash_bwd_prep_plain(out, do), iters=3)
+        bwd_plain = cuda_ms(lambda: fa.flash_bwd_plain(q, k, v, out, lse, do, scale=scale),
+                            iters=3)
+        kr, vr = (x.repeat_interleave(h // kv, dim=2) for x in (k, v))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, kr, vr))
+        fwd_lib = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+        bwd_lib = cuda_ms(sdpa_backward(q, kr, vr, do))
+        bwd_is = ("flash_bwd_plain (dq, dk and dv)", "SDPA backward (dq, dk and dv)")
+        emit_times((("flash_fwd", fwd_ms, fwd_plain, "flash_fwd_plain", fwd_lib,
+                     "SDPA forward"),
+                    ("flash_bwd_prep", prep_ms, prep_plain, "flash_bwd_prep_plain (delta)",
+                     None, "none: no one PyTorch call sums out * dO in float32"),
+                    ("flash_bwd_dq", dq_ms, bwd_plain, bwd_is[0], bwd_lib, bwd_is[1]),
+                    ("flash_bwd_dkv", dkv_ms, bwd_plain, bwd_is[0], bwd_lib, bwd_is[1])),
+                   (b, t, h, kv, hd), dtype, shape_of, card)
+        del q, k, v, do, out, lse, delta, kr, vr, qt, kt, vt
+        torch.cuda.empty_cache()
+
+
+def phase_serve_moe_tp_parity(card, group):
+    """serve_moe_parity's requests (fp32, 4 slots, chunks of 256, the prefix
+    cache; capacity factor 4 so nothing drops) at Mixtral-8x7B width, 1
+    layer, on the tp = 2 group (the router replicated, each rank F/2 of
+    every expert and 4 of 8 KV heads) against the tp = 1 server in the
+    same call: tokens equal, the largest logit difference, each rank's
+    pool half, the launches on both ranks."""
+    from mingpt_distributed_tpu_torch.serving import InferenceServer, Request
+
+    cfg = mixtral_config("float32", 1, 1024, capacity_factor=4.0)
+    params = mixtral_params(cfg)
+    prompts, lengths = parity_prompts(cfg.vocab_size)
+    new = PARITY_NEW
+
+    def run(mesh, device):
+        server = InferenceServer(params, cfg, n_slots=4, prefill_chunk=256,
+                                 prefix_cache_mb=64, mesh=mesh, device=device)
+        reset_counts()
+        with logit_tap(server) as rows:
+            handles, dt = timed(lambda: server.generate_batch(
+                [Request(prompt=p, max_new_tokens=new) for p in prompts]))
+        return server, handles, rows, read_counts(), dt
+
+    one, h1, rows1, _, dt1 = run(None, "cuda")
+    ref = [(h.tokens, torch.stack([rows1[(h.request_id, i)] for i in range(new)]))
+           for h in h1]
+    pool1, counts1 = one.engine.pool.nbytes, one.compile_counts()
+    # a server is a reference cycle: collect it before the tp = 2 pool's
+    # allocator reading, so no collection runs inside it
+    del one
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    srv, h2, rows2, launches, dt2 = run(group.mesh, group.device)
+    res = tie_rule(h2, ref, rows2, new)
+    counts = srv.compile_counts()
+    reports = tp_rank_checks("serve_moe_tp_parity", srv, cfg.kv_heads // TP_SERVE, pool1,
+                             counts)
+    equal = [a.tokens == b.tokens for a, b in zip(h1, h2)]
+    rec = {"phase": "serve_moe_tp_parity", "model": "mixtral-8x7b width, 1 layer",
+           "dtype": "float32", "tp": TP_SERVE, "backend": "gloo, one shared card",
+           "slots": 4, "requests": 6, "prompt_lengths": [int(n) for n in lengths],
+           "new_tokens": new, "experts": cfg.n_experts, "top_k": cfg.moe_top_k,
+           "capacity_factor": cfg.moe_capacity_factor, "tokens_equal": equal, **res,
+           "shapes": counts, "shapes_tp1": counts1, "pool_bytes_tp1": pool1,
+           "pool_alloc_bytes_per_rank": [r["pool_alloc_bytes"] for r in reports],
+           "kv_heads_per_rank": [r["kv_heads"] for r in reports],
+           "launches": launches, "follower_launches": [r["launches"] for r in reports[1:]],
+           "seconds_tp1": dt1, "seconds_tp2": dt2, "card": card}
+    emit(rec)
+    check(all(equal), f"serve_moe_tp_parity: tokens differ from tp = 1's: {equal}")
+    check(counts == counts1, f"serve_moe_tp_parity: shapes {counts} != {counts1}")
+    check(not any(launches.values()), f"serve_moe_tp_parity launched kernels: {launches}")
+    del srv, rows2, rows1, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+# The time this slice's phases (zero, moe_ep with the narrow MoE's fp32
+# legs, serve_moe_tp_parity, their kernel checks and times) may take
+# together, and the whole smoke, in seconds of the command: no run may take
+# longer than the longest run of the smoke before them (876.7 s; the
+# driver's limit is 1200 s). The earlier slices' phases are reported beside.
 ADDED_PHASES_BUDGET_S = 120.0
-SMOKE_BUDGET_S = 800.0
+SMOKE_BUDGET_S = 876.7
 
 
 def budget_record(added_seconds, smoke_seconds, earlier_seconds=None):
@@ -5732,7 +6284,8 @@ def _main() -> int:
     quant_parity = phase_serve_quant_parity(model32.params, card, parity)
     del parity
     serve = phase_serve(model32.params, card)
-    serve_quant = {kv: phase_serve(model32.params, card, kv_dtype=kv, serve_rec=serve)
+    serve_quant = {kv: phase_serve(model32.params, card, kv_dtype=kv,
+                                   n_req=SERVE_QUANT_REQUESTS, serve_rec=serve)
                    for kv in ("int8", "fp8")}
     serve_spec = {d: phase_serve(model32.params, card, draft=d, n_req=SERVE_SPEC_REQUESTS,
                                  serve_rec=serve)
@@ -5743,12 +6296,15 @@ def _main() -> int:
     try:
         phase_serve_tp_parity(model32.params, card, group)
         serve_tp = phase_serve_tp(model32.params, card, group, serve)
+        earlier_seconds["serve_tp_parity+serve_tp"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        moe_tp_launches = phase_serve_moe_tp_parity(card, group)
+        added_seconds["serve_moe_tp_parity"] = time.perf_counter() - t0
     finally:
         tp_exits = group.close()
     emit({"phase": "serve_tp_group", "follower_exit_codes": tp_exits,
           "spawn_seconds": tp_spawn_s, "card": card})
     check(tp_exits == [0], f"the tp follower exited {tp_exits}")
-    added_seconds["serve_tp_parity+serve_tp"] = time.perf_counter() - t0
     tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
     seconds = {}
     t0 = time.perf_counter()
@@ -5810,12 +6366,17 @@ def _main() -> int:
         earlier_seconds["serve_cli_autoscale"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         phase_serve_cli_tp(card, train_argv, tmp, plain_texts)
-        added_seconds["serve_cli_tp"] = time.perf_counter() - t0
+        earlier_seconds["serve_cli_tp"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    sp_counts, sp_tp_counts, added_seconds["sp_tp"], ft = phase_sp(card)
+    t0 = time.perf_counter()
+    phase_moe_ep_kernels(fa, card)
+    added_seconds["moe_ep_kernels"] = time.perf_counter() - t0
+    sp_counts, sp_tp_counts, earlier_seconds["sp_tp"], ft, zm = phase_sp(card)
     ft_counts = phase_fsdp_tp(card, ft)
     earlier_seconds["fsdp_tp"] = ft[1]
+    zero_counts, moe_ep_counts, zm_seconds = phase_zero_moe(card, zm)
+    added_seconds.update(zm_seconds)
     proto_counts = phase_proto(nh, card)
     emit_clocks("before times")
     rows = phase_times(fa, card)
@@ -5824,7 +6385,10 @@ def _main() -> int:
     earlier_seconds["fsdp_tp_times"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     phase_sp_tp_times(fa, card)
-    added_seconds["sp_tp_times"] = time.perf_counter() - t0
+    earlier_seconds["sp_tp_times"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_zero_moe_times(fa, card)
+    added_seconds["zero_moe_times"] = time.perf_counter() - t0
     rows.update(phase_lse_times(fa, card))
     rows.update(phase_nh_times(nh, card))
     exp_counts, rows["exp_chain"] = phase_exp_tool(ex, card)
@@ -5879,6 +6443,8 @@ def _main() -> int:
     emit({"phase": "launches_by_path", "train_step": split["launches"],
           "train_step_fused": fused["launches"], "sp_train_step_rank0": sp_counts,
           "fsdp_tp_train_step_rank0": ft_counts, "sp_tp_train_step_rank0": sp_tp_counts,
+          "zero_train_step_rank0": zero_counts, "moe_ep_train_step_rank0": moe_ep_counts,
+          "serve_moe_tp_parity": moe_tp_launches,
           "serve_tp": serve_tp["launches"],
           "serve_tp_follower": serve_tp["follower_launches"][0],
           "proto_nh_kernel": proto_counts, "exp_exp2": exp_counts,

@@ -22,7 +22,7 @@ import dataclasses
 import io
 import warnings
 from dataclasses import dataclass, field
-from typing import Any, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 MODEL_PRESETS: dict[str, dict[str, Any]] = {
     # name            layers heads  width   (params)
@@ -265,8 +265,8 @@ class OptimizerConfig:
 @dataclass
 class MeshConfig:
     """The JAX package's device-mesh shape: pp, dp, fsdp, ep, tp, sp; -1
-    absorbs the remaining devices (here: processes). The port runs dp x fsdp
-    x tp and dp x sp (``TrainerConfig.check_ported``)."""
+    absorbs the remaining devices (here: processes). The port runs dp, fsdp,
+    ep, tp and sp in any mix; pp raises (``TrainerConfig.check_ported``)."""
 
     pp: int = 1
     dp: int = -1
@@ -281,10 +281,8 @@ class MeshConfig:
 
 
 # Trainer options not ported yet: any value but the default raises, naming
-# the ROADMAP.md item that brings it.
-UNPORTED_TRAINER_OPTIONS = {
-    "zero_dp": "Queue 1 item 10 (parallel/zero.py)",
-}
+# the ROADMAP.md item that brings it. Every option is ported.
+UNPORTED_TRAINER_OPTIONS: Dict[str, str] = {}
 
 
 @dataclass

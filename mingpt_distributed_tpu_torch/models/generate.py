@@ -33,8 +33,9 @@ Tensor parallelism (``tp``, a ``TPShard``: the serving engine's lockstep
 ranks, ``serving/engine.py``): ``params`` and the cache are this rank's
 slices by ``parallel.mesh.PARAM_RULES``, and each block runs the Megatron
 recipe on the rank's ``n_head/tp`` query heads, ``kv_heads/tp`` KV heads and
-``ffn/tp`` MLP columns, summing each residual branch's partial output over
-tp once, in float32 (``gpt._row_parallel``). The embedding's columns are
+``ffn/tp`` MLP columns (a mixture-of-experts block: ``ffn/tp`` of every
+expert, the router replicated), summing each residual branch's partial
+output over tp once, in float32 (``gpt._row_parallel``). The embedding's columns are
 split over tp, so the rank's columns are placed in a zero row and summed the
 same way (exact). The head's rows are split too: ``tp_head_logits`` sums
 the partial logits of the read-out rows to the group's first rank, the

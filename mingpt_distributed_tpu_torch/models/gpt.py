@@ -37,8 +37,10 @@ Mixture-of-experts blocks (``n_experts > 0``, ``ops/moe.py``) replace the
 dense MLP with routed experts: the leaves ``w_router``, ``w_e1``, ``w_e2``
 and, with SwiGLU, ``w_eg``; the loss adds ``moe_aux_weight * aux /
 n_layer``, the per-layer sum of the Switch aux loss, as in the JAX package.
-MoE runs in one process: across processes each rank would route only its
-own rows (ROADMAP.md Queue 1 item 12b).
+Across processes (dp, fsdp, ep and tp) the blocks route the global batch's
+groups as JAX does (``moe.Exchange``: the ranks of distinct tokens, and the
+expert exchange over ep); under Megatron tp each rank holds F/tp of every
+expert. MoE beside sp or pp raises (``check_supported``).
 """
 
 from __future__ import annotations
@@ -160,14 +162,29 @@ def init(cfg: GPTConfig, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 
-def check_supported(cfg: GPTConfig, across_processes: bool = False) -> None:
+def check_supported(cfg: GPTConfig, mesh=None) -> None:
     """Raise for what this port does not run yet: mixture-of-experts blocks
-    across processes, where each rank would route only its own rows (and
-    MoE beside fsdp or tp)."""
-    if cfg.n_experts and across_processes:
-        raise NotImplementedError(
-            "mixture-of-experts across processes (dp, fsdp, tp, sp or ep > 1) "
-            "is not ported yet (ROADMAP.md Queue 1 item 12b)")
+    beside sequence parallelism (an sp rank's tokens interleave with the
+    other sp ranks' in JAX's routing groups) or pipeline stages. ``mesh``:
+    a ``parallel.mesh.Mesh`` or a dict of axis extents."""
+    shape = getattr(mesh, "shape", mesh) or {}
+    if cfg.n_experts:
+        for axis, item in (("sp", "12b.4"), ("pp", "12b.2")):
+            if shape.get(axis, 1) > 1:
+                raise NotImplementedError(
+                    f"mixture-of-experts beside {axis} > 1 is not ported yet "
+                    f"(ROADMAP.md Queue 1 item {item})")
+
+
+def _moe_exchange(mesh) -> Optional["moe.Exchange"]:
+    """The MoE layers' view of the mesh: the ranks of distinct tokens at
+    this rank's tp coordinate, in batch order, and the expert exchange
+    when the experts are split over ep."""
+    if mesh is None or mesh.batch_count <= 1:
+        return None
+    ep_group = mesh.ep_group if mesh.ep_split("blocks/w_e1") else None
+    return moe.Exchange(mesh.batch_group, mesh.batch_index, mesh.batch_count,
+                        ep_group, mesh.ep if ep_group is not None else 1)
 
 
 def _attention_dispatch(cfg: GPTConfig, mesh=None) -> Callable[..., torch.Tensor]:
@@ -249,9 +266,8 @@ def _block(
     x = x + L.dropout(att, cfg.resid_pdrop, generator, deterministic)
 
     h2 = _norm(x, blk["ln2_scale"], blk.get("ln2_bias"), cfg)
-    if tp_group is not None:
-        h2 = D.copy_to_group(h2, tp_group)
-    m, aux = mlp(h2, blk, cfg, tp_group=tp_group)
+    exchange = _moe_exchange(mesh) if cfg.n_experts else None
+    m, aux = mlp(h2, blk, cfg, tp_group=tp_group, exchange=exchange)
     return x + L.dropout(m, cfg.resid_pdrop, generator, deterministic), aux
 
 
@@ -266,16 +282,20 @@ def _row_parallel(h, w, b, tp_group):
 
 
 def mlp(h: torch.Tensor, blk: Params, cfg: GPTConfig, per_row: bool = False,
-        tp_group=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        tp_group=None, exchange=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The block's MLP on ln2's output: routed experts (``per_row``: each
-    batch row routed on its own, ``moe.moe_mlp``), SwiGLU or GELU. Returns
-    (out, the MoE aux loss, or None for a dense MLP). With ``tp_group`` the
-    weights are this tp rank's columns and rows (``_row_parallel``)."""
+    batch row routed on its own; ``exchange``: the ranks of a job,
+    ``moe.moe_mlp``), SwiGLU or GELU. Returns (out, the MoE aux loss, or
+    None for a dense MLP). With ``tp_group`` the weights are this tp rank's
+    columns and rows (``_row_parallel``; the experts' F/tp)."""
     if cfg.n_experts:
         return moe.moe_mlp(h, blk["w_router"], blk["w_e1"], blk["w_e2"],
                            top_k=cfg.moe_top_k,
                            capacity_factor=cfg.moe_capacity_factor,
-                           w_gate=blk.get("w_eg"), per_row=per_row)
+                           w_gate=blk.get("w_eg"), per_row=per_row,
+                           exchange=exchange, tp_group=tp_group)
+    if tp_group is not None:
+        h = D.copy_to_group(h, tp_group)
     if cfg.swiglu:
         inner = F.silu(L.dense(h, blk["w_gate"])) * L.dense(h, blk["w_up"])
         return _row_parallel(inner, blk["w_down"], None, tp_group), None
@@ -394,7 +414,7 @@ def _hidden(params, tokens, cfg, generator, deterministic, mesh):
     """Embeddings, the blocks and the final norm -> ((B, T, D) hidden
     states, the blocks' summed MoE aux loss or None). Under sp > 1 the chunk's
     positions start at sp_rank * T."""
-    check_supported(cfg, across_processes=mesh is not None)
+    check_supported(cfg, mesh)
     b, t = tokens.shape
     pos0 = 0 if mesh is None else mesh.sp_rank * t
     if pos0 + t > cfg.block_size:
@@ -438,20 +458,27 @@ def loss_terms(
     generator: Optional[torch.Generator] = None,
     deterministic: bool = True,
     mesh=None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    with_aux: bool = False,
+) -> Tuple[torch.Tensor, ...]:
     """(sum of the cross-entropy over targets != -1, their count) of these
     tokens (this rank's rows and chunk), with the head and the softmax run
     per chunk as in the loss-only forward. A trainer divides the sums of
-    both over the ranks."""
-    check_supported(cfg, across_processes=True)
-    x, _ = _hidden(params, tokens, cfg, generator, deterministic, mesh)
+    both over the ranks. ``with_aux`` adds a third term: the MoE aux loss
+    weighted as the loss takes it (``moe_aux_weight * aux / n_layer``, over
+    every rank's tokens; 0 for a dense model), which each rank adds once."""
+    x, aux = _hidden(params, tokens, cfg, generator, deterministic, mesh)
     nc = _loss_chunks(cfg, tokens.shape[1])
     w = _head_weight(params, cfg, mesh)
     count = (targets != -1).sum()
     if nc > 1:
-        return chunked_cross_entropy_sum(x, w, targets, nc,
-                                         softcap=cfg.final_logit_softcap), count
-    return _chunk_loss(x, w, targets, cfg.final_logit_softcap), count
+        total = chunked_cross_entropy_sum(x, w, targets, nc, softcap=cfg.final_logit_softcap)
+    else:
+        total = _chunk_loss(x, w, targets, cfg.final_logit_softcap)
+    if not with_aux:
+        return total, count
+    extra = (cfg.moe_aux_weight * aux / cfg.n_layer if cfg.n_experts
+             else total.new_zeros(()))
+    return total, count, extra
 
 
 def cross_entropy(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:

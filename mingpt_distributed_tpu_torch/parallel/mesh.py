@@ -8,11 +8,14 @@ axes in the same order (``AXES``), the same shape resolution
 means there. A rank's coordinates follow the JAX mesh's device order: the
 rank is the row-major index of its (pp, dp, fsdp, ep, tp, sp) coordinates.
 
-dp, fsdp, tp and sp run, in any mix; pp and ep above 1 raise
-NotImplementedError naming their ROADMAP item. The batch is split over dp
-and fsdp (``BATCH_AXES``; every tp rank of a group reads the same rows) and
-the sequence over sp: under sp x tp each sp rank's attention runs the ring
-(or Ulysses) on its tp rank's heads, which are just batch to the ring.
+dp, fsdp, ep, tp and sp run, in any mix; pp above 1 raises
+NotImplementedError naming its ROADMAP item. The batch is split over dp,
+fsdp and ep (``BATCH_AXES``, dp major; every tp rank of a group reads the
+same rows) and the sequence over sp: under sp x tp each sp rank's attention
+runs the ring (or Ulysses) on its tp rank's heads, which are just batch to
+the ring. ep is a batch axis that also splits the experts of a
+mixture-of-experts model (``w_e1``, ``w_e2``, ``w_eg``): a dense model runs
+it as more data parallelism.
 
 Serving tensor parallelism (``Mesh.serving``): a mesh of tp = N over a
 group of N ranks (dp, fsdp and sp 1), whose group rank 0 drives the
@@ -23,17 +26,24 @@ follower waits there for as long as the server idles. One process may
 drive several such groups (a fleet of tp replicas): ``serving_meshes``
 builds them all, on every rank, in one order.
 
-Parameter sharding (fsdp and tp): ``Mesh.shard_params`` keeps this rank's
-slice of every leaf, cut by its ``PARAM_RULES`` spec. A spec axis whose
-extent does not divide the dimension is downgraded to replication, logged
-once and counted once in ``mingpt_train_sharding_downgrades_total{param}``
-(GPT-2's vocabulary of 50257 downgrades the fsdp split of ``wte`` and
-``head``). ``Mesh.gather`` rebuilds a leaf for use: over fsdp with
-``distributed.all_gather`` (its backward a reduce-scatter: the fsdp ranks
-hold different rows), over tp with ``distributed.gather_replicated`` (its
-backward keeps this rank's slice: the computation is replicated over tp).
-The model gathers one layer's weights just before the layer runs; under
-Megatron tensor parallelism (``tp_manual``) the tp dimensions stay local.
+Parameter sharding (fsdp, ep and tp): ``Mesh.shard_params`` keeps this
+rank's slice of every leaf, cut by its ``PARAM_RULES`` spec. A spec axis
+whose extent does not divide the dimension is downgraded to replication,
+logged once and counted once in
+``mingpt_train_sharding_downgrades_total{param}`` (GPT-2's vocabulary of
+50257 downgrades the fsdp split of ``wte`` and ``head``). ``Mesh.gather``
+rebuilds a leaf for use: over fsdp with ``distributed.all_gather`` (its
+backward a reduce-scatter: the fsdp ranks hold different rows), over tp
+with ``distributed.gather_replicated`` (its backward keeps this rank's
+slice: the computation is replicated over tp). The model gathers one
+layer's weights just before the layer runs; under Megatron tensor
+parallelism (``tp_manual``) the tp dimensions stay local, and an ep rank
+keeps its experts (``ops/moe.py`` sends it their tokens).
+
+Under ``zero_dp`` (``parallel/zero.py``) each dp rank holds 1/dp of the
+Adam moments: ``training/optimizer.py`` keeps them beside the rank's 1/dp
+of each leaf's update view (the counterpart of JAX ``state_shardings(...,
+zero_plan=)``).
 """
 
 from __future__ import annotations
@@ -53,9 +63,10 @@ from mingpt_distributed_tpu_torch.parallel import distributed
 AXES = ("pp", "dp", "fsdp", "ep", "tp", "sp")
 BATCH_AXES = ("dp", "fsdp", "ep")
 UNPORTED_AXES = {
-    "pp": "Queue 1 item 12b (parallel/pipeline.py)",
-    "ep": "Queue 1 item 12b (expert parallelism)",
+    "pp": "Queue 1 item 12b.2 (parallel/pipeline.py)",
 }
+#: the axes whose ranks hold different tokens of a global batch
+DATA_AXES = ("dp", "fsdp", "ep", "sp")
 
 Spec = Tuple[Optional[str], ...]
 
@@ -125,12 +136,12 @@ def resolve_mesh_shape(cfg: MeshConfig, n_devices: int) -> tuple[int, ...]:
 
 def check_axes(shape: Dict[str, int]) -> None:
     """Raise NotImplementedError for an axis the port does not run yet (pp
-    and ep above 1)."""
+    above 1)."""
     for ax, item in UNPORTED_AXES.items():
         if shape[ax] > 1:
             raise NotImplementedError(
                 f"mesh axis {ax}={shape[ax]} is not ported yet (ROADMAP.md "
-                f"{item}); the port runs dp x fsdp x tp x sp")
+                f"{item}); the port runs dp x fsdp x ep x tp x sp")
 
 
 def param_specs(params: Dict, prefix: str = "") -> Dict:
@@ -193,15 +204,16 @@ def shard_by_rule(shape: Dict[str, int], dims: Sequence[int], spec: Spec,
 class Mesh:
     """This rank's place in a job of ``world_size`` ranks.
 
-    ``sp_group`` and ``dp_group`` are its ring's and its replica set's
-    process groups (None when the axis is 1). With fsdp or tp above 1
-    (``sharded``): ``fsdp_group`` and ``tp_group``; ``batch_group``, the
-    ranks of its tp coordinate (they hold different tokens: loss terms and
-    the gradients of leaves replicated over fsdp are summed there);
-    ``replica_group``, the ranks of its fsdp and tp coordinates (the
-    gradients of fsdp-sharded leaves); ``model_group``, the ranks of its dp
-    and sp coordinates (together they hold one copy of the model: the
-    gradient norm). ``batch_group`` is None, the world, when unsharded."""
+    ``sp_group``, ``dp_group`` and ``ep_group`` are its ring's, its replica
+    set's and its expert exchange's process groups (None when the axis is
+    1). With fsdp, ep or tp above 1 (``sharded``): ``fsdp_group`` and
+    ``tp_group``; ``batch_group``, the ranks of its tp coordinate that hold
+    different tokens (loss terms are summed there); ``model_group``, the
+    ranks of its dp and sp coordinates (together they hold one copy of the
+    model: the gradient norm). ``grad_group(path)`` is the group a leaf's
+    gradient is summed over; ``group_over(axes)`` any other, made once
+    (every rank must ask for the same groups in the same order: making one
+    is collective). ``batch_group`` is None, the world, when unsharded."""
 
     def __init__(self, cfg: Optional[MeshConfig] = None):
         cfg = cfg or MeshConfig()
@@ -209,14 +221,14 @@ class Mesh:
         self.rank = distributed.rank()
         self._place(resolve_mesh_shape(cfg, self.world_size), self.rank)
         # every rank creates every group, in the same order
-        self.sp_group = self._group_over(("sp",)) if self.sp > 1 else None
-        self.dp_group = self._group_over(("dp",)) if self.dp > 1 else None
+        self.sp_group = self.group_over(("sp",)) if self.sp > 1 else None
+        self.dp_group = self.group_over(("dp",)) if self.dp > 1 else None
+        self.ep_group = self.group_over(("ep",)) if self.ep > 1 else None
         if self.sharded:
-            self.fsdp_group = self._group_over(("fsdp",))
-            self.tp_group = self._group_over(("tp",))
-            self.batch_group = self._group_over(("dp", "fsdp", "sp"))
-            self.replica_group = self._group_over(("dp", "sp"))
-            self.model_group = self._group_over(("fsdp", "tp"))
+            self.fsdp_group = self.group_over(("fsdp",))
+            self.tp_group = self.group_over(("tp",))
+            self.batch_group = self.group_over(DATA_AXES)
+            self.model_group = self.group_over(("fsdp", "ep", "tp"))
 
     def _place(self, dims: Sequence[int], index: int) -> None:
         """The fields of the rank at row-major ``index`` of the grid ``dims``
@@ -225,26 +237,34 @@ class Mesh:
         check_axes(self.shape)
         self.coords = dict(zip(AXES, (int(c) for c in np.unravel_index(index, dims))))
         self.dp, self.sp = self.shape["dp"], self.shape["sp"]
-        self.fsdp, self.tp = self.shape["fsdp"], self.shape["tp"]
+        self.fsdp, self.tp, self.ep = self.shape["fsdp"], self.shape["tp"], self.shape["ep"]
         self.dp_rank, self.sp_rank = self.coords["dp"], self.coords["sp"]
         self.fsdp_rank, self.tp_rank = self.coords["fsdp"], self.coords["tp"]
-        self.sharded = self.fsdp * self.tp > 1
-        # the data shard: rows over (dp, fsdp), dp-major as BATCH_AXES
-        self.batch_index = self.dp_rank * self.fsdp + self.fsdp_rank
-        self.batch_count = self.dp * self.fsdp
+        self.ep_rank = self.coords["ep"]
+        self.sharded = self.fsdp * self.tp * self.ep > 1
+        # the data shard: rows over (dp, fsdp, ep), dp-major as BATCH_AXES
+        self.batch_index = (self.dp_rank * self.fsdp + self.fsdp_rank) * self.ep + self.ep_rank
+        self.batch_count = self.dp * self.fsdp * self.ep
         # this rank's index among the ranks of distinct data (tp dropped):
         # the seed of its replicated dropout draws
         no_tp = [self.shape[a] for a in AXES if a != "tp"]
         self.data_rank = int(np.ravel_multi_index(
             [self.coords[a] for a in AXES if a != "tp"], no_tp))
         self.sp_group = self.dp_group = self.fsdp_group = self.tp_group = None
-        self.replica_group = self.model_group = self.batch_group = None
+        self.ep_group = self.model_group = self.batch_group = None
+        self._groups: Dict[Tuple[str, ...], object] = {}
         self.specs: Dict[str, Spec] = {}
         self.full_shapes: Dict[str, Tuple[int, ...]] = {}
 
-    def _group_over(self, varying: Tuple[str, ...]):
+    def group_over(self, varying: Sequence[str]):
         """The process group of the ranks that share this rank's coordinates
-        on every axis but ``varying``."""
+        on every axis but ``varying`` (made on first use, on every rank)."""
+        key = tuple(a for a in AXES if a in varying)
+        if key not in self._groups:
+            self._groups[key] = self._group_over(key)
+        return self._groups[key]
+
+    def _group_over(self, varying: Tuple[str, ...]):
         grid = np.arange(self.world_size).reshape([self.shape[a] for a in AXES])
         fixed = [a for a in AXES if a not in varying]
         mine = None
@@ -258,17 +278,37 @@ class Mesh:
                 mine = group
         return mine
 
+    def spec_axes(self, path: str) -> Tuple[str, ...]:
+        """The mesh axes above 1 that split the leaf at ``path``."""
+        return tuple(a for a in self.specs.get(path, ()) if a is not None
+                     and self.shape[a] > 1)
+
+    def grad_axes(self, path: str) -> Tuple[str, ...]:
+        """The axes a leaf's gradient is summed over: the ranks of distinct
+        tokens (``DATA_AXES``) that hold the same slice of it. An fsdp- or
+        ep-split leaf's gradient is already summed over that axis (the
+        gather's reduce-scatter, the expert exchange's return)."""
+        held = self.spec_axes(path)
+        return tuple(a for a in DATA_AXES if self.shape[a] > 1 and a not in held)
+
+    def grad_group(self, path: str):
+        """The group of ``grad_axes(path)`` (None: the world, unsharded)."""
+        if not self.sharded:
+            return None
+        return self.group_over(self.grad_axes(path))
+
     def group(self, axis: str):
-        return {"fsdp": self.fsdp_group, "tp": self.tp_group}[axis]
+        return {"fsdp": self.fsdp_group, "tp": self.tp_group, "ep": self.ep_group,
+                "dp": self.dp_group}[axis]
 
     # -- parameters ----------------------------------------------------------
     def tp_manual(self, cfg) -> bool:
         """Whether the blocks run the Megatron recipe: tp > 1 and the query
-        heads, the KV heads and the FFN width all divide by tp (no MoE).
-        Otherwise tp falls back to gathered weights, as in the JAX
-        package."""
+        heads, the KV heads and the FFN width (each expert's, under MoE) all
+        divide by tp. Otherwise tp falls back to gathered weights, as in the
+        JAX package."""
         ffn = int(cfg.ffn_mult * cfg.n_embd)
-        return (self.tp > 1 and not cfg.n_experts and cfg.n_head % self.tp == 0
+        return (self.tp > 1 and cfg.n_head % self.tp == 0
                 and cfg.kv_heads % self.tp == 0 and ffn % self.tp == 0)
 
     def shard_params(self, params: Dict, prefix: str = "") -> Dict:
@@ -321,17 +361,18 @@ class Mesh:
                 t = distributed.gather_tensor(t, self.group(axis), dim)
         return t.clone() if t.data_ptr() == local.data_ptr() else t
 
-    def fsdp_sharded(self, path: str) -> bool:
-        return "fsdp" in self.specs[path] and self.fsdp > 1
-
     def copies(self, path: str) -> int:
         """How many ranks of ``model_group`` hold the same slice of the
         leaf at ``path``: its weight in a sum over that group is 1/copies."""
-        n = self.fsdp * self.tp
+        n = self.fsdp * self.ep * self.tp
         for axis in self.specs[path]:
-            if axis in ("fsdp", "tp"):
+            if axis in ("fsdp", "ep", "tp"):
                 n //= self.shape[axis]
         return n
+
+    def ep_split(self, path: str) -> bool:
+        """Whether this rank holds only its experts of the leaf at ``path``."""
+        return "ep" in self.spec_axes(path)
 
     # -- serving -------------------------------------------------------------
     @classmethod

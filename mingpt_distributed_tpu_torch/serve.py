@@ -119,9 +119,13 @@ it; ``--dist-backend nccl`` (the default) puts each rank on its own GPU,
 ``--dist-backend gloo`` lets the ranks share one card (or the CPU, with
 ``--device cpu``). A follower that fails makes the driver raise within
 ``parallel.mesh.TP_TIMEOUT_S`` (60 s); nothing falls back to tp = 1.
-``--selftest-sharded`` is the tp = 2 against tp = 1 gate. A tp server is
-one replica: ``--mesh`` does not combine with ``--replicas`` above 1,
-``--autoscale`` or ``--isolation process``.
+``--selftest-sharded`` is the tp = 2 against tp = 1 gate. With
+``--replicas`` above 1 or ``--autoscale`` each replica is a tp server on a
+lockstep group of its own: this process drives one group per replica the
+fleet may hold (``--replicas``, or the autoscaler's ``max_replicas``), each
+with its own tp - 1 followers, and a replica takes a group no live replica
+holds (``TPMeshPool``). ``--mesh`` does not combine with ``--isolation
+process``, whose workers are processes of their own.
 
 SIGTERM (or one SIGINT) stops admission, drains in-flight requests, flushes
 the metrics and exits 75 so a scheduler requeues the job; a second SIGINT
@@ -138,7 +142,8 @@ import json
 import os
 import signal
 import sys
-from typing import List
+from collections.abc import Mapping
+from typing import Dict, List
 
 import numpy as np
 
@@ -434,11 +439,11 @@ def _mesh_tp(args) -> int:
     return tp
 
 
-def tp_group(n: int, args, dev, selftest: bool = False):
-    """A tp = ``n`` serving group driven by this process (``TPGroup``), on
-    ``--dist-backend`` (nccl by default; a self-test's default is gloo
-    where nccl cannot run, on the CPU or one card); its ``close()``
-    releases the followers."""
+def tp_group(n: int, args, dev, selftest: bool = False, replicas: int = 1):
+    """``replicas`` tp = ``n`` serving groups driven by this process
+    (``TPGroup``), on ``--dist-backend`` (nccl by default; a self-test's
+    default is gloo where nccl cannot run, on the CPU or one card); its
+    ``close()`` releases the followers."""
     import torch
 
     from mingpt_distributed_tpu_torch.parallel.mesh import TP_TIMEOUT_S
@@ -448,7 +453,41 @@ def tp_group(n: int, args, dev, selftest: bool = False):
     if backend is None:
         shared = dev.type == "cpu" or torch.cuda.device_count() < n
         backend = "gloo" if selftest and shared else "nccl"
-    return TPGroup(n, backend, dev, TP_TIMEOUT_S)
+    return TPGroup(n, backend, dev, TP_TIMEOUT_S, replicas=replicas)
+
+
+class TPMeshPool(Mapping):
+    """{replica name: serving mesh} for ``default_server_factory(meshes=)``
+    over a fixed set of tp groups: a replica keeps the group it first took
+    (a respawn rebuilds the same followers), and a new one takes a group
+    that no live replica holds. The supervisor's replica indices never
+    recycle, so after a scale-down the next scale-up reuses the drained
+    replica's group. ``live`` gives the names of the replicas still
+    serving (all that took a group, until the supervisor is set)."""
+
+    def __init__(self, meshes):
+        self.meshes = list(meshes)
+        self.owner: Dict[str, int] = {}
+        self.live = lambda: set(self.owner)
+
+    def __getitem__(self, name: str):
+        if name not in self.owner:
+            held = {self.owner[n] for n in self.live() if n in self.owner}
+            free = [i for i in range(len(self.meshes)) if i not in held]
+            if not free:
+                raise KeyError(f"{name}: every one of the {len(self.meshes)} tp "
+                               "groups serves a live replica")
+            self.owner[name] = free[0]
+        return self.meshes[self.owner[name]]
+
+    def __contains__(self, name) -> bool:
+        return isinstance(name, str) and name.startswith("replica")
+
+    def __iter__(self):
+        return iter(self.owner)
+
+    def __len__(self) -> int:
+        return len(self.owner)
 
 
 def first_layers(params, n: int):
@@ -2288,11 +2327,10 @@ def main(argv=None) -> int:
 
     dev = resolve_device(args.device)
     tp = _mesh_tp(args)
-    if tp > 1 and (args.replicas > 1 or args.isolation == "process"
-                   or _autoscale_spec(args)):
-        raise SystemExit("--mesh serves one tensor-parallel replica: it does "
-                         "not combine with --replicas > 1, --isolation process "
-                         "or --autoscale")
+    if tp > 1 and args.isolation == "process":
+        raise SystemExit("--mesh does not combine with --isolation process: "
+                         "each worker process serves one tp = 1 replica")
+    n_groups = _tp_replicas(args) if tp > 1 else 1
     exp = load_config(args.config, args.overrides)
     dataset = make_dataset(exp.data_config)
     gpt_cfg = dataclasses.replace(
@@ -2325,12 +2363,12 @@ def main(argv=None) -> int:
     group = None
     try:
         if tp > 1:
-            group = tp_group(tp, args, dev)
+            group = tp_group(tp, args, dev, replicas=n_groups)
             print(f"[serve] tensor parallel: tp={tp} on {args.dist_backend or 'nccl'}, "
-                  f"this process drives {tp - 1} follower process(es)",
-                  file=sys.stderr)
+                  f"this process drives {n_groups} group(s) of {tp - 1} follower "
+                  f"process(es)", file=sys.stderr)
         rc = _serve(args, dataset, gpt_cfg, params, dev, eos_id, guard, weights,
-                    fleets, None if group is None else group.mesh)
+                    fleets, None if group is None else group.meshes)
     finally:
         for supervisor in fleets:
             supervisor.shutdown_all()
@@ -2341,9 +2379,23 @@ def main(argv=None) -> int:
     return 1 if rc == 0 and any(exits) else rc
 
 
+def _tp_replicas(args) -> int:
+    """How many replicas a fleet may hold at once: ``--replicas``, or with
+    ``--autoscale`` the controller's ``max_replicas`` (at least
+    ``--replicas``); 1 for one server."""
+    spec = _autoscale_spec(args)
+    if spec is None:
+        return max(1, args.replicas)
+    from mingpt_distributed_tpu_torch.control.controller import parse_controller_spec
+
+    return max(args.replicas, parse_controller_spec(spec).max_replicas)
+
+
 def _serve(args, dataset, gpt_cfg, params, dev, eos_id, guard, weights, fleets,
-           mesh=None) -> int:
-    """The offline batch (``--prompts-file``) or the REPL."""
+           meshes=None) -> int:
+    """The offline batch (``--prompts-file``) or the REPL; ``meshes``: the
+    tp groups this process drives (one per replica the fleet may hold)."""
+    mesh = None if meshes is None else meshes[0]
     # stream tokens as they decode: print the newly decoded text suffix of
     # each request (decode-accumulated-and-diff is tokenizer-agnostic)
     printed = {}
@@ -2394,13 +2446,18 @@ def _serve(args, dataset, gpt_cfg, params, dev, eos_id, guard, weights, fleets,
         from mingpt_distributed_tpu_torch.training.faults import ServingFaultInjector
 
         injector = ServingFaultInjector(args.chaos_spec)
+        pool = None if meshes is None else TPMeshPool(meshes)
         supervisor = ReplicaSupervisor(
             default_server_factory(
-                params, gpt_cfg, n_slots=args.slots, max_queue=args.queue_limit,
-                default_deadline_s=args.deadline_s, attrib=bool(args.attrib_json),
-                device=dev, **spec_kw, **_server_kwargs(args)),
+                params, gpt_cfg, meshes=pool, n_slots=args.slots,
+                max_queue=args.queue_limit, default_deadline_s=args.deadline_s,
+                attrib=bool(args.attrib_json), device=dev, **spec_kw,
+                **_server_kwargs(args)),
             n_replicas=args.replicas, clock=WallClock(),
             injector=injector if injector.specs else None, registry=reg)
+        if pool is not None:
+            pool.live = lambda: {r.name for r in supervisor.replicas
+                                 if r.state != "drained"}
         router = Router(supervisor, on_token=stream_cb,
                         shed_watermark=args.shed_watermark,
                         trace_recorder=recorder, flight=flight)
@@ -2411,7 +2468,8 @@ def _serve(args, dataset, gpt_cfg, params, dev, eos_id, guard, weights, fleets,
             if args.attrib_json:
                 tserver.attrib_provider = router.attrib_report
         print(f"[serve] fleet: {args.replicas} replicas x {args.slots} slots"
-              + (f", chaos {args.chaos_spec}" if injector.specs else ""),
+              + (f", chaos {args.chaos_spec}" if injector.specs else "")
+              + ("" if pool is None else f", tp={meshes[0].tp} each"),
               file=sys.stderr)
         return router
 

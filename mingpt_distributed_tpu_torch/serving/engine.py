@@ -94,8 +94,10 @@ capture of these calls needs.
    family. When the Megatron split does not apply (``Mesh.tp_manual``:
    heads, KV heads or the FFN width not divisible by tp; the pool's
    downgrade is counted once as ``kv_cache``) every rank holds the whole
-   model and pool and computes alike, still in lockstep. Mixture-of-experts
-   models do not run under tp (ROADMAP.md Queue 1 item 12b).
+   model and pool and computes alike, still in lockstep. A
+   mixture-of-experts model runs the split too: its router replicated, each
+   rank holding F/tp of every expert, the routed outputs summed over tp in
+   float32; the decode step still routes each slot on its own.
 
 Attribution (``register_attrib``) registers each family's shapes with
 analytic costs. The audit contracts (``audit_contracts``) are ROADMAP.md
@@ -337,10 +339,6 @@ class DecodeEngine:
         command; on a follower, ``local`` holds what that command carried.
         Returns (this rank's KV heads, this rank's params)."""
         mesh = self.mesh
-        if cfg.n_experts:
-            raise NotImplementedError(
-                "mixture-of-experts under tensor parallelism is not ported "
-                "yet (ROADMAP.md Queue 1 item 12b)")
         self.channel = channel_for(mesh)
         cache_shape = (cfg.n_layer, n_slots, cfg.block_size, cfg.kv_heads,
                        cfg.head_dim)

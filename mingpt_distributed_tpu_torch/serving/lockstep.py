@@ -36,8 +36,11 @@ parameter shards and migration's K/V rows.
 ``TPGroup`` is how one process serves at tp = N (the serve CLI): it
 becomes the driver, rank 0, and spawns N - 1 follower processes on this
 host that join a process group with it and run ``DecodeEngine.follow``.
-Under ``nccl`` each rank takes its own GPU (``cuda:rank``); under ``gloo``
-the ranks share the requested device (one card, or the CPU).
+With ``replicas`` R it drives R such groups (a fleet of tp replicas), each
+of its own N - 1 followers: 1 + R (N - 1) ranks, group i the driver and
+ranks 1 + i (N - 1) ... (i + 1)(N - 1). Under ``nccl`` each rank takes its
+own GPU (``cuda:rank``); under ``gloo`` the ranks share the requested
+device (one card, or the CPU).
 """
 
 from __future__ import annotations
@@ -229,11 +232,17 @@ def _exit_with(parent: int) -> None:
     os._exit(1)
 
 
+def group_ranks(n: int, replicas: int) -> List[List[int]]:
+    """The ranks of each of ``replicas`` tp = ``n`` groups that share one
+    driver, rank 0."""
+    return [[0] + [1 + i * (n - 1) + j for j in range(n - 1)] for i in range(replicas)]
+
+
 def _follower_main(rank: int, world: int, port: int, backend: str, device: str,
-                   timeout_s: float, parent: int) -> None:
+                   timeout_s: float, parent: int, groups: List[List[int]]) -> None:
     """A spawned follower: watch the driver, join the group, follow the
     driver, leave."""
-    from mingpt_distributed_tpu_torch.parallel.mesh import Mesh
+    from mingpt_distributed_tpu_torch.parallel.mesh import serving_meshes
     from mingpt_distributed_tpu_torch.serving.engine import DecodeEngine
 
     threading.Thread(target=_exit_with, args=(parent,), daemon=True,
@@ -243,21 +252,23 @@ def _follower_main(rank: int, world: int, port: int, backend: str, device: str,
     torch.set_num_threads(1)
     distributed.initialize(backend, timeout_s, rank=rank, world=world, port=port)
     try:
-        mesh = Mesh.serving(timeout_s)
+        (mesh,) = serving_meshes(groups, timeout_s).values()
         DecodeEngine.follow(mesh, distributed.device_for(backend, torch.device(device)))
     finally:
         distributed.shutdown()
 
 
 class TPGroup:
-    """This process as the driver of a tp = ``n`` serving group, with
-    ``n - 1`` follower processes (module docstring). ``mesh`` and
-    ``device`` are the driver's; ``close()`` releases the followers (they
+    """This process as the driver of ``replicas`` tp = ``n`` serving
+    groups, each with ``n - 1`` follower processes of its own (module
+    docstring). ``meshes`` (one per group) and ``device`` are the driver's,
+    ``mesh`` the first group's; ``close()`` releases the followers (they
     leave ``follow`` on the engine's shutdown, or are killed after
     ``grace_s``) and leaves the process group."""
 
-    def __init__(self, n: int, backend: str, device, timeout_s: float):
-        from mingpt_distributed_tpu_torch.parallel.mesh import Mesh
+    def __init__(self, n: int, backend: str, device, timeout_s: float,
+                 replicas: int = 1):
+        from mingpt_distributed_tpu_torch.parallel.mesh import serving_meshes
         from mingpt_distributed_tpu_torch.parallel.spawn import free_port
 
         if n < 2:
@@ -266,16 +277,20 @@ class TPGroup:
             raise RuntimeError("this process already belongs to a process group")
         requested = torch.device(device)
         port = free_port()
+        groups = group_ranks(n, replicas)
+        world = 1 + replicas * (n - 1)
         ctx = mp.get_context("spawn")
         self.procs = [ctx.Process(target=_follower_main, daemon=True,
-                                  args=(r, n, port, backend, str(requested), timeout_s,
-                                        os.getpid()))
-                      for r in range(1, n)]
+                                  args=(r, world, port, backend, str(requested), timeout_s,
+                                        os.getpid(), groups))
+                      for r in range(1, world)]
         for p in self.procs:
             p.start()
         os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
-        distributed.initialize(backend, timeout_s, rank=0, world=n, port=port)
-        self.mesh = Mesh.serving(timeout_s)
+        distributed.initialize(backend, timeout_s, rank=0, world=world, port=port)
+        by_index = serving_meshes(groups, timeout_s)
+        self.meshes = [by_index[i] for i in range(replicas)]
+        self.mesh = self.meshes[0]
         self.device = distributed.device_for(backend, requested)
 
     def close(self, grace_s: float = 30.0) -> List[Optional[int]]:
@@ -283,12 +298,13 @@ class TPGroup:
         wait for them to exit (kill those still running after ``grace_s``,
         or after 5 s once the group broke: a follower that failed is on its
         way out) and leave the process group; returns their exit codes."""
-        ch = channel_for(self.mesh)
+        chs = [channel_for(m) for m in self.meshes]
         try:
-            release(self.mesh)
+            for m in self.meshes:
+                release(m)
         finally:
-            deadline = time.monotonic() + (grace_s if ch.broken is None
-                                           else min(grace_s, 5.0))
+            broken = any(ch.broken is not None for ch in chs)
+            deadline = time.monotonic() + (min(grace_s, 5.0) if broken else grace_s)
             for p in self.procs:
                 p.join(timeout=max(0.1, deadline - time.monotonic()))
                 if p.is_alive():

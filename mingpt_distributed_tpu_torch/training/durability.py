@@ -26,8 +26,13 @@ All I/O goes through one small file-system object (``LocalFileSystem``:
 ``open``, ``exists``, ``remove``, ``makedirs``, ``replace``), which
 ``training/faults.py`` wraps to inject faults. The manifest schema is the
 JAX package's (version 2; snapshots of one object serialise as version 1
-wrote them). Sharded entries (``shards``) wait for ZeRO (ROADMAP.md Queue 1
-item 10): a manifest that holds one raises ``NotImplementedError``.
+wrote them, and version 1 manifests load). A sharded entry (schema v2,
+``commit_shards``: ZeRO runs write one object per dp shard) names its
+shard objects (``ShardRef``: key, digest, size); every shard is written
+before the one manifest write that commits them, and restore
+(``read_verified_shards``) takes an entry only when every shard reads back
+with its digest: one torn shard fails the whole entry, which falls back to
+the one before.
 """
 
 from __future__ import annotations
@@ -221,14 +226,24 @@ def delete_quiet(path: str, fs: LocalFileSystem = LOCAL) -> None:
 
 
 @dataclass
+class ShardRef:
+    """One object of a sharded snapshot entry (schema v2)."""
+
+    key: str      # object key, relative to the manifest's directory
+    sha256: str
+    size: int
+
+
+@dataclass
 class ManifestEntry:
     key: str      # object key, relative to the manifest's directory
     step: int
     epoch: int
-    sha256: str
-    size: int
-    #: schema v2: the shard objects of a sharded snapshot (not ported)
-    shards: Optional[List[dict]] = None
+    sha256: str   # the object's digest; a sharded entry's: of its shards' digests
+    size: int     # the object's size; a sharded entry's: its shards' total
+    #: schema v2: the shard objects of a sharded snapshot; ``key`` then
+    #: names shard 0
+    shards: Optional[List[ShardRef]] = None
 
     def to_dict(self) -> dict:
         d = dataclasses.asdict(self)
@@ -238,7 +253,17 @@ class ManifestEntry:
 
     @classmethod
     def from_dict(cls, raw: dict) -> "ManifestEntry":
-        return cls(**raw)
+        raw = dict(raw)
+        shards = raw.pop("shards", None)
+        if shards is not None:
+            shards = [ShardRef(**r) for r in shards]
+        return cls(shards=shards, **raw)
+
+    def shard_refs(self) -> List[ShardRef]:
+        """The entry's objects; a one-object entry is its own one shard."""
+        if self.shards is not None:
+            return list(self.shards)
+        return [ShardRef(key=self.key, sha256=self.sha256, size=self.size)]
 
 
 @dataclass
@@ -279,6 +304,11 @@ def object_key(snapshot_path: str, step: int) -> str:
     return f"{snapshot_path}.step-{step:08d}"
 
 
+def shard_key(snapshot_path: str, step: int, i: int, n: int) -> str:
+    """The object of shard ``i`` of an ``n``-shard snapshot (schema v2)."""
+    return f"{object_key(snapshot_path, step)}.shard-{i:04d}-of-{n:04d}"
+
+
 def _sibling(snapshot_path: str, key: str) -> str:
     """A manifest-relative key as a path next to the snapshot path."""
     return os.path.join(os.path.dirname(snapshot_path), key)
@@ -294,14 +324,7 @@ def load_manifest(snapshot_path: str, policy: Optional[RetryPolicy] = None,
         if is_missing_error(e):
             return None
         raise
-    manifest = Manifest.from_json(text.decode("utf-8"))
-    for e in manifest.entries:
-        if e.shards is not None:
-            raise NotImplementedError(
-                f"{manifest_path(snapshot_path)}: entry at step {e.step} is a "
-                "sharded snapshot; sharded snapshots are not ported yet "
-                "(ROADMAP.md Queue 1 item 10, parallel/zero.py)")
-    return manifest
+    return Manifest.from_json(text.decode("utf-8"))
 
 
 def _commit_entry(snapshot_path: str, entry: ManifestEntry, keep: int,
@@ -318,7 +341,8 @@ def _commit_entry(snapshot_path: str, entry: ManifestEntry, keep: int,
     manifest.entries = manifest.entries[-keep:]
     write_bytes(manifest_path(snapshot_path), manifest.to_json().encode(), policy, fs)
     for old in dropped:
-        delete_quiet(_sibling(snapshot_path, old.key), fs)
+        for ref in old.shard_refs():
+            delete_quiet(_sibling(snapshot_path, ref.key), fs)
     return entry
 
 
@@ -337,40 +361,83 @@ def commit_blob(snapshot_path: str, blob: bytes, step: int, epoch: int,
     return _commit_entry(snapshot_path, entry, keep, policy, fs)
 
 
+def commit_shards(snapshot_path: str, blobs: List[bytes], step: int, epoch: int,
+                  keep: int = 3, policy: Optional[RetryPolicy] = None,
+                  fs: LocalFileSystem = LOCAL) -> ManifestEntry:
+    """Commit one snapshot as ``len(blobs)`` objects (schema v2): every
+    shard is written (each under its own uncommitted key, each write
+    retried) before the one manifest write commits them as a unit, so a
+    crash or spent retries midway leave the previous snapshot whole. One
+    blob is ``commit_blob``'s entry, byte for byte."""
+    if keep < 1:
+        raise ValueError(f"keep must be >= 1, got {keep}")
+    if not blobs:
+        raise ValueError("commit_shards needs at least one shard")
+    if len(blobs) == 1:
+        return commit_blob(snapshot_path, blobs[0], step, epoch, keep, policy, fs)
+    refs = []
+    for i, blob in enumerate(blobs):
+        key_path = shard_key(snapshot_path, step, i, len(blobs))
+        write_bytes(key_path, blob, policy, fs)
+        refs.append(ShardRef(key=os.path.basename(key_path), sha256=sha256_hex(blob),
+                             size=len(blob)))
+    entry = ManifestEntry(key=refs[0].key, step=int(step), epoch=int(epoch),
+                          sha256=sha256_hex("".join(r.sha256 for r in refs).encode()),
+                          size=sum(r.size for r in refs), shards=refs)
+    return _commit_entry(snapshot_path, entry, keep, policy, fs)
+
+
+def read_verified_shards(snapshot_path: str, manifest: Manifest,
+                         policy: Optional[RetryPolicy] = None,
+                         load: Callable[[List[bytes], ManifestEntry], Any]
+                         = lambda blobs, entry: blobs,
+                         fs: LocalFileSystem = LOCAL) -> Tuple[Any, ManifestEntry]:
+    """Walk the manifest from newest to oldest and return ``(load(blobs,
+    entry), entry)`` for the first snapshot whose every object reads back
+    with its digest and whose payload loads (``load`` raises
+    SnapshotIntegrityError for one it cannot take). A one-object entry is
+    a one-shard snapshot. Any unreadable, torn or corrupt shard fails the
+    whole entry, which falls back to the one before; a permanent I/O error
+    raises; when none is good, SnapshotIntegrityError."""
+    failures = []
+    for entry in reversed(manifest.entries):
+        blobs = []
+        for ref in entry.shard_refs():
+            try:
+                blob = read_bytes(_sibling(snapshot_path, ref.key), policy, fs)
+            except BaseException as e:  # noqa: BLE001
+                if classify_io_error(e) == PERMANENT:
+                    raise
+                failures.append(f"{ref.key}: unreadable ({e!r})")
+                break
+            digest = sha256_hex(blob)
+            if digest != ref.sha256:
+                failures.append(f"{ref.key}: digest mismatch (manifest "
+                                f"{ref.sha256[:12]}..., got {digest[:12]}..., "
+                                f"{len(blob)}/{ref.size} bytes)")
+                break
+            blobs.append(blob)
+        else:
+            try:
+                loaded = load(blobs, entry)
+            except SnapshotIntegrityError as e:
+                failures.append(f"{entry.key}: {e}")
+                continue
+            if failures:
+                log_event(f"[durability] fell back to checkpoint step {entry.step} "
+                          "after: " + "; ".join(failures))
+            return loaded, entry
+    raise SnapshotIntegrityError(
+        f"no checkpoint in {manifest_path(snapshot_path)} passed verification: "
+        + "; ".join(failures))
+
+
 def read_verified(snapshot_path: str, manifest: Manifest,
                   policy: Optional[RetryPolicy] = None,
                   load: Callable[[bytes, str], Any] = lambda blob, key: blob,
                   fs: LocalFileSystem = LOCAL) -> Tuple[Any, ManifestEntry]:
-    """Walk the manifest from newest to oldest and return ``(load(bytes,
-    key), entry)`` for the first snapshot that reads back, matches its
-    digest and loads (``load`` raises SnapshotIntegrityError for a payload
-    it cannot take). An unreadable, torn, truncated or corrupt snapshot
-    falls back to the one before; a permanent I/O error raises; when none is
-    good, SnapshotIntegrityError."""
-    failures = []
-    for entry in reversed(manifest.entries):
-        try:
-            blob = read_bytes(_sibling(snapshot_path, entry.key), policy, fs)
-        except BaseException as e:  # noqa: BLE001
-            if classify_io_error(e) == PERMANENT:
-                raise
-            failures.append(f"{entry.key}: unreadable ({e!r})")
-            continue
-        digest = sha256_hex(blob)
-        if digest != entry.sha256:
-            failures.append(f"{entry.key}: digest mismatch (manifest "
-                            f"{entry.sha256[:12]}..., got {digest[:12]}..., "
-                            f"{len(blob)}/{entry.size} bytes)")
-            continue
-        try:
-            loaded = load(blob, entry.key)
-        except SnapshotIntegrityError as e:
-            failures.append(f"{entry.key}: {e}")
-            continue
-        if failures:
-            log_event(f"[durability] fell back to checkpoint step {entry.step} "
-                      "after: " + "; ".join(failures))
-        return loaded, entry
-    raise SnapshotIntegrityError(
-        f"no checkpoint in {manifest_path(snapshot_path)} passed verification: "
-        + "; ".join(failures))
+    """``read_verified_shards`` for one payload: ``load(bytes, key)`` of the
+    first good snapshot's bytes (a sharded entry's shards joined, which only
+    a loader of that framing can take)."""
+    return read_verified_shards(snapshot_path, manifest, policy,
+                                lambda blobs, entry: load(b"".join(blobs), entry.key), fs)

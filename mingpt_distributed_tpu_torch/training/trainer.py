@@ -1,5 +1,5 @@
-"""The training loop, on one device or on a job of processes (dp x fsdp x tp,
-or dp x sp).
+"""The training loop, on one device or on a job of processes (dp x fsdp x ep x
+tp x sp).
 
 Counterpart of ``mingpt_distributed_tpu/training/trainer.py``:
 ``make_train_step`` (forward, backward, clip, AdamW update, with gradient
@@ -16,13 +16,14 @@ group reads the same rows) and its sp chunk of the columns of every global
 batch. The loss is the global token mean (the token sums and counts of the
 ranks that hold distinct tokens, ``mesh.batch_group``, summed with
 ``all_reduce``). Under dp x sp the parameters are replicated and the
-gradients summed over the world. Under fsdp or tp each rank keeps its
+gradients summed over the world. Under fsdp, ep or tp each rank keeps its
 slices of the parameters and of the Adam moments (``Mesh.shard_params``):
 the model gathers each layer over fsdp as it runs and reduce-scatters its
 gradient, and ``all_reduce_grads`` sums a sliced leaf's gradient only over
-the ranks that hold the same slice (``replica_group`` for an fsdp-sharded
-leaf, ``batch_group`` for one replicated over fsdp; never over tp, where
-every rank's gradient is already whole for its slice). Rank 0 alone logs;
+the ranks that hold the same slice (``Mesh.grad_group``: the data axes that
+do not split it; never over tp, where every rank's gradient is already
+whole for its slice). A mixture-of-experts model adds its aux loss once
+per rank (``gpt.loss_terms(with_aux=True)``). Rank 0 alone logs;
 every rank joins a snapshot's gather and rank 0 writes the whole tree, the
 layout an unsharded run writes, so a snapshot restores at any mesh (one
 that would gather more than ``msgpack_gather_limit_mb`` is refused, as in
@@ -49,8 +50,15 @@ to ``profile_steps[1]``. ``debug_nans`` stops the step whose loss or
 gradients are not finite with ``FloatingPointError``, before its update
 (one read from the card per step).
 
-ZeRO, Orbax, the pp and ep axes, sp beside fsdp or tp, and the other
-options ``TrainerConfig.check_ported`` names raise.
+ZeRO (``zero_dp`` with dp > 1, ``parallel/zero.py``): the optimizer holds
+this rank's 1/dp of every leaf's update view; the step reduce-scatters the
+gradients over dp instead of all-reducing them, clips by the global norm,
+updates the shard and all-gathers the parameters (``AdamW.reduce_grads``,
+``AdamW.step``). Snapshots keep the canonical layout, so they restore at
+any dp extent, with ``zero_dp`` on or off, and are written as dp shard
+objects behind one manifest entry (``checkpoint.save_snapshot(shards=)``).
+``zero_dp`` with a directory for ``snapshot_path`` raises, as the JAX
+trainer refuses its Orbax directories. The pp axis raises.
 """
 
 from __future__ import annotations
@@ -66,6 +74,7 @@ import numpy as np
 import torch
 
 from mingpt_distributed_tpu_torch.config import (
+    ConfigError,
     ExperimentConfig,
     GPTConfig,
     OptimizerConfig,
@@ -79,6 +88,8 @@ from mingpt_distributed_tpu_torch.data.char_dataset import (
 from mingpt_distributed_tpu_torch.data.prefetch import PrefetchIterator
 from mingpt_distributed_tpu_torch.models import gpt
 from mingpt_distributed_tpu_torch.parallel import distributed as D
+from mingpt_distributed_tpu_torch.parallel import mesh as mesh_lib
+from mingpt_distributed_tpu_torch.parallel import zero as zero_lib
 from mingpt_distributed_tpu_torch.parallel.mesh import Mesh
 from mingpt_distributed_tpu_torch.telemetry import (
     SpanTracer,
@@ -143,15 +154,17 @@ def rank_generator(generator: torch.Generator, rank: int) -> torch.Generator:
 def all_reduce_grads(params, mesh: Optional[Mesh] = None) -> None:
     """Sum every parameter's gradient over the ranks that hold the same
     slice of it: the world, unless the mesh shards the parameters; then
-    ``mesh.replica_group`` for fsdp-sharded leaves (their gathers'
-    reduce-scatters summed fsdp already) and ``mesh.batch_group`` for the
-    rest. One collective per group."""
+    ``mesh.grad_group`` of each leaf (an fsdp- or ep-split leaf's gradient
+    is already summed over that axis). One collective per group."""
     named = list(_leaves(params))
     if mesh is None or not mesh.sharded:
         _sum_grads([p for _, p in named], None)
         return
-    _sum_grads([p for n, p in named if mesh.fsdp_sharded(n)], mesh.replica_group)
-    _sum_grads([p for n, p in named if not mesh.fsdp_sharded(n)], mesh.batch_group)
+    by_axes: Dict[tuple, list] = {}
+    for n, p in named:
+        by_axes.setdefault(mesh.grad_axes(n), []).append(p)
+    for axes, leaves in by_axes.items():
+        _sum_grads(leaves, mesh.group_over(axes))
 
 
 def _sum_grads(leaves, group) -> None:
@@ -164,10 +177,9 @@ def _sum_grads(leaves, group) -> None:
         p.grad = g.view_as(p)
 
 
-def check_finite(loss: torch.Tensor, params: gpt.Params, step: int) -> None:
+def check_finite(loss: torch.Tensor, grads, step: int) -> None:
     """``debug_nans``: raise FloatingPointError naming ``step`` when the
-    loss or any gradient is not finite (one read from the card)."""
-    grads = [p.grad for p in gpt._leaves(params) if p.grad is not None]
+    loss or any of ``grads`` is not finite (one read from the card)."""
     norm = _global_norm(grads) if grads else loss.new_zeros(())
     if not bool(torch.isfinite(loss) & torch.isfinite(norm)):
         raise FloatingPointError(
@@ -233,7 +245,7 @@ def make_train_step(cfg: GPTConfig, grad_accum: int = 1,
             loss.backward()
             loss = loss.detach()
         if debug_nans:
-            check_finite(loss, state.params, state.step + 1)
+            check_finite(loss, state.optimizer.grads(), state.step + 1)
         metrics = {"loss": loss, **state.optimizer.step(state.step)}
         if lr_fn is not None:
             metrics["lr"] = torch.tensor(float(lr_fn(state.step)))
@@ -251,10 +263,12 @@ def _split(x, y, grad_accum):
 
 def _distributed_step(cfg, grad_accum, lr_fn, mesh, debug_nans=False):
     """The train step of one rank of a job: each micro-batch's loss is its
-    global token mean (this rank's sum over the count of ``batch_group``),
-    the gradients are summed (``all_reduce_grads``), then clip and AdamW run
-    on every rank (on its slices under fsdp or tp). Dropout draws from
-    ``rank_generator``."""
+    global token mean (this rank's sum over the count of ``batch_group``)
+    plus, for MoE, the aux term, the gradients are summed
+    (``all_reduce_grads``; under ZeRO reduce-scattered over dp,
+    ``AdamW.reduce_grads``), then clip and AdamW run on every rank (on its
+    slices under fsdp, ep or tp; on its 1/dp under ZeRO). Dropout draws
+    from ``rank_generator``."""
     det = deterministic(cfg)
 
     def train_step(state: TrainState, batch: Batch,
@@ -264,17 +278,22 @@ def _distributed_step(cfg, grad_accum, lr_fn, mesh, debug_nans=False):
         state.optimizer.zero_grad()
         gen = None if det else rank_generator(generator, mesh.data_rank)
         loss = x.new_zeros((), dtype=torch.float32)
+        extra = x.new_zeros((), dtype=torch.float32)
         for xm, ym in _split(x, y, grad_accum):
             count = D.all_reduce((ym != -1).sum().float(),
                                  mesh.batch_group).clamp_min(1)
-            total, _ = gpt.loss_terms(state.params, xm, ym, cfg, generator=gen,
-                                      deterministic=det, mesh=mesh)
-            (total / count / grad_accum).backward()
+            total, _, aux = gpt.loss_terms(state.params, xm, ym, cfg, generator=gen,
+                                           deterministic=det, mesh=mesh, with_aux=True)
+            ((total / count + aux) / grad_accum).backward()
             loss = loss + total.detach() / count
-        loss = D.all_reduce(loss, mesh.batch_group) / grad_accum
-        all_reduce_grads(state.params, mesh)
+            extra = extra + aux.detach()
+        loss = (D.all_reduce(loss, mesh.batch_group) + extra) / grad_accum
+        if state.optimizer.zero is not None:
+            state.optimizer.reduce_grads()
+        else:
+            all_reduce_grads(state.params, mesh)
         if debug_nans:
-            check_finite(loss, state.params, state.step + 1)
+            check_finite(loss, state.optimizer.grads(), state.step + 1)
         metrics = {"loss": loss, **state.optimizer.step(state.step)}
         if lr_fn is not None:
             metrics["lr"] = torch.tensor(float(lr_fn(state.step)))
@@ -292,9 +311,10 @@ def make_eval_step(cfg: GPTConfig, mesh: Optional[Mesh] = None):
     def eval_step(state: TrainState, batch: Batch) -> torch.Tensor:
         x, y = batch
         if _distributed(mesh):
-            total, count = gpt.loss_terms(state.params, x, y, cfg, mesh=mesh)
+            total, count, aux = gpt.loss_terms(state.params, x, y, cfg, mesh=mesh,
+                                               with_aux=True)
             return (D.all_reduce(total, mesh.batch_group)
-                    / D.all_reduce(count.float(), mesh.batch_group).clamp_min(1))
+                    / D.all_reduce(count.float(), mesh.batch_group).clamp_min(1) + aux)
         _, loss = gpt.forward(state.params, x, cfg, targets=y,
                               return_logits=False)
         return loss
@@ -320,7 +340,8 @@ class GPTTrainer:
     ):
         world = D.world_size()
         config.check_ported(world)
-        gpt.check_supported(gpt_config, across_processes=world > 1)
+        gpt.check_supported(gpt_config, dict(zip(
+            mesh_lib.AXES, mesh_lib.resolve_mesh_shape(config.mesh, world))))
         self.config = config
         self.gpt_config = gpt_config
         self.experiment_config = experiment_config
@@ -369,12 +390,28 @@ class GPTTrainer:
         params = gpt.init(gpt_config, torch.Generator().manual_seed(config.seed),
                           device=self.device)
         size_report = gpt.model_size_report(params, gpt_config)
+        # ZeRO: the plan is static per (mesh, model); dp 1 keeps it None, so
+        # the step is the replicated one
+        self.zero_plan = None
+        if config.zero_dp:
+            if os.path.isdir(self.snapshot_path) or self.snapshot_path.endswith(os.sep):
+                raise ConfigError(
+                    f"zero_dp=True needs a one-file snapshot_path, got the "
+                    f"directory {self.snapshot_path!r}: the port saves the "
+                    "dp-sharded optimizer state in the canonical layout, so a "
+                    "snapshot restores at any dp extent; sharded directory "
+                    "checkpoints are ROADMAP.md Queue 1 item 12b.3")
+            if self.mesh is not None and self.mesh.dp > 1:
+                self.zero_plan = zero_lib.make_plan(self.mesh, params)
         if self.sharded:
             params = self.mesh.shard_params(params)
         params = trainable(params)
         self.state = TrainState(params, make_optimizer(
             optimizer_config, params, config.grad_norm_clip, self._lr_fn,
-            mesh=self.mesh))
+            mesh=self.mesh, zero=self.zero_plan))
+        # performance attribution: set by register_attrib()
+        self._attrib = self._attrib_clock = None
+        self._attrib_variant = ""
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
         self.start_epoch = 0
         restored = ckpt_lib.load_snapshot(self.snapshot_path, self._retry)
@@ -402,6 +439,32 @@ class GPTTrainer:
                                      tensorboard_dir=config.tensorboard_dir,
                                      registry=registry)
         self._print(size_report)
+
+    def register_attrib(self, ledger, clock, hbm=None) -> None:
+        """Register the train step with a ``telemetry.attribution``
+        ``ProgramLedger``: family ``train_step``, variant ``zero`` (the
+        dp-sharded update) or ``dense``, with analytic costs (three forward
+        passes' products and bytes, ``attribution.forward_cost``, over this
+        rank's rows). Each step's host-visible time then goes to
+        ``observe_call``, read on the injected ``clock``. With an
+        ``HBMLedger`` the resident state is accounted too: ``params`` and
+        ``opt_state`` at the bytes this rank holds (``zero.opt_moment_bytes``
+        over its fsdp/tp/ep slices: 1/dp of each under a ZeRO plan)."""
+        from mingpt_distributed_tpu_torch.telemetry import attribution
+
+        self._attrib, self._attrib_clock = ledger, clock
+        self._attrib_variant = "zero" if self.zero_plan is not None else "dense"
+        rows = self.config.batch_size // (self.mesh.batch_count if self.mesh else 1)
+        block = self.train_iter.view.block_size
+        weights = attribution.tree_bytes(self.state.params)
+        flops, nbytes = attribution.forward_cost(
+            self.gpt_config, rows, block, block, weights, 0, head_rows=rows * block)
+        ledger.observe_compile("train_step", 0.0, 3 * flops, 3 * nbytes,
+                               variant=self._attrib_variant)
+        if hbm is not None:
+            hbm.account("params", weights)
+            hbm.account("opt_state", zero_lib.opt_moment_bytes(
+                self.state.params, self.zero_plan))
 
     @property
     def sharded(self) -> bool:
@@ -510,9 +573,13 @@ class GPTTrainer:
             for xy in source:
                 # host-visible step time: the step's enqueue (and, at logged
                 # steps, the wait for the card)
+                ta0 = self._attrib_clock() if self._attrib is not None else 0.0
                 with self.tracer.span("train.step", step=self.state.step + 1):
                     m = self._train_step(self.state, self._put_batch(xy),
                                          self.generator)
+                if self._attrib is not None:
+                    self._attrib.observe_call("train_step", self._attrib_clock() - ta0,
+                                              variant=self._attrib_variant)
                 step = self.state.step
                 consumed += 1
                 self._profile(step)
@@ -593,7 +660,8 @@ class GPTTrainer:
         refused before any collective, with the JAX package's message."""
         if self.process_count > 1:
             self._check_gather_limit()
-        whole = self._gather_state() if self.sharded else None
+        whole = (self._gather_state()
+                 if self.sharded or self.zero_plan is not None else None)
         if not self.is_main:
             D.barrier()
             return
@@ -609,7 +677,7 @@ class GPTTrainer:
         state_bytes = 0
         for name, p in zip(opt.names, opt.params):
             shape = self.mesh.full_shapes[name] if self.sharded else p.shape
-            copies = 3 if opt.opt.state.get(p) else 1
+            copies = 3 if opt.opt.state else 1
             state_bytes += copies * math.prod(shape) * p.element_size()
         state_mb = state_bytes / 2**20
         limit_mb = self.config.msgpack_gather_limit_mb
@@ -626,14 +694,14 @@ class GPTTrainer:
         """The whole parameter tree and optimizer state dict, gathered from
         every rank's slices (every rank takes part)."""
         mesh = self.mesh
+        full = ((lambda name, t: mesh.gather_full(name, t).cpu()) if self.sharded
+                else (lambda name, t: t.detach().cpu()))
 
         def whole(tree, prefix=""):
             return {k: whole(v, f"{prefix}{k}/") if isinstance(v, dict)
-                    else mesh.gather_full(f"{prefix}{k}", v).cpu()
-                    for k, v in tree.items()}
+                    else full(f"{prefix}{k}", v) for k, v in tree.items()}
 
-        opt_state = self.state.optimizer.canonical_state_dict(
-            lambda name, t: mesh.gather_full(name, t).cpu())
+        opt_state = self.state.optimizer.canonical_state_dict(full)
         return whole(self.state.params), opt_state
 
     def _save(self, epoch: int, whole=None) -> None:
@@ -664,7 +732,8 @@ class GPTTrainer:
 
     def _write(self, snap: Dict[str, Any], how: str) -> None:
         ckpt_lib.save_snapshot(self.snapshot_path, snap,
-                               keep=self.config.keep_snapshots, retry=self._retry)
+                               keep=self.config.keep_snapshots, retry=self._retry,
+                               shards=self.zero_plan.dp if self.zero_plan else 1)
         print(f"Snapshot saved to {self.snapshot_path} (epoch {snap['epoch']}, "
               f"step {snap['step']}{how})", flush=True)
 

@@ -498,15 +498,15 @@ def test_control_log_validator_accepts_a_log_and_refuses_tampering():
 
 
 def test_budget_record_arithmetic():
-    rec = chip_smoke.budget_record({"serve_tp_parity+serve_tp": 50.0, "serve_cli_tp": 20.0,
-                                    "sp_tp": 30.0, "sp_tp_times": 10.0}, 700.0,
-                                   {"fsdp_tp": 41.0})
+    rec = chip_smoke.budget_record({"serve_moe_tp_parity": 20.0, "zero": 30.0,
+                                    "moe_ep": 40.0, "zero_moe_times": 20.0}, 800.0,
+                                   {"sp_tp": 41.0})
     assert rec["added_total_s"] == 110.0 and rec["added_within_budget"]
-    assert rec["smoke_within_budget"] and rec["sp_tp_s"] == 30.0
-    assert rec["earlier_slice_s"] == {"fsdp_tp": 41.0}
-    over = chip_smoke.budget_record({"sp_tp": 121.0}, 801.0)
+    assert rec["smoke_within_budget"] and rec["moe_ep_s"] == 40.0
+    assert rec["earlier_slice_s"] == {"sp_tp": 41.0}
+    over = chip_smoke.budget_record({"moe_ep": 121.0}, 876.8)
     assert not over["added_within_budget"] and not over["smoke_within_budget"]
-    assert (chip_smoke.ADDED_PHASES_BUDGET_S, chip_smoke.SMOKE_BUDGET_S) == (120.0, 800.0)
+    assert (chip_smoke.ADDED_PHASES_BUDGET_S, chip_smoke.SMOKE_BUDGET_S) == (120.0, 876.7)
 
 
 def test_fsdp_tp_geometry_and_rule_bytes_at_gpt2():
@@ -539,10 +539,11 @@ def test_fsdp_tp_geometry_and_rule_bytes_at_gpt2():
 
 
 def test_main_runs_the_added_phases_and_reports_their_seconds():
-    """_main drives the previous slice's four phases (and the times at the
-    fsdp x tp shape) and this slice's (tensor-parallel serving, sp x tp and
-    its hop times), each with its seconds in the budget line, and lists the
-    fsdp x tp and sp x tp steps' and the tp servers' launches among the
+    """_main drives the earlier slices' phases (the autoscaler, fsdp x tp
+    and its times, tensor-parallel serving, sp x tp and its hop times) and
+    this slice's (zero and moe_ep with their kernel checks and times,
+    serve_moe_tp_parity), each with its seconds in the budget line, and
+    lists the sharded steps' and the tp servers' launches among the
     paths."""
     import ast
     import inspect
@@ -553,7 +554,8 @@ def test_main_runs_the_added_phases_and_reports_their_seconds():
     for phase in ("phase_traffic_controller", "phase_autoscale", "phase_serve_cli_autoscale",
                   "phase_fsdp_tp", "phase_fsdp_tp_times", "budget_record",
                   "phase_serve_tp_parity", "phase_serve_tp", "phase_serve_cli_tp",
-                  "phase_sp", "phase_sp_tp_times"):
+                  "phase_sp", "phase_sp_tp_times", "phase_serve_moe_tp_parity",
+                  "phase_zero_moe", "phase_moe_ep_kernels", "phase_zero_moe_times"):
         assert phase in called, phase
 
     def keys(name):
@@ -562,12 +564,16 @@ def test_main_runs_the_added_phases_and_reports_their_seconds():
                 for k in [n.slice] if isinstance(k, ast.Constant)}
 
     assert keys("earlier_seconds") == {"traffic_controller", "autoscale",
-                                       "serve_cli_autoscale", "fsdp_tp", "fsdp_tp_times"}
-    assert keys("added_seconds") == {"serve_tp_parity+serve_tp", "serve_cli_tp", "sp_tp",
-                                     "sp_tp_times"}
+                                       "serve_cli_autoscale", "fsdp_tp", "fsdp_tp_times",
+                                       "serve_tp_parity+serve_tp", "serve_cli_tp", "sp_tp",
+                                       "sp_tp_times"}
+    # zero's and moe_ep's seconds come from the ranks (phase_zero_moe)
+    assert keys("added_seconds") == {"serve_moe_tp_parity", "moe_ep_kernels",
+                                     "zero_moe_times"}
     src = inspect.getsource(chip_smoke._main)
     for path in ("fsdp_tp_train_step_rank0", "sp_tp_train_step_rank0", '"serve_tp"',
-                 '"serve_tp_follower"'):
+                 '"serve_tp_follower"', "zero_train_step_rank0", "moe_ep_train_step_rank0",
+                 '"serve_moe_tp_parity"', "added_seconds.update(zm_seconds)"):
         assert path in src, path
     # serve_tp holds its tokens/s against serve's from the same call, and
     # serve_cli_tp its completions against serve_cli's
@@ -695,3 +701,29 @@ def test_parity_checks_name_their_leg():
     bad = dict(good, param_max_abs_err_all=2e-4)
     _, fails = chip_smoke.parity_checks([bad], "sp_fsdp_parity_fp32", "c")
     assert fails == ["sp_fsdp parity: post-update params 0.0002"]
+
+
+def test_zero_and_moe_ep_geometry():
+    """zero's ranks see (4, 1024, 12, 64), a kernel case checked against its
+    plain version; moe_ep's ranks hold 4096 rows each, 4 whole routing
+    groups of the global batch's 1024, 2 of 8 experts, and its attention
+    shape is checked first; the narrow MoE's 1024 tokens are one group that
+    spans every rank of distinct data, with capacity binding."""
+    from mingpt_distributed_tpu_torch.ops import moe
+
+    assert ("gpt2_main", 4, 1024, 12, 12, 64, None, None) in chip_smoke.KERNEL_CASES
+    assert chip_smoke.ZERO_BATCH // chip_smoke.ZERO_MESH["dp"] == 4
+    ep = chip_smoke.MOE_EP_MESH["ep"]
+    rows = chip_smoke.MOE_EP_BATCH * chip_smoke.MOE_EP_T // ep
+    gs = moe._group_size(chip_smoke.MOE_EP_BATCH * chip_smoke.MOE_EP_T)
+    assert (rows, gs, rows // gs) == (4096, 1024, 4)
+    assert chip_smoke.MOE_EP_KERNEL_CASE[1:6] == (1, 4096, 32, 8, 128)
+    narrow = chip_smoke.MOE_NARROW
+    tokens = chip_smoke.MOE_NARROW_ROWS * narrow["block_size"]
+    assert moe._group_size(tokens) == tokens == 1024
+    for mesh in chip_smoke.MOE_NARROW_MESHES.values():
+        data_ranks = mesh.get("dp", 1) * mesh.get("fsdp", 1) * mesh.get("ep", 1)
+        assert data_ranks > 1 and tokens // data_ranks < 1024
+    cap = moe.capacity(tokens, narrow["n_experts"], narrow["moe_top_k"],
+                       narrow["moe_capacity_factor"])
+    assert cap * narrow["n_experts"] < tokens * narrow["moe_top_k"]

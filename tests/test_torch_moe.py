@@ -493,8 +493,9 @@ def test_mixtral_presets_resolve_and_run(preset):
 
 def test_moe_trainer_learns_in_one_process(tmp_path):
     """Counterpart of tests/test_moe.py's trainer case at ep = 1: the MoE
-    model trains through GPTTrainer on one process and the loss falls; a
-    dp mesh raises naming item 12b."""
+    model trains through GPTTrainer on one process and the loss falls; MoE
+    beside sp still raises, naming item 12b (dp, fsdp, ep and tp run:
+    tests/test_torch_moe_ep.py)."""
     from mingpt_distributed_tpu_torch.config import OptimizerConfig, TrainerConfig
     from mingpt_distributed_tpu_torch.data.char_dataset import CharDataset
     from mingpt_distributed_tpu_torch.config import DataConfig
@@ -518,4 +519,5 @@ def test_moe_trainer_learns_in_one_process(tmp_path):
     tr.close()
     assert losses[-1] < losses[0]
     with pytest.raises(NotImplementedError, match="item 12b"):
-        gpt.check_supported(gcfg, across_processes=True)
+        gpt.check_supported(gcfg, dict(sp=2))
+    gpt.check_supported(gcfg, dict(dp=2, fsdp=2, ep=2, tp=2))

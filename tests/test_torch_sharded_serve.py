@@ -51,6 +51,7 @@ from mingpt_distributed_tpu_torch.telemetry import (HBMLedger, parse_prometheus,
                                                     render_prometheus, tree_bytes)
 from tests import torch_sp_workers as W
 
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(n_layer=2, n_head=2, n_embd=32, vocab_size=50, block_size=32,
             embd_pdrop=0.0, resid_pdrop=0.0, attn_pdrop=0.0, dtype="float32")
 FLEET_NEW = 8
@@ -389,7 +390,106 @@ def test_serve_mesh_flag_is_parsed_and_refused_as_in_jax(spec, message):
         t_serve._mesh_tp(args)
 
 
-def test_serve_mesh_flag_refuses_a_fleet():
-    with pytest.raises(SystemExit, match="one tensor-parallel replica"):
-        t_serve.main(["--mesh", "tp=2", "--replicas", "2", "--device", "cpu"])
+# the serve CLI with a fleet of tp = 2 replicas against the JAX CLI on the
+# same weights (a JAX msgpack snapshot, and the port's --params npz of it)
+CLI_MODEL = ["--config", os.path.join(REPO, "gpt2_config.yaml"), "gpt_config.n_layer=2",
+             "gpt_config.n_head=4", "gpt_config.n_embd=64", "gpt_config.dtype=float32",
+             "gpt_config.attn_pdrop=0", "gpt_config.attention=einsum",
+             f"data_config.path={os.path.join(REPO, 'data', 'input.txt')}",
+             "data_config.block_size=32", "data_config.truncate=0.2"]
+CLI_PROMPTS = "the king \nand so \nwhat is \no my lord. \nthe \n"
+CLI_AUTOSCALE = ("auto:metric=queue_depth:target=0.5:interval_s=0:cooldown_s=0"
+                 ":up_after=1:down_after=1:max_replicas=2")
+
+
+def _completions(out: str) -> list:
+    """The completion lines of a serve CLI's stdout (the per-request
+    banners and the summary JSON dropped)."""
+    return [line for line in out.splitlines()
+            if line and not line.startswith(("===", "{"))]
+
+
+@pytest.fixture(scope="module")
+def cli_weights(tmp_path_factory, eight_devices):
+    import importlib.util
+
+    from mingpt_distributed_tpu.data.char_dataset import CharDataset as JChars
+    from mingpt_distributed_tpu.config import load_config as j_load
+    from mingpt_distributed_tpu.training import checkpoint as j_ckpt
+
+    tmp = tmp_path_factory.mktemp("tp_fleet_cli")
+    exp = j_load(CLI_MODEL[1], CLI_MODEL[2:])
+    ds = JChars(exp.data_config)
+    jcfg = dataclasses.replace(exp.gpt_config, vocab_size=ds.vocab_size, block_size=32)
+    tree = jax.device_get(j_gpt.init(jax.random.key(5), jcfg))
+    tree = jax.tree.map(lambda a: a + np.float32(0.1) * np.sign(a), tree)
+    np.savez(tmp / "params.npz", **convert.flatten(tree))
+    j_ckpt.save_snapshot(str(tmp / "snap.msgpack"),
+                         j_ckpt.Snapshot(params=tree, opt_state={}, step=1))
+    (tmp / "prompts.txt").write_text(CLI_PROMPTS)
+    spec = importlib.util.spec_from_file_location("jax_serve_cli",
+                                                  os.path.join(REPO, "serve.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return tmp, mod
+
+
+def _fleet_cli_pair(cli_weights, capsys, extra):
+    tmp, j_cli = cli_weights
+    common = ["--greedy", "--max-new-tokens", "10", "--prompts-file",
+              str(tmp / "prompts.txt"), "--slots", "2", *extra]
+    assert j_cli.main([*common, "--mesh", "tp=2", *CLI_MODEL,
+                       f"trainer_config.snapshot_path={tmp / 'snap.msgpack'}"]) == 0
+    want = _completions(capsys.readouterr().out)
+    assert t_serve.main([*common, "--mesh", "tp=2", "--dist-backend", "gloo",
+                         "--device", "cpu", "--params", str(tmp / "params.npz"),
+                         *CLI_MODEL]) == 0
+    got = capsys.readouterr()
+    assert t_serve.main([*common, "--device", "cpu", "--params",
+                         str(tmp / "params.npz"), *CLI_MODEL]) == 0
+    plain = _completions(capsys.readouterr().out)
+    return want, got, plain
+
+
+def test_serve_mesh_tp2_with_two_replicas_matches_the_jax_cli(cli_weights, capsys):
+    """``serve --mesh tp=2 --replicas 2``: two tp = 2 replicas, each on a
+    lockstep group of its own, serve the JAX CLI's completions (its fleet
+    shares one tp mesh) and the port's tp = 1 fleet's."""
+    want, got, plain = _fleet_cli_pair(cli_weights, capsys, ["--replicas", "2"])
+    assert len(want) == 5 and len(set(want)) > 1
+    assert _completions(got.out) == want == plain
+    assert "2 group(s) of 1 follower" in got.err and "tp=2 each" in got.err
+    assert "[serve] tp follower exits: [0, 0]" in got.err
+
+
+def test_serve_mesh_tp2_with_autoscale_matches_the_jax_cli(cli_weights, capsys):
+    """``serve --mesh tp=2 --autoscale ...max_replicas=2``: a group for
+    each replica the autoscaler may hold, the same completions as the JAX
+    CLI's."""
+    want, got, plain = _fleet_cli_pair(cli_weights, capsys,
+                                       ["--replicas", "1", "--autoscale", CLI_AUTOSCALE])
+    assert _completions(got.out) == want == plain
+    assert "SLO autoscaler attached" in got.err
+    assert "2 group(s) of 1 follower" in got.err
+    assert "[serve] tp follower exits: [0, 0]" in got.err
+
+
+def test_tp_mesh_pool_reuses_a_drained_replicas_group():
+    """The fleet's replica indices never recycle: a scale-up after a
+    scale-down takes the group the drained replica held, never a live
+    replica's; a respawn keeps its group."""
+    pool = t_serve.TPMeshPool(["g0", "g1"])
+    assert pool["replica0"] == "g0" and pool["replica1"] == "g1"
+    assert pool["replica1"] == "g1"  # a respawn
+    with pytest.raises(KeyError, match="every one of the 2"):
+        pool["replica2"]
+    pool.live = lambda: {"replica0"}
+    assert pool["replica2"] == "g1" and "replica9" in pool and len(pool) == 3
+    pool.live = lambda: {"replica2"}
+    assert pool["replica3"] == "g0"
+
+
+def test_serve_mesh_refuses_process_isolation():
+    with pytest.raises(SystemExit, match="--isolation process"):
+        t_serve.main(["--mesh", "tp=2", "--isolation", "process", "--device", "cpu"])
 

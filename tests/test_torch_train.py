@@ -466,8 +466,9 @@ def test_entry_point_without_a_gpu_raises(tmp_path):
 
 
 NOT_PORTED = {"zero_dp": True, "msgpack_gather_limit_mb": 1}
-# ported since: the save refuses a gather above the limit (test_torch_sharded_train)
-PORTED_SINCE = {"msgpack_gather_limit_mb"}
+# ported since: the save refuses a gather above the limit
+# (test_torch_sharded_train); ZeRO over dp (test_torch_zero)
+PORTED_SINCE = {"msgpack_gather_limit_mb", "zero_dp"}
 
 
 @pytest.mark.parametrize("option", sorted(NOT_PORTED))
@@ -489,10 +490,10 @@ def test_every_unported_option_is_checked():
 @pytest.mark.parametrize("mesh", [dict(tp=2), dict(dp=2), dict(fsdp=2), dict(sp=2),
                                   dict(pp=2), dict(ep=2)])
 def test_multi_device_meshes_raise(mesh):
-    """dp, fsdp, tp and sp run across processes: in one process they do not
-    fit; pp and ep are not ported, whatever the processes."""
+    """dp, fsdp, ep, tp and sp run across processes: in one process they do
+    not fit; pp is not ported, whatever the processes."""
     cfg = TrainerConfig.make(mesh=mesh)
-    if set(mesh) <= {"dp", "fsdp", "tp", "sp"}:
+    if set(mesh) <= {"dp", "fsdp", "ep", "tp", "sp"}:
         with pytest.raises(ValueError, match="torch.distributed.run"):
             cfg.check_ported()
         cfg.check_ported(world_size=2)

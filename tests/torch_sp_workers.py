@@ -498,3 +498,338 @@ def jobs(rank: int, todo: list) -> list:
     a list of (function name, arguments)."""
     torch.set_num_threads(1)  # the ranks share the test worker's cores
     return [globals()[name](rank, *args) for name, args in todo]
+
+
+# -- ZeRO (tests/test_torch_zero.py) -------------------------------------------
+
+def _opt(params, mesh, lr, zero, whole=None):
+    """The plan of the whole parameters (``whole``, default ``params``) and
+    an AdamW over ``params`` (this rank's slices)."""
+    from mingpt_distributed_tpu_torch.parallel import zero as zero_lib
+
+    plan = (zero_lib.make_plan(mesh, whole if whole is not None else params)
+            if zero and mesh.dp > 1 else None)
+    return plan, make_optimizer(OptimizerConfig.make(learning_rate=lr), params, 1.0,
+                                mesh=mesh, zero=plan)
+
+
+def _canonical_mu(opt, full) -> dict:
+    """Every leaf's first Adam moment by name, whole and in the canonical
+    layout (``canonical_state_dict``; every rank joins the gathers)."""
+    sd = opt.canonical_state_dict(full)
+    order = [i for g in sd["param_groups"] for i in g["params"]]
+    by_id = {id(t): n for n, t in zip(opt.names, opt.shards)}
+    names = [by_id[id(t)] for g in opt.opt.param_groups for t in g["params"]]
+    return {n: sd["state"][i]["exp_avg"] for i, n in zip(order, names)}
+
+
+def zero_losses(rank: int, cfg_kw: dict, mesh_kw: dict, params_tree: dict,
+                batches: list, lr: float, grad_accum: int = 1, zero: bool = True) -> dict:
+    """``make_train_step`` with ``zero_dp`` on a dp (x fsdp x tp) mesh from
+    the whole ``params_tree``: the losses, the whole parameters and the
+    canonical first Adam moment after the first step (rank 0), the whole
+    parameters after the last, this rank's Adam bytes against
+    ``opt_moment_bytes`` (and the dense moments' bytes), and the
+    collectives' host seconds."""
+    from mingpt_distributed_tpu_torch.parallel import zero as zero_lib
+
+    cfg = GPTConfig.make(**cfg_kw)
+    mesh = Mesh(MeshConfig(**mesh_kw))
+    whole = convert.params_from_numpy(params_tree, cfg, "cpu")
+    params = t_trainer.trainable(mesh.shard_params(whole) if mesh.sharded else whole)
+    plan, opt = _opt(params, mesh, lr, zero, whole)
+    opt.timings = {}
+    opt.init_moments()
+    moment_bytes = opt.moment_bytes()
+    state = t_trainer.TrainState(params, opt)
+    step = t_trainer.make_train_step(cfg, grad_accum=grad_accum, mesh=mesh)
+    full = (lambda n, t: mesh.gather_full(n, t)) if mesh.sharded else (lambda n, t: t)
+
+    def whole_params():
+        if mesh.sharded:
+            return _whole(mesh, state.params)
+        return {n: p.detach().numpy().copy() for n, p in convert.flatten(state.params).items()}
+
+    losses, first, norms = [], None, []
+    for i, (x, y) in enumerate(batches):
+        m = step(state, (_rows(x, mesh), _rows(y, mesh)))
+        losses.append(m["loss"].item())
+        norms.append((m["grad_norm"].item(), m["update_norm"].item()))
+        if i == 0:  # every rank joins the gathers; rank 0 keeps the result
+            mu = _canonical_mu(opt, full)
+            first = dict(params=whole_params(), mu={n: t.numpy() for n, t in mu.items()})
+    return dict(losses=losses, norms=norms, first=first if rank == 0 else None,
+                last=whole_params(), moment_bytes=moment_bytes,
+                planned_bytes=zero_lib.opt_moment_bytes(whole, plan),
+                dense_bytes=zero_lib.opt_moment_bytes(whole, None),
+                timings=dict(opt.timings),
+                modes={n: lp.mode for n, lp in plan.by_name.items()} if plan else None)
+
+
+def zero_flat_parity(rank: int) -> dict:
+    """A leaf dp does not divide (5 elements at dp 4: flat mode, pad 3):
+    the sharded clip + AdamW step against the replicated one in this
+    process."""
+    mesh = Mesh(MeshConfig(dp=-1))
+    out = {}
+    for zero in (False, True):
+        p = {"lnf_bias": torch.linspace(-1.0, 1.0, 5).requires_grad_()}
+        plan, opt = _opt(p, mesh, 1e-2, zero)
+        p["lnf_bias"].grad = torch.linspace(3.0, -2.0, 5)
+        if zero:
+            opt.reduce_grads()
+            # every rank held the same gradient: the sum over dp is dp times it
+            for s in opt.shards:
+                s.grad /= mesh.dp
+        m = opt.step(0)
+        out["zero" if zero else "dense"] = dict(
+            value=p["lnf_bias"].detach().numpy(), grad_norm=m["grad_norm"].item(),
+            mode=plan.by_name["lnf_bias"].mode if plan else None,
+            pad=plan.by_name["lnf_bias"].pad if plan else None,
+            shard=tuple(opt.shards[0].shape))
+    return out
+
+
+def _zero_trainer(text, snapshot, max_steps, mesh_kw, zero=True, **kw):
+    return _sharded_trainer(text, snapshot, max_steps, mesh_kw, zero_dp=zero, **kw)
+
+
+def _canonical(tr) -> dict:
+    """The trainer's whole parameters and canonical Adam state (every rank
+    joins the gathers)."""
+    params, opt_state = (tr._gather_state() if tr.sharded or tr.zero_plan is not None
+                         else ({n: p.detach() for n, p in
+                                convert.flatten(tr.state.params).items()},
+                               tr.state.optimizer.opt.state_dict()))
+    flat = convert.flatten(params) if "blocks" in params else params
+    moments = {f"{k}/{i}": st[k].numpy() for i, st in opt_state["state"].items()
+               for k in ("exp_avg", "exp_avg_sq")}
+    return dict(params={n: p.numpy() for n, p in flat.items()}, moments=moments)
+
+
+def zero_trainer(rank: int, text: str, tmp: str) -> dict:
+    """GPTTrainer with zero_dp at dp 4: an uninterrupted 8-step run; 4 steps
+    and a snapshot, resumed to 8; the dp 4 snapshot restored at dp 2 x tp 2
+    (a plan of dp 2) and gathered back; the moment bytes; the snapshot's
+    shard objects."""
+    full = _zero_trainer(text, os.path.join(tmp, "zfull.pt"), 8, dict(dp=-1))
+    full_last = full.train()
+    _zero_trainer(text, os.path.join(tmp, "zhalf.pt"), 4, dict(dp=-1)).train()
+    resumed = _zero_trainer(text, os.path.join(tmp, "zhalf.pt"), 8, dict(dp=-1))
+    resumed_at = resumed.step
+    resumed_last = resumed.train()
+    full_eval, resumed_eval = full.evaluate(), resumed.evaluate()
+    # a dp 4 snapshot at step 4, read back at dp 2 x tp 2 (a dp 2 plan)
+    dp4 = _zero_trainer(text, os.path.join(tmp, "z4.pt"), 4, dict(dp=-1))
+    dp4.train()
+    wrote = _canonical(dp4)
+    at2 = _zero_trainer(text, os.path.join(tmp, "z4.pt"), 4, dict(dp=2, tp=2))
+    read2 = _canonical(at2)
+    opt = full.state.optimizer
+    # attribution: the step registered as "zero", the moments at their share
+    from mingpt_distributed_tpu_torch.parallel import zero as zero_lib
+    from mingpt_distributed_tpu_torch.telemetry.attribution import HBMLedger, ProgramLedger
+
+    attrib = {}
+    for run, mesh_kw in (("dp4", dict(dp=-1)), ("dp2_fsdp2", dict(dp=2, fsdp=2))):
+        ticks = iter(range(10 ** 6))
+        ledger, hbm = ProgramLedger(), HBMLedger(capacity_bytes=1e12)
+        attributed = _zero_trainer(text, os.path.join(tmp, f"zattr_{run}.pt"), 2, mesh_kw)
+        attributed.register_attrib(ledger, lambda: float(next(ticks)), hbm)
+        attributed.train()
+        stats = ledger._programs[("train_step", attributed._attrib_variant)]
+        whole = {n: torch.empty(s, device="meta")
+                 for n, s in (attributed.mesh.full_shapes.items() if attributed.sharded
+                              else ((n, p.shape) for n, p in
+                                    convert.flatten(attributed.state.params).items()))}
+        attrib[run] = dict(variant=attributed._attrib_variant, calls=stats.calls,
+                           opt_state=hbm.owners()["opt_state"],
+                           held=attributed.state.optimizer.moment_bytes(),
+                           local=zero_lib.opt_moment_bytes(attributed.state.params,
+                                                           attributed.zero_plan),
+                           planned=zero_lib.opt_moment_bytes(convert.unflatten(whole),
+                                                             attributed.zero_plan),
+                           dense=zero_lib.opt_moment_bytes(convert.unflatten(whole)))
+    return dict(full_loss=full_last["loss"], attrib=attrib, resumed_loss=resumed_last["loss"],
+                full_eval=full_eval, resumed_eval=resumed_eval, resumed_at=resumed_at,
+                full=_canonical(full)["params"], resumed=_canonical(resumed)["params"],
+                wrote=wrote, read2=read2, at2_step=at2.step,
+                at2_plan_dp=at2.zero_plan.dp if at2.zero_plan else None,
+                moment_bytes=opt.moment_bytes(), shards=len(opt.shards),
+                dense_bytes=sum(2 * p.numel() * 4 for p in opt.params),
+                shard_files=sorted(f for f in os.listdir(tmp) if f.startswith("z4.pt")))
+
+
+def reshard_tree() -> dict:
+    """Three leaves of the ZeRO plan's modes at dp 4 and 2: ``wte`` (8, 3)
+    split on dim 0, ``head`` (3, 8) on dim 1,
+    ``lnf_bias`` (5,) flat (pad 3 at dp 4, 1 at dp 2)."""
+    return {"wte": torch.arange(24.0).reshape(8, 3).requires_grad_(),
+            "head": torch.arange(24.0).reshape(3, 8).mul(0.5).requires_grad_(),
+            "lnf_bias": torch.arange(5.0).requires_grad_()}
+
+
+def _state_arrays(sd) -> dict:
+    """An optimizer state dict's moments and counts as numpy arrays."""
+    return {f"{i}/{k}": v.detach().numpy().copy() for i, st in sd["state"].items()
+            for k, v in st.items()}
+
+
+def zero_reshard(rank: int, tmp: str) -> dict:
+    """AdamW's snapshot path at dp 4 -> dp 2: a dp 4 ZeRO update over
+    ``reshard_tree`` (each rank's gradients differ, so the reduce-scatter
+    sums), its canonical state saved as 4 shard objects; restored at dp 2
+    (x sp 2: the parameters whole on every rank) and saved again as 2.
+    Returns both canonical states and each rank's shard shapes."""
+    from mingpt_distributed_tpu_torch.parallel import distributed as D
+    from mingpt_distributed_tpu_torch.training import checkpoint as ckpt
+    from mingpt_distributed_tpu_torch.training.durability import NO_WAIT
+
+    out = {}
+    p4 = reshard_tree()
+    _, opt4 = _opt(p4, Mesh(MeshConfig(dp=4)), 1e-2, True)
+    for p in p4.values():
+        p.grad = torch.linspace(-1.0, 2.0, p.numel()).reshape(p.shape) * (1 + rank)
+    opt4.reduce_grads()
+    opt4.step(0)
+    sd4 = opt4.canonical_state_dict(lambda _n, t: t)
+    out["shapes4"] = {n: tuple(t.shape) for n, t in zip(opt4.names, opt4.shards)}
+    params = {n: p.detach().clone() for n, p in p4.items()}
+    if rank == 0:
+        ckpt.save_snapshot(os.path.join(tmp, "r4.pt"),
+                           {"params": params, "opt_state": sd4, "step": 1, "epoch": 0},
+                           retry=NO_WAIT, shards=4)
+    D.barrier()
+    snap = ckpt.load_snapshot(os.path.join(tmp, "r4.pt"), retry=NO_WAIT)
+    p2 = reshard_tree()
+    with torch.no_grad():
+        for n, p in p2.items():
+            p.copy_(snap["params"][n])
+    _, opt2 = _opt(p2, Mesh(MeshConfig(dp=2, sp=2)), 1e-2, True)
+    opt2.load_canonical_state_dict(snap["opt_state"], lambda _n, t: t)
+    out["shapes2"] = {n: tuple(t.shape) for n, t in zip(opt2.names, opt2.shards)}
+    sd2 = opt2.canonical_state_dict(lambda _n, t: t)
+    if rank == 0:
+        ckpt.save_snapshot(os.path.join(tmp, "r2.pt"),
+                           {"params": params, "opt_state": sd2, "step": 1, "epoch": 0},
+                           retry=NO_WAIT, shards=2)
+    D.barrier()
+    out.update(sd4=_state_arrays(sd4), sd2=_state_arrays(sd2),
+               params={n: t.numpy() for n, t in params.items()})
+    return out
+
+
+# -- mixture of experts across ranks (tests/test_torch_moe_ep.py) -------------
+
+def _exchange(mesh):
+    return gpt._moe_exchange(mesh)
+
+
+def moe_layer_cases(rank: int, cases: dict) -> dict:
+    """``moe_mlp`` on this rank's rows of each case's global (B, T, D) input
+    over the case's mesh: the output rows, the aux loss, and the whole
+    gradients of the router, of the expert weights (summed over the ranks
+    and gathered from this rank's experts and columns) and of the input
+    rows, of sum(out * g) + aux."""
+    from mingpt_distributed_tpu_torch.ops import moe
+    from mingpt_distributed_tpu_torch.parallel import distributed as D
+
+    out = {}
+    for name, c in cases.items():
+        mesh = Mesh(MeshConfig(**c["mesh"]))
+        whole = {"blocks": {k: torch.from_numpy(v)[None] for k, v in c["w"].items()}}
+        local = mesh.shard_params(whole)["blocks"] if mesh.sharded else whole["blocks"]
+        leaves = {k: v[0].clone().requires_grad_() for k, v in local.items()}
+        used = ({k: mesh.gather(f"blocks/{k}", v, keep_tp=True, layer=True)
+                 for k, v in leaves.items()} if mesh.sharded else leaves)
+        n = c["x"].shape[0] // mesh.batch_count
+        rows = slice(mesh.batch_index * n, (mesh.batch_index + 1) * n)
+        x = torch.from_numpy(c["x"][rows]).requires_grad_()
+        y, aux = moe.moe_mlp(x, used["w_router"], used["w_e1"], used["w_e2"],
+                             w_gate=used.get("w_eg"), top_k=c["top_k"],
+                             capacity_factor=c["cf"], exchange=gpt._moe_exchange(mesh),
+                             tp_group=mesh.tp_group if mesh.tp > 1 else None)
+        ((y * torch.from_numpy(c["g"][rows])).sum() + aux).backward()
+        grads = {}
+        for k, v in leaves.items():
+            path = f"blocks/{k}"
+            gr = v.grad[None].contiguous()
+            D.all_reduce(gr, mesh.grad_group(path))
+            grads[k] = (mesh.gather_full(path, gr) if mesh.sharded else gr)[0].numpy()
+        out[name] = dict(y=y.detach().numpy(), aux=aux.item(), grads=grads,
+                         x_grad=x.grad.numpy(), rows=(rows.start, n))
+    return out
+
+
+def moe_forward(rank: int, cfg_kw: dict, mesh_kw: dict, params_tree: dict,
+                tokens: np.ndarray) -> dict:
+    """The MoE model's forward on this rank's rows of ``tokens`` over the
+    mesh: its logits and the global loss (token mean plus the aux term)."""
+    from mingpt_distributed_tpu_torch.parallel import distributed as D
+
+    cfg = GPTConfig.make(**cfg_kw)
+    mesh = Mesh(MeshConfig(**mesh_kw))
+    whole = convert.params_from_numpy(params_tree, cfg, "cpu")
+    params = mesh.shard_params(whole) if mesh.sharded else whole
+    x = _rows(tokens, mesh)
+    with torch.no_grad():
+        logits, _ = gpt.forward(params, x, cfg, mesh=mesh)
+        total, count, aux = gpt.loss_terms(params, x, x, cfg, mesh=mesh, with_aux=True)
+    loss = D.all_reduce(total, mesh.batch_group) / D.all_reduce(
+        count.float(), mesh.batch_group) + aux
+    return dict(logits=logits.numpy(), loss=loss.item(),
+                rows=(mesh.batch_index * x.shape[0], x.shape[0]),
+                local_experts=int(params["blocks"]["w_e1"].shape[1]))
+
+
+def moe_trainer(rank: int, text: str, tmp: str, mesh_kw: dict, moe_kw: dict) -> dict:
+    """GPTTrainer on an MoE model over the mesh: 8 steps' losses, this
+    rank's expert count and the eval loss."""
+    data = CharDataset(DataConfig.make(block_size=16), text=text)
+    train, test = data.split()
+    gcfg = GPTConfig.make(n_layer=2, n_head=2, n_embd=32, vocab_size=data.vocab_size,
+                          block_size=16, dtype="float32", embd_pdrop=0.0,
+                          resid_pdrop=0.0, attn_pdrop=0.0, **moe_kw)
+    tcfg = TrainerConfig.make(batch_size=16, max_steps=8, log_every=1, eval_batches=2,
+                              grad_norm_clip=1.0, snapshot_path=os.path.join(tmp, "moe.pt"),
+                              seed=7, mesh=mesh_kw)
+    tr = t_trainer.GPTTrainer(tcfg, gcfg, OptimizerConfig(learning_rate=1e-2), train, test,
+                              device="cpu")
+    losses = []
+    for xy in tr.train_iter.epoch_batches():
+        losses.append(tr._train_step(tr.state, tr._put_batch(xy), tr.generator)["loss"].item())
+        if len(losses) == 8:
+            break
+    return dict(losses=losses, local_experts=int(tr.state.params["blocks"]["w_e1"].shape[1]),
+                eval_loss=tr.evaluate(), experts=gcfg.n_experts)
+
+
+def moe_tp_serving(rank: int, tree: dict, cfg_kw: dict, prompts: list, new: int) -> dict:
+    """An MoE model served at tp = 2 by ranks 0 and 1 (rank 0 drives; the
+    other ranks hold no group) and at tp = 1 by rank 0: greedy tokens, each
+    rank's pool and its experts' hidden width, and the largest logit
+    difference of one prefill."""
+    from mingpt_distributed_tpu_torch.parallel.mesh import serving_meshes
+    from mingpt_distributed_tpu_torch.serving import DecodeEngine, InferenceServer, Request
+
+    meshes = serving_meshes([[0, 1]], timeout_s=60)
+    if rank > 1:
+        return {}
+    if rank == 1:
+        (mesh,) = meshes.values()
+        return {"commands": DecodeEngine.follow(mesh, "cpu")}
+    cfg = GPTConfig.make(**cfg_kw)
+    params = convert.params_from_numpy(tree, cfg, "cpu")
+    out = {}
+    for name, mesh in (("tp1", None), ("tp2", meshes[0])):
+        srv = InferenceServer(params, cfg, n_slots=2, mesh=mesh, device="cpu")
+        handles = [srv.submit(Request(prompt=p, max_new_tokens=new)) for p in prompts]
+        srv.run_until_drained(max_steps=500)
+        eng = srv.engine
+        out[name] = dict(tokens=[h.tokens for h in handles],
+                         pool=tuple(eng.pool.cache["k"].shape),
+                         ffn_local=int(eng.params["blocks"]["w_e1"].shape[-1]),
+                         reports=eng.follower_reports())
+        if mesh is not None:
+            eng.shutdown()
+    return out
