@@ -1595,6 +1595,10 @@ SERVE_SPEC_REQUESTS = 12
 # reads per window (20 for serve): each quantized step issues ~1,340
 # kernels, whose profile takes most of the phase's seconds
 SERVE_QUANT_REQUESTS = 16
+# the fleets' and tp serving's share of serve's traffic: its first 16 of 32
+# requests (at 32 the three phases took ~95 s of a 968.8 s smoke on a slow
+# host; the pipeline and checkpoint legs are paid for with the cut)
+FLEET_REQUESTS = 16
 QUANT_PROFILE_STEPS = 5
 
 
@@ -1902,8 +1906,9 @@ def phase_serve_tp_parity(params32, card, group):
 
 
 def phase_serve_tp(params32, card, group, serve_rec):
-    """serve's traffic (bf16, 8 slots, 32 requests, 64 new, chunks of 256,
-    the prefix cache, warmup) through the tp = 2 server: tokens/s, TTFT and
+    """serve's traffic (bf16, 8 slots, its first FLEET_REQUESTS requests,
+    64 new, chunks of 256, the prefix cache, warmup) through the tp = 2
+    server: tokens/s, TTFT and
     ITL p99, host ms per decode step, the tp collectives' ms per step (the
     card synchronised before each: host traffic alone) and the command
     broadcast's, the ratio to serve's tokens/s in this call (shared card:
@@ -1915,7 +1920,7 @@ def phase_serve_tp(params32, card, group, serve_rec):
     from mingpt_distributed_tpu_torch.serving import lockstep
 
     cfg = gpt2_config("flash", "bfloat16")
-    reqs, lengths, sampled = serve_traffic(32, cfg.vocab_size)
+    reqs, lengths, sampled = serve_traffic(FLEET_REQUESTS, cfg.vocab_size)
     token_times = {}
 
     def on_token(handle, _tok):
@@ -1987,7 +1992,7 @@ def phase_serve_tp(params32, card, group, serve_rec):
     reports = tp_rank_checks("serve_tp", server, cfg.kv_heads // TP_SERVE,
                              pool_bytes_want(cfg, 8, "fp32"), server.compile_counts())
     rec = {"phase": "serve_tp", "model": "gpt2 124M", "dtype": "bfloat16", "tp": TP_SERVE,
-           "backend": "gloo, one shared card", "slots": 8, "requests": 32,
+           "backend": "gloo, one shared card", "slots": 8, "requests": len(reqs),
            "sampled_top_k50": sum(sampled), "prompt_tokens": int(sum(lengths)),
            "new_tokens": SERVE_NEW, "generated_tokens": generated, "seconds": dt,
            "tokens_per_s": generated / dt,
@@ -2605,7 +2610,7 @@ def _fleet_run(params32, cfg, reqs, tap=False):
 
 
 def phase_fleet(params32, card, serve_rec):
-    """The fleet on serve's traffic (``serve_traffic``: 32 requests, bf16,
+    """The fleet on serve's traffic (``serve_traffic``: FLEET_REQUESTS, bf16,
     64 new tokens, one in four sampled) through 2 replicas x 4 slots on the
     wall clock, each replica built like serve's server (chunked prefill 256,
     a 256 MiB prefix cache, warmup): tokens/s beside serve's (one server, 8
@@ -2616,7 +2621,7 @@ def phase_fleet(params32, card, serve_rec):
     clock), and its greedy rows hold the tie rule against solo decoding at
     every step. No crash, no step failure, no kernel launch."""
     cfg = gpt2_config("flash", "bfloat16")
-    reqs, lengths, sampled = serve_traffic(32, cfg.vocab_size)
+    reqs, lengths, sampled = serve_traffic(FLEET_REQUESTS, cfg.vocab_size)
     router, handles, dt, token_times, round_ms, faults, launches, _ = _fleet_run(
         params32, cfg, reqs)
     generated = sum(len(h.tokens) for h in handles)
@@ -3176,7 +3181,7 @@ def procfleet_workers(tmp):
 
 
 def phase_procfleet(params32, card, serve_rec, fleet_rec, workers):
-    """serve's traffic (32 requests, bf16, 64 new tokens, one in four
+    """serve's traffic (FLEET_REQUESTS, bf16, 64 new tokens, one in four
     sampled) through ``procfleet_workers`` (2 x 4 slots on the wall clock;
     built while procfleet_parity's later legs ran, idle since): tokens/s
     beside serve's and the thread fleet's, TTFT and ITL
@@ -3188,7 +3193,7 @@ def phase_procfleet(params32, card, serve_rec, fleet_rec, workers):
     from mingpt_distributed_tpu_torch.serving.procfleet import transport as tr
 
     cfg = gpt2_config("flash", "bfloat16")
-    reqs, lengths, sampled = serve_traffic(32, cfg.vocab_size)
+    reqs, lengths, sampled = serve_traffic(FLEET_REQUESTS, cfg.vocab_size)
     supervisor, router, streamed, spawns, sink = workers
     token_times = {}
     router.on_token = lambda fh, t: (streamed.setdefault(fh.request_id, []).append(t),
@@ -3964,6 +3969,9 @@ SP_T = 4096
 SP_BATCH = 4
 SP_STEPS = 2  # a loss that falls, within the smoke's time budget
 SP_DP2_LAYERS = 2
+# the main path's ring in fp32: 4 of its 12 layers (cut from 12 to pay for
+# the pipeline legs), the same ring per layer and the same T
+SP_FP32_LAYERS = 4
 # Zigzag K3 launches per rank per layer and forward: 3 at step 0 (early x
 # early and late x late causal, late x early full) and one batch-stacked
 # call per hop, 3 + (n - 1); as many prep passes, K4a and K4b in the
@@ -4256,8 +4264,9 @@ def sp_rank(rank):
     fp32, the dp x sp step (fp32). Rank 0 then runs each step's dense
     single-process reference (the others wait in their next collective).
     Then the sp x tp main path and the sp x tp and sp x fsdp fp32 legs, the
-    fsdp x tp slice (``ft_rank``) and the zero and moe_ep slices
-    (``zero_moe_rank``): one spawn serves every phase."""
+    fsdp x tp slice (``ft_rank``), the zero and moe_ep slices
+    (``zero_moe_rank``) and the pipeline and checkpoint slices
+    (``pp_rank``): one spawn serves every phase."""
     from mingpt_distributed_tpu_torch.config import MeshConfig
     from mingpt_distributed_tpu_torch.parallel.mesh import Mesh
 
@@ -4268,7 +4277,7 @@ def sp_rank(rank):
     out = {"attention": _sp_attention(Mesh(MeshConfig(dp=1, sp=SP)), device)}
     for key, cfg, dp, seed, steps in (
             ("main", _sp_gpt_config("ring"), 1, 5, SP_STEPS),
-            ("main_fp32", _sp_gpt_config("ring", dtype="float32"), 1, 5, 1),
+            ("main_fp32", _sp_gpt_config("ring", SP_FP32_LAYERS, "float32"), 1, 5, 1),
             ("dp2_sp2", _sp_gpt_config("ulysses", SP_DP2_LAYERS, "float32"), 2, 6, 1)):
         mesh = Mesh(MeshConfig(dp=dp, sp=SP // dp))
         out[key], grads = _sp_train(cfg, mesh, device, seed, steps)
@@ -4286,6 +4295,8 @@ def sp_rank(rank):
     out["ft_seconds"] = time.perf_counter() - t0
     torch.cuda.empty_cache()
     out["zm"] = zero_moe_rank(device)
+    torch.cuda.empty_cache()
+    out["pp"] = pp_rank(device, rank)
     return out
 
 
@@ -4375,11 +4386,12 @@ def sp_checks(ranks, card):
 
     # the main path's ring and model in float32, gradients held
     m32 = [r["main_fp32"] for r in ranks]
-    want32 = expected(flash_lse_fwd=per_step, flash_bwd_prep=per_step,
-                      flash_lse_bwd_dq=per_step, flash_lse_bwd_dkv=per_step)
+    per_fp32 = SP_K3_PER_LAYER * SP_FP32_LAYERS
+    want32 = expected(flash_lse_fwd=per_fp32, flash_bwd_prep=per_fp32,
+                      flash_lse_bwd_dq=per_fp32, flash_lse_bwd_dkv=per_fp32)
     records.append(_sp_step_record(
         "sp_train_step_fp32", m32, m32[0]["dense"], attention="ring (zigzag)",
-        dtype="float32", launches_want=want32, loss_tol=SP_FP32_LOSS_TOL,
+        layers=SP_FP32_LAYERS, dtype="float32", launches_want=want32, loss_tol=SP_FP32_LOSS_TOL,
         grad_rel_tol=GRAD_FP32_REL_TOL, card=card))
     fails += [("main", f"sp fp32 step launches {m['launches']}, want {want32}")
               for m in m32 if m["launches"] != want32]
@@ -4465,9 +4477,10 @@ def sp_tp_checks(ranks, card):
 def phase_sp(card):
     """The sp slice on SP ranks sharing the card. Returns the main path's
     and the sp x tp main path's launch counts (rank 0's), the sp x tp legs'
-    seconds, each rank's fsdp x tp results with their seconds and each
-    rank's zero and moe_ep results (the same ranks run them:
-    ``phase_fsdp_tp`` and ``phase_zero_moe`` check them)."""
+    seconds, each rank's fsdp x tp results with their seconds, each rank's
+    zero and moe_ep results and each rank's pipeline and checkpoint
+    results (the same ranks run them: ``phase_fsdp_tp``, ``phase_zero_moe``
+    and ``phase_pp`` check them)."""
     from mingpt_distributed_tpu_torch.parallel.spawn import run_ranks
 
     t0 = time.perf_counter()
@@ -4482,7 +4495,7 @@ def phase_sp(card):
     return (ranks[0]["main"]["launches"], ranks[0]["sp_tp"]["launches"],
             sp_tp["legs_seconds"], ([r["ft"] for r in ranks],
                                     max(r["ft_seconds"] for r in ranks)),
-            [r["zm"] for r in ranks])
+            [r["zm"] for r in ranks], [{"pp": r["pp"]} for r in ranks])
 
 
 # ---------------------------------------------------------------------------
@@ -4766,7 +4779,7 @@ FT_MESH = dict(dp=1, fsdp=2, tp=2)
 FT_RANKS = 4
 FT_T = 1024
 FT_BATCH = 16
-FT_STEPS = 2  # after the warm-up step, within the smoke's time budget
+FT_STEPS = 1  # after the warm-up step, within the smoke's time budget
 FT_PARITY_LAYERS = 2
 FT_PARITY_BATCH = 4
 FT_PARITY_STEPS = 2
@@ -5165,7 +5178,7 @@ def phase_fsdp_tp_times(fa, card):
 # by the allocator against opt_moment_bytes (1 % for the allocator's
 # rounding of ~150 tensors to its 512-byte blocks)
 ZERO_MESH = dict(dp=4)
-ZERO_T, ZERO_BATCH, ZERO_STEPS = 1024, 16, 2
+ZERO_T, ZERO_BATCH, ZERO_STEPS = 1024, 16, 1  # timed steps after the warm-up
 ZERO_BYTES_REL_TOL = 0.01
 # the fp32 legs (zero at 2 layers; the narrow MoE) against one process: the
 # sharded legs' rule (sp x tp's): losses and every gradient within 1e-5
@@ -5178,7 +5191,7 @@ ZM_STEADY_ATOL = 1e-5
 # 1024), bf16. ~660 M parameters per rank, ~10.6 GB with fp32 gradients and
 # Adam moments, x 4 ranks on the card
 MOE_EP_MESH = dict(dp=1, ep=4)
-MOE_EP_T, MOE_EP_BATCH, MOE_EP_STEPS = 4096, 4, 2
+MOE_EP_T, MOE_EP_BATCH, MOE_EP_STEPS = 4096, 4, 1  # timed steps after the warm-up
 MOE_EP_KERNEL_CASE = ("moe_ep_train", 1, MOE_EP_T, 32, 8, 128, None, None)
 # the narrow fp32 MoE (2 layers, E 8, k 2, capacity factor 0.5: capacity
 # binds) at three meshes of the 4 ranks; 4 rows of 256 tokens: one routing
@@ -5653,8 +5666,455 @@ def phase_serve_moe_tp_parity(card, group):
     return launches
 
 
-# The time this slice's phases (zero, moe_ep with the narrow MoE's fp32
-# legs, serve_moe_tp_parity, their kernel checks and times) may take
+# ---------------------------------------------------------------------------
+# phase 4f: pipeline parallelism (parallel/pipeline.py) and the sharded
+# directory snapshot (training/checkpoint_sharded.py), in the SP ranks' spawn
+# ---------------------------------------------------------------------------
+
+# The main path: GPT-2 124M (12 layers, 768 wide, V 50257), T 1024, bf16, no
+# remat, pp 2 x dp 2, GPipe, PP_MICRO microbatches of the rank's PP_BATCH /
+# dp rows: each stage runs 6 layers per microbatch, so exactly
+# PP_PER_STEP = 6 x 4 launches each of K1, the prep pass, K2a and K2b per
+# rank per step. The first step's loss against the one-process step on the
+# same weights and batch (rank 0, afterwards) within SP_LOSS_TOL, the sp main
+# path's bf16 limit. Each rank holds its stage's 6 layers and every leaf the
+# stages replicate (wte, wpe, the final norm): PP_MESH's rule, by the bytes.
+PP_MESH = dict(pp=2, dp=2)
+PP_MICRO = 4
+PP_BATCH = 8
+PP_T = 1024
+PP_STEPS = 2  # after the warm-up step
+PP_PER_STEP = 6 * PP_MICRO
+# The same model at pp 4 (3 layers a stage), PP4_MICRO microbatches, under
+# GPipe and 1F1B from the same weights: 3 x 8 = 24 launches of each kernel
+# per rank per step, the first losses bit-equal, and the schedule's peak of
+# live microbatch graphs pp - stage under 1F1B against all 8 under GPipe.
+PP4_MESH = dict(pp=4, dp=1)
+PP4_MICRO = 8
+# fp32 legs at 4 layers, T 256, V 4096, PP_PARITY_BATCH rows, dropout off, against
+# one process on the same weights and batch: losses and every gradient
+# within 1e-5 relative, the parameters after the first update within 1e-5
+# where |g| > 1e-6 (tests/test_torch_sharded_train.py's rule) and within
+# FT_PARAM_ATOL everywhere; pp 2 x sp 2 runs the ring, so K3, K4a and K4b
+# launch on the pipeline's path.
+PP_PARITY_MESHES = {"pp2_dp2": dict(pp=2, dp=2), "pp4": dict(pp=4, dp=1),
+                    "pp2_tp2": dict(pp=2, dp=1, tp=2), "pp2_sp2": dict(pp=2, dp=1, sp=2)}
+PP_PARITY_LAYERS = 4
+PP_PARITY_T = 256
+PP_PARITY_VOCAB = 4096  # narrow, as the narrow MoE legs' (GPT-2's 768 wide)
+PP_PARITY_BATCH = 4
+PP_PARITY_REL_TOL = 1e-5
+# ckpt_sharded: the fsdp x tp ranks' GPT-2 124M state after one step on
+# CKPT_BATCH rows goes to a directory (each rank its slices) and to one file
+# (gathered); the directory restores at pp 2 x dp 2 and in one process
+# (restore_inference_params), every leaf bit-equal to the one-file snapshot.
+CKPT_BATCH = 4
+
+
+def _pp_config(n_layer=None, dtype="bfloat16", schedule="gpipe", micro=PP_MICRO,
+               attention="flash", block_size=PP_T, vocab_size=50257):
+    from mingpt_distributed_tpu_torch.config import GPTConfig
+
+    dims = (dict(model_type="gpt2") if n_layer is None
+            else dict(n_layer=n_layer, n_head=12, n_embd=768))
+    return GPTConfig.make(vocab_size=vocab_size, block_size=block_size, attention=attention,
+                          dtype=dtype, embd_pdrop=0.0, resid_pdrop=0.0, attn_pdrop=0.0,
+                          pp_schedule=schedule, pp_microbatches=micro, **dims)
+
+
+def pp_rule_bytes(full_shapes, pp):
+    """The float32 bytes one pp rank should hold: a block leaf's 1/pp of
+    its layers, every other leaf whole."""
+    return sum(4 * math.prod(s) // (pp if path.startswith("blocks/") else 1)
+               for path, s in full_shapes.items())
+
+
+def _pp_steps(cfg, mesh, device, steps, seed=13, rows=PP_BATCH):
+    """A warm-up step, then ``steps`` steps with the launch counts set to 0
+    just before and read just after: losses, each step's wall ms and its
+    schedule's exchange seconds, the peak of live graphs, the parameter
+    bytes this rank holds and its peak memory; and the state."""
+    from mingpt_distributed_tpu_torch.parallel import pipeline
+    from mingpt_distributed_tpu_torch.training.trainer import make_train_step
+
+    state = _ft_state(cfg, device, mesh)
+    step = make_train_step(cfg, mesh=mesh)
+    x, y = _ft_batch(seed, rows)
+    x, y = x[:, :cfg.block_size], y[:, :cfg.block_size]
+    batch = (_ft_rows(x, mesh, device), _ft_rows(y, mesh, device))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step(state, batch)["loss"].item()]  # warm-up
+    reset_counts()
+    seconds, exchange = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(step(state, batch)["loss"].item())
+        seconds.append(time.perf_counter() - t0)
+        exchange.append(pipeline.LAST.exchange_s)
+    counts = read_counts()
+    out = {"losses": losses, "seconds": seconds, "exchange_s": exchange,
+           "launches": counts, "live_peak": pipeline.LAST.live_peak,
+           "sent_bytes_per_step": pipeline.LAST.sent_bytes,
+           "param_bytes": sum(p.numel() * p.element_size() for p in state.optimizer.params),
+           "param_bytes_by_rule": pp_rule_bytes(mesh.full_shapes, mesh.pp),
+           "param_bytes_unsharded": sum(4 * math.prod(s) for s in mesh.full_shapes.values()),
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "stage": mesh.stage}
+    return out, state, (x, y)
+
+
+def _pp_one_process_loss(cfg, device, batch):
+    """The first loss of the one-process step on the same weights and
+    batch."""
+    from mingpt_distributed_tpu_torch.training.trainer import make_train_step
+
+    state = _ft_state(cfg, device)
+    loss = make_train_step(cfg)(state, tuple(a.to(device) for a in batch))["loss"].item()
+    del state
+    torch.cuda.empty_cache()
+    return loss
+
+
+def _pp_main(device, rank):
+    """pp_train_step on this rank, then (rank 0) the one-process step."""
+    from mingpt_distributed_tpu_torch.config import MeshConfig
+    from mingpt_distributed_tpu_torch.parallel.mesh import Mesh
+
+    t0 = time.perf_counter()
+    cfg = _pp_config()
+    out, state, batch = _pp_steps(cfg, Mesh(MeshConfig(**PP_MESH)), device, PP_STEPS)
+    del state
+    torch.cuda.empty_cache()
+    out["one_process_loss"] = _pp_one_process_loss(cfg, device, batch) if rank == 0 else None
+    out["leg_s"] = time.perf_counter() - t0
+    return out
+
+
+def _pp_1f1b(device):
+    """pp_1f1b_train_step: the same model at pp 4 under both schedules,
+    from the same weights."""
+    from mingpt_distributed_tpu_torch.config import MeshConfig
+    from mingpt_distributed_tpu_torch.parallel.mesh import Mesh
+
+    t0 = time.perf_counter()
+    mesh = Mesh(MeshConfig(**PP4_MESH))
+    out = {}
+    for schedule in ("gpipe", "1f1b"):
+        cfg = _pp_config(schedule=schedule, micro=PP4_MICRO)
+        out[schedule], state, _ = _pp_steps(cfg, mesh, device, 1)
+        del state
+        torch.cuda.empty_cache()
+    out["leg_s"] = time.perf_counter() - t0
+    return out
+
+
+def _pp_parity(device):
+    """pp_parity_fp32: each mesh's fp32 leg; the launches of the pp 2 x sp 2
+    leg's pipeline steps (its one-process reference runs K1 and K2, never
+    K3 or K4)."""
+    from mingpt_distributed_tpu_torch.config import MeshConfig
+    from mingpt_distributed_tpu_torch.parallel.mesh import Mesh
+
+    out = {}
+    x, y = _ft_batch(15, PP_PARITY_BATCH)
+    batch = (x[:, :PP_PARITY_T] % PP_PARITY_VOCAB, y[:, :PP_PARITY_T] % PP_PARITY_VOCAB)
+    for key, mesh_kw in PP_PARITY_MESHES.items():
+        t0 = time.perf_counter()
+        cfg = _pp_config(PP_PARITY_LAYERS, "float32", micro=0,
+                         attention="ring" if "sp" in key else "flash",
+                         block_size=PP_PARITY_T, vocab_size=PP_PARITY_VOCAB)
+        reset_counts()
+        out[key] = _ft_parity(Mesh(MeshConfig(**mesh_kw)), device, cfg, batch)
+        out[key]["launches"] = read_counts()
+        out[key]["leg_s"] = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+    return out
+
+
+def _ckpt_state_bytes(state):
+    opt = state.optimizer
+    moments = opt.adam_state()
+    return (sum(p.numel() * p.element_size() for p in opt.params)
+            + sum(t.numel() * t.element_size()
+                  for d in (moments["mu"], moments["nu"]) for t in d.values()))
+
+
+def _ckpt_whole(mesh, state):
+    """The whole parameters and Adam moments by name, in host memory (every
+    rank joins the gathers)."""
+    from mingpt_distributed_tpu_torch.models import convert
+
+    full = lambda n, t: mesh.gather_full(n, t).cpu()  # noqa: E731
+    out = {f"params/{n}": full(n, p) for n, p in convert.flatten(state.params).items()}
+    adam = state.optimizer.adam_state()
+    for g, key in (("mu", "exp_avg"), ("nu", "exp_avg_sq")):
+        out.update({f"{key}/{n}": full(n, t) for n, t in adam[g].items()})
+    return out
+
+
+def _ckpt_sharded(device, rank):
+    """ckpt_sharded on this rank (see CKPT_BATCH's comment). Rank 0 returns
+    the comparisons; every rank its held bytes and seconds."""
+    import types
+
+    from mingpt_distributed_tpu_torch.config import MeshConfig
+    from mingpt_distributed_tpu_torch.models import convert
+    from mingpt_distributed_tpu_torch.parallel import distributed as D
+    from mingpt_distributed_tpu_torch.parallel.mesh import Mesh
+    from mingpt_distributed_tpu_torch.training import checkpoint as ckpt_lib
+    from mingpt_distributed_tpu_torch.training import checkpoint_sharded as cs
+    from mingpt_distributed_tpu_torch.training.trainer import GPTTrainer, make_train_step
+
+    t_leg = time.perf_counter()
+    tmp = os.path.join(tempfile.gettempdir(), "chip_smoke_ckpt")
+    if rank == 0:
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+    D.barrier()
+    d, one = os.path.join(tmp, "state"), os.path.join(tmp, "state.pt")
+    cfg = _ft_config(None, "bfloat16")
+    mesh = Mesh(MeshConfig(**FT_MESH))
+    state = _ft_state(cfg, device, mesh, seed=3)
+    x, y = _ft_batch(16, CKPT_BATCH)
+    make_train_step(cfg, mesh=mesh)(state, (_ft_rows(x[:, :256], mesh, device),
+                                            _ft_rows(y[:, :256], mesh, device)))
+    stage_s = {"state_and_step": time.perf_counter() - t_leg}
+    held = _ckpt_state_bytes(state)
+    opt = state.optimizer
+    by_id = {id(t): n for n, t in zip(opt.names, opt.shards)}
+    opt_order = [by_id[id(t)] for grp in opt.opt.param_groups for t in grp["params"]]
+    # the one-file save under msgpack_gather_limit_mb=0: the trainer's guard
+    limited = types.SimpleNamespace(state=state, mesh=mesh, sharded=True,
+                                    config=types.SimpleNamespace(msgpack_gather_limit_mb=0))
+    try:
+        GPTTrainer._check_gather_limit(limited)
+        refusal = None
+    except RuntimeError as e:
+        refusal = str(e)
+    meta = {"step": 1, "epoch": 0, "data_state": {}, "generator": [], "config": {}}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cs.save(d, state.params, state.optimizer, mesh, meta)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    saved = _ckpt_whole(mesh, state)
+    stage_s["gather"] = time.perf_counter() - t0
+    # the canonical state dict of the whole moments already gathered
+    opt_sd = state.optimizer.opt.state_dict()
+    for i, n in zip([i for grp in opt_sd["param_groups"] for i in grp["params"]], opt_order):
+        opt_sd["state"][i] = dict(opt_sd["state"][i], exp_avg=saved[f"exp_avg/{n}"],
+                                  exp_avg_sq=saved[f"exp_avg_sq/{n}"])
+    del state
+    torch.cuda.empty_cache()
+    # rank 0 writes the one-file snapshot on a thread while every rank
+    # restores the directory (rank 0 reads the file only after both)
+    one_file = {"params": convert.unflatten(
+        {k[len("params/"):]: v for k, v in saved.items() if k.startswith("params/")}),
+        "opt_state": opt_sd, **dict(meta, generator=torch.Generator().get_state())}
+    writer = (Background(lambda: timed(lambda: ckpt_lib.save_snapshot(one, one_file))[1])
+              if rank == 0 else None)
+    # restore at pp 2 x dp 2 into a state of other weights
+    pmesh = Mesh(MeshConfig(**PP_MESH))
+    back = _ft_state(cfg, device, pmesh, seed=4)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got_meta = cs.restore(d, back.params, back.optimizer, pmesh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    restored = _ckpt_whole(pmesh, back)
+    stage_s["gather_restored"] = time.perf_counter() - t0
+    del back
+    torch.cuda.empty_cache()
+    one_file_save_s = writer.result() if writer is not None else None
+    out = {"held_bytes": held, "save_s": save_s, "restore_s": restore_s,
+           "one_file_save_s": one_file_save_s, "refusal": refusal,
+           "restored_step": got_meta["step"] if got_meta else None}
+    t0 = time.perf_counter()
+    if rank == 0:
+        snap = ckpt_lib.load_snapshot(one)
+        want = {f"params/{n}": t for n, t in convert.flatten(snap["params"]).items()}
+        for i, n in zip([i for g in snap["opt_state"]["param_groups"] for i in g["params"]],
+                        opt_order):
+            st = snap["opt_state"]["state"][i]
+            want[f"exp_avg/{n}"], want[f"exp_avg_sq/{n}"] = st["exp_avg"], st["exp_avg_sq"]
+        t0 = time.perf_counter()
+        inference = ckpt_lib.restore_inference_params(d, cfg, device="cpu")
+        one_process_s = time.perf_counter() - t0
+        unequal = lambda got: sorted(k for k, w in want.items()  # noqa: E731
+                                     if k in got and not torch.equal(got[k], w))
+        out.update(
+            leaves=len(want), saved_unequal=unequal(saved),
+            saved_missing=sorted(set(want) - set(saved)),
+            restored_unequal=unequal(restored),
+            restored_missing=sorted(set(want) - set(restored)),
+            inference_unequal=unequal({f"params/{n}": t for n, t in
+                                       convert.flatten(inference.params).items()}),
+            inference_step=inference.step, one_process_restore_s=one_process_s,
+            written=cs.written_bytes(d),
+            whole_bytes=sum(w.numel() * w.element_size() for w in want.values()))
+        shutil.rmtree(tmp, ignore_errors=True)
+    stage_s["compare"] = time.perf_counter() - t0
+    out["stage_s"] = stage_s
+    out["leg_s"] = time.perf_counter() - t_leg
+    return out
+
+
+def pp_rank(device, rank):
+    """The pipeline and checkpoint legs of an SP rank, with their seconds."""
+    out = {"main": _pp_main(device, rank)}
+    torch.cuda.empty_cache()
+    out["1f1b"] = _pp_1f1b(device)
+    out["parity"] = _pp_parity(device)
+    out["ckpt"] = _ckpt_sharded(device, rank)
+    torch.cuda.empty_cache()
+    return out
+
+
+def pp_checks(ranks, card):
+    """The pipeline and checkpoint records and the message of every check
+    they fail."""
+    records, fails = [], []
+    main = [r["pp"]["main"] for r in ranks]
+    m0 = main[0]
+    want = expected(flash_fwd=PP_PER_STEP * PP_STEPS, flash_bwd_prep=PP_PER_STEP * PP_STEPS,
+                    flash_bwd_dq=PP_PER_STEP * PP_STEPS, flash_bwd_dkv=PP_PER_STEP * PP_STEPS)
+    step_s = sum(sum(m["seconds"]) for m in main) / (SP * PP_STEPS)
+    records.append({
+        "phase": "pp_train_step", "main_path": True, "model": "gpt2 124M",
+        "mesh": PP_MESH, "schedule": "gpipe", "microbatches": PP_MICRO, "ranks": SP,
+        "backend": "gloo, one shared card", "global_batch": PP_BATCH, "seq": PP_T,
+        "dtype": "bfloat16", "steps": PP_STEPS, "losses": m0["losses"],
+        "one_process_first_loss": m0["one_process_loss"], "loss_tol": SP_LOSS_TOL,
+        "step_ms": step_s * 1e3,
+        "step_ms_per_rank": [sum(m["seconds"]) / PP_STEPS * 1e3 for m in main],
+        "exchange_ms_per_step_per_rank": [sum(m["exchange_s"]) / PP_STEPS * 1e3
+                                          for m in main],
+        "sent_bytes_per_step_per_rank": [m["sent_bytes_per_step"] for m in main],
+        "shared_card_tokens_per_s": PP_BATCH * PP_T / step_s,
+        "throughput_note": "shared-card, not multi-GPU throughput: 4 gloo ranks on one "
+                           "H100, stage activations through host memory",
+        "launches_per_rank": [m["launches"] for m in main], "launches_want": want,
+        "param_bytes_per_rank": [m["param_bytes"] for m in main],
+        "param_bytes_by_rule": m0["param_bytes_by_rule"],
+        "param_bytes_unsharded": m0["param_bytes_unsharded"],
+        "stages": [m["stage"] for m in main],
+        "peak_allocated_bytes_per_rank": [m["peak_allocated_bytes"] for m in main],
+        "leg_s": max(m["leg_s"] for m in main), "card": card})
+    fails += [f"pp launches {m['launches']}, want {want}" for m in main
+              if m["launches"] != want]
+    if any(m["losses"] != m0["losses"] for m in main[1:]):
+        fails.append("pp: the ranks' losses differ")
+    if not all(math.isfinite(v) for v in m0["losses"]):
+        fails.append(f"pp: losses {m0['losses']}")
+    if not abs(m0["losses"][0] - m0["one_process_loss"]) <= SP_LOSS_TOL:
+        fails.append(f"pp: first loss {m0['losses'][0]} vs one process "
+                     f"{m0['one_process_loss']}")
+    fails += [f"pp: a rank holds {m['param_bytes']} parameter bytes, want "
+              f"{m['param_bytes_by_rule']}" for m in main
+              if m["param_bytes"] != m["param_bytes_by_rule"]]
+
+    g = [r["pp"]["1f1b"] for r in ranks]
+    want4 = expected(flash_fwd=24, flash_bwd_prep=24, flash_bwd_dq=24, flash_bwd_dkv=24)
+    rec = {"phase": "pp_1f1b_train_step", "model": "gpt2 124M", "mesh": PP4_MESH,
+           "microbatches": PP4_MICRO, "ranks": SP, "global_batch": PP_BATCH, "seq": PP_T,
+           "dtype": "bfloat16", "launches_want": want4,
+           "leg_s": max(x["leg_s"] for x in g), "card": card}
+    for schedule in ("gpipe", "1f1b"):
+        runs = [x[schedule] for x in g]
+        rec[schedule] = {
+            "losses": runs[0]["losses"], "stages": [x["stage"] for x in runs],
+            "live_peak_per_rank": [x["live_peak"] for x in runs],
+            "peak_allocated_bytes_per_rank": [x["peak_allocated_bytes"] for x in runs],
+            "step_ms_per_rank": [x["seconds"][0] * 1e3 for x in runs],
+            "exchange_ms_per_rank": [x["exchange_s"][0] * 1e3 for x in runs],
+            "launches_per_rank": [x["launches"] for x in runs]}
+        fails += [f"pp4 {schedule} launches {x['launches']}, want {want4}" for x in runs
+                  if x["launches"] != want4]
+        peak_want = [PP4_MICRO if schedule == "gpipe" else PP4_MESH["pp"] - x["stage"]
+                     for x in runs]
+        if [x["live_peak"] for x in runs] != peak_want:
+            fails.append(f"pp4 {schedule}: live graphs {[x['live_peak'] for x in runs]}, "
+                         f"want {peak_want}")
+    if g[0]["gpipe"]["losses"][0] != g[0]["1f1b"]["losses"][0]:
+        fails.append(f"pp4: first losses differ: gpipe {g[0]['gpipe']['losses'][0]}, "
+                     f"1f1b {g[0]['1f1b']['losses'][0]}")
+    records.append(rec)
+
+    for key, mesh_kw in PP_PARITY_MESHES.items():
+        pars = [r["pp"]["parity"][key] for r in ranks]
+        rec, more = parity_checks(pars, f"pp_parity_fp32_{key}", card,
+                                  (PP_PARITY_REL_TOL, PP_PARITY_REL_TOL), mesh=mesh_kw,
+                                  ranks=SP, layers=PP_PARITY_LAYERS,
+                                  global_batch=PP_PARITY_BATCH, seq=PP_PARITY_T,
+                                  launches=pars[0]["launches"],
+                                  leg_s=max(p["leg_s"] for p in pars))
+        rec["param_steady_atol"] = PP_PARITY_REL_TOL
+        if not pars[0]["param_max_abs_err_steady"] <= PP_PARITY_REL_TOL:
+            more.append(f"pp {key}: post-update params where |g| > {FT_STEADY_GRAD}: "
+                        f"{pars[0]['param_max_abs_err_steady']}")
+        if "sp" in key and not all(pars[0]["launches"][k] > 0 for k in (
+                "flash_lse_fwd", "flash_lse_bwd_dq", "flash_lse_bwd_dkv")):
+            more.append(f"pp {key}: K3/K4 did not launch: {pars[0]['launches']}")
+        records.append(rec)
+        fails += more
+
+    ck = [r["pp"]["ckpt"] for r in ranks]
+    c0 = ck[0]
+    files = {f"__{i}_0.distcp": ck[i]["held_bytes"] for i in range(SP)}
+    records.append({
+        "phase": "ckpt_sharded", "model": "gpt2 124M", "saved_at": FT_MESH,
+        "restored_at": [PP_MESH, "one process (restore_inference_params)"],
+        "leaves": c0["leaves"], "whole_bytes": c0["whole_bytes"],
+        "written_bytes_per_rank": [c0["written"].get(f, 0) for f in files],
+        "held_bytes_per_rank": [x["held_bytes"] for x in ck],
+        "save_s_per_rank": [x["save_s"] for x in ck],
+        "restore_s_per_rank": [x["restore_s"] for x in ck],
+        "one_file_save_s": c0["one_file_save_s"],
+        "one_process_restore_s": c0["one_process_restore_s"],
+        "one_file_refusal": c0["refusal"], "stage_s_rank0": c0["stage_s"],
+        "leg_s": max(x["leg_s"] for x in ck),
+        "card": card})
+    if not c0["refusal"] or "sharded directory backend" not in c0["refusal"]:
+        fails.append(f"ckpt: the one-file save under the limit did not refuse: "
+                     f"{c0['refusal']}")
+    for what in ("saved", "restored"):
+        if c0[f"{what}_unequal"] or c0[f"{what}_missing"]:
+            fails.append(f"ckpt: {what} leaves differ from the one-file snapshot: "
+                         f"{c0[f'{what}_unequal'][:4]} missing {c0[f'{what}_missing'][:4]}")
+    if c0["inference_unequal"] or c0["inference_step"] != 1:
+        fails.append(f"ckpt: restore_inference_params differs: {c0['inference_unequal'][:4]}")
+    if any(x["restored_step"] != 1 for x in ck):
+        fails.append("ckpt: a rank restored no snapshot")
+    if sorted(c0["written"]) != sorted(files) or \
+            sum(c0["written"].values()) != c0["whole_bytes"]:
+        fails.append(f"ckpt: written {c0['written']} against the whole "
+                     f"{c0['whole_bytes']} bytes")
+    fails += [f"ckpt: {f} holds {c0['written'].get(f)} bytes, more than its rank's "
+              f"{held}" for f, held in files.items() if c0["written"].get(f, 0) > held]
+    return records, fails
+
+
+def phase_pp(card, ranks):
+    """The pipeline and checkpoint slices' checks over what the SP ranks
+    returned (phase_sp's spawn). Returns rank 0's main-path and pp 4 launch
+    counts and the legs' seconds."""
+    records, fails = pp_checks(ranks, card)
+    for rec in records:
+        emit(rec)
+    check(not fails, "; ".join(fails))
+    seconds = {"pp_train_step": max(r["pp"]["main"]["leg_s"] for r in ranks),
+               "pp_1f1b_train_step": max(r["pp"]["1f1b"]["leg_s"] for r in ranks),
+               "pp_parity_fp32": sum(max(r["pp"]["parity"][k]["leg_s"] for r in ranks)
+                                     for k in PP_PARITY_MESHES),
+               "ckpt_sharded": max(r["pp"]["ckpt"]["leg_s"] for r in ranks)}
+    return (ranks[0]["pp"]["main"]["launches"], ranks[0]["pp"]["1f1b"]["1f1b"]["launches"],
+            seconds)
+
+
+# The time this slice's phases (pp_train_step, pp_1f1b_train_step,
+# pp_parity_fp32 and ckpt_sharded, all in the SP ranks' spawn) may take
 # together, and the whole smoke, in seconds of the command: no run may take
 # longer than the longest run of the smoke before them (876.7 s; the
 # driver's limit is 1200 s). The earlier slices' phases are reported beside.
@@ -6299,7 +6759,7 @@ def _main() -> int:
         earlier_seconds["serve_tp_parity+serve_tp"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         moe_tp_launches = phase_serve_moe_tp_parity(card, group)
-        added_seconds["serve_moe_tp_parity"] = time.perf_counter() - t0
+        earlier_seconds["serve_moe_tp_parity"] = time.perf_counter() - t0
     finally:
         tp_exits = group.close()
     emit({"phase": "serve_tp_group", "follower_exit_codes": tp_exits,
@@ -6371,12 +6831,14 @@ def _main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
     t0 = time.perf_counter()
     phase_moe_ep_kernels(fa, card)
-    added_seconds["moe_ep_kernels"] = time.perf_counter() - t0
-    sp_counts, sp_tp_counts, earlier_seconds["sp_tp"], ft, zm = phase_sp(card)
+    earlier_seconds["moe_ep_kernels"] = time.perf_counter() - t0
+    sp_counts, sp_tp_counts, earlier_seconds["sp_tp"], ft, zm, pp = phase_sp(card)
     ft_counts = phase_fsdp_tp(card, ft)
     earlier_seconds["fsdp_tp"] = ft[1]
     zero_counts, moe_ep_counts, zm_seconds = phase_zero_moe(card, zm)
-    added_seconds.update(zm_seconds)
+    earlier_seconds.update(zm_seconds)
+    pp_counts, pp4_counts, pp_seconds = phase_pp(card, pp)
+    added_seconds.update(pp_seconds)
     proto_counts = phase_proto(nh, card)
     emit_clocks("before times")
     rows = phase_times(fa, card)
@@ -6388,7 +6850,7 @@ def _main() -> int:
     earlier_seconds["sp_tp_times"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     phase_zero_moe_times(fa, card)
-    added_seconds["zero_moe_times"] = time.perf_counter() - t0
+    earlier_seconds["zero_moe_times"] = time.perf_counter() - t0
     rows.update(phase_lse_times(fa, card))
     rows.update(phase_nh_times(nh, card))
     exp_counts, rows["exp_chain"] = phase_exp_tool(ex, card)
@@ -6444,6 +6906,7 @@ def _main() -> int:
           "train_step_fused": fused["launches"], "sp_train_step_rank0": sp_counts,
           "fsdp_tp_train_step_rank0": ft_counts, "sp_tp_train_step_rank0": sp_tp_counts,
           "zero_train_step_rank0": zero_counts, "moe_ep_train_step_rank0": moe_ep_counts,
+          "pp_train_step_rank0": pp_counts, "pp_1f1b_train_step_rank0": pp4_counts,
           "serve_moe_tp_parity": moe_tp_launches,
           "serve_tp": serve_tp["launches"],
           "serve_tp_follower": serve_tp["follower_launches"][0],

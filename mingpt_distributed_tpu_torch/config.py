@@ -6,11 +6,11 @@ original, so the repository's YAML files load unchanged; fields that only
 steer JAX compilation (``scan_unroll``, ``unroll_layers``) are accepted and
 have no effect here, because PyTorch runs the layer loop eagerly.
 
-Trainer options this slice does not port keep their defaults (which the
-YAML files rely on); ``TrainerConfig.check_ported`` raises
-NotImplementedError, naming the ROADMAP item, for any other value and for a
-pp or ep mesh axis above 1, and ValueError for a mesh that does not fit the
-job's processes. Nothing is silently ignored.
+Every trainer option and every mesh axis runs (pp, dp, fsdp, ep, tp and
+sp); ``TrainerConfig.check_ported`` raises NotImplementedError, naming the
+ROADMAP item, for a non-default value of an option listed in
+``UNPORTED_TRAINER_OPTIONS`` (none is left), and ValueError for a mesh that
+does not fit the job's processes. Nothing is silently ignored.
 
 PyYAML is imported inside the functions that parse YAML, so the rest of the
 package works where it is not installed.
@@ -265,8 +265,8 @@ class OptimizerConfig:
 @dataclass
 class MeshConfig:
     """The JAX package's device-mesh shape: pp, dp, fsdp, ep, tp, sp; -1
-    absorbs the remaining devices (here: processes). The port runs dp, fsdp,
-    ep, tp and sp in any mix; pp raises (``TrainerConfig.check_ported``)."""
+    absorbs the remaining devices (here: processes). The port runs every
+    axis, in any mix."""
 
     pp: int = 1
     dp: int = -1

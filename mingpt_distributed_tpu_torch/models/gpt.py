@@ -40,7 +40,21 @@ n_layer``, the per-layer sum of the Switch aux loss, as in the JAX package.
 Across processes (dp, fsdp, ep and tp) the blocks route the global batch's
 groups as JAX does (``moe.Exchange``: the ranks of distinct tokens, and the
 expert exchange over ep); under Megatron tp each rank holds F/tp of every
-expert. MoE beside sp or pp raises (``check_supported``).
+expert. MoE beside sp raises (``check_supported``).
+
+Pipeline stages (a mesh of pp > 1, ``parallel/pipeline.py``): ``params``
+holds this stage's layers, and the forward, the loss and the training
+step's backward run as the stage's schedule over microbatches
+(``pipeline_terms``): stage 0 embeds, the last stage runs the final norm,
+the head and the loss, and every stage's blocks run as above (gathered
+over fsdp, Megatron tp, sp attention, the ep exchange). As in the JAX
+pipeline's stage body, a microbatch's MoE layers route its tokens on their
+own rank (the ep exchange still carries them to their experts), and the
+aux loss is summed over the stages and averaged over the microbatches and
+the batch shards. Dropout draws from one generator per microbatch and
+stage, seeded from the rank's generator (which the trainer seeds from the
+step and the data coordinate), the microbatch and the stage: microbatches
+and data shards never share a mask, and both schedules draw the same.
 """
 
 from __future__ import annotations
@@ -59,7 +73,8 @@ from mingpt_distributed_tpu_torch.ops import flash_attention
 from mingpt_distributed_tpu_torch.ops import layers as L
 from mingpt_distributed_tpu_torch.ops import moe
 from mingpt_distributed_tpu_torch.parallel import distributed as D
-from mingpt_distributed_tpu_torch.parallel import ring_attention, ulysses
+from mingpt_distributed_tpu_torch.parallel import mesh as mesh_lib
+from mingpt_distributed_tpu_torch.parallel import pipeline, ring_attention, ulysses
 
 Params = Dict[str, Any]
 
@@ -165,24 +180,51 @@ def init(cfg: GPTConfig, generator: torch.Generator,
 def check_supported(cfg: GPTConfig, mesh=None) -> None:
     """Raise for what this port does not run yet: mixture-of-experts blocks
     beside sequence parallelism (an sp rank's tokens interleave with the
-    other sp ranks' in JAX's routing groups) or pipeline stages. ``mesh``:
-    a ``parallel.mesh.Mesh`` or a dict of axis extents."""
+    other sp ranks' in JAX's routing groups). ``mesh``: a
+    ``parallel.mesh.Mesh`` or a dict of axis extents."""
     shape = getattr(mesh, "shape", mesh) or {}
-    if cfg.n_experts:
-        for axis, item in (("sp", "12b.4"), ("pp", "12b.2")):
-            if shape.get(axis, 1) > 1:
-                raise NotImplementedError(
-                    f"mixture-of-experts beside {axis} > 1 is not ported yet "
-                    f"(ROADMAP.md Queue 1 item {item})")
+    if cfg.n_experts and shape.get("sp", 1) > 1:
+        raise NotImplementedError(
+            "mixture-of-experts beside sp > 1 is not ported yet (ROADMAP.md "
+            "Queue 1 item 12b.4)")
+
+
+def check_pipeline(cfg: GPTConfig, mesh, seq_len: int) -> None:
+    """The JAX pipeline's ValueErrors for a mesh of pp > 1 (``mesh``: a
+    ``Mesh`` or a dict of extents) and a global sequence of ``seq_len``:
+    layers that do not split over the stages, a sequence that does not
+    split over sp, experts that do not split over ep, and Ulysses with a
+    rank's heads not divisible by sp."""
+    shape = getattr(mesh, "shape", mesh) or {}
+    pp, sp, ep, tp = (shape.get(a, 1) for a in ("pp", "sp", "ep", "tp"))
+    if pp <= 1:
+        return
+    mesh_lib.check_stages(cfg.n_layer, pp)
+    seq_sharded = cfg.attention in ("ring", "ulysses") and sp > 1
+    if seq_sharded and seq_len % sp:
+        raise ValueError(f"T={seq_len} not divisible by sp={sp} under pp")
+    if cfg.n_experts and ep > 1 and cfg.n_experts % ep:
+        raise ValueError(f"n_experts={cfg.n_experts} not divisible by ep={ep}")
+    if cfg.attention == "ulysses" and seq_sharded:
+        local_heads = cfg.n_head // tp if mesh_lib.tp_manual(cfg, tp) else cfg.n_head
+        if local_heads % sp:
+            raise ValueError(f"ulysses needs (n_head/tp) % sp == 0 "
+                             f"(got {local_heads} % {sp})")
 
 
 def _moe_exchange(mesh) -> Optional["moe.Exchange"]:
     """The MoE layers' view of the mesh: the ranks of distinct tokens at
     this rank's tp coordinate, in batch order, and the expert exchange
-    when the experts are split over ep."""
-    if mesh is None or mesh.batch_count <= 1:
+    when the experts are split over ep. Under pp a microbatch's tokens are
+    routed on their own rank, as in the JAX pipeline's stage body: only
+    the expert exchange remains."""
+    if mesh is None:
         return None
     ep_group = mesh.ep_group if mesh.ep_split("blocks/w_e1") else None
+    if mesh.pp > 1:
+        return None if ep_group is None else moe.Exchange(None, 0, 1, ep_group, mesh.ep)
+    if mesh.batch_count <= 1:
+        return None
     return moe.Exchange(mesh.batch_group, mesh.batch_index, mesh.batch_count,
                         ep_group, mesh.ep if ep_group is not None else 1)
 
@@ -388,8 +430,12 @@ def forward(
     ``(None, loss)`` and, when ``cfg.loss_chunks`` applies, never
     materialises the logits (``chunked_cross_entropy``). With a ``mesh`` of
     sp > 1, ``tokens`` is this rank's chunk of the sequence and everything
-    returned is the chunk's.
+    returned is the chunk's; with pp > 1 the rows' logits and loss on every
+    stage (``pipeline_terms``, forwards only).
     """
+    if _pipelined(mesh):
+        return _pipeline_forward(params, tokens, cfg, targets, generator,
+                                 deterministic, return_logits, mesh)
     x, aux = _hidden(params, tokens, cfg, generator, deterministic, mesh)
     nc = _loss_chunks(cfg, tokens.shape[1])
     if targets is not None and not return_logits and nc > 1:
@@ -415,31 +461,186 @@ def _hidden(params, tokens, cfg, generator, deterministic, mesh):
     states, the blocks' summed MoE aux loss or None). Under sp > 1 the chunk's
     positions start at sp_rank * T."""
     check_supported(cfg, mesh)
-    b, t = tokens.shape
+    if not deterministic and generator is None:
+        raise ValueError("training-mode forward needs a torch.Generator")
+    pos0 = _pos0(cfg, mesh, tokens.shape[1])
+    x = _embed(params, tokens, cfg, generator, deterministic, mesh, pos0)
+    x, aux = _stack(params["blocks"], x, cfg, _rope(cfg, pos0, x), generator,
+                    deterministic, mesh)
+    return _final_norm(params, x, cfg, mesh), aux
+
+
+def _pos0(cfg: GPTConfig, mesh, t: int) -> int:
+    """The first position of these tokens: sp_rank * T under sp."""
     pos0 = 0 if mesh is None else mesh.sp_rank * t
     if pos0 + t > cfg.block_size:
         raise ValueError(f"positions up to {pos0 + t} > block_size "
                          f"{cfg.block_size}")
-    if not deterministic and generator is None:
-        raise ValueError("training-mode forward needs a torch.Generator")
+    return pos0
 
+
+def _embed(params, tokens, cfg, generator, deterministic, mesh, pos0):
+    """Token and position embeddings with their dropout, in the compute
+    dtype."""
+    t = tokens.shape[1]
     x = _whole(params, "wte", mesh)[tokens]  # (B, T, D) fp32 gather
     if not cfg.rope:
         x = x + _whole(params, "wpe", mesh)[pos0:pos0 + t]
     x = L.dropout(x, cfg.embd_pdrop, generator, deterministic)
-    x = x.to(compute_dtype(cfg))
+    return x.to(compute_dtype(cfg))
 
-    rope = None
-    if cfg.rope:
-        rope = attn_ops.rope_tables(torch.arange(pos0, pos0 + t, device=x.device),
-                                    cfg.head_dim, cfg.rope_theta)
+
+def _rope(cfg, pos0, x):
+    """The RoPE tables of positions pos0 .. pos0 + T of ``x`` (B, T, ...),
+    or None."""
+    if not cfg.rope:
+        return None
+    t = x.shape[1]
+    return attn_ops.rope_tables(torch.arange(pos0, pos0 + t, device=x.device),
+                                cfg.head_dim, cfg.rope_theta)
+
+
+def _stack(blocks, x, cfg, rope, generator, deterministic, mesh):
+    """The stacked layers of ``blocks`` in order -> (x, summed MoE aux or
+    None)."""
     block = _remat_block if cfg.remat else _block
     aux = None
-    for blk in _unstack(params["blocks"]):
+    for blk in _unstack(blocks):
         x, a = block(x, blk, cfg, rope, generator, deterministic, mesh)
         aux = a if aux is None else aux + a
+    return x, aux
+
+
+def _final_norm(params, x, cfg, mesh):
     return _norm(x, _whole(params, "lnf_scale", mesh), _whole(params, "lnf_bias", mesh),
-                 cfg), aux
+                 cfg)
+
+
+# ---------------------------------------------------------------------------
+# Pipeline stages (pp > 1)
+# ---------------------------------------------------------------------------
+
+
+def _pipelined(mesh) -> bool:
+    return getattr(mesh, "pp", 1) > 1
+
+
+def pipeline_terms(
+    params: Params,
+    tokens: torch.Tensor,
+    targets: Optional[torch.Tensor],
+    cfg: GPTConfig,
+    *,
+    generator: Optional[torch.Generator] = None,
+    deterministic: bool = True,
+    mesh,
+    loss_scale: Optional[float] = None,
+    aux_scale: float = 1.0,
+    return_logits: bool = False,
+):
+    """This stage's schedule over its rows (``parallel/pipeline.py``) ->
+    (total, aux, logits, stats).
+
+    ``total``: the sum of the cross-entropy over the targets != -1 of these
+    rows, on the last stage (0 on the others). ``aux``: this stage's share
+    of the weighted MoE aux loss, ``moe_aux_weight * aux / n_layer`` with
+    aux summed over the stage's layers and averaged over the microbatches
+    and the batch shards (a sum over the stages and the batch shards gives
+    the loss's term; 0 for a dense model). Both are detached.
+    ``logits``: with ``return_logits``, the last stage's (B, T, V)
+    float32 logits (None elsewhere). ``stats``: the ``PipelineStats``.
+
+    With ``loss_scale`` every microbatch is backpropagated in the
+    schedule: ``total_i * loss_scale`` on the last stage, and every stage's
+    weighted aux times ``aux_scale`` beside its output; the parameters'
+    ``.grad`` accumulate this stage's share. Without it only the forwards
+    run."""
+    check_supported(cfg, mesh)
+    if not deterministic and generator is None:
+        raise ValueError("training-mode forward needs a torch.Generator")
+    b, t = tokens.shape
+    check_pipeline(cfg, mesh, t * mesh.sp)
+    backward = loss_scale is not None
+    m = pipeline.microbatch_count(cfg.pp_microbatches, mesh.pp, b)
+    pos0 = _pos0(cfg, mesh, t)
+    rope = _rope(cfg, pos0, tokens)
+    base = None if deterministic else D.dropout_base(generator)
+    aux_w = (cfg.moe_aux_weight / (cfg.n_layer * m * mesh.batch_count)
+             if cfg.n_experts else 0.0)
+    ys = None if targets is None else targets.chunk(m)
+    nc = _loss_chunks(cfg, t)
+    totals: list = []
+    auxes: list = []
+    logits: list = []
+    gens: Dict[int, Optional[torch.Generator]] = {}
+
+    def gen(i):
+        if base is None:
+            return None
+        if i not in gens:
+            gens[i] = torch.Generator(device=generator.device).manual_seed(
+                D.mix_seed(base, i, mesh.stage))
+        return gens[i]
+
+    def first(x_i, i):
+        return _embed(params, x_i, cfg, gen(i), deterministic, mesh, pos0)
+
+    def apply_stack(h, blocks, i):
+        h, aux = _stack(blocks, h, cfg, rope, gen(i), deterministic, mesh)
+        gens.pop(i, None)
+        if aux is None:
+            return h, None
+        weighted = aux * aux_w
+        auxes.append(weighted.detach())
+        return h, (weighted * aux_scale if backward else None)
+
+    def last(h, i):
+        x = _final_norm(params, h, cfg, mesh)
+        w = _head_weight(params, cfg, mesh)
+        if return_logits:
+            logits.append(head_logits(params, x, cfg, mesh).detach())
+        if ys is None:
+            return None
+        if nc > 1:
+            total = chunked_cross_entropy_sum(x, w, ys[i], nc,
+                                              softcap=cfg.final_logit_softcap)
+        else:
+            total = _chunk_loss(x, w, ys[i], cfg.final_logit_softcap)
+        totals.append(total.detach())
+        return total * loss_scale if backward else None
+
+    stats = pipeline.pipeline_blocks(
+        tokens, params["blocks"], apply_stack, mesh, cfg.pp_microbatches,
+        cfg.pp_schedule, first=first, last=last, act_shape=(b // m, t, cfg.n_embd),
+        act_dtype=compute_dtype(cfg), backward=backward)
+    zero = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    total = torch.stack(totals).sum() if totals else zero
+    aux = torch.stack(auxes).sum() if auxes else zero
+    return total, aux, (torch.cat(logits) if logits else None), stats
+
+
+def _pipeline_forward(params, tokens, cfg, targets, generator, deterministic,
+                      return_logits, mesh):
+    """``forward`` under pp: the forwards of the schedule; the logits are
+    the last stage's, shared over pp (every stage returns them). The loss is
+    the rows' mean cross-entropy plus the MoE term."""
+    total, aux, logits, _ = pipeline_terms(
+        params, tokens, targets, cfg, generator=generator, deterministic=deterministic,
+        mesh=mesh, return_logits=True)
+    b, t = tokens.shape
+    if logits is None:
+        logits = torch.zeros((b, t, cfg.vocab_size), dtype=torch.float32,
+                             device=tokens.device)
+    D.all_reduce(logits, mesh.pp_group)
+    loss = None
+    if targets is not None:
+        count = (targets != -1).sum().clamp(min=1)
+        stage_sum = torch.stack([total / count, aux])
+        D.all_reduce(stage_sum, mesh.pp_group)
+        loss = stage_sum[0]
+        if cfg.n_experts:  # the aux term over the batch shards
+            loss = loss + D.all_reduce(stage_sum[1:].clone(), mesh.batch_group)[0]
+    return (logits if return_logits else None), loss
 
 
 def _loss_chunks(cfg: GPTConfig, t: int) -> int:
@@ -465,7 +666,18 @@ def loss_terms(
     per chunk as in the loss-only forward. A trainer divides the sums of
     both over the ranks. ``with_aux`` adds a third term: the MoE aux loss
     weighted as the loss takes it (``moe_aux_weight * aux / n_layer``, over
-    every rank's tokens; 0 for a dense model), which each rank adds once."""
+    every rank's tokens; 0 for a dense model), which each rank adds once.
+    Under pp the forwards of the schedule run (no backward: an eval) and
+    every stage returns the last stage's sum."""
+    if _pipelined(mesh):
+        total, aux, _, _ = pipeline_terms(params, tokens, targets, cfg, generator=generator,
+                                          deterministic=deterministic, mesh=mesh)
+        parts = torch.stack([total, aux])
+        D.all_reduce(parts, mesh.pp_group)
+        count = (targets != -1).sum()
+        if not with_aux:
+            return parts[0], count
+        return parts[0], count, D.all_reduce(parts[1:].clone(), mesh.batch_group)[0]
     x, aux = _hidden(params, tokens, cfg, generator, deterministic, mesh)
     nc = _loss_chunks(cfg, tokens.shape[1])
     w = _head_weight(params, cfg, mesh)

@@ -153,6 +153,25 @@ def _exchange(group, sends, recvs) -> List[torch.Tensor]:
     return [b.to(like.device) for b, (like, _, _) in zip(bufs, recvs)]
 
 
+def send_async(group, x: torch.Tensor, peer: int, tag: int):
+    """Start sending ``x`` to group rank ``peer`` and return at once: a
+    handle whose ``wait()`` joins the send. Under gloo the bytes go from a
+    host copy, which the handle keeps alive. The receiver takes it with
+    ``_exchange(group, [], [(like, rank, tag)])``. A pipeline stage never
+    blocks on a send, only on what it receives, so no two stages can wait
+    for each other's sends."""
+    wire = _wire(x)
+    return _Pending(dist.isend(wire, _global(group, peer), group=group, tag=tag), wire)
+
+
+class _Pending:
+    def __init__(self, work, wire):
+        self.work, self.wire = work, wire
+
+    def wait(self) -> None:
+        self.work.wait()
+
+
 def _permute(group, perms: Sequence[Perm], xs: Sequence[torch.Tensor]):
     """Tensor j goes from each source to its destination in ``perms[j]``;
     a rank that no source sends to receives zeros (``lax.ppermute``)."""

@@ -8,14 +8,22 @@ axes in the same order (``AXES``), the same shape resolution
 means there. A rank's coordinates follow the JAX mesh's device order: the
 rank is the row-major index of its (pp, dp, fsdp, ep, tp, sp) coordinates.
 
-dp, fsdp, ep, tp and sp run, in any mix; pp above 1 raises
-NotImplementedError naming its ROADMAP item. The batch is split over dp,
+Every axis runs, in any mix. The batch is split over dp,
 fsdp and ep (``BATCH_AXES``, dp major; every tp rank of a group reads the
 same rows) and the sequence over sp: under sp x tp each sp rank's attention
 runs the ring (or Ulysses) on its tp rank's heads, which are just batch to
 the ring. ep is a batch axis that also splits the experts of a
 mixture-of-experts model (``w_e1``, ``w_e2``, ``w_eg``): a dense model runs
 it as more data parallelism.
+
+Pipeline parallelism (pp, ``parallel/pipeline.py``): the stacked layer axis
+of every block leaf is split over pp (``PARAM_RULES``' leading "pp"), so
+each stage holds ``n_layer / pp`` contiguous layers; ``pp_group`` is the
+ranks of this rank's coordinates on every other axis, in stage order, over
+which the activations and their gradients move. pp is not a data axis:
+every stage of a pipeline reads the same rows. The leaves replicated over
+pp (``wte``, ``wpe``, ``head``, the final norm) get their gradients on the
+first or the last stage only, so ``grad_axes`` sums them over pp too.
 
 Serving tensor parallelism (``Mesh.serving``): a mesh of tp = N over a
 group of N ranks (dp, fsdp and sp 1), whose group rank 0 drives the
@@ -26,7 +34,7 @@ follower waits there for as long as the server idles. One process may
 drive several such groups (a fleet of tp replicas): ``serving_meshes``
 builds them all, on every rank, in one order.
 
-Parameter sharding (fsdp, ep and tp): ``Mesh.shard_params`` keeps this
+Parameter sharding (pp, fsdp, ep and tp): ``Mesh.shard_params`` keeps this
 rank's slice of every leaf, cut by its ``PARAM_RULES`` spec. A spec axis
 whose extent does not divide the dimension is downgraded to replication,
 logged once and counted once in
@@ -62,9 +70,8 @@ from mingpt_distributed_tpu_torch.parallel import distributed
 
 AXES = ("pp", "dp", "fsdp", "ep", "tp", "sp")
 BATCH_AXES = ("dp", "fsdp", "ep")
-UNPORTED_AXES = {
-    "pp": "Queue 1 item 12b.2 (parallel/pipeline.py)",
-}
+#: mesh axes the port does not run yet, by ROADMAP item (none is left)
+UNPORTED_AXES: Dict[str, str] = {}
 #: the axes whose ranks hold different tokens of a global batch
 DATA_AXES = ("dp", "fsdp", "ep", "sp")
 
@@ -135,13 +142,13 @@ def resolve_mesh_shape(cfg: MeshConfig, n_devices: int) -> tuple[int, ...]:
 
 
 def check_axes(shape: Dict[str, int]) -> None:
-    """Raise NotImplementedError for an axis the port does not run yet (pp
-    above 1)."""
+    """Raise NotImplementedError for an axis above 1 that the port does not
+    run yet (``UNPORTED_AXES``: every axis runs since pp was ported)."""
     for ax, item in UNPORTED_AXES.items():
         if shape[ax] > 1:
             raise NotImplementedError(
                 f"mesh axis {ax}={shape[ax]} is not ported yet (ROADMAP.md "
-                f"{item}); the port runs dp x fsdp x ep x tp x sp")
+                f"{item})")
 
 
 def param_specs(params: Dict, prefix: str = "") -> Dict:
@@ -201,16 +208,34 @@ def shard_by_rule(shape: Dict[str, int], dims: Sequence[int], spec: Spec,
     return tuple(fixed)
 
 
+def tp_manual(cfg, tp: int) -> bool:
+    """Whether the blocks run the Megatron recipe at ``tp``: tp > 1 and the
+    query heads, the KV heads and the FFN width (each expert's, under MoE)
+    all divide by tp. Otherwise tp falls back to gathered weights, as in
+    the JAX package."""
+    ffn = int(cfg.ffn_mult * cfg.n_embd)
+    return (tp > 1 and cfg.n_head % tp == 0 and cfg.kv_heads % tp == 0
+            and ffn % tp == 0)
+
+
+def check_stages(n_layer: int, pp: int) -> None:
+    """The JAX pipeline's ValueError when the layers do not split evenly
+    over the stages."""
+    if n_layer % pp:
+        raise ValueError(f"n_layer {n_layer} not divisible by pp={pp}")
+
+
 class Mesh:
     """This rank's place in a job of ``world_size`` ranks.
 
-    ``sp_group``, ``dp_group`` and ``ep_group`` are its ring's, its replica
-    set's and its expert exchange's process groups (None when the axis is
-    1). With fsdp, ep or tp above 1 (``sharded``): ``fsdp_group`` and
-    ``tp_group``; ``batch_group``, the ranks of its tp coordinate that hold
-    different tokens (loss terms are summed there); ``model_group``, the
-    ranks of its dp and sp coordinates (together they hold one copy of the
-    model: the gradient norm). ``grad_group(path)`` is the group a leaf's
+    ``sp_group``, ``dp_group``, ``ep_group`` and ``pp_group`` are its ring's,
+    its replica set's, its expert exchange's and its pipeline's process
+    groups (None when the axis is 1). With pp, fsdp, ep or tp above 1
+    (``sharded``): ``fsdp_group`` and ``tp_group``; ``batch_group``, the
+    ranks of its pp and tp coordinates that hold different tokens (loss
+    terms are summed there); ``model_group``, the ranks of its dp and sp
+    coordinates (together they hold one copy of the model: the gradient
+    norm). ``grad_group(path)`` is the group a leaf's
     gradient is summed over; ``group_over(axes)`` any other, made once
     (every rank must ask for the same groups in the same order: making one
     is collective). ``batch_group`` is None, the world, when unsharded."""
@@ -224,11 +249,12 @@ class Mesh:
         self.sp_group = self.group_over(("sp",)) if self.sp > 1 else None
         self.dp_group = self.group_over(("dp",)) if self.dp > 1 else None
         self.ep_group = self.group_over(("ep",)) if self.ep > 1 else None
+        self.pp_group = self.group_over(("pp",)) if self.pp > 1 else None
         if self.sharded:
             self.fsdp_group = self.group_over(("fsdp",))
             self.tp_group = self.group_over(("tp",))
             self.batch_group = self.group_over(DATA_AXES)
-            self.model_group = self.group_over(("fsdp", "ep", "tp"))
+            self.model_group = self.group_over(("pp", "fsdp", "ep", "tp"))
 
     def _place(self, dims: Sequence[int], index: int) -> None:
         """The fields of the rank at row-major ``index`` of the grid ``dims``
@@ -241,17 +267,18 @@ class Mesh:
         self.dp_rank, self.sp_rank = self.coords["dp"], self.coords["sp"]
         self.fsdp_rank, self.tp_rank = self.coords["fsdp"], self.coords["tp"]
         self.ep_rank = self.coords["ep"]
-        self.sharded = self.fsdp * self.tp * self.ep > 1
+        self.pp, self.stage = self.shape["pp"], self.coords["pp"]
+        self.sharded = self.pp * self.fsdp * self.tp * self.ep > 1
         # the data shard: rows over (dp, fsdp, ep), dp-major as BATCH_AXES
         self.batch_index = (self.dp_rank * self.fsdp + self.fsdp_rank) * self.ep + self.ep_rank
         self.batch_count = self.dp * self.fsdp * self.ep
-        # this rank's index among the ranks of distinct data (tp dropped):
-        # the seed of its replicated dropout draws
-        no_tp = [self.shape[a] for a in AXES if a != "tp"]
+        # this rank's index among the ranks of distinct data (tp and pp
+        # dropped: the stages of a pipeline read the same rows): the seed of
+        # its replicated dropout draws
         self.data_rank = int(np.ravel_multi_index(
-            [self.coords[a] for a in AXES if a != "tp"], no_tp))
+            [self.coords[a] for a in DATA_AXES], [self.shape[a] for a in DATA_AXES]))
         self.sp_group = self.dp_group = self.fsdp_group = self.tp_group = None
-        self.ep_group = self.model_group = self.batch_group = None
+        self.ep_group = self.model_group = self.batch_group = self.pp_group = None
         self._groups: Dict[Tuple[str, ...], object] = {}
         self.specs: Dict[str, Spec] = {}
         self.full_shapes: Dict[str, Tuple[int, ...]] = {}
@@ -285,11 +312,14 @@ class Mesh:
 
     def grad_axes(self, path: str) -> Tuple[str, ...]:
         """The axes a leaf's gradient is summed over: the ranks of distinct
-        tokens (``DATA_AXES``) that hold the same slice of it. An fsdp- or
-        ep-split leaf's gradient is already summed over that axis (the
-        gather's reduce-scatter, the expert exchange's return)."""
+        tokens (``DATA_AXES``) that hold the same slice of it, and pp for a
+        leaf the stages replicate (its gradient comes from the first or the
+        last stage alone). An fsdp- or ep-split leaf's gradient is already
+        summed over that axis (the gather's reduce-scatter, the expert
+        exchange's return)."""
         held = self.spec_axes(path)
-        return tuple(a for a in DATA_AXES if self.shape[a] > 1 and a not in held)
+        return tuple(a for a in ("pp",) + DATA_AXES
+                     if self.shape[a] > 1 and a not in held)
 
     def grad_group(self, path: str):
         """The group of ``grad_axes(path)`` (None: the world, unsharded)."""
@@ -299,21 +329,21 @@ class Mesh:
 
     def group(self, axis: str):
         return {"fsdp": self.fsdp_group, "tp": self.tp_group, "ep": self.ep_group,
-                "dp": self.dp_group}[axis]
+                "dp": self.dp_group, "pp": self.pp_group}[axis]
 
     # -- parameters ----------------------------------------------------------
     def tp_manual(self, cfg) -> bool:
-        """Whether the blocks run the Megatron recipe: tp > 1 and the query
-        heads, the KV heads and the FFN width (each expert's, under MoE) all
-        divide by tp. Otherwise tp falls back to gathered weights, as in the
-        JAX package."""
-        ffn = int(cfg.ffn_mult * cfg.n_embd)
-        return (self.tp > 1 and cfg.n_head % self.tp == 0
-                and cfg.kv_heads % self.tp == 0 and ffn % self.tp == 0)
+        """``tp_manual(cfg, self.tp)``."""
+        return tp_manual(cfg, self.tp)
 
     def shard_params(self, params: Dict, prefix: str = "") -> Dict:
         """This rank's slice of every leaf of the whole tree ``params``,
-        recording each leaf's spec (downgrades counted) and whole shape."""
+        recording each leaf's spec (downgrades counted) and whole shape.
+        ValueError when the stages cannot hold equal layer counts (the
+        pp split of the layer axis would downgrade to replication)."""
+        if not prefix and self.pp > 1 and "blocks" in params:
+            n_layer = next(iter(params["blocks"].values())).shape[0]
+            check_stages(n_layer, self.pp)
         out = {}
         for name, leaf in params.items():
             path = f"{prefix}{name}"
@@ -363,10 +393,11 @@ class Mesh:
 
     def copies(self, path: str) -> int:
         """How many ranks of ``model_group`` hold the same slice of the
-        leaf at ``path``: its weight in a sum over that group is 1/copies."""
-        n = self.fsdp * self.ep * self.tp
+        leaf at ``path``: its weight in a sum over that group is 1/copies
+        (a leaf the stages replicate counts once, not pp times)."""
+        n = self.pp * self.fsdp * self.ep * self.tp
         for axis in self.specs[path]:
-            if axis in ("fsdp", "ep", "tp"):
+            if axis in ("pp", "fsdp", "ep", "tp"):
                 n //= self.shape[axis]
         return n
 

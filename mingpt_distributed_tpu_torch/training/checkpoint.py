@@ -32,7 +32,6 @@ from __future__ import annotations
 import hashlib
 import io
 import math
-import os
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
@@ -204,14 +203,23 @@ def restore_inference_params(path: str, gpt_cfg, device=None
     no optimizer state, checked key by key and shape by shape against
     ``gpt_cfg`` and put on ``device`` (cuda unless asked). The counterpart
     of the JAX package's ``restore_inference_params``, which the sample and
-    serve entry points share. None when no snapshot exists at ``path``; a
-    directory (a sharded Orbax checkpoint of the JAX package) raises."""
-    if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path} is a directory: sharded (Orbax) checkpoints are not "
-            "ported yet (ROADMAP.md Queue 1 item 12b.3)")
-    snap = load_snapshot(path)
-    if snap is None:
-        return None
+    serve entry points share: a path ending in ``.pt`` or ``.msgpack`` is a
+    one-file snapshot, any other a sharded directory
+    (``training/checkpoint_sharded.py``), read whole in this process with
+    no process group. None when no snapshot exists at ``path``."""
+    from mingpt_distributed_tpu_torch.training import checkpoint_sharded
+
+    if checkpoint_sharded.is_sharded_path(path):
+        from mingpt_distributed_tpu_torch.models import gpt
+
+        shapes = {n: shape for n, (shape, _) in convert.flatten(gpt.param_spec(gpt_cfg)).items()}
+        snap = checkpoint_sharded.read_params(path, shapes)
+        if snap is None:
+            return None
+        snap["params"] = convert.unflatten(snap["params"])
+    else:
+        snap = load_snapshot(path)
+        if snap is None:
+            return None
     params = convert.params_from_numpy(snap["params"], gpt_cfg, device)
     return InferenceSnapshot(params, int(snap["step"]))

@@ -16,13 +16,14 @@ does differently from PyTorch's usual recipe:
 * ``decay_mask`` refuses a parameter name it does not know, as the
   reference's partition asserts do.
 
-Under fsdp, ep or tp (``mesh.sharded``) every rank updates only its slices
-of the parameters, so its Adam moments are slices too. The global gradient
-norm (and the update norm) sums each leaf's squares over ``mesh.model_group``
-(the ranks that together hold one copy of the model) with the weight
-1/``mesh.copies(leaf)``: a replicated leaf counts once, not once per rank,
-and a leaf replicated along one axis and sharded along the other counts
-once per distinct slice.
+Under pp, fsdp, ep or tp (``mesh.sharded``) every rank updates only its
+slices of the parameters, so its Adam moments are slices too. The global
+gradient norm (and the update norm) sums each leaf's squares over
+``mesh.model_group`` (the ranks that together hold one copy of the model:
+every stage's layers once) with the weight 1/``mesh.copies(leaf)``: a
+replicated leaf counts once, not once per rank or per stage, and a leaf
+replicated along one axis and sharded along the other counts once per
+distinct slice.
 
 ZeRO (``zero``, a ``parallel.zero.ZeroPlan`` with dp > 1): Adam runs on a
 float32 buffer of this rank's 1/dp of each leaf's update view
@@ -154,7 +155,7 @@ class AdamW:
         self.timings: Optional[Dict[str, float]] = None
         if self.zero is not None:
             self._zmesh = mesh
-            self.zero_group = mesh.group_over(("dp", "fsdp", "ep", "tp"))
+            self.zero_group = mesh.group_over(("pp", "dp", "fsdp", "ep", "tp"))
             # the tensors Adam updates: a float32 buffer of this rank's 1/dp
             # of each view, rebuilt into the parameters by _gather_params
             # and refilled from them on restore. Views of the parameters

@@ -1,5 +1,5 @@
-"""The training loop, on one device or on a job of processes (dp x fsdp x ep x
-tp x sp).
+"""The training loop, on one device or on a job of processes (pp x dp x fsdp x
+ep x tp x sp).
 
 Counterpart of ``mingpt_distributed_tpu/training/trainer.py``:
 ``make_train_step`` (forward, backward, clip, AdamW update, with gradient
@@ -23,13 +23,25 @@ gradient, and ``all_reduce_grads`` sums a sliced leaf's gradient only over
 the ranks that hold the same slice (``Mesh.grad_group``: the data axes that
 do not split it; never over tp, where every rank's gradient is already
 whole for its slice). A mixture-of-experts model adds its aux loss once
-per rank (``gpt.loss_terms(with_aux=True)``). Rank 0 alone logs;
-every rank joins a snapshot's gather and rank 0 writes the whole tree, the
-layout an unsharded run writes, so a snapshot restores at any mesh (one
-that would gather more than ``msgpack_gather_limit_mb`` is refused, as in
-the JAX package). A stop request (SIGTERM) is agreed on by all ranks at a
-step boundary, over a host-side group, so none leaves while the others wait
-in a collective.
+per rank (``gpt.loss_terms(with_aux=True)``). Under pp each rank holds its
+stage's layers and the step runs the stage's schedule
+(``gpt.pipeline_terms``: forward and backward per microbatch, GPipe or
+1F1B) inside each ``grad_accum`` split; the loss is summed over the stages
+and the data ranks, so every rank logs the same, and the leaves the stages
+replicate have their gradients summed over pp. Rank 0 alone logs.
+
+Two snapshot backends, chosen by ``snapshot_path`` (the port's rule beside
+the JAX package's ``.msgpack`` one): a path ending in ``.pt`` or
+``.msgpack`` is one file, whose save has every rank join the gather of the
+whole tree and rank 0 write it, the layout an unsharded run writes, so it
+restores at any mesh (one that would gather more than
+``msgpack_gather_limit_mb`` is refused, as in the JAX package); any other
+path is a sharded directory (``training/checkpoint_sharded.py``), written
+collectively, each rank its own slices, and restored at any mesh.
+``async_save`` and ``zero_dp`` with a directory raise ``ConfigError``, as
+the JAX trainer refuses them with its Orbax directories. A stop request
+(SIGTERM) is agreed on by all ranks at a step boundary, over a host-side
+group, so none leaves while the others wait in a collective.
 
 Snapshots are committed through ``training/checkpoint.py``'s manifest:
 the last ``keep_snapshots`` are kept, transient I/O is retried
@@ -57,8 +69,6 @@ updates the shard and all-gathers the parameters (``AdamW.reduce_grads``,
 ``AdamW.step``). Snapshots keep the canonical layout, so they restore at
 any dp extent, with ``zero_dp`` on or off, and are written as dp shard
 objects behind one manifest entry (``checkpoint.save_snapshot(shards=)``).
-``zero_dp`` with a directory for ``snapshot_path`` raises, as the JAX
-trainer refuses its Orbax directories. The pp axis raises.
 """
 
 from __future__ import annotations
@@ -98,6 +108,7 @@ from mingpt_distributed_tpu_torch.telemetry import (
     log_event,
 )
 from mingpt_distributed_tpu_torch.training import checkpoint as ckpt_lib
+from mingpt_distributed_tpu_torch.training import checkpoint_sharded
 from mingpt_distributed_tpu_torch.training.durability import RetryPolicy
 from mingpt_distributed_tpu_torch.training.metrics import MetricsLogger, peak_flops
 from mingpt_distributed_tpu_torch.training.optimizer import (
@@ -268,8 +279,25 @@ def _distributed_step(cfg, grad_accum, lr_fn, mesh, debug_nans=False):
     (``all_reduce_grads``; under ZeRO reduce-scattered over dp,
     ``AdamW.reduce_grads``), then clip and AdamW run on every rank (on its
     slices under fsdp, ep or tp; on its 1/dp under ZeRO). Dropout draws
-    from ``rank_generator``."""
+    from ``rank_generator``. Under pp each split runs the stage's schedule
+    (``gpt.pipeline_terms``) in place of the one ``.backward()``; the loss
+    is then summed over ``loss_group`` (the stages and the data ranks)."""
     det = deterministic(cfg)
+    # made here, on every rank: making a group is collective
+    loss_group = (mesh.group_over(("pp",) + mesh_lib.DATA_AXES) if mesh.pp > 1
+                  else None)
+
+    def split_terms(state, xm, ym, gen, count):
+        """One split's (cross-entropy mean share, aux share), backpropagated."""
+        if loss_group is not None:
+            total, aux, _, _ = gpt.pipeline_terms(
+                state.params, xm, ym, cfg, generator=gen, deterministic=det, mesh=mesh,
+                loss_scale=1.0 / (count * grad_accum), aux_scale=1.0 / grad_accum)
+            return total / count, aux
+        total, _, aux = gpt.loss_terms(state.params, xm, ym, cfg, generator=gen,
+                                       deterministic=det, mesh=mesh, with_aux=True)
+        ((total / count + aux) / grad_accum).backward()
+        return total.detach() / count, aux.detach()
 
     def train_step(state: TrainState, batch: Batch,
                    generator: Optional[torch.Generator] = None
@@ -282,12 +310,13 @@ def _distributed_step(cfg, grad_accum, lr_fn, mesh, debug_nans=False):
         for xm, ym in _split(x, y, grad_accum):
             count = D.all_reduce((ym != -1).sum().float(),
                                  mesh.batch_group).clamp_min(1)
-            total, _, aux = gpt.loss_terms(state.params, xm, ym, cfg, generator=gen,
-                                           deterministic=det, mesh=mesh, with_aux=True)
-            ((total / count + aux) / grad_accum).backward()
-            loss = loss + total.detach() / count
-            extra = extra + aux.detach()
-        loss = (D.all_reduce(loss, mesh.batch_group) + extra) / grad_accum
+            ce, aux = split_terms(state, xm, ym, gen, count)
+            loss = loss + ce
+            extra = extra + aux
+        if loss_group is not None:
+            loss = D.all_reduce(loss + extra, loss_group) / grad_accum
+        else:
+            loss = (D.all_reduce(loss, mesh.batch_group) + extra) / grad_accum
         if state.optimizer.zero is not None:
             state.optimizer.reduce_grads()
         else:
@@ -340,8 +369,9 @@ class GPTTrainer:
     ):
         world = D.world_size()
         config.check_ported(world)
-        gpt.check_supported(gpt_config, dict(zip(
-            mesh_lib.AXES, mesh_lib.resolve_mesh_shape(config.mesh, world))))
+        shape = dict(zip(mesh_lib.AXES, mesh_lib.resolve_mesh_shape(config.mesh, world)))
+        gpt.check_supported(gpt_config, shape)
+        gpt.check_pipeline(gpt_config, shape, train_dataset.block_size)
         self.config = config
         self.gpt_config = gpt_config
         self.experiment_config = experiment_config
@@ -363,6 +393,16 @@ class GPTTrainer:
             if test_dataset is not None and len(test_dataset) >= config.batch_size
             else None)
         self.snapshot_path = config.snapshot_path or ckpt_lib.DEFAULT_SNAPSHOT_PATH
+        # the backend: .pt or .msgpack = one file (a gather to one writer);
+        # any other path = a sharded directory (collective, no gather)
+        self.sharded_snapshot = checkpoint_sharded.is_sharded_path(self.snapshot_path)
+        if config.async_save and self.sharded_snapshot:
+            # refuse rather than silently run sync: the user asked for
+            # overlap they would not be getting
+            raise ConfigError(
+                "async_save=True only applies to the one-file backend; sharded "
+                "directory saves run synchronously (collective write). Set "
+                "async_save=False, or use a .pt or .msgpack snapshot_path.")
         # transient-I/O retries shared by save and restore, the jitter seeded
         # from config.seed (JAX trainer.py:320)
         self._retry = RetryPolicy(attempts=config.io_retries,
@@ -394,13 +434,15 @@ class GPTTrainer:
         # the step is the replicated one
         self.zero_plan = None
         if config.zero_dp:
-            if os.path.isdir(self.snapshot_path) or self.snapshot_path.endswith(os.sep):
+            if self.sharded_snapshot:
+                # the directory backend writes each rank's tensors as they
+                # are: a zero_dp snapshot would bake in this run's dp view
                 raise ConfigError(
-                    f"zero_dp=True needs a one-file snapshot_path, got the "
-                    f"directory {self.snapshot_path!r}: the port saves the "
-                    "dp-sharded optimizer state in the canonical layout, so a "
-                    "snapshot restores at any dp extent; sharded directory "
-                    "checkpoints are ROADMAP.md Queue 1 item 12b.3")
+                    "zero_dp=True requires the one-file backend (a .pt or "
+                    ".msgpack snapshot_path): its save path canonicalises the "
+                    "dp-sharded optimizer state so snapshots restore at any dp "
+                    "extent. The sharded directory backend would persist the "
+                    "view layout.")
             if self.mesh is not None and self.mesh.dp > 1:
                 self.zero_plan = zero_lib.make_plan(self.mesh, params)
         if self.sharded:
@@ -414,11 +456,19 @@ class GPTTrainer:
         self._attrib_variant = ""
         self.generator = torch.Generator(device=self.device).manual_seed(config.seed)
         self.start_epoch = 0
-        restored = ckpt_lib.load_snapshot(self.snapshot_path, self._retry)
+        if self.sharded_snapshot:
+            restored = checkpoint_sharded.restore(self.snapshot_path, self.state.params,
+                                                  self.state.optimizer, self.mesh,
+                                                  self._retry)
+            if restored is not None:
+                self._restore_meta(restored)
+        else:
+            restored = ckpt_lib.load_snapshot(self.snapshot_path, self._retry)
+            if restored is not None:
+                self._restore(restored)
         if restored is None:
             self._print("Snapshot not found. Training model from scratch")
         else:
-            self._restore(restored)
             self._print(f"Resuming training from snapshot at epoch "
                         f"{restored['epoch']}, step {restored['step']}")
 
@@ -498,10 +548,14 @@ class GPTTrainer:
                     v.copy_(part(path, src[k].to(v.device)))
             load(self.state.params, snap["params"])
         self.state.optimizer.load_canonical_state_dict(snap["opt_state"], part)
+        self._restore_meta(snap)
+
+    def _restore_meta(self, snap: Dict[str, Any]) -> None:
+        """The step, epoch, data iterator and generator of a snapshot."""
         self.state.step = int(snap["step"])
         self.start_epoch = int(snap["epoch"])
         self.train_iter.state = IteratorState.from_dict(snap["data_state"])
-        self.generator.set_state(snap["generator"])
+        self.generator.set_state(torch.as_tensor(snap["generator"], dtype=torch.uint8))
 
     @property
     def step(self) -> int:
@@ -654,10 +708,20 @@ class GPTTrainer:
         return float(torch.stack(losses).mean().item())
 
     def save_snapshot(self, epoch: int) -> None:
-        """Rank 0 writes; under fsdp or tp every rank first joins the gather
-        of the whole tree. The others wait for the write. In a job of
-        several processes a state above ``msgpack_gather_limit_mb`` is
-        refused before any collective, with the JAX package's message."""
+        """A sharded directory: every rank writes its slices
+        (``checkpoint_sharded.save``). One file: rank 0 writes; under a
+        sharded mesh every rank first joins the gather of the whole tree.
+        The others wait for the write. In a job of several processes a
+        state above ``msgpack_gather_limit_mb`` is refused before any
+        collective, with the JAX package's message."""
+        if self.sharded_snapshot:
+            with self.tracer.span("train.snapshot", epoch=epoch):
+                checkpoint_sharded.save(self.snapshot_path, self.state.params,
+                                        self.state.optimizer, self.mesh,
+                                        self._snapshot_meta(epoch), self._retry)
+            self._print(f"Snapshot saved to {self.snapshot_path} (epoch {epoch}, "
+                        f"step {self.state.step}, sharded)")
+            return
         if self.process_count > 1:
             self._check_gather_limit()
         whole = (self._gather_state()
@@ -683,12 +747,13 @@ class GPTTrainer:
         limit_mb = self.config.msgpack_gather_limit_mb
         if state_mb > limit_mb:
             raise RuntimeError(
-                f"multi-host msgpack save would allgather {state_mb:.0f} MB of "
-                f"state to every host (limit {limit_mb} MB). Use the Orbax "
-                f"backend — a snapshot_path without the .msgpack suffix — for "
-                f"sharded collective writes with no gather, or raise "
-                f"trainer_config.msgpack_gather_limit_mb if your hosts have "
-                f"the RAM.")
+                f"multi-host one-file save would allgather {state_mb:.0f} MB of "
+                f"state to one writer (limit {limit_mb} MB). Use the sharded "
+                f"directory backend (the port's counterpart of the Orbax "
+                f"backend) — a snapshot_path that ends in neither .pt nor "
+                f".msgpack — for sharded collective writes with no gather, or "
+                f"raise trainer_config.msgpack_gather_limit_mb if your hosts "
+                f"have the RAM.")
 
     def _gather_state(self) -> Tuple[gpt.Params, Dict]:
         """The whole parameter tree and optimizer state dict, gathered from
@@ -704,21 +769,21 @@ class GPTTrainer:
         opt_state = self.state.optimizer.canonical_state_dict(full)
         return whole(self.state.params), opt_state
 
+    def _snapshot_meta(self, epoch: int) -> Dict[str, Any]:
+        """What a snapshot holds beside the tensors (JSON-ready)."""
+        return {"step": self.state.step, "epoch": epoch,
+                "data_state": self.train_iter.state.to_dict(),
+                "generator": self.generator.get_state().tolist(),
+                "config": (self.experiment_config.to_dict()
+                           if self.experiment_config else {})}
+
     def _save(self, epoch: int, whole=None) -> None:
         cpu = lambda t: {k: cpu(v) if isinstance(v, dict)  # noqa: E731
                          else v.detach().cpu() for k, v in t.items()}
         params, opt_state = whole or (cpu(self.state.params),
                                       self.state.optimizer.opt.state_dict())
-        snap = {
-            "params": params,
-            "opt_state": opt_state,
-            "step": self.state.step,
-            "epoch": epoch,
-            "data_state": self.train_iter.state.to_dict(),
-            "generator": self.generator.get_state(),
-            "config": (self.experiment_config.to_dict()
-                       if self.experiment_config else {}),
-        }
+        snap = {"params": params, "opt_state": opt_state, **self._snapshot_meta(epoch),
+                "generator": self.generator.get_state()}
         if not self.config.async_save:
             self._write(snap, "")
             return

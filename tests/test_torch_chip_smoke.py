@@ -540,10 +540,11 @@ def test_fsdp_tp_geometry_and_rule_bytes_at_gpt2():
 
 def test_main_runs_the_added_phases_and_reports_their_seconds():
     """_main drives the earlier slices' phases (the autoscaler, fsdp x tp
-    and its times, tensor-parallel serving, sp x tp and its hop times) and
-    this slice's (zero and moe_ep with their kernel checks and times,
-    serve_moe_tp_parity), each with its seconds in the budget line, and
-    lists the sharded steps' and the tp servers' launches among the
+    and its times, tensor-parallel serving, sp x tp and its hop times,
+    zero and moe_ep with their kernel checks and times,
+    serve_moe_tp_parity) and this slice's (the pipeline and checkpoint
+    legs, checked by phase_pp), each with its seconds in the budget line,
+    and lists the sharded steps' and the tp servers' launches among the
     paths."""
     import ast
     import inspect
@@ -555,7 +556,8 @@ def test_main_runs_the_added_phases_and_reports_their_seconds():
                   "phase_fsdp_tp", "phase_fsdp_tp_times", "budget_record",
                   "phase_serve_tp_parity", "phase_serve_tp", "phase_serve_cli_tp",
                   "phase_sp", "phase_sp_tp_times", "phase_serve_moe_tp_parity",
-                  "phase_zero_moe", "phase_moe_ep_kernels", "phase_zero_moe_times"):
+                  "phase_zero_moe", "phase_moe_ep_kernels", "phase_zero_moe_times",
+                  "phase_pp"):
         assert phase in called, phase
 
     def keys(name):
@@ -566,14 +568,16 @@ def test_main_runs_the_added_phases_and_reports_their_seconds():
     assert keys("earlier_seconds") == {"traffic_controller", "autoscale",
                                        "serve_cli_autoscale", "fsdp_tp", "fsdp_tp_times",
                                        "serve_tp_parity+serve_tp", "serve_cli_tp", "sp_tp",
-                                       "sp_tp_times"}
-    # zero's and moe_ep's seconds come from the ranks (phase_zero_moe)
-    assert keys("added_seconds") == {"serve_moe_tp_parity", "moe_ep_kernels",
-                                     "zero_moe_times"}
+                                       "sp_tp_times", "serve_moe_tp_parity",
+                                       "moe_ep_kernels", "zero_moe_times"}
+    # this slice's seconds all come from the ranks (phase_pp)
+    assert keys("added_seconds") == set()
     src = inspect.getsource(chip_smoke._main)
     for path in ("fsdp_tp_train_step_rank0", "sp_tp_train_step_rank0", '"serve_tp"',
                  '"serve_tp_follower"', "zero_train_step_rank0", "moe_ep_train_step_rank0",
-                 '"serve_moe_tp_parity"', "added_seconds.update(zm_seconds)"):
+                 '"serve_moe_tp_parity"', "earlier_seconds.update(zm_seconds)",
+                 "pp_train_step_rank0", "pp_1f1b_train_step_rank0",
+                 "added_seconds.update(pp_seconds)"):
         assert path in src, path
     # serve_tp holds its tokens/s against serve's from the same call, and
     # serve_cli_tp its completions against serve_cli's

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: it imports no jax and nothing of the JAX
 package (not even its jax-free modules), neither do chip_smoke.py and the
-rank bodies of the multi-process tests (tests/torch_sp_workers.py, run in
-fresh processes), and its entry points refuse to fall back to the CPU when
+rank bodies of the multi-process tests (tests/torch_sp_workers.py and
+tests/torch_pp_workers.py, run in fresh processes), and its entry points refuse to fall back to the CPU when
 no GPU is present."""
 
 import ast
@@ -28,7 +28,8 @@ def _port_modules():
 
 def _sources():
     out = [os.path.join(REPO, "chip_smoke.py"),
-           os.path.join(REPO, "tests", "torch_sp_workers.py")]
+           os.path.join(REPO, "tests", "torch_sp_workers.py"),
+           os.path.join(REPO, "tests", "torch_pp_workers.py")]
     for root, _, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)

@@ -1170,7 +1170,46 @@ def test_serve_metrics_port_serves_the_page(snapshot_argv, tmp_path, monkeypatch
     assert seen["health"]["status"] == "ok"
 
 
-def test_restore_inference_params(snapshot_argv, tmp_path):
+@pytest.fixture(scope="module")
+def dir_snapshot_argv(snapshot_argv, tmp_path_factory):
+    """``snapshot_argv``'s 3-step run with a directory for its snapshot (the
+    sharded backend)."""
+    dirsnap = tmp_path_factory.mktemp("serve_dir") / "snapdir"
+    argv = [a for a in snapshot_argv if not a.startswith("trainer_config.snapshot_path")]
+    argv.append(f"trainer_config.snapshot_path={dirsnap}")
+    assert t_train.main(["--device", "cpu", *argv, "trainer_config.batch_size=8",
+                         "trainer_config.max_steps=3", "trainer_config.eval_batches=1"]) == 0
+    return argv
+
+
+def _dir_snapshot(argv):
+    return next(a.split("=", 1)[1] for a in argv
+                if a.startswith("trainer_config.snapshot_path="))
+
+
+def test_sample_cli_restores_either_snapshot_format(snapshot_argv, dir_snapshot_argv,
+                                                   capsys):
+    """sample.py with neither --params nor --random-init loads the
+    trainer's snapshot, as the JAX sample.py does: the one-file and the
+    directory snapshot of the same run give the same greedy text; no
+    snapshot exits 1."""
+    from mingpt_distributed_tpu_torch import sample as t_sample
+
+    texts = []
+    for argv in (snapshot_argv, dir_snapshot_argv):
+        assert t_sample.main(["--device", "cpu", "--greedy", "--prompt", "the ",
+                              "--max-new-tokens", "8", *argv]) == 0
+        out = capsys.readouterr()
+        assert "loaded snapshot step 3" in out.err
+        texts.append(out.out)
+    assert texts[0] == texts[1] and texts[0].startswith("the ")
+    none = [a for a in snapshot_argv if not a.startswith("trainer_config.snapshot_path")]
+    assert t_sample.main(["--device", "cpu", "--max-new-tokens", "2", *none,
+                          "trainer_config.snapshot_path=/nonexistent/snap.pt"]) == 1
+    assert "no snapshot at" in capsys.readouterr().err
+
+
+def test_restore_inference_params(snapshot_argv, dir_snapshot_argv, tmp_path):
     exp = load_config(snapshot_argv[1], snapshot_argv[2:])
     ds = CharDataset(exp.data_config)
     cfg = dataclasses.replace(exp.gpt_config, vocab_size=ds.vocab_size,
@@ -1178,8 +1217,20 @@ def test_restore_inference_params(snapshot_argv, tmp_path):
     snap = ckpt.restore_inference_params(exp.trainer_config.snapshot_path, cfg, "cpu")
     assert snap.step == 3 and snap.params["wte"].shape == (ds.vocab_size, 64)
     assert ckpt.restore_inference_params(str(tmp_path / "none.pt"), cfg, "cpu") is None
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        ckpt.restore_inference_params(str(tmp_path), cfg, "cpu")
     with pytest.raises(ValueError, match="shape"):
         ckpt.restore_inference_params(exp.trainer_config.snapshot_path,
                                       dataclasses.replace(cfg, n_embd=32), "cpu")
+    # a directory is the sharded backend: an empty one holds no snapshot, and
+    # the same 3-step run saved there restores the same parameters
+    assert ckpt.restore_inference_params(str(tmp_path), cfg, "cpu") is None
+    dirsnap = _dir_snapshot(dir_snapshot_argv)
+    got = ckpt.restore_inference_params(dirsnap, cfg, "cpu")
+    assert got.step == 3
+    from mingpt_distributed_tpu_torch.models import convert
+
+    want = convert.flatten(snap.params)
+    assert set(convert.flatten(got.params)) == set(want)
+    for name, p in convert.flatten(got.params).items():
+        assert torch.equal(p, want[name]), name
+    with pytest.raises(ValueError, match="shape"):
+        ckpt.restore_inference_params(dirsnap, dataclasses.replace(cfg, n_embd=32), "cpu")

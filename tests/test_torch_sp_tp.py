@@ -150,11 +150,15 @@ def test_check_axes_accepts_sp_beside_fsdp_and_tp(shape):
 
 @pytest.mark.parametrize("axis", ["pp", "ep"])
 def test_check_axes_still_refuses_pp_and_ep_naming_12b(axis):
-    """pp still raises naming item 12b; ep runs since item 12b.1 (a batch
-    axis beside sp for a dense model; MoE beside sp raises in the model)."""
+    """Both run beside sp x tp now: ep since item 12b.1 (a batch axis beside
+    sp for a dense model), pp since item 12b.2. MoE beside sp still raises
+    in the model, naming item 12b.4."""
+    from mingpt_distributed_tpu_torch.config import GPTConfig
+    from mingpt_distributed_tpu_torch.models import gpt
+
     shape = dict(dict(pp=1, dp=1, fsdp=1, ep=1, tp=2, sp=2), **{axis: 2})
-    if axis == "ep":
-        mesh_lib.check_axes(shape)
-        return
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        mesh_lib.check_axes(shape)
+    mesh_lib.check_axes(shape)
+    cfg = GPTConfig.make(n_layer=2, n_head=4, n_embd=32, vocab_size=64, block_size=16,
+                         n_experts=2, attention="ring")
+    with pytest.raises(NotImplementedError, match="item 12b.4"):
+        gpt.check_supported(cfg, shape)

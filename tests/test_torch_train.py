@@ -490,16 +490,12 @@ def test_every_unported_option_is_checked():
 @pytest.mark.parametrize("mesh", [dict(tp=2), dict(dp=2), dict(fsdp=2), dict(sp=2),
                                   dict(pp=2), dict(ep=2)])
 def test_multi_device_meshes_raise(mesh):
-    """dp, fsdp, ep, tp and sp run across processes: in one process they do
-    not fit; pp is not ported, whatever the processes."""
+    """Every axis runs across processes (pp since item 12b.2): in one
+    process a mesh of 2 does not fit; in a job of 2 it does."""
     cfg = TrainerConfig.make(mesh=mesh)
-    if set(mesh) <= {"dp", "fsdp", "ep", "tp", "sp"}:
-        with pytest.raises(ValueError, match="torch.distributed.run"):
-            cfg.check_ported()
-        cfg.check_ported(world_size=2)
-    else:
-        with pytest.raises(NotImplementedError, match=f"{next(iter(mesh))}=2 is not ported"):
-            cfg.check_ported(world_size=2)
+    with pytest.raises(ValueError, match="torch.distributed.run"):
+        cfg.check_ported()
+    cfg.check_ported(world_size=2)
 
 
 def test_yaml_defaults_and_one_device_meshes_are_accepted():

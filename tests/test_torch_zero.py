@@ -252,7 +252,10 @@ def test_register_attrib_accounts_the_zero_moments(runs, mesh):
 
 
 def test_zero_dp_with_a_directory_path_is_refused(tmp_path):
-    with pytest.raises(ConfigError, match="zero_dp.*12b.3"):
+    """The JAX trainer's refusal and reason: the directory backend would
+    persist the dp view layout."""
+    with pytest.raises(ConfigError, match="zero_dp=True requires the one-file backend.*"
+                                          "would persist the view layout"):
         W._zero_trainer(tt.CORPUS, str(tmp_path), 1, dict(dp=-1))
 
 
