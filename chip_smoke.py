@@ -64,9 +64,9 @@ Phases:
      through int8 and fp8 pools against the fp32 pool: every divergence a
      near-tie of the KV round trip's logit error, the common greedy prefix
      reported, shapes equal, <= 0.27x the pool bytes, power-of-two scales,
-     the logit-error gauge); serve_quant (serve's first 16 requests at int8
-     and fp8, the decode step profiled over 5 steps: the same numbers and
-     160,432,128 pool bytes); serve_spec (serve's first 16
+     the logit-error gauge); serve_quant (serve's first 10 requests at int8
+     and fp8, the decode step profiled over 3 steps: the same numbers and
+     160,432,128 pool bytes); serve_spec (serve's first 10
      requests with the draft 'self:2' and 'self', k = 4: tokens/s, TTFT,
      ITL, accept rate, tokens per verify, host ms per propose, verify and
      round, beside serve's); serve_telemetry (serve's first 16 requests
@@ -74,7 +74,14 @@ Phases:
      watchdog: the trace file, the flight dumps and /debug/flight, the
      attribution report and /attrib through the port's validators, the
      SLO report, the prefill and decode rows, 0 new shapes after warmup);
-     0 launches of every kernel on each;
+     0 launches of every kernel on each; graftaudit (the program audit of
+     analysis/program_audit.py at serve's width, tp 1: serve's engine and a
+     k = 2 speculative decoder with the draft 'self:2', each of their 21
+     families run once: its collectives, its device<->host copies from
+     torch.profiler's memcpy events, its pool leaves written in place, the
+     K/V leaves' local heads, the allocator's growth, against the family's
+     contract; the analytic costs against the committed budgets' section
+     GRAFTAUDIT_SWEEP; 0 findings, 0 launches);
   3e. tensor-parallel serving (tp = 2: this process drives, one spawned
      follower process follows, gloo ranks sharing the card): serve_tp_parity
      (serve_parity's requests, fp32, with a 1-layer draft at k = SPEC_K so
@@ -193,6 +200,19 @@ Phases:
      32, 128), 4 all-to-alls per step and their ms, step ms, the first loss
      against rank 0's one-process forward of the 4 rows; K1, the prep pass
      and K2a/K2b held against their plain versions at that shape first);
+     then MoE beside sp: the narrow MoE at sp 2 x dp 2 and sp 2 x ep 2 on
+     the ring and sp 2 x tp 2 on Ulysses, fp32, one routing group of 1024
+     tokens interleaving every rank's sp chunks, against one process by
+     the same rule; moe_sp (Mixtral-8x7B widths at 1 layer, sp 2 on the
+     zigzag ring x ep 2: 4 of 8 experts per rank, T 8192, global batch 2,
+     each rank 1 row x 4096 columns, 4 whole routing groups, bf16, the
+     forward, the backward and the gradient reduction without Adam
+     moments: exactly 4 K3, 4 prep, 4 K4a and 4 K4b per rank per step at
+     q (1, 2048, 32, 128) and (2, 2048, 32, 128), 4 all-to-alls per step
+     and their ms, step ms, peak memory, the first loss within 5e-4
+     relative and the gradient norm within 0.5% of rank 0's one-process
+     step; K3, K4a/K4b and the prep pass held against their plain versions
+     at those shapes first);
   4c. the prototype tool (tools/proto_nh_kernel.py, K5's path) at its shape
      (B=16, T=1024, H=12, hd=64, bf16): its parity and time lines;
   5. times: kernels, plain versions, bounds and library yardsticks (K1 at
@@ -212,9 +232,10 @@ The seconds of the phases added with MoE and telemetry are one line
 the smoke's seconds so far), and a third (smoke_budget) gives the zero,
 moe_ep and serve_moe_tp_parity phases' seconds against
 ADDED_PHASES_BUDGET_S together, the earlier slices' (tensor parallelism,
-the autoscaler, fsdp x tp) beside them, and the whole smoke against
+the autoscaler, fsdp x tp, zero, moe_ep, the pipeline) beside them, and the whole smoke against
 SMOKE_BUDGET_S, reported, not failed. The last three lines are the card, the kernels
-line (twelve kernels) and the ok line. Exits 2 without CUDA, 1 on any
+line (twelve kernels; K3, the prep pass, K4a and K4b also with their
+moe_sp launches and errors) and the ok line. Exits 2 without CUDA, 1 on any
 failure.
 """
 
@@ -1587,19 +1608,22 @@ SERVE_NEW = 64
 # serve_spec's requests, the first of serve's 32: more than its 8 slots, so
 # the sharers queued behind them hit the prefix the first sharer stored;
 # fewer than 32, since the 'self' draft runs ~40 tokens/s and the smoke has
-# a time budget
-SERVE_SPEC_REQUESTS = 12
-# serve_quant's requests: the first 16 of serve's 32 (its int8 and fp8 runs
-# took 64.9 s of the smoke at 32; the pool, the prefix hits and the decode
-# step's profile are read alike at 16); and the decode steps its profile
-# reads per window (20 for serve): each quantized step issues ~1,340
-# kernels, whose profile takes most of the phase's seconds
-SERVE_QUANT_REQUESTS = 16
-# the fleets' and tp serving's share of serve's traffic: its first 16 of 32
+# a time budget (12 until the MoE-beside-sp and graftaudit legs were paid
+# for: 28.7 s for both drafts at 12 on the card)
+SERVE_SPEC_REQUESTS = 10
+# serve_quant's requests: the first 10 of serve's 32, still more than its 8
+# slots (its int8 and fp8 runs took 64.9 s of the smoke at 32 and 22.6 s at
+# 16; the pool, the prefix hits and the decode step's profile are read
+# alike); and the decode steps its profile reads per window (20 for serve):
+# each quantized step issues ~1,340 kernels, whose profile takes most of
+# the phase's seconds
+SERVE_QUANT_REQUESTS = 10
+# the fleets' and tp serving's share of serve's traffic: its first 12 of 32
 # requests (at 32 the three phases took ~95 s of a 968.8 s smoke on a slow
-# host; the pipeline and checkpoint legs are paid for with the cut)
-FLEET_REQUESTS = 16
-QUANT_PROFILE_STEPS = 5
+# host, ~56 s at 16; the pipeline and checkpoint legs, then the
+# MoE-beside-sp and graftaudit legs, are paid for with the cuts)
+FLEET_REQUESTS = 12
+QUANT_PROFILE_STEPS = 3
 
 
 def serve_traffic(n_req, vocab=50257):
@@ -1801,6 +1825,60 @@ def phase_serve(params32, card, kv_dtype="fp32", draft=None, n_req=32, serve_rec
 # phase 3b': tensor-parallel serving (tp = 2: this process drives, one
 # follower process, gloo, both on the one card)
 # ---------------------------------------------------------------------------
+
+# graftaudit: the program audit (analysis/program_audit.py) over the
+# serving families at serve's width on cuda:0, tp 1, where the device<->host
+# copies are real: serve's engine (bf16, block 1024, 8 slots, prefill chunk
+# 256, the default ladder, a 256 MiB prefix store) and a k = 2 speculative
+# decoder with the 2-layer draft 'self:2'; every family's call checked
+# against its contract (0 findings), its analytic cost against the committed
+# budgets' GRAFTAUDIT_SWEEP section. The serving path runs no kernel.
+GRAFTAUDIT_SWEEP = "tp1-gpt2-124m"
+
+
+def phase_graftaudit(params32, card):
+    """The audit at serve's width: each family's collectives, host copies
+    (exactly its contract's: every one the call makes by design), in-place
+    leaves, local heads and allocator growth, the findings (0 expected)
+    and the budget section (printed whole, to commit it)."""
+    from mingpt_distributed_tpu_torch.analysis import program_audit as pa
+    from mingpt_distributed_tpu_torch.serve import draft_from
+    from mingpt_distributed_tpu_torch.serving.engine import DecodeEngine
+    from mingpt_distributed_tpu_torch.serving.speculative import SpeculativeDecoder
+    from mingpt_distributed_tpu_torch.tools import graftaudit as ga
+
+    t0 = time.perf_counter()
+    cfg = gpt2_config("flash", "bfloat16")
+    dparams, dcfg = draft_from("self:2", params32, cfg, "cuda")
+
+    def build():
+        engine = DecodeEngine(params32, cfg, n_slots=8, prefill_chunk=256,
+                              prefix_cache_mb=256, device="cuda")
+        return engine, SpeculativeDecoder(engine, dparams, dcfg, k=2), ""
+
+    reset_counts()
+    ledger, contracts, findings = ga.audit([build])
+    counts = read_counts()
+    findings, rep = ga.report(ledger, contracts, findings, {"tp": 1, "device": "cuda"},
+                              ga.load_budgets(ga.DEFAULT_BUDGETS), GRAFTAUDIT_SWEEP)
+    arts = ledger.artifacts
+    emit({"phase": "graftaudit", "sweep": GRAFTAUDIT_SWEEP, "model": "gpt2 124M",
+          "programs": rep["programs"], "contracts": rep["contracts"],
+          "host_transfers": {a.key: [c["kind"] for c in a.host_transfers]
+                             for a in arts.values()},
+          "alloc_growth_bytes": {a.key: a.alloc_growth for a in arts.values()},
+          "findings": rep["findings"], "launches": counts,
+          "budget_section": pa.build_budget_section(arts),
+          "seconds": time.perf_counter() - t0, "card": card})
+    check(not findings, "graftaudit: " + "; ".join(f.render() for f in findings))
+    check(counts == expected(), f"graftaudit: the serving families launched {counts}")
+    # the card's copies are the contracts' designed ones: a copy the
+    # profiler missed would hide a finding
+    short = {a.key: len(a.host_transfers) for a in arts.values()
+             if len(a.host_transfers) != contracts[a.family].get("host_transfers", 0)}
+    check(not short, f"graftaudit: host copies differ from the contracts: {short}")
+    torch.cuda.empty_cache()
+
 
 TP_SERVE = 2
 # each rank's pool, read as the allocator's growth when it was made, within
@@ -3969,9 +4047,10 @@ SP_T = 4096
 SP_BATCH = 4
 SP_STEPS = 2  # a loss that falls, within the smoke's time budget
 SP_DP2_LAYERS = 2
-# the main path's ring in fp32: 4 of its 12 layers (cut from 12 to pay for
-# the pipeline legs), the same ring per layer and the same T
-SP_FP32_LAYERS = 4
+# the main path's ring in fp32: 2 of its 12 layers (cut from 12 to 4 to pay
+# for the pipeline legs, then to 2 for the MoE-beside-sp legs), the same
+# ring per layer and the same T
+SP_FP32_LAYERS = 2
 # Zigzag K3 launches per rank per layer and forward: 3 at step 0 (early x
 # early and late x late causal, late x early full) and one batch-stacked
 # call per hop, 3 + (n - 1); as many prep passes, K4a and K4b in the
@@ -4296,6 +4375,8 @@ def sp_rank(rank):
     torch.cuda.empty_cache()
     out["zm"] = zero_moe_rank(device)
     torch.cuda.empty_cache()
+    out["ms"] = moe_sp_rank(device)
+    torch.cuda.empty_cache()
     out["pp"] = pp_rank(device, rank)
     return out
 
@@ -4478,9 +4559,9 @@ def phase_sp(card):
     """The sp slice on SP ranks sharing the card. Returns the main path's
     and the sp x tp main path's launch counts (rank 0's), the sp x tp legs'
     seconds, each rank's fsdp x tp results with their seconds, each rank's
-    zero and moe_ep results and each rank's pipeline and checkpoint
-    results (the same ranks run them: ``phase_fsdp_tp``, ``phase_zero_moe``
-    and ``phase_pp`` check them)."""
+    zero and moe_ep results, its moe_sp results and its pipeline and
+    checkpoint results (the same ranks run them: ``phase_fsdp_tp``,
+    ``phase_zero_moe``, ``phase_moe_sp`` and ``phase_pp`` check them)."""
     from mingpt_distributed_tpu_torch.parallel.spawn import run_ranks
 
     t0 = time.perf_counter()
@@ -4495,7 +4576,8 @@ def phase_sp(card):
     return (ranks[0]["main"]["launches"], ranks[0]["sp_tp"]["launches"],
             sp_tp["legs_seconds"], ([r["ft"] for r in ranks],
                                     max(r["ft_seconds"] for r in ranks)),
-            [r["zm"] for r in ranks], [{"pp": r["pp"]} for r in ranks])
+            [r["zm"] for r in ranks], [r["ms"] for r in ranks],
+            [{"pp": r["pp"]} for r in ranks])
 
 
 # ---------------------------------------------------------------------------
@@ -5372,13 +5454,14 @@ def _moe_ep_main(device):
     return out
 
 
-def _moe_narrow_parity(mesh_kw, device):
-    """An fp32 narrow-MoE leg on ``mesh_kw`` against one process."""
+def _moe_narrow_parity(mesh_kw, device, attention="flash"):
+    """An fp32 narrow-MoE leg on ``mesh_kw`` (``attention`` ring or ulysses
+    under sp) against one process."""
     from mingpt_distributed_tpu_torch.config import GPTConfig, MeshConfig
     from mingpt_distributed_tpu_torch.parallel.mesh import Mesh
 
     t0 = time.perf_counter()
-    cfg = GPTConfig.make(attention="flash", dtype="float32", embd_pdrop=0.0,
+    cfg = GPTConfig.make(attention=attention, dtype="float32", embd_pdrop=0.0,
                          resid_pdrop=0.0, attn_pdrop=0.0, **MOE_NARROW)
     g = torch.Generator().manual_seed(41)
     tokens = torch.randint(0, cfg.vocab_size, (MOE_NARROW_ROWS, cfg.block_size + 1),
@@ -5606,6 +5689,274 @@ def phase_zero_moe_times(fa, card):
                    (b, t, h, kv, hd), dtype, shape_of, card)
         del q, k, v, do, out, lse, delta, kr, vr, qt, kt, vt
         torch.cuda.empty_cache()
+
+
+# moe_sp: Mixtral-8x7B widths at 1 layer beside sequence parallelism: sp 2
+# (the zigzag ring) x ep 2 (4 of 8 experts per rank), T 8192 (the preset's
+# block) and global batch 2: each rank holds 1 row x 4096 columns, 4 whole
+# routing groups of 1024, bf16. ~1.01 B parameters per rank: with fp32
+# gradients and Adam moments ~21.5 GB per rank would not fit 4 ranks on the
+# card, so the leg runs the forward, the backward and the gradient reduction
+# (the trainer's step without AdamW: ~4 GB weights, ~4 GB gradients and the
+# activations per rank). Zigzag K3 launches per layer 3 + (sp - 1), as many
+# prep passes, K4a and K4b in the backward.
+MOE_SP_MESH = dict(dp=1, ep=2, sp=2)
+MOE_SP_T, MOE_SP_BATCH, MOE_SP_STEPS = 8192, 2, 1  # timed steps after the warm-up
+MOE_SP_PER_STEP = 3 + (MOE_SP_MESH["sp"] - 1)
+# the first loss against rank 0's one-process step (flash attention, K1/K2,
+# on the same weights and rows), relative: the ring's and the one-process
+# attention round differently in bf16, and at Mixtral width the loss sits at
+# ~11.2, where swapping flash for plain attention alone moves it by 2.6e-4
+# at T 4096 (moe_train_step's plain_loss_rel_err, 2.3e-5); read 5.5e-5 here
+# (6.2e-4 absolute, where the sp path's absolute SP_LOSS_TOL is 5e-4 at
+# GPT-2's 10.98). The routing itself is held exactly by the fp32 legs.
+MOE_SP_LOSS_REL_TOL = 5e-4
+MOE_SP_KERNEL_CASES = [
+    # the zigzag hop (both half-chunks of the row, non-causal) and the
+    # step-0 own block (causal) at (rows, T / sp / 2, 32 heads, 8 KV, 128)
+    ("moe_sp_hop", 2, MOE_SP_T // 4, 32, 8, 128, False, None, None, 0),
+    ("moe_sp_own", 1, MOE_SP_T // 4, 32, 8, 128, True, None, None, 0),
+]
+# the narrow fp32 MoE beside sp: 4 rows of 256 tokens, one routing group of
+# 1024 that interleaves every rank's sp chunks, capacity binding
+#: the kernels of the moe_sp path
+MOE_SP_KERNELS = ("flash_lse_fwd", "flash_bwd_prep", "flash_lse_bwd_dq", "flash_lse_bwd_dkv")
+MOE_NARROW_SP_MESHES = {"sp2_dp2_ring": (dict(dp=2, sp=2), "ring"),
+                        "sp2_ep2_ring": (dict(dp=1, ep=2, sp=2), "ring"),
+                        "sp2_tp2_ulysses": (dict(dp=1, tp=2, sp=2), "ulysses")}
+
+
+def _moe_sp_grad_norm(params, mesh):
+    from mingpt_distributed_tpu_torch.models import convert
+    from mingpt_distributed_tpu_torch.training.optimizer import sharded_norm
+
+    flat = convert.flatten(params)
+    return sharded_norm([p.grad for p in flat.values()], list(flat), mesh)
+
+
+def _moe_sp_main(device):
+    """moe_sp: rank 0 first runs the one-process forward and backward of
+    the 2 global rows (flash attention, K1/K2; the others wait); then every
+    rank builds its slices one rank at a time (the whole 1-layer model is
+    6.8 GB of fp32 weights) and runs a warm-up step and MOE_SP_STEPS counted
+    ones: the trainer's loss terms, backward and gradient reduction, and
+    the gradient norm over the model group. The all-to-alls' count and
+    host seconds per step, the local experts, the q shapes K3 saw, peak
+    memory, and the first loss and gradient norm against one process's."""
+    from mingpt_distributed_tpu_torch.config import MeshConfig
+    from mingpt_distributed_tpu_torch.models import gpt
+    from mingpt_distributed_tpu_torch.ops import flash_attention as fa
+    from mingpt_distributed_tpu_torch.parallel import distributed as D
+    from mingpt_distributed_tpu_torch.parallel.mesh import Mesh
+    from mingpt_distributed_tpu_torch.training.optimizer import _global_norm
+    from mingpt_distributed_tpu_torch.training.trainer import all_reduce_grads, trainable
+
+    t_start = time.perf_counter()
+    mesh = Mesh(MeshConfig(**MOE_SP_MESH))
+    cfg = mixtral_config("bfloat16", 1, MOE_SP_T, attention="ring")
+    g = torch.Generator().manual_seed(37)
+    tokens = torch.randint(0, cfg.vocab_size, (MOE_SP_BATCH, MOE_SP_T + 1), generator=g)
+    x, y = tokens[:, :-1], tokens[:, 1:]
+    one = None
+    if mesh.rank == 0:
+        params = trainable(gpt.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                                    device=device))
+        _, loss = gpt.forward(params, x.to(device), dataclasses.replace(cfg, attention="flash"),
+                              targets=y.to(device), return_logits=False)
+        loss.backward()
+        norm = _global_norm([p.grad for p in gpt._leaves(params)])
+        one = {"loss": loss.item(), "grad_norm": norm.item()}
+        del params, loss, norm
+        torch.cuda.empty_cache()
+    params = None
+    for r in range(mesh.world_size):  # one rank at a time holds the whole model
+        if r == mesh.rank:
+            whole = gpt.init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                             device=device)
+            params = trainable(mesh.shard_params(whole))
+            del whole
+            torch.cuda.empty_cache()
+        D.barrier()
+    xr, yr = _ft_rows(x, mesh, device), _ft_rows(y, mesh, device)
+    leaves = list(gpt._leaves(params))
+    ex = {"calls": 0, "s": 0.0}
+    real = {"forward": D._AllToAll.forward, "backward": D._AllToAll.backward}
+    shapes = set()
+    real_lse = fa.attention_with_lse
+
+    def timed(fn):
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                ex["s"] += time.perf_counter() - t0
+                ex["calls"] += 1
+        return staticmethod(run)
+
+    def attention_with_lse(q, *args, **kwargs):
+        shapes.add(tuple(q.shape))
+        return real_lse(q, *args, **kwargs)
+
+    def step():
+        """The trainer's distributed step up to its update."""
+        for p in leaves:
+            p.grad = None
+        count = D.all_reduce((yr != -1).sum().float(), mesh.batch_group).clamp_min(1)
+        total, _, aux = gpt.loss_terms(params, xr, yr, cfg, mesh=mesh, with_aux=True)
+        (total / count + aux).backward()
+        loss = D.all_reduce(total.detach(), mesh.batch_group) / count + aux.detach()
+        all_reduce_grads(params, mesh)
+        return loss.item(), _moe_sp_grad_norm(params, mesh).item()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.attention_with_lse = attention_with_lse
+    try:
+        first = step()
+        torch.cuda.synchronize()
+        reset_counts()
+        shapes.clear()
+        for name, fn in real.items():
+            setattr(D._AllToAll, name, timed(fn))
+        losses, norms, seconds = [first[0]], [first[1]], []
+        for _ in range(MOE_SP_STEPS):
+            t0 = time.perf_counter()
+            loss, norm = step()
+            seconds.append(time.perf_counter() - t0)
+            losses.append(loss)
+            norms.append(norm)
+        counts = read_counts()
+    finally:
+        for name, fn in real.items():
+            setattr(D._AllToAll, name, staticmethod(fn))
+        fa.attention_with_lse = real_lse
+    out = {"losses": losses, "grad_norms": norms, "seconds": seconds, "launches": counts,
+           "q_shapes": sorted(shapes), "one_process": one,
+           "local_experts": int(params["blocks"]["w_e1"].shape[1]),
+           "param_bytes": sum(p.numel() * p.element_size() for p in leaves),
+           "all_to_all_calls_per_step": ex["calls"] / MOE_SP_STEPS,
+           "all_to_all_ms_per_step": ex["s"] * 1e3 / MOE_SP_STEPS,
+           "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "leg_s": time.perf_counter() - t_start}
+    del params, leaves, xr, yr
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_sp_rank(device):
+    """The MoE-beside-sp legs of an SP rank: the narrow fp32 legs at the
+    three meshes, then moe_sp."""
+    out = {}
+    for key, (mesh_kw, attention) in MOE_NARROW_SP_MESHES.items():
+        out[f"moe_{key}"] = _moe_narrow_parity(mesh_kw, device, attention)
+    torch.cuda.empty_cache()
+    out["moe_sp"] = _moe_sp_main(device)
+    return out
+
+
+def moe_sp_checks(ranks, card):
+    """The moe_sp records (and the narrow fp32 legs') and the message of
+    every check they fail."""
+    records, fails = [], []
+    for key, (mesh_kw, attention) in MOE_NARROW_SP_MESHES.items():
+        rec, more = zm_parity_checks(
+            [r[f"moe_{key}"] for r in ranks], f"moe_{key}_parity_fp32", card, mesh=mesh_kw,
+            attention=attention, ranks=SP, model=MOE_NARROW, global_batch=MOE_NARROW_ROWS,
+            seq=MOE_NARROW["block_size"],
+            routing="one group of 1024 tokens interleaves every rank's sp chunks; "
+                    "capacity binds")
+        rec["leg_s"] = max(r[f"moe_{key}"]["leg_s"] for r in ranks)
+        records.append(rec)
+        fails += more
+    ms = [r["moe_sp"] for r in ranks]
+    m0, one = ms[0], ms[0]["one_process"]
+    n = MOE_SP_STEPS
+    want = expected(flash_lse_fwd=n * MOE_SP_PER_STEP, flash_bwd_prep=n * MOE_SP_PER_STEP,
+                    flash_lse_bwd_dq=n * MOE_SP_PER_STEP, flash_lse_bwd_dkv=n * MOE_SP_PER_STEP)
+    half = MOE_SP_T // MOE_SP_MESH["sp"] // 2
+    shapes = [(1, half, 32, 128), (2, half, 32, 128)]
+    step_s = sum(sum(m["seconds"]) for m in ms) / (SP * n)
+    loss_err = abs(m0["losses"][0] - one["loss"]) / abs(one["loss"])
+    norm_rel = abs(m0["grad_norms"][0] - one["grad_norm"]) / one["grad_norm"]
+    records.append({
+        "phase": "moe_sp_train_step", "main_path": True,
+        "model": "mixtral-8x7b width, 1 layer", "mesh": MOE_SP_MESH, "ranks": SP,
+        "attention": "ring (zigzag)", "backend": "gloo, one shared card",
+        "global_batch": MOE_SP_BATCH, "seq": MOE_SP_T, "dtype": "bfloat16", "steps": n,
+        "update": "none: forward, backward and the gradient reduction (no Adam moments)",
+        "losses": m0["losses"], "grad_norms": m0["grad_norms"],
+        "one_process_first_loss": one["loss"], "first_loss_rel_err": loss_err,
+        "first_loss_rel_tol": MOE_SP_LOSS_REL_TOL, "one_process_grad_norm": one["grad_norm"],
+        "grad_norm_rel_err": norm_rel, "grad_norm_rel_tol": SP_GRAD_NORM_REL_TOL,
+        "step_ms": step_s * 1e3, "step_ms_note": "shared card, not multi-GPU throughput",
+        "step_ms_per_rank": [sum(m["seconds"]) / n * 1e3 for m in ms],
+        "all_to_all_calls_per_step": [m["all_to_all_calls_per_step"] for m in ms],
+        "all_to_all_ms_per_step": [m["all_to_all_ms_per_step"] for m in ms],
+        "local_experts": [m["local_experts"] for m in ms],
+        "param_bytes_per_rank": [m["param_bytes"] for m in ms],
+        "peak_allocated_bytes_per_rank": [m["peak_allocated_bytes"] for m in ms],
+        "launches_per_rank": [m["launches"] for m in ms], "launches_want": want,
+        "k3_q_shapes": m0["q_shapes"], "k3_q_shapes_want": shapes,
+        "leg_s": max(m["leg_s"] for m in ms), "card": card})
+    fails += [f"moe_sp: launches {m['launches']}, want {want}" for m in ms
+              if m["launches"] != want]
+    fails += [f"moe_sp: rank holds {m['local_experts']} experts, want 4" for m in ms
+              if m["local_experts"] != 4]
+    fails += [f"moe_sp: {m['all_to_all_calls_per_step']} all-to-alls per step, want 4"
+              for m in ms if m["all_to_all_calls_per_step"] != 4]
+    if [list(s) for s in m0["q_shapes"]] != [list(s) for s in shapes]:
+        fails.append(f"moe_sp: K3 saw {m0['q_shapes']}, want {shapes}")
+    if any(m["losses"] != m0["losses"] or m["grad_norms"] != m0["grad_norms"]
+           for m in ms[1:]):
+        fails.append("moe_sp: the ranks' losses or gradient norms differ")
+    if not all(math.isfinite(v) for v in m0["losses"] + m0["grad_norms"]):
+        fails.append(f"moe_sp: losses {m0['losses']}, norms {m0['grad_norms']}")
+    if not loss_err <= MOE_SP_LOSS_REL_TOL:
+        fails.append(f"moe_sp: first loss {m0['losses'][0]} vs one process {one['loss']}")
+    if not norm_rel <= SP_GRAD_NORM_REL_TOL:
+        fails.append(f"moe_sp: grad_norm {m0['grad_norms'][0]} vs one process "
+                     f"{one['grad_norm']}")
+    return records, fails
+
+
+def phase_moe_sp(card, ranks):
+    """The moe_sp slice's checks over what the SP ranks returned (phase_sp's
+    spawn). Returns rank 0's moe_sp launch counts and the legs' seconds."""
+    records, fails = moe_sp_checks(ranks, card)
+    for rec in records:
+        emit(rec)
+    check(not fails, "; ".join(fails))
+    seconds = {"moe_sp_train_step": max(r["moe_sp"]["leg_s"] for r in ranks),
+               "moe_sp_narrow_fp32": sum(max(r[f"moe_{k}"]["leg_s"] for r in ranks)
+                                         for k in MOE_NARROW_SP_MESHES)}
+    return ranks[0]["moe_sp"]["launches"], seconds
+
+
+def phase_moe_sp_kernels(fa, card):
+    """K3 and K4a/K4b against their plain versions at the shapes moe_sp
+    gives them (MOE_SP_KERNEL_CASES), and the prep pass at the hop's, bf16;
+    returns each kernel's largest error over them."""
+    i = len(LSE_CASES) + len(LSE_RING_CASES) + len(LSE_SP_TP_CASES)
+    errs = dict.fromkeys(MOE_SP_KERNELS, 0.0)
+    with preserved_counts():
+        for j, case in enumerate(MOE_SP_KERNEL_CASES):
+            rec, fails = lse_case(fa, i + j, case, torch.bfloat16)
+            emit({**rec, "card": card})
+            check(not fails, "; ".join(msg for _, msg in fails))
+            for name, err in (("flash_lse_fwd", rec["max_abs_err"]),
+                              ("flash_lse_bwd_dq", rec["dq_max_abs_err"]),
+                              ("flash_lse_bwd_dkv", max(rec["dk_max_abs_err"],
+                                                        rec["dv_max_abs_err"]))):
+                errs[name] = max(errs[name], err)
+        name, b, t, h, kv, hd, *_ = MOE_SP_KERNEL_CASES[0]
+        rec, fails = prep_case(fa, i, (name, b, t, h, kv, hd, None, None), torch.bfloat16)
+        emit({**rec, "card": card})
+        check(not fails, "; ".join(msg for _, msg in fails))
+        errs["flash_bwd_prep"] = max(rec["delta_max_abs_err"], rec["delta_dlse_max_abs_err"])
+    torch.cuda.empty_cache()
+    return errs
 
 
 def phase_serve_moe_tp_parity(card, group):
@@ -6113,13 +6464,14 @@ def phase_pp(card, ranks):
             seconds)
 
 
-# The time this slice's phases (pp_train_step, pp_1f1b_train_step,
-# pp_parity_fp32 and ckpt_sharded, all in the SP ranks' spawn) may take
-# together, and the whole smoke, in seconds of the command: no run may take
-# longer than the longest run of the smoke before them (876.7 s; the
-# driver's limit is 1200 s). The earlier slices' phases are reported beside.
-ADDED_PHASES_BUDGET_S = 120.0
-SMOKE_BUDGET_S = 876.7
+# The time this slice's phases (graftaudit in this process, the moe_sp
+# kernel checks, and moe_sp_train_step and the narrow fp32 legs beside sp in
+# the SP ranks' spawn) may take together, and the whole smoke, in seconds
+# of the command (the driver's limit is 1200 s; the earlier slices' runs
+# read 784.4-906.6 s by host, and their depth was cut to pay for these
+# phases). The earlier slices' phases are reported beside.
+ADDED_PHASES_BUDGET_S = 60.0
+SMOKE_BUDGET_S = 1050.0
 
 
 def budget_record(added_seconds, smoke_seconds, earlier_seconds=None):
@@ -6752,6 +7104,9 @@ def _main() -> int:
                   for d in ("self:2", "self")}
     added_seconds, earlier_seconds = {}, {}
     t0 = time.perf_counter()
+    phase_graftaudit(model32.params, card)
+    added_seconds["graftaudit"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     group, tp_spawn_s = tp_pending.result()
     try:
         phase_serve_tp_parity(model32.params, card, group)
@@ -6832,13 +7187,18 @@ def _main() -> int:
     t0 = time.perf_counter()
     phase_moe_ep_kernels(fa, card)
     earlier_seconds["moe_ep_kernels"] = time.perf_counter() - t0
-    sp_counts, sp_tp_counts, earlier_seconds["sp_tp"], ft, zm, pp = phase_sp(card)
+    t0 = time.perf_counter()
+    moe_sp_errs = phase_moe_sp_kernels(fa, card)
+    added_seconds["moe_sp_kernels"] = time.perf_counter() - t0
+    sp_counts, sp_tp_counts, earlier_seconds["sp_tp"], ft, zm, ms, pp = phase_sp(card)
     ft_counts = phase_fsdp_tp(card, ft)
     earlier_seconds["fsdp_tp"] = ft[1]
     zero_counts, moe_ep_counts, zm_seconds = phase_zero_moe(card, zm)
     earlier_seconds.update(zm_seconds)
+    moe_sp_counts, ms_seconds = phase_moe_sp(card, ms)
+    added_seconds.update(ms_seconds)
     pp_counts, pp4_counts, pp_seconds = phase_pp(card, pp)
-    added_seconds.update(pp_seconds)
+    earlier_seconds.update(pp_seconds)
     proto_counts = phase_proto(nh, card)
     emit_clocks("before times")
     rows = phase_times(fa, card)
@@ -6898,14 +7258,20 @@ def _main() -> int:
         line.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],
                      "max_abs_err": err, **rows[name]})
+        if name in MOE_SP_KERNELS:  # the moe_sp path's launches and error too
+            line[-1]["moe_sp_launches"] = moe_sp_counts[name]
+            line[-1]["moe_sp_max_abs_err"] = moe_sp_errs[name]
         if name == "flash_bwd_prep":
             line[-1]["replaces_is"] = "jnp.sum of out * dO (delta): no pallas_call"
     check(all(k["launches"] > 0 for k in line),
           f"a kernel never ran on its path: {[k['name'] for k in line]}")
+    check(all(moe_sp_counts[k] > 0 for k in MOE_SP_KERNELS),
+          f"a kernel never ran on the moe_sp path: {moe_sp_counts}")
     emit({"phase": "launches_by_path", "train_step": split["launches"],
           "train_step_fused": fused["launches"], "sp_train_step_rank0": sp_counts,
           "fsdp_tp_train_step_rank0": ft_counts, "sp_tp_train_step_rank0": sp_tp_counts,
           "zero_train_step_rank0": zero_counts, "moe_ep_train_step_rank0": moe_ep_counts,
+          "moe_sp_train_step_rank0": moe_sp_counts,
           "pp_train_step_rank0": pp_counts, "pp_1f1b_train_step_rank0": pp4_counts,
           "serve_moe_tp_parity": moe_tp_launches,
           "serve_tp": serve_tp["launches"],

@@ -37,10 +37,10 @@ Mixture-of-experts blocks (``n_experts > 0``, ``ops/moe.py``) replace the
 dense MLP with routed experts: the leaves ``w_router``, ``w_e1``, ``w_e2``
 and, with SwiGLU, ``w_eg``; the loss adds ``moe_aux_weight * aux /
 n_layer``, the per-layer sum of the Switch aux loss, as in the JAX package.
-Across processes (dp, fsdp, ep and tp) the blocks route the global batch's
-groups as JAX does (``moe.Exchange``: the ranks of distinct tokens, and the
-expert exchange over ep); under Megatron tp each rank holds F/tp of every
-expert. MoE beside sp raises (``check_supported``).
+Across processes (dp, fsdp, ep, sp and tp) the blocks route the global
+batch's groups as JAX does (``moe.Exchange``: the ranks of distinct tokens,
+each holding its rows' column chunk under sp, and the expert exchange over
+ep); under Megatron tp each rank holds F/tp of every expert.
 
 Pipeline stages (a mesh of pp > 1, ``parallel/pipeline.py``): ``params``
 holds this stage's layers, and the forward, the loss and the training
@@ -178,15 +178,11 @@ def init(cfg: GPTConfig, generator: torch.Generator,
 
 
 def check_supported(cfg: GPTConfig, mesh=None) -> None:
-    """Raise for what this port does not run yet: mixture-of-experts blocks
-    beside sequence parallelism (an sp rank's tokens interleave with the
-    other sp ranks' in JAX's routing groups). ``mesh``: a
-    ``parallel.mesh.Mesh`` or a dict of axis extents."""
-    shape = getattr(mesh, "shape", mesh) or {}
-    if cfg.n_experts and shape.get("sp", 1) > 1:
-        raise NotImplementedError(
-            "mixture-of-experts beside sp > 1 is not ported yet (ROADMAP.md "
-            "Queue 1 item 12b.4)")
+    """Raise for a config and mesh (a ``parallel.mesh.Mesh`` or a dict of
+    axis extents) that this port does not run: the place for such refusals.
+    Every combination of the model's options and the mesh's axes runs
+    now."""
+    del cfg, mesh
 
 
 def check_pipeline(cfg: GPTConfig, mesh, seq_len: int) -> None:
@@ -214,19 +210,21 @@ def check_pipeline(cfg: GPTConfig, mesh, seq_len: int) -> None:
 
 def _moe_exchange(mesh) -> Optional["moe.Exchange"]:
     """The MoE layers' view of the mesh: the ranks of distinct tokens at
-    this rank's tp coordinate, in batch order, and the expert exchange
-    when the experts are split over ep. Under pp a microbatch's tokens are
-    routed on their own rank, as in the JAX pipeline's stage body: only
-    the expert exchange remains."""
+    this rank's tp coordinate, in ``data_rank`` order (row block major,
+    its sp column chunk minor), and the expert exchange when the experts
+    are split over ep. Under pp a microbatch's tokens (its column chunk,
+    under sp) are routed on their own rank, as in the JAX pipeline's stage
+    body: only the expert exchange remains."""
     if mesh is None:
         return None
     ep_group = mesh.ep_group if mesh.ep_split("blocks/w_e1") else None
     if mesh.pp > 1:
         return None if ep_group is None else moe.Exchange(None, 0, 1, ep_group, mesh.ep)
-    if mesh.batch_count <= 1:
+    count = mesh.batch_count * mesh.sp
+    if count <= 1:
         return None
-    return moe.Exchange(mesh.batch_group, mesh.batch_index, mesh.batch_count,
-                        ep_group, mesh.ep if ep_group is not None else 1)
+    return moe.Exchange(mesh.batch_group, mesh.data_rank, count, ep_group,
+                        mesh.ep if ep_group is not None else 1, cols=mesh.sp)
 
 
 def _attention_dispatch(cfg: GPTConfig, mesh=None) -> Callable[..., torch.Tensor]:
@@ -565,7 +563,9 @@ def pipeline_terms(
     pos0 = _pos0(cfg, mesh, t)
     rope = _rope(cfg, pos0, tokens)
     base = None if deterministic else D.dropout_base(generator)
-    aux_w = (cfg.moe_aux_weight / (cfg.n_layer * m * mesh.batch_count)
+    # the batch shards: every rank of distinct tokens (sp chunks too), as
+    # the JAX pipeline's pmean over the batch axes and sp
+    aux_w = (cfg.moe_aux_weight / (cfg.n_layer * m * mesh.batch_count * mesh.sp)
              if cfg.n_experts else 0.0)
     ys = None if targets is None else targets.chunk(m)
     nc = _loss_chunks(cfg, t)

@@ -29,18 +29,24 @@ so a KV-cached decode reproduces a full re-forward only where nothing
 drops (capacity_factor >= E / k guarantees it).
 
 Across processes (``exchange``, an ``Exchange`` the model builds from its
-mesh): each rank holds ``data_count`` equal, contiguous row blocks' worth of
-the global batch's tokens, block ``data_rank``. The JAX package routes the
-*global* batch under GSPMD, in groups of ``_group_size`` of the global token
-count, so the groups, the capacity and each token's place in its expert's
-buffer are global. Where a rank's tokens are whole groups, routing them
-alone is exact. Where a group spans ranks, each rank lays its tokens out in
-the groups they belong to (zero rows elsewhere) and one all-gather of the
-per-expert counts of every slot gives each token the count of the same
-group's tokens on the ranks before it, and each slot the group's kept total
-after the slots before it (``_route_groups``). The aux loss sums f and P
-over the ranks before their product (``distributed.sum_from_group``, whose
-backward keeps each rank's share).
+mesh): the ranks of distinct tokens hold the global (B, T) batch as a grid
+of ``data_count / cols`` row blocks by ``cols`` column chunks (sequence
+parallelism splits the columns); rank ``data_rank`` holds row block
+``data_rank // cols`` and column chunk ``data_rank % cols``. The JAX
+package routes the *global* batch under GSPMD, in groups of
+``_group_size`` of the global token count taken in the flat order
+b * T + t, so the groups, the capacity and each token's place in its
+expert's buffer are global. A rank's tokens are **segments** of that
+order: each of its rows' column chunk, or, with one column chunk, its
+whole row block as one segment. Where every segment is whole groups,
+routing them alone is exact. Otherwise each rank lays its tokens out in
+the groups they belong to (zero rows elsewhere), and one all-gather of
+every rank's per-(piece, choice, expert) counts (a piece: a segment's
+part in one group) gives each token the count of the same group's
+earlier pieces on every rank, and each choice the group's kept total
+after the choices before it (``_route_groups``). The aux loss sums f and
+P over the ranks before their product (``distributed.sum_from_group``,
+whose backward keeps each rank's share).
 
 Expert parallelism (``exchange.ep_group``: ``w_e1``, ``w_e2`` and ``w_eg``
 hold this rank's ``E/ep`` experts, rank i the experts [i E/ep, (i+1) E/ep)
@@ -85,16 +91,81 @@ class Exchange(NamedTuple):
     """A rank's tokens and experts in a job of processes."""
 
     data_group: Any       # the ranks of distinct tokens (this rank's tp coordinate)
-    data_rank: int        # this rank's block of the global batch's rows
-    data_count: int       # how many blocks (ranks of distinct tokens)
+    data_rank: int        # this rank's place there: row block * cols + column chunk
+    data_count: int       # how many ranks of distinct tokens
     ep_group: Any = None  # the expert exchange (None: every expert here)
     ep: int = 1
+    cols: int = 1         # column chunks of each row (sp)
 
 
-def _span(s: int, gs: int, rank: int) -> Tuple[int, int]:
-    """The first group of rank ``rank``'s s tokens and how many it touches."""
-    first = rank * s // gs
-    return first, (rank * s + s - 1) // gs - first + 1
+def _segments(b: int, t: int, rank: int, cols: int) -> List[Tuple[int, int]]:
+    """(global flat offset, length) of each run of rank ``rank``'s b x t
+    tokens in the global (B, T) order, in the rank's own order."""
+    block, col = divmod(rank, cols)
+    if cols == 1:  # the row block's rows are adjacent: one segment
+        return [(block * b * t, b * t)]
+    width = t * cols
+    return [((block * b + i) * width + col * t, t) for i in range(b)]
+
+
+def _pieces(b: int, t: int, rank: int, cols: int, gs: int) -> List[Tuple[int, int, int]]:
+    """Rank ``rank``'s segments cut at the group boundaries: (group, first
+    place in the group, length), in the rank's own token order."""
+    out = []
+    for off, n in _segments(b, t, rank, cols):
+        pos = off
+        while pos < off + n:
+            g = pos // gs
+            end = min(off + n, (g + 1) * gs)
+            out.append((g, pos - g * gs, end - pos))
+            pos = end
+    return out
+
+
+class _Layout(NamedTuple):
+    """Where a rank's tokens go when its groups are shared with other
+    ranks: ``place`` (s,) each token's row in the (ng * gs) buffer of the
+    groups it touches; ``piece`` (ng * gs,) each row's piece (-1: none);
+    and the index lists that turn the gathered per-piece counts into
+    ``marks`` (other ranks' earlier pieces, at their first place) and each
+    group's ``totals``."""
+
+    ng: int
+    n_pieces: int
+    place: torch.Tensor
+    piece: torch.Tensor
+    mark_src: torch.Tensor
+    mark_dst: torch.Tensor
+    total_src: torch.Tensor
+    total_dst: torch.Tensor
+
+
+def _layout(ex: Exchange, b: int, t: int, gs: int, device) -> _Layout:
+    """The shared-group layout of this rank (see ``_Layout``), from every
+    rank's pieces: each rank computes every rank's, so none is sent."""
+    every = [_pieces(b, t, r, ex.cols, gs) for r in range(ex.data_count)]
+    slots = [sorted({g for g, _, _ in ps}) for ps in every]
+    ng = max(len(s) for s in slots)
+    n_pieces = max(len(ps) for ps in every)
+    mine = {g: i for i, g in enumerate(slots[ex.data_rank])}
+    place, piece = [], [-1] * (ng * gs)
+    for p, (g, first, n) in enumerate(every[ex.data_rank]):
+        row = mine[g] * gs + first
+        place.extend(range(row, row + n))
+        piece[row:row + n] = [p] * n
+    mark_src, mark_dst, total_src, total_dst = [], [], [], []
+    for r, ps in enumerate(every):
+        for p, (g, first, _) in enumerate(ps):
+            if g not in mine:
+                continue
+            total_src.append(r * n_pieces + p)
+            total_dst.append(mine[g])
+            if r != ex.data_rank:
+                mark_src.append(r * n_pieces + p)
+                mark_dst.append(mine[g] * gs + first)
+    as_t = lambda v: torch.tensor(v, dtype=torch.long, device=device)  # noqa: E731
+    return _Layout(ng, n_pieces, as_t(place), as_t(piece), as_t(mark_src), as_t(mark_dst),
+                   as_t(total_src), as_t(total_dst))
 
 
 def capacity(gs: int, n_experts: int, top_k: int, capacity_factor: float) -> int:
@@ -108,9 +179,10 @@ def _route_groups(probs: torch.Tensor, top_k: int, cap: int,
     """Every group's dispatch and combine from (G, gs, E) float32 router
     probabilities: (dispatch (G, gs, E, cap), combine (G, gs, E, cap), the
     top-1 one-hot (G, gs, E)). The JAX ``_route_group``, vmapped. ``valid``
-    (G, gs) marks this rank's rows of groups that span ranks;
-    ``counts_fn(onehots)`` then gives each slot's (G, 1, E) count of the
-    group's tokens on the ranks before this one and the group's total."""
+    (G, gs) marks this rank's rows of groups shared with other ranks;
+    ``counts_fn(onehots)`` then gives, per choice, (G, gs, E) ``marks``
+    (each other rank's piece's count at its first place in the group)
+    and the group's (G, 1, E) total."""
     n_groups, _, e = probs.shape
     remaining = probs
     gates: List[torch.Tensor] = []
@@ -125,16 +197,15 @@ def _route_groups(probs: torch.Tensor, top_k: int, cap: int,
     denom = sum(gates) if top_k > 1 else torch.ones_like(gates[0])
     slots = torch.arange(cap, device=probs.device, dtype=probs.dtype)
     counts = probs.new_zeros((n_groups, 1, e))
-    before = totals = None
+    marks = totals = None
     if counts_fn is not None:
-        before, totals = counts_fn(onehots)
+        marks, totals = counts_fn(onehots)
     dispatch = combine = None
     for j, (g, oh) in enumerate(zip(gates, onehots)):
         # each token's place in its expert's buffer, after the tokens that
-        # earlier choices (and earlier ranks of its group) placed there
-        pos = counts + torch.cumsum(oh, dim=1) - oh           # (G, gs, E)
-        if before is not None:
-            pos = pos + before[j]
+        # earlier choices (and earlier pieces of its group) placed there
+        ahead = oh if marks is None else oh + marks[j]
+        pos = counts + torch.cumsum(ahead, dim=1) - oh           # (G, gs, E)
         keep = oh * (pos < cap)
         if totals is None:
             counts = counts + keep.sum(dim=1, keepdim=True)
@@ -147,21 +218,22 @@ def _route_groups(probs: torch.Tensor, top_k: int, cap: int,
     return dispatch, combine, onehots[0]
 
 
-def _cross_rank_counts(ex: Exchange, s: int, gs: int, first: int, n_groups: int):
-    """``counts_fn`` for groups that span ranks: one all-gather, over the
-    ranks of distinct tokens, of every slot's per-expert counts by global
-    group."""
-    total_groups = s * ex.data_count // gs
+def _shared_counts(ex: Exchange, lay: _Layout, gs: int):
+    """``counts_fn`` for groups shared with other ranks: one all-gather,
+    over the ranks of distinct tokens, of every rank's per-(piece, choice,
+    expert) counts."""
 
     def counts_fn(onehots):
-        local = torch.stack([oh.sum(dim=1) for oh in onehots])   # (k, G, E)
-        k, _, e = local.shape
-        placed = local.new_zeros((k, total_groups + n_groups, e))
-        placed[:, first:first + n_groups] = local
-        every = D.gather_tensor(placed[None], ex.data_group, 0)   # (R, k, NG, E)
-        mine = every[:, :, first:first + n_groups]
-        return (mine[:ex.data_rank].sum(0)[:, :, None],
-                mine.sum(0)[:, :, None])
+        k, e = len(onehots), onehots[0].shape[-1]
+        flat = torch.stack(onehots).reshape(k, lay.ng * gs, e)
+        local = flat.new_zeros((k, lay.n_pieces + 1, e)).index_add_(1, lay.piece + 1, flat)
+        every = D.gather_tensor(local[None, :, 1:], ex.data_group, 0)  # (R, k, P, E)
+        every = every.transpose(0, 1).reshape(k, -1, e)
+        marks = flat.new_zeros((k, lay.ng * gs, e)).index_add_(
+            1, lay.mark_dst, every[:, lay.mark_src])
+        totals = flat.new_zeros((k, lay.ng, e)).index_add_(
+            1, lay.total_dst, every[:, lay.total_src])
+        return marks.reshape(k, lay.ng, gs, e), totals[:, :, None]
 
     return counts_fn
 
@@ -199,17 +271,14 @@ def moe_mlp(
     count = 1 if ex is None else ex.data_count
     gs = _group_size(t if per_row else s * count)
     xs = x.reshape(s, d)
-    valid = counts_fn = None
-    lo = 0
-    if ex is not None and s % gs:
-        # groups span ranks: lay this rank's tokens out in theirs
-        first, _ = _span(s, gs, ex.data_rank)
-        ng = max(_span(s, gs, r)[1] for r in range(count))
-        lo = ex.data_rank * s - first * gs
-        xs = F.pad(xs, (0, 0, lo, ng * gs - lo - s))
-        valid = F.pad(x.new_ones((s,), dtype=torch.float32), (lo, ng * gs - lo - s))
-        valid = valid.reshape(ng, gs)
-        counts_fn = _cross_rank_counts(ex, s, gs, first, ng)
+    valid = counts_fn = place = None
+    if ex is not None and (t if ex.cols > 1 else s) % gs:
+        # groups shared with other ranks: lay this rank's tokens out in theirs
+        lay = _layout(ex, b, t, gs, x.device)
+        xs = xs.new_zeros((lay.ng * gs, d)).index_copy(0, lay.place, xs)
+        valid = (lay.piece >= 0).float().reshape(lay.ng, gs)
+        counts_fn = _shared_counts(ex, lay, gs)
+        place = lay.place
     ng = xs.shape[0] // gs
     xs = xs.reshape(ng, gs, d)
 
@@ -238,7 +307,9 @@ def moe_mlp(
     out = torch.bmm(combine.reshape(ng, gs, e * cap), expert_out)
     if tp_group is not None:
         out = D.sum_from_group(out, tp_group)
-    out = out.to(x.dtype).reshape(ng * gs, d)[lo:lo + s]
+    out = out.to(x.dtype).reshape(ng * gs, d)
+    if place is not None:
+        out = out[place]
 
     # Switch load-balancing loss on the top-1 assignment, over all tokens
     if ex is None:

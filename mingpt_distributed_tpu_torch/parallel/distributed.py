@@ -32,13 +32,20 @@ Beside the job's group, ``initialize`` opens a gloo group over the same
 ranks for host-side flags (``any_rank``): they never wait for a card.
 ``mix_seed`` and ``dropout_base`` give each rank, pair of chunks or head
 group its own dropout seed from one shared generator.
+
+Every collective here tells ``collective_observers`` its op, under the
+name XLA gives it in the JAX package's programs (``all-reduce``,
+``all-gather``, ``reduce-scatter``, ``all-to-all``, ``collective-permute``;
+``reduce_to_first`` reports ``all-reduce``, the counterpart of the JAX
+serving program's psum of the logits), and the elements of its result:
+the program audit (``analysis/program_audit.py``) listens there.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -48,6 +55,15 @@ _backend: Optional[str] = None
 _host_group = None  # gloo, every rank: flags exchanged on the host
 
 Perm = Sequence[Tuple[int, int]]  # (source, destination) ranks of a group
+
+#: callables told of every collective this module issues: (op, elements)
+collective_observers: List[Callable[[str, int], None]] = []
+
+
+def observe_collective(op: str, elems: int) -> None:
+    """Tell the observers of one collective (op name, result elements)."""
+    for fn in collective_observers:
+        fn(op, int(elems))
 
 
 def initialize(backend: Optional[str] = None, timeout_s: float = 600.0, *,
@@ -160,6 +176,7 @@ def send_async(group, x: torch.Tensor, peer: int, tag: int):
     ``_exchange(group, [], [(like, rank, tag)])``. A pipeline stage never
     blocks on a send, only on what it receives, so no two stages can wait
     for each other's sends."""
+    observe_collective("collective-permute", x.numel())
     wire = _wire(x)
     return _Pending(dist.isend(wire, _global(group, peer), group=group, tag=tag), wire)
 
@@ -176,6 +193,8 @@ def _permute(group, perms: Sequence[Perm], xs: Sequence[torch.Tensor]):
     """Tensor j goes from each source to its destination in ``perms[j]``;
     a rank that no source sends to receives zeros (``lax.ppermute``)."""
     me = _group_rank(group)
+    for x in xs:
+        observe_collective("collective-permute", x.numel())
     out: List[Optional[torch.Tensor]] = [None] * len(xs)
     sends, recvs, slots = [], [], []
     for j, (x, perm) in enumerate(zip(xs, perms)):
@@ -254,12 +273,14 @@ class _AllToAll(torch.autograd.Function):
     def forward(ctx, group, split_axis, concat_axis, x):
         ctx.group, ctx.axes = group, (split_axis, concat_axis)
         n = _group_size(group)
+        observe_collective("all-to-all", x.numel())
         return torch.cat(_all_to_all(group, _split(x, n, split_axis)), concat_axis)
 
     @staticmethod
     def backward(ctx, g):
         split_axis, concat_axis = ctx.axes
         n = _group_size(ctx.group)
+        observe_collective("all-to-all", g.numel())
         parts = _all_to_all(ctx.group, _split(g, n, concat_axis))
         return None, None, None, torch.cat(parts, split_axis)
 
@@ -275,12 +296,14 @@ def all_to_all(x: torch.Tensor, group, split_axis: int, concat_axis: int
 
 def gather_tensor(x: torch.Tensor, group, axis: int) -> torch.Tensor:
     """All-gather along ``axis`` in rank order (no gradient)."""
+    observe_collective("all-gather", x.numel() * _group_size(group))
     return torch.cat(_all_to_all(group, [x] * _group_size(group)), axis)
 
 
 def _reduce_scatter(group, x: torch.Tensor, axis: int) -> torch.Tensor:
     """x cut into n pieces along ``axis``; rank r gets the sum over the
     group of everyone's piece r (no gradient)."""
+    observe_collective("reduce-scatter", x.numel() // _group_size(group))
     parts = _all_to_all(group, _split(x, _group_size(group), axis))
     return torch.stack(parts).sum(0)
 
@@ -388,6 +411,7 @@ def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
     x. Not differentiable: it sums gradients and loss terms."""
     if not dist.is_initialized() or dist.get_world_size(group) == 1:
         return x
+    observe_collective("all-reduce", x.numel())
     wire = _wire(x)
     dist.all_reduce(wire, group=group)
     if wire is not x:
@@ -401,6 +425,7 @@ def reduce_to_first(x: torch.Tensor, group) -> torch.Tensor:
     call. Not differentiable: serving's partial logits go to the driver."""
     if group is None or dist.get_world_size(group) == 1:
         return x
+    observe_collective("all-reduce", x.numel())
     wire = _wire(x)
     dist.reduce(wire, dst=_global(group, 0), group=group)
     if wire is not x:

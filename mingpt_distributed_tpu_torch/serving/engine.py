@@ -100,8 +100,9 @@ capture of these calls needs.
    float32; the decode step still routes each slot on its own.
 
 Attribution (``register_attrib``) registers each family's shapes with
-analytic costs. The audit contracts (``audit_contracts``) are ROADMAP.md
-Queue 1 item 16b.
+analytic costs; ``audit_contracts`` gives each family's contract for the
+program audit (``analysis/program_audit.py``), family for family as the
+JAX engine's.
 """
 
 from __future__ import annotations
@@ -126,6 +127,13 @@ from mingpt_distributed_tpu_torch.utils.device import Device, resolve_device
 DEFAULT_MIN_BUCKET = 64
 
 FAMILIES = ("prefill", "decode", "prefix_load", "prefix_save")
+#: device<->host copies of one public call per family on a card (the
+#: program audit's ``host_transfers``): a prefill uploads its chunk and
+#: the sampler's temperature, top-k and top-p and reads its token; a
+#: decode step uploads its tokens, positions and the three sampler rows
+#: and reads the tokens (under tp the driver also reads the step's tokens
+#: for the followers' command); the prefix copies stay on the device
+HOST_COPIES = {"prefill": 5, "decode": 6, "prefix_save": 0, "prefix_load": 0}
 
 
 def bucket_ladder(
@@ -984,7 +992,39 @@ class DecodeEngine:
                     ledger.observe_compile(family_prefix + fam, 0.0, 0.0,
                                            float(2 * b * row), variant=f"b{b}")
 
-    def audit_contracts(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the static audit contracts are not ported yet (ROADMAP.md "
-            "Queue 1 item 16b)")
+    def audit_contracts(self, family_prefix: str = "") -> Dict[str, dict]:
+        """Per-family contracts for ``analysis/program_audit.py``, keyed
+        like ``register_attrib``'s families (plain dicts: serving never
+        imports the analysis layer):
+
+        * ``allowed_collectives``: at tp > 1 the forwarding families sum
+          partial products over tp (``all-reduce``; the JAX programs also
+          gather small activations, ``all-gather``); the prefix copies are
+          rank-local row moves and allow none, at any tp.
+        * ``donated``: the pool leaves the call writes in place, every one
+          (k and v, and a quantized pool's scale planes); 0 for
+          ``prefix_save``, which must leave the pool as it was.
+        * ``kv_local_heads``: each K/V leaf's heads on this rank, its tp
+          share of ``kv_heads``.
+        * ``pool_leaf_elems`` / ``pool_leaf_bytes``: one K/V pool buffer; a
+          collective at least this large, or an allocator growth of a
+          leaf's bytes, is moving the pool.
+        * ``host_transfers``: the public call's device<->host copies
+          (``HOST_COPIES``)."""
+        leaf = self.pool.cache["k"]
+        tp = 1 if self.mesh is None else self.mesh.tp
+        model = {
+            "allowed_collectives": ("all-gather", "all-reduce") if tp > 1 else (),
+            "donated": len(self.pool.cache),
+            "kv_local_heads": self.cfg.kv_heads // self.kv_shard_count,
+            "pool_leaf_elems": int(leaf.numel()),
+            "pool_leaf_bytes": int(leaf.numel() * leaf.element_size()),
+        }
+        copies = dict(HOST_COPIES, decode=HOST_COPIES["decode"] + (tp > 1))
+        out = {family_prefix + f: dict(model, host_transfers=copies[f])
+               for f in ("prefill", "decode")}
+        out[family_prefix + "prefix_save"] = dict(
+            model, allowed_collectives=(), donated=0, host_transfers=0)
+        out[family_prefix + "prefix_load"] = dict(
+            model, allowed_collectives=(), host_transfers=0)
+        return out

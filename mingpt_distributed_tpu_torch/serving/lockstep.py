@@ -225,10 +225,12 @@ def release(mesh) -> bool:
 def _exit_with(parent: int) -> None:
     """Exit this process (code 1) once ``parent`` is no longer its parent:
     the driver died, and nothing will ever send the next command."""
+    from mingpt_distributed_tpu_torch.telemetry import log_event
+
     while os.getppid() == parent:
-        time.sleep(PARENT_POLL_S)
-    print(f"tp follower {os.getpid()}: driver {parent} is gone; exiting",
-          file=sys.stderr, flush=True)
+        time.sleep(PARENT_POLL_S)  # graftlint: disable=GL007 (polls the OS, not a decision)
+    log_event(f"tp follower {os.getpid()}: driver {parent} is gone; exiting",
+              file=sys.stderr)
     os._exit(1)
 
 
@@ -304,9 +306,10 @@ class TPGroup:
                 release(m)
         finally:
             broken = any(ch.broken is not None for ch in chs)
+            # graftlint: disable-next=GL007 (the followers are OS processes)
             deadline = time.monotonic() + (min(grace_s, 5.0) if broken else grace_s)
             for p in self.procs:
-                p.join(timeout=max(0.1, deadline - time.monotonic()))
+                p.join(timeout=max(0.1, deadline - time.monotonic()))  # graftlint: disable=GL007
                 if p.is_alive():
                     p.kill()
                     p.join(timeout=10)

@@ -679,6 +679,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     args = list(sys.argv[1:] if argv is None else argv)
     if len(args) != 1:
+        # graftlint: disable-next=GL010 (a usage error before telemetry starts)
         print("usage: python -m mingpt_distributed_tpu_torch.serving."
               "procfleet.worker <spec.json>", file=sys.stderr)
         return 2
@@ -690,6 +691,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         worker.flight.dump("spawn", replica=worker.name, pid=os.getpid())
     # stdout IS the wire here: the supervisor blocks on this hello line to
     # learn the bound port
+    # graftlint: disable-next=GL010 (the wire, not a log line)
     print(json.dumps(envelope("hello", port=httpd.port, pid=os.getpid(),
                               name=worker.name), sort_keys=True), flush=True)
     stop = threading.Event()

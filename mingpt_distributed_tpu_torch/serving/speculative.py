@@ -45,7 +45,8 @@ the followers like the target's, each draft step is one lockstep command
 whose tokens the driver chose, and rejected rows go stale on every rank
 alike, so rollback stays free under sharding.
 
-Not ported yet: the audit contracts (``audit_contracts``), item 16b.
+``audit_contracts`` gives the contracts of the families ``register_attrib``
+registers, for the program audit.
 """
 
 from __future__ import annotations
@@ -59,11 +60,6 @@ from mingpt_distributed_tpu_torch.config import GPTConfig
 from mingpt_distributed_tpu_torch.serving.engine import DecodeEngine
 
 __all__ = ["DraftEngine", "SpeculativeDecoder"]
-
-
-def _refuse(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
 
 
 class DraftEngine:
@@ -310,5 +306,16 @@ class SpeculativeDecoder:
                                variant=f"k{self.k}")
         self.draft.engine.register_attrib(ledger, family_prefix=f"{family_prefix}draft_")
 
-    def audit_contracts(self, *args, **kwargs):
-        _refuse("the static audit contracts (audit_contracts)", "16b")
+    def audit_contracts(self, family_prefix: str = "") -> Dict[str, dict]:
+        """Audit contracts for the families ``register_attrib`` registers:
+        verify is a model-forwarding family on the target engine, with the
+        target prefill's contract (its copies: the rows' tokens up, the
+        greedy choices down), and the draft families are the draft
+        engine's own contracts under the ``draft_`` prefix."""
+        prefill = f"{family_prefix}prefill"
+        verify = dict(self.target.audit_contracts(family_prefix=family_prefix)[prefill],
+                      host_transfers=2)
+        return {
+            f"{family_prefix}verify": verify,
+            **self.draft.engine.audit_contracts(family_prefix=f"{family_prefix}draft_"),
+        }

@@ -47,6 +47,8 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, List, Optional, Tuple
 
+from mingpt_distributed_tpu_torch.telemetry import log_event
+
 MANIFEST_VERSION = 2
 #: versions ``Manifest.from_json`` accepts
 SUPPORTED_MANIFEST_VERSIONS = (1, 2)
@@ -60,12 +62,6 @@ PERMANENT = "permanent"
 _MISSING_ERRNOS = {errno.ENOENT}
 # errors that retrying cannot fix
 _PERMANENT_OSERRORS = (PermissionError, IsADirectoryError, NotADirectoryError)
-
-
-def log_event(msg: str) -> None:
-    """One line on standard output: a retry or a fallback to an older
-    snapshot."""
-    print(msg, flush=True)
 
 
 def classify_io_error(exc: BaseException) -> str:

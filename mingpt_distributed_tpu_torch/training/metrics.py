@@ -139,6 +139,7 @@ class MetricsLogger:
             if k != "step":
                 self._gauge(k).set(v)
         if self.enabled:
+            # graftlint: disable-next=GL010 (the CLI's step line, read from its start)
             print(" | ".join([f"step {step}"] + [
                 f"{k} {v:.4g}" for k, v in rec.items() if k != "step"]),
                 flush=True)

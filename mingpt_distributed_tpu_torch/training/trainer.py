@@ -516,6 +516,23 @@ class GPTTrainer:
             hbm.account("opt_state", zero_lib.opt_moment_bytes(
                 self.state.params, self.zero_plan))
 
+    def audit_contracts(self) -> Dict[str, dict]:
+        """The program audit's contract for the ``train_step`` family that
+        ``register_attrib`` registers, as the JAX trainer's: in one process
+        no collective; in a job of several every parallel form may appear
+        (gradient sums, fsdp's gathers and reduce-scatters, the ring's and
+        the pipeline's permutes, the expert exchange). AdamW writes every
+        parameter leaf in place (``donated_min``: one per leaf, the JAX
+        contract's floor). Its copies on a card: the batch's two arrays up."""
+        multi = D.world_size() > 1
+        return {"train_step": {
+            "allowed_collectives": (("all-gather", "all-reduce", "all-to-all",
+                                     "collective-permute", "reduce-scatter")
+                                    if multi else ()),
+            "donated_min": sum(1 for _ in gpt._leaves(self.state.params)),
+            "host_transfers": 2,
+        }}
+
     @property
     def sharded(self) -> bool:
         """Whether this rank holds slices of the parameters (fsdp or tp)."""
@@ -523,7 +540,7 @@ class GPTTrainer:
 
     def _print(self, msg: str) -> None:
         if self.is_main:
-            print(msg, flush=True)
+            log_event(msg)
 
     def _restore(self, snap: Dict[str, Any]) -> None:
         """Load a snapshot (whole tensors, whatever mesh wrote it), each
@@ -578,9 +595,9 @@ class GPTTrainer:
     def _on_signal(self, signum, frame) -> None:
         if self._stop_requested and signum == signal.SIGINT:
             raise KeyboardInterrupt  # a second Ctrl-C means now
-        print(f"[trainer] {signal.Signals(signum).name} received: stopping at "
-              f"the next step boundary, snapshotting, then exiting with code "
-              f"{REQUEUE_EXIT_CODE} (requeue)", flush=True)
+        log_event(f"[trainer] {signal.Signals(signum).name} received: stopping at "
+                  f"the next step boundary, snapshotting, then exiting with code "
+                  f"{REQUEUE_EXIT_CODE} (requeue)")
         self.request_stop(signum)
 
     def _stop_agreed(self) -> bool:
@@ -799,8 +816,8 @@ class GPTTrainer:
         ckpt_lib.save_snapshot(self.snapshot_path, snap,
                                keep=self.config.keep_snapshots, retry=self._retry,
                                shards=self.zero_plan.dp if self.zero_plan else 1)
-        print(f"Snapshot saved to {self.snapshot_path} (epoch {snap['epoch']}, "
-              f"step {snap['step']}{how})", flush=True)
+        log_event(f"Snapshot saved to {self.snapshot_path} (epoch {snap['epoch']}, "
+                  f"step {snap['step']}{how})")
 
     def _write_async(self, snap: Dict[str, Any]) -> None:
         try:

@@ -4,7 +4,8 @@ and the speculative decoder's ``register_attrib``, the scheduler's ledgers,
 JAX package's own ``validate_attrib_report``.
 
 Counterparts of tests/test_attribution.py without its perf_diff cases
-(tools/perf_diff.py is ROADMAP.md item 16b): the program ledger's rows,
+(those are in tests/test_torch_graftaudit.py, beside the port's
+tools/perf_diff.py): the program ledger's rows,
 costs and gauges, the roofline fields, the HBM ledger, the report's
 validation, dump and render, and the fleet's merged scrape page
 (``render_fleet_prometheus``: one TYPE line per family, the replica label,

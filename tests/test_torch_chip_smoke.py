@@ -3,6 +3,7 @@ backward's ring cases cover what the bf16 kernels' pipelines must survive,
 the build log parsers read ptxas's resource lines, and the SASS check
 expects every bf16 backward instantiation the entry points name."""
 
+import math
 import os
 import re
 import sys
@@ -498,15 +499,15 @@ def test_control_log_validator_accepts_a_log_and_refuses_tampering():
 
 
 def test_budget_record_arithmetic():
-    rec = chip_smoke.budget_record({"serve_moe_tp_parity": 20.0, "zero": 30.0,
-                                    "moe_ep": 40.0, "zero_moe_times": 20.0}, 800.0,
-                                   {"sp_tp": 41.0})
-    assert rec["added_total_s"] == 110.0 and rec["added_within_budget"]
-    assert rec["smoke_within_budget"] and rec["moe_ep_s"] == 40.0
-    assert rec["earlier_slice_s"] == {"sp_tp": 41.0}
-    over = chip_smoke.budget_record({"moe_ep": 121.0}, 876.8)
+    rec = chip_smoke.budget_record({"graftaudit": 20.0, "moe_sp_kernels": 1.0,
+                                    "moe_sp_train_step": 25.0, "moe_sp_narrow_fp32": 5.0},
+                                   900.0, {"pp_train_step": 41.0})
+    assert rec["added_total_s"] == 51.0 and rec["added_within_budget"]
+    assert rec["smoke_within_budget"] and rec["moe_sp_train_step_s"] == 25.0
+    assert rec["earlier_slice_s"] == {"pp_train_step": 41.0}
+    over = chip_smoke.budget_record({"moe_sp_train_step": 61.0}, 1050.1)
     assert not over["added_within_budget"] and not over["smoke_within_budget"]
-    assert (chip_smoke.ADDED_PHASES_BUDGET_S, chip_smoke.SMOKE_BUDGET_S) == (120.0, 876.7)
+    assert (chip_smoke.ADDED_PHASES_BUDGET_S, chip_smoke.SMOKE_BUDGET_S) == (60.0, 1050.0)
 
 
 def test_fsdp_tp_geometry_and_rule_bytes_at_gpt2():
@@ -542,10 +543,11 @@ def test_main_runs_the_added_phases_and_reports_their_seconds():
     """_main drives the earlier slices' phases (the autoscaler, fsdp x tp
     and its times, tensor-parallel serving, sp x tp and its hop times,
     zero and moe_ep with their kernel checks and times,
-    serve_moe_tp_parity) and this slice's (the pipeline and checkpoint
-    legs, checked by phase_pp), each with its seconds in the budget line,
-    and lists the sharded steps' and the tp servers' launches among the
-    paths."""
+    serve_moe_tp_parity, the pipeline and checkpoint legs) and this
+    slice's (MoE beside sp, checked by phase_moe_sp after its kernel
+    checks, and the graftaudit phase), each with its seconds in the budget
+    line, and lists the sharded steps' and the tp servers' launches among
+    the paths."""
     import ast
     import inspect
 
@@ -557,7 +559,7 @@ def test_main_runs_the_added_phases_and_reports_their_seconds():
                   "phase_serve_tp_parity", "phase_serve_tp", "phase_serve_cli_tp",
                   "phase_sp", "phase_sp_tp_times", "phase_serve_moe_tp_parity",
                   "phase_zero_moe", "phase_moe_ep_kernels", "phase_zero_moe_times",
-                  "phase_pp"):
+                  "phase_pp", "phase_moe_sp", "phase_moe_sp_kernels", "phase_graftaudit"):
         assert phase in called, phase
 
     def keys(name):
@@ -570,14 +572,16 @@ def test_main_runs_the_added_phases_and_reports_their_seconds():
                                        "serve_tp_parity+serve_tp", "serve_cli_tp", "sp_tp",
                                        "sp_tp_times", "serve_moe_tp_parity",
                                        "moe_ep_kernels", "zero_moe_times"}
-    # this slice's seconds all come from the ranks (phase_pp)
-    assert keys("added_seconds") == set()
+    # this slice's seconds: its kernel checks and the audit in this process,
+    # the rest from the ranks (phase_moe_sp)
+    assert keys("added_seconds") == {"moe_sp_kernels", "graftaudit"}
     src = inspect.getsource(chip_smoke._main)
     for path in ("fsdp_tp_train_step_rank0", "sp_tp_train_step_rank0", '"serve_tp"',
                  '"serve_tp_follower"', "zero_train_step_rank0", "moe_ep_train_step_rank0",
                  '"serve_moe_tp_parity"', "earlier_seconds.update(zm_seconds)",
                  "pp_train_step_rank0", "pp_1f1b_train_step_rank0",
-                 "added_seconds.update(pp_seconds)"):
+                 "earlier_seconds.update(pp_seconds)", "moe_sp_train_step_rank0",
+                 "added_seconds.update(ms_seconds)"):
         assert path in src, path
     # serve_tp holds its tokens/s against serve's from the same call, and
     # serve_cli_tp its completions against serve_cli's
@@ -731,3 +735,103 @@ def test_zero_and_moe_ep_geometry():
     cap = moe.capacity(tokens, narrow["n_experts"], narrow["moe_top_k"],
                        narrow["moe_capacity_factor"])
     assert cap * narrow["n_experts"] < tokens * narrow["moe_top_k"]
+
+
+def test_moe_sp_geometry():
+    """moe_sp's ranks hold 1 row x 4096 columns each (sp 2 x ep 2 at T 8192,
+    global batch 2): 4 whole routing groups of the global batch's 1024, so
+    local routing is exact; 4 of 8 experts; the zigzag ring's 3 + (2 - 1)
+    K3 launches per layer, at the hop's and the own block's shapes, which
+    the kernel checks cover. The narrow legs' one group of 1024 tokens
+    interleaves every rank's sp chunk (chunks of 128 columns)."""
+    from mingpt_distributed_tpu_torch.ops import moe
+
+    mesh = chip_smoke.MOE_SP_MESH
+    cols = chip_smoke.MOE_SP_T // mesh["sp"]
+    rows = chip_smoke.MOE_SP_BATCH // (mesh.get("dp", 1) * mesh["ep"])
+    gs = moe._group_size(chip_smoke.MOE_SP_BATCH * chip_smoke.MOE_SP_T)
+    assert (rows, cols, gs, cols % gs, rows * cols // gs) == (1, 4096, 1024, 0, 4)
+    assert chip_smoke.MOE_SP_PER_STEP == 4
+    assert sorted(c[1:7] for c in chip_smoke.MOE_SP_KERNEL_CASES) == [
+        (1, 2048, 32, 8, 128, True), (2, 2048, 32, 8, 128, False)]
+    assert set(chip_smoke.MOE_SP_KERNELS) == {"flash_lse_fwd", "flash_bwd_prep",
+                                              "flash_lse_bwd_dq", "flash_lse_bwd_dkv"}
+    narrow = chip_smoke.MOE_NARROW
+    tokens = chip_smoke.MOE_NARROW_ROWS * narrow["block_size"]
+    assert moe._group_size(tokens) == tokens == 1024
+    for mesh_kw, attention in chip_smoke.MOE_NARROW_SP_MESHES.values():
+        assert mesh_kw["sp"] == 2 and attention in ("ring", "ulysses")
+        assert narrow["block_size"] // mesh_kw["sp"] < 1024
+        assert math.prod(mesh_kw.values()) == chip_smoke.SP
+
+
+def _moe_sp_rank():
+    per = {k: (4 if k in chip_smoke.MOE_SP_KERNELS else 0) for k in chip_smoke.COUNTERS}
+    par = {"losses": [8.4, 8.3], "ref_losses": [8.4, 8.3],
+           "grad_rel_err": {"blocks/wq": 2e-6}, "grad_total_rel_err": 1e-6,
+           "param_max_abs_err_steady": 1e-8, "param_max_abs_err_all": 3e-6,
+           "steady_share": 0.6, "update_max_abs": 3e-4, "leg_s": 1.0}
+    out = {f"moe_{k}": dict(par) for k in chip_smoke.MOE_NARROW_SP_MESHES}
+    out["moe_sp"] = {"losses": [10.4, 10.4], "grad_norms": [3.0, 3.0], "seconds": [2.0],
+                     "launches": per, "q_shapes": [(1, 2048, 32, 128), (2, 2048, 32, 128)],
+                     "one_process": {"loss": 10.4001, "grad_norm": 3.001},
+                     "local_experts": 4, "param_bytes": 4 << 30,
+                     "all_to_all_calls_per_step": 4.0, "all_to_all_ms_per_step": 50.0,
+                     "peak_allocated_bytes": 13 << 30, "leg_s": 60.0}
+    return out
+
+
+@pytest.mark.parametrize("fault, message", [
+    (None, None), ("launch", "moe_sp: launches"), ("experts", "experts, want 4"),
+    ("a2a", "all-to-alls"), ("shape", "K3 saw"), ("loss", "vs one process"),
+    ("norm", "grad_norm"), ("narrow", "moe_sp2_ep2_ring parity")])
+def test_moe_sp_checks(fault, message):
+    """moe_sp on every rank: exactly 4 K3, prep, K4a and K4b per step, 4 of
+    8 experts, 4 all-to-alls, K3 at the hop's and own block's shapes, the
+    first loss within 5e-4 relative and the gradient norm within 0.5% of
+    one process's; the narrow legs by the parity rule."""
+    ranks = [_moe_sp_rank() for _ in range(chip_smoke.SP)]
+    m = ranks[2]["moe_sp"]
+    if fault == "launch":
+        m["launches"]["flash_lse_bwd_dkv"] = 3
+    elif fault == "experts":
+        m["local_experts"] = 8
+    elif fault == "a2a":
+        m["all_to_all_calls_per_step"] = 2.0
+    elif fault == "shape":
+        ranks[0]["moe_sp"]["q_shapes"] = [(1, 4096, 32, 128)]
+    elif fault == "loss":
+        ranks[0]["moe_sp"]["one_process"]["loss"] = 10.41
+    elif fault == "norm":
+        ranks[0]["moe_sp"]["one_process"]["grad_norm"] = 3.1
+    elif fault == "narrow":
+        ranks[0]["moe_sp2_ep2_ring"]["ref_losses"] = [8.5, 8.3]
+    records, fails = chip_smoke.moe_sp_checks(ranks, card="c")
+    if fault is None:
+        assert not fails, fails
+        main = records[-1]
+        assert main["phase"] == "moe_sp_train_step" and main["main_path"]
+        assert main["launches_want"]["flash_lse_fwd"] == 4
+        assert [r["phase"] for r in records[:-1]] == [
+            f"moe_{k}_parity_fp32" for k in chip_smoke.MOE_NARROW_SP_MESHES]
+        return
+    assert any(message in f for f in fails), fails
+
+
+def test_graftaudit_phase_audits_the_committed_sweep():
+    """The smoke's graftaudit phase holds serve's families to the budgets
+    section that the committed file names for it."""
+    import json
+    import os
+
+    from mingpt_distributed_tpu_torch.tools import graftaudit
+
+    with open(graftaudit.DEFAULT_BUDGETS) as f:
+        doc = json.load(f)
+    section = doc["sweeps"][chip_smoke.GRAFTAUDIT_SWEEP]
+    ladder = (64, 128, 256, 512, 1024)
+    want = {"decode", "draft_decode", "verify:k2"}
+    want |= {f"{f}:b{b}" for f in ("prefill", "draft_prefill") for b in ladder}
+    want |= {f"{f}:b{b}" for f in ("prefix_save", "prefix_load") for b in ladder[:-1]}
+    assert set(section) == want
+    assert os.path.basename(graftaudit.DEFAULT_BUDGETS) == "program_budgets.json"

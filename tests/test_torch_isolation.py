@@ -29,7 +29,8 @@ def _port_modules():
 def _sources():
     out = [os.path.join(REPO, "chip_smoke.py"),
            os.path.join(REPO, "tests", "torch_sp_workers.py"),
-           os.path.join(REPO, "tests", "torch_pp_workers.py")]
+           os.path.join(REPO, "tests", "torch_pp_workers.py"),
+           os.path.join(REPO, "tests", "torch_moe_sp_workers.py")]
     for root, _, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)

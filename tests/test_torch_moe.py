@@ -518,6 +518,5 @@ def test_moe_trainer_learns_in_one_process(tmp_path):
             break
     tr.close()
     assert losses[-1] < losses[0]
-    with pytest.raises(NotImplementedError, match="item 12b"):
-        gpt.check_supported(gcfg, dict(sp=2))
+    gpt.check_supported(gcfg, dict(sp=2))  # MoE beside sp runs (tests/test_torch_moe_sp.py)
     gpt.check_supported(gcfg, dict(dp=2, fsdp=2, ep=2, tp=2))

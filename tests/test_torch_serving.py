@@ -800,8 +800,9 @@ def test_speculation_and_quantized_pool_options_run(cfg_params, option):
 
 
 def test_engine_refuses_attribution_and_foreign_devices(cfg_params):
-    """The audit contracts (item 16b) still raise; attribution registers
-    one row per shape (the decode step and each ladder bucket)."""
+    """Attribution registers one row per shape (the decode step and each
+    ladder bucket), and the audit contracts cover every family it
+    registers (tests/test_torch_graftaudit.py runs them)."""
     from mingpt_distributed_tpu_torch.telemetry import MetricsRegistry, ProgramLedger
 
     cfg, params = cfg_params
@@ -810,8 +811,12 @@ def test_engine_refuses_attribution_and_foreign_devices(cfg_params):
     eng.register_attrib(ledger)
     assert {(r["family"], r["variant"]) for r in ledger.rows()} == {
         ("decode", "")} | {("prefill", f"b{b}") for b in eng.buckets}
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        eng.audit_contracts()
+    contracts = eng.audit_contracts()
+    assert {r["family"] for r in ledger.rows()} <= set(contracts)
+    assert contracts["decode"]["allowed_collectives"] == ()
+    assert contracts["decode"]["donated"] == len(eng.pool.cache)
+    assert contracts["prefix_save"]["donated"] == 0
+    assert contracts["decode"]["kv_local_heads"] == cfg.kv_heads
     with pytest.raises(ValueError, match="unknown kv_dtype"):
         DecodeEngine(params, cfg, n_slots=1, kv_dtype="int4", device="cpu")
     if not torch.cuda.is_available():

@@ -151,8 +151,8 @@ def test_check_axes_accepts_sp_beside_fsdp_and_tp(shape):
 @pytest.mark.parametrize("axis", ["pp", "ep"])
 def test_check_axes_still_refuses_pp_and_ep_naming_12b(axis):
     """Both run beside sp x tp now: ep since item 12b.1 (a batch axis beside
-    sp for a dense model), pp since item 12b.2. MoE beside sp still raises
-    in the model, naming item 12b.4."""
+    sp for a dense model), pp since item 12b.2, and an MoE model beside sp
+    since item 12b.4 (tests/test_torch_moe_sp.py)."""
     from mingpt_distributed_tpu_torch.config import GPTConfig
     from mingpt_distributed_tpu_torch.models import gpt
 
@@ -160,5 +160,4 @@ def test_check_axes_still_refuses_pp_and_ep_naming_12b(axis):
     mesh_lib.check_axes(shape)
     cfg = GPTConfig.make(n_layer=2, n_head=4, n_embd=32, vocab_size=64, block_size=16,
                          n_experts=2, attention="ring")
-    with pytest.raises(NotImplementedError, match="item 12b.4"):
-        gpt.check_supported(cfg, shape)
+    gpt.check_supported(cfg, shape)

@@ -277,15 +277,24 @@ def test_constructor_validation(both):
 
 
 def test_migration_and_attribution_raise_naming_their_items(both):
-    """The draft-row migration seam runs now (the tests below); the audit
-    contracts still raise naming item 16b."""
+    """The draft-row migration seam runs now (the tests below), and the
+    audit contracts cover every family ``register_attrib`` registers:
+    verify with the target prefill's contract, the draft engine's under
+    the ``draft_`` prefix."""
     _, _, tcfg, params = both
     ts = InferenceServer(params, tcfg, n_slots=1, device="cpu",
                          draft_params=params, draft_cfg=tcfg, spec_k=2)
     spec: SpeculativeDecoder = ts.spec
     assert spec.pending_draft == {} and spec.pending_draft_cap == 32
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        spec.audit_contracts()
+    from mingpt_distributed_tpu_torch.telemetry import MetricsRegistry, ProgramLedger
+
+    ledger = ProgramLedger(registry=MetricsRegistry())
+    spec.register_attrib(ledger)
+    contracts = spec.audit_contracts()
+    assert {r["family"] for r in ledger.rows()} <= set(contracts)
+    assert contracts["verify"]["donated"] == len(ts.engine.pool.cache)
+    assert contracts["verify"]["host_transfers"] == 2
+    assert contracts["draft_decode"] == spec.draft.engine.audit_contracts()["decode"]
 
 
 MIGRATE = list(range(3, 20))  # 17 tokens: target rows 16, draft rows 16
