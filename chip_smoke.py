@@ -163,6 +163,22 @@ Phases:
      prep, 1 K2a and 1 K2b launch per step, and with FLASH_FUSED_BWD=1 1
      K1, 1 prep and 1 K2c: step ms, tokens/s, MFU by the JAX formula and
      by the routed operations, peak memory);
+  4f. the repository tools: families (tools/exp_families.py's llama,
+     mistral, gemma and moe at its widths, 4 layers, T 1024, batch 4,
+     bf16, K1, the prep pass and K2a/K2b first against their plain
+     versions at each attention shape they give them, then through run():
+     3 steps each, the loss finite and falling, one K1, prep, K2a and K2b
+     launch per layer per step; then the mistral family at the mistral-7b
+     preset's widths cut to 2 layers, T 8192, batch 1: the kernels against
+     their plain versions at (1, 8192, 32/8, 128) with window 4096 first,
+     the plain version one KV group of 8/2 heads at a time, then 3 steps, each
+     with its ms, 2 launches of each kernel and peak memory); trace_summary
+     (tools/trace_summary.py in this process on train_cli_telemetry's
+     profile, the serve_telemetry request trace with --slo, the autoscale
+     control log and the serve_telemetry attribution report: the device
+     lane apart from the host threads, its busy share printed, each of the
+     split step's kernels with as many events there as its counter
+     counted launches in the profiled window, its top rows);
   4b. sequence parallel: 4 ranks spawned on the one card over gloo: ring
      and Ulysses attention at GPT-2 width (T=4096) against dense plain
      attention; the sp = 4 ring train step at full GPT-2 width, block 4096,
@@ -229,11 +245,11 @@ Phases:
      throttle reasons are logged before and after.
 The seconds of the phases added with MoE and telemetry are one line
 (phase_seconds), those of the fleet phases another (new_phase_seconds, with
-the smoke's seconds so far), and a third (smoke_budget) gives the zero,
-moe_ep and serve_moe_tp_parity phases' seconds against
-ADDED_PHASES_BUDGET_S together, the earlier slices' (tensor parallelism,
-the autoscaler, fsdp x tp, zero, moe_ep, the pipeline) beside them, and the whole smoke against
-SMOKE_BUDGET_S, reported, not failed. The last three lines are the card, the kernels
+the smoke's seconds so far), and a third (smoke_budget) gives the families'
+and trace_summary's seconds against ADDED_PHASES_BUDGET_S together, the
+earlier slices' (tensor parallelism, the autoscaler, fsdp x tp, zero,
+moe_ep, the pipeline, MoE beside sp, graftaudit) beside them, and the
+whole smoke against SMOKE_BUDGET_S, reported, not failed. The last three lines are the card, the kernels
 line (twelve kernels; K3, the prep pass, K4a and K4b also with their
 moe_sp launches and errors) and the ok line. Exits 2 without CUDA, 1 on any
 failure.
@@ -584,15 +600,41 @@ def bound_ms(nbytes, flops, dtype, exps):
     return roofline_ms(nbytes, [(flops, PEAK_FLOPS[dtype]), (exps, sfu_exp_rate()[0])])
 
 
-def kernel_errors(fa, q, k, v, *, scale, window, softcap):
-    """Run the kernel and its plain version on the same inputs; return
-    whether the kernel's out and lse are finite and the differences of their
-    outputs and lse (or ``bad_shapes``)."""
+def by_kv_groups(plain, groups):
+    """``plain`` (flash_fwd_plain or flash_bwd_plain) one KV group at a
+    time: each of ``groups`` slices of H / groups query heads with their
+    KV / groups key and value heads, the outputs joined along the head
+    axis. Exact, since a query head reads only its own KV head; the float32
+    scores held at once are one group's."""
+    if groups == 1:
+        return plain
+
+    def run(q, k, v, *rest, **kw):
+        h, kv = q.shape[2] // groups, k.shape[2] // groups
+        parts = []
+        for g in range(groups):
+            qs, ks = slice(g * h, (g + 1) * h), slice(g * kv, (g + 1) * kv)
+            extra = ()
+            if rest:  # out, lse, dO
+                out, lse, do = rest
+                extra = (out[:, :, qs], lse[:, qs], do[:, :, qs])
+            parts.append(plain(q[:, :, qs], k[:, :, ks], v[:, :, ks], *extra, **kw))
+        # lse (B, H, T) has its heads on axis 1; out, dq, dk, dv on axis 2
+        return tuple(torch.cat(xs, dim=1 if xs[0].dim() == 3 else 2)
+                     for xs in zip(*parts))
+
+    return run
+
+
+def kernel_errors(fa, q, k, v, *, scale, window, softcap, plain_groups=1):
+    """Run the kernel and its plain version (by_kv_groups) on the same
+    inputs; return whether the kernel's out and lse are finite and the
+    differences of their outputs and lse (or ``bad_shapes``)."""
     out, lse = fa.flash_fwd(q, k, v, scale=scale, window=window,
                             softcap=softcap)
     torch.cuda.synchronize()
-    ref, ref_lse = fa.flash_fwd_plain(q, k, v, scale=scale, window=window,
-                                      softcap=softcap)
+    ref, ref_lse = by_kv_groups(fa.flash_fwd_plain, plain_groups)(
+        q, k, v, scale=scale, window=window, softcap=softcap)
     b, t, h, _ = q.shape
     if out.shape != ref.shape or out.dtype != q.dtype or lse.shape != (b, h, t):
         return {"bad_shapes": f"out {tuple(out.shape)} {out.dtype}, "
@@ -606,16 +648,17 @@ def kernel_errors(fa, q, k, v, *, scale, window, softcap):
             "lse_max_abs_err": (lse - ref_lse).abs().max().item()}
 
 
-def fwd_case(fa, i, case, dtype):
+def fwd_case(fa, i, case, dtype, plain_groups=1):
     """Case ``i`` of KERNEL_CASES + FWD_RING_CASES in ``dtype``: K1
-    (flash_fwd) against flash_fwd_plain on the same inputs. Returns its
-    record and the ("fwd", message) of every check it fails."""
+    (flash_fwd) against flash_fwd_plain (by ``plain_groups`` KV groups) on
+    the same inputs. Returns its record and the ("fwd", message) of every
+    check it fails."""
     name, b, t, h, kv, hd, window, cap, *layout = case
     layout = layout[0] if layout else "dense"
     dt = str(dtype).replace("torch.", "")
     q, k, v = make_qkv(b, t, h, kv, hd, dtype, seed=100 + i, layout=layout)
     errs = kernel_errors(fa, q, k, v, scale=1.0 / math.sqrt(hd), window=window,
-                         softcap=cap)
+                         softcap=cap, plain_groups=plain_groups)
     rec = {"phase": "kernel_check", "kernel": "flash_fwd", "case": name,
            "dtype": dt, "shape": [b, t, h, kv, hd], "layout": layout,
            "window": window, "softcap": cap, **errs, "tol": OUT_TOL[dtype],
@@ -682,31 +725,32 @@ def grad_tol(dtype, max_abs):
     return GRAD_TOL[dtype]
 
 
-def _bwd_inputs(fa, i, case, dtype):
+def _bwd_inputs(fa, i, case, dtype, plain_groups=1):
     """Case ``i`` of KERNEL_CASES + BWD_RING_CASES in ``dtype``: q, k, v, dO
-    and the plain forward's out and lse, with the kernels' keyword
-    arguments."""
+    and the plain forward's out and lse (by ``plain_groups`` KV groups),
+    with the kernels' keyword arguments."""
     name, b, t, h, kv, hd, window, cap, *layout = case
     q, k, v = make_qkv(b, t, h, kv, hd, dtype, seed=200 + i,
                        layout=layout[0] if layout else "dense")
     g = torch.Generator(device="cuda").manual_seed(300 + i)
     do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
     kw = dict(scale=1.0 / math.sqrt(hd), window=window, softcap=cap)
-    out, lse = fa.flash_fwd_plain(q, k, v, **kw)
+    out, lse = by_kv_groups(fa.flash_fwd_plain, plain_groups)(q, k, v, **kw)
     return (q, k, v, out, lse, do), kw
 
 
-def bwd_case(fa, i, case, dtype):
+def bwd_case(fa, i, case, dtype, plain_groups=1):
     """Backward check case ``i`` of KERNEL_CASES + BWD_RING_CASES in
     ``dtype``: K2a and K2b (flash_bwd with the fused switch off) against
-    flash_bwd_plain on the same inputs. Returns its record and the
-    (gradient, message) of every check it fails."""
+    flash_bwd_plain (by ``plain_groups`` KV groups) on the same inputs.
+    Returns its record and the (gradient, message) of every check it
+    fails."""
     name, b, t, h, kv, hd, window, cap, *layout = case
-    args, kw = _bwd_inputs(fa, i, case, dtype)
+    args, kw = _bwd_inputs(fa, i, case, dtype, plain_groups)
     with fused_switch(False):
         got = fa.flash_bwd(*args, **kw)
     torch.cuda.synchronize()
-    want = fa.flash_bwd_plain(*args, **kw)
+    want = by_kv_groups(fa.flash_bwd_plain, plain_groups)(*args, **kw)
     dt = str(dtype).replace("torch.", "")
     errs, fails = grad_check(got, want, args[:3], dtype, f"{name} {dt}")
     rec = {"phase": "kernel_check", "kernel": "flash_bwd", "case": name,
@@ -2403,6 +2447,8 @@ def phase_serve_telemetry(params32, card, tmp):
     telemetry.validate_attrib_report(served)
     report = server.attrib_report()
     telemetry.validate_attrib_report(report)
+    with open(os.path.join(tmp, "attrib.json"), "w") as f:  # for phase_trace_summary
+        f.write(telemetry.dump_attrib_report(report))
     slo = telemetry.evaluate_slos(recorder.completed_requests(),
                                   telemetry.parse_slo_spec("default"))
     rows = [r for r in report["programs"] if r["family"] in ("prefill", "decode")
@@ -3957,7 +4003,7 @@ def phase_train_entry(card, tmp):
 
 TELEMETRY_STEPS = 8
 PROFILE_STEPS = (2, 4)
-# the trace of the profiled steps must name each kernel of the split step
+# the split step's kernels, by a fragment of their names in a profiler trace
 TRACE_KERNELS = ("flash_fwd", "flash_bwd_prep", "flash_dq", "flash_dkv")
 
 
@@ -3972,20 +4018,38 @@ def step_spans(path):
     return out
 
 
-def trace_kernel_names(path):
-    """The kernel names of a torch.profiler Chrome trace."""
-    with open(path) as f:
-        events = json.load(f)["traceEvents"]
-    return sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+@contextlib.contextmanager
+def profile_window_counts(edges):
+    """Inside the block, the launch counts at each edge of a trainer's
+    profile window (PROFILE_STEPS) go into ``edges`` by step, read just
+    after the trainer opens or closes its profiler."""
+    from mingpt_distributed_tpu_torch.training.trainer import GPTTrainer
+
+    real = GPTTrainer._profile
+
+    def profile(self, step):
+        real(self, step)
+        if self.config.profile_dir and step in PROFILE_STEPS:
+            edges[step] = read_counts()
+
+    GPTTrainer._profile = profile
+    try:
+        yield
+    finally:
+        GPTTrainer._profile = real
 
 
 def phase_train_telemetry(card, argv, tmp):
     """The train entry point twice more, 8 steps each from scratch at
     train_cli's shape, logging every step: once with spans_jsonl,
     profile_dir over steps 3 and 4 and debug_nans on, once with spans_jsonl
-    alone. One train.step span per step; the trace names the split step's
-    kernels; the median step ms of the unprofiled steps 5-8 with
-    debug_nans on and off."""
+    alone. One train.step span per step (phase_trace_summary reads the
+    profile); the median step ms of the unprofiled steps 5-8 with
+    debug_nans on and off. Returns the launches inside the profiled window
+    (the counts at its closing edge less those at its opening one:
+    debug_nans reads the card at the end of every step's backward, so no
+    attention kernel of step 2 is still queued when the window opens)."""
+    edges = {}
     runs = {}
     for name, extra in (("debug_nans_on", ["trainer_config.debug_nans=true",
                                            f"trainer_config.profile_dir={tmp}/prof",
@@ -3999,7 +4063,7 @@ def phase_train_telemetry(card, argv, tmp):
                      "trainer_config.log_every=1", f"trainer_config.spans_jsonl={spans}",
                      *extra]
         reset_counts()
-        with fused_switch(False):
+        with fused_switch(False), profile_window_counts(edges):
             rc, out = run_entry(run_argv)
         per_step = step_spans(spans)
         runs[name] = {"rc": rc, "spans": per_step, "launches": read_counts(),
@@ -4011,25 +4075,274 @@ def phase_train_telemetry(card, argv, tmp):
         check(sorted(per_step) == list(range(1, TELEMETRY_STEPS + 1))
               and all(len(v) == 1 for v in per_step.values()),
               f"train entry ({name}): step spans {per_step}")
+    check(sorted(edges) == list(PROFILE_STEPS), f"profiled window's edges {sorted(edges)}")
+    window = {k: edges[PROFILE_STEPS[1]][k] - edges[PROFILE_STEPS[0]][k] for k in COUNTERS}
     trace = os.path.join(tmp, "prof", "trace_steps_%d-%d.json" % PROFILE_STEPS)
-    kernels = trace_kernel_names(trace) if os.path.exists(trace) else []
-    named = {k: [n for n in kernels if k in n] for k in TRACE_KERNELS}
     on, off = runs["debug_nans_on"], runs["debug_nans_off"]
     emit({"phase": "train_cli_telemetry", "steps": TELEMETRY_STEPS,
           "profile_steps": list(PROFILE_STEPS), "trace": os.path.basename(trace),
-          "trace_kernels": len(kernels),
-          "trace_flash_kernels": {k: v[:2] for k, v in named.items()},
           "step_spans": {n: len(r["spans"]) for n, r in runs.items()},
           "step_ms": {n: [r["spans"][k][0] for k in sorted(r["spans"])]
                       for n, r in runs.items()},
           "step_ms_p50_debug_nans_on": on["step_ms_p50"],
           "step_ms_p50_debug_nans_off": off["step_ms_p50"],
           "debug_nans_cost_ms": on["step_ms_p50"] - off["step_ms_p50"],
-          "launches": {n: r["launches"] for n, r in runs.items()}, "card": card})
-    check(all(named.values()), f"the profiler trace names no {[k for k, v in named.items() if not v]} "
-                               f"kernel: {kernels[:20]}")
+          "launches": {n: r["launches"] for n, r in runs.items()},
+          "launches_profiled_window": window, "card": card})
     check(all(r["launches"]["flash_bwd_dq"] == 12 * TELEMETRY_STEPS for r in runs.values()),
           f"train entry with telemetry: {[r['launches'] for r in runs.values()]}")
+    return window
+
+
+# ---------------------------------------------------------------------------
+# phase 4f: the repository tools (tools/trace_summary.py, tools/exp_families.py)
+# ---------------------------------------------------------------------------
+
+# TRACE_KERNELS' counter names: each trace name fragment names one kernel
+TRACE_COUNTERS = dict(zip(TRACE_KERNELS, ("flash_fwd", "flash_bwd_prep", "flash_bwd_dq",
+                                          "flash_bwd_dkv")))
+TRACE_TOP_ROWS = 8
+
+
+def summary_run(argv):
+    """trace_summary's main(argv): (exit code, stdout)."""
+    from mingpt_distributed_tpu_torch.tools import trace_summary
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = trace_summary.main(argv)
+    return rc, buf.getvalue()
+
+
+def device_lanes(table):
+    """The lanes of a trace_summary.lanes() table that hold a flash kernel
+    (TRACE_KERNELS' first name), by key."""
+    return {key: lane for key, lane in table.items()
+            if any(TRACE_KERNELS[0] in name for name in lane["ops"])}
+
+
+def trace_kernel_events(lane):
+    """Events and total ms of each of TRACE_KERNELS in a lane: {fragment:
+    [events, ms]} over every op name that holds the fragment."""
+    out = {k: [0, 0.0] for k in TRACE_KERNELS}
+    for name, (us, n) in lane["ops"].items():
+        for k in TRACE_KERNELS:
+            if k in name:
+                out[k][0] += n
+                out[k][1] += us / 1e3
+    return out
+
+
+def trace_summary_checks(out, table, t_min, t_max, window):
+    """The profile's summary and lane table against the launch counters:
+    (record, messages of the checks it fails). The device lane is one lane,
+    apart from the host threads (no aten:: op in it), its line prints its
+    busy share, and each of TRACE_KERNELS has as many kernel events there
+    as its counter counted launches in the profiled window."""
+    fails = []
+    lanes = device_lanes(table)
+    if len(lanes) != 1:
+        return {"device_lanes": [list(k) for k in lanes]}, [
+            f"trace_summary: {len(lanes)} lanes hold the flash kernels, want 1"]
+    (key, lane), = lanes.items()
+    events = trace_kernel_events(lane)
+    span_ms = (t_max - t_min) / 1e3
+    head = f"== lane {key[0]} / {key[1]}: busy "
+    line = next((ln for ln in out.splitlines() if ln.startswith(head)), None)
+    share = re.search(r"\((\d+)% of span\)", line or "")
+    ops = sorted(lane["ops"].items(), key=lambda kv: kv[1][0], reverse=True)
+    rec = {"device_lane": list(key), "device_busy_ms": lane["busy_us"] / 1e3,
+           "span_ms": span_ms, "device_busy_share": lane["busy_us"] / 1e3 / span_ms,
+           "printed_busy_share_pct": int(share.group(1)) if share else None,
+           "lanes": len(table), "device_ops": len(lane["ops"]),
+           "trace_kernel_events": {k: v[0] for k, v in events.items()},
+           "trace_kernel_ms": {k: v[1] for k, v in events.items()},
+           "counter_launches": {k: window[c] for k, c in TRACE_COUNTERS.items()},
+           "device_top": [{"name": n[:90], "ms": us / 1e3, "events": c}
+                          for n, (us, c) in ops[:TRACE_TOP_ROWS]]}
+    if share is None:
+        fails.append(f"trace_summary prints no busy share for the device lane: {line!r}")
+    host = [n for n in lane["ops"] if n.startswith("aten::")]
+    if host:
+        fails.append(f"trace_summary: host ops on the device lane: {host[:3]}")
+    for k, c in TRACE_COUNTERS.items():
+        if events[k][0] != window[c] or window[c] == 0:
+            fails.append(f"trace_summary: {events[k][0]} {k} events on the device lane, "
+                         f"{window[c]} launches counted in the profiled window")
+    return rec, fails
+
+
+def phase_trace_summary(card, tmp, window):
+    """The port's trace_summary, in this process, on what the smoke wrote:
+    train_cli_telemetry's profile of steps 3-4 (its directory), the
+    serve_telemetry request trace (with --slo), the autoscale control log
+    and the serve_telemetry attribution report. Every run exits 0; the
+    profile's device lane is checked against the launch counters
+    (trace_summary_checks); its top rows are printed."""
+    from mingpt_distributed_tpu_torch.tools import trace_summary
+
+    prof = os.path.join(tmp, "prof")
+    t0 = time.perf_counter()
+    rc, out = summary_run([prof])
+    seconds = {"profile": time.perf_counter() - t0}
+    table, t_min, t_max = trace_summary.lanes(trace_summary.load_trace(prof))
+    rec, fails = trace_summary_checks(out, table, t_min, t_max, window)
+    if rc != 0:
+        fails.append(f"trace_summary {prof} exited {rc}")
+    runs = {}
+    for kind, argv, want in (
+            ("request_trace", [os.path.join(tmp, "traces.jsonl"), "--slo"], "SLO report"),
+            ("control_log", [os.path.join(tmp, "autoscale-control.jsonl")],
+             "control log (mingpt-control/1)"),
+            ("attrib", [os.path.join(tmp, "attrib.json")], "Attribution report")):
+        t0 = time.perf_counter()
+        krc, kout = summary_run(argv)
+        seconds[kind] = time.perf_counter() - t0
+        runs[kind] = {"rc": krc, "lines": len(kout.splitlines()),
+                      "first_line": kout.splitlines()[0] if kout else ""}
+        if krc != 0 or want not in kout:
+            fails.append(f"trace_summary {kind}: exit {krc}, {want!r} not printed")
+    emit({"phase": "trace_summary", "profile": os.path.basename(prof),
+          "profile_steps": list(PROFILE_STEPS), "rc": rc, "summary_lines": len(out.splitlines()),
+          **rec, "other_inputs": runs, "seconds": seconds, "card": card})
+    check(not fails, "; ".join(fails))
+
+
+# The families on the card: tools/exp_families.py's four (4 layers, width 512,
+# T 1024, batch 4, bf16) through run(), then the mistral family at the
+# mistral-7b preset's widths (d 4096, 32/8 heads, hd 128, FFN 14336, V 32000,
+# window 4096) cut to 2 layers, T 8192, batch 1. Before each, its attention
+# kernels are held against their plain versions at the shapes it gives them;
+# at Mistral-7B widths the plain version runs one KV group of 8/2 heads at a
+# time (MISTRAL_7B_PLAIN_GROUPS: the plain scores of all 32 heads would take
+# ~8.6 GB a pass).
+FAMILY_LAYERS = 4
+MISTRAL_7B_LAYERS = 2
+MISTRAL_7B_T = 8192
+MISTRAL_7B_KERNEL_CASE = ("mistral7b", 1, MISTRAL_7B_T, 32, 8, 128, 4096, None)
+MISTRAL_7B_PLAIN_GROUPS = 4
+FAMILY_KERNELS = ("flash_fwd", "flash_bwd_prep", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def family_kernel_cases():
+    """The attention shapes exp_families' FAMILIES give the kernels, one
+    case each (name, B, T, H, KV, hd, window, softcap), named by the
+    families that share it."""
+    from mingpt_distributed_tpu_torch.tools import exp_families as ef
+
+    shapes = {}
+    for name, kw in ef.FAMILIES.items():
+        cfg = ef.config(kw)
+        key = (ef.BATCH, cfg.block_size, cfg.n_head, cfg.kv_heads, cfg.head_dim,
+               cfg.attention_window, cfg.attn_logit_softcap)
+        shapes.setdefault(key, []).append(name)
+    return [("family_" + "_".join(names), *key) for key, names in shapes.items()]
+
+
+def check_attention_kernels(fa, i, case, card, plain_groups=1):
+    """K1, the prep pass and K2a/K2b against their plain versions on
+    ``case`` in bf16 (seed index ``i``), outside the launch counts; fails
+    on the first case that disagrees."""
+    with preserved_counts():
+        for fn in (fwd_case, prep_case, bwd_case):
+            kw = {} if fn is prep_case else {"plain_groups": plain_groups}
+            rec, kfails = fn(fa, i, case, torch.bfloat16, **kw)
+            emit({**rec, "plain_groups": plain_groups, "card": card})
+            check(not kfails, "; ".join(msg for _, msg in kfails))
+    torch.cuda.empty_cache()
+
+
+def mistral_7b_kw():
+    """The mistral-7b preset's model at MISTRAL_7B_LAYERS layers."""
+    from mingpt_distributed_tpu_torch.config import MODEL_PRESETS
+
+    return dict(MODEL_PRESETS["mistral-7b"], n_layer=MISTRAL_7B_LAYERS,
+                block_size=MISTRAL_7B_T)
+
+
+def phase_families(fa, card):
+    """K1, the prep pass and K2a/K2b against their plain versions at each
+    of family_kernel_cases, then exp_families.run for each family on the
+    card (split backward: one K1, prep, K2a and K2b launch per layer per
+    step), then the 2-layer Mistral-7B-width step: the kernels against
+    their plain versions at MISTRAL_7B_KERNEL_CASE (the plain version by
+    MISTRAL_7B_PLAIN_GROUPS KV groups), then exp_families' 3 steps,
+    each with its ms, MFU (the trainer's flops_per_token), launches (2 of
+    each) and peak memory (the process's, and over what it held before the
+    setup); the losses finite and falling. Returns the launches of each family's run and of
+    the Mistral-7B-width step's first step."""
+    from mingpt_distributed_tpu_torch.models import gpt
+    from mingpt_distributed_tpu_torch.tools import exp_families as ef
+    from mingpt_distributed_tpu_torch.training.metrics import flops_per_token
+
+    i = len(KERNEL_CASES) + len(FWD_RING_CASES) + len(BWD_RING_CASES) + 2
+    for j, case in enumerate(family_kernel_cases()):
+        check_attention_kernels(fa, i + 1 + j, case, card)
+    n = ef.STEPS
+    want = expected(**{k: FAMILY_LAYERS * n for k in FAMILY_KERNELS})
+    fails, launches = [], {}
+    with fused_switch(False):
+        for name, kw in ef.FAMILIES.items():
+            reset_counts()
+            t0 = time.perf_counter()
+            rec = ef.run(name, kw, device="cuda")
+            dt = time.perf_counter() - t0
+            counts = launches[f"family_{name}"] = read_counts()
+            emit({"phase": "family", **rec, "config": kw, "batch": ef.BATCH, "steps": n,
+                  "dtype": "bfloat16", "launches": counts, "launches_want": want,
+                  "seconds": dt, "card": card})
+            if counts != want:
+                fails.append(f"family {name}: launches {counts}, want {want}")
+            torch.cuda.empty_cache()
+    check(not fails, "; ".join(fails))
+
+    check_attention_kernels(fa, i, MISTRAL_7B_KERNEL_CASE, card, MISTRAL_7B_PLAIN_GROUPS)
+
+    fails = []
+    kw = mistral_7b_kw()
+    tokens = np.random.default_rng(17).integers(0, kw["vocab_size"], (1, MISTRAL_7B_T))
+    per_step = expected(**{k: MISTRAL_7B_LAYERS for k in FAMILY_KERNELS})
+    base = torch.cuda.memory_allocated()  # what earlier phases still hold
+    with fused_switch(False):
+        cfg, step, state, batch = ef.setup(kw, device="cuda", tokens=tokens)
+        n_params = gpt.param_count(state.params)
+        steps, losses = [], []
+        for s in range(n):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            t0 = time.perf_counter()
+            m = step(state, batch)
+            losses.append(m["loss"].item())
+            torch.cuda.synchronize()
+            counts = read_counts()
+            dt = time.perf_counter() - t0
+            steps.append({"step": s + 1, "ms": dt * 1e3,
+                          "mfu": flops_per_token(cfg, MISTRAL_7B_T) * MISTRAL_7B_T / dt
+                          / PEAK_FLOPS[torch.bfloat16],
+                          "launches": {k: v for k, v in counts.items() if v},
+                          "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+                          "peak_over_setup_bytes": torch.cuda.max_memory_allocated() - base,
+                          "loss": losses[-1]})
+            if counts != per_step:
+                fails.append(f"mistral-7b width step {s + 1}: launches {counts}, "
+                             f"want {per_step}")
+    rec = {"phase": "family_mistral_7b_width", "model": "mistral-7b widths, 2 layers",
+           "n_layer": cfg.n_layer, "n_embd": cfg.n_embd, "n_head": cfg.n_head,
+           "n_kv_head": cfg.n_kv_head, "head_dim": cfg.head_dim, "window": cfg.attention_window,
+           "vocab_size": cfg.vocab_size, "seq": MISTRAL_7B_T, "batch": 1, "dtype": cfg.dtype,
+           "params": n_params, "fp32_weights_grads_adam_bytes": 16 * n_params,
+           "allocated_before_setup_bytes": base,
+           "launches_want_per_step": {k: v for k, v in per_step.items() if v},
+           "steps": steps, "losses": losses, "grad_norm": m["grad_norm"].item(),
+           "card": card}
+    emit(rec)
+    del state, batch, step
+    torch.cuda.empty_cache()
+    check(not fails, "; ".join(fails))
+    ef.check_losses("mistral-7b width", losses)
+    launches["family_mistral_7b_width_step_1"] = steps[0]["launches"]
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -6464,12 +6777,10 @@ def phase_pp(card, ranks):
             seconds)
 
 
-# The time this slice's phases (graftaudit in this process, the moe_sp
-# kernel checks, and moe_sp_train_step and the narrow fp32 legs beside sp in
-# the SP ranks' spawn) may take together, and the whole smoke, in seconds
-# of the command (the driver's limit is 1200 s; the earlier slices' runs
-# read 784.4-906.6 s by host, and their depth was cut to pay for these
-# phases). The earlier slices' phases are reported beside.
+# The time this slice's phases (the families, trace_summary) may take
+# together, and the whole smoke, in seconds of the command (a run is
+# allowed 1200 s; recent runs read 747.2-1163.6 s by host). The earlier
+# slices' phases are reported beside.
 ADDED_PHASES_BUDGET_S = 60.0
 SMOKE_BUDGET_S = 1050.0
 
@@ -7105,7 +7416,7 @@ def _main() -> int:
     added_seconds, earlier_seconds = {}, {}
     t0 = time.perf_counter()
     phase_graftaudit(model32.params, card)
-    added_seconds["graftaudit"] = time.perf_counter() - t0
+    earlier_seconds["graftaudit"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     group, tp_spawn_s = tp_pending.result()
     try:
@@ -7170,11 +7481,17 @@ def _main() -> int:
     t0 = time.perf_counter()
     moe_split, moe_fused = phase_moe_train(fa, card)
     seconds["moe_train_step+fused"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    family_launches = phase_families(fa, card)
+    added_seconds["families"] = time.perf_counter() - t0
     try:
         t0 = time.perf_counter()
         train_argv = phase_train_entry(card, tmp)
         seconds["train_cli"] = time.perf_counter() - t0
-        phase_train_telemetry(card, train_argv, tmp)
+        window = phase_train_telemetry(card, train_argv, tmp)
+        t0 = time.perf_counter()
+        phase_trace_summary(card, tmp, window)
+        added_seconds["trace_summary"] = time.perf_counter() - t0
         plain_texts = phase_serve_cli(card, train_argv, tmp, new_seconds)
         t0 = time.perf_counter()
         phase_serve_cli_autoscale(card, train_argv, tmp, plain_texts)
@@ -7189,14 +7506,14 @@ def _main() -> int:
     earlier_seconds["moe_ep_kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     moe_sp_errs = phase_moe_sp_kernels(fa, card)
-    added_seconds["moe_sp_kernels"] = time.perf_counter() - t0
+    earlier_seconds["moe_sp_kernels"] = time.perf_counter() - t0
     sp_counts, sp_tp_counts, earlier_seconds["sp_tp"], ft, zm, ms, pp = phase_sp(card)
     ft_counts = phase_fsdp_tp(card, ft)
     earlier_seconds["fsdp_tp"] = ft[1]
     zero_counts, moe_ep_counts, zm_seconds = phase_zero_moe(card, zm)
     earlier_seconds.update(zm_seconds)
     moe_sp_counts, ms_seconds = phase_moe_sp(card, ms)
-    added_seconds.update(ms_seconds)
+    earlier_seconds.update(ms_seconds)
     pp_counts, pp4_counts, pp_seconds = phase_pp(card, pp)
     earlier_seconds.update(pp_seconds)
     proto_counts = phase_proto(nh, card)
@@ -7285,7 +7602,8 @@ def _main() -> int:
           **{f"serve_spec_{d}": r["launches"] for d, r in serve_spec.items()},
           "serve_telemetry": serve_telemetry, "serve_moe_parity": serve_moe_parity,
           "serve_moe": serve_moe["launches"], "moe_train_step": moe_split["launches"],
-          "moe_train_step_fused": moe_fused["launches"], **fleet_launches,
+          "moe_train_step_fused": moe_fused["launches"], **family_launches,
+          **fleet_launches,
           "procfleet_subprocess_legs": "not counted: each worker process counts its own "
                                        "launches; the same ReplicaWorker code through a "
                                        "LoopbackBackend in this process is "

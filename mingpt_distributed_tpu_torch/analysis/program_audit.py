@@ -53,6 +53,7 @@ from __future__ import annotations
 import contextlib
 import itertools
 import json
+import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -173,9 +174,18 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+# The profiler keeps only device records whose times, converted from the
+# card's clock, fall inside its window. On an H100 they read 2-5 ms earlier
+# than the copies' runtime calls, so a copy made just after the window
+# opened lost its device record and counted as an upload; the window opens
+# and closes this long away from the call.
+PROFILE_PAD_S = 0.02
+
+
 @contextlib.contextmanager
 def _watch(art: ProgramArtifact, device):
-    """Record the collectives and host copies of the code inside."""
+    """Record the collectives and host copies of the code inside (on a
+    card, in a profiler window PROFILE_PAD_S wider than it on each side)."""
     colls, copies = art.collectives, art.host_transfers
     on_coll = lambda op, n: colls.append({"op": op, "elems": n})  # noqa: E731
     on_copy = lambda kind, n: copies.append({"kind": kind, "bytes": n})  # noqa: E731
@@ -185,11 +195,14 @@ def _watch(art: ProgramArtifact, device):
     if device is not None and device.type == "cuda":
         prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA])
         prof.__enter__()
+        _sync(device)
+        time.sleep(PROFILE_PAD_S)
     try:
         yield
     finally:
         if prof is not None:
             _sync(device)
+            time.sleep(PROFILE_PAD_S)
             prof.__exit__(None, None, None)
             _note_profiled_copies(prof.events())
         D.collective_observers.remove(on_coll)

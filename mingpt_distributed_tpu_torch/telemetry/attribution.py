@@ -442,7 +442,9 @@ def dump_attrib_report(report: Dict[str, Any]) -> str:
 
 
 def render_attrib_report(report: Dict[str, Any]) -> str:
-    """Human-readable per-family table."""
+    """Human-readable per-family table, line for line the JAX package's
+    (its ``compile_s`` column shows what ``observe_compile`` recorded: 0
+    unless a caller reports compile time)."""
 
     def _cell(v: Optional[float]) -> str:
         return "n/a" if v is None else f"{v:.4g}"
@@ -450,18 +452,21 @@ def render_attrib_report(report: Dict[str, Any]) -> str:
     lines = [f"Attribution report ({report['schema']}): "
              f"{len(report['programs'])} program rows",
              f"  {'family':<16} {'variant':<10} {'flops':>10} {'bytes':>10} "
-             f"{'calls':>7} {'device_s':>10} {'mfu':>8}"]
+             f"{'compile_s':>10} {'calls':>7} {'device_s':>10} {'mfu':>8}"]
     for row in report["programs"]:
         lines.append(
             f"  {row['family']:<16} {row['variant']:<10} "
             f"{_cell(row['flops']):>10} {_cell(row['bytes_accessed']):>10} "
-            f"{row['calls']:>7} {row['device_s']:>10.4g} "
-            f"{_cell(row['measured_mfu']):>8}")
+            f"{row['compile_s']:>10.4g} {row['calls']:>7} "
+            f"{row['device_s']:>10.4g} {_cell(row['measured_mfu']):>8}")
     hbm = report.get("hbm")
     if hbm:
         lines.append(f"  HBM: total {hbm['total_bytes']} bytes"
                      + ("" if hbm.get("headroom_bytes") is None else
                         f", headroom {hbm['headroom_bytes']:.3g}"))
+        per_device = hbm.get("per_device_bytes") or {}
         for owner, nb in hbm["owners"].items():
-            lines.append(f"    {owner:<20} {nb:>14}")
+            one = per_device.get(owner)
+            suffix = "" if one is None or one == nb else f"  ({one} / device)"
+            lines.append(f"    {owner:<20} {nb:>14}{suffix}")
     return "\n".join(lines)

@@ -634,6 +634,7 @@ class GPTTrainer:
         block = self.train_iter.view.block_size
         tokens_per_step = cfg.batch_size * block
         stop = False
+        self._profile(self.state.step)  # a window opening after step 1 warms up now
         for epoch in range(self.start_epoch, cfg.max_epochs):
             # the prefetch thread runs ahead of the iterator's position;
             # `consumed` is what was trained on, the truth for resume
@@ -687,17 +688,25 @@ class GPTTrainer:
     def _profile(self, step: int) -> None:
         """``profile_dir``: a torch.profiler trace from the end of step
         ``profile_steps[0]`` to the end of step ``profile_steps[1]``,
-        written as ``trace_steps_<a>-<b>.json`` (Chrome trace format)."""
+        written as ``trace_steps_<a>-<b>.json`` (Chrome trace format). The
+        tracer starts one step earlier and records from the window's edge
+        (torch.profiler's warmup): a tracer started at the edge drops the
+        first device records of the window, more of them after earlier
+        profiler sessions in the process (seen on an H100)."""
         cfg = self.config
         if not (cfg.profile_dir and self.is_main):
             return
         first, last = cfg.profile_steps
-        if step == first and self._profiler is None:
+        if step == first - 1 and self._profiler is None:
             acts = [torch.profiler.ProfilerActivity.CPU]
             if self.device.type == "cuda":
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
-            self._profiler = torch.profiler.profile(activities=acts)
+            self._profiler = torch.profiler.profile(
+                activities=acts, schedule=torch.profiler.schedule(
+                    wait=0, warmup=1, active=max(1, last - first)))
             self._profiler.__enter__()
+        elif step == first and self._profiler is not None:
+            self._profiler.step()  # warmup -> recording
         elif step == last and self._profiler is not None:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)

@@ -341,8 +341,8 @@ def test_tie_rule_allows_divergences_only_at_near_ties():
 
 def test_train_telemetry_readers(tmp_path):
     """step_spans reads the train.step spans of a spans_jsonl file, one
-    list of host ms per step; trace_kernel_names the kernel events of a
-    Chrome trace."""
+    list of host ms per step (the profile's reader is trace_summary:
+    test_trace_summary_checks_read_a_profiler_trace_file)."""
     import json
 
     spans = tmp_path / "s.jsonl"
@@ -353,15 +353,7 @@ def test_train_telemetry_readers(tmp_path):
         {"kind": "event", "name": "log", "message": "x"},
         {"kind": "span", "name": "train.step", "step": 2, "dur_s": 0.25}]) + "\n")
     assert chip_smoke.step_spans(spans) == {1: [500.0], 2: [250.0]}
-    trace = tmp_path / "t.json"
-    trace.write_text(json.dumps({"traceEvents": [
-        {"name": "_ZN12_GLOBAL__N_121flash_fwd_bf16_kernelILi64E", "cat": "kernel"},
-        {"name": "aten::mm", "cat": "cpu_op"},
-        {"name": "flash_bwd_prep_kernel", "cat": "kernel"},
-        {"name": "flash_bwd_prep_kernel", "cat": "kernel"}]}))
-    assert chip_smoke.trace_kernel_names(trace) == [
-        "_ZN12_GLOBAL__N_121flash_fwd_bf16_kernelILi64E", "flash_bwd_prep_kernel"]
-    assert chip_smoke.TRACE_KERNELS == ("flash_fwd", "flash_bwd_prep", "flash_dq", "flash_dkv")
+    assert chip_smoke.step_spans(tmp_path / "s.jsonl") == chip_smoke.step_spans(str(spans))
 
 
 def test_diff_paths_names_every_differing_leaf():
@@ -543,10 +535,10 @@ def test_main_runs_the_added_phases_and_reports_their_seconds():
     """_main drives the earlier slices' phases (the autoscaler, fsdp x tp
     and its times, tensor-parallel serving, sp x tp and its hop times,
     zero and moe_ep with their kernel checks and times,
-    serve_moe_tp_parity, the pipeline and checkpoint legs) and this
-    slice's (MoE beside sp, checked by phase_moe_sp after its kernel
-    checks, and the graftaudit phase), each with its seconds in the budget
-    line, and lists the sharded steps' and the tp servers' launches among
+    serve_moe_tp_parity, the pipeline and checkpoint legs, MoE beside sp
+    and the graftaudit phase) and this slice's (the families and
+    trace_summary), each with its seconds in the budget line, and lists
+    the sharded steps', the tp servers' and the families' launches among
     the paths."""
     import ast
     import inspect
@@ -559,7 +551,8 @@ def test_main_runs_the_added_phases_and_reports_their_seconds():
                   "phase_serve_tp_parity", "phase_serve_tp", "phase_serve_cli_tp",
                   "phase_sp", "phase_sp_tp_times", "phase_serve_moe_tp_parity",
                   "phase_zero_moe", "phase_moe_ep_kernels", "phase_zero_moe_times",
-                  "phase_pp", "phase_moe_sp", "phase_moe_sp_kernels", "phase_graftaudit"):
+                  "phase_pp", "phase_moe_sp", "phase_moe_sp_kernels", "phase_graftaudit",
+                  "phase_families", "phase_trace_summary"):
         assert phase in called, phase
 
     def keys(name):
@@ -571,17 +564,18 @@ def test_main_runs_the_added_phases_and_reports_their_seconds():
                                        "serve_cli_autoscale", "fsdp_tp", "fsdp_tp_times",
                                        "serve_tp_parity+serve_tp", "serve_cli_tp", "sp_tp",
                                        "sp_tp_times", "serve_moe_tp_parity",
-                                       "moe_ep_kernels", "zero_moe_times"}
-    # this slice's seconds: its kernel checks and the audit in this process,
-    # the rest from the ranks (phase_moe_sp)
-    assert keys("added_seconds") == {"moe_sp_kernels", "graftaudit"}
+                                       "moe_ep_kernels", "zero_moe_times", "graftaudit",
+                                       "moe_sp_kernels"}
+    # this slice's seconds: the families (exp_families and the
+    # Mistral-7B-width step) and trace_summary on what the smoke wrote
+    assert keys("added_seconds") == {"families", "trace_summary"}
     src = inspect.getsource(chip_smoke._main)
     for path in ("fsdp_tp_train_step_rank0", "sp_tp_train_step_rank0", '"serve_tp"',
                  '"serve_tp_follower"', "zero_train_step_rank0", "moe_ep_train_step_rank0",
                  '"serve_moe_tp_parity"', "earlier_seconds.update(zm_seconds)",
                  "pp_train_step_rank0", "pp_1f1b_train_step_rank0",
                  "earlier_seconds.update(pp_seconds)", "moe_sp_train_step_rank0",
-                 "added_seconds.update(ms_seconds)"):
+                 "earlier_seconds.update(ms_seconds)", "**family_launches"):
         assert path in src, path
     # serve_tp holds its tokens/s against serve's from the same call, and
     # serve_cli_tp its completions against serve_cli's
@@ -590,6 +584,11 @@ def test_main_runs_the_added_phases_and_reports_their_seconds():
     # the autoscale phase compares with procfleet's record from the same call
     assert called.index("phase_procfleet") < called.index("phase_autoscale")
     assert called.index("phase_serve_cli") < called.index("phase_serve_cli_autoscale")
+    # trace_summary reads what serve_telemetry, autoscale and the profiled
+    # train run wrote, before the directory goes
+    for writer in ("phase_serve_telemetry", "phase_autoscale", "phase_train_telemetry"):
+        assert called.index(writer) < called.index("phase_trace_summary"), writer
+    assert src.index("phase_trace_summary(") < src.index("shutil.rmtree(tmp")
 
 
 def test_sp_tp_launch_counts_per_rank_per_step_at_gpt2():
@@ -835,3 +834,199 @@ def test_graftaudit_phase_audits_the_committed_sweep():
     want |= {f"{f}:b{b}" for f in ("prefix_save", "prefix_load") for b in ladder[:-1]}
     assert set(section) == want
     assert os.path.basename(graftaudit.DEFAULT_BUDGETS) == "program_budgets.json"
+
+
+def _device_table(events=24, host_op=None, second_device_lane=False):
+    """A trace_summary.lanes() table of a profiled split step: the host
+    thread and the device's stream with the four kernels of the path."""
+    ops = {"void (anonymous namespace)::flash_fwd_bf16_kernel<64, false, false>(x)":
+           [3000.0, events],
+           "void (anonymous namespace)::flash_bwd_prep_kernel<__nv_bfloat16, 8>(x)":
+           [500.0, events],
+           "void (anonymous namespace)::flash_dq_bf16_kernel<64, false, false>(x)":
+           [3250.0, events],
+           "void (anonymous namespace)::flash_dkv_bf16_kernel<64, false, false, false>(x)":
+           [4600.0, events],
+           "nvjet_tst_256x128_64x4_1x2_h_bz_coopA_TNT": [8000.0, 96]}
+    if host_op:
+        ops[host_op] = [1.0, 1]
+    table = {("python3", "thread 118 (python3)"): {"ops": {"aten::mm": [6000.0, 50]},
+                                                   "busy_us": 60000.0},
+             ("python3", "stream 7 "): {"ops": ops, "busy_us": 130000.0}}
+    if second_device_lane:
+        table[("python3", "stream 13 ")] = {"ops": dict(ops), "busy_us": 1.0}
+    return table
+
+
+def _summary_text(table, span_ms=260.0):
+    lines = [f"trace span: {span_ms:.2f} ms, lanes: {len(table)}"]
+    for (p, t), lane in table.items():
+        lines.append(f"\n== lane {p} / {t}: busy {lane['busy_us'] / 1e3:.2f} ms "
+                     f"({100 * lane['busy_us'] / 1e3 / span_ms:.0f}% of span)")
+    return "\n".join(lines)
+
+
+WINDOW = {**chip_smoke.expected(flash_fwd=24, flash_bwd_prep=24, flash_bwd_dq=24,
+                                flash_bwd_dkv=24)}
+
+
+def test_trace_summary_checks_pass_a_device_lane_that_matches_the_counters():
+    table = _device_table()
+    rec, fails = chip_smoke.trace_summary_checks(_summary_text(table), table, 0.0, 260000.0,
+                                                 WINDOW)
+    assert fails == []
+    assert rec["device_lane"] == ["python3", "stream 7 "]
+    assert rec["trace_kernel_events"] == {k: 24 for k in chip_smoke.TRACE_KERNELS}
+    assert rec["printed_busy_share_pct"] == 50 and rec["device_busy_share"] == 0.5
+    assert rec["device_top"][0]["name"].startswith("nvjet") and len(rec["device_top"]) == 5
+    assert set(chip_smoke.TRACE_COUNTERS.values()) <= set(chip_smoke.COUNTERS)
+
+
+@pytest.mark.parametrize("fault, message", [
+    (dict(events=23), "23 flash_fwd events on the device lane, 24 launches"),
+    (dict(host_op="aten::mm"), "host ops on the device lane"),
+    (dict(second_device_lane=True), "2 lanes hold the flash kernels"),
+])
+def test_trace_summary_checks_fail_a_wrong_lane_or_count(fault, message):
+    table = _device_table(**fault)
+    _, fails = chip_smoke.trace_summary_checks(_summary_text(table), table, 0.0, 260000.0,
+                                               WINDOW)
+    assert any(message in f for f in fails), fails
+
+
+def test_trace_summary_checks_need_the_printed_busy_share():
+    table = _device_table()
+    _, fails = chip_smoke.trace_summary_checks("trace span: 260.00 ms", table, 0.0,
+                                               260000.0, WINDOW)
+    assert any("no busy share" in f for f in fails), fails
+
+
+def test_trace_summary_checks_read_a_profiler_trace_file(tmp_path):
+    """The smoke's one reader of the profile: trace_summary loads a Chrome
+    trace file whose kernels carry mangled or plain names, and the checks
+    count each of TRACE_KERNELS by its fragment on the device lane, host
+    ops (cpu_op) kept on their own lane."""
+    import json
+
+    from mingpt_distributed_tpu_torch.tools import trace_summary
+
+    assert chip_smoke.TRACE_KERNELS == ("flash_fwd", "flash_bwd_prep", "flash_dq", "flash_dkv")
+    names = ["_ZN12_GLOBAL__N_121flash_fwd_bf16_kernelILi64E", "flash_bwd_prep_kernel",
+             "void (anonymous namespace)::flash_dq_bf16_kernel<64, false, false>(x)",
+             "void (anonymous namespace)::flash_dkv_bf16_kernel<64, false, false, false>(x)"]
+    events = [{"ph": "M", "name": "process_name", "pid": 0, "args": {"name": "python3"}},
+              {"ph": "M", "name": "thread_name", "pid": 0, "tid": 7,
+               "args": {"name": "stream 7 "}},
+              {"ph": "M", "name": "thread_name", "pid": 0, "tid": 118,
+               "args": {"name": "thread 118 (python3)"}},
+              {"ph": "X", "cat": "cpu_op", "name": "aten::mm", "pid": 0, "tid": 118,
+               "ts": 0.0, "dur": 400.0}]
+    for step in range(2):
+        for j, name in enumerate(names):
+            events.append({"ph": "X", "cat": "kernel", "name": name, "pid": 0, "tid": 7,
+                           "ts": 100.0 * (4 * step + j), "dur": 50.0})
+    (tmp_path / "trace_steps_2-4.json").write_text(json.dumps({"traceEvents": events}))
+    table, t_min, t_max = trace_summary.lanes(trace_summary.load_trace(str(tmp_path)))
+    window = chip_smoke.expected(flash_fwd=2, flash_bwd_prep=2, flash_bwd_dq=2,
+                                 flash_bwd_dkv=2)
+    rec, fails = chip_smoke.trace_summary_checks(_summary_text(table, (t_max - t_min) / 1e3),
+                                                 table, t_min, t_max, window)
+    assert fails == []
+    assert rec["trace_kernel_events"] == {k: 2 for k in chip_smoke.TRACE_KERNELS}
+    assert rec["device_busy_ms"] == pytest.approx(0.4) and rec["lanes"] == 2
+    _, fails = chip_smoke.trace_summary_checks(
+        _summary_text(table, (t_max - t_min) / 1e3), table, t_min, t_max,
+        {**window, "flash_bwd_dq": 3})
+    assert any("2 flash_dq events on the device lane, 3 launches" in f for f in fails), fails
+
+
+def test_family_kernel_cases_are_the_shapes_the_families_give_the_kernels():
+    """Every family's attention shape is checked before the family runs:
+    llama's and mistral's GQA 8/2 (mistral with its window 256), gemma's
+    softcap 50, moe's 8/8, at batch 4, T 1024, hd 64."""
+    from mingpt_distributed_tpu_torch.tools import exp_families
+
+    cases = chip_smoke.family_kernel_cases()
+    assert [c[1:] for c in cases] == [(4, 1024, 8, 2, 64, None, None),
+                                      (4, 1024, 8, 2, 64, 256, None),
+                                      (4, 1024, 8, 8, 64, None, 50.0),
+                                      (4, 1024, 8, 8, 64, None, None)]
+    assert [c[0] for c in cases] == ["family_" + f for f in exp_families.FAMILIES]
+
+
+@pytest.mark.parametrize("groups", [1, 2, 4])
+def test_by_kv_groups_equals_the_plain_version_on_all_heads(groups):
+    """The plain forward and backward one KV group at a time, joined along
+    the head axis, equal them on all heads at once (GQA 8/4, a window and
+    a softcap), as the Mistral-7B-width check relies on."""
+    import torch
+
+    from mingpt_distributed_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 24, 8, 16, generator=g, dtype=torch.float64)
+    k, v = (torch.randn(2, 24, 4, 16, generator=g, dtype=torch.float64) for _ in range(2))
+    do = torch.randn(q.shape, generator=g, dtype=torch.float64)
+    kw = dict(scale=0.25, window=9, softcap=20.0)
+    out, lse = fa.flash_fwd_plain(q, k, v, **kw)
+    got = chip_smoke.by_kv_groups(fa.flash_fwd_plain, groups)(q, k, v, **kw)
+    want = fa.flash_bwd_plain(q, k, v, out, lse, do, **kw)
+    got_bwd = chip_smoke.by_kv_groups(fa.flash_bwd_plain, groups)(q, k, v, out, lse, do, **kw)
+    for a, b in zip((*got, *got_bwd), (out, lse, *want)):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a, b, rtol=1e-12, atol=1e-12)
+
+
+def test_mistral_7b_width_step_geometry():
+    """The families phase's large step: the mistral-7b preset's widths at 2
+    layers, T 8192 (~0.70 B parameters: ~11.2 GB of fp32 weights, gradients
+    and Adam moments), its attention kernels checked first at its full
+    shape, 32 heads over 8, window 4096, the plain version by KV groups of
+    8/2 heads; the tool-width families at 4 layers, one launch of each
+    kernel per layer per step."""
+    import math
+
+    from mingpt_distributed_tpu_torch.config import GPTConfig
+    from mingpt_distributed_tpu_torch.models import convert, gpt
+    from mingpt_distributed_tpu_torch.tools import exp_families
+
+    cfg = exp_families.config(chip_smoke.mistral_7b_kw())
+    assert (cfg.n_layer, cfg.n_embd, cfg.n_head, cfg.kv_heads, cfg.head_dim) == (
+        2, 4096, 32, 8, 128)
+    assert (cfg.vocab_size, cfg.block_size, cfg.attention_window) == (32000, 8192, 4096)
+    assert int(cfg.ffn_mult * cfg.n_embd) == 14336 and cfg.attention == "flash"
+    n = sum(math.prod(s) for s, _ in convert.flatten(gpt.param_spec(cfg)).values())
+    assert n == 698_372_096 and 16 * n == 11_173_953_536  # fp32 weights, grads, Adam
+    name, b, t, h, kv, hd, window, cap = chip_smoke.MISTRAL_7B_KERNEL_CASE
+    assert (b, t, hd, window, cap) == (1, 8192, 128, 4096, None)
+    assert (h, kv) == (cfg.n_head, cfg.kv_heads)
+    groups = chip_smoke.MISTRAL_7B_PLAIN_GROUPS
+    assert (h // groups, kv // groups) == (8, 2) and cfg.kv_heads % groups == 0
+    assert all(kw["n_layer"] == chip_smoke.FAMILY_LAYERS == 4
+               for kw in exp_families.FAMILIES.values())
+    assert GPTConfig.make(**exp_families.FAMILIES["gemma"]).head_dim == 64
+
+
+
+def test_profile_window_counts_reads_the_counters_at_the_window_edges(monkeypatch):
+    """Inside the block each call of the trainer's _profile at a window
+    edge (with a profile_dir) records the launch counts; outside it the
+    trainer's own _profile is back."""
+    from types import SimpleNamespace
+
+    from mingpt_distributed_tpu_torch.training.trainer import GPTTrainer
+
+    calls = []
+    monkeypatch.setattr(GPTTrainer, "_profile", lambda self, step: calls.append(step))
+    own = GPTTrainer._profile
+    trainer = SimpleNamespace(config=SimpleNamespace(profile_dir="prof"))
+    plain = SimpleNamespace(config=SimpleNamespace(profile_dir=None))
+    edges = {}
+    with chip_smoke.profile_window_counts(edges):
+        for step in range(1, 6):
+            GPTTrainer._profile(trainer, step)
+            GPTTrainer._profile(plain, step)
+    assert GPTTrainer._profile is own
+    assert calls == [s for s in range(1, 6) for _ in range(2)]
+    assert sorted(edges) == list(chip_smoke.PROFILE_STEPS)
+    assert edges[2] == chip_smoke.read_counts()

@@ -46,6 +46,8 @@ def test_importing_every_port_module_loads_no_jax():
     assert "mingpt_distributed_tpu_torch.ops.flash_attention" in mods
     for name in ("distributed", "mesh", "ring_attention", "ulysses", "spawn"):
         assert f"mingpt_distributed_tpu_torch.parallel.{name}" in mods
+    for name in ("trace_summary", "exp_families"):
+        assert f"mingpt_distributed_tpu_torch.tools.{name}" in mods
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -99,3 +101,19 @@ def test_entry_points_default_to_cuda():
         main(["--random-init", "--config",
               os.path.join(REPO, "gpt2_config.yaml"),
               "--data", os.path.join(REPO, "data", "input.txt")])
+
+
+def test_exp_families_defaults_to_cuda(capsys):
+    """The families tool runs on CUDA unless asked: without a card each
+    family's run raises, and the CLI prints each family's error and exits
+    1."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: this checks the CPU-only behaviour")
+    from mingpt_distributed_tpu_torch.tools import exp_families
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        exp_families.run("llama", exp_families.FAMILIES["llama"])
+    assert exp_families.main([]) == 1
+    lines = capsys.readouterr().out.splitlines()
+    assert len(lines) == len(exp_families.FAMILIES)
+    assert all("no CUDA device" in line for line in lines)
