@@ -19,14 +19,17 @@ Phases:
      ptxas's registers, spills and dynamic shared memory per forward and
      backward kernel (fwd_ptxas, bwd_ptxas) and each library's SASS
      (fwd_sass, bwd_sass: every bf16 forward, dq and dk/dv instantiation,
-     K2c's four among them, issues HGMMA and UTMALDG, none HMMA);
+     at head widths 16, 32, 64, 80, 96, 128 and 256 (K5's at 16 to 128), K2c's
+     seven among them, issues HGMMA and UTMALDG, none HMMA);
   1. every kernel against its plain version at the main paths' shapes
      (generation at batch 4, the train step at batch 16, the sp path's
      zigzag hop, the sp x tp path's hop and own block on 6 of 12 heads
      (LSE_SP_TP_CASES), the prototype tool's shape) and the edge cases (GQA, a
      window narrower than a tile, softcap, ragged T), and the bf16
-     kernels' rings of tiles at every head width (FWD_RING_CASES,
-     BWD_RING_CASES, LSE_RING_CASES and NH_CASES: T = 1, 63, 65, ... 4096,
+     kernels' rings of tiles at every head width, in bf16 and fp32
+     (RING_HEAD_DIMS: the seven instances, and 48 and 8, which run the next
+     instance up zero-padded; FWD_RING_CASES, BWD_RING_CASES,
+     LSE_RING_CASES, LSE_WIDTH_CASES and NH_CASES: T = 1, 63, 65, ... 4096,
      strided q/k/v views of one qkv projection, GQA 12/4, offset bands,
      softcap): the forward (flash_fwd), the backward's prep pass
      (flash_bwd_prep: delta with and without an lse cotangent, K2c's dq
@@ -124,7 +127,7 @@ Phases:
      prefix hits per replica; a second run with the engines' logits
      recorded, the same tokens, greedy rows under the tie rule at every
      step, teacher-forced); traffic (bf16, the traffic lab's canned sweep:
-     poisson:rate=40, ladder 1 and 24, fifo and edf, 40 requests per rung,
+     poisson:rate=40, ladder 1 and 24, fifo and edf, 36 requests per rung,
      1 replica x 2 slots, V = 50257, the prefix cache scaled to the tiny
      model's row count: validation after a JSON round trip, the knee's
      pass->fail shape, EDF above FIFO at the overload rung, a byte-identical
@@ -136,7 +139,7 @@ Phases:
      model's on the CPU on the same mix);
   3f. autoscale: the SLO autoscaler over a process fleet at GPT-2 124M
      width, bf16 (one worker x 4 slots and one warm standby, 1..2
-     replicas, the backfill on a thread): serve's 32 requests as a burst of
+     replicas, the backfill on a thread): serve's first 24 requests as a burst of
      16 and then one every 3 router rounds; a replicas/up adopting the
      standby, a replicas/down whose worker exits 75 and gives the card its
      memory back, every stream exact, the greedy ones under the tie rule,
@@ -172,7 +175,14 @@ Phases:
      preset's widths cut to 2 layers, T 8192, batch 1: the kernels against
      their plain versions at (1, 8192, 32/8, 128) with window 4096 first,
      the plain version one KV group of 8/2 heads at a time, then 3 steps, each
-     with its ms, 2 launches of each kernel and peak memory); trace_summary
+     with its ms, 2 launches of each kernel and peak memory); head_widths
+     (train steps at GPT-3 2.7B's widths, hd 80, T 2048, batch 4, at GPT-3
+     Large's, hd 96, T 2048, batch 8, and at Gemma 2B's, hd 256 over 1 KV
+     head, V 256000, T 8192, batch 1, each cut to 2 layers, bf16: K1, the
+     prep pass and K2a/K2b (and K2c at hd 256) against their plain versions
+     at the step's shape, the first loss against plain attention's, 3 steps
+     of 2 K1, prep, K2a and K2b each with ms, MFU and peak memory, and at hd
+     256 one FLASH_FUSED_BWD=1 step of 2 K2c); trace_summary
      (tools/trace_summary.py in this process on train_cli_telemetry's
      profile, the serve_telemetry request trace with --slo, the autoscale
      control log and the serve_telemetry attribution report: the device
@@ -238,21 +248,25 @@ Phases:
      device memory; K1, the prep pass, K2a and K2b at the fsdp x tp local
      shape (8, 1024, 6, 64); K3, K4a and K4b at the sp x tp hop shape
      (8, 1024, 6, 64, non-causal); K1, the prep pass, K2a and K2b at
-     zero's (4, 1024, 12, 64) and moe_ep's (1, 4096, 32/8, 128); then the exp-vs-exp2 tool (tools/exp_exp2.py, K6's
+     zero's (4, 1024, 12, 64) and moe_ep's (1, 4096, 32/8, 128); K1, the
+     prep pass, K2a, K2b, K2c, K3, K4a and K4b at head_widths' three
+     shapes; then the exp-vs-exp2 tool (tools/exp_exp2.py, K6's
      path) through its main() at its shape (64 x 512 x 512 float32, 64
      reps), 64 reps timed against 32, and the opcodes of K6's compiled
      kernels. The SM clock, power and
      throttle reasons are logged before and after.
 The seconds of the phases added with MoE and telemetry are one line
 (phase_seconds), those of the fleet phases another (new_phase_seconds, with
-the smoke's seconds so far), and a third (smoke_budget) gives the families'
-and trace_summary's seconds against ADDED_PHASES_BUDGET_S together, the
+the smoke's seconds so far), and a third (smoke_budget) gives head_widths'
+and its times' seconds against ADDED_PHASES_BUDGET_S together, the
 earlier slices' (tensor parallelism, the autoscaler, fsdp x tp, zero,
-moe_ep, the pipeline, MoE beside sp, graftaudit) beside them, and the
-whole smoke against SMOKE_BUDGET_S, reported, not failed. The last three lines are the card, the kernels
-line (twelve kernels; K3, the prep pass, K4a and K4b also with their
-moe_sp launches and errors) and the ok line. Exits 2 without CUDA, 1 on any
-failure.
+moe_ep, the pipeline, MoE beside sp, graftaudit, the families,
+trace_summary) beside them, and the whole smoke against SMOKE_BUDGET_S,
+reported, not failed. The last three lines are the card, the kernels line
+(twelve kernels; K3, the prep pass, K4a and K4b also with their moe_sp
+launches and errors; the eight flash kernels also with their largest error
+at every head width checked and their launches and times at head_widths'
+shapes) and the ok line. Exits 2 without CUDA, 1 on any failure.
 """
 
 from __future__ import annotations
@@ -493,33 +507,41 @@ KERNEL_CASES = [
     ("gpt2_train", 16, 1024, 12, 12, 64, None, None),
     ("fsdp_tp_local", 8, 1024, 6, 6, 64, None, None),
 ]
-# The bf16 forward's ring of k/v tiles (two stages of 128 keys) at every
-# head width: one tile and its edges (T = 1, 63, 65), q/k/v as strided
-# views of one qkv projection (T = 1000: 8 tiles), the ring wrapping 16
-# times (T = 4096: 32 tiles), GQA 12/4 over an odd tile count (T = 1100: 9
-# tiles), a window narrower than a tile (T = 640: 5 tiles). Forward only
-# (phase_kernels); the last field is make_qkv's layout.
+# The head widths of the kernels' ring cases: the instances of PRs 1-8,
+# then those of GPT-3 2.7B (80), GPT-3 Large (96) and Gemma 2B (256), then
+# two widths that run the next instance up zero-padded (48 on 64, 8 on 16).
+# The later widths come last, so the earlier cases keep their seeds.
+RING_HEAD_DIMS = (16, 32, 64, 128, 80, 96, 256, 48, 8)
+# The bf16 forward's ring of k/v tiles (two stages of 128 keys, 64 at hd
+# 256) at every head width: one tile and its edges (T = 1, 63, 65), q/k/v as
+# strided views of one qkv projection (T = 1000: 8 tiles), the ring
+# wrapping 16 times (T = 4096: 32 tiles), GQA 12/4 over an odd tile count
+# (T = 1100: 9 tiles; at hd 256 T = 1080, 17 tiles of 64 keys), a window
+# narrower than a tile (T = 640: 5 tiles).
+# Forward only (phase_kernels); the last field is make_qkv's layout.
 FWD_RING_CASES = [
-    case for hd in (16, 32, 64, 128) for case in (
+    case for hd in RING_HEAD_DIMS for case in (
         (f"t1_hd{hd}", 2, 1, 4, 4, hd, None, None, "dense"),
         (f"t63_hd{hd}", 2, 63, 4, 4, hd, None, None, "dense"),
         (f"t65_hd{hd}", 2, 65, 4, 4, hd, None, None, "dense"),
         (f"t1000_qkv_view_hd{hd}", 2, 1000, 4, 4, hd, None, None, "qkv_view"),
         (f"t4096_hd{hd}", 1, 4096, 2, 2, hd, None, None, "dense"),
-        (f"gqa12_4_t1100_hd{hd}", 1, 1100, 12, 4, hd, None, None, "dense"),
+        (f"gqa12_4_t{1100 if hd <= 128 else 1080}_hd{hd}", 1, 1100 if hd <= 128 else 1080,
+         12, 4, hd, None, None, "dense"),
         (f"window50_t640_hd{hd}", 2, 640, 4, 4, hd, 50, None, "dense"),
     )
 ]
 
 
-# The bf16 backward's rings (dq: two stages of 64 keys under items of 128
-# query rows; dk/dv: two stages of 64-row Q/dO tiles under items of 128
-# keys) at every head width: FWD_RING_CASES' shapes (one tile and its
-# edges, strided q/k/v views of one qkv projection, the rings wrapping many
-# times at T = 4096, GQA 12/4 over an odd tile count, a window narrower than
-# a tile) and a softcap. Run by bwd_case (K2a/K2b) and fused_case (K2c).
+# The bf16 backward's rings (dq: two stages of 64 keys, 32 at hd 256, under
+# items of 128 query rows; dk/dv: two stages of 64-row Q/dO tiles under
+# items of 128 keys, 64 at hd 256) at every head width: FWD_RING_CASES'
+# shapes (one tile and its edges, strided q/k/v views of one qkv
+# projection, the rings wrapping many times at T = 4096, GQA 12/4 over an
+# odd tile count, a window narrower than a tile) and a softcap. Run by
+# bwd_case (K2a/K2b) and fused_case (K2c).
 BWD_RING_CASES = [
-    case for hd in (16, 32, 64, 128) for case in (
+    case for hd in RING_HEAD_DIMS for case in (
         *((f"bwd_{c[0]}", *c[1:]) for c in FWD_RING_CASES if c[5] == hd),
         (f"bwd_softcap30_t300_hd{hd}", 2, 300, 4, 4, hd, None, 30.0, "dense"),
     )
@@ -789,8 +811,10 @@ def prep_case(fa, i, case, dtype):
     """The prep pass (flash_bwd_prep) against flash_bwd_prep_plain on case
     ``i`` of KERNEL_CASES + BWD_RING_CASES in ``dtype``: delta from random
     out and dO, with an lse cotangent (the ring's K4 path) and without, the
-    latter also zeroing a NaN-filled float32 dq (K2c's path). Returns its
-    record and the ("delta" or "dq", message) of every check it fails."""
+    latter also zeroing a NaN-filled float32 dq (K2c's path) where the head
+    width is an instance's (K2c's buffer has one: flash_bwd_fused pads
+    other widths first). Returns its record and the ("delta" or "dq",
+    message) of every check it fails."""
     name, b, t, h, kv, hd, *_ = case
     dt = str(dtype).replace("torch.", "")
     g = torch.Generator(device="cuda").manual_seed(1300 + i)
@@ -802,8 +826,8 @@ def prep_case(fa, i, case, dtype):
            "dtype": dt, "shape": [b, t, h, hd], "tol": PREP_TOL}
     fails = []
     for key, cot in (("delta", None), ("delta_dlse", dlse)):
-        dq = (torch.full(out.shape, float("nan"), device="cuda") if cot is None
-              else None)
+        dq = (torch.full(out.shape, float("nan"), device="cuda")
+              if cot is None and hd in fa.NATIVE_HEAD_DIMS else None)
         got = fa.flash_bwd_prep(out, do, cot, dq=dq)
         torch.cuda.synchronize()
         want = fa.flash_bwd_prep_plain(out, do, cot)
@@ -861,9 +885,10 @@ LSE_CASES = [
 # tile's edge (T = 65). The last field is make_qkv's layout. (lse_case's
 # backward check needs the lse cotangent to move dk by 5x its tolerance:
 # over 1100 or 4096 keys, non-causal, p ~ 1/T dilutes it below that at hd
-# 64 and 128, so the long cases are causal.)
+# 64 and 128, so the long cases are causal.) The widths after 128 are
+# LSE_WIDTH_CASES, run after LSE_SP_TP_CASES.
 LSE_RING_CASES = [
-    case for hd in (16, 32, 64, 128) for case in (
+    case for hd in RING_HEAD_DIMS[:4] for case in (
         (f"t4096_causal_hd{hd}", 1, 4096, 2, 2, hd, True, None, None, 0, "dense"),
         (f"offset300_window200_t1000_hd{hd}", 1, 1000, 4, 4, hd, True, 200, None,
          300, "dense"),
@@ -879,6 +904,21 @@ LSE_RING_CASES = [
 LSE_SP_TP_CASES = [
     ("sp_tp_hop", 8, 1024, 6, 6, 64, False, None, None, 0),
     ("sp_tp_own", 4, 1024, 6, 6, 64, True, None, None, 0),
+]
+# LSE_RING_CASES' shapes at the later ring widths (80, 96, 256 and the
+# padded 48 and 8), after LSE_SP_TP_CASES so that their seeds stay. At hd
+# 256 the non-causal view case is T = 200 (4 tiles of 64 keys): over 640
+# keys the lse cotangent moved dk by 4.5x its tolerance (H100, bf16),
+# below DLSE_EFFECT_X.
+LSE_WIDTH_CASES = [
+    case for hd in RING_HEAD_DIMS[4:] for case in (
+        (f"t4096_causal_hd{hd}", 1, 4096, 2, 2, hd, True, None, None, 0, "dense"),
+        (f"offset300_window200_t1000_hd{hd}", 1, 1000, 4, 4, hd, True, 200, None,
+         300, "dense"),
+        (f"qkv_view_t{200 if hd == 256 else 640}_non_causal_hd{hd}", 1,
+         200 if hd == 256 else 640, 4, 4, hd, False, None, None, 0, "qkv_view"),
+        (f"gqa12_4_t65_hd{hd}", 2, 65, 12, 4, hd, True, None, None, 0, "dense"),
+    )
 ]
 # A dead row (no key inside its offset band) must come out finite with
 # lse <= DEAD_LSE and out exactly 0; its dq exactly 0.
@@ -981,7 +1021,7 @@ def phase_lse_kernels(fa):
     """K3, K4a and K4b against their plain versions; returns the records
     by (case, dtype)."""
     results = {}
-    for i, case in enumerate(LSE_CASES + LSE_RING_CASES + LSE_SP_TP_CASES):
+    for i, case in enumerate(LSE_CASES + LSE_RING_CASES + LSE_SP_TP_CASES + LSE_WIDTH_CASES):
         for dtype in (torch.bfloat16, torch.float32):
             rec, fails = lse_case(fa, i, case, dtype)
             emit(rec)
@@ -2850,9 +2890,16 @@ def _diff_paths(a, b, path=""):
     return [] if a == b else [path]
 
 
+# Requests per rung of phase_traffic's sweeps, on the card and on the CPU
+# (the self-test's 40, cut for the smoke's time: at 36 the tiny model's
+# CPU sweep on the V = 50257 mix still puts EDF at 1.0 against FIFO's 0.857
+# at the overload rung, and at 28 the two tie)
+TRAFFIC_REQUESTS = 36
+
+
 def phase_traffic(params32, card):
     """The traffic lab at GPT-2 124M width, bf16: the canned self-test sweep
-    (poisson:rate=40, ladder 1 and 24, fifo and edf, 40 requests per rung,
+    (poisson:rate=40, ladder 1 and 24, fifo and edf, TRAFFIC_REQUESTS per rung,
     1 replica x 2 slots, ttft_p95<=0.025,shed_rate<=0.5) over the self-test
     mix at V = 50257, the prefix cache scaled to hold as many rows as the
     tiny model's 0.5 MiB; the report validated after a JSON round trip, the
@@ -2869,7 +2916,8 @@ def phase_traffic(params32, card):
     row_bytes = 2 * cfg.n_layer * cfg.kv_heads * cfg.head_dim * 2      # bf16
     tiny_row_bytes = 2 * tiny.n_layer * tiny.kv_heads * tiny.head_dim * 4  # fp32
     prefix_mb = 0.5 * row_bytes / tiny_row_bytes
-    spec = traffic_cli.selftest_sweep_spec(prefix_cache_mb=prefix_mb)
+    spec = dataclasses.replace(traffic_cli.selftest_sweep_spec(prefix_cache_mb=prefix_mb),
+                               n_requests=TRAFFIC_REQUESTS)
     mix = traffic_cli.selftest_mix(cfg.vocab_size)
     cells = []
     real_run_one = runner._run_one
@@ -2900,7 +2948,9 @@ def phase_traffic(params32, card):
     for vocab in (tiny.vocab_size, cfg.vocab_size):
         tcfg = dataclasses.replace(tiny, vocab_size=vocab)
         tparams = gpt.init(tcfg, torch.Generator().manual_seed(0), device="cpu")
-        cpu[vocab] = run_sweep(tparams, tcfg, traffic_cli.selftest_sweep_spec(),
+        cpu[vocab] = run_sweep(tparams, tcfg, dataclasses.replace(
+                                   traffic_cli.selftest_sweep_spec(),
+                                   n_requests=TRAFFIC_REQUESTS),
                                mix=traffic_cli.selftest_mix(vocab),
                                server_kwargs=dict(device="cpu"))
     differ = {v: _diff_paths(json.loads(json.dumps(r)), json.loads(json.dumps(report)))
@@ -4346,6 +4396,219 @@ def phase_families(fa, card):
 
 
 # ---------------------------------------------------------------------------
+# phase 4g: the head widths of GPT-3 2.7B, GPT-3 Large and Gemma 2B
+# ---------------------------------------------------------------------------
+
+# Train steps at the widths of public models whose head widths the kernels
+# have instances for beyond 16..128, each at full width and cut to 2 layers
+# (name: model, batch, the model's keywords). GPT-3's are the GPT-2
+# architecture of the JAX `gpt2` family at Brown et al. 2020, Table 2.1's
+# widths (n_ctx 2048); Gemma 2B's is Gemma Team 2024, Table 1 (d_model
+# 2048, 8 heads, 1 KV head, head size 256, FFN 16384, vocabulary 256000,
+# context 8192) with rope, rmsnorm and tied embeddings; its gated MLP is the
+# JAX package's SwiGLU where Gemma's is GeGLU.
+HEAD_WIDTH_STEPS = {
+    "gpt3_2p7b_width": ("GPT-3 2.7B widths (d_model 2560, 32 heads, d_head 80), 2 layers",
+                        4, dict(n_layer=2, n_head=32, n_embd=2560, vocab_size=50257,
+                                block_size=2048)),
+    "gpt3_large_width": ("GPT-3 Large widths (d_model 1536, 16 heads, d_head 96), 2 layers",
+                         8, dict(n_layer=2, n_head=16, n_embd=1536, vocab_size=50257,
+                                 block_size=2048)),
+    "gemma_2b_width": ("Gemma 2B widths (d_model 2048, 8 heads over 1 KV head, head size 256, "
+                       "FFN 16384, V 256000), 2 layers; SwiGLU where Gemma has GeGLU",
+                       1, dict(n_layer=2, n_head=8, n_kv_head=1, n_embd=2048,
+                               vocab_size=256000, block_size=8192, ffn_mult=8.0, rope=True,
+                               rmsnorm=True, swiglu=True, tie_weights=True)),
+}
+HEAD_WIDTH_STEP_COUNT = 3
+# The plain versions of the kernel checks run over KV groups where one
+# group's float32 scores (B x H / groups x T x T) keep them within memory;
+# Gemma's single KV head is one group (8 x 8192^2 floats, 2.1 GB)
+HEAD_WIDTH_PLAIN_GROUPS = {"gpt3_2p7b_width": 4, "gpt3_large_width": 4, "gemma_2b_width": 1}
+# The first loss against the same weights' loss through plain attention,
+# relative: moe_train_step's bound (the Mistral-7B-width step holds none)
+HEAD_WIDTH_LOSS_REL_TOL = MOE_PLAIN_LOSS_REL_TOL
+
+
+def head_width_case(name):
+    """The kernel case (name, B, T, H, KV, hd, window, softcap) a
+    HEAD_WIDTH_STEPS model gives the attention kernels."""
+    _, batch, kw = HEAD_WIDTH_STEPS[name]
+    hd = kw["n_embd"] // kw["n_head"]
+    return (name, batch, kw["block_size"], kw["n_head"], kw.get("n_kv_head", kw["n_head"]),
+            hd, None, None)
+
+
+def phase_head_widths(fa, card):
+    """For each of HEAD_WIDTH_STEPS: K1, the prep pass and K2a/K2b (and K2c
+    at hd 256) against their plain versions at the step's attention shape
+    (bf16, outside the counts); the first loss against the same weights'
+    loss through plain attention; then HEAD_WIDTH_STEP_COUNT split steps of
+    make_train_step (exp_families.setup: bf16, random weights, the batch its
+    own targets), each with its ms, MFU by the JAX formula, launches (2 of
+    K1, prep, K2a and K2b) and peak memory over the setup; at hd 256 one
+    more step with FLASH_FUSED_BWD=1 (2 K1, prep and K2c). Returns the
+    launches of each model's first split step and of the fused step."""
+    from mingpt_distributed_tpu_torch.models import gpt
+    from mingpt_distributed_tpu_torch.tools import exp_families as ef
+    from mingpt_distributed_tpu_torch.training.metrics import flops_per_token
+
+    i0 = len(KERNEL_CASES) + len(FWD_RING_CASES) + len(BWD_RING_CASES) + 16
+    launches, fails = {}, []
+    for j, (name, (model, batch, kw)) in enumerate(HEAD_WIDTH_STEPS.items()):
+        case = head_width_case(name)
+        check_attention_kernels(fa, i0 + j, case, card, HEAD_WIDTH_PLAIN_GROUPS[name])
+        if case[5] == 256:
+            with preserved_counts():
+                rec, kfails = fused_case(fa, i0 + j, case, torch.bfloat16)
+            emit({**rec, "card": card})
+            check(not kfails, "; ".join(msg for _, msg in kfails))
+        torch.cuda.empty_cache()
+
+        t = kw["block_size"]
+        tokens = np.random.default_rng(23 + j).integers(0, kw["vocab_size"], (batch, t))
+        per_step = expected(**{k: kw["n_layer"] for k in FAMILY_KERNELS})
+        base = torch.cuda.memory_allocated()  # what earlier phases still hold
+        with fused_switch(False):
+            cfg, step, state, xy = ef.setup(kw, device="cuda", tokens=tokens)
+            with torch.no_grad():
+                _, plain_loss = gpt.forward(state.params, xy[0], dataclasses.replace(
+                    cfg, attention="einsum"), targets=xy[1], return_logits=False)
+            plain_loss = plain_loss.item()
+            torch.cuda.empty_cache()
+            steps, losses = [], []
+            for s in range(HEAD_WIDTH_STEP_COUNT):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+                t0 = time.perf_counter()
+                m = step(state, xy)
+                losses.append(m["loss"].item())
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                counts = read_counts()
+                steps.append({"step": s + 1, "ms": dt * 1e3,
+                              "mfu": flops_per_token(cfg, t) * batch * t / dt
+                              / PEAK_FLOPS[torch.bfloat16],
+                              "launches": {k: v for k, v in counts.items() if v},
+                              "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+                              "peak_over_setup_bytes": torch.cuda.max_memory_allocated() - base,
+                              "loss": losses[-1]})
+                if counts != per_step:
+                    fails.append(f"{name} step {s + 1}: launches {counts}, want {per_step}")
+        launches[name] = steps[0]["launches"]
+        rel = abs(losses[0] - plain_loss) / abs(plain_loss)
+        rec = {"phase": "head_width_step", "name": name, "model": model,
+               "n_layer": cfg.n_layer, "n_embd": cfg.n_embd, "n_head": cfg.n_head,
+               "n_kv_head": cfg.kv_heads, "head_dim": cfg.head_dim, "ffn": int(cfg.ffn_mult
+                                                                                * cfg.n_embd),
+               "vocab_size": cfg.vocab_size, "seq": t, "batch": batch, "dtype": cfg.dtype,
+               "params": gpt.param_count(state.params),
+               "allocated_before_setup_bytes": base,
+               "launches_want_per_step": {k: v for k, v in per_step.items() if v},
+               "steps": steps, "losses": losses, "grad_norm": m["grad_norm"].item(),
+               "plain_attention_loss": plain_loss, "plain_loss_rel_err": rel,
+               "plain_loss_tol": HEAD_WIDTH_LOSS_REL_TOL, "card": card}
+        if not rel <= HEAD_WIDTH_LOSS_REL_TOL:
+            fails.append(f"{name}: first loss {losses[0]} against plain attention's "
+                         f"{plain_loss} (relative {rel})")
+        if cfg.head_dim == 256:
+            want = expected(flash_fwd=cfg.n_layer, flash_bwd_prep=cfg.n_layer,
+                            flash_bwd_fused=cfg.n_layer)
+            with fused_switch(True):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts()
+                t0 = time.perf_counter()
+                m = step(state, xy)
+                loss = m["loss"].item()
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                counts = read_counts()
+            launches[f"{name}_fused"] = {k: v for k, v in counts.items() if v}
+            rec["fused_step"] = {"ms": dt * 1e3, "mfu": flops_per_token(cfg, t) * batch * t
+                                 / dt / PEAK_FLOPS[torch.bfloat16],
+                                 "launches": launches[f"{name}_fused"], "loss": loss,
+                                 "peak_over_setup_bytes":
+                                     torch.cuda.max_memory_allocated() - base}
+            if counts != want:
+                fails.append(f"{name} fused step: launches {counts}, want {want}")
+            if not math.isfinite(loss):
+                fails.append(f"{name} fused step: non-finite loss {loss}")
+        emit(rec)
+        del state, xy, step, m
+        torch.cuda.empty_cache()
+        check(not fails, "; ".join(fails))
+        ef.check_losses(name, losses)
+    return launches
+
+
+def phase_head_width_times(fa, card):
+    """K1, the prep pass, K2a, K2b, K2c, K3, K4a and K4b at each
+    HEAD_WIDTH_STEPS model's attention shape, bf16, causal (K3 and K4 as the
+    ring's own block): kernel, plain version (over
+    HEAD_WIDTH_PLAIN_GROUPS) and SDPA times with their bounds (time lines,
+    shape_of the model's name; SDPA takes K and V repeated to the query
+    heads; where it refuses a shape its time is null, with the reason).
+    Returns the time rows by (model, kernel)."""
+    dtype = torch.bfloat16
+    rows = {}
+    for name in HEAD_WIDTH_STEPS:
+        _, b, t, h, kv, hd, _, _ = head_width_case(name)
+        groups = HEAD_WIDTH_PLAIN_GROUPS[name]
+        scale = 1.0 / math.sqrt(hd)
+        q, k, v = make_qkv(b, t, h, kv, hd, dtype, seed=920)
+        g = torch.Generator(device="cuda").manual_seed(921)
+        do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
+        kw = dict(scale=scale, causal=True)
+        with preserved_counts(), fused_switch(False):
+            out, lse = fa.flash_fwd(q, k, v, scale=scale)
+            delta = fa.flash_bwd_prep(out, do)
+            dq_acc = torch.zeros(q.shape, dtype=torch.float32, device="cuda")
+            fwd_ms = cuda_ms(lambda: fa.flash_fwd(q, k, v, scale=scale))
+            prep_ms = cuda_ms(lambda: fa.flash_bwd_prep(out, do))
+            dq_ms = cuda_ms(lambda: fa.flash_bwd_dq(q, k, v, do, lse, delta, scale=scale))
+            dkv_ms = cuda_ms(lambda: fa.flash_bwd_dkv(q, k, v, do, lse, delta, scale=scale))
+            fused_ms = cuda_ms(lambda: fa.flash_bwd_dqkv(q, k, v, do, lse, delta, dq_acc,
+                                                         scale=scale))
+            lse_fwd_ms = cuda_ms(lambda: fa.flash_lse_fwd(q, k, v, **kw))
+            lse_dq_ms = cuda_ms(lambda: fa.flash_lse_bwd_dq(q, k, v, do, lse, delta, **kw))
+            lse_dkv_ms = cuda_ms(lambda: fa.flash_lse_bwd_dkv(q, k, v, do, lse, delta, **kw))
+        fwd_plain = cuda_ms(lambda: by_kv_groups(fa.flash_fwd_plain, groups)(
+            q, k, v, scale=scale), iters=3)
+        prep_plain = cuda_ms(lambda: fa.flash_bwd_prep_plain(out, do), iters=3)
+        bwd_plain = cuda_ms(lambda: by_kv_groups(fa.flash_bwd_plain, groups)(
+            q, k, v, out, lse, do, scale=scale), iters=3)
+        kr, vr = (x.repeat_interleave(h // kv, dim=2) for x in (k, v))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, kr, vr))
+        lib = {}
+        for what, fn in (("fwd", lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                          is_causal=True)),
+                         ("bwd", sdpa_backward(q, kr, vr, do))):
+            try:
+                lib[what] = (cuda_ms(fn), f"SDPA {'forward' if what == 'fwd' else 'backward'}")
+            except RuntimeError as e:  # a yardstick only: the port never calls it
+                lib[what] = (None, f"SDPA refused this shape: {str(e)[:120]}")
+        bwd_is = "flash_bwd_plain (dq, dk and dv)"
+        got = emit_times((("flash_fwd", fwd_ms, fwd_plain, "flash_fwd_plain", *lib["fwd"]),
+                          ("flash_bwd_prep", prep_ms, prep_plain,
+                           "flash_bwd_prep_plain (delta)", None,
+                           "none: no one PyTorch call sums out * dO in float32"),
+                          ("flash_bwd_dq", dq_ms, bwd_plain, bwd_is, *lib["bwd"]),
+                          ("flash_bwd_dkv", dkv_ms, bwd_plain, bwd_is, *lib["bwd"]),
+                          ("flash_bwd_fused", fused_ms, bwd_plain, bwd_is, *lib["bwd"]),
+                          ("flash_lse_fwd", lse_fwd_ms, fwd_plain, "flash_fwd_plain",
+                           *lib["fwd"]),
+                          ("flash_lse_bwd_dq", lse_dq_ms, bwd_plain, bwd_is, *lib["bwd"]),
+                          ("flash_lse_bwd_dkv", lse_dkv_ms, bwd_plain, bwd_is, *lib["bwd"])),
+                         (b, t, h, kv, hd), dtype, name, card)
+        rows.update({(name, k): r for k, r in got.items()})
+        del q, k, v, do, out, lse, delta, dq_acc, kr, vr, qt, kt, vt
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
 # phase 4b: sequence parallel, 4 ranks sharing the card over gloo
 # ---------------------------------------------------------------------------
 
@@ -4905,6 +5168,10 @@ def phase_sp(card):
 AUTOSCALE_SPEC = ("auto:metric=queue_depth:target=2.0:comfort=0.5:interval_s=0.05"
                   ":cooldown_s=0.5:up_after=1:down_after=20:min_replicas=1:max_replicas=2")
 AUTOSCALE_BURST = 16
+# serve's first 24 requests (the burst, then 8 paced): a cut of serve's 32
+# for the smoke's time; the scale-up rides the burst, the scale-down the
+# drain after the last
+AUTOSCALE_REQUESTS = 24
 AUTOSCALE_PACE_ROUNDS = 3   # router rounds between the later arrivals
 AUTOSCALE_DRAIN_WAIT_S = 30.0
 
@@ -4929,8 +5196,9 @@ def phase_autoscale(params32, card, tmp, procfleet_rec, fleet_rec):
     """The SLO autoscaler on a process fleet at GPT-2 124M width, bf16: one
     worker x 4 slots built like serve's server, one warm standby, the
     controller ``AUTOSCALE_SPEC`` (1..2 replicas) with its log on disk, the
-    backfill on a thread (the fleet runs on the wall clock). serve's traffic: a burst
-    of 16 requests, then one every 3 router rounds. Checks: a replicas/up row
+    backfill on a thread (the fleet runs on the wall clock). serve's first
+    AUTOSCALE_REQUESTS requests: a burst of 16, then one every 3 router
+    rounds. Checks: a replicas/up row
     whose reason reads path=standby, a replicas/down after the traffic whose
     worker exits 75 and gives the card its memory back (PROC_MEM_MARGIN),
     every request's 64 tokens streamed once (no token lost or repeated), the
@@ -4941,7 +5209,7 @@ def phase_autoscale(params32, card, tmp, procfleet_rec, fleet_rec):
     from mingpt_distributed_tpu_torch.control import SLOAutoscaler, parse_controller_spec
 
     cfg = gpt2_config("flash", "bfloat16")
-    reqs, lengths, sampled = serve_traffic(32, cfg.vocab_size)
+    reqs, lengths, sampled = serve_traffic(AUTOSCALE_REQUESTS, cfg.vocab_size)
     spec = worker_spec(cfg, n_slots=4, prefill_chunk=256, prefix_cache_mb=256, warmup=True)
     t_build = time.perf_counter()
     supervisor, router, streamed, spawns = proc_fleet(
@@ -4961,11 +5229,19 @@ def phase_autoscale(params32, card, tmp, procfleet_rec, fleet_rec):
         return out
 
     def retire(rep):
+        # the backfill spawns the next standby on a thread: a spawn still
+        # placing its weights or warming up while the card's free memory is
+        # read takes its growth off what the retired worker gives back, so
+        # the reading waits for the backfill to end
+        t_join = time.perf_counter()
+        supervisor.standby_pool.join()
+        backfill_wait_s = time.perf_counter() - t_join
         torch.cuda.synchronize()
         free0, pid = torch.cuda.mem_get_info()[0], rep.backend.pid
         info = real_retire(rep)
         retired.append({"name": rep.name, "pid": pid, "free_before": free0,
-                        "exit": info.get("exit_code"), "at": time.perf_counter()})
+                        "exit": info.get("exit_code"), "at": time.perf_counter(),
+                        "backfill_wait_s": backfill_wait_s})
         return info
 
     controller._scale_up, supervisor.retire_replica = scale_up, retire
@@ -6777,7 +7053,7 @@ def phase_pp(card, ranks):
             seconds)
 
 
-# The time this slice's phases (the families, trace_summary) may take
+# The time this slice's phases (head_widths and its times) may take
 # together, and the whole smoke, in seconds of the command (a run is
 # allowed 1200 s; recent runs read 747.2-1163.6 s by host). The earlier
 # slices' phases are reported beside.
@@ -7139,11 +7415,12 @@ def exp_sass(card):
           f"exp_exp2 SASS: {len(counts)} kernels, {counts}")
 
 
-# The bf16 forward's instantiations: 4 head widths x (K1, K3, K5 fwd)
-FWD_BF16_KERNELS = 12
-# The bf16 backward's TMA + wgmma instantiations, by template: 4 head widths
-# x (K2a, K4a, K5 dq) and (K2b, K4b, K5 dkv, K2c)
-BWD_BF16_KERNELS = {"flash_dq_bf16_kernel": 12, "flash_dkv_bf16_kernel": 16}
+# The bf16 forward's instantiations: 7 head widths (16, 32, 64, 80, 96, 128,
+# 256) x (K1, K3) and the prototype tool's 4 (16 to 128) x K5 fwd
+FWD_BF16_KERNELS = 2 * 7 + 4
+# The bf16 backward's TMA + wgmma instantiations, by template: 7 head widths
+# x (K2a, K4a) and 4 x K5 dq; 7 x (K2b, K4b, K2c) and 4 x K5 dkv
+BWD_BF16_KERNELS = {"flash_dq_bf16_kernel": 2 * 7 + 4, "flash_dkv_bf16_kernel": 3 * 7 + 4}
 
 
 def _opcode_total(c, prefix):
@@ -7235,13 +7512,16 @@ def ptxas_rows(log):
 
 def fwd_ptxas(log):
     """ptxas's resources per flash_fwd kernel (ptxas_rows); the bf16
-    kernels' dynamic shared memory is Tiles<HD>::kSmem of flash_fwd.cu (Q,
-    two stages of K and V, six barriers, 1024 bytes of alignment slack)."""
+    kernels' dynamic shared memory is Tiles<HD>::kSmem of flash_fwd.cu (Q of
+    128 rows, two stages of K and V of 128 keys, 64 at hd 256, six
+    barriers, 1024 bytes of alignment slack)."""
     rows = ptxas_rows(log)
     for r in rows:
         hd = re.search(r"ILi(\d+)E", r["kernel"])
         if "flash_fwd_bf16_kernel" in r["kernel"] and hd:
-            r["dynamic_smem_bytes"] = 1280 * int(hd.group(1)) + 8 * 6 + 1024
+            hd = int(hd.group(1))
+            keys = 64 if hd > 128 else 128
+            r["dynamic_smem_bytes"] = 256 * hd + 8 * keys * hd + 8 * 6 + 1024
         emit({"phase": "fwd_ptxas", **r})
     return rows
 
@@ -7253,29 +7533,40 @@ def _dkv_fused(kernel):
     return bool(m and m.group(1) == "1")
 
 
+def box_cols(hd):
+    """flash_common.cuh's box_cols: the columns of one TMA box of a bf16
+    head (64, or 32 or 16 where hd is no multiple of 64)."""
+    return 64 if hd % 64 == 0 else 32 if hd % 32 == 0 else 16
+
+
 def bwd_dynamic_smem(kernel):
     """The dynamic shared memory flash_bwd.cu's launch gives ``kernel`` (a
     mangled name), or None: DqTiles<HD>::kSmem (Q and dO of 128 rows, two
-    stages of 64-key K and V tiles), DkvTiles<HD, kFused>::kSmem (K and V of
-    128 keys, two stages of 64-row Q and dO tiles with their lse and delta;
-    K2c also each consumer warpgroup's 64 x 64 bf16 dS^T tile and the dq
+    stages of K and V tiles of 64 keys, 32 at hd 256),
+    DkvTiles<HD, kFused>::kSmem (K and V of 128 keys, 64 at hd 256, two
+    stages of 64-row Q and dO tiles with their lse and delta; K2c also each
+    consumer warpgroup's 64 x 64 bf16 dS^T tile and, below hd 256, the dq
     exchange: 2 warpgroups x 2 parities x 128 threads x a float4 for each
-    of min(hd, 64) / 16 column groups), each with six barriers and 1024
-    bytes of alignment slack; the fp32 kernels' padded tiles; the prep
-    kernel none."""
+    of box_cols(hd) / 16 column groups), each with six barriers and 1024
+    bytes of alignment slack; the fp32 kernels' padded tiles of 64 rows (32
+    at hd 256); the prep kernel none."""
     m = re.search(r"ILi(\d+)E", kernel)
     if not m:
         return None
     hd = int(m.group(1))
     if "flash_dq_bf16_kernel" in kernel:
-        return 1024 * hd + 8 * 6 + 1024
+        keys = 32 if hd > 128 else 64
+        return 512 * hd + 8 * keys * hd + 8 * 6 + 1024
     if "flash_dkv_bf16_kernel" in kernel:
-        ds = 2 * 64 * 64 * 2 + 2 * 2 * 128 * 16 * min(hd, 64) // 16 if _dkv_fused(kernel) else 0
-        return 1024 * hd + 2 * 2 * 64 * 4 + ds + 8 * 6 + 1024
+        keys = 64 if hd > 128 else 128
+        exchange = 0 if hd > 128 else 2 * 2 * 128 * 16 * box_cols(hd) // 16
+        ds = 2 * 64 * 64 * 2 + exchange if _dkv_fused(kernel) else 0
+        return 4 * keys * hd + 512 * hd + 2 * 2 * 64 * 4 + ds + 8 * 6 + 1024
+    rows = 32 if hd > 128 else 64
     if "flash_dq_f32_kernel" in kernel:
-        return (4 * 64 * (hd + 4) + 64 * 68) * 4
+        return (4 * rows * (hd + 4) + rows * (rows + 4)) * 4
     if "flash_dkv_f32_kernel" in kernel:
-        return (4 * 64 * (hd + 4) + 2 * 64 * 68 + 2 * 64) * 4
+        return (4 * rows * (hd + 4) + 2 * rows * (rows + 4) + 2 * rows) * 4
     return None
 
 
@@ -7330,6 +7621,44 @@ def preserved_counts():
     finally:
         for name in COUNTERS:
             setattr(*_counter(name), saved[name])
+
+
+def instance_errors(name, records):
+    """``name``'s largest error at each head width its checks ran (the
+    ring cases: every instance and the padded 48 and 8), bf16 and fp32:
+    {hd: {dtype: error}}, from ``records``, each check phase's records by
+    (case name, dtype) ("fwd", "prep", "bwd", "fused", "lse")."""
+    def grads(*names):
+        return lambda rec: max(rec[f"{g}_max_abs_err"] for g in names)
+
+    fwd_cases = KERNEL_CASES + FWD_RING_CASES
+    bwd_cases = KERNEL_CASES + BWD_RING_CASES
+    lse_cases = LSE_CASES + LSE_RING_CASES + LSE_SP_TP_CASES + LSE_WIDTH_CASES
+    phase, cases, err = {
+        "flash_fwd": ("fwd", fwd_cases, lambda e: e),
+        "flash_bwd_prep": ("prep", bwd_cases, lambda r: r["delta_max_abs_err"]),
+        "flash_bwd_dq": ("bwd", bwd_cases, grads("dq")),
+        "flash_bwd_dkv": ("bwd", bwd_cases, grads("dk", "dv")),
+        "flash_bwd_fused": ("fused", bwd_cases, grads("dq", "dk", "dv")),
+        "flash_lse_fwd": ("lse", lse_cases, lambda r: r["max_abs_err"]),
+        "flash_lse_bwd_dq": ("lse", lse_cases, grads("dq")),
+        "flash_lse_bwd_dkv": ("lse", lse_cases, grads("dk", "dv")),
+    }[name]
+    out = {}
+    for case in cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            rec = records[phase].get((case[0], dtype))
+            if rec is not None:
+                slot = out.setdefault(case[5], {})
+                dt = str(dtype).replace("torch.", "")
+                slot[dt] = max(slot.get(dt, 0.0), err(rec))
+    return dict(sorted(out.items()))
+
+
+# The kernels whose line in the kernels record lists every instance's check
+# and the head-width steps' launches and times
+INSTANCE_KERNELS = ("flash_fwd", "flash_bwd_prep", "flash_bwd_dq", "flash_bwd_dkv",
+                    "flash_bwd_fused", "flash_lse_fwd", "flash_lse_bwd_dq", "flash_lse_bwd_dkv")
 
 
 #: every worker process the process-fleet phases spawned (``timed_spawns``),
@@ -7483,7 +7812,10 @@ def _main() -> int:
     seconds["moe_train_step+fused"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     family_launches = phase_families(fa, card)
-    added_seconds["families"] = time.perf_counter() - t0
+    earlier_seconds["families"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    head_width_launches = phase_head_widths(fa, card)
+    added_seconds["head_widths"] = time.perf_counter() - t0
     try:
         t0 = time.perf_counter()
         train_argv = phase_train_entry(card, tmp)
@@ -7491,7 +7823,7 @@ def _main() -> int:
         window = phase_train_telemetry(card, train_argv, tmp)
         t0 = time.perf_counter()
         phase_trace_summary(card, tmp, window)
-        added_seconds["trace_summary"] = time.perf_counter() - t0
+        earlier_seconds["trace_summary"] = time.perf_counter() - t0
         plain_texts = phase_serve_cli(card, train_argv, tmp, new_seconds)
         t0 = time.perf_counter()
         phase_serve_cli_autoscale(card, train_argv, tmp, plain_texts)
@@ -7528,6 +7860,9 @@ def _main() -> int:
     t0 = time.perf_counter()
     phase_zero_moe_times(fa, card)
     earlier_seconds["zero_moe_times"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    head_width_rows = phase_head_width_times(fa, card)
+    added_seconds["head_width_times"] = time.perf_counter() - t0
     rows.update(phase_lse_times(fa, card))
     rows.update(phase_nh_times(nh, card))
     exp_counts, rows["exp_chain"] = phase_exp_tool(ex, card)
@@ -7547,6 +7882,8 @@ def _main() -> int:
     proto = "tools/proto_nh_kernel.py"
     csrc = "mingpt_distributed_tpu_torch/ops/csrc"
     fwd_cu, bwd_cu = f"{csrc}/flash_fwd.cu", f"{csrc}/flash_bwd.cu"
+    records = {"fwd": fwd_errors, "prep": prep_errors, "bwd": bwd_errors,
+               "fused": fused_errors, "lse": lse_errors}
     line = []
     for name, source, replaces, err, launches in (
             ("flash_fwd", fwd_cu, f"{jax_fa}:677", fwd_errors[("gpt2_train", bf16)],
@@ -7580,6 +7917,15 @@ def _main() -> int:
             line[-1]["moe_sp_max_abs_err"] = moe_sp_errs[name]
         if name == "flash_bwd_prep":
             line[-1]["replaces_is"] = "jnp.sum of out * dO (delta): no pallas_call"
+        if name in INSTANCE_KERNELS:  # every instance's check, and its train shapes
+            line[-1]["instances"] = instance_errors(name, records)
+            # K2c's launches are the fused step's (at hd 256), the others' the
+            # split steps'
+            line[-1]["head_width_steps"] = {
+                model: {"launches": head_width_launches.get(
+                    f"{model}_fused" if name == "flash_bwd_fused" else model, {}).get(name, 0),
+                        **head_width_rows[(model, name)]}
+                for model in HEAD_WIDTH_STEPS}
     check(all(k["launches"] > 0 for k in line),
           f"a kernel never ran on its path: {[k['name'] for k in line]}")
     check(all(moe_sp_counts[k] > 0 for k in MOE_SP_KERNELS),
@@ -7603,6 +7949,7 @@ def _main() -> int:
           "serve_telemetry": serve_telemetry, "serve_moe_parity": serve_moe_parity,
           "serve_moe": serve_moe["launches"], "moe_train_step": moe_split["launches"],
           "moe_train_step_fused": moe_fused["launches"], **family_launches,
+          **{f"head_width_{k}": v for k, v in head_width_launches.items()},
           **fleet_launches,
           "procfleet_subprocess_legs": "not counted: each worker process counts its own "
                                        "launches; the same ReplicaWorker code through a "

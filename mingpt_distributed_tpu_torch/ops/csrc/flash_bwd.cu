@@ -46,6 +46,12 @@
 // read as zeros, are never allowed, and are not stored), so any T >= 1
 // works.
 //
+// Head widths: instances at hd 16, 32, 64, 80, 96, 128 and 256 (the
+// prototype's at 16 to 128), rows in TMA boxes of box_cols(hd) columns;
+// the wrapper runs other widths from 8 to 256 zero-padded to the next
+// instance (ops/flash_attention.py). float32 tiles hold 64 rows, 32 at hd
+// 256 (F32Rows).
+//
 // Layout: q (B, T, H, hd), k/v (B, T, KV, hd), addressed through the batch,
 // time and head strides the caller passes (the last dim dense); dO, dq a
 // dense (B, T, H, hd), dk/dv a dense (B, T, KV, hd); lse and delta dense
@@ -61,12 +67,15 @@
 // ring of two stages guarded by full and empty mbarriers; two consumer
 // warpgroups of 64 rows each.
 //   dq: an item is 128 query rows of one head. Q and dO are loaded once per
-//     item; K and V come in tiles of 64 keys. S = Q K^T and dP = dO V^T by
-//     wgmma m64n64k16 from shared memory (both K-major); dS is formed in
-//     registers and is the A operand of dq += dS K (K read through the
-//     transpose bit), as P is of O += P V in the forward.
+//     item; K and V come in tiles of 64 keys (32 at hd 256, to fit 227 KB).
+//     S = Q K^T and dP = dO V^T by wgmma m64n64k16 (m64n32k16) from shared
+//     memory (both K-major); dS is formed in registers and is the A operand
+//     of dq += dS K (K read through the transpose bit), as P is of O += P V
+//     in the forward.
 //   dk/dv: an item is 128 keys of one KV head (the first, heaviest, k tiles
-//     first). K and V are loaded once per item; the ring carries (query head
+//     first), 64 per consumer warpgroup; at hd 256, 64 keys that both
+//     warpgroups share, each with half of dK's and dV's columns (DkvTiles).
+//     K and V are loaded once per item; the ring carries (query head
 //     of the GQA group, q tile) pairs of 64-row Q and dO tiles, with their
 //     lse and delta, which the producer's second warp stores beside them.
 //     S^T = K Q^T and dP^T = V dO^T by wgmma m64n64k16; P^T and dS^T are
@@ -91,14 +100,16 @@
 // have live keys they sum their partials through shared memory (each hands
 // the other half of the chunk's columns, one named barrier over both) and
 // each adds its half to a float32 dq buffer in device memory by float2
-// atomic adds (red.global): every element once per (Q/dO tile, item) cell.
-// The TPU kernel keeps the whole head's dq in VMEM across its k-tile sweep
-// (`dq_all_scr`); T * hd * 4 bytes (256 KB at T=1024, hd=64) does not fit
-// in shared memory, and the items of one q tile's keys run on other SMs in
-// no order. K and V are released after the last tile's dq product, not
-// after its S and dP as in dk/dv: dq reads K. flash_bwd_prep zeroes the
-// buffer and the caller casts it to q's dtype. The order of the atomic
-// sums is not fixed, so a float32 dq is reproducible only to a few ulps.
+// atomic adds (red.global): every element once per (Q/dO tile, item) cell;
+// at hd 256 each warpgroup holds all 64 keys of the cell and adds its own
+// half of the columns, with no exchange. The TPU kernel keeps the whole
+// head's dq in VMEM across its k-tile sweep (`dq_all_scr`); T * hd * 4
+// bytes (256 KB at T=1024, hd=64) does not fit in shared memory, and the
+// items of one q tile's keys run on other SMs in no order. K and V are
+// released after the last tile's dq product, not after its S and dP as in
+// dk/dv: dq reads K. flash_bwd_prep zeroes the buffer and the caller casts
+// it to q's dtype. The order of the atomic sums is not fixed, so a float32
+// dq is reproducible only to a few ulps.
 //
 // float32 inputs take float32 FMAs from shared memory (four threads per
 // row; one block per tile), because TF32 would not hold the float32
@@ -233,21 +244,30 @@ __device__ __forceinline__ long long row_index(const Params& p, int b,
 // float32: FMA path
 // ---------------------------------------------------------------------------
 
-constexpr int kFmaThreads = 256;  // four threads per row
+// Rows of each float32 q and k tile, four threads a row: 64, and 32 at hd
+// 256, where four 64-row tiles of 260 floats (266 KB) would not fit in a
+// block's shared memory.
+template <int HD>
+struct F32Rows {
+  static constexpr int kR = HD > 128 ? 32 : 64;
+  static constexpr int kThreads = 4 * kR;
+};
 
 template <int HD, bool kLse, bool kNat>
-__global__ void __launch_bounds__(kFmaThreads) flash_dq_f32_kernel(Params p) {
+__global__ void __launch_bounds__(F32Rows<HD>::kThreads) flash_dq_f32_kernel(Params p) {
+  constexpr int kR = F32Rows<HD>::kR;
+  constexpr int kThreads = F32Rows<HD>::kThreads;
   constexpr int kLd = HD + 4;
-  constexpr int kLdp = kBK + 4;
+  constexpr int kLdp = kR + 4;
   constexpr int kGroups = HD / 16;  // float4 column groups per thread
   extern __shared__ __align__(16) float smem_f32[];
   float* qs = smem_f32;
-  float* dos = qs + kBQ * kLd;
-  float* ks = dos + kBQ * kLd;
-  float* vs = ks + kBK * kLd;
-  float* dss = vs + kBK * kLd;
+  float* dos = qs + kR * kLd;
+  float* ks = dos + kR * kLd;
+  float* vs = ks + kR * kLd;
+  float* dss = vs + kR * kLd;
 
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kR;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (p.H / p.KV);
@@ -260,9 +280,9 @@ __global__ void __launch_bounds__(kFmaThreads) flash_dq_f32_kernel(Params p) {
   const float* v = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
   const float* dout =
       static_cast<const float*>(p.dout) + row_index(p, b, 0, p.H, h) * HD;
-  load_tile_f32<HD, kFmaThreads>(qs, q, p.q_st, q0, p.T);
-  load_tile_f32<HD, kFmaThreads>(dos, dout, static_cast<long long>(p.H) * HD,
-                                 q0, p.T);
+  load_tile_f32<HD, kR, kThreads>(qs, q, p.q_st, q0, p.T);
+  load_tile_f32<HD, kR, kThreads>(dos, dout, static_cast<long long>(p.H) * HD,
+                                  q0, p.T);
   const long long vec = (static_cast<long long>(b) * p.H + h) * p.T + q_pos;
   const float lse2 = q_pos < p.T ? to_base<kNat>(p.lse[vec]) : 0.f;
   const float delta = q_pos < p.T ? p.delta[vec] : 0.f;
@@ -274,24 +294,24 @@ __global__ void __launch_bounds__(kFmaThreads) flash_dq_f32_kernel(Params p) {
   }
 
   int kt_lo, kt_hi;
-  kv_tile_range<kLse, kBQ, kBK>(p, q0, &kt_lo, &kt_hi);
+  kv_tile_range<kLse, kR, kR>(p, q0, &kt_lo, &kt_hi);
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
-    const int k0 = kt * kBK;
+    const int k0 = kt * kR;
     __syncthreads();  // the previous tile's k/v reads are done
-    load_tile_f32<HD, kFmaThreads>(ks, k, p.k_st, k0, p.T);
-    load_tile_f32<HD, kFmaThreads>(vs, v, p.v_st, k0, p.T);
+    load_tile_f32<HD, kR, kThreads>(ks, k, p.k_st, k0, p.T);
+    load_tile_f32<HD, kR, kThreads>(vs, v, p.v_st, k0, p.T);
     __syncthreads();
 
-    // scores and dO.V of keys k0 + sub + 4j, j = 0..15
-    float s[16], dp[16];
+    // scores and dO.V of keys k0 + sub + 4j, j < kR / 4
+    float s[kR / 4], dp[kR / 4];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) s[j] = dp[j] = 0.f;
+    for (int j = 0; j < kR / 4; ++j) s[j] = dp[j] = 0.f;
 #pragma unroll 2
     for (int d = 0; d < HD; d += 4) {
       const float4 qv = *reinterpret_cast<const float4*>(&qs[row * kLd + d]);
       const float4 ov = *reinterpret_cast<const float4*>(&dos[row * kLd + d]);
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < kR / 4; ++j) {
         const int r = (sub + 4 * j) * kLd + d;
         const float4 kv = *reinterpret_cast<const float4*>(&ks[r]);
         const float4 vv = *reinterpret_cast<const float4*>(&vs[r]);
@@ -306,7 +326,7 @@ __global__ void __launch_bounds__(kFmaThreads) flash_dq_f32_kernel(Params p) {
       }
     }
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < kR / 4; ++j) {
       float dfac;
       const float s2 = score<kNat>(p, s[j], &dfac);
       dss[row * kLdp + sub + 4 * j] =
@@ -319,7 +339,7 @@ __global__ void __launch_bounds__(kFmaThreads) flash_dq_f32_kernel(Params p) {
 
     // dq += dS K over this tile; this thread owns column groups sub + 4g
 #pragma unroll 2
-    for (int c = 0; c < kBK; c += 4) {
+    for (int c = 0; c < kR; c += 4) {
       const float4 d4 = *reinterpret_cast<const float4*>(&dss[row * kLdp + c]);
       const float dr[4] = {d4.x, d4.y, d4.z, d4.w};
 #pragma unroll
@@ -350,21 +370,23 @@ __global__ void __launch_bounds__(kFmaThreads) flash_dq_f32_kernel(Params p) {
 }
 
 template <int HD, bool kLse, bool kNat, bool kFused>
-__global__ void __launch_bounds__(kFmaThreads) flash_dkv_f32_kernel(Params p) {
+__global__ void __launch_bounds__(F32Rows<HD>::kThreads) flash_dkv_f32_kernel(Params p) {
+  constexpr int kR = F32Rows<HD>::kR;
+  constexpr int kThreads = F32Rows<HD>::kThreads;
   constexpr int kLd = HD + 4;
-  constexpr int kLdp = kBQ + 4;
+  constexpr int kLdp = kR + 4;
   constexpr int kGroups = HD / 16;
   extern __shared__ __align__(16) float smem_f32[];
   float* ks = smem_f32;
-  float* vs = ks + kBK * kLd;
-  float* qs = vs + kBK * kLd;
-  float* dos = qs + kBQ * kLd;
-  float* ps = dos + kBQ * kLd;
-  float* dss = ps + kBK * kLdp;
-  float* lse_s = dss + kBK * kLdp;
-  float* delta_s = lse_s + kBQ;
+  float* vs = ks + kR * kLd;
+  float* qs = vs + kR * kLd;
+  float* dos = qs + kR * kLd;
+  float* ps = dos + kR * kLd;
+  float* dss = ps + kR * kLdp;
+  float* lse_s = dss + kR * kLdp;
+  float* delta_s = lse_s + kR;
 
-  const int k0 = blockIdx.x * kBK;  // the first k tiles have the most work
+  const int k0 = blockIdx.x * kR;  // the first k tiles have the most work
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
   const int rep = p.H / p.KV;
@@ -372,10 +394,10 @@ __global__ void __launch_bounds__(kFmaThreads) flash_dkv_f32_kernel(Params p) {
   const int sub = threadIdx.x & 3;
   const int k_pos = k0 + row;
 
-  load_tile_f32<HD, kFmaThreads>(
+  load_tile_f32<HD, kR, kThreads>(
       ks, static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh, p.k_st,
       k0, p.T);
-  load_tile_f32<HD, kFmaThreads>(
+  load_tile_f32<HD, kR, kThreads>(
       vs, static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh, p.v_st,
       k0, p.T);
 
@@ -387,7 +409,7 @@ __global__ void __launch_bounds__(kFmaThreads) flash_dkv_f32_kernel(Params p) {
   }
 
   int qt_lo, qt_hi;
-  q_tile_range<kLse, kBK, kBQ>(p, k0, &qt_lo, &qt_hi);
+  q_tile_range<kLse, kR, kR>(p, k0, &qt_lo, &qt_hi);
   for (int hh = 0; hh < rep; ++hh) {
     const int h = kvh * rep + hh;
     const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
@@ -395,28 +417,28 @@ __global__ void __launch_bounds__(kFmaThreads) flash_dkv_f32_kernel(Params p) {
         static_cast<const float*>(p.dout) + row_index(p, b, 0, p.H, h) * HD;
     const long long vec0 = (static_cast<long long>(b) * p.H + h) * p.T;
     for (int qt = qt_lo; qt <= qt_hi; ++qt) {
-      const int q0 = qt * kBQ;
+      const int q0 = qt * kR;
       __syncthreads();  // the previous tile's q/dO reads are done
-      load_tile_f32<HD, kFmaThreads>(qs, q, p.q_st, q0, p.T);
-      load_tile_f32<HD, kFmaThreads>(dos, dout,
-                                     static_cast<long long>(p.H) * HD, q0, p.T);
-      for (int i = threadIdx.x; i < kBQ; i += kFmaThreads) {
+      load_tile_f32<HD, kR, kThreads>(qs, q, p.q_st, q0, p.T);
+      load_tile_f32<HD, kR, kThreads>(dos, dout,
+                                      static_cast<long long>(p.H) * HD, q0, p.T);
+      for (int i = threadIdx.x; i < kR; i += kThreads) {
         const bool in = q0 + i < p.T;
         lse_s[i] = in ? to_base<kNat>(p.lse[vec0 + q0 + i]) : 0.f;
         delta_s[i] = in ? p.delta[vec0 + q0 + i] : 0.f;
       }
       __syncthreads();
 
-      // S^T and (dO V^T)^T of queries q0 + sub + 4j, j = 0..15
-      float s[16], dp[16];
+      // S^T and (dO V^T)^T of queries q0 + sub + 4j, j < kR / 4
+      float s[kR / 4], dp[kR / 4];
 #pragma unroll
-      for (int j = 0; j < 16; ++j) s[j] = dp[j] = 0.f;
+      for (int j = 0; j < kR / 4; ++j) s[j] = dp[j] = 0.f;
 #pragma unroll 2
       for (int d = 0; d < HD; d += 4) {
         const float4 kv = *reinterpret_cast<const float4*>(&ks[row * kLd + d]);
         const float4 vv = *reinterpret_cast<const float4*>(&vs[row * kLd + d]);
 #pragma unroll
-        for (int j = 0; j < 16; ++j) {
+        for (int j = 0; j < kR / 4; ++j) {
           const int r = (sub + 4 * j) * kLd + d;
           const float4 qv = *reinterpret_cast<const float4*>(&qs[r]);
           const float4 ov = *reinterpret_cast<const float4*>(&dos[r]);
@@ -431,7 +453,7 @@ __global__ void __launch_bounds__(kFmaThreads) flash_dkv_f32_kernel(Params p) {
         }
       }
 #pragma unroll
-      for (int j = 0; j < 16; ++j) {
+      for (int j = 0; j < kR / 4; ++j) {
         const int qc = sub + 4 * j;
         float dfac;
         const float s2 = score<kNat>(p, s[j], &dfac);
@@ -444,7 +466,7 @@ __global__ void __launch_bounds__(kFmaThreads) flash_dkv_f32_kernel(Params p) {
 
       // dv += P^T dO, dk += dS^T Q over this q tile
 #pragma unroll 2
-      for (int c = 0; c < kBQ; c += 4) {
+      for (int c = 0; c < kR; c += 4) {
         const float4 p4 = *reinterpret_cast<const float4*>(&ps[row * kLdp + c]);
         const float4 d4 =
             *reinterpret_cast<const float4*>(&dss[row * kLdp + c]);
@@ -482,7 +504,7 @@ __global__ void __launch_bounds__(kFmaThreads) flash_dkv_f32_kernel(Params p) {
           dqa[g][0] = dqa[g][1] = dqa[g][2] = dqa[g][3] = 0.f;
         }
 #pragma unroll 4
-        for (int c = 0; c < kBK; ++c) {
+        for (int c = 0; c < kR; ++c) {
           const float d = dss[c * kLdp + row];
           const float* krow = &ks[c * kLd];
 #pragma unroll
@@ -535,18 +557,16 @@ constexpr int kConsumers = 256;  // consumer threads: each releases a stage
 constexpr int kWgRows = 64;      // rows of one consumer warpgroup's products
 constexpr int kStages = 2;       // tiles in a ring
 constexpr int kDqRows = 128;     // dq: query rows per work item
-constexpr int kDqKeys = 64;      // dq: keys per K/V tile
-constexpr int kDkvKeys = 128;    // dk/dv: keys per work item
 constexpr int kDkvRows = 64;     // dk/dv: query rows per Q/dO tile
-static_assert(kDqKeys == 64 && kDkvRows == 64,
-              "S and dP (or their transposes) are wgmma m64n64k16 products");
+static_assert(kDkvRows == 64, "S^T and dP^T are wgmma m64n64k16 products");
 
-// A head's rows in shared memory: HD columns as boxes of at most 64 (128
-// bytes), each a (rows x kRowBytes) tile of its own, swizzled to the row's
-// bytes as TMA writes and wgmma reads them.
+// A head's rows in shared memory: HD columns as boxes of box_cols(HD)
+// columns (64, or 32 or 16 where HD is no multiple of 64), each a (rows x
+// kRowBytes) tile of its own, swizzled to the row's bytes as TMA writes and
+// wgmma reads them.
 template <int HD>
 struct HeadRows {
-  static constexpr int kBoxCols = HD < 64 ? HD : 64;
+  static constexpr int kBoxCols = box_cols(HD);
   static constexpr int kBoxes = HD / kBoxCols;
   static constexpr int kRowBytes = kBoxCols * 2;
   static constexpr int kLayout = hopper::Swizzle<kRowBytes>::kLayout;
@@ -556,12 +576,14 @@ struct HeadRows {
 // Shared-memory layouts (byte offsets; every tile 1024-aligned, as the
 // 128-byte swizzle repeats every 1024 bytes). dq: Q and dO of the item, two
 // stages of K and V, then the barriers (Q full and empty, full[] and
-// empty[] of the ring).
+// empty[] of the ring). K/V tiles hold 64 keys, 32 at hd 256: there Q and
+// dO take 128 KB, and two stages of 64-key K and V would take 128 KB more.
 template <int HD>
 struct DqTiles : HeadRows<HD> {
   using R = HeadRows<HD>;
+  static constexpr int kKeys = HD > 128 ? 32 : 64;      // keys per K/V tile
   static constexpr int kQBox = kDqRows * R::kRowBytes;  // a box of Q (or dO)
-  static constexpr int kKBox = kDqKeys * R::kRowBytes;  // a box of K (or V)
+  static constexpr int kKBox = kKeys * R::kRowBytes;    // a box of K (or V)
   static constexpr int kQTile = kQBox * R::kBoxes;
   static constexpr int kKTile = kKBox * R::kBoxes;
   static constexpr int kQ = 0;
@@ -577,11 +599,20 @@ struct DqTiles : HeadRows<HD> {
 // rows of 128 bytes, 128-byte swizzled) and the dq exchange (per
 // warpgroup and parity, a float4 per thread for each of its half chunk's
 // 8-column groups), then the barriers (K/V full and empty, full[] and
-// empty[] of the ring).
+// empty[] of the ring). An item is 128 keys, 64 per warpgroup, except at
+// hd 256 (kSplit): there a warpgroup's dK and dV (64 keys x 256 columns in
+// float32 each) would take 256 registers a thread, and K, V and two stages
+// of Q and dO 256 KB, so an item is 64 keys that both warpgroups share, each
+// accumulating half of dK's and dV's columns (128 registers), in 192 KB;
+// each computes the tile's S^T and dP^T itself, and under kFused its half
+// of dq's columns, so no exchange is needed.
 template <int HD, bool kFused>
 struct DkvTiles : HeadRows<HD> {
   using R = HeadRows<HD>;
-  static constexpr int kKBox = kDkvKeys * R::kRowBytes;
+  static constexpr bool kSplit = HD > 128;
+  static constexpr int kKeys = kSplit ? 64 : 128;     // keys per work item
+  static constexpr int kCols = kSplit ? HD / 2 : HD;  // dK/dV columns per warpgroup
+  static constexpr int kKBox = kKeys * R::kRowBytes;
   static constexpr int kQBox = kDkvRows * R::kRowBytes;
   static constexpr int kKTile = kKBox * R::kBoxes;
   static constexpr int kQTile = kQBox * R::kBoxes;
@@ -592,10 +623,10 @@ struct DkvTiles : HeadRows<HD> {
   static constexpr int kVec = kDO + kStages * kQTile;  // lse then delta, per stage
   static constexpr int kDsTile = kWgRows * kDkvRows * 2;
   static constexpr int kDs = kVec + kStages * 2 * kDkvRows * 4;
-  static constexpr int kDqN = HD < 64 ? HD : 64;  // dq's column chunk
+  static constexpr int kDqN = R::kBoxCols;  // dq's column chunk: one box (<= 32 registers)
   static constexpr int kX = kDs + (kFused ? 2 * kDsTile : 0);
   // warpgroups x parities x half chunk's column groups x threads x float4
-  static constexpr int kXBytes = 2 * 2 * (kDqN / 16) * 128 * 16;
+  static constexpr int kXBytes = kSplit ? 0 : 2 * 2 * (kDqN / 16) * 128 * 16;
   static constexpr int kBars = kX + (kFused ? kXBytes : 0);
   static constexpr int kSmem = kBars + 8 * (2 + 2 * kStages) + 1024;
 };
@@ -628,6 +659,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                          const __grid_constant__ CUtensorMap tdo,
                          const Params p) {
   using L = DqTiles<HD>;
+  constexpr int kDqKeys = L::kKeys;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t sbase = (hopper::smem_addr(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar_q = sbase + L::kBars;
@@ -747,10 +779,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           for (int kk = 0; kk < HD / 16; ++kk) {
             const uint32_t at = (kk * 16 / L::kBoxCols) * L::kQBox + (kk * 16 % L::kBoxCols) * 2;
             const uint32_t bt = (kk * 16 / L::kBoxCols) * L::kKBox + (kk * 16 % L::kBoxCols) * 2;
-            hopper::wgmma_m64n64k16_ss(
+            hopper::wgmma_ss<kDqKeys>(
                 s, hopper::smem_desc(q_tile + at, 16, L::kSbo, L::kLayout),
                 hopper::smem_desc(k_tile + bt, 16, L::kSbo, L::kLayout), kk > 0);
-            hopper::wgmma_m64n64k16_ss(
+            hopper::wgmma_ss<kDqKeys>(
                 dp, hopper::smem_desc(do_tile + at, 16, L::kSbo, L::kLayout),
                 hopper::smem_desc(v_tile + bt, 16, L::kSbo, L::kLayout), kk > 0);
           }
@@ -839,6 +871,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                           const __grid_constant__ CUtensorMap tdo,
                           const Params p) {
   using L = DkvTiles<HD, kFused>;
+  constexpr bool kSplit = L::kSplit;
+  constexpr int kDkvKeys = L::kKeys;
+  constexpr int kCols = L::kCols;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = hopper::smem_addr(smem_raw);
   const uint32_t sbase = (raw + 1023u) & ~1023u;
@@ -848,9 +883,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
   const uint32_t bar_full = bar_kv + 16;              // + 8 s
   const uint32_t bar_empty = bar_full + 8 * kStages;  // + 8 s
 
-  // Work items (k tile, KV head, batch), the k tile fastest: the first k
-  // tiles have the most work. Each walks, for every query head of its GQA
-  // group, the q tiles of its band.
+  // Work items (k tile of kDkvKeys keys, KV head, batch), the k tile
+  // fastest: the first k tiles have the most work. Each walks, for every
+  // query head of its GQA group, the q tiles of its band.
   const int rep = p.H / p.KV;
   const int n_k = (p.T + kDkvKeys - 1) / kDkvKeys;
   const int n_items = n_k * p.KV * p.B;
@@ -953,8 +988,12 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     const int warp = (threadIdx.x / 32) & 3;
     const int g = (threadIdx.x & 31) >> 2;
     const int t4 = threadIdx.x & 3;
-    const uint32_t k_tile = sbase + L::kK + cw * kWgRows * L::kRowBytes;
-    const uint32_t v_tile = sbase + L::kV + cw * kWgRows * L::kRowBytes;
+    // this warpgroup's keys (its half of the item's, or kSplit all of
+    // them) and, kSplit, its half of the columns from col0 (whole boxes)
+    const uint32_t k_tile = sbase + L::kK + (kSplit ? 0 : cw * kWgRows * L::kRowBytes);
+    const uint32_t v_tile = sbase + L::kV + (kSplit ? 0 : cw * kWgRows * L::kRowBytes);
+    const int col0 = kSplit ? cw * kCols : 0;
+    const uint32_t col_box = col0 / L::kBoxCols;
     // kFused: this warpgroup's dS^T tile, its 32-bit words as stored; the
     // dq exchange and its parity (flipped at every exchange, alike in both
     // warpgroups)
@@ -967,11 +1006,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     for (int w = blockIdx.x; w < n_items; w += gridDim.x) {
       int k0, kvh, b, qt_lo;
       const int n_tiles = item(w, &k0, &kvh, &b, &qt_lo);
-      const int kc0 = k0 + kWgRows * cw;  // the warpgroup's first key
+      const int kc0 = k0 + (kSplit ? 0 : kWgRows * cw);  // the warpgroup's first key
       const int key[2] = {kc0 + 16 * warp + g, kc0 + 16 * warp + g + 8};
-      float dk[HD / 2], dv[HD / 2];
+      float dk[kCols / 2], dv[kCols / 2];
 #pragma unroll
-      for (int j = 0; j < HD / 2; ++j) dk[j] = dv[j] = 0.f;
+      for (int j = 0; j < kCols / 2; ++j) dk[j] = dv[j] = 0.f;
 
       if (n_tiles > 0) hopper::mbar_wait(bar_kv, kv_phase);
       for (int hh = 0; hh < rep; ++hh) {
@@ -1034,8 +1073,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
               }
             }
 
-            // dV += P^T dO and dK += dS^T Q, 16 queries a step, P^T and dS^T
-            // rounded to bf16; dO and Q read N-major
+            // dV += P^T dO and dK += dS^T Q over this warpgroup's columns,
+            // 16 queries a step, P^T and dS^T rounded to bf16; dO and Q read
+            // N-major
             uint32_t pa[kDkvRows / 4], da[kDkvRows / 4];
 #pragma unroll
             for (int j = 0; j < kDkvRows / 4; ++j) {
@@ -1057,14 +1097,13 @@ __global__ void __launch_bounds__(kWgThreads, 1)
             hopper::wgmma_fence();
 #pragma unroll
             for (int c = 0; c < kDkvRows / 16; ++c) {
-              hopper::wgmma_rs_tb<HD>(
+              const uint32_t at = col_box * L::kQBox + c * 16 * L::kRowBytes;
+              hopper::wgmma_rs_tb<kCols>(
                   dv, pa[4 * c], pa[4 * c + 1], pa[4 * c + 2], pa[4 * c + 3],
-                  hopper::smem_desc(do_st + c * 16 * L::kRowBytes, L::kQBox, L::kSbo,
-                                    L::kLayout));
-              hopper::wgmma_rs_tb<HD>(
+                  hopper::smem_desc(do_st + at, L::kQBox, L::kSbo, L::kLayout));
+              hopper::wgmma_rs_tb<kCols>(
                   dk, da[4 * c], da[4 * c + 1], da[4 * c + 2], da[4 * c + 3],
-                  hopper::smem_desc(q_st + c * 16 * L::kRowBytes, L::kQBox, L::kSbo,
-                                    L::kLayout));
+                  hopper::smem_desc(q_st + at, L::kQBox, L::kSbo, L::kLayout));
             }
             hopper::wgmma_commit();
             if constexpr (kFused) {
@@ -1077,15 +1116,18 @@ __global__ void __launch_bounds__(kWgThreads, 1)
               // the other the half of the chunk's columns that the other
               // adds to the float32 dq in device memory, so each element
               // is added once per cell; else the live one adds them all.
+              // kSplit: both hold the same 64 keys, and each adds its own
+              // half of the columns (chunks from col0), with no exchange.
               constexpr int kDqN = L::kDqN;
               constexpr int kHalf = kDqN / 16;  // 8-column groups per half chunk
               hopper::named_bar_sync(1 + cw, 128);
               const bool pair =
+                  !kSplit &&
                   tile_class<kLse>(p, q0, kDkvRows, k0 + kWgRows * (1 - cw), kWgRows) != kNone;
               const int dq_row[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
               float* const dq_head = static_cast<float*>(p.dq) + (kvh * rep + hh) * HD;
 #pragma unroll
-              for (int n = 0; n < HD / kDqN; ++n) {
+              for (int n = col0 / kDqN; n < (col0 + kCols) / kDqN; ++n) {
                 float dq[kDqN / 2];
                 hopper::wgmma_fence();
 #pragma unroll
@@ -1161,11 +1203,11 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         if (key[r] >= p.T) continue;
-        const long long o = row_index(p, b, key[r], p.KV, kvh) * HD;
+        const long long o = row_index(p, b, key[r], p.KV, kvh) * HD + col0;
         __nv_bfloat16* dko = static_cast<__nv_bfloat16*>(p.dk) + o;
         __nv_bfloat16* dvo = static_cast<__nv_bfloat16*>(p.dv) + o;
 #pragma unroll
-        for (int c = 0; c < HD / 8; ++c) {
+        for (int c = 0; c < kCols / 8; ++c) {
           *reinterpret_cast<uint32_t*>(dko + 8 * c + 2 * t4) =
               pack_bf16(dk[4 * c + 2 * r], dk[4 * c + 2 * r + 1]);
           *reinterpret_cast<uint32_t*>(dvo + 8 * c + 2 * t4) =
@@ -1209,19 +1251,31 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* x, float (&f)[8]) {
   }
 }
 
-// Each row (b, t, h) of hd = 8 kG elements is read by kG neighbouring
-// threads, 8 elements (16 or 32 bytes) each, summed in float32 and across
-// the group by shuffles; the group's first thread writes delta[b, h, t]
-// (minus dlse). With dq, each thread zeroes the dq elements it read.
+// Each row (b, t, h) of hd = 8 kG elements (kG = 2 to 32 vectors of 8) is
+// read by a group of kL neighbouring threads (kG rounded up to a power of
+// two: 16 at hd 80 and 96), its first kG threads 8 elements (16 or 32
+// bytes) each, summed in float32 and across the group by shuffles; the
+// group's first thread writes delta[b, h, t] (minus dlse). With dq, each
+// thread zeroes the dq elements it read.
+__host__ __device__ constexpr int prep_lanes(int g) {
+  return g <= 2 ? 2 : g <= 4 ? 4 : g <= 8 ? 8 : g <= 16 ? 16 : 32;
+}
+
 template <typename Elem, int kG>
 __global__ void __launch_bounds__(kPrepThreads) flash_bwd_prep_kernel(PrepParams p) {
-  const long long total = static_cast<long long>(p.B) * p.T * p.H * kG;
-  const int sub = threadIdx.x % kG;
+  constexpr int kL = prep_lanes(kG);
+  static_assert(kG <= 32, "a row's group fits in a warp");
+  const long long rows = static_cast<long long>(p.B) * p.T * p.H;
+  const long long total = rows * kL;  // thread slots
+  const int sub = threadIdx.x % kL;
   for (long long base = static_cast<long long>(blockIdx.x) * kPrepThreads; base < total;
        base += static_cast<long long>(gridDim.x) * kPrepThreads) {
-    const long long v = base + threadIdx.x;  // element offset 8 v
+    const long long slot = base + threadIdx.x;
+    const long long row = slot / kL;  // (b * T + t) * H + h
+    const bool live = row < rows && sub < kG;
+    const long long v = row * kG + sub;  // element offset 8 v
     float acc = 0.f;
-    if (v < total) {
+    if (live) {
       float o[8], d[8];
       load8(static_cast<const Elem*>(p.out) + 8 * v, o);
       load8(static_cast<const Elem*>(p.dout) + 8 * v, d);
@@ -1233,9 +1287,8 @@ __global__ void __launch_bounds__(kPrepThreads) flash_bwd_prep_kernel(PrepParams
       }
     }
 #pragma unroll
-    for (int s = kG / 2; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
-    if (v < total && sub == 0) {
-      const long long row = v / kG;  // (b * T + t) * H + h
+    for (int s = kL / 2; s > 0; s >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, s);
+    if (row < rows && sub == 0) {
       const long long h = row % p.H;
       const long long bt = row / p.H;
       const long long o = (bt / p.T * p.H + h) * p.T + bt % p.T;
@@ -1244,33 +1297,44 @@ __global__ void __launch_bounds__(kPrepThreads) flash_bwd_prep_kernel(PrepParams
   }
 }
 
-template <typename Elem>
-cudaError_t launch_prep(const PrepParams& p, int hd, cudaStream_t stream) {
-  const long long total = static_cast<long long>(p.B) * p.T * p.H * (hd / 8);
+template <typename Elem, int kG>
+cudaError_t launch_prep_g(const PrepParams& p, cudaStream_t stream) {
+  const long long total = static_cast<long long>(p.B) * p.T * p.H * prep_lanes(kG);
   const int blocks = static_cast<int>(
       std::min<long long>((total + kPrepThreads - 1) / kPrepThreads, 1 << 16));
-  switch (hd) {
-    case 16: flash_bwd_prep_kernel<Elem, 2><<<blocks, kPrepThreads, 0, stream>>>(p); break;
-    case 32: flash_bwd_prep_kernel<Elem, 4><<<blocks, kPrepThreads, 0, stream>>>(p); break;
-    case 64: flash_bwd_prep_kernel<Elem, 8><<<blocks, kPrepThreads, 0, stream>>>(p); break;
-    case 128: flash_bwd_prep_kernel<Elem, 16><<<blocks, kPrepThreads, 0, stream>>>(p); break;
-    default: return cudaErrorInvalidValue;
-  }
+  flash_bwd_prep_kernel<Elem, kG><<<blocks, kPrepThreads, 0, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename Elem>
+cudaError_t launch_prep(const PrepParams& p, int hd, cudaStream_t stream) {
+  switch (hd) {
+    case 16: return launch_prep_g<Elem, 2>(p, stream);
+    case 32: return launch_prep_g<Elem, 4>(p, stream);
+    case 64: return launch_prep_g<Elem, 8>(p, stream);
+    case 80: return launch_prep_g<Elem, 10>(p, stream);
+    case 96: return launch_prep_g<Elem, 12>(p, stream);
+    case 128: return launch_prep_g<Elem, 16>(p, stream);
+    case 256: return launch_prep_g<Elem, 32>(p, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, const Params& p, int heads, int threads,
-                   int smem, cudaStream_t stream) {
+// One block of F32Rows<HD>::kThreads threads per tile of F32Rows<HD>::kR
+// rows, head and batch.
+template <int HD, typename Kernel>
+cudaError_t launch_f32(Kernel kernel, const Params& p, int heads, int smem,
+                       cudaStream_t stream) {
+  using R = F32Rows<HD>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((p.T + kBQ - 1) / kBQ, heads, p.B);
-  kernel<<<grid, threads, smem, stream>>>(p);
+  const dim3 grid((p.T + R::kR - 1) / R::kR, heads, p.B);
+  kernel<<<grid, R::kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -1317,32 +1381,31 @@ cudaError_t launch_wg(Kernel kernel, const Params& p, int q_rows, int k_rows,
 template <int HD, bool kLse, bool kNat>
 cudaError_t launch_dq(const Params& p, int dtype, cudaStream_t stream) {
   if (dtype == 0) {
+    constexpr int kR = F32Rows<HD>::kR;
     const int smem = static_cast<int>(
-        (2 * kBQ * (HD + 4) + 2 * kBK * (HD + 4) + kBQ * (kBK + 4)) *
-        sizeof(float));
-    return launch(flash_dq_f32_kernel<HD, kLse, kNat>, p, p.H, kFmaThreads,
-                  smem, stream);
+        (4 * kR * (HD + 4) + kR * (kR + 4)) * sizeof(float));
+    return launch_f32<HD>(flash_dq_f32_kernel<HD, kLse, kNat>, p, p.H, smem, stream);
   }
+  using L = DqTiles<HD>;
   const int n_q = (p.T + kDqRows - 1) / kDqRows;
-  return launch_wg<HD>(flash_dq_bf16_kernel<HD, kLse, kNat>, p, kDqRows, kDqKeys,
-                       DqTiles<HD>::kSmem, n_q, n_q * p.H * p.B, stream);
+  return launch_wg<HD>(flash_dq_bf16_kernel<HD, kLse, kNat>, p, kDqRows, L::kKeys,
+                       L::kSmem, n_q, n_q * p.H * p.B, stream);
 }
 
 template <int HD, bool kLse, bool kNat, bool kFused>
 cudaError_t launch_dkv(const Params& p, int dtype, cudaStream_t stream) {
   if (dtype == 0) {
+    constexpr int kR = F32Rows<HD>::kR;
     const int smem = static_cast<int>(
-        (2 * kBK * (HD + 4) + 2 * kBQ * (HD + 4) + 2 * kBK * (kBQ + 4) +
-         2 * kBQ) *
-        sizeof(float));
-    return launch(flash_dkv_f32_kernel<HD, kLse, kNat, kFused>, p, p.KV,
-                  kFmaThreads, smem, stream);
+        (4 * kR * (HD + 4) + 2 * kR * (kR + 4) + 2 * kR) * sizeof(float));
+    return launch_f32<HD>(flash_dkv_f32_kernel<HD, kLse, kNat, kFused>, p, p.KV, smem,
+                          stream);
   }
   static_assert(!kFused || (!kLse && !kNat), "K2c runs the plain causal band in base 2");
-  const int n_k = (p.T + kDkvKeys - 1) / kDkvKeys;
+  using L = DkvTiles<HD, kFused>;
+  const int n_k = (p.T + L::kKeys - 1) / L::kKeys;
   return launch_wg<HD>(flash_dkv_bf16_kernel<HD, kLse, kNat, kFused>, p, kDkvRows,
-                       kDkvKeys, DkvTiles<HD, kFused>::kSmem, n_k, n_k * p.KV * p.B,
-                       stream);
+                       L::kKeys, L::kSmem, n_k, n_k * p.KV * p.B, stream);
 }
 
 Params make_params(const void* q, const void* k, const void* v,
@@ -1381,6 +1444,8 @@ Params make_params(const void* q, const void* k, const void* v,
   return p;
 }
 
+// hd 16, 32, 64, 80, 96, 128 or 256; the per-head-grid prototype (kNat)
+// keeps its tool's widths, 16 to 128.
 template <bool kLse, bool kNat>
 int run_dq(Params p, void* dq, int hd, int dtype, void* stream) {
   p.dq = dq;
@@ -1391,6 +1456,13 @@ int run_dq(Params p, void* dq, int hd, int dtype, void* stream) {
     case 32: return static_cast<int>(launch_dq<32, kLse, kNat>(p, dtype, s));
     case 64: return static_cast<int>(launch_dq<64, kLse, kNat>(p, dtype, s));
     case 128: return static_cast<int>(launch_dq<128, kLse, kNat>(p, dtype, s));
+  }
+  if constexpr (!kNat) {
+    switch (hd) {
+      case 80: return static_cast<int>(launch_dq<80, kLse, kNat>(p, dtype, s));
+      case 96: return static_cast<int>(launch_dq<96, kLse, kNat>(p, dtype, s));
+      case 256: return static_cast<int>(launch_dq<256, kLse, kNat>(p, dtype, s));
+    }
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -1414,13 +1486,24 @@ int run_dkv(Params p, void* dq, void* dk, void* dv, int hd, int dtype,
     case 128:
       return static_cast<int>(launch_dkv<128, kLse, kNat, kFused>(p, dtype, s));
   }
+  if constexpr (!kNat) {
+    switch (hd) {
+      case 80:
+        return static_cast<int>(launch_dkv<80, kLse, kNat, kFused>(p, dtype, s));
+      case 96:
+        return static_cast<int>(launch_dkv<96, kLse, kNat, kFused>(p, dtype, s));
+      case 256:
+        return static_cast<int>(launch_dkv<256, kLse, kNat, kFused>(p, dtype, s));
+    }
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (rows 16-byte aligned). hd: 16, 32, 64
-// or 128. Each returns a cudaError_t (0 = success).
+// dtype: 0 = float32, 1 = bfloat16 (rows 16-byte aligned). hd: 16, 32, 64,
+// 80, 96, 128 or 256 (nh_bwd_*: 16 to 128). Each returns a cudaError_t (0 =
+// success).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dq, int B, int T, int H,

@@ -15,6 +15,17 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kInvLog2e = 0.6931471805599453f;
 
+// The columns of one TMA box of a bf16 head of HD columns, which fix its
+// rows' swizzle (32, 64 or 128 bytes): 64 where HD is a multiple of 64, else
+// 32 or 16, so hd 80 is five boxes of 16 and hd 96 three of 32. One width
+// for every box of a tile keeps one swizzle, and lets one wgmma of N = HD
+// read every box of a transposed operand at a fixed stride (the
+// descriptor's leading byte offset); a 64-column box beside a 16- or
+// 32-column one would need two swizzles and two products per step.
+__host__ __device__ constexpr int box_cols(int hd) {
+  return hd % 64 == 0 ? 64 : hd % 32 == 0 ? 32 : 16;
+}
+
 // The softmax's base, fixed at compile time: base 2 with log2(e) folded into
 // the scores and the lse (the TPU kernels' choice, exp2f), or with kNat the
 // natural base (the per-head-grid prototype's jnp.exp), exponentiated by the
@@ -46,14 +57,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Stage rows [row0, row0 + 64) of one head into shared memory (row stride
-// HD + 4 floats); rows at or past T are zero.
-template <int HD, int kThreads>
+// Stage rows [row0, row0 + kRows) of one head into shared memory (row
+// stride HD + 4 floats); rows at or past T are zero.
+template <int HD, int kRows, int kThreads>
 __device__ __forceinline__ void load_tile_f32(float* dst, const float* base,
                                               long long st, int row0,
                                               int t_len) {
   constexpr int kLd = HD + 4;
-  for (int e = threadIdx.x; e < kBK * HD; e += kThreads) {
+  for (int e = threadIdx.x; e < kRows * HD; e += kThreads) {
     const int r = e / HD;
     const int c = e % HD;
     const int row = row0 + r;

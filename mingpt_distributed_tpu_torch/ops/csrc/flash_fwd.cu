@@ -58,24 +58,29 @@
 // the next item's loads run under this item's epilogue). One producer
 // warpgroup (its registers given to the consumers by setmaxnreg) has one
 // thread issue TMA loads: an item's Q tile once, then each 128-key K and V
-// tile into a ring of two stages guarded by full and empty mbarriers. Two
-// consumer
-// warpgroups of 64 query rows each compute S = Q K^T by wgmma m64n128k16
-// from shared memory (both K-major), the online softmax in registers, and
-// O += P V by wgmma with P from registers (rounded to bf16, as the TPU
-// kernel does; l sums the fp32 P) and V from shared memory through the
-// transpose bit; then release the stage. Two warpgroups, not three: with
+// tile (64 keys at hd 256) into a ring of two stages guarded by full and
+// empty mbarriers. Two consumer warpgroups of 64 query rows each compute
+// S = Q K^T by wgmma m64n128k16 (m64n64k16 at hd 256) from shared memory
+// (both K-major), the online softmax in registers, and O += P V by wgmma
+// with P from registers (rounded to bf16, as the TPU kernel does; l sums
+// the fp32 P) and V from shared memory through the transpose bit; then
+// release the stage. Two warpgroups, not three: with
 // 128 keys per tile a consumer holds S (64 floats), O (up to 64 at hd 128)
 // and P (32 registers); three would leave 160 registers a thread and spill
 // at hd 128. While one warpgroup runs its softmax the other's products keep
 // the tensor cores busy. Masks are applied only to tiles that need them
 // (the diagonal, the window's edge, the tail, an offset band), decided per
 // tile and warpgroup; the interior tiles run no mask. Tensor maps describe
-// q, k and v as (hd, heads, T, B) with the caller's strides, swizzled to the
-// row's bytes (32 B at hd 16, 64 at 32, 128 at 64; two 64-column boxes at
-// 128); TMA fills keys and rows past T with zeros.
+// q, k and v as (hd, heads, T, B) with the caller's strides, in boxes of
+// box_cols(hd) columns swizzled to their bytes (32 B at hd 16, 64 at 32,
+// 128 at 64; two 64-column boxes at 128, four at 256; five 16-column boxes
+// at 80, three of 32 at 96); TMA fills keys and rows past T with zeros. At
+// hd 256 a consumer holds O (128 floats), S and P of a 64-key tile (32 and
+// 16 registers). Other widths from 8 to 256 reach these kernels zero-padded
+// to the next instance by the wrapper (ops/flash_attention.py).
 // float32 inputs take float32 FMAs from shared memory (four threads per
-// query row), because TF32 would not hold the float32 tolerance.
+// query row; 217 KB of tiles at hd 256), because TF32 would not hold the
+// float32 tolerance.
 //
 // What bounds it on the H100: the bf16 work is memory-bound at the card's
 // rates (GPT-2 shapes: ~25 MB moved against ~6.4 GFLOP, 7.6 us at
@@ -209,7 +214,7 @@ __global__ void __launch_bounds__(kFmaThreads) flash_fwd_f32_kernel(Params p) {
   const float* q = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* k = static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
   const float* v = static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  load_tile_f32<HD, kFmaThreads>(qs, q, p.q_st, q0, p.T);
+  load_tile_f32<HD, kBQ, kFmaThreads>(qs, q, p.q_st, q0, p.T);
 
   float m = kNegInf;
   float l = 0.f;
@@ -224,8 +229,8 @@ __global__ void __launch_bounds__(kFmaThreads) flash_fwd_f32_kernel(Params p) {
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's k/v reads are done
-    load_tile_f32<HD, kFmaThreads>(ks, k, p.k_st, k0, p.T);
-    load_tile_f32<HD, kFmaThreads>(vs, v, p.v_st, k0, p.T);
+    load_tile_f32<HD, kBK, kFmaThreads>(ks, k, p.k_st, k0, p.T);
+    load_tile_f32<HD, kBK, kFmaThreads>(vs, v, p.v_st, k0, p.T);
     __syncthreads();
 
     // scores of keys k0 + sub + 4j, j = 0..15
@@ -329,22 +334,25 @@ __global__ void __launch_bounds__(kFmaThreads) flash_fwd_f32_kernel(Params p) {
 
 constexpr int kWgQ = 128;        // query rows per work item: two warpgroups
 constexpr int kWgRows = 64;      // query rows per consumer warpgroup
-constexpr int kWgK = 128;        // keys per k/v tile
 constexpr int kWgThreads = 384;  // the producer warpgroup, two consumers
 constexpr int kConsumers = 256;  // consumer threads: each releases a stage
 
 // Shared-memory layout of one block (byte offsets; every tile 1024-aligned,
-// as the 128-byte swizzle repeats every 1024 bytes). A head of 128 columns
-// is two boxes of 64, each a (rows x 128 B) tile of its own.
+// as the 128-byte swizzle repeats every 1024 bytes). A head is boxes of
+// box_cols(HD) columns, each a (rows x kRowBytes) tile of its own: hd 128
+// two boxes of 64, hd 80 five of 16. K/V tiles hold 128 keys, 64 at hd 256:
+// there Q (64 KB) and two stages of 128-key K and V (256 KB) would exceed
+// the 227 KB a block may use, and the 64-key plan takes 192 KB.
 template <int HD>
 struct Tiles {
   static constexpr int kStages = 2;  // k/v tiles in the ring
-  static constexpr int kBoxCols = HD < 64 ? HD : 64;
+  static constexpr int kKeys = HD > 128 ? 64 : 128;  // keys per k/v tile
+  static constexpr int kBoxCols = box_cols(HD);
   static constexpr int kBoxes = HD / kBoxCols;
   static constexpr int kRowBytes = kBoxCols * 2;
   static constexpr int kLayout = hopper::Swizzle<kRowBytes>::kLayout;
   static constexpr int kQBox = kWgQ * kRowBytes;
-  static constexpr int kKBox = kWgK * kRowBytes;
+  static constexpr int kKBox = kKeys * kRowBytes;
   static constexpr int kKVBytes = kKBox * kBoxes;  // one K (or V) tile
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kQBox * kBoxes;
@@ -355,13 +363,13 @@ struct Tiles {
 };
 
 // Whether every (row, key) pair of a warpgroup's rows from r0 and the
-// k tile from k0 is visible: then the tile needs no mask for them.
-template <bool kLse>
+// k tile of kKeys keys from k0 is visible: then the tile needs no mask.
+template <bool kLse, int kKeys>
 __device__ __forceinline__ bool tile_unmasked(const Params& p, int r0, int k0) {
-  if (k0 + kWgK > p.T) return false;  // the tail
+  if (k0 + kKeys > p.T) return false;  // the tail
   if (kLse && !p.causal) return true;
   const int qg = kLse ? p.q_offset + r0 : r0;  // the first row on the key axis
-  return k0 + kWgK - 1 <= qg &&                // below the diagonal
+  return k0 + kKeys - 1 <= qg &&               // below the diagonal
          (p.window <= 0 || qg + kWgRows - 1 - k0 < p.window);  // the window
 }
 
@@ -372,6 +380,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                           const __grid_constant__ CUtensorMap tv,
                           const Params p) {
   using L = Tiles<HD>;
+  constexpr int kKeys = L::kKeys;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = hopper::smem_addr(smem_raw);
   const uint32_t sbase = (raw + 1023u) & ~1023u;
@@ -391,7 +400,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
     *h = (w / n_q) % p.H;
     *b = w / (n_q * p.H);
     int kt_hi;
-    kv_tile_range<kLse, kWgQ, kWgK>(p, *q0, kt_lo, &kt_hi);
+    kv_tile_range<kLse, kWgQ, kKeys>(p, *q0, kt_lo, &kt_hi);
     return max(0, kt_hi - *kt_lo + 1);  // k/v tiles
   };
 
@@ -430,7 +439,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         }
         q_phase ^= 1;
         for (int i = 0; i < n_tiles; ++i) {
-          const int k0 = (kt_lo + i) * kWgK;
+          const int k0 = (kt_lo + i) * kKeys;
           hopper::mbar_wait(bar_empty + 8 * stage, phase ^ 1);
           hopper::mbar_expect_tx(bar_full + 8 * stage, 2 * L::kKVBytes);
           for (int c = 0; c < L::kBoxes; ++c) {
@@ -471,20 +480,20 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
       if (n_tiles > 0) hopper::mbar_wait(bar_q, q_phase);
       for (int i = 0; i < n_tiles; ++i) {
-        const int k0 = (kt_lo + i) * kWgK;
+        const int k0 = (kt_lo + i) * kKeys;
         const uint32_t k_tile = sbase + L::kK + stage * L::kKVBytes;
         const uint32_t v_tile = sbase + L::kV + stage * L::kKVBytes;
         hopper::mbar_wait(bar_full + 8 * stage, phase);
 
         // S = Q K^T over the head dim, 16 columns a step; s[4j + e] is row
         // row[e / 2], key k0 + 8j + 2 t4 + e % 2
-        float s[64];
+        float s[kKeys / 2];
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk) {
-          const uint32_t box = kk * 16 / L::kBoxCols;        // which 64-column box
+          const uint32_t box = kk * 16 / L::kBoxCols;        // which box
           const uint32_t col = (kk * 16 % L::kBoxCols) * 2;  // bytes into its rows
-          hopper::wgmma_m64n128k16_ss(
+          hopper::wgmma_ss<kKeys>(
               s,
               hopper::smem_desc(q_tile + box * L::kQBox + col, 16, kSbo, L::kLayout),
               hopper::smem_desc(k_tile + box * L::kKBox + col, 16, kSbo, L::kLayout),
@@ -496,9 +505,9 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         if (i == n_tiles - 1) hopper::mbar_arrive(bar_q_empty);  // Q is read
 
         scores<kNat>(p, s);
-        if (!tile_unmasked<kLse>(p, r0, k0)) {
+        if (!tile_unmasked<kLse, kKeys>(p, r0, k0)) {
 #pragma unroll
-          for (int j = 0; j < 64; ++j) {
+          for (int j = 0; j < kKeys / 2; ++j) {
             const int key = k0 + 8 * (j >> 2) + 2 * t4 + (j & 1);
             if (!visible<kLse>(p, row[(j >> 1) & 1], key)) s[j] = -INFINITY;
           }
@@ -508,7 +517,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         for (int r = 0; r < 2; ++r) {
           float m_tile = kNegInf;
 #pragma unroll
-          for (int j = 0; j < 16; ++j) {
+          for (int j = 0; j < kKeys / 8; ++j) {
             m_tile = fmaxf(m_tile, fmaxf(s[4 * j + 2 * r], s[4 * j + 2 * r + 1]));
           }
           m_tile = fmaxf(m_tile, __shfl_xor_sync(0xffffffffu, m_tile, 1));
@@ -520,7 +529,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         }
         // P = exp(s - m): exactly 0 where masked (exp of -inf)
 #pragma unroll
-        for (int j = 0; j < 64; ++j) {
+        for (int j = 0; j < kKeys / 2; ++j) {
           const int r = (j >> 1) & 1;
           s[j] = exp_base<kNat>(s[j] - m[r]);
           l[r] += s[j];
@@ -530,12 +539,12 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 
         // O += P V, 16 keys a step: P's A fragment for keys 16c.. is the
         // score accumulators 8c..8c+7, rounded to bf16
-        uint32_t pa[32];
+        uint32_t pa[kKeys / 4];
 #pragma unroll
-        for (int j = 0; j < 32; ++j) pa[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
+        for (int j = 0; j < kKeys / 4; ++j) pa[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
         hopper::wgmma_fence();
 #pragma unroll
-        for (int c = 0; c < kWgK / 16; ++c) {
+        for (int c = 0; c < kKeys / 16; ++c) {
           hopper::wgmma_rs_tb<HD>(
               o, pa[4 * c], pa[4 * c + 1], pa[4 * c + 2], pa[4 * c + 3],
               hopper::smem_desc(v_tile + c * 16 * L::kRowBytes, L::kKBox, kSbo,
@@ -610,9 +619,9 @@ cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
   if (!hopper::make_map_bf16(&tq, p.q, HD, p.H, p.T, p.B, p.q_sh, p.q_st,
                              p.q_sb, L::kBoxCols, kWgQ, kSwizzle) ||
       !hopper::make_map_bf16(&tk, p.k, HD, p.KV, p.T, p.B, p.k_sh, p.k_st,
-                             p.k_sb, L::kBoxCols, kWgK, kSwizzle) ||
+                             p.k_sb, L::kBoxCols, L::kKeys, kSwizzle) ||
       !hopper::make_map_bf16(&tv, p.v, HD, p.KV, p.T, p.B, p.v_sh, p.v_st,
-                             p.v_sb, L::kBoxCols, kWgK, kSwizzle)) {
+                             p.v_sb, L::kBoxCols, L::kKeys, kSwizzle)) {
     return cudaErrorInvalidValue;
   }
   auto kernel = flash_fwd_bf16_kernel<HD, kLse, kNat>;
@@ -635,21 +644,28 @@ cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <int HD, bool kLse, bool kNat>
+cudaError_t launch_hd(const Params& p, int dtype, cudaStream_t s) {
+  if (dtype == 0) return launch_f32<HD, kLse, kNat>(p, s);
+  if (dtype == 1) return launch_bf16<HD, kLse, kNat>(p, s);
+  return cudaErrorInvalidValue;
+}
+
+// hd 16, 32, 64, 80, 96, 128 or 256; the per-head-grid prototype (kNat)
+// keeps its tool's widths, 16 to 128.
 template <bool kLse, bool kNat>
 cudaError_t dispatch(const Params& p, int hd, int dtype, cudaStream_t s) {
-  if (dtype == 0) {
+  switch (hd) {
+    case 16: return launch_hd<16, kLse, kNat>(p, dtype, s);
+    case 32: return launch_hd<32, kLse, kNat>(p, dtype, s);
+    case 64: return launch_hd<64, kLse, kNat>(p, dtype, s);
+    case 128: return launch_hd<128, kLse, kNat>(p, dtype, s);
+  }
+  if constexpr (!kNat) {
     switch (hd) {
-      case 16: return launch_f32<16, kLse, kNat>(p, s);
-      case 32: return launch_f32<32, kLse, kNat>(p, s);
-      case 64: return launch_f32<64, kLse, kNat>(p, s);
-      case 128: return launch_f32<128, kLse, kNat>(p, s);
-    }
-  } else if (dtype == 1) {
-    switch (hd) {
-      case 16: return launch_bf16<16, kLse, kNat>(p, s);
-      case 32: return launch_bf16<32, kLse, kNat>(p, s);
-      case 64: return launch_bf16<64, kLse, kNat>(p, s);
-      case 128: return launch_bf16<128, kLse, kNat>(p, s);
+      case 80: return launch_hd<80, kLse, kNat>(p, dtype, s);
+      case 96: return launch_hd<96, kLse, kNat>(p, dtype, s);
+      case 256: return launch_hd<256, kLse, kNat>(p, dtype, s);
     }
   }
   return cudaErrorInvalidValue;
@@ -692,8 +708,9 @@ int run(const void* q, const void* k, const void* v, void* out, void* lse,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (rows 16-byte aligned). hd: 16, 32, 64
-// or 128. Each returns a cudaError_t (0 = success).
+// dtype: 0 = float32, 1 = bfloat16 (rows 16-byte aligned). hd: 16, 32, 64,
+// 80, 96, 128 or 256 (nh_fwd: 16 to 128). Each returns a cudaError_t (0 =
+// success).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* out, void* lse, int B, int T, int H, int KV,
                          int hd, long long q_sb, long long q_st,

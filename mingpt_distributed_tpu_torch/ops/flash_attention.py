@@ -24,6 +24,19 @@ the sources for their design and what bounds them.
   ladder, lane packing, odd-head padding, layout switches, the fused
   backward's VMEM budget) has no counterpart: the kernels take any T >= 1
   and any head count.
+* Head widths: the kernels have instances at ``NATIVE_HEAD_DIMS`` (16, 32,
+  64, 80, 96, 128, 256). Any other width in ``HEAD_DIM_RANGE`` (8 to 256)
+  runs the next instance up (``head_plan``): the wrappers copy q, k, v (and
+  out, dO in the backward) zero-padded to that width, which changes no dot
+  product, softmax or lse (the scale stays the caller's 1/sqrt(true hd)),
+  and return out, dq, dk and dv at the true width (views of the padded
+  results). The copy costs one read of each input and one write of its
+  padded form, and the kernels do the instance's work: at hd 48, 2 x 48 +
+  2 x 64 bytes per bf16 row of each input beside the kernel's own, and 4/3
+  of its products. Beyond 256 the kernels raise: wgmma's N is at most 256,
+  and the JAX package's public configs need no more. Native widths are
+  read in place through the caller's strides (a q/k/v view of one qkv
+  projection is not copied).
 * ``FLASH_FUSED_BWD=1``, the JAX package's own switch, read at each call as
   ``_flash_bwd_btd`` reads it, sends ``flash_bwd`` on CUDA tensors to the
   fused kernel K2c (``flash_bwd_fused``) in place of K2a + K2b, at any T.
@@ -59,8 +72,37 @@ import torch
 from mingpt_distributed_tpu_torch.ops import _build
 from mingpt_distributed_tpu_torch.ops import attention as attn_ops
 
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+NATIVE_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
+HEAD_DIM_RANGE = (8, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def head_plan(hd: int) -> Tuple[int, int]:
+    """(instance, pad) for head width ``hd``: the kernel instance that runs
+    it (``hd`` itself where one exists, else the next of
+    ``NATIVE_HEAD_DIMS`` up) and the zero columns the wrappers append to
+    reach it. Raises ValueError outside ``HEAD_DIM_RANGE``."""
+    lo, hi = HEAD_DIM_RANGE
+    if not lo <= hd <= hi:
+        raise ValueError(f"head_dim {hd} is outside the flash kernels' range {lo}..{hi} "
+                         "(wgmma's N is at most 256)")
+    inst = next(n for n in NATIVE_HEAD_DIMS if n >= hd)
+    return inst, inst - hd
+
+
+def _padded(pad: int, *xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Each of ``xs`` with ``pad`` zero columns appended to its last (head)
+    axis, as a dense copy; the tensors themselves when ``pad`` is 0."""
+    if pad == 0:
+        return xs
+    return tuple(torch.nn.functional.pad(x, (0, pad)) for x in xs)
+
+
+def _true_width(pad: int, *xs: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Each of ``xs`` without its last ``pad`` columns (views)."""
+    if pad == 0:
+        return xs
+    return tuple(x[..., :x.shape[-1] - pad] for x in xs)
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -273,10 +315,14 @@ def _check_cuda_inputs(q, k, v, name: str) -> None:
     if k.shape[0] != b or k.shape[1] != t or k.shape[3] != hd or h % k.shape[2]:
         raise ValueError(f"{name}: k/v {tuple(k.shape)} do not fit q "
                          f"{tuple(q.shape)}")
-    if hd not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"{name}: head_dim {hd} not in {SUPPORTED_HEAD_DIMS}")
+    try:
+        _, pad = head_plan(hd)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
     if t < 1:
         raise ValueError(f"{name}: empty sequence")
+    if pad:
+        return  # the wrapper reads a dense, aligned zero-padded copy
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError(f"{name} needs a dense last (head_dim) axis")
     if q.dtype == torch.bfloat16 and not all(
@@ -311,6 +357,8 @@ def _launch_fwd(fn_name, q, k, v, scale, window, softcap, lse_opts=None):
     if q.device.type != "cuda":
         raise ValueError(f"{fn_name} runs on cuda or cpu tensors, not {q.device}")
     _check_cuda_inputs(q, k, v, fn_name)
+    _, pad = head_plan(q.shape[3])
+    q, k, v = _padded(pad, q, k, v)
     b, t, h, hd = q.shape
     lib = _kernel("flash_fwd")
     out = torch.empty((b, t, h, hd), dtype=q.dtype, device=q.device)
@@ -324,7 +372,7 @@ def _launch_fwd(fn_name, q, k, v, scale, window, softcap, lse_opts=None):
         )
     if rc != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed: CUDA error {rc}")
-    return out, lse
+    return (*_true_width(pad, out), lse)
 
 
 def flash_lse_fwd(
@@ -382,16 +430,20 @@ def fused_bwd_enabled() -> bool:
 
 
 def _bwd_inputs(name, q, k, v, out, lse, do, dlse=None, dq=None):
-    """Checked CUDA inputs of a backward wrapper: (dO dense with 16-byte
+    """Checked CUDA inputs of a backward wrapper at the kernel instance's
+    width (``head_plan``: q, k, v, out and dO zero-padded where the true
+    width has no instance of its own): (pad, q, k, v, dO dense with 16-byte
     rows, lse dense, delta = rowsum(out * dO) - dlse (B, H, T) float32 from
-    ``flash_bwd_prep``, which also zeroes ``dq``, a float32 buffer of K2c's,
-    where one is given)."""
+    ``flash_bwd_prep``, which also zeroes ``dq``, a float32 buffer of K2c's
+    at the instance's width, where one is given)."""
     if q.device.type != "cuda":
         raise ValueError(f"{name} runs on cuda or cpu tensors, not {q.device}")
     _check_cuda_inputs(q, k, v, name)
     _check_bwd_inputs(q, out, lse, do)
+    _, pad = head_plan(q.shape[3])
+    q, k, v, out, do = _padded(pad, q, k, v, out, do)
     do = _dense(do)
-    return do, lse.contiguous(), flash_bwd_prep(out, do, dlse, dq=dq)
+    return pad, q, k, v, do, lse.contiguous(), flash_bwd_prep(out, do, dlse, dq=dq)
 
 
 def _check_prep_inputs(out, do, dlse, dq) -> None:
@@ -402,8 +454,13 @@ def _check_prep_inputs(out, do, dlse, dq) -> None:
                          f"and dtype (float32 or bfloat16), got {tuple(out.shape)} "
                          f"{out.dtype}, {tuple(do.shape)} {do.dtype}")
     b, t, h, hd = out.shape
-    if hd not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"flash_bwd_prep: head_dim {hd} not in {SUPPORTED_HEAD_DIMS}")
+    try:
+        _, pad = head_plan(hd)
+    except ValueError as e:
+        raise ValueError(f"flash_bwd_prep: {e}") from None
+    if dq is not None and pad:
+        raise ValueError(f"flash_bwd_prep zeroes K2c's dq at a kernel instance's width "
+                         f"{NATIVE_HEAD_DIMS}, not at head_dim {hd}")
     if dlse is not None and (dlse.shape != (b, h, t) or dlse.device != out.device):
         raise ValueError(f"dlse {tuple(dlse.shape)} does not match lse {(b, h, t)}")
     if dq is not None and (dq.dtype != torch.float32 or dq.shape != out.shape
@@ -420,10 +477,13 @@ def flash_bwd_prep(out: torch.Tensor, do: torch.Tensor,
     """The prep kernel's wrapper: delta = rowsum(out * dO) - dlse (B, H, T)
     float32 from out and dO (B, T, H, hd) of one dtype, with the lse
     cotangent ``dlse`` (B, H, T) or None (zero); ``dq``, a dense float32
-    buffer of out's shape (K2c's), is zeroed in the same pass.
+    buffer of out's shape (K2c's, at a width of ``NATIVE_HEAD_DIMS``), is
+    zeroed in the same pass.
 
     CPU tensors take ``flash_bwd_prep_plain``. CUDA tensors launch the
-    kernel (counted in ``flash_bwd_prep.launches``) or raise.
+    kernel (counted in ``flash_bwd_prep.launches``), on out and dO
+    zero-padded to the instance's width where ``head_plan`` says so, or
+    raise.
     """
     if out.device.type == "cpu":
         if dq is not None:
@@ -432,6 +492,8 @@ def flash_bwd_prep(out: torch.Tensor, do: torch.Tensor,
     if out.device.type != "cuda":
         raise ValueError(f"flash_bwd_prep runs on cuda or cpu tensors, not {out.device}")
     _check_prep_inputs(out, do, dlse, dq)
+    _, pad = head_plan(out.shape[3])
+    out, do = _padded(pad, out, do)
     b, t, h, hd = out.shape
     if dlse is not None:
         dlse = dlse.float().contiguous()
@@ -472,10 +534,10 @@ def flash_bwd(
         return flash_bwd_plain(q, k, v, out, lse, do, **kw)
     if fused_bwd_enabled():
         return flash_bwd_fused(q, k, v, out, lse, do, **kw)
-    do, lse, delta = _bwd_inputs("flash_bwd", q, k, v, out, lse, do)
+    pad, q, k, v, do, lse, delta = _bwd_inputs("flash_bwd", q, k, v, out, lse, do)
     dq = flash_bwd_dq(q, k, v, do, lse, delta, **kw)
     dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
-    return dq, dk, dv
+    return _true_width(pad, dq, dk, dv)
 
 
 def flash_bwd_fused(
@@ -491,16 +553,23 @@ def flash_bwd_fused(
     kw = dict(scale=scale, window=window, softcap=softcap)
     if q.device.type == "cpu":
         return flash_bwd_plain(q, k, v, out, lse, do, **kw)
-    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    do, lse, delta = _bwd_inputs("flash_bwd_fused", q, k, v, out, lse, do, dq=dq)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_bwd_fused runs on cuda or cpu tensors, not {q.device}")
+    inst, _ = head_plan(q.shape[3])
+    dq = torch.empty((*q.shape[:3], inst), dtype=torch.float32, device=q.device)
+    pad, q, k, v, do, lse, delta = _bwd_inputs("flash_bwd_fused", q, k, v, out, lse, do,
+                                               dq=dq)
     dk, dv = flash_bwd_dqkv(q, k, v, do, lse, delta, dq, **kw)
-    return dq.to(q.dtype), dk, dv
+    return _true_width(pad, dq.to(q.dtype), dk, dv)
 
 
 def _launch_bwd(fn_name, outs, q, k, v, do, lse, delta, scale, window,
                 softcap, lse_opts=None) -> None:
-    lib = _kernel("flash_bwd")
     b, t, h, hd = q.shape
+    if hd not in NATIVE_HEAD_DIMS:
+        raise ValueError(f"{fn_name} takes a kernel instance's width {NATIVE_HEAD_DIMS}, "
+                         f"not {hd}: flash_bwd and flash_lse_bwd pad other widths")
+    lib = _kernel("flash_bwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, fn_name)(
@@ -582,10 +651,11 @@ def flash_lse_bwd(
     if dlse is not None and dlse.shape != lse.shape:
         raise ValueError(f"dlse {tuple(dlse.shape)} does not match lse "
                          f"{tuple(lse.shape)}")
-    do, lse, delta = _bwd_inputs("flash_lse_bwd", q, k, v, out, lse, do, dlse)
+    pad, q, k, v, do, lse, delta = _bwd_inputs("flash_lse_bwd", q, k, v, out, lse, do,
+                                               dlse)
     dq = flash_lse_bwd_dq(q, k, v, do, lse, delta, **kw)
     dk, dv = flash_lse_bwd_dkv(q, k, v, do, lse, delta, **kw)
-    return dq, dk, dv
+    return _true_width(pad, dq, dk, dv)
 
 
 def flash_lse_bwd_dq(q, k, v, do, lse, delta, *, scale, causal=True,

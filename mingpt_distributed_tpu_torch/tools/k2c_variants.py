@@ -78,7 +78,8 @@ _OWN = ("              const bool pair =\n", "              const bool pair = fa
 VARIANTS = {
     "final": [],
     "no_atomics": [("if (dq_row[r] >= p.T) continue;", "if (dq_row[r] >= 0) continue;", 1)],
-    "no_dq": [("for (int n = 0; n < HD / kDqN; ++n) {", "for (int n = 0; n < 0; ++n) {", 1)],
+    "no_dq": [("for (int n = col0 / kDqN; n < (col0 + kCols) / kDqN; ++n) {",
+               "for (int n = 0; n < 0; ++n) {", 1)],
     "own": [_OWN],
     "own_f4": [_OWN, (_F2, _F4, 1)],
 }

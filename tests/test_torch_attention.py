@@ -228,7 +228,8 @@ WRAPPER_REFUSALS = {
     "float16": (lambda: (_bf16().half(), _bf16().half(), _bf16().half()),
                 TypeError),
     "mixed_dtypes": (lambda: (_bf16(), _bf16().float(), _bf16()), TypeError),
-    "head_dim_48": (lambda: (_bf16((1, 8, 2, 48)),) * 3, ValueError),
+    "head_dim_4": (lambda: (_bf16((1, 8, 2, 4)),) * 3, ValueError),
+    "head_dim_320": (lambda: (_bf16((1, 8, 2, 320)),) * 3, ValueError),
     "kv_heads_not_dividing": (lambda: (_bf16((1, 8, 3, 16)), _bf16(), _bf16()),
                               ValueError),
     "kv_length_differs": (lambda: (_bf16(), _bf16((1, 9, 2, 16)),
@@ -246,6 +247,17 @@ def test_cuda_wrapper_checks_refuse_what_the_kernel_does_not_take(case):
     make, error = WRAPPER_REFUSALS[case]
     with pytest.raises(error):
         t_flash._check_cuda_inputs(*make(), "flash_fwd")
+
+
+@pytest.mark.parametrize("hd", [8, 48, 80, 96, 112, 256])
+def test_cuda_wrapper_checks_accept_every_width_in_the_kernels_range(hd):
+    # head_dim 48 was refused while the kernels took only 16, 32, 64 and
+    # 128; a width without an instance of its own is read zero-padded, so
+    # even a strided view of it is taken
+    t_flash._check_cuda_inputs(*(_bf16((1, 8, 2, hd)),) * 3, "flash_fwd")
+    x = _bf16((1, 8, 2, 2 * hd))[..., ::2]
+    if hd not in t_flash.NATIVE_HEAD_DIMS:
+        t_flash._check_cuda_inputs(x, x, x, "flash_fwd")
 
 
 def test_cuda_wrapper_checks_accept_model_shaped_inputs():

@@ -16,14 +16,21 @@ sys.path.insert(0, REPO)
 
 import chip_smoke  # noqa: E402
 
-KEYS_PER_TILE = 128  # the bf16 forward's k/v tile (flash_fwd.cu kWgK)
-STAGES = 2           # its ring (Tiles<HD>::kStages)
+STAGES = 2  # the bf16 forward's ring (flash_fwd.cu Tiles<HD>::kStages)
+# the instances, and two widths that run the next one up zero-padded
+RING_WIDTHS = [16, 32, 64, 80, 96, 128, 256, 48, 8]
 
 
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+def keys_per_tile(hd):
+    """The bf16 forward's k/v tile (flash_fwd.cu Tiles<HD>::kKeys)."""
+    return 64 if hd > 128 else 128
+
+
+@pytest.mark.parametrize("hd", RING_WIDTHS)
 def test_ring_cases_cover_every_head_width(hd):
+    KEYS_PER_TILE = keys_per_tile(hd)
     fwd = [c for c in chip_smoke.FWD_RING_CASES if c[5] == hd]
-    lse = [c for c in chip_smoke.LSE_RING_CASES if c[5] == hd]
+    lse = [c for c in chip_smoke.LSE_RING_CASES + chip_smoke.LSE_WIDTH_CASES if c[5] == hd]
     tiles = {-(-c[2] // KEYS_PER_TILE) for c in fwd}
     assert {1, 63, 65, 4096} <= {c[2] for c in fwd}
     assert max(tiles) > 2 * STAGES and any(t % 2 for t in tiles if t > STAGES)
@@ -37,7 +44,7 @@ def test_ring_cases_cover_every_head_width(hd):
 def test_ring_cases_have_unique_names():
     for cases in (chip_smoke.KERNEL_CASES + chip_smoke.FWD_RING_CASES,
                   chip_smoke.LSE_CASES + chip_smoke.LSE_RING_CASES
-                  + chip_smoke.LSE_SP_TP_CASES,
+                  + chip_smoke.LSE_SP_TP_CASES + chip_smoke.LSE_WIDTH_CASES,
                   chip_smoke.NH_CASES):
         names = [(c[0], c[-1]) if cases is chip_smoke.NH_CASES else c[0] for c in cases]
         assert len(names) == len(set(names))
@@ -62,16 +69,16 @@ ptxas info    : Used 40 registers, used 1 barriers, 464 bytes cmem[0]
     assert capsys.readouterr().out.count('"phase": "fwd_ptxas"') == 2
 
 
-DQ_KEYS = 64      # the bf16 dq kernel's k/v tile (flash_bwd.cu kDqKeys)
-DQ_ROWS = 128     # its work item's query rows (kDqRows)
+DQ_ROWS = 128     # the bf16 dq kernel's work item's query rows (kDqRows)
 DKV_ROWS = 64     # the bf16 dk/dv kernel's q/dO tile (kDkvRows)
 
 
-@pytest.mark.parametrize("hd", [16, 32, 64, 128])
+@pytest.mark.parametrize("hd", RING_WIDTHS)
 def test_bwd_ring_cases_cover_every_head_width(hd):
+    DQ_KEYS = 32 if hd > 128 else 64  # the dq kernel's k/v tile (DqTiles<HD>::kKeys)
     cases = [c for c in chip_smoke.BWD_RING_CASES if c[5] == hd]
     ts = {c[2] for c in cases}
-    assert {1, 63, 65, 1000, 4096, 1100, 640, 300} <= ts
+    assert {1, 63, 65, 1000, 4096, 1100 if hd <= 128 else 1080, 640, 300} <= ts
     # both rings wrap many times at T = 4096 and walk an odd count at 1100
     assert 4096 // DQ_KEYS > 2 * STAGES and 4096 // DKV_ROWS > 2 * STAGES
     assert any(-(-c[2] // DQ_ROWS) % 2 and c[3] == 12 and c[4] == 4 for c in cases)
@@ -149,15 +156,17 @@ def _entry_instantiations():
 
 
 def test_bwd_sass_expects_every_instantiation_the_entry_points_name():
-    from mingpt_distributed_tpu_torch.ops.flash_attention import SUPPORTED_HEAD_DIMS
+    from mingpt_distributed_tpu_torch.ops.flash_attention import NATIVE_HEAD_DIMS
 
     found = _entry_instantiations()
-    widths = len(SUPPORTED_HEAD_DIMS)
+    # the prototype's kernels (kNat) keep its tool's 4 widths, 16 to 128
+    widths = {False: len(NATIVE_HEAD_DIMS), True: 4}
     for name, want in chip_smoke.BWD_BF16_KERNELS.items():
-        assert want == widths * sum(k == name for k, *_ in found)
-    # K2a, K4a, K5 dq; K2b, K4b, K5 dkv and K2c (kFused), at 4 head widths
-    assert chip_smoke.BWD_BF16_KERNELS == {"flash_dq_bf16_kernel": 12,
-                                           "flash_dkv_bf16_kernel": 16}
+        assert want == sum(widths[flags[1]] for k, *flags in found if k == name)
+    # K2a, K4a at 7 head widths, K5 dq at 4; K2b, K4b and K2c (kFused) at 7,
+    # K5 dkv at 4
+    assert chip_smoke.BWD_BF16_KERNELS == {"flash_dq_bf16_kernel": 18,
+                                           "flash_dkv_bf16_kernel": 25}
     assert ("flash_dkv_bf16_kernel", False, False, True) in found
     src = (Path(REPO) / "mingpt_distributed_tpu_torch/ops/csrc/flash_bwd.cu").read_text()
     assert "mma.sync" not in src and "mma_bf16(" not in src
@@ -168,13 +177,19 @@ def test_bwd_sass_check_passes_wgmma_kernels_and_refuses_hmma_in_them():
         return (f"_ZN12_GLOBAL__N_1{kind}ILi{hd}E" + "".join(f"Lb{f}E" for f in flags)
                 + "EEv14CUtensorMap_st")
 
+    def flags(hd, *sets):
+        return [f for f in sets if hd <= 128 or not f[1]]  # K5 (nat) stops at 128
+
+    widths = (16, 32, 64, 80, 96, 128, 256)
     good = {name("flash_dq_bf16_kernel", hd, lse, nat): {"HGMMA.64x64x16.F32.BF16": 4,
                                                          "UTMALDG.4D": 2}
-            for hd in (16, 32, 64, 128) for lse, nat in ((0, 0), (1, 0), (0, 1))}
+            for hd in widths for lse, nat in flags(hd, (0, 0), (1, 0), (0, 1))
+            if hd not in (80, 96) or not nat}
     good.update({name("flash_dkv_bf16_kernel", hd, lse, nat, fused):
                  {"HGMMA.64x64x16.F32.BF16": 4, "UTMALDG.4D": 2}
-                 for hd in (16, 32, 64, 128)
-                 for lse, nat, fused in ((0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1))})
+                 for hd in widths
+                 for lse, nat, fused in flags(hd, (0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1))
+                 if hd not in (80, 96) or not nat})
     good["_ZN12_GLOBAL__N_119flash_dq_f32_kernelILi64ELb0ELb0EEEvNS_6ParamsE"] = {"FFMA": 9}
     good["_ZN12_GLOBAL__N_121flash_bwd_prep_kernelIfLi8EEEvNS_10PrepParamsE"] = {"FFMA": 8}
     _, fails = chip_smoke.bwd_sass_check(good)
@@ -185,7 +200,7 @@ def test_bwd_sass_check_passes_wgmma_kernels_and_refuses_hmma_in_them():
     del bad[name("flash_dq_bf16_kernel", 16, 0, 0)]
     _, fails = chip_smoke.bwd_sass_check(bad)
     assert len(fails) == 2
-    assert any("flash_dq_bf16_kernel: 11 instantiations" in f for f in fails)
+    assert any("flash_dq_bf16_kernel: 17 instantiations" in f for f in fails)
     assert any("ELb1E" in f and "HMMA 8" in f for f in fails)
 
 
@@ -535,11 +550,11 @@ def test_main_runs_the_added_phases_and_reports_their_seconds():
     """_main drives the earlier slices' phases (the autoscaler, fsdp x tp
     and its times, tensor-parallel serving, sp x tp and its hop times,
     zero and moe_ep with their kernel checks and times,
-    serve_moe_tp_parity, the pipeline and checkpoint legs, MoE beside sp
-    and the graftaudit phase) and this slice's (the families and
-    trace_summary), each with its seconds in the budget line, and lists
-    the sharded steps', the tp servers' and the families' launches among
-    the paths."""
+    serve_moe_tp_parity, the pipeline and checkpoint legs, MoE beside sp,
+    the graftaudit phase, the families and trace_summary) and this slice's
+    (head_widths and its times), each with its seconds in the budget line,
+    and lists the sharded steps', the tp servers', the families' and the
+    head-width steps' launches among the paths."""
     import ast
     import inspect
 
@@ -552,7 +567,8 @@ def test_main_runs_the_added_phases_and_reports_their_seconds():
                   "phase_sp", "phase_sp_tp_times", "phase_serve_moe_tp_parity",
                   "phase_zero_moe", "phase_moe_ep_kernels", "phase_zero_moe_times",
                   "phase_pp", "phase_moe_sp", "phase_moe_sp_kernels", "phase_graftaudit",
-                  "phase_families", "phase_trace_summary"):
+                  "phase_families", "phase_trace_summary", "phase_head_widths",
+                  "phase_head_width_times"):
         assert phase in called, phase
 
     def keys(name):
@@ -565,17 +581,18 @@ def test_main_runs_the_added_phases_and_reports_their_seconds():
                                        "serve_tp_parity+serve_tp", "serve_cli_tp", "sp_tp",
                                        "sp_tp_times", "serve_moe_tp_parity",
                                        "moe_ep_kernels", "zero_moe_times", "graftaudit",
-                                       "moe_sp_kernels"}
-    # this slice's seconds: the families (exp_families and the
-    # Mistral-7B-width step) and trace_summary on what the smoke wrote
-    assert keys("added_seconds") == {"families", "trace_summary"}
+                                       "moe_sp_kernels", "families", "trace_summary"}
+    # this slice's seconds: the train steps at GPT-3 2.7B's, GPT-3 Large's
+    # and Gemma 2B's head widths, and the kernels' times at their shapes
+    assert keys("added_seconds") == {"head_widths", "head_width_times"}
     src = inspect.getsource(chip_smoke._main)
     for path in ("fsdp_tp_train_step_rank0", "sp_tp_train_step_rank0", '"serve_tp"',
                  '"serve_tp_follower"', "zero_train_step_rank0", "moe_ep_train_step_rank0",
                  '"serve_moe_tp_parity"', "earlier_seconds.update(zm_seconds)",
                  "pp_train_step_rank0", "pp_1f1b_train_step_rank0",
                  "earlier_seconds.update(pp_seconds)", "moe_sp_train_step_rank0",
-                 "earlier_seconds.update(ms_seconds)", "**family_launches"):
+                 "earlier_seconds.update(ms_seconds)", "**family_launches",
+                 "head_width_launches.items()"):
         assert path in src, path
     # serve_tp holds its tokens/s against serve's from the same call, and
     # serve_cli_tp its completions against serve_cli's

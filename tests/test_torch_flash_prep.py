@@ -92,7 +92,13 @@ PREP_REFUSALS = {
     "do_shape": (_t(), _t((1, 8, 2, 32)), None, None, "one shape"),
     "mixed_dtypes": (_t(), _t(dtype=torch.bfloat16), None, None, "dtype"),
     "float16": (_t(dtype=torch.float16), _t(dtype=torch.float16), None, None, "dtype"),
-    "head_dim_8": (_t((1, 8, 2, 8)), _t((1, 8, 2, 8)), None, None, "head_dim 8"),
+    # outside the kernels' range 8..256
+    "head_dim_4": (_t((1, 8, 2, 4)), _t((1, 8, 2, 4)), None, None, "head_dim 4 .*8..256"),
+    "head_dim_320": (_t((1, 8, 2, 320)), _t((1, 8, 2, 320)), None, None,
+                     "head_dim 320 .*8..256"),
+    # K2c's dq buffer exists only at an instance's width
+    "dq_at_padded_width": (_t((1, 8, 2, 8)), _t((1, 8, 2, 8)), None, _t((1, 8, 2, 8)),
+                           "instance's width"),
     "dlse_shape": (_t(), _t(), torch.zeros(1, 8, 2), None, "dlse"),
     "dq_bf16": (_t(), _t(), None, _t(dtype=torch.bfloat16), "dense float32"),
     "dq_strided": (_t(), _t(), None, _t((1, 8, 2, 32))[..., ::2], "dense float32"),
@@ -108,6 +114,14 @@ def test_prep_checks_refuse_bad_arguments(case):
     out, do, dlse, dq, pattern = PREP_REFUSALS[case]
     with pytest.raises(ValueError, match=pattern):
         t_flash._check_prep_inputs(out, do, dlse, dq)
+
+
+@pytest.mark.parametrize("hd", [8, 24, 80, 96, 200, 256])
+def test_prep_checks_accept_every_width_in_the_kernels_range(hd):
+    # head_dim 8 was refused before the kernels took every width from 8 to
+    # 256 (the others run the next instance up, zero-padded)
+    t_flash._check_prep_inputs(_t((1, 8, 2, hd)), _t((1, 8, 2, hd)), torch.zeros(1, 2, 8),
+                               None)
 
 
 def test_prep_checks_accept_matching_arguments_and_other_devices_raise():
