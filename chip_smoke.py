@@ -17,10 +17,16 @@ never printed.
 Phases:
   0. setup: the card's name and power limit, TF32 off, the kernel builds;
      ptxas's registers, spills and dynamic shared memory per forward and
-     backward kernel (fwd_ptxas, bwd_ptxas) and each library's SASS
+     backward kernel (fwd_ptxas, bwd_ptxas) and each library's SASS, read
+     by cuobjdump on the host while phase 1 runs and checked after it
      (fwd_sass, bwd_sass: every bf16 forward, dq and dk/dv instantiation,
      at head widths 16, 32, 64, 80, 96, 128 and 256 (K5's at 16 to 128), K2c's
-     seven among them, issues HGMMA and UTMALDG, none HMMA);
+     seven among them, issues HGMMA and UTMALDG, none HMMA); the float16
+     phase's first part: the float16 libraries (flash_fwd_f16.cu,
+     flash_bwd_f16.cu) by ptxas beside their bf16 twins at hd 64 and 256,
+     and by SASS (every float16 instance, K1, K3, K2a, K4a, K2b, K4b and
+     K2c at the seven widths, issues HGMMA on fp16 operands, UTMALDG and no
+     HMMA, where every bf16 HGMMA names BF16);
   1. every kernel against its plain version at the main paths' shapes
      (generation at batch 4, the train step at batch 16, the sp path's
      zigzag hop, the sp x tp path's hop and own block on 6 of 12 heads
@@ -46,7 +52,10 @@ Phases:
      the split backward and with FLASH_FUSED_BWD=1;
   3. generation at the same width: sliding window (one forward kernel launch
      per layer per token) and KV-cached decode (no kernel), then the sample
-     entry point;
+     entry point; float16 generate_sliding (gpt_config.dtype=float16: 4 x
+     1000 prompt tokens, 32 new, the window sliding past 1024; 384 launches
+     of K1's float16 instance; each step's decision held by the forward's
+     gate with float16 constants, FWD_F16_*);
   3b. serving at the same width (serving/: the continuous-batching server
      on the KV-cached forward; no kernel on its path, 0 launches checked):
      serve_parity (fp32, 4 slots, 6 greedy requests of 5 to 700 prompt
@@ -165,7 +174,11 @@ Phases:
      KV heads, hd 128; its first loss against plain attention's; 1 K1, 1
      prep, 1 K2a and 1 K2b launch per step, and with FLASH_FUSED_BWD=1 1
      K1, 1 prep and 1 K2c: step ms, tokens/s, MFU by the JAX formula and
-     by the routed operations, peak memory);
+     by the routed operations, peak memory); float16 train_step (the bench
+     shape with gpt_config.dtype=float16: the first loss against plain
+     attention's within 1e-3 relative, every gradient of the first step
+     finite, 3 steps of 12 K1, prep, K2a and K2b float16 launches each,
+     step ms, MFU, peak memory, then one FLASH_FUSED_BWD=1 step of 12 K2c);
   4f. the repository tools: families (tools/exp_families.py's llama,
      mistral, gemma and moe at its widths, 4 layers, T 1024, batch 4,
      bf16, K1, the prep pass and K2a/K2b first against their plain
@@ -182,24 +195,29 @@ Phases:
      prep pass and K2a/K2b (and K2c at hd 256) against their plain versions
      at the step's shape, the first loss against plain attention's, 3 steps
      of 2 K1, prep, K2a and K2b each with ms, MFU and peak memory, and at hd
-     256 one FLASH_FUSED_BWD=1 step of 2 K2c); trace_summary
+     256 one FLASH_FUSED_BWD=1 step of 2 K2c); float16 kernel checks (K1,
+     the prep pass, K2a/K2b and K2c at GPT-2's (16, 1024, 12, 64) and Gemma
+     2B's (1, 8192, 8/1, 256) shapes, K3 and K4a/K4b there causal with a q
+     offset and not causal, an lse cotangent of scale 8, against their
+     plain versions at the fp16 tolerances); trace_summary
      (tools/trace_summary.py in this process on train_cli_telemetry's
      profile, the serve_telemetry request trace with --slo, the autoscale
      control log and the serve_telemetry attribution report: the device
      lane apart from the host threads, its busy share printed, each of the
      split step's kernels with as many events there as its counter
      counted launches in the profiled window, its top rows);
-  4b. sequence parallel: 4 ranks spawned on the one card over gloo: ring
-     and Ulysses attention at GPT-2 width (T=4096) against dense plain
-     attention; the sp = 4 ring train step at full GPT-2 width, block 4096,
-     global batch 4 (exactly 72 K3, 72 prep, 72 K4a and 72 K4b launches per
-     rank per step), its loss against a single-process dense-attention
-     step; a dp = 2 x sp = 2 Ulysses step at 2 layers; then on the same
-     ranks sp_tp: the dp 1 x sp 2 x tp 2 ring step at GPT-2 124M, block
-     4096, bf16 (exactly 48 K3, 48 prep, 48 K4a and 48 K4b launches per
-     rank per step on 6 of 12 heads; step ms and the collectives' ms) and
-     fp32 legs at 2 layers, sp 2 x tp 2 and sp 2 x fsdp 2, against one
-     process (losses and gradients within 1e-5 relative);
+  4b. sequence parallel: 4 ranks spawned on the one card over gloo: ring and
+     Ulysses attention at GPT-2 width (T=4096) against dense plain attention
+     in fp32, bf16 and fp16 (the float16 ring: exactly 6 K3, 6 prep, 6 K4a
+     and 6 K4b float16 launches per rank); the sp = 4 ring train step at
+     full GPT-2 width, block 4096, global batch 4 (exactly 72 K3, 72 prep,
+     72 K4a and 72 K4b launches per rank per step), its loss against a
+     single-process dense-attention step; a dp = 2 x sp = 2 Ulysses step at
+     2 layers; then on the same ranks sp_tp: the dp 1 x sp 2 x tp 2 ring
+     step at GPT-2 124M, block 4096, bf16 (exactly 48 K3, 48 prep, 48 K4a
+     and 48 K4b launches per rank per step on 6 of 12 heads; step ms and the
+     collectives' ms) and fp32 legs at 2 layers, sp 2 x tp 2 and sp 2 x fsdp
+     2, against one process (losses and gradients within 1e-5 relative);
   4d. fsdp x tp: the same 4 ranks (dp 1 x fsdp 2 x tp 2) on the one
      card over gloo: an fp32 leg at GPT-2 width, 2 layers (losses, every
      parameter's first gradient and the parameters after the first update
@@ -250,23 +268,27 @@ Phases:
      (8, 1024, 6, 64, non-causal); K1, the prep pass, K2a and K2b at
      zero's (4, 1024, 12, 64) and moe_ep's (1, 4096, 32/8, 128); K1, the
      prep pass, K2a, K2b, K2c, K3, K4a and K4b at head_widths' three
-     shapes; then the exp-vs-exp2 tool (tools/exp_exp2.py, K6's
+     shapes; K1, the prep pass, K2a, K2b and K2c at the training shape and
+     K3, K4a and K4b at the zigzag hop in float16 too, beside SDPA's
+     float16 time; then the exp-vs-exp2 tool (tools/exp_exp2.py, K6's
      path) through its main() at its shape (64 x 512 x 512 float32, 64
      reps), 64 reps timed against 32, and the opcodes of K6's compiled
      kernels. The SM clock, power and
      throttle reasons are logged before and after.
 The seconds of the phases added with MoE and telemetry are one line
 (phase_seconds), those of the fleet phases another (new_phase_seconds, with
-the smoke's seconds so far), and a third (smoke_budget) gives head_widths'
-and its times' seconds against ADDED_PHASES_BUDGET_S together, the
+the smoke's seconds so far), and a third (smoke_budget) gives the float16
+phase's parts' seconds against ADDED_PHASES_BUDGET_S together, the
 earlier slices' (tensor parallelism, the autoscaler, fsdp x tp, zero,
 moe_ep, the pipeline, MoE beside sp, graftaudit, the families,
-trace_summary) beside them, and the whole smoke against SMOKE_BUDGET_S,
-reported, not failed. The last three lines are the card, the kernels line
-(twelve kernels; K3, the prep pass, K4a and K4b also with their moe_sp
-launches and errors; the eight flash kernels also with their largest error
-at every head width checked and their launches and times at head_widths'
-shapes) and the ok line. Exits 2 without CUDA, 1 on any failure.
+trace_summary, head_widths and its times) beside them, and the whole smoke
+against SMOKE_BUDGET_S, reported, not failed. The last three lines are the
+card, the kernels line (twelve kernels; K3, the prep pass, K4a and K4b also
+with their moe_sp launches and errors; the eight flash kernels also with
+their largest error at every head width checked and their launches and
+times at head_widths' shapes; then the eight float16 instances, named with
+"_f16", with their launches on the float16 paths) and the ok line. Exits 2
+without CUDA, 1 on any failure.
 """
 
 from __future__ import annotations
@@ -306,6 +328,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # products over the peak rate of their input type and its exponentials over
 # the special-function units' rate at the card's max SM clock.
 PEAK_FLOPS = {torch.bfloat16: H100_SXM["bfloat16"],
+              torch.float16: H100_SXM["float16"],
               torch.float32: H100_SXM["float32"]}
 
 # Tolerances of kernel vs plain version, max |out difference|:
@@ -315,7 +338,11 @@ PEAK_FLOPS = {torch.bfloat16: H100_SXM["bfloat16"],
 #        bf16 number: 2e-2.
 #  fp32: both sum up to T float32 products in different orders; the
 #        difference stays near 1e-6, the check allows 1e-4.
-OUT_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+#  fp16: as bf16 with 3 more mantissa bits (a step of 2^-11 relative, 1.95e-3
+#        at outputs in [2, 4)): one step from the output's rounding and at
+#        most ~1e-3 from P's (relative 2^-12 per term over outputs of order
+#        1): 5e-3, a quarter of bf16's.
+OUT_TOL = {torch.bfloat16: 2e-2, torch.float16: 5e-3, torch.float32: 1e-4}
 # The max alone sees a P.V fault only where it beats one bf16 step, so the
 # mean |out difference| over the mean |out| is held too:
 #  bf16: each output is rounded to bf16 (relative <= 2^-9) and the kernel
@@ -323,8 +350,9 @@ OUT_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
 #        term, independent roundings that partly cancel over the keys), so
 #        the ratio stays near 2^-9..2^-8 (2e-3..4e-3): 1e-2;
 #  fp32: float32 sums in different orders, ~1e-7 relative per operation
-#        over up to T terms: 1e-5.
-OUT_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+#        over up to T terms: 1e-5;
+#  fp16: bf16's roundings 8x finer (2^-12..2^-11, 2.4e-4..4.9e-4): 1.5e-3.
+OUT_REL_TOL = {torch.bfloat16: 1e-2, torch.float16: 1.5e-3, torch.float32: 1e-5}
 # lse is float32 from the same (bf16 or fp32) inputs in both: 1e-4.
 LSE_TOL = 1e-4
 # Backward kernels vs flash_bwd_plain, on the same q, k, v, out, lse, dO
@@ -339,12 +367,17 @@ LSE_TOL = 1e-4
 #  fp32: float32 sums in different orders and exp2 vs exp of the same
 #        exponent (~1e-7 relative per operation over up to T terms): max
 #        |diff| 1e-4, mean |diff| / mean |g| 1e-5.
+#  fp16: the kernel rounds P and dS and the outputs to fp16 (11 significant
+#        bits: a step of 2^(e-10) <= 2^-10 |g|): max |diff| <= 2^-9 *
+#        max(1, max |g|), two fp16 steps, a quarter of bf16's limit; mean
+#        |diff| / mean |g| <= 1.5e-3 (bf16's expected ratio 8x finer:
+#        2.4e-4..4.9e-4).
 # The mean ratio is held where the gradient is not zero: at T=1, dq and dk
 # are exactly 0 (one key: p = 1 and dp = delta), both versions return
 # rounding noise (max |g| < 1e-5) and only the max is held.
-GRAD_TOL_X = {torch.bfloat16: 2.0 ** -7}
+GRAD_TOL_X = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -9}
 GRAD_TOL = {torch.float32: 1e-4}
-GRAD_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+GRAD_REL_TOL = {torch.bfloat16: 1e-2, torch.float16: 1.5e-3, torch.float32: 1e-5}
 ZERO_GRAD_MAX = 1e-5
 # The fused backward (K2c) against the split kernels (K2a/K2b) on the same
 # inputs:
@@ -929,19 +962,19 @@ DEAD_LSE = -1e29
 DLSE_EFFECT_X = 5.0
 
 
-def lse_case(fa, i, case, dtype):
+def lse_case(fa, i, case, dtype, dlse_scale=1.0):
     """K3 (flash_lse_fwd) and K4a/K4b (flash_lse_bwd) against their plain
     versions on case ``i`` of LSE_CASES in ``dtype``, the backward with a
-    random lse cotangent: the record and the (what, message) of every check
-    it fails. Errors are taken over live rows; dead rows are held to the
-    dead-row contract."""
+    random lse cotangent (N(0, 1) times ``dlse_scale``): the record and the
+    (what, message) of every check it fails. Errors are taken over live
+    rows; dead rows are held to the dead-row contract."""
     name, b, t, h, kv, hd, causal, window, cap, q_offset, *layout = case
     layout = layout[0] if layout else "dense"
     dt = str(dtype).replace("torch.", "")
     q, k, v = make_qkv(b, t, h, kv, hd, dtype, seed=600 + i, layout=layout)
     g = torch.Generator(device="cuda").manual_seed(700 + i)
     do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
-    dlse = torch.randn((b, h, t), generator=g, device="cuda")
+    dlse = torch.randn((b, h, t), generator=g, device="cuda") * dlse_scale
     kw = dict(scale=1.0 / math.sqrt(hd), causal=causal, window=window,
               softcap=cap, q_offset=q_offset)
     live = fa._allowed(t, window, "cuda", causal, q_offset).any(1)
@@ -4609,6 +4642,325 @@ def phase_head_width_times(fa, card):
 
 
 # ---------------------------------------------------------------------------
+# phase float16: the float16 instances of the flash kernels
+# ---------------------------------------------------------------------------
+
+# The float16 instances' kernel checks: GPT-2's attention shape (the train
+# step's) and Gemma 2B's (hd 256 over one KV head, T 8192), each for K1, the
+# prep pass (with and without an lse cotangent), K2a/K2b and K2c; then K3
+# and K4a/K4b at the same shapes, causal with a q offset and not causal
+# (name, B, T, H, KV, hd, causal, window, softcap, q_offset).
+F16_KERNEL_CASES = [
+    ("f16_gpt2_train", 16, 1024, 12, 12, 64, None, None),
+    ("f16_gemma_2b", 1, 8192, 8, 1, 256, None, None),
+]
+F16_LSE_CASES = [
+    ("f16_gpt2_offset256", 16, 1024, 12, 12, 64, True, None, None, 256),
+    ("f16_gpt2_non_causal", 16, 1024, 12, 12, 64, False, None, None, 0),
+    ("f16_gemma_2b_offset2048", 1, 8192, 8, 1, 256, True, None, None, 2048),
+    ("f16_gemma_2b_non_causal", 1, 8192, 8, 1, 256, False, None, None, 0),
+]
+# The lse cotangent of the float16 lse cases, drawn N(0, 1) times this: over
+# 1024 and 8192 keys p ~ 1/T dilutes a unit cotangent's effect on dk to
+# ~1-2x the fp16 tolerance at hd 256 (DLSE_EFFECT_X asks 5x); scaled, it
+# shows that the kernels take it.
+F16_DLSE_SCALE = 8.0
+# The seeds' index offset of the float16 checks (their inputs differ from
+# every earlier case's).
+F16_SEED = 4000
+# The float16 instances: K1 and K3 at the 7 head widths in
+# flash_fwd_f16.cu's library; K2a and K4a (dq), K2b, K4b and K2c (dk/dv) in
+# flash_bwd_f16.cu's. K5 keeps float32 and bfloat16.
+FWD_F16_KERNELS = 2 * 7
+BWD_F16_KERNELS = {"flash_dq_f16_kernel": 2 * 7, "flash_dkv_f16_kernel": 3 * 7}
+# A warpgroup product's SASS names its operands' type after the
+# accumulator's: ".BF16" for bf16, nothing (or ".F16") for fp16.
+F16_HGMMA = re.compile(r"HGMMA\.64x\d+x16\.F32(\.F16)?")
+# GPT-2 124M float16 train step (the bench shape, T 1024, batch 16): its
+# first loss against the same weights' loss through plain attention at
+# float16, relative: a tenth of the bf16 head-width steps' bound (fp16's
+# 3 more mantissa bits).
+F16_STEPS = 3
+F16_LOSS_REL_TOL = 1e-3
+# Float16 sliding-window generation at GPT-2 width (4 prompts of 1000
+# tokens, 32 new: the window slides past 1024) held by the forward's gate
+# (FWD_BF16_*) with float16 constants: at each step of the kernel path's
+# own sequence, its window re-forwarded in fp32 (plain attention), in
+# float16 through plain attention and through the kernel. Where the fp32
+# top-2 gap exceeds 3e, with e the plain float16 path's largest logit error
+# against fp32 over every step, no float16 path within e can move the
+# argmax: there the kernel path's token must be the plain float16 path's
+# argmax at 0.99 of the positions, over at least half of them; its mean
+# logit error against fp32 may exceed the plain path's by 25%.
+FWD_F16_MARGIN_X = 3.0
+FWD_F16_TOP1_MIN = 0.99
+FWD_F16_MIN_DECIDED = 0.5
+FWD_F16_ERR_RATIO = 1.25
+F16_GEN_NEW = 32
+
+
+def phase_float16_kernels(fa, card):
+    """K1, the prep pass, K2a/K2b and K2c (F16_KERNEL_CASES) and K3/K4a/K4b
+    (F16_LSE_CASES) at float16 against their plain versions, outside the
+    launch counts; fails on the first case that disagrees. Returns the
+    records by (kind, case)."""
+    dtype = torch.float16
+    records = {}
+    with preserved_counts(), fused_switch(False):
+        for j, case in enumerate(F16_KERNEL_CASES):
+            for kind, fn in (("fwd", fwd_case), ("prep", prep_case), ("bwd", bwd_case),
+                             ("fused", fused_case)):
+                rec, fails = fn(fa, F16_SEED + j, case, dtype)
+                emit({**rec, "phase": "float16", "part": "kernel_check", "card": card})
+                check(not fails, "float16: " + "; ".join(msg for _, msg in fails))
+                records[(kind, case[0])] = rec
+            torch.cuda.empty_cache()
+        for j, case in enumerate(F16_LSE_CASES):
+            rec, fails = lse_case(fa, F16_SEED + 100 + j, case, dtype,
+                                  dlse_scale=F16_DLSE_SCALE)
+            emit({**rec, "phase": "float16", "part": "kernel_check",
+                  "dlse_scale": F16_DLSE_SCALE, "card": card})
+            check(not fails, "float16: " + "; ".join(msg for _, msg in fails))
+            records[("lse", case[0])] = rec
+            torch.cuda.empty_cache()
+    return records
+
+
+def hgmma_ops(c):
+    """The distinct HGMMA opcodes of a kernel's SASS opcode counts."""
+    return sorted(op for op in c if op.startswith("HGMMA"))
+
+
+def f16_sass_check(fwd_counts, bwd_counts, bf16_counts):
+    """The float16 instances' SASS records by template and the message of
+    every check they fail: FWD_F16_KERNELS and BWD_F16_KERNELS
+    instantiations, each issuing HGMMA on fp16 operands (F16_HGMMA), UTMALDG
+    and no HMMA; and, as the control that the opcode tells the types
+    apart, every HGMMA of the bf16 instances (``bf16_counts``) names BF16."""
+    want = {"flash_fwd_f16_kernel": FWD_F16_KERNELS, **BWD_F16_KERNELS}
+    found = {name: [] for name in want}
+    for counts in (fwd_counts, bwd_counts):
+        for kernel, c in counts.items():
+            for name in found:
+                if name in kernel:
+                    found[name].append({**_sass_record("float16", kernel, c, ""),
+                                        "part": "sass", "hgmma_ops": hgmma_ops(c)})
+    fails = []
+    for name, recs in found.items():
+        if len(recs) != want[name]:
+            fails.append(f"{name}: {len(recs)} instantiations, want {want[name]}")
+        for r in recs:
+            if not (r["hgmma"] > 0 and r["utmaldg"] > 0 and r["hmma"] == 0
+                    and all(F16_HGMMA.fullmatch(op) for op in r["hgmma_ops"])):
+                fails.append(f"{r['kernel']}: HGMMA {r['hgmma_ops']}, UTMALDG "
+                             f"{r['utmaldg']}, HMMA {r['hmma']}")
+    bf16_ops = sorted({op for c in bf16_counts.values() for op in hgmma_ops(c)})
+    if not bf16_ops or not all(op.endswith(".BF16") for op in bf16_ops):
+        fails.append(f"the bf16 instances' HGMMA opcodes {bf16_ops} do not name BF16")
+    return found, fails, bf16_ops
+
+
+def phase_float16_sass(card, sass):
+    """The float16 libraries' kernels by their SASS (f16_sass_check; one
+    line per instance) beside the bf16 libraries' (``sass``: sass_opcodes
+    by library): fails unless each issues HGMMA on fp16 operands and
+    UTMALDG and no HMMA."""
+    bf16 = {k: c for lib in ("flash_fwd", "flash_bwd") for k, c in sass[lib].items()
+            if "_bf16_kernel" in k}
+    found, fails, bf16_ops = f16_sass_check(sass["flash_fwd_f16"], sass["flash_bwd_f16"], bf16)
+    for recs in found.values():
+        for r in recs:
+            emit({**r, "card": card})
+    emit({"phase": "float16", "part": "sass_summary",
+          "instances": {k: len(v) for k, v in found.items()},
+          "f16_hgmma_ops": sorted({op for recs in found.values() for r in recs
+                                   for op in r["hgmma_ops"]}),
+          "bf16_hgmma_ops": bf16_ops, "card": card})
+    check(not fails, "float16 SASS: " + "; ".join(fails))
+
+
+def _ptxas_pick(rows, template, hd, flags):
+    """The ptxas row of ``template`` at head width ``hd`` whose bool
+    template arguments are ``flags`` (a string of 0/1), or None."""
+    pat = re.compile(rf"{template}ILi{hd}E" + "".join(f"Lb{f}E" for f in flags))
+    return next((r for r in rows if pat.search(r["kernel"])), None)
+
+
+def float16_ptxas(bf16_rows, f16_rows):
+    """ptxas's registers, stack, spills and dynamic shared memory of the
+    float16 instances at hd 64 and 256 beside their bf16 twins (K1, K3, K2a,
+    K4a, K2b, K4b, K2c): one record each."""
+    kinds = (("K1", "flash_fwd_{}_kernel", "00"), ("K3", "flash_fwd_{}_kernel", "10"),
+             ("K2a", "flash_dq_{}_kernel", "00"), ("K4a", "flash_dq_{}_kernel", "10"),
+             ("K2b", "flash_dkv_{}_kernel", "000"), ("K4b", "flash_dkv_{}_kernel", "100"),
+             ("K2c", "flash_dkv_{}_kernel", "001"))
+    keep = ("registers", "stack", "spill_stores", "spill_loads", "dynamic_smem_bytes")
+    out = []
+    for hd in (64, 256):
+        for kernel, template, flags in kinds:
+            rec = {"phase": "float16", "part": "ptxas", "kernel": kernel, "hd": hd}
+            for dt, rows in (("bf16", bf16_rows), ("f16", f16_rows)):
+                r = _ptxas_pick(rows, template.format(dt), hd, flags) or {}
+                rec[dt] = {k: r.get(k) for k in keep}
+            out.append(rec)
+    return out
+
+
+def phase_float16_train(card, steps=F16_STEPS):
+    """make_train_step at the bench shape (GPT-2 124M, T 1024, batch 16) with
+    gpt_config.dtype=float16 and flash attention: the first loss against
+    the same weights' loss through plain attention; every gradient of the
+    first step finite; ``steps`` split steps with the counts set to 0 just
+    before and read just after (12 K1, prep, K2a and K2b per step), their ms,
+    MFU by the JAX formula (against the fp16 peak) and peak memory; then
+    one step with FLASH_FUSED_BWD=1 (12 K1, prep and K2c). Returns the
+    record (its launches are the split steps') and the fused step's
+    launches."""
+    from mingpt_distributed_tpu_torch.config import GPTConfig, OptimizerConfig
+    from mingpt_distributed_tpu_torch.models import convert, gpt
+    from mingpt_distributed_tpu_torch.tools.profile_train import BATCH, SEQ
+    from mingpt_distributed_tpu_torch.training.metrics import flops_per_token
+    from mingpt_distributed_tpu_torch.training.optimizer import make_optimizer
+    from mingpt_distributed_tpu_torch.training.trainer import (
+        TrainState,
+        make_train_step,
+        trainable,
+    )
+
+    cfg = GPTConfig.make(model_type="gpt2", vocab_size=50257, block_size=SEQ, dtype="float16",
+                         attention="flash", embd_pdrop=0.0, resid_pdrop=0.0, attn_pdrop=0.0)
+    base = torch.cuda.memory_allocated()  # what earlier phases still hold
+    params = trainable(gpt.init(cfg, torch.Generator().manual_seed(0), device="cuda"))
+    state = TrainState(params, make_optimizer(OptimizerConfig(), params, 1.0))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (BATCH, SEQ + 1), generator=g, device="cuda")
+    batch = (tokens[:, :-1], tokens[:, 1:])
+    with torch.no_grad():
+        _, plain = gpt.forward(params, batch[0], dataclasses.replace(cfg, attention="einsum"),
+                               targets=batch[1], return_logits=False)
+    plain_loss = plain.item()
+    del plain
+    torch.cuda.empty_cache()
+    with fused_switch(False):
+        step = make_train_step(cfg)
+        with preserved_counts():
+            first = step(state, batch)  # the first loss: the plain loss's weights
+            first_loss = first["loss"].item()
+            grads = _grads(state)
+            finite = {n: bool(torch.isfinite(gr).all()) for n, gr in grads.items()
+                      if gr is not None}
+            del grads
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        losses = [step(state, batch)["loss"] for _ in range(steps)]
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / steps
+        counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    with fused_switch(True):
+        reset_counts()
+        m = step(state, batch)
+        fused_loss = m["loss"].item()
+        fused_counts = read_counts()
+    losses = [first_loss] + [v.item() for v in losses]
+    tokens_per_s = BATCH * SEQ / dt
+    n = cfg.n_layer * steps
+    want = expected(flash_fwd=n, flash_bwd_prep=n, flash_bwd_dq=n, flash_bwd_dkv=n)
+    want_fused = expected(flash_fwd=cfg.n_layer, flash_bwd_prep=cfg.n_layer,
+                          flash_bwd_fused=cfg.n_layer)
+    rel = abs(first_loss - plain_loss) / abs(plain_loss)
+    rec = {"phase": "float16", "part": "train_step", "main_path": True, "model": "gpt2 124M",
+           "batch": BATCH, "seq": SEQ, "dtype": cfg.dtype, "steps": steps,
+           "launches": counts, "launches_want": want, "step_ms": dt * 1e3,
+           "tokens_per_s": tokens_per_s,
+           "mfu": flops_per_token(cfg, SEQ) * tokens_per_s / PEAK_FLOPS[torch.float16],
+           "peak_allocated_bytes": peak, "allocated_before_setup_bytes": base,
+           "peak_over_setup_bytes": peak - base, "losses": losses,
+           "plain_attention_loss": plain_loss, "plain_loss_rel_err": rel,
+           "plain_loss_tol": F16_LOSS_REL_TOL, "grads_checked": len(finite),
+           "grads_finite": all(finite.values()), "grad_norm": m["grad_norm"].item(),
+           "fused_step": {"launches": fused_counts, "launches_want": want_fused,
+                          "loss": fused_loss}, "card": card}
+    emit(rec)
+    check(len(finite) == len(convert.flatten(state.params)) and all(finite.values()),
+          f"float16 train step: non-finite gradients "
+          f"{[n for n, ok in finite.items() if not ok]}")
+    check(rel <= F16_LOSS_REL_TOL, f"float16 train step: first loss {first_loss} against "
+                                   f"plain attention's {plain_loss} (relative {rel})")
+    check(counts == want, f"float16 train step: launches {counts}, want {want}")
+    check(fused_counts == want_fused,
+          f"float16 fused step: launches {fused_counts}, want {want_fused}")
+    check(all(math.isfinite(v) for v in losses + [fused_loss]), "non-finite float16 loss")
+    check(losses[-1] < losses[0], "float16: the loss on a repeated batch did not fall")
+    del state, batch, step, m
+    torch.cuda.empty_cache()
+    return rec, fused_counts
+
+
+def phase_float16_generate(GPT, fa, params32, card, new=F16_GEN_NEW):
+    """Sliding-window generation at GPT-2 width in float16 (the main path's
+    generate, 12 K1 launches per token, counts set to 0 just before), then
+    plain attention's at float16 on the same prompts (tokens printed), then
+    the forward's gate over every step of the kernel path's own sequence
+    (FWD_F16_*). Returns the main path's launch counts."""
+    prompt = 1000
+    g = torch.Generator(device="cuda").manual_seed(2)
+    prompts = torch.randint(0, 50257, (4, prompt), generator=g, device="cuda")
+    model16 = GPT(gpt2_config("flash", "float16"), params32, device="cuda")
+    n_layer, bs = model16.config.n_layer, model16.config.block_size
+    plain16 = GPT(gpt2_config("einsum", "float16"), params32, device="cuda")
+    plain32 = GPT(gpt2_config("einsum", "float32"), params32, device="cuda")
+    reset_counts()
+    tokens, seconds = timed(lambda: model16.generate(prompts, new))
+    counts = read_counts()
+    plain_tokens = plain16.generate(prompts, new)
+    check(tokens.shape == (4, prompt + new) and torch.equal(tokens[:, :prompt], prompts),
+          f"float16 generate: tokens {tuple(tokens.shape)}")
+    want = expected(flash_fwd=new * n_layer)
+    chosen, l16k, l16p, l32 = [], [], [], []
+    with torch.no_grad(), preserved_counts():
+        for i in range(new):
+            n = prompt + i
+            ctx = tokens[:, max(0, n - bs):n]
+            l16k.append(model16(ctx)[0][:, -1].float())
+            l16p.append(plain16(ctx)[0][:, -1].float())
+            l32.append(plain32(ctx)[0][:, -1])
+            chosen.append(tokens[:, n])
+    chosen, l16k, l16p, l32 = (torch.stack(x) for x in (chosen, l16k, l16p, l32))
+    e16 = (l16p - l32).abs().max().item()
+    top2 = l32.topk(2, dim=-1).values
+    decided = (top2[..., 0] - top2[..., 1]) > FWD_F16_MARGIN_X * e16
+    n_decided = int(decided.sum().item())
+    agree = ((chosen == l16p.argmax(-1))[decided].float().mean().item()
+             if n_decided else None)
+    rec = {"phase": "float16", "part": "generate_sliding", "main_path": True,
+           "model": "gpt2 124M", "batch": 4, "prompt": prompt, "new_tokens": new,
+           "launches": counts, "launches_want": want, "tokens_per_s": 4 * new / seconds,
+           "tokens_equal_plain": bool(torch.equal(tokens, plain_tokens)),
+           "positions": chosen.numel(), "plain_max_abs_err_vs_fp32": e16,
+           "decided_margin": FWD_F16_MARGIN_X * e16, "decided_positions": n_decided,
+           "top1_agreement_decided": agree, "top1_decided_min": FWD_F16_TOP1_MIN,
+           "kernel_top1_vs_fp32": (chosen == l32.argmax(-1)).float().mean().item(),
+           "kernel_mean_abs_err_vs_fp32": (l16k - l32).abs().mean().item(),
+           "plain_mean_abs_err_vs_fp32": (l16p - l32).abs().mean().item(),
+           "err_ratio_max": FWD_F16_ERR_RATIO, "card": card}
+    emit(rec)
+    check(counts == want, f"float16 generate: launches {counts}, want {want}")
+    check(n_decided >= FWD_F16_MIN_DECIDED * chosen.numel(),
+          f"float16 generate: only {n_decided} of {chosen.numel()} positions decided")
+    check(agree >= FWD_F16_TOP1_MIN,
+          f"float16 generate: top-1 agreement {agree} at decided positions")
+    check(rec["kernel_mean_abs_err_vs_fp32"]
+          <= FWD_F16_ERR_RATIO * rec["plain_mean_abs_err_vs_fp32"],
+          "float16 generate: the kernel path is further from fp32 than allowed")
+    del model16, plain16, plain32
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ---------------------------------------------------------------------------
 # phase 4b: sequence parallel, 4 ranks sharing the card over gloo
 # ---------------------------------------------------------------------------
 
@@ -4668,8 +5020,11 @@ SP_FP32_LOSS_TOL = 2e-5
 #  bf16: the kernels round P and dS to bf16 and the outputs to bf16 (one
 #        step at the largest value, as for K1/K2), and the ring rounds each
 #        hop's partial output before merging it: mean <= 1e-2, max |diff|
-#        <= 2^-6 * max(1, max |ref|) (two bf16 steps).
-SP_ATTN_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 2.0 ** -6)}
+#        <= 2^-6 * max(1, max |ref|) (two bf16 steps);
+#  fp16: the same roundings in fp16: mean <= 1.5e-3 (GRAD_REL_TOL's), max
+#        |diff| <= 2^-9 * max(1, max |ref|) (two fp16 steps).
+SP_ATTN_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 2.0 ** -6),
+               "float16": (1.5e-3, 2.0 ** -9)}
 
 
 def _sp_gpt_config(attention, n_layer=None, dtype="bfloat16"):
@@ -4746,9 +5101,11 @@ def _err_stats(got, ref):
             "finite": bool(torch.isfinite(got.float()).all())}
 
 
-def _sp_attention(mesh, device):
-    """Ring and Ulysses on this rank's chunk, in both dtypes, against the
-    same chunk of the dense plain attention and its gradients."""
+def _sp_attention(mesh, device, ring_f16_launches=None):
+    """Ring and Ulysses on this rank's chunk, in each dtype, against the
+    same chunk of the dense plain attention and its gradients. The float16
+    ring (its K3, prep, K4a and K4b instances) runs with the launch counts
+    set to 0 just before and read into ``ring_f16_launches`` just after."""
     from mingpt_distributed_tpu_torch.ops import attention as attn_ops
     from mingpt_distributed_tpu_torch.parallel.ring_attention import ring_causal_attention
     from mingpt_distributed_tpu_torch.parallel.ulysses import ulysses_causal_attention
@@ -4758,7 +5115,7 @@ def _sp_attention(mesh, device):
     c = SP_T // mesh.sp
     sl = slice(mesh.sp_rank * c, (mesh.sp_rank + 1) * c)
     res = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         q, k, v, do = (x.to(device, dtype) for x in full)
         ref_in = [x.float().requires_grad_() for x in (q, k, v)]
         ref = attn_ops.causal_attention(*ref_in)
@@ -4768,8 +5125,15 @@ def _sp_attention(mesh, device):
         for name, fn in (("ring", ring_causal_attention),
                          ("ulysses", ulysses_causal_attention)):
             loc = [x[:, sl].contiguous().requires_grad_() for x in (q, k, v)]
+            counted = (dtype == torch.float16 and name == "ring"
+                       and ring_f16_launches is not None)
+            if counted:
+                reset_counts()
             out = fn(*loc, mesh)
             grads = torch.autograd.grad(out, loc, do[:, sl].contiguous())
+            if counted:
+                torch.cuda.synchronize()
+                ring_f16_launches.update(read_counts())
             dt = str(dtype).replace("torch.", "")
             res[f"{name}_{dt}"] = {key: _err_stats(gg, w) for key, gg, w in zip(
                 ("out", "dq", "dk", "dv"), (out, *grads), want)}
@@ -4929,7 +5293,9 @@ def sp_rank(rank):
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
-    out = {"attention": _sp_attention(Mesh(MeshConfig(dp=1, sp=SP)), device)}
+    ring_f16 = {}
+    out = {"attention": _sp_attention(Mesh(MeshConfig(dp=1, sp=SP)), device, ring_f16),
+           "ring_float16_launches": ring_f16}
     for key, cfg, dp, seed, steps in (
             ("main", _sp_gpt_config("ring"), 1, 5, SP_STEPS),
             ("main_fp32", _sp_gpt_config("ring", SP_FP32_LAYERS, "float32"), 1, 5, 1),
@@ -4993,10 +5359,11 @@ def _sp_step_record(phase, ms, dense, **kw):
             "launches_per_rank": [m["launches"] for m in ms], **kw}
 
 
-def sp_checks(ranks, card):
-    """The records of the sp ranks' results and the (group, message) of
-    every check they fail; groups "attention", "main" (the main path and
-    its fp32 ring step) and "dp2"."""
+def sp_attention_checks(ranks, card):
+    """The sp_attention records (ring and Ulysses in each dtype against the
+    dense plain attention, over every rank's chunk; the float16 ring's
+    launches per rank) and the ("attention", message) of every check they
+    fail."""
     records, fails = [], []
     for key in ranks[0]["attention"]:
         rec = {"phase": "sp_attention", "case": key, "ranks": SP,
@@ -5015,7 +5382,25 @@ def sp_checks(ranks, card):
                 fails.append(("attention", f"sp {key}: max |{name} diff| {max_err} > {tol}"))
             if not mean_rel <= mean_tol:
                 fails.append(("attention", f"sp {key}: mean rel {name} diff {mean_rel}"))
+        if key == "ring_float16" and "ring_float16_launches" in ranks[0]:
+            # the float16 path of K3, the prep pass, K4a and K4b: one layer's
+            # zigzag ring, forward and backward
+            want = expected(flash_lse_fwd=SP_K3_PER_LAYER, flash_bwd_prep=SP_K3_PER_LAYER,
+                            flash_lse_bwd_dq=SP_K3_PER_LAYER,
+                            flash_lse_bwd_dkv=SP_K3_PER_LAYER)
+            got = [r["ring_float16_launches"] for r in ranks]
+            rec.update({"launches_per_rank": got, "launches_want": want})
+            fails += [("attention", f"sp ring float16 launches {g}, want {want}")
+                      for g in got if g != want]
         records.append(rec)
+    return records, fails
+
+
+def sp_checks(ranks, card):
+    """The records of the sp ranks' results and the (group, message) of
+    every check they fail; groups "attention", "main" (the main path and
+    its fp32 ring step) and "dp2"."""
+    records, fails = sp_attention_checks(ranks, card)
 
     main = [r["main"] for r in ranks]
     per_step = SP_K3_PER_LAYER * 12
@@ -5137,7 +5522,8 @@ def phase_sp(card):
     seconds, each rank's fsdp x tp results with their seconds, each rank's
     zero and moe_ep results, its moe_sp results and its pipeline and
     checkpoint results (the same ranks run them: ``phase_fsdp_tp``,
-    ``phase_zero_moe``, ``phase_moe_sp`` and ``phase_pp`` check them)."""
+    ``phase_zero_moe``, ``phase_moe_sp`` and ``phase_pp`` check them), and
+    rank 0's launch counts of the float16 ring (K3/K4's float16 path)."""
     from mingpt_distributed_tpu_torch.parallel.spawn import run_ranks
 
     t0 = time.perf_counter()
@@ -5153,7 +5539,7 @@ def phase_sp(card):
             sp_tp["legs_seconds"], ([r["ft"] for r in ranks],
                                     max(r["ft_seconds"] for r in ranks)),
             [r["zm"] for r in ranks], [r["ms"] for r in ranks],
-            [{"pp": r["pp"]} for r in ranks])
+            [{"pp": r["pp"]} for r in ranks], ranks[0]["ring_float16_launches"])
 
 
 # ---------------------------------------------------------------------------
@@ -7053,7 +7439,8 @@ def phase_pp(card, ranks):
             seconds)
 
 
-# The time this slice's phases (head_widths and its times) may take
+# The time this slice's phases (the float16 phase's parts: SASS and
+# ptxas, generation, the train steps, the kernel checks) may take
 # together, and the whole smoke, in seconds of the command (a run is
 # allowed 1200 s; recent runs read 747.2-1163.6 s by host). The earlier
 # slices' phases are reported beside.
@@ -7119,8 +7506,8 @@ def phase_times(fa, card):
     """Kernel, plain version and library yardstick times of K1, the prep
     pass, K2a, K2b and K2c, the prep pass with K2c's dq zero-fill, and the
     whole backward fused (prep + K2c + cast) and split (prep + K2a + K2b);
-    returns the rows of the kernels line (bf16, training shape) by kernel
-    name."""
+    returns the rows of the kernels line (training shape) by kernel name:
+    bf16's under the kernel's, float16's under the name with "_f16"."""
     rows = {}
     # the generation shape: flash_fwd at batch 4
     b, t, h, hd = 4, 1024, 12, 64
@@ -7138,7 +7525,7 @@ def phase_times(fa, card):
               "achieved_tflops": flops / (ms * 1e-3) / 1e12, "card": card})
     # the training shape: batch 16
     b = 16
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
         q, k, v = make_qkv(b, t, h, h, hd, dtype, seed=400)
         g = torch.Generator(device="cuda").manual_seed(401)
         do = torch.randn(q.shape, generator=g, device="cuda").to(dtype)
@@ -7193,6 +7580,8 @@ def phase_times(fa, card):
               "card": card})
         if dtype == torch.bfloat16:
             rows.update(got)
+        elif dtype == torch.float16:
+            rows.update({f"{n}_f16": r for n, r in got.items()})
         del q, k, v, do, out, lse, delta, dq_acc, dq_zero
         torch.cuda.empty_cache()
     emit({"phase": "memory", "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
@@ -7202,10 +7591,10 @@ def phase_times(fa, card):
 
 def sdpa_with_lse(q, k, v):
     """The library yardstick of K3: one PyTorch call computing the
-    non-causal attention and its log-sum-exp (flash for bf16, the
+    non-causal attention and its log-sum-exp (flash for bf16 and fp16, the
     memory-efficient kernel for fp32, which the flash one does not take)."""
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    if q.dtype == torch.bfloat16:
+    if q.dtype in (torch.bfloat16, torch.float16):
         return lambda: torch.ops.aten._scaled_dot_product_flash_attention(
             qt, kt, vt, 0.0, False)
     return lambda: torch.ops.aten._scaled_dot_product_efficient_attention(
@@ -7215,10 +7604,11 @@ def sdpa_with_lse(q, k, v):
 def phase_lse_times(fa, card):
     """K3, K4a and K4b at the sp main path's zigzag hop shape (batch-stacked,
     non-causal): kernel, plain version and library times, bounds; returns
-    the kernels line's rows (bf16)."""
+    the kernels line's rows (bf16's by kernel name, float16's under the
+    name with "_f16")."""
     name, b, t, h, kv, hd, causal, _, _, _ = LSE_CASES[0]
     return _lse_times(fa, card, name, (b, t, h, kv, hd), causal,
-                      (torch.bfloat16, torch.float32))
+                      (torch.bfloat16, torch.float32, torch.float16))
 
 
 def phase_sp_tp_times(fa, card):
@@ -7261,6 +7651,8 @@ def _lse_times(fa, card, name, shape, causal, dtypes):
                          (b, t, h, kv, hd), dtype, name, card, causal=causal)
         if dtype == torch.bfloat16:
             rows.update(got)
+        elif dtype == torch.float16:
+            rows.update({f"{n}_f16": r for n, r in got.items()})
         del q, k, v, do, out, lse, delta
         torch.cuda.empty_cache()
     return rows
@@ -7396,16 +7788,30 @@ def sass_opcodes(name):
             kernel = m.group(1)
             counts[kernel] = {}
             continue
-        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Za-z0-9_.]*)", line)
         if m and kernel:
             counts[kernel][m.group(1)] = counts[kernel].get(m.group(1), 0) + 1
     return counts
 
 
-def exp_sass(card):
-    """Each K6 kernel's SASS opcodes, counted: MUFU.EX2 against the FP32
-    and other instructions around it."""
-    counts = sass_opcodes("exp_exp2")
+# The libraries whose SASS the smoke reads: cuobjdump runs on the host, one
+# process each, all at once, while the kernel checks use the card
+SASS_LIBRARIES = ("flash_fwd", "flash_bwd", "flash_fwd_f16", "flash_bwd_f16", "exp_exp2")
+
+
+def sass_opcodes_all(names=SASS_LIBRARIES):
+    """sass_opcodes of each library in ``names``, read concurrently."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        futures = {n: pool.submit(sass_opcodes, n) for n in names}
+        return {n: f.result() for n, f in futures.items()}
+
+
+def exp_sass(card, counts):
+    """Each K6 kernel's SASS opcodes (``counts``, sass_opcodes of
+    exp_exp2), counted: MUFU.EX2 against the FP32 and other instructions
+    around it."""
     ops = {"ILi0E": "exp", "ILi1E": "exp2", "ILi2E": "exp2*log2e"}
     for kernel, c in counts.items():
         op = next((v for k, v in ops.items() if k in kernel), None)
@@ -7434,12 +7840,13 @@ def _sass_record(phase, kernel, c, card):
             "card": card}
 
 
-def fwd_sass(card):
-    """The flash_fwd library's kernels, counted by their SASS: every bf16
-    instantiation must issue warpgroup products (HGMMA) and TMA tile loads
-    (UTMALDG) and no mma.sync (HMMA); the fp32 kernels issue neither."""
+def fwd_sass(card, counts):
+    """The flash_fwd library's kernels, counted by their SASS (``counts``,
+    sass_opcodes of flash_fwd): every bf16 instantiation must issue
+    warpgroup products (HGMMA) and TMA tile loads (UTMALDG) and no mma.sync
+    (HMMA); the fp32 kernels issue neither."""
     bf16 = {}
-    for kernel, c in sass_opcodes("flash_fwd").items():
+    for kernel, c in counts.items():
         rec = {**_sass_record("fwd_sass", kernel, c, card),
                "bf16": "flash_fwd_bf16_kernel" in kernel}
         emit(rec)
@@ -7473,11 +7880,11 @@ def bwd_sass_check(counts):
     return found, fails
 
 
-def bwd_sass(card):
-    """The flash_bwd library's kernels, counted by their SASS (one line
-    each); fails unless every bf16 dq and dk/dv instantiation, K2c's among
-    them, issues HGMMA and UTMALDG and no HMMA (bwd_sass_check)."""
-    counts = sass_opcodes("flash_bwd")
+def bwd_sass(card, counts):
+    """The flash_bwd library's kernels, counted by their SASS (``counts``,
+    sass_opcodes of flash_bwd; one line each); fails unless every bf16 dq
+    and dk/dv instantiation, K2c's among them, issues HGMMA and UTMALDG and
+    no HMMA (bwd_sass_check)."""
     found, fails = bwd_sass_check(counts)
     bf16 = {r["kernel"] for recs in found.values() for r in recs}
     for kernel, c in counts.items():
@@ -7511,14 +7918,15 @@ def ptxas_rows(log):
 
 
 def fwd_ptxas(log):
-    """ptxas's resources per flash_fwd kernel (ptxas_rows); the bf16
-    kernels' dynamic shared memory is Tiles<HD>::kSmem of flash_fwd.cu (Q of
+    """ptxas's resources per flash_fwd (or flash_fwd_f16) kernel
+    (ptxas_rows); the 16-bit kernels' dynamic shared memory is
+    Tiles<HD>::kSmem of flash_fwd.cu (Q of
     128 rows, two stages of K and V of 128 keys, 64 at hd 256, six
     barriers, 1024 bytes of alignment slack)."""
     rows = ptxas_rows(log)
     for r in rows:
         hd = re.search(r"ILi(\d+)E", r["kernel"])
-        if "flash_fwd_bf16_kernel" in r["kernel"] and hd:
+        if re.search(r"flash_fwd_b?f16_kernel", r["kernel"]) and hd:
             hd = int(hd.group(1))
             keys = 64 if hd > 128 else 128
             r["dynamic_smem_bytes"] = 256 * hd + 8 * keys * hd + 8 * 6 + 1024
@@ -7541,11 +7949,12 @@ def box_cols(hd):
 
 def bwd_dynamic_smem(kernel):
     """The dynamic shared memory flash_bwd.cu's launch gives ``kernel`` (a
-    mangled name), or None: DqTiles<HD>::kSmem (Q and dO of 128 rows, two
+    mangled name; the bf16 and fp16 kernels alike), or None:
+    DqTiles<HD>::kSmem (Q and dO of 128 rows, two
     stages of K and V tiles of 64 keys, 32 at hd 256),
     DkvTiles<HD, kFused>::kSmem (K and V of 128 keys, 64 at hd 256, two
     stages of 64-row Q and dO tiles with their lse and delta; K2c also each
-    consumer warpgroup's 64 x 64 bf16 dS^T tile and, below hd 256, the dq
+    consumer warpgroup's 64 x 64 16-bit dS^T tile and, below hd 256, the dq
     exchange: 2 warpgroups x 2 parities x 128 threads x a float4 for each
     of box_cols(hd) / 16 column groups), each with six barriers and 1024
     bytes of alignment slack; the fp32 kernels' padded tiles of 64 rows (32
@@ -7554,10 +7963,10 @@ def bwd_dynamic_smem(kernel):
     if not m:
         return None
     hd = int(m.group(1))
-    if "flash_dq_bf16_kernel" in kernel:
+    if re.search(r"flash_dq_b?f16_kernel", kernel):
         keys = 32 if hd > 128 else 64
         return 512 * hd + 8 * keys * hd + 8 * 6 + 1024
-    if "flash_dkv_bf16_kernel" in kernel:
+    if re.search(r"flash_dkv_b?f16_kernel", kernel):
         keys = 64 if hd > 128 else 128
         exchange = 0 if hd > 128 else 2 * 2 * 128 * 16 * box_cols(hd) // 16
         ds = 2 * 64 * 64 * 2 + exchange if _dkv_fused(kernel) else 0
@@ -7584,7 +7993,7 @@ def bwd_ptxas(log):
         emit({"phase": "bwd_ptxas", **r})
     dkv = {}
     for r in rows:
-        m = re.search(r"flash_dkv_bf16_kernelILi(\d+)ELb0ELb0ELb([01])E", r["kernel"])
+        m = re.search(r"flash_dkv_b?f16_kernelILi(\d+)ELb0ELb0ELb([01])E", r["kernel"])
         if m:
             dkv[(int(m.group(1)), m.group(2) == "1")] = r
     fails = []
@@ -7706,11 +8115,18 @@ def _main() -> int:
           "seconds": time.perf_counter() - t0})
     for name, log in logs.items():
         print(f"--- nvcc {name}.cu ---\n{log}", file=sys.stderr)
-    fwd_ptxas(logs["flash_fwd"])
-    fwd_sass(card)
-    _, spill_fails = bwd_ptxas(logs["flash_bwd"])
+    added_seconds, earlier_seconds = {}, {}
+    # the libraries' SASS is read on the host while the kernel checks run
+    sass_pending = Background(sass_opcodes_all)
+    fwd_rows = fwd_ptxas(logs["flash_fwd"])
+    bwd_rows, spill_fails = bwd_ptxas(logs["flash_bwd"])
     check(not spill_fails, "; ".join(spill_fails))
-    bwd_sass(card)
+    # the float16 instances' builds: ptxas beside their bf16 twins
+    f16_rows = fwd_ptxas(logs["flash_fwd_f16"])
+    f16_bwd_rows, spill_fails = bwd_ptxas(logs["flash_bwd_f16"])
+    check(not spill_fails, "float16: " + "; ".join(spill_fails))
+    for rec in float16_ptxas(fwd_rows + bwd_rows, f16_rows + f16_bwd_rows):
+        emit({**rec, "card": card})
     # the tp serving phases' follower boots while the kernel checks (which
     # hold no time) run
     tp_pending = Background(tp_serve_group)
@@ -7725,11 +8141,20 @@ def _main() -> int:
     emit({"phase": "kernels_checked", "kernels": [
         {"name": n, "launches": c} for n, c in read_counts().items()]})
     reset_counts()
+    t0 = time.perf_counter()
+    sass = sass_pending.result()
+    fwd_sass(card, sass["flash_fwd"])
+    bwd_sass(card, sass["flash_bwd"])
+    phase_float16_sass(card, sass)
+    added_seconds["float16_sass"] = time.perf_counter() - t0
 
     model32 = GPT(gpt2_config("flash", "float32"), seed=0, device="cuda")
     phase_forward(GPT, fa, model32)
     phase_grads(model32.params, card)
     generate_launches = phase_generate(GPT, fa, model32, card)
+    t0 = time.perf_counter()
+    f16_generate = phase_float16_generate(GPT, fa, model32.params, card)
+    added_seconds["float16_generate"] = time.perf_counter() - t0
     phase_sample(fa, card)
     parity = phase_serve_parity(model32.params, card)
     spec_parity = phase_serve_spec_parity(model32.params, card, parity)
@@ -7742,7 +8167,6 @@ def _main() -> int:
     serve_spec = {d: phase_serve(model32.params, card, draft=d, n_req=SERVE_SPEC_REQUESTS,
                                  serve_rec=serve)
                   for d in ("self:2", "self")}
-    added_seconds, earlier_seconds = {}, {}
     t0 = time.perf_counter()
     phase_graftaudit(model32.params, card)
     earlier_seconds["graftaudit"] = time.perf_counter() - t0
@@ -7808,6 +8232,9 @@ def _main() -> int:
     split = phase_train_step(card)
     fused = phase_train_step(card, fused=True, split=split)
     t0 = time.perf_counter()
+    f16_train, f16_fused = phase_float16_train(card)
+    added_seconds["float16_train"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     moe_split, moe_fused = phase_moe_train(fa, card)
     seconds["moe_train_step+fused"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -7815,7 +8242,10 @@ def _main() -> int:
     earlier_seconds["families"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     head_width_launches = phase_head_widths(fa, card)
-    added_seconds["head_widths"] = time.perf_counter() - t0
+    earlier_seconds["head_widths"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f16_errors = phase_float16_kernels(fa, card)
+    added_seconds["float16_kernels"] = time.perf_counter() - t0
     try:
         t0 = time.perf_counter()
         train_argv = phase_train_entry(card, tmp)
@@ -7839,7 +8269,8 @@ def _main() -> int:
     t0 = time.perf_counter()
     moe_sp_errs = phase_moe_sp_kernels(fa, card)
     earlier_seconds["moe_sp_kernels"] = time.perf_counter() - t0
-    sp_counts, sp_tp_counts, earlier_seconds["sp_tp"], ft, zm, ms, pp = phase_sp(card)
+    (sp_counts, sp_tp_counts, earlier_seconds["sp_tp"], ft, zm, ms, pp,
+     ring_f16) = phase_sp(card)
     ft_counts = phase_fsdp_tp(card, ft)
     earlier_seconds["fsdp_tp"] = ft[1]
     zero_counts, moe_ep_counts, zm_seconds = phase_zero_moe(card, zm)
@@ -7862,12 +8293,12 @@ def _main() -> int:
     earlier_seconds["zero_moe_times"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     head_width_rows = phase_head_width_times(fa, card)
-    added_seconds["head_width_times"] = time.perf_counter() - t0
+    earlier_seconds["head_width_times"] = time.perf_counter() - t0
     rows.update(phase_lse_times(fa, card))
     rows.update(phase_nh_times(nh, card))
     exp_counts, rows["exp_chain"] = phase_exp_tool(ex, card)
     emit_clocks("after times")
-    exp_sass(card)
+    exp_sass(card, sass["exp_exp2"])
 
     # max_abs_err at each path's shape, bf16: the training step's (K1, the
     # prep pass's delta, K2a, K2b, K2c), the sp path's zigzag hop (K3, K4a,
@@ -7926,6 +8357,39 @@ def _main() -> int:
                     f"{model}_fused" if name == "flash_bwd_fused" else model, {}).get(name, 0),
                         **head_width_rows[(model, name)]}
                 for model in HEAD_WIDTH_STEPS}
+    # the float16 instances (flash_*_f16.cu: flash_fwd.cu and flash_bwd.cu
+    # built for __half), their errors at GPT-2's shape (K3/K4 at the
+    # non-causal hop of that shape), times at the training shape (K3/K4 at
+    # the zigzag hop), launches on their float16 paths: the GPT-2 float16
+    # train step (K1, prep, K2a, K2b), its fused step (K2c), the float16
+    # ring on the sp ranks (K3, K4a, K4b, rank 0)
+    f16e = {kind: f16_errors[(kind, "f16_gpt2_train")] for kind in ("fwd", "prep", "bwd",
+                                                                      "fused")}
+    f16hop = f16_errors[("lse", "f16_gpt2_non_causal")]
+    fwd16_cu, bwd16_cu = f"{csrc}/flash_fwd_f16.cu", f"{csrc}/flash_bwd_f16.cu"
+    for counter, source, replaces, err, launches in (
+            ("flash_fwd", fwd16_cu, f"{jax_fa}:677", f16e["fwd"]["max_abs_err"],
+             f16_train["launches"]),
+            ("flash_bwd_prep", bwd16_cu, f"{jax_fa}:1101", f16e["prep"]["delta_max_abs_err"],
+             f16_train["launches"]),
+            ("flash_bwd_dq", bwd16_cu, f"{jax_fa}:750", f16e["bwd"]["dq_max_abs_err"],
+             f16_train["launches"]),
+            ("flash_bwd_dkv", bwd16_cu, f"{jax_fa}:818",
+             max(f16e["bwd"]["dk_max_abs_err"], f16e["bwd"]["dv_max_abs_err"]),
+             f16_train["launches"]),
+            ("flash_bwd_fused", bwd16_cu, f"{jax_fa}:896",
+             max(f16e["fused"][f"{g}_max_abs_err"] for g in ("dq", "dk", "dv")), f16_fused),
+            ("flash_lse_fwd", fwd16_cu, f"{jax_fa}:193", f16hop["max_abs_err"], ring_f16),
+            ("flash_lse_bwd_dq", bwd16_cu, f"{jax_fa}:346", f16hop["dq_max_abs_err"],
+             ring_f16),
+            ("flash_lse_bwd_dkv", bwd16_cu, f"{jax_fa}:412",
+             max(f16hop["dk_max_abs_err"], f16hop["dv_max_abs_err"]), ring_f16)):
+        line.append({"name": f"{counter}_f16", "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches[counter],
+                     "max_abs_err": err, **rows[f"{counter}_f16"], "dtype": "float16",
+                     "counter": counter})
+    next(k for k in line if k["name"] == "flash_fwd_f16")["generate_sliding_launches"] = \
+        f16_generate["flash_fwd"]
     check(all(k["launches"] > 0 for k in line),
           f"a kernel never ran on its path: {[k['name'] for k in line]}")
     check(all(moe_sp_counts[k] > 0 for k in MOE_SP_KERNELS),
@@ -7941,6 +8405,8 @@ def _main() -> int:
           "serve_tp_follower": serve_tp["follower_launches"][0],
           "proto_nh_kernel": proto_counts, "exp_exp2": exp_counts,
           "generate_sliding_bf16": {"flash_fwd": generate_launches},
+          "train_step_float16": f16_train["launches"], "train_step_fused_float16": f16_fused,
+          "generate_sliding_float16": f16_generate, "sp_ring_float16_rank0": ring_f16,
           "serve": serve["launches"],
           **{f"serve_spec_parity_{d}": v for d, v in spec_parity.items()},
           **{f"serve_quant_parity_{kv}": v for kv, v in quant_parity.items()},

@@ -3,10 +3,11 @@
 Each source ``csrc/<name>.cu`` exposes a plain C interface and becomes one
 shared library, compiled for Hopper (``sm_90a``) at first use into
 ``ops/_build/`` (listed in .gitignore) under a name keyed by a hash of the
-source, the shared headers (``csrc/*.cuh``) and the flags, so an edited
-source is rebuilt and an unchanged one is reused. No PyTorch headers are
-compiled, which keeps a build to seconds; ``build_all`` runs one nvcc per
-source, all at once.
+source, the sources it includes (``flash_fwd_f16.cu`` is ``flash_fwd.cu``
+built for float16, ``flash_bwd_f16.cu`` likewise), the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source is rebuilt and an
+unchanged one is reused. No PyTorch headers are compiled, which keeps a
+build to seconds; ``build_all`` runs one nvcc per source, all at once.
 
 A failed build raises; nothing falls back to another implementation.
 """
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,7 +27,9 @@ from typing import Dict, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES: Tuple[str, ...] = ("flash_fwd", "flash_bwd", "exp_exp2")
+# the float16 instances build in sources of their own, beside the others
+SOURCES: Tuple[str, ...] = ("flash_fwd", "flash_bwd", "flash_fwd_f16", "flash_bwd_f16",
+                            "exp_exp2")
 # --split-compile=0: nvcc optimises and assembles a source's kernels on
 # every core (flash_bwd.cu's ~100 kernels: 39 s against 91 s in one thread
 # on the H100 machine's 8 cores)
@@ -57,9 +61,18 @@ def nvcc() -> str:
     )
 
 
+def included_sources(name: str) -> Tuple[str, ...]:
+    """The ``.cu`` files that ``csrc/<name>.cu`` includes (``#include
+    "x.cu"``), by name without the suffix."""
+    text = (CSRC / f"{name}.cu").read_text()
+    return tuple(re.findall(r'^#include "(\w+)\.cu"', text, flags=re.M))
+
+
 def library_path(name: str) -> Path:
     """Where the shared library built from ``csrc/<name>.cu`` lives."""
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for src in included_sources(name):
+        h.update((CSRC / f"{src}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

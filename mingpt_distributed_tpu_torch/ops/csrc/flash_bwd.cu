@@ -41,10 +41,10 @@
 //        soft-capping, with t the unmasked tanh(s * scale / cap);
 //   dq = ds K;  dk = ds^T Q;  dv = p^T dO.
 // delta = rowsum(out * dO) comes from flash_bwd_prep. As the TPU kernels
-// do, the bf16 paths round P to bf16 before P^T dO and dS before dS K and
-// dS^T Q, and accumulate in float32. Tail tiles are masked (rows and keys at or past T
-// read as zeros, are never allowed, and are not stored), so any T >= 1
-// works.
+// do, the 16-bit (bf16, fp16) paths round P to the input dtype before
+// P^T dO and dS before dS K and dS^T Q, and accumulate in float32. Tail
+// tiles are masked (rows and keys at or past T read as zeros, are never
+// allowed, and are not stored), so any T >= 1 works.
 //
 // Head widths: instances at hd 16, 32, 64, 80, 96, 128 and 256 (the
 // prototype's at 16 to 128), rows in TMA boxes of box_cols(hd) columns;
@@ -59,13 +59,23 @@
 // dk/dv kernels sum the GQA group inside the block, with no atomics, so the
 // result does not depend on scheduling.
 //
-// bfloat16 dq and dk/dv (K2a, K2b, K4a, K4b, K5's backward) and K2c: TMA +
-// wgmma, warp-specialised, in the shape of the forward (flash_fwd.cu): persistent
-// blocks of 384 threads, one per SM, walking work items in a static round
-// robin, heaviest first; one producer warpgroup (its registers given to the
-// consumers by setmaxnreg) whose first thread issues every TMA load into a
-// ring of two stages guarded by full and empty mbarriers; two consumer
-// warpgroups of 64 rows each.
+// This file builds the library of the float32 and bfloat16 instances.
+// flash_bwd_f16.cu includes it with FLASH_F16 defined and builds the
+// float16 instances alone (K2a, K2b, K2c, K4a, K4b and the prep pass; the
+// prototype's nh_bwd_* keep float32 and bfloat16, as its JAX tool does):
+// the same kernel bodies over the 16-bit element type, float16 tensor maps
+// and wgmma operands (.f16), P and dS rounded to float16, dq, dk and dv
+// stored in float16 (K2c's dq added in float32 as for bf16); lse and delta
+// stay float32. Each library takes its own dtype codes (see launch_dq) and
+// refuses any other.
+//
+// bfloat16 and float16 dq and dk/dv (K2a, K2b, K4a, K4b, K5's backward) and
+// K2c: TMA + wgmma, warp-specialised, in the shape of the forward
+// (flash_fwd.cu): persistent blocks of 384 threads, one per SM, walking
+// work items in a static round robin, heaviest first; one producer
+// warpgroup (its registers given to the consumers by setmaxnreg) whose
+// first thread issues every TMA load into a ring of two stages guarded by
+// full and empty mbarriers; two consumer warpgroups of 64 rows each.
 //   dq: an item is 128 query rows of one head. Q and dO are loaded once per
 //     item; K and V come in tiles of 64 keys (32 at hd 256, to fit 227 KB).
 //     S = Q K^T and dP = dO V^T by wgmma m64n64k16 (m64n32k16) from shared
@@ -93,7 +103,7 @@
 //
 // K2c (flash_bwd_fused) is the dk/dv kernel with kFused: after a Q/dO
 // tile's dV and dK products are issued, each consumer warpgroup stores its
-// dS^T (64 keys x 64 queries, bf16, 128-byte swizzled rows of queries) to
+// dS^T (64 keys x 64 queries, 16-bit, 128-byte swizzled rows of queries) to
 // shared memory and computes its cell's dq = dS K (64 queries x hd over its
 // 64 keys) by wgmma, dS read transposed and K N-major, in column chunks of
 // at most 64. The two warpgroups hold the same 64 queries, so where both
@@ -549,8 +559,21 @@ __global__ void __launch_bounds__(F32Rows<HD>::kThreads) flash_dkv_f32_kernel(Pa
 
 
 // ---------------------------------------------------------------------------
-// bfloat16, K2a/K2b (K4a/K4b, K5): TMA + wgmma, warp-specialised
+// bfloat16 and float16, K2a/K2b (K4a/K4b, K5): TMA + wgmma, warp-specialised
 // ---------------------------------------------------------------------------
+
+// The dtype code of this library's 16-bit instances and their element type:
+// bfloat16 (1) beside float32 (0), or with FLASH_F16 (flash_bwd_f16.cu)
+// float16 (2) alone.
+#ifdef FLASH_F16
+using Elem16 = __half;
+constexpr int kCode16 = 2;
+constexpr bool kWithF32 = false;
+#else
+using Elem16 = __nv_bfloat16;
+constexpr int kCode16 = 1;
+constexpr bool kWithF32 = true;
+#endif
 
 constexpr int kWgThreads = 384;  // the producer warpgroup, two consumers
 constexpr int kConsumers = 256;  // consumer threads: each releases a stage
@@ -595,7 +618,7 @@ struct DqTiles : HeadRows<HD> {
 };
 
 // dk/dv: K and V of the item, two stages of Q, dO and (lse, delta), with
-// kFused each consumer warpgroup's dS^T tile (64 keys x 64 queries, bf16,
+// kFused each consumer warpgroup's dS^T tile (64 keys x 64 queries, 16-bit,
 // rows of 128 bytes, 128-byte swizzled) and the dq exchange (per
 // warpgroup and parity, a float4 per thread for each of its half chunk's
 // 8-column groups), then the barriers (K/V full and empty, full[] and
@@ -651,13 +674,12 @@ __device__ __forceinline__ int tile_class(const Params& p, int q0, int nq,
   return kAll;
 }
 
-template <int HD, bool kLse, bool kNat>
-__global__ void __launch_bounds__(kWgThreads, 1)
-    flash_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
-                         const __grid_constant__ CUtensorMap tk,
-                         const __grid_constant__ CUtensorMap tv,
-                         const __grid_constant__ CUtensorMap tdo,
-                         const Params p) {
+// The dq kernel's body over the 16-bit element type E; the kernels
+// flash_dq_bf16_kernel and flash_dq_f16_kernel run it.
+template <typename E, int HD, bool kLse, bool kNat>
+__device__ __forceinline__ void dq_wg(const CUtensorMap& tq, const CUtensorMap& tk,
+                                      const CUtensorMap& tv, const CUtensorMap& tdo,
+                                      const Params p) {
   using L = DqTiles<HD>;
   constexpr int kDqKeys = L::kKeys;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -779,10 +801,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           for (int kk = 0; kk < HD / 16; ++kk) {
             const uint32_t at = (kk * 16 / L::kBoxCols) * L::kQBox + (kk * 16 % L::kBoxCols) * 2;
             const uint32_t bt = (kk * 16 / L::kBoxCols) * L::kKBox + (kk * 16 % L::kBoxCols) * 2;
-            hopper::wgmma_ss<kDqKeys>(
+            hopper::wgmma_ss<E, kDqKeys>(
                 s, hopper::smem_desc(q_tile + at, 16, L::kSbo, L::kLayout),
                 hopper::smem_desc(k_tile + bt, 16, L::kSbo, L::kLayout), kk > 0);
-            hopper::wgmma_ss<kDqKeys>(
+            hopper::wgmma_ss<E, kDqKeys>(
                 dp, hopper::smem_desc(do_tile + at, 16, L::kSbo, L::kLayout),
                 hopper::smem_desc(v_tile + bt, 16, L::kSbo, L::kLayout), kk > 0);
           }
@@ -820,14 +842,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
           }
 
           // dq += dS K, 16 keys a step: dS's A fragment for keys 16c.. is
-          // the accumulators 8c..8c+7, rounded to bf16; K read N-major
+          // the accumulators 8c..8c+7, rounded to E; K read N-major
           uint32_t da[kDqKeys / 4];
 #pragma unroll
-          for (int j = 0; j < kDqKeys / 4; ++j) da[j] = pack_bf16(dp[2 * j], dp[2 * j + 1]);
+          for (int j = 0; j < kDqKeys / 4; ++j) da[j] = pack2<E>(dp[2 * j], dp[2 * j + 1]);
           hopper::wgmma_fence();
 #pragma unroll
           for (int c = 0; c < kDqKeys / 16; ++c) {
-            hopper::wgmma_rs_tb<HD>(
+            hopper::wgmma_rs_tb<E, HD>(
                 dq, da[4 * c], da[4 * c + 1], da[4 * c + 2], da[4 * c + 3],
                 hopper::smem_desc(k_tile + c * 16 * L::kRowBytes, L::kKBox, L::kSbo,
                                   L::kLayout));
@@ -851,25 +873,43 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         if (row[r] >= p.T) continue;
-        __nv_bfloat16* orow =
-            static_cast<__nv_bfloat16*>(p.dq) + row_index(p, b, row[r], p.H, h) * HD;
+        E* orow = static_cast<E*>(p.dq) + row_index(p, b, row[r], p.H, h) * HD;
 #pragma unroll
         for (int c = 0; c < HD / 8; ++c) {
           *reinterpret_cast<uint32_t*>(orow + 8 * c + 2 * t4) =
-              pack_bf16(dq[4 * c + 2 * r], dq[4 * c + 2 * r + 1]);
+              pack2<E>(dq[4 * c + 2 * r], dq[4 * c + 2 * r + 1]);
         }
       }
     }
   }
 }
 
-template <int HD, bool kLse, bool kNat, bool kFused>
+template <int HD, bool kLse, bool kNat>
 __global__ void __launch_bounds__(kWgThreads, 1)
-    flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
-                          const __grid_constant__ CUtensorMap tk,
-                          const __grid_constant__ CUtensorMap tv,
-                          const __grid_constant__ CUtensorMap tdo,
-                          const Params p) {
+    flash_dq_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const Params p) {
+  dq_wg<__nv_bfloat16, HD, kLse, kNat>(tq, tk, tv, tdo, p);
+}
+
+template <int HD, bool kLse, bool kNat>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_dq_f16_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap tdo,
+                        const Params p) {
+  dq_wg<__half, HD, kLse, kNat>(tq, tk, tv, tdo, p);
+}
+
+// The dk/dv kernel's body (K2c's with kFused) over the 16-bit element type
+// E; the kernels flash_dkv_bf16_kernel and flash_dkv_f16_kernel run it.
+template <typename E, int HD, bool kLse, bool kNat, bool kFused>
+__device__ __forceinline__ void dkv_wg(const CUtensorMap& tq, const CUtensorMap& tk,
+                                       const CUtensorMap& tv, const CUtensorMap& tdo,
+                                       const Params p) {
   using L = DkvTiles<HD, kFused>;
   constexpr bool kSplit = L::kSplit;
   constexpr int kDkvKeys = L::kKeys;
@@ -1032,10 +1072,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
             for (int kk = 0; kk < HD / 16; ++kk) {
               const uint32_t at = (kk * 16 / L::kBoxCols) * L::kKBox + (kk * 16 % L::kBoxCols) * 2;
               const uint32_t bt = (kk * 16 / L::kBoxCols) * L::kQBox + (kk * 16 % L::kBoxCols) * 2;
-              hopper::wgmma_m64n64k16_ss(
+              hopper::wgmma_ss<E, 64>(
                   s, hopper::smem_desc(k_tile + at, 16, L::kSbo, L::kLayout),
                   hopper::smem_desc(q_st + bt, 16, L::kSbo, L::kLayout), kk > 0);
-              hopper::wgmma_m64n64k16_ss(
+              hopper::wgmma_ss<E, 64>(
                   dp, hopper::smem_desc(v_tile + at, 16, L::kSbo, L::kLayout),
                   hopper::smem_desc(do_st + bt, 16, L::kSbo, L::kLayout), kk > 0);
             }
@@ -1074,13 +1114,13 @@ __global__ void __launch_bounds__(kWgThreads, 1)
             }
 
             // dV += P^T dO and dK += dS^T Q over this warpgroup's columns,
-            // 16 queries a step, P^T and dS^T rounded to bf16; dO and Q read
+            // 16 queries a step, P^T and dS^T rounded to E; dO and Q read
             // N-major
             uint32_t pa[kDkvRows / 4], da[kDkvRows / 4];
 #pragma unroll
             for (int j = 0; j < kDkvRows / 4; ++j) {
-              pa[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
-              da[j] = pack_bf16(dp[2 * j], dp[2 * j + 1]);
+              pa[j] = pack2<E>(s[2 * j], s[2 * j + 1]);
+              da[j] = pack2<E>(dp[2 * j], dp[2 * j + 1]);
             }
             if constexpr (kFused) {
               // dS^T to shared memory for dq: key row 16 warp + g (+ 8),
@@ -1098,10 +1138,10 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 #pragma unroll
             for (int c = 0; c < kDkvRows / 16; ++c) {
               const uint32_t at = col_box * L::kQBox + c * 16 * L::kRowBytes;
-              hopper::wgmma_rs_tb<kCols>(
+              hopper::wgmma_rs_tb<E, kCols>(
                   dv, pa[4 * c], pa[4 * c + 1], pa[4 * c + 2], pa[4 * c + 3],
                   hopper::smem_desc(do_st + at, L::kQBox, L::kSbo, L::kLayout));
-              hopper::wgmma_rs_tb<kCols>(
+              hopper::wgmma_rs_tb<E, kCols>(
                   dk, da[4 * c], da[4 * c + 1], da[4 * c + 2], da[4 * c + 3],
                   hopper::smem_desc(q_st + at, L::kQBox, L::kSbo, L::kLayout));
             }
@@ -1132,7 +1172,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
                 hopper::wgmma_fence();
 #pragma unroll
                 for (int c = 0; c < kWgRows / 16; ++c) {
-                  hopper::wgmma_ss_tt<kDqN>(
+                  hopper::wgmma_ss_tt<E, kDqN>(
                       dq, hopper::smem_desc(ds_tile + c * 16 * 128, L::kDsTile, 1024, 1),
                       hopper::smem_desc(k_tile + n * L::kKBox + c * 16 * L::kRowBytes,
                                         L::kKBox, L::kSbo, L::kLayout),
@@ -1204,17 +1244,56 @@ __global__ void __launch_bounds__(kWgThreads, 1)
       for (int r = 0; r < 2; ++r) {
         if (key[r] >= p.T) continue;
         const long long o = row_index(p, b, key[r], p.KV, kvh) * HD + col0;
-        __nv_bfloat16* dko = static_cast<__nv_bfloat16*>(p.dk) + o;
-        __nv_bfloat16* dvo = static_cast<__nv_bfloat16*>(p.dv) + o;
+        E* dko = static_cast<E*>(p.dk) + o;
+        E* dvo = static_cast<E*>(p.dv) + o;
 #pragma unroll
         for (int c = 0; c < kCols / 8; ++c) {
           *reinterpret_cast<uint32_t*>(dko + 8 * c + 2 * t4) =
-              pack_bf16(dk[4 * c + 2 * r], dk[4 * c + 2 * r + 1]);
+              pack2<E>(dk[4 * c + 2 * r], dk[4 * c + 2 * r + 1]);
           *reinterpret_cast<uint32_t*>(dvo + 8 * c + 2 * t4) =
-              pack_bf16(dv[4 * c + 2 * r], dv[4 * c + 2 * r + 1]);
+              pack2<E>(dv[4 * c + 2 * r], dv[4 * c + 2 * r + 1]);
         }
       }
     }
+  }
+}
+
+template <int HD, bool kLse, bool kNat, bool kFused>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_dkv_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo,
+                          const Params p) {
+  dkv_wg<__nv_bfloat16, HD, kLse, kNat, kFused>(tq, tk, tv, tdo, p);
+}
+
+template <int HD, bool kLse, bool kNat, bool kFused>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_dkv_f16_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const __grid_constant__ CUtensorMap tdo,
+                         const Params p) {
+  dkv_wg<__half, HD, kLse, kNat, kFused>(tq, tk, tv, tdo, p);
+}
+
+// The dq and dk/dv kernels of element type E.
+template <typename E, int HD, bool kLse, bool kNat>
+auto dq_kernel() {
+  if constexpr (hopper::kIsHalf<E>) {
+    return flash_dq_f16_kernel<HD, kLse, kNat>;
+  } else {
+    return flash_dq_bf16_kernel<HD, kLse, kNat>;
+  }
+}
+
+template <typename E, int HD, bool kLse, bool kNat, bool kFused>
+auto dkv_kernel() {
+  if constexpr (hopper::kIsHalf<E>) {
+    return flash_dkv_f16_kernel<HD, kLse, kNat, kFused>;
+  } else {
+    return flash_dkv_bf16_kernel<HD, kLse, kNat, kFused>;
   }
 }
 
@@ -1223,7 +1302,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
 // ---------------------------------------------------------------------------
 
 struct PrepParams {
-  const void* out;    // dense (B, T, H, hd), float32 or bf16
+  const void* out;    // dense (B, T, H, hd), float32, bf16 or fp16
   const void* dout;   // the same
   const float* dlse;  // (B, H, T) or null
   float* delta;       // (B, H, T)
@@ -1246,6 +1325,17 @@ __device__ __forceinline__ void load8(const __nv_bfloat16* x, float (&f)[8]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    f[2 * i] = v.x;
+    f[2 * i + 1] = v.y;
+  }
+}
+
+__device__ __forceinline__ void load8(const __half* x, float (&f)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(x);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 v = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
     f[2 * i] = v.x;
     f[2 * i + 1] = v.y;
   }
@@ -1338,28 +1428,29 @@ cudaError_t launch_f32(Kernel kernel, const Params& p, int heads, int smem,
   return cudaGetLastError();
 }
 
-// Tensor maps of q, k, v (the caller's strides) and dO (dense), each loaded
-// in boxes of `q_rows` (q, dO) or `k_rows` (k, v) rows, then one persistent
+// Tensor maps of q, k, v (the caller's strides) and dO (dense) in E, each
+// loaded in boxes of `q_rows` (q, dO) or `k_rows` (k, v) rows, then one persistent
 // block per SM, the count made coprime with `period` (the tiles per head of
 // the kernel's work items), at most one per item. A map that
 // cuTensorMapEncodeTiled refuses (a stride TMA cannot take) fails the
 // launch with cudaErrorInvalidValue.
-template <int HD, typename Kernel>
+template <typename E, int HD, typename Kernel>
 cudaError_t launch_wg(Kernel kernel, const Params& p, int q_rows, int k_rows,
                       int smem, int period, int n_items, cudaStream_t stream) {
   using R = HeadRows<HD>;
   constexpr CUtensorMapSwizzle kSwizzle = hopper::Swizzle<R::kRowBytes>::kMap;
+  constexpr CUtensorMapDataType kType = hopper::map_type<E>();
   const long long hd = HD;
   CUtensorMap tq, tk, tv, tdo;
-  if (!hopper::make_map_bf16(&tq, p.q, HD, p.H, p.T, p.B, p.q_sh, p.q_st,
-                             p.q_sb, R::kBoxCols, q_rows, kSwizzle) ||
-      !hopper::make_map_bf16(&tk, p.k, HD, p.KV, p.T, p.B, p.k_sh, p.k_st,
-                             p.k_sb, R::kBoxCols, k_rows, kSwizzle) ||
-      !hopper::make_map_bf16(&tv, p.v, HD, p.KV, p.T, p.B, p.v_sh, p.v_st,
-                             p.v_sb, R::kBoxCols, k_rows, kSwizzle) ||
-      !hopper::make_map_bf16(&tdo, p.dout, HD, p.H, p.T, p.B, hd, p.H * hd,
-                             static_cast<long long>(p.T) * p.H * hd, R::kBoxCols,
-                             q_rows, kSwizzle)) {
+  if (!hopper::make_map_16(&tq, kType, p.q, HD, p.H, p.T, p.B, p.q_sh, p.q_st,
+                           p.q_sb, R::kBoxCols, q_rows, kSwizzle) ||
+      !hopper::make_map_16(&tk, kType, p.k, HD, p.KV, p.T, p.B, p.k_sh, p.k_st,
+                           p.k_sb, R::kBoxCols, k_rows, kSwizzle) ||
+      !hopper::make_map_16(&tv, kType, p.v, HD, p.KV, p.T, p.B, p.v_sh, p.v_st,
+                           p.v_sb, R::kBoxCols, k_rows, kSwizzle) ||
+      !hopper::make_map_16(&tdo, kType, p.dout, HD, p.H, p.T, p.B, hd, p.H * hd,
+                           static_cast<long long>(p.T) * p.H * hd, R::kBoxCols,
+                           q_rows, kSwizzle)) {
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaFuncSetAttribute(
@@ -1378,34 +1469,43 @@ cudaError_t launch_wg(Kernel kernel, const Params& p, int q_rows, int k_rows,
   return cudaGetLastError();
 }
 
+// launch_dq and launch_dkv take this library's dtype codes (kCode16, and 0
+// beside bfloat16); any other code is refused, never run on another type's
+// kernel.
 template <int HD, bool kLse, bool kNat>
 cudaError_t launch_dq(const Params& p, int dtype, cudaStream_t stream) {
-  if (dtype == 0) {
-    constexpr int kR = F32Rows<HD>::kR;
-    const int smem = static_cast<int>(
-        (4 * kR * (HD + 4) + kR * (kR + 4)) * sizeof(float));
-    return launch_f32<HD>(flash_dq_f32_kernel<HD, kLse, kNat>, p, p.H, smem, stream);
+  if constexpr (kWithF32) {
+    if (dtype == 0) {
+      constexpr int kR = F32Rows<HD>::kR;
+      const int smem = static_cast<int>(
+          (4 * kR * (HD + 4) + kR * (kR + 4)) * sizeof(float));
+      return launch_f32<HD>(flash_dq_f32_kernel<HD, kLse, kNat>, p, p.H, smem, stream);
+    }
   }
+  if (dtype != kCode16) return cudaErrorInvalidValue;
   using L = DqTiles<HD>;
   const int n_q = (p.T + kDqRows - 1) / kDqRows;
-  return launch_wg<HD>(flash_dq_bf16_kernel<HD, kLse, kNat>, p, kDqRows, L::kKeys,
-                       L::kSmem, n_q, n_q * p.H * p.B, stream);
+  return launch_wg<Elem16, HD>(dq_kernel<Elem16, HD, kLse, kNat>(), p, kDqRows, L::kKeys,
+                               L::kSmem, n_q, n_q * p.H * p.B, stream);
 }
 
 template <int HD, bool kLse, bool kNat, bool kFused>
 cudaError_t launch_dkv(const Params& p, int dtype, cudaStream_t stream) {
-  if (dtype == 0) {
-    constexpr int kR = F32Rows<HD>::kR;
-    const int smem = static_cast<int>(
-        (4 * kR * (HD + 4) + 2 * kR * (kR + 4) + 2 * kR) * sizeof(float));
-    return launch_f32<HD>(flash_dkv_f32_kernel<HD, kLse, kNat, kFused>, p, p.KV, smem,
-                          stream);
+  if constexpr (kWithF32) {
+    if (dtype == 0) {
+      constexpr int kR = F32Rows<HD>::kR;
+      const int smem = static_cast<int>(
+          (4 * kR * (HD + 4) + 2 * kR * (kR + 4) + 2 * kR) * sizeof(float));
+      return launch_f32<HD>(flash_dkv_f32_kernel<HD, kLse, kNat, kFused>, p, p.KV, smem,
+                            stream);
+    }
   }
+  if (dtype != kCode16) return cudaErrorInvalidValue;
   static_assert(!kFused || (!kLse && !kNat), "K2c runs the plain causal band in base 2");
   using L = DkvTiles<HD, kFused>;
   const int n_k = (p.T + L::kKeys - 1) / L::kKeys;
-  return launch_wg<HD>(flash_dkv_bf16_kernel<HD, kLse, kNat, kFused>, p, kDkvRows,
-                       L::kKeys, L::kSmem, n_k, n_k * p.KV * p.B, stream);
+  return launch_wg<Elem16, HD>(dkv_kernel<Elem16, HD, kLse, kNat, kFused>(), p, kDkvRows,
+                               L::kKeys, L::kSmem, n_k, n_k * p.KV * p.B, stream);
 }
 
 Params make_params(const void* q, const void* k, const void* v,
@@ -1450,7 +1550,6 @@ template <bool kLse, bool kNat>
 int run_dq(Params p, void* dq, int hd, int dtype, void* stream) {
   p.dq = dq;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
     case 16: return static_cast<int>(launch_dq<16, kLse, kNat>(p, dtype, s));
     case 32: return static_cast<int>(launch_dq<32, kLse, kNat>(p, dtype, s));
@@ -1475,7 +1574,6 @@ int run_dkv(Params p, void* dq, void* dk, void* dv, int hd, int dtype,
   p.dk = dk;
   p.dv = dv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   switch (hd) {
     case 16:
       return static_cast<int>(launch_dkv<16, kLse, kNat, kFused>(p, dtype, s));
@@ -1501,9 +1599,11 @@ int run_dkv(Params p, void* dq, void* dk, void* dv, int hd, int dtype,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (rows 16-byte aligned). hd: 16, 32, 64,
-// 80, 96, 128 or 256 (nh_bwd_*: 16 to 128). Each returns a cudaError_t (0 =
-// success).
+// dtype: 0 = float32, 1 = bfloat16 (rows 16-byte aligned) in this library;
+// 2 = float16 (rows 16-byte aligned) in flash_bwd_f16.cu's, which has no
+// nh_bwd_*. hd: 16, 32, 64, 80, 96, 128 or 256 (nh_bwd_*: 16 to 128). Each
+// returns a cudaError_t (0 = success; cudaErrorInvalidValue for a dtype code
+// the library does not hold).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const void* lse,
                             const void* delta, void* dq, int B, int T, int H,
@@ -1555,7 +1655,8 @@ extern "C" int flash_bwd_fused(const void* q, const void* k, const void* v,
 // delta = rowsum(out * dout) - dlse (dlse may be null), dense (B, H, T)
 // float32; dq, when not null, a dense float32 (B, T, H, hd) buffer zeroed in
 // the same pass. out and dout dense (B, T, H, hd) in the dtype (0 =
-// float32, 1 = bfloat16), 16-byte aligned.
+// float32, 1 = bfloat16; 2 = float16 in flash_bwd_f16.cu's library),
+// 16-byte aligned.
 extern "C" int flash_bwd_prep(const void* out, const void* dout,
                               const void* dlse, void* delta, void* dq, int B,
                               int T, int H, int hd, int dtype, void* stream) {
@@ -1570,8 +1671,10 @@ extern "C" int flash_bwd_prep(const void* out, const void* dout,
   p.H = H;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B < 1 || T < 1 || H < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0) return static_cast<int>(launch_prep<float>(p, hd, s));
-  if (dtype == 1) return static_cast<int>(launch_prep<__nv_bfloat16>(p, hd, s));
+  if constexpr (kWithF32) {
+    if (dtype == 0) return static_cast<int>(launch_prep<float>(p, hd, s));
+  }
+  if (dtype == kCode16) return static_cast<int>(launch_prep<Elem16>(p, hd, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1611,6 +1714,7 @@ extern "C" int flash_lse_bwd_dkv(const void* q, const void* k, const void* v,
       nullptr, dk, dv, hd, dtype, stream);
 }
 
+#ifndef FLASH_F16
 // flash_bwd_dq and flash_bwd_dkv in the natural base (the per-head-grid
 // prototype's kernels): lse is the natural-domain lse all the same.
 extern "C" int nh_bwd_dq(const void* q, const void* k, const void* v,
@@ -1643,3 +1747,4 @@ extern "C" int nh_bwd_dkv(const void* q, const void* k, const void* v,
                   1, 0),
       nullptr, dk, dv, hd, dtype, stream);
 }
+#endif  // FLASH_F16

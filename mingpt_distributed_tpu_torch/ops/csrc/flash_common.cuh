@@ -1,11 +1,15 @@
 // Helpers shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu):
-// tile sizes, the softmax's base (2 or, for the prototype, e), bf16 packing
-// and the float32 kernels' staging of 64-row tiles into shared memory.
+// tile sizes, the softmax's base (2 or, for the prototype, e), 16-bit
+// packing (bf16, fp16) and the float32 kernels' staging of 64-row tiles into
+// shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace flash {
 
@@ -15,7 +19,7 @@ constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kInvLog2e = 0.6931471805599453f;
 
-// The columns of one TMA box of a bf16 head of HD columns, which fix its
+// The columns of one TMA box of a 16-bit head of HD columns, which fix its
 // rows' swizzle (32, 64 or 128 bytes): 64 where HD is a multiple of 64, else
 // 32 or 16, so hd 80 is five boxes of 16 and hd 96 three of 32. One width
 // for every box of a tile keeps one swizzle, and lets one wgmma of N = HD
@@ -55,6 +59,25 @@ __device__ __forceinline__ float to_base(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t pack_f16(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Two floats rounded to nearest (even) in the 16-bit element type E
+// (__nv_bfloat16 or __half), packed low half first: P and dS before their
+// products, as the TPU kernels round them to the input dtype, and the
+// kernels' 16-bit outputs.
+template <typename E>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<E, __half>::value) {
+    return pack_f16(lo, hi);
+  } else {
+    static_assert(std::is_same<E, __nv_bfloat16>::value, "pack2: bf16 or fp16");
+    return pack_bf16(lo, hi);
+  }
 }
 
 // Stage rows [row0, row0 + kRows) of one head into shared memory (row

@@ -22,6 +22,16 @@
 // or offset in their inner loops, flash_lse_fwd's the general one, and
 // nh_fwd's the plain band in the natural base.
 //
+// This file builds the library of the float32 and bfloat16 instances.
+// flash_fwd_f16.cu includes it with FLASH_F16 defined and builds the
+// float16 instances of the tensor-core kernel alone (flash_fwd and
+// flash_lse_fwd; the prototype's nh_fwd keeps float32 and bfloat16, as its
+// JAX tool does): the same source and arithmetic, float16 tensor maps and
+// wgmma operands (.f16), P rounded to float16 before P V as the TPU kernel
+// rounds it to the input dtype, out stored in float16; lse stays float32.
+// Each library takes its own dtype codes (see launch_hd) and refuses any
+// other.
+//
 // Dead rows (q_offset > 0: no key of the chunk inside a row's band) keep
 // m = -1e30 and l = 0, so they are written as out = 0 and lse = -1e30 *
 // ln 2 + ln(1e-30) ~ -6.9e29: finite, and weighted exactly 0 by an lse
@@ -36,7 +46,7 @@
 // Shared by both paths below:
 //   * the work is (q tile, head, batch) items, the heaviest (last) q tiles
 //     first: one thread block each in the fp32 path, persistent blocks in
-//     the bf16 path;
+//     the 16-bit (bf16, fp16) path;
 //   * the block walks the k/v tiles from the first tile of the band to the
 //     (offset) diagonal, or every tile when not causal, staging each
 //     through shared memory; tiles outside the band are never loaded;
@@ -51,8 +61,9 @@
 //   * finalize: l_safe = max(l, 1e-30), out = acc / l_safe,
 //     lse = m / log2(e) + log(l_safe) (natural base: m + log(l_safe)).
 //
-// bfloat16 inputs take Hopper's tensor cores, warp-specialised (FA3's
-// shape): persistent blocks of 384 threads, one per SM, each walking work
+// bfloat16 and float16 inputs take Hopper's tensor cores, warp-specialised
+// (FA3's shape; one kernel body over the 16-bit element type E):
+// persistent blocks of 384 threads, one per SM, each walking work
 // items of 128 query rows (a block's start-up, Q load and epilogue cost
 // about as much as a light item's products, so blocks stay resident and
 // the next item's loads run under this item's epilogue). One producer
@@ -62,9 +73,9 @@
 // empty mbarriers. Two consumer warpgroups of 64 query rows each compute
 // S = Q K^T by wgmma m64n128k16 (m64n64k16 at hd 256) from shared memory
 // (both K-major), the online softmax in registers, and O += P V by wgmma
-// with P from registers (rounded to bf16, as the TPU kernel does; l sums
-// the fp32 P) and V from shared memory through the transpose bit; then
-// release the stage. Two warpgroups, not three: with
+// with P from registers (rounded to E, as the TPU kernel rounds it to the
+// input dtype; l sums the fp32 P) and V from shared memory through the
+// transpose bit; then release the stage. Two warpgroups, not three: with
 // 128 keys per tile a consumer holds S (64 floats), O (up to 64 at hd 128)
 // and P (32 registers); three would leave 160 registers a thread and spill
 // at hd 128. While one warpgroup runs its softmax the other's products keep
@@ -82,8 +93,8 @@
 // query row; 217 KB of tiles at hd 256), because TF32 would not hold the
 // float32 tolerance.
 //
-// What bounds it on the H100: the bf16 work is memory-bound at the card's
-// rates (GPT-2 shapes: ~25 MB moved against ~6.4 GFLOP, 7.6 us at
+// What bounds it on the H100: the bf16 (and fp16) work is memory-bound at
+// the card's rates (GPT-2 shapes: ~25 MB moved against ~6.4 GFLOP, 7.6 us at
 // 3.35 TB/s), with the exponentials (one per allowed pair, 16 per clock
 // per SM) close behind at hd 64. Each K/V tile is loaded once per 128
 // query rows, so device-memory traffic stays small; what the design
@@ -329,8 +340,21 @@ __global__ void __launch_bounds__(kFmaThreads) flash_fwd_f32_kernel(Params p) {
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: TMA + wgmma, warp-specialised
+// bfloat16 and float16: TMA + wgmma, warp-specialised
 // ---------------------------------------------------------------------------
+
+// The dtype code of this library's 16-bit instances and their element type:
+// bfloat16 (1) beside float32 (0), or with FLASH_F16 (flash_fwd_f16.cu)
+// float16 (2) alone.
+#ifdef FLASH_F16
+using Elem16 = __half;
+constexpr int kCode16 = 2;
+constexpr bool kWithF32 = false;
+#else
+using Elem16 = __nv_bfloat16;
+constexpr int kCode16 = 1;
+constexpr bool kWithF32 = true;
+#endif
 
 constexpr int kWgQ = 128;        // query rows per work item: two warpgroups
 constexpr int kWgRows = 64;      // query rows per consumer warpgroup
@@ -373,12 +397,11 @@ __device__ __forceinline__ bool tile_unmasked(const Params& p, int r0, int k0) {
          (p.window <= 0 || qg + kWgRows - 1 - k0 < p.window);  // the window
 }
 
-template <int HD, bool kLse, bool kNat>
-__global__ void __launch_bounds__(kWgThreads, 1)
-    flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
-                          const __grid_constant__ CUtensorMap tk,
-                          const __grid_constant__ CUtensorMap tv,
-                          const Params p) {
+// The kernel's body over the 16-bit element type E; the kernels below
+// (one name per type) run it.
+template <typename E, int HD, bool kLse, bool kNat>
+__device__ __forceinline__ void fwd_wg(const CUtensorMap& tq, const CUtensorMap& tk,
+                                       const CUtensorMap& tv, const Params p) {
   using L = Tiles<HD>;
   constexpr int kKeys = L::kKeys;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -493,7 +516,7 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         for (int kk = 0; kk < HD / 16; ++kk) {
           const uint32_t box = kk * 16 / L::kBoxCols;        // which box
           const uint32_t col = (kk * 16 % L::kBoxCols) * 2;  // bytes into its rows
-          hopper::wgmma_ss<kKeys>(
+          hopper::wgmma_ss<E, kKeys>(
               s,
               hopper::smem_desc(q_tile + box * L::kQBox + col, 16, kSbo, L::kLayout),
               hopper::smem_desc(k_tile + box * L::kKBox + col, 16, kSbo, L::kLayout),
@@ -538,14 +561,14 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         for (int j = 0; j < HD / 2; ++j) o[j] *= alpha[(j >> 1) & 1];
 
         // O += P V, 16 keys a step: P's A fragment for keys 16c.. is the
-        // score accumulators 8c..8c+7, rounded to bf16
+        // score accumulators 8c..8c+7, rounded to E
         uint32_t pa[kKeys / 4];
 #pragma unroll
-        for (int j = 0; j < kKeys / 4; ++j) pa[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
+        for (int j = 0; j < kKeys / 4; ++j) pa[j] = pack2<E>(s[2 * j], s[2 * j + 1]);
         hopper::wgmma_fence();
 #pragma unroll
         for (int c = 0; c < kKeys / 16; ++c) {
-          hopper::wgmma_rs_tb<HD>(
+          hopper::wgmma_rs_tb<E, HD>(
               o, pa[4 * c], pa[4 * c + 1], pa[4 * c + 2], pa[4 * c + 3],
               hopper::smem_desc(v_tile + c * 16 * L::kRowBytes, L::kKBox, kSbo,
                                 L::kLayout));
@@ -569,13 +592,12 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
         if (row[r] >= p.T) continue;
         const float l_safe = fmaxf(l[r], 1e-30f);
-        __nv_bfloat16* orow =
-            static_cast<__nv_bfloat16*>(p.out) +
-            ((static_cast<long long>(b) * p.T + row[r]) * p.H + h) * HD;
+        E* orow = static_cast<E*>(p.out) +
+                  ((static_cast<long long>(b) * p.T + row[r]) * p.H + h) * HD;
 #pragma unroll
         for (int c = 0; c < HD / 8; ++c) {
           *reinterpret_cast<uint32_t*>(orow + 8 * c + 2 * t4) =
-              pack_bf16(o[4 * c + 2 * r] / l_safe, o[4 * c + 2 * r + 1] / l_safe);
+              pack2<E>(o[4 * c + 2 * r] / l_safe, o[4 * c + 2 * r + 1] / l_safe);
         }
         if (t4 == 0) {
           p.lse[(static_cast<long long>(b) * p.H + h) * p.T + row[r]] =
@@ -583,6 +605,34 @@ __global__ void __launch_bounds__(kWgThreads, 1)
         }
       }
     }
+  }
+}
+
+template <int HD, bool kLse, bool kNat>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const Params p) {
+  fwd_wg<__nv_bfloat16, HD, kLse, kNat>(tq, tk, tv, p);
+}
+
+template <int HD, bool kLse, bool kNat>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    flash_fwd_f16_kernel(const __grid_constant__ CUtensorMap tq,
+                         const __grid_constant__ CUtensorMap tk,
+                         const __grid_constant__ CUtensorMap tv,
+                         const Params p) {
+  fwd_wg<__half, HD, kLse, kNat>(tq, tk, tv, p);
+}
+
+// The kernel of element type E.
+template <typename E, int HD, bool kLse, bool kNat>
+auto fwd_kernel() {
+  if constexpr (hopper::kIsHalf<E>) {
+    return flash_fwd_f16_kernel<HD, kLse, kNat>;
+  } else {
+    return flash_fwd_bf16_kernel<HD, kLse, kNat>;
   }
 }
 
@@ -609,22 +659,24 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
                 stream);
 }
 
-// Tensor maps of q, k and v, then the launch. A map the driver refuses
-// (a stride TMA cannot take) fails the launch with cudaErrorInvalidValue.
-template <int HD, bool kLse, bool kNat>
-cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
+// Tensor maps of q, k and v in E, then the launch. A map the driver
+// refuses (a stride TMA cannot take) fails the launch with
+// cudaErrorInvalidValue.
+template <typename E, int HD, bool kLse, bool kNat>
+cudaError_t launch_wg(const Params& p, cudaStream_t stream) {
   using L = Tiles<HD>;
   constexpr CUtensorMapSwizzle kSwizzle = hopper::Swizzle<L::kRowBytes>::kMap;
+  constexpr CUtensorMapDataType kType = hopper::map_type<E>();
   CUtensorMap tq, tk, tv;
-  if (!hopper::make_map_bf16(&tq, p.q, HD, p.H, p.T, p.B, p.q_sh, p.q_st,
-                             p.q_sb, L::kBoxCols, kWgQ, kSwizzle) ||
-      !hopper::make_map_bf16(&tk, p.k, HD, p.KV, p.T, p.B, p.k_sh, p.k_st,
-                             p.k_sb, L::kBoxCols, L::kKeys, kSwizzle) ||
-      !hopper::make_map_bf16(&tv, p.v, HD, p.KV, p.T, p.B, p.v_sh, p.v_st,
-                             p.v_sb, L::kBoxCols, L::kKeys, kSwizzle)) {
+  if (!hopper::make_map_16(&tq, kType, p.q, HD, p.H, p.T, p.B, p.q_sh, p.q_st,
+                           p.q_sb, L::kBoxCols, kWgQ, kSwizzle) ||
+      !hopper::make_map_16(&tk, kType, p.k, HD, p.KV, p.T, p.B, p.k_sh, p.k_st,
+                           p.k_sb, L::kBoxCols, L::kKeys, kSwizzle) ||
+      !hopper::make_map_16(&tv, kType, p.v, HD, p.KV, p.T, p.B, p.v_sh, p.v_st,
+                           p.v_sb, L::kBoxCols, L::kKeys, kSwizzle)) {
     return cudaErrorInvalidValue;
   }
-  auto kernel = flash_fwd_bf16_kernel<HD, kLse, kNat>;
+  auto kernel = fwd_kernel<E, HD, kLse, kNat>();
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kSmem);
   if (err != cudaSuccess) return err;
@@ -644,10 +696,14 @@ cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// This library's dtype codes (kCode16, and 0 beside bfloat16); any other
+// code is refused, never run on another type's kernel.
 template <int HD, bool kLse, bool kNat>
 cudaError_t launch_hd(const Params& p, int dtype, cudaStream_t s) {
-  if (dtype == 0) return launch_f32<HD, kLse, kNat>(p, s);
-  if (dtype == 1) return launch_bf16<HD, kLse, kNat>(p, s);
+  if constexpr (kWithF32) {
+    if (dtype == 0) return launch_f32<HD, kLse, kNat>(p, s);
+  }
+  if (dtype == kCode16) return launch_wg<Elem16, HD, kLse, kNat>(p, s);
   return cudaErrorInvalidValue;
 }
 
@@ -708,9 +764,11 @@ int run(const void* q, const void* k, const void* v, void* out, void* lse,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (rows 16-byte aligned). hd: 16, 32, 64,
-// 80, 96, 128 or 256 (nh_fwd: 16 to 128). Each returns a cudaError_t (0 =
-// success).
+// dtype: 0 = float32, 1 = bfloat16 (rows 16-byte aligned) in this library;
+// 2 = float16 (rows 16-byte aligned) in flash_fwd_f16.cu's, which has no
+// nh_fwd. hd: 16, 32, 64, 80, 96, 128 or 256 (nh_fwd: 16 to 128). Each
+// returns a cudaError_t (0 = success; cudaErrorInvalidValue for a dtype code
+// the library does not hold).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* out, void* lse, int B, int T, int H, int KV,
                          int hd, long long q_sb, long long q_st,
@@ -737,6 +795,7 @@ extern "C" int flash_lse_fwd(const void* q, const void* k, const void* v,
                           window, softcap, causal, q_offset, dtype, stream);
 }
 
+#ifndef FLASH_F16
 // flash_fwd in the natural base (the per-head-grid prototype's kernel).
 extern "C" int nh_fwd(const void* q, const void* k, const void* v, void* out,
                       void* lse, int B, int T, int H, int KV, int hd,
@@ -749,3 +808,4 @@ extern "C" int nh_fwd(const void* q, const void* k, const void* v, void* out,
                           q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, scale,
                           window, softcap, 1, 0, dtype, stream);
 }
+#endif  // FLASH_F16

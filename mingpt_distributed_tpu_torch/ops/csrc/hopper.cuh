@@ -1,11 +1,15 @@
-// Hopper (sm_90a) building blocks of the bf16 flash kernels: mbarriers,
-// TMA tile loads, shared-memory matrix descriptors and warpgroup products
-// (wgmma), each a thin wrapper over its PTX instruction.
+// Hopper (sm_90a) building blocks of the 16-bit (bf16 and fp16) flash
+// kernels: mbarriers, TMA tile loads, shared-memory matrix descriptors and
+// warpgroup products (wgmma), each a thin wrapper over its PTX instruction.
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hopper {
 
@@ -166,365 +170,320 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
-// d (64 x 128, fp32) = (scale_d ? d : 0) + A B for A 64 x 16 and B 16 x 128,
-// both bf16 in shared memory, K-major (the 16-deep axis contiguous).
-// Accumulator ownership per warp w of the warpgroup, g = lane / 4,
-// t = lane % 4: d[4j + e] is row 16w + g + 8 (e / 2), column 8j + 2t + e % 2.
-__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
-                                                    uint64_t desc_a,
-                                                    uint64_t desc_b,
-                                                    int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+
+// The products' operand type, .bf16 or .f16, is a word of the instruction:
+// each product below is a macro over it (AB, a string literal), and each
+// function picks its instance for the element type E (__nv_bfloat16 or
+// __half) at compile time. Accumulators are fp32 for both.
+template <typename E>
+constexpr bool kIsHalf = std::is_same<E, __half>::value;
+
+template <typename E>
+__device__ __forceinline__ void check_elem() {
+  static_assert(std::is_same<E, __half>::value || std::is_same<E, __nv_bfloat16>::value,
+                "the wgmma products take bf16 or fp16 operands");
 }
 
-// wgmma_m64n128k16_ss at N = 64 (d as there, j < 8).
-__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32],
-                                                   uint64_t desc_a,
-                                                   uint64_t desc_b,
-                                                   int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
+// Eight "+f" operands d[i] .. d[i + 7] of an accumulator array d.
+#define HOPPER_D8(i)                                                            \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),   \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
-// wgmma_m64n128k16_ss at N = 32 (d as there, j < 4).
-__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16],
-                                                   uint64_t desc_a,
-                                                   uint64_t desc_b,
-                                                   int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
+#define HOPPER_WGMMA_SS_N32(AB)                                                 \
+  asm volatile(                                                                 \
+      "{\n"                                                                     \
+      ".reg .pred p;\n"                                                         \
+      "setp.ne.b32 p, %18, 0;\n"                                                \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." AB "." AB " "               \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "      \
+      "%15}, %16, %17, p, 1, 1, 0, 0;\n"                                        \
+      "}\n"                                                                     \
+      : HOPPER_D8(0),                                                           \
+        HOPPER_D8(8)                                                            \
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d))
 
-// The K-major product of wgmma_m64n128k16_ss at N = 32, 64 or 128 keys.
-template <int N>
+#define HOPPER_WGMMA_SS_N64(AB)                                                 \
+  asm volatile(                                                                 \
+      "{\n"                                                                     \
+      ".reg .pred p;\n"                                                         \
+      "setp.ne.b32 p, %34, 0;\n"                                                \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " "               \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "      \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "       \
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n"                         \
+      "}\n"                                                                     \
+      : HOPPER_D8(0),                                                           \
+        HOPPER_D8(8),                                                           \
+        HOPPER_D8(16),                                                          \
+        HOPPER_D8(24)                                                           \
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+
+#define HOPPER_WGMMA_SS_N128(AB)                                                \
+  asm volatile(                                                                 \
+      "{\n"                                                                     \
+      ".reg .pred p;\n"                                                         \
+      "setp.ne.b32 p, %66, 0;\n"                                                \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " "              \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "      \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "       \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "       \
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "       \
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, "        \
+      "1, 1, 0, 0;\n"                                                           \
+      "}\n"                                                                     \
+      : HOPPER_D8(0),                                                           \
+        HOPPER_D8(8),                                                           \
+        HOPPER_D8(16),                                                          \
+        HOPPER_D8(24),                                                          \
+        HOPPER_D8(32),                                                          \
+        HOPPER_D8(40),                                                          \
+        HOPPER_D8(48),                                                          \
+        HOPPER_D8(56)                                                           \
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+
+#define HOPPER_WGMMA_RS_TB_N16(AB)                                              \
+  asm volatile(                                                                 \
+      "{\n"                                                                     \
+      ".reg .pred p;\n"                                                         \
+      "setp.ne.b32 p, %13, 0;\n"                                                \
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32." AB "." AB " "               \
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, "       \
+      "1, 1;\n"                                                                 \
+      "}\n"                                                                     \
+      : HOPPER_D8(0)                                                            \
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1))
+
+#define HOPPER_WGMMA_RS_TB_N32(AB)                                              \
+  asm volatile(                                                                 \
+      "{\n"                                                                     \
+      ".reg .pred p;\n"                                                         \
+      "setp.ne.b32 p, %21, 0;\n"                                                \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." AB "." AB " "               \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "      \
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"                          \
+      "}\n"                                                                     \
+      : HOPPER_D8(0),                                                           \
+        HOPPER_D8(8)                                                            \
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1))
+
+#define HOPPER_WGMMA_RS_TB_N64(AB)                                              \
+  asm volatile(                                                                 \
+      "{\n"                                                                     \
+      ".reg .pred p;\n"                                                         \
+      "setp.ne.b32 p, %37, 0;\n"                                                \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " "               \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "      \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "       \
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"           \
+      "}\n"                                                                     \
+      : HOPPER_D8(0),                                                           \
+        HOPPER_D8(8),                                                           \
+        HOPPER_D8(16),                                                          \
+        HOPPER_D8(24)                                                           \
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1))
+
+#define HOPPER_WGMMA_RS_TB_N80(AB)                                              \
+  asm volatile(                                                                 \
+      "{\n"                                                                     \
+      ".reg .pred p;\n"                                                         \
+      "setp.ne.b32 p, %45, 0;\n"                                                \
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32." AB "." AB " "               \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "      \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "       \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "           \
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n"                                \
+      "}\n"                                                                     \
+      : HOPPER_D8(0),                                                           \
+        HOPPER_D8(8),                                                           \
+        HOPPER_D8(16),                                                          \
+        HOPPER_D8(24),                                                          \
+        HOPPER_D8(32)                                                           \
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1))
+
+#define HOPPER_WGMMA_RS_TB_N96(AB)                                              \
+  asm volatile(                                                                 \
+      "{\n"                                                                     \
+      ".reg .pred p;\n"                                                         \
+      "setp.ne.b32 p, %53, 0;\n"                                                \
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32." AB "." AB " "               \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "      \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "       \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "       \
+      "%41, %42, %43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p, "      \
+      "1, 1, 1;\n"                                                              \
+      "}\n"                                                                     \
+      : HOPPER_D8(0),                                                           \
+        HOPPER_D8(8),                                                           \
+        HOPPER_D8(16),                                                          \
+        HOPPER_D8(24),                                                          \
+        HOPPER_D8(32),                                                          \
+        HOPPER_D8(40)                                                           \
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1))
+
+#define HOPPER_WGMMA_RS_TB_N128(AB)                                             \
+  asm volatile(                                                                 \
+      "{\n"                                                                     \
+      ".reg .pred p;\n"                                                         \
+      "setp.ne.b32 p, %69, 0;\n"                                                \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " "              \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "      \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "       \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "       \
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "       \
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, "          \
+      "%66, %67}, %68, p, 1, 1, 1;\n"                                           \
+      "}\n"                                                                     \
+      : HOPPER_D8(0),                                                           \
+        HOPPER_D8(8),                                                           \
+        HOPPER_D8(16),                                                          \
+        HOPPER_D8(24),                                                          \
+        HOPPER_D8(32),                                                          \
+        HOPPER_D8(40),                                                          \
+        HOPPER_D8(48),                                                          \
+        HOPPER_D8(56)                                                           \
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1))
+
+#define HOPPER_WGMMA_RS_TB_N256(AB)                                             \
+  asm volatile(                                                                 \
+      "{\n"                                                                     \
+      ".reg .pred p;\n"                                                         \
+      "setp.ne.b32 p, %133, 0;\n"                                               \
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32." AB "." AB " "              \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "      \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "       \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "       \
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "       \
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "       \
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "       \
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "       \
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "       \
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "      \
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "      \
+      "%127}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"                    \
+      "}\n"                                                                     \
+      : HOPPER_D8(0),                                                           \
+        HOPPER_D8(8),                                                           \
+        HOPPER_D8(16),                                                          \
+        HOPPER_D8(24),                                                          \
+        HOPPER_D8(32),                                                          \
+        HOPPER_D8(40),                                                          \
+        HOPPER_D8(48),                                                          \
+        HOPPER_D8(56),                                                          \
+        HOPPER_D8(64),                                                          \
+        HOPPER_D8(72),                                                          \
+        HOPPER_D8(80),                                                          \
+        HOPPER_D8(88),                                                          \
+        HOPPER_D8(96),                                                          \
+        HOPPER_D8(104),                                                         \
+        HOPPER_D8(112),                                                         \
+        HOPPER_D8(120)                                                          \
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1))
+
+#define HOPPER_WGMMA_SS_TT_N16(AB)                                              \
+  asm volatile(                                                                 \
+      "{\n"                                                                     \
+      ".reg .pred p;\n"                                                         \
+      "setp.ne.b32 p, %10, 0;\n"                                                \
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32." AB "." AB " "               \
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 1, 1;\n"              \
+      "}\n"                                                                     \
+      : HOPPER_D8(0)                                                            \
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+
+#define HOPPER_WGMMA_SS_TT_N32(AB)                                              \
+  asm volatile(                                                                 \
+      "{\n"                                                                     \
+      ".reg .pred p;\n"                                                         \
+      "setp.ne.b32 p, %18, 0;\n"                                                \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." AB "." AB " "               \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "      \
+      "%15}, %16, %17, p, 1, 1, 1, 1;\n"                                        \
+      "}\n"                                                                     \
+      : HOPPER_D8(0),                                                           \
+        HOPPER_D8(8)                                                            \
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+
+#define HOPPER_WGMMA_SS_TT_N64(AB)                                              \
+  asm volatile(                                                                 \
+      "{\n"                                                                     \
+      ".reg .pred p;\n"                                                         \
+      "setp.ne.b32 p, %34, 0;\n"                                                \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " "               \
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "      \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "       \
+      "%28, %29, %30, %31}, %32, %33, p, 1, 1, 1, 1;\n"                         \
+      "}\n"                                                                     \
+      : HOPPER_D8(0),                                                           \
+        HOPPER_D8(8),                                                           \
+        HOPPER_D8(16),                                                          \
+        HOPPER_D8(24)                                                           \
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d))
+
+// d (64 x N, fp32) = (scale_d ? d : 0) + A B for A 64 x 16 and B 16 x N
+// (N = 32, 64 or 128 keys), both E in shared memory, K-major (the 16-deep
+// axis contiguous). Accumulator ownership per warp w of the warpgroup,
+// g = lane / 4, t = lane % 4: d[4j + e] is row 16w + g + 8 (e / 2), column
+// 8j + 2t + e % 2.
+template <typename E, int N>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
                                          uint64_t desc_b, int scale_d) {
   static_assert(N == 32 || N == 64 || N == 128, "wgmma_ss: N is 32, 64 or 128");
+  check_elem<E>();
   if constexpr (N == 32) {
-    wgmma_m64n32k16_ss(d, desc_a, desc_b, scale_d);
+    if constexpr (kIsHalf<E>) HOPPER_WGMMA_SS_N32("f16"); else HOPPER_WGMMA_SS_N32("bf16");
   } else if constexpr (N == 64) {
-    wgmma_m64n64k16_ss(d, desc_a, desc_b, scale_d);
+    if constexpr (kIsHalf<E>) HOPPER_WGMMA_SS_N64("f16"); else HOPPER_WGMMA_SS_N64("bf16");
   } else {
-    wgmma_m64n128k16_ss(d, desc_a, desc_b, scale_d);
+    if constexpr (kIsHalf<E>) HOPPER_WGMMA_SS_N128("f16"); else HOPPER_WGMMA_SS_N128("bf16");
   }
 }
 
-// d (64 x N, fp32) += A B for A 64 x 16 bf16 in registers and B 16 x N bf16
-// in shared memory, N-major (transposed: the N axis contiguous). A's
-// fragment per warp w: a = {A[g][2t..], A[g+8][2t..], A[g][2t+8..],
-// A[g+8][2t+8..]} (rows 16w + ..., ".." the pair packed low half first);
-// d as in wgmma_m64n128k16_ss.
-template <int N>
+// d (64 x N, fp32) += A B for A 64 x 16 E in registers and B 16 x N E in
+// shared memory, N-major (transposed: the N axis contiguous); N = 16, 32,
+// 64, 80, 96, 128 or 256. A's fragment per warp w: a = {A[g][2t..],
+// A[g+8][2t..], A[g][2t+8..], A[g+8][2t+8..]} (rows 16w + ..., ".." the pair
+// packed low half first); d as in wgmma_ss.
+template <typename E, int N>
 __device__ __forceinline__ void wgmma_rs_tb(float (&d)[N / 2], uint32_t a0,
                                             uint32_t a1, uint32_t a2,
-                                            uint32_t a3, uint64_t desc_b);
-
-template <>
-__device__ __forceinline__ void wgmma_rs_tb<16>(float (&d)[8], uint32_t a0,
-                                                uint32_t a1, uint32_t a2,
-                                                uint32_t a3, uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %13, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
-      "1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
+                                            uint32_t a3, uint64_t desc_b) {
+  check_elem<E>();
+  constexpr bool h = kIsHalf<E>;
+  if constexpr (N == 16) {
+    if constexpr (h) HOPPER_WGMMA_RS_TB_N16("f16"); else HOPPER_WGMMA_RS_TB_N16("bf16");
+  } else if constexpr (N == 32) {
+    if constexpr (h) HOPPER_WGMMA_RS_TB_N32("f16"); else HOPPER_WGMMA_RS_TB_N32("bf16");
+  } else if constexpr (N == 64) {
+    if constexpr (h) HOPPER_WGMMA_RS_TB_N64("f16"); else HOPPER_WGMMA_RS_TB_N64("bf16");
+  } else if constexpr (N == 80) {
+    if constexpr (h) HOPPER_WGMMA_RS_TB_N80("f16"); else HOPPER_WGMMA_RS_TB_N80("bf16");
+  } else if constexpr (N == 96) {
+    if constexpr (h) HOPPER_WGMMA_RS_TB_N96("f16"); else HOPPER_WGMMA_RS_TB_N96("bf16");
+  } else if constexpr (N == 128) {
+    if constexpr (h) HOPPER_WGMMA_RS_TB_N128("f16"); else HOPPER_WGMMA_RS_TB_N128("bf16");
+  } else {
+    static_assert(N == 256, "wgmma_rs_tb: N is 16, 32, 64, 80, 96, 128 or 256");
+    if constexpr (h) HOPPER_WGMMA_RS_TB_N256("f16"); else HOPPER_WGMMA_RS_TB_N256("bf16");
+  }
 }
 
-template <>
-__device__ __forceinline__ void wgmma_rs_tb<32>(float (&d)[16], uint32_t a0,
-                                                uint32_t a1, uint32_t a2,
-                                                uint32_t a3, uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs_tb<64>(float (&d)[32], uint32_t a0,
-                                                uint32_t a1, uint32_t a2,
-                                                uint32_t a3, uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs_tb<80>(float (&d)[40], uint32_t a0,
-                                                uint32_t a1, uint32_t a2,
-                                                uint32_t a3, uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39}, "
-      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs_tb<96>(float (&d)[48], uint32_t a0,
-                                                uint32_t a1, uint32_t a2,
-                                                uint32_t a3, uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %53, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
-      "%42, %43, %44, %45, %46, %47}, "
-      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs_tb<128>(float (&d)[64], uint32_t a0,
-                                                 uint32_t a1, uint32_t a2,
-                                                 uint32_t a3, uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
-      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
-      "%57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs_tb<256>(float (&d)[128], uint32_t a0,
-                                                uint32_t a1, uint32_t a2,
-                                                uint32_t a3, uint64_t desc_b) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
-      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, "
-      "%42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, "
-      "%70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
-      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
-      "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, "
-      "%126, %127}, "
-      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
-        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
-        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
-        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
-        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
-        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
-        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
-        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
-        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
-        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
-        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
-        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
-}
-
-// d (64 x N, fp32) = (scale_d ? d : 0) + A B for A 64 x 16 and B 16 x N,
-// both bf16 in shared memory and both M/N-major (transposed: the 64 rows of
-// A, the N columns of B contiguous); d as in wgmma_m64n128k16_ss.
-template <int N>
+// d (64 x N, fp32) = (scale_d ? d : 0) + A B for A 64 x 16 and B 16 x N
+// (N = 16, 32 or 64), both E in shared memory and both M/N-major
+// (transposed: the 64 rows of A, the N columns of B contiguous); d as in
+// wgmma_ss.
+template <typename E, int N>
 __device__ __forceinline__ void wgmma_ss_tt(float (&d)[N / 2], uint64_t desc_a,
-                                            uint64_t desc_b, int scale_d);
-
-template <>
-__device__ __forceinline__ void wgmma_ss_tt<16>(float (&d)[8], uint64_t desc_a,
-                                                uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss_tt<32>(float (&d)[16], uint64_t desc_a,
-                                                uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, %16, %17, p, 1, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss_tt<64>(float (&d)[32], uint64_t desc_a,
-                                                uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
-      "%29, %30, %31}, %32, %33, p, 1, 1, 1, 1;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+                                            uint64_t desc_b, int scale_d) {
+  check_elem<E>();
+  constexpr bool h = kIsHalf<E>;
+  if constexpr (N == 16) {
+    if constexpr (h) HOPPER_WGMMA_SS_TT_N16("f16"); else HOPPER_WGMMA_SS_TT_N16("bf16");
+  } else if constexpr (N == 32) {
+    if constexpr (h) HOPPER_WGMMA_SS_TT_N32("f16"); else HOPPER_WGMMA_SS_TT_N32("bf16");
+  } else {
+    static_assert(N == 64, "wgmma_ss_tt: N is 16, 32 or 64");
+    if constexpr (h) HOPPER_WGMMA_SS_TT_N64("f16"); else HOPPER_WGMMA_SS_TT_N64("bf16");
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -557,14 +516,18 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor (hd, heads, T, B), innermost first, with the caller's
-// strides in elements, loaded in boxes of (box_cols, 1, box_rows, 1). A
-// stride of a dimension of size 1 is never used to address; it is replaced
-// by a legal one. Returns false when the driver refuses the map.
-inline bool make_map_bf16(CUtensorMap* map, const void* base, int hd,
-                          int heads, int t, int b, long long s_head,
-                          long long s_t, long long s_b, int box_cols,
-                          int box_rows, CUtensorMapSwizzle swizzle) {
+// A 16-bit tensor (hd, heads, T, B) of element type `type` (bf16 or fp16),
+// innermost first, with the caller's strides in elements, loaded in boxes
+// of (box_cols, 1, box_rows, 1). A stride of a dimension of size 1 is never
+// used to address; it is replaced by a legal one. Returns false when the
+// driver refuses the map.
+inline bool make_map_16(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                        int hd, int heads, int t, int b, long long s_head,
+                        long long s_t, long long s_b, int box_cols, int box_rows,
+                        CUtensorMapSwizzle swizzle) {
+  if (type != CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 && type != CU_TENSOR_MAP_DATA_TYPE_FLOAT16) {
+    return false;
+  }
   EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return false;
   const long long el = 2;
@@ -578,10 +541,16 @@ inline bool make_map_bf16(CUtensorMap* map, const void* base, int hd,
   cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), 1u,
                        static_cast<cuuint32_t>(box_rows), 1u};
   cuuint32_t elem_strides[4] = {1u, 1u, 1u, 1u};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
-                dims, strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return encode(map, type, 4, const_cast<void*>(base), dims, strides, box,
+                elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The tensor-map data type of a 16-bit element type E.
+template <typename E>
+constexpr CUtensorMapDataType map_type() {
+  return kIsHalf<E> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 }
 
 }  // namespace hopper

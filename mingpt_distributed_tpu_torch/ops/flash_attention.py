@@ -40,9 +40,17 @@ the sources for their design and what bounds them.
 * ``FLASH_FUSED_BWD=1``, the JAX package's own switch, read at each call as
   ``_flash_bwd_btd`` reads it, sends ``flash_bwd`` on CUDA tensors to the
   fused kernel K2c (``flash_bwd_fused``) in place of K2a + K2b, at any T.
+* dtypes: float32 (SIMT kernels), bfloat16 and float16 (the TMA + wgmma
+  kernels; float16's instances live in libraries of their own,
+  ``csrc/flash_fwd_f16.cu`` and ``csrc/flash_bwd_f16.cu``, which compile
+  the same kernel bodies for ``__half``). A 16-bit kernel rounds P and dS
+  to its input dtype before their products, as the TPU kernels do, and
+  accumulates in float32; lse and delta stay float32. The prototype's K5
+  keeps float32 and bfloat16, as its JAX tool does.
 * ``flash_fwd`` and ``flash_bwd`` run the plain versions for tensors on the
   CPU. For CUDA tensors they launch the kernels or raise; nothing falls
-  back.
+  back (a float16 CUDA tensor launches a float16 instance, never a
+  float32 one).
 * ``flash_fwd_plain`` is dense masked softmax with the natural-domain
   log-sum-exp, ``flash_bwd_plain`` the dense gradient from the saved lse:
   what the kernels compute, written plainly, in float32 (float64 for
@@ -74,7 +82,13 @@ from mingpt_distributed_tpu_torch.ops import attention as attn_ops
 
 NATIVE_HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 HEAD_DIM_RANGE = (8, 256)
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# dtype: its code in the C entry points. Each library holds some codes and
+# refuses the others (cudaErrorInvalidValue): flash_fwd and flash_bwd 0 and
+# 1, their float16 builds flash_fwd_f16 and flash_bwd_f16 2.
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# entry points the float16 libraries do not have: K5 keeps its JAX tool's
+# dtypes
+_NOT_IN_F16 = ("nh_fwd", "nh_bwd_dq", "nh_bwd_dkv")
 
 
 def head_plan(hd: int) -> Tuple[int, int]:
@@ -261,9 +275,19 @@ _ENTRIES = {
 }
 
 
-def _kernel(name: str) -> ctypes.CDLL:
-    lib = _build.load(name)
+def library_name(name: str, dtype: torch.dtype) -> str:
+    """The library (a ``csrc`` source) that holds ``name``'s kernels for
+    ``dtype``: ``name`` itself, or its float16 build ``name_f16``."""
+    return name + "_f16" if dtype == torch.float16 else name
+
+
+def _kernel(name: str, dtype: torch.dtype) -> ctypes.CDLL:
+    """The loaded library of ``name``'s ("flash_fwd", "flash_bwd") kernels
+    for ``dtype``, its entry points typed."""
+    lib = _build.load(library_name(name, dtype))
     for fn, argtypes in _ENTRIES[name].items():
+        if dtype == torch.float16 and fn in _NOT_IN_F16:
+            continue
         f = getattr(lib, fn)
         if f.argtypes is None:
             f.argtypes = argtypes
@@ -305,9 +329,12 @@ def _check_cuda_inputs(q, k, v, name: str) -> None:
         raise ValueError(f"{name}: q, k and v must be on the same device")
     if q.dtype not in _DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
-            f"{name} takes float32 or bfloat16 q/k/v of one dtype, got "
+            f"{name} takes float32, bfloat16 or float16 q/k/v of one dtype, got "
             f"{q.dtype}, {k.dtype}, {v.dtype}"
         )
+    if q.dtype == torch.float16 and name.startswith("nh_"):
+        raise TypeError(f"{name} (the per-head-grid prototype, K5) takes float32 or "
+                        "bfloat16, as its JAX tool does, not float16")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
         raise ValueError(f"{name}: bad shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
@@ -325,10 +352,10 @@ def _check_cuda_inputs(q, k, v, name: str) -> None:
         return  # the wrapper reads a dense, aligned zero-padded copy
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError(f"{name} needs a dense last (head_dim) axis")
-    if q.dtype == torch.bfloat16 and not all(
+    if q.dtype in (torch.bfloat16, torch.float16) and not all(
             x.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in x.stride()[:3])
             for x in (q, k, v)):
-        raise ValueError(f"{name} loads bf16 rows with 16-byte loads: "
+        raise ValueError(f"{name} loads {q.dtype} rows with 16-byte TMA boxes: "
                          "q/k/v rows must start on 16-byte boundaries")
 
 
@@ -360,7 +387,7 @@ def _launch_fwd(fn_name, q, k, v, scale, window, softcap, lse_opts=None):
     _, pad = head_plan(q.shape[3])
     q, k, v = _padded(pad, q, k, v)
     b, t, h, hd = q.shape
-    lib = _kernel("flash_fwd")
+    lib = _kernel("flash_fwd", q.dtype)
     out = torch.empty((b, t, h, hd), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -451,7 +478,7 @@ def _check_prep_inputs(out, do, dlse, dq) -> None:
     if (out.dim() != 4 or do.shape != out.shape or do.dtype != out.dtype
             or do.device != out.device or out.dtype not in _DTYPE_CODES):
         raise ValueError(f"flash_bwd_prep takes out and do of one shape (B, T, H, hd) "
-                         f"and dtype (float32 or bfloat16), got {tuple(out.shape)} "
+                         f"and dtype (float32, bfloat16 or float16), got {tuple(out.shape)} "
                          f"{out.dtype}, {tuple(do.shape)} {do.dtype}")
     b, t, h, hd = out.shape
     try:
@@ -499,7 +526,7 @@ def flash_bwd_prep(out: torch.Tensor, do: torch.Tensor,
         dlse = dlse.float().contiguous()
     out, do = _dense(out), _dense(do)
     delta = torch.empty((b, h, t), dtype=torch.float32, device=out.device)
-    lib = _kernel("flash_bwd")
+    lib = _kernel("flash_bwd", out.dtype)
     with torch.cuda.device(out.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.flash_bwd_prep(
@@ -569,7 +596,9 @@ def _launch_bwd(fn_name, outs, q, k, v, do, lse, delta, scale, window,
     if hd not in NATIVE_HEAD_DIMS:
         raise ValueError(f"{fn_name} takes a kernel instance's width {NATIVE_HEAD_DIMS}, "
                          f"not {hd}: flash_bwd and flash_lse_bwd pad other widths")
-    lib = _kernel("flash_bwd")
+    if q.dtype == torch.float16 and fn_name in _NOT_IN_F16:
+        raise TypeError(f"{fn_name} (K5) has no float16 instance")
+    lib = _kernel("flash_bwd", q.dtype)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = getattr(lib, fn_name)(

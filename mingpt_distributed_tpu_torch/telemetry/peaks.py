@@ -26,7 +26,8 @@ __all__ = [
 # keyed by a substring of torch.cuda.get_device_name(): operations per
 # second by compute dtype, and device-memory bytes per second
 PEAKS: Dict[str, Dict[str, float]] = {
-    "H100": {"bfloat16": 989e12, "float32": 67e12, "hbm_bytes_per_s": 3.35e12},
+    "H100": {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12,
+             "hbm_bytes_per_s": 3.35e12},
 }
 H100_SXM = PEAKS["H100"]
 

@@ -78,6 +78,7 @@ import math
 import os
 import signal
 import threading
+import time
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -349,6 +350,14 @@ def make_eval_step(cfg: GPTConfig, mesh: Optional[Mesh] = None):
         return loss
 
     return eval_step
+
+
+# The profiler keeps only device records whose times, converted from the
+# card's clock, fall inside its window; on an H100 they read 2-5 ms earlier
+# than the host's launch, so a kernel launched within that of the window's
+# opening lost its record (23 flash_fwd events against 24 launches). The
+# window opens this long before the next step starts.
+PROFILE_PAD_S = 0.02
 
 
 class GPTTrainer:
@@ -692,7 +701,9 @@ class GPTTrainer:
         tracer starts one step earlier and records from the window's edge
         (torch.profiler's warmup): a tracer started at the edge drops the
         first device records of the window, more of them after earlier
-        profiler sessions in the process (seen on an H100)."""
+        profiler sessions in the process (seen on an H100). On a card the
+        window opens on an idle device and PROFILE_PAD_S before the next
+        step's first launch (see PROFILE_PAD_S)."""
         cfg = self.config
         if not (cfg.profile_dir and self.is_main):
             return
@@ -706,7 +717,11 @@ class GPTTrainer:
                     wait=0, warmup=1, active=max(1, last - first)))
             self._profiler.__enter__()
         elif step == first and self._profiler is not None:
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
             self._profiler.step()  # warmup -> recording
+            if self.device.type == "cuda":
+                time.sleep(PROFILE_PAD_S)
         elif step == last and self._profiler is not None:
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)

@@ -23,6 +23,7 @@ from mingpt_distributed_tpu_torch.ops import _build
 from mingpt_distributed_tpu_torch.ops import attention as t_attn
 from mingpt_distributed_tpu_torch.ops import flash_attention as t_flash
 from mingpt_distributed_tpu_torch.utils.device import resolve_device
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -225,7 +226,8 @@ WRAPPER_REFUSALS = {
     # with grad enabled: the wrapper builds no graph (FlashAttention does)
     "requires_grad": (lambda: (_bf16().requires_grad_(), _bf16(), _bf16()),
                       RuntimeError),
-    "float16": (lambda: (_bf16().half(), _bf16().half(), _bf16().half()),
+    # float16 has kernels of its own (csrc/flash_*_f16.cu); float64 none
+    "float64": (lambda: (_bf16().double(), _bf16().double(), _bf16().double()),
                 TypeError),
     "mixed_dtypes": (lambda: (_bf16(), _bf16().float(), _bf16()), TypeError),
     "head_dim_4": (lambda: (_bf16((1, 8, 2, 4)),) * 3, ValueError),
@@ -239,6 +241,11 @@ WRAPPER_REFUSALS = {
     "bf16_rows_not_16_byte_aligned": (
         lambda: (torch.zeros(1 * 8 * 2 * 16 + 1, dtype=torch.bfloat16)[1:]
                  .view(1, 8, 2, 16),) * 3, ValueError),
+    "float16_rows_not_16_byte_aligned": (
+        lambda: (torch.zeros(1 * 8 * 2 * 16 + 1, dtype=torch.float16)[1:]
+                 .view(1, 8, 2, 16),) * 3, ValueError),
+    # the per-head-grid prototype (K5) keeps float32 and bfloat16
+    "float16_prototype": (lambda: (_bf16().half(),) * 3, TypeError),
 }
 
 
@@ -246,7 +253,8 @@ WRAPPER_REFUSALS = {
 def test_cuda_wrapper_checks_refuse_what_the_kernel_does_not_take(case):
     make, error = WRAPPER_REFUSALS[case]
     with pytest.raises(error):
-        t_flash._check_cuda_inputs(*make(), "flash_fwd")
+        t_flash._check_cuda_inputs(*make(), "nh_fwd" if case.endswith("prototype")
+                                   else "flash_fwd")
 
 
 @pytest.mark.parametrize("hd", [8, 48, 80, 96, 112, 256])
@@ -258,6 +266,14 @@ def test_cuda_wrapper_checks_accept_every_width_in_the_kernels_range(hd):
     x = _bf16((1, 8, 2, 2 * hd))[..., ::2]
     if hd not in t_flash.NATIVE_HEAD_DIMS:
         t_flash._check_cuda_inputs(x, x, x, "flash_fwd")
+
+
+@pytest.mark.parametrize("hd", [8, 48, 80, 96, 112, 256])
+def test_cuda_wrapper_checks_accept_float16_at_every_width_in_the_kernels_range(hd):
+    # float16 was refused (TypeError) before its instances existed
+    x = torch.zeros((1, 8, 2, hd), dtype=torch.float16)
+    for name in ("flash_fwd", "flash_lse_fwd", "flash_bwd", "flash_lse_bwd"):
+        t_flash._check_cuda_inputs(x, x, x, name)
 
 
 def test_cuda_wrapper_checks_accept_model_shaped_inputs():

@@ -23,6 +23,7 @@ from mingpt_distributed_tpu_torch.config import DataConfig
 from mingpt_distributed_tpu_torch.data import bpe as t_bpe
 from mingpt_distributed_tpu_torch.data import token_dataset as t_td
 from mingpt_distributed_tpu_torch.data.char_dataset import CharDataset
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORPUS = os.path.join(REPO, "data", "input.txt")

@@ -10,6 +10,7 @@ import sys
 from pathlib import Path
 
 import pytest
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -568,7 +569,8 @@ def test_main_runs_the_added_phases_and_reports_their_seconds():
                   "phase_zero_moe", "phase_moe_ep_kernels", "phase_zero_moe_times",
                   "phase_pp", "phase_moe_sp", "phase_moe_sp_kernels", "phase_graftaudit",
                   "phase_families", "phase_trace_summary", "phase_head_widths",
-                  "phase_head_width_times"):
+                  "phase_head_width_times", "phase_float16_sass", "phase_float16_generate",
+                  "phase_float16_train", "phase_float16_kernels", "float16_ptxas"):
         assert phase in called, phase
 
     def keys(name):
@@ -581,10 +583,13 @@ def test_main_runs_the_added_phases_and_reports_their_seconds():
                                        "serve_tp_parity+serve_tp", "serve_cli_tp", "sp_tp",
                                        "sp_tp_times", "serve_moe_tp_parity",
                                        "moe_ep_kernels", "zero_moe_times", "graftaudit",
-                                       "moe_sp_kernels", "families", "trace_summary"}
-    # this slice's seconds: the train steps at GPT-3 2.7B's, GPT-3 Large's
-    # and Gemma 2B's head widths, and the kernels' times at their shapes
-    assert keys("added_seconds") == {"head_widths", "head_width_times"}
+                                       "moe_sp_kernels", "families", "trace_summary",
+                                       "head_widths", "head_width_times"}
+    # this slice's seconds: the float16 phase's parts (the float16
+    # libraries' ptxas and SASS, generation, the train steps, the kernel
+    # checks)
+    assert keys("added_seconds") == {"float16_sass", "float16_generate", "float16_train",
+                                     "float16_kernels"}
     src = inspect.getsource(chip_smoke._main)
     for path in ("fsdp_tp_train_step_rank0", "sp_tp_train_step_rank0", '"serve_tp"',
                  '"serve_tp_follower"', "zero_train_step_rank0", "moe_ep_train_step_rank0",
@@ -592,7 +597,9 @@ def test_main_runs_the_added_phases_and_reports_their_seconds():
                  "pp_train_step_rank0", "pp_1f1b_train_step_rank0",
                  "earlier_seconds.update(pp_seconds)", "moe_sp_train_step_rank0",
                  "earlier_seconds.update(ms_seconds)", "**family_launches",
-                 "head_width_launches.items()"):
+                 "head_width_launches.items()", '"train_step_float16"',
+                 '"train_step_fused_float16"', '"generate_sliding_float16"',
+                 '"sp_ring_float16_rank0"'):
         assert path in src, path
     # serve_tp holds its tokens/s against serve's from the same call, and
     # serve_cli_tp its completions against serve_cli's
@@ -1047,3 +1054,183 @@ def test_profile_window_counts_reads_the_counters_at_the_window_edges(monkeypatc
     assert calls == [s for s in range(1, 6) for _ in range(2)]
     assert sorted(edges) == list(chip_smoke.PROFILE_STEPS)
     assert edges[2] == chip_smoke.read_counts()
+
+
+# ---------------------------------------------------------------------------
+# the float16 phase
+# ---------------------------------------------------------------------------
+
+
+def test_float16_tolerances_are_tighter_than_bf16s():
+    """float16 keeps 3 more mantissa bits than bfloat16: every float16
+    limit of the kernel checks and of the sp attention sits below bf16's."""
+    import torch
+
+    f16, bf16 = torch.float16, torch.bfloat16
+    for table in (chip_smoke.OUT_TOL, chip_smoke.OUT_REL_TOL, chip_smoke.GRAD_TOL_X,
+                  chip_smoke.GRAD_REL_TOL):
+        assert table[f16] < table[bf16]
+    assert chip_smoke.GRAD_TOL_X[f16] == 2.0 ** -9  # two fp16 steps at the largest |g|
+    assert all(a < b for a, b in zip(chip_smoke.SP_ATTN_TOL["float16"],
+                                     chip_smoke.SP_ATTN_TOL["bfloat16"]))
+    assert chip_smoke.PEAK_FLOPS[f16] == chip_smoke.PEAK_FLOPS[bf16] == 989e12
+
+
+def test_float16_cases_are_gpt2s_and_gemma_2bs_attention_shapes():
+    shapes = {c[1:6] for c in chip_smoke.F16_KERNEL_CASES}
+    assert shapes == {(16, 1024, 12, 12, 64), (1, 8192, 8, 1, 256)}
+    lse = chip_smoke.F16_LSE_CASES
+    assert {c[1:6] for c in lse} == shapes
+    for shape in shapes:  # causal with a q offset, and not causal, at each
+        assert {(c[6], c[9] > 0) for c in lse if c[1:6] == shape} == {(True, True),
+                                                                      (False, False)}
+    assert len({c[0] for c in chip_smoke.F16_KERNEL_CASES + lse}) == 6
+
+
+def _f16_entry_instantiations(base):
+    """(template, kLse, kFused) of every 16-bit kernel the C entry points of
+    ``base``.cu launch in its float16 build (the nh_* entry points are left
+    out of it)."""
+    src = (Path(REPO) / f"mingpt_distributed_tpu_torch/ops/csrc/{base}.cu").read_text()
+    src = src[:src.index("#ifndef FLASH_F16")]
+    found = set()
+    for body in re.findall(r'extern "C" int \w+\(.*?\n}\n', src, re.S):
+        for kind, args in re.findall(r"run(?:_(dq|dkv))?<([^>]*)>", body):
+            flags = tuple(a.strip() == "true" for a in args.split(","))
+            found.add((kind or "fwd", *flags))
+    return found
+
+
+def test_float16_sass_expects_every_instantiation_the_f16_entry_points_name():
+    from mingpt_distributed_tpu_torch.ops.flash_attention import NATIVE_HEAD_DIMS
+
+    fwd, bwd = _f16_entry_instantiations("flash_fwd"), _f16_entry_instantiations("flash_bwd")
+    assert fwd == {("fwd", False, False), ("fwd", True, False)}  # K1, K3
+    assert chip_smoke.FWD_F16_KERNELS == len(fwd) * len(NATIVE_HEAD_DIMS)
+    for name, kind in (("flash_dq_f16_kernel", "dq"), ("flash_dkv_f16_kernel", "dkv")):
+        n = sum(1 for k, *_ in bwd if k == kind)
+        assert chip_smoke.BWD_F16_KERNELS[name] == n * len(NATIVE_HEAD_DIMS)
+    assert ("dkv", False, False, True) in bwd  # K2c
+    assert all(not flags[1] for _, *flags in fwd | bwd)  # no natural-base (K5) kernel
+
+
+def _sass_name(kind, hd, *flags):
+    return (f"_ZN12_GLOBAL__N_1{kind}ILi{hd}E" + "".join(f"Lb{f}E" for f in flags)
+            + "EEv14CUtensorMap_st")
+
+
+def _f16_counts(op="HGMMA.64x64x16.F32"):
+    widths = (16, 32, 64, 80, 96, 128, 256)
+    fwd = {_sass_name("flash_fwd_f16_kernel", hd, lse, 0): {op: 4, "UTMALDG.4D": 2}
+           for hd in widths for lse in (0, 1)}
+    bwd = {_sass_name("flash_dq_f16_kernel", hd, lse, 0): {op: 4, "UTMALDG.4D": 2}
+           for hd in widths for lse in (0, 1)}
+    bwd.update({_sass_name("flash_dkv_f16_kernel", hd, lse, 0, fused): {op: 4, "UTMALDG.4D": 2}
+                for hd in widths for lse, fused in ((0, 0), (1, 0), (0, 1))})
+    bwd["_ZN12_GLOBAL__N_121flash_bwd_prep_kernelI6__halfLi8EEEvNS_10PrepParamsE"] = {"FFMA": 8}
+    return fwd, bwd
+
+
+def test_float16_sass_check_wants_fp16_operands_where_bf16_names_bf16():
+    bf16 = {_sass_name("flash_fwd_bf16_kernel", 64, 0, 0): {"HGMMA.64x128x16.F32.BF16": 8}}
+    fwd, bwd = _f16_counts()
+    found, fails, bf16_ops = chip_smoke.f16_sass_check(fwd, bwd, bf16)
+    assert fails == [] and bf16_ops == ["HGMMA.64x128x16.F32.BF16"]
+    assert {k: len(v) for k, v in found.items()} == {
+        "flash_fwd_f16_kernel": 14, "flash_dq_f16_kernel": 14, "flash_dkv_f16_kernel": 21}
+    # bf16 operands in a float16 instance, an mma.sync, a missing instance
+    fwd_bad, bwd_bad = _f16_counts("HGMMA.64x64x16.F32.BF16")
+    _, fails, _ = chip_smoke.f16_sass_check(fwd_bad, bwd_bad, bf16)
+    assert len(fails) == 49
+    fwd, bwd = _f16_counts()
+    bwd[_sass_name("flash_dkv_f16_kernel", 64, 0, 0, 1)] = {"HMMA.16816.F32": 8,
+                                                            "UTMALDG.4D": 2}
+    del fwd[_sass_name("flash_fwd_f16_kernel", 16, 0, 0)]
+    _, fails, _ = chip_smoke.f16_sass_check(fwd, bwd, bf16)
+    assert len(fails) == 2 and any("13 instantiations" in f for f in fails)
+    # the control: bf16's opcodes must name BF16, or the check tells nothing
+    _, fails, _ = chip_smoke.f16_sass_check(*_f16_counts(), {"k": {"HGMMA.64x64x16.F32": 1}})
+    assert len(fails) == 1 and "do not name BF16" in fails[0]
+
+
+def test_sass_opcodes_keep_the_shape_and_type_of_a_warpgroup_product(monkeypatch):
+    from mingpt_distributed_tpu_torch.ops import _build
+
+    sass = ("        Function : _ZN12_GLOBAL__N_120flash_dq_f16_kernelILi64ELb0ELb0EEEv\n"
+            "        /*0a50*/                   HGMMA.64x64x16.F32 R24, gdesc[UR4], R24 ;\n"
+            "        /*0a60*/              @!P0 HGMMA.64x64x16.F32.BF16 R24, gdesc[UR8], R24 ;\n"
+            "        /*0a70*/                   UTMALDG.4D [UR8], [UR4] ;\n")
+    monkeypatch.setattr(_build, "nvcc", lambda: "/x/bin/nvcc")
+    monkeypatch.setattr(chip_smoke.subprocess, "run",
+                        lambda *a, **k: type("R", (), {"stdout": sass})())
+    counts = chip_smoke.sass_opcodes("flash_bwd_f16")
+    assert counts == {"_ZN12_GLOBAL__N_120flash_dq_f16_kernelILi64ELb0ELb0EEEv": {
+        "HGMMA.64x64x16.F32": 1, "HGMMA.64x64x16.F32.BF16": 1, "UTMALDG.4D": 1}}
+
+
+def test_float16_ptxas_pairs_each_instance_with_its_bf16_twin():
+    def row(dt, kind, hd, flags, regs):
+        return {"kernel": _sass_name(f"flash_{kind}_{dt}_kernel", hd, *flags),
+                "registers": regs, "stack": 0, "spill_stores": 0, "spill_loads": 0,
+                "dynamic_smem_bytes": hd * 1000}
+
+    rows = {dt: [row(dt, kind, hd, flags, 168 if dt == "bf16" else 160)
+                 for hd in (64, 256)
+                 for kind, flags in (("fwd", "00"), ("fwd", "10"), ("dq", "00"), ("dq", "10"),
+                                     ("dkv", "000"), ("dkv", "100"), ("dkv", "001"))]
+            for dt in ("bf16", "f16")}
+    recs = chip_smoke.float16_ptxas(rows["bf16"], rows["f16"])
+    assert [(r["kernel"], r["hd"]) for r in recs] == [
+        (k, hd) for hd in (64, 256) for k in ("K1", "K3", "K2a", "K4a", "K2b", "K4b", "K2c")]
+    assert all(r["bf16"]["registers"] == 168 and r["f16"]["registers"] == 160
+               and r["f16"]["dynamic_smem_bytes"] == 1000 * r["hd"] for r in recs)
+    # a float16 instance that ptxas did not list reads None
+    recs = chip_smoke.float16_ptxas(rows["bf16"], rows["f16"][1:])
+    assert recs[0]["f16"]["registers"] is None and recs[1]["f16"]["registers"] == 160
+
+
+def _attention_stats(err):
+    return {name: {"max_abs_err": err, "sum_abs_err": err * 10, "sum_abs_ref": 1000.0,
+                   "max_abs_ref": 2.0, "finite": True} for name in ("out", "dq", "dk", "dv")}
+
+
+@pytest.mark.parametrize("launch_fault", [False, True])
+def test_sp_attention_checks_hold_the_float16_ring(launch_fault):
+    """Ring and Ulysses in fp32, bf16 and fp16 against the dense plain
+    attention; the float16 ring's K3, prep, K4a and K4b launches per rank
+    (3 + (sp - 1) zigzag calls each, forward and backward of one layer)."""
+    per = chip_smoke.SP_K3_PER_LAYER
+    want = chip_smoke.expected(flash_lse_fwd=per, flash_bwd_prep=per, flash_lse_bwd_dq=per,
+                               flash_lse_bwd_dkv=per)
+    errs = {"float32": 1e-6, "bfloat16": 1e-2, "float16": 1.5e-3}
+    ranks = [{"attention": {f"{m}_{dt}": _attention_stats(e) for dt, e in errs.items()
+                            for m in ("ring", "ulysses")},
+              "ring_float16_launches": dict(want)} for _ in range(chip_smoke.SP)]
+    if launch_fault:
+        ranks[2]["ring_float16_launches"]["flash_lse_bwd_dkv"] -= 1
+    recs, fails = chip_smoke.sp_attention_checks(ranks, card="c")
+    assert [r["case"] for r in recs] == [f"{m}_{dt}" for dt in errs for m in ("ring", "ulysses")]
+    ring16 = next(r for r in recs if r["case"] == "ring_float16")
+    assert ring16["launches_want"] == want and len(ring16["launches_per_rank"]) == 4
+    assert ring16["out_tol"] == 2.0 ** -9 * 2.0 and ring16["out_rel_tol"] == 1.5e-3
+    assert len(fails) == (1 if launch_fault else 0)
+    # a float16 error at bf16's size fails the float16 limits
+    ranks[0]["attention"]["ulysses_float16"] = _attention_stats(1e-2)
+    _, fails = chip_smoke.sp_attention_checks(ranks, card="c")
+    assert any("ulysses_float16" in msg for _, msg in fails)
+
+
+def test_kernels_line_lists_the_float16_instances():
+    """The kernels line's float16 entries: the eight kernels the float16
+    libraries hold, each under its counter's name with "_f16", its float16
+    source, its launches on a float16 path and its float16 times."""
+    import inspect
+
+    src = inspect.getsource(chip_smoke._main)
+    body = src[src.index("fwd16_cu, bwd16_cu"):src.index("a kernel never ran on its path")]
+    counters = re.findall(r'\("(flash_\w+)", (fwd16_cu|bwd16_cu)', body)
+    assert [c for c, _ in counters] == ["flash_fwd", "flash_bwd_prep", "flash_bwd_dq",
+                                        "flash_bwd_dkv", "flash_bwd_fused", "flash_lse_fwd",
+                                        "flash_lse_bwd_dq", "flash_lse_bwd_dkv"]
+    assert all((src_ == "fwd16_cu") == ("fwd" in c) for c, src_ in counters)
+    assert '"name": f"{counter}_f16"' in body and 'rows[f"{counter}_f16"]' in body

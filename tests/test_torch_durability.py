@@ -32,6 +32,7 @@ from mingpt_distributed_tpu_torch.training import checkpoint as t_ckpt
 from mingpt_distributed_tpu_torch.training import durability as dur
 from mingpt_distributed_tpu_torch.training import faults
 from mingpt_distributed_tpu_torch.training import trainer as t_trainer
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 NO_WAIT = dur.NO_WAIT
 

@@ -37,6 +37,7 @@ from mingpt_distributed_tpu_torch.training.metrics import (
     SFU_EXPS_PER_CLOCK_PER_SM,
     roofline_ms,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NBLOCKS, ROWS, COLS = 2, 8, 128

@@ -25,6 +25,7 @@ from mingpt_distributed_tpu.models import gpt as j_gpt
 from mingpt_distributed_tpu.training import optimizer as j_opt
 from mingpt_distributed_tpu.training import trainer as j_trainer
 from mingpt_distributed_tpu_torch.tools import exp_families
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CUT = dict(n_layer=2, n_head=4, n_embd=64, block_size=64, vocab_size=256)
 

@@ -35,6 +35,7 @@ import torch
 
 from mingpt_distributed_tpu.ops import flash_attention as j_flash
 from mingpt_distributed_tpu_torch.ops import flash_attention as t_flash
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 # bfloat16: the port's plain version works in float32 from the bf16 inputs

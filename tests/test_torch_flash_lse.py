@@ -25,6 +25,7 @@ import torch
 
 from mingpt_distributed_tpu.ops import flash_attention as j_flash
 from mingpt_distributed_tpu_torch.ops import flash_attention as t_flash
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_TOL = dict(rtol=2e-4, atol=2e-4)

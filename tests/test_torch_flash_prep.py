@@ -6,7 +6,7 @@ delta expressions, on the CPU.
   runs it for CPU tensors) against the JAX package's ``jnp.sum`` of
   out * dO in float32 (``_flash_bwd_btd``, ``flash_attention.py:1101``),
   minus the lse cotangent as ``_flash_bwd`` folds it (``:491-496``), for
-  float32 and bfloat16 inputs. Both sum hd float32 products; the orders
+  float32, bfloat16 and float16 inputs. Both sum hd float32 products; the orders
   may differ, so 1e-6 relative to the row's sum of |out * dO| (hd <= 64
   terms of 2^-24 each).
 * On the CPU the wrapper launches nothing, and zeroes a dq buffer it is
@@ -19,6 +19,7 @@ import pytest
 import torch
 
 from mingpt_distributed_tpu_torch.ops import flash_attention as t_flash
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REL_TOL = 1e-6
 
@@ -42,7 +43,7 @@ def _inputs(b, t, h, hd, seed):
             rng.standard_normal((b, h, t)).astype(np.float32))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("with_dlse", [False, True])
 def test_prep_plain_version_matches_the_jax_delta(dtype, with_dlse):
     out, do, dlse = _inputs(2, 70, 3, 64, seed=51)
@@ -91,7 +92,8 @@ def _t(shape=(1, 8, 2, 16), dtype=torch.float32):
 PREP_REFUSALS = {
     "do_shape": (_t(), _t((1, 8, 2, 32)), None, None, "one shape"),
     "mixed_dtypes": (_t(), _t(dtype=torch.bfloat16), None, None, "dtype"),
-    "float16": (_t(dtype=torch.float16), _t(dtype=torch.float16), None, None, "dtype"),
+    # float16 has kernels of its own (csrc/flash_bwd_f16.cu); float64 none
+    "float64": (_t(dtype=torch.float64), _t(dtype=torch.float64), None, None, "dtype"),
     # outside the kernels' range 8..256
     "head_dim_4": (_t((1, 8, 2, 4)), _t((1, 8, 2, 4)), None, None, "head_dim 4 .*8..256"),
     "head_dim_320": (_t((1, 8, 2, 320)), _t((1, 8, 2, 320)), None, None,
@@ -122,6 +124,13 @@ def test_prep_checks_accept_every_width_in_the_kernels_range(hd):
     # 256 (the others run the next instance up, zero-padded)
     t_flash._check_prep_inputs(_t((1, 8, 2, hd)), _t((1, 8, 2, hd)), torch.zeros(1, 2, 8),
                                None)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_prep_checks_accept_16_bit_inputs_with_and_without_dq(dtype):
+    # float16 was refused before its kernels existed; K2c's dq stays float32
+    t_flash._check_prep_inputs(_t(dtype=dtype), _t(dtype=dtype), torch.zeros(1, 2, 8), None)
+    t_flash._check_prep_inputs(_t(dtype=dtype), _t(dtype=dtype), None, _t())
 
 
 def test_prep_checks_accept_matching_arguments_and_other_devices_raise():

@@ -26,6 +26,7 @@ from mingpt_distributed_tpu_torch.data.char_dataset import CharDataset
 from mingpt_distributed_tpu_torch.models import convert
 from mingpt_distributed_tpu_torch.models import generate as t_gen
 from mingpt_distributed_tpu_torch.ops import flash_attention
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORPUS = os.path.join(REPO, "data", "input.txt")

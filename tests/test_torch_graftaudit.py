@@ -54,6 +54,7 @@ from mingpt_distributed_tpu_torch.telemetry.attribution import (
 from mingpt_distributed_tpu_torch.telemetry.registry import MetricsRegistry
 from mingpt_distributed_tpu_torch.tools import graftaudit
 from mingpt_distributed_tpu_torch.tools import perf_diff
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUDGETS = os.path.join(REPO, "mingpt_distributed_tpu_torch", "analysis",

@@ -25,6 +25,7 @@ from mingpt_distributed_tpu.analysis import Engine as JEngine
 from mingpt_distributed_tpu_torch.analysis import Config, Engine, all_rules
 from mingpt_distributed_tpu_torch.analysis.cli import main as lint_main
 from mingpt_distributed_tpu_torch.analysis.core import Baseline
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "mingpt_distributed_tpu_torch")

@@ -46,6 +46,7 @@ from mingpt_distributed_tpu_torch.models import gpt as t_gpt
 from mingpt_distributed_tpu_torch.ops import flash_attention as t_flash
 from mingpt_distributed_tpu_torch.training import optimizer as t_opt
 from mingpt_distributed_tpu_torch.training import trainer as t_trainer
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FWD_TOL = dict(rtol=1e-5, atol=1e-5)

@@ -15,6 +15,7 @@ import torch
 
 import mingpt_distributed_tpu_torch
 from mingpt_distributed_tpu_torch.utils.device import resolve_device
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "mingpt_distributed_tpu_torch")

@@ -10,6 +10,7 @@ import socket
 import stat
 import subprocess
 import sys
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = os.path.join(REPO, "mingpt_distributed_tpu_torch", "launch", "slurm_run.sh")

@@ -10,6 +10,7 @@ import torch
 
 from mingpt_distributed_tpu.ops import layers as jl
 from mingpt_distributed_tpu_torch.ops import layers as tl
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-6, atol=1e-6)
 

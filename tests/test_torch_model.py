@@ -21,6 +21,7 @@ from mingpt_distributed_tpu.models import gpt as j_gpt
 from mingpt_distributed_tpu_torch.config import GPTConfig as TConfig
 from mingpt_distributed_tpu_torch.models import GPT, convert
 from mingpt_distributed_tpu_torch.models import gpt as t_gpt
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 

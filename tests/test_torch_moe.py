@@ -34,6 +34,7 @@ from mingpt_distributed_tpu_torch.models import gpt
 from mingpt_distributed_tpu_torch.ops import layers as L
 from mingpt_distributed_tpu_torch.ops import moe
 from mingpt_distributed_tpu_torch.serving import InferenceServer, Request
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FWD_TOL = 1e-5
 GRAD_TOL = 2e-4

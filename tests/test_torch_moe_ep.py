@@ -50,6 +50,7 @@ from mingpt_distributed_tpu_torch.ops import moe
 from mingpt_distributed_tpu_torch.parallel.spawn import run_ranks
 from tests import test_trainer as tt
 from tests import torch_sp_workers as W
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 LOSS_TOL = dict(rtol=1e-5, atol=0)

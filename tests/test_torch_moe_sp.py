@@ -50,6 +50,7 @@ from tests import torch_moe_sp_workers as W
 from tests import test_trainer as tt
 from tests.test_torch_moe_ep import _jax_layer, _layer_case, _port_layer
 from tests.test_torch_sharded_train import LR, STEPS, _cfg_kw, _flat, _jax_run
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-5
 LOSS_TOL = dict(rtol=1e-5, atol=0)

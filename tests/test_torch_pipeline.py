@@ -39,6 +39,7 @@ from mingpt_distributed_tpu_torch.parallel import pipeline
 from mingpt_distributed_tpu_torch.parallel.spawn import run_ranks
 from tests import test_trainer as tt
 from tests import torch_pp_workers as W
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 WORLD = 8
 BASE = dict(n_layer=4, n_head=2, n_embd=32, vocab_size=64, block_size=16,

@@ -14,6 +14,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 transformers = pytest.importorskip("transformers")
 

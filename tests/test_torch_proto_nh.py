@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from mingpt_distributed_tpu_torch.tools import proto_nh_kernel as nh
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, T, H, HD, BLOCK = 2, 128, 4, 32, 64

@@ -40,6 +40,7 @@ from mingpt_distributed_tpu_torch.models import generate as gen
 from mingpt_distributed_tpu_torch.serving import InferenceServer, Request
 from mingpt_distributed_tpu_torch.serving import quant as tq
 from mingpt_distributed_tpu_torch.serving.engine import DecodeEngine
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = dict(n_layer=2, n_head=2, n_embd=32, vocab_size=50, block_size=32,
             embd_pdrop=0.0, resid_pdrop=0.0, attn_pdrop=0.0, dtype="float32")

@@ -22,6 +22,7 @@ import torch
 from mingpt_distributed_tpu_torch.ops import attention as t_attn
 from mingpt_distributed_tpu_torch.parallel import distributed, ring_attention
 from tests import torch_sp_parity as P
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CASES = {
     "zigzag_sp4": P.case("ring", 1, 4, seed=1),

@@ -12,6 +12,7 @@ tests, to keep the file's clock.
 import pytest
 
 from tests import torch_sp_parity as P
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CASES = {
     "window1_sp4": P.case("ring", 1, 4, seed=1, window=1),

@@ -52,6 +52,7 @@ from mingpt_distributed_tpu_torch.serving import (
 from mingpt_distributed_tpu_torch.serving import engine as engine_mod
 from mingpt_distributed_tpu_torch.telemetry import SpanTracer
 from mingpt_distributed_tpu_torch.training import checkpoint as ckpt
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = dict(n_layer=2, n_head=2, n_embd=32, vocab_size=50, block_size=32,
             embd_pdrop=0.0, resid_pdrop=0.0, attn_pdrop=0.0, dtype="float32")

@@ -45,6 +45,7 @@ from mingpt_distributed_tpu_torch.training.durability import SnapshotIntegrityEr
 from mingpt_distributed_tpu_torch.training.faults import FaultInjectionFileSystem
 from tests import test_trainer as tt
 from tests import torch_pp_workers as W
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FSDP_TP = dict(dp=1, fsdp=2, tp=2)
 

@@ -50,6 +50,7 @@ from mingpt_distributed_tpu_torch.telemetry import (HBMLedger, parse_prometheus,
                                                     per_device_tree_bytes,
                                                     render_prometheus, tree_bytes)
 from tests import torch_sp_workers as W
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TINY = dict(n_layer=2, n_head=2, n_embd=32, vocab_size=50, block_size=32,

@@ -34,6 +34,7 @@ from mingpt_distributed_tpu.config import MeshConfig as JMeshConfig
 from mingpt_distributed_tpu_torch.parallel.spawn import run_ranks
 from tests import test_trainer as tt
 from tests import torch_sp_workers as W
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 STEPS = 4
 LR = 1e-2

@@ -32,6 +32,7 @@ from mingpt_distributed_tpu_torch.parallel.spawn import run_ranks
 from tests import test_trainer as tt
 from tests import torch_sp_workers as W
 from tests.test_torch_sharded_train import LR, STEPS, _cfg_kw, _flat, _jax_run
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 LOSS_TOL = dict(rtol=1e-5, atol=0)

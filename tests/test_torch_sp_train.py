@@ -34,6 +34,7 @@ from mingpt_distributed_tpu_torch.training import trainer as t_trainer
 from mingpt_distributed_tpu_torch.training.optimizer import make_optimizer
 from tests import test_trainer as tt
 from tests import torch_sp_workers as W
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=2e-4, atol=2e-4)
 STEPS = 6

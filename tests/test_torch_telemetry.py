@@ -28,6 +28,7 @@ from mingpt_distributed_tpu_torch.telemetry import (
     parse_prometheus,
     render_prometheus,
 )
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # ---------------------------------------------------------------------------
 # RateWindow edge cases
@@ -600,7 +601,8 @@ def test_peak_table_is_the_h100s_and_finite():
     from mingpt_distributed_tpu_torch.telemetry import peaks
 
     assert set(peaks.PEAKS) == {"H100"}
-    assert peaks.H100_SXM == {"bfloat16": 989e12, "float32": 67e12,
+    # float16's dense rate is bfloat16's (the data sheet's 989 TFLOP/s)
+    assert peaks.H100_SXM == {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12,
                               "hbm_bytes_per_s": 3.35e12}
     assert peaks.peak_flops("NVIDIA H100 80GB HBM3", "bfloat16") == 989e12
     assert peaks.peak_flops("NVIDIA A100-SXM4-80GB", "bfloat16") is None

@@ -30,6 +30,7 @@ from mingpt_distributed_tpu_torch.models import gpt
 from mingpt_distributed_tpu_torch.serving import InferenceServer, Request
 from mingpt_distributed_tpu_torch.telemetry import SpanTracer, TraceRecorder, trace_sink
 from mingpt_distributed_tpu_torch.tools import trace_summary
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -63,6 +63,7 @@ from mingpt_distributed_tpu_torch.training import checkpoint as t_ckpt
 from mingpt_distributed_tpu_torch.training import metrics as t_metrics
 from mingpt_distributed_tpu_torch.training import optimizer as t_opt
 from mingpt_distributed_tpu_torch.training import trainer as t_trainer
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(n_layer=2, n_head=4, n_embd=64, vocab_size=96, block_size=32,

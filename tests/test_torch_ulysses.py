@@ -14,6 +14,7 @@ import torch
 from mingpt_distributed_tpu_torch.ops import attention as t_attn
 from mingpt_distributed_tpu_torch.parallel import ulysses
 from tests import torch_sp_parity as P
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 CASES = {
     "dp2_sp2": P.case("ulysses", 2, 2, seed=0),

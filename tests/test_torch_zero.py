@@ -52,6 +52,7 @@ from mingpt_distributed_tpu_torch.training.durability import NO_WAIT
 from mingpt_distributed_tpu_torch.training.faults import FaultInjectionFileSystem
 from tests import test_trainer as tt
 from tests import torch_sp_workers as W
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 STEPS = 4
 LR = 1e-2
